@@ -22,6 +22,22 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    small input (B=96, 12 outputs over [0, 5]) the three agree.
 6. Time each kernel and its plain version with CUDA events (median of 5
    after a warm-up) and print them beside the card's name and power limit.
+7. K3 `mlp_adjoint_solve` against its plain version at the bench protocol,
+   with the cotangent of bench.py's MSE training loss (bench.py:800-807):
+   float64 (identical stats, gradients within 1e-9 relative) and float32
+   (within 1e-3 relative; whether bitwise equal is printed), run to run
+   bitwise; K3 and plain timed per sweep.
+8. Three SGD steps (lr 1e-3) of the spiral at the bench protocol through
+   `fast.odeint_adjoint_mlp` (bench.py:810-817). Counters zeroed before,
+   read after: K2 and K3 must each have run 3 times; forward status 0,
+   finite gradients (a failed backward sweep returns NaN gradients), the
+   weights move. At B=96 the fused gradients agree with the port's
+   generic `odeint_adjoint` within 1e-3 relative.
+9. Three Adam steps (lr 0.01) of the latent ODE with `--fused` decoding at
+   the example's defaults (1000 spirals, 100 of 500 samples, latent 4,
+   hidden 20, rnn hidden 25, rtol 1e-4 / atol 1e-6), parameters drawn
+   with numpy in the flax layout and carried over by `convert`. K2 = K3 = 3
+   launches, finite losses and gradients.
 
 The last two lines of standard output are one JSON object with each
 kernel's record and, last, {"ok": true, "device": {...}}.
@@ -38,6 +54,7 @@ import sys
 import numpy as np
 
 B, H, D, T_OUT, SPAN, TOL, FIRST_STEP = 4096, 50, 2, 64, 25.0, 1e-6, 0.01
+TRAIN_STEPS, SGD_LR = 3, 1e-3
 
 
 def _bench_params(B, dtype, device):
@@ -50,6 +67,33 @@ def _bench_params(B, dtype, device):
     y0 = np.random.RandomState(1).randn(B, D) * 1.5
     as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)
     return {k: as_t(v) for k, v in p.items()}, as_t(y0), p
+
+
+def _bench_target(dtype, device):
+    """bench.py:803-804: the MSE target of the training protocol."""
+    import torch
+    return torch.tensor(np.random.RandomState(2).randn(T_OUT, B, D) * 0.5,
+                        dtype=dtype, device=device)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| relative to max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _host_ms(fn, reps=3):
+    """Median host milliseconds of `reps` calls that each end in a
+    synchronise."""
+    import time
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
 
 
 def _timed(fn, reps=5, inner=1):
@@ -86,8 +130,11 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tfdiffeq_tpu_torch import convert, fast, solve
-    from tfdiffeq_tpu_torch.ops import _build, cuda_kernels as ck
+    from tfdiffeq_tpu_torch import NFEMeter, convert, fast, odeint_adjoint, \
+        solve
+    from tfdiffeq_tpu_torch.examples import latent_ode as lode
+    from tfdiffeq_tpu_torch.ops import _build, cuda_adjoint as ca, \
+        cuda_kernels as ck
 
     # [2] build.
     _build.library()
@@ -219,6 +266,164 @@ def main() -> int:
           f"{whole.stats.n_accepted + whole.stats.n_rejected} attempts)",
           flush=True)
 
+    # [7] K3 against its plain version at the bench protocol.
+    k3_err, k3_args = {}, {}
+    for dtype in (f64, f32):
+        p, y, _ = _bench_params(B, dtype, dev)
+        W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+        t = torch.linspace(0.0, SPAN, T_OUT, dtype=dtype)
+        ys = fast.solve_mlp_spec(spec, W, y, t, rtol=TOL, atol=TOL).ys
+        target = _bench_target(dtype, dev)
+        g = 2.0 * (ys - target) / target.numel()
+        warr, dims = ck.pack_mlp_weights(W, dtype, dev)
+        args = (warr, dims, ys.contiguous(), g.contiguous(), t,
+                0.1 * abs(float(t[-1] - t[-2])), TOL, TOL, 1.0)
+        kw = dict(activation="tanh", input_power=3)
+        k3_args[dtype] = (args, kw)
+        got = ca.mlp_adjoint_solve(*args, **kw)
+        again = ca.mlp_adjoint_solve(*args, **kw)
+        ref = ca.mlp_adjoint_solve_plain(*args, **kw)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        rels = [_rel(a, b) for a, b in zip(got[:3], ref[:3])]
+        print(f"[7] K3 {dtype}: kernel stats {got[3].tolist()}, plain "
+              f"{ref[3].tolist()}; max relative |kernel - plain| ay0 "
+              f"{rels[0]:.3e} aw {rels[1]:.3e} at {rels[2]:.3e}; kernel "
+              f"bitwise equal to plain: {same}; two kernel runs bitwise "
+              f"equal: {bitwise}", flush=True)
+        if not bitwise:
+            raise AssertionError("K3 is not deterministic from run to run")
+        if got[3][3].item() != 0 or not all(
+                torch.isfinite(x).all() for x in got[:3]):
+            raise AssertionError(f"K3 {dtype} failed: {got[3].tolist()}")
+        if dtype == f64:
+            if got[3].tolist() != ref[3].tolist() or max(rels) > 1e-9:
+                raise AssertionError("K3 float64 differs from its plain "
+                                     "version (needs identical stats, "
+                                     "gradients within 1e-9 relative)")
+        elif max(rels) > 1e-3:
+            raise AssertionError("K3 float32 differs from its plain "
+                                 "version by more than 1e-3 relative")
+        k3_err[dtype] = max(float((a - b).abs().max())
+                            for a, b in zip(got[:3], ref[:3]))
+    args, kw = k3_args[f32]
+    adj_ms = _timed(lambda: ca.mlp_adjoint_solve(*args, **kw))
+    adj_plain_ms = _timed(lambda: ca.mlp_adjoint_solve_plain(*args, **kw),
+                          reps=2)
+    bst = ca.mlp_adjoint_solve(*args, **kw)[3].tolist()
+    print(f"[7] {smi}: K3 mlp_adjoint_solve {adj_ms:.3f} ms/sweep vs plain "
+          f"{adj_plain_ms:.3f} ms (bench protocol, float32, "
+          f"{bst[1] + bst[2]} attempts, nfe {bst[0]})", flush=True)
+
+    # [8] spiral training at the bench protocol: SGD through the fused path.
+    p, y, _ = _bench_params(B, f32, dev)
+    W = [(p["w1"].clone().requires_grad_(), p["b1"].clone().requires_grad_()),
+         (p["w2"].clone().requires_grad_(), p["b2"].clone().requires_grad_())]
+    W0 = [x.detach().clone() for pair in W for x in pair]
+    t = torch.linspace(0.0, SPAN, T_OUT)
+    target = _bench_target(f32, dev)
+    meter = NFEMeter()
+
+    def sgd_step():
+        ys, st = fast.odeint_adjoint_mlp(spec, W, y, t, rtol=TOL, atol=TOL,
+                                         nfe_meter=meter, return_stats=True)
+        loss = torch.mean((ys - target) ** 2)
+        loss.backward()
+        with torch.no_grad():
+            for x in (x for pair in W for x in pair):
+                if not torch.isfinite(x.grad).all():
+                    raise AssertionError("non-finite spiral gradient (a "
+                                         "failed backward sweep)")
+                x -= SGD_LR * x.grad
+                x.grad = None
+        if st.status != 0:
+            raise AssertionError(f"spiral forward failed: {st}")
+        return float(loss.detach())
+
+    ck.reset_launch_counts()
+    ca.reset_launch_counts()
+    sgd_ms, sgd_all = _host_ms(sgd_step, reps=TRAIN_STEPS)
+    train_launches = {"mlp_solve": ck.mlp_solve_launches,
+                      "mlp_adjoint_solve": ca.mlp_adjoint_solve_launches}
+    moved = max(float((x.detach() - x0).abs().max())
+                for x, x0 in zip((x for pair in W for x in pair), W0))
+    print(f"[8] spiral SGD x{TRAIN_STEPS}: launches {train_launches}; "
+          f"NFE forward {meter.f_nfe}, backward {meter.b_nfe}; max weight "
+          f"change {moved:.3e}", flush=True)
+    print(f"[8] {smi}: spiral training step (K2 + K3, bench protocol, "
+          f"float32) {sgd_ms:.3f} ms median of {TRAIN_STEPS} "
+          f"({', '.join(f'{x:.3f}' for x in sgd_all)})", flush=True)
+    if train_launches != {"mlp_solve": TRAIN_STEPS,
+                          "mlp_adjoint_solve": TRAIN_STEPS}:
+        raise AssertionError(f"training launches {train_launches}")
+    if not moved > 0.0:
+        raise AssertionError("SGD left the weights unchanged")
+    # Fused against the generic adjoint on a small input.
+    ps, ys_, _ = _bench_params(96, f32, dev)
+    ts = torch.linspace(0.0, 5.0, 12)
+    tgt = torch.tensor(np.random.RandomState(2).randn(12, 96, D) * 0.5,
+                       dtype=f32, device=dev)
+    grads = []
+    for fused in (True, False):
+        Ws = [(ps["w1"].clone().requires_grad_(),
+               ps["b1"].clone().requires_grad_()),
+              (ps["w2"].clone().requires_grad_(),
+               ps["b2"].clone().requires_grad_())]
+        if fused:
+            out = fast.odeint_adjoint_mlp(spec, Ws, ys_, ts, rtol=TOL,
+                                          atol=TOL)
+        else:
+            out = odeint_adjoint(lambda tt, yy, w: fast.mlp_apply(spec, w,
+                                                                 yy),
+                                 ys_, ts, params=Ws, rtol=TOL, atol=TOL)
+        torch.mean((out - tgt) ** 2).backward()
+        grads.append([x.grad for pair in Ws for x in pair])
+    gap = max(_rel(a, b) for a, b in zip(*grads))
+    print(f"[8] B=96: fused and generic adjoint gradients agree to {gap:.3e}"
+          " relative (bar 1e-3)", flush=True)
+    if gap > 1e-3:
+        raise AssertionError("fused and generic adjoint gradients differ")
+
+    # [9] latent-ODE training with --fused decoding at the defaults.
+    largs = lode.parse_args(["--fused"])
+    _, samp, _, samp_ts = lode.generate_spirals(
+        nspiral=largs.nspiral, ntotal=largs.ntimes, nsample=largs.nsample,
+        noise_std=largs.noise_std, seed=largs.seed)
+    xs = torch.tensor(samp, dtype=f32, device=dev)
+    samp_ts = torch.tensor(samp_ts, dtype=f32)
+    rec, dyn, dec = convert.latent_ode_from_flax(
+        lode.flax_layout_params(largs, seed=0), device=dev, dtype=f32)
+    opt = torch.optim.Adam([q for m in (rec, dyn, dec)
+                            for q in m.parameters()], lr=largs.lr)
+    train_step, _ = lode.make_train_step(largs, rec, dyn, dec, opt, samp_ts)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = []
+
+    def adam_step():
+        losses.append(float(train_step(xs, gen)))
+        for m in (rec, dyn, dec):
+            for q in m.parameters():
+                if not torch.isfinite(q).all():
+                    raise AssertionError("non-finite latent-ODE parameter")
+
+    ck.reset_launch_counts()
+    ca.reset_launch_counts()
+    lat_ms, lat_all = _host_ms(adam_step, reps=TRAIN_STEPS)
+    lat_launches = {"mlp_solve": ck.mlp_solve_launches,
+                    "mlp_adjoint_solve": ca.mlp_adjoint_solve_launches}
+    print(f"[9] latent ODE Adam x{TRAIN_STEPS} (--fused, {largs.nspiral} "
+          f"spirals x {largs.nsample} samples): launches {lat_launches}; "
+          f"-ELBO {', '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"[9] {smi}: latent-ODE training step {lat_ms:.3f} ms median of "
+          f"{TRAIN_STEPS} ({', '.join(f'{x:.3f}' for x in lat_all)})",
+          flush=True)
+    if lat_launches != {"mlp_solve": TRAIN_STEPS,
+                        "mlp_adjoint_solve": TRAIN_STEPS}:
+        raise AssertionError(f"latent-ODE launches {lat_launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"latent-ODE losses {losses}")
+
     kernels = [
         {"name": "dopri5_mlp_step", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/step_kernel.cu",
@@ -232,6 +437,12 @@ def main() -> int:
          "launches": launches["mlp_solve"],
          "max_abs_err": k2_err[f32], "ms": solve_ms,
          "plain_ms": solve_plain_ms},
+        {"name": "mlp_adjoint_solve", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/adjoint_kernel.cu",
+         "replaces": "tfdiffeq_tpu/ops/pallas_adjoint.py:430",
+         "launches": train_launches["mlp_adjoint_solve"],
+         "max_abs_err": k3_err[f32], "ms": adj_ms,
+         "plain_ms": adj_plain_ms},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

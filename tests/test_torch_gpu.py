@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version, and the launch counters of the slice.
+version, and the launch counters of the slices (the forward solve, and the
+training step of `fast.odeint_adjoint_mlp`).
 
 Marked `gpu`; the `cuda` fixture skips every test where
 torch.cuda.is_available() is false (it decides when a test runs, never at
@@ -10,10 +11,12 @@ package's conftest:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 
 Tolerances: the plain versions repeat each kernel's arithmetic in the same
-order (the kernels are built with --fmad=false and sum their errors in a
-fixed tree the plain versions follow), so float64 results agree to 1e-12
-and whole solves take identical step sequences. Float32 whole solves are
-held to the reference's float32 budget (rtol 1e-3, atol 2e-4).
+order (the kernels are built with --fmad=false and sum their errors, and
+K3 its batch sums, in a fixed order the plain versions follow), so float64
+results agree to 1e-12 and whole solves and sweeps take identical step
+sequences. Float32 whole solves are held to the reference's float32 budget
+(rtol 1e-3, atol 2e-4); float32 sweeps to 1e-3 relative to each output's
+largest entry (tests/test_fused_adjoint.py's bar).
 """
 
 import numpy as np
@@ -21,7 +24,7 @@ import pytest
 import torch
 
 from tfdiffeq_tpu_torch import fast
-from tfdiffeq_tpu_torch.ops import cuda_kernels as ck
+from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, cuda_kernels as ck
 
 pytestmark = pytest.mark.gpu
 
@@ -32,6 +35,7 @@ def cuda():
         pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is "
                     "false")
     ck.reset_launch_counts()
+    ca.reset_launch_counts()
     return torch.device("cuda")
 
 
@@ -168,3 +172,114 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         ck.mlp_solve(warr, dims, y, torch.linspace(0.0, 1.0, 3), 0.1, 1e-6,
                      1e-6, 1.0, f0=torch.zeros_like(y))
     assert ck.mlp_solve_launches == ck.dopri5_mlp_step_launches == 0
+
+
+def _adjoint_case(device, dtype, B=300, T=6, time_input=False, seed=5):
+    """A 2 -> 16 -> 16 -> 2 ELU MLP, its forward trajectory and random
+    cotangents, packed for K3."""
+    rng = np.random.RandomState(seed)
+    dims = [(2 + int(time_input), 16), (16, 16), (16, 2)]
+    weights = [(torch.tensor(rng.randn(i, o) * 0.5 / np.sqrt(i), dtype=dtype,
+                             device=device),
+                torch.tensor(rng.randn(o) * 0.1, dtype=dtype, device=device))
+               for i, o in dims]
+    spec = fast.MLPSpec(activation="elu", time_input=time_input)
+    y0 = torch.tensor(rng.randn(B, 2), dtype=dtype, device=device)
+    t = torch.linspace(0.0, 2.0, T, dtype=dtype)
+    ys = fast.solve_mlp_spec(spec, weights, y0, t, rtol=1e-7,
+                             atol=1e-9).ys
+    g = torch.tensor(rng.randn(T, B, 2), dtype=dtype, device=device)
+    warr, pdims = ck.pack_mlp_weights(weights, dtype, device)
+    return warr, pdims, ys.contiguous(), g, t
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("method",
+                         ["dopri5", "bosh3", "adaptive_heun", "tsit5",
+                          "dopri8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_adjoint_kernel_matches_plain(cuda, dtype, method):
+    """K3 against its plain version for every tableau, with the time
+    column (a_t quadrature); seminorm off in float64, on in float32."""
+    warr, dims, ys, g, t = _adjoint_case(cuda, dtype, time_input=True)
+    kw = dict(activation="elu", time_input=True, method=method,
+              seminorm=dtype == torch.float32)
+    args = (warr, dims, ys, g, t, 0.05, 1e-6, 1e-8, 1.0)
+    got = ca.mlp_adjoint_solve(*args, **kw)
+    ref = ca.mlp_adjoint_solve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[3][3].item() == 0 and ref[3][3].item() == 0
+    if dtype == torch.float64:
+        assert got[3].tolist() == ref[3].tolist()
+        for a, b in zip(got[:3], ref[:3]):
+            assert _rel(a, b) < 1e-12
+    else:
+        for a, b in zip(got[:3], ref[:3]):
+            assert _rel(a, b) < 1e-3
+    assert ca.mlp_adjoint_solve_launches == 1
+
+
+@pytest.mark.parametrize("seminorm", [False, True])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_adjoint_kernel_bench_mlp_matches_plain(cuda, seminorm, sign):
+    """The spiral's tanh MLP on y**3 (no time column), both directions,
+    float64 step-exact, and bitwise equal from run to run."""
+    p, y = _bench(300, torch.float64, cuda)
+    W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+    warr, dims = ck.pack_mlp_weights(W, torch.float64, cuda)
+    rng = np.random.RandomState(3)
+    ys = torch.tensor(rng.randn(5, 300, 2), device=cuda)
+    g = torch.tensor(rng.randn(5, 300, 2), device=cuda)
+    t = torch.linspace(0.0, 2.0, 5, dtype=torch.float64)
+    args = (warr, dims, ys, g, t, 0.05, 1e-6, 1e-6, sign)
+    kw = dict(activation="tanh", input_power=3, seminorm=seminorm)
+    got = ca.mlp_adjoint_solve(*args, **kw)
+    again = ca.mlp_adjoint_solve(*args, **kw)
+    ref = ca.mlp_adjoint_solve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[3].tolist() == ref[3].tolist() and got[3][3].item() == 0
+    for a, b, c in zip(got, again, ref):
+        assert torch.equal(a, b)                       # run to run
+        if a.is_floating_point():
+            assert _rel(a, c) < 1e-12
+    assert ca.mlp_adjoint_solve_launches == 2
+
+
+def test_adjoint_kernel_raises_past_shared_memory(cuda):
+    """A network whose stage cotangents do not fit in shared memory
+    raises; nothing falls back to the plain version."""
+    W = [(torch.zeros(2, 128), None), (torch.zeros(128, 128), None),
+         (torch.zeros(128, 2), None)]
+    warr, dims = ck.pack_mlp_weights(W, torch.float64, cuda)
+    ys = torch.zeros(3, 64, 2, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ca.mlp_adjoint_solve(warr, dims, ys, ys, torch.linspace(0, 1, 3),
+                             0.1, 1e-6, 1e-6, 1.0)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ca.mlp_adjoint_solve(warr.half(), dims, ys.half(), ys.half(),
+                             torch.linspace(0, 1, 3), 0.1, 1e-6, 1e-6, 1.0)
+    assert ca.mlp_adjoint_solve_launches == 0
+
+
+def test_training_step_launches_each_kernel_once(cuda):
+    """One fused training step = one K2 launch forward, one K3 launch
+    backward; the gradients are finite and the sweep ends with status 0."""
+    from tfdiffeq_tpu_torch import NFEMeter
+    p, y = _bench(512, torch.float32, cuda)
+    W = [(p["w1"].requires_grad_(), p["b1"].requires_grad_()),
+         (p["w2"].requires_grad_(), p["b2"].requires_grad_())]
+    t = torch.linspace(0.0, 5.0, 12)
+    meter = NFEMeter()
+    spec = fast.MLPSpec(activation="tanh", input_power=3)
+    for step in range(2):
+        ys = fast.odeint_adjoint_mlp(spec, W, y, t, rtol=1e-6, atol=1e-6,
+                                     nfe_meter=meter)
+        torch.mean(ys ** 2).backward()
+        assert ck.mlp_solve_launches == step + 1
+        assert ca.mlp_adjoint_solve_launches == step + 1
+    assert meter.f_calls == meter.b_calls == 2 and meter.b_nfe > 0
+    for w, b in W:
+        assert torch.isfinite(w.grad).all() and torch.isfinite(b.grad).all()

@@ -195,5 +195,24 @@ def test_wrappers_refuse_bad_inputs():
 def test_build_sources_cover_csrc():
     names = {p.name for p in _build.CSRC.iterdir()}
     assert names == set(_build.SOURCES + _build.HEADERS)
+    assert "adjoint_kernel.cu" in _build.SOURCES
     assert len(_build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_first_step_reaches_the_solve_in_its_dtype():
+    """A Python-float first step enters a float64 solve as float64. It
+    once passed through float32 on the way (0.02 became 0.0200000004),
+    which moved every step of a float64 solve or sweep off the
+    reference's."""
+    tau = torch.linspace(0.0, 1.0, 3, dtype=F64)
+    assert PK._solve_setup(tau, 0.02, F64)[2].item() == 0.02
+    p = {k: _tt(v) for k, v in _params().items()}
+    warr, dims = PK.pack_mlp_weights([(p["w1"], p["b1"]),
+                                      (p["w2"], p["b2"])], F64)
+    y0 = _tt(np.random.RandomState(3).randn(20, 2))
+    kw = dict(activation="tanh", input_power=3)
+    a = PK.mlp_solve(warr, dims, y0, tau, 0.02, 1e-8, 1e-10, 1.0, **kw)
+    b = PK.mlp_solve(warr, dims, y0, tau, torch.tensor(0.02, dtype=F64),
+                     1e-8, 1e-10, 1.0, **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

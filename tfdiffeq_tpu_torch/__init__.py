@@ -5,18 +5,24 @@ keeps the name of its counterpart there, and the tests hold the two to the
 same numbers. This package imports `torch` and never `jax`.
 
 Public surface: `odeint` and `solve` over the adaptive RK methods in
-`SOLVERS`, with `SolveResult`, `SolverStats` and `Status`. The fused tier
-(`tfdiffeq_tpu_torch.fast`) runs a whole MLP neural-ODE solve as one
+`SOLVERS`, with `SolveResult`, `SolverStats` and `Status`; `odeint_adjoint`
+for O(1)-memory gradients, with `NFEMeter` counting forward and backward
+evaluations. The fused tier (`tfdiffeq_tpu_torch.fast`) runs a whole MLP
+neural-ODE solve, and a whole adjoint backward sweep, each as one
 hand-written CUDA kernel on an NVIDIA Hopper card.
 """
 
+from .adjoint import odeint_adjoint
 from .odeint import SOLVERS, odeint, register_solver, solve
 from .solvers.base import SolveResult, SolverStats, Status
+from .utils.nfe import NFEMeter
 
 __version__ = "0.1.0"
 
 __all__ = [
     "odeint",
+    "odeint_adjoint",
+    "NFEMeter",
     "register_solver",
     "solve",
     "SOLVERS",

@@ -1,0 +1,287 @@
+"""O(1)-memory gradients via the continuous adjoint ODE.
+
+Counterpart of `tfdiffeq_tpu/adjoint.py` (`odeint_adjoint`) for adaptive
+forward and adjoint methods in the 'resets' mode: a `torch.autograd.Function`
+whose forward solves without a tape and whose backward integrates the
+augmented system (y, a_y, a_params, a_t) backward over each observation
+interval with the generic engine, resetting y to the stored forward state
+and injecting the output cotangent at every observation time. The
+augmented right-hand side takes the dynamics' VJP with
+`torch.autograd.grad` under `torch.enable_grad()`. Time gradients follow
+the reference: each observation time gets <f(t_i, y_i), g_i>, t_0 the
+integrated a_t.
+
+Parameters: `func(t, y, params)` with an explicit `params` nest of tensors
+(the reference's signature), or an `nn.Module` `func(t, y)` whose
+parameters that require grad are the adjoint parameters (torchdiffeq's
+idiom), or a plain `func(t, y)` without parameters.
+
+Not ported yet (NotImplementedError naming the ROADMAP queue 1 item):
+`adjoint_mode='interpolated'` (needs `dense_output`, item 3), fixed-grid
+forward methods (item 4) and adjoint methods (item 5, the fixed-grid
+backward walk), and `options={'fuse': True}` (item 16).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from .odeint import _CUSTOM_ALLOWED, _NOT_PORTED_METHODS, SOLVERS, solve
+from .ops.norms import rms_norm
+from .ops.pytree import flatten_state, tree_leaves, tree_unflatten
+from .solvers.base import ADAPTIVE_OPTIONS, SolverStats, Status
+from .utils.nfe import emit_bwd, emit_fwd
+
+Tensor = torch.Tensor
+
+_FIXED = ("euler", "midpoint", "rk4", "rk4_38")
+
+
+def _check_methods(method, adjoint_method, options: dict) -> None:
+    if method in _FIXED:
+        raise NotImplementedError(
+            f"odeint_adjoint with the fixed-grid forward method {method!r} "
+            "is not ported yet: ROADMAP.md queue 1 item 4 "
+            "(solvers/fixed_grid.py)")
+    if adjoint_method in _FIXED:
+        raise NotImplementedError(
+            f"odeint_adjoint with the fixed-grid adjoint method "
+            f"{adjoint_method!r} is not ported yet: ROADMAP.md queue 1 "
+            "item 5 (the fixed-grid backward walk)")
+    for m in (method, adjoint_method):
+        if m in _NOT_PORTED_METHODS:
+            raise NotImplementedError(
+                f"method {m!r} is not ported to PyTorch yet: ROADMAP.md "
+                f"{_NOT_PORTED_METHODS[m]}")
+    if options.get("fuse"):
+        raise NotImplementedError(
+            "odeint_adjoint(options={'fuse': True}) is not ported yet: "
+            "ROADMAP.md queue 1 item 16 (fusion of arbitrary dynamics)")
+
+
+class _Adjoint(torch.autograd.Function):
+    """ys = odeint(func, y0, t) with adjoint gradients wrt y0, t and the
+    parameter leaves. `cfg` carries the callables and options, and
+    receives the forward stats."""
+
+    @staticmethod
+    def forward(ctx, cfg, y0, t, *leaves):
+        if cfg["forward_solver"] is not None:
+            ys, stats = cfg["forward_solver"](y0, t,
+                                              cfg["params_of"](leaves))
+            stats = SolverStats(*[int(s) for s in stats])
+        else:
+            res = solve(lambda tt, yy: cfg["call"](tt, yy, leaves), y0, t,
+                        rtol=cfg["rtol"], atol=cfg["atol"],
+                        method=cfg["method"], options=cfg["fwd_options"])
+            ys, stats = res.ys, res.stats
+        emit_fwd(cfg["nfe_meter"], stats.nfe, stats.n_accepted)
+        if stats.status != 0:
+            raise RuntimeError(
+                f"odeint_adjoint forward solve failed with status "
+                f"{Status(stats.status).name}; raise "
+                "options['max_num_steps'] or loosen tolerances")
+        cfg["stats"] = stats
+        ctx.cfg = cfg
+        ctx.save_for_backward(ys, t, *leaves)
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        ys, t, *leaves = ctx.saved_tensors
+        T = t.shape[0]
+        if T < 2:
+            return (None, g[0], torch.zeros_like(t),
+                    *[torch.zeros_like(p) for p in leaves])
+        shape = ys.shape[1:]
+        ys_flat = ys.reshape(T, -1)
+        g_flat = g.reshape(T, -1)
+        ydtype, dev = ys_flat.dtype, ys_flat.device
+        call, grad_targets = cfg["call"], cfg["grad_targets"]
+
+        def f_flat(tt, y_flat, ls):
+            return call(tt, y_flat.reshape(shape), ls).reshape(-1).to(ydtype)
+
+        def aug_dynamics(s, aug):
+            y, a_y, _, _ = aug
+            with torch.enable_grad():
+                y_ = y.detach().requires_grad_(True)
+                s_ = s.detach().requires_grad_(True)
+                ls = grad_targets(leaves)
+                dy = f_flat(s_, y_, ls)
+                vjp = torch.autograd.grad(dy, [y_, s_, *ls], grad_outputs=a_y,
+                                          allow_unused=True)
+            v_y, v_t, *v_p = [v if v is not None else torch.zeros_like(x)
+                              for v, x in zip(vjp, [y_, s_, *ls])]
+            return (dy.detach(), -v_y, tuple(-v for v in v_p), -v_t)
+
+        a_y = g_flat[-1]
+        a_p = tuple(torch.zeros_like(p) for p in leaves)
+        a_t0 = torch.zeros((), dtype=t.dtype, device=dev)
+        t_d = t.detach()
+        rev_t_bars = []
+        b_nfe = b_acc = 0
+        failed = False
+        for i in range(T - 1, 0, -1):
+            # d loss / d t_i = <f(t_i, y_i), g_i>.
+            f_i = f_flat(t_d[i].to(dev), ys_flat[i], leaves)
+            t_bar = torch.dot(f_i, g_flat[i]).to(t.dtype)
+            a_t0 = a_t0 - t_bar
+            res = solve(aug_dynamics, (ys_flat[i], a_y, a_p, a_t0),
+                        torch.stack([t_d[i], t_d[i - 1]]),
+                        rtol=cfg["adjoint_rtol"], atol=cfg["adjoint_atol"],
+                        method=cfg["adjoint_method"],
+                        options=cfg["bwd_options"])
+            _, a_y, a_p, a_t0 = (x[-1] if isinstance(x, Tensor)
+                                 else tuple(l[-1] for l in x)
+                                 for x in res.ys)
+            a_y = a_y + g_flat[i - 1]
+            b_nfe += res.stats.nfe + 1               # +1: the t_bar eval
+            b_acc += res.stats.n_accepted
+            failed = failed or res.stats.status != 0
+            rev_t_bars.append(t_bar)
+        emit_bwd(cfg["nfe_meter"], b_nfe, b_acc)
+        ts_bar = torch.stack([a_t0] + rev_t_bars[::-1]).to(t.device)
+        grads = [a_y.reshape(shape), ts_bar, *a_p]
+        if failed:
+            # A backward solve that did not reach its end would return a
+            # partial adjoint: poison every gradient (the reference poisons
+            # them on a failed solve, adjoint.py:483-493).
+            grads = [torch.full_like(x, float("nan")) for x in grads]
+        return (None, *grads)
+
+
+def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
+                   rtol=1e-7, atol=1e-9, method: Optional[str] = None,
+                   options: Optional[dict] = None, adjoint_rtol=None,
+                   adjoint_atol=None, adjoint_method: Optional[str] = None,
+                   adjoint_options: Optional[dict] = None,
+                   adjoint_seminorm: bool = False,
+                   adjoint_mode: str = "resets",
+                   return_stats: bool = False, nfe_meter=None,
+                   forward_solver: Optional[Callable] = None) -> Any:
+    """Like `odeint`, but gradients use the augmented adjoint ODE.
+
+    func: `func(t, y, params)` when `params` (a nest of tensors) is given;
+    else `func(t, y)`, and when func is an `nn.Module` its parameters that
+    require grad get gradients. y0 is a tensor or a tuple/dict nest.
+    Returns the trajectory (leaves [T, ...]); with `return_stats=True`,
+    `(trajectory, SolverStats)` of the FORWARD solve.
+
+    adjoint_rtol/atol/method default to the forward ones; adjoint_options
+    to the forward options (filtered to the adaptive allowlist).
+    adjoint_seminorm: control the backward step size on (y, a_y) only
+    (Kidger et al. 2020). nfe_meter: an `NFEMeter` that records the
+    forward and backward solves. forward_solver(y0, t, params) -> (ys,
+    stats) replaces the internal forward solve (it must integrate the same
+    dynamics). A failed forward solve raises RuntimeError; a failed
+    backward solve returns NaN gradients.
+    """
+    method = method or "dopri5"
+    adjoint_rtol = rtol if adjoint_rtol is None else adjoint_rtol
+    adjoint_atol = atol if adjoint_atol is None else adjoint_atol
+    adjoint_method = method if adjoint_method is None else adjoint_method
+
+    fwd_options = dict(options or {})
+    bwd_options = dict(adjoint_options if adjoint_options is not None
+                       else fwd_options)
+    _check_methods(method, adjoint_method, fwd_options)
+    if (fwd_options.get("dot_precision", "highest") != "highest"
+            or bwd_options.get("dot_precision", "highest") != "highest"):
+        # Reduced-precision tiers are serving-only: training would
+        # differentiate a different model than the weights being trained.
+        raise ValueError(
+            "odeint_adjoint does not support reduced dot_precision "
+            "('mixed'/'bf16' are serving tiers); train at the default "
+            "'highest' and apply the precision tier at inference")
+    for o in (fwd_options, bwd_options):
+        o.pop("dot_precision", None)
+        o.pop("fuse", None)
+    if adjoint_mode not in ("resets", "interpolated"):
+        raise ValueError(f"adjoint_mode must be 'resets' or 'interpolated',"
+                         f" got {adjoint_mode!r}")
+    if adjoint_mode == "interpolated":
+        raise NotImplementedError(
+            "adjoint_mode='interpolated' needs the forward dense output "
+            "(options={'dense_output': True}), not ported yet: ROADMAP.md "
+            "queue 1 item 3")
+    if forward_solver is not None and options:
+        raise ValueError(
+            "options are ignored when forward_solver replaces the internal "
+            "forward solve — configure the forward through the solver "
+            "callable itself (adjoint_options still control the backward)")
+    # The eager forward has no bounded loop, so telemetry cannot apply
+    # (the reference drops it on its while loop the same way).
+    fwd_options.pop("telemetry", None)
+    bwd_options.pop("grid_constructor", None)
+    bwd_options.pop("step_size", None)
+    allowed = _CUSTOM_ALLOWED.get(adjoint_method,
+                                  ADAPTIVE_OPTIONS - {"telemetry",
+                                                      "dense_output"})
+    bwd_options = {k: v for k, v in bwd_options.items() if k in allowed}
+
+    # Parameters: an explicit nest, a module's own, or none.
+    if params is not None:
+        leaves = tree_leaves(params)
+
+        def params_of(ls):
+            return tree_unflatten(params, ls)
+
+        def call(tt, yy, ls):
+            return func(tt, yy, params_of(ls))
+
+        def grad_targets(ls):
+            return [p.detach().requires_grad_(True) for p in ls]
+    else:
+        leaves = ([p for p in func.parameters() if p.requires_grad]
+                  if isinstance(func, torch.nn.Module) else [])
+
+        def params_of(ls):
+            return None
+
+        def call(tt, yy, ls):
+            return func(tt, yy)
+
+        def grad_targets(ls):
+            return list(ls)     # the module's own parameters
+
+    # Nests ride as one flat state (the reference's flatten_state).
+    nest = not isinstance(y0, Tensor)
+    if nest:
+        y0_in, unravel = flatten_state(y0)
+        nest_call = call
+
+        def call(tt, yy, ls):
+            dy = nest_call(tt, unravel(yy), ls)
+            return torch.cat([l.reshape(-1).to(yy.dtype)
+                              for l in tree_leaves(dy)])
+    else:
+        y0_in = y0
+    N = y0_in.numel()
+
+    if adjoint_seminorm and SOLVERS.get(adjoint_method,
+                                        ("",))[0] == "adaptive":
+        def _seminorm(x_flat):
+            # Augmented flat layout: [y (N), a_y (N), a_params..., a_t].
+            return rms_norm(x_flat[:2 * N])
+
+        bwd_options.setdefault("norm", _seminorm)
+
+    cfg = {"call": call, "grad_targets": grad_targets,
+           "params_of": params_of, "forward_solver": forward_solver,
+           "rtol": rtol, "atol": atol, "method": method,
+           "fwd_options": fwd_options, "adjoint_rtol": adjoint_rtol,
+           "adjoint_atol": adjoint_atol, "adjoint_method": adjoint_method,
+           "bwd_options": bwd_options, "nfe_meter": nfe_meter}
+    t_in = t if isinstance(t, Tensor) else torch.as_tensor(t)
+    if t_in.ndim == 0:
+        t_in = t_in[None]
+    ys = _Adjoint.apply(cfg, y0_in, t_in, *leaves)
+    if nest:
+        ys = unravel(ys)
+    if return_stats:
+        return ys, cfg["stats"]
+    return ys

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .models.dynamics import ODEFunc
+from .models.latent_ode import Decoder, LatentODEFunc, RecognitionRNN
 
 
 def _t(x, device, dtype) -> torch.Tensor:
@@ -57,3 +58,44 @@ def ode_func_from_flax(np_variables: dict, device=None,
             layer.weight.copy_(_t(params[name]["kernel"], device, dtype).t())
             layer.bias.copy_(_t(params[name]["bias"], device, dtype))
     return func
+
+
+def _load_linear(layer: torch.nn.Linear, kernel, bias, device, dtype):
+    """Copy a flax Dense (kernel [din, dout], bias [dout]) into an
+    nn.Linear (weight [dout, din])."""
+    with torch.no_grad():
+        layer.weight.copy_(_t(kernel, device, dtype).t())
+        layer.bias.copy_(_t(bias, device, dtype))
+
+
+def latent_ode_from_flax(np_variables: dict, device=None,
+                         dtype=torch.float32):
+    """The port's (RecognitionRNN, LatentODEFunc, Decoder) holding the
+    parameters of the JAX example's flax modules, given as numpy:
+    {'rec': {'params': {'i2h_kernel', 'i2h_bias', 'h2o'}}, 'dyn':
+    {'params': {'Dense_0'..'Dense_2'}}, 'dec': {'params': {'Dense_0',
+    'Dense_1'}}} (the layout of `examples/latent_ode.init_params`). Sizes
+    are read from the arrays."""
+    rec_p = np_variables["rec"].get("params", np_variables["rec"])
+    dyn_p = np_variables["dyn"].get("params", np_variables["dyn"])
+    dec_p = np_variables["dec"].get("params", np_variables["dec"])
+    i2h = np.asarray(rec_p["i2h_kernel"])
+    hidden = i2h.shape[1]
+    latent = np.asarray(rec_p["h2o"]["kernel"]).shape[1] // 2
+    obs = i2h.shape[0] - hidden
+    nhidden = np.asarray(dyn_p["Dense_0"]["kernel"]).shape[1]
+    dec_hidden = np.asarray(dec_p["Dense_0"]["kernel"]).shape[1]
+    kw = dict(device=device, dtype=dtype)
+    rec = RecognitionRNN(latent, obs, hidden, **kw)
+    dyn = LatentODEFunc(latent, nhidden, **kw)
+    dec = Decoder(latent, obs, dec_hidden, **kw)
+    _load_linear(rec.i2h, rec_p["i2h_kernel"], rec_p["i2h_bias"], device,
+                 dtype)
+    _load_linear(rec.h2o, rec_p["h2o"]["kernel"], rec_p["h2o"]["bias"],
+                 device, dtype)
+    for mod, params, n in ((dyn, dyn_p, 3), (dec, dec_p, 2)):
+        for i in range(n):
+            dense = params[f"Dense_{i}"]
+            _load_linear(getattr(mod, f"dense_{i}"), dense["kernel"],
+                         dense["bias"], device, dtype)
+    return rec, dyn, dec

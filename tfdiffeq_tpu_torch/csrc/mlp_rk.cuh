@@ -1,6 +1,7 @@
-// Device code shared by the fused-tier kernels (step_kernel.cu,
-// solve_kernel.cu): the MLP right-hand side, the activations, the error
-// scale, the controller factor and a fixed-order block reduction.
+// Code shared by the fused-tier kernels (step_kernel.cu, solve_kernel.cu,
+// adjoint_kernel.cu): the MLP right-hand side, the activations and their
+// derivatives, the tableau and network descriptions built on the host, the
+// controller factor and a fixed-order block reduction.
 //
 // Every formula follows its JAX reference in tfdiffeq_tpu/ops/
 // pallas_kernels.py operation for operation (the library is built with
@@ -81,6 +82,29 @@ __device__ __forceinline__ T activate(int code, T x) {
   }
 }
 
+// pallas_kernels.py:_ACTIVATION_GRADS: act'(z) from z and a = act(z).
+template <typename T>
+__device__ __forceinline__ T act_grad(int code, T z, T a) {
+  switch (code) {
+    case kTanh:
+      return T(1) - a * a;
+    case kRelu:
+      return z > T(0) ? T(1) : T(0);
+    case kElu:
+      return z > T(0) ? T(1) : a + T(1);
+    case kSigmoid:
+      return a * (T(1) - a);
+    case kSoftplus:
+      return T(1) / (T(1) + d_exp(-z));
+    case kSilu: {
+      const T s = T(1) / (T(1) + d_exp(-z));
+      return s * (T(1) + z * (T(1) - s));
+    }
+    default:
+      return T(1);
+  }
+}
+
 // A general MLP: layer l maps din[l] inputs to dout[l] outputs with
 // weights W_l [dout][din] (row-major, the transpose of the JAX [din, dout])
 // and bias b_l [dout], both at offsets into one packed weight array
@@ -96,6 +120,73 @@ struct Net {
   int input_power;   // the state enters as y ** input_power
   int time_input;    // 1: the first layer's last input column is t
 };
+
+// Fill `net` from the host's (din, dout) pairs; returns the packed weight
+// count, or -1 for a network the kernels cannot take.
+inline int make_net(Net& net, int n_layers, const int* dims, int D,
+                    int act_hidden, int act_final, int input_power,
+                    int time_input) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return -1;
+  net.n_layers = n_layers;
+  int off = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int din = dims[2 * l], dout = dims[2 * l + 1];
+    if (din < 1 || dout < 1 || din > kMaxWidth || dout > kMaxWidth) return -1;
+    net.din[l] = din;
+    net.dout[l] = dout;
+    net.w_off[l] = off;
+    off += din * dout;
+    net.b_off[l] = off;
+    off += dout;
+  }
+  if (net.din[0] != D + time_input || net.dout[n_layers - 1] != D) return -1;
+  net.act_hidden = act_hidden;
+  net.act_final = act_final;
+  net.input_power = input_power;
+  net.time_input = time_input;
+  return off;
+}
+
+// An explicit RK tableau, handed over as launch arguments so that one
+// binary serves dopri5, bosh3, adaptive_heun, tsit5 and dopri8.
+template <typename T>
+struct Tableau {
+  int S;          // stages
+  int order;      // controller exponent 1 / order
+  int fsal;       // last stage is f(t1, y1)
+  int has_mid;    // 4th-order dense-output midpoint weights present
+  int evals;      // evaluations counted per forward attempt
+  T c[kMaxStages];
+  T a[kMaxStages][kMaxStages];  // a[i][j], j < i: stage i's weights
+  T b_sol[kMaxStages];
+  T b_err[kMaxStages];
+  T c_mid[kMaxStages];
+};
+
+// The host's doubles (ops/tableaus.py, the reference's exact rationals)
+// rounded to T, as the JAX reference rounds its Python floats. a is
+// [stages][stages] row-major; c_mid may be null.
+template <typename T>
+Tableau<T> make_tableau(int stages, int order, int fsal, const double* c,
+                        const double* a, const double* b_sol,
+                        const double* b_err, const double* c_mid) {
+  Tableau<T> tab;
+  tab.S = stages;
+  tab.order = order;
+  tab.fsal = fsal;
+  tab.has_mid = c_mid != nullptr;
+  tab.evals = fsal ? stages - 1 : stages;
+  for (int i = 0; i < kMaxStages; ++i) {
+    const bool in = i < stages;
+    tab.c[i] = in ? T(c[i]) : T(0);
+    tab.b_sol[i] = in ? T(b_sol[i]) : T(0);
+    tab.b_err[i] = in ? T(b_err[i]) : T(0);
+    tab.c_mid[i] = (in && c_mid) ? T(c_mid[i]) : T(0);
+    for (int j = 0; j < kMaxStages; ++j)
+      tab.a[i][j] = (in && j < stages) ? T(a[i * stages + j]) : T(0);
+  }
+  return tab;
+}
 
 // f(t, y) of pallas_kernels.py:_make_net (its VPU path): each output sums
 // its input terms in input order, then adds the time column, then the bias.

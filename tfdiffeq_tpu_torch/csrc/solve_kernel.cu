@@ -43,20 +43,6 @@ namespace tfd {
 constexpr int kSolveThreads = 512;
 
 template <typename T>
-struct Tableau {
-  int S;          // stages
-  int order;      // controller exponent 1 / order
-  int fsal;       // last stage is f(t1, y1)
-  int has_mid;    // 4th-order dense-output midpoint weights present
-  int evals;      // evaluations counted per attempt
-  T c[kMaxStages];
-  T a[kMaxStages][kMaxStages];  // a[i][j], j < i: stage i's weights
-  T b_sol[kMaxStages];
-  T b_err[kMaxStages];
-  T c_mid[kMaxStages];
-};
-
-template <typename T>
 struct Scalars {
   T dt0, rtol, atol, dt_min, sign, safety, ifactor, dfactor;
   int max_steps, valid, T_out, B, D;
@@ -276,41 +262,12 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
       threads > kSolveThreads || (threads & (threads - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Net net;
-  net.n_layers = n_layers;
-  int off = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    const int din = dims[2 * l], dout = dims[2 * l + 1];
-    if (din < 1 || dout < 1 || din > kMaxWidth || dout > kMaxWidth)
-      return static_cast<int>(cudaErrorInvalidValue);
-    net.din[l] = din;
-    net.dout[l] = dout;
-    net.w_off[l] = off;
-    off += din * dout;
-    net.b_off[l] = off;
-    off += dout;
-  }
-  if (net.din[0] != D + time_input || net.dout[n_layers - 1] != D)
-    return static_cast<int>(cudaErrorInvalidValue);
-  net.act_hidden = act_hidden;
-  net.act_final = act_final;
-  net.input_power = input_power;
-  net.time_input = time_input;
+  const int off = make_net(net, n_layers, dims, D, act_hidden, act_final,
+                           input_power, time_input);
+  if (off < 0) return static_cast<int>(cudaErrorInvalidValue);
 
-  Tableau<T> tab;
-  tab.S = stages;
-  tab.order = order;
-  tab.fsal = fsal;
-  tab.has_mid = c_mid != nullptr;
-  tab.evals = fsal ? stages - 1 : stages;
-  for (int i = 0; i < kMaxStages; ++i) {
-    const bool in = i < stages;
-    tab.c[i] = in ? T(c[i]) : T(0);
-    tab.b_sol[i] = in ? T(b_sol[i]) : T(0);
-    tab.b_err[i] = in ? T(b_err[i]) : T(0);
-    tab.c_mid[i] = (in && c_mid) ? T(c_mid[i]) : T(0);
-    for (int j = 0; j < kMaxStages; ++j)
-      tab.a[i][j] = (in && j < stages) ? T(a[i * stages + j]) : T(0);
-  }
+  const Tableau<T> tab =
+      make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
 
   Scalars<T> sc;
   sc.dt0 = T(dt0);

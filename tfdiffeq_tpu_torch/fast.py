@@ -16,12 +16,15 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
   controller shared by the batch.
 - `solve_mlp_stepwise`: the one-step kernel (`dopri5_mlp_step`, K1) plugged
   into the generic adaptive engine through `AdaptiveConfig.step_override`.
+- `odeint_adjoint_mlp`: the O(1)-memory training path, a
+  `torch.autograd.Function` whose forward is one K2 launch and whose
+  backward is one launch of the adjoint-sweep kernel
+  (`ops/cuda_adjoint.mlp_adjoint_solve`, K3).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
 item): per-sample controllers (item 9), fixed-grid and Adams methods
 (items 11 and 12), dot precisions other than 'highest' (item 14), and the
-multi-card `axis_name` / `global_batch` coupling (item 18). The adjoint
-training path (`odeint_adjoint_mlp`, kernel K3) is item 6's next slice.
+multi-card `axis_name` / `global_batch` coupling (item 18).
 """
 
 from __future__ import annotations
@@ -34,11 +37,13 @@ import torch
 
 from .ops import tableaus
 from .ops.controller import StepController
+from .ops.cuda_adjoint import mlp_adjoint_solve
 from .ops.cuda_kernels import (_ACTIVATIONS, dopri5_mlp_step, mlp_solve,
                                pack_mlp_weights)
 from .ops.norms import select_initial_step
 from .solvers.adaptive import AdaptiveConfig, solve_adaptive
 from .solvers.base import CanonicalProblem, SolveResult, SolverStats
+from .utils.nfe import emit_bwd, emit_fwd
 
 Tensor = torch.Tensor
 
@@ -259,3 +264,158 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
                    else _INT32_MAX))
     nfe, nacc, nrej, status = stats.tolist()
     return SolveResult(out, SolverStats(nfe + extra_nfe, nacc, nrej, status))
+
+
+def _check_adjoint_methods(method: str, adjoint_method: str, num_steps,
+                           step_size, adjoint_num_steps,
+                           per_sample: bool) -> None:
+    if per_sample:
+        raise NotImplementedError(
+            "odeint_adjoint_mlp(per_sample=True) is not ported yet: "
+            "ROADMAP.md queue 1 item 9 (per-sample tier)")
+    fixed = [m for m in (method, adjoint_method) if m in _FIXED_METHODS]
+    if fixed or num_steps is not None or step_size is not None \
+            or adjoint_num_steps is not None:
+        raise NotImplementedError(
+            "fixed-grid training (fixed methods, num_steps, step_size, "
+            "adjoint_num_steps) is not ported to the fused tier yet: "
+            "ROADMAP.md queue 1 item 11")
+    for m in (method, adjoint_method):
+        if m in _ADAMS_METHODS:
+            raise NotImplementedError(
+                f"method {m!r} (Adams family) is not ported to the fused "
+                "tier yet: ROADMAP.md queue 1 item 12")
+        if m not in tableaus.TABLEAUS_BY_NAME:
+            raise ValueError(f"unknown method {m!r}; available: "
+                             f"{sorted(tableaus.TABLEAUS_BY_NAME)}")
+
+
+class _AdjointMLP(torch.autograd.Function):
+    """Forward: `solve_mlp_spec` (K2). Backward: K3's whole sweep
+    (reference `fast.py:_vjp_bwd`). `cfg` carries the static options and
+    receives the forward stats."""
+
+    @staticmethod
+    def forward(ctx, cfg, y0, t, *flat):
+        weights = cfg["unflatten"](flat)
+        res = solve_mlp_spec(cfg["spec"], weights, y0, t, rtol=cfg["rtol"],
+                             atol=cfg["atol"], method=cfg["method"],
+                             max_num_steps=cfg["max_num_steps"],
+                             first_step=cfg["first_step"])
+        emit_fwd(cfg["nfe_meter"], res.stats.nfe, res.stats.n_accepted)
+        cfg["stats"] = res.stats
+        ctx.cfg = cfg
+        ctx.save_for_backward(res.ys, t, *flat)
+        return res.ys
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        ys, t, *flat = ctx.saved_tensors
+        weights = cfg["unflatten"](flat)
+        T = t.shape[0]
+        if T < 2:
+            return (None, g[0], torch.zeros_like(t),
+                    *[torch.zeros_like(x) for x in flat])
+        dtype, dev = ys.dtype, ys.device
+        spec = cfg["spec"]
+        # d loss / d t_i = <f(t_i, y_i), g_i>; ts_bar[0] also carries the
+        # integrated a_t quadrature (zero for autonomous dynamics).
+        f_obs = mlp_apply(spec, weights, ys,
+                          t.to(dev, dtype).reshape(T, 1, 1))
+        t_bars = torch.sum(f_obs * g, dim=(1, 2)).to(t.device, t.dtype)
+        t_h = _host_times(t, dtype)
+        sign = 1.0 if bool(t_h[-1] >= t_h[0]) else -1.0
+        tau = sign * t_h
+        if cfg["adjoint_first_step"] is not None:
+            dt0 = torch.abs(torch.as_tensor(cfg["adjoint_first_step"],
+                                            dtype=dtype))
+        else:
+            # A tenth of the last observation gap (the reference's cheap
+            # heuristic; the controller settles within a few attempts).
+            dt0 = 0.1 * torch.abs(tau[-1] - tau[-2])
+        warrays, dims = pack_mlp_weights(weights, dtype, dev)
+        ay0, aw, at, bstats = mlp_adjoint_solve(
+            warrays, dims, ys.contiguous(), g.contiguous(), tau, dt0,
+            cfg["adjoint_rtol"], cfg["adjoint_atol"], sign,
+            activation=spec.activation,
+            final_activation=spec.final_activation,
+            input_power=spec.input_power, time_input=spec.time_input,
+            seminorm=cfg["adjoint_seminorm"], method=cfg["adjoint_method"],
+            max_steps=cfg["max_steps"])
+        nfe, nacc, _, status = bstats.tolist()
+        emit_bwd(cfg["nfe_meter"], nfe, nacc)
+        at = at.to(t.device, t.dtype)
+        ts_bar = torch.cat([(at - torch.sum(t_bars[1:]))[None], t_bars[1:]])
+
+        grads, off = [], 0
+        for (W, b), (din, dout) in zip(weights, dims):
+            grads.append(aw[off:off + din * dout].view(dout, din).t()
+                         .to(W.dtype))
+            off += din * dout
+            if b is not None:
+                grads.append(aw[off:off + dout].to(b.dtype))
+            off += dout
+        grads = [ay0.to(ys.dtype), ts_bar] + grads
+        if status != 0:
+            # A truncated sweep (dt underflow, max_num_steps) would return
+            # a partial adjoint: poison every gradient, as the reference
+            # does (fast.py:1539-1557).
+            grads = [torch.full_like(x, float("nan")) for x in grads]
+        return (None, *grads)
+
+
+def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
+                       atol=1e-8, adjoint_rtol=None, adjoint_atol=None,
+                       method: str = "dopri5",
+                       adjoint_method: Optional[str] = None,
+                       adjoint_seminorm: bool = False, max_num_steps=None,
+                       first_step=None, adjoint_first_step=None,
+                       nfe_meter=None, return_stats: bool = False,
+                       num_steps=None, step_size=None,
+                       adjoint_num_steps=None, per_sample: bool = False):
+    """Fused O(1)-memory training path for MLP neural ODEs.
+
+    Forward = ONE whole-solve kernel launch (`solve_mlp_spec`, K2);
+    backward = ONE launch of the adjoint-sweep kernel (K3) running the
+    interval loop, stored-state resets, cotangent injections, adaptive
+    stepping, MLP VJPs and the parameter quadrature. On CPU tensors both
+    run their plain PyTorch versions.
+
+    Differentiable wrt `weights` ([(W [din, dout], b [dout] or None), ...]
+    on y0's device), `y0` [B, D] and `t` (when they require grad); for
+    concat-t dynamics (`spec.time_input`) the sweep also integrates the a_t
+    quadrature and the first layer's t-column gradient. Returns ys
+    [T, B, D], with the FORWARD stats when return_stats=True; forward and
+    backward stats go to `nfe_meter`. A backward sweep that fails (status
+    != 0) returns NaN gradients.
+    """
+    adjoint_rtol = rtol if adjoint_rtol is None else adjoint_rtol
+    adjoint_atol = atol if adjoint_atol is None else adjoint_atol
+    adjoint_method = method if adjoint_method is None else adjoint_method
+    _check_adjoint_methods(method, adjoint_method, num_steps, step_size,
+                           adjoint_num_steps, per_sample)
+    weights = [(W, b) for W, b in weights]
+    has_bias = [b is not None for _, b in weights]
+    flat = [x for W, b in weights for x in ((W, b) if b is not None
+                                            else (W,))]
+
+    def unflatten(xs):
+        it = iter(xs)
+        return [(next(it), next(it) if hb else None) for hb in has_bias]
+
+    cfg = {"spec": spec, "unflatten": unflatten, "rtol": rtol, "atol": atol,
+           "adjoint_rtol": adjoint_rtol, "adjoint_atol": adjoint_atol,
+           "method": method, "adjoint_method": adjoint_method,
+           "adjoint_seminorm": bool(adjoint_seminorm),
+           "max_num_steps": max_num_steps,
+           "max_steps": (int(max_num_steps) if max_num_steps is not None
+                         else _INT32_MAX),
+           "first_step": first_step,
+           "adjoint_first_step": adjoint_first_step,
+           "nfe_meter": nfe_meter}
+    t_in = t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+    ys = _AdjointMLP.apply(cfg, y0, t_in, *flat)
+    if return_stats:
+        return ys, cfg["stats"]
+    return ys

@@ -2,8 +2,9 @@
 `ctypes`.
 
 The sources under `tfdiffeq_tpu_torch/csrc/` expose plain `extern "C"`
-launch functions, so no PyTorch header is compiled: one `nvcc` call builds
-them for Hopper (`sm_90a`) into one shared library in
+launch functions, so no PyTorch header is compiled: one `nvcc` process per
+source, all started together, compiles them for Hopper (`sm_90a`), and one
+more links the objects into one shared library in
 `tfdiffeq_tpu_torch/_build/` (listed in .gitignore), named by a hash of the
 sources and flags. The build runs at the first launch, never at import;
 later launches in the process, and later processes on the same checkout,
@@ -29,11 +30,12 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("step_kernel.cu", "solve_kernel.cu")
+SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu")
 HEADERS = ("mlp_rk.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib = None
 _log = ""
@@ -54,6 +56,13 @@ _SOLVE_ARGS = ([_P] * 7                                     # tensors
                + [_I, _P, _I, _I, _I, _I]                   # network
                + [_I, _I, _I, _P, _P, _P, _P, _P]           # tableau
                + [_P])                                      # stream
+_ADJOINT_ARGS = ([_P] * 9                                   # tensors
+                 + [ctypes.c_long]                          # work size
+                 + [_I, _I, _I, _I]                         # T, B, D, threads
+                 + [_D] * 8 + [_I, _I]                      # scalars
+                 + [_I, _P, _I, _I, _I, _I]                 # network
+                 + [_I, _I, _P, _P, _P, _P]                 # tableau
+                 + [_P])                                    # stream
 
 
 def _nvcc() -> str:
@@ -72,7 +81,7 @@ def source_hash() -> str:
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -84,16 +93,34 @@ def _build() -> pathlib.Path:
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{source_hash()}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{pathlib.Path(s).stem}.{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    # One nvcc per source, all at once; each is waited for and its output
+    # kept, whatever the others do.
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    _log = "".join(outs)
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if not failed:
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        _log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = [(cmd, proc.returncode, proc.stdout + proc.stderr)]
+    for o in objs:
+        o.unlink(missing_ok=True)
     _seconds = time.perf_counter() - t0
-    _log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{_log}")
+    if failed:
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, so)      # atomic: a concurrent build never sees a stub
     (BUILD_DIR / f"{so.stem}.log").write_text(_log)
     return so
@@ -111,6 +138,10 @@ def library() -> ctypes.CDLL:
         for name in ("tfd_mlp_solve_f32", "tfd_mlp_solve_f64"):
             fn = getattr(lib, name)
             fn.argtypes = _SOLVE_ARGS
+            fn.restype = _I
+        for name in ("tfd_mlp_adjoint_f32", "tfd_mlp_adjoint_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = _ADJOINT_ARGS
             fn.restype = _I
         lib.tfd_error_string.argtypes = [_I]
         lib.tfd_error_string.restype = ctypes.c_char_p

@@ -85,6 +85,30 @@ _ACTIVATIONS = {
     "swish": _silu,
 }
 
+def _sigmoid_of(z: Tensor) -> Tensor:
+    return 1.0 / (1.0 + torch.exp(-z))
+
+
+def _silu_grad(z: Tensor, a: Tensor) -> Tensor:
+    s = _sigmoid_of(z)
+    return s * (1.0 + z * (1.0 - s))
+
+
+#: pallas_kernels.py:_ACTIVATION_GRADS: act'(z) from z and a = act(z), the
+#: same formulas (csrc/mlp_rk.cuh act_grad).
+_ACTIVATION_GRADS = {
+    "identity": lambda z, a: torch.ones_like(z),
+    "linear": lambda z, a: torch.ones_like(z),
+    "tanh": lambda z, a: 1.0 - a * a,
+    "relu": lambda z, a: torch.where(z > 0.0, torch.ones_like(z),
+                                     torch.zeros_like(z)),
+    "elu": lambda z, a: torch.where(z > 0.0, torch.ones_like(a), a + 1.0),
+    "sigmoid": lambda z, a: a * (1.0 - a),
+    "softplus": lambda z, a: _sigmoid_of(z),
+    "silu": _silu_grad,
+    "swish": _silu_grad,
+}
+
 #: Activation name -> csrc/mlp_rk.cuh `Act` code.
 _ACT_CODES = {"identity": 0, "linear": 0, "tanh": 1, "relu": 2, "elu": 3,
               "sigmoid": 4, "softplus": 5, "silu": 6, "swish": 6}
@@ -127,16 +151,17 @@ def _tree_sum(v: Tensor) -> Tensor:
     return v[..., 0]
 
 
-def _owned_sums(sq: Tensor, threads: int) -> Tensor:
+def _owned_sums(sq: Tensor, threads: int, acc: Tensor = None) -> Tensor:
     """Per-thread sums of sq [B, D] as the kernels take them: thread i
     owns samples i, i + threads, ... and adds their D values in order,
-    from 0. Returns [threads]; missing samples add +0, which changes no
-    bit."""
+    from 0 (or from acc [threads]). Returns [threads]; missing samples add
+    +0, which changes no bit."""
     B, D = sq.shape
     K = -(-B // threads)
     sq = torch.nn.functional.pad(sq, (0, 0, 0, K * threads - B))
     sq = sq.view(K, threads, D)
-    acc = torch.zeros(threads, dtype=sq.dtype, device=sq.device)
+    if acc is None:
+        acc = torch.zeros(threads, dtype=sq.dtype, device=sq.device)
     for k in range(K):
         for d in range(D):
             acc = acc + sq[k, :, d]
@@ -385,8 +410,9 @@ def _solve_setup(tau: Tensor, dt0, dtype):
                                        torch.abs(tau_h[-1])),
                          torch.tensor(1.0, dtype=dtype))
     dt_min = torch.tensor(4.0 * torch.finfo(dtype).eps, dtype=dtype) * span
-    dt0 = torch.maximum(torch.abs(torch.as_tensor(dt0).detach().to(
-        "cpu", dtype)), dt_min)
+    # Straight to `dtype`: a Python float must not pass through float32.
+    dt0 = torch.maximum(torch.abs(torch.as_tensor(
+        dt0, dtype=dtype, device="cpu").detach()), dt_min)
     valid = bool(torch.all(tau_h[1:] > tau_h[:-1])) if tau_h.numel() > 1 \
         else True
     return tau_h, dt_min, dt0, valid

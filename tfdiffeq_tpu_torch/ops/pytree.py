@@ -17,6 +17,10 @@ Tensor = torch.Tensor
 
 
 def tree_leaves(tree: Any) -> List[Tensor]:
+    """The tensors of a nest in `jax.tree_util` order: dict keys sorted,
+    None an empty subtree."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
@@ -25,11 +29,19 @@ def tree_leaves(tree: Any) -> List[Tensor]:
 
 
 def _rebuild(tree: Any, it) -> Any:
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], it) for k in sorted(tree)}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_rebuild(x, it) for x in tree)
     return next(it)
+
+
+def tree_unflatten(tree: Any, leaves) -> Any:
+    """The nest `tree` with its leaves replaced by `leaves`, in
+    `tree_leaves` order."""
+    return _rebuild(tree, iter(leaves))
 
 
 def flatten_state(y0: Any) -> Tuple[Tensor, Callable[[Tensor], Any]]:
