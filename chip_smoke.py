@@ -38,6 +38,27 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    hidden 20, rnn hidden 25, rtol 1e-4 / atol 1e-6), parameters drawn
    with numpy in the flax layout and carried over by `convert`. K2 = K3 = 3
    launches, finite losses and gradients.
+10. K8 `mlp_solve_fixed` against its plain version at the bench widths (y
+    [4096, 2], hidden 50, 64 outputs over [0, 25]): rk4 with num_steps=500
+    (the Hermite drain) and on the default grid, each in float32 and
+    float64; euler, midpoint and rk4_38 in float64 on the default grid.
+    Float64: identical stats, outputs within 1e-12 relative; float32: 1e-5
+    absolute (whether bitwise equal is printed); run to run bitwise.
+11. `fast.solve_mlp_spec(method='rk4', num_steps=500)` at the bench
+    widths: one K8 launch (counter zeroed before, read after), status 0,
+    finite [64, 4096, 2]; the gap to `fast.solve_mlp` (dopri5, K2) printed;
+    at B=96 (12 outputs over [0, 5]) within 1e-5 relative of the generic
+    `solve(ODEFunc, method='rk4', options={'num_steps': 500})`.
+12. K9 `mlp_adjoint_solve_fixed` against its plain version at the bench
+    training protocol with rk4: forward K8 with num_steps=500, backward
+    8 steps an interval, the MSE cotangent. Float64: identical stats,
+    gradients within 1e-9 relative; float32 within 1e-3; run to run
+    bitwise. K8 and K9 are timed against their plain versions.
+13. Three RMSprop steps of `examples/ode_demo.py --fused --method rk4` at
+    its defaults: K8 = K9 = 3 launches, forward NFE 37 a step, finite
+    losses, weights moved; at the first step the fused gradients agree with
+    `--adjoint --method rk4` (the generic fixed-grid adjoint) within 1e-4
+    relative. The training step is timed on the host clock.
 
 The last two lines of standard output are one JSON object with each
 kernel's record and, last, {"ok": true, "device": {...}}.
@@ -132,9 +153,11 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tfdiffeq_tpu_torch import NFEMeter, convert, fast, odeint_adjoint, \
         solve
-    from tfdiffeq_tpu_torch.examples import latent_ode as lode
+    from tfdiffeq_tpu_torch.examples import latent_ode as lode, \
+        ode_demo as demo
     from tfdiffeq_tpu_torch.ops import _build, cuda_adjoint as ca, \
-        cuda_kernels as ck
+        cuda_fixed as cf, cuda_kernels as ck
+    from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
 
     # [2] build.
     _build.library()
@@ -424,6 +447,191 @@ def main() -> int:
     if not all(np.isfinite(losses)):
         raise AssertionError(f"latent-ODE losses {losses}")
 
+    # [10] K8 against its plain version at the bench widths.
+    t64 = {dtype: torch.linspace(0.0, SPAN, T_OUT, dtype=dtype)
+           for dtype in (f32, f64)}
+    k8_err, k8_args = {}, {}
+    for method, steps, dtype in (
+            ("rk4", 500, f32), ("rk4", 500, f64), ("rk4", None, f32),
+            ("rk4", None, f64), ("euler", None, f64),
+            ("midpoint", None, f64), ("rk4_38", None, f64)):
+        p, y, _ = _bench_params(B, dtype, dev)
+        W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+        warr, dims = ck.pack_mlp_weights(W, dtype, dev)
+        t = t64[dtype]
+        grid = t if steps is None else uniform_grid(t[0], t[-1], steps)
+        args = (warr, dims, y, t, grid, 1.0)
+        kw = dict(f0=fast.mlp_apply(spec, W, y), activation="tanh",
+                  input_power=3, method=method)
+        out, st = cf.mlp_solve_fixed(*args, **kw)
+        again, st2 = cf.mlp_solve_fixed(*args, **kw)
+        ref, st_ref = cf.mlp_solve_fixed_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        bitwise = bool(torch.equal(out, again) and torch.equal(st, st2))
+        print(f"[10] K8 {method} {dtype} grid {grid.shape[0] - 1} steps: "
+              f"kernel stats {st.tolist()}, plain {st_ref.tolist()}; max "
+              f"|kernel - plain| {err:.3e} (relative {_rel(out, ref):.3e}); "
+              f"bitwise equal to plain: {torch.equal(out, ref)}; two kernel "
+              f"runs bitwise equal: {bitwise}", flush=True)
+        if not bitwise:
+            raise AssertionError("K8 is not deterministic from run to run")
+        if st[3].item() != 0 or not torch.isfinite(out).all() \
+                or st.tolist() != st_ref.tolist():
+            raise AssertionError(f"K8 {method} {dtype} failed: stats "
+                                 f"{st.tolist()}, plain {st_ref.tolist()}")
+        if dtype == f64 and _rel(out, ref) > 1e-12:
+            raise AssertionError("K8 float64 differs from its plain version "
+                                 "by more than 1e-12 relative")
+        if dtype == f32 and err > 1e-5:
+            raise AssertionError("K8 float32 differs from its plain version "
+                                 "by more than 1e-5")
+        if steps is not None:
+            k8_err[dtype] = err
+            k8_args[dtype] = (args, kw)
+
+    # [11] the fixed-grid forward through the public entry point.
+    p, y, p_np = _bench_params(B, f32, dev)
+    W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+    t = t64[f32]
+    cf.reset_launch_counts()
+    fixed = fast.solve_mlp_spec(spec, W, y, t, method="rk4", num_steps=500)
+    torch.cuda.synchronize()
+    k8_launches = cf.mlp_solve_fixed_launches
+    nfe, acc, rej, status = fixed.stats
+    print(f"[11] fast.solve_mlp_spec(method='rk4', num_steps=500): nfe {nfe}"
+          f", steps {acc}, status {status}; K8 launches {k8_launches}",
+          flush=True)
+    if k8_launches != 1 or status != 0 or nfe != 1 + 4 * 500 \
+            or tuple(fixed.ys.shape) != (T_OUT, B, D) \
+            or not torch.isfinite(fixed.ys).all():
+        raise AssertionError("the fixed-grid forward failed at the bench "
+                             "widths")
+    adaptive = fast.solve_mlp(p, y, t, rtol=TOL, atol=TOL,
+                              first_step=FIRST_STEP)
+    print(f"[11] max |rk4 (K8) - dopri5 (K2)| at full size "
+          f"{float((fixed.ys - adaptive.ys).abs().max()):.3e}", flush=True)
+    ps, ys, _ = _bench_params(96, f32, dev)
+    ts = torch.linspace(0.0, 5.0, 12)
+    small = fast.solve_mlp_spec(spec, [(ps["w1"], ps["b1"]),
+                                       (ps["w2"], ps["b2"])], ys, ts,
+                                method="rk4", num_steps=500).ys
+    with torch.no_grad():
+        generic = solve(func, ys, ts, method="rk4",
+                        options={"num_steps": 500}).ys
+    gap = _rel(small, generic)
+    print(f"[11] B=96: K8 and the generic rk4 agree to {gap:.3e} relative "
+          "(bar 1e-5)", flush=True)
+    if gap > 1e-5:
+        raise AssertionError("K8 and the generic fixed-grid engine differ")
+
+    # [12] K9 against its plain version at the bench training protocol.
+    k9_err, k9_args = {}, {}
+    for dtype in (f64, f32):
+        (fargs, fkw) = k8_args[dtype]
+        ys = cf.mlp_solve_fixed(*fargs, **fkw)[0]
+        target = _bench_target(dtype, dev)
+        g = 2.0 * (ys - target) / target.numel()
+        warr, dims, _, t = fargs[:4]
+        args = (warr, dims, ys, g.contiguous(), t, 1.0)
+        kw = dict(num_steps=8, activation="tanh", input_power=3,
+                  method="rk4")
+        k9_args[dtype] = (args, kw)
+        got = cf.mlp_adjoint_solve_fixed(*args, **kw)
+        again = cf.mlp_adjoint_solve_fixed(*args, **kw)
+        ref = cf.mlp_adjoint_solve_fixed_plain(*args, **kw)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        rels = [_rel(a, b) for a, b in zip(got[:2], ref[:2])]
+        print(f"[12] K9 {dtype}: kernel stats {got[3].tolist()}, plain "
+              f"{ref[3].tolist()}; max relative |kernel - plain| ay0 "
+              f"{rels[0]:.3e} aw {rels[1]:.3e}; kernel bitwise equal to "
+              f"plain: {same}; two kernel runs bitwise equal: {bitwise}",
+              flush=True)
+        if not bitwise:
+            raise AssertionError("K9 is not deterministic from run to run")
+        if got[3].tolist() != ref[3].tolist() or got[3][0].item() != \
+                4 * 8 * (T_OUT - 1) or not all(
+                    torch.isfinite(x).all() for x in got[:3]):
+            raise AssertionError(f"K9 {dtype} failed: {got[3].tolist()}")
+        if max(rels) > (1e-9 if dtype == f64 else 1e-3):
+            raise AssertionError(f"K9 {dtype} differs from its plain "
+                                 "version")
+        k9_err[dtype] = max(float((a - b).abs().max())
+                            for a, b in zip(got[:3], ref[:3]))
+    args, kw = k8_args[f32]
+    fixed_ms = _timed(lambda: cf.mlp_solve_fixed(*args, **kw))
+    fixed_plain_ms = _timed(lambda: cf.mlp_solve_fixed_plain(*args, **kw),
+                            reps=2)
+    print(f"[12] {smi}: K8 mlp_solve_fixed {fixed_ms:.3f} ms/solve vs plain "
+          f"{fixed_plain_ms:.3f} ms (bench widths, rk4, 500 steps, "
+          "float32)", flush=True)
+    args, kw = k9_args[f32]
+    fadj_ms = _timed(lambda: cf.mlp_adjoint_solve_fixed(*args, **kw))
+    fadj_plain_ms = _timed(
+        lambda: cf.mlp_adjoint_solve_fixed_plain(*args, **kw), reps=2)
+    print(f"[12] {smi}: K9 mlp_adjoint_solve_fixed {fadj_ms:.3f} ms/sweep "
+          f"vs plain {fadj_plain_ms:.3f} ms (bench training protocol, rk4, "
+          f"8 steps an interval, {8 * (T_OUT - 1)} steps, float32)",
+          flush=True)
+
+    # [13] ode_demo --fused --method rk4 at its defaults: RMSprop steps.
+    dargs = demo.parse_args(["--fused", "--method", "rk4"])
+    t_d, _, true_y = demo.true_trajectory(dargs, dev)
+    rng = np.random.RandomState(dargs.seed)
+    batches = [demo.get_batch(dargs, t_d, true_y, rng)[1:]
+               for _ in range(TRAIN_STEPS)]
+    grads = []
+    for mode in ("--fused", "--adjoint"):
+        margs = demo.parse_args([mode, "--method", "rk4"])
+        mfunc = demo.make_ode_func(seed=margs.seed, device=dev)
+        _, loss_fn = demo.make_train_step(margs, mfunc, None)
+        loss_fn(*batches[0]).backward()
+        grads.append([q.grad for q in mfunc.parameters()])
+    gap = max(_rel(a, b) for a, b in zip(*grads))
+    print(f"[13] first ode_demo batch: --fused and --adjoint (rk4) "
+          f"gradients agree to {gap:.3e} relative (bar 1e-4)", flush=True)
+    if gap > 1e-4:
+        raise AssertionError("fused and generic fixed-grid adjoint "
+                             "gradients differ")
+    dfunc = demo.make_ode_func(seed=dargs.seed, device=dev)
+    w0 = [q.detach().clone() for q in dfunc.parameters()]
+    dmeter = NFEMeter()
+    train_step, _ = demo.make_train_step(
+        dargs, dfunc, demo.make_optimizer(dargs, dfunc), dmeter)
+    demo_losses = []
+    it = iter(batches)
+
+    def rmsprop_step():
+        demo_losses.append(float(train_step(*next(it))))
+
+    cf.reset_launch_counts()
+    demo_ms, demo_all = _host_ms(rmsprop_step, reps=TRAIN_STEPS)
+    demo_launches = {
+        "mlp_solve_fixed": cf.mlp_solve_fixed_launches,
+        "mlp_adjoint_solve_fixed": cf.mlp_adjoint_solve_fixed_launches}
+    moved = max(float((q.detach() - q0).abs().max())
+                for q, q0 in zip(dfunc.parameters(), w0))
+    print(f"[13] ode_demo --fused --method rk4, RMSprop x{TRAIN_STEPS}: "
+          f"launches {demo_launches}; NFE forward {dmeter.f_nfe} "
+          f"({dmeter.f_calls} solves), backward {dmeter.b_nfe}; L1 loss "
+          f"{', '.join(f'{x:.6f}' for x in demo_losses)}; max weight change "
+          f"{moved:.3e}", flush=True)
+    print(f"[13] {smi}: ode_demo fused training step (K8 + K9, B = "
+          f"{dargs.batch_size}, {dargs.batch_time} times) {demo_ms:.3f} ms "
+          f"median of {TRAIN_STEPS} "
+          f"({', '.join(f'{x:.3f}' for x in demo_all)})", flush=True)
+    if demo_launches != {"mlp_solve_fixed": TRAIN_STEPS,
+                         "mlp_adjoint_solve_fixed": TRAIN_STEPS}:
+        raise AssertionError(f"ode_demo launches {demo_launches}")
+    if dmeter.f_nfe != 37 * TRAIN_STEPS or dmeter.f_calls != TRAIN_STEPS:
+        raise AssertionError(f"ode_demo forward NFE {dmeter.f_nfe}, "
+                             f"expected 37 a step")
+    if not all(np.isfinite(demo_losses)) or not moved > 0.0:
+        raise AssertionError(f"ode_demo losses {demo_losses}, weight "
+                             f"change {moved}")
+
     kernels = [
         {"name": "dopri5_mlp_step", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/step_kernel.cu",
@@ -443,6 +651,17 @@ def main() -> int:
          "launches": train_launches["mlp_adjoint_solve"],
          "max_abs_err": k3_err[f32], "ms": adj_ms,
          "plain_ms": adj_plain_ms},
+        {"name": "fixed_solve", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/fixed_kernel.cu",
+         "replaces": "tfdiffeq_tpu/ops/pallas_fixed.py:102",
+         "launches": k8_launches, "max_abs_err": k8_err[f32],
+         "ms": fixed_ms, "plain_ms": fixed_plain_ms},
+        {"name": "fixed_adjoint_solve", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/fixed_adjoint_kernel.cu",
+         "replaces": "tfdiffeq_tpu/ops/pallas_fixed.py:726",
+         "launches": demo_launches["mlp_adjoint_solve_fixed"],
+         "max_abs_err": k9_err[f32], "ms": fadj_ms,
+         "plain_ms": fadj_plain_ms},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """PyTorch port: the generic `odeint_adjoint` against the JAX package's, and
-the options of the training path that are not ported yet.
+the options of the training path that are not ported yet (and, beside
+them, the fixed-grid options that once were refused).
 
 The same numpy inputs go to both packages and the loss is <ys, g_out>.
 Gradients wrt the parameters, y0 and t agree within 1e-7 relative to each
@@ -212,19 +213,47 @@ def _generic_call(**kw):
 
 @pytest.mark.parametrize("call, item", [
     (_generic_call(adjoint_mode="interpolated"), "item 3"),
-    (_generic_call(method="rk4"), "item 4"),
-    (_generic_call(adjoint_method="euler"), "item 5"),
     (_generic_call(options={"fuse": True}), "item 16"),
     (_generic_call(method="fixed_adams"), "item 12"),
     (_spec_call(per_sample=True), "item 9"),
-    (_spec_call(num_steps=4), "item 11"),
-    (_spec_call(method="rk4"), "item 11"),
     (_spec_call(adjoint_method="adams"), "item 12"),
     (lambda: PL.main(["--train_dir", "ckpt", "--niters", "1"]), "item 19"),
     (lambda: PL.main(["--dp", "--niters", "1"]), "item 18"),
-], ids=["interpolated", "fixed_forward", "fixed_adjoint", "fuse", "adams",
-        "per_sample", "num_steps", "fused_fixed", "fused_adams",
+], ids=["interpolated", "fuse", "adams", "per_sample", "fused_adams",
         "train_dir", "dp"])
 def test_unported_options_raise(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+@pytest.mark.parametrize("fused, kw, grad", [
+    (False, dict(method="rk4"), 0.375),
+    (False, dict(adjoint_method="euler"), 0.0),
+    (True, dict(num_steps=4), np.exp(-1.0)),
+    (True, dict(method="rk4"), 0.375),
+], ids=["fixed_forward", "fixed_adjoint", "num_steps", "fused_fixed"])
+def test_fixed_grid_training_options_run(fused, kw, grad):
+    """The fixed-grid options these calls once refused (ROADMAP items 4, 5
+    and 11) now train. On dy/dt = -y over one unit interval, the forward
+    matches the generic solve and d sum(y(1)) / dy0 is the adjoint
+    method's one-step factor: 1 - 1 + 1/2 - 1/6 + 1/24 = 0.375 for rk4, 0
+    for euler, exp(-1) for dopri5, which ignores num_steps
+    (tests/test_torch_adjoint_fixed.py and test_torch_fixed_fused.py hold
+    these paths to the reference)."""
+    y0 = torch.ones(3, 2, dtype=torch.float64, requires_grad=True)
+    t = torch.tensor([0.0, 1.0], dtype=torch.float64)
+    if fused:
+        spec = PF.MLPSpec(activation="identity")
+        w = [(-torch.eye(2, dtype=torch.float64), None)]
+        ys = PF.odeint_adjoint_mlp(spec, w, y0, t, **kw)
+    else:
+        ys = P.odeint_adjoint(lambda tt, y: -y, y0, t, **kw)
+    ys[-1].sum().backward()
+    method = kw.get("method", "dopri5")
+    ref = P.solve(lambda tt, y: -y, torch.ones(3, 2, dtype=torch.float64), t,
+                  method=method, rtol=1e-6 if fused else 1e-7,
+                  atol=1e-8 if fused else 1e-9)
+    np.testing.assert_allclose(ys.detach().numpy(), ref.ys.numpy(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(y0.grad.numpy(), grad, rtol=1e-5,
+                               atol=1e-15)

@@ -250,11 +250,26 @@ def test_loop_options_are_no_ops_and_max_steps_is_refused():
 
 
 @pytest.mark.parametrize("method,item", [
-    ("rk4", "item 4"), ("euler", "item 4"), ("adams", "item 12"),
-    ("fixed_adams", "item 12"), ("hyper_euler", "item 13")])
+    ("adams", "item 12"), ("fixed_adams", "item 12"),
+    ("hyper_euler", "item 13")])
 def test_unported_methods_name_their_roadmap_item(method, item):
     with pytest.raises(NotImplementedError, match=item):
         P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0], method=method)
+
+
+@pytest.mark.parametrize("method", ["rk4", "euler"])
+def test_fixed_grid_methods_are_ported(method):
+    """The fixed-grid methods (once refused here, ROADMAP item 4) solve
+    as the reference does (tests/test_torch_fixed_grid.py holds them to it
+    in full)."""
+    t = np.array([0.0, 0.5, 1.0])
+    ref = J.solve(lambda tt, y: -y, jnp.ones(2, jnp.float64), jnp.asarray(t),
+                  method=method)
+    res = P.solve(lambda tt, y: -y, torch.ones(2, dtype=F64), _tt(t),
+                  method=method)
+    np.testing.assert_allclose(res.ys.numpy(), np.asarray(ref.ys),
+                               rtol=1e-14)
+    assert list(res.stats) == [int(x) for x in ref.stats]
 
 
 @pytest.mark.parametrize("option,item", [

@@ -226,7 +226,6 @@ def test_ode_func_module_and_seeded_generator():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(per_sample=True), "item 9"),
-    (dict(method="rk4"), "item 11"),
     (dict(method="fixed_adams"), "item 12"),
 ])
 def test_unported_fused_options_name_their_roadmap_item(kwargs, item):
@@ -255,3 +254,20 @@ def test_fused_input_validation():
         PF.solve_mlp_stepwise(p, torch.tensor(y0), [1.0, 0.0])
     one = PF.solve_mlp(p, torch.tensor(y0), [0.5])
     assert one.ys.shape == (1, 8, 2) and list(one.stats) == [0, 0, 0, 0]
+
+
+def test_fused_rk4_is_ported():
+    """solve_mlp_spec(method='rk4') (once refused, ROADMAP item 11) runs
+    the fixed-grid kernel's plain version on the CPU and matches the
+    generic rk4 on the same grid (tests/test_torch_fixed_fused.py holds it
+    to the reference)."""
+    params, y0 = _setup(B=8)
+    spec = PF.MLPSpec(input_power=3)
+    w = [(torch.tensor(params["w1"]), torch.tensor(params["b1"])),
+         (torch.tensor(params["w2"]), torch.tensor(params["b2"]))]
+    t = torch.linspace(0.0, 1.0, 5, dtype=F64)
+    res = PF.solve_mlp_spec(spec, w, torch.tensor(y0), t, method="rk4")
+    ref = P.solve(lambda tt, y: PF.mlp_apply(spec, w, y), torch.tensor(y0),
+                  t, method="rk4")
+    assert list(res.stats) == list(ref.stats) == [17, 4, 0, 0]
+    torch.testing.assert_close(res.ys, ref.ys, rtol=1e-12, atol=1e-12)

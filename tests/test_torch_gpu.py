@@ -1,6 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version, and the launch counters of the slices (the forward solve, and the
-training step of `fast.odeint_adjoint_mlp`).
+version, and the launch counters of the slices (the forward solve, the
+training step of `fast.odeint_adjoint_mlp`, and their fixed-grid paths).
 
 Marked `gpu`; the `cuda` fixture skips every test where
 torch.cuda.is_available() is false (it decides when a test runs, never at
@@ -16,7 +16,11 @@ K3 its batch sums, in a fixed order the plain versions follow), so float64
 results agree to 1e-12 and whole solves and sweeps take identical step
 sequences. Float32 whole solves are held to the reference's float32 budget
 (rtol 1e-3, atol 2e-4); float32 sweeps to 1e-3 relative to each output's
-largest entry (tests/test_fused_adjoint.py's bar).
+largest entry (tests/test_fused_adjoint.py's bar). The fixed-grid kernels
+K8 and K9 take no step decisions: float64 within 1e-12 (relative to each
+output's largest entry for K9), float32 within 1e-5 absolute (K8, the bar
+of tests/test_fixed_fused.py) and 1e-4 relative (K9), and both bitwise
+equal from run to run.
 """
 
 import numpy as np
@@ -24,7 +28,9 @@ import pytest
 import torch
 
 from tfdiffeq_tpu_torch import fast
-from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, cuda_kernels as ck
+from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, cuda_fixed as cf, \
+    cuda_kernels as ck
+from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
 
 pytestmark = pytest.mark.gpu
 
@@ -36,6 +42,7 @@ def cuda():
                     "false")
     ck.reset_launch_counts()
     ca.reset_launch_counts()
+    cf.reset_launch_counts()
     return torch.device("cuda")
 
 
@@ -283,3 +290,122 @@ def test_training_step_launches_each_kernel_once(cuda):
     assert meter.f_calls == meter.b_calls == 2 and meter.b_nfe > 0
     for w, b in W:
         assert torch.isfinite(w.grad).all() and torch.isfinite(b.grad).all()
+
+
+def _fixed_case(device, dtype, time_input=False, B=300, seed=7):
+    """A 2 -> 24 -> 2 tanh MLP on y**3 (with a time column when asked)
+    and its packed weights."""
+    rng = np.random.RandomState(seed)
+    dims = [(2 + int(time_input), 24), (24, 2)]
+    weights = [(torch.tensor(rng.randn(i, o) * 0.4 / np.sqrt(i), dtype=dtype,
+                             device=device),
+                torch.tensor(rng.randn(o) * 0.05, dtype=dtype, device=device))
+               for i, o in dims]
+    y0 = torch.tensor(rng.randn(B, 2), dtype=dtype, device=device)
+    spec = fast.MLPSpec(input_power=3, time_input=time_input)
+    warr, pdims = ck.pack_mlp_weights(weights, dtype, device)
+    return spec, weights, warr, pdims, y0
+
+
+@pytest.mark.parametrize("method", ["euler", "midpoint", "rk4", "rk4_38"])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fixed_kernel_matches_plain(cuda, dtype, sign, method):
+    """K8 on the default grid and on a finer num_steps grid (the Hermite
+    drain, with the time column), both directions."""
+    for time_input, fine in ((False, False), (True, True)):
+        spec, W, warr, dims, y0 = _fixed_case(cuda, dtype, time_input)
+        t = torch.tensor([0.0, 0.37, 1.11, 2.0], dtype=dtype)
+        tau = sign * t if sign > 0 else (sign * t).flip(0)
+        grid = uniform_grid(tau[0], tau[-1], 25) if fine else tau
+        f0 = sign * fast.mlp_apply(spec, W, y0, t=sign * float(tau[0]))
+        kw = dict(f0=f0, activation="tanh", input_power=3,
+                  time_input=time_input, method=method)
+        out, st = cf.mlp_solve_fixed(warr, dims, y0, tau, grid, sign, **kw)
+        again, st2 = cf.mlp_solve_fixed(warr, dims, y0, tau, grid, sign, **kw)
+        ref, st_ref = cf.mlp_solve_fixed_plain(warr, dims, y0, tau, grid,
+                                               sign, **kw)
+        torch.cuda.synchronize()
+        assert st.tolist() == st_ref.tolist() and st[3].item() == 0
+        assert torch.equal(out, again) and torch.equal(st, st2)
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    assert cf.mlp_solve_fixed_launches == 4
+
+
+def test_fixed_kernel_status_and_raises(cuda):
+    """Invalid times give status 3 and a zero tail; what K8 or K9 cannot
+    take raises instead of running the plain version."""
+    spec, W, warr, dims, y0 = _fixed_case(cuda, torch.float32)
+    bad = torch.tensor([0.0, 1.0, 0.5])
+    out, st = cf.mlp_solve_fixed(warr, dims, y0, bad, bad, 1.0,
+                                 input_power=3)
+    assert st.tolist() == [0, 0, 0, 3]
+    assert torch.equal(out[0], y0) and not out[1:].any()
+    wide, wdims = ck.pack_mlp_weights(
+        [(torch.zeros(2, 200), None), (torch.zeros(200, 2), None)],
+        torch.float32, cuda)
+    t = torch.linspace(0.0, 1.0, 3)
+    with pytest.raises(ValueError, match="MAX_WIDTH"):
+        cf.mlp_solve_fixed(wide, wdims, y0, t, t, 1.0)
+    ys = torch.zeros(3, 64, 2, device=cuda)
+    with pytest.raises(ValueError, match="MAX_WIDTH"):
+        cf.mlp_adjoint_solve_fixed(wide, wdims, ys, ys, t, 1.0)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cf.mlp_adjoint_solve_fixed(warr.half(), dims, ys.half(), ys.half(),
+                                   t, 1.0)
+    assert cf.mlp_solve_fixed_launches == 1
+    assert cf.mlp_adjoint_solve_fixed_launches == 0
+
+
+@pytest.mark.parametrize("time_input", [False, True])
+@pytest.mark.parametrize("method", ["rk4", "euler"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fixed_adjoint_kernel_matches_plain(cuda, dtype, method, time_input):
+    """K9 against its plain version, with and without the a_t quadrature,
+    at a batch that leaves threads of the last block idle; bitwise equal
+    run to run."""
+    spec, W, warr, dims, y0 = _fixed_case(cuda, dtype, time_input, B=300)
+    t = torch.linspace(0.0, 2.0, 6, dtype=dtype)
+    ys = fast.solve_mlp_spec(spec, W, y0, t, method="rk4",
+                             num_steps=20).ys.contiguous()
+    g = torch.tensor(np.random.RandomState(8).randn(*ys.shape), dtype=dtype,
+                     device=cuda)
+    kw = dict(num_steps=3, activation="tanh", input_power=3,
+              time_input=time_input, method=method)
+    got = cf.mlp_adjoint_solve_fixed(warr, dims, ys, g, t, 1.0, **kw)
+    again = cf.mlp_adjoint_solve_fixed(warr, dims, ys, g, t, 1.0, **kw)
+    ref = cf.mlp_adjoint_solve_fixed_plain(warr, dims, ys, g, t, 1.0, **kw)
+    torch.cuda.synchronize()
+    assert got[3].tolist() == ref[3].tolist()
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for a, b, c in zip(got, again, ref):
+        assert torch.equal(a, b)
+        if a.is_floating_point():
+            assert _rel(a, c) < tol
+    assert cf.mlp_adjoint_solve_fixed_launches == 2
+
+
+def test_fixed_training_step_launches_each_kernel_once(cuda):
+    """A fused rk4 training step = one K8 launch forward, one K9 launch
+    backward; the mixed cases take K8 + K3 and K2 + K9."""
+    p, y = _bench(512, torch.float32, cuda)
+    W = [(p["w1"].requires_grad_(), p["b1"].requires_grad_()),
+         (p["w2"].requires_grad_(), p["b2"].requires_grad_())]
+    t = torch.linspace(0.0, 5.0, 12)
+    spec = fast.MLPSpec(activation="tanh", input_power=3)
+    res = fast.solve_mlp_spec(spec, W, y, t, method="rk4", num_steps=40)
+    assert cf.mlp_solve_fixed_launches == 1 and res.stats.nfe == 161
+    for method, adjoint_method, counts in (
+            ("rk4", "rk4", (2, 1, 0, 0)), ("rk4", "dopri5", (3, 1, 0, 1)),
+            ("dopri5", "rk4", (3, 2, 1, 1))):
+        ys = fast.odeint_adjoint_mlp(spec, W, y, t, rtol=1e-6, atol=1e-6,
+                                     method=method,
+                                     adjoint_method=adjoint_method,
+                                     num_steps=40, adjoint_num_steps=4)
+        torch.mean(ys ** 2).backward()
+        assert (cf.mlp_solve_fixed_launches,
+                cf.mlp_adjoint_solve_fixed_launches, ck.mlp_solve_launches,
+                ca.mlp_adjoint_solve_launches) == counts
+        for w, b in W:
+            assert torch.isfinite(w.grad).all() and torch.isfinite(b.grad).all()

@@ -1,10 +1,11 @@
 """O(1)-memory gradients via the continuous adjoint ODE.
 
 Counterpart of `tfdiffeq_tpu/adjoint.py` (`odeint_adjoint`) for adaptive
-forward and adjoint methods in the 'resets' mode: a `torch.autograd.Function`
-whose forward solves without a tape and whose backward integrates the
-augmented system (y, a_y, a_params, a_t) backward over each observation
-interval with the generic engine, resetting y to the stored forward state
+and fixed-grid forward and adjoint methods in the 'resets' mode: a
+`torch.autograd.Function` whose forward solves without a tape and whose
+backward integrates the augmented system (y, a_y, a_params, a_t) backward
+over each observation interval with the generic engine, resetting y to the
+stored forward state
 and injecting the output cotangent at every observation time. The
 augmented right-hand side takes the dynamics' VJP with
 `torch.autograd.grad` under `torch.enable_grad()`. Time gradients follow
@@ -16,40 +17,71 @@ Parameters: `func(t, y, params)` with an explicit `params` nest of tensors
 parameters that require grad are the adjoint parameters (torchdiffeq's
 idiom), or a plain `func(t, y)` without parameters.
 
+Fixed-grid methods follow the reference's contracts. A fixed forward
+method's `step_size` becomes the equivalent `num_steps` over [t0, t_end].
+A fixed adjoint method solves each observation interval with the backward
+options filtered to `num_steps` (steps per interval; the default grid, one
+step, when absent), or, given `adjoint_options={'step_size': h}`, walks
+ceil(span_i / h) steps over each interval in one chained sweep
+(`_bwd_fixed_grid_walk`). Adaptive adjoint methods ignore `step_size`.
+
 Not ported yet (NotImplementedError naming the ROADMAP queue 1 item):
-`adjoint_mode='interpolated'` (needs `dense_output`, item 3), fixed-grid
-forward methods (item 4) and adjoint methods (item 5, the fixed-grid
-backward walk), and `options={'fuse': True}` (item 16).
+`adjoint_mode='interpolated'` (needs `dense_output`, item 3) and
+`options={'fuse': True}` (item 16).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from .odeint import _CUSTOM_ALLOWED, _NOT_PORTED_METHODS, SOLVERS, solve
 from .ops.norms import rms_norm
-from .ops.pytree import flatten_state, tree_leaves, tree_unflatten
+from .ops.pytree import (flat_ode_func, flatten_state, tree_leaves,
+                         tree_unflatten)
+from .ops.rk import kahan_add, runge_kutta_step
 from .solvers.base import ADAPTIVE_OPTIONS, SolverStats, Status
+from .solvers.fixed_grid import steps_for_size
 from .utils.nfe import emit_bwd, emit_fwd
 
 Tensor = torch.Tensor
 
-_FIXED = ("euler", "midpoint", "rk4", "rk4_38")
+
+@dataclasses.dataclass(frozen=True)
+class _BackwardWalk:
+    """Per-interval backward grid of a fixed-grid adjoint with step_size.
+
+    Steps walk time backward (t0s[j] > t1s[j]); `reset[j]` marks the first
+    step of an observation interval, where y is reset to the stored forward
+    value ys[obs[j]] and the cotangent g[obs[j]] joins the adjoint.
+    """
+    t0s: tuple
+    t1s: tuple
+    reset: tuple
+    obs: tuple
+
+
+def _build_backward_walk(t_np: np.ndarray, step_size: float) -> _BackwardWalk:
+    t0s, t1s, reset, obs = [], [], [], []
+    for i in range(t_np.shape[0] - 1, 0, -1):
+        n = steps_for_size(abs(float(t_np[i] - t_np[i - 1])), step_size)
+        seg = np.linspace(t_np[i], t_np[i - 1], n + 1)
+        for j in range(n):
+            t0s.append(float(seg[j]))
+            t1s.append(float(seg[j + 1]))
+            reset.append(j == 0)
+            obs.append(i)
+    return _BackwardWalk(tuple(t0s), tuple(t1s), tuple(reset), tuple(obs))
+
+
+def _kind(method) -> str:
+    return SOLVERS.get(method, ("",))[0]
 
 
 def _check_methods(method, adjoint_method, options: dict) -> None:
-    if method in _FIXED:
-        raise NotImplementedError(
-            f"odeint_adjoint with the fixed-grid forward method {method!r} "
-            "is not ported yet: ROADMAP.md queue 1 item 4 "
-            "(solvers/fixed_grid.py)")
-    if adjoint_method in _FIXED:
-        raise NotImplementedError(
-            f"odeint_adjoint with the fixed-grid adjoint method "
-            f"{adjoint_method!r} is not ported yet: ROADMAP.md queue 1 "
-            "item 5 (the fixed-grid backward walk)")
     for m in (method, adjoint_method):
         if m in _NOT_PORTED_METHODS:
             raise NotImplementedError(
@@ -118,6 +150,13 @@ class _Adjoint(torch.autograd.Function):
                               for v, x in zip(vjp, [y_, s_, *ls])]
             return (dy.detach(), -v_y, tuple(-v for v in v_p), -v_t)
 
+        if cfg["walk"] is not None:
+            a_y, ts_bar, a_p, b_nfe, b_acc = _bwd_fixed_grid_walk(
+                cfg["walk"], SOLVERS[cfg["adjoint_method"]][1], aug_dynamics,
+                f_flat, leaves, ys_flat, g_flat, t.detach())
+            emit_bwd(cfg["nfe_meter"], b_nfe, b_acc)
+            return (None, a_y.reshape(shape), ts_bar.to(t.device), *a_p)
+
         a_y = g_flat[-1]
         a_p = tuple(torch.zeros_like(p) for p in leaves)
         a_t0 = torch.zeros((), dtype=t.dtype, device=dev)
@@ -154,6 +193,58 @@ class _Adjoint(torch.autograd.Function):
         return (None, *grads)
 
 
+def _bwd_fixed_grid_walk(walk: _BackwardWalk, tableau, aug_dynamics, f_flat,
+                         leaves, ys_flat, g_flat, t):
+    """The backward walk of a fixed-grid adjoint with step_size: one chained
+    sweep over the concatenated per-interval grids (reference
+    `adjoint.py:_bwd_fixed_grid_walk`). The first step of each interval
+    resets y to ys[i], injects g[i] into a_y and -<f(t_i, y_i), g_i> into
+    a_t, and re-evaluates the stage-0 derivative; every other step takes
+    the chained end derivative of the one before. Kahan accumulation, as in
+    the forward grid walk.
+
+    Returns (dL/dy0 [N], ts_bar [T], parameter cotangents, backward NFE =
+    steps * stages + resets + T, steps).
+    """
+    T = t.shape[0]
+    dev, N = ys_flat.device, ys_flat.shape[1]
+    # d loss / d t_i = <f(t_i, y_i), g_i> for every i (i = 0's comes from
+    # the integrated a_t quadrature instead).
+    t_bars = torch.stack([torch.dot(f_flat(t[i].to(dev), ys_flat[i], leaves),
+                                    g_flat[i]) for i in range(T)]).to(t.dtype)
+    aug0 = (torch.zeros_like(ys_flat[0]), torch.zeros_like(g_flat[0]),
+            tuple(torch.zeros_like(p) for p in leaves),
+            torch.zeros((), dtype=t.dtype, device=dev))
+    aug, unravel_aug = flatten_state(aug0)
+    M = aug.shape[0]
+    flat = flat_ode_func(aug_dynamics, unravel_aug, aug.dtype)
+
+    def aug_f(s, a):
+        return flat(s.to(dev), a)
+
+    comp = f_prev = None
+    for t0, t1, reset, oi in zip(
+            torch.tensor(walk.t0s, dtype=t.dtype),
+            torch.tensor(walk.t1s, dtype=t.dtype), walk.reset, walk.obs):
+        if reset:
+            aug = aug.clone()
+            aug[0:N] = ys_flat[oi].to(aug.dtype)
+            aug[N:2 * N] += g_flat[oi].to(aug.dtype)
+            aug[M - 1] += (-t_bars[oi]).to(aug.dtype)
+            # The reset replaces state: the compensation term is void, and
+            # the stage-0 derivative is evaluated afresh.
+            comp = torch.zeros_like(aug)
+            f_prev = aug_f(t0, aug)
+        res = runge_kutta_step(aug_f, aug, f_prev, t0, t1 - t0, tableau)
+        aug, comp = kahan_add(aug, comp, res.delta)
+        f_prev = res.f1
+    _, a_y, a_p, a_t = unravel_aug(aug)
+    ts_bar = torch.cat([a_t.reshape(1).to(t.dtype), t_bars[1:]])
+    S = len(walk.t0s)
+    b_nfe = S * tableau.stages + int(sum(walk.reset)) + T
+    return a_y + g_flat[0], ts_bar, a_p, b_nfe, S
+
+
 def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
                    rtol=1e-7, atol=1e-9, method: Optional[str] = None,
                    options: Optional[dict] = None, adjoint_rtol=None,
@@ -172,7 +263,9 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     `(trajectory, SolverStats)` of the FORWARD solve.
 
     adjoint_rtol/atol/method default to the forward ones; adjoint_options
-    to the forward options (filtered to the adaptive allowlist).
+    to the forward options, filtered to the adjoint method's allowlist
+    (`num_steps` alone for a fixed-grid method; see the module docstring
+    for `step_size`).
     adjoint_seminorm: control the backward step size on (y, a_y) only
     (Kidger et al. 2020). nfe_meter: an `NFEMeter` that records the
     forward and backward solves. forward_solver(y0, t, params) -> (ys,
@@ -216,11 +309,30 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     # The eager forward has no bounded loop, so telemetry cannot apply
     # (the reference drops it on its while loop the same way).
     fwd_options.pop("telemetry", None)
+    t_np = torch.as_tensor(t).detach().cpu().to(torch.float64).reshape(-1) \
+        .numpy()
+    if (_kind(method) == "fixed" and fwd_options.get("step_size") is not None
+            and "num_steps" not in fwd_options and t_np.shape[0] > 1):
+        # The reference resolves a fixed forward's step_size to the
+        # num_steps of the same uniform grid over [t0, t_end].
+        fwd_options["num_steps"] = steps_for_size(
+            abs(float(t_np[-1] - t_np[0])), fwd_options.pop("step_size"))
+    # The backward solves each observation interval on its own: a grid
+    # constructor cannot apply, and step_size becomes the per-interval walk
+    # of a fixed adjoint method; other adjoint methods ignore it.
     bwd_options.pop("grid_constructor", None)
-    bwd_options.pop("step_size", None)
-    allowed = _CUSTOM_ALLOWED.get(adjoint_method,
-                                  ADAPTIVE_OPTIONS - {"telemetry",
-                                                      "dense_output"})
+    step_size = bwd_options.pop("step_size", None)
+    adj_kind = _kind(adjoint_method)
+    walk = None
+    if step_size is not None and "num_steps" not in bwd_options \
+            and adj_kind == "fixed" and t_np.shape[0] > 1:
+        walk = _build_backward_walk(t_np, float(step_size))
+    if adj_kind == "fixed":
+        allowed = {"num_steps"}
+    else:
+        allowed = _CUSTOM_ALLOWED.get(adjoint_method,
+                                      ADAPTIVE_OPTIONS - {"telemetry",
+                                                          "dense_output"})
     bwd_options = {k: v for k, v in bwd_options.items() if k in allowed}
 
     # Parameters: an explicit nest, a module's own, or none.
@@ -262,8 +374,7 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
         y0_in = y0
     N = y0_in.numel()
 
-    if adjoint_seminorm and SOLVERS.get(adjoint_method,
-                                        ("",))[0] == "adaptive":
+    if adjoint_seminorm and adj_kind == "adaptive":
         def _seminorm(x_flat):
             # Augmented flat layout: [y (N), a_y (N), a_params..., a_t].
             return rms_norm(x_flat[:2 * N])
@@ -275,7 +386,8 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
            "rtol": rtol, "atol": atol, "method": method,
            "fwd_options": fwd_options, "adjoint_rtol": adjoint_rtol,
            "adjoint_atol": adjoint_atol, "adjoint_method": adjoint_method,
-           "bwd_options": bwd_options, "nfe_meter": nfe_meter}
+           "bwd_options": bwd_options, "walk": walk,
+           "nfe_meter": nfe_meter}
     t_in = t if isinstance(t, Tensor) else torch.as_tensor(t)
     if t_in.ndim == 0:
         t_in = t_in[None]

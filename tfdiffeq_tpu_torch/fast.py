@@ -12,19 +12,25 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
 
 - `solve_mlp_spec` / `MLPSpec`: general autonomous or concat-t MLP dynamics
   (any depth and activation in `_ACTIVATIONS`, the state entering as
-  y ** p), both time directions, the five adaptive RK tableaus, one step
-  controller shared by the batch.
+  y ** p), both time directions; the five adaptive RK tableaus with one
+  step controller shared by the batch (K2), or the four fixed-grid
+  methods (euler, midpoint, rk4, rk4_38) on the requested times or a
+  finer `num_steps` / `step_size` grid, in one launch of
+  `ops/cuda_fixed.mlp_solve_fixed` (K8).
 - `solve_mlp_stepwise`: the one-step kernel (`dopri5_mlp_step`, K1) plugged
   into the generic adaptive engine through `AdaptiveConfig.step_override`.
 - `odeint_adjoint_mlp`: the O(1)-memory training path, a
-  `torch.autograd.Function` whose forward is one K2 launch and whose
-  backward is one launch of the adjoint-sweep kernel
-  (`ops/cuda_adjoint.mlp_adjoint_solve`, K3).
+  `torch.autograd.Function` whose forward is one K2 or K8 launch and whose
+  backward is one launch of an adjoint-sweep kernel: K3
+  (`ops/cuda_adjoint.mlp_adjoint_solve`) for an adaptive adjoint method,
+  K9 (`ops/cuda_fixed.mlp_adjoint_solve_fixed`) for a fixed-grid one.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
-item): per-sample controllers (item 9), fixed-grid and Adams methods
-(items 11 and 12), dot precisions other than 'highest' (item 14), and the
-multi-card `axis_name` / `global_batch` coupling (item 18).
+item): per-sample controllers (item 9), Adams methods (item 12), dot
+precisions other than 'highest' (item 14), and the multi-card
+`axis_name` / `global_batch` coupling (item 18). What K2, K3, K8 or K9
+cannot take (widths past `MAX_WIDTH`, weights past the shared-memory
+bound) raises; nothing falls back to the generic engine.
 """
 
 from __future__ import annotations
@@ -38,18 +44,19 @@ import torch
 from .ops import tableaus
 from .ops.controller import StepController
 from .ops.cuda_adjoint import mlp_adjoint_solve
+from .ops.cuda_fixed import mlp_adjoint_solve_fixed, mlp_solve_fixed
 from .ops.cuda_kernels import (_ACTIVATIONS, dopri5_mlp_step, mlp_solve,
                                pack_mlp_weights)
 from .ops.norms import select_initial_step
 from .solvers.adaptive import AdaptiveConfig, solve_adaptive
 from .solvers.base import CanonicalProblem, SolveResult, SolverStats
+from .solvers.fixed_grid import steps_for_size, uniform_grid
 from .utils.nfe import emit_bwd, emit_fwd
 
 Tensor = torch.Tensor
 
 _INT32_MAX = 2 ** 31 - 1
 
-_FIXED_METHODS = frozenset({"euler", "midpoint", "rk4", "rk4_38"})
 _ADAMS_METHODS = frozenset({"adams", "explicit_adams", "fixed_adams"})
 
 
@@ -198,17 +205,54 @@ def solve_mlp_stepwise(params: dict, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
                           max_num_steps=max_num_steps)
 
 
+def _check_method(method: str) -> None:
+    if method in _ADAMS_METHODS:
+        raise NotImplementedError(
+            f"method {method!r} (Adams family) is not ported to the fused "
+            "tier yet: ROADMAP.md queue 1 item 12")
+    if method not in tableaus.TABLEAUS_BY_NAME \
+            and method not in tableaus.FIXED_TABLEAUS_BY_NAME:
+        raise ValueError(f"unknown method {method!r}; available: "
+                         f"{sorted(tableaus.TABLEAUS_BY_NAME)} and "
+                         f"{sorted(tableaus.FIXED_TABLEAUS_BY_NAME)}")
+
+
+def _fixed_grid_tau(tau: Tensor, t: Tensor, num_steps, step_size) -> Tensor:
+    """The fixed-grid step grid in tau-space (reference `fast.py:355`):
+    num_steps or ceil(span / step_size) uniform steps from tau[0] to
+    tau[-1], else the requested times themselves."""
+    if num_steps is not None and step_size is not None:
+        raise ValueError("pass num_steps OR step_size, not both")
+    if num_steps is not None:
+        n = int(num_steps)
+        if n < 1:
+            raise ValueError(f"num_steps must be >= 1, got {n}")
+        return uniform_grid(tau[0], tau[-1], n)
+    if step_size is not None:
+        span = abs(float(t[-1]) - float(t[0]))
+        return uniform_grid(tau[0], tau[-1], steps_for_size(span, step_size))
+    return tau
+
+
 def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
                    atol=1e-8, method: str = "dopri5", max_num_steps=None,
-                   first_step=None, per_sample: bool = False
-                   ) -> SolveResult:
-    """Whole-solve fused adaptive RK for a general MLP neural ODE.
+                   first_step=None, num_steps=None, step_size=None,
+                   per_sample: bool = False) -> SolveResult:
+    """Whole-solve fused RK for a general MLP neural ODE, one launch.
 
     weights: [(W [din, dout], b [dout] or None), ...] on y0's device;
     y0: [B, D]; t may increase or decrease (solved in tau = sign * t, as
-    the generic engine does). The host computes f0 and, when first_step is
-    None, the HNW initial step (2 extra evaluations, else 1, counted in
-    nfe); the kernel does the rest. Returns ys [T, B, D] and stats.
+    the generic engine does). Returns ys [T, B, D] and stats.
+
+    Adaptive methods (dopri5, bosh3, adaptive_heun, tsit5, dopri8) run K2:
+    the host computes f0 and, when first_step is None, the HNW initial
+    step (2 extra evaluations, else 1, counted in nfe); rtol, atol,
+    first_step and max_num_steps apply, num_steps and step_size do not.
+    Fixed-grid methods (euler, midpoint, rk4, rk4_38) run K8 on the
+    requested times, or on a uniform grid of `num_steps` steps or of steps
+    at most `step_size` long with the outputs cubic-Hermite interpolated
+    (nfe = 1 + stages * steps; the tolerances, first_step and
+    max_num_steps do not apply).
     """
     if spec.dot_precision != "highest":
         raise NotImplementedError(
@@ -218,17 +262,7 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
         raise NotImplementedError(
             "per_sample=True is not ported yet: ROADMAP.md queue 1 item 9 "
             "(per-sample tier)")
-    if method in _FIXED_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} (fixed grid) is not ported to the fused "
-            "tier yet: ROADMAP.md queue 1 item 11")
-    if method in _ADAMS_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} (Adams family) is not ported to the fused "
-            "tier yet: ROADMAP.md queue 1 item 12")
-    if method not in tableaus.TABLEAUS_BY_NAME:
-        raise ValueError(f"unknown method {method!r}; available: "
-                         f"{sorted(tableaus.TABLEAUS_BY_NAME)}")
+    _check_method(method)
     y0, t = _check_spec_inputs(y0, t)
     dtype, dev = y0.dtype, y0.device
     if t.shape[0] == 1:
@@ -242,6 +276,17 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
         return sign_d * mlp_apply(spec, weights, y, sign_d * s)
 
     f0 = g(tau[0].to(dev), y0)
+    warrays, dims = pack_mlp_weights(weights, dtype, dev)
+    if method in tableaus.FIXED_TABLEAUS_BY_NAME:
+        out, stats = mlp_solve_fixed(
+            warrays, dims, y0.contiguous(), tau,
+            _fixed_grid_tau(tau, t, num_steps, step_size), float(sign),
+            f0=f0.contiguous(), activation=spec.activation,
+            final_activation=spec.final_activation,
+            input_power=spec.input_power, time_input=spec.time_input,
+            method=method)
+        return SolveResult(out, SolverStats(*stats.tolist()))
+
     order = tableaus.TABLEAUS_BY_NAME[method].order
     if first_step is None:
         rdt = torch.as_tensor(rtol, dtype=dtype).to(dev)
@@ -253,7 +298,6 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
         dt0 = torch.abs(torch.as_tensor(first_step, dtype=dtype))
         extra_nfe = 1
 
-    warrays, dims = pack_mlp_weights(weights, dtype, dev)
     out, stats = mlp_solve(
         warrays, dims, y0.contiguous(), tau, dt0, rtol, atol, float(sign),
         f0=f0.contiguous(), activation=spec.activation,
@@ -266,34 +310,10 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     return SolveResult(out, SolverStats(nfe + extra_nfe, nacc, nrej, status))
 
 
-def _check_adjoint_methods(method: str, adjoint_method: str, num_steps,
-                           step_size, adjoint_num_steps,
-                           per_sample: bool) -> None:
-    if per_sample:
-        raise NotImplementedError(
-            "odeint_adjoint_mlp(per_sample=True) is not ported yet: "
-            "ROADMAP.md queue 1 item 9 (per-sample tier)")
-    fixed = [m for m in (method, adjoint_method) if m in _FIXED_METHODS]
-    if fixed or num_steps is not None or step_size is not None \
-            or adjoint_num_steps is not None:
-        raise NotImplementedError(
-            "fixed-grid training (fixed methods, num_steps, step_size, "
-            "adjoint_num_steps) is not ported to the fused tier yet: "
-            "ROADMAP.md queue 1 item 11")
-    for m in (method, adjoint_method):
-        if m in _ADAMS_METHODS:
-            raise NotImplementedError(
-                f"method {m!r} (Adams family) is not ported to the fused "
-                "tier yet: ROADMAP.md queue 1 item 12")
-        if m not in tableaus.TABLEAUS_BY_NAME:
-            raise ValueError(f"unknown method {m!r}; available: "
-                             f"{sorted(tableaus.TABLEAUS_BY_NAME)}")
-
-
 class _AdjointMLP(torch.autograd.Function):
-    """Forward: `solve_mlp_spec` (K2). Backward: K3's whole sweep
-    (reference `fast.py:_vjp_bwd`). `cfg` carries the static options and
-    receives the forward stats."""
+    """Forward: `solve_mlp_spec` (K2 or K8). Backward: K3's or K9's whole
+    sweep (reference `fast.py:_vjp_bwd`). `cfg` carries the static options
+    and receives the forward stats."""
 
     @staticmethod
     def forward(ctx, cfg, y0, t, *flat):
@@ -301,7 +321,9 @@ class _AdjointMLP(torch.autograd.Function):
         res = solve_mlp_spec(cfg["spec"], weights, y0, t, rtol=cfg["rtol"],
                              atol=cfg["atol"], method=cfg["method"],
                              max_num_steps=cfg["max_num_steps"],
-                             first_step=cfg["first_step"])
+                             first_step=cfg["first_step"],
+                             num_steps=cfg["num_steps"],
+                             step_size=cfg["step_size"])
         emit_fwd(cfg["nfe_meter"], res.stats.nfe, res.stats.n_accepted)
         cfg["stats"] = res.stats
         ctx.cfg = cfg
@@ -327,22 +349,30 @@ class _AdjointMLP(torch.autograd.Function):
         t_h = _host_times(t, dtype)
         sign = 1.0 if bool(t_h[-1] >= t_h[0]) else -1.0
         tau = sign * t_h
-        if cfg["adjoint_first_step"] is not None:
-            dt0 = torch.abs(torch.as_tensor(cfg["adjoint_first_step"],
-                                            dtype=dtype))
-        else:
-            # A tenth of the last observation gap (the reference's cheap
-            # heuristic; the controller settles within a few attempts).
-            dt0 = 0.1 * torch.abs(tau[-1] - tau[-2])
         warrays, dims = pack_mlp_weights(weights, dtype, dev)
-        ay0, aw, at, bstats = mlp_adjoint_solve(
-            warrays, dims, ys.contiguous(), g.contiguous(), tau, dt0,
-            cfg["adjoint_rtol"], cfg["adjoint_atol"], sign,
-            activation=spec.activation,
-            final_activation=spec.final_activation,
-            input_power=spec.input_power, time_input=spec.time_input,
-            seminorm=cfg["adjoint_seminorm"], method=cfg["adjoint_method"],
-            max_steps=cfg["max_steps"])
+        net = dict(activation=spec.activation,
+                   final_activation=spec.final_activation,
+                   input_power=spec.input_power, time_input=spec.time_input)
+        if cfg["adjoint_method"] in tableaus.FIXED_TABLEAUS_BY_NAME:
+            ay0, aw, at, bstats = mlp_adjoint_solve_fixed(
+                warrays, dims, ys.contiguous(), g.contiguous(), tau, sign,
+                num_steps=cfg["bwd_num_steps"], method=cfg["adjoint_method"],
+                **net)
+        else:
+            if cfg["adjoint_first_step"] is not None:
+                dt0 = torch.abs(torch.as_tensor(cfg["adjoint_first_step"],
+                                                dtype=dtype))
+            else:
+                # A tenth of the last observation gap (the reference's
+                # cheap heuristic; the controller settles within a few
+                # attempts).
+                dt0 = 0.1 * torch.abs(tau[-1] - tau[-2])
+            ay0, aw, at, bstats = mlp_adjoint_solve(
+                warrays, dims, ys.contiguous(), g.contiguous(), tau, dt0,
+                cfg["adjoint_rtol"], cfg["adjoint_atol"], sign,
+                seminorm=cfg["adjoint_seminorm"],
+                method=cfg["adjoint_method"], max_steps=cfg["max_steps"],
+                **net)
         nfe, nacc, _, status = bstats.tolist()
         emit_bwd(cfg["nfe_meter"], nfe, nacc)
         at = at.to(t.device, t.dtype)
@@ -376,11 +406,20 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
                        adjoint_num_steps=None, per_sample: bool = False):
     """Fused O(1)-memory training path for MLP neural ODEs.
 
-    Forward = ONE whole-solve kernel launch (`solve_mlp_spec`, K2);
-    backward = ONE launch of the adjoint-sweep kernel (K3) running the
-    interval loop, stored-state resets, cotangent injections, adaptive
-    stepping, MLP VJPs and the parameter quadrature. On CPU tensors both
-    run their plain PyTorch versions.
+    Forward = ONE whole-solve kernel launch (`solve_mlp_spec`: K2 for an
+    adaptive method, K8 for a fixed-grid one); backward = ONE launch of an
+    adjoint-sweep kernel running the interval loop, stored-state resets,
+    cotangent injections, the steps, MLP VJPs and the parameter
+    quadrature: K3 (adaptive steps) for an adaptive adjoint_method, K9 for
+    a fixed-grid one. On CPU tensors every kernel runs its plain PyTorch
+    version.
+
+    Fixed-grid options, as in the reference: num_steps or step_size shape
+    a fixed forward's grid (`solve_mlp_spec`); a fixed backward takes
+    adjoint_num_steps equal steps per observation interval, else the
+    forward's num_steps, else 1 (a forward step_size is not carried over:
+    the generic `odeint_adjoint` walks ceil(span_i / step_size) steps per
+    interval instead). Any mix of adaptive and fixed methods works.
 
     Differentiable wrt `weights` ([(W [din, dout], b [dout] or None), ...]
     on y0's device), `y0` [B, D] and `t` (when they require grad); for
@@ -393,8 +432,12 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     adjoint_rtol = rtol if adjoint_rtol is None else adjoint_rtol
     adjoint_atol = atol if adjoint_atol is None else adjoint_atol
     adjoint_method = method if adjoint_method is None else adjoint_method
-    _check_adjoint_methods(method, adjoint_method, num_steps, step_size,
-                           adjoint_num_steps, per_sample)
+    if per_sample:
+        raise NotImplementedError(
+            "odeint_adjoint_mlp(per_sample=True) is not ported yet: "
+            "ROADMAP.md queue 1 item 9 (per-sample tier)")
+    _check_method(method)
+    _check_method(adjoint_method)
     weights = [(W, b) for W, b in weights]
     has_bias = [b is not None for _, b in weights]
     flat = [x for W, b in weights for x in ((W, b) if b is not None
@@ -413,6 +456,11 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
                          else _INT32_MAX),
            "first_step": first_step,
            "adjoint_first_step": adjoint_first_step,
+           "num_steps": num_steps, "step_size": step_size,
+           "bwd_num_steps": int(adjoint_num_steps
+                                if adjoint_num_steps is not None
+                                else (num_steps if num_steps is not None
+                                      else 1)),
            "nfe_meter": nfe_meter}
     t_in = t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
     ys = _AdjointMLP.apply(cfg, y0, t_in, *flat)

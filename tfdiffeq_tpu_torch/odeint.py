@@ -1,11 +1,15 @@
 """`odeint` front-end: validate inputs, dispatch to a solver, integrate.
 
 Counterpart of `tfdiffeq_tpu/odeint.py` for the five adaptive RK methods
-(dopri5, bosh3, adaptive_heun, tsit5, dopri8): same signature, defaults
-(rtol=1e-7, atol=1e-9, method='dopri5') and `SOLVERS` names, tensor or
-tuple/dict state, reverse time, per-leaf tolerances.
+(dopri5, bosh3, adaptive_heun, tsit5, dopri8) and the four fixed-grid ones
+(euler, midpoint, rk4, rk4_38): same signature, defaults (rtol=1e-7,
+atol=1e-9, method='dopri5') and `SOLVERS` names, tensor or tuple/dict
+state, reverse time, per-leaf tolerances.
 
-Options, against the reference's adaptive allowlist:
+Options of the fixed-grid methods: ``grid_constructor``, ``step_size`` and
+``num_steps`` (`solvers/fixed_grid.py`); tolerances do not apply to them.
+
+Options of the adaptive methods, against the reference's allowlist:
 
 - honoured: ``first_step``, ``safety``, ``ifactor``, ``dfactor``,
   ``pcoeff``, ``icoeff``, ``dt_min``, ``max_num_steps``, ``norm`` ('rms',
@@ -19,12 +23,13 @@ Options, against the reference's adaptive allowlist:
   budget for its bounded XLA loop. There is no such budget here (the
   default is unlimited); ``max_num_steps`` caps the attempts;
 - not ported yet, raising NotImplementedError with the ROADMAP item that
-  brings them: ``fuse`` (queue 1 item 16), ``per_sample`` (item 9),
-  ``dense_output`` and ``telemetry`` (item 3, remaining engine options).
+  brings them: ``fuse`` (queue 1 item 16; for every method),
+  ``per_sample`` (item 9), ``dense_output`` and ``telemetry`` (item 3,
+  remaining engine options).
 
-Methods that are not ported yet (fixed grid, Adams and VCABM,
-hypersolvers) raise NotImplementedError naming their ROADMAP item. No
-method falls back to another path.
+Methods that are not ported yet (Adams and VCABM, hypersolvers) raise
+NotImplementedError naming their ROADMAP item. No method falls back to
+another path.
 """
 
 from __future__ import annotations
@@ -38,12 +43,15 @@ from .ops.controller import StepController
 from .ops.norms import max_norm
 from .ops.pytree import flatten_state, tree_leaves
 from .solvers.adaptive import AdaptiveConfig, solve_adaptive
-from .solvers.base import (ADAPTIVE_OPTIONS, SolveResult, Status,
-                           canonicalize, check_options)
+from .solvers.base import (ADAPTIVE_OPTIONS, FIXED_GRID_OPTIONS,
+                           SolveResult, Status, canonicalize, check_options)
+from .solvers.fixed_grid import build_grid_from_options, solve_fixed_grid
 
 #: Public solver registry: name -> (kind, implementation).
-SOLVERS = {name: ("adaptive", tab)
-           for name, tab in tableaus.TABLEAUS_BY_NAME.items()}
+SOLVERS = {**{name: ("fixed", tab)
+              for name, tab in tableaus.FIXED_TABLEAUS_BY_NAME.items()},
+           **{name: ("adaptive", tab)
+              for name, tab in tableaus.TABLEAUS_BY_NAME.items()}}
 
 #: Option allowlists of solvers added with `register_solver`.
 _CUSTOM_ALLOWED = {}
@@ -51,8 +59,6 @@ _CUSTOM_ALLOWED = {}
 #: Methods of the reference not ported yet -> the ROADMAP item that brings
 #: them (ROADMAP.md, queue 1).
 _NOT_PORTED_METHODS = {
-    **{m: "queue 1 item 4 (solvers/fixed_grid.py)"
-       for m in ("euler", "midpoint", "rk4", "rk4_38")},
     **{m: "queue 1 item 12 (Adams family)"
        for m in ("adams", "explicit_adams", "fixed_adams")},
     **{m: "queue 1 item 13 (hypersolvers)"
@@ -97,22 +103,34 @@ def _resolve_tolerance(tol, y0):
     return flat
 
 
+def _allowed_options(method: str) -> frozenset:
+    kind = SOLVERS[method][0]
+    if kind == "fixed":
+        return FIXED_GRID_OPTIONS
+    return _CUSTOM_ALLOWED.get(method, ADAPTIVE_OPTIONS)
+
+
 def _check_not_ported(method: str, options: dict) -> None:
     if method in _NOT_PORTED_METHODS:
         raise NotImplementedError(
             f"method {method!r} is not ported to PyTorch yet: ROADMAP.md "
             f"{_NOT_PORTED_METHODS[method]}")
+    if method not in SOLVERS:
+        raise ValueError(f"Unknown method {method!r}; available: "
+                         f"{sorted(SOLVERS)}")
+    allowed = _allowed_options(method)
     for key, item in _NOT_PORTED_OPTIONS.items():
-        if options.get(key):
+        if key in allowed and options.get(key):
             raise NotImplementedError(
                 f"options={{{key!r}: ...}} is not ported to PyTorch yet: "
                 f"ROADMAP.md {item}")
-    if "max_steps" in options:
+    if "max_steps" in options and "max_steps" in allowed:
         raise ValueError(
             "options['max_steps'] is the reference's static step budget for "
             "its bounded XLA loop and has no meaning in the eager loop; use "
             "options['max_num_steps'] to cap the attempts")
-    if options.get("loop", "while") not in ("while", "bounded"):
+    if "loop" in allowed and options.get("loop", "while") not in (
+            "while", "bounded"):
         raise ValueError(f"unknown loop mode {options['loop']!r} "
                          "(expected 'while' or 'bounded')")
 
@@ -129,12 +147,8 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
     method = method or "dopri5"
     options = dict(options or {})
     _check_not_ported(method, options)
-    if method not in SOLVERS:
-        raise ValueError(f"Unknown method {method!r}; available: "
-                         f"{sorted(SOLVERS)}")
     kind, impl = SOLVERS[method]
-    options = check_options(options, _CUSTOM_ALLOWED.get(method,
-                                                         ADAPTIVE_OPTIONS))
+    options = check_options(options, _allowed_options(method))
     for key in _NO_OP_OPTIONS:
         options.pop(key, None)
 
@@ -142,7 +156,10 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
     rtol = _resolve_tolerance(rtol, y0)
     atol = _resolve_tolerance(atol, y0)
 
-    if kind == "adaptive":
+    if kind == "fixed":
+        grid = build_grid_from_options(t, options, prob)
+        result = solve_fixed_grid(prob, impl, grid=grid)
+    elif kind == "adaptive":
         ctrl = StepController(
             safety=float(options.get("safety", 0.9)),
             ifactor=float(options.get("ifactor", 10.0)),

@@ -30,7 +30,8 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu")
+SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
+           "fixed_kernel.cu", "fixed_adjoint_kernel.cu")
 HEADERS = ("mlp_rk.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -63,6 +64,25 @@ _ADJOINT_ARGS = ([_P] * 9                                   # tensors
                  + [_I, _P, _I, _I, _I, _I]                 # network
                  + [_I, _I, _P, _P, _P, _P]                 # tableau
                  + [_P])                                    # stream
+_SOLVE_FIXED_ARGS = ([_P] * 8                               # tensors
+                     + [_I] * 5                             # G .. threads
+                     + [_D, _I]                             # sign, valid
+                     + [_I, _P, _I, _I, _I, _I]             # network
+                     + [_I, _P, _P, _P]                     # tableau
+                     + [_P])                                # stream
+_ADJOINT_FIXED_ARGS = ([_P] * 10                            # tensors
+                       + [ctypes.c_long]                    # work size
+                       + [_I] * 5                           # T .. n_sub
+                       + [_D]                               # sign
+                       + [_I, _P, _I, _I, _I, _I]           # network
+                       + [_I, _P, _P, _P]                   # tableau
+                       + [_P])                              # stream
+
+#: Launch functions -> argument lists, each in float32 and float64.
+_ENTRIES = {"tfd_dopri5_mlp_step": _STEP_ARGS, "tfd_mlp_solve": _SOLVE_ARGS,
+            "tfd_mlp_adjoint": _ADJOINT_ARGS,
+            "tfd_mlp_solve_fixed": _SOLVE_FIXED_ARGS,
+            "tfd_mlp_adjoint_fixed": _ADJOINT_FIXED_ARGS}
 
 
 def _nvcc() -> str:
@@ -131,18 +151,11 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build()))
-        for name in ("tfd_dopri5_mlp_step_f32", "tfd_dopri5_mlp_step_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = _STEP_ARGS
-            fn.restype = _I
-        for name in ("tfd_mlp_solve_f32", "tfd_mlp_solve_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = _SOLVE_ARGS
-            fn.restype = _I
-        for name in ("tfd_mlp_adjoint_f32", "tfd_mlp_adjoint_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = _ADJOINT_ARGS
-            fn.restype = _I
+        for entry, args in _ENTRIES.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, entry + suffix)
+                fn.argtypes = args
+                fn.restype = _I
         lib.tfd_error_string.argtypes = [_I]
         lib.tfd_error_string.restype = ctypes.c_char_p
         _lib = lib

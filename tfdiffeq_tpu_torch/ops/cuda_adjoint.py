@@ -25,17 +25,17 @@ reference (`pack` sublane packing, `n_blocks` grid blocks, `stream_io`,
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
 from . import _build
-from .cuda_kernels import (MAX_LAYERS, MAX_WEIGHT_BYTES, MAX_WIDTH,
-                           _ACT_CODES, _ACTIVATION_GRADS, _ACTIVATIONS,
-                           _check_float, _controller_factor, _device_kind,
+from .cuda_kernels import (MAX_WEIGHT_BYTES, _ACT_CODES, _ACTIVATION_GRADS,
+                           _ACTIVATIONS, _check_activations, _check_float,
+                           _check_mlp,
+                           _controller_factor, _device_kind, _dims_arg,
                            _owned_sums, _ptr, _solve_setup, _stream,
-                           _tree_sum, _unpack)
+                           _tableau_args, _tree_sum, _unpack)
 from .tableaus import TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
@@ -307,10 +307,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
                          f"{sorted(TABLEAUS_BY_NAME)}")
-    for a in (activation, final_activation):
-        if a not in _ACTIVATIONS:
-            raise ValueError(f"unknown activation {a!r}; available: "
-                             f"{sorted(_ACTIVATIONS)}")
+    _check_activations(activation, final_activation)
     if ys.ndim != 3 or g.shape != ys.shape:
         raise ValueError(f"ys and g must both be [T, B, D], got "
                          f"{tuple(ys.shape)} and {tuple(g.shape)}")
@@ -328,20 +325,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
         raise TypeError(f"mlp_adjoint_solve takes float32 or float64, got "
                         f"{dtype}")
     T, B, D = ys.shape
-    widths = [w for dd in dims for w in dd]
-    if len(dims) > MAX_LAYERS:
-        raise ValueError(f"mlp_adjoint_solve supports up to MAX_LAYERS="
-                         f"{MAX_LAYERS} layers, got {len(dims)}")
-    if max(widths) > MAX_WIDTH:
-        raise ValueError(f"mlp_adjoint_solve supports layer widths up to "
-                         f"MAX_WIDTH={MAX_WIDTH}, got {max(widths)}")
-    if dims[0][0] != D + int(time_input) or dims[-1][1] != D:
-        raise ValueError(f"MLP dims {dims} do not map a {D}-feature state "
-                         f"(time_input={time_input}) to itself")
-    n_w = sum(din * dout + dout for din, dout in dims)
-    if tuple(warrays.shape) != (n_w,):
-        raise ValueError(f"warrays has shape {tuple(warrays.shape)}, "
-                         f"expected ({n_w},) for dims {dims}")
+    n_w = _check_mlp("mlp_adjoint_solve", warrays, dims, D, time_input)
     smem = _shared_bytes(dims, method, time_input, dtype)
     if smem > MAX_WEIGHT_BYTES:
         raise ValueError(
@@ -357,11 +341,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     tau_d = tau_h.to(ys.device)
     tab = TABLEAUS_BY_NAME[method]
     S = tab.stages
-    a = [0.0] * (S * S)
-    for i, row in enumerate(tab.a, start=1):
-        a[i * S:i * S + len(row)] = row
-    dbl = lambda xs: (ctypes.c_double * len(xs))(*xs)
-    dims_c = (ctypes.c_int * (2 * len(dims)))(*widths)
+    c, a, b_sol, b_err = _tableau_args(tab)
     ay0 = torch.empty((B, D), dtype=dtype, device=ys.device)
     aw = torch.empty(n_w, dtype=dtype, device=ys.device)
     at = torch.empty((), dtype=dtype, device=ys.device)
@@ -377,10 +357,10 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                  D, ADJOINT_THREADS, float(dt0), float(rtol), float(atol),
                  float(dt_min), float(sign), float(safety), float(ifactor),
                  float(dfactor), int(min(max_steps, 2 ** 31 - 1)),
-                 int(seminorm), len(dims), dims_c, _ACT_CODES[activation],
-                 _ACT_CODES[final_activation], int(input_power),
-                 int(time_input), S, tab.order, dbl(tab.c), dbl(a),
-                 dbl(tab.b_sol), dbl(tab.b_err), _stream(ys.device))
+                 int(seminorm), len(dims), _dims_arg(dims),
+                 _ACT_CODES[activation], _ACT_CODES[final_activation],
+                 int(input_power), int(time_input), S, tab.order, c, a,
+                 b_sol, b_err, _stream(ys.device))
     _build.check(err, "mlp_adjoint_solve launch")
     mlp_adjoint_solve_launches += 1
     return ay0, aw, at, stats

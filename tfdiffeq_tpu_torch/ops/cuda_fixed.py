@@ -1,0 +1,398 @@
+"""The fixed-grid kernels of the fused tier: wrappers, launch counters and
+plain PyTorch versions.
+
+Counterpart of `tfdiffeq_tpu/ops/pallas_fixed.py` for euler, midpoint, rk4
+and rk4_38 (sources in `tfdiffeq_tpu_torch/csrc/`, built by `_build.py`):
+
+- K8 `mlp_solve_fixed` (csrc/fixed_kernel.cu) replaces
+  `_make_fixed_solve_kernel` (pallas_fixed.py:102): a whole fixed-grid
+  solve of a general MLP neural ODE in one launch.
+- K9 `mlp_adjoint_solve_fixed` (csrc/fixed_adjoint_kernel.cu) replaces
+  `_make_fixed_adjoint_kernel` (pallas_fixed.py:726): the whole fixed-grid
+  adjoint backward sweep.
+
+A fixed grid needs no error norm and no controller, so no sample waits for
+another: both kernels give each sample its own thread, over as many blocks
+as the batch needs. The wrappers take the plain versions only for tensors
+on the CPU; a CUDA tensor launches the kernel or raises. The plain versions
+follow the kernels operation for operation on the batch-major [B, D]
+layout, so a float64 kernel run equals its plain version to roundoff and a
+float32 one usually to the bit.
+
+`mlp_solve_fixed_launches` and `mlp_adjoint_solve_fixed_launches` count
+wrapper calls that launched their kernel; `reset_launch_counts()` zeroes
+them. Not ported: `rhs='cnf'` (K7), and the TPU machinery of the reference
+(`pack` sublane packing, `n_blocks` grid blocks, padded lanes, `matmul`).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .cuda_adjoint import _aug_eval_plain
+from .cuda_kernels import (MAX_WEIGHT_BYTES, _ACT_CODES, _check_activations,
+                           _check_float, _check_mlp, _device_kind, _dims_arg,
+                           _increasing, _net_plain, _ptr, _rk_stages,
+                           _stream, _tableau_args, _tree_sum)
+from .tableaus import FIXED_TABLEAUS_BY_NAME
+
+Tensor = torch.Tensor
+
+#: Threads per block of K8 and K9 (one sample a thread); K9's per-block
+#: quadrature sums take a tree over them, so a power of two.
+FIXED_THREADS = 64
+
+mlp_solve_fixed_launches = 0
+mlp_adjoint_solve_fixed_launches = 0
+
+
+def reset_launch_counts() -> None:
+    global mlp_solve_fixed_launches, mlp_adjoint_solve_fixed_launches
+    mlp_solve_fixed_launches = 0
+    mlp_adjoint_solve_fixed_launches = 0
+
+
+def _tableau(method: str):
+    if method not in FIXED_TABLEAUS_BY_NAME:
+        raise ValueError(f"unknown fixed-grid method {method!r}; available: "
+                         f"{sorted(FIXED_TABLEAUS_BY_NAME)}")
+    return FIXED_TABLEAUS_BY_NAME[method]
+
+
+# ---------------------------------------------------------------------------
+# K8: the whole fixed-grid solve (pallas_fixed.py:102)
+# ---------------------------------------------------------------------------
+
+def mlp_solve_fixed_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
+                          grid: Tensor, sign, *, f0: Tensor,
+                          activation: str = "tanh",
+                          final_activation: str = "identity",
+                          input_power: int = 1, time_input: bool = False,
+                          method: str = "rk4") -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of K8, step for step. Same contract as
+    `mlp_solve_fixed`, except that f0 is required."""
+    tab = _tableau(method)
+    dev, dtype = y0.device, y0.dtype
+    T, G = tau.shape[0], grid.shape[0]
+    tau_h = tau.detach().to("cpu", dtype)
+    grid_h = grid.detach().to("cpu", dtype)
+    tau_d, grid_d = tau_h.to(dev), grid_h.to(dev)
+    sgn = torch.as_tensor(sign, dtype=dtype).to(dev)
+    raw_f = _net_plain(warrays, dims, activation, final_activation,
+                       input_power, time_input)
+
+    def f(s, y):
+        # Canonical dynamics: g(tau, y) = sign * f(sign * tau, y).
+        return sgn * raw_f(sgn * s, y)
+
+    out = torch.zeros((T,) + tuple(y0.shape), dtype=dtype, device=dev)
+    out[0] = y0
+    if not (_increasing(tau_h) and _increasing(grid_h)):
+        # Non-monotonic times: status 3, output zero beyond row 0.
+        return out, torch.tensor([0, 0, 0, 3], dtype=torch.int32, device=dev)
+    y, fy, comp = y0, f0, torch.zeros_like(y0)
+    oi = 1
+    for i in range(G - 1):
+        t0, t1 = grid_d[i], grid_d[i + 1]
+        dt = t1 - t0
+        delta = _rk_stages(tab, f, y, fy, dt, t0=t0)[1]
+        adj = delta - comp
+        y1 = y + adj
+        comp = (y1 - y) - adj
+        f1 = f(t1, y1)
+        # Cubic-Hermite drain of every requested time in (t0, t1] through
+        # the output cursor (pallas_fixed.py:76-98); the last step flushes
+        # the times that roundoff left beyond the grid's end.
+        df0, df1 = dt * fy, dt * f1
+        cb = 2.0 * (y - y1) + df0 + df1
+        cc = 3.0 * (y1 - y) - 2.0 * df0 - df1
+        last = i == G - 2
+        while oi < T and (bool(tau_h[oi] <= grid_h[i + 1]) or last):
+            tj = tau_d[oi]
+            x = (tj - t0) / dt
+            val = ((cb * x + cc) * x + df0) * x + y
+            out[oi] = torch.where(tj == t1, y1, val)
+            oi += 1
+        y, fy = y1, f1
+    stats = torch.tensor([1 + tab.stages * (G - 1), G - 1, 0, 0],
+                         dtype=torch.int32, device=dev)
+    return out, stats
+
+
+def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
+                    grid: Tensor, sign, *, f0: Tensor = None,
+                    activation: str = "tanh",
+                    final_activation: str = "identity",
+                    input_power: int = 1, time_input: bool = False,
+                    method: str = "rk4") -> Tuple[Tensor, Tensor]:
+    """Whole-solve fused fixed-grid RK for a general MLP neural ODE, one
+    kernel launch: every stage evaluation, the Kahan-compensated state
+    update, the chained end derivative and the output drain.
+
+    warrays/dims: from `pack_mlp_weights`; method: euler, midpoint, rk4 or
+    rk4_38. y0: [B, D]; tau: [T] canonical output times (tau = sign * t,
+    increasing); grid: [G] canonical step grid from tau[0] to tau[-1] (tau
+    itself, or finer; outputs between grid points are cubic-Hermite
+    interpolated); sign: +1 or -1; f0: the signed derivative at (grid[0],
+    y0), computed here when None.
+
+    Returns (out [T, B, D], stats [4] int32 on y0's device: nfe = 1 +
+    stages * (G - 1), steps = G - 1, 0, status). Status 3 (INVALID_TIMES):
+    tau or grid not strictly increasing; the output is then zero beyond
+    row 0 and the counts are 0.
+    """
+    tab = _tableau(method)
+    _check_activations(activation, final_activation)
+    if y0.ndim != 2:
+        raise ValueError(f"y0 must be [B, D], got {tuple(y0.shape)}")
+    dtype = y0.dtype
+    if f0 is None:
+        sgn = torch.as_tensor(sign, dtype=dtype).to(y0.device)
+        g0 = torch.as_tensor(grid[0], dtype=dtype).to(y0.device)
+        f0 = sgn * _net_plain(warrays, dims, activation, final_activation,
+                              input_power, time_input)(sgn * g0, y0)
+    if _device_kind(y0, f0, warrays) == "cpu":
+        return mlp_solve_fixed_plain(
+            warrays, dims, y0, tau, grid, sign, f0=f0, activation=activation,
+            final_activation=final_activation, input_power=input_power,
+            time_input=time_input, method=method)
+
+    global mlp_solve_fixed_launches
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"mlp_solve_fixed takes float32 or float64, got "
+                        f"{dtype}")
+    B, D = y0.shape
+    T, G = tau.shape[0], grid.shape[0]
+    n_w = _check_mlp("mlp_solve_fixed", warrays, dims, D, time_input)
+    smem = (n_w + G + T) * y0.element_size()
+    if smem > MAX_WEIGHT_BYTES:
+        raise ValueError(f"mlp_solve_fixed: {n_w} weights, {G} grid points "
+                         f"and {T} output times need {smem} bytes of shared "
+                         f"memory, above the {MAX_WEIGHT_BYTES} the kernel "
+                         "may use")
+    for name, x in (("y0", y0), ("f0", f0), ("warrays", warrays)):
+        _check_float(name, x, dtype)
+    if f0.shape != y0.shape:
+        raise ValueError("f0 must have the shape of y0")
+
+    tau_h = tau.detach().to("cpu", dtype)
+    grid_h = grid.detach().to("cpu", dtype)
+    valid = _increasing(tau_h) and _increasing(grid_h)
+    S = tab.stages
+    c, a, b_sol, _ = _tableau_args(tab)
+    out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
+    stats = torch.empty(4, dtype=torch.int32, device=y0.device)
+    work = torch.empty((S + 3) * B * D, dtype=dtype, device=y0.device)
+    # Named, so that they live until the launch has read them.
+    grid_d, tau_d = grid_h.to(y0.device), tau_h.to(y0.device)
+    lib = _build.library()
+    fn = (lib.tfd_mlp_solve_fixed_f32 if dtype == torch.float32
+          else lib.tfd_mlp_solve_fixed_f64)
+    with torch.cuda.device(y0.device):
+        err = fn(_ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0),
+                 _ptr(warrays), _ptr(out), _ptr(stats), _ptr(work), G, T, B,
+                 D, FIXED_THREADS, float(sign),
+                 int(valid), len(dims), _dims_arg(dims),
+                 _ACT_CODES[activation], _ACT_CODES[final_activation],
+                 int(input_power), int(time_input), S, c, a, b_sol,
+                 _stream(y0.device))
+    _build.check(err, "mlp_solve_fixed launch")
+    mlp_solve_fixed_launches += 1
+    return out, stats
+
+
+# ---------------------------------------------------------------------------
+# K9: the whole fixed-grid adjoint sweep (pallas_fixed.py:726)
+# ---------------------------------------------------------------------------
+
+def _block_sums(x: Tensor, threads: int) -> Tensor:
+    """Sums of x [B, R] over the batch in K9's order: each block of
+    `threads` consecutive samples meets in `_tree_sum`'s tree (samples past
+    B add 0), then the block sums add in block order. Returns [R]."""
+    B, R = x.shape
+    n_blk = -(-B // threads)
+    x = torch.nn.functional.pad(x, (0, 0, 0, n_blk * threads - B))
+    part = _tree_sum(x.view(n_blk, threads, R).transpose(1, 2))
+    total = part[0]
+    for k in range(1, n_blk):
+        total = total + part[k]
+    return total
+
+
+def mlp_adjoint_solve_fixed_plain(warrays: Tensor, dims, ys: Tensor,
+                                  g: Tensor, tau: Tensor, sign, *,
+                                  num_steps: int = 1,
+                                  activation: str = "tanh",
+                                  final_activation: str = "identity",
+                                  input_power: int = 1,
+                                  time_input: bool = False,
+                                  method: str = "rk4"
+                                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of K9, in the kernel's arithmetic order. Same
+    contract as `mlp_adjoint_solve_fixed`.
+
+    Order of the quadratures: each sample accumulates its own weighted
+    stage cotangents, per step sum_j (h b_j) (sign x_j) over the stages in
+    order and then added to its running sum; the per-sample sums meet over
+    the batch once, at the end, in `_block_sums`' order. (The reference
+    sums each stage over the batch first, so the two agree to roundoff.)
+    """
+    tab = _tableau(method)
+    dev, dtype = ys.device, ys.dtype
+    T, B, D = ys.shape
+    S, n_sub = tab.stages, int(num_steps)
+    on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
+    sf = on(sign)
+    sigma = on(-tau.detach().to("cpu", dtype))
+    aug = _aug_eval_plain(warrays, dims, activation, final_activation,
+                          input_power, time_input)
+    n_sub_d = on(float(n_sub))
+
+    def comb(ks):
+        acc = None
+        for bj, k in zip(tab.b_sol, ks):
+            if bj != 0.0:
+                term = (h * bj) * k
+                acc = term if acc is None else acc + term
+        return acc
+
+    ay = torch.zeros((B, D), dtype=dtype, device=dev)
+    acc = torch.zeros((B, warrays.shape[0] + int(time_input)), dtype=dtype,
+                      device=dev)
+    for i in range(T - 1, 0, -1):
+        y = ys[i]
+        ay = ay + g[i]
+        cy = torch.zeros_like(y)
+        cay = torch.zeros_like(y)
+        s_start = sigma[i]
+        h = (sigma[i - 1] - s_start) / n_sub_d
+        for j in range(n_sub):
+            s = s_start + h * j
+            ky, kay, kx = [], [], []
+            for st in range(S):
+                yi, ayi = y, ay
+                if st > 0:
+                    for aij, kyj, kayj in zip(tab.a[st - 1], ky, kay):
+                        if aij != 0.0:
+                            yi = yi + (h * aij) * kyj
+                            ayi = ayi + (h * aij) * kayj
+                f, v_y, xw, v_t = aug((-sf) * (s + tab.c[st] * h), yi, ayi)
+                ky.append((-sf) * f)
+                kay.append(sf * v_y)
+                if time_input:
+                    xw = torch.cat([xw, v_t[:, None]], dim=1)
+                kx.append(sf * xw)
+            adj = comb(ky) - cy
+            y_new = y + adj
+            cy = (y_new - y) - adj
+            y = y_new
+            adj = comb(kay) - cay
+            ay_new = ay + adj
+            cay = (ay_new - ay) - adj
+            ay = ay_new
+            acc = acc + comb(kx)
+    total = _block_sums(acc, FIXED_THREADS)
+    n_w = warrays.shape[0]
+    at = total[n_w] if time_input else torch.zeros((), dtype=dtype,
+                                                    device=dev)
+    stats = torch.tensor([S * n_sub * (T - 1), n_sub * (T - 1), 0, 0],
+                         dtype=torch.int32, device=dev)
+    return ay + g[0], total[:n_w], at, stats
+
+
+def _adjoint_work_size(dims, S: int, B: int, D: int,
+                       time_input: bool) -> int:
+    """csrc/fixed_adjoint_kernel.cu fixed_adjoint_work_size: per-sample rows
+    of B values for (y, a_y), their compensations and stage derivatives,
+    each layer's inputs and act'(z), and the step and running quadrature
+    sums."""
+    R = sum(din * dout + dout for din, dout in dims) + int(time_input)
+    rows = ((4 + 2 * S) * D + sum(din + dout for din, dout in dims)
+            + 2 * R)
+    return rows * B
+
+
+def mlp_adjoint_solve_fixed(warrays: Tensor, dims, ys: Tensor, g: Tensor,
+                            tau: Tensor, sign, *, num_steps: int = 1,
+                            activation: str = "tanh",
+                            final_activation: str = "identity",
+                            input_power: int = 1, time_input: bool = False,
+                            method: str = "rk4"
+                            ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Fixed-grid fused adjoint backward sweep of an MLP neural ODE.
+
+    For each observation interval in reverse, y is reset to ys[i] and g[i]
+    joins a_y, then `num_steps` equal steps of the tableau in sigma = -tau
+    integrate (y, a_y) with the MLP forward and its VJP in every stage, and
+    each sample accumulates its share of the parameter (and, with
+    `time_input`, the a_t) quadrature; the batch sums come at the end, in a
+    fixed order with no atomics (the same bits on every run). That sum is a
+    second, small launch of the same wrapper call: the launch counter
+    counts one per call.
+
+    warrays/dims: from `pack_mlp_weights`; ys, g: [T, B, D] forward
+    trajectory and output cotangents at the canonical times tau ([T],
+    increasing; sign as in `mlp_solve_fixed`). Returns (ay0 [B, D] =
+    dL/dy0, aw [n_w] = dL/dweights in `pack_mlp_weights`' layout, at (0-d:
+    the a_t quadrature; 0 when autonomous), stats [4] int32: nfe = stages *
+    num_steps * (T - 1), steps, 0, 0).
+    """
+    tab = _tableau(method)
+    _check_activations(activation, final_activation)
+    if ys.ndim != 3 or g.shape != ys.shape:
+        raise ValueError(f"ys and g must both be [T, B, D], got "
+                         f"{tuple(ys.shape)} and {tuple(g.shape)}")
+    if int(num_steps) < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    kw = dict(num_steps=int(num_steps), activation=activation,
+              final_activation=final_activation, input_power=input_power,
+              time_input=time_input, method=method)
+    if _device_kind(ys, g, warrays) == "cpu":
+        return mlp_adjoint_solve_fixed_plain(warrays, dims, ys, g, tau, sign,
+                                             **kw)
+
+    global mlp_adjoint_solve_fixed_launches
+    dtype = ys.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"mlp_adjoint_solve_fixed takes float32 or float64, "
+                        f"got {dtype}")
+    T, B, D = ys.shape
+    n_w = _check_mlp("mlp_adjoint_solve_fixed", warrays, dims, D,
+                     time_input)
+    smem = (n_w + FIXED_THREADS) * ys.element_size()
+    if smem > MAX_WEIGHT_BYTES:
+        raise ValueError(f"mlp_adjoint_solve_fixed: {n_w} weights need "
+                         f"{smem} bytes of shared memory, above the "
+                         f"{MAX_WEIGHT_BYTES} the kernel may use")
+    for name, x in (("ys", ys), ("g", g), ("warrays", warrays)):
+        _check_float(name, x, dtype)
+
+    S = tab.stages
+    c, a, b_sol, _ = _tableau_args(tab)
+    R = n_w + int(time_input)
+    n_blk = -(-B // FIXED_THREADS)
+    tau_d = tau.detach().to("cpu", dtype).to(ys.device)
+    ay0 = torch.empty((B, D), dtype=dtype, device=ys.device)
+    aw = torch.empty(n_w, dtype=dtype, device=ys.device)
+    at = torch.empty((), dtype=dtype, device=ys.device)
+    stats = torch.empty(4, dtype=torch.int32, device=ys.device)
+    partial = torch.empty(n_blk * R, dtype=dtype, device=ys.device)
+    n_work = _adjoint_work_size(dims, S, B, D, time_input)
+    work = torch.empty(n_work, dtype=dtype, device=ys.device)
+    lib = _build.library()
+    fn = (lib.tfd_mlp_adjoint_fixed_f32 if dtype == torch.float32
+          else lib.tfd_mlp_adjoint_fixed_f64)
+    with torch.cuda.device(ys.device):
+        err = fn(_ptr(tau_d), _ptr(ys), _ptr(g), _ptr(warrays), _ptr(ay0),
+                 _ptr(aw), _ptr(at), _ptr(stats), _ptr(partial), _ptr(work),
+                 n_work, T, B, D, FIXED_THREADS, int(num_steps),
+                 float(sign), len(dims), _dims_arg(dims),
+                 _ACT_CODES[activation], _ACT_CODES[final_activation],
+                 int(input_power), int(time_input), S, c, a, b_sol,
+                 _stream(ys.device))
+    _build.check(err, "mlp_adjoint_solve_fixed launch")
+    mlp_adjoint_solve_fixed_launches += 1
+    return ay0, aw, at, stats

@@ -132,6 +132,59 @@ def _check_float(name: str, x: Tensor, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_activations(*names) -> None:
+    for a in names:
+        if a not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {a!r}; available: "
+                             f"{sorted(_ACTIVATIONS)}")
+
+
+def _increasing(x: Tensor) -> bool:
+    """Whether the 1-D x increases strictly (trivially so below 2)."""
+    return x.numel() < 2 or bool(torch.all(x[1:] > x[:-1]))
+
+
+def _check_mlp(name: str, warrays: Tensor, dims, D: int,
+               time_input: bool) -> int:
+    """Raise on an MLP the kernels cannot take (depth, widths, a network
+    that does not map the D-feature state to itself, a packed array of the
+    wrong length); returns the packed weight count."""
+    widths = [w for dd in dims for w in dd]
+    if len(dims) > MAX_LAYERS:
+        raise ValueError(f"{name} supports up to MAX_LAYERS={MAX_LAYERS} "
+                         f"layers, got {len(dims)}")
+    if max(widths) > MAX_WIDTH:
+        raise ValueError(f"{name} supports layer widths up to "
+                         f"MAX_WIDTH={MAX_WIDTH}, got {max(widths)}")
+    if dims[0][0] != D + int(time_input) or dims[-1][1] != D:
+        raise ValueError(f"MLP dims {dims} do not map a {D}-feature state "
+                         f"(time_input={time_input}) to itself")
+    n_w = sum(din * dout + dout for din, dout in dims)
+    if tuple(warrays.shape) != (n_w,):
+        raise ValueError(f"warrays has shape {tuple(warrays.shape)}, "
+                         f"expected ({n_w},) for dims {dims}")
+    return n_w
+
+
+def _tableau_args(tab: ButcherTableau):
+    """A tableau as the launch functions take it: c, a as a row-major
+    [stages, stages] array, b_sol and b_err (zeros when the tableau has no
+    error weights), each a ctypes double array."""
+    S = tab.stages
+    a = [0.0] * (S * S)
+    for i, row in enumerate(tab.a, start=1):
+        a[i * S:i * S + len(row)] = row
+    dbl = lambda xs: (ctypes.c_double * len(xs))(*xs)
+    return (dbl(tab.c), dbl(a), dbl(tab.b_sol),
+            dbl(tab.b_err if tab.b_err else (0.0,) * S))
+
+
+def _dims_arg(dims):
+    """((din, dout), ...) as the launch functions' int array."""
+    widths = [w for dd in dims for w in dd]
+    return (ctypes.c_int * len(widths))(*widths)
+
+
 def _ptr(x: Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
@@ -413,9 +466,7 @@ def _solve_setup(tau: Tensor, dt0, dtype):
     # Straight to `dtype`: a Python float must not pass through float32.
     dt0 = torch.maximum(torch.abs(torch.as_tensor(
         dt0, dtype=dtype, device="cpu").detach()), dt_min)
-    valid = bool(torch.all(tau_h[1:] > tau_h[:-1])) if tau_h.numel() > 1 \
-        else True
-    return tau_h, dt_min, dt0, valid
+    return tau_h, dt_min, dt0, _increasing(tau_h)
 
 
 def mlp_solve_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
@@ -544,10 +595,7 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
                          f"{sorted(TABLEAUS_BY_NAME)}")
-    for a in (activation, final_activation):
-        if a not in _ACTIVATIONS:
-            raise ValueError(f"unknown activation {a!r}; available: "
-                             f"{sorted(_ACTIVATIONS)}")
+    _check_activations(activation, final_activation)
     if y0.ndim != 2:
         raise ValueError(f"y0 must be [B, D], got {tuple(y0.shape)}")
     dtype = y0.dtype
@@ -570,20 +618,7 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
         raise TypeError(f"mlp_solve takes float32 or float64, got {dtype}")
     B, D = y0.shape
     T = tau.shape[0]
-    widths = [w for dd in dims for w in dd]
-    if len(dims) > MAX_LAYERS:
-        raise ValueError(f"mlp_solve supports up to MAX_LAYERS={MAX_LAYERS} "
-                         f"layers, got {len(dims)}")
-    if max(widths) > MAX_WIDTH:
-        raise ValueError(f"mlp_solve supports layer widths up to "
-                         f"MAX_WIDTH={MAX_WIDTH}, got {max(widths)}")
-    if dims[0][0] != D + int(time_input) or dims[-1][1] != D:
-        raise ValueError(f"MLP dims {dims} do not map a {D}-feature state "
-                         f"(time_input={time_input}) to itself")
-    n_w = sum(din * dout + dout for din, dout in dims)
-    if tuple(warrays.shape) != (n_w,):
-        raise ValueError(f"warrays has shape {tuple(warrays.shape)}, "
-                         f"expected ({n_w},) for dims {dims}")
+    n_w = _check_mlp("mlp_solve", warrays, dims, D, time_input)
     if n_w * y0.element_size() > MAX_WEIGHT_BYTES:
         raise ValueError(f"mlp_solve: {n_w} weights exceed the "
                          f"{MAX_WEIGHT_BYTES} bytes of shared memory "
@@ -599,18 +634,16 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     tau_d = tau_h.to(y0.device)
     tab = TABLEAUS_BY_NAME[method]
     S = tab.stages
-    a = [0.0] * (S * S)
-    for i, row in enumerate(tab.a, start=1):
-        a[i * S:i * S + len(row)] = row
-    dbl = lambda xs: (ctypes.c_double * len(xs))(*xs)
-    dims_c = (ctypes.c_int * (2 * len(dims)))(*widths)
+    c, a, b_sol, b_err = _tableau_args(tab)
+    dims_c = _dims_arg(dims)
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
     work = torch.empty((S + 5) * B * D, dtype=dtype, device=y0.device)
     lib = _build.library()
     fn = (lib.tfd_mlp_solve_f32 if dtype == torch.float32
           else lib.tfd_mlp_solve_f64)
-    c_mid = dbl(tab.c_mid) if tab.c_mid is not None else None
+    c_mid = (None if tab.c_mid is None
+             else (ctypes.c_double * S)(*tab.c_mid))
     with torch.cuda.device(y0.device):
         err = fn(_ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(warrays), _ptr(out),
                  _ptr(stats), _ptr(work), T, B, D, SOLVE_THREADS,
@@ -619,9 +652,8 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
                  int(min(max_steps, 2 ** 31 - 1)), int(valid), len(dims),
                  dims_c, _ACT_CODES[activation],
                  _ACT_CODES[final_activation], int(input_power),
-                 int(time_input), S, tab.order, int(tab.fsal), dbl(tab.c),
-                 dbl(a), dbl(tab.b_sol), dbl(tab.b_err), c_mid,
-                 _stream(y0.device))
+                 int(time_input), S, tab.order, int(tab.fsal), c, a, b_sol,
+                 b_err, c_mid, _stream(y0.device))
     _build.check(err, "mlp_solve launch")
     mlp_solve_launches += 1
     return out, stats

@@ -333,3 +333,12 @@ TABLEAUS_BY_NAME = {
     "tsit5": TSIT5,
     "dopri8": DOPRI8,
 }
+
+# ... and of the fixed-grid one (the reference keeps it in
+# ops/pallas_fixed.py:51-56).
+FIXED_TABLEAUS_BY_NAME = {
+    "euler": EULER,
+    "midpoint": MIDPOINT,
+    "rk4": RK4,
+    "rk4_38": RK4_38,
+}

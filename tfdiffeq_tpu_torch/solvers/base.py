@@ -55,6 +55,8 @@ class CanonicalProblem(NamedTuple):
     dtype: torch.dtype    # state dtype
     time_dtype: torch.dtype
     native: bool = False  # y0 kept in its own shape
+    user_func: Any = None  # the caller's func(t, y) (for grid_constructor)
+    user_y0: Any = None    # the caller's y0
 
 
 def _identity(x: Tensor) -> Tensor:
@@ -112,8 +114,13 @@ def canonicalize(func: Callable, y0: Any, t) -> CanonicalProblem:
         return sign_y * f_flat((sign * s).to(device), y)
 
     return CanonicalProblem(g, y_flat, tau, sign, unravel, dtype, time_dtype,
-                            native)
+                            native, user_func=func, user_y0=y0)
 
+
+#: Options accepted by the fixed-grid solvers (euler, midpoint, rk4,
+#: rk4_38); 'fuse' is refused in odeint.py.
+FIXED_GRID_OPTIONS = frozenset({"grid_constructor", "step_size",
+                                "num_steps", "fuse"})
 
 #: Options accepted by the adaptive embedded-RK solvers (the reference's
 #: list; odeint.py says which of them this package honours, ignores or
@@ -134,3 +141,35 @@ def check_options(options: Optional[dict], allowed: frozenset) -> dict:
         raise TypeError(f"Unknown solver options: {sorted(unknown)}; "
                         f"allowed: {sorted(allowed)}")
     return options
+
+
+def hermite_interp_at(grid: Tensor, ys_grid: Tensor, fs_grid: Tensor,
+                      ts: Tensor) -> Tensor:
+    """Cubic-Hermite interpolation of a grid trajectory onto requested times
+    (the reference's upgrade over linear output interpolation: O(h^4) from
+    the node derivatives the steps already computed).
+
+    grid: [G] increasing host times; ys_grid, fs_grid: [G, *state]; ts: [T]
+    host times. Returns [T, *state] on the states' device.
+    """
+    idx = torch.clamp(torch.searchsorted(grid, ts, side="left"), 1,
+                      grid.shape[0] - 1)
+    t_lo = grid[idx - 1]
+    h = grid[idx] - t_lo
+    pos = h > 0
+    x = torch.where(pos, (ts - t_lo) / torch.where(pos, h, torch.ones_like(h)),
+                    torch.zeros_like(h))
+    bshape = (ts.shape[0],) + (1,) * (ys_grid.ndim - 1)
+    dev = ys_grid.device
+    x = x.to(ys_grid.dtype).reshape(bshape).to(dev)
+    h = h.to(ys_grid.dtype).reshape(bshape).to(dev)
+    idx = idx.to(dev)
+    y_lo, y_hi = ys_grid[idx - 1], ys_grid[idx]
+    f_lo, f_hi = fs_grid[idx - 1], fs_grid[idx]
+    x2 = x * x
+    x3 = x2 * x
+    h00 = 2 * x3 - 3 * x2 + 1
+    h10 = x3 - 2 * x2 + x
+    h01 = -2 * x3 + 3 * x2
+    h11 = x3 - x2
+    return h00 * y_lo + h10 * h * f_lo + h01 * y_hi + h11 * h * f_hi
