@@ -59,9 +59,33 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     losses, weights moved; at the first step the fused gradients agree with
     `--adjoint --method rk4` (the generic fixed-grid adjoint) within 1e-4
     relative. The training step is timed on the host clock.
+14. K13 `conv_solve` at the ODE-Net's full width (C = 64, 7x7, 32 groups,
+    dopri5, rtol = atol = 1e-3, t = [0, 1]) on the port's stem applied to
+    `--synthetic_hard` images, at B = 128 and B = 256 (8 and 15 controller
+    blocks of 18): against its plain version in float32 and float64
+    (identical stats in every block; float64 within 1e-12 relative,
+    float32 within 1e-5, whether bitwise equal is printed), run to run
+    bitwise; against the generic engine `solve(ODEConvFunc)` (cuDNN, TF32
+    off) run block by block with the kernel's first steps, within the
+    solve's tolerance. K13, its plain version and the generic engine are
+    timed with CUDA events at B = 128.
+15. The ODE-Net example (`examples/odenet_mnist.py --synthetic_hard
+    --adjoint --fused`) at batch 128: three SGD steps (K13 forward, generic
+    adjoint backward), then one `--fused_eval` batch of 256. Counters zeroed
+    before, read after: K13 = 4 launches (one a step, one for the
+    evaluation); finite losses, the weights move; f-NFE and b-NFE printed;
+    the step time is the median of the three on the host clock. A fourth
+    step runs under torch.profiler: the kernels' device time, the device's
+    idle share and the kernels that take the most time.
 
-The last two lines of standard output are one JSON object with each
-kernel's record and, last, {"ok": true, "device": {...}}.
+Before the last line come the card's name and power limit and one JSON
+object with each kernel's record: its launches on its path, the largest difference
+from its plain version, its time and its plain version's, and its bound,
+the least time the card could take for the work of this run's inputs (the
+larger of its operations over the float32 peak of 67 TFLOP/s and the
+bytes it must read and write once over 3.35 TB/s). No single PyTorch call
+computes any of these whole solves, steps or sweeps, so library_ms is
+null. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -117,6 +141,27 @@ def _host_ms(fn, reps=3):
     return statistics.median(times), times
 
 
+def _profiled(fn, top=6):
+    """One call of fn under torch.profiler: (host ms, device-busy ms,
+    [(kernel name, device ms, calls)] of the `top` kernels by device
+    time). Device time is the sum of the kernels' own times."""
+    import time
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda k: -k[1])
+    return host_ms, sum(k[1] for k in kernels), kernels[:top]
+
+
 def _timed(fn, reps=5, inner=1):
     """Median milliseconds per call of fn over `reps` CUDA-event windows of
     `inner` calls each, after one warm-up call."""
@@ -134,6 +179,48 @@ def _timed(fn, reps=5, inner=1):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+#: H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
+#: and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def _bound(flops: float, nbytes: float):
+    """(bound in ms, what sets it): the larger of the operations over the
+    float32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _mlp_flops(dims, input_power: int = 1) -> int:
+    """One MLP evaluation for one sample: a multiply and an add per weight,
+    a bias add and an activation per output, the input power's
+    multiplies."""
+    return (sum(2 * din * dout + 2 * dout for din, dout in dims)
+            + dims[-1][1] * (input_power - 1))
+
+
+def _combine_flops(tab) -> int:
+    """An RK attempt's combines for one state element: each nonzero stage,
+    solution, error and midpoint weight costs a multiply and an add; the
+    error scale, ratio and square about 8 more."""
+    nnz = sum(1 for row in tab.a for a in row if a != 0.0)
+    for w in (tab.b_sol, tab.b_err, tab.c_mid or ()):
+        nnz += sum(1 for x in w if x != 0.0)
+    return 2 * nnz + 8
+
+
+def _conv_eval_flops(C: int, H: int, W: int) -> int:
+    """One evaluation of the ODE-Net field for one sample: two 3x3 SAME
+    convs over the taps that fall inside the map ((3H - 2)(3W - 2) of the
+    9HW), a multiply and an add a weight; bias and t * TM; three
+    GroupNorms (about 8 operations an element) and two relus."""
+    P = H * W
+    conv = 2 * C * C * (3 * H - 2) * (3 * W - 2) + 3 * C * P
+    return 2 * conv + 3 * 8 * C * P + 2 * C * P
 
 
 def main() -> int:
@@ -154,9 +241,10 @@ def main() -> int:
     from tfdiffeq_tpu_torch import NFEMeter, convert, fast, odeint_adjoint, \
         solve
     from tfdiffeq_tpu_torch.examples import latent_ode as lode, \
-        ode_demo as demo
+        ode_demo as demo, odenet_mnist as onet
     from tfdiffeq_tpu_torch.ops import _build, cuda_adjoint as ca, \
-        cuda_fixed as cf, cuda_kernels as ck
+        cuda_conv as cc, cuda_fixed as cf, cuda_kernels as ck
+    from tfdiffeq_tpu_torch.ops.tableaus import DOPRI5, RK4
     from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
 
     # [2] build.
@@ -191,7 +279,7 @@ def main() -> int:
         k1_err[dtype] = max(errs)
 
     # [4] K2 against its plain version at the bench protocol.
-    k2_err, k2_args = {}, {}
+    k2_err, k2_args, k2_st = {}, {}, {}
     for dtype in (f32, f64):
         p, y, _ = _bench_params(B, dtype, dev)
         W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
@@ -222,6 +310,7 @@ def main() -> int:
         else:
             torch.testing.assert_close(out, ref, rtol=1e-3, atol=2e-4)
         k2_err[dtype] = err
+        k2_st[dtype] = st.tolist()
 
     # [5] the slice through the public entry points.
     p, y, p_np = _bench_params(B, f32, dev)
@@ -450,7 +539,7 @@ def main() -> int:
     # [10] K8 against its plain version at the bench widths.
     t64 = {dtype: torch.linspace(0.0, SPAN, T_OUT, dtype=dtype)
            for dtype in (f32, f64)}
-    k8_err, k8_args = {}, {}
+    k8_err, k8_args, k8_st = {}, {}, {}
     for method, steps, dtype in (
             ("rk4", 500, f32), ("rk4", 500, f64), ("rk4", None, f32),
             ("rk4", None, f64), ("euler", None, f64),
@@ -489,6 +578,7 @@ def main() -> int:
         if steps is not None:
             k8_err[dtype] = err
             k8_args[dtype] = (args, kw)
+            k8_st[dtype] = st.tolist()
 
     # [11] the fixed-grid forward through the public entry point.
     p, y, p_np = _bench_params(B, f32, dev)
@@ -526,7 +616,7 @@ def main() -> int:
         raise AssertionError("K8 and the generic fixed-grid engine differ")
 
     # [12] K9 against its plain version at the bench training protocol.
-    k9_err, k9_args = {}, {}
+    k9_err, k9_args, k9_st = {}, {}, {}
     for dtype in (f64, f32):
         (fargs, fkw) = k8_args[dtype]
         ys = cf.mlp_solve_fixed(*fargs, **fkw)[0]
@@ -560,6 +650,7 @@ def main() -> int:
                                  "version")
         k9_err[dtype] = max(float((a - b).abs().max())
                             for a, b in zip(got[:3], ref[:3]))
+        k9_st[dtype] = got[3].tolist()
     args, kw = k8_args[f32]
     fixed_ms = _timed(lambda: cf.mlp_solve_fixed(*args, **kw))
     fixed_plain_ms = _timed(lambda: cf.mlp_solve_fixed_plain(*args, **kw),
@@ -632,36 +723,207 @@ def main() -> int:
         raise AssertionError(f"ode_demo losses {demo_losses}, weight "
                              f"change {moved}")
 
+    # [14] K13 at the ODE-Net's full width, on the stem's output.
+    oargs = onet.parse_args(["--synthetic_hard", "--adjoint", "--fused"])
+    OB = oargs.batch_size
+    x_tr, y_tr, x_te, y_te = onet.load_data(
+        oargs, n_train=TRAIN_STEPS * OB, n_test=onet.EVAL_BATCH)
+    omodel = onet.build_model(oargs, dev)
+    ofunc, ot = omodel.block.func, [0.0, 1.0]
+    with torch.no_grad():
+        states = omodel.stem(torch.from_numpy(x_te).to(dev))
+    k13_err, k13_args = {}, {}
+    for Bc in (OB, onet.EVAL_BATCH):
+        for dtype in (f32, f64):
+            args, kw, _ = fast.conv_solve_inputs(ofunc, states[:Bc], ot,
+                                                 dtype=dtype)
+            out, st = cc.conv_solve(*args, **kw)
+            again, st2 = cc.conv_solve(*args, **kw)
+            ref, st_ref = cc.conv_solve_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            bitwise = bool(torch.equal(out, again) and torch.equal(st, st2))
+            print(f"[14] K13 B={Bc} {dtype} ({st.shape[0]} blocks of "
+                  f"{kw['block_size']}): kernel stats per block "
+                  f"{st.tolist()}; plain identical: "
+                  f"{st.tolist() == st_ref.tolist()}; max |kernel - plain| "
+                  f"{err:.3e} (relative {_rel(out, ref):.3e}); bitwise equal "
+                  f"to plain: {torch.equal(out, ref)}; two kernel runs "
+                  f"bitwise equal: {bitwise}", flush=True)
+            if not bitwise:
+                raise AssertionError("K13 is not deterministic from run to "
+                                     "run")
+            if st.tolist() != st_ref.tolist() or (st[:, 3] != 0).any() \
+                    or not torch.isfinite(out).all():
+                raise AssertionError(f"K13 B={Bc} {dtype} failed: stats "
+                                     f"{st.tolist()}, plain "
+                                     f"{st_ref.tolist()}")
+            if (_rel(out, ref) > 1e-12) if dtype == f64 else (err > 1e-5):
+                raise AssertionError(f"K13 B={Bc} {dtype} differs from its "
+                                     "plain version")
+            k13_err[(Bc, dtype)] = err
+            k13_args[(Bc, dtype)] = (args, kw, out, st)
+    # The generic engine on the same partition and first steps (cuDNN convs
+    # with TF32 off, ConcatConv2d's scope).
+    args, kw, k13_out, k13_st = k13_args[(OB, f32)]
+    blk, dt0 = kw["block_size"], args[4].tolist()
+    tt = torch.tensor(ot)
+
+    def generic_blocks():
+        with torch.no_grad():
+            return [solve(ofunc, states[b:min(OB, b + blk)], tt,
+                          rtol=1e-3,
+                          atol=1e-3, options={"first_step": d})
+                    for b, d in zip(range(0, OB, blk), dt0)]
+
+    gen = generic_blocks()
+    gen_ys = torch.cat([r.ys for r in gen], dim=1)
+    gap = _rel(gen_ys, k13_out)
+    same = sum(list(r.stats)[1:3] == s[1:3]
+               for r, s in zip(gen, k13_st.tolist()))
+    print(f"[14] B={OB}: the generic engine block by block agrees with K13 "
+          f"to {gap:.3e} relative (bar 1e-2, ten times the tolerance); "
+          f"{same} of {len(gen)} blocks took the same steps", flush=True)
+    if gap > 1e-2 or any(r.stats.status != 0 for r in gen):
+        raise AssertionError("K13 and the generic engine differ")
+    conv_ms = _timed(lambda: cc.conv_solve(*args, **kw))
+    conv_plain_ms = _timed(lambda: cc.conv_solve_plain(*args, **kw), reps=2)
+    conv_generic_ms = _timed(generic_blocks, reps=2)
+    args256, kw256 = k13_args[(onet.EVAL_BATCH, f32)][:2]
+    conv256_ms = _timed(lambda: cc.conv_solve(*args256, **kw256))
+    print(f"[14] {smi}: K13 conv_solve {conv_ms:.3f} ms/solve at B={OB} "
+          f"({conv256_ms:.3f} ms at B={onet.EVAL_BATCH}) vs plain "
+          f"{conv_plain_ms:.3f} ms vs the generic engine {conv_generic_ms:.3f}"
+          f" ms (float32, {int(k13_st[:, 1].sum() + k13_st[:, 2].sum())} "
+          f"attempts over {k13_st.shape[0]} blocks)", flush=True)
+
+    # [15] the ODE-Net example: --synthetic_hard --adjoint --fused steps.
+    ometer = NFEMeter()
+    model = onet.build_model(oargs, dev, nfe_meter=ometer)
+    w0 = [q.detach().clone() for q in model.parameters()]
+    opt, sched = onet.make_optimizer(oargs, model, len(x_tr) // OB)
+    onet_step = onet.make_train_step(model, opt, sched)
+    batches = iter([(torch.from_numpy(x_tr[i * OB:(i + 1) * OB]).to(dev),
+                     torch.from_numpy(y_tr[i * OB:(i + 1) * OB]).to(dev))
+                    for i in range(TRAIN_STEPS)])
+    eval_model = onet.build_model(oargs, dev, fused_inference=True)
+    onet_losses = []
+
+    def onet_sgd():
+        onet_losses.append(float(onet_step(*next(batches))))
+
+    cc.reset_launch_counts()
+    onet_ms, onet_all = _host_ms(onet_sgd, reps=TRAIN_STEPS)
+    step_launches = cc.conv_solve_launches
+    eval_model.load_state_dict(model.state_dict())
+    acc, eval_nfe = onet.evaluate(eval_model, x_te, y_te, dev)
+    torch.cuda.synchronize()
+    k13_launches = cc.conv_solve_launches
+    moved = max(float((q.detach() - q0).abs().max())
+                for q, q0 in zip(model.parameters(), w0))
+    print(f"[15] odenet_mnist --synthetic_hard --adjoint --fused, SGD "
+          f"x{TRAIN_STEPS} at B={OB}: K13 launches {step_launches} in the "
+          f"steps, {k13_launches} with the --fused_eval batch of "
+          f"{onet.EVAL_BATCH}; cross-entropy "
+          f"{', '.join(f'{x:.4f}' for x in onet_losses)}; f-NFE "
+          f"{ometer.f_nfe / max(1, ometer.f_calls):.0f} and b-NFE "
+          f"{ometer.b_nfe / max(1, ometer.b_calls):.0f} a step; max weight "
+          f"change {moved:.3e}; evaluation accuracy {acc:.4f}, NFE "
+          f"{eval_nfe}", flush=True)
+    print(f"[15] {smi}: ODE-Net training step (K13 forward + generic "
+          f"adjoint backward, B={OB}) {onet_ms:.3f} ms median of "
+          f"{TRAIN_STEPS} ({', '.join(f'{x:.3f}' for x in onet_all)})",
+          flush=True)
+    if step_launches != TRAIN_STEPS or k13_launches != TRAIN_STEPS + 1:
+        raise AssertionError(f"ODE-Net K13 launches {step_launches}, "
+                             f"{k13_launches}")
+    if ometer.f_calls != TRAIN_STEPS or ometer.b_calls != TRAIN_STEPS:
+        raise AssertionError(f"ODE-Net solves recorded {ometer.snapshot()}")
+    if not all(np.isfinite(onet_losses)) or not moved > 0.0:
+        raise AssertionError(f"ODE-Net losses {onet_losses}, weight change "
+                             f"{moved}")
+    # One more step, profiled: where the step's time goes.
+    batches = iter([(torch.from_numpy(x_tr[:OB]).to(dev),
+                     torch.from_numpy(y_tr[:OB]).to(dev))])
+    host_ms, busy_ms, top = _profiled(onet_sgd)
+    print(f"[15] {smi}: one profiled ODE-Net step: {host_ms:.3f} ms on the "
+          f"host clock, {busy_ms:.3f} ms of kernels (device idle share "
+          f"{1.0 - busy_ms / host_ms:.3f}); top kernels by device time: "
+          + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in top),
+          flush=True)
+
+    # Bounds: the operations and bytes of each timed run's inputs.
+    mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
+    n_w = D * H + H + H * D + D
+    k1_bound = _bound(B * (6 * mlp + D * _combine_flops(DOPRI5)),
+                      4 * (5 * B * D + n_w))
+    nfe, acc2, rej, _ = k2_st[f32]
+    k2_bound = _bound(
+        B * (nfe * mlp + (acc2 + rej) * D * _combine_flops(DOPRI5)),
+        4 * (2 * B * D + T_OUT * B * D + T_OUT + n_w))
+    # An adjoint evaluation: the forward MLP and its VJP (about 3 times the
+    # forward's operations).
+    k3_bound = _bound(B * bst[0] * 3 * mlp,
+                      4 * (2 * T_OUT * B * D + B * D + 2 * n_w + T_OUT))
+    k8_bound = _bound(
+        B * (k8_st[f32][0] * mlp + 500 * D * _combine_flops(RK4)),
+        4 * (2 * B * D + T_OUT * B * D + n_w + T_OUT + 501))
+    k9_bound = _bound(B * k9_st[f32][0] * 3 * mlp,
+                      4 * (2 * T_OUT * B * D + B * D + 2 * n_w + T_OUT))
+    spec13 = args[1]
+    C13, P13 = spec13.channels, spec13.positions
+    sizes = [min(blk, OB - b) for b in range(0, OB, blk)]
+    k13_flops = sum(
+        nb * (s[0] * _conv_eval_flops(C13, spec13.height, spec13.width)
+              + (s[1] + s[2]) * C13 * P13 * _combine_flops(DOPRI5))
+        for nb, s in zip(sizes, k13_st.tolist()))
+    k13_bound = _bound(k13_flops, 4 * (2 * OB * C13 * P13
+                                       + len(ot) * OB * C13 * P13
+                                       + args[0].numel() + len(sizes)))
+
     kernels = [
         {"name": "dopri5_mlp_step", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/step_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:614",
          "launches": launches["dopri5_mlp_step"],
          "max_abs_err": k1_err[f32], "ms": step_ms,
-         "plain_ms": step_plain_ms},
+         "plain_ms": step_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "mlp_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/solve_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:726",
          "launches": launches["mlp_solve"],
          "max_abs_err": k2_err[f32], "ms": solve_ms,
-         "plain_ms": solve_plain_ms},
+         "plain_ms": solve_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
         {"name": "mlp_adjoint_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/adjoint_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_adjoint.py:430",
          "launches": train_launches["mlp_adjoint_solve"],
          "max_abs_err": k3_err[f32], "ms": adj_ms,
-         "plain_ms": adj_plain_ms},
+         "plain_ms": adj_plain_ms, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": None},
         {"name": "fixed_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/fixed_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_fixed.py:102",
          "launches": k8_launches, "max_abs_err": k8_err[f32],
-         "ms": fixed_ms, "plain_ms": fixed_plain_ms},
+         "ms": fixed_ms, "plain_ms": fixed_plain_ms,
+         "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
+         "library_ms": None},
         {"name": "fixed_adjoint_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/fixed_adjoint_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_fixed.py:726",
          "launches": demo_launches["mlp_adjoint_solve_fixed"],
          "max_abs_err": k9_err[f32], "ms": fadj_ms,
-         "plain_ms": fadj_plain_ms},
+         "plain_ms": fadj_plain_ms, "bound_ms": k9_bound[0],
+         "bound_by": k9_bound[1], "library_ms": None},
+        {"name": "conv_solve", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/conv_solve_kernel.cu",
+         "replaces": "tfdiffeq_tpu/ops/pallas_conv.py:110",
+         "launches": k13_launches, "max_abs_err": k13_err[(OB, f32)],
+         "ms": conv_ms, "plain_ms": conv_plain_ms, "bound_ms": k13_bound[0],
+         "bound_by": k13_bound[1], "library_ms": None,
+         "generic_engine_ms": conv_generic_ms},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version, and the launch counters of the slices (the forward solve, the
-training step of `fast.odeint_adjoint_mlp`, and their fixed-grid paths).
+training step of `fast.odeint_adjoint_mlp`, their fixed-grid paths, and
+`fast.solve_conv_ode`).
 
 Marked `gpu`; the `cuda` fixture skips every test where
 torch.cuda.is_available() is false (it decides when a test runs, never at
@@ -20,7 +21,9 @@ largest entry (tests/test_fused_adjoint.py's bar). The fixed-grid kernels
 K8 and K9 take no step decisions: float64 within 1e-12 (relative to each
 output's largest entry for K9), float32 within 1e-5 absolute (K8, the bar
 of tests/test_fixed_fused.py) and 1e-4 relative (K9), and both bitwise
-equal from run to run.
+equal from run to run. K13, the whole conv-ODE solve of the ODE-Net block,
+repeats its plain version's summation order too: identical stats in every
+controller block, float64 within 1e-12 relative, float32 within 1e-5.
 """
 
 import numpy as np
@@ -409,3 +412,125 @@ def test_fixed_training_step_launches_each_kernel_once(cuda):
                 ca.mlp_adjoint_solve_launches) == counts
         for w, b in W:
             assert torch.isfinite(w.grad).all() and torch.isfinite(b.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# K13: the whole conv-ODE solve (ODE-Net block)
+# ---------------------------------------------------------------------------
+
+def _conv_case(device, dtype, B, C, G, seed=11):
+    """Conv-ODE parameters in the reference's dict layout (HWIO kernels
+    with flax's lecun-normal variance, perturbed GroupNorm affines) and a
+    state [B, C, 7, 7], drawn with numpy."""
+    from tfdiffeq_tpu_torch.ops.conv_ode import ConvODESpec
+    rng = np.random.RandomState(seed)
+    params = {
+        "gn": [(1.0 + 0.1 * rng.randn(C), 0.1 * rng.randn(C))
+               for _ in range(3)],
+        "conv": [(rng.randn(3, 3, C + 1, C) / np.sqrt(9 * (C + 1)),
+                  0.1 * rng.randn(C)) for _ in range(2)]}
+    x = torch.tensor(rng.randn(B, C, 7, 7) * 0.5, dtype=dtype, device=device)
+    return params, x, ConvODESpec(channels=C, groups=G)
+
+
+def _conv_inputs(params, x, spec, t, block, first_step=0.05):
+    from tfdiffeq_tpu_torch.ops import conv_ode as co
+    from tfdiffeq_tpu_torch.ops.cuda_conv import pack_conv_ode_weights
+    dtype, dev = x.dtype, x.device
+    t = torch.tensor(t, dtype=dtype)
+    sign = 1.0 if float(t[-1]) >= float(t[0]) else -1.0
+    tau = sign * t
+    f0 = sign * co.conv_ode_apply(params, sign * tau[0].to(dev), x, spec)
+    n_blocks = -(-x.shape[0] // block)
+    dt0 = torch.full((n_blocks,), first_step, dtype=dtype, device=dev)
+    wpack = pack_conv_ode_weights(params, spec, dtype, dev)
+    return (wpack, spec, x, tau, dt0, 1e-3, 1e-3, sign), dict(
+        f0=f0.contiguous(), block_size=block)
+
+
+@pytest.mark.parametrize("case", [
+    (5, 16, 8, 2, [0.0, 0.5, 1.0]),       # small, ragged last block
+    (5, 16, 8, 2, [1.0, 0.4, 0.0]),       # reverse time
+    (36, 64, 32, 18, [0.0, 1.0]),         # full width, two whole blocks
+    (20, 64, 32, 18, [0.0, 1.0]),         # full width, ragged last block
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_conv_kernel_matches_plain(cuda, dtype, case):
+    """K13 against its plain version: identical stats in each block,
+    float64 within 1e-12 relative, float32 within 1e-5 (the plain version
+    repeats the kernel's order, so both are expected bitwise equal), and
+    bitwise equal from run to run."""
+    from tfdiffeq_tpu_torch.ops import cuda_conv as cc
+    B, C, G, block, t = case
+    params, x, spec = _conv_case(cuda, dtype, B, C, G)
+    args, kw = _conv_inputs(params, x, spec, t, block)
+    cc.reset_launch_counts()
+    out, st = cc.conv_solve(*args, **kw)
+    again, st2 = cc.conv_solve(*args, **kw)
+    ref, st_ref = cc.conv_solve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert cc.conv_solve_launches == 2
+    assert torch.equal(out, again) and torch.equal(st, st2)
+    assert st.tolist() == st_ref.tolist()
+    assert st.shape == (-(-B // block), 4) and (st[:, 3] == 0).all()
+    assert torch.isfinite(out).all()
+    if dtype == torch.float64:
+        assert _rel(out, ref) < 1e-12
+    else:
+        assert float((out - ref).abs().max()) <= 1e-5
+
+
+def test_conv_kernel_status_codes(cuda):
+    """An exhausted step budget gives status 1 in every block; times that
+    are not increasing give status 3 and a zero tail."""
+    from tfdiffeq_tpu_torch.ops import cuda_conv as cc
+    params, x, spec = _conv_case(cuda, torch.float32, 4, 16, 8)
+    args, kw = _conv_inputs(params, x, spec, [0.0, 1.0], 2, first_step=1e-3)
+    _, st = cc.conv_solve(*args, **kw, max_steps=2)
+    assert st[:, 3].tolist() == [1, 1] and st[:, 1].tolist() == [2, 2]
+    wpack, spec, x, _, dt0, rtol, atol, sign = args
+    bad = torch.tensor([0.0, 1.0, 0.5])
+    out, st = cc.conv_solve(wpack, spec, x, bad, dt0, rtol, atol, sign, **kw)
+    assert st[:, 3].tolist() == [3, 3]
+    assert torch.equal(out[0], x) and not out[1:].any()
+
+
+def test_solve_conv_ode_launches_k13_once(cuda):
+    """fast.solve_conv_ode at B = 128 (8 controller blocks of 18): one K13
+    launch, finite output, the reference's stats convention."""
+    from tfdiffeq_tpu_torch.ops import cuda_conv as cc
+    params, x, spec = _conv_case(cuda, torch.float32, 128, 64, 32)
+    cc.reset_launch_counts()
+    res = fast.solve_conv_ode(params, x, [0.0, 1.0])
+    torch.cuda.synchronize()
+    assert cc.conv_solve_launches == 1
+    assert res.ys.shape == (2, 128, 64, 7, 7) and torch.isfinite(res.ys).all()
+    assert res.stats.status == 0 and res.stats.nfe == \
+        6 * (res.stats.n_accepted + res.stats.n_rejected) + 2
+    args, kw = _conv_inputs(params, x, spec, [0.0, 1.0], 18)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cc.conv_solve(args[0].half(), spec, x.half(), *args[3:],
+                      f0=kw["f0"].half(), block_size=18)
+
+
+def test_concat_conv_runs_without_tf32(cuda):
+    """The ODE dynamics' convs, forward and both VJPs, in full float32 on
+    the card (cuDNN's default TF32 keeps about three digits, which would
+    miss by about 1e-3): within 1e-5 of the same conv in float64, relative
+    to each output's largest entry."""
+    from tfdiffeq_tpu_torch.models.odenet import ConcatConv2d
+    m = ConcatConv2d(64, 64, device=cuda)
+    m64 = ConcatConv2d(64, 64, device=cuda, dtype=torch.float64)
+    m64.load_state_dict(m.state_dict())
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.randn(16, 64, 7, 7), device=cuda)
+    gy = torch.tensor(rng.randn(16, 64, 7, 7), device=cuda)
+    got = []
+    for mod, dtype in ((m, torch.float32), (m64, torch.float64)):
+        xx = x.to(dtype).requires_grad_()
+        out = mod(0.3, xx)
+        torch.sum(out * gy.to(dtype)).backward()
+        got.append((out.detach(), xx.grad, mod.conv.weight.grad,
+                    mod.conv.bias.grad))
+    for a, b in zip(*got):
+        assert _rel(a.double(), b) < 1e-5

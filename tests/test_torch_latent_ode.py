@@ -168,3 +168,12 @@ def test_adam_update_matches_optax():
         topt.step()
     np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """--device defaults to cuda; without a card the example raises and
+    names --device cpu instead of running on the CPU unasked."""
+    assert PL.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        PL.main(["--niters", "1"])

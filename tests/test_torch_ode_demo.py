@@ -135,3 +135,12 @@ def test_main_runs_each_mode(mode, capsys):
 def test_viz_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 19"):
         PD.main(["--viz", "--niters", "1"])
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """--device defaults to cuda; without a card the example raises and
+    names --device cpu instead of running on the CPU unasked."""
+    assert PD.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        PD.main(["--niters", "1"])

@@ -8,8 +8,9 @@ Public surface: `odeint` and `solve` over the adaptive RK methods in
 `SOLVERS`, with `SolveResult`, `SolverStats` and `Status`; `odeint_adjoint`
 for O(1)-memory gradients, with `NFEMeter` counting forward and backward
 evaluations. The fused tier (`tfdiffeq_tpu_torch.fast`) runs a whole MLP
-neural-ODE solve, and a whole adjoint backward sweep, each as one
-hand-written CUDA kernel on an NVIDIA Hopper card.
+neural-ODE solve, a whole adjoint backward sweep, and a whole solve of the
+ODE-Net's conv dynamics, each as one hand-written CUDA kernel on an NVIDIA
+Hopper card.
 """
 
 from .adjoint import odeint_adjoint

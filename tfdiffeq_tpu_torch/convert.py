@@ -14,6 +14,7 @@ import torch
 
 from .models.dynamics import ODEFunc
 from .models.latent_ode import Decoder, LatentODEFunc, RecognitionRNN
+from .models.odenet import ODEBlock, ODEConvFunc, ODENetMNIST
 
 
 def _t(x, device, dtype) -> torch.Tensor:
@@ -99,3 +100,70 @@ def latent_ode_from_flax(np_variables: dict, device=None,
             _load_linear(getattr(mod, f"dense_{i}"), dense["kernel"],
                          dense["bias"], device, dtype)
     return rec, dyn, dec
+
+
+def _load_conv(conv: torch.nn.Conv2d, p: dict, device, dtype) -> None:
+    """Copy a flax Conv (kernel [kh, kw, C_in, C_out] HWIO, bias) into an
+    nn.Conv2d (weight [C_out, C_in, kh, kw] OIHW)."""
+    with torch.no_grad():
+        conv.weight.copy_(_t(p["kernel"], device, dtype).permute(3, 2, 0, 1))
+        conv.bias.copy_(_t(p["bias"], device, dtype))
+
+
+def _load_group_norm(norm: torch.nn.GroupNorm, p: dict, device,
+                     dtype) -> None:
+    """Copy a flax GroupNorm (scale, bias) into an nn.GroupNorm."""
+    with torch.no_grad():
+        norm.weight.copy_(_t(p["scale"], device, dtype))
+        norm.bias.copy_(_t(p["bias"], device, dtype))
+
+
+def _load_ode_conv_func(func: ODEConvFunc, p: dict, device, dtype) -> None:
+    for i, norm in enumerate((func.norm1, func.norm2, func.norm3)):
+        _load_group_norm(norm, p[f"GroupNorm_{i}"], device, dtype)
+    for i, cc in enumerate((func.conv1, func.conv2)):
+        _load_conv(cc.conv, p[f"ConcatConv2d_{i}"]["Conv_0"], device, dtype)
+
+
+def odenet_from_flax(np_variables: dict, device=None, dtype=torch.float32,
+                     **kwargs):
+    """The port's ODE-Net module holding the parameters of a flax one
+    (`tfdiffeq_tpu/models/odenet.py`), given as numpy: an `ODENetMNIST`
+    (odenet or resnet, read from the tree), or an `ODEBlock` or
+    `ODEConvFunc` alone when the tree is one of those. `kwargs` go to the
+    module's constructor (tol, adjoint, fused, nfe_meter, groups of an
+    `ODEConvFunc`); the width is read from the arrays."""
+    p = np_variables.get("params", np_variables)
+    kw = dict(device=device, dtype=dtype)
+    if "ConcatConv2d_0" in p:
+        features = np.asarray(p["GroupNorm_0"]["scale"]).shape[0]
+        func = ODEConvFunc(features, **kwargs, **kw)
+        _load_ode_conv_func(func, p, device, dtype)
+        return func
+    if "ODEConvFunc_0" in p:
+        fp = p["ODEConvFunc_0"]
+        features = np.asarray(fp["GroupNorm_0"]["scale"]).shape[0]
+        block = ODEBlock(features, **kwargs, **kw)
+        _load_ode_conv_func(block.func, fp, device, dtype)
+        return block
+    features = np.asarray(p["Conv_0"]["kernel"]).shape[-1]
+    n_res = sum(1 for k in p if k.startswith("ResBlock_"))
+    net = ODENetMNIST(features, network="resnet" if n_res else "odenet",
+                      n_res_blocks=n_res or 6, **kwargs, **kw)
+    for i, conv in enumerate((net.conv_0, net.conv_1, net.conv_2)):
+        _load_conv(conv, p[f"Conv_{i}"], device, dtype)
+    for i, norm in enumerate((net.norm_0, net.norm_1, net.norm_out)):
+        _load_group_norm(norm, p[f"GroupNorm_{i}"], device, dtype)
+    _load_linear(net.fc, p["Dense_0"]["kernel"], p["Dense_0"]["bias"],
+                 device, dtype)
+    if n_res:
+        for i, blk in enumerate(net.block):
+            bp = p[f"ResBlock_{i}"]
+            _load_group_norm(blk.norm1, bp["GroupNorm_0"], device, dtype)
+            _load_group_norm(blk.norm2, bp["GroupNorm_1"], device, dtype)
+            _load_conv(blk.conv1, bp["Conv_0"], device, dtype)
+            _load_conv(blk.conv2, bp["Conv_1"], device, dtype)
+    else:
+        _load_ode_conv_func(net.block.func, p["ODEBlock_0"]["ODEConvFunc_0"],
+                            device, dtype)
+    return net

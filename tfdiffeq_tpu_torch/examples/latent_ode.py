@@ -28,6 +28,7 @@ from .. import fast
 from ..adjoint import odeint_adjoint
 from ..models.latent_ode import (Decoder, LatentODEFunc, RecognitionRNN,
                                  log_normal_pdf, normal_kl)
+from . import resolve_device
 
 
 def parse_args(argv=None):
@@ -43,9 +44,9 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--noise_std", type=float, default=0.3)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, "
-                        "else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a "
+                        "card unless --device cpu is given)")
     p.add_argument("--train_dir", default="",
                    help="checkpoint directory (not ported yet)")
     p.add_argument("--fused", action="store_true",
@@ -201,8 +202,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--dp (data-parallel training) is not ported yet: ROADMAP.md "
             "queue 1 item 18")
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
 
     _, samp_trajs, _, samp_ts = generate_spirals(
         nspiral=args.nspiral, ntotal=args.ntimes, nsample=args.nsample,

@@ -44,6 +44,7 @@ from .. import fast
 from ..adjoint import odeint_adjoint
 from ..models.dynamics import make_ode_func, spiral_dynamics
 from ..odeint import odeint
+from . import resolve_device
 
 
 def parse_args(argv=None):
@@ -64,9 +65,9 @@ def parse_args(argv=None):
                    help="phase-portrait figures (not ported yet)")
     p.add_argument("--viz_dir", default="png")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, "
-                        "else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a "
+                        "card unless --device cpu is given)")
     return p.parse_args(argv)
 
 
@@ -167,8 +168,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--viz (phase portraits, utils/viz.py) is not ported yet: "
             "ROADMAP.md queue 1 item 19")
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
     t, true_y0, true_y = true_trajectory(args, device)
     func = make_ode_func(seed=args.seed, device=device)
     opt = make_optimizer(args, func)

@@ -24,13 +24,18 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
   backward is one launch of an adjoint-sweep kernel: K3
   (`ops/cuda_adjoint.mlp_adjoint_solve`) for an adaptive adjoint method,
   K9 (`ops/cuda_fixed.mlp_adjoint_solve_fixed`) for a fixed-grid one.
+- `solve_conv_ode`: the ODE-Net MNIST block's conv dynamics, the whole
+  adaptive solve of every controller block in one launch of K13
+  (`ops/cuda_conv.conv_solve`).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
 item): per-sample controllers (item 9), Adams methods (item 12), dot
 precisions other than 'highest' (item 14), and the multi-card
-`axis_name` / `global_batch` coupling (item 18). What K2, K3, K8 or K9
-cannot take (widths past `MAX_WIDTH`, weights past the shared-memory
-bound) raises; nothing falls back to the generic engine.
+`axis_name` / `global_batch` coupling (item 18); `solve_conv_ode_sharded`
+has no counterpart here yet (item 18). What K2, K3, K8, K9 or K13 cannot
+take (widths past `MAX_WIDTH`, weights past the shared-memory bound, a
+conv block past the reference's block limit) raises; nothing falls back to
+the generic engine.
 """
 
 from __future__ import annotations
@@ -41,9 +46,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .ops import conv_ode as co
 from .ops import tableaus
 from .ops.controller import StepController
 from .ops.cuda_adjoint import mlp_adjoint_solve
+from .ops.cuda_conv import conv_solve, pack_conv_ode_weights
 from .ops.cuda_fixed import mlp_adjoint_solve_fixed, mlp_solve_fixed
 from .ops.cuda_kernels import (_ACTIVATIONS, dopri5_mlp_step, mlp_solve,
                                pack_mlp_weights)
@@ -467,3 +474,151 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     if return_stats:
         return ys, cfg["stats"]
     return ys
+
+
+# The reference's controller blocks (fast.py:2340-2356): it cuts the batch
+# into blocks of b_max samples, b_max from a TPU VMEM model, and each block
+# takes its own step sequence. These constants reproduce that partition,
+# which the reference's answers depend on; they are no memory budget of
+# the card.
+_CONV_STACK_BLOCKS = 60
+_CONV_STACK_BUDGET = 14 * 2 ** 20
+_LANE = 128
+
+
+def conv_block_size(channels: int, n_times: int, positions: int) -> int:
+    """Samples a controller block of `solve_conv_ode` holds: the
+    reference's largest block whose [C, round_up(b * positions, 128)]
+    float32 state fits its stack model (18 at C = 64, 7x7, two times).
+    0 when not even one sample does."""
+    cap = _CONV_STACK_BUDGET // (4 * (_CONV_STACK_BLOCKS + n_times)
+                                 * channels)
+    return (cap // _LANE) * _LANE // positions
+
+
+def conv_params(func_or_params) -> dict:
+    """The conv-ODE parameter dict (ops/conv_ode.py) of the port's
+    `ODEConvFunc`, or the dict itself."""
+    if isinstance(func_or_params, dict) and "gn" in func_or_params:
+        return func_or_params
+    m = func_or_params
+    return {"gn": [(n.weight, n.bias) for n in (m.norm1, m.norm2, m.norm3)],
+            "conv": [(c.conv.weight.permute(2, 3, 1, 0), c.conv.bias)
+                     for c in (m.conv1, m.conv2)]}
+
+
+def _conv_inputs_checked(x, t, groups: int, method: str):
+    """Validate solve_conv_ode's x and t (the reference's messages, its
+    order); returns x and t as tensors, t on the host."""
+    x = torch.as_tensor(x)
+    if x.ndim != 4:
+        raise ValueError(f"x must be [B, C, H, W] (NCHW; the JAX package's "
+                         f"[B, H, W, C] is NHWC), got {tuple(x.shape)}")
+    if x.shape[1] % groups:
+        raise ValueError(f"channels {x.shape[1]} not divisible by groups "
+                         f"{groups}")
+    t = _host_times(t, torch.float64)
+    if t.ndim != 1:
+        raise ValueError("t must be 1-D")
+    if t.shape[0] > 1 and not (np.all(np.diff(t.numpy()) > 0)
+                               or np.all(np.diff(t.numpy()) < 0)):
+        raise ValueError("t must be strictly monotonic")
+    _check_method(method)
+    if method not in tableaus.TABLEAUS_BY_NAME:
+        raise ValueError(f"solve_conv_ode takes an adaptive method, got "
+                         f"{method!r}")
+    return x, t
+
+
+def conv_solve_inputs(func_or_params, x: Tensor, t, *, groups: int = 32,
+                      rtol=1e-3, atol=1e-3, method: str = "dopri5",
+                      first_step=None, dtype=torch.float32):
+    """What `solve_conv_ode` hands K13, for x [B, C, H, W] and t of two or
+    more times: (args, kwargs, extra_nfe) with
+    `ops.cuda_conv.conv_solve(*args, **kwargs)` the solve, kwargs holding
+    f0 and the controller block size, and extra_nfe the initial-step
+    evaluations (2, or 1 with first_step). `dtype` is float32 on the public
+    path; float64 serves the kernel's exactness checks."""
+    x, t = _conv_inputs_checked(x, t, groups, method)
+    B, C, H, W = x.shape
+    spec = co.ConvODESpec(height=H, width=W, channels=C, groups=groups)
+    b_max = conv_block_size(C, t.shape[0], spec.positions)
+    if b_max < 1:
+        raise ValueError(
+            f"solve_conv_ode: not one sample of {C} channels and "
+            f"{t.shape[0]} output times fits the reference's block limit "
+            f"(_CONV_STACK_BUDGET = {_CONV_STACK_BUDGET} bytes for "
+            f"{_CONV_STACK_BLOCKS} + T state copies)")
+    b_blk = min(B, b_max)
+    dev = x.device
+    with torch.no_grad():
+        x = x.detach().to(dtype).contiguous()
+        t = t.to(dtype)
+        params = co.as_tensors(conv_params(func_or_params), dtype, dev)
+        sign = 1.0 if t[-1] >= t[0] else -1.0
+        tau = sign * t
+        sign_d = torch.tensor(sign, dtype=dtype, device=dev)
+        tau0 = tau[0].to(dev)
+        ref_f = co.make_conv_ode_f(params, spec, dtype, dev)
+
+        def g(s, y):
+            return sign_d * ref_f(sign_d * s, y)
+
+        f0 = g(tau0, x)
+        if first_step is None:
+            # Each block's HNW first step, over its own samples.
+            order = tableaus.TABLEAUS_BY_NAME[method].order
+            rdt = torch.as_tensor(rtol, dtype=dtype).to(dev)
+            adt = torch.as_tensor(atol, dtype=dtype).to(dev)
+            dt0 = torch.stack([
+                select_initial_step(g, tau0, x[b:b + b_blk],
+                                    f0[b:b + b_blk], order - 1, rdt, adt)
+                for b in range(0, B, b_blk)])
+            extra_nfe = 2
+        else:
+            dt0 = torch.full((-(-B // b_blk),), abs(float(first_step)),
+                             dtype=dtype, device=dev)
+            extra_nfe = 1
+        wpack = pack_conv_ode_weights(params, spec, dtype, dev)
+    args = (wpack, spec, x, tau, dt0, rtol, atol, sign)
+    return args, dict(f0=f0, block_size=b_blk, method=method), extra_nfe
+
+
+def solve_conv_ode(func_or_params, x: Tensor, t, *, groups: int = 32,
+                   rtol=1e-3, atol=1e-3, method: str = "dopri5",
+                   max_num_steps=None, first_step=None) -> SolveResult:
+    """Whole-solve fused adaptive RK for the ODE-Net conv dynamics (GN ->
+    relu -> ConcatConv3x3 -> GN -> relu -> ConcatConv3x3 -> GN): one
+    launch of K13 (`ops/cuda_conv.conv_solve`) on a CUDA tensor, its plain
+    version on a CPU tensor. Forward only (inference); `ODEBlock` pairs it
+    with the generic adjoint for training.
+
+    func_or_params: the port's `ODEConvFunc` or the parameter dict of
+    ops/conv_ode.py. x: [B, C, H, W], NCHW (the JAX package's layout is
+    NHWC); t may increase or decrease. Computes in float32, as the
+    reference does. Returns ys [T, B, C, H, W] and stats.
+
+    The batch runs as controller blocks of `conv_block_size` samples, the
+    reference's partition, each with its own HNW first step and step
+    control (the last block holds only its true samples, where the
+    reference pads it with zero samples that join its error norm). Stats
+    follow the reference: nfe, accepted and rejected summed over blocks
+    plus the initial-step evaluations once (2, or 1 with first_step), and
+    the worst status.
+    """
+    x, t = _conv_inputs_checked(x, t, groups, method)
+    if t.shape[0] == 1:
+        return SolveResult(x.detach().to(torch.float32)[None].clone(),
+                           SolverStats(0, 0, 0, 0))
+    args, kw, extra_nfe = conv_solve_inputs(
+        func_or_params, x, t, groups=groups, rtol=rtol, atol=atol,
+        method=method, first_step=first_step)
+    with torch.no_grad():
+        out, stats = conv_solve(
+            *args, **kw, max_steps=(int(max_num_steps)
+                                    if max_num_steps is not None
+                                    else _INT32_MAX))
+    st = stats.cpu()
+    return SolveResult(out, SolverStats(
+        int(st[:, 0].sum()) + extra_nfe, int(st[:, 1].sum()),
+        int(st[:, 2].sum()), int(st[:, 3].max())))

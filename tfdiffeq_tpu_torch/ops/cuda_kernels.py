@@ -480,19 +480,35 @@ def mlp_solve_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
     """Plain PyTorch version of K2: a host loop of attempts that mirrors
     `_make_solve_kernel` line for line (one synchronisation per attempt).
     Same contract as `mlp_solve`, except that f0 is required."""
-    tab = TABLEAUS_BY_NAME[method]
-    dev, dtype = y0.device, y0.dtype
-    T = tau.shape[0]
-    tau_h, dt_min, dt0, valid = _solve_setup(tau, dt0, dtype)
-    on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
-    tau_d = on(tau_h)
-    rtol, atol, sign = on(rtol), on(atol), on(sign)
+    sign_d = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     raw_f = _net_plain(warrays, dims, activation, final_activation,
                        input_power, time_input)
 
     def f(s, y):
         # Canonical dynamics: g(tau, y) = sign * f(sign * tau, y).
-        return sign * raw_f(sign * s, y)
+        return sign_d * raw_f(sign_d * s, y)
+
+    return adaptive_solve_plain(
+        f, y0, f0, tau, dt0, rtol, atol, TABLEAUS_BY_NAME[method],
+        safety=safety, ifactor=ifactor, dfactor=dfactor,
+        max_steps=max_steps, threads=SOLVE_THREADS)
+
+
+def adaptive_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
+                         atol, tab: ButcherTableau, *, safety: float,
+                         ifactor: float, dfactor: float, max_steps: int,
+                         threads: int) -> Tuple[Tensor, Tensor]:
+    """The whole-solve kernels' engine (`_make_solve_kernel`) as a host
+    loop of attempts, one synchronisation each: f(s, y) is the canonical
+    (signed) right-hand side on y0's [rows, D] layout; thread i of the
+    kernel's `threads` owns rows i, i + threads, ... of the error sum.
+    Returns (out [T, rows, D], stats [4] int32)."""
+    dev, dtype = y0.device, y0.dtype
+    T = tau.shape[0]
+    tau_h, dt_min, dt0, valid = _solve_setup(tau, dt0, dtype)
+    on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
+    tau_d = on(tau_h)
+    rtol, atol = on(rtol), on(atol)
 
     out = torch.zeros((T,) + tuple(y0.shape), dtype=dtype, device=dev)
     out[0] = y0
@@ -516,7 +532,7 @@ def mlp_solve_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
         esc = err / scale
         # The kernel's fixed reduction order, so that a float64 solve takes
         # the kernel's exact step sequence.
-        ss = _tree_sum(_owned_sums(esc * esc, SOLVE_THREADS))
+        ss = _tree_sum(_owned_sums(esc * esc, threads))
         ratio = torch.sqrt(ss / denom)
         fin = torch.isfinite(ss) & torch.all(torch.isfinite(y1))
         # The attempt's one synchronisation.
