@@ -77,6 +77,28 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     the step time is the median of the three on the host clock. A fourth
     step runs under torch.profiler: the kernels' device time, the device's
     idle share and the kernels that take the most time.
+16. K5 `mlp_solve_perlane` at the bench protocol with every sample's own
+    controller, from the per-sample HNW first steps
+    (`select_initial_step_per_sample`): against its plain version in
+    float64 (identical per-sample counts, ys within 1e-12 relative) and
+    float32 (within 1e-5 relative; whether bitwise equal is printed), run
+    to run bitwise. `fast.solve_mlp_spec(per_sample=True)`: one K5 launch
+    and no K2 launch (counters zeroed before, read after), status 0, finite
+    [64, 4096, 2]; the samples' nfe (min, median, max) beside the shared
+    controller's (`fast.solve_mlp`, K2). At B=96 (12 outputs over [0, 5],
+    float64) within 1e-5 relative of the generic `solve(ODEFunc,
+    options={'per_sample': True})`, every sample's nfe within max(8, 15%)
+    of its generic count. K5, its plain version and K2 timed.
+17. K6 `mlp_perlane_adjoint_solve` at the bench training protocol with K5
+    as the forward and the MSE cotangent: float64 (identical per-sample
+    counts, gradients within 1e-9 relative) and float32 (within 1e-3;
+    whether bitwise equal is printed), run to run bitwise; the samples'
+    backward nfe. Three SGD steps through
+    `fast.odeint_adjoint_mlp(per_sample=True)`: K5 = K6 = 3 launches,
+    K2 = K3 = 0, forward status 0, finite gradients, the weights move. At
+    B=96 (float64) the per-sample gradients agree with the shared-
+    controller fused ones within 1e-4 relative. K6, its plain version and
+    K3 timed.
 
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
@@ -85,7 +107,8 @@ the least time the card could take for the work of this run's inputs (the
 larger of its operations over the float32 peak of 67 TFLOP/s and the
 bytes it must read and write once over 3.35 TB/s). No single PyTorch call
 computes any of these whole solves, steps or sweeps, so library_ms is
-null. The last line is {"ok": true, "device": {...}}.
+null. The run's total time is printed before them. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -224,7 +247,9 @@ def _conv_eval_flops(C: int, H: int, W: int) -> int:
 
 
 def main() -> int:
+    import time
     import torch
+    run_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
               "an NVIDIA card", file=sys.stderr)
@@ -243,7 +268,9 @@ def main() -> int:
     from tfdiffeq_tpu_torch.examples import latent_ode as lode, \
         ode_demo as demo, odenet_mnist as onet
     from tfdiffeq_tpu_torch.ops import _build, cuda_adjoint as ca, \
-        cuda_conv as cc, cuda_fixed as cf, cuda_kernels as ck
+        cuda_conv as cc, cuda_fixed as cf, cuda_kernels as ck, \
+        cuda_perlane as cp
+    from tfdiffeq_tpu_torch.ops.norms import select_initial_step_per_sample
     from tfdiffeq_tpu_torch.ops.tableaus import DOPRI5, RK4
     from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
 
@@ -852,6 +879,223 @@ def main() -> int:
           + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in top),
           flush=True)
 
+    # [16] K5 at the bench protocol, every sample under its own controller.
+    def perlane_inputs(Bn, dtype, span, n_out):
+        p, y, _ = _bench_params(Bn, dtype, dev)
+        W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+        warr, dims = ck.pack_mlp_weights(W, dtype, dev)
+        f0 = fast.mlp_apply(spec, W, y)
+        t = torch.linspace(0.0, span, n_out, dtype=dtype)
+        on = lambda v: torch.tensor(v, dtype=dtype, device=dev)
+        dt0 = select_initial_step_per_sample(
+            lambda s, yy: fast.mlp_apply(spec, W, yy), on(0.0), y, f0,
+            DOPRI5.order - 1, on(TOL), on(TOL))
+        return p, W, y, t, (warr, dims, y, t, dt0, TOL, TOL, 1.0), f0
+
+    k5_err, k5_args = {}, {}
+    for dtype in (f64, f32):
+        _, _, _, _, args, f0 = perlane_inputs(B, dtype, SPAN, T_OUT)
+        kw = dict(f0=f0, activation="tanh", input_power=3)
+        k5_args[dtype] = (args, kw)
+        out, st, lane = cp.mlp_solve_perlane(*args, **kw)
+        again = cp.mlp_solve_perlane(*args, **kw)
+        ref, st_ref, lane_ref = cp.mlp_solve_perlane_plain(*args, **kw)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip((out, st, lane),
+                                                        again))
+        same_lanes = torch.equal(lane, lane_ref) and torch.equal(st, st_ref)
+        rel = _rel(out, ref)
+        print(f"[16] K5 {dtype}: kernel stats {st.tolist()}, plain "
+              f"{st_ref.tolist()}; per-sample counts identical in all {B} "
+              f"samples: {same_lanes}; max |kernel - plain| "
+              f"{float((out - ref).abs().max()):.3e} (relative {rel:.3e}); "
+              f"bitwise equal to plain: {torch.equal(out, ref)}; two kernel "
+              f"runs bitwise equal: {bitwise}", flush=True)
+        if not bitwise:
+            raise AssertionError("K5 is not deterministic from run to run")
+        if (lane[3] != 0).any() or not torch.isfinite(out).all():
+            raise AssertionError(f"K5 {dtype} failed: stats {st.tolist()}")
+        if dtype == f64 and (not same_lanes or rel > 1e-12):
+            raise AssertionError("K5 float64 differs from its plain version "
+                                 "(needs identical per-sample counts, ys "
+                                 "within 1e-12 relative)")
+        if dtype == f32 and rel > 1e-5:
+            raise AssertionError("K5 float32 differs from its plain version "
+                                 "by more than 1e-5 relative")
+        k5_err[dtype] = float((out - ref).abs().max())
+    # The public entry point: one K5 launch, no shared-controller launch.
+    p, W, y, t, _, _ = perlane_inputs(B, f32, SPAN, T_OUT)
+    cp.reset_launch_counts()
+    ck.reset_launch_counts()
+    per = fast.solve_mlp_spec(spec, W, y, t, rtol=TOL, atol=TOL,
+                              per_sample=True)
+    torch.cuda.synchronize()
+    k5_launches = {"mlp_solve_perlane": cp.mlp_solve_perlane_launches,
+                   "mlp_solve": ck.mlp_solve_launches}
+    lane_nfe = per.lane_stats.nfe.float()
+    shared = fast.solve_mlp(p, y, t, rtol=TOL, atol=TOL)
+    print(f"[16] fast.solve_mlp_spec(per_sample=True): stats {per.stats}; "
+          f"launches {k5_launches}; the samples' nfe min "
+          f"{int(lane_nfe.min())}, median {int(lane_nfe.median())}, max "
+          f"{int(lane_nfe.max())} against {shared.stats.nfe} for every "
+          f"sample under the shared controller (fast.solve_mlp, K2); max "
+          f"|per-sample - shared| {float((per.ys - shared.ys).abs().max()):.3e}",
+          flush=True)
+    if k5_launches != {"mlp_solve_perlane": 1, "mlp_solve": 0} \
+            or per.stats.status != 0 or tuple(per.ys.shape) != (T_OUT, B, D) \
+            or not torch.isfinite(per.ys).all():
+        raise AssertionError("the per-sample forward failed at the bench "
+                             "protocol")
+    # Against the generic engine, one solve a sample (float64).
+    func64 = convert.ode_func_from_flax(flax_like, device=dev, dtype=f64)
+    p64, W64, y64, t64s, _, _ = perlane_inputs(96, f64, 5.0, 12)
+    small = fast.solve_mlp_spec(spec, W64, y64, t64s, rtol=TOL, atol=TOL,
+                                per_sample=True)
+    with torch.no_grad():
+        gen = solve(func64, y64, t64s, rtol=TOL, atol=TOL,
+                    options={"per_sample": True})
+    gap = _rel(small.ys, gen.ys)
+    nfe_k, nfe_g = small.lane_stats.nfe.cpu(), gen.lane_stats.nfe
+    nfe_gap = (nfe_k - nfe_g).abs()
+    nfe_ok = bool((nfe_gap <= torch.clamp(0.15 * nfe_g, min=8)).all())
+    print(f"[16] B=96 float64: K5 and the generic per-sample solve agree to "
+          f"{gap:.3e} relative (bar 1e-5); every sample's nfe within "
+          f"max(8, 15%) of its generic count: {nfe_ok} (largest gap "
+          f"{int(nfe_gap.max())})", flush=True)
+    if gap > 1e-5 or not nfe_ok or gen.stats.status != 0:
+        raise AssertionError("K5 and the generic per-sample solve differ")
+    args, kw = k5_args[f32]
+    perlane_ms = _timed(lambda: cp.mlp_solve_perlane(*args, **kw))
+    perlane_plain_ms = _timed(lambda: cp.mlp_solve_perlane_plain(*args, **kw),
+                              reps=2)
+    k2_args32, k2_kw32 = k2_args[f32]
+    shared_ms = _timed(lambda: ck.mlp_solve(*k2_args32, **k2_kw32))
+    k5_st = cp.mlp_solve_perlane(*args, **kw)[1].tolist()
+    print(f"[16] {smi}: K5 mlp_solve_perlane {perlane_ms:.3f} ms/solve vs "
+          f"plain {perlane_plain_ms:.3f} ms vs K2 (shared controller) "
+          f"{shared_ms:.3f} ms (bench protocol, float32; K5 nfe {k5_st[0]}, "
+          f"{k5_st[1] + k5_st[2]} attempts over the samples)", flush=True)
+
+    # [17] K6 at the bench training protocol with per_sample=True.
+    k6_err, k6_args = {}, {}
+    for dtype in (f64, f32):
+        _, W, y, t, _, _ = perlane_inputs(B, dtype, SPAN, T_OUT)
+        ys = fast.solve_mlp_spec(spec, W, y, t, rtol=TOL, atol=TOL,
+                                 per_sample=True).ys
+        target = _bench_target(dtype, dev)
+        g = 2.0 * (ys - target) / target.numel()
+        warr, dims = ck.pack_mlp_weights(W, dtype, dev)
+        args = (warr, dims, ys.contiguous(), g.contiguous(), t,
+                0.1 * abs(float(t[-1] - t[-2])), TOL, TOL, 1.0)
+        kw = dict(activation="tanh", input_power=3)
+        k6_args[dtype] = (args, kw)
+        got = cp.mlp_perlane_adjoint_solve(*args, **kw)
+        again = cp.mlp_perlane_adjoint_solve(*args, **kw)
+        ref = cp.mlp_perlane_adjoint_solve_plain(*args, **kw)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        same_lanes = torch.equal(got[4], ref[4])
+        rels = [_rel(a, b) for a, b in zip(got[:2], ref[:2])]
+        bnfe = got[4][0].float()
+        print(f"[17] K6 {dtype}: kernel stats {got[3].tolist()}, plain "
+              f"{ref[3].tolist()}; per-sample counts identical: "
+              f"{same_lanes}; max relative |kernel - plain| ay0 "
+              f"{rels[0]:.3e} aw {rels[1]:.3e}; kernel bitwise equal to "
+              f"plain: {same}; two kernel runs bitwise equal: {bitwise}; "
+              f"the samples' backward nfe min {int(bnfe.min())}, median "
+              f"{int(bnfe.median())}, max {int(bnfe.max())}", flush=True)
+        if not bitwise:
+            raise AssertionError("K6 is not deterministic from run to run")
+        if (got[4][3] != 0).any() or not all(
+                torch.isfinite(x).all() for x in got[:3]):
+            raise AssertionError(f"K6 {dtype} failed: {got[3].tolist()}")
+        if dtype == f64 and (not same_lanes or max(rels) > 1e-9):
+            raise AssertionError("K6 float64 differs from its plain version "
+                                 "(needs identical per-sample counts, "
+                                 "gradients within 1e-9 relative)")
+        if dtype == f32 and max(rels) > 1e-3:
+            raise AssertionError("K6 float32 differs from its plain version "
+                                 "by more than 1e-3 relative")
+        k6_err[dtype] = max(float((a - b).abs().max())
+                            for a, b in zip(got[:3], ref[:3]))
+    # Three SGD steps through the public entry point.
+    p, _, y, t, _, _ = perlane_inputs(B, f32, SPAN, T_OUT)
+    W = [(p["w1"].clone().requires_grad_(), p["b1"].clone().requires_grad_()),
+         (p["w2"].clone().requires_grad_(), p["b2"].clone().requires_grad_())]
+    W0 = [x.detach().clone() for pair in W for x in pair]
+    target = _bench_target(f32, dev)
+    pmeter = NFEMeter()
+
+    def per_sample_sgd():
+        ys, st = fast.odeint_adjoint_mlp(spec, W, y, t, rtol=TOL, atol=TOL,
+                                         nfe_meter=pmeter, return_stats=True,
+                                         per_sample=True)
+        torch.mean((ys - target) ** 2).backward()
+        with torch.no_grad():
+            for x in (x for pair in W for x in pair):
+                if not torch.isfinite(x.grad).all():
+                    raise AssertionError("non-finite per-sample gradient (a "
+                                         "failed backward sweep)")
+                x -= SGD_LR * x.grad
+                x.grad = None
+        if st.status != 0:
+            raise AssertionError(f"per-sample forward failed: {st}")
+
+    for mod in (ck, ca, cp):
+        mod.reset_launch_counts()
+    ps_sgd_ms, ps_sgd_all = _host_ms(per_sample_sgd, reps=TRAIN_STEPS)
+    ps_launches = {"mlp_solve_perlane": cp.mlp_solve_perlane_launches,
+                   "mlp_perlane_adjoint_solve":
+                       cp.mlp_perlane_adjoint_solve_launches,
+                   "mlp_solve": ck.mlp_solve_launches,
+                   "mlp_adjoint_solve": ca.mlp_adjoint_solve_launches}
+    moved = max(float((x.detach() - x0).abs().max())
+                for x, x0 in zip((x for pair in W for x in pair), W0))
+    print(f"[17] per-sample SGD x{TRAIN_STEPS}: launches {ps_launches}; NFE "
+          f"forward {pmeter.f_nfe}, backward {pmeter.b_nfe}; max weight "
+          f"change {moved:.3e}", flush=True)
+    print(f"[17] {smi}: per-sample training step (K5 + K6, bench protocol, "
+          f"float32) {ps_sgd_ms:.3f} ms median of {TRAIN_STEPS} "
+          f"({', '.join(f'{x:.3f}' for x in ps_sgd_all)})", flush=True)
+    if ps_launches != {"mlp_solve_perlane": TRAIN_STEPS,
+                       "mlp_perlane_adjoint_solve": TRAIN_STEPS,
+                       "mlp_solve": 0, "mlp_adjoint_solve": 0}:
+        raise AssertionError(f"per-sample training launches {ps_launches}")
+    if not moved > 0.0:
+        raise AssertionError("per-sample SGD left the weights unchanged")
+    # Per-sample against shared-controller fused gradients (float64).
+    ts = torch.linspace(0.0, 5.0, 12, dtype=f64)
+    tgt = torch.tensor(np.random.RandomState(2).randn(12, 96, D) * 0.5,
+                       dtype=f64, device=dev)
+    grads = []
+    for per_sample in (True, False):
+        Ws = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+              for w, b in W64]
+        out = fast.odeint_adjoint_mlp(spec, Ws, y64, ts, rtol=TOL, atol=TOL,
+                                      adjoint_seminorm=True,
+                                      per_sample=per_sample)
+        torch.mean((out - tgt) ** 2).backward()
+        grads.append([x.grad for pair in Ws for x in pair])
+    gap = max(_rel(a, b) for a, b in zip(*grads))
+    print(f"[17] B=96 float64: per-sample and shared-controller fused "
+          f"gradients agree to {gap:.3e} relative (bar 1e-4)", flush=True)
+    if gap > 1e-4:
+        raise AssertionError("per-sample and shared-controller gradients "
+                             "differ")
+    args, kw = k6_args[f32]
+    perlane_adj_ms = _timed(lambda: cp.mlp_perlane_adjoint_solve(*args, **kw))
+    perlane_adj_plain_ms = _timed(
+        lambda: cp.mlp_perlane_adjoint_solve_plain(*args, **kw), reps=2)
+    k3a, k3k = k3_args[f32]
+    shared_adj_ms = _timed(lambda: ca.mlp_adjoint_solve(*k3a, **k3k), reps=3)
+    k6_st = cp.mlp_perlane_adjoint_solve(*args, **kw)[3].tolist()
+    print(f"[17] {smi}: K6 mlp_perlane_adjoint_solve {perlane_adj_ms:.3f} "
+          f"ms/sweep vs plain {perlane_adj_plain_ms:.3f} ms vs K3 (shared "
+          f"controller) {shared_adj_ms:.3f} ms (bench training protocol, "
+          f"float32; K6 nfe {k6_st[0]}, {k6_st[1] + k6_st[2]} attempts over "
+          f"the samples)", flush=True)
+
     # Bounds: the operations and bytes of each timed run's inputs.
     mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
     n_w = D * H + H + H * D + D
@@ -870,7 +1114,8 @@ def main() -> int:
         4 * (2 * B * D + T_OUT * B * D + n_w + T_OUT + 501))
     k9_bound = _bound(B * k9_st[f32][0] * 3 * mlp,
                       4 * (2 * T_OUT * B * D + B * D + 2 * n_w + T_OUT))
-    spec13 = args[1]
+    k13a = k13_args[(OB, f32)][0]
+    spec13 = k13a[1]
     C13, P13 = spec13.channels, spec13.positions
     sizes = [min(blk, OB - b) for b in range(0, OB, blk)]
     k13_flops = sum(
@@ -879,7 +1124,14 @@ def main() -> int:
         for nb, s in zip(sizes, k13_st.tolist()))
     k13_bound = _bound(k13_flops, 4 * (2 * OB * C13 * P13
                                        + len(ot) * OB * C13 * P13
-                                       + args[0].numel() + len(sizes)))
+                                       + k13a[0].numel() + len(sizes)))
+    # K5 and K6: the sums of the samples' own evaluations and attempts.
+    k5_bound = _bound(
+        k5_st[0] * mlp + (k5_st[1] + k5_st[2]) * D * _combine_flops(DOPRI5),
+        4 * (2 * B * D + B + T_OUT * B * D + T_OUT + n_w) + 4 * 5 * B)
+    k6_bound = _bound(k6_st[0] * 3 * mlp,
+                      4 * (2 * T_OUT * B * D + B * D + B + 2 * n_w + T_OUT)
+                      + 4 * 5 * B)
 
     kernels = [
         {"name": "dopri5_mlp_step", "route": "cuda",
@@ -924,7 +1176,25 @@ def main() -> int:
          "ms": conv_ms, "plain_ms": conv_plain_ms, "bound_ms": k13_bound[0],
          "bound_by": k13_bound[1], "library_ms": None,
          "generic_engine_ms": conv_generic_ms},
+        {"name": "mlp_solve_perlane", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/perlane_solve_kernel.cu",
+         "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:929",
+         "launches": k5_launches["mlp_solve_perlane"],
+         "max_abs_err": k5_err[f32], "ms": perlane_ms,
+         "plain_ms": perlane_plain_ms, "bound_ms": k5_bound[0],
+         "bound_by": k5_bound[1], "library_ms": None,
+         "shared_controller_ms": shared_ms},
+        {"name": "mlp_perlane_adjoint_solve", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/perlane_adjoint_kernel.cu",
+         "replaces": "tfdiffeq_tpu/ops/pallas_adjoint.py:681",
+         "launches": ps_launches["mlp_perlane_adjoint_solve"],
+         "max_abs_err": k6_err[f32], "ms": perlane_adj_ms,
+         "plain_ms": perlane_adj_plain_ms, "bound_ms": k6_bound[0],
+         "bound_by": k6_bound[1], "library_ms": None,
+         "shared_controller_ms": shared_adj_ms},
     ]
+    print(f"[total] chip_smoke.py took {time.perf_counter() - run_t0:.1f} s",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

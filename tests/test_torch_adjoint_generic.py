@@ -215,7 +215,7 @@ def _generic_call(**kw):
     (_generic_call(adjoint_mode="interpolated"), "item 3"),
     (_generic_call(options={"fuse": True}), "item 16"),
     (_generic_call(method="fixed_adams"), "item 12"),
-    (_spec_call(per_sample=True), "item 9"),
+    (_generic_call(options={"per_sample": True}), "item 16"),
     (_spec_call(adjoint_method="adams"), "item 12"),
     (lambda: PL.main(["--train_dir", "ckpt", "--niters", "1"]), "item 19"),
     (lambda: PL.main(["--dp", "--niters", "1"]), "item 18"),

@@ -273,8 +273,8 @@ def test_fixed_grid_methods_are_ported(method):
 
 
 @pytest.mark.parametrize("option,item", [
-    ("fuse", "item 16"), ("per_sample", "item 9"),
-    ("dense_output", "item 3"), ("telemetry", "item 3")])
+    ("fuse", "item 16"), ("dense_output", "item 3"),
+    ("telemetry", "item 3")])
 def test_unported_options_name_their_roadmap_item(option, item):
     with pytest.raises(NotImplementedError, match=item):
         P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0],

@@ -225,7 +225,6 @@ def test_ode_func_module_and_seeded_generator():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(per_sample=True), "item 9"),
     (dict(method="fixed_adams"), "item 12"),
 ])
 def test_unported_fused_options_name_their_roadmap_item(kwargs, item):

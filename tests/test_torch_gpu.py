@@ -24,6 +24,10 @@ of tests/test_fixed_fused.py) and 1e-4 relative (K9), and both bitwise
 equal from run to run. K13, the whole conv-ODE solve of the ODE-Net block,
 repeats its plain version's summation order too: identical stats in every
 controller block, float64 within 1e-12 relative, float32 within 1e-5.
+K5 and K6, the per-sample solve and sweep, repeat their plain versions'
+order per sample: identical per-sample counts and float64 within 1e-12,
+float32 within the whole-solve and sweep bars above, bitwise from run to
+run.
 """
 
 import numpy as np
@@ -32,7 +36,7 @@ import torch
 
 from tfdiffeq_tpu_torch import fast
 from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, cuda_fixed as cf, \
-    cuda_kernels as ck
+    cuda_kernels as ck, cuda_perlane as cp
 from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
 
 pytestmark = pytest.mark.gpu
@@ -46,6 +50,7 @@ def cuda():
     ck.reset_launch_counts()
     ca.reset_launch_counts()
     cf.reset_launch_counts()
+    cp.reset_launch_counts()
     return torch.device("cuda")
 
 
@@ -534,3 +539,144 @@ def test_concat_conv_runs_without_tf32(cuda):
                     mod.conv.bias.grad))
     for a, b in zip(*got):
         assert _rel(a.double(), b) < 1e-5
+
+
+def _perlane_case(device, dtype, B=300, time_input=False, seed=13):
+    """The spiral's tanh MLP on y**3 (with a time column when asked) and
+    states whose magnitudes spread over a decade, so that the samples take
+    different step counts."""
+    rng = np.random.RandomState(seed)
+    dims = [(2 + int(time_input), 16), (16, 2)]
+    weights = [(torch.tensor(rng.randn(i, o) * 0.3, dtype=dtype,
+                             device=device),
+                torch.tensor(rng.randn(o) * 0.05, dtype=dtype, device=device))
+               for i, o in dims]
+    y0 = torch.tensor(rng.randn(B, 2) * np.linspace(0.2, 2.0, B)[:, None],
+                      dtype=dtype, device=device)
+    spec = fast.MLPSpec(input_power=3, time_input=time_input)
+    warr, pdims = ck.pack_mlp_weights(weights, dtype, device)
+    return spec, weights, warr, pdims, y0
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5", "bosh3"])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_perlane_kernel_matches_plain(cuda, dtype, sign, method):
+    spec, weights, warr, dims, y0 = _perlane_case(
+        cuda, dtype, time_input=method == "tsit5")
+    t = torch.linspace(0.0, 2.0, 7, dtype=dtype)
+    f0 = sign * fast.mlp_apply(spec, weights, y0, t=0.0)
+    dt0 = torch.linspace(0.01, 0.1, y0.shape[0], dtype=dtype, device=cuda)
+    args = (warr, dims, y0, t, dt0, 1e-6, 1e-8, sign)
+    kw = dict(f0=f0, input_power=3, time_input=spec.time_input,
+              method=method)
+    out, st, lane = cp.mlp_solve_perlane(*args, **kw)
+    again = cp.mlp_solve_perlane(*args, **kw)
+    ref, st_ref, lane_ref = cp.mlp_solve_perlane_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lane, again[2])
+    assert st[3].item() == 0 and len(set(lane[0].tolist())) > 3
+    assert st.tolist() == [*lane[:3].sum(dim=1).tolist(), 0]
+    if dtype == torch.float64:
+        assert torch.equal(lane, lane_ref) and torch.equal(st, st_ref)
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-12)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-3, atol=2e-4)
+    assert cp.mlp_solve_perlane_launches == 2
+
+
+def test_perlane_kernel_status_codes(cuda):
+    """Status 1 on the samples whose own attempts run out, status 3 on
+    every sample for invalid times; unreached rows stay zero."""
+    spec, weights, warr, dims, y0 = _perlane_case(cuda, torch.float64)
+    t = torch.linspace(0.0, 2.0, 5, dtype=torch.float64)
+    kw = dict(f0=fast.mlp_apply(spec, weights, y0), input_power=3,
+              max_steps=6)
+    args = (warr, dims, y0, t, 0.05, 1e-8, 1e-10, 1.0)
+    out, st, lane = cp.mlp_solve_perlane(*args, **kw)
+    ref, st_ref, lane_ref = cp.mlp_solve_perlane_plain(*args, **kw)
+    assert torch.equal(lane, lane_ref) and torch.equal(out, ref)
+    failed = lane[3] == 1
+    assert st[3].item() == 1 and 0 < int(failed.sum()) < y0.shape[0]
+    assert not out[-1][failed].any()
+    out, st, lane = cp.mlp_solve_perlane(
+        warr, dims, y0, torch.tensor([0.0, 1.0, 0.5], dtype=torch.float64),
+        0.05, 1e-6, 1e-8, 1.0, input_power=3)
+    assert st.tolist() == [0, 0, 0, 3] and (lane[3] == 3).all()
+    assert torch.equal(out[0], y0) and not out[1:].any()
+
+
+@pytest.mark.parametrize("time_input", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_perlane_adjoint_kernel_matches_plain(cuda, dtype, time_input):
+    spec, weights, warr, dims, y0 = _perlane_case(cuda, dtype,
+                                                  time_input=time_input)
+    t = torch.linspace(0.0, 2.0, 6, dtype=dtype)
+    ys = fast.solve_mlp_spec(spec, weights, y0, t, rtol=1e-7, atol=1e-9,
+                             per_sample=True).ys
+    g = torch.tensor(np.random.RandomState(3).randn(*ys.shape), dtype=dtype,
+                     device=cuda)
+    args = (warr, dims, ys.contiguous(), g, t, 0.05, 1e-6, 1e-8, 1.0)
+    kw = dict(input_power=3, time_input=time_input)
+    got = cp.mlp_perlane_adjoint_solve(*args, **kw)
+    again = cp.mlp_perlane_adjoint_solve(*args, **kw)
+    ref = cp.mlp_perlane_adjoint_solve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[3][3].item() == 0 and len(set(got[4][0].tolist())) > 3
+    if dtype == torch.float64:
+        assert torch.equal(got[4], ref[4]) and torch.equal(got[3], ref[3])
+        for a, b in zip(got[:3], ref[:3]):
+            assert _rel(a, b) < 1e-12
+    else:
+        for a, b in zip(got[:3], ref[:3]):
+            assert _rel(a, b) < 1e-3
+    assert cp.mlp_perlane_adjoint_solve_launches == 2
+
+
+def test_perlane_training_launches_k5_and_k6_once(cuda):
+    """One per-sample training step: one K5 launch forward, one K6
+    backward, no shared-controller launch; lane_stats come back per
+    sample."""
+    spec, weights, _, _, y0 = _perlane_case(cuda, torch.float32, B=512)
+    W = [(w.requires_grad_(), b.requires_grad_()) for w, b in weights]
+    t = torch.linspace(0.0, 2.0, 8)
+    res = fast.solve_mlp_spec(spec, W, y0, t, rtol=1e-6, atol=1e-6,
+                              per_sample=True)
+    assert cp.mlp_solve_perlane_launches == 1 and res.stats.status == 0
+    assert res.lane_stats.nfe.shape == (512,)
+    assert int(res.lane_stats.nfe.sum()) == res.stats.nfe
+    ys = fast.odeint_adjoint_mlp(spec, W, y0, t, rtol=1e-6, atol=1e-6,
+                                 per_sample=True)
+    torch.mean(ys ** 2).backward()
+    assert cp.mlp_solve_perlane_launches == 2
+    assert cp.mlp_perlane_adjoint_solve_launches == 1
+    assert ck.mlp_solve_launches == ca.mlp_adjoint_solve_launches == 0
+    for w, b in W:
+        assert torch.isfinite(w.grad).all() and torch.isfinite(b.grad).all()
+
+
+def test_perlane_adjoint_keeps_overflowing_trials_out(cuda):
+    """A sample whose first backward trial overflows (a stiff sample with
+    a cotangent near the float64 limit, a first step of the whole
+    interval) while the others accept: the sums stay finite on the card
+    (tests/test_torch_perlane_adjoint.py holds this input to the generic
+    adjoint and shows the reference's NaN)."""
+    f64 = torch.float64
+    W = [(torch.tensor([[100.0]], dtype=f64, device=cuda), None),
+         (torch.tensor([[-0.1]], dtype=f64, device=cuda), None)]
+    warr, dims = ck.pack_mlp_weights(W, f64, cuda)
+    spec = fast.MLPSpec(activation="tanh")
+    y0 = torch.tensor([[1e-3], [1.0], [0.5]], dtype=f64, device=cuda)
+    t = torch.tensor([0.0, 0.8], dtype=f64)
+    ys = fast.solve_mlp_spec(spec, W, y0, t, rtol=1e-9, atol=1e-14,
+                             per_sample=True).ys
+    g = torch.zeros_like(ys)
+    g[1, :, 0] = torch.tensor([5e306, 1.0, -2.0], dtype=f64)
+    args = (warr, dims, ys.contiguous(), g, t, 0.8, 1e-9, 1e-14, 1.0)
+    got = cp.mlp_perlane_adjoint_solve(*args)
+    ref = cp.mlp_perlane_adjoint_solve_plain(*args)
+    assert got[3][3].item() == 0 and got[4][2, 0].item() > 0
+    assert torch.equal(got[4], ref[4])
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.isfinite(a).all() and _rel(a, b) < 1e-12

@@ -26,8 +26,9 @@ ceil(span_i / h) steps over each interval in one chained sweep
 (`_bwd_fixed_grid_walk`). Adaptive adjoint methods ignore `step_size`.
 
 Not ported yet (NotImplementedError naming the ROADMAP queue 1 item):
-`adjoint_mode='interpolated'` (needs `dense_output`, item 3) and
-`options={'fuse': True}` (item 16).
+`adjoint_mode='interpolated'` (needs `dense_output`, item 3), and
+`options={'fuse': True}` and `options={'per_sample': True}` (item 16: the
+reference trains per sample only through its fused tier).
 """
 
 from __future__ import annotations
@@ -87,10 +88,15 @@ def _check_methods(method, adjoint_method, options: dict) -> None:
             raise NotImplementedError(
                 f"method {m!r} is not ported to PyTorch yet: ROADMAP.md "
                 f"{_NOT_PORTED_METHODS[m]}")
-    if options.get("fuse"):
-        raise NotImplementedError(
-            "odeint_adjoint(options={'fuse': True}) is not ported yet: "
-            "ROADMAP.md queue 1 item 16 (fusion of arbitrary dynamics)")
+    for key in ("fuse", "per_sample"):
+        if options.get(key):
+            # The reference routes per_sample training only through its
+            # fused tier (adjoint.py:306-390).
+            raise NotImplementedError(
+                f"odeint_adjoint(options={{{key!r}: True}}) is not ported "
+                "yet: ROADMAP.md queue 1 item 16 (fusion of arbitrary "
+                "dynamics); fast.odeint_adjoint_mlp(per_sample=True) trains "
+                "MLP dynamics per sample")
 
 
 class _Adjoint(torch.autograd.Function):

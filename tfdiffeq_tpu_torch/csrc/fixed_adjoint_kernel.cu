@@ -57,22 +57,16 @@ struct FixedAdjScalars {
   int T_obs, B, D, n_sub;
 };
 
-// Workspace row offsets of each layer's inputs (H) and act'(z) (G).
-struct FixedRows {
-  int h_off[kMaxLayers];
-  int z_off[kMaxLayers];
-};
-
 template <typename T>
 __global__ void mlp_adjoint_fixed_kernel(
     const T* __restrict__ tau, const T* __restrict__ ys,
     const T* __restrict__ g, const T* __restrict__ wg,
     T* __restrict__ ay0_out, T* __restrict__ partial, T* __restrict__ work,
-    int n_weights, Net net_in, FixedRows rows_in, Tableau<T> tab_in,
+    int n_weights, Net net_in, AugRows rows_in, Tableau<T> tab_in,
     FixedAdjScalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Net net;
-  __shared__ FixedRows rows;
+  __shared__ AugRows rows;
   __shared__ Tableau<T> tab;
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -133,119 +127,15 @@ __global__ void mlp_adjoint_fixed_kernel(
     for (int j = 0; j < n_sub; ++j) {
       const T s = s_start + h * T(j);
       for (int st = 0; st < S; ++st) {
-        // The stage state: yi = yi + (h * a_ij) * k_j.
-        for (int d = 0; d < D; ++d) {
-          T yv = Y[at(d)], av = AY[at(d)];
-          for (int q = 0; q < st; ++q) {
-            const T a = tab.a[st][q];
-            if (a != T(0)) {
-              yv = yv + (h * a) * KY[at(q * D + d)];
-              av = av + (h * a) * KAY[at(q * D + d)];
-            }
-          }
-          ya[d] = yv;
-          aya[d] = av;
-        }
-        // Forward (pallas_adjoint.py:_make_aug_eval), keeping each
-        // layer's input and act'(z).
-        T* hin = buf_a;
-        T* hout = buf_b;
-        for (int d = 0; d < D; ++d) {
-          T v = ya[d];
-          for (int p = 1; p < net.input_power; ++p) v = v * ya[d];
-          hin[d] = v;
-        }
-        if (ti) hin[D] = (-sf) * (s + tab.c[st] * h);
-        for (int l = 0; l < L; ++l) {
-          const int din = net.din[l], dout = net.dout[l];
-          const T* W = w + net.w_off[l];
-          const T* bias = w + net.b_off[l];
-          const int code = (l == L - 1) ? net.act_final : net.act_hidden;
-          for (int k = 0; k < din; ++k) H[at(rows.h_off[l] + k)] = hin[k];
-          for (int o = 0; o < dout; ++o) {
-            const T* row = W + o * din;
-            T acc = row[0] * hin[0];
-            for (int k = 1; k < din; ++k) acc = acc + row[k] * hin[k];
-            const T z = acc + bias[o];
-            const T a = activate(code, z);
-            G[at(rows.z_off[l] + o)] = act_grad(code, z, a);
-            hout[o] = a;
-          }
-          T* tmp = hin;
-          hin = hout;
-          hout = tmp;
-        }
-        // hin holds f. Backward: the last layer's dz into hout.
-        for (int d = 0; d < D; ++d) {
-          KY[at(st * D + d)] = (-sf) * hin[d];
-          hout[d] = aya[d] * G[at(rows.z_off[L - 1] + d)];
-        }
-        // This stage's weighted quadrature term, (h b_st) (sign x), joins
-        // the step's sum in stage order.
-        const T hb = h * tab.b_sol[st];
-        const bool add = tab.b_sol[st] != T(0);
-        const bool first = st == first_b;
-        auto quad = [&](int r, T x) {
-          const T term = hb * (sf * x);
-          STEP[at(r)] = first ? term : STEP[at(r)] + term;
-        };
-        T* dz = hout;
-        T* dh = hin;
-        for (int l = L - 1; l >= 0; --l) {
-          const int din = net.din[l], dout = net.dout[l];
-          const T* W = w + net.w_off[l];
-          if (add) {
-            for (int o = 0; o < dout; ++o) {
-              for (int k = 0; k < din; ++k)
-                quad(net.w_off[l] + o * din + k,
-                     dz[o] * H[at(rows.h_off[l] + k)]);
-              quad(net.b_off[l] + o, dz[o]);
-            }
-          }
-          for (int k = 0; k < din; ++k) {
-            T acc = W[k] * dz[0];
-            for (int o = 1; o < dout; ++o) acc = acc + W[o * din + k] * dz[o];
-            if (l > 0) acc = acc * G[at(rows.z_off[l - 1] + k)];
-            dh[k] = acc;
-          }
-          T* tmp = dz;
-          dz = dh;
-          dh = tmp;
-        }
-        // dz holds the layer-0 input cotangent: v_y, then v_t.
-        for (int d = 0; d < D; ++d) {
-          T vy = dz[d];
-          if (net.input_power > 1) {
-            T yp = ya[d];
-            for (int p = 2; p < net.input_power; ++p) yp = yp * ya[d];
-            vy = vy * (T(net.input_power) * yp);
-          }
-          KAY[at(st * D + d)] = sf * vy;
-        }
-        if (ti && add) quad(n_w, dz[D]);
+        aug_stage_state(tab, st, h, Y, AY, KY, KAY, ya, aya, D, B, b);
+        // The MLP forward and its VJP; this stage's weighted quadrature
+        // term, (h b_st) (sign x), joins the step's sum in stage order.
+        aug_stage(net, rows, w, (-sf) * (s + tab.c[st] * h), ya, aya, buf_a,
+                  buf_b, H, G, KY + long(st) * BD, KAY + long(st) * BD, STEP,
+                  B, b, sf, h * tab.b_sol[st], tab.b_sol[st] != T(0),
+                  st == first_b);
       }
-      // The solution combine of (y, a_y), Kahan-compensated.
-      for (int pass = 0; pass < 2; ++pass) {
-        T* V = pass ? AY : Y;
-        T* CV = pass ? CAY : CY;
-        const T* KV = pass ? KAY : KY;
-        for (int d = 0; d < D; ++d) {
-          T dv = T(0);
-          bool first = true;
-          for (int q = 0; q < S; ++q) {
-            if (tab.b_sol[q] != T(0)) {
-              const T term = (h * tab.b_sol[q]) * KV[at(q * D + d)];
-              dv = first ? term : dv + term;
-              first = false;
-            }
-          }
-          const T v0 = V[at(d)];
-          const T adj = dv - CV[at(d)];
-          const T v1 = v0 + adj;
-          CV[at(d)] = (v1 - v0) - adj;
-          V[at(d)] = v1;
-        }
-      }
+      aug_kahan_update(tab, h, Y, AY, CY, CAY, KY, KAY, D, B, b);
       for (int r = 0; r < R; ++r) ACC[at(r)] = ACC[at(r)] + STEP[at(r)];
     }
   }
@@ -262,42 +152,12 @@ __global__ void mlp_adjoint_fixed_kernel(
   }
 }
 
-// The batch sums: block sums added in block order, one thread a value.
-template <typename T>
-__global__ void fixed_adjoint_reduce_kernel(const T* __restrict__ partial,
-                                            int n_blocks, int n_w, int ti,
-                                            T* __restrict__ aw,
-                                            T* __restrict__ at_out,
-                                            int* __restrict__ stats,
-                                            int nfe, int steps) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int R = n_w + ti;
-  if (r == 0) {
-    stats[0] = nfe;
-    stats[1] = steps;
-    stats[2] = 0;
-    stats[3] = 0;
-    if (!ti) at_out[0] = T(0);
-  }
-  if (r >= R) return;
-  T total = partial[r];
-  for (int k = 1; k < n_blocks; ++k) total = total + partial[long(k) * R + r];
-  if (r < n_w)
-    aw[r] = total;
-  else
-    at_out[0] = total;
-}
-
 // Workspace values the sweep needs; ops/cuda_fixed.py:_adjoint_work_size
 // allocates the same count.
-inline long fixed_adjoint_work_size(const Net& net, int S, int B, int D) {
-  long rows = (4 + 2 * long(S)) * D;
-  int n_w = 0;
-  for (int l = 0; l < net.n_layers; ++l) {
-    rows += net.din[l] + net.dout[l];
-    n_w += net.din[l] * net.dout[l] + net.dout[l];
-  }
-  rows += 2 * long(n_w + net.time_input);
+inline long fixed_adjoint_work_size(const Net& net, int n_w, int S, int B,
+                                    int D) {
+  const long rows = (4 + 2 * long(S)) * D + aug_rows_count(net) +
+                    2 * long(n_w + net.time_input);
   return rows * B;
 }
 
@@ -319,19 +179,12 @@ int launch_adjoint_fixed(const void* tau, const void* ys, const void* g,
   const int n_w = make_net(net, n_layers, dims, D, act_hidden, act_final,
                            input_power, time_input);
   if (n_w < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (work_size < fixed_adjoint_work_size(net, stages, B, D))
+  if (work_size < fixed_adjoint_work_size(net, n_w, stages, B, D))
     return static_cast<int>(cudaErrorInvalidValue);
   bool any = false;
   for (int i = 0; i < stages; ++i) any = any || b_sol[i] != 0.0;
   if (!any) return static_cast<int>(cudaErrorInvalidValue);
-  FixedRows rows;
-  int h = 0, z = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    rows.h_off[l] = h;
-    rows.z_off[l] = z;
-    h += net.din[l];
-    z += net.dout[l];
-  }
+  const AugRows rows = make_aug_rows(net);
   // Fixed tableaus have no error weights: b_sol stands in for b_err.
   const Tableau<T> tab =
       make_tableau<T>(stages, 0, 0, c, a, b_sol, b_sol, nullptr);
@@ -358,7 +211,7 @@ int launch_adjoint_fixed(const void* tau, const void* ys, const void* g,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int R = n_w + time_input;
   const int steps = n_sub * (T_obs - 1);
-  fixed_adjoint_reduce_kernel<T><<<(R + 127) / 128, 128, 0, st>>>(
+  quadrature_reduce_kernel<T><<<(R + 127) / 128, 128, 0, st>>>(
       static_cast<const T*>(partial), blocks, n_w, time_input,
       static_cast<T*>(aw), static_cast<T*>(at), static_cast<int*>(stats),
       stages * steps, steps);

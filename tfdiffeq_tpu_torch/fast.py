@@ -13,29 +13,31 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
 - `solve_mlp_spec` / `MLPSpec`: general autonomous or concat-t MLP dynamics
   (any depth and activation in `_ACTIVATIONS`, the state entering as
   y ** p), both time directions; the five adaptive RK tableaus with one
-  step controller shared by the batch (K2), or the four fixed-grid
-  methods (euler, midpoint, rk4, rk4_38) on the requested times or a
-  finer `num_steps` / `step_size` grid, in one launch of
-  `ops/cuda_fixed.mlp_solve_fixed` (K8).
+  step controller shared by the batch (K2) or, with `per_sample=True`, a
+  controller per sample (K5, `ops/cuda_perlane.mlp_solve_perlane`), or
+  the four fixed-grid methods (euler, midpoint, rk4, rk4_38) on the
+  requested times or a finer `num_steps` / `step_size` grid, in one launch
+  of `ops/cuda_fixed.mlp_solve_fixed` (K8).
 - `solve_mlp_stepwise`: the one-step kernel (`dopri5_mlp_step`, K1) plugged
   into the generic adaptive engine through `AdaptiveConfig.step_override`.
 - `odeint_adjoint_mlp`: the O(1)-memory training path, a
   `torch.autograd.Function` whose forward is one K2 or K8 launch and whose
   backward is one launch of an adjoint-sweep kernel: K3
   (`ops/cuda_adjoint.mlp_adjoint_solve`) for an adaptive adjoint method,
-  K9 (`ops/cuda_fixed.mlp_adjoint_solve_fixed`) for a fixed-grid one.
+  K9 (`ops/cuda_fixed.mlp_adjoint_solve_fixed`) for a fixed-grid one; with
+  `per_sample=True`, K5 forward and K6
+  (`ops/cuda_perlane.mlp_perlane_adjoint_solve`) backward.
 - `solve_conv_ode`: the ODE-Net MNIST block's conv dynamics, the whole
   adaptive solve of every controller block in one launch of K13
   (`ops/cuda_conv.conv_solve`).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
-item): per-sample controllers (item 9), Adams methods (item 12), dot
-precisions other than 'highest' (item 14), and the multi-card
-`axis_name` / `global_batch` coupling (item 18); `solve_conv_ode_sharded`
-has no counterpart here yet (item 18). What K2, K3, K8, K9 or K13 cannot
-take (widths past `MAX_WIDTH`, weights past the shared-memory bound, a
-conv block past the reference's block limit) raises; nothing falls back to
-the generic engine.
+item): Adams methods (item 12), dot precisions other than 'highest' (item
+14), and the multi-card `axis_name` / `global_batch` coupling (item 18);
+`solve_conv_ode_sharded` has no counterpart here yet (item 18). What the
+kernels cannot take (widths past `MAX_WIDTH`, weights past the
+shared-memory bound, a conv block past the reference's block limit)
+raises; nothing falls back to the generic engine.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ from .ops.cuda_conv import conv_solve, pack_conv_ode_weights
 from .ops.cuda_fixed import mlp_adjoint_solve_fixed, mlp_solve_fixed
 from .ops.cuda_kernels import (_ACTIVATIONS, dopri5_mlp_step, mlp_solve,
                                pack_mlp_weights)
-from .ops.norms import select_initial_step
+from .ops.cuda_perlane import mlp_perlane_adjoint_solve, mlp_solve_perlane
+from .ops.norms import select_initial_step, select_initial_step_per_sample
 from .solvers.adaptive import AdaptiveConfig, solve_adaptive
 from .solvers.base import CanonicalProblem, SolveResult, SolverStats
 from .solvers.fixed_grid import steps_for_size, uniform_grid
@@ -255,6 +258,13 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     the host computes f0 and, when first_step is None, the HNW initial
     step (2 extra evaluations, else 1, counted in nfe); rtol, atol,
     first_step and max_num_steps apply, num_steps and step_size do not.
+    per_sample=True runs K5 instead: every sample takes its own steps from
+    its own HNW first step (`select_initial_step_per_sample`, one batched
+    probe), with max_num_steps counting each sample's attempts; stats sum
+    the samples' counts (the initial-step evaluations once a sample) and
+    take the largest status, and `lane_stats` holds each sample's
+    (SolverStats of [B] int32 tensors on y0's device). per_sample applies
+    to the adaptive methods only.
     Fixed-grid methods (euler, midpoint, rk4, rk4_38) run K8 on the
     requested times, or on a uniform grid of `num_steps` steps or of steps
     at most `step_size` long with the outputs cubic-Hermite interpolated
@@ -265,11 +275,9 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
         raise NotImplementedError(
             f"dot_precision={spec.dot_precision!r} is not ported yet: "
             "ROADMAP.md queue 1 item 14 (dot-precision tiers)")
-    if per_sample:
-        raise NotImplementedError(
-            "per_sample=True is not ported yet: ROADMAP.md queue 1 item 9 "
-            "(per-sample tier)")
     _check_method(method)
+    if per_sample and method not in tableaus.TABLEAUS_BY_NAME:
+        raise ValueError("per_sample applies to adaptive RK methods only")
     y0, t = _check_spec_inputs(y0, t)
     dtype, dev = y0.dtype, y0.device
     if t.shape[0] == 1:
@@ -298,29 +306,40 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     if first_step is None:
         rdt = torch.as_tensor(rtol, dtype=dtype).to(dev)
         adt = torch.as_tensor(atol, dtype=dtype).to(dev)
-        dt0 = select_initial_step(g, tau[0].to(dev), y0, f0, order - 1, rdt,
-                                  adt)
+        pick = (select_initial_step_per_sample if per_sample
+                else select_initial_step)
+        dt0 = pick(g, tau[0].to(dev), y0, f0, order - 1, rdt, adt)
         extra_nfe = 2
     else:
         dt0 = torch.abs(torch.as_tensor(first_step, dtype=dtype))
         extra_nfe = 1
 
-    out, stats = mlp_solve(
-        warrays, dims, y0.contiguous(), tau, dt0, rtol, atol, float(sign),
-        f0=f0.contiguous(), activation=spec.activation,
-        final_activation=spec.final_activation,
-        input_power=spec.input_power, time_input=spec.time_input,
-        method=method,
-        max_steps=(int(max_num_steps) if max_num_steps is not None
-                   else _INT32_MAX))
+    kw = dict(f0=f0.contiguous(), activation=spec.activation,
+              final_activation=spec.final_activation,
+              input_power=spec.input_power, time_input=spec.time_input,
+              method=method,
+              max_steps=(int(max_num_steps) if max_num_steps is not None
+                         else _INT32_MAX))
+    if per_sample:
+        out, stats, lane = mlp_solve_perlane(
+            warrays, dims, y0.contiguous(), tau, dt0, rtol, atol,
+            float(sign), **kw)
+        nfe, nacc, nrej, status = stats.tolist()
+        return SolveResult(
+            out, SolverStats(nfe + extra_nfe * y0.shape[0], nacc, nrej,
+                             status),
+            lane_stats=SolverStats(lane[0] + extra_nfe, lane[1], lane[2],
+                                   lane[3]))
+    out, stats = mlp_solve(warrays, dims, y0.contiguous(), tau, dt0, rtol,
+                           atol, float(sign), **kw)
     nfe, nacc, nrej, status = stats.tolist()
     return SolveResult(out, SolverStats(nfe + extra_nfe, nacc, nrej, status))
 
 
 class _AdjointMLP(torch.autograd.Function):
-    """Forward: `solve_mlp_spec` (K2 or K8). Backward: K3's or K9's whole
-    sweep (reference `fast.py:_vjp_bwd`). `cfg` carries the static options
-    and receives the forward stats."""
+    """Forward: `solve_mlp_spec` (K2, K5 or K8). Backward: K3's, K6's or
+    K9's whole sweep (reference `fast.py:_vjp_bwd`). `cfg` carries the
+    static options and receives the forward stats."""
 
     @staticmethod
     def forward(ctx, cfg, y0, t, *flat):
@@ -330,7 +349,8 @@ class _AdjointMLP(torch.autograd.Function):
                              max_num_steps=cfg["max_num_steps"],
                              first_step=cfg["first_step"],
                              num_steps=cfg["num_steps"],
-                             step_size=cfg["step_size"])
+                             step_size=cfg["step_size"],
+                             per_sample=cfg["per_sample"])
         emit_fwd(cfg["nfe_meter"], res.stats.nfe, res.stats.n_accepted)
         cfg["stats"] = res.stats
         ctx.cfg = cfg
@@ -374,12 +394,19 @@ class _AdjointMLP(torch.autograd.Function):
                 # cheap heuristic; the controller settles within a few
                 # attempts).
                 dt0 = 0.1 * torch.abs(tau[-1] - tau[-2])
-            ay0, aw, at, bstats = mlp_adjoint_solve(
-                warrays, dims, ys.contiguous(), g.contiguous(), tau, dt0,
-                cfg["adjoint_rtol"], cfg["adjoint_atol"], sign,
-                seminorm=cfg["adjoint_seminorm"],
-                method=cfg["adjoint_method"], max_steps=cfg["max_steps"],
-                **net)
+            args = (warrays, dims, ys.contiguous(), g.contiguous(), tau, dt0,
+                    cfg["adjoint_rtol"], cfg["adjoint_atol"], sign)
+            if cfg["per_sample"]:
+                # Always the (y, a_y) seminorm: a batch-shared parameter
+                # quadrature cannot drive one sample's step control.
+                ay0, aw, at, bstats, _ = mlp_perlane_adjoint_solve(
+                    *args, method=cfg["adjoint_method"],
+                    max_steps=cfg["max_steps"], **net)
+            else:
+                ay0, aw, at, bstats = mlp_adjoint_solve(
+                    *args, seminorm=cfg["adjoint_seminorm"],
+                    method=cfg["adjoint_method"],
+                    max_steps=cfg["max_steps"], **net)
         nfe, nacc, _, status = bstats.tolist()
         emit_bwd(cfg["nfe_meter"], nfe, nacc)
         at = at.to(t.device, t.dtype)
@@ -421,6 +448,12 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     a fixed-grid one. On CPU tensors every kernel runs its plain PyTorch
     version.
 
+    per_sample=True: both sweeps give every sample its own step
+    controller, K5 forward and K6 backward, so a stiff sample sets the
+    steps of neither direction for the others; adaptive forward and
+    adjoint methods only. The backward then always uses the (y, a_y)
+    seminorm (adjoint_seminorm is ignored, as in the reference).
+
     Fixed-grid options, as in the reference: num_steps or step_size shape
     a fixed forward's grid (`solve_mlp_spec`); a fixed backward takes
     adjoint_num_steps equal steps per observation interval, else the
@@ -439,12 +472,12 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     adjoint_rtol = rtol if adjoint_rtol is None else adjoint_rtol
     adjoint_atol = atol if adjoint_atol is None else adjoint_atol
     adjoint_method = method if adjoint_method is None else adjoint_method
-    if per_sample:
-        raise NotImplementedError(
-            "odeint_adjoint_mlp(per_sample=True) is not ported yet: "
-            "ROADMAP.md queue 1 item 9 (per-sample tier)")
     _check_method(method)
     _check_method(adjoint_method)
+    if per_sample and (method not in tableaus.TABLEAUS_BY_NAME
+                       or adjoint_method not in tableaus.TABLEAUS_BY_NAME):
+        raise ValueError("per_sample=True training applies to adaptive RK "
+                         "methods only (forward and adjoint)")
     weights = [(W, b) for W, b in weights]
     has_bias = [b is not None for _, b in weights]
     flat = [x for W, b in weights for x in ((W, b) if b is not None
@@ -458,6 +491,7 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
            "adjoint_rtol": adjoint_rtol, "adjoint_atol": adjoint_atol,
            "method": method, "adjoint_method": adjoint_method,
            "adjoint_seminorm": bool(adjoint_seminorm),
+           "per_sample": bool(per_sample),
            "max_num_steps": max_num_steps,
            "max_steps": (int(max_num_steps) if max_num_steps is not None
                          else _INT32_MAX),

@@ -22,9 +22,14 @@ Options of the adaptive methods, against the reference's allowlist:
 - refused with ValueError: ``max_steps``, the reference's static step
   budget for its bounded XLA loop. There is no such budget here (the
   default is unlimited); ``max_num_steps`` caps the attempts;
+- ``per_sample``: one generic adaptive solve a sample of a [B, D] state,
+  each with its own step controller (the reference's `_per_sample_vmap`
+  route, a loop over the batch here); stats sum the samples' counts and
+  take the largest status, and `lane_stats` holds each sample's. The
+  fused per-sample kernel is `fast.solve_mlp_spec(per_sample=True)`;
 - not ported yet, raising NotImplementedError with the ROADMAP item that
-  brings them: ``fuse`` (queue 1 item 16; for every method),
-  ``per_sample`` (item 9), ``dense_output`` and ``telemetry`` (item 3,
+  brings them: ``fuse`` (queue 1 item 16; for every method, with or
+  without ``per_sample``), ``dense_output`` and ``telemetry`` (item 3,
   remaining engine options).
 
 Methods that are not ported yet (Adams and VCABM, hypersolvers) raise
@@ -44,7 +49,8 @@ from .ops.norms import max_norm
 from .ops.pytree import flatten_state, tree_leaves
 from .solvers.adaptive import AdaptiveConfig, solve_adaptive
 from .solvers.base import (ADAPTIVE_OPTIONS, FIXED_GRID_OPTIONS,
-                           SolveResult, Status, canonicalize, check_options)
+                           SolveResult, SolverStats, Status, canonicalize,
+                           check_options)
 from .solvers.fixed_grid import build_grid_from_options, solve_fixed_grid
 
 #: Public solver registry: name -> (kind, implementation).
@@ -67,7 +73,6 @@ _NOT_PORTED_METHODS = {
 
 _NOT_PORTED_OPTIONS = {
     "fuse": "queue 1 item 16 (fusion of arbitrary dynamics)",
-    "per_sample": "queue 1 item 9 (per-sample tier)",
     "dense_output": "queue 1 item 3 (remaining engine options)",
     "telemetry": "queue 1 item 3 (remaining engine options)",
 }
@@ -135,6 +140,27 @@ def _check_not_ported(method: str, options: dict) -> None:
                          "(expected 'while' or 'bounded')")
 
 
+def _per_sample(func: Callable, y0, t, rtol, atol, method: str,
+                options: dict) -> SolveResult:
+    """One generic adaptive solve a sample, each of the [1, D] state
+    y0[b:b + 1] under its own step controller (the reference's
+    `_per_sample_vmap`). Scalar stats sum the samples' counts and take the
+    largest status; lane_stats holds each sample's as [B] int32 tensors."""
+    if SOLVERS[method][0] != "adaptive":
+        raise ValueError("options={'per_sample': True} applies to adaptive "
+                         "methods only")
+    if not (isinstance(y0, torch.Tensor) and y0.ndim == 2):
+        raise ValueError("per_sample needs a [B, D] tensor state")
+    res = [solve(func, y0[b:b + 1], t, rtol=rtol, atol=atol, method=method,
+                 options=options) for b in range(y0.shape[0])]
+    lanes = torch.tensor([list(r.stats) for r in res],
+                         dtype=torch.int32).t()
+    stats = SolverStats(*(int(x) for x in lanes[:3].sum(dim=1)),
+                        int(lanes[3].max()))
+    return SolveResult(torch.cat([r.ys for r in res], dim=1), stats,
+                       lane_stats=SolverStats(*lanes))
+
+
 def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
           method: Optional[str] = None,
           options: Optional[dict] = None) -> SolveResult:
@@ -151,6 +177,8 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
     options = check_options(options, _allowed_options(method))
     for key in _NO_OP_OPTIONS:
         options.pop(key, None)
+    if options.pop("per_sample", False):
+        return _per_sample(func, y0, t, rtol, atol, method, options)
 
     prob = canonicalize(func, y0, t)
     rtol = _resolve_tolerance(rtol, y0)

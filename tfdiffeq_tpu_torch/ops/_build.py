@@ -32,7 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "fixed_kernel.cu", "fixed_adjoint_kernel.cu",
-           "conv_solve_kernel.cu")
+           "conv_solve_kernel.cu", "perlane_solve_kernel.cu",
+           "perlane_adjoint_kernel.cu")
 HEADERS = ("mlp_rk.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -83,13 +84,28 @@ _CONV_SOLVE_ARGS = ([_P] * 8                                # tensors
                     + [_D] * 8 + [_I, _I]                   # scalars
                     + [_I, _I, _I, _P, _P, _P, _P, _P]      # tableau
                     + [_P])                                 # stream
+_SOLVE_PERLANE_ARGS = ([_P] * 9                             # tensors
+                       + [_I] * 4                           # T, B, D, threads
+                       + [_D] * 7 + [_I, _I]                # scalars
+                       + [_I, _P, _I, _I, _I, _I]           # network
+                       + [_I, _I, _I, _P, _P, _P, _P, _P]   # tableau
+                       + [_P])                              # stream
+_ADJOINT_PERLANE_ARGS = ([_P] * 12                          # tensors
+                         + [ctypes.c_long]                  # work size
+                         + [_I] * 4                         # T, B, D, threads
+                         + [_D] * 7 + [_I]                  # scalars
+                         + [_I, _P, _I, _I, _I, _I]         # network
+                         + [_I, _I, _P, _P, _P, _P]         # tableau
+                         + [_P])                            # stream
 
 #: Launch functions -> argument lists, each in float32 and float64.
 _ENTRIES = {"tfd_dopri5_mlp_step": _STEP_ARGS, "tfd_mlp_solve": _SOLVE_ARGS,
             "tfd_mlp_adjoint": _ADJOINT_ARGS,
             "tfd_mlp_solve_fixed": _SOLVE_FIXED_ARGS,
             "tfd_mlp_adjoint_fixed": _ADJOINT_FIXED_ARGS,
-            "tfd_conv_solve": _CONV_SOLVE_ARGS}
+            "tfd_conv_solve": _CONV_SOLVE_ARGS,
+            "tfd_mlp_solve_perlane": _SOLVE_PERLANE_ARGS,
+            "tfd_mlp_perlane_adjoint": _ADJOINT_PERLANE_ARGS}
 
 
 def _nvcc() -> str:

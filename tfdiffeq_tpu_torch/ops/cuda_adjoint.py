@@ -75,7 +75,8 @@ def _aug_eval_plain(packed: Tensor, dims, activation: str,
     each input cotangent sums over the layer's outputs in order.
 
     Returns F(t, y, a_y) -> (f, v_y, per-sample parameter cotangents
-    [B, n_w] in `pack_mlp_weights`' layout, v_t [B] or None)."""
+    [B, n_w] in `pack_mlp_weights`' layout, v_t [B] or None); t is one time
+    (0-d) or one a sample ([B])."""
     layers = _unpack(packed, dims)
     L = len(dims)
     acts = [activation] * (L - 1) + [final_activation]
@@ -86,7 +87,7 @@ def _aug_eval_plain(packed: Tensor, dims, activation: str,
         for _ in range(input_power - 1):
             h = h * y
         if time_input:
-            h = torch.cat([h, t.reshape(1, 1).expand(B, 1)], dim=1)
+            h = torch.cat([h, t.reshape(-1, 1).expand(B, 1)], dim=1)
         hs, zs = [], []
         for l, (wT, b) in enumerate(layers):
             hs.append(h)

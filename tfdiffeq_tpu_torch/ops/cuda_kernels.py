@@ -262,18 +262,22 @@ def _rk_stages(tab: ButcherTableau, f, y0: Tensor, f0: Tensor, dt: Tensor,
     return k, delta, err, y_mid
 
 
-def _controller_factor(ratio, finite: bool, accept: bool, safety: float,
+def _controller_factor(ratio, finite, accept, safety: float,
                        ifactor: float, dfactor: float, order: int):
-    """pallas_kernels.py:_controller_factor on 0-d tensors: r ** (-1/order)
-    as exp(log), clipped to [1, ifactor] on accept, [dfactor, 1] on
-    reject."""
-    tiny = torch.tensor(1e-38, dtype=ratio.dtype, device=ratio.device)
-    r = torch.maximum(ratio if finite else torch.full_like(ratio, 2.0 ** 20),
-                      tiny)
+    """pallas_kernels.py:_controller_factor: r ** (-1/order) as exp(log),
+    clipped to [1, ifactor] on accept, [dfactor, 1] on reject. ratio is a
+    tensor (0-d, or one ratio a sample); finite and accept are bools or
+    bool tensors of its shape."""
+    finite = torch.as_tensor(finite, device=ratio.device)
+    accept = torch.as_tensor(accept, device=ratio.device)
+    full = lambda v: torch.full_like(ratio, v)
+    r = torch.maximum(torch.where(finite, ratio, full(2.0 ** 20)),
+                      full(1e-38))
     fac = safety * torch.exp((-1.0 / float(order)) * torch.log(r))
-    fac = torch.where(ratio <= 0.0, torch.full_like(fac, ifactor), fac)
-    lo, hi = (1.0, ifactor) if accept else (dfactor, 1.0)
-    return torch.clamp(torch.clamp(fac, min=lo), max=hi)
+    fac = torch.where(ratio <= 0.0, full(ifactor), fac)
+    lo = torch.where(accept, full(1.0), full(dfactor))
+    hi = torch.where(accept, full(ifactor), full(1.0))
+    return torch.minimum(torch.maximum(fac, lo), hi)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,8 @@
 Counterpart of `tfdiffeq_tpu/ops/norms.py`: the RMS norm of the error over
 the tolerance scale, and the Hairer–Nørsett–Wanner initial step (algorithm
 4.14). Every function works on tensors of any shape on any device and
-returns a 0-d tensor on that device. The per-sample initial step of the
-reference (`select_initial_step_per_sample`) arrives with the per-sample
-tier (ROADMAP queue 1 item 9).
+returns a 0-d tensor on that device, except the per-sample initial step
+(`select_initial_step_per_sample`), which returns one step a sample.
 """
 
 from __future__ import annotations
@@ -41,6 +40,48 @@ def error_ratio(y_err: Tensor, rtol, atol, y0: Tensor, y1: Tensor,
     norm = norm or rms_norm
     scale = atol + rtol * torch.maximum(torch.abs(y0), torch.abs(y1))
     return norm(y_err / scale)
+
+
+def select_initial_step_per_sample(func: Callable[[Tensor, Tensor], Tensor],
+                                   t0: Tensor, y0: Tensor, f0: Tensor,
+                                   order: int, rtol, atol) -> Tensor:
+    """HNW initial steps per sample of a batch-major [B, D] state, with one
+    batched probe evaluation (the per-sample tier's first steps).
+
+    Every norm is the RMS over the feature axis only. The Euler probe
+    evaluates the batched func once, at the scalar time t0 + min(h0), with
+    the per-sample probe states y0 + h0 * f0: exact per-sample probe times
+    would need B evaluations. Returns [B] steps of the state's real dtype
+    on y0's device."""
+    rdt = _real_dtype(y0.dtype)
+    scale = atol + torch.abs(y0) * rtol
+
+    def nrm(x):
+        m = torch.mean((x * x.conj()).real if x.is_complex() else x * x,
+                       dim=1)
+        pos = m > 0.0
+        return torch.where(pos, torch.sqrt(torch.where(pos, m,
+                                                       torch.ones_like(m))),
+                           torch.zeros_like(m))
+
+    d0 = nrm(y0 / scale)
+    d1 = nrm(f0 / scale)
+    small = (d0 < 1e-5) | (d1 < 1e-5)
+    h0 = torch.where(small, torch.full_like(d0, 1e-6),
+                     0.01 * d0 / torch.where(d1 > 0.0, d1,
+                                             torch.ones_like(d1))).to(rdt)
+
+    y1 = y0 + h0[:, None].to(y0.dtype) * f0
+    f1 = func(t0 + torch.min(h0).to(t0.device), y1)
+    d2 = nrm((f1 - f0) / scale) / h0
+
+    d_max = torch.maximum(d1, d2)
+    h1 = torch.where(
+        d_max <= 1e-15,
+        torch.clamp(h0 * 1e-3, min=1e-6),
+        (0.01 / torch.where(d_max > 0.0, d_max, torch.ones_like(d_max)))
+        ** (1.0 / (order + 1)))
+    return torch.minimum(100.0 * h0, h1).to(rdt)
 
 
 def select_initial_step(func: Callable[[Tensor, Tensor], Tensor], t0: Tensor,

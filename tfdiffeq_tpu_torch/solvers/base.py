@@ -43,6 +43,13 @@ class SolverStats(NamedTuple):
 class SolveResult(NamedTuple):
     ys: Any               # tensor [T, ...] or a nest of them
     stats: SolverStats
+    telemetry: Any = None  # the reference's StepTelemetry slot (not ported)
+    dense: Any = None      # the reference's DenseOutput slot (not ported)
+    # Per-sample SolverStats whose fields are [B] int tensors, from a
+    # per-sample solve (`options={'per_sample': True}`, or
+    # `fast.solve_mlp_spec(per_sample=True)`): every sample ran its own
+    # step controller.
+    lane_stats: Any = None
 
 
 class CanonicalProblem(NamedTuple):
