@@ -73,7 +73,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     --adjoint --fused`) at batch 128: three SGD steps (K13 forward, generic
     adjoint backward), then one `--fused_eval` batch of 256. Counters zeroed
     before, read after: K13 = 4 launches (one a step, one for the
-    evaluation); finite losses, the weights move; f-NFE and b-NFE printed;
+    evaluation); finite losses, the weights move; no `solve_conv_ode` call
+    of phases 14-15 fell back to the generic engine
+    (`fast.conv_ode_fallbacks`); f-NFE and b-NFE printed;
     the step time is the median of the three on the host clock. A fourth
     step runs under torch.profiler: the kernels' device time, the device's
     idle share and the kernels that take the most time.
@@ -100,15 +102,60 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     controller fused ones within 1e-4 relative. K6, its plain version and
     K3 timed.
 
+18. The wide-MLP tier (bench.py:291-424): the 128 -> 256 -> 256 -> 128
+    tanh net, seed-0 weights randn(din, dout) / sqrt(din), zero biases,
+    seed-1 states randn(1024, 128) * 0.5, 8 outputs over [0, 2]. K2 at the
+    bench tolerances (dopri5, rtol = atol = 1e-6, first step 0.01) against
+    its plain version: 'highest' (the wide route) bitwise in float32 and
+    float64 with identical stats; 'mixed' (the batch route, K4 on the
+    tensor cores) in float64 bitwise, in float32 status 0, accepted and
+    rejected counts within one and trajectories within 5e-5, and more than
+    5e-5 from the plain 'highest' (a control); each tier timed with its
+    NFE. 'highest' forced onto the batch route: bitwise the wide route's
+    solve, and timed against it.
+19. K8 at rk4 x 128 steps over [0, 2] on the same net, 'highest', 'bf16'
+    and 'mixed': 'highest' bitwise, float32 'mixed' within 1e-5 of its
+    plain version and 'bf16' within 2e-3 (SOLVE_BARS: it rounds every layer
+    input to 8 bits, so a last-bit difference in a tensor-core sum can move
+    a rounding by 2^-8), and past that bar from the plain 'highest' version
+    ('mixed' also from the plain 'bf16'; controls); float64 tiers bitwise
+    at 16 steps; 'highest' on
+    the batch route bitwise and timed, as in [18]. The plain versions of
+    phases 18-20 are timed (host clock) by the call that checks them, the
+    kernels with CUDA events. Then the slice through `fast.solve_mlp_spec`:
+    counters zeroed, dopri5 at 'highest' and 'mixed' and rk4 x 128 at all
+    three tiers, counters read (K2 = 2, K8 = 3, K4 = 3 launches; a solve on
+    the batch route is two launches, the bf16 weight pack and the solve,
+    counted as one). K4 alone (`cuda_kernels.tier_net`, one evaluation of
+    the net at B = 1024): each tier within EVAL_BARS of its plain version
+    (largest and mean difference; 'highest' bitwise) and outside them
+    against the other tiers' plain versions (controls), its error against
+    a float64 product printed, and timed. K4's record: the 'mixed' call
+    (the weight pack and the evaluation), against the plain net, its bound
+    at the 989 TFLOP/s bf16 tensor-core peak, and three torch.matmul calls
+    of the bf16 operands (which round their output to bf16) as its
+    library time.
+20. Wide training and the other kernels at width 256, B = 256: one
+    `fast.odeint_adjoint_mlp` SGD step (K2 + K3 on the wide route) and one
+    with a 'mixed' forward; K5, K6 and K9 on the wide route against their
+    plain versions (identical counts, close values; whether bitwise equal
+    is printed) and timed.
+21. `fast.calibrate_dot_precision` on the wide configuration ('bf16' and
+    'mixed' against 'highest', the reference's NFE x passes model): the
+    tier it picks and the NFEs.
+
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
 from its plain version, its time and its plain version's, and its bound,
 the least time the card could take for the work of this run's inputs (the
-larger of its operations over the float32 peak of 67 TFLOP/s and the
-bytes it must read and write once over 3.35 TB/s). No single PyTorch call
-computes any of these whole solves, steps or sweeps, so library_ms is
-null. The run's total time is printed before them. The last line is
-{"ok": true, "device": {...}}.
+larger of its operations over the float32 peak of 67 TFLOP/s, or for K4's
+tier products the bf16 tensor-core peak of 989 TFLOP/s, and the bytes it
+must read and write once over 3.35 TB/s). No single PyTorch call computes
+any of these whole solves, steps or sweeps, so library_ms is null but for
+K4. The MLP kernels' records also carry their wide-route time (`wide_ms`,
+phases 18-20), and K2's and K8's records their 'highest' time on the batch
+route (`wide_batch_route_ms`). The run's total time is printed before them. The last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -205,15 +252,16 @@ def _timed(fn, reps=5, inner=1):
 
 
 #: H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
-#: and HBM3.
+#: dense bf16 on the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
-def _bound(flops: float, nbytes: float):
+def _bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """(bound in ms, what sets it): the larger of the operations over the
-    float32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    peak (float32 unless given) and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -244,6 +292,422 @@ def _conv_eval_flops(C: int, H: int, W: int) -> int:
     P = H * W
     conv = 2 * C * C * (3 * H - 2) * (3 * W - 2) + 3 * C * P
     return 2 * conv + 3 * 8 * C * P + 2 * C * P
+
+
+WIDE_D, WIDE_H, WIDE_B = 128, 256, 1024
+
+
+def _wide_net(dtype, device, B=WIDE_B, seed=1):
+    """bench.py:308-320 and :344-354: the wide MLP's seed-0 weights, zero
+    biases, and seed-`seed` states randn(B, 128) * 0.5."""
+    import torch
+    rng = np.random.RandomState(0)
+    dims = ((WIDE_D, WIDE_H), (WIDE_H, WIDE_H), (WIDE_H, WIDE_D))
+    W = [(torch.tensor(rng.randn(i, o) / np.sqrt(i), dtype=dtype,
+                       device=device),
+          torch.zeros(o, dtype=dtype, device=device)) for i, o in dims]
+    y0 = torch.tensor(np.random.RandomState(seed).randn(B, WIDE_D) * 0.5,
+                      dtype=dtype, device=device)
+    return W, y0
+
+
+def _host_call(fn):
+    """(fn(), host milliseconds of the call, synchronised): the plain
+    versions of the wide phases are timed by the call that checks them."""
+    import time
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+#: Largest and mean |kernel - plain| a float32 tier may show, from the
+#: order of its tensor-core sums alone: 'mixed' at roundoff; 'bf16' where a
+#: last-bit difference flips the bf16 rounding of a layer input by 2^-8 on
+#: a few outputs (0.7% of them in a CPU model of another summation order,
+#: largest 1.3e-3). The tiers differ from each other by about 8e-4 on
+#: average and 5e-3 at most in one evaluation of the wide net, so a kernel
+#: that ran another tier's arithmetic fails the mean bar by 80x or more.
+EVAL_BARS = {"highest": (0.0, 0.0), "mixed": (2e-5, 2e-6),
+             "bf16": (3e-3, 1e-5)}
+#: Largest |kernel - plain| of K8's rk4 x 128 wide solve in float32.
+SOLVE_BARS = {"highest": 0.0, "mixed": 1e-5, "bf16": 2e-3}
+
+
+def _gap(a, b):
+    """(largest, mean) |a - b|."""
+    d = (a - b).abs()
+    return float(d.max()), float(d.mean())
+
+
+def _held(label, tier, got, plains, gap_ok):
+    """Hold a float32 tier's kernel output `got` to the plain version of its
+    own tier (`gap_ok` must pass) and, as controls, to the plain versions of
+    the other tiers in `plains` (each must fail: the check tells the tiers
+    apart). Returns the gap to its own plain version."""
+    own = _gap(got, plains[tier])
+    if not gap_ok(own):
+        raise AssertionError(f"{label} {tier}: |kernel - plain| (largest, "
+                             f"mean) {own} past its bar")
+    for other, ref in plains.items():
+        if other != tier and gap_ok(_gap(got, ref)):
+            raise AssertionError(f"{label} {tier}: the kernel passes the bar "
+                                 f"against the plain {other!r} version too")
+    return own
+
+
+def _batch_route():
+    """A context in which K2's and K8's wrappers take the batch route at
+    every tier ('highest' layers there sum in input order on the CUDA
+    cores): the route the solves take only for a reduced tier, timed
+    against the wide route."""
+    import contextlib
+    from tfdiffeq_tpu_torch.ops import cuda_fixed as cf, cuda_kernels as ck
+
+    @contextlib.contextmanager
+    def forced():
+        saved = ck._route, cf._route
+        ck._route = cf._route = lambda *a, **k: ck.ROUTE_BATCH
+        try:
+            yield
+        finally:
+            ck._route, cf._route = saved
+    return forced()
+
+
+def _wide_tier(smi: str, dev) -> dict:
+    """Phases 18-21: the wide-MLP tier and K4. Returns the numbers that the
+    kernel records take."""
+    import torch
+    from tfdiffeq_tpu_torch import fast
+    from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, \
+        cuda_fixed as cf, cuda_kernels as ck, cuda_perlane as cp
+    from tfdiffeq_tpu_torch.ops.tableaus import DOPRI5, RK4
+    from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
+    f32, f64 = torch.float32, torch.float64
+    rec = {}
+    dims = ((WIDE_D, WIDE_H), (WIDE_H, WIDE_H), (WIDE_H, WIDE_D))
+    n_mac = sum(i * o for i, o in dims)
+    spec = fast.MLPSpec(activation="tanh", matmul="auto")
+
+    def bound(evals, io, tier="highest", per=1):
+        """A wide run's bound: `evals` sample-evaluations (`per` times the
+        forward's operations each), on the CUDA cores in float32 or, for a
+        tier, two bf16 passes ('mixed') or one on the tensor cores; the
+        bytes of the weights and of `io` float32 state values read or
+        written once."""
+        if tier == "highest":
+            return _bound(evals * per * _mlp_flops(dims), 4 * (n_mac + io))
+        passes = 2 if tier == "mixed" else 1
+        return _bound(evals * passes * 2 * n_mac, 2 * n_mac + 4 * io,
+                      peak=PEAK_BF16_FLOPS)
+
+    t8 = {dt: torch.linspace(0.0, 2.0, 8, dtype=dt) for dt in (f32, f64)}
+    tol = 1e-6
+
+    # [18] K2 at the bench tolerances, each tier against its plain version.
+    k2, k2_plain = {}, {}
+    for tier, dtype in (("highest", f32), ("highest", f64), ("mixed", f64),
+                        ("mixed", f32)):
+        W, y = _wide_net(dtype, dev)
+        warr, pd = ck.pack_mlp_weights(W, dtype, dev)
+        tiers = ck.layer_tiers(pd, "auto", tier)
+        args = (warr, pd, y, t8[dtype], 0.01, tol, tol, 1.0)
+        kw = dict(f0=fast.mlp_apply(spec, W, y), tiers=tiers)
+        out, st = ck.mlp_solve(*args, **kw)
+        (ref, st_ref), plain_ms = _host_call(
+            lambda: ck.mlp_solve_plain(*args, **kw))
+        err = float((out - ref).abs().max())
+        same = bool(torch.equal(out, ref) and torch.equal(st, st_ref))
+        print(f"[18] K2 wide {tier} {dtype}: kernel stats {st.tolist()}, "
+              f"plain {st_ref.tolist()}; max |kernel - plain| {err:.3e}; "
+              f"bitwise equal to plain: {same}", flush=True)
+        if st[3].item() != 0 or not torch.isfinite(out).all():
+            raise AssertionError(f"K2 wide {tier} {dtype} failed")
+        if (tier == "highest" or dtype == f64) and not same:
+            raise AssertionError(f"K2 wide {tier} {dtype} differs from its "
+                                 "plain version")
+        if tier == "mixed" and dtype == f32 and (
+                abs(st[1].item() - st_ref[1].item()) > 1
+                or abs(st[2].item() - st_ref[2].item()) > 1 or err > 5e-5):
+            raise AssertionError("K2 wide mixed float32 differs from its "
+                                 "plain version")
+        k2[(tier, dtype)] = (args, kw, st.tolist(), plain_ms, out)
+        if dtype == f32:
+            k2_plain[tier] = ref
+    # Control: float32 'mixed' held against the plain 'highest' fails.
+    ctl = _gap(k2[("mixed", f32)][4], k2_plain["highest"])[0]
+    print(f"[18] control: K2 wide mixed float32 against the plain highest "
+          f"version: {ctl:.3e} (must exceed the bar 5e-5)", flush=True)
+    if ctl <= 5e-5:
+        raise AssertionError("K2 wide mixed cannot be told from highest")
+    for tier in ("highest", "mixed"):
+        args, kw, st, plain_ms, _ = k2[(tier, f32)]
+        ms = _timed(lambda: ck.mlp_solve(*args, **kw), reps=3)
+        rec[f"k2_{tier}"] = (ms, plain_ms, st)
+        print(f"[18] {smi}: K2 wide {tier} {ms:.3f} ms/solve vs plain "
+              f"{plain_ms:.3f} ms (B={WIDE_B}, float32, nfe {st[0]}, "
+              f"{st[1] + st[2]} attempts; {ms / st[0]:.4f} ms an "
+              f"evaluation); bound "
+              f"{bound(WIDE_B * st[0], 9 * WIDE_B * WIDE_D, tier)}",
+              flush=True)
+    # 'highest' on the batch route: bitwise the same solve, and its time
+    # against the wide route's.
+    args, kw, st, _, out = k2[("highest", f32)]
+    with _batch_route():
+        got, st_b = ck.mlp_solve(*args, **kw)
+        ms = _timed(lambda: ck.mlp_solve(*args, **kw), reps=3)
+    print(f"[18] {smi}: K2 wide highest on the batch route {ms:.3f} ms/solve"
+          f" ({ms / st[0]:.4f} ms an evaluation) against the wide route's "
+          f"{rec['k2_highest'][0]:.3f}; bitwise equal to it: "
+          f"{torch.equal(got, out)}", flush=True)
+    if not (torch.equal(got, out) and st_b.tolist() == st):
+        raise AssertionError("K2 highest differs between its routes")
+    rec["k2_highest_batch"] = ms
+
+    # [19] K8 rk4 x 128 at each tier.
+    k8, k8_plain = {}, {}
+    for tier, dtype, steps in (("highest", f32, 128), ("bf16", f32, 128),
+                               ("mixed", f32, 128), ("bf16", f64, 16),
+                               ("mixed", f64, 16)):
+        W, y = _wide_net(dtype, dev)
+        warr, pd = ck.pack_mlp_weights(W, dtype, dev)
+        t = torch.tensor([0.0, 2.0], dtype=dtype)
+        args = (warr, pd, y, t, uniform_grid(t[0], t[-1], steps), 1.0)
+        kw = dict(f0=fast.mlp_apply(spec, W, y), method="rk4",
+                  tiers=ck.layer_tiers(pd, "auto", tier))
+        out, st = cf.mlp_solve_fixed(*args, **kw)
+        (ref, st_ref), plain_ms = _host_call(
+            lambda: cf.mlp_solve_fixed_plain(*args, **kw))
+        err = float((out - ref).abs().max())
+        same = bool(torch.equal(out, ref))
+        print(f"[19] K8 wide rk4 x {steps} {tier} {dtype}: stats "
+              f"{st.tolist()}; max |kernel - plain| {err:.3e}; bitwise equal"
+              f" to plain: {same}", flush=True)
+        if not torch.equal(st, st_ref) or st[3].item() != 0 \
+                or not torch.isfinite(out).all() \
+                or ((dtype == f64 or tier == "highest") and not same) \
+                or err > SOLVE_BARS[tier]:
+            raise AssertionError(f"K8 wide {tier} {dtype} differs from its "
+                                 "plain version")
+        if dtype == f32:
+            k8[tier] = (args, kw, st.tolist(), plain_ms, out)
+            k8_plain[tier] = ref
+    # Controls. Over 128 steps the order noise of 'bf16' adds up to about
+    # a third of the 'bf16' - 'mixed' gap (9e-4 in a CPU model), so a
+    # solve tells 'bf16' from 'highest' only; K4's one-evaluation check
+    # below tells it from 'mixed'.
+    for tier, others in (("mixed", ("highest", "bf16")),
+                         ("bf16", ("highest",))):
+        _held("K8 wide rk4 x 128", tier, k8[tier][4],
+              {o: k8_plain[o] for o in (tier,) + others},
+              lambda g, tier=tier: g[0] <= SOLVE_BARS[tier])
+        print(f"[19] controls: K8 wide {tier} against the plain "
+              + ", ".join(f"{o} version {_gap(k8[tier][4], k8_plain[o])[0]:.3e}"
+                          for o in others)
+              + f" (each must exceed the bar {SOLVE_BARS[tier]})",
+              flush=True)
+    for tier in ("highest", "bf16", "mixed"):
+        args, kw, st, plain_ms, _ = k8[tier]
+        ms = _timed(lambda: cf.mlp_solve_fixed(*args, **kw), reps=3)
+        rec[f"k8_{tier}"] = (ms, plain_ms, st)
+        print(f"[19] {smi}: K8 wide rk4 x 128 {tier} {ms:.3f} ms/solve vs "
+              f"plain {plain_ms:.3f} ms (B={WIDE_B}, float32, nfe {st[0]}; "
+              f"{ms / st[0]:.4f} ms an evaluation); bound "
+              f"{bound(WIDE_B * st[0], 3 * WIDE_B * WIDE_D, tier)}",
+              flush=True)
+    args, kw, st, _, out = k8["highest"]
+    with _batch_route():
+        got = cf.mlp_solve_fixed(*args, **kw)[0]
+        ms = _timed(lambda: cf.mlp_solve_fixed(*args, **kw), reps=3)
+    print(f"[19] {smi}: K8 wide rk4 x 128 highest on the batch route "
+          f"{ms:.3f} ms/solve ({ms / st[0]:.4f} ms an evaluation) against "
+          f"the wide route's {rec['k8_highest'][0]:.3f}; bitwise equal to "
+          f"it: {torch.equal(got, out)}", flush=True)
+    if not torch.equal(got, out):
+        raise AssertionError("K8 highest differs between its routes")
+    rec["k8_highest_batch"] = ms
+
+    # The slice through the public entry point.
+    W, y = _wide_net(f32, dev)
+    runs = []
+    ck.reset_launch_counts()
+    cf.reset_launch_counts()
+    for tier, method in (("highest", "dopri5"), ("mixed", "dopri5"),
+                         ("highest", "rk4"), ("bf16", "rk4"),
+                         ("mixed", "rk4")):
+        s_ = fast.MLPSpec(activation="tanh", matmul="auto",
+                          dot_precision=tier)
+        kw = (dict(rtol=tol, atol=tol, first_step=0.01) if method == "dopri5"
+              else dict(method="rk4", num_steps=128))
+        tt = t8[f32] if method == "dopri5" else torch.tensor([0.0, 2.0])
+        runs.append((tier, method, fast.solve_mlp_spec(s_, W, y, tt, **kw)))
+    torch.cuda.synchronize()
+    launches = {"mlp_solve": ck.mlp_solve_launches,
+                "mlp_solve_fixed": cf.mlp_solve_fixed_launches,
+                "dot_tiers": ck.dot_tier_launches}
+    for tier, method, res in runs:
+        print(f"[19] fast.solve_mlp_spec({method}, {tier}) wide: stats "
+              f"{res.stats}", flush=True)
+        if res.stats.status != 0 or not torch.isfinite(res.ys).all():
+            raise AssertionError(f"the wide {method} {tier} solve failed")
+    gap_mixed = float((runs[1][2].ys - runs[0][2].ys).abs().max())
+    gap_bf16 = float((runs[3][2].ys[-1] - runs[2][2].ys[-1]).abs().max())
+    print(f"[19] launches in the wide slice: {launches}; max |mixed - "
+          f"highest| (dopri5) {gap_mixed:.3e}, |bf16 - highest| (rk4) "
+          f"{gap_bf16:.3e}", flush=True)
+    if launches != {"mlp_solve": 2, "mlp_solve_fixed": 3, "dot_tiers": 3}:
+        raise AssertionError(f"wide slice launches {launches}")
+    rec["k4_launches"] = launches["dot_tiers"]
+
+    # K4 alone: one evaluation of the net at B = 1024 (`tier_net`), each
+    # tier against its plain version and a float64 product of the float32
+    # weights; the other tiers' plain versions as controls.
+    x = y
+    f_exact = fast.mlp_apply(spec, [(a.double(), b.double()) for a, b in W],
+                             x.double())
+    warr, pd = ck.pack_mlp_weights(W, f32, dev)
+    tiers = {tier: ck.layer_tiers(pd, "auto", tier)
+             for tier in ("highest", "mixed", "bf16")}
+    plains = {tier: ck._net_plain(warr, pd, "tanh", "identity", 1, False,
+                                  tt)(0.0, x) for tier, tt in tiers.items()}
+    k4_err, k4_ms = 0.0, {}
+    for tier, tt in tiers.items():
+        got = ck.tier_net(warr, pd, x, tiers=tt)
+        torch.cuda.synchronize()
+        bar = EVAL_BARS[tier]
+        mx, mean = _held("K4 one evaluation", tier, got, plains,
+                         lambda g, bar=bar: g[0] <= bar[0] and g[1] <= bar[1])
+        k4_ms[tier] = _timed(lambda: ck.tier_net(warr, pd, x, tiers=tt),
+                             reps=5, inner=10)
+        print(f"[19] K4 one evaluation at B={WIDE_B}, {tier}: |kernel - "
+              f"plain| largest {mx:.3e}, mean {mean:.3e} (bars {bar}); "
+              f"against the other tiers' plain versions (largest, mean) "
+              + ", ".join(f"{o} {_gap(got, r)}" for o, r in plains.items()
+                          if o != tier)
+              + f"; max |kernel - float64 product| "
+              f"{float((got.double() - f_exact).abs().max()):.3e} (plain "
+              f"{float((plains[tier].double() - f_exact).abs().max()):.3e});"
+              f" {smi}: {k4_ms[tier]:.4f} ms", flush=True)
+        if tier != "highest":
+            k4_err = max(k4_err, mx)
+    rec["k4_err"], rec["k4_ms"] = k4_err, k4_ms["mixed"]
+    h16 = torch.tensor(np.random.RandomState(3).randn(WIDE_B, WIDE_H),
+                       dtype=torch.bfloat16, device=dev)
+    ws16 = [w.to(torch.bfloat16) for w, _ in W]
+    xs16 = [x.to(torch.bfloat16), h16, h16]
+    rec["k4_library_ms"] = _timed(
+        lambda: [torch.matmul(a, w) for a, w in zip(xs16, ws16)], reps=5,
+        inner=20)
+    lib_layer = _timed(lambda: torch.matmul(h16, ws16[1]), reps=5, inner=20)
+    net_plain = ck._net_plain(warr, pd, "tanh", "identity", 1, False,
+                              tiers["mixed"])
+    rec["k4_plain_ms"] = _timed(lambda: net_plain(0.0, x), reps=3)
+    # Two bf16 passes of a multiply and an add a weight and sample; the
+    # float32 weights and states read once, the outputs written once.
+    n_w = sum(i * o + o for i, o in dims)
+    rec["k4_bound"] = _bound(2 * 2 * WIDE_B * n_mac,
+                             4 * (n_w + 2 * WIDE_B * WIDE_D),
+                             peak=PEAK_BF16_FLOPS)
+    print(f"[19] {smi}: K4 alone ('mixed', `tier_net`: the bf16 weight pack "
+          f"and one evaluation at B={WIDE_B}) {rec['k4_ms']:.4f} ms (bound "
+          f"{rec['k4_bound'][0]:.5f} ms at the bf16 tensor-core peak; "
+          f"'bf16' {k4_ms['bf16']:.4f}, 'highest' on the CUDA cores "
+          f"{k4_ms['highest']:.4f}) vs plain {rec['k4_plain_ms']:.3f} ms; "
+          f"torch.matmul of the bf16 operands (bf16 output) "
+          f"{rec['k4_library_ms']:.4f} ms for the three layers, "
+          f"{lib_layer:.4f} ms for the 256 x 256 layer", flush=True)
+
+    # [20] wide training, and K5, K6, K9 at width 256, B = 256.
+    Bt = 256
+    W, y = _wide_net(f32, dev, B=Bt)
+    target = torch.tensor(np.random.RandomState(2).randn(8, Bt, WIDE_D) * 0.5,
+                          dtype=f32, device=dev)
+    for tier in ("highest", "mixed"):
+        Wt = [(a.clone().requires_grad_(), b.clone().requires_grad_())
+              for a, b in W]
+        s_ = fast.MLPSpec(activation="tanh", dot_precision=tier)
+        ck.reset_launch_counts()
+        ca.reset_launch_counts()
+
+        def sgd():
+            ys, st = fast.odeint_adjoint_mlp(s_, Wt, y, t8[f32], rtol=tol,
+                                             atol=tol, first_step=0.01,
+                                             return_stats=True)
+            torch.mean((ys - target) ** 2).backward()
+            with torch.no_grad():
+                for q in (q for pair in Wt for q in pair):
+                    if not torch.isfinite(q.grad).all():
+                        raise AssertionError("non-finite wide gradient")
+                    q -= SGD_LR * q.grad
+            return st
+
+        step_ms, _ = _host_ms(sgd, reps=1)
+        got = {"mlp_solve": ck.mlp_solve_launches,
+               "mlp_adjoint_solve": ca.mlp_adjoint_solve_launches,
+               "dot_tiers": ck.dot_tier_launches}
+        print(f"[20] {smi}: wide SGD step, {tier} forward (K2 + K3 wide, "
+              f"B={Bt}, float32) {step_ms:.3f} ms; launches {got}",
+              flush=True)
+        if got != {"mlp_solve": 1, "mlp_adjoint_solve": 1,
+                   "dot_tiers": int(tier == "mixed")}:
+            raise AssertionError(f"wide training launches {got}")
+        rec[f"train_{tier}"] = step_ms
+    warr, pd = ck.pack_mlp_weights(W, f32, dev)
+    t4 = torch.linspace(0.0, 1.0, 4)
+    f0 = fast.mlp_apply(spec, W, y)
+    ys = fast.solve_mlp_spec(spec, W, y, t4, rtol=1e-5, atol=1e-5).ys
+    g = (2.0 * (ys - target[:4]) / ys.numel()).contiguous()
+    cases = {
+        "K5": (cp.mlp_solve_perlane, cp.mlp_solve_perlane_plain,
+               (warr, pd, y, t4, 0.05, 1e-5, 1e-5, 1.0), dict(f0=f0)),
+        "K6": (cp.mlp_perlane_adjoint_solve,
+               cp.mlp_perlane_adjoint_solve_plain,
+               (warr, pd, ys.contiguous(), g, t4, 0.05, 1e-5, 1e-5, 1.0),
+               {}),
+        "K9": (cf.mlp_adjoint_solve_fixed, cf.mlp_adjoint_solve_fixed_plain,
+               (warr, pd, ys.contiguous(), g, t4, 1.0), dict(num_steps=2)),
+        "K3": (ca.mlp_adjoint_solve, ca.mlp_adjoint_solve_plain,
+               (warr, pd, ys.contiguous(), g, t4, 0.05, 1e-5, 1e-5, 1.0),
+               {}),
+    }
+    for name, (fn, plain, args, kw) in cases.items():
+        got = fn(*args, **kw)
+        ref, plain_ms = _host_call(lambda: plain(*args, **kw))
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        counts = [a for a in got if not a.is_floating_point()]
+        counts_ref = [a for a in ref if not a.is_floating_point()]
+        rels = [_rel(a, b) for a, b in zip(got, ref) if a.is_floating_point()]
+        ms = _timed(lambda: fn(*args, **kw), reps=2)
+        rec[f"{name}_wide"] = ms
+        nfe = counts[0][0].item() * (Bt if name in ("K3", "K9") else 1)
+        print(f"[20] {smi}: {name} wide (width 256, B={Bt}, float32) "
+              f"{ms:.3f} ms vs plain {plain_ms:.3f} ms; stats "
+              f"{counts[0].tolist()}; max relative |kernel - plain| "
+              f"{max(rels):.3e}; bitwise equal to plain: {same}; bound "
+              f"{bound(nfe, 9 * Bt * WIDE_D, per=1 if name == 'K5' else 3)}",
+              flush=True)
+        if any(not torch.equal(a, b) for a, b in zip(counts, counts_ref)) \
+                or max(rels) > 1e-5 or counts[0][3].item() != 0:
+            raise AssertionError(f"{name} wide differs from its plain "
+                                 "version")
+
+    # [21] calibration on the wide configuration.
+    W, y = _wide_net(f32, dev)
+    picked = fast.calibrate_dot_precision(spec, W, y, t8[f32], rtol=tol,
+                                          atol=tol, first_step=0.01)
+    nfes = {tier: fast.solve_mlp_spec(
+        fast.MLPSpec(activation="tanh", dot_precision=tier), W, y, t8[f32],
+        rtol=tol, atol=tol, first_step=0.01).stats.nfe
+        for tier in ("highest", "mixed", "bf16")}
+    print(f"[21] calibrate_dot_precision on the wide net (dopri5, rtol = "
+          f"atol = {tol}): picks {picked.dot_precision!r}; nfe {nfes}; cost "
+          f"(nfe x DOT_PASSES) "
+          f"{ {k: v * fast.DOT_PASSES[k] for k, v in nfes.items()} }",
+          flush=True)
+    return rec
 
 
 def main() -> int:
@@ -751,6 +1215,7 @@ def main() -> int:
                              f"change {moved}")
 
     # [14] K13 at the ODE-Net's full width, on the stem's output.
+    fallbacks = fast.conv_ode_fallbacks
     oargs = onet.parse_args(["--synthetic_hard", "--adjoint", "--fused"])
     OB = oargs.batch_size
     x_tr, y_tr, x_te, y_te = onet.load_data(
@@ -869,6 +1334,8 @@ def main() -> int:
     if not all(np.isfinite(onet_losses)) or not moved > 0.0:
         raise AssertionError(f"ODE-Net losses {onet_losses}, weight change "
                              f"{moved}")
+    if fast.conv_ode_fallbacks != fallbacks:
+        raise AssertionError("solve_conv_ode took the generic engine")
     # One more step, profiled: where the step's time goes.
     batches = iter([(torch.from_numpy(x_tr[:OB]).to(dev),
                      torch.from_numpy(y_tr[:OB]).to(dev))])
@@ -1096,6 +1563,8 @@ def main() -> int:
           f"float32; K6 nfe {k6_st[0]}, {k6_st[1] + k6_st[2]} attempts over "
           f"the samples)", flush=True)
 
+    wide = _wide_tier(smi, dev)
+
     # Bounds: the operations and bytes of each timed run's inputs.
     mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
     n_w = D * H + H + H * D + D
@@ -1133,6 +1602,7 @@ def main() -> int:
                       4 * (2 * T_OUT * B * D + B * D + B + 2 * n_w + T_OUT)
                       + 4 * 5 * B)
 
+    k4_bound = wide["k4_bound"]
     kernels = [
         {"name": "dopri5_mlp_step", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/step_kernel.cu",
@@ -1192,7 +1662,25 @@ def main() -> int:
          "plain_ms": perlane_adj_plain_ms, "bound_ms": k6_bound[0],
          "bound_by": k6_bound[1], "library_ms": None,
          "shared_controller_ms": shared_adj_ms},
+        {"name": "dot_tiers", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/dot_tiers.cuh",
+         "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:361",
+         "launches": wide["k4_launches"], "max_abs_err": wide["k4_err"],
+         "ms": wide["k4_ms"], "plain_ms": wide["k4_plain_ms"],
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": wide["k4_library_ms"]},
     ]
+    wide_ms = {"mlp_solve": wide["k2_highest"][0],
+               "mlp_adjoint_solve": wide["K3_wide"],
+               "fixed_solve": wide["k8_highest"][0],
+               "fixed_adjoint_solve": wide["K9_wide"],
+               "mlp_solve_perlane": wide["K5_wide"],
+               "mlp_perlane_adjoint_solve": wide["K6_wide"]}
+    for k in kernels:
+        if k["name"] in wide_ms:
+            k["wide_ms"] = wide_ms[k["name"]]
+    kernels[1]["wide_batch_route_ms"] = wide["k2_highest_batch"]
+    kernels[3]["wide_batch_route_ms"] = wide["k8_highest_batch"]
     print(f"[total] chip_smoke.py took {time.perf_counter() - run_t0:.1f} s",
           flush=True)
     print(smi)

@@ -234,9 +234,9 @@ def test_unported_fused_options_name_their_roadmap_item(kwargs, item):
          (torch.tensor(params["w2"]), torch.tensor(params["b2"]))]
     with pytest.raises(NotImplementedError, match=item):
         PF.solve_mlp_spec(spec, w, torch.tensor(y0), [0.0, 1.0], **kwargs)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        PF.solve_mlp_spec(PF.MLPSpec(dot_precision="mixed"), w,
-                          torch.tensor(y0), [0.0, 1.0])
+    with pytest.raises(NotImplementedError, match="item 20"):
+        PF.solve_mlp_spec(PF.MLPSpec(matmul="mxu", dot_precision="mixed"),
+                          w, torch.tensor(y0), [0.0, 1.0], per_sample=True)
     with pytest.raises(NotImplementedError, match="item 18"):
         PF.solve_mlp_stepwise(convert.params_from_jax(params, dtype=F64),
                               torch.tensor(y0), [0.0, 1.0], axis_name="b")

@@ -27,7 +27,20 @@ controller block, float64 within 1e-12 relative, float32 within 1e-5.
 K5 and K6, the per-sample solve and sweep, repeat their plain versions'
 order per sample: identical per-sample counts and float64 within 1e-12,
 float32 within the whole-solve and sweep bars above, bitwise from run to
-run.
+run. Past 128-wide layers all six MLP kernels take the wide route and stay
+bitwise equal to their plain versions in both types. The dot-precision
+tiers (K4 in K2 and K8): float64 bitwise (the tier's rounding on the CUDA
+cores, sums in input order); float32 on the tensor cores, whose
+accumulation order is their own: 'mixed' K2 within 5e-5 of its plain
+version with accepted and rejected counts within one, K8 within 1e-5.
+Float32 'bf16' rounds every layer input to 8 bits, so a last-bit difference
+in a sum can move a rounding by 2^-8 on a few outputs: K8 within 2e-3 at
+most and 2e-5 on average; a whole adaptive K2 solve amplifies that noise
+to the tier's own error (1e-2), so one K2 step is held instead, far nearer
+its own tier's plain version than the others'. Each float32 tier is also
+held against the other tiers' plain versions, where it must fail its bar.
+K4 alone (`tier_net`): the largest and mean gap of one evaluation
+(chip_smoke.py EVAL_BARS).
 """
 
 import numpy as np
@@ -181,7 +194,7 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="different devices"):
         ck.dopri5_mlp_step(p, y, y.cpu(), 0.1, 1e-6, 1e-6)
     warr, dims = ck.pack_mlp_weights(
-        [(torch.zeros(2, 200), None), (torch.zeros(200, 2), None)],
+        [(torch.zeros(2, 513), None), (torch.zeros(513, 2), None)],
         torch.float32, cuda)
     with pytest.raises(ValueError, match="MAX_WIDTH"):
         ck.mlp_solve(warr, dims, y, torch.linspace(0.0, 1.0, 3), 0.1, 1e-6,
@@ -264,19 +277,28 @@ def test_adjoint_kernel_bench_mlp_matches_plain(cuda, seminorm, sign):
 
 
 def test_adjoint_kernel_raises_past_shared_memory(cuda):
-    """A network whose stage cotangents do not fit in shared memory
-    raises; nothing falls back to the plain version."""
+    """A network whose stage cotangents do not fit in shared memory takes
+    the wide route (its sums in global memory); one past MAX_WIDTH raises;
+    nothing falls back to the plain version."""
     W = [(torch.zeros(2, 128), None), (torch.zeros(128, 128), None),
          (torch.zeros(128, 2), None)]
     warr, dims = ck.pack_mlp_weights(W, torch.float64, cuda)
     ys = torch.zeros(3, 64, 2, dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ca.mlp_adjoint_solve(warr, dims, ys, ys, torch.linspace(0, 1, 3),
+    assert ck._route("K3", dims, ca._shared_values(dims, 7, False), 8) == \
+        ck.ROUTE_WIDE
+    got = ca.mlp_adjoint_solve(warr, dims, ys, ys, torch.linspace(0, 1, 3),
+                               0.1, 1e-6, 1e-6, 1.0)
+    assert got[3][3].item() == 0 and not got[1].any()
+    wide, wdims = ck.pack_mlp_weights(
+        [(torch.zeros(2, 513), None), (torch.zeros(513, 2), None)],
+        torch.float64, cuda)
+    with pytest.raises(ValueError, match="MAX_WIDTH"):
+        ca.mlp_adjoint_solve(wide, wdims, ys, ys, torch.linspace(0, 1, 3),
                              0.1, 1e-6, 1e-6, 1.0)
     with pytest.raises(TypeError, match="float32 or float64"):
         ca.mlp_adjoint_solve(warr.half(), dims, ys.half(), ys.half(),
                              torch.linspace(0, 1, 3), 0.1, 1e-6, 1e-6, 1.0)
-    assert ca.mlp_adjoint_solve_launches == 0
+    assert ca.mlp_adjoint_solve_launches == 1
 
 
 def test_training_step_launches_each_kernel_once(cuda):
@@ -351,7 +373,7 @@ def test_fixed_kernel_status_and_raises(cuda):
     assert st.tolist() == [0, 0, 0, 3]
     assert torch.equal(out[0], y0) and not out[1:].any()
     wide, wdims = ck.pack_mlp_weights(
-        [(torch.zeros(2, 200), None), (torch.zeros(200, 2), None)],
+        [(torch.zeros(2, 513), None), (torch.zeros(513, 2), None)],
         torch.float32, cuda)
     t = torch.linspace(0.0, 1.0, 3)
     with pytest.raises(ValueError, match="MAX_WIDTH"):
@@ -680,3 +702,212 @@ def test_perlane_adjoint_keeps_overflowing_trials_out(cuda):
     assert torch.equal(got[4], ref[4])
     for a, b in zip(got[:3], ref[:3]):
         assert torch.isfinite(a).all() and _rel(a, b) < 1e-12
+
+
+# ---------------------------------------------------------------------------
+# The wide route (layers past 128) and the dot-precision tiers (K4)
+# ---------------------------------------------------------------------------
+
+def _wide_case(device, dtype, B=48, D=32, H=144, seed=21):
+    """A D -> H -> H -> D tanh MLP with small biases (every layer past the
+    narrow route's 128 and selected by matmul='auto'), states and times."""
+    rng = np.random.RandomState(seed)
+    dims = [(D, H), (H, H), (H, D)]
+    weights = [(torch.tensor(rng.randn(i, o) / np.sqrt(i), dtype=dtype,
+                             device=device),
+                torch.tensor(rng.randn(o) * 0.05, dtype=dtype, device=device))
+               for i, o in dims]
+    y0 = torch.tensor(rng.randn(B, D) * 0.5, dtype=dtype, device=device)
+    warr, pdims = ck.pack_mlp_weights(weights, dtype, device)
+    t = torch.linspace(0.0, 2.0, 5, dtype=dtype)
+    return weights, warr, pdims, y0, t
+
+
+def _same(got, ref):
+    """Bitwise equal, tensor by tensor."""
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def _gap(a, b):
+    """(largest, mean) |a - b|."""
+    d = (a - b).abs()
+    return float(d.max()), float(d.mean())
+
+
+#: (Largest, mean) |kernel - plain| of K8's 16-step float32 tier solve
+#: below, and of one evaluation (chip_smoke.py EVAL_BARS). A CPU model of
+#: another summation order gives about a tenth of each; the other tiers'
+#: plain versions lie 10x or more past the mean bars.
+SOLVE_BARS = {"mixed": (1e-5, 1e-6), "bf16": (2e-3, 2e-5)}
+EVAL_BARS = {"highest": (0.0, 0.0), "mixed": (2e-5, 2e-6),
+             "bf16": (3e-3, 1e-5)}
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K5", "K6", "K8", "K9"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wide_kernels_match_plain(cuda, dtype, kernel):
+    """Width 144 (past the narrow route): each MLP kernel takes the wide
+    route and is bitwise equal to its plain version, counts included, in
+    float32 and float64."""
+    weights, warr, dims, y0, t = _wide_case(cuda, dtype)
+    spec = fast.MLPSpec(activation="tanh")
+    f0 = fast.mlp_apply(spec, weights, y0)
+    rng = np.random.RandomState(5)
+    if kernel in ("K2", "K5"):
+        mod, name = (ck, "mlp_solve") if kernel == "K2" else \
+            (cp, "mlp_solve_perlane")
+        args = (warr, dims, y0, t, 0.05, 1e-6, 1e-8, 1.0)
+        kw = dict(f0=f0)
+    elif kernel == "K8":
+        mod, name = cf, "mlp_solve_fixed"
+        args = (warr, dims, y0, t, uniform_grid(t[0], t[-1], 16), 1.0)
+        kw = dict(f0=f0, method="rk4")
+    else:
+        ys = fast.solve_mlp_spec(spec, weights, y0, t, rtol=1e-7,
+                                 atol=1e-9).ys.contiguous()
+        g = torch.tensor(rng.randn(*ys.shape), dtype=dtype, device=cuda)
+        if kernel == "K9":
+            mod, name = cf, "mlp_adjoint_solve_fixed"
+            args, kw = (warr, dims, ys, g, t, 1.0), dict(num_steps=3)
+        else:
+            mod, name = (ca, "mlp_adjoint_solve") if kernel == "K3" else \
+                (cp, "mlp_perlane_adjoint_solve")
+            args, kw = (warr, dims, ys, g, t, 0.05, 1e-6, 1e-8, 1.0), {}
+    got = getattr(mod, name)(*args, **kw)
+    ref = getattr(mod, name + "_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    assert getattr(mod, name + "_launches") == 1
+    assert all(torch.isfinite(x).all() for x in got)
+    _same(got, ref)
+
+
+@pytest.mark.parametrize("tier", ["mixed", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tier_solve_kernel_matches_plain(cuda, dtype, tier):
+    """K2 with every layer at a reduced tier (the batch route, K4)."""
+    weights, warr, dims, y0, t = _wide_case(cuda, dtype)
+    tiers = ck.layer_tiers(dims, "auto", tier)
+    assert tiers == (tier,) * 3
+    f0 = fast.mlp_apply(fast.MLPSpec(), weights, y0)
+    args = (warr, dims, y0, t, 0.05, 1e-4, 1e-4, 1.0)
+    out, st = ck.mlp_solve(*args, f0=f0, tiers=tiers)
+    again, st2 = ck.mlp_solve(*args, f0=f0, tiers=tiers)
+    ref, st_ref = ck.mlp_solve_plain(*args, f0=f0, tiers=tiers)
+    torch.cuda.synchronize()
+    assert ck.mlp_solve_launches == ck.dot_tier_launches == 2
+    assert torch.equal(out, again) and torch.equal(st, st2)
+    assert st[3].item() == 0 and torch.isfinite(out).all()
+    if dtype == torch.float64:
+        assert torch.equal(st, st_ref) and torch.equal(out, ref)
+        return
+    if tier == "mixed":
+        assert abs(st[1].item() - st_ref[1].item()) <= 1
+        assert abs(st[2].item() - st_ref[2].item()) <= 1
+        assert float((out - ref).abs().max()) < 5e-5
+        hi = ck.mlp_solve_plain(*args, f0=f0)[0]
+        assert float((out - hi).abs().max()) > 5e-5      # a control
+    else:
+        # Over a whole adaptive solve the controller amplifies the order
+        # noise of 'bf16' to the size of the tier's own error (the
+        # reference keeps 'bf16' for fixed grids): that budget only.
+        assert float((out - ref).abs().max()) < 1e-2
+    # One accepted dopri5 step of 0.25 isolates the stage evaluations: the
+    # kernel is far nearer its own tier's plain version than the others' on
+    # average (a rounding flip can still reach 5e-4 on one output; 'bf16'
+    # on the card: mean 2.2e-6 against 8.8e-5 and more).
+    one = (warr, dims, y0, torch.tensor([0.0, 0.25], dtype=dtype), 0.25,
+           1.0, 1.0, 1.0)
+    got, st1 = ck.mlp_solve(*one, f0=f0, tiers=tiers)
+    plains = {o: ck.mlp_solve_plain(*one, f0=f0, tiers=ck.layer_tiers(
+        dims, "auto", o))[0] for o in ("highest", "mixed", "bf16")}
+    own = _gap(got, plains[tier])
+    ctl = [_gap(got, r) for o, r in plains.items() if o != tier]
+    assert st1.tolist() == [6, 1, 0, 0]
+    assert own[0] < {"mixed": 5e-5, "bf16": 2e-3}[tier], (own, ctl)
+    assert all(own[1] < c[1] / 10 for c in ctl), (own, ctl)
+
+
+@pytest.mark.parametrize("tier", ["highest", "mixed", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tier_fixed_kernel_matches_plain(cuda, dtype, tier):
+    """K8 at each tier with a time column (split and quantized like the
+    state), rk4 on a 16-step grid."""
+    rng = np.random.RandomState(22)
+    dims = [(33, 144), (144, 32)]
+    weights = [(torch.tensor(rng.randn(i, o) / np.sqrt(i), dtype=dtype,
+                             device=cuda),
+                torch.tensor(rng.randn(o) * 0.05, dtype=dtype, device=cuda))
+               for i, o in dims]
+    y0 = torch.tensor(rng.randn(70, 32) * 0.5, dtype=dtype, device=cuda)
+    warr, pdims = ck.pack_mlp_weights(weights, dtype, cuda)
+    spec = fast.MLPSpec(time_input=True)
+    t = torch.linspace(0.0, 2.0, 5, dtype=dtype)
+    tiers = ck.layer_tiers(pdims, "mxu", tier)
+    kw = dict(f0=fast.mlp_apply(spec, weights, y0), time_input=True,
+              method="rk4", tiers=tiers)
+    args = (warr, pdims, y0, t, uniform_grid(t[0], t[-1], 16), 1.0)
+    out, st = cf.mlp_solve_fixed(*args, **kw)
+    ref, st_ref = cf.mlp_solve_fixed_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(st, st_ref) and st[3].item() == 0
+    assert ck.dot_tier_launches == (tier != "highest")
+    if dtype == torch.float64 or tier == "highest":
+        assert torch.equal(out, ref)
+        return
+    bar = SOLVE_BARS[tier]
+    ok = lambda g: g[0] <= bar[0] and g[1] <= bar[1]
+    own = _gap(out, ref)
+    ctl = {o: _gap(out, cf.mlp_solve_fixed_plain(*args, **dict(
+        kw, tiers=ck.layer_tiers(pdims, "mxu", o)))[0])
+        for o in ("highest", "mixed", "bf16") if o != tier}
+    assert ok(own), (own, ctl)
+    assert not any(ok(c) for c in ctl.values()), (own, ctl)
+
+
+@pytest.mark.parametrize("time_input", [False, True])
+@pytest.mark.parametrize("tier", ["highest", "mixed", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tier_net_matches_plain(cuda, dtype, tier, time_input):
+    """K4 alone (`tier_net`, one batch-wide evaluation) at 70 samples (a
+    partial block): float64 and 'highest' bitwise equal to the plain net;
+    float32 tiers within EVAL_BARS, and outside them against the other
+    tiers' plain versions."""
+    weights, warr, dims, y0, _ = _wide_case(cuda, dtype, B=70)
+    if time_input:
+        rng = np.random.RandomState(5)
+        weights[0] = (torch.tensor(rng.randn(33, 144) / np.sqrt(33),
+                                   dtype=dtype, device=cuda), weights[0][1])
+        warr, dims = ck.pack_mlp_weights(weights, dtype, cuda)
+    plains = {o: ck._net_plain(warr, dims, "tanh", "identity", 1,
+                               time_input, ck.layer_tiers(dims, "auto", o))(
+        0.625, y0) for o in ("highest", "mixed", "bf16")}
+    got = ck.tier_net(warr, dims, y0, 0.625,
+                      tiers=ck.layer_tiers(dims, "auto", tier),
+                      time_input=time_input)
+    torch.cuda.synchronize()
+    assert ck.tier_net_launches == 1 and ck.dot_tier_launches == 0
+    if dtype == torch.float64 or tier == "highest":
+        assert torch.equal(got, plains[tier])
+        return
+    bar = EVAL_BARS[tier]
+    ok = lambda g: g[0] <= bar[0] and g[1] <= bar[1]
+    own = _gap(got, plains[tier])
+    ctl = {o: _gap(got, r) for o, r in plains.items() if o != tier}
+    assert ok(own), (own, ctl)
+    assert not any(ok(c) for c in ctl.values()), (own, ctl)
+
+
+def test_wide_mixed_training_step(cuda):
+    """fast.odeint_adjoint_mlp with a 'mixed' spec on the wide net: K2 on
+    the batch route forward (one K4 launch), K3 on the wide route backward
+    on the float32 weights; finite gradients."""
+    weights, _, _, y0, t = _wide_case(cuda, torch.float32, B=64)
+    W = [(w.requires_grad_(), b.requires_grad_()) for w, b in weights]
+    spec = fast.MLPSpec(activation="tanh", dot_precision="mixed")
+    ys = fast.odeint_adjoint_mlp(spec, W, y0, t, rtol=1e-4, atol=1e-4)
+    torch.mean(ys ** 2).backward()
+    assert ck.mlp_solve_launches == ck.dot_tier_launches == 1
+    assert ca.mlp_adjoint_solve_launches == 1
+    for w, b in W:
+        assert torch.isfinite(w.grad).all() and torch.isfinite(b.grad).all()

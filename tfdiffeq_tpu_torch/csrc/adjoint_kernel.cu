@@ -49,6 +49,13 @@
 // PERF.md), so most of the rest is likely the per-sample pass. Spreading the batch over the card
 // (one block per SM, a grid-wide barrier per stage, per-block partial sums
 // merged in a fixed order) is the follow-up, the same as K2's.
+//
+// Routes (mlp_rk.cuh Route): narrow as above; wide, for layers up to
+// kMaxWidth or weights past shared memory, the per-thread vectors of 512
+// values in local memory and the weights, the parameter accumulator, its
+// increment and the stage cotangents in global memory (`pwork`, L2-resident:
+// 3.7 MB at the wide MLP 128 -> 256 -> 256 -> 128 with dopri5). The sums
+// keep their order, so both routes give the same bits.
 #include "mlp_rk.cuh"
 
 namespace tfd {
@@ -109,14 +116,15 @@ __device__ __forceinline__ T batch_sum(const T* __restrict__ xa,
   return warp_tree_sum(acc);
 }
 
-template <typename T>
+template <typename T, int kRoute>
 __global__ void __launch_bounds__(kAdjThreads, 1)
     mlp_adjoint_kernel(const T* __restrict__ tau, const T* __restrict__ ys,
                        const T* __restrict__ g, const T* __restrict__ wg,
                        T* __restrict__ ay0_out, T* __restrict__ aw_out,
                        T* __restrict__ at_out, int* __restrict__ stats,
-                       T* __restrict__ work, int n_weights, Net net_in,
-                       Rows rows_in, Tableau<T> tab_in, AdjScalars<T> sc) {
+                       T* __restrict__ work, T* __restrict__ pwork,
+                       int n_weights, Net net_in, Rows rows_in,
+                       Tableau<T> tab_in, AdjScalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Net net;
   __shared__ Rows rows;
@@ -135,15 +143,27 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
   const int ti = net_in.time_input;
   const int n_red = n_w + ti;               // reductions per stage
   const int S = tab_in.S;
-  T* w = reinterpret_cast<T*>(smem_raw);    // [n_w] weights
-  T* AW = w + n_w;                          // [n_w] parameter quadrature
-  T* DW = AW + n_w;                         // [n_w] its attempt increment
-  T* KW = DW + n_w;                         // [S][n_red] stage cotangents
-  T* red = KW + S * n_red;                  // [nth] block_sum scratch
-  for (int i = tid; i < n_w; i += nth) {
-    w[i] = wg[i];
-    AW[i] = T(0);
+  const T* w;   // [n_w] weights
+  T* AW;        // [n_w] parameter quadrature
+  T* DW;        // [n_w] its attempt increment
+  T* KW;        // [S][n_red] stage cotangents
+  T* red;       // [nth] block_sum scratch
+  if constexpr (kRoute == kRouteNarrow) {
+    T* ws = reinterpret_cast<T*>(smem_raw);
+    AW = ws + n_w;
+    DW = AW + n_w;
+    KW = DW + n_w;
+    red = KW + S * n_red;
+    for (int i = tid; i < n_w; i += nth) ws[i] = wg[i];
+    w = ws;
+  } else {
+    w = wg;
+    AW = pwork;
+    DW = AW + n_w;
+    KW = DW + n_w;
+    red = reinterpret_cast<T*>(smem_raw);
   }
+  for (int i = tid; i < n_w; i += nth) AW[i] = T(0);
   __syncthreads();
 
   const int T_obs = sc.T_obs, B = sc.B, D = sc.D, L = net.n_layers;
@@ -168,7 +188,8 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
   T* __restrict__ VT = DZ + long(n_z) * B; // [B] a_y . df/dt
 
   // Per-thread vectors of one sample (local memory).
-  T ya[kMaxWidth], aya[kMaxWidth], buf_a[kMaxWidth], buf_b[kMaxWidth];
+  constexpr int kW = vec_width<kRoute>();
+  T ya[kW], aya[kW], buf_a[kW], buf_b[kW];
   const T sf = sc.sign;
   const T denom = sc.seminorm
       ? T(2.0 * double(D) * double(B))
@@ -470,6 +491,40 @@ inline long adjoint_work_size(const Net& net, int S, int B, int D) {
   return (6 + 2 * long(S)) * B * D + rows * B;
 }
 
+// Global values of the wide route's pwork: the parameter accumulator, its
+// increment and the stage cotangents (ops/cuda_adjoint.py:_wide_work_size).
+inline long adjoint_pwork_size(int n_w, int S, int ti) {
+  return 2 * long(n_w) + long(S) * (n_w + ti);
+}
+
+template <typename T, int kRoute>
+cudaError_t launch_adjoint_route(const void* tau, const void* ys,
+                                 const void* g, const void* weights,
+                                 void* ay0, void* aw, void* at, void* stats,
+                                 void* work, void* pwork, int n_w,
+                                 int threads, const Net& net,
+                                 const Rows& rows, const Tableau<T>& tab,
+                                 const AdjScalars<T>& sc,
+                                 cudaStream_t stream) {
+  const int S = tab.S, ti = net.time_input;
+  const size_t smem =
+      sizeof(T) * ((kRoute == kRouteNarrow
+                        ? size_t(3 + S) * n_w + size_t(S) * ti
+                        : 0) +
+                   threads);
+  auto kernel = mlp_adjoint_kernel<T, kRoute>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<1, threads, smem, stream>>>(
+      static_cast<const T*>(tau), static_cast<const T*>(ys),
+      static_cast<const T*>(g), static_cast<const T*>(weights),
+      static_cast<T*>(ay0), static_cast<T*>(aw), static_cast<T*>(at),
+      static_cast<int*>(stats), static_cast<T*>(work),
+      static_cast<T*>(pwork), n_w, net, rows, tab, sc);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_adjoint(const void* tau, const void* ys, const void* g,
                    const void* weights, void* ay0, void* aw, void* at,
@@ -480,7 +535,8 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
                    const int* dims, int act_hidden, int act_final,
                    int input_power, int time_input, int stages, int order,
                    const double* c, const double* a, const double* b_sol,
-                   const double* b_err, void* stream) {
+                   const double* b_err, int route, void* pwork,
+                   long pwork_size, void* stream) {
   if (stages < 2 || stages > kMaxStages || T_obs < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || threads < kWarp ||
       threads > kAdjThreads || (threads & (threads - 1)))
@@ -488,8 +544,12 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
   Net net;
   const int n_w = make_net(net, n_layers, dims, D, act_hidden, act_final,
                            input_power, time_input);
-  if (n_w < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_w < 0 || !route_fits(net, route))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (work_size < adjoint_work_size(net, stages, B, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteWide &&
+      (!pwork || pwork_size < adjoint_pwork_size(n_w, stages, time_input)))
     return static_cast<int>(cudaErrorInvalidValue);
   Rows rows;
   int h = 0, z = 0;
@@ -516,19 +576,16 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
   sc.D = D;
   sc.seminorm = seminorm;
 
-  const size_t smem = sizeof(T) * (size_t(3 + stages) * n_w +
-                                   size_t(stages) * time_input + threads);
-  auto kernel = mlp_adjoint_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(tau), static_cast<const T*>(ys),
-      static_cast<const T*>(g), static_cast<const T*>(weights),
-      static_cast<T*>(ay0), static_cast<T*>(aw), static_cast<T*>(at),
-      static_cast<int*>(stats), static_cast<T*>(work), n_w, net, rows, tab,
-      sc);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      route == kRouteNarrow
+          ? launch_adjoint_route<T, kRouteNarrow>(
+                tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
+                threads, net, rows, tab, sc, st)
+          : launch_adjoint_route<T, kRouteWide>(
+                tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
+                threads, net, rows, tab, sc, st);
+  return static_cast<int>(e);
 }
 
 }  // namespace tfd
@@ -543,13 +600,14 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
       int n_layers, const int* dims, int act_hidden, int act_final,         \
       int input_power, int time_input, int stages, int order,               \
       const double* c, const double* a, const double* b_sol,                \
-      const double* b_err, void* stream) {                                   \
+      const double* b_err, int route, void* pwork, long pwork_size,         \
+      void* stream) {                                                        \
     return tfd::launch_adjoint<TYPE>(                                        \
         tau, ys, g, weights, ay0, aw, at, stats, work, work_size, T_obs, B, \
         D, threads, dt0, rtol, atol, dt_min, sign, safety, ifactor,         \
         dfactor, max_steps, seminorm, n_layers, dims, act_hidden,           \
         act_final, input_power, time_input, stages, order, c, a, b_sol,     \
-        b_err, stream);                                                      \
+        b_err, route, pwork, pwork_size, stream);                            \
   }
 
 TFD_ADJOINT_ENTRY(tfd_mlp_adjoint_f32, float)

@@ -47,6 +47,10 @@
 // accesses, not by the card's arithmetic or bandwidth. Several samples a
 // thread, or a warp across a sample's hidden units, is the way to more
 // throughput.
+//
+// Routes (mlp_rk.cuh Route): narrow as above; wide, for layers up to
+// kMaxWidth or weights past shared memory, the per-thread vectors of 512
+// values in local memory and the weights read from global memory (L2).
 #include "mlp_rk.cuh"
 
 namespace tfd {
@@ -57,7 +61,7 @@ struct FixedAdjScalars {
   int T_obs, B, D, n_sub;
 };
 
-template <typename T>
+template <typename T, int kRoute>
 __global__ void mlp_adjoint_fixed_kernel(
     const T* __restrict__ tau, const T* __restrict__ ys,
     const T* __restrict__ g, const T* __restrict__ wg,
@@ -75,9 +79,17 @@ __global__ void mlp_adjoint_fixed_kernel(
     tab = tab_in;
   }
   const int n_w = n_weights;
-  T* w = reinterpret_cast<T*>(smem_raw);  // [n_w] weights
-  T* red = w + n_w;                       // [blockDim.x] block_sum scratch
-  for (int i = tid; i < n_w; i += blockDim.x) w[i] = wg[i];
+  const T* w;   // [n_w] weights
+  T* red;       // [blockDim.x] block_sum scratch
+  if constexpr (kRoute == kRouteNarrow) {
+    T* ws = reinterpret_cast<T*>(smem_raw);
+    for (int i = tid; i < n_w; i += blockDim.x) ws[i] = wg[i];
+    w = ws;
+    red = ws + n_w;
+  } else {
+    w = wg;
+    red = reinterpret_cast<T*>(smem_raw);
+  }
   __syncthreads();
 
   const int T_obs = sc.T_obs, B = sc.B, D = sc.D, n_sub = sc.n_sub;
@@ -104,7 +116,8 @@ __global__ void mlp_adjoint_fixed_kernel(
   const int b = blockIdx.x * blockDim.x + tid;
   const bool mine = b < B;          // idle threads still meet at the end
   auto at = [B, b](int row) -> long { return long(row) * B + b; };
-  T ya[kMaxWidth], aya[kMaxWidth], buf_a[kMaxWidth], buf_b[kMaxWidth];
+  constexpr int kW = vec_width<kRoute>();
+  T ya[kW], aya[kW], buf_a[kW], buf_b[kW];
   const T sf = sc.sign;
   int first_b = 0;                  // first stage with a nonzero weight
   while (tab.b_sol[first_b] == T(0)) ++first_b;
@@ -170,7 +183,7 @@ int launch_adjoint_fixed(const void* tau, const void* ys, const void* g,
                          const int* dims, int act_hidden, int act_final,
                          int input_power, int time_input, int stages,
                          const double* c, const double* a,
-                         const double* b_sol, void* stream) {
+                         const double* b_sol, int route, void* stream) {
   if (stages < 1 || stages > kMaxStages || T_obs < 1 || B < 1 || D < 1 ||
       n_sub < 1 || D + time_input > kMaxWidth || input_power < 1 ||
       threads < 32 || threads > 1024 || (threads & (threads - 1)))
@@ -178,7 +191,8 @@ int launch_adjoint_fixed(const void* tau, const void* ys, const void* g,
   Net net;
   const int n_w = make_net(net, n_layers, dims, D, act_hidden, act_final,
                            input_power, time_input);
-  if (n_w < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_w < 0 || !route_fits(net, route))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (work_size < fixed_adjoint_work_size(net, n_w, stages, B, D))
     return static_cast<int>(cudaErrorInvalidValue);
   bool any = false;
@@ -195,8 +209,10 @@ int launch_adjoint_fixed(const void* tau, const void* ys, const void* g,
   sc.D = D;
   sc.n_sub = n_sub;
 
-  const size_t smem = sizeof(T) * (size_t(n_w) + threads);
-  auto kernel = mlp_adjoint_fixed_kernel<T>;
+  const bool narrow = route == kRouteNarrow;
+  const size_t smem = sizeof(T) * ((narrow ? size_t(n_w) : 0) + threads);
+  auto kernel = narrow ? mlp_adjoint_fixed_kernel<T, kRouteNarrow>
+                       : mlp_adjoint_fixed_kernel<T, kRouteWide>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -228,11 +244,12 @@ int launch_adjoint_fixed(const void* tau, const void* ys, const void* g,
       int n_sub, double sign, int n_layers, const int* dims,                \
       int act_hidden, int act_final, int input_power, int time_input,       \
       int stages, const double* c, const double* a, const double* b_sol,    \
-      void* stream) {                                                        \
+      int route, void* stream) {                                             \
     return tfd::launch_adjoint_fixed<TYPE>(                                  \
         tau, ys, g, weights, ay0, aw, at, stats, partial, work, work_size,  \
         T_obs, B, D, threads, n_sub, sign, n_layers, dims, act_hidden,      \
-        act_final, input_power, time_input, stages, c, a, b_sol, stream);   \
+        act_final, input_power, time_input, stages, c, a, b_sol, route,     \
+        stream);                                                             \
   }
 
 TFD_ADJOINT_FIXED_ENTRY(tfd_mlp_adjoint_fixed_f32, float)

@@ -16,11 +16,28 @@
 
 namespace tfd {
 
-// Widest layer of the solve kernel's MLP (state width D, D + 1 with a time
-// column, hidden widths). ops/cuda_kernels.py raises above it.
-constexpr int kMaxWidth = 128;
+// Widest layer of the MLP kernels (state width D, D + 1 with a time column,
+// hidden widths); make_net refuses wider ones, as ops/cuda_kernels.py
+// (MAX_WIDTH) does.
+constexpr int kMaxWidth = 512;
 constexpr int kMaxLayers = 8;
 constexpr int kMaxStages = 13;      // dopri8
+
+// Routes of the MLP kernels (ops/cuda_kernels.py:ROUTE_*). A thread walks
+// its samples' MLP in per-thread layer vectors of a width class:
+// kRouteNarrow holds kNarrowWidth values and keeps the weights in shared
+// memory; kRouteWide holds kMaxWidth values and reads the weights from
+// global memory (L2-resident: every thread of a warp reads the same weight
+// together). kRouteBatch (K2 and K8 only, csrc/dot_tiers.cuh) evaluates a
+// stage for the whole batch layer by layer, as the dot-precision tiers
+// need. Every route sums each product in input order.
+constexpr int kNarrowWidth = 128;
+enum Route : int { kRouteNarrow = 0, kRouteWide = 1, kRouteBatch = 2 };
+template <int kRoute>
+__host__ __device__ constexpr int vec_width() {
+  return kRoute == kRouteNarrow ? kNarrowWidth
+                                : (kRoute == kRouteWide ? kMaxWidth : 1);
+}
 
 // Activation codes; ops/cuda_kernels.py:_ACT_CODES holds the same table.
 enum Act : int {
@@ -120,10 +137,13 @@ struct Net {
   int act_final;
   int input_power;   // the state enters as y ** input_power
   int time_input;    // 1: the first layer's last input column is t
+  int tier[kMaxLayers];     // dot_tiers.cuh Tier of each layer
+  int w16_off[kMaxLayers];  // the layer's bf16 weights (dot_tiers.cuh)
 };
 
 // Fill `net` from the host's (din, dout) pairs; returns the packed weight
-// count, or -1 for a network the kernels cannot take.
+// count, or -1 for a network the kernels cannot take. Every layer starts at
+// the 'highest' tier.
 inline int make_net(Net& net, int n_layers, const int* dims, int D,
                     int act_hidden, int act_final, int input_power,
                     int time_input) {
@@ -139,6 +159,8 @@ inline int make_net(Net& net, int n_layers, const int* dims, int D,
     off += din * dout;
     net.b_off[l] = off;
     off += dout;
+    net.tier[l] = 0;
+    net.w16_off[l] = 0;
   }
   if (net.din[0] != D + time_input || net.dout[n_layers - 1] != D) return -1;
   net.act_hidden = act_hidden;
@@ -189,10 +211,27 @@ Tableau<T> make_tableau(int stages, int order, int fsal, const double* c,
   return tab;
 }
 
+// Widest layer of a network built by make_net.
+inline int net_max_width(const Net& net) {
+  int m = 0;
+  for (int l = 0; l < net.n_layers; ++l) {
+    if (net.din[l] > m) m = net.din[l];
+    if (net.dout[l] > m) m = net.dout[l];
+  }
+  return m;
+}
+
+// Whether a per-thread route can hold the network's layer vectors.
+inline bool route_fits(const Net& net, int route) {
+  if (route == kRouteNarrow) return net_max_width(net) <= kNarrowWidth;
+  return route == kRouteWide;
+}
+
 // f(t, y) of pallas_kernels.py:_make_net (its VPU path): each output sums
 // its input terms in input order, then adds the time column, then the bias.
 // The state comes in h_a[0, D) and is overwritten; returns the buffer (h_a
-// or h_b) that holds the D outputs. h_a and h_b hold kMaxWidth values.
+// or h_b) that holds the D outputs. h_a and h_b hold the network's widest
+// layer (the route's vec_width).
 template <typename T>
 __device__ T* mlp_eval(const Net& net, const T* __restrict__ w, T t, T* h_a,
                        T* h_b) {
@@ -348,7 +387,7 @@ __device__ void aug_kahan_update(const Tableau<T>& tab, T h, T* Y, T* AY,
 // hb (sf x) for every parameter (pack_mlp_weights' layout, then a_t with a
 // time column) joined into the sample's STEP rows, set when `first` and
 // added otherwise. ya, aya: the stage state and adjoint; buf_a, buf_b:
-// kMaxWidth scratch values each.
+// scratch of the network's widest layer each.
 template <typename T>
 __device__ void aug_stage(const Net& net, const AugRows& rows,
                           const T* __restrict__ w, T t, const T* ya,

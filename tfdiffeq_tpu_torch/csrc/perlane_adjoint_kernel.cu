@@ -47,6 +47,10 @@
 // that chain and of the workspace accesses, not by the card's arithmetic or
 // bandwidth. A warp's samples also diverge: it runs until its slowest
 // sample is done with each interval.
+//
+// Routes (mlp_rk.cuh Route): narrow as above; wide, for layers up to
+// kMaxWidth or weights past shared memory, the per-thread vectors of 512
+// values in local memory and the weights read from global memory (L2).
 #include "mlp_rk.cuh"
 
 namespace tfd {
@@ -57,7 +61,7 @@ struct PerlaneAdjScalars {
   int max_steps, T_obs, B, D;
 };
 
-template <typename T>
+template <typename T, int kRoute>
 __global__ void mlp_perlane_adjoint_kernel(
     const T* __restrict__ tau, const T* __restrict__ ys,
     const T* __restrict__ g, const T* __restrict__ dt0g,
@@ -77,9 +81,17 @@ __global__ void mlp_perlane_adjoint_kernel(
     tab = tab_in;
   }
   const int n_w = n_weights;
-  T* w = reinterpret_cast<T*>(smem_raw);  // [n_w] weights
-  T* red = w + n_w;                       // [blockDim.x] block_sum scratch
-  for (int i = tid; i < n_w; i += blockDim.x) w[i] = wg[i];
+  const T* w;   // [n_w] weights
+  T* red;       // [blockDim.x] block_sum scratch
+  if constexpr (kRoute == kRouteNarrow) {
+    T* ws = reinterpret_cast<T*>(smem_raw);
+    for (int i = tid; i < n_w; i += blockDim.x) ws[i] = wg[i];
+    w = ws;
+    red = ws + n_w;
+  } else {
+    w = wg;
+    red = reinterpret_cast<T*>(smem_raw);
+  }
   __syncthreads();
 
   const int T_obs = sc.T_obs, B = sc.B, D = sc.D;
@@ -103,7 +115,8 @@ __global__ void mlp_perlane_adjoint_kernel(
   const int b = blockIdx.x * blockDim.x + tid;
   const bool mine = b < B;          // idle threads still meet at the end
   auto at = [B, b](int row) -> long { return long(row) * B + b; };
-  T ya[kMaxWidth], aya[kMaxWidth], buf_a[kMaxWidth], buf_b[kMaxWidth];
+  constexpr int kW = vec_width<kRoute>();
+  T ya[kW], aya[kW], buf_a[kW], buf_b[kW];
   const T sf = sc.sign;
   const T denom = T(2 * D);
   int first_b = 0;                  // first stage with a nonzero weight
@@ -236,7 +249,7 @@ int launch_adjoint_perlane(
     int max_steps, int n_layers, const int* dims, int act_hidden,
     int act_final, int input_power, int time_input, int stages, int order,
     const double* c, const double* a, const double* b_sol,
-    const double* b_err, void* stream) {
+    const double* b_err, int route, void* stream) {
   if (stages < 2 || stages > kMaxStages || T_obs < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || max_steps < 1 ||
       threads < 32 || threads > 1024 || (threads & (threads - 1)))
@@ -244,7 +257,8 @@ int launch_adjoint_perlane(
   Net net;
   const int n_w = make_net(net, n_layers, dims, D, act_hidden, act_final,
                            input_power, time_input);
-  if (n_w < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_w < 0 || !route_fits(net, route))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (work_size < perlane_adjoint_work_size(net, n_w, stages, B, D))
     return static_cast<int>(cudaErrorInvalidValue);
   bool any = false;
@@ -269,8 +283,10 @@ int launch_adjoint_perlane(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(stats, 0, 4 * sizeof(int), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = sizeof(T) * (size_t(n_w) + threads);
-  auto kernel = mlp_perlane_adjoint_kernel<T>;
+  const bool narrow = route == kRouteNarrow;
+  const size_t smem = sizeof(T) * ((narrow ? size_t(n_w) : 0) + threads);
+  auto kernel = narrow ? mlp_perlane_adjoint_kernel<T, kRouteNarrow>
+                       : mlp_perlane_adjoint_kernel<T, kRouteWide>;
   e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            int(smem));
@@ -304,13 +320,13 @@ int launch_adjoint_perlane(
       int max_steps, int n_layers, const int* dims, int act_hidden,         \
       int act_final, int input_power, int time_input, int stages,           \
       int order, const double* c, const double* a, const double* b_sol,     \
-      const double* b_err, void* stream) {                                   \
+      const double* b_err, int route, void* stream) {                        \
     return tfd::launch_adjoint_perlane<TYPE>(                                \
         tau, ys, g, dt0, weights, ay0, aw, at, lane_stats, stats, partial,  \
         work, work_size, T_obs, B, D, threads, rtol, atol, dt_min, sign,    \
         safety, ifactor, dfactor, max_steps, n_layers, dims, act_hidden,    \
         act_final, input_power, time_input, stages, order, c, a, b_sol,     \
-        b_err, stream);                                                      \
+        b_err, route, stream);                                               \
   }
 
 TFD_ADJOINT_PERLANE_ENTRY(tfd_mlp_perlane_adjoint_f32, float)

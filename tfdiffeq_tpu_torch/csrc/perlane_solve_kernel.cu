@@ -38,6 +38,10 @@
 // diverge: a warp runs until its slowest sample is done. Several samples a
 // thread, or a warp across one sample's hidden units, is the way to more
 // throughput.
+//
+// Routes (mlp_rk.cuh Route): narrow as above; wide, for layers up to
+// kMaxWidth or weights past shared memory, the layer vectors of 512 values
+// in local memory and the weights read from global memory (L2).
 #include "mlp_rk.cuh"
 
 namespace tfd {
@@ -48,7 +52,7 @@ struct PerlaneScalars {
   int max_steps, valid, T_out, B, D;
 };
 
-template <typename T>
+template <typename T, int kRoute>
 __global__ void mlp_solve_perlane_kernel(
     const T* __restrict__ tau_g, const T* __restrict__ y0g,
     const T* __restrict__ f0g, const T* __restrict__ dt0g,
@@ -59,14 +63,22 @@ __global__ void mlp_solve_perlane_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Net net;
   __shared__ Tableau<T> tab;
-  T* w = reinterpret_cast<T*>(smem_raw);  // [n_weights]
-  T* tau = w + n_weights;                 // [T_out]
   const int tid = threadIdx.x;
+  const T* w;   // [n_weights]
+  T* tau;       // [T_out]
+  if constexpr (kRoute == kRouteNarrow) {
+    T* ws = reinterpret_cast<T*>(smem_raw);
+    for (int i = tid; i < n_weights; i += blockDim.x) ws[i] = wg[i];
+    w = ws;
+    tau = ws + n_weights;
+  } else {
+    w = wg;
+    tau = reinterpret_cast<T*>(smem_raw);
+  }
   if (tid == 0) {
     net = net_in;
     tab = tab_in;
   }
-  for (int i = tid; i < n_weights; i += blockDim.x) w[i] = wg[i];
   for (int i = tid; i < sc.T_out; i += blockDim.x) tau[i] = tau_g[i];
   __syncthreads();
 
@@ -84,7 +96,7 @@ __global__ void mlp_solve_perlane_kernel(
   T* F1 = MID + BD;         // f(t1, y1) for tableaus that are not FSAL
   T* K = F1 + BD;           // stages 1 .. S - 1
   auto at = [B, b](int row) -> long { return long(row) * B + b; };
-  T h_a[kMaxWidth], h_b[kMaxWidth];
+  T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
   const T sign = sc.sign;
 
   // Row 0 is y0; the rest stays zero unless an accepted step writes it
@@ -248,7 +260,7 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
                          int time_input, int stages, int order, int fsal,
                          const double* c, const double* a,
                          const double* b_sol, const double* b_err,
-                         const double* c_mid, void* stream) {
+                         const double* c_mid, int route, void* stream) {
   if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || max_steps < 1 ||
       threads < 32 || threads > 1024)
@@ -256,7 +268,8 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
   Net net;
   const int off = make_net(net, n_layers, dims, D, act_hidden, act_final,
                            input_power, time_input);
-  if (off < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (off < 0 || !route_fits(net, route))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Tableau<T> tab =
       make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
   PerlaneScalars<T> sc;
@@ -276,8 +289,10 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(stats, 0, 4 * sizeof(int), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = sizeof(T) * (size_t(off) + T_out);
-  auto kernel = mlp_solve_perlane_kernel<T>;
+  const bool narrow = route == kRouteNarrow;
+  const size_t smem = sizeof(T) * ((narrow ? size_t(off) : 0) + T_out);
+  auto kernel = narrow ? mlp_solve_perlane_kernel<T, kRouteNarrow>
+                       : mlp_solve_perlane_kernel<T, kRouteWide>;
   e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            int(smem));
@@ -304,13 +319,14 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
       int n_layers, const int* dims, int act_hidden, int act_final,         \
       int input_power, int time_input, int stages, int order, int fsal,     \
       const double* c, const double* a, const double* b_sol,                \
-      const double* b_err, const double* c_mid, void* stream) {             \
+      const double* b_err, const double* c_mid, int route,                 \
+      void* stream) {                                                        \
     return tfd::launch_solve_perlane<TYPE>(                                  \
         tau, y0, f0, dt0, weights, out, lane_stats, stats, work, T_out, B,  \
         D, threads, rtol, atol, dt_min, sign, safety, ifactor, dfactor,     \
         max_steps, valid, n_layers, dims, act_hidden, act_final,            \
         input_power, time_input, stages, order, fsal, c, a, b_sol, b_err,   \
-        c_mid, stream);                                                      \
+        c_mid, route, stream);                                               \
   }
 
 TFD_SOLVE_PERLANE_ENTRY(tfd_mlp_solve_perlane_f32, float)

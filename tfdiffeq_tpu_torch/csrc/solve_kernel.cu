@@ -27,14 +27,24 @@
 // __syncthreads_or the finiteness flag, and every thread then takes the
 // same accept and controller decision from them.
 //
+// Routes (mlp_rk.cuh Route). Narrow: the layer vectors of 128 values in
+// each thread, the weights in shared memory (the main path). Wide: layers
+// up to kMaxWidth, vectors of 512 values in local memory, the weights read
+// from global memory (131,712 float32 weights, 527 KB, at the wide MLP
+// 128 -> 256 -> 256 -> 128: L2-resident, a warp-uniform read per product).
+// Batch (csrc/dot_tiers.cuh, the dot-precision tiers): every stage
+// evaluation of the attempt is batch-wide, layer by layer, the tier layers
+// on the tensor cores in float32; the controller is the same.
+//
 // Bound on the H100. One SM of 132 does all the work: per sample and
 // attempt, S - 1 evaluations of the MLP (at the main path 2 -> 50 -> 2:
 // about 400 flops and 50 tanh each) run one instruction stream per
 // thread, so the solve is bound by the instruction throughput of a single
 // SM, and the other 131 idle. Spreading the batch over the card (one block
 // per SM and a grid-wide barrier per attempt) is the first optimisation to
-// make (see PERF.md).
-#include "mlp_rk.cuh"
+// make (see PERF.md). The wide route is bound the same way, with a
+// global-memory load beside each multiply-add.
+#include "dot_tiers.cuh"
 
 namespace tfd {
 
@@ -48,28 +58,39 @@ struct Scalars {
   int max_steps, valid, T_out, B, D;
 };
 
-template <typename T>
+template <typename T, int kRoute>
 __global__ void __launch_bounds__(kSolveThreads, 1)
     mlp_solve_kernel(const T* __restrict__ tau, const T* __restrict__ y0g,
                      const T* __restrict__ f0g, const T* __restrict__ wg,
                      T* __restrict__ out, int* __restrict__ stats,
-                     T* __restrict__ work, int n_weights, Net net_in,
-                     Tableau<T> tab_in, Scalars<T> sc) {
+                     T* __restrict__ work, BatchBufs<T> bb, int n_weights,
+                     Net net_in, Tableau<T> tab_in, Scalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Net net;
   __shared__ Tableau<T> tab;
-  T* w = reinterpret_cast<T*>(smem_raw);   // [n_weights]
-  T* red = w + n_weights;                  // [blockDim.x]
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
+  const T* w;     // [n_weights]
+  T* red;         // [blockDim.x]
+  if constexpr (kRoute == kRouteNarrow) {
+    T* ws = reinterpret_cast<T*>(smem_raw);
+    for (int i = tid; i < n_weights; i += nth) ws[i] = wg[i];
+    w = ws;
+    red = ws + n_weights;
+  } else {
+    w = wg;
+    red = reinterpret_cast<T*>(smem_raw);
+  }
   if (tid == 0) {
     net = net_in;
     tab = tab_in;
   }
-  for (int i = tid; i < n_weights; i += nth) w[i] = wg[i];
+  const int T_out = sc.T_out, B = sc.B, D = sc.D;
+  const int rows = (B + 15) / 16 * 16;
+  if constexpr (kRoute == kRouteBatch) batch_clear(bb, 0, rows);
   __syncthreads();
 
-  const int T_out = sc.T_out, B = sc.B, D = sc.D, S = tab.S;
+  const int S = tab.S;
   const long BD = long(B) * D;
   T* Y = work;              // state
   T* F = Y + BD;            // derivative at (t, y): stage 0 (FSAL cache)
@@ -79,7 +100,7 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
   T* F1 = MID + BD;         // f(t1, y1) for tableaus that are not FSAL
   T* K = F1 + BD;           // stages 1 .. S - 1
 
-  T h_a[kMaxWidth], h_b[kMaxWidth];
+  T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
   const T sign = sc.sign;
 
   // Deterministic output on early exit: zero fill, then y0 in row 0
@@ -114,57 +135,92 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
     // ---- phase 1: stages, error and finiteness of each owned sample.
     T ss = T(0);
     bool bad = false;
-    for (int b = tid; b < B; b += nth) {
-      const long base = long(b) * D;
-      for (int i = 1; i < S; ++i) {
-        // pallas_kernels.py:_rk_stages: yi = yi + (dt * a_ij) * k_j.
-        for (int d = 0; d < D; ++d) {
-          T v = Y[base + d];
-          for (int j = 0; j < i; ++j) {
-            const T a = tab.a[i][j];
-            if (a != T(0)) {
-              const T kj = j == 0 ? F[base + d] : K[(j - 1) * BD + base + d];
-              v = v + (dth * a) * kj;
-            }
-          }
-          h_a[d] = v;
-        }
-        const T ti = t + tab.c[i] * dth;
-        const T* fo = mlp_eval(net, w, sign * ti, h_a, h_b);
-        for (int d = 0; d < D; ++d) K[(i - 1) * BD + base + d] = sign * fo[d];
-      }
-      for (int d = 0; d < D; ++d) {
-        const T y0 = Y[base + d];
-        T delta = T(0), err = T(0), ymid = y0;
-        bool first_d = true, first_e = true;
-        for (int j = 0; j < S; ++j) {
+    // Stage i's state, feature d of the sample at `base`
+    // (pallas_kernels.py:_rk_stages: yi = yi + (dt * a_ij) * k_j).
+    auto stage_state = [&](long base, int i, int d) {
+      T v = Y[base + d];
+      for (int j = 0; j < i; ++j) {
+        const T a = tab.a[i][j];
+        if (a != T(0)) {
           const T kj = j == 0 ? F[base + d] : K[(j - 1) * BD + base + d];
-          if (tab.b_sol[j] != T(0)) {
-            const T term = (dth * tab.b_sol[j]) * kj;
-            delta = first_d ? term : delta + term;
-            first_d = false;
-          }
-          if (tab.b_err[j] != T(0)) {
-            const T term = (dth * tab.b_err[j]) * kj;
-            err = first_e ? term : err + term;
-            first_e = false;
-          }
-          if (tab.has_mid && tab.c_mid[j] != T(0))
-            ymid = ymid + (dth * tab.c_mid[j]) * kj;
+          v = v + (dth * a) * kj;
         }
-        const T y1 = y0 + delta;
-        const T scale = sc.atol + sc.rtol * d_max(d_abs(y0), d_abs(y1));
-        const T esc = err / scale;
-        ss = ss + esc * esc;
-        bad = bad || !d_finite(y1);
-        DEL[base + d] = delta;
-        MID[base + d] = ymid;
-        h_a[d] = y1;
+      }
+      return v;
+    };
+    // The solution, error and midpoint combines of feature d, its share of
+    // the error sum and the finiteness flag; returns y1.
+    auto combine = [&](long base, int d) {
+      const T y0 = Y[base + d];
+      T delta = T(0), err = T(0), ymid = y0;
+      bool first_d = true, first_e = true;
+      for (int j = 0; j < S; ++j) {
+        const T kj = j == 0 ? F[base + d] : K[(j - 1) * BD + base + d];
+        if (tab.b_sol[j] != T(0)) {
+          const T term = (dth * tab.b_sol[j]) * kj;
+          delta = first_d ? term : delta + term;
+          first_d = false;
+        }
+        if (tab.b_err[j] != T(0)) {
+          const T term = (dth * tab.b_err[j]) * kj;
+          err = first_e ? term : err + term;
+          first_e = false;
+        }
+        if (tab.has_mid && tab.c_mid[j] != T(0))
+          ymid = ymid + (dth * tab.c_mid[j]) * kj;
+      }
+      const T y1 = y0 + delta;
+      const T scale = sc.atol + sc.rtol * d_max(d_abs(y0), d_abs(y1));
+      const T esc = err / scale;
+      ss = ss + esc * esc;
+      bad = bad || !d_finite(y1);
+      DEL[base + d] = delta;
+      MID[base + d] = ymid;
+      return y1;
+    };
+    if constexpr (kRoute != kRouteBatch) {
+      for (int b = tid; b < B; b += nth) {
+        const long base = long(b) * D;
+        for (int i = 1; i < S; ++i) {
+          for (int d = 0; d < D; ++d) h_a[d] = stage_state(base, i, d);
+          const T ti = t + tab.c[i] * dth;
+          const T* fo = mlp_eval(net, w, sign * ti, h_a, h_b);
+          for (int d = 0; d < D; ++d) K[(i - 1) * BD + base + d] = sign * fo[d];
+        }
+        for (int d = 0; d < D; ++d) h_a[d] = combine(base, d);
+        if (!tab.fsal) {
+          // The end derivative costs one more evaluation (counted in evals).
+          const T* fo = mlp_eval(net, w, sign * t1, h_a, h_b);
+          for (int d = 0; d < D; ++d) F1[base + d] = sign * fo[d];
+        }
+      }
+    } else {
+      // The batch route: each stage's evaluation is batch-wide.
+      for (int i = 1; i < S; ++i) {
+        const T ti = t + tab.c[i] * dth;
+        for (int b = tid; b < B; b += nth) {
+          const long base = long(b) * D;
+          batch_put(bb, net, b, sign * ti,
+                    [&](int d) { return stage_state(base, i, d); });
+        }
+        __syncthreads();
+        const T* fo = batch_mlp_eval(net, w, bb, 0, rows);
+        for (int b = tid; b < B; b += nth)
+          for (int d = 0; d < D; ++d)
+            K[(i - 1) * BD + long(b) * D + d] = sign * fo[long(b) * bb.ld + d];
+      }
+      for (int b = tid; b < B; b += nth) {
+        const long base = long(b) * D;
+        batch_put(bb, net, b, sign * t1,
+                  [&](int d) { return combine(base, d); });
       }
       if (!tab.fsal) {
-        // The end derivative costs one more evaluation (counted in evals).
-        const T* fo = mlp_eval(net, w, sign * t1, h_a, h_b);
-        for (int d = 0; d < D; ++d) F1[base + d] = sign * fo[d];
+        // The end derivative at (t1, y1), the inputs just written.
+        __syncthreads();
+        const T* fo = batch_mlp_eval(net, w, bb, 0, rows);
+        for (int b = tid; b < B; b += nth)
+          for (int d = 0; d < D; ++d)
+            F1[long(b) * D + d] = sign * fo[long(b) * bb.ld + d];
       }
     }
 
@@ -244,6 +300,26 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
   }
 }
 
+template <typename T, int kRoute>
+cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
+                         const void* weights, void* out, void* stats,
+                         void* work, const BatchBufs<T>& bb, int n_w,
+                         int threads, const Net& net, const Tableau<T>& tab,
+                         const Scalars<T>& sc, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + threads);
+  auto kernel = mlp_solve_kernel<T, kRoute>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<1, threads, smem, stream>>>(
+      static_cast<const T*>(tau), static_cast<const T*>(y0),
+      static_cast<const T*>(f0), static_cast<const T*>(weights),
+      static_cast<T*>(out), static_cast<int*>(stats), static_cast<T*>(work),
+      bb, n_w, net, tab, sc);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_solve(const void* tau, const void* y0, const void* f0,
                  const void* weights, void* out, void* stats, void* work,
@@ -255,7 +331,8 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
                  int input_power, int time_input, int stages, int order,
                  int fsal, const double* c, const double* a,
                  const double* b_sol, const double* b_err,
-                 const double* c_mid, void* stream) {
+                 const double* c_mid, int route, const int* tiers,
+                 void* batch_work, long batch_bytes, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || stages < 2 ||
       stages > kMaxStages || T_out < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || threads < 32 ||
@@ -265,6 +342,18 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
   const int off = make_net(net, n_layers, dims, D, act_hidden, act_final,
                            input_power, time_input);
   if (off < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long n_w16 = set_tiers(net, tiers);
+  if (n_w16 < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long rows = (B + 15) / 16 * 16;
+  BatchBufs<T> bb{};
+  if (route == kRouteBatch) {
+    if (!batch_work ||
+        batch_bytes < batch_work_bytes(net, n_w16, rows, sizeof(T)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    bb = batch_bufs<T>(batch_work, net, n_w16, rows);
+  } else if (!route_fits(net, route) || tiers) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 
   const Tableau<T> tab =
       make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
@@ -284,17 +373,25 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
   sc.B = B;
   sc.D = D;
 
-  const size_t smem = sizeof(T) * (size_t(off) + threads);
-  auto kernel = mlp_solve_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(tau), static_cast<const T*>(y0),
-      static_cast<const T*>(f0), static_cast<const T*>(weights),
-      static_cast<T*>(out), static_cast<int*>(stats), static_cast<T*>(work),
-      off, net, tab, sc);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (route == kRouteNarrow) {
+    e = launch_route<T, kRouteNarrow>(tau, y0, f0, weights, out, stats, work,
+                                      bb, off, threads, net, tab, sc, st);
+  } else if (route == kRouteWide) {
+    e = launch_route<T, kRouteWide>(tau, y0, f0, weights, out, stats, work,
+                                    bb, off, threads, net, tab, sc, st);
+  } else {
+    tier_pack_kernel<T><<<64, 256, 0, st>>>(
+        static_cast<const T*>(weights), net,
+        reinterpret_cast<__nv_bfloat16*>(batch_work));
+    e = cudaGetLastError();
+    if (e == cudaSuccess)
+      e = launch_route<T, kRouteBatch>(tau, y0, f0, weights, out, stats,
+                                       work, bb, off, threads, net, tab, sc,
+                                       st);
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace tfd
@@ -309,13 +406,14 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
       int act_hidden, int act_final, int input_power, int time_input,       \
       int stages, int order, int fsal, const double* c, const double* a,    \
       const double* b_sol, const double* b_err, const double* c_mid,        \
+      int route, const int* tiers, void* batch_work, long batch_bytes,      \
       void* stream) {                                                        \
     return tfd::launch_solve<TYPE>(                                          \
         tau, y0, f0, weights, out, stats, work, T_out, B, D, threads, dt0,  \
         rtol, atol, dt_min, sign, safety, ifactor, dfactor, max_steps,      \
         valid, n_layers, dims, act_hidden, act_final, input_power,          \
-        time_input, stages, order, fsal, c, a, b_sol, b_err, c_mid,         \
-        stream);                                                             \
+        time_input, stages, order, fsal, c, a, b_sol, b_err, c_mid, route,  \
+        tiers, batch_work, batch_bytes, stream);                             \
   }
 
 TFD_SOLVE_ENTRY(tfd_mlp_solve_f32, float)

@@ -12,7 +12,9 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
 
 - `solve_mlp_spec` / `MLPSpec`: general autonomous or concat-t MLP dynamics
   (any depth and activation in `_ACTIVATIONS`, the state entering as
-  y ** p), both time directions; the five adaptive RK tableaus with one
+  y ** p, layers up to 512 wide, the dot-precision tiers of K4 on the
+  layers `matmul` selects), both time directions; the five adaptive RK
+  tableaus with one
   step controller shared by the batch (K2) or, with `per_sample=True`, a
   controller per sample (K5, `ops/cuda_perlane.mlp_solve_perlane`), or
   the four fixed-grid methods (euler, midpoint, rk4, rk4_38) on the
@@ -31,18 +33,23 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
   adaptive solve of every controller block in one launch of K13
   (`ops/cuda_conv.conv_solve`).
 
+- `calibrate_dot_precision` / `DOT_PASSES`: the reference's one-time
+  choice of the cheapest tier by NFE x passes.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
-item): Adams methods (item 12), dot precisions other than 'highest' (item
-14), and the multi-card `axis_name` / `global_batch` coupling (item 18);
-`solve_conv_ode_sharded` has no counterpart here yet (item 18). What the
-kernels cannot take (widths past `MAX_WIDTH`, weights past the
-shared-memory bound, a conv block past the reference's block limit)
-raises; nothing falls back to the generic engine.
+item): Adams methods (item 12), the dot-precision tiers with
+`per_sample=True` (item 20), and the multi-card `axis_name` /
+`global_batch` coupling (item 18); `solve_conv_ode_sharded` has no
+counterpart here yet (item 18). What the kernels cannot take (widths past
+`MAX_WIDTH`) raises. As in the reference, `solve_conv_ode` solves with the
+generic engine, with a warning, when not one sample fits a controller
+block; nothing else falls back.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,10 +61,11 @@ from .ops.controller import StepController
 from .ops.cuda_adjoint import mlp_adjoint_solve
 from .ops.cuda_conv import conv_solve, pack_conv_ode_weights
 from .ops.cuda_fixed import mlp_adjoint_solve_fixed, mlp_solve_fixed
-from .ops.cuda_kernels import (_ACTIVATIONS, dopri5_mlp_step, mlp_solve,
-                               pack_mlp_weights)
+from .ops.cuda_kernels import (_ACTIVATIONS, dopri5_mlp_step, layer_tiers,
+                               mlp_solve, pack_mlp_weights)
 from .ops.cuda_perlane import mlp_perlane_adjoint_solve, mlp_solve_perlane
 from .ops.norms import select_initial_step, select_initial_step_per_sample
+from .odeint import solve as _generic_solve
 from .solvers.adaptive import AdaptiveConfig, solve_adaptive
 from .solvers.base import CanonicalProblem, SolveResult, SolverStats
 from .solvers.fixed_grid import steps_for_size, uniform_grid
@@ -78,14 +86,25 @@ class MLPSpec:
     activation: hidden nonlinearity; final_activation: the last layer's;
     input_power: the state enters as y ** p (the spiral uses p = 3);
     time_input: the time is one extra first-layer input (last column);
-    dot_precision: only 'highest' (float32-accurate products) is ported.
-    The reference's `matmul` engine choice (TPU VPU or MXU) has no
-    counterpart: the kernel sums every product in input order.
+    matmul: which layers a reduced dot precision acts on, as in the
+    reference (`ops/cuda_kernels._layer_uses_mxu`): 'vpu' none, 'mxu' all,
+    'auto' (the default) those at least 32 wide both ways with 2048 weights
+    or more. It names the TPU's engines; here every 'highest' layer sums
+    its float products in input order on the CUDA cores, whatever matmul.
+    dot_precision: the selected layers' products (K4, csrc/dot_tiers.cuh):
+    'highest' (the default) float32-accurate; 'mixed' bf16 weights times
+    activations split into bf16 hi and lo parts, two passes with float32
+    accumulation (the bf16-weight model, solved to about 2^-16, so adaptive
+    step control keeps working); 'bf16' one pass of bf16 weights and
+    activations (about 2e-3 relative, for fixed-grid serving). On the card
+    the float32 tiers run on the tensor cores. `calibrate_dot_precision`
+    picks the cheapest tier for a workload.
     """
     activation: str = "tanh"
     final_activation: str = "identity"
     input_power: int = 1
     time_input: bool = False
+    matmul: str = "auto"
     dot_precision: str = "highest"
 
     def __post_init__(self):
@@ -93,6 +112,9 @@ class MLPSpec:
             if a not in _ACTIVATIONS:
                 raise ValueError(f"unknown activation {a!r}; available: "
                                  f"{sorted(_ACTIVATIONS)}")
+        if self.matmul not in ("vpu", "mxu", "auto"):
+            raise ValueError(f"matmul must be 'vpu', 'mxu' or 'auto', got "
+                             f"{self.matmul!r}")
         if self.dot_precision not in ("highest", "bf16", "mixed"):
             raise ValueError(f"dot_precision must be 'highest', 'bf16' or "
                              f"'mixed', got {self.dot_precision!r}")
@@ -215,7 +237,14 @@ def solve_mlp_stepwise(params: dict, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
                           max_num_steps=max_num_steps)
 
 
-def _check_method(method: str) -> None:
+def _check_method(method: str, spec: Optional[MLPSpec] = None) -> None:
+    if (spec is not None and spec.dot_precision != "highest"
+            and method in _ADAMS_METHODS):
+        raise ValueError(
+            f"dot_precision={spec.dot_precision!r} is not supported on "
+            "the Adams kernels (their corrector/order machinery assumes "
+            "f32-accurate dots); use an RK method for reduced-precision "
+            "serving ('bf16' fixed-grid, 'mixed' fixed-grid or adaptive)")
     if method in _ADAMS_METHODS:
         raise NotImplementedError(
             f"method {method!r} (Adams family) is not ported to the fused "
@@ -258,6 +287,8 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     the host computes f0 and, when first_step is None, the HNW initial
     step (2 extra evaluations, else 1, counted in nfe); rtol, atol,
     first_step and max_num_steps apply, num_steps and step_size do not.
+    spec.matmul and spec.dot_precision give each layer its tier
+    (`ops/cuda_kernels.layer_tiers`); K2 and K8 run the reduced tiers.
     per_sample=True runs K5 instead: every sample takes its own steps from
     its own HNW first step (`select_initial_step_per_sample`, one batched
     probe), with max_num_steps counting each sample's attempts; stats sum
@@ -271,13 +302,16 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     (nfe = 1 + stages * steps; the tolerances, first_step and
     max_num_steps do not apply).
     """
-    if spec.dot_precision != "highest":
-        raise NotImplementedError(
-            f"dot_precision={spec.dot_precision!r} is not ported yet: "
-            "ROADMAP.md queue 1 item 14 (dot-precision tiers)")
-    _check_method(method)
+    _check_method(method, spec)
     if per_sample and method not in tableaus.TABLEAUS_BY_NAME:
         raise ValueError("per_sample applies to adaptive RK methods only")
+    tiers = layer_tiers([tuple(W.shape) for W, _ in weights], spec.matmul,
+                        spec.dot_precision)
+    if per_sample and any(tier != "highest" for tier in tiers):
+        raise NotImplementedError(
+            f"dot_precision={spec.dot_precision!r} with per_sample=True is "
+            "not ported yet: ROADMAP.md queue 1 item 20 (the tiers in the "
+            "per-sample kernel K5)")
     y0, t = _check_spec_inputs(y0, t)
     dtype, dev = y0.dtype, y0.device
     if t.shape[0] == 1:
@@ -299,7 +333,7 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
             f0=f0.contiguous(), activation=spec.activation,
             final_activation=spec.final_activation,
             input_power=spec.input_power, time_input=spec.time_input,
-            method=method)
+            method=method, tiers=tiers)
         return SolveResult(out, SolverStats(*stats.tolist()))
 
     order = tableaus.TABLEAUS_BY_NAME[method].order
@@ -331,9 +365,53 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
             lane_stats=SolverStats(lane[0] + extra_nfe, lane[1], lane[2],
                                    lane[3]))
     out, stats = mlp_solve(warrays, dims, y0.contiguous(), tau, dt0, rtol,
-                           atol, float(sign), **kw)
+                           atol, float(sign), tiers=tiers, **kw)
     nfe, nacc, nrej, status = stats.tolist()
     return SolveResult(out, SolverStats(nfe + extra_nfe, nacc, nrej, status))
+
+
+#: Systolic passes per dot of each `dot_precision` tier: the reference's
+#: cost model behind `calibrate_dot_precision` (tfdiffeq_tpu/fast.py:729,
+#: measured there on a TPU v5e), kept so that both packages pick the same
+#: tier. It is not an H100 measurement: on the card 'highest' runs on the
+#: CUDA cores and the other two on the tensor cores (PERF.md).
+DOT_PASSES = {"highest": 3, "mixed": 2, "bf16": 1}
+
+
+def calibrate_dot_precision(spec: MLPSpec, weights, y0: Tensor, t, *,
+                            rtol=1e-6, atol=1e-8, method: str = "dopri5",
+                            candidates=("bf16", "mixed"),
+                            max_nfe_inflation: float = 0.5,
+                            **solve_kw) -> MLPSpec:
+    """The reference's one-time cost gate for the reduced tiers
+    (tfdiffeq_tpu/fast.py:732): one solve per candidate `dot_precision` on
+    a representative (y0, t), and `spec` rebuilt with the tier of least
+    NFE x `DOT_PASSES[tier]`. A candidate whose NFE exceeds
+    (1 + max_nfe_inflation) x the 'highest' solve's is rejected outright,
+    and one that raises a ValueError (not supported for the method) is
+    skipped. Fixed-grid methods have the same NFE at every tier, so the
+    fewest passes win. solve_kw goes to `solve_mlp_spec`."""
+    ref = solve_mlp_spec(dataclasses.replace(spec, dot_precision="highest"),
+                         weights, y0, t, rtol=rtol, atol=atol,
+                         method=method, **solve_kw)
+    ref_nfe = int(ref.stats.nfe)
+    best, best_cost = "highest", ref_nfe * DOT_PASSES["highest"]
+    for prec in candidates:
+        if prec == "highest":
+            continue
+        try:
+            r = solve_mlp_spec(dataclasses.replace(spec, dot_precision=prec),
+                               weights, y0, t, rtol=rtol, atol=atol,
+                               method=method, **solve_kw)
+        except ValueError:        # tier not supported for this method
+            continue
+        nfe = int(r.stats.nfe)
+        if nfe > ref_nfe * (1.0 + max_nfe_inflation):
+            continue
+        cost = nfe * DOT_PASSES[prec]
+        if cost < best_cost:
+            best, best_cost = prec, cost
+    return dataclasses.replace(spec, dot_precision=best)
 
 
 class _AdjointMLP(torch.autograd.Function):
@@ -454,6 +532,10 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     adjoint methods only. The backward then always uses the (y, a_y)
     seminorm (adjoint_seminorm is ignored, as in the reference).
 
+    A reduced `spec.dot_precision` reaches the forward solve only, as in
+    the reference: the backward sweep is float32-accurate, on the weights
+    as given.
+
     Fixed-grid options, as in the reference: num_steps or step_size shape
     a fixed forward's grid (`solve_mlp_spec`); a fixed backward takes
     adjoint_num_steps equal steps per observation interval, else the
@@ -472,7 +554,7 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     adjoint_rtol = rtol if adjoint_rtol is None else adjoint_rtol
     adjoint_atol = atol if adjoint_atol is None else adjoint_atol
     adjoint_method = method if adjoint_method is None else adjoint_method
-    _check_method(method)
+    _check_method(method, spec)
     _check_method(adjoint_method)
     if per_sample and (method not in tableaus.TABLEAUS_BY_NAME
                        or adjoint_method not in tableaus.TABLEAUS_BY_NAME):
@@ -518,6 +600,11 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
 _CONV_STACK_BLOCKS = 60
 _CONV_STACK_BUDGET = 14 * 2 ** 20
 _LANE = 128
+
+#: `solve_conv_ode` calls that took the generic engine because not one
+#: sample fit a controller block (no K13 launch); a measured path keeps
+#: it at 0.
+conv_ode_fallbacks = 0
 
 
 def conv_block_size(channels: int, n_times: int, positions: int) -> int:
@@ -632,6 +719,11 @@ def solve_conv_ode(func_or_params, x: Tensor, t, *, groups: int = 32,
     NHWC); t may increase or decrease. Computes in float32, as the
     reference does. Returns ys [T, B, C, H, W] and stats.
 
+    When not one sample fits a controller block (many output times, or
+    many channels), it warns and solves the whole batch with the generic
+    engine instead, as the reference does, and counts the call in
+    `conv_ode_fallbacks`.
+
     The batch runs as controller blocks of `conv_block_size` samples, the
     reference's partition, each with its own HNW first step and step
     control (the last block holds only its true samples, where the
@@ -644,6 +736,28 @@ def solve_conv_ode(func_or_params, x: Tensor, t, *, groups: int = 32,
     if t.shape[0] == 1:
         return SolveResult(x.detach().to(torch.float32)[None].clone(),
                            SolverStats(0, 0, 0, 0))
+    B, C, H, W = x.shape
+    spec = co.ConvODESpec(height=H, width=W, channels=C, groups=groups)
+    if conv_block_size(C, t.shape[0], spec.positions) < 1:
+        # The reference's fallback (tfdiffeq_tpu/fast.py:2357-2371): the
+        # generic engine over the whole batch, on the caller's device.
+        global conv_ode_fallbacks
+        conv_ode_fallbacks += 1
+        warnings.warn(
+            "solve_conv_ode: even a single-sample block exceeds the "
+            "kernel's block limit (huge T or C); falling back to the "
+            "generic while-loop engine", stacklevel=2)
+        options = {"loop": "while"}
+        if max_num_steps is not None:
+            options["max_num_steps"] = max_num_steps
+        if first_step is not None:
+            options["first_step"] = first_step
+        with torch.no_grad():
+            f = co.make_conv_ode_f(conv_params(func_or_params), spec,
+                                   torch.float32, x.device)
+            return _generic_solve(f, x.detach().to(torch.float32),
+                                  t.to(torch.float32), rtol=rtol, atol=atol,
+                                  method=method, options=options)
     args, kw, extra_nfe = conv_solve_inputs(
         func_or_params, x, t, groups=groups, rtol=rtol, atol=atol,
         method=method, first_step=first_step)

@@ -33,8 +33,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "fixed_kernel.cu", "fixed_adjoint_kernel.cu",
            "conv_solve_kernel.cu", "perlane_solve_kernel.cu",
-           "perlane_adjoint_kernel.cu")
-HEADERS = ("mlp_rk.cuh",)
+           "perlane_adjoint_kernel.cu", "tier_net_kernel.cu")
+HEADERS = ("mlp_rk.cuh", "dot_tiers.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
@@ -53,31 +53,36 @@ _D = ctypes.c_double
 _STEP_ARGS = ([_P] * 10                                    # tensors
               + [_I] * 4 + [_D] * 3                         # B .. atol
               + [_P, _P])                                   # coeffs, stream
+_L = ctypes.c_long
 _SOLVE_ARGS = ([_P] * 7                                     # tensors
                + [_I, _I, _I, _I]                           # T, B, D, threads
                + [_D] * 8 + [_I, _I]                        # scalars
                + [_I, _P, _I, _I, _I, _I]                   # network
                + [_I, _I, _I, _P, _P, _P, _P, _P]           # tableau
+               + [_I, _P, _P, _L]                           # route, tiers
                + [_P])                                      # stream
 _ADJOINT_ARGS = ([_P] * 9                                   # tensors
-                 + [ctypes.c_long]                          # work size
+                 + [_L]                                     # work size
                  + [_I, _I, _I, _I]                         # T, B, D, threads
                  + [_D] * 8 + [_I, _I]                      # scalars
                  + [_I, _P, _I, _I, _I, _I]                 # network
                  + [_I, _I, _P, _P, _P, _P]                 # tableau
+                 + [_I, _P, _L]                             # route, pwork
                  + [_P])                                    # stream
 _SOLVE_FIXED_ARGS = ([_P] * 8                               # tensors
                      + [_I] * 5                             # G .. threads
                      + [_D, _I]                             # sign, valid
                      + [_I, _P, _I, _I, _I, _I]             # network
                      + [_I, _P, _P, _P]                     # tableau
+                     + [_I, _P, _P, _L]                     # route, tiers
                      + [_P])                                # stream
 _ADJOINT_FIXED_ARGS = ([_P] * 10                            # tensors
-                       + [ctypes.c_long]                    # work size
+                       + [_L]                               # work size
                        + [_I] * 5                           # T .. n_sub
                        + [_D]                               # sign
                        + [_I, _P, _I, _I, _I, _I]           # network
                        + [_I, _P, _P, _P]                   # tableau
+                       + [_I]                               # route
                        + [_P])                              # stream
 _CONV_SOLVE_ARGS = ([_P] * 8                                # tensors
                     + [_I] * 9                              # T .. w_smem
@@ -89,14 +94,21 @@ _SOLVE_PERLANE_ARGS = ([_P] * 9                             # tensors
                        + [_D] * 7 + [_I, _I]                # scalars
                        + [_I, _P, _I, _I, _I, _I]           # network
                        + [_I, _I, _I, _P, _P, _P, _P, _P]   # tableau
+                       + [_I]                               # route
                        + [_P])                              # stream
 _ADJOINT_PERLANE_ARGS = ([_P] * 12                          # tensors
-                         + [ctypes.c_long]                  # work size
+                         + [_L]                             # work size
                          + [_I] * 4                         # T, B, D, threads
                          + [_D] * 7 + [_I]                  # scalars
                          + [_I, _P, _I, _I, _I, _I]         # network
                          + [_I, _I, _P, _P, _P, _P]         # tableau
+                         + [_I]                             # route
                          + [_P])                            # stream
+_TIER_NET_ARGS = ([_P] * 3                                  # tensors
+                  + [_I, _I]                                # B, D
+                  + [_I, _P, _I, _I, _I, _I]                # network
+                  + [_D, _P, _P, _L]                        # t, tiers, work
+                  + [_P])                                   # stream
 
 #: Launch functions -> argument lists, each in float32 and float64.
 _ENTRIES = {"tfd_dopri5_mlp_step": _STEP_ARGS, "tfd_mlp_solve": _SOLVE_ARGS,
@@ -105,7 +117,8 @@ _ENTRIES = {"tfd_dopri5_mlp_step": _STEP_ARGS, "tfd_mlp_solve": _SOLVE_ARGS,
             "tfd_mlp_adjoint_fixed": _ADJOINT_FIXED_ARGS,
             "tfd_conv_solve": _CONV_SOLVE_ARGS,
             "tfd_mlp_solve_perlane": _SOLVE_PERLANE_ARGS,
-            "tfd_mlp_perlane_adjoint": _ADJOINT_PERLANE_ARGS}
+            "tfd_mlp_perlane_adjoint": _ADJOINT_PERLANE_ARGS,
+            "tfd_tier_net": _TIER_NET_ARGS}
 
 
 def _nvcc() -> str:

@@ -18,9 +18,14 @@ synchronisation per attempt, and takes every batch sum in the kernel's
 fixed order (`_lane_sums`, `cuda_kernels._owned_sums`, `_tree_sum`), so
 the two take the same steps in float64.
 
+The kernel takes the routes of `cuda_kernels._route`: narrow (the weights,
+the parameter accumulator and the stage cotangents in shared memory) or wide
+(layers up to MAX_WIDTH, all of those in global memory). The sweep is always
+float32-accurate: the reference's dot-precision tiers reach the forward
+solves only (`fast.odeint_adjoint_mlp`).
+
 Not ported: `rhs='cnf'` (K7, ROADMAP queue 2), and the TPU machinery of the
-reference (`pack` sublane packing, `n_blocks` grid blocks, `stream_io`,
-`matmul='mxu'`).
+reference (`pack` sublane packing, `n_blocks` grid blocks, `stream_io`).
 """
 
 from __future__ import annotations
@@ -30,11 +35,11 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .cuda_kernels import (MAX_WEIGHT_BYTES, _ACT_CODES, _ACTIVATION_GRADS,
+from .cuda_kernels import (ROUTE_WIDE, _ACT_CODES, _ACTIVATION_GRADS,
                            _ACTIVATIONS, _check_activations, _check_float,
                            _check_mlp,
                            _controller_factor, _device_kind, _dims_arg,
-                           _owned_sums, _ptr, _solve_setup, _stream,
+                           _owned_sums, _ptr, _route, _solve_setup, _stream,
                            _tableau_args, _tree_sum, _unpack)
 from .tableaus import TABLEAUS_BY_NAME
 
@@ -270,14 +275,18 @@ def _work_size(dims, S: int, B: int, D: int) -> int:
     return (6 + 2 * S) * B * D + rows * B
 
 
-def _shared_bytes(dims, method: str, time_input: bool,
-                         dtype: torch.dtype) -> int:
-    """Shared memory K3 needs: the weights, the parameter accumulator and
-    its increment, every stage's cotangents and the block-sum scratch."""
+def _shared_values(dims, S: int, time_input: bool) -> int:
+    """Shared memory K3's narrow route needs, in values: the weights, the
+    parameter accumulator and its increment, every stage's cotangents and
+    the block-sum scratch."""
     n_w = sum(din * dout + dout for din, dout in dims)
-    S = TABLEAUS_BY_NAME[method].stages
-    item = torch.empty((), dtype=dtype).element_size()
-    return item * ((3 + S) * n_w + S * int(time_input) + ADJOINT_THREADS)
+    return (3 + S) * n_w + S * int(time_input) + ADJOINT_THREADS
+
+
+def _wide_work_size(n_w: int, S: int, time_input: bool) -> int:
+    """csrc/adjoint_kernel.cu adjoint_pwork_size: the wide route's parameter
+    accumulator, its increment and the stage cotangents."""
+    return 2 * n_w + S * (n_w + int(time_input))
 
 
 def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
@@ -327,12 +336,9 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                         f"{dtype}")
     T, B, D = ys.shape
     n_w = _check_mlp("mlp_adjoint_solve", warrays, dims, D, time_input)
-    smem = _shared_bytes(dims, method, time_input, dtype)
-    if smem > MAX_WEIGHT_BYTES:
-        raise ValueError(
-            f"mlp_adjoint_solve: {n_w} weights with the {method} tableau "
-            f"need {smem} bytes of shared memory, above the "
-            f"{MAX_WEIGHT_BYTES} the kernel may use")
+    S = TABLEAUS_BY_NAME[method].stages
+    route = _route("mlp_adjoint_solve", dims,
+                   _shared_values(dims, S, time_input), ys.element_size())
     if max_steps < 1:
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
     for name, x in (("ys", ys), ("g", g), ("warrays", warrays)):
@@ -349,6 +355,9 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     stats = torch.empty(4, dtype=torch.int32, device=ys.device)
     n_work = _work_size(dims, S, B, D)
     work = torch.empty(n_work, dtype=dtype, device=ys.device)
+    n_pwork = (_wide_work_size(n_w, S, time_input) if route == ROUTE_WIDE
+               else 0)
+    pwork = torch.empty(n_pwork, dtype=dtype, device=ys.device)
     lib = _build.library()
     fn = (lib.tfd_mlp_adjoint_f32 if dtype == torch.float32
           else lib.tfd_mlp_adjoint_f64)
@@ -361,7 +370,8 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                  int(seminorm), len(dims), _dims_arg(dims),
                  _ACT_CODES[activation], _ACT_CODES[final_activation],
                  int(input_power), int(time_input), S, tab.order, c, a,
-                 b_sol, b_err, _stream(ys.device))
+                 b_sol, b_err, route, _ptr(pwork), n_pwork,
+                 _stream(ys.device))
     _build.check(err, "mlp_adjoint_solve launch")
     mlp_adjoint_solve_launches += 1
     return ay0, aw, at, stats

@@ -21,8 +21,12 @@ float32 one usually to the bit.
 
 `mlp_solve_fixed_launches` and `mlp_adjoint_solve_fixed_launches` count
 wrapper calls that launched their kernel; `reset_launch_counts()` zeroes
-them. Not ported: `rhs='cnf'` (K7), and the TPU machinery of the reference
-(`pack` sublane packing, `n_blocks` grid blocks, padded lanes, `matmul`).
+them. Both take the routes of `cuda_kernels._route`; K8 with a reduced dot
+precision (`tiers`) takes the batch route, where a block of
+FIXED_BATCH_THREADS threads owns FIXED_THREADS samples and evaluates them
+layer by layer (K4, csrc/dot_tiers.cuh). Not ported: `rhs='cnf'` (K7), and
+the TPU machinery of the reference (`pack` sublane packing, `n_blocks` grid
+blocks, padded lanes).
 """
 
 from __future__ import annotations
@@ -32,11 +36,13 @@ from typing import Tuple
 import torch
 
 from . import _build
+from . import cuda_kernels as _ck
 from .cuda_adjoint import _aug_eval_plain
-from .cuda_kernels import (MAX_WEIGHT_BYTES, _ACT_CODES, _check_activations,
+from .cuda_kernels import (ROUTE_BATCH, _ACT_CODES, _check_activations,
                            _check_float, _check_mlp, _device_kind, _dims_arg,
-                           _increasing, _net_plain, _ptr, _rk_stages,
-                           _stream, _tableau_args, _tree_sum)
+                           _increasing, _net_plain, _ptr, _rk_stages, _route,
+                           _stream, _tableau_args, _tier_work_bytes,
+                           _tiers_arg, _tree_sum)
 from .tableaus import FIXED_TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
@@ -44,6 +50,9 @@ Tensor = torch.Tensor
 #: Threads per block of K8 and K9 (one sample a thread); K9's per-block
 #: quadrature sums take a tree over them, so a power of two.
 FIXED_THREADS = 64
+#: Threads of a K8 block on the batch route (csrc/fixed_kernel.cu
+#: kFixedBatchThreads); it owns FIXED_THREADS samples.
+FIXED_BATCH_THREADS = 256
 
 mlp_solve_fixed_launches = 0
 mlp_adjoint_solve_fixed_launches = 0
@@ -71,7 +80,8 @@ def mlp_solve_fixed_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                           activation: str = "tanh",
                           final_activation: str = "identity",
                           input_power: int = 1, time_input: bool = False,
-                          method: str = "rk4") -> Tuple[Tensor, Tensor]:
+                          method: str = "rk4",
+                          tiers=None) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K8, step for step. Same contract as
     `mlp_solve_fixed`, except that f0 is required."""
     tab = _tableau(method)
@@ -82,7 +92,7 @@ def mlp_solve_fixed_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     tau_d, grid_d = tau_h.to(dev), grid_h.to(dev)
     sgn = torch.as_tensor(sign, dtype=dtype).to(dev)
     raw_f = _net_plain(warrays, dims, activation, final_activation,
-                       input_power, time_input)
+                       input_power, time_input, tiers)
 
     def f(s, y):
         # Canonical dynamics: g(tau, y) = sign * f(sign * tau, y).
@@ -127,7 +137,7 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                     activation: str = "tanh",
                     final_activation: str = "identity",
                     input_power: int = 1, time_input: bool = False,
-                    method: str = "rk4") -> Tuple[Tensor, Tensor]:
+                    method: str = "rk4", tiers=None) -> Tuple[Tensor, Tensor]:
     """Whole-solve fused fixed-grid RK for a general MLP neural ODE, one
     kernel launch: every stage evaluation, the Kahan-compensated state
     update, the chained end derivative and the output drain.
@@ -137,7 +147,9 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     increasing); grid: [G] canonical step grid from tau[0] to tau[-1] (tau
     itself, or finer; outputs between grid points are cubic-Hermite
     interpolated); sign: +1 or -1; f0: the signed derivative at (grid[0],
-    y0), computed here when None.
+    y0), computed here when None. tiers: each layer's dot precision, as in
+    `cuda_kernels.mlp_solve` (a reduced tier: two launches, the bf16 weight
+    pack and the solve).
 
     Returns (out [T, B, D], stats [4] int32 on y0's device: nfe = 1 +
     stages * (G - 1), steps = G - 1, 0, status). Status 3 (INVALID_TIMES):
@@ -158,7 +170,7 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
         return mlp_solve_fixed_plain(
             warrays, dims, y0, tau, grid, sign, f0=f0, activation=activation,
             final_activation=final_activation, input_power=input_power,
-            time_input=time_input, method=method)
+            time_input=time_input, method=method, tiers=tiers)
 
     global mlp_solve_fixed_launches
     if dtype not in (torch.float32, torch.float64):
@@ -166,13 +178,9 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                         f"{dtype}")
     B, D = y0.shape
     T, G = tau.shape[0], grid.shape[0]
-    n_w = _check_mlp("mlp_solve_fixed", warrays, dims, D, time_input)
-    smem = (n_w + G + T) * y0.element_size()
-    if smem > MAX_WEIGHT_BYTES:
-        raise ValueError(f"mlp_solve_fixed: {n_w} weights, {G} grid points "
-                         f"and {T} output times need {smem} bytes of shared "
-                         f"memory, above the {MAX_WEIGHT_BYTES} the kernel "
-                         "may use")
+    n_w = _check_mlp("mlp_solve_fixed", warrays, dims, D, time_input, tiers)
+    route = _route("mlp_solve_fixed", dims, n_w, y0.element_size(), tiers,
+                   input_values=G + T)
     for name, x in (("y0", y0), ("f0", f0), ("warrays", warrays)):
         _check_float(name, x, dtype)
     if f0.shape != y0.shape:
@@ -186,6 +194,11 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
     work = torch.empty((S + 3) * B * D, dtype=dtype, device=y0.device)
+    batch = route == ROUTE_BATCH
+    rows = -(-B // FIXED_THREADS) * FIXED_THREADS
+    n_batch = (_tier_work_bytes(dims, rows, y0.element_size()) if batch
+               else 0)
+    batch_work = torch.empty(n_batch, dtype=torch.uint8, device=y0.device)
     # Named, so that they live until the launch has read them.
     grid_d, tau_d = grid_h.to(y0.device), tau_h.to(y0.device)
     lib = _build.library()
@@ -194,13 +207,15 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     with torch.cuda.device(y0.device):
         err = fn(_ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0),
                  _ptr(warrays), _ptr(out), _ptr(stats), _ptr(work), G, T, B,
-                 D, FIXED_THREADS, float(sign),
-                 int(valid), len(dims), _dims_arg(dims),
+                 D, FIXED_BATCH_THREADS if batch else FIXED_THREADS,
+                 float(sign), int(valid), len(dims), _dims_arg(dims),
                  _ACT_CODES[activation], _ACT_CODES[final_activation],
-                 int(input_power), int(time_input), S, c, a, b_sol,
+                 int(input_power), int(time_input), S, c, a, b_sol, route,
+                 _tiers_arg(tiers), _ptr(batch_work), n_batch,
                  _stream(y0.device))
     _build.check(err, "mlp_solve_fixed launch")
     mlp_solve_fixed_launches += 1
+    _ck.dot_tier_launches += batch
     return out, stats
 
 
@@ -362,11 +377,8 @@ def mlp_adjoint_solve_fixed(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     T, B, D = ys.shape
     n_w = _check_mlp("mlp_adjoint_solve_fixed", warrays, dims, D,
                      time_input)
-    smem = (n_w + FIXED_THREADS) * ys.element_size()
-    if smem > MAX_WEIGHT_BYTES:
-        raise ValueError(f"mlp_adjoint_solve_fixed: {n_w} weights need "
-                         f"{smem} bytes of shared memory, above the "
-                         f"{MAX_WEIGHT_BYTES} the kernel may use")
+    route = _route("mlp_adjoint_solve_fixed", dims, n_w + FIXED_THREADS,
+                   ys.element_size())
     for name, x in (("ys", ys), ("g", g), ("warrays", warrays)):
         _check_float(name, x, dtype)
 
@@ -391,7 +403,7 @@ def mlp_adjoint_solve_fixed(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                  n_work, T, B, D, FIXED_THREADS, int(num_steps),
                  float(sign), len(dims), _dims_arg(dims),
                  _ACT_CODES[activation], _ACT_CODES[final_activation],
-                 int(input_power), int(time_input), S, c, a, b_sol,
+                 int(input_power), int(time_input), S, c, a, b_sol, route,
                  _stream(ys.device))
     _build.check(err, "mlp_adjoint_solve_fixed launch")
     mlp_adjoint_solve_fixed_launches += 1

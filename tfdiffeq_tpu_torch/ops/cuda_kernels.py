@@ -9,6 +9,18 @@ the main path (sources in `tfdiffeq_tpu_torch/csrc/`, built by `_build.py`):
 - K2 `mlp_solve` (csrc/solve_kernel.cu) replaces `_make_solve_kernel`
   (pallas_kernels.py:726): a whole adaptive RK solve of a general MLP
   neural ODE in one launch.
+- K4, the dot-precision tiers (csrc/dot_tiers.cuh), replaces `_mixed_dot`
+  and the tiers of `_make_net` (pallas_kernels.py:361-439) inside K2 and
+  K8: `dot_tier_plain` is its plain version, `layer_tiers` the reference's
+  per-layer choice (`_layer_uses_mxu`), and `tier_net`
+  (csrc/tier_net_kernel.cu) one batch-wide evaluation with K4 alone.
+
+The MLP kernels (K2, K3, K5, K6, K8, K9) take one of three routes
+(`_route`): narrow (every layer at most NARROW_WIDTH wide and the weights in
+shared memory, the main path), wide (layers up to MAX_WIDTH, the weights
+read from global memory) and, for K2 and K8 with a reduced tier, batch (a
+stage evaluated batch-wide, layer by layer, the tier layers on the tensor
+cores in float32).
 
 Each wrapper takes the kernel's plain PyTorch version (`*_plain`, beside it
 here) only for tensors on the CPU, where there is no kernel; a CUDA tensor
@@ -19,7 +31,11 @@ their sublane packing, VMEM budgets, grid blocks and streamed output are
 TPU machinery with no counterpart here.
 
 `dopri5_mlp_step_launches` and `mlp_solve_launches` count kernel launches
-(never plain-version calls); `reset_launch_counts()` zeroes them.
+(never plain-version calls); `dot_tier_launches` counts the K2 and K8
+solves that ran K4's tier layers, and `tier_net_launches` the calls of K4
+alone (`tier_net`); `reset_launch_counts()` zeroes them. A solve on the
+batch route is two launches, the bf16 weight pack and the solve, and
+counts one.
 """
 
 from __future__ import annotations
@@ -35,28 +51,38 @@ from .tableaus import DOPRI5, TABLEAUS_BY_NAME, ButcherTableau
 
 Tensor = torch.Tensor
 
-#: Widest layer (state, state + time column, hidden) of the K2 MLP and
-#: deepest MLP (csrc/mlp_rk.cuh kMaxWidth, kMaxLayers).
-MAX_WIDTH = 128
+#: Widest layer (state, state + time column, hidden) of the MLP kernels
+#: and deepest MLP (csrc/mlp_rk.cuh kMaxWidth, kMaxLayers).
+MAX_WIDTH = 512
 MAX_LAYERS = 8
+#: Widest layer of the narrow route (csrc/mlp_rk.cuh kNarrowWidth).
+NARROW_WIDTH = 128
+#: Routes of the MLP kernels (csrc/mlp_rk.cuh Route).
+ROUTE_NARROW, ROUTE_WIDE, ROUTE_BATCH = 0, 1, 2
 #: Widest state of K1 (csrc/step_kernel.cu kStepMaxD).
 STEP_MAX_D = 16
 #: Threads per K1 block; each block writes one partial error sum.
 STEP_THREADS = 256
 #: Threads of K2's one block (at most csrc/solve_kernel.cu kSolveThreads).
 SOLVE_THREADS = 512
-#: Shared memory K2 may give the packed weights (the card has 227 KB per
-#: block; 4 KB stay for the reduction and the tableau).
+#: Shared memory a kernel may give the packed weights (the card has 227 KB
+#: per block; 4 KB stay for the reduction and the tableau). An MLP kernel
+#: whose narrow-route share does not fit takes the wide route.
 MAX_WEIGHT_BYTES = 220 * 1024
 
 dopri5_mlp_step_launches = 0
 mlp_solve_launches = 0
+dot_tier_launches = 0
+tier_net_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global dopri5_mlp_step_launches, mlp_solve_launches
+    global dopri5_mlp_step_launches, mlp_solve_launches, dot_tier_launches
+    global tier_net_launches
     dopri5_mlp_step_launches = 0
     mlp_solve_launches = 0
+    dot_tier_launches = 0
+    tier_net_launches = 0
 
 
 def _elu(x: Tensor) -> Tensor:
@@ -145,11 +171,16 @@ def _increasing(x: Tensor) -> bool:
 
 
 def _check_mlp(name: str, warrays: Tensor, dims, D: int,
-               time_input: bool) -> int:
+               time_input: bool, tiers=None) -> int:
     """Raise on an MLP the kernels cannot take (depth, widths, a network
     that does not map the D-feature state to itself, a packed array of the
-    wrong length); returns the packed weight count."""
+    wrong length, unknown tiers); returns the packed weight count."""
     widths = [w for dd in dims for w in dd]
+    if tiers is not None and (len(tiers) != len(dims) or any(
+            t not in _TIER_CODES for t in tiers)):
+        raise ValueError(f"{name}: tiers {tiers} must name one of "
+                         f"{sorted(_TIER_CODES)} for each of the "
+                         f"{len(dims)} layers")
     if len(dims) > MAX_LAYERS:
         raise ValueError(f"{name} supports up to MAX_LAYERS={MAX_LAYERS} "
                          f"layers, got {len(dims)}")
@@ -164,6 +195,53 @@ def _check_mlp(name: str, warrays: Tensor, dims, D: int,
         raise ValueError(f"warrays has shape {tuple(warrays.shape)}, "
                          f"expected ({n_w},) for dims {dims}")
     return n_w
+
+
+def _route(name: str, dims, net_values: int, itemsize: int, tiers=None,
+           input_values: int = 0) -> int:
+    """The route of an MLP kernel, from the network alone: batch when a
+    layer has a reduced tier, narrow when every layer fits NARROW_WIDTH and
+    the narrow route's shared memory for the network (`net_values` values
+    of `itemsize` bytes: weights and fixed scratch) fits MAX_WEIGHT_BYTES,
+    else wide. `input_values` (grid points, output times) sit in shared
+    memory beside them on every route; raise when they do not fit there,
+    so that an input's length never changes the route."""
+    if tiers is not None and any(t != "highest" for t in tiers):
+        route = ROUTE_BATCH
+    elif (max(w for dd in dims for w in dd) <= NARROW_WIDTH
+          and net_values * itemsize <= MAX_WEIGHT_BYTES):
+        route = ROUTE_NARROW
+    else:
+        route = ROUTE_WIDE
+    smem = (input_values + (net_values if route == ROUTE_NARROW else 0)) \
+        * itemsize
+    if smem > MAX_WEIGHT_BYTES:
+        raise ValueError(f"{name}: {input_values} grid points and output "
+                         f"times need {smem} bytes of shared memory on its "
+                         f"route, above the {MAX_WEIGHT_BYTES} the kernel "
+                         "may use")
+    return route
+
+
+def _pad16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _tier_work_bytes(dims, rows: int, itemsize: int) -> int:
+    """csrc/dot_tiers.cuh batch_work_bytes: the bf16 weights
+    ([pad16(dout)][pad16(din)] a layer, 256-byte aligned), then three
+    [rows][ld] activation buffers."""
+    n_w16 = sum(_pad16(o) * _pad16(i) for i, o in dims)
+    ld = _pad16(max(w for dd in dims for w in dd))
+    return -(-2 * n_w16 // 256) * 256 + 3 * rows * ld * itemsize
+
+
+def _tiers_arg(tiers):
+    """Per-layer tier names as the launch functions' int array (None when
+    every layer is 'highest')."""
+    if tiers is None or all(t == "highest" for t in tiers):
+        return None
+    return (ctypes.c_int * len(tiers))(*(_TIER_CODES[t] for t in tiers))
 
 
 def _tableau_args(tab: ButcherTableau):
@@ -430,32 +508,148 @@ def _unpack(packed: Tensor, dims):
     return layers
 
 
+# ---------------------------------------------------------------------------
+# K4: the dot-precision tiers (pallas_kernels.py:361-439)
+# ---------------------------------------------------------------------------
+
+#: Tier name -> csrc/dot_tiers.cuh `Tier` code.
+_TIER_CODES = {"highest": 0, "mixed": 1, "bf16": 2}
+
+
+def _layer_uses_mxu(matmul: str, din: int, dout: int) -> bool:
+    """pallas_kernels.py:_layer_uses_mxu: which layers a reduced tier acts
+    on. 'vpu': none; 'mxu': every layer; 'auto': a layer whose weight block
+    is at least 32 wide both ways and 2048 values."""
+    if matmul == "vpu":
+        return False
+    if matmul == "mxu":
+        return True
+    if matmul == "auto":
+        return min(din, dout) >= 32 and din * dout >= 2048
+    raise ValueError(f"matmul must be 'vpu', 'mxu' or 'auto', got "
+                     f"{matmul!r}")
+
+
+def layer_tiers(dims, matmul: str, dot_precision: str):
+    """Each layer's tier: `dot_precision` where `_layer_uses_mxu` selects
+    the layer, 'highest' elsewhere (pallas_kernels.py:403)."""
+    return tuple(dot_precision if _layer_uses_mxu(matmul, din, dout)
+                 else "highest" for din, dout in dims)
+
+
+def _bf16(x: Tensor) -> Tensor:
+    """x rounded to bf16 (nearest even; float64 through float32, as
+    astype(bfloat16) does), back in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _dot_in_order(wT: Tensor, h: Tensor) -> Tensor:
+    """sum_i wT[:, i] h[:, i] over the inputs in order: [B, dout]."""
+    acc = None
+    for i in range(wT.shape[1]):
+        term = wT[:, i] * h[:, i:i + 1]
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def dot_tier_plain(wT: Tensor, h: Tensor, tier: str) -> Tensor:
+    """Plain PyTorch version of K4's layer product (pallas_kernels.py:
+    _mixed_dot and the one-pass dot): h [B, din] times W [din, dout] given
+    as wT [dout, din], with bf16-rounded weights and
+    - 'mixed': activations split into h_hi = bf16(h) and h_lo = bf16(h -
+      h_hi), acc = w16 . h_hi + w16 . h_lo;
+    - 'bf16': acc = w16 . bf16(h).
+    Each product of two bf16 values is exact in h's dtype; the sums run in
+    input order. Returns acc [B, dout] (before the bias)."""
+    w16 = _bf16(wT)
+    h_hi = _bf16(h)
+    if tier == "bf16":
+        return _dot_in_order(w16, h_hi)
+    if tier != "mixed":
+        raise ValueError(f"no reduced tier {tier!r}")
+    return _dot_in_order(w16, h_hi) + _dot_in_order(w16, _bf16(h - h_hi))
+
+
 def _net_plain(packed: Tensor, dims, activation: str, final_activation: str,
-               input_power: int, time_input: bool):
-    """pallas_kernels.py:_make_net (its VPU path) on [B, D]: each output
-    sums its input terms in input order, then the time column, then the
-    bias. Returns f(t, y)."""
+               input_power: int, time_input: bool, tiers=None):
+    """pallas_kernels.py:_make_net on [B, D]: each output sums its input
+    terms in input order, then the time column, then the bias (a 'highest'
+    layer); a layer with a reduced tier takes `dot_tier_plain` with the time
+    column as its last input. Returns f(t, y)."""
     layers = _unpack(packed, dims)
     acts = ([_ACTIVATIONS[activation]] * (len(dims) - 1)
             + [_ACTIVATIONS[final_activation]])
+    tiers = tiers or ("highest",) * len(dims)
 
     def f(t, y):
         h = y
         for _ in range(input_power - 1):
             h = h * y
         for l, (wT, b) in enumerate(layers):
-            n_state = wT.shape[1] - 1 if (time_input and l == 0) else \
-                wT.shape[1]
-            acc = None
-            for i in range(n_state):
-                term = wT[:, i] * h[:, i:i + 1]              # [B, dout]
-                acc = term if acc is None else acc + term
-            if time_input and l == 0:
+            tcol = time_input and l == 0
+            if tiers[l] != "highest":
+                if tcol:
+                    tt = torch.as_tensor(t, dtype=h.dtype).to(h.device)
+                    h = torch.cat([h, tt.reshape(-1, 1).expand(
+                        h.shape[0], 1)], dim=1)
+                h = acts[l](dot_tier_plain(wT, h, tiers[l]) + b)
+                continue
+            n_state = wT.shape[1] - 1 if tcol else wT.shape[1]
+            acc = _dot_in_order(wT[:, :n_state], h)
+            if tcol:
                 acc = acc + wT[:, n_state] * t
             h = acts[l](acc + b)
         return h
 
     return f
+
+
+#: Samples (rows) and threads of a tier_net block (csrc/tier_net_kernel.cu
+#: kTierNetRows, kTierNetThreads: K8's batch-route block).
+TIER_NET_ROWS = 64
+
+
+def tier_net(warrays: Tensor, dims, x: Tensor, t=0.0, *, tiers,
+             activation: str = "tanh", final_activation: str = "identity",
+             input_power: int = 1, time_input: bool = False) -> Tensor:
+    """K4 on its own: one evaluation f(t, x) of the MLP with each layer at
+    its tier, batch-wide, as K2 and K8 evaluate a stage on their batch
+    route (csrc/tier_net_kernel.cu). The solves never call it: it holds K4
+    against its plain version and times it without a solve around it.
+
+    warrays/dims: from `pack_mlp_weights`; x: [B, D]; tiers: each layer's
+    dot precision (see `layer_tiers`). Returns f [B, D]. Two launches: the
+    bf16 weight pack and the evaluation; `tier_net_launches` counts one.
+    """
+    _check_activations(activation, final_activation)
+    if x.ndim != 2:
+        raise ValueError(f"x must be [B, D], got {tuple(x.shape)}")
+    if _device_kind(x, warrays) == "cpu":
+        return _net_plain(warrays, dims, activation, final_activation,
+                          input_power, time_input, tiers)(t, x)
+    global tier_net_launches
+    dtype = x.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"tier_net takes float32 or float64, got {dtype}")
+    B, D = x.shape
+    _check_mlp("tier_net", warrays, dims, D, time_input, tiers)
+    for name, v in (("x", x), ("warrays", warrays)):
+        _check_float(name, v, dtype)
+    out = torch.empty_like(x)
+    rows = -(-B // TIER_NET_ROWS) * TIER_NET_ROWS
+    n_work = _tier_work_bytes(dims, rows, x.element_size())
+    work = torch.empty(n_work, dtype=torch.uint8, device=x.device)
+    fn = (_build.library().tfd_tier_net_f32 if dtype == torch.float32
+          else _build.library().tfd_tier_net_f64)
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(warrays), _ptr(out), B, D, len(dims),
+                 _dims_arg(dims), _ACT_CODES[activation],
+                 _ACT_CODES[final_activation], int(input_power),
+                 int(time_input), float(t), _tiers_arg(tiers), _ptr(work),
+                 n_work, _stream(x.device))
+    _build.check(err, "tier_net launch")
+    tier_net_launches += 1
+    return out
 
 
 def _solve_setup(tau: Tensor, dt0, dtype):
@@ -480,13 +674,14 @@ def mlp_solve_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
                     input_power: int = 1, time_input: bool = False,
                     method: str = "dopri5", safety: float = 0.9,
                     ifactor: float = 10.0, dfactor: float = 0.2,
-                    max_steps: int = 2 ** 31 - 1) -> Tuple[Tensor, Tensor]:
+                    max_steps: int = 2 ** 31 - 1,
+                    tiers=None) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K2: a host loop of attempts that mirrors
     `_make_solve_kernel` line for line (one synchronisation per attempt).
     Same contract as `mlp_solve`, except that f0 is required."""
     sign_d = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     raw_f = _net_plain(warrays, dims, activation, final_activation,
-                       input_power, time_input)
+                       input_power, time_input, tiers)
 
     def f(s, y):
         # Canonical dynamics: g(tau, y) = sign * f(sign * tau, y).
@@ -592,8 +787,8 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
               final_activation: str = "identity", input_power: int = 1,
               time_input: bool = False, method: str = "dopri5",
               safety: float = 0.9, ifactor: float = 10.0,
-              dfactor: float = 0.2, max_steps: int = 2 ** 31 - 1
-              ) -> Tuple[Tensor, Tensor]:
+              dfactor: float = 0.2, max_steps: int = 2 ** 31 - 1,
+              tiers=None) -> Tuple[Tensor, Tensor]:
     """Whole-solve fused adaptive RK for a general MLP neural ODE: every
     stage evaluation, combine, error norm, controller decision and
     dense-output write of the solve runs in one kernel launch.
@@ -603,6 +798,10 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     entering as y ** input_power, an optional time column). `method`
     picks the tableau (dopri5, bosh3, adaptive_heun, tsit5, dopri8);
     tableaus that are not FSAL pay one more evaluation per attempt.
+    tiers: each layer's dot precision ('highest', 'mixed' or 'bf16'; see
+    `layer_tiers`), None for 'highest' everywhere; a reduced tier takes the
+    batch route (K4's layer products on the tensor cores in float32), two
+    launches: the bf16 weight pack, then the solve.
 
     y0: [B, D]; tau: [T] increasing canonical times (tau = sign * t);
     sign: +1 or -1; dt0: first step, clamped to the span-scaled minimum;
@@ -631,18 +830,15 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
             activation=activation, final_activation=final_activation,
             input_power=input_power, time_input=time_input, method=method,
             safety=safety, ifactor=ifactor, dfactor=dfactor,
-            max_steps=max_steps)
+            max_steps=max_steps, tiers=tiers)
 
-    global mlp_solve_launches
+    global mlp_solve_launches, dot_tier_launches
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"mlp_solve takes float32 or float64, got {dtype}")
     B, D = y0.shape
     T = tau.shape[0]
-    n_w = _check_mlp("mlp_solve", warrays, dims, D, time_input)
-    if n_w * y0.element_size() > MAX_WEIGHT_BYTES:
-        raise ValueError(f"mlp_solve: {n_w} weights exceed the "
-                         f"{MAX_WEIGHT_BYTES} bytes of shared memory "
-                         "the kernel gives them")
+    n_w = _check_mlp("mlp_solve", warrays, dims, D, time_input, tiers)
+    route = _route("mlp_solve", dims, n_w, y0.element_size(), tiers)
     if max_steps < 1:
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
     for name, x in (("y0", y0), ("f0", f0), ("warrays", warrays)):
@@ -659,6 +855,9 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
     work = torch.empty((S + 5) * B * D, dtype=dtype, device=y0.device)
+    n_batch = (_tier_work_bytes(dims, _pad16(B), y0.element_size())
+               if route == ROUTE_BATCH else 0)
+    batch_work = torch.empty(n_batch, dtype=torch.uint8, device=y0.device)
     lib = _build.library()
     fn = (lib.tfd_mlp_solve_f32 if dtype == torch.float32
           else lib.tfd_mlp_solve_f64)
@@ -673,7 +872,9 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
                  dims_c, _ACT_CODES[activation],
                  _ACT_CODES[final_activation], int(input_power),
                  int(time_input), S, tab.order, int(tab.fsal), c, a, b_sol,
-                 b_err, c_mid, _stream(y0.device))
+                 b_err, c_mid, route, _tiers_arg(tiers), _ptr(batch_work),
+                 n_batch, _stream(y0.device))
     _build.check(err, "mlp_solve launch")
     mlp_solve_launches += 1
+    dot_tier_launches += route == ROUTE_BATCH
     return out, stats

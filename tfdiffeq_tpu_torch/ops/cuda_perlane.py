@@ -23,8 +23,10 @@ takes every sample's steps exactly as its plain version does.
 
 `mlp_solve_perlane_launches` and `mlp_perlane_adjoint_solve_launches` count
 wrapper calls that launched their kernel; `reset_launch_counts()` zeroes
-them. Not ported: `rhs='cnf'` (K7), and the TPU machinery of the reference
-(lane padding, `n_blocks` grid blocks, `matmul`).
+them. Both take the narrow or wide route of `cuda_kernels._route`. Not
+ported: `rhs='cnf'` (K7), the reference's dot-precision tiers on the
+per-sample solve (`fast.solve_mlp_spec` refuses them), and the TPU machinery
+of the reference (lane padding, `n_blocks` grid blocks).
 """
 
 from __future__ import annotations
@@ -38,10 +40,10 @@ import torch
 from . import _build
 from .cuda_adjoint import _aug_eval_plain, _combine, _sq_scaled
 from .cuda_fixed import _block_sums
-from .cuda_kernels import (MAX_WEIGHT_BYTES, _ACT_CODES, _check_activations,
-                           _check_float, _check_mlp, _controller_factor,
-                           _device_kind, _dims_arg, _net_plain, _ptr,
-                           _rk_stages, _solve_setup, _stream, _tableau_args)
+from .cuda_kernels import (_ACT_CODES, _check_activations, _check_float,
+                           _check_mlp, _controller_factor, _device_kind,
+                           _dims_arg, _net_plain, _ptr, _rk_stages, _route,
+                           _solve_setup, _stream, _tableau_args)
 from .rk import interp_fit_cubic_hermite, interp_fit_quartic
 from .tableaus import TABLEAUS_BY_NAME
 
@@ -269,11 +271,8 @@ def mlp_solve_perlane(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
     B, D = y0.shape
     T = tau.shape[0]
     n_w = _check_mlp("mlp_solve_perlane", warrays, dims, D, time_input)
-    smem = (n_w + T) * y0.element_size()
-    if smem > MAX_WEIGHT_BYTES:
-        raise ValueError(f"mlp_solve_perlane: {n_w} weights and {T} output "
-                         f"times need {smem} bytes of shared memory, above "
-                         f"the {MAX_WEIGHT_BYTES} the kernel may use")
+    route = _route("mlp_solve_perlane", dims, n_w, y0.element_size(),
+                   input_values=T)
     for name, x in (("y0", y0), ("f0", f0), ("warrays", warrays)):
         _check_float(name, x, dtype)
     if f0.shape != y0.shape:
@@ -302,7 +301,7 @@ def mlp_solve_perlane(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
                  _dims_arg(dims), _ACT_CODES[activation],
                  _ACT_CODES[final_activation], int(input_power),
                  int(time_input), S, tab.order, int(tab.fsal), c, a, b_sol,
-                 b_err, c_mid, _stream(y0.device))
+                 b_err, c_mid, route, _stream(y0.device))
     _build.check(err, "mlp_solve_perlane launch")
     mlp_solve_perlane_launches += 1
     return out, stats, lane
@@ -492,11 +491,8 @@ def mlp_perlane_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     T, B, D = ys.shape
     n_w = _check_mlp("mlp_perlane_adjoint_solve", warrays, dims, D,
                      time_input)
-    smem = (n_w + PERLANE_THREADS) * ys.element_size()
-    if smem > MAX_WEIGHT_BYTES:
-        raise ValueError(f"mlp_perlane_adjoint_solve: {n_w} weights need "
-                         f"{smem} bytes of shared memory, above the "
-                         f"{MAX_WEIGHT_BYTES} the kernel may use")
+    route = _route("mlp_perlane_adjoint_solve", dims,
+                   n_w + PERLANE_THREADS, ys.element_size())
     for name, x in (("ys", ys), ("g", g), ("warrays", warrays)):
         _check_float(name, x, dtype)
 
@@ -527,7 +523,7 @@ def mlp_perlane_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                  int(min(max_steps, 2 ** 31 - 1)), len(dims),
                  _dims_arg(dims), _ACT_CODES[activation],
                  _ACT_CODES[final_activation], int(input_power),
-                 int(time_input), S, tab.order, c, a, b_sol, b_err,
+                 int(time_input), S, tab.order, c, a, b_sol, b_err, route,
                  _stream(ys.device))
     _build.check(err, "mlp_perlane_adjoint_solve launch")
     mlp_perlane_adjoint_solve_launches += 1
