@@ -144,6 +144,30 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     'mixed' against 'highest', the reference's NFE x passes model): the
     tier it picks and the NFEs.
 
+22. K7's forward in K2 (`mlp_solve(rhs='cnf')`) at BASELINE.md:83's CNF
+    configuration: the 3 -> 32 -> 32 -> 2 tanh flow (`CNFDynamics` from a
+    seeded generator), 4096 two-moons points, t = [1, 0], dopri5 at rtol
+    1e-5, atol 1e-7, f0 and the first step as `fast.cnf_log_prob_fused`
+    makes them: against its plain version in float32 and float64 (bitwise,
+    identical stats), run to run bitwise. `fast.cnf_log_prob_fused`: one K2
+    launch with K7 (counters zeroed before, read after), status 0, within
+    1e-4 of the generic `models.cnf.log_prob(trace='exact')` on the card.
+    The kernel (CUDA events), its plain version (host clock), the entry
+    point and the generic path timed; the bound from the run's NFE.
+23. K7's adjoint in K3 (`mlp_adjoint_solve(rhs='cnf')`) on [22]'s
+    trajectory with g = d(-mean log p)/d out, B = 4096: against its plain
+    version in float64 and float32 (bitwise, identical stats; one K3 launch
+    each), run to run bitwise; timed with its bound. One
+    `fast.cnf_log_prob_train` step at B = 4096: two chunks of 2048, so two
+    K2 and two K3 launches, both with K7; its gradients within 1e-3
+    relative of autograd through the generic `models.cnf.log_prob`; both
+    steps timed on the host clock.
+24. Three Adam steps of `examples/cnf.py --fused` at its defaults (B = 512
+    two moons, hidden 64, lr 1e-3, 256 attempts at most): one K2 and one K3
+    with K7 a step, finite NLL and gradients; the median step time; then
+    `fast.cnf_sample_fused` of 1000 points: one K2 of the plain concat-t
+    MLP, finite.
+
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
 from its plain version, its time and its plain version's, and its bound,
@@ -152,7 +176,11 @@ larger of its operations over the float32 peak of 67 TFLOP/s, or for K4's
 tier products the bf16 tensor-core peak of 989 TFLOP/s, and the bytes it
 must read and write once over 3.35 TB/s). No single PyTorch call computes
 any of these whole solves, steps or sweeps, so library_ms is null but for
-K4. The MLP kernels' records also carry their wide-route time (`wide_ms`,
+K4. K7 has two records, its forward in K2 (`cnf_forward`, launches in
+[24]'s steps) and its adjoint in K3 (`cnf_adjoint`), each with the
+nearest library-built path's time beside it: the generic engine with
+autograd's exact trace (`generic_engine_ms`, the density solve;
+`generic_train_step_ms`, a training step). The MLP kernels' records also carry their wide-route time (`wide_ms`,
 phases 18-20), and K2's and K8's records their 'highest' time on the batch
 route (`wide_batch_route_ms`). The run's total time is printed before them. The last line
 is {"ok": true, "device": {...}}.
@@ -707,6 +735,302 @@ def _wide_tier(smi: str, dev) -> dict:
           f"(nfe x DOT_PASSES) "
           f"{ {k: v * fast.DOT_PASSES[k] for k, v in nfes.items()} }",
           flush=True)
+    return rec
+
+
+#: BASELINE.md:83 and :114: the 2-D flow 3 -> 32 -> 32 -> 2 (tanh), 4096
+#: points, t = [1, 0], dopri5 at rtol 1e-5, atol 1e-7.
+CNF_D, CNF_H, CNF_B, CNF_RTOL, CNF_ATOL = 2, 32, 4096, 1e-5, 1e-7
+
+
+def _cnf_eval_flops(dims) -> int:
+    """One K7 forward evaluation for one sample: the flow (`_mlp_flops`)
+    and D forward-mode passes (a multiply by act' on the first layer's
+    outputs; a multiply and an add a weight and a multiply by act' on each
+    hidden layer; one output of the last layer), and the divergence's
+    adds."""
+    D = dims[-1][1]
+    jvp = dims[0][1] + sum(2 * i * o + o for i, o in dims[1:-1]) \
+        + 2 * dims[-1][0]
+    return _mlp_flops(dims) + D * (jvp + 1)
+
+
+def _cnf_stage_flops(dims) -> int:
+    """One K7 adjoint stage for one sample: the forward with act'' (about
+    the flow's operations plus 2 an output), the D passes, part A's VJP (a
+    multiply and an add a weight, a multiply an output), part B's D reverse
+    passes and the delta injection (as many again each), and the sample's
+    share of each weight's batch sum: 2 D + 3 multiplies and adds a
+    weight."""
+    D = dims[-1][1]
+    n_mac = sum(i * o for i, o in dims)
+    n_out = sum(o for _, o in dims)
+    n_w = n_mac + n_out
+    jvp = _cnf_eval_flops(dims) - _mlp_flops(dims)
+    return (_mlp_flops(dims) + 2 * n_out + jvp + (D + 2) * (2 * n_mac + n_out)
+            + 2 * (2 * D + 3) * n_w)
+
+
+def _cnf_tier(smi: str, dev) -> dict:
+    """Phases 22-24: the CNF path (K7 in K2 and K3). Returns the numbers
+    that the kernel records take."""
+    import torch
+    from tfdiffeq_tpu_torch import NFEMeter, fast
+    from tfdiffeq_tpu_torch.examples import cnf as cnf_example
+    from tfdiffeq_tpu_torch.models import cnf as mcnf
+    from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, cuda_kernels as ck
+    from tfdiffeq_tpu_torch.ops.tableaus import DOPRI5
+    f32, f64 = torch.float32, torch.float64
+    D, B = CNF_D, CNF_B
+    rec = {}
+    flow = mcnf.CNFDynamics(D, CNF_H, 3, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    x_np = cnf_example.two_moons(B, np.random.RandomState(0))
+    W32 = [(w.detach(), b.detach()) for w, b in fast.weights_from_linears(flow)]
+    dims = tuple((w.shape[0], w.shape[1]) for w, _ in W32)
+
+    def inputs(dtype):
+        """(packed, dims, state0, tau, sign, f0, dt0) of the density solve at
+        dtype, as `fast._cnf_forward_solve` builds them."""
+        W = [(w.to(dtype), b.to(dtype)) for w, b in W32]
+        x = torch.tensor(x_np, dtype=dtype, device=dev)
+        spec = fast.MLPSpec(activation="tanh", time_input=True)
+        aug = mcnf.augmented_dynamics(
+            lambda tt, zz: fast.mlp_apply(spec, W, zz, tt), trace="exact")
+        s0 = torch.cat([x, torch.zeros(B, 1, dtype=dtype, device=dev)], 1)
+        tau = torch.tensor([-1.0, 0.0], dtype=dtype)
+
+        def g(s, st):
+            dz, dl = aug(-s, (st[:, :D], st[:, D]))
+            return -torch.cat([dz, dl[:, None]], 1)
+
+        with torch.no_grad():
+            f0 = g(tau[0].to(dev), s0).contiguous()
+            dt0 = fast.select_initial_step(
+                g, tau[0].to(dev), s0, f0, DOPRI5.order - 1,
+                torch.tensor(CNF_RTOL, dtype=dtype, device=dev),
+                torch.tensor(CNF_ATOL, dtype=dtype, device=dev))
+        packed, _ = ck.pack_mlp_weights(W, dtype, dev)
+        return W, x, (packed, dims, s0, tau, dt0, CNF_RTOL, CNF_ATOL, -1.0), \
+            dict(f0=f0, activation="tanh", time_input=True, rhs="cnf")
+
+    # [22] K7's forward in K2 against its plain version.
+    k2_out, k2_args = {}, {}
+    for dtype in (f32, f64):
+        W, x, args, kw = inputs(dtype)
+        k2_args[dtype] = (args, kw)
+        out, st = ck.mlp_solve(*args, **kw)
+        again, st2 = ck.mlp_solve(*args, **kw)
+        (ref, st_r), plain_ms = _host_call(lambda: ck.mlp_solve_plain(*args,
+                                                                     **kw))
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref) and st.tolist() == st_r.tolist()
+        bitwise = torch.equal(out, again) and torch.equal(st, st2)
+        err = float((out - ref).abs().max())
+        print(f"[22] K7 forward (K2 rhs='cnf') {dtype}, B = {B}, flow {dims}: "
+              f"kernel stats {st.tolist()}, plain {st_r.tolist()}; max "
+              f"|kernel - plain| {err:.3e}; bitwise equal to plain: {same}; "
+              f"two kernel runs bitwise equal: {bitwise}", flush=True)
+        if not (same and bitwise) or st[3].item() != 0 \
+                or not torch.isfinite(out).all():
+            raise AssertionError(f"K7 forward {dtype} differs from its plain "
+                                 "version or failed")
+        k2_out[dtype] = (out, st.tolist())
+        if dtype == f32:
+            rec["fwd_err"], rec["fwd_plain_ms"] = err, plain_ms
+    # The public entry point against the generic engine's exact trace.
+    W, x, args, kw = inputs(f32)
+    ck.reset_launch_counts()
+    lp, st = fast.cnf_log_prob_fused(W, x, rtol=CNF_RTOL, atol=CNF_ATOL)
+    torch.cuda.synchronize()
+    fwd_launches = {"mlp_solve": ck.mlp_solve_launches,
+                    "cnf_solve": ck.cnf_solve_launches}
+    with torch.no_grad():
+        lp_g = mcnf.log_prob(flow, x, rtol=CNF_RTOL, atol=CNF_ATOL,
+                             trace="exact")
+    gap = float((lp - lp_g).abs().max())
+    print(f"[22] fast.cnf_log_prob_fused: stats {st}, launches "
+          f"{fwd_launches}; max |fused - generic log_prob(trace='exact')| "
+          f"{gap:.3e} (bar 1e-4)", flush=True)
+    if fwd_launches != {"mlp_solve": 1, "cnf_solve": 1} or st.status != 0:
+        raise AssertionError(f"cnf_log_prob_fused launches {fwd_launches}, "
+                             f"stats {st}")
+    if gap > 1e-4 or lp.shape != (B,) or not torch.isfinite(lp).all():
+        raise AssertionError("cnf_log_prob_fused differs from the generic "
+                             "log_prob")
+    args, kw = k2_args[f32]
+    fwd_ms = _timed(lambda: ck.mlp_solve(*args, **kw))
+    fused_ms = _timed(lambda: fast.cnf_log_prob_fused(
+        W, x, rtol=CNF_RTOL, atol=CNF_ATOL), reps=3)
+    with torch.no_grad():
+        gen_ms = _timed(lambda: mcnf.log_prob(flow, x, rtol=CNF_RTOL,
+                                              atol=CNF_ATOL), reps=3)
+    nfe, acc, rej, _ = k2_out[f32][1]
+    n_w = sum(i * o + o for i, o in dims)
+    rec["fwd_bound"] = _bound(
+        B * (nfe * _cnf_eval_flops(dims)
+             + (acc + rej) * (D + 1) * _combine_flops(DOPRI5)),
+        4 * (2 * 2 * B * (D + 1) + n_w + 2))
+    rec.update(fwd_ms=fwd_ms, fwd_generic_ms=gen_ms)
+    print(f"[22] {smi}: K7 forward in K2 {fwd_ms:.3f} ms a density solve "
+          f"(B = {B}, float32, nfe {nfe}, {acc + rej} attempts) vs plain "
+          f"{rec['fwd_plain_ms']:.3f} ms; fast.cnf_log_prob_fused "
+          f"{fused_ms:.3f} ms (with f0 and the first step); generic "
+          f"log_prob(trace='exact') {gen_ms:.3f} ms; bound "
+          f"{rec['fwd_bound'][0]:.4f} ms ({rec['fwd_bound'][1]}, "
+          f"{_cnf_eval_flops(dims)} operations an evaluation)", flush=True)
+
+    # [23] K7's adjoint in K3 on [22]'s trajectory, g = d(-mean log p)/dout.
+    k3_args = {}
+    for dtype in (f64, f32):
+        out = k2_out[dtype][0]
+        g = torch.zeros_like(out)
+        g[-1, :, :D] = out[-1, :, :D] / B
+        g[-1, :, D] = 1.0 / B
+        args = (k2_args[dtype][0][0], dims, out.contiguous(), g,
+                torch.tensor([-1.0, 0.0], dtype=dtype), 0.1, CNF_RTOL,
+                CNF_ATOL, -1.0)
+        kw = dict(activation="tanh", rhs="cnf")
+        k3_args[dtype] = (args, kw)
+        ca.reset_launch_counts()
+        got = ca.mlp_adjoint_solve(*args, **kw)
+        torch.cuda.synchronize()
+        sweep_launches = ca.cnf_adjoint_launches
+        again = ca.mlp_adjoint_solve(*args, **kw)
+        ref, plain_ms = _host_call(lambda: ca.mlp_adjoint_solve_plain(*args,
+                                                                     **kw))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
+        print(f"[23] K7 adjoint (K3 rhs='cnf') {dtype}, B = {B}: kernel stats "
+              f"{got[3].tolist()}, plain {ref[3].tolist()}; max |kernel - "
+              f"plain| {err:.3e}; bitwise equal to plain: {same}; two kernel "
+              f"runs bitwise equal: {bitwise}; K3 launches {sweep_launches}",
+              flush=True)
+        if not (same and bitwise) or got[3][3].item() != 0 or sweep_launches \
+                != 1 or not all(torch.isfinite(v).all() for v in got[:3]):
+            raise AssertionError(f"K7 adjoint {dtype} differs from its plain "
+                                 "version or failed")
+        if dtype == f32:
+            rec.update(adj_err=err, adj_plain_ms=plain_ms,
+                       adj_stats=got[3].tolist())
+    args, kw = k3_args[f32]
+    adj_ms = _timed(lambda: ca.mlp_adjoint_solve(*args, **kw), reps=3)
+    nfe_b = rec["adj_stats"][0]
+    rec["adj_bound"] = _bound(B * nfe_b * _cnf_stage_flops(dims),
+                              4 * (2 * 2 * B * (D + 1) + B * (D + 1)
+                                   + 2 * n_w + 2))
+    rec["adj_ms"] = adj_ms
+    print(f"[23] {smi}: K7 adjoint in K3 {adj_ms:.3f} ms a sweep (B = {B}, "
+          f"float32, {nfe_b} stages, {rec['adj_stats'][1]} accepted) vs plain "
+          f"{rec['adj_plain_ms']:.3f} ms; bound {rec['adj_bound'][0]:.4f} ms "
+          f"({rec['adj_bound'][1]}, {_cnf_stage_flops(dims)} operations a "
+          f"sample and stage)", flush=True)
+
+    # A training step at B = 4096 (two chunks of 2048) against autograd
+    # through the generic engine.
+    b_max = fast.cnf_train_block_size(D, [o for _, o in dims])
+    Wg = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+          for w, b in W32]
+    meter = NFEMeter()
+
+    def fused_step():
+        loss = -torch.mean(fast.cnf_log_prob_train(
+            Wg, x, rtol=CNF_RTOL, atol=CNF_ATOL, nfe_meter=meter))
+        loss.backward()
+        return loss
+
+    for mod in (ck, ca):
+        mod.reset_launch_counts()
+    _, train_ms = _host_call(fused_step)
+    train_launches = {"mlp_solve": ck.mlp_solve_launches,
+                      "cnf_solve": ck.cnf_solve_launches,
+                      "mlp_adjoint_solve": ca.mlp_adjoint_solve_launches,
+                      "cnf_adjoint": ca.cnf_adjoint_launches}
+    fused_g = [v.grad.clone() for pair in Wg for v in pair]
+    gflow = mcnf.CNFDynamics(D, CNF_H, 3, device=dev)
+    with torch.no_grad():
+        for layer, (w, b) in zip(gflow.layers, W32):
+            layer.weight.copy_(w.t())
+            layer.bias.copy_(b)
+
+    def generic_step():
+        loss = -torch.mean(mcnf.log_prob(gflow, x, rtol=CNF_RTOL,
+                                         atol=CNF_ATOL))
+        loss.backward()
+
+    _, gen_train_ms = _host_call(generic_step)
+    gen_g = [v for layer in gflow.layers
+             for v in (layer.weight.grad.t(), layer.bias.grad)]
+    gap = max(_rel(a, b) for a, b in zip(fused_g, gen_g))
+    print(f"[23] cnf_log_prob_train step at B = {B} (chunks of {b_max}): "
+          f"launches {train_launches}; NFE forward {meter.f_nfe}, backward "
+          f"{meter.b_nfe}; gradients against autograd through the generic "
+          f"log_prob {gap:.3e} relative (bar 1e-3)", flush=True)
+    print(f"[23] {smi}: training step {train_ms:.3f} ms (K2 + K3 a chunk) "
+          f"vs generic engine + autograd {gen_train_ms:.3f} ms (host clock, "
+          "one step each)", flush=True)
+    if train_launches != {"mlp_solve": 2, "cnf_solve": 2,
+                          "mlp_adjoint_solve": 2, "cnf_adjoint": 2}:
+        raise AssertionError(f"training launches {train_launches}")
+    if gap > 1e-3 or not all(torch.isfinite(v).all() for v in fused_g):
+        raise AssertionError("fused CNF gradients differ from the generic")
+    rec["gen_train_ms"] = gen_train_ms
+
+    # [24] the example: three Adam steps of examples/cnf.py --fused.
+    eargs = cnf_example.parse_args(["--fused", "--device", "cuda"])
+    rng = np.random.RandomState(eargs.seed)
+    eflow = mcnf.CNFDynamics(D, eargs.hidden, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(eflow.parameters(), lr=eargs.lr)
+    emeter = NFEMeter()
+    nll = cnf_example.make_nll(eargs, eflow, nfe_meter=emeter)
+    losses = []
+
+    def adam_step():
+        xb = torch.tensor(cnf_example.two_moons(eargs.batch_size, rng),
+                          device=dev)
+        opt.zero_grad(set_to_none=True)
+        loss = nll(xb)
+        loss.backward()
+        for q in eflow.parameters():
+            if not torch.isfinite(q.grad).all():
+                raise AssertionError("non-finite CNF gradient (a failed "
+                                     "backward sweep)")
+        opt.step()
+        losses.append(float(loss.detach()))
+
+    for mod in (ck, ca):
+        mod.reset_launch_counts()
+    ex_ms, ex_all = _host_ms(adam_step, reps=TRAIN_STEPS)
+    ex_launches = {"cnf_solve": ck.cnf_solve_launches,
+                   "cnf_adjoint": ca.cnf_adjoint_launches}
+    print(f"[24] examples/cnf.py --fused x{TRAIN_STEPS} (B = "
+          f"{eargs.batch_size}, hidden {eargs.hidden}): launches "
+          f"{ex_launches}; NLL {', '.join(f'{v:.4f}' for v in losses)}; NFE "
+          f"forward {emeter.f_nfe}, backward {emeter.b_nfe}", flush=True)
+    print(f"[24] {smi}: CNF example step {ex_ms:.3f} ms median of "
+          f"{TRAIN_STEPS} ({', '.join(f'{v:.3f}' for v in ex_all)})",
+          flush=True)
+    if ex_launches != {"cnf_solve": TRAIN_STEPS,
+                       "cnf_adjoint": TRAIN_STEPS}:
+        raise AssertionError(f"CNF example launches {ex_launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"CNF example losses {losses}")
+    ck.reset_launch_counts()
+    ew = [(m.weight.detach().t().contiguous(), m.bias.detach())
+          for m in eflow.layers]
+    xs = fast.cnf_sample_fused(ew, torch.Generator(device=dev).manual_seed(1),
+                               1000, D, rtol=eargs.rtol, atol=eargs.atol)
+    torch.cuda.synchronize()
+    print(f"[24] cnf_sample_fused of 1000: launches {ck.mlp_solve_launches} "
+          f"K2 (the concat-t MLP, no K7: {ck.cnf_solve_launches}); mean "
+          f"{xs.mean(0).tolist()}, std {xs.std(0).tolist()}", flush=True)
+    if ck.mlp_solve_launches != 1 or xs.shape != (1000, D) \
+            or not torch.isfinite(xs).all():
+        raise AssertionError("cnf_sample_fused failed")
+    rec.update(ex_ms=ex_ms, ex_launches=ex_launches)
     return rec
 
 
@@ -1564,6 +1888,7 @@ def main() -> int:
           f"the samples)", flush=True)
 
     wide = _wide_tier(smi, dev)
+    cnf = _cnf_tier(smi, dev)
 
     # Bounds: the operations and bytes of each timed run's inputs.
     mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
@@ -1669,6 +1994,22 @@ def main() -> int:
          "ms": wide["k4_ms"], "plain_ms": wide["k4_plain_ms"],
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": wide["k4_library_ms"]},
+        {"name": "cnf_forward", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/cnf_net.cuh",
+         "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:442",
+         "launches": cnf["ex_launches"]["cnf_solve"],
+         "max_abs_err": cnf["fwd_err"], "ms": cnf["fwd_ms"],
+         "plain_ms": cnf["fwd_plain_ms"], "bound_ms": cnf["fwd_bound"][0],
+         "bound_by": cnf["fwd_bound"][1], "library_ms": None,
+         "generic_engine_ms": cnf["fwd_generic_ms"]},
+        {"name": "cnf_adjoint", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/cnf_net.cuh",
+         "replaces": "tfdiffeq_tpu/ops/pallas_adjoint.py:240",
+         "launches": cnf["ex_launches"]["cnf_adjoint"],
+         "max_abs_err": cnf["adj_err"], "ms": cnf["adj_ms"],
+         "plain_ms": cnf["adj_plain_ms"], "bound_ms": cnf["adj_bound"][0],
+         "bound_by": cnf["adj_bound"][1], "library_ms": None,
+         "generic_train_step_ms": cnf["gen_train_ms"]},
     ]
     wide_ms = {"mlp_solve": wide["k2_highest"][0],
                "mlp_adjoint_solve": wide["K3_wide"],

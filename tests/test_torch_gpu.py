@@ -40,7 +40,9 @@ to the tier's own error (1e-2), so one K2 step is held instead, far nearer
 its own tier's plain version than the others'. Each float32 tier is also
 held against the other tiers' plain versions, where it must fail its bar.
 K4 alone (`tier_net`): the largest and mean gap of one evaluation
-(chip_smoke.py EVAL_BARS).
+(chip_smoke.py EVAL_BARS). K7, the CNF right-hand side in K2 and its
+second-order adjoint in K3 (rhs='cnf'), narrow and wide: bitwise equal to
+their plain versions in both types, with identical stats.
 """
 
 import numpy as np
@@ -911,3 +913,97 @@ def test_wide_mixed_training_step(cuda):
     assert ca.mlp_adjoint_solve_launches == 1
     for w, b in W:
         assert torch.isfinite(w.grad).all() and torch.isfinite(b.grad).all()
+
+
+def _cnf_case(device, dtype, H, B, seed=31):
+    """A concat-t flow 3 -> H -> H -> 2 and the CNF state [z; 0] at B
+    samples, integrated from t = 1 to 0 (tau = [-1, -0.5, 0], sign -1)."""
+    rng = np.random.RandomState(seed)
+    W = [(torch.tensor(rng.randn(i, o) * 0.6 / np.sqrt(i), dtype=dtype,
+                       device=device),
+          torch.tensor(rng.randn(o) * 0.1, dtype=dtype, device=device))
+         for i, o in ((3, H), (H, H), (H, 2))]
+    packed, dims = ck.pack_mlp_weights(W, dtype, device)
+    s0 = torch.cat([torch.tensor(rng.randn(B, 2), dtype=dtype, device=device),
+                    torch.zeros(B, 1, dtype=dtype, device=device)], dim=1)
+    tau = torch.tensor([-1.0, -0.5, 0.0], dtype=dtype)
+    f0 = -ck._cnf_net_plain(packed, dims, "tanh")(
+        torch.tensor(1.0, dtype=dtype, device=device), s0)
+    return W, packed, dims, s0, tau, f0.contiguous()
+
+
+@pytest.mark.parametrize("H,B,route", [(64, 96, ck.ROUTE_NARROW),
+                                       (144, 40, ck.ROUTE_WIDE)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cnf_kernels_match_plain(cuda, dtype, H, B, route):
+    """K7's forward in K2 and its adjoint in K3 (rhs='cnf'), narrow and wide:
+    bitwise equal to their plain versions with identical stats."""
+    _, packed, dims, s0, tau, f0 = _cnf_case(cuda, dtype, H, B)
+    assert ck._route("t", dims, packed.numel(), s0.element_size()) == route
+    args = (packed, dims, s0, tau, 0.05, 1e-5, 1e-7, -1.0)
+    kw = dict(f0=f0, activation="tanh", time_input=True, rhs="cnf")
+    out, st = ck.mlp_solve(*args, **kw)
+    ref, st_r = ck.mlp_solve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert st.tolist() == st_r.tolist() and st[3].item() == 0
+    assert torch.equal(out, ref)
+    assert ck.mlp_solve_launches == ck.cnf_solve_launches == 1
+    g = torch.tensor(np.random.RandomState(32).randn(*out.shape),
+                     dtype=dtype, device=cuda)
+    aargs = (packed, dims, out.contiguous(), g, tau, 0.05, 1e-5, 1e-7, -1.0)
+    got = ca.mlp_adjoint_solve(*aargs, activation="tanh", rhs="cnf")
+    want = ca.mlp_adjoint_solve_plain(*aargs, activation="tanh", rhs="cnf")
+    torch.cuda.synchronize()
+    assert got[3].tolist() == want[3].tolist() and got[3][3].item() == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert ca.mlp_adjoint_solve_launches == ca.cnf_adjoint_launches == 1
+
+
+def test_cnf_wrappers_raise_instead_of_falling_back(cuda):
+    """A flow wider than MAX_WIDTH and a state that is not [z; logp] for
+    the flow raise on the card; nothing launches, no plain version runs."""
+    _, packed, dims, s0, tau, f0 = _cnf_case(cuda, torch.float32, 8, 16)
+    warr, wide = ck.pack_mlp_weights(
+        [(torch.zeros(3, 513), None), (torch.zeros(513, 2), None)],
+        torch.float32, cuda)
+    with pytest.raises(ValueError, match="MAX_WIDTH"):
+        ck.mlp_solve(warr, wide, s0, tau, 0.1, 1e-5, 1e-7, -1.0, f0=f0,
+                     rhs="cnf")
+    ys = torch.zeros(3, 16, 3, device=cuda)
+    with pytest.raises(ValueError, match="MAX_WIDTH"):
+        ca.mlp_adjoint_solve(warr, wide, ys, ys, tau, 0.1, 1e-5, 1e-7, -1.0,
+                             rhs="cnf")
+    s4 = torch.zeros(16, 4, device=cuda)
+    with pytest.raises(ValueError, match="rhs='cnf'"):
+        ck.mlp_solve(packed, dims, s4, tau, 0.1, 1e-5, 1e-7, -1.0, f0=s4,
+                     rhs="cnf")
+    with pytest.raises(ValueError, match="rhs='cnf'"):
+        ca.mlp_adjoint_solve(packed, dims, ys[..., :2].contiguous(),
+                             ys[..., :2].contiguous(), tau, 0.1, 1e-5, 1e-7,
+                             -1.0, rhs="cnf")
+    assert ck.mlp_solve_launches == ca.mlp_adjoint_solve_launches == 0
+
+
+def test_cnf_entry_points_launch_k7(cuda):
+    """fast.cnf_log_prob_fused is one K2 launch with K7's forward,
+    cnf_log_prob_train one K2 and one K3 with K7 (a chunk), and
+    cnf_sample_fused one K2 of the plain concat-t MLP."""
+    W, _, _, s0, _, _ = _cnf_case(cuda, torch.float32, 16, 64)
+    x = s0[:, :2].contiguous()
+    lp, st = fast.cnf_log_prob_fused(W, x)
+    assert st.status == 0 and torch.isfinite(lp).all()
+    assert ck.mlp_solve_launches == ck.cnf_solve_launches == 1
+    ck.reset_launch_counts()
+    Wg = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+          for w, b in W]
+    lp2 = fast.cnf_log_prob_train(Wg, x)
+    torch.testing.assert_close(lp2.detach(), lp, rtol=0.0, atol=0.0)
+    (-lp2.mean()).backward()
+    assert ck.cnf_solve_launches == ca.cnf_adjoint_launches == 1
+    assert all(torch.isfinite(v.grad).all() for pair in Wg for v in pair)
+    ck.reset_launch_counts()
+    xs = fast.cnf_sample_fused(W, torch.Generator(device=cuda).manual_seed(0),
+                               32, 2)
+    assert ck.mlp_solve_launches == 1 and ck.cnf_solve_launches == 0
+    assert xs.shape == (32, 2) and torch.isfinite(xs).all()

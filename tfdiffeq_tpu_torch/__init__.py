@@ -8,9 +8,10 @@ Public surface: `odeint` and `solve` over the adaptive RK methods in
 `SOLVERS`, with `SolveResult`, `SolverStats` and `Status`; `odeint_adjoint`
 for O(1)-memory gradients, with `NFEMeter` counting forward and backward
 evaluations. The fused tier (`tfdiffeq_tpu_torch.fast`) runs a whole MLP
-neural-ODE solve, a whole adjoint backward sweep, and a whole solve of the
-ODE-Net's conv dynamics, each as one hand-written CUDA kernel on an NVIDIA
-Hopper card.
+neural-ODE solve, a whole adjoint backward sweep, a whole solve of the
+ODE-Net's conv dynamics, and a continuous normalizing flow's density and
+training (`fast.cnf_*`, with `models.cnf`), each as one hand-written CUDA
+kernel on an NVIDIA Hopper card.
 """
 
 from .adjoint import odeint_adjoint

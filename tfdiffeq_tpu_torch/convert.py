@@ -12,6 +12,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .models.cnf import CNFDynamics
 from .models.dynamics import ODEFunc
 from .models.latent_ode import Decoder, LatentODEFunc, RecognitionRNN
 from .models.odenet import ODEBlock, ODEConvFunc, ODENetMNIST
@@ -59,6 +60,26 @@ def ode_func_from_flax(np_variables: dict, device=None,
             layer.weight.copy_(_t(params[name]["kernel"], device, dtype).t())
             layer.bias.copy_(_t(params[name]["bias"], device, dtype))
     return func
+
+
+def cnf_from_flax(np_variables: dict, device=None,
+                  dtype=torch.float32) -> CNFDynamics:
+    """A port `CNFDynamics` holding the weights of the flax `CNFDynamics`
+    (`params` -> `Dense_0` .. `Dense_{depth-1}` -> `kernel` [din, dout],
+    `bias`), given as numpy; dim, hidden and depth are read from the
+    arrays."""
+    params = np_variables.get("params", np_variables)
+    depth = sum(1 for k in params if k.startswith("Dense_"))
+    k0 = np.asarray(params["Dense_0"]["kernel"])
+    dim = np.asarray(params[f"Dense_{depth - 1}"]["kernel"]).shape[1]
+    if k0.shape[0] != dim + 1:
+        raise ValueError(f"Dense_0 takes {k0.shape[0]} inputs, the flow "
+                         f"gives {dim} outputs: not a concat-t CNFDynamics")
+    flow = CNFDynamics(dim, k0.shape[1], depth, device=device, dtype=dtype)
+    for i, layer in enumerate(flow.layers):
+        dense = params[f"Dense_{i}"]
+        _load_linear(layer, dense["kernel"], dense["bias"], device, dtype)
+    return flow
 
 
 def _load_linear(layer: torch.nn.Linear, kernel, bias, device, dtype):

@@ -56,7 +56,17 @@
 // increment and the stage cotangents in global memory (`pwork`, L2-resident:
 // 3.7 MB at the wide MLP 128 -> 256 -> 256 -> 128 with dopri5). The sums
 // keep their order, so both routes give the same bits.
-#include "mlp_rk.cuh"
+//
+// rhs = cnf (K7's adjoint, csrc/cnf_net.cuh, replacing pallas_adjoint.py:240
+// _make_cnf_aug_eval at :1088-1131): the sweep of the augmented FFJORD
+// system, the state [z; logp] of D + 1 values and the network the concat-t
+// flow (time_input forced). Phase A runs cnf_aug_eval for each owned
+// sample, which writes the sample's rows of the layers' inputs, act',
+// act'', the passes' v, u and vb, part A's cotangents and the deltas; phase
+// B takes each weight's batch sum of cnf_weight_x, the sample's cotangent
+// in one fixed order (2 D + 4 workspace reads a sample), in K3's lane and
+// tree order, without atomics, as the plain version repeats.
+#include "cnf_net.cuh"
 
 namespace tfd {
 
@@ -116,14 +126,31 @@ __device__ __forceinline__ T batch_sum(const T* __restrict__ xa,
   return warp_tree_sum(acc);
 }
 
-template <typename T, int kRoute>
+// The same order for x(b) given by a function of the sample.
+template <typename T, typename Fn>
+__device__ __forceinline__ T batch_sum_of(Fn x, int B, int lane) {
+  T acc = T(0);
+  for (int b0 = lane; b0 < B; b0 += kUnroll * kWarp) {
+    T v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int b = b0 + u * kWarp;
+      v[u] = b < B ? x(b) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc = acc + v[u];
+  }
+  return warp_tree_sum(acc);
+}
+
+template <typename T, int kRoute, bool kCnf>
 __global__ void __launch_bounds__(kAdjThreads, 1)
     mlp_adjoint_kernel(const T* __restrict__ tau, const T* __restrict__ ys,
                        const T* __restrict__ g, const T* __restrict__ wg,
                        T* __restrict__ ay0_out, T* __restrict__ aw_out,
                        T* __restrict__ at_out, int* __restrict__ stats,
                        T* __restrict__ work, T* __restrict__ pwork,
-                       int n_weights, Net net_in, Rows rows_in,
+                       int n_weights, Net net_in, Rows rows_in, CnfRows cr,
                        Tableau<T> tab_in, AdjScalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Net net;
@@ -185,7 +212,8 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
   T* __restrict__ H = KAY + S * BD;        // [rows][B] layer inputs
   T* __restrict__ G = H + long(n_h) * B;   // [rows][B] act'(z)
   T* __restrict__ DZ = G + long(n_z) * B;  // [rows][B] cotangents of z
-  T* __restrict__ VT = DZ + long(n_z) * B; // [B] a_y . df/dt
+  T* __restrict__ VT =                     // [B] a_y . df/dt
+      kCnf ? H + long(cr.vt) * B : DZ + long(n_z) * B;
 
   // Per-thread vectors of one sample (local memory).
   constexpr int kW = vec_width<kRoute>();
@@ -239,6 +267,11 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
             }
             ya[d] = yv;
             aya[d] = av;
+          }
+          if constexpr (kCnf) {
+            cnf_aug_eval(net, cr, w, t_user, ya, aya, buf_a, buf_b, H, B, b,
+                         KY + st * BD + base, KAY + st * BD + base, sf);
+            continue;
           }
           // Forward, keeping each layer's input and act'(z) (the VJP
           // needs nothing else of z).
@@ -316,6 +349,18 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
           T acc;
           if (r >= n_w) {
             acc = batch_sum<T, false>(VT, nullptr, B, lane);
+          } else if constexpr (kCnf) {
+            int l = 0;
+            while (l + 1 < L && r >= net.w_off[l + 1]) ++l;
+            const bool weight = r < net.b_off[l];
+            const int idx = weight ? r - net.w_off[l] : r - net.b_off[l];
+            const int o = weight ? idx / net.din[l] : idx;
+            const int k = weight ? idx % net.din[l] : -1;
+            acc = batch_sum_of<T>(
+                [&](int b) {
+                  return cnf_weight_x<T>(net, cr, H, l, o, k, B, b);
+                },
+                B, lane);
           } else {
             int l = 0;
             while (l + 1 < L && r >= net.w_off[l + 1]) ++l;
@@ -497,13 +542,14 @@ inline long adjoint_pwork_size(int n_w, int S, int ti) {
   return 2 * long(n_w) + long(S) * (n_w + ti);
 }
 
-template <typename T, int kRoute>
+template <typename T, int kRoute, bool kCnf>
 cudaError_t launch_adjoint_route(const void* tau, const void* ys,
                                  const void* g, const void* weights,
                                  void* ay0, void* aw, void* at, void* stats,
                                  void* work, void* pwork, int n_w,
                                  int threads, const Net& net,
-                                 const Rows& rows, const Tableau<T>& tab,
+                                 const Rows& rows, const CnfRows& cr,
+                                 const Tableau<T>& tab,
                                  const AdjScalars<T>& sc,
                                  cudaStream_t stream) {
   const int S = tab.S, ti = net.time_input;
@@ -512,7 +558,7 @@ cudaError_t launch_adjoint_route(const void* tau, const void* ys,
                         ? size_t(3 + S) * n_w + size_t(S) * ti
                         : 0) +
                    threads);
-  auto kernel = mlp_adjoint_kernel<T, kRoute>;
+  auto kernel = mlp_adjoint_kernel<T, kRoute, kCnf>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
@@ -521,7 +567,7 @@ cudaError_t launch_adjoint_route(const void* tau, const void* ys,
       static_cast<const T*>(g), static_cast<const T*>(weights),
       static_cast<T*>(ay0), static_cast<T*>(aw), static_cast<T*>(at),
       static_cast<int*>(stats), static_cast<T*>(work),
-      static_cast<T*>(pwork), n_w, net, rows, tab, sc);
+      static_cast<T*>(pwork), n_w, net, rows, cr, tab, sc);
   return cudaGetLastError();
 }
 
@@ -536,18 +582,23 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
                    int input_power, int time_input, int stages, int order,
                    const double* c, const double* a, const double* b_sol,
                    const double* b_err, int route, void* pwork,
-                   long pwork_size, void* stream) {
+                   long pwork_size, int cnf, void* stream) {
   if (stages < 2 || stages > kMaxStages || T_obs < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || threads < kWarp ||
       threads > kAdjThreads || (threads & (threads - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // The CNF flow maps the D - 1 features of z and the time to D - 1.
+  if (cnf && (D < 2 || !time_input || input_power != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   Net net;
-  const int n_w = make_net(net, n_layers, dims, D, act_hidden, act_final,
-                           input_power, time_input);
+  const int n_w = make_net(net, n_layers, dims, cnf ? D - 1 : D, act_hidden,
+                           act_final, input_power, time_input);
   if (n_w < 0 || !route_fits(net, route))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (work_size < adjoint_work_size(net, stages, B, D))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const long need =
+      cnf ? (6 + 2 * long(stages)) * B * D + cnf_rows_count(net) * B
+          : adjoint_work_size(net, stages, B, D);
+  if (work_size < need) return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteWide &&
       (!pwork || pwork_size < adjoint_pwork_size(n_w, stages, time_input)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -576,15 +627,26 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
   sc.D = D;
   sc.seminorm = seminorm;
 
+  const CnfRows cr = cnf ? make_cnf_rows(net) : CnfRows{};
+
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      route == kRouteNarrow
-          ? launch_adjoint_route<T, kRouteNarrow>(
-                tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
-                threads, net, rows, tab, sc, st)
-          : launch_adjoint_route<T, kRouteWide>(
-                tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
-                threads, net, rows, tab, sc, st);
+  cudaError_t e;
+  if (cnf)
+    e = route == kRouteNarrow
+            ? launch_adjoint_route<T, kRouteNarrow, true>(
+                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
+                  threads, net, rows, cr, tab, sc, st)
+            : launch_adjoint_route<T, kRouteWide, true>(
+                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
+                  threads, net, rows, cr, tab, sc, st);
+  else
+    e = route == kRouteNarrow
+            ? launch_adjoint_route<T, kRouteNarrow, false>(
+                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
+                  threads, net, rows, cr, tab, sc, st)
+            : launch_adjoint_route<T, kRouteWide, false>(
+                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
+                  threads, net, rows, cr, tab, sc, st);
   return static_cast<int>(e);
 }
 
@@ -601,13 +663,13 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
       int input_power, int time_input, int stages, int order,               \
       const double* c, const double* a, const double* b_sol,                \
       const double* b_err, int route, void* pwork, long pwork_size,         \
-      void* stream) {                                                        \
+      int cnf, void* stream) {                                               \
     return tfd::launch_adjoint<TYPE>(                                        \
         tau, ys, g, weights, ay0, aw, at, stats, work, work_size, T_obs, B, \
         D, threads, dt0, rtol, atol, dt_min, sign, safety, ifactor,         \
         dfactor, max_steps, seminorm, n_layers, dims, act_hidden,           \
         act_final, input_power, time_input, stages, order, c, a, b_sol,     \
-        b_err, route, pwork, pwork_size, stream);                            \
+        b_err, route, pwork, pwork_size, cnf, stream);                       \
   }
 
 TFD_ADJOINT_ENTRY(tfd_mlp_adjoint_f32, float)

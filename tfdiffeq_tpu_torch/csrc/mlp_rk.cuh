@@ -123,6 +123,30 @@ __device__ __forceinline__ T act_grad(int code, T z, T a) {
   }
 }
 
+// pallas_kernels.py:_ACTIVATION_GRAD2: act''(z) from z, a = act(z) and
+// g = act'(z) (the CNF adjoint, csrc/cnf_net.cuh).
+template <typename T>
+__device__ __forceinline__ T act_grad2(int code, T z, T a, T g) {
+  switch (code) {
+    case kTanh:
+      return (T(-2) * a) * g;
+    case kElu:
+      return z > T(0) ? T(0) : a + T(1);
+    case kSigmoid:
+      return g * (T(1) - T(2) * a);
+    case kSoftplus: {
+      const T s = T(1) / (T(1) + d_exp(-z));
+      return s * (T(1) - s);
+    }
+    case kSilu: {
+      const T s = T(1) / (T(1) + d_exp(-z));
+      return (s * (T(1) - s)) * (T(2) + z * (T(1) - T(2) * s));
+    }
+    default:  // identity, relu
+      return T(0);
+  }
+}
+
 // A general MLP: layer l maps din[l] inputs to dout[l] outputs with
 // weights W_l [dout][din] (row-major, the transpose of the JAX [din, dout])
 // and bias b_l [dout], both at offsets into one packed weight array

@@ -36,6 +36,13 @@
 // evaluation of the attempt is batch-wide, layer by layer, the tier layers
 // on the tensor cores in float32; the controller is the same.
 //
+// rhs = cnf (K7's forward, csrc/cnf_net.cuh cnf_eval, replacing
+// pallas_kernels.py:442 _make_cnf_net at :1291-1294): the state is the CNF
+// state [z; logp] of D + 1 values, the network the concat-t flow, and each
+// per-thread evaluation is the flow plus its exact divergence; a sample's
+// act'(z) and f go to workspace rows after the solve's own. Narrow and wide
+// routes only (the flow takes no tier).
+//
 // Bound on the H100. One SM of 132 does all the work: per sample and
 // attempt, S - 1 evaluations of the MLP (at the main path 2 -> 50 -> 2:
 // about 400 flops and 50 tanh each) run one instruction stream per
@@ -44,6 +51,7 @@
 // per SM and a grid-wide barrier per attempt) is the first optimisation to
 // make (see PERF.md). The wide route is bound the same way, with a
 // global-memory load beside each multiply-add.
+#include "cnf_net.cuh"
 #include "dot_tiers.cuh"
 
 namespace tfd {
@@ -58,7 +66,7 @@ struct Scalars {
   int max_steps, valid, T_out, B, D;
 };
 
-template <typename T, int kRoute>
+template <typename T, int kRoute, bool kCnf>
 __global__ void __launch_bounds__(kSolveThreads, 1)
     mlp_solve_kernel(const T* __restrict__ tau, const T* __restrict__ y0g,
                      const T* __restrict__ f0g, const T* __restrict__ wg,
@@ -99,9 +107,17 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
   T* MID = DEL + BD;        // dense-output midpoint of the attempt
   T* F1 = MID + BD;         // f(t1, y1) for tableaus that are not FSAL
   T* K = F1 + BD;           // stages 1 .. S - 1
+  T* CW = K + (S - 1) * BD;  // rhs = cnf: cnf_eval's rows of B
 
   T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
   const T sign = sc.sign;
+  // The right-hand side of one sample b at time tt, state in h_a.
+  auto rhs = [&](T tt, int b) -> const T* {
+    if constexpr (kCnf)
+      return cnf_eval(net, w, tt, h_a, h_b, CW, B, b);
+    else
+      return mlp_eval(net, w, tt, h_a, h_b);
+  };
 
   // Deterministic output on early exit: zero fill, then y0 in row 0
   // (pallas_kernels.py:792-793). Each thread fills its own samples.
@@ -184,13 +200,13 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
         for (int i = 1; i < S; ++i) {
           for (int d = 0; d < D; ++d) h_a[d] = stage_state(base, i, d);
           const T ti = t + tab.c[i] * dth;
-          const T* fo = mlp_eval(net, w, sign * ti, h_a, h_b);
+          const T* fo = rhs(sign * ti, b);
           for (int d = 0; d < D; ++d) K[(i - 1) * BD + base + d] = sign * fo[d];
         }
         for (int d = 0; d < D; ++d) h_a[d] = combine(base, d);
         if (!tab.fsal) {
           // The end derivative costs one more evaluation (counted in evals).
-          const T* fo = mlp_eval(net, w, sign * t1, h_a, h_b);
+          const T* fo = rhs(sign * t1, b);
           for (int d = 0; d < D; ++d) F1[base + d] = sign * fo[d];
         }
       }
@@ -300,7 +316,7 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
   }
 }
 
-template <typename T, int kRoute>
+template <typename T, int kRoute, bool kCnf>
 cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
                          const void* weights, void* out, void* stats,
                          void* work, const BatchBufs<T>& bb, int n_w,
@@ -308,7 +324,7 @@ cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
                          const Scalars<T>& sc, cudaStream_t stream) {
   const size_t smem =
       sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + threads);
-  auto kernel = mlp_solve_kernel<T, kRoute>;
+  auto kernel = mlp_solve_kernel<T, kRoute, kCnf>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
@@ -332,15 +348,19 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
                  int fsal, const double* c, const double* a,
                  const double* b_sol, const double* b_err,
                  const double* c_mid, int route, const int* tiers,
-                 void* batch_work, long batch_bytes, void* stream) {
+                 void* batch_work, long batch_bytes, int cnf, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || stages < 2 ||
       stages > kMaxStages || T_out < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || threads < 32 ||
       threads > kSolveThreads || (threads & (threads - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // The CNF flow maps the D - 1 features of z and the time to D - 1.
+  if (cnf && (D < 2 || !time_input || input_power != 1 || tiers ||
+              route == kRouteBatch))
+    return static_cast<int>(cudaErrorInvalidValue);
   Net net;
-  const int off = make_net(net, n_layers, dims, D, act_hidden, act_final,
-                           input_power, time_input);
+  const int off = make_net(net, n_layers, dims, cnf ? D - 1 : D, act_hidden,
+                           act_final, input_power, time_input);
   if (off < 0) return static_cast<int>(cudaErrorInvalidValue);
   const long n_w16 = set_tiers(net, tiers);
   if (n_w16 < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -375,21 +395,31 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (route == kRouteNarrow) {
-    e = launch_route<T, kRouteNarrow>(tau, y0, f0, weights, out, stats, work,
-                                      bb, off, threads, net, tab, sc, st);
+  if (cnf) {
+    e = route == kRouteNarrow
+            ? launch_route<T, kRouteNarrow, true>(tau, y0, f0, weights, out,
+                                                  stats, work, bb, off,
+                                                  threads, net, tab, sc, st)
+            : launch_route<T, kRouteWide, true>(tau, y0, f0, weights, out,
+                                                stats, work, bb, off,
+                                                threads, net, tab, sc, st);
+  } else if (route == kRouteNarrow) {
+    e = launch_route<T, kRouteNarrow, false>(tau, y0, f0, weights, out,
+                                             stats, work, bb, off, threads,
+                                             net, tab, sc, st);
   } else if (route == kRouteWide) {
-    e = launch_route<T, kRouteWide>(tau, y0, f0, weights, out, stats, work,
-                                    bb, off, threads, net, tab, sc, st);
+    e = launch_route<T, kRouteWide, false>(tau, y0, f0, weights, out, stats,
+                                           work, bb, off, threads, net, tab,
+                                           sc, st);
   } else {
     tier_pack_kernel<T><<<64, 256, 0, st>>>(
         static_cast<const T*>(weights), net,
         reinterpret_cast<__nv_bfloat16*>(batch_work));
     e = cudaGetLastError();
     if (e == cudaSuccess)
-      e = launch_route<T, kRouteBatch>(tau, y0, f0, weights, out, stats,
-                                       work, bb, off, threads, net, tab, sc,
-                                       st);
+      e = launch_route<T, kRouteBatch, false>(tau, y0, f0, weights, out,
+                                              stats, work, bb, off, threads,
+                                              net, tab, sc, st);
   }
   return static_cast<int>(e);
 }
@@ -407,13 +437,13 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
       int stages, int order, int fsal, const double* c, const double* a,    \
       const double* b_sol, const double* b_err, const double* c_mid,        \
       int route, const int* tiers, void* batch_work, long batch_bytes,      \
-      void* stream) {                                                        \
+      int cnf, void* stream) {                                               \
     return tfd::launch_solve<TYPE>(                                          \
         tau, y0, f0, weights, out, stats, work, T_out, B, D, threads, dt0,  \
         rtol, atol, dt_min, sign, safety, ifactor, dfactor, max_steps,      \
         valid, n_layers, dims, act_hidden, act_final, input_power,          \
         time_input, stages, order, fsal, c, a, b_sol, b_err, c_mid, route,  \
-        tiers, batch_work, batch_bytes, stream);                             \
+        tiers, batch_work, batch_bytes, cnf, stream);                        \
   }
 
 TFD_SOLVE_ENTRY(tfd_mlp_solve_f32, float)

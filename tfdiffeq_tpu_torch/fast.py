@@ -33,6 +33,14 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
   adaptive solve of every controller block in one launch of K13
   (`ops/cuda_conv.conv_solve`).
 
+- `cnf_log_prob_fused`, `cnf_sample_fused` and `cnf_log_prob_train`: the
+  FFJORD density of a concat-t MLP flow as one K2 launch with K7's forward
+  right-hand side (`mlp_solve(rhs='cnf')`: the flow and its exact
+  divergence), sampling as one K2 launch of the plain concat-t MLP, and
+  training as one K2 launch forward and one K3 sweep backward with K7's
+  adjoint (`mlp_adjoint_solve(rhs='cnf')`), in the reference's chunks
+  (`cnf_train_block_size`).
+
 - `calibrate_dot_precision` / `DOT_PASSES`: the reference's one-time
   choice of the cheapest tier by NFE x passes.
 
@@ -40,21 +48,25 @@ Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
 item): Adams methods (item 12), the dot-precision tiers with
 `per_sample=True` (item 20), and the multi-card `axis_name` /
 `global_batch` coupling (item 18); `solve_conv_ode_sharded` has no
-counterpart here yet (item 18). What the kernels cannot take (widths past
-`MAX_WIDTH`) raises. As in the reference, `solve_conv_ode` solves with the
-generic engine, with a warning, when not one sample fits a controller
-block; nothing else falls back.
+counterpart here yet (item 18), nor have `cnf_log_prob_auto` and
+`cnf_sample_auto` (item 16, the plan tracer). What the kernels cannot take
+(widths past `MAX_WIDTH`) raises. As in the reference, `solve_conv_ode`
+solves with the generic engine, with a warning, when not one sample fits a
+controller block; nothing else falls back (the fused CNF runs K2 and K3 at
+every batch, where the reference falls back past its TPU memory budget).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .models import cnf as _cnf
 from .ops import conv_ode as co
 from .ops import tableaus
 from .ops.controller import StepController
@@ -770,3 +782,262 @@ def solve_conv_ode(func_or_params, x: Tensor, t, *, groups: int = 32,
     return SolveResult(out, SolverStats(
         int(st[:, 0].sum()) + extra_nfe, int(st[:, 1].sum()),
         int(st[:, 2].sum()), int(st[:, 3].max())))
+
+
+# ---------------------------------------------------------------------------
+# Continuous normalizing flows (FFJORD) on K7: the density, sampling and
+# training entry points of the reference (fast.py:2170-2639)
+# ---------------------------------------------------------------------------
+
+def _cnf_weights(weights, D: int, name: str):
+    """The flow's [(W, b), ...] as a list, raising unless the first layer
+    takes D + 1 inputs (the concat-t convention, time last)."""
+    weights = [(W, b) for W, b in weights]
+    if weights[0][0].shape[0] != D + 1:
+        raise ValueError(
+            f"{name}: first-layer input dim {weights[0][0].shape[0]} != D+1 "
+            f"= {D + 1} (concat-t convention, time last)")
+    return weights
+
+
+def _cnf_method(method: str) -> None:
+    _check_method(method)
+    if method not in tableaus.TABLEAUS_BY_NAME:
+        raise ValueError(f"the fused CNF takes an adaptive method, got "
+                         f"{method!r}")
+
+
+def _cnf_forward_solve(spec: MLPSpec, weights, z0: Tensor, t: Tensor, rtol,
+                       atol, method: str, max_num_steps, first_step):
+    """The fused CNF forward (reference fast.py:2170): one K2 solve with
+    K7's forward right-hand side over the augmented state [z; logp],
+    [B, D + 1], from logp = 0. f0 and the HNW first step come from the
+    plain augmented dynamics (exact trace) over the whole state, as in the
+    reference. Returns (out [T, B, D + 1], stats as a host list, the
+    initial-step evaluations)."""
+    B, D = z0.shape
+    dtype, dev = z0.dtype, z0.device
+    sign = torch.tensor(1.0 if t[-1] >= t[0] else -1.0, dtype=dtype)
+    tau = sign * t
+    sign_d = sign.to(dev)
+    aug = _cnf.augmented_dynamics(
+        lambda tt, zz: mlp_apply(spec, weights, zz, tt), trace="exact")
+
+    def g(s, st):
+        dz, dl = aug(sign_d * s, (st[:, :D], st[:, D]))
+        return sign_d * torch.cat([dz, dl[:, None]], dim=1)
+
+    with torch.no_grad():
+        state0 = torch.cat([z0, torch.zeros(B, 1, dtype=dtype, device=dev)],
+                           dim=1)
+        tau0 = tau[0].to(dev)
+        f0 = g(tau0, state0)
+        if first_step is None:
+            dt0 = select_initial_step(
+                g, tau0, state0, f0,
+                tableaus.TABLEAUS_BY_NAME[method].order - 1,
+                torch.as_tensor(rtol, dtype=dtype).to(dev),
+                torch.as_tensor(atol, dtype=dtype).to(dev))
+            extra_nfe = 2
+        else:
+            dt0 = torch.abs(torch.as_tensor(first_step, dtype=dtype))
+            extra_nfe = 1
+        warrays, dims = pack_mlp_weights(weights, dtype, dev)
+        out, stats = mlp_solve(
+            warrays, dims, state0, tau, dt0, rtol, atol, float(sign),
+            f0=f0.contiguous(), activation=spec.activation, time_input=True,
+            rhs="cnf", method=method,
+            max_steps=(int(max_num_steps) if max_num_steps is not None
+                       else _INT32_MAX))
+    return out, stats.tolist(), extra_nfe
+
+
+def _log_prob_from_base(out: Tensor, D: int) -> Tensor:
+    """log N(z(t0)) - l(t0) from the last row of the augmented solve."""
+    z_base, dlog = out[-1, :, :D], out[-1, :, D]
+    return (-0.5 * torch.sum(z_base ** 2, dim=-1)
+            - 0.5 * D * math.log(2.0 * math.pi)) - dlog
+
+
+def cnf_log_prob_fused(weights, x: Tensor, *, t0: float = 0.0,
+                       t1: float = 1.0, rtol=1e-5, atol=1e-7,
+                       activation: str = "tanh", method: str = "dopri5",
+                       max_num_steps=None, first_step=None):
+    """log p(x) under a concat-t MLP flow, the whole augmented solve (flow
+    field, exact divergence from D forward-mode passes, adaptive stepping,
+    log-det quadrature) as one launch of K2 with K7's forward right-hand
+    side (`ops/cuda_kernels.mlp_solve(rhs='cnf')`).
+
+    weights: [(W [din, dout], b), ...] on x's device, the first layer
+    taking D + 1 inputs with the time last (`models.cnf.CNFDynamics`;
+    `weights_from_linears` or `convert.weights_from_jax` give them); hidden
+    layers `activation`, the last layer linear. x: [B, D]. Integrates
+    (x, 0) backward from t1 to t0. Matches `models.cnf.log_prob(trace=
+    'exact')` to the solve's tolerance. Forward only: train with
+    `cnf_log_prob_train` or `models.cnf.log_prob`.
+
+    K2 runs at every B: the reference's fallback to the generic engine past
+    a TPU memory budget has no counterpart here. Returns (logp [B],
+    SolverStats), nfe counting the initial-step evaluations.
+    """
+    x = _as_state(x)
+    B, D = x.shape
+    weights = _cnf_weights(weights, D, "cnf_log_prob_fused")
+    _cnf_method(method)
+    spec = MLPSpec(activation=activation, time_input=True)
+    out, st, extra = _cnf_forward_solve(
+        spec, weights, x.detach(), torch.tensor([t1, t0], dtype=x.dtype),
+        rtol, atol, method, max_num_steps, first_step)
+    return (_log_prob_from_base(out, D),
+            SolverStats(st[0] + extra, st[1], st[2], st[3]))
+
+
+def cnf_sample_fused(weights, generator: torch.Generator, n: int, dim: int,
+                     *, t0: float = 0.0, t1: float = 1.0, rtol=1e-5,
+                     atol=1e-7, activation: str = "tanh",
+                     method: str = "dopri5", max_num_steps=None,
+                     dtype=torch.float32) -> Tensor:
+    """Flow samples with the whole forward solve as one K2 launch (the
+    fused counterpart of `models.cnf.sample`): base noise [n, dim] drawn
+    from `generator` (the reference's `key`) on its device, moved to the
+    weights' device and solved from t0 to t1 by `solve_mlp_spec` with the
+    concat-t MLP."""
+    z = torch.randn((n, dim), generator=generator, dtype=dtype,
+                    device=generator.device)
+    z = z.to(weights[0][0].device)
+    spec = MLPSpec(activation=activation, time_input=True)
+    res = solve_mlp_spec(spec, weights, z, [t0, t1], rtol=rtol, atol=atol,
+                         method=method, max_num_steps=max_num_steps)
+    return res.ys[-1]
+
+
+#: The reference's training chunks (fast.py:2559-2579): it cuts the batch
+#: into chunks of b_max samples, b_max from a TPU stack model, and each
+#: chunk is its own forward and backward solve with its own controllers.
+#: This constant, with _CONV_STACK_BUDGET and _LANE, reproduces that
+#: partition, which the answers depend on; it is no memory budget of the
+#: card.
+_CNF_STACK_BLOCKS = 56
+
+
+def cnf_train_block_size(D: int, widths) -> int:
+    """Samples in a chunk of `cnf_log_prob_train`: the reference's
+    ((14 MiB // (4 * 56 * h_maxP)) // 128) * 128 with h_maxP the largest of
+    D + 1 and the layers' output `widths`, each rounded up to 8 (2048 at
+    width 32, 1024 at 64)."""
+    h = max(-(-w // 8) * 8 for w in [D + 1, *widths])
+    return (_CONV_STACK_BUDGET // (4 * _CNF_STACK_BLOCKS * h)) // _LANE \
+        * _LANE
+
+
+class _CNFTrain(torch.autograd.Function):
+    """Forward: `_cnf_forward_solve` (K2 with K7's forward). Backward: one
+    K3 sweep with K7's adjoint (reference fast.py:_vjp_bwd, :2604-2631).
+    `cfg` carries the static options."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, *flat):
+        weights = cfg["unflatten"](flat)
+        out, st, extra = _cnf_forward_solve(
+            cfg["spec"], weights, x.detach(), cfg["t"], cfg["rtol"],
+            cfg["atol"], cfg["method"], cfg["max_num_steps"],
+            cfg["first_step"])
+        emit_fwd(cfg["nfe_meter"], st[0] + extra, st[1])
+        ctx.cfg = cfg
+        ctx.save_for_backward(out, *flat)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        out, *flat = ctx.saved_tensors
+        weights = cfg["unflatten"](flat)
+        dtype, dev = out.dtype, out.device
+        D = out.shape[2] - 1
+        # t = [t1, t0] decreases: tau = -t, the reference's sign -1.
+        tau = -cfg["t"]
+        dt0 = 0.1 * torch.abs(tau[-1] - tau[-2])
+        warrays, dims = pack_mlp_weights(weights, dtype, dev)
+        ay0, aw, _, bstats = mlp_adjoint_solve(
+            warrays, dims, out.contiguous(), g.to(dtype).contiguous(), tau,
+            dt0, cfg["adjoint_rtol"], cfg["adjoint_atol"], -1.0,
+            activation=cfg["spec"].activation, method=cfg["method"],
+            max_steps=cfg["max_steps"], seminorm=cfg["adjoint_seminorm"],
+            rhs="cnf")
+        nfe, nacc, _, status = bstats.tolist()
+        emit_bwd(cfg["nfe_meter"], nfe, nacc)
+        grads, off = [], 0
+        for (W, b), (din, dout) in zip(weights, dims):
+            grads.append(aw[off:off + din * dout].view(dout, din).t()
+                         .to(W.dtype))
+            off += din * dout
+            if b is not None:
+                grads.append(aw[off:off + dout].to(b.dtype))
+            off += dout
+        # ay0 = dL/d state(t1) = [dL/dx; dL/dl0]: l0 is the zero start.
+        grads = [ay0[:, :D].contiguous()] + grads
+        if status != 0:
+            # A truncated sweep would return a partial adjoint: poison
+            # every gradient, as the reference does (fast.py:2617-2631).
+            grads = [torch.full_like(v, float("nan")) for v in grads]
+        return (None, *grads)
+
+
+def cnf_log_prob_train(weights, x: Tensor, *, t0: float = 0.0,
+                       t1: float = 1.0, rtol=1e-5, atol=1e-7,
+                       activation: str = "tanh", method: str = "dopri5",
+                       adjoint_rtol=None, adjoint_atol=None,
+                       adjoint_seminorm: bool = False, max_num_steps=None,
+                       first_step=None, nfe_meter=None) -> Tensor:
+    """O(1)-memory differentiable FFJORD density, two kernels: the forward
+    augmented solve is one K2 launch with K7's forward right-hand side
+    (flow, exact divergence, log-det quadrature), and the backward is one
+    K3 sweep with K7's adjoint, the divergence's second-order VJP inside
+    (`ops/cuda_adjoint.mlp_adjoint_solve(rhs='cnf')`). A
+    `torch.autograd.Function`: gradients flow to the weights and to x.
+
+    Same weight convention as `cnf_log_prob_fused`. The sweep starts from
+    a tenth of the span and takes `adjoint_rtol` / `adjoint_atol` (default
+    rtol / atol), `adjoint_seminorm` and the forward's max_num_steps; a
+    sweep that fails (status != 0) returns NaN gradients. Forward and
+    backward stats go to `nfe_meter`.
+
+    As in the reference, a batch past `cnf_train_block_size` samples is cut
+    into chunks of that size, each its own K2 and K3 launch with its own
+    controllers (2048 samples at width 32: B = 4096 is two chunks); the
+    log-probs concatenate and the gradients add.
+    """
+    x = _as_state(x)
+    B, D = x.shape
+    weights = _cnf_weights(weights, D, "cnf_log_prob_train")
+    _cnf_method(method)
+    kw = dict(t0=t0, t1=t1, rtol=rtol, atol=atol, activation=activation,
+              method=method, adjoint_rtol=adjoint_rtol,
+              adjoint_atol=adjoint_atol, adjoint_seminorm=adjoint_seminorm,
+              max_num_steps=max_num_steps, first_step=first_step,
+              nfe_meter=nfe_meter)
+    b_max = cnf_train_block_size(D, [W.shape[1] for W, _ in weights])
+    if 0 < b_max < B:
+        return torch.cat([cnf_log_prob_train(weights, x[s:s + b_max], **kw)
+                          for s in range(0, B, b_max)])
+    has_bias = [b is not None for _, b in weights]
+    flat = [v for W, b in weights for v in ((W, b) if b is not None
+                                            else (W,))]
+
+    def unflatten(xs):
+        it = iter(xs)
+        return [(next(it), next(it) if hb else None) for hb in has_bias]
+
+    cfg = {"spec": MLPSpec(activation=activation, time_input=True),
+           "unflatten": unflatten, "t": torch.tensor([t1, t0],
+                                                     dtype=x.dtype),
+           "rtol": rtol, "atol": atol,
+           "adjoint_rtol": rtol if adjoint_rtol is None else adjoint_rtol,
+           "adjoint_atol": atol if adjoint_atol is None else adjoint_atol,
+           "adjoint_seminorm": bool(adjoint_seminorm), "method": method,
+           "max_num_steps": max_num_steps,
+           "max_steps": (int(max_num_steps) if max_num_steps is not None
+                         else _INT32_MAX),
+           "first_step": first_step, "nfe_meter": nfe_meter}
+    out = _CNFTrain.apply(cfg, x, *flat)
+    return _log_prob_from_base(out, D)

@@ -1,1 +1,5 @@
 """Dynamics modules."""
+
+from .cnf import CNFDynamics, augmented_dynamics, log_prob, sample
+
+__all__ = ["CNFDynamics", "augmented_dynamics", "log_prob", "sample"]

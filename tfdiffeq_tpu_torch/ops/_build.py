@@ -34,7 +34,7 @@ SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "fixed_kernel.cu", "fixed_adjoint_kernel.cu",
            "conv_solve_kernel.cu", "perlane_solve_kernel.cu",
            "perlane_adjoint_kernel.cu", "tier_net_kernel.cu")
-HEADERS = ("mlp_rk.cuh", "dot_tiers.cuh")
+HEADERS = ("mlp_rk.cuh", "dot_tiers.cuh", "cnf_net.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
@@ -60,6 +60,7 @@ _SOLVE_ARGS = ([_P] * 7                                     # tensors
                + [_I, _P, _I, _I, _I, _I]                   # network
                + [_I, _I, _I, _P, _P, _P, _P, _P]           # tableau
                + [_I, _P, _P, _L]                           # route, tiers
+               + [_I]                                       # rhs = cnf
                + [_P])                                      # stream
 _ADJOINT_ARGS = ([_P] * 9                                   # tensors
                  + [_L]                                     # work size
@@ -68,6 +69,7 @@ _ADJOINT_ARGS = ([_P] * 9                                   # tensors
                  + [_I, _P, _I, _I, _I, _I]                 # network
                  + [_I, _I, _P, _P, _P, _P]                 # tableau
                  + [_I, _P, _L]                             # route, pwork
+                 + [_I]                                     # rhs = cnf
                  + [_P])                                    # stream
 _SOLVE_FIXED_ARGS = ([_P] * 8                               # tensors
                      + [_I] * 5                             # G .. threads

@@ -24,8 +24,13 @@ the parameter accumulator and the stage cotangents in shared memory) or wide
 float32-accurate: the reference's dot-precision tiers reach the forward
 solves only (`fast.odeint_adjoint_mlp`).
 
-Not ported: `rhs='cnf'` (K7, ROADMAP queue 2), and the TPU machinery of the
-reference (`pack` sublane packing, `n_blocks` grid blocks, `stream_io`).
+`rhs='cnf'` runs K7's adjoint (csrc/cnf_net.cuh `cnf_aug_eval`, replacing
+`_make_cnf_aug_eval`, pallas_adjoint.py:240) in each stage instead: the
+backward sweep of the augmented FFJORD system, with the divergence's
+second-order VJP; `_cnf_aug_eval_plain` is its plain version.
+
+Not ported: the TPU machinery of the reference (`pack` sublane packing,
+`n_blocks` grid blocks, `stream_io`).
 """
 
 from __future__ import annotations
@@ -35,12 +40,14 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .cuda_kernels import (ROUTE_WIDE, _ACT_CODES, _ACTIVATION_GRADS,
-                           _ACTIVATIONS, _check_activations, _check_float,
-                           _check_mlp,
+from .cuda_kernels import (ROUTE_WIDE, _ACT_CODES, _ACTIVATION_GRAD2,
+                           _ACTIVATION_GRADS, _ACTIVATIONS,
+                           _check_activations, _check_cnf, _check_float,
+                           _check_mlp, _check_rhs,
                            _controller_factor, _device_kind, _dims_arg,
-                           _owned_sums, _ptr, _route, _solve_setup, _stream,
-                           _tableau_args, _tree_sum, _unpack)
+                           _dot_in_order, _owned_sums, _ptr, _route,
+                           _solve_setup, _stream, _tableau_args, _tree_sum,
+                           _unpack)
 from .tableaus import TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
@@ -50,12 +57,15 @@ ADJOINT_THREADS = 512
 #: Lanes of a batch sum: lane j adds samples j, j + 32, ... (one warp).
 LANES = 32
 
+#: K3 launches, and those with K7's adjoint (rhs='cnf') among them.
 mlp_adjoint_solve_launches = 0
+cnf_adjoint_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global mlp_adjoint_solve_launches
+    global mlp_adjoint_solve_launches, cnf_adjoint_launches
     mlp_adjoint_solve_launches = 0
+    cnf_adjoint_launches = 0
 
 
 def _lane_sums(x: Tensor) -> Tensor:
@@ -70,6 +80,16 @@ def _lane_sums(x: Tensor) -> Tensor:
     for k in range(K):
         acc = acc + x[k]
     return _tree_sum(acc.t())
+
+
+def _dot_t_in_order(wT: Tensor, x: Tensor) -> Tensor:
+    """W^T x for x [B, dout]: sum_o wT[o] x[:, o] over the outputs in
+    order, [B, din]."""
+    acc = None
+    for o in range(wT.shape[0]):
+        term = wT[o] * x[:, o:o + 1]
+        acc = term if acc is None else acc + term
+    return acc
 
 
 def _aug_eval_plain(packed: Tensor, dims, activation: str,
@@ -96,22 +116,14 @@ def _aug_eval_plain(packed: Tensor, dims, activation: str,
         hs, zs = [], []
         for l, (wT, b) in enumerate(layers):
             hs.append(h)
-            acc = None
-            for i in range(wT.shape[1]):
-                term = wT[:, i] * h[:, i:i + 1]              # [B, dout]
-                acc = term if acc is None else acc + term
-            zs.append(acc + b)
+            zs.append(_dot_in_order(wT, h) + b)
             h = _ACTIVATIONS[acts[l]](zs[-1])
         f = h
         dz = ay * _ACTIVATION_GRADS[acts[-1]](zs[-1], f)
         dzs = [None] * L
         for l in range(L - 1, -1, -1):
             dzs[l] = dz
-            wT = layers[l][0]
-            dh = None
-            for o in range(wT.shape[0]):
-                term = wT[o] * dz[:, o:o + 1]                # [B, din]
-                dh = term if dh is None else dh + term
+            dh = _dot_t_in_order(layers[l][0], dz)
             dz = (dh * _ACTIVATION_GRADS[acts[l - 1]](zs[l - 1], hs[l])
                   if l > 0 else dh)
         D = y.shape[1]
@@ -128,6 +140,125 @@ def _aug_eval_plain(packed: Tensor, dims, activation: str,
                          .reshape(B, -1))                     # W^T layout
             parts.append(dzs[l])
         return f, v_y, torch.cat(parts, dim=1), v_t
+
+    return aug
+
+
+def _cnf_aug_eval_plain(packed: Tensor, dims, activation: str):
+    """Plain version of K7's adjoint (pallas_adjoint.py:_make_cnf_aug_eval)
+    on [B, D + 1], in the kernel's order (csrc/cnf_net.cuh cnf_aug_eval).
+    For y = [z; logp] and a = [a_z; a_l]:
+
+    - the forward keeps each layer's input, act'(z) and act''(z); D
+      forward-mode passes keep each pass's v_l (the product) and u_l
+      (act'(z) v_l) and give F = [f; -div];
+    - part A, the f-VJP with a_z: dzA_l, and v_z_A, v_t_A;
+    - part B, the divergence's VJP with a_l: pass i0 walks back from vb =
+      a_l on row i0 of the last layer, vb_l = act'(z_l) ub_l on the hidden
+      layers, gathering zbar_l += act''(z_l) v_l ub_l; then zbar is
+      injected through the primal backward as delta_l, giving v_z_B and
+      v_t_B.
+
+    v_y = [v_z_A - v_z_B, 0] and v_t = v_t_A - v_t_B. A sample's cotangent
+    of weight (o, k) of layer l is x = dzA[o] h[k] - xB, where xB sums the
+    direct terms vb_i0[o] u_i0,l-1[k] in i0 order (on layer 0 vb_k[o] for a
+    state column k, nothing for the time column), plus delta[o] h[k] on the
+    hidden layers; a bias takes dzA[o] - delta[o] (dzA[o] on the last
+    layer). The reference sums each product over the batch first; this
+    order differs from it by roundoff only, and the kernel repeats it.
+
+    Returns F(t, y, a) -> (F, v_y [B, D + 1], per-sample parameter
+    cotangents [B, n_w] in `pack_mlp_weights`' layout, v_t [B])."""
+    layers = _unpack(packed, dims)
+    L, D = len(dims), dims[-1][1]
+    act, actg = _ACTIVATIONS[activation], _ACTIVATION_GRADS[activation]
+    actg2 = _ACTIVATION_GRAD2[activation]
+
+    def aug(t, y, ay):
+        B = y.shape[0]
+        a_z, a_l = ay[:, :D], ay[:, D]
+        h = torch.cat([y[:, :D], t.reshape(-1, 1).expand(B, 1)], dim=1)
+        hs, gs, g2s = [h], [], []
+        for l, (wT, b) in enumerate(layers):
+            zp = _dot_in_order(wT, h) + b
+            if l < L - 1:
+                a = act(zp)
+                gs.append(actg(zp, a))
+                g2s.append(actg2(zp, a, gs[-1]))
+                h = a
+            else:
+                h = zp
+            hs.append(h)
+        # The divergence: D forward-mode passes.
+        us, vs, div = [], [], None
+        for i0 in range(D):
+            u, u_l, v_l = None, [], []
+            for l in range(L):
+                v = (layers[0][0][:, i0].expand(B, -1) if l == 0
+                     else _dot_in_order(layers[l][0], u))
+                u = gs[l] * v if l < L - 1 else v
+                u_l.append(u)
+                v_l.append(v)
+            us.append(u_l)
+            vs.append(v_l)
+            div = u[:, i0] if div is None else div + u[:, i0]
+        F = torch.cat([h, -div[:, None]], dim=1)
+        # Part A: the f-VJP with a_z (the last layer is linear).
+        dzA, dz = [None] * L, a_z
+        for l in range(L - 1, -1, -1):
+            dzA[l] = dz
+            dh = _dot_t_in_order(layers[l][0], dz)
+            if l > 0:
+                dz = gs[l - 1] * dh
+        v_z_A, v_t_A = dh[:, :D], dh[:, D]
+        # Part B: the divergence's VJP with a_l, pass by pass.
+        rows = torch.arange(D, device=y.device)
+        vbs, zbar = [[None] * L for _ in range(D)], [None] * L
+        for i0 in range(D):
+            ub = None
+            for l in range(L - 1, -1, -1):
+                if l == L - 1:
+                    vb = torch.where(rows == i0, a_l[:, None],
+                                     torch.zeros_like(a_z))
+                else:
+                    vb = gs[l] * ub
+                    zb = g2s[l] * vs[i0][l] * ub
+                    zbar[l] = zb if zbar[l] is None else zbar[l] + zb
+                vbs[i0][l] = vb
+                if l > 0:
+                    ub = _dot_t_in_order(layers[l][0], vb)
+        # ... then zbar through the primal backward.
+        deltas, delta = [None] * L, None
+        v_z_B, v_t_B = torch.zeros_like(a_z), torch.zeros_like(a_l)
+        for l in range(L - 2, -1, -1):
+            delta = zbar[l] if delta is None else delta + zbar[l]
+            deltas[l] = delta
+            dh = _dot_t_in_order(layers[l][0], delta)
+            if l > 0:
+                delta = gs[l - 1] * dh
+            else:
+                v_z_B = v_z_B + dh[:, :D]
+                v_t_B = v_t_B + dh[:, D]
+        v_y = torch.cat([v_z_A - v_z_B, torch.zeros_like(a_l)[:, None]],
+                        dim=1)
+        parts = []
+        for l, (wT, _) in enumerate(layers):
+            dout, din = wT.shape
+            A = dzA[l][:, :, None] * hs[l][:, None, :]
+            if l == 0:
+                xB = torch.zeros_like(A)
+                for i0 in range(D):
+                    xB[:, :, i0] = vbs[i0][0]
+            else:
+                xB = None
+                for i0 in range(D):
+                    term = vbs[i0][l][:, :, None] * us[i0][l - 1][:, None, :]
+                    xB = term if xB is None else xB + term
+            if l < L - 1:
+                xB = xB + deltas[l][:, :, None] * hs[l][:, None, :]
+            parts.append((A - xB).reshape(B, -1))
+            parts.append(dzA[l] - deltas[l] if l < L - 1 else dzA[l])
+        return F, v_y, torch.cat(parts, dim=1), v_t_A - v_t_B
 
     return aug
 
@@ -155,12 +286,18 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                             seminorm: bool = False, method: str = "dopri5",
                             safety: float = 0.9, ifactor: float = 10.0,
                             dfactor: float = 0.2,
-                            max_steps: int = 2 ** 31 - 1
+                            max_steps: int = 2 ** 31 - 1, rhs: str = "mlp"
                             ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain PyTorch version of K3: a host loop of attempts that mirrors
     `csrc/adjoint_kernel.cu` line for line. Same contract as
     `mlp_adjoint_solve`."""
     tab = TABLEAUS_BY_NAME[method]
+    if _check_rhs(rhs):
+        time_input = True
+        aug = _cnf_aug_eval_plain(warrays, dims, activation)
+    else:
+        aug = _aug_eval_plain(warrays, dims, activation, final_activation,
+                              input_power, time_input)
     dev, dtype = ys.device, ys.dtype
     T, B, D = ys.shape
     S = tab.stages
@@ -168,8 +305,6 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
     rtol, atol, sf = on(rtol), on(atol), on(sign)
     sigma = on(-tau_h)
-    aug = _aug_eval_plain(warrays, dims, activation, final_activation,
-                          input_power, time_input)
     n_w = warrays.shape[0]
     n_el = 2 * D * B if seminorm else 2 * D * B + n_w + int(time_input)
     denom = torch.tensor(float(n_el), dtype=dtype, device=dev)
@@ -267,11 +402,17 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     return ay + g[0], aw, at, stats
 
 
-def _work_size(dims, S: int, B: int, D: int) -> int:
+def _work_size(dims, S: int, B: int, D: int, cnf: bool = False) -> int:
     """csrc/adjoint_kernel.cu adjoint_work_size: state, compensation and
     increments of (y, a_y), S stage derivatives of each, and the per-stage
-    reduction rows (layer inputs, pre-activations, their cotangents, v_t)."""
-    rows = 1 + sum(din + 2 * dout for din, dout in dims)
+    reduction rows (layer inputs, pre-activations, their cotangents, v_t;
+    for rhs='cnf' csrc/cnf_net.cuh cnf_rows_count: the layer inputs, and
+    act', act'', part A's cotangents and the deltas of each layer's outputs,
+    and v, u and vb of each of the D - 1 passes)."""
+    n_h = sum(din for din, _ in dims)
+    n_z = sum(dout for _, dout in dims)
+    rows = (n_h + n_z * (4 + 3 * (D - 1)) + 1 if cnf
+            else 1 + n_h + 2 * n_z)
     return (6 + 2 * S) * B * D + rows * B
 
 
@@ -296,7 +437,8 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                       input_power: int = 1, time_input: bool = False,
                       seminorm: bool = False, method: str = "dopri5",
                       safety: float = 0.9, ifactor: float = 10.0,
-                      dfactor: float = 0.2, max_steps: int = 2 ** 31 - 1
+                      dfactor: float = 0.2, max_steps: int = 2 ** 31 - 1,
+                      rhs: str = "mlp"
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Fused adjoint backward sweep of an MLP neural ODE, one launch.
 
@@ -313,6 +455,13 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     `pack_mlp_weights`' layout (W^T then b per layer), at (0-d, the
     integrated a_t quadrature; 0 when autonomous), stats [4] int32: nfe,
     accepted, rejected, status (0 OK, 1 MAX_STEPS_REACHED, 2 DT_UNDERFLOW)).
+
+    rhs='cnf' (K7's adjoint in K3, pallas_adjoint.py:1088-1131): the sweep
+    of the augmented FFJORD system. ys and g are [T, B, D + 1] over the
+    state [z; logp], dims the concat-t flow (D + 1 inputs, time last; D
+    outputs); time_input is forced on (the a_t quadrature applies), and
+    final_activation and input_power do not apply. The error norm counts
+    2 (D + 1) B + n_w + 1 values, 2 (D + 1) B with the seminorm.
     """
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
@@ -321,21 +470,27 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     if ys.ndim != 3 or g.shape != ys.shape:
         raise ValueError(f"ys and g must both be [T, B, D], got "
                          f"{tuple(ys.shape)} and {tuple(g.shape)}")
+    cnf = _check_rhs(rhs)
+    if cnf:
+        _check_cnf("mlp_adjoint_solve", dims, ys.shape[2])
+        time_input, final_activation, input_power = True, "identity", 1
     kw = dict(activation=activation, final_activation=final_activation,
               input_power=input_power, time_input=time_input,
               seminorm=seminorm, method=method, safety=safety,
-              ifactor=ifactor, dfactor=dfactor, max_steps=max_steps)
+              ifactor=ifactor, dfactor=dfactor, max_steps=max_steps,
+              rhs=rhs)
     if _device_kind(ys, g, warrays) == "cpu":
         return mlp_adjoint_solve_plain(warrays, dims, ys, g, tau, dt0, rtol,
                                        atol, sign, **kw)
 
-    global mlp_adjoint_solve_launches
+    global mlp_adjoint_solve_launches, cnf_adjoint_launches
     dtype = ys.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"mlp_adjoint_solve takes float32 or float64, got "
                         f"{dtype}")
     T, B, D = ys.shape
-    n_w = _check_mlp("mlp_adjoint_solve", warrays, dims, D, time_input)
+    n_w = _check_mlp("mlp_adjoint_solve", warrays, dims, D - cnf,
+                     time_input)
     S = TABLEAUS_BY_NAME[method].stages
     route = _route("mlp_adjoint_solve", dims,
                    _shared_values(dims, S, time_input), ys.element_size())
@@ -353,7 +508,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     aw = torch.empty(n_w, dtype=dtype, device=ys.device)
     at = torch.empty((), dtype=dtype, device=ys.device)
     stats = torch.empty(4, dtype=torch.int32, device=ys.device)
-    n_work = _work_size(dims, S, B, D)
+    n_work = _work_size(dims, S, B, D, cnf)
     work = torch.empty(n_work, dtype=dtype, device=ys.device)
     n_pwork = (_wide_work_size(n_w, S, time_input) if route == ROUTE_WIDE
                else 0)
@@ -370,8 +525,9 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                  int(seminorm), len(dims), _dims_arg(dims),
                  _ACT_CODES[activation], _ACT_CODES[final_activation],
                  int(input_power), int(time_input), S, tab.order, c, a,
-                 b_sol, b_err, route, _ptr(pwork), n_pwork,
+                 b_sol, b_err, route, _ptr(pwork), n_pwork, int(cnf),
                  _stream(ys.device))
     _build.check(err, "mlp_adjoint_solve launch")
     mlp_adjoint_solve_launches += 1
+    cnf_adjoint_launches += cnf
     return ay0, aw, at, stats

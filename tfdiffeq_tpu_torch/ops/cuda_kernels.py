@@ -9,6 +9,10 @@ the main path (sources in `tfdiffeq_tpu_torch/csrc/`, built by `_build.py`):
 - K2 `mlp_solve` (csrc/solve_kernel.cu) replaces `_make_solve_kernel`
   (pallas_kernels.py:726): a whole adaptive RK solve of a general MLP
   neural ODE in one launch.
+- K7's forward (csrc/cnf_net.cuh `cnf_eval`), inside K2 with
+  `mlp_solve(rhs='cnf')`, replaces `_make_cnf_net` (pallas_kernels.py:442):
+  the CNF right-hand side [f; -div f] with the exact divergence;
+  `_cnf_net_plain` is its plain version.
 - K4, the dot-precision tiers (csrc/dot_tiers.cuh), replaces `_mixed_dot`
   and the tiers of `_make_net` (pallas_kernels.py:361-439) inside K2 and
   K8: `dot_tier_plain` is its plain version, `layer_tiers` the reference's
@@ -31,7 +35,8 @@ their sublane packing, VMEM budgets, grid blocks and streamed output are
 TPU machinery with no counterpart here.
 
 `dopri5_mlp_step_launches` and `mlp_solve_launches` count kernel launches
-(never plain-version calls); `dot_tier_launches` counts the K2 and K8
+(never plain-version calls), `cnf_solve_launches` the K2 launches with K7's
+forward among them; `dot_tier_launches` counts the K2 and K8
 solves that ran K4's tier layers, and `tier_net_launches` the calls of K4
 alone (`tier_net`); `reset_launch_counts()` zeroes them. A solve on the
 batch route is two launches, the bf16 weight pack and the solve, and
@@ -74,15 +79,17 @@ dopri5_mlp_step_launches = 0
 mlp_solve_launches = 0
 dot_tier_launches = 0
 tier_net_launches = 0
+cnf_solve_launches = 0
 
 
 def reset_launch_counts() -> None:
     global dopri5_mlp_step_launches, mlp_solve_launches, dot_tier_launches
-    global tier_net_launches
+    global tier_net_launches, cnf_solve_launches
     dopri5_mlp_step_launches = 0
     mlp_solve_launches = 0
     dot_tier_launches = 0
     tier_net_launches = 0
+    cnf_solve_launches = 0
 
 
 def _elu(x: Tensor) -> Tensor:
@@ -133,6 +140,28 @@ _ACTIVATION_GRADS = {
     "softplus": lambda z, a: _sigmoid_of(z),
     "silu": _silu_grad,
     "swish": _silu_grad,
+}
+
+
+def _silu_grad2(z: Tensor, a: Tensor, g: Tensor) -> Tensor:
+    s = _sigmoid_of(z)
+    return s * (1.0 - s) * (2.0 + z * (1.0 - 2.0 * s))
+
+
+#: pallas_kernels.py:_ACTIVATION_GRAD2: act''(z) from z, a = act(z) and
+#: g = act'(z), the same formulas (csrc/mlp_rk.cuh act_grad2); the CNF
+#: adjoint's divergence VJP needs them.
+_ACTIVATION_GRAD2 = {
+    "identity": lambda z, a, g: torch.zeros_like(z),
+    "linear": lambda z, a, g: torch.zeros_like(z),
+    "tanh": lambda z, a, g: -2.0 * a * g,
+    "relu": lambda z, a, g: torch.zeros_like(z),
+    "elu": lambda z, a, g: torch.where(z > 0.0, torch.zeros_like(a),
+                                       a + 1.0),
+    "sigmoid": lambda z, a, g: g * (1.0 - 2.0 * a),
+    "softplus": lambda z, a, g: (lambda s: s * (1.0 - s))(_sigmoid_of(z)),
+    "silu": _silu_grad2,
+    "swish": _silu_grad2,
 }
 
 #: Activation name -> csrc/mlp_rk.cuh `Act` code.
@@ -195,6 +224,26 @@ def _check_mlp(name: str, warrays: Tensor, dims, D: int,
         raise ValueError(f"warrays has shape {tuple(warrays.shape)}, "
                          f"expected ({n_w},) for dims {dims}")
     return n_w
+
+
+def _check_rhs(rhs: str) -> bool:
+    """Whether `rhs` names the CNF right-hand side; raise on an unknown
+    one."""
+    if rhs not in ("mlp", "cnf"):
+        raise ValueError(f"unknown rhs {rhs!r} (expected 'mlp' or 'cnf')")
+    return rhs == "cnf"
+
+
+def _check_cnf(name: str, dims, D_state: int) -> None:
+    """Raise unless `dims` is a concat-t flow for the CNF state [z; logp]
+    of D_state = D + 1 columns: D state features and the time in (time
+    last), D outputs."""
+    if dims[0][0] != D_state or dims[-1][1] != D_state - 1:
+        raise ValueError(
+            f"{name}(rhs='cnf'): the flow's dims {dims} must take the "
+            f"{D_state - 1} features of z and the time ({D_state} inputs, "
+            f"time last) and give {D_state - 1} outputs, for the "
+            f"[B, {D_state}] state [z; logp]")
 
 
 def _route(name: str, dims, net_values: int, itemsize: int, tiers=None,
@@ -604,6 +653,43 @@ def _net_plain(packed: Tensor, dims, activation: str, final_activation: str,
     return f
 
 
+def _cnf_net_plain(packed: Tensor, dims, activation: str):
+    """Plain version of K7's forward (pallas_kernels.py:_make_cnf_net) on
+    the CNF state s = [z; logp], [B, D + 1]: the concat-t flow f(t, z)
+    (hidden layers `activation`, the last layer linear) keeping each hidden
+    layer's act'(z), then D forward-mode passes, pass i0 seeded with the
+    first layer's column i0 (never the time column), and the divergence
+    summed in i0 order. Each product sums its inputs in order, as
+    `_net_plain` does. Returns F(t, s) = [f; -div f], [B, D + 1]."""
+    layers = _unpack(packed, dims)
+    L, D = len(dims), dims[-1][1]
+    act, actg = _ACTIVATIONS[activation], _ACTIVATION_GRADS[activation]
+
+    def f(t, s):
+        h = s[:, :D]
+        zs = []
+        for l, (wT, b) in enumerate(layers):
+            n_state = wT.shape[1] - 1 if l == 0 else wT.shape[1]
+            acc = _dot_in_order(wT[:, :n_state], h)
+            if l == 0:
+                acc = acc + wT[:, n_state] * t
+            zs.append(acc + b)
+            h = act(zs[-1]) if l < L - 1 else zs[-1]
+        gs = [actg(z, act(z)) for z in zs[:-1]]
+        div = None
+        for i0 in range(D):
+            du = layers[0][0][:, i0].expand(s.shape[0], -1)
+            if L > 1:
+                du = gs[0] * du
+            for l in range(1, L):
+                v = _dot_in_order(layers[l][0], du)
+                du = v if l == L - 1 else gs[l] * v
+            div = du[:, i0] if div is None else div + du[:, i0]
+        return torch.cat([h, -div[:, None]], dim=1)
+
+    return f
+
+
 #: Samples (rows) and threads of a tier_net block (csrc/tier_net_kernel.cu
 #: kTierNetRows, kTierNetThreads: K8's batch-route block).
 TIER_NET_ROWS = 64
@@ -675,13 +761,16 @@ def mlp_solve_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
                     method: str = "dopri5", safety: float = 0.9,
                     ifactor: float = 10.0, dfactor: float = 0.2,
                     max_steps: int = 2 ** 31 - 1,
-                    tiers=None) -> Tuple[Tensor, Tensor]:
+                    tiers=None, rhs: str = "mlp") -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K2: a host loop of attempts that mirrors
     `_make_solve_kernel` line for line (one synchronisation per attempt).
     Same contract as `mlp_solve`, except that f0 is required."""
     sign_d = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
-    raw_f = _net_plain(warrays, dims, activation, final_activation,
-                       input_power, time_input, tiers)
+    if _check_rhs(rhs):
+        raw_f = _cnf_net_plain(warrays, dims, activation)
+    else:
+        raw_f = _net_plain(warrays, dims, activation, final_activation,
+                           input_power, time_input, tiers)
 
     def f(s, y):
         # Canonical dynamics: g(tau, y) = sign * f(sign * tau, y).
@@ -788,7 +877,7 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
               time_input: bool = False, method: str = "dopri5",
               safety: float = 0.9, ifactor: float = 10.0,
               dfactor: float = 0.2, max_steps: int = 2 ** 31 - 1,
-              tiers=None) -> Tuple[Tensor, Tensor]:
+              tiers=None, rhs: str = "mlp") -> Tuple[Tensor, Tensor]:
     """Whole-solve fused adaptive RK for a general MLP neural ODE: every
     stage evaluation, combine, error norm, controller decision and
     dense-output write of the solve runs in one kernel launch.
@@ -810,6 +899,14 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     rejected, status). Status: 0 OK, 1 MAX_STEPS_REACHED, 2 DT_UNDERFLOW,
     3 INVALID_TIMES (tau not strictly increasing; the output is then zero
     beyond row 0).
+
+    rhs='cnf' (K7's forward in K2, pallas_kernels.py:1291-1294): y0 is the
+    CNF state [z; logp], [B, D + 1], and dims describe the concat-t flow
+    (D + 1 inputs, time last; D outputs); each evaluation is the flow with
+    its last layer linear (final_activation and input_power do not apply)
+    and its exact divergence, F = [f; -div f]. The error norm and the dense
+    output cover all D + 1 columns. f0 is required, as in the reference,
+    and the layers take no reduced tier.
     """
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
@@ -818,6 +915,16 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     if y0.ndim != 2:
         raise ValueError(f"y0 must be [B, D], got {tuple(y0.shape)}")
     dtype = y0.dtype
+    cnf = _check_rhs(rhs)
+    if cnf:
+        if f0 is None:
+            raise ValueError("rhs='cnf' needs an explicit f0 (the plain "
+                             "network only covers the MLP right-hand side)")
+        if tiers is not None and any(t != "highest" for t in tiers):
+            raise ValueError(f"rhs='cnf' takes no reduced tier, got {tiers}")
+        _check_cnf("mlp_solve", dims, y0.shape[1])
+        tiers, time_input = None, True
+        final_activation, input_power = "identity", 1
     if f0 is None:
         sgn = torch.as_tensor(sign, dtype=dtype).to(y0.device)
         tau0 = torch.as_tensor(tau[0], dtype=dtype).to(y0.device)
@@ -830,14 +937,14 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
             activation=activation, final_activation=final_activation,
             input_power=input_power, time_input=time_input, method=method,
             safety=safety, ifactor=ifactor, dfactor=dfactor,
-            max_steps=max_steps, tiers=tiers)
+            max_steps=max_steps, tiers=tiers, rhs=rhs)
 
-    global mlp_solve_launches, dot_tier_launches
+    global mlp_solve_launches, dot_tier_launches, cnf_solve_launches
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"mlp_solve takes float32 or float64, got {dtype}")
     B, D = y0.shape
     T = tau.shape[0]
-    n_w = _check_mlp("mlp_solve", warrays, dims, D, time_input, tiers)
+    n_w = _check_mlp("mlp_solve", warrays, dims, D - cnf, time_input, tiers)
     route = _route("mlp_solve", dims, n_w, y0.element_size(), tiers)
     if max_steps < 1:
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
@@ -854,7 +961,11 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     dims_c = _dims_arg(dims)
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
-    work = torch.empty((S + 5) * B * D, dtype=dtype, device=y0.device)
+    # rhs='cnf' adds a sample's act'(z) rows and its f (csrc/cnf_net.cuh
+    # cnf_eval) after the solve's own rows.
+    cnf_rows = sum(dout for _, dout in dims) + D - 1 if cnf else 0
+    work = torch.empty(((S + 5) * D + cnf_rows) * B, dtype=dtype,
+                       device=y0.device)
     n_batch = (_tier_work_bytes(dims, _pad16(B), y0.element_size())
                if route == ROUTE_BATCH else 0)
     batch_work = torch.empty(n_batch, dtype=torch.uint8, device=y0.device)
@@ -873,8 +984,9 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
                  _ACT_CODES[final_activation], int(input_power),
                  int(time_input), S, tab.order, int(tab.fsal), c, a, b_sol,
                  b_err, c_mid, route, _tiers_arg(tiers), _ptr(batch_work),
-                 n_batch, _stream(y0.device))
+                 n_batch, int(cnf), _stream(y0.device))
     _build.check(err, "mlp_solve launch")
     mlp_solve_launches += 1
     dot_tier_launches += route == ROUTE_BATCH
+    cnf_solve_launches += cnf
     return out, stats

@@ -91,8 +91,11 @@ def solve_adaptive(prob: CanonicalProblem, cfg: AdaptiveConfig, rtol, atol,
     f = prob.func(t, y0)
     nfe = 1
     if first_step is None:
+        # The step size is controller state: gradients take the realized
+        # steps as fixed (the reference's stop_gradient on dt0).
         dt = select_initial_step(prob.func, t, y0, f, tab.order - 1, rtol,
-                                 atol, cfg.norm).cpu().to(prob.time_dtype)
+                                 atol, cfg.norm).detach().cpu().to(
+                                     prob.time_dtype)
         nfe += 1
     else:
         # Clamp to dt_min: dt = 0 would be accepted forever without
