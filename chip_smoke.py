@@ -147,26 +147,29 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 22. K7's forward in K2 (`mlp_solve(rhs='cnf')`) at BASELINE.md:83's CNF
     configuration: the 3 -> 32 -> 32 -> 2 tanh flow (`CNFDynamics` from a
     seeded generator), 4096 two-moons points, t = [1, 0], dopri5 at rtol
-    1e-5, atol 1e-7, f0 and the first step as `fast.cnf_log_prob_fused`
-    makes them: against its plain version in float32 and float64 (bitwise,
-    identical stats), run to run bitwise. `fast.cnf_log_prob_fused`: one K2
-    launch with K7 (counters zeroed before, read after), status 0, within
-    1e-4 of the generic `models.cnf.log_prob(trace='exact')` on the card.
-    The kernel (CUDA events), its plain version (host clock), the entry
-    point and the generic path timed; the bound from the run's NFE.
+    1e-5, atol 1e-7. `fast.cnf_log_prob_fused` in float32 and float64: one
+    K2 launch with K7 each (counters zeroed before, read after), status 0;
+    that launch, recorded with its inputs (`_Recording`), against its plain
+    version on the same inputs (bitwise, identical stats) and run again
+    (bitwise); float32 within 1e-4 of the generic
+    `models.cnf.log_prob(trace='exact')` on the card. The kernel (CUDA
+    events), its plain version (host clock), the entry point and the
+    generic path timed; the bound from the run's NFE.
 23. K7's adjoint in K3 (`mlp_adjoint_solve(rhs='cnf')`) on [22]'s
     trajectory with g = d(-mean log p)/d out, B = 4096: against its plain
     version in float64 and float32 (bitwise, identical stats; one K3 launch
     each), run to run bitwise; timed with its bound. One
     `fast.cnf_log_prob_train` step at B = 4096: two chunks of 2048, so two
-    K2 and two K3 launches, both with K7; its gradients within 1e-3
-    relative of autograd through the generic `models.cnf.log_prob`; both
-    steps timed on the host clock.
-24. Three Adam steps of `examples/cnf.py --fused` at its defaults (B = 512
-    two moons, hidden 64, lr 1e-3, 256 attempts at most): one K2 and one K3
-    with K7 a step, finite NLL and gradients; the median step time; then
-    `fast.cnf_sample_fused` of 1000 points: one K2 of the plain concat-t
-    MLP, finite.
+    K2 and two K3 launches, both with K7; the first chunk's K2 and K3,
+    recorded, against their plain versions (bitwise); its gradients within
+    1e-3 relative of autograd through the generic `models.cnf.log_prob`;
+    then both steps timed warm on the host clock (median of 3).
+24. `examples/cnf.py --fused` at its defaults (B = 512 two moons, hidden
+    64, lr 1e-3, 256 attempts at most): a first Adam step whose K2 and K3
+    (with K7) are recorded and held to their plain versions (bitwise,
+    identical stats), then three more timed (median); one K2 and one K3
+    a step, finite NLL and gradients; then `fast.cnf_sample_fused` of 1000
+    points: one K2 of the plain concat-t MLP, finite.
 
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
@@ -180,7 +183,8 @@ K4. K7 has two records, its forward in K2 (`cnf_forward`, launches in
 [24]'s steps) and its adjoint in K3 (`cnf_adjoint`), each with the
 nearest library-built path's time beside it: the generic engine with
 autograd's exact trace (`generic_engine_ms`, the density solve;
-`generic_train_step_ms`, a training step). The MLP kernels' records also carry their wide-route time (`wide_ms`,
+`generic_train_step_ms`, a training step, beside the fused step's
+`train_step_ms`). The MLP kernels' records also carry their wide-route time (`wide_ms`,
 phases 18-20), and K2's and K8's records their 'highest' time on the batch
 route (`wide_batch_route_ms`). The run's total time is printed before them. The last line
 is {"ok": true, "device": {...}}.
@@ -349,6 +353,62 @@ def _host_call(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def _clone(v):
+    """v with every tensor in it (through tuples, lists and dicts) cloned."""
+    import torch
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, (tuple, list)):
+        return type(v)(_clone(x) for x in v)
+    if isinstance(v, dict):
+        return {k: _clone(x) for k, x in v.items()}
+    return v
+
+
+class _Recording:
+    """`with _Recording(module, name) as rec:` passes every call of
+    module.name through unchanged and keeps its (args, kwargs, result),
+    tensors cloned, in rec.calls: the kernel launch that a public entry
+    point makes is then held against its plain version on its own
+    inputs."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.fn = fn = getattr(self.module, self.name)
+
+        def record(*args, **kw):
+            kept = _clone(args), _clone(kw)
+            res = fn(*args, **kw)
+            self.calls.append((*kept, _clone(res)))
+            return res
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _hold_to_plain(call, plain, what: str):
+    """A recorded launch (args, kwargs, result, the stats last) against its
+    plain version on the same inputs: every output bitwise equal and the
+    stats identical, else AssertionError. Returns (largest |kernel -
+    plain|, the plain version's host ms)."""
+    import torch
+    args, kw, got = call
+    ref, plain_ms = _host_call(lambda: plain(*args, **kw))
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:-1], ref[:-1]))
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    print(f"{what}: kernel stats {got[-1].tolist()}, plain "
+          f"{ref[-1].tolist()}; max |kernel - plain| {err:.3e}; bitwise equal "
+          f"to plain: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{what} differs from its plain version")
+    return err, plain_ms
 
 
 #: Largest and mean |kernel - plain| a float32 tier may show, from the
@@ -743,32 +803,57 @@ def _wide_tier(smi: str, dev) -> dict:
 CNF_D, CNF_H, CNF_B, CNF_RTOL, CNF_ATOL = 2, 32, 4096, 1e-5, 1e-7
 
 
+def _cnf_pass_flops(dims) -> int:
+    """One forward-mode pass of K7 for one sample (`cnf_eval`,
+    `cnf_aug_eval` in csrc/cnf_net.cuh): act' times the seeded column on
+    the first layer's outputs, then on each later hidden layer a multiply
+    and an add a weight with the multiply by act' (2 din an output), and the
+    one output of the last layer that enters the trace (2 din - 1)."""
+    if len(dims) == 1:
+        return 0
+    return (dims[0][1] + sum(2 * i * o for i, o in dims[1:-1])
+            + 2 * dims[-1][0] - 1)
+
+
 def _cnf_eval_flops(dims) -> int:
-    """One K7 forward evaluation for one sample: the flow (`_mlp_flops`)
-    and D forward-mode passes (a multiply by act' on the first layer's
-    outputs; a multiply and an add a weight and a multiply by act' on each
-    hidden layer; one output of the last layer), and the divergence's
-    adds."""
+    """One K7 forward evaluation for one sample, as `cnf_eval` does it: the
+    flow (a multiply and an add a weight with the bias, 2 din an output;
+    the activation and act' on a hidden output, 3), the D passes, the
+    divergence's D - 1 adds and its sign."""
     D = dims[-1][1]
-    jvp = dims[0][1] + sum(2 * i * o + o for i, o in dims[1:-1]) \
-        + 2 * dims[-1][0]
-    return _mlp_flops(dims) + D * (jvp + 1)
+    n_hid = sum(o for _, o in dims[:-1])
+    return (sum(2 * i * o for i, o in dims) + 3 * n_hid
+            + D * _cnf_pass_flops(dims) + D)
 
 
 def _cnf_stage_flops(dims) -> int:
-    """One K7 adjoint stage for one sample: the forward with act'' (about
-    the flow's operations plus 2 an output), the D passes, part A's VJP (a
-    multiply and an add a weight, a multiply an output), part B's D reverse
-    passes and the delta injection (as many again each), and the sample's
-    share of each weight's batch sum: 2 D + 3 multiplies and adds a
-    weight."""
-    D = dims[-1][1]
+    """One K7 adjoint stage for one sample, as `cnf_aug_eval` and
+    `cnf_weight_x` (csrc/cnf_net.cuh) do it: the flow with act' and act''
+    (5 a hidden output) and -sf F; the D passes; part A's VJP (a multiply
+    and an add a weight, 2 dout - 1 an input, and act' on a hidden layer's
+    inputs); part B's D reverse passes (the products past the first layer,
+    3 a hidden output for x and zbar, and zbar's adds over the passes); the
+    delta injection (the hidden layers' products and the deltas' adds); v_y
+    and v_t (3 D + 3); and the sample's share of each batch sum, the
+    kernel's own arithmetic in `cnf_weight_x`: a weight past the first
+    layer takes the D direct products (2 D - 1; on the first layer the
+    direct term is a read), a hidden layer's delta term 2, dz h minus those
+    2 and the sum's add 1 (2 D + 4 on a hidden layer past the first); a
+    bias dz minus its delta on a hidden layer, and the add."""
+    L, D = len(dims), dims[-1][1]
+    hid = dims[:-1]
     n_mac = sum(i * o for i, o in dims)
-    n_out = sum(o for _, o in dims)
-    n_w = n_mac + n_out
-    jvp = _cnf_eval_flops(dims) - _mlp_flops(dims)
-    return (_mlp_flops(dims) + 2 * n_out + jvp + (D + 2) * (2 * n_mac + n_out)
-            + 2 * (2 * D + 3) * n_w)
+    n_hid = sum(o for _, o in hid)
+    forward = 2 * n_mac + 5 * n_hid + D
+    passes = D * _cnf_pass_flops(dims) + D
+    part_a = 2 * n_mac - dims[0][0]
+    part_b = (D * (sum(i * (2 * o - 1) for i, o in dims[1:]) + 3 * n_hid)
+              + (D - 1) * n_hid)
+    delta = (sum(i * (2 * o - 1) for i, o in hid)
+             + sum(i for i, _ in hid[1:]) + n_hid - (hid[-1][1] if hid else 0))
+    sums = sum(i * o * ((2 * D - 1 if l else 0) + 2 * (l < L - 1) + 3)
+               + o * (1 + (l < L - 1)) for l, (i, o) in enumerate(dims))
+    return forward + passes + part_a + part_b + delta + 3 * D + 3 + sums
 
 
 def _cnf_tier(smi: str, dev) -> dict:
@@ -789,83 +874,55 @@ def _cnf_tier(smi: str, dev) -> dict:
     W32 = [(w.detach(), b.detach()) for w, b in fast.weights_from_linears(flow)]
     dims = tuple((w.shape[0], w.shape[1]) for w, _ in W32)
 
-    def inputs(dtype):
-        """(packed, dims, state0, tau, sign, f0, dt0) of the density solve at
-        dtype, as `fast._cnf_forward_solve` builds them."""
+    # [22] K7's forward in K2: the launch that fast.cnf_log_prob_fused makes,
+    # held against its plain version on its own inputs.
+    k2 = {}
+    for dtype in (f32, f64):
         W = [(w.to(dtype), b.to(dtype)) for w, b in W32]
         x = torch.tensor(x_np, dtype=dtype, device=dev)
-        spec = fast.MLPSpec(activation="tanh", time_input=True)
-        aug = mcnf.augmented_dynamics(
-            lambda tt, zz: fast.mlp_apply(spec, W, zz, tt), trace="exact")
-        s0 = torch.cat([x, torch.zeros(B, 1, dtype=dtype, device=dev)], 1)
-        tau = torch.tensor([-1.0, 0.0], dtype=dtype)
-
-        def g(s, st):
-            dz, dl = aug(-s, (st[:, :D], st[:, D]))
-            return -torch.cat([dz, dl[:, None]], 1)
-
-        with torch.no_grad():
-            f0 = g(tau[0].to(dev), s0).contiguous()
-            dt0 = fast.select_initial_step(
-                g, tau[0].to(dev), s0, f0, DOPRI5.order - 1,
-                torch.tensor(CNF_RTOL, dtype=dtype, device=dev),
-                torch.tensor(CNF_ATOL, dtype=dtype, device=dev))
-        packed, _ = ck.pack_mlp_weights(W, dtype, dev)
-        return W, x, (packed, dims, s0, tau, dt0, CNF_RTOL, CNF_ATOL, -1.0), \
-            dict(f0=f0, activation="tanh", time_input=True, rhs="cnf")
-
-    # [22] K7's forward in K2 against its plain version.
-    k2_out, k2_args = {}, {}
-    for dtype in (f32, f64):
-        W, x, args, kw = inputs(dtype)
-        k2_args[dtype] = (args, kw)
-        out, st = ck.mlp_solve(*args, **kw)
-        again, st2 = ck.mlp_solve(*args, **kw)
-        (ref, st_r), plain_ms = _host_call(lambda: ck.mlp_solve_plain(*args,
-                                                                     **kw))
+        ck.reset_launch_counts()
+        with _Recording(fast, "mlp_solve") as k2_rec:
+            lp, st = fast.cnf_log_prob_fused(W, x, rtol=CNF_RTOL,
+                                             atol=CNF_ATOL)
         torch.cuda.synchronize()
-        same = torch.equal(out, ref) and st.tolist() == st_r.tolist()
-        bitwise = torch.equal(out, again) and torch.equal(st, st2)
-        err = float((out - ref).abs().max())
-        print(f"[22] K7 forward (K2 rhs='cnf') {dtype}, B = {B}, flow {dims}: "
-              f"kernel stats {st.tolist()}, plain {st_r.tolist()}; max "
-              f"|kernel - plain| {err:.3e}; bitwise equal to plain: {same}; "
-              f"two kernel runs bitwise equal: {bitwise}", flush=True)
-        if not (same and bitwise) or st[3].item() != 0 \
-                or not torch.isfinite(out).all():
-            raise AssertionError(f"K7 forward {dtype} differs from its plain "
-                                 "version or failed")
-        k2_out[dtype] = (out, st.tolist())
+        fwd_launches = {"mlp_solve": ck.mlp_solve_launches,
+                        "cnf_solve": ck.cnf_solve_launches}
+        print(f"[22] fast.cnf_log_prob_fused {dtype}, B = {B}, flow {dims}: "
+              f"stats {st}, launches {fwd_launches}", flush=True)
+        if fwd_launches != {"mlp_solve": 1, "cnf_solve": 1} \
+                or len(k2_rec.calls) != 1 or st.status != 0 \
+                or lp.shape != (B,) or not torch.isfinite(lp).all():
+            raise AssertionError(f"cnf_log_prob_fused {dtype} launches "
+                                 f"{fwd_launches}, stats {st}")
+        k2[dtype] = call = k2_rec.calls[0]
+        err, plain_ms = _hold_to_plain(
+            call, ck.mlp_solve_plain, f"[22] K7 forward (K2 rhs='cnf') {dtype}")
+        args, kw, got = call
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, ck.mlp_solve(*args, **kw))):
+            raise AssertionError(f"K7 forward {dtype}: two kernel runs differ")
         if dtype == f32:
             rec["fwd_err"], rec["fwd_plain_ms"] = err, plain_ms
+            lp32 = lp
     # The public entry point against the generic engine's exact trace.
-    W, x, args, kw = inputs(f32)
-    ck.reset_launch_counts()
-    lp, st = fast.cnf_log_prob_fused(W, x, rtol=CNF_RTOL, atol=CNF_ATOL)
-    torch.cuda.synchronize()
-    fwd_launches = {"mlp_solve": ck.mlp_solve_launches,
-                    "cnf_solve": ck.cnf_solve_launches}
+    W, x = W32, torch.tensor(x_np, device=dev)
     with torch.no_grad():
         lp_g = mcnf.log_prob(flow, x, rtol=CNF_RTOL, atol=CNF_ATOL,
                              trace="exact")
-    gap = float((lp - lp_g).abs().max())
-    print(f"[22] fast.cnf_log_prob_fused: stats {st}, launches "
-          f"{fwd_launches}; max |fused - generic log_prob(trace='exact')| "
-          f"{gap:.3e} (bar 1e-4)", flush=True)
-    if fwd_launches != {"mlp_solve": 1, "cnf_solve": 1} or st.status != 0:
-        raise AssertionError(f"cnf_log_prob_fused launches {fwd_launches}, "
-                             f"stats {st}")
-    if gap > 1e-4 or lp.shape != (B,) or not torch.isfinite(lp).all():
+    gap = float((lp32 - lp_g).abs().max())
+    print(f"[22] two kernel runs bitwise equal; max |fused - generic "
+          f"log_prob(trace='exact')| {gap:.3e} (bar 1e-4)", flush=True)
+    if gap > 1e-4:
         raise AssertionError("cnf_log_prob_fused differs from the generic "
                              "log_prob")
-    args, kw = k2_args[f32]
+    args, kw, _ = k2[f32]
     fwd_ms = _timed(lambda: ck.mlp_solve(*args, **kw))
     fused_ms = _timed(lambda: fast.cnf_log_prob_fused(
         W, x, rtol=CNF_RTOL, atol=CNF_ATOL), reps=3)
     with torch.no_grad():
         gen_ms = _timed(lambda: mcnf.log_prob(flow, x, rtol=CNF_RTOL,
                                               atol=CNF_ATOL), reps=3)
-    nfe, acc, rej, _ = k2_out[f32][1]
+    nfe, acc, rej, _ = k2[f32][2][1].tolist()
     n_w = sum(i * o + o for i, o in dims)
     rec["fwd_bound"] = _bound(
         B * (nfe * _cnf_eval_flops(dims)
@@ -883,11 +940,11 @@ def _cnf_tier(smi: str, dev) -> dict:
     # [23] K7's adjoint in K3 on [22]'s trajectory, g = d(-mean log p)/dout.
     k3_args = {}
     for dtype in (f64, f32):
-        out = k2_out[dtype][0]
+        packed, out = k2[dtype][0][0], k2[dtype][2][0]
         g = torch.zeros_like(out)
         g[-1, :, :D] = out[-1, :, :D] / B
         g[-1, :, D] = 1.0 / B
-        args = (k2_args[dtype][0][0], dims, out.contiguous(), g,
+        args = (packed, dims, out.contiguous(), g,
                 torch.tensor([-1.0, 0.0], dtype=dtype), 0.1, CNF_RTOL,
                 CNF_ATOL, -1.0)
         kw = dict(activation="tanh", rhs="cnf")
@@ -896,22 +953,16 @@ def _cnf_tier(smi: str, dev) -> dict:
         got = ca.mlp_adjoint_solve(*args, **kw)
         torch.cuda.synchronize()
         sweep_launches = ca.cnf_adjoint_launches
-        again = ca.mlp_adjoint_solve(*args, **kw)
-        ref, plain_ms = _host_call(lambda: ca.mlp_adjoint_solve_plain(*args,
-                                                                     **kw))
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, ref))
-        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        err = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
-        print(f"[23] K7 adjoint (K3 rhs='cnf') {dtype}, B = {B}: kernel stats "
-              f"{got[3].tolist()}, plain {ref[3].tolist()}; max |kernel - "
-              f"plain| {err:.3e}; bitwise equal to plain: {same}; two kernel "
-              f"runs bitwise equal: {bitwise}; K3 launches {sweep_launches}",
-              flush=True)
-        if not (same and bitwise) or got[3][3].item() != 0 or sweep_launches \
-                != 1 or not all(torch.isfinite(v).all() for v in got[:3]):
-            raise AssertionError(f"K7 adjoint {dtype} differs from its plain "
-                                 "version or failed")
+        err, plain_ms = _hold_to_plain(
+            (args, kw, got), ca.mlp_adjoint_solve_plain,
+            f"[23] K7 adjoint (K3 rhs='cnf') {dtype}, B = {B}")
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(got, ca.mlp_adjoint_solve(*args, **kw)))
+        print(f"[23] two kernel runs bitwise equal: {bitwise}; K3 launches "
+              f"{sweep_launches}", flush=True)
+        if not bitwise or got[3][3].item() != 0 or sweep_launches != 1 \
+                or not all(torch.isfinite(v).all() for v in got[:3]):
+            raise AssertionError(f"K7 adjoint {dtype} failed")
         if dtype == f32:
             rec.update(adj_err=err, adj_plain_ms=plain_ms,
                        adj_stats=got[3].tolist())
@@ -929,7 +980,8 @@ def _cnf_tier(smi: str, dev) -> dict:
           f"sample and stage)", flush=True)
 
     # A training step at B = 4096 (two chunks of 2048) against autograd
-    # through the generic engine.
+    # through the generic engine. The first step's launches are recorded,
+    # and its first chunk's K2 and K3 held to their plain versions.
     b_max = fast.cnf_train_block_size(D, [o for _, o in dims])
     Wg = [(w.clone().requires_grad_(), b.clone().requires_grad_())
           for w, b in W32]
@@ -943,12 +995,27 @@ def _cnf_tier(smi: str, dev) -> dict:
 
     for mod in (ck, ca):
         mod.reset_launch_counts()
-    _, train_ms = _host_call(fused_step)
+    with _Recording(fast, "mlp_solve") as t_k2, \
+            _Recording(fast, "mlp_adjoint_solve") as t_k3:
+        fused_step()
+    torch.cuda.synchronize()
     train_launches = {"mlp_solve": ck.mlp_solve_launches,
                       "cnf_solve": ck.cnf_solve_launches,
                       "mlp_adjoint_solve": ca.mlp_adjoint_solve_launches,
                       "cnf_adjoint": ca.cnf_adjoint_launches}
     fused_g = [v.grad.clone() for pair in Wg for v in pair]
+    f_nfe, b_nfe = meter.f_nfe, meter.b_nfe
+    if train_launches != {"mlp_solve": 2, "cnf_solve": 2,
+                          "mlp_adjoint_solve": 2, "cnf_adjoint": 2} \
+            or len(t_k2.calls) != 2 or len(t_k3.calls) != 2:
+        raise AssertionError(f"training launches {train_launches}")
+    chunk = t_k2.calls[0][0][2].shape[0]
+    errs = [_hold_to_plain(t_k2.calls[0], ck.mlp_solve_plain,
+                           f"[23] training step, chunk 1 of 2 ({chunk} "
+                           "samples): K2 with K7")[0],
+            _hold_to_plain(t_k3.calls[0], ca.mlp_adjoint_solve_plain,
+                           f"[23] training step, chunk 1 of 2 ({chunk} "
+                           "samples): K3 with K7")[0]]
     gflow = mcnf.CNFDynamics(D, CNF_H, 3, device=dev)
     with torch.no_grad():
         for layer, (w, b) in zip(gflow.layers, W32):
@@ -960,25 +1027,29 @@ def _cnf_tier(smi: str, dev) -> dict:
                                          atol=CNF_ATOL))
         loss.backward()
 
-    _, gen_train_ms = _host_call(generic_step)
-    gen_g = [v for layer in gflow.layers
+    generic_step()
+    gen_g = [v.clone() for layer in gflow.layers
              for v in (layer.weight.grad.t(), layer.bias.grad)]
     gap = max(_rel(a, b) for a, b in zip(fused_g, gen_g))
     print(f"[23] cnf_log_prob_train step at B = {B} (chunks of {b_max}): "
-          f"launches {train_launches}; NFE forward {meter.f_nfe}, backward "
-          f"{meter.b_nfe}; gradients against autograd through the generic "
+          f"launches {train_launches}; NFE forward {f_nfe}, backward "
+          f"{b_nfe}; gradients against autograd through the generic "
           f"log_prob {gap:.3e} relative (bar 1e-3)", flush=True)
-    print(f"[23] {smi}: training step {train_ms:.3f} ms (K2 + K3 a chunk) "
-          f"vs generic engine + autograd {gen_train_ms:.3f} ms (host clock, "
-          "one step each)", flush=True)
-    if train_launches != {"mlp_solve": 2, "cnf_solve": 2,
-                          "mlp_adjoint_solve": 2, "cnf_adjoint": 2}:
-        raise AssertionError(f"training launches {train_launches}")
     if gap > 1e-3 or not all(torch.isfinite(v).all() for v in fused_g):
         raise AssertionError("fused CNF gradients differ from the generic")
-    rec["gen_train_ms"] = gen_train_ms
+    # Both steps timed warm: after the checked step, the median of three.
+    train_ms, train_all = _host_ms(fused_step)
+    gen_train_ms, gen_all = _host_ms(generic_step)
+    print(f"[23] {smi}: training step {train_ms:.3f} ms (K2 + K3 a chunk; "
+          f"{', '.join(f'{v:.3f}' for v in train_all)}) vs generic engine + "
+          f"autograd {gen_train_ms:.3f} ms "
+          f"({', '.join(f'{v:.3f}' for v in gen_all)}); host clock, median "
+          "of 3 after a first step", flush=True)
+    rec.update(gen_train_ms=gen_train_ms, train_ms=train_ms)
 
-    # [24] the example: three Adam steps of examples/cnf.py --fused.
+    # [24] the example: Adam steps of examples/cnf.py --fused. The first
+    # step's launches are recorded and held to their plain versions, then
+    # three more are timed.
     eargs = cnf_example.parse_args(["--fused", "--device", "cuda"])
     rng = np.random.RandomState(eargs.seed)
     eflow = mcnf.CNFDynamics(D, eargs.hidden, device=dev,
@@ -1003,21 +1074,33 @@ def _cnf_tier(smi: str, dev) -> dict:
 
     for mod in (ck, ca):
         mod.reset_launch_counts()
+    with _Recording(fast, "mlp_solve") as e_k2, \
+            _Recording(fast, "mlp_adjoint_solve") as e_k3:
+        adam_step()
     ex_ms, ex_all = _host_ms(adam_step, reps=TRAIN_STEPS)
     ex_launches = {"cnf_solve": ck.cnf_solve_launches,
                    "cnf_adjoint": ca.cnf_adjoint_launches}
-    print(f"[24] examples/cnf.py --fused x{TRAIN_STEPS} (B = "
+    steps = TRAIN_STEPS + 1
+    print(f"[24] examples/cnf.py --fused x{steps} (B = "
           f"{eargs.batch_size}, hidden {eargs.hidden}): launches "
           f"{ex_launches}; NLL {', '.join(f'{v:.4f}' for v in losses)}; NFE "
           f"forward {emeter.f_nfe}, backward {emeter.b_nfe}", flush=True)
     print(f"[24] {smi}: CNF example step {ex_ms:.3f} ms median of "
-          f"{TRAIN_STEPS} ({', '.join(f'{v:.3f}' for v in ex_all)})",
-          flush=True)
-    if ex_launches != {"cnf_solve": TRAIN_STEPS,
-                       "cnf_adjoint": TRAIN_STEPS}:
+          f"{TRAIN_STEPS} after the first "
+          f"({', '.join(f'{v:.3f}' for v in ex_all)})", flush=True)
+    if ex_launches != {"cnf_solve": steps, "cnf_adjoint": steps} \
+            or len(e_k2.calls) != 1 or len(e_k3.calls) != 1:
         raise AssertionError(f"CNF example launches {ex_launches}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"CNF example losses {losses}")
+    errs += [_hold_to_plain(e_k2.calls[0], ck.mlp_solve_plain,
+                            f"[24] first step's K2 with K7 (B = "
+                            f"{eargs.batch_size}, hidden {eargs.hidden})")[0],
+             _hold_to_plain(e_k3.calls[0], ca.mlp_adjoint_solve_plain,
+                            f"[24] first step's K3 with K7 (B = "
+                            f"{eargs.batch_size}, hidden {eargs.hidden})")[0]]
+    rec["fwd_err"] = max(rec["fwd_err"], errs[0], errs[2])
+    rec["adj_err"] = max(rec["adj_err"], errs[1], errs[3])
     ck.reset_launch_counts()
     ew = [(m.weight.detach().t().contiguous(), m.bias.detach())
           for m in eflow.layers]
@@ -2009,6 +2092,7 @@ def main() -> int:
          "max_abs_err": cnf["adj_err"], "ms": cnf["adj_ms"],
          "plain_ms": cnf["adj_plain_ms"], "bound_ms": cnf["adj_bound"][0],
          "bound_by": cnf["adj_bound"][1], "library_ms": None,
+         "train_step_ms": cnf["train_ms"],
          "generic_train_step_ms": cnf["gen_train_ms"]},
     ]
     wide_ms = {"mlp_solve": wide["k2_highest"][0],

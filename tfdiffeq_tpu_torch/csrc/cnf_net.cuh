@@ -31,8 +31,8 @@
 // values), as K3's batch sums read them. Bound on the H100: one sample's
 // forward and D passes are about (D + 1) times an MLP evaluation, the
 // adjoint about 2 D + 3 times, a dependent chain per thread; in K3 each
-// weight's batch sum reads 2 D + 4 workspace values a sample where the MLP
-// reads 2, on K3's one SM.
+// weight's batch sum reads up to 2 D + 3 workspace values a sample where
+// the MLP reads 2, on K3's one SM.
 #pragma once
 
 #include "mlp_rk.cuh"
