@@ -171,6 +171,36 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     a step, finite NLL and gradients; then `fast.cnf_sample_fused` of 1000
     points: one K2 of the plain concat-t MLP, finite.
 
+25. K11 `mlp_solve_vcabm` at the VCABM protocol (bench.py:237-253: the
+    spiral, y [4096, 2], hidden 50, 64 outputs over [0, 25], rtol = atol =
+    1e-6, first step 0.01, max_order 12): the launch that
+    `fast.solve_mlp(method='adams')` makes (counter zeroed before, read
+    after: one K11), recorded with its inputs (`_Recording`) and held to
+    its plain version (bitwise, identical stats) in float32 and float64,
+    and in float64 at max_order 5 through `fast.solve_mlp_spec`; each run
+    again bitwise. Status 0, finite [64, 4096, 2]; the gap to dopri5 (K2)
+    printed; at B = 96 (12 outputs over [0, 5]) within 1e-3 relative of the
+    generic `solve(ODEFunc, method='adams')`. K11 and its plain version
+    timed with CUDA events, the generic engine on the host clock (median
+    of 3 after one more); the bound counts the live phi rows at the orders
+    the run took (`_Orders`).
+26. K10 `mlp_solve_adams` at the bench widths with bench.py:205's 512
+    steps: fixed_adams and explicit_adams (max_order 4, max_iters 4) in
+    float32 and float64, and both on the default grid (outputs at t), each
+    the launch that `fast.solve_mlp_spec` makes (one K10), held to its plain
+    version (bitwise, identical stats, nfe 1 + 3 x 4 + 5 or 1 a step) and
+    run again bitwise; at B = 96 within 1e-5 relative of the generic
+    engine; both methods timed against their plain versions and the
+    generic engine.
+27. Three SGD steps of the spiral (bench.py:788-838) through
+    `fast.odeint_adjoint_mlp(method='adams', adjoint_method='dopri5')`:
+    K11 = K3 = 3 launches and no K2, forward status 0, finite gradients,
+    the weights move; one step with `method='fixed_adams',
+    adjoint_method='rk4', num_steps=512` and 8 backward steps an interval
+    (phase 12's): K10 = K9 = 1. At B = 96 the Adams-forward gradients
+    agree with the generic `odeint_adjoint(method='adams',
+    adjoint_method='dopri5')` within 1e-3 relative.
+
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
 from its plain version, its time and its plain version's, and its bound,
@@ -179,7 +209,11 @@ larger of its operations over the float32 peak of 67 TFLOP/s, or for K4's
 tier products the bf16 tensor-core peak of 989 TFLOP/s, and the bytes it
 must read and write once over 3.35 TB/s). No single PyTorch call computes
 any of these whole solves, steps or sweeps, so library_ms is null but for
-K4. K7 has two records, its forward in K2 (`cnf_forward`, launches in
+K4. K10 (`adams_solve`: fixed_adams, with explicit_adams' numbers under
+`explicit_*`) and K11 (`vcabm_solve`) carry the generic engine's time
+(`generic_engine_ms`), their launches in [27]'s training steps, and K11 the
+Adams-forward training step (`train_step_ms`). K7 has two records, its
+forward in K2 (`cnf_forward`, launches in
 [24]'s steps) and its adjoint in K3 (`cnf_adjoint`), each with the
 nearest library-built path's time beside it: the generic engine with
 autograd's exact trace (`generic_engine_ms`, the density solve;
@@ -1117,6 +1151,345 @@ def _cnf_tier(smi: str, dev) -> dict:
     return rec
 
 
+ADAMS_STEPS = 512        # bench.py:205's fixed-step budget
+
+
+def _adams_step_flops(max_order: int, max_iters: int, implicit: bool) -> int:
+    """K10's combines for one state element of an Adams step: the
+    predictor (a multiply and an add a history row, then y0 + dt acc), the
+    Kahan update and the Hermite coefficients (12); fixed_adams adds the
+    history part and, each corrector iteration, y_next (4), the scale (5)
+    and the norm's term (4)."""
+    fl = 2 * max_order + 2 + 12
+    if implicit:
+        fl += 2 * (max_order - 1) + 13 * max_iters
+    return fl
+
+
+def _vcabm_attempt_flops(order: int) -> int:
+    """K11's phi work for one state element of an attempt at `order`,
+    counting the live rows only: the explicit phi rows (a multiply each),
+    the predictor (a multiply and an add a term, then y + dt acc), the
+    implicit phi rows (a subtract and an add each), the corrector (2) and
+    the error's scale, term and square (9)."""
+    return ((order - 1) + 2 * max(order - 1, 1) + 2 + 2 * (order + 1) + 2
+            + 9)
+
+
+def _vcabm_accept_flops(order: float) -> float:
+    """On accept: the errors at orders k - 1 and k - 2 (4 each), the scale
+    (5), the new phi rows (2 each of order + 2) and the error at k + 1
+    (4)."""
+    return 8 + 5 + 2 * (order + 2) + 4
+
+
+class _Orders:
+    """`with _Orders() as o:` keeps the order of every attempt of a plain
+    K11 run (its rejection controller, `cuda_adams._vcabm_dt(...,
+    accepted=False)`, runs once an attempt at the attempt's order); the
+    plain run takes the kernel's steps bit for bit."""
+
+    def __enter__(self):
+        from tfdiffeq_tpu_torch.ops import cuda_adams as cad
+        self.mod, self.fn, self.orders = cad, cad._vcabm_dt, []
+
+        def record(dt, ratio, order, accepted, *a, **k):
+            if not accepted:
+                self.orders.append(order)
+            return self.fn(dt, ratio, order, accepted, *a, **k)
+
+        cad._vcabm_dt = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._vcabm_dt = self.fn
+
+
+def _adams_tier(smi: str, dev) -> dict:
+    """Phases 25-27: the Adams family (K10 and K11) at the bench widths.
+    Returns the numbers that the kernel records take."""
+    import torch
+    from tfdiffeq_tpu_torch import convert, fast, odeint_adjoint, solve
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, \
+        cuda_adjoint as ca, cuda_fixed as cf, cuda_kernels as ck
+    from tfdiffeq_tpu_torch.ops.tableaus import RK4
+    f32, f64 = torch.float32, torch.float64
+    spec = fast.MLPSpec(activation="tanh", input_power=3)
+    mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
+    n_w = D * H + H + H * D + D
+    rec = {}
+
+    def bench_w(dtype, B_=B):
+        p, y, p_np = _bench_params(B_, dtype, dev)
+        return p, [(p["w1"], p["b1"]), (p["w2"], p["b2"])], y, p_np
+
+    _, _, _, p_np = bench_w(f32)
+    func = convert.ode_func_from_flax({"params": {
+        "Dense_0": {"kernel": p_np["w1"], "bias": p_np["b1"]},
+        "Dense_1": {"kernel": p_np["w2"], "bias": p_np["b2"]}}},
+        device=dev, dtype=f32)
+
+    # [25] K11 at the VCABM protocol (bench.py:237-253): the launch that
+    # the public entry point makes, held against its plain version on its
+    # own inputs in float32 and float64, then again at max_order 5.
+    k11 = {}
+    for dtype, order in ((f32, 12), (f64, 12), (f64, 5)):
+        p, W, y, _ = bench_w(dtype)
+        t = torch.linspace(0.0, SPAN, T_OUT, dtype=dtype)
+        cad.reset_launch_counts()
+        with _Recording(fast, "mlp_solve_vcabm") as r:
+            if order == 12:
+                res = fast.solve_mlp(p, y, t, rtol=TOL, atol=TOL,
+                                     method="adams", first_step=FIRST_STEP)
+            else:
+                res = fast.solve_mlp_spec(spec, W, y, t, rtol=TOL, atol=TOL,
+                                          method="adams",
+                                          first_step=FIRST_STEP,
+                                          max_order=order)
+        torch.cuda.synchronize()
+        launches = cad.mlp_solve_vcabm_launches
+        nfe, acc, rej, status = res.stats
+        print(f"[25] fast.{'solve_mlp' if order == 12 else 'solve_mlp_spec'}"
+              f"(method='adams', max_order={order}) {dtype}: nfe {nfe}, "
+              f"accepted {acc}, rejected {rej}, status {status}; K11 "
+              f"launches {launches}", flush=True)
+        if launches != 1 or len(r.calls) != 1 or status != 0 \
+                or tuple(res.ys.shape) != (T_OUT, B, D) \
+                or not torch.isfinite(res.ys).all():
+            raise AssertionError(f"VCABM {dtype} failed at the bench "
+                                 "protocol")
+        call = r.calls[0]
+        with _Orders() as o:
+            err, plain_ms = _hold_to_plain(
+                call, cad.mlp_solve_vcabm_plain,
+                f"[25] K11 {dtype} max_order {order}")
+        args, kw, got = call
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, cad.mlp_solve_vcabm(*args, **kw))):
+            raise AssertionError(f"K11 {dtype}: two kernel runs differ")
+        k11[(dtype, order)] = (call, err, o.orders)
+    print("[25] K11: two kernel runs bitwise equal in each case", flush=True)
+    p, W, y, _ = bench_w(f32)
+    t = torch.linspace(0.0, SPAN, T_OUT)
+    vcabm_ys = fast.solve_mlp(p, y, t, rtol=TOL, atol=TOL, method="adams",
+                              first_step=FIRST_STEP).ys
+    dopri = fast.solve_mlp(p, y, t, rtol=TOL, atol=TOL,
+                           first_step=FIRST_STEP).ys
+    print(f"[25] max |adams (K11) - dopri5 (K2)| at full size "
+          f"{float((vcabm_ys - dopri).abs().max()):.3e}", flush=True)
+    ps, ys, _ = _bench_params(96, f32, dev)
+    ts = torch.linspace(0.0, 5.0, 12)
+    small = fast.solve_mlp(ps, ys, ts, rtol=TOL, atol=TOL,
+                           method="adams").ys
+    with torch.no_grad():
+        generic = solve(func, ys, ts, rtol=TOL, atol=TOL, method="adams").ys
+    gap = _rel(small, generic)
+    print(f"[25] B=96: K11 and the generic VCABM agree to {gap:.3e} relative "
+          "(bar 1e-3)", flush=True)
+    if gap > 1e-3:
+        raise AssertionError("K11 and the generic VCABM engine differ")
+    (args, kw, got), rec["vcabm_err"], orders = k11[(f32, 12)]
+    rec["vcabm_ms"] = _timed(lambda: cad.mlp_solve_vcabm(*args, **kw))
+    rec["vcabm_plain_ms"] = _timed(
+        lambda: cad.mlp_solve_vcabm_plain(*args, **kw))
+    with torch.no_grad():
+        rec["vcabm_generic_ms"] = _host_ms(lambda: solve(
+            func, y, t, rtol=TOL, atol=TOL, method="adams",
+            options={"first_step": FIRST_STEP}))[0]
+    nfe, acc, rej, _ = got[1].tolist()
+    rec["vcabm_bound"] = _bound(
+        B * (nfe * mlp + D * (sum(_vcabm_attempt_flops(k) for k in orders)
+                              + acc * _vcabm_accept_flops(
+                                  sum(orders) / len(orders)))),
+        4 * (2 * B * D + T_OUT * B * D + T_OUT + n_w))
+    print(f"[25] {smi}: K11 mlp_solve_vcabm {rec['vcabm_ms']:.3f} ms/solve "
+          f"vs plain {rec['vcabm_plain_ms']:.3f} ms vs the generic engine "
+          f"solve(ODEFunc, method='adams') {rec['vcabm_generic_ms']:.3f} ms "
+          f"(bench protocol, float32, nfe {nfe}, {acc + rej} attempts, "
+          f"orders {min(orders)}..{max(orders)}); bound "
+          f"{rec['vcabm_bound'][0]:.4f} ms ({rec['vcabm_bound'][1]})",
+          flush=True)
+
+    # [26] K10 at the bench widths with bench.py:205's 512 steps, both
+    # methods, float32 and float64, and on the default grid.
+    k10 = {}
+    for method, dtype, steps in (
+            ("fixed_adams", f32, ADAMS_STEPS),
+            ("explicit_adams", f32, ADAMS_STEPS),
+            ("fixed_adams", f64, ADAMS_STEPS),
+            ("explicit_adams", f64, ADAMS_STEPS),
+            ("fixed_adams", f32, None), ("explicit_adams", f32, None)):
+        _, W, y, _ = bench_w(dtype)
+        t = torch.linspace(0.0, SPAN, T_OUT, dtype=dtype)
+        cad.reset_launch_counts()
+        with _Recording(fast, "mlp_solve_adams") as r:
+            res = fast.solve_mlp_spec(spec, W, y, t, rtol=TOL, atol=TOL,
+                                      method=method, num_steps=steps)
+        torch.cuda.synchronize()
+        launches = cad.mlp_solve_adams_launches
+        nfe, acc, _, status = res.stats
+        G = (steps or T_OUT - 1) + 1
+        per = 5 if method == "fixed_adams" else 1
+        print(f"[26] fast.solve_mlp_spec(method={method!r}, num_steps="
+              f"{steps}) {dtype}: nfe {nfe}, steps {acc}, status {status}; "
+              f"K10 launches {launches}", flush=True)
+        if launches != 1 or len(r.calls) != 1 or status != 0 \
+                or nfe != 1 + 4 * 3 + per * (G - 4) \
+                or tuple(res.ys.shape) != (T_OUT, B, D) \
+                or not torch.isfinite(res.ys).all():
+            raise AssertionError(f"{method} {dtype} failed at the bench "
+                                 "widths")
+        call = r.calls[0]
+        err, _ = _hold_to_plain(call, cad.mlp_solve_adams_plain,
+                                f"[26] K10 {method} {dtype} grid "
+                                f"{G - 1} steps")
+        args, kw, got = call
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, cad.mlp_solve_adams(*args, **kw))):
+            raise AssertionError(f"K10 {method} {dtype}: two kernel runs "
+                                 "differ")
+        k10[(method, dtype, steps)] = (call, err, res.ys)
+    print("[26] K10: two kernel runs bitwise equal in each case", flush=True)
+    fixed_ys = k10[("fixed_adams", f32, ADAMS_STEPS)][2]
+    print(f"[26] max |fixed_adams x {ADAMS_STEPS} (K10) - dopri5 (K2)| at "
+          f"full size {float((fixed_ys - dopri).abs().max()):.3e}",
+          flush=True)
+    Ws = [(ps["w1"], ps["b1"]), (ps["w2"], ps["b2"])]
+    for method in ("fixed_adams", "explicit_adams"):
+        small = fast.solve_mlp_spec(spec, Ws, ys, ts, rtol=TOL, atol=TOL,
+                                    method=method,
+                                    num_steps=ADAMS_STEPS).ys
+        with torch.no_grad():
+            generic = solve(func, ys, ts, rtol=TOL, atol=TOL, method=method,
+                            options={"num_steps": ADAMS_STEPS}).ys
+        gap = _rel(small, generic)
+        print(f"[26] B=96: K10 {method} and the generic engine agree to "
+              f"{gap:.3e} relative (bar 1e-5)", flush=True)
+        if gap > 1e-5:
+            raise AssertionError(f"K10 {method} and the generic engine "
+                                 "differ")
+    rec["adams_err"] = max(e for (m, dt_, s), (_, e, _) in k10.items()
+                           if dt_ == f32)
+    _, W, y, _ = bench_w(f32)
+    t = torch.linspace(0.0, SPAN, T_OUT)
+    for method in ("fixed_adams", "explicit_adams"):
+        (args, kw, got), _, _ = k10[(method, f32, ADAMS_STEPS)]
+        key = "adams" if method == "fixed_adams" else "explicit"
+        rec[f"{key}_ms"] = _timed(lambda: cad.mlp_solve_adams(*args, **kw))
+        rec[f"{key}_plain_ms"] = _timed(
+            lambda: cad.mlp_solve_adams_plain(*args, **kw))
+        with torch.no_grad():
+            rec[f"{key}_generic_ms"] = _host_ms(lambda: solve(
+                func, y, t, rtol=TOL, atol=TOL, method=method,
+                options={"num_steps": ADAMS_STEPS}))[0]
+        implicit = method == "fixed_adams"
+        nfe = got[1][0].item()
+        rec[f"{key}_bound"] = _bound(
+            B * (nfe * mlp + D * (3 * (_combine_flops(RK4) + 12)
+                                  + (ADAMS_STEPS - 3) * _adams_step_flops(
+                                      4, 4, implicit))),
+            4 * (2 * B * D + T_OUT * B * D + n_w + T_OUT
+                 + ADAMS_STEPS + 1))
+        print(f"[26] {smi}: K10 {method} {rec[f'{key}_ms']:.3f} ms/solve vs "
+              f"plain {rec[f'{key}_plain_ms']:.3f} ms vs the generic engine "
+              f"solve(ODEFunc, method={method!r}) "
+              f"{rec[f'{key}_generic_ms']:.3f} ms (bench widths, "
+              f"{ADAMS_STEPS} steps, float32, nfe {nfe}); bound "
+              f"{rec[f'{key}_bound'][0]:.4f} ms ({rec[f'{key}_bound'][1]})",
+              flush=True)
+
+    # [27] training with an Adams forward: three SGD steps of the spiral
+    # (bench.py:788-838) on K11 + K3, one step on K10 + K9.
+    p, _, y, _ = bench_w(f32)
+    W = [(p["w1"].clone().requires_grad_(), p["b1"].clone().requires_grad_()),
+         (p["w2"].clone().requires_grad_(), p["b2"].clone().requires_grad_())]
+    W0 = [x.detach().clone() for pair in W for x in pair]
+    target = _bench_target(f32, dev)
+
+    def sgd_step(**kw):
+        ys, st = fast.odeint_adjoint_mlp(spec, W, y, t, rtol=TOL, atol=TOL,
+                                         return_stats=True, **kw)
+        loss = torch.mean((ys - target) ** 2)
+        loss.backward()
+        with torch.no_grad():
+            for x in (x for pair in W for x in pair):
+                if not torch.isfinite(x.grad).all():
+                    raise AssertionError("non-finite Adams-forward gradient "
+                                         "(a failed backward sweep)")
+                x -= SGD_LR * x.grad
+                x.grad = None
+        if st.status != 0:
+            raise AssertionError(f"Adams forward failed: {st}")
+        return float(loss.detach())
+
+    for mod in (cad, ca, cf, ck):
+        mod.reset_launch_counts()
+    losses = []
+    rec["train_ms"], train_all = _host_ms(lambda: losses.append(sgd_step(
+        method="adams", adjoint_method="dopri5")), reps=TRAIN_STEPS)
+    train_launches = {"mlp_solve_vcabm": cad.mlp_solve_vcabm_launches,
+                      "mlp_adjoint_solve": ca.mlp_adjoint_solve_launches,
+                      "mlp_solve": ck.mlp_solve_launches}
+    moved = max(float((x.detach() - x0).abs().max())
+                for x, x0 in zip((x for pair in W for x in pair), W0))
+    print(f"[27] spiral SGD x{TRAIN_STEPS} (method='adams', adjoint_method="
+          f"'dopri5'): launches {train_launches}; MSE "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; max weight change "
+          f"{moved:.3e}", flush=True)
+    print(f"[27] {smi}: Adams-forward training step (K11 + K3, bench "
+          f"protocol, float32) {rec['train_ms']:.3f} ms median of "
+          f"{TRAIN_STEPS} ({', '.join(f'{x:.3f}' for x in train_all)})",
+          flush=True)
+    if train_launches != {"mlp_solve_vcabm": TRAIN_STEPS,
+                          "mlp_adjoint_solve": TRAIN_STEPS, "mlp_solve": 0} \
+            or not moved > 0.0:
+        raise AssertionError(f"Adams training launches {train_launches}")
+    rec["vcabm_launches"] = train_launches["mlp_solve_vcabm"]
+    for mod in (cad, cf):
+        mod.reset_launch_counts()
+    fixed_ms, _ = _host_ms(lambda: sgd_step(
+        method="fixed_adams", adjoint_method="rk4", num_steps=ADAMS_STEPS,
+        adjoint_num_steps=8), reps=1)
+    fixed_launches = {"mlp_solve_adams": cad.mlp_solve_adams_launches,
+                      "mlp_adjoint_solve_fixed":
+                          cf.mlp_adjoint_solve_fixed_launches}
+    print(f"[27] one SGD step (method='fixed_adams', adjoint_method='rk4', "
+          f"num_steps={ADAMS_STEPS}, adjoint_num_steps=8): launches "
+          f"{fixed_launches}; {fixed_ms:.3f} ms ({smi})", flush=True)
+    if fixed_launches != {"mlp_solve_adams": 1,
+                          "mlp_adjoint_solve_fixed": 1}:
+        raise AssertionError(f"fixed_adams training launches "
+                             f"{fixed_launches}")
+    rec["adams_launches"] = fixed_launches["mlp_solve_adams"]
+    # Fused against the generic adjoint on a small input.
+    tgt = torch.tensor(np.random.RandomState(2).randn(12, 96, D) * 0.5,
+                       dtype=f32, device=dev)
+    grads = []
+    for fused in (True, False):
+        Ws = [(ps["w1"].clone().requires_grad_(),
+               ps["b1"].clone().requires_grad_()),
+              (ps["w2"].clone().requires_grad_(),
+               ps["b2"].clone().requires_grad_())]
+        if fused:
+            out = fast.odeint_adjoint_mlp(spec, Ws, ys, ts, rtol=TOL,
+                                          atol=TOL, method="adams",
+                                          adjoint_method="dopri5")
+        else:
+            out = odeint_adjoint(
+                lambda tt, yy, w: fast.mlp_apply(spec, w, yy), ys, ts,
+                params=Ws, rtol=TOL, atol=TOL, method="adams",
+                adjoint_method="dopri5")
+        torch.mean((out - tgt) ** 2).backward()
+        grads.append([x.grad for pair in Ws for x in pair])
+    gap = max(_rel(a, b) for a, b in zip(*grads))
+    print(f"[27] B=96: Adams-forward fused and generic adjoint gradients "
+          f"agree to {gap:.3e} relative (bar 1e-3)", flush=True)
+    if gap > 1e-3:
+        raise AssertionError("Adams-forward fused and generic adjoint "
+                             "gradients differ")
+    return rec
+
+
 def main() -> int:
     import time
     import torch
@@ -1972,6 +2345,7 @@ def main() -> int:
 
     wide = _wide_tier(smi, dev)
     cnf = _cnf_tier(smi, dev)
+    adams = _adams_tier(smi, dev)
 
     # Bounds: the operations and bytes of each timed run's inputs.
     mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
@@ -2094,6 +2468,29 @@ def main() -> int:
          "bound_by": cnf["adj_bound"][1], "library_ms": None,
          "train_step_ms": cnf["train_ms"],
          "generic_train_step_ms": cnf["gen_train_ms"]},
+        {"name": "adams_solve", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/adams_kernel.cu",
+         "replaces": "tfdiffeq_tpu/ops/pallas_fixed.py:512",
+         "launches": adams["adams_launches"],
+         "max_abs_err": adams["adams_err"], "ms": adams["adams_ms"],
+         "plain_ms": adams["adams_plain_ms"],
+         "bound_ms": adams["adams_bound"][0],
+         "bound_by": adams["adams_bound"][1], "library_ms": None,
+         "generic_engine_ms": adams["adams_generic_ms"],
+         "explicit_ms": adams["explicit_ms"],
+         "explicit_plain_ms": adams["explicit_plain_ms"],
+         "explicit_bound_ms": adams["explicit_bound"][0],
+         "explicit_generic_engine_ms": adams["explicit_generic_ms"]},
+        {"name": "vcabm_solve", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/vcabm_kernel.cu",
+         "replaces": "tfdiffeq_tpu/ops/pallas_vcabm.py:51",
+         "launches": adams["vcabm_launches"],
+         "max_abs_err": adams["vcabm_err"], "ms": adams["vcabm_ms"],
+         "plain_ms": adams["vcabm_plain_ms"],
+         "bound_ms": adams["vcabm_bound"][0],
+         "bound_by": adams["vcabm_bound"][1], "library_ms": None,
+         "generic_engine_ms": adams["vcabm_generic_ms"],
+         "train_step_ms": adams["train_ms"]},
     ]
     wide_ms = {"mlp_solve": wide["k2_highest"][0],
                "mlp_adjoint_solve": wide["K3_wide"],

@@ -1,0 +1,289 @@
+"""PyTorch port: the generic Adams engines (`solvers/fixed_adams.py`,
+`solvers/adams.py`; `solve`, `odeint` and `odeint_adjoint` with
+explicit_adams, fixed_adams and adams) against the JAX package.
+
+- The VCABM 'adams' against the host-control-flow oracle
+  (tests/vcabm_oracle.py), as tests/test_adams.py holds the reference:
+  identical accepted and rejected counts, trajectories within rtol 1e-9 /
+  atol 1e-11.
+- All three methods on tests/problems.py in both time directions: error
+  below 1e-4 at rtol 1e-8.
+- Step for step against the JAX generic engines in float64: identical
+  stats and trajectories within 1e-12 relative to their largest entry
+  (the masked recurrences run in the same order; the history sums and
+  the dynamics' products may associate differently, about 1e-16 a step).
+  Cases cover max_order (1 .. 12), first_step, max_num_steps (status 1),
+  reverse time, a dict state, a custom norm, and num_steps, step_size,
+  grid_constructor and max_iters for the fixed-step family.
+- `odeint_adjoint` with an Adams forward or adjoint method against direct
+  gradients (autograd through a tight generic dopri5 solve), after
+  tests/test_gradients.py:429: forward-only adaptive options are dropped
+  before they reach an Adams backward solve.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from problems import construct_problem
+from vcabm_oracle import vcabm as vcabm_oracle
+import tfdiffeq_tpu as J
+
+import tfdiffeq_tpu_torch as P
+from tfdiffeq_tpu_torch.solvers import adams as PA, fixed_adams as PFA
+from tfdiffeq_tpu.solvers import adams as JA, fixed_adams as JFA
+
+F64 = torch.float64
+_A = np.array([[-0.1, 2.0], [-2.0, -0.1]])
+
+# Torch twins of tests/problems.py, formula for formula.
+_PORT_FUNCS = {
+    "linear": lambda t, y: y @ torch.tensor(_A, dtype=F64).T,
+    "sine": lambda t, y: torch.cos(t) / t - (y - 0.5) / t,
+    "constant": lambda t, y: 0.2 + (y - (0.2 * t + 3.0)) ** 5,
+}
+
+
+def _tt(x):
+    return torch.tensor(np.asarray(x), dtype=F64)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
+
+
+def test_tables_match_reference():
+    """The coefficient tables, derived with fractions in both packages."""
+    assert np.array_equal(PFA.BASHFORTH_TABLE, JFA.BASHFORTH_TABLE)
+    assert np.array_equal(PFA.MOULTON_TABLE, JFA.MOULTON_TABLE)
+    assert np.array_equal(PA.GAMMA_STAR, JA.GAMMA_STAR)
+
+
+def test_adams_matches_oracle():
+    t = np.linspace(0.0, 10.0, 20)
+    y0 = np.array([2.0, 0.0])
+    ys_o, _, acc_o, rej_o, _ = vcabm_oracle(lambda tt, yy: _A @ yy, y0, t,
+                                            1e-8, 1e-10)
+    res = P.solve(lambda tt, yy: torch.tensor(_A) @ yy, _tt(y0), _tt(t),
+                  rtol=1e-8, atol=1e-10, method="adams")
+    assert res.stats.n_accepted == acc_o
+    assert res.stats.n_rejected == rej_o
+    np.testing.assert_allclose(res.ys.numpy(), ys_o, rtol=1e-9, atol=1e-11)
+
+
+_ACCURACY_OPTIONS = {"adams": {}, "explicit_adams": {"num_steps": 400},
+                     "fixed_adams": {"num_steps": 200}}
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("name", ["constant", "sine", "linear"])
+@pytest.mark.parametrize("method", sorted(_ACCURACY_OPTIONS))
+def test_adams_family_accuracy(method, name, reverse):
+    pr = construct_problem(name, reverse=reverse)
+    ys = P.odeint(_PORT_FUNCS[name], _tt(pr.y0), _tt(pr.t), rtol=1e-8,
+                  atol=1e-10, method=method,
+                  options=_ACCURACY_OPTIONS[method])
+    err = np.max(np.abs(ys.numpy() - np.asarray(pr.y_exact(pr.t))))
+    assert err < 1e-4
+
+
+def test_adams_max_order_option():
+    """A lower max_order costs more steps at the same tolerance, with the
+    reference's counts."""
+    t = np.linspace(0.0, 5.0, 5)
+    y0 = np.array([2.0, 0.0])
+    counts = []
+    for opts in ({"max_order": 2}, {}):
+        rp = P.solve(lambda tt, yy: torch.tensor(_A) @ yy, _tt(y0), _tt(t),
+                     rtol=1e-6, atol=1e-8, method="adams", options=opts)
+        rj = J.solve(lambda tt, yy: jnp.asarray(_A) @ yy, jnp.asarray(y0),
+                     jnp.asarray(t), rtol=1e-6, atol=1e-8, method="adams",
+                     options=opts)
+        assert list(rp.stats) == [int(x) for x in rj.stats]
+        counts.append(rp.stats.n_accepted)
+    assert counts[0] > counts[1]
+
+
+def _spiral_pair():
+    """The same saturated spiral in both packages (bounded in both time
+    directions), in products, sums and a divide only: XLA's tanh is not
+    PyTorch's, and its last-bit differences would join the ones of the
+    history sums below."""
+    return ((lambda tt, yy: (yy / (1.0 + yy * yy)) @ jnp.asarray(_A).T),
+            (lambda tt, yy: (yy / (1.0 + yy * yy)) @ torch.tensor(_A).T))
+
+
+def _dict_pair():
+    def jf(tt, y):
+        return {"a": -y["a"] * jnp.sin(tt), "b": 0.5 * y["b"] - y["a"][0]}
+
+    def pf(tt, y):
+        return {"a": -y["a"] * torch.sin(tt), "b": 0.5 * y["b"] - y["a"][0]}
+    return jf, pf
+
+
+def _uneven_grid(lib):
+    def gc(func, y0, t):
+        u = np.linspace(0.0, 1.0, 41) ** 1.3
+        t0, t1 = float(t[0]), float(t[-1])
+        return lib(t0 + (t1 - t0) * u)
+    return gc
+
+
+# name: (method, t, tolerances, JAX options, port options, state). The
+# VCABM cases solve at rtol 1e-5: the two engines' history sums and
+# cumsums associate differently (about 1e-16 a value), and an error
+# estimate far below the tolerance carries that roundoff into the step
+# controller's factor in proportion to tol / estimate, which at rtol 1e-7
+# moves the steps by 1e-9 relative. The counts stay identical at either
+# tolerance; at 1e-5 the trajectories agree to 1e-12.
+_T = np.linspace(0.0, 2.0, 7)
+GENERIC_CASES = {
+    "adams_default": ("adams", _T, (1e-5, 1e-7), {}, {}, "spiral"),
+    "adams_first_step": ("adams", _T, (1e-5, 1e-7), {"first_step": 0.05},
+                         {"first_step": 0.05}, "spiral"),
+    "adams_max_order_1": ("adams", _T, (1e-5, 1e-7), {"max_order": 1},
+                          {"max_order": 1}, "spiral"),
+    "adams_max_order_5_reverse": ("adams", _T[::-1].copy(), (1e-5, 1e-7),
+                                  {"max_order": 5}, {"max_order": 5},
+                                  "spiral"),
+    "adams_max_num_steps": ("adams", _T, (1e-5, 1e-7),
+                            {"max_num_steps": 9}, {"max_num_steps": 9},
+                            "spiral"),
+    "adams_controller": ("adams", _T, (1e-5, 1e-7),
+                         {"safety": 0.8, "ifactor": 4.0, "dfactor": 0.3,
+                          "first_step": 0.05},
+                         {"safety": 0.8, "ifactor": 4.0, "dfactor": 0.3,
+                          "first_step": 0.05},
+                         "spiral"),
+    "adams_norm": ("adams", _T, (1e-5, 1e-7),
+                   {"norm": lambda x: jnp.max(jnp.abs(x)), "first_step": 0.05},
+                   {"norm": lambda x: torch.max(torch.abs(x)),
+                    "first_step": 0.05}, "spiral"),
+    "adams_dict_state": ("adams", _T, (1e-5, 1e-7), {}, {}, "dict"),
+    "explicit_default": ("explicit_adams", _T, (1e-6, 1e-8), {}, {},
+                         "spiral"),
+    "explicit_num_steps_o6": ("explicit_adams", _T, (1e-6, 1e-8),
+                              {"num_steps": 60, "max_order": 6},
+                              {"num_steps": 60, "max_order": 6}, "spiral"),
+    "explicit_step_size_reverse": ("explicit_adams", _T[::-1].copy(),
+                                   (1e-6, 1e-8), {"step_size": 0.03},
+                                   {"step_size": 0.03}, "spiral"),
+    "explicit_max_order_1": ("explicit_adams", _T, (1e-6, 1e-8),
+                             {"num_steps": 50, "max_order": 1},
+                             {"num_steps": 50, "max_order": 1}, "spiral"),
+    "fixed_default": ("fixed_adams", _T, (1e-6, 1e-8), {}, {}, "spiral"),
+    "fixed_grid_constructor": (
+        "fixed_adams", _T, (1e-6, 1e-8),
+        {"grid_constructor": _uneven_grid(jnp.asarray)},
+        {"grid_constructor": _uneven_grid(_tt)}, "spiral"),
+    "fixed_max_iters_1_o12": ("fixed_adams", _T, (1e-6, 1e-8),
+                              {"num_steps": 80, "max_order": 12,
+                               "max_iters": 1},
+                              {"num_steps": 80, "max_order": 12,
+                               "max_iters": 1}, "spiral"),
+    "fixed_max_order_1_reverse": ("fixed_adams", _T[::-1].copy(),
+                                  (1e-6, 1e-8),
+                                  {"num_steps": 40, "max_order": 1},
+                                  {"num_steps": 40, "max_order": 1},
+                                  "spiral"),
+    "fixed_dict_state": ("fixed_adams", _T, (1e-6, 1e-8),
+                         {"num_steps": 30}, {"num_steps": 30}, "dict"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GENERIC_CASES))
+def test_generic_engines_match_reference(name):
+    method, t, (rtol, atol), j_opts, p_opts, state = GENERIC_CASES[name]
+    if state == "spiral":
+        jf, pf = _spiral_pair()
+        y0 = np.random.RandomState(0).randn(6, 2) * 0.8
+        jy0, py0 = jnp.asarray(y0), _tt(y0)
+    else:
+        jf, pf = _dict_pair()
+        a0, b0 = np.array([1.0, -0.5, 0.3]), np.array(0.7)
+        jy0 = {"a": jnp.asarray(a0), "b": jnp.asarray(b0)}
+        py0 = {"a": _tt(a0), "b": _tt(b0)}
+    rj = J.solve(jf, jy0, jnp.asarray(t), rtol=rtol, atol=atol,
+                 method=method, options=j_opts)
+    rp = P.solve(pf, py0, _tt(t), rtol=rtol, atol=atol, method=method,
+                 options=p_opts)
+    assert list(rp.stats) == [int(x) for x in rj.stats]
+    if name == "adams_max_num_steps":
+        assert rp.stats.status == 1 and rp.stats.n_accepted \
+            + rp.stats.n_rejected == 9
+    else:
+        assert rp.stats.status == 0
+    leaves_p = [rp.ys] if state == "spiral" else [rp.ys["a"], rp.ys["b"]]
+    leaves_j = [rj.ys] if state == "spiral" else [rj.ys["a"], rj.ys["b"]]
+    for lp, lj in zip(leaves_p, leaves_j):
+        assert tuple(lp.shape) == tuple(lj.shape)
+        assert _rel(lp.numpy(), lj) < 1e-12
+
+
+@pytest.mark.parametrize("method, options, exc, match", [
+    ("adams", {"max_order": 13}, ValueError, "max_order"),
+    ("fixed_adams", {"max_order": 0}, ValueError, "max_order"),
+    ("adams", {"num_steps": 4}, TypeError, "Unknown solver options"),
+    ("explicit_adams", {"first_step": 0.1}, TypeError,
+     "Unknown solver options"),
+    ("fixed_adams", {"fuse": True}, NotImplementedError, "item 16"),
+    ("adams", {"norm": "rms"}, ValueError, "callable"),
+])
+def test_adams_options_are_checked(method, options, exc, match):
+    with pytest.raises(exc, match=match):
+        P.solve(lambda t, y: -y, torch.ones(2, dtype=F64), [0.0, 1.0],
+                method=method, options=options)
+
+
+def test_odeint_adams_t_of_one_point():
+    """A single output time returns y0 with zero counts, as in the
+    reference."""
+    for method in ("adams", "explicit_adams", "fixed_adams"):
+        res = P.solve(lambda t, y: -y, torch.ones(3, dtype=F64), [0.5],
+                      method=method)
+        assert res.ys.shape == (1, 3) and list(res.stats) == [0, 0, 0, 0]
+
+
+_GRAD_T = np.linspace(0.0, 1.5, 6)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="dopri5", adjoint_method="adams",
+         options={"pcoeff": 0.0, "loop": "while"}),
+    dict(method="adams", adjoint_method="adams"),
+    dict(method="adams", adjoint_method="dopri5"),
+    dict(method="fixed_adams", adjoint_method="fixed_adams",
+         options={"num_steps": 150}, adjoint_options={"num_steps": 30}),
+    dict(method="explicit_adams", adjoint_method="rk4",
+         options={"num_steps": 300}, adjoint_options={"num_steps": 60}),
+], ids=["dopri5_adams", "adams_adams", "adams_dopri5", "fixed_adams",
+        "explicit_rk4"])
+def test_adjoint_with_adams_matches_direct_gradients(kw):
+    """After tests/test_gradients.py:429. The Adams backward solves get
+    the forward options filtered to their own allowlist (a forward-only
+    adaptive key such as pcoeff or loop never reaches them)."""
+    rng = np.random.RandomState(3)
+    A = rng.randn(2, 2) * 0.5 - np.eye(2) * 0.3
+    y0 = rng.randn(2)
+    g_out = torch.tensor(rng.randn(len(_GRAD_T), 2))
+
+    def f(t, y, p):
+        return y @ p.T
+
+    def grads(adjoint):
+        p = torch.tensor(A, requires_grad=True)
+        y = _tt(y0).requires_grad_(True)
+        if adjoint:
+            ys = P.odeint_adjoint(f, y, _tt(_GRAD_T), params=p, rtol=1e-9,
+                                  atol=1e-11, **kw)
+        else:
+            ys = P.odeint(lambda tt, yy: f(tt, yy, p), y, _tt(_GRAD_T),
+                          rtol=1e-11, atol=1e-13)
+        torch.sum(ys * g_out).backward()
+        return [y.grad, p.grad]
+
+    for a, b in zip(grads(True), grads(False)):
+        assert _rel(a.numpy(), b.numpy()) < 1e-4

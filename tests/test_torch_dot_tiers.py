@@ -228,14 +228,16 @@ def test_calibrate_picks_mixed_then_falls_back(rtol, inflation, tier):
 
 def test_tier_gates():
     """per_sample=True with a tier waits for ROADMAP item 20; Adams methods
-    refuse the tiers with the reference's ValueError."""
+    refuse the tiers with the reference's ValueError, and solve at
+    'highest' (ROADMAP item 12, once refused here)."""
     W, y0 = _wide()
     with pytest.raises(NotImplementedError, match="item 20"):
         _port("mixed", W, y0, "dopri5", per_sample=True)
     with pytest.raises(ValueError, match="not supported on the Adams"):
         _port("mixed", W, y0, "adams")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _port("highest", W, y0, "adams")
+    res = _port("highest", W, y0, "adams", first_step=0.05, rtol=1e-4,
+                atol=1e-4)
+    assert res.stats.status == 0 and torch.isfinite(res.ys).all()
 
 
 def test_mixed_training_matches_reference():

@@ -255,5 +255,11 @@ def test_fused_fixed_options_are_checked():
         PF.solve_mlp_spec(spec, w, y0, t, method="euler", num_steps=0)
     with pytest.raises(ValueError, match="unknown method"):
         PF.odeint_adjoint_mlp(spec, w, y0, t, adjoint_method="rk5")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PF.solve_mlp_spec(spec, w, y0, t, method="explicit_adams")
+    # explicit_adams (ROADMAP item 12, once refused here) takes the same
+    # grid options (tests/test_torch_adams_fused.py).
+    with pytest.raises(ValueError, match="not both"):
+        PF.solve_mlp_spec(spec, w, y0, t, method="explicit_adams",
+                          num_steps=4, step_size=0.1)
+    # One interval: one RK4 bootstrap step (f0 and 4 evaluations).
+    res = PF.solve_mlp_spec(spec, w, y0, t, method="explicit_adams")
+    assert list(res.stats) == [5, 1, 0, 0]

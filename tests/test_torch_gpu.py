@@ -42,7 +42,10 @@ held against the other tiers' plain versions, where it must fail its bar.
 K4 alone (`tier_net`): the largest and mean gap of one evaluation
 (chip_smoke.py EVAL_BARS). K7, the CNF right-hand side in K2 and its
 second-order adjoint in K3 (rhs='cnf'), narrow and wide: bitwise equal to
-their plain versions in both types, with identical stats.
+their plain versions in both types, with identical stats. K10 and K11, the
+fixed-step Adams and VCABM solves, narrow and wide, every order and both
+directions: bitwise equal to their plain versions in both types, with
+identical stats, and from run to run.
 """
 
 import numpy as np
@@ -1007,3 +1010,148 @@ def test_cnf_entry_points_launch_k7(cuda):
                                32, 2)
     assert ck.mlp_solve_launches == 1 and ck.cnf_solve_launches == 0
     assert xs.shape == (32, 2) and torch.isfinite(xs).all()
+
+
+# ---------------------------------------------------------------------------
+# K10 and K11: the whole fixed-step Adams and VCABM solves
+# ---------------------------------------------------------------------------
+
+def _adams_case(device, dtype, width=24, time_input=False, B=300, seed=21):
+    """A tanh MLP (the state cubed, or a time column) and a state, drawn
+    with numpy; B leaves threads of the last block idle."""
+    rng = np.random.RandomState(seed)
+    dims = [(2 + int(time_input), width), (width, 2)]
+    weights = [(torch.tensor(rng.randn(i, o) * 0.5 / np.sqrt(i), dtype=dtype,
+                             device=device),
+                torch.tensor(rng.randn(o) * 0.05, dtype=dtype, device=device))
+               for i, o in dims]
+    y0 = torch.tensor(rng.randn(B, 2), dtype=dtype, device=device)
+    warr, pdims = ck.pack_mlp_weights(weights, dtype, device)
+    kw = dict(activation="tanh", input_power=1 if time_input else 3,
+              time_input=time_input)
+    return warr, pdims, y0, kw
+
+
+@pytest.mark.parametrize("order, iters", [(1, 4), (4, 4), (12, 1)])
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_adams_kernel_matches_plain(cuda, dtype, sign, implicit, order,
+                                    iters):
+    """K10 bitwise equal to its plain version: both methods, orders 1, 4
+    and 12, both directions, a Hermite grid with a time column and the
+    default grid; bitwise from run to run."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad
+    cad.reset_launch_counts()
+    for time_input, steps in ((False, None), (True, 40)):
+        warr, dims, y0, kw = _adams_case(cuda, dtype, time_input=time_input)
+        t = torch.tensor([0.0, 0.37, 1.11, 2.0], dtype=dtype)
+        tau = sign * t if sign > 0 else (sign * t).flip(0)
+        grid = tau if steps is None else uniform_grid(tau[0], tau[-1], steps)
+        args = (warr, dims, y0, tau, grid, 1e-6, 1e-8, sign)
+        kw = dict(kw, implicit=implicit, max_order=order, max_iters=iters)
+        got = cad.mlp_solve_adams(*args, **kw)
+        again = cad.mlp_solve_adams(*args, **kw)
+        ref = cad.mlp_solve_adams_plain(*args, f0=cad._f0(
+            warr, dims, y0, grid[0], sign, kw["activation"], "identity",
+            kw["input_power"], kw["time_input"]), **kw)
+        torch.cuda.synchronize()
+        assert got[1][3].item() == 0 and torch.isfinite(got[0]).all()
+        _same(got, again)
+        _same(got, ref)
+    assert cad.mlp_solve_adams_launches == 4
+
+
+@pytest.mark.parametrize("order", [1, 4, 12])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vcabm_kernel_matches_plain(cuda, dtype, sign, order):
+    """K11 bitwise equal to its plain version with identical stats, at
+    orders 1, 4 and 12, both directions, with and without a time column;
+    bitwise from run to run."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad
+    cad.reset_launch_counts()
+    for time_input in (False, True):
+        warr, dims, y0, kw = _adams_case(cuda, dtype, time_input=time_input)
+        t = torch.tensor([0.0, 0.37, 1.11, 2.0], dtype=dtype)
+        tau = sign * t if sign > 0 else (sign * t).flip(0)
+        args = (warr, dims, y0, tau, 0.02, 1e-5, 1e-7, sign)
+        kw = dict(kw, max_order=order)
+        got = cad.mlp_solve_vcabm(*args, **kw)
+        again = cad.mlp_solve_vcabm(*args, **kw)
+        ref = cad.mlp_solve_vcabm_plain(*args, f0=cad._f0(
+            warr, dims, y0, tau[0], sign, kw["activation"], "identity",
+            kw["input_power"], kw["time_input"]), **kw)
+        torch.cuda.synchronize()
+        assert got[1][3].item() == 0 and torch.isfinite(got[0]).all()
+        _same(got, again)
+        _same(got, ref)
+    assert cad.mlp_solve_vcabm_launches == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_adams_kernels_wide_route_and_statuses(cuda, dtype):
+    """Past 128-wide layers K10 and K11 take the wide route, bitwise equal
+    to their plain versions; K11's statuses 1 (max_steps) and 3 (invalid
+    times) and K10's 3 match the plain versions' too."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad
+    warr, dims, y0, kw = _adams_case(cuda, dtype, width=160, B=96)
+    t = torch.linspace(0.0, 1.0, 4, dtype=dtype)
+    f0 = cad._f0(warr, dims, y0, t[0], 1.0, "tanh", "identity", 3, False)
+    bad = torch.tensor([0.0, 1.0, 0.5], dtype=dtype)
+    for args, extra in (((t, t, 1e-6, 1e-8, 1.0), dict(implicit=True)),
+                        ((t, uniform_grid(t[0], t[-1], 30), 1e-6, 1e-8,
+                          1.0), dict(implicit=False)),
+                        ((bad, bad, 1e-6, 1e-8, 1.0), {})):
+        got = cad.mlp_solve_adams(warr, dims, y0, *args, **kw, **extra)
+        ref = cad.mlp_solve_adams_plain(warr, dims, y0, *args, f0=f0, **kw,
+                                        **extra)
+        _same(got, ref)
+    for tau, extra, status in ((t, {}, 0), (t, dict(max_steps=5), 1),
+                               (bad, {}, 3)):
+        args = (warr, dims, y0, tau, 0.02, 1e-6, 1e-8, 1.0)
+        got = cad.mlp_solve_vcabm(*args, **kw, **extra)
+        ref = cad.mlp_solve_vcabm_plain(*args, f0=f0, **kw, **extra)
+        assert got[1][3].item() == status
+        _same(got, ref)
+
+
+def test_adams_entry_points_launch_k10_k11(cuda):
+    """fast.solve_mlp_spec is one K10 launch for explicit_adams and
+    fixed_adams and one K11 for adams; an Adams-forward training step is
+    K11 + K3 (adjoint dopri5) or K10 + K9 (adjoint rk4); an Adams
+    adjoint_method raises before any launch; the tiers are refused."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad
+    cad.reset_launch_counts()
+    p, y = _bench(512, torch.float32, cuda)
+    W = [(p["w1"].requires_grad_(), p["b1"].requires_grad_()),
+         (p["w2"].requires_grad_(), p["b2"].requires_grad_())]
+    t = torch.linspace(0.0, 5.0, 12)
+    spec = fast.MLPSpec(activation="tanh", input_power=3)
+    for method in ("explicit_adams", "fixed_adams"):
+        res = fast.solve_mlp_spec(spec, W, y, t, method=method, num_steps=64)
+        assert res.stats.status == 0 and torch.isfinite(res.ys).all()
+    res = fast.solve_mlp_spec(spec, W, y, t, method="adams", first_step=0.01)
+    assert res.stats.status == 0 and torch.isfinite(res.ys).all()
+    assert (cad.mlp_solve_adams_launches,
+            cad.mlp_solve_vcabm_launches) == (2, 1)
+    for method, adjoint_method, counts in (
+            ("adams", "dopri5", (2, 2, 1, 0)),
+            ("fixed_adams", "rk4", (3, 2, 1, 1))):
+        ys = fast.odeint_adjoint_mlp(spec, W, y, t, rtol=1e-6, atol=1e-6,
+                                     method=method,
+                                     adjoint_method=adjoint_method,
+                                     num_steps=64, adjoint_num_steps=4,
+                                     first_step=0.01)
+        torch.mean(ys ** 2).backward()
+        assert (cad.mlp_solve_adams_launches, cad.mlp_solve_vcabm_launches,
+                ca.mlp_adjoint_solve_launches,
+                cf.mlp_adjoint_solve_fixed_launches) == counts
+        assert all(torch.isfinite(x.grad).all() for pair in W for x in pair)
+    with pytest.raises(ValueError, match="adjoint_method='adams'"):
+        fast.odeint_adjoint_mlp(spec, W, y, t, method="adams")
+    with pytest.raises(ValueError, match="not supported on the Adams"):
+        fast.solve_mlp_spec(fast.MLPSpec(matmul="mxu", dot_precision="bf16"),
+                            W, y, t, method="fixed_adams")
+    assert (cad.mlp_solve_adams_launches,
+            cad.mlp_solve_vcabm_launches) == (3, 2)

@@ -246,7 +246,7 @@ def _spec_args():
      ValueError, "adaptive RK methods only"),
     (lambda: PF.solve_mlp_spec(*_spec_args(), method="adams",
                                per_sample=True),
-     NotImplementedError, "item 12"),
+     ValueError, "adaptive RK methods only"),
     (lambda: P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0],
                      options={"per_sample": True}),
      ValueError, r"\[B, D\]"),

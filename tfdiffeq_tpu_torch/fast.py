@@ -19,12 +19,15 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
   controller per sample (K5, `ops/cuda_perlane.mlp_solve_perlane`), or
   the four fixed-grid methods (euler, midpoint, rk4, rk4_38) on the
   requested times or a finer `num_steps` / `step_size` grid, in one launch
-  of `ops/cuda_fixed.mlp_solve_fixed` (K8).
+  of `ops/cuda_fixed.mlp_solve_fixed` (K8), or the Adams family on the same
+  grids ('explicit_adams', 'fixed_adams': K10,
+  `ops/cuda_adams.mlp_solve_adams`) or adaptively (VCABM 'adams': K11,
+  `ops/cuda_adams.mlp_solve_vcabm`).
 - `solve_mlp_stepwise`: the one-step kernel (`dopri5_mlp_step`, K1) plugged
   into the generic adaptive engine through `AdaptiveConfig.step_override`.
 - `odeint_adjoint_mlp`: the O(1)-memory training path, a
-  `torch.autograd.Function` whose forward is one K2 or K8 launch and whose
-  backward is one launch of an adjoint-sweep kernel: K3
+  `torch.autograd.Function` whose forward is one K2, K8, K10 or K11 launch
+  and whose backward is one launch of an adjoint-sweep kernel: K3
   (`ops/cuda_adjoint.mlp_adjoint_solve`) for an adaptive adjoint method,
   K9 (`ops/cuda_fixed.mlp_adjoint_solve_fixed`) for a fixed-grid one; with
   `per_sample=True`, K5 forward and K6
@@ -45,12 +48,14 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
   choice of the cheapest tier by NFE x passes.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
-item): Adams methods (item 12), the dot-precision tiers with
+item): the dot-precision tiers with
 `per_sample=True` (item 20), and the multi-card `axis_name` /
 `global_batch` coupling (item 18); `solve_conv_ode_sharded` has no
 counterpart here yet (item 18), nor have `cnf_log_prob_auto` and
 `cnf_sample_auto` (item 16, the plan tracer). What the kernels cannot take
-(widths past `MAX_WIDTH`) raises. As in the reference, `solve_conv_ode`
+(widths past `MAX_WIDTH`) raises, as do the reduced tiers on the Adams
+kernels and an Adams `adjoint_method` (no adjoint kernel exists for it in
+either package). As in the reference, `solve_conv_ode`
 solves with the generic engine, with a warning, when not one sample fits a
 controller block; nothing else falls back (the fused CNF runs K2 and K3 at
 every batch, where the reference falls back past its TPU memory budget).
@@ -70,6 +75,7 @@ from .models import cnf as _cnf
 from .ops import conv_ode as co
 from .ops import tableaus
 from .ops.controller import StepController
+from .ops.cuda_adams import mlp_solve_adams, mlp_solve_vcabm
 from .ops.cuda_adjoint import mlp_adjoint_solve
 from .ops.cuda_conv import conv_solve, pack_conv_ode_weights
 from .ops.cuda_fixed import mlp_adjoint_solve_fixed, mlp_solve_fixed
@@ -194,7 +200,10 @@ def solve_mlp(params: dict, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
 
     params: {'w1': [D, H], 'b1': [H], 'w2': [H, D], 'b2': [D]} tensors on
     y0's device; y0: [B, D]; method: 'dopri5' (default), 'bosh3',
-    'adaptive_heun', 'tsit5' or 'dopri8'. Returns ys [T, B, D] and stats.
+    'adaptive_heun', 'tsit5' or 'dopri8' (K2), or any other method of
+    `solve_mlp_spec` ('adams': K11; 'explicit_adams', 'fixed_adams' and the
+    fixed-grid RK methods on the requested times). Returns ys [T, B, D]
+    and stats.
     """
     spec = MLPSpec(activation="tanh", final_activation="identity",
                    input_power=3)
@@ -257,15 +266,28 @@ def _check_method(method: str, spec: Optional[MLPSpec] = None) -> None:
             "the Adams kernels (their corrector/order machinery assumes "
             "f32-accurate dots); use an RK method for reduced-precision "
             "serving ('bf16' fixed-grid, 'mixed' fixed-grid or adaptive)")
-    if method in _ADAMS_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} (Adams family) is not ported to the fused "
-            "tier yet: ROADMAP.md queue 1 item 12")
     if method not in tableaus.TABLEAUS_BY_NAME \
-            and method not in tableaus.FIXED_TABLEAUS_BY_NAME:
+            and method not in tableaus.FIXED_TABLEAUS_BY_NAME \
+            and method not in _ADAMS_METHODS:
         raise ValueError(f"unknown method {method!r}; available: "
-                         f"{sorted(tableaus.TABLEAUS_BY_NAME)} and "
-                         f"{sorted(tableaus.FIXED_TABLEAUS_BY_NAME)}")
+                         f"{sorted(tableaus.TABLEAUS_BY_NAME)}, "
+                         f"{sorted(tableaus.FIXED_TABLEAUS_BY_NAME)} and "
+                         f"{sorted(_ADAMS_METHODS)}")
+
+
+def _check_adjoint_method(adjoint_method: str) -> None:
+    """The backward sweeps are adaptive RK (K3, K6) or fixed-grid (K9):
+    no adjoint kernel exists for the Adams family in either package."""
+    if adjoint_method in _ADAMS_METHODS:
+        raise ValueError(
+            f"odeint_adjoint_mlp: adjoint_method={adjoint_method!r} has no "
+            "adjoint kernel (the reference's backward fails on it); pass "
+            "an adaptive RK adjoint_method "
+            f"({', '.join(sorted(tableaus.TABLEAUS_BY_NAME))}) or a "
+            "fixed-grid one "
+            f"({', '.join(sorted(tableaus.FIXED_TABLEAUS_BY_NAME))}), e.g. "
+            "method='adams', adjoint_method='dopri5'")
+    _check_method(adjoint_method)
 
 
 def _fixed_grid_tau(tau: Tensor, t: Tensor, num_steps, step_size) -> Tensor:
@@ -288,8 +310,9 @@ def _fixed_grid_tau(tau: Tensor, t: Tensor, num_steps, step_size) -> Tensor:
 def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
                    atol=1e-8, method: str = "dopri5", max_num_steps=None,
                    first_step=None, num_steps=None, step_size=None,
+                   max_order: Optional[int] = None, max_iters: int = 4,
                    per_sample: bool = False) -> SolveResult:
-    """Whole-solve fused RK for a general MLP neural ODE, one launch.
+    """Whole-solve fused solve of a general MLP neural ODE, one launch.
 
     weights: [(W [din, dout], b [dout] or None), ...] on y0's device;
     y0: [B, D]; t may increase or decrease (solved in tau = sign * t, as
@@ -313,6 +336,16 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     at most `step_size` long with the outputs cubic-Hermite interpolated
     (nfe = 1 + stages * steps; the tolerances, first_step and
     max_num_steps do not apply).
+    The Adams family takes the same grids: 'explicit_adams' and
+    'fixed_adams' run K10 (`ops/cuda_adams.mlp_solve_adams`), an RK4
+    bootstrap of max_order - 1 steps and then the AB predictor and, for
+    'fixed_adams', max_iters corrector iterations whose convergence the
+    tolerances judge (max_order defaults to 4). 'adams' (VCABM) runs K11
+    (`ops/cuda_adams.mlp_solve_vcabm`) from f0 and the HNW first step at
+    order 1 (2 extra evaluations, 1 with first_step), with rtol, atol,
+    first_step and max_num_steps as for the adaptive RK methods
+    (max_order defaults to 12). The Adams kernels take no reduced
+    dot_precision (ValueError, as in the reference).
     """
     _check_method(method, spec)
     if per_sample and method not in tableaus.TABLEAUS_BY_NAME:
@@ -336,48 +369,61 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     def g(s, y):
         return sign_d * mlp_apply(spec, weights, y, sign_d * s)
 
-    f0 = g(tau[0].to(dev), y0)
+    f0 = g(tau[0].to(dev), y0).contiguous()
+    y0 = y0.contiguous()
     warrays, dims = pack_mlp_weights(weights, dtype, dev)
+    net = dict(f0=f0, activation=spec.activation,
+               final_activation=spec.final_activation,
+               input_power=spec.input_power, time_input=spec.time_input)
+    if max_order is None:
+        max_order = 12 if method == "adams" else 4   # the engines' defaults
+    if method in ("explicit_adams", "fixed_adams"):
+        out, stats = mlp_solve_adams(
+            warrays, dims, y0, tau,
+            _fixed_grid_tau(tau, t, num_steps, step_size), rtol, atol,
+            float(sign), implicit=method == "fixed_adams",
+            max_order=int(max_order), max_iters=int(max_iters), **net)
+        return SolveResult(out, SolverStats(*stats.tolist()))
     if method in tableaus.FIXED_TABLEAUS_BY_NAME:
         out, stats = mlp_solve_fixed(
-            warrays, dims, y0.contiguous(), tau,
+            warrays, dims, y0, tau,
             _fixed_grid_tau(tau, t, num_steps, step_size), float(sign),
-            f0=f0.contiguous(), activation=spec.activation,
-            final_activation=spec.final_activation,
-            input_power=spec.input_power, time_input=spec.time_input,
-            method=method, tiers=tiers)
+            method=method, tiers=tiers, **net)
         return SolveResult(out, SolverStats(*stats.tolist()))
 
-    order = tableaus.TABLEAUS_BY_NAME[method].order
     if first_step is None:
+        # HNW's first step at the method's order - 1; VCABM's at order 1,
+        # as the generic engine's.
+        hnw_order = (1 if method == "adams"
+                     else tableaus.TABLEAUS_BY_NAME[method].order - 1)
         rdt = torch.as_tensor(rtol, dtype=dtype).to(dev)
         adt = torch.as_tensor(atol, dtype=dtype).to(dev)
         pick = (select_initial_step_per_sample if per_sample
                 else select_initial_step)
-        dt0 = pick(g, tau[0].to(dev), y0, f0, order - 1, rdt, adt)
+        dt0 = pick(g, tau[0].to(dev), y0, f0, hnw_order, rdt, adt)
         extra_nfe = 2
     else:
         dt0 = torch.abs(torch.as_tensor(first_step, dtype=dtype))
         extra_nfe = 1
 
-    kw = dict(f0=f0.contiguous(), activation=spec.activation,
-              final_activation=spec.final_activation,
-              input_power=spec.input_power, time_input=spec.time_input,
-              method=method,
-              max_steps=(int(max_num_steps) if max_num_steps is not None
-                         else _INT32_MAX))
-    if per_sample:
-        out, stats, lane = mlp_solve_perlane(
-            warrays, dims, y0.contiguous(), tau, dt0, rtol, atol,
-            float(sign), **kw)
+    max_steps = (int(max_num_steps) if max_num_steps is not None
+                 else _INT32_MAX)
+    args = (warrays, dims, y0, tau, dt0, rtol, atol, float(sign))
+    if method == "adams":
+        out, stats = mlp_solve_vcabm(*args, max_order=int(max_order),
+                                     max_steps=max_steps, **net)
+    elif per_sample:
+        out, stats, lane = mlp_solve_perlane(*args, method=method,
+                                             max_steps=max_steps, **net)
         nfe, nacc, nrej, status = stats.tolist()
         return SolveResult(
             out, SolverStats(nfe + extra_nfe * y0.shape[0], nacc, nrej,
                              status),
             lane_stats=SolverStats(lane[0] + extra_nfe, lane[1], lane[2],
                                    lane[3]))
-    out, stats = mlp_solve(warrays, dims, y0.contiguous(), tau, dt0, rtol,
-                           atol, float(sign), tiers=tiers, **kw)
+    else:
+        out, stats = mlp_solve(*args, method=method, max_steps=max_steps,
+                               tiers=tiers, **net)
     nfe, nacc, nrej, status = stats.tolist()
     return SolveResult(out, SolverStats(nfe + extra_nfe, nacc, nrej, status))
 
@@ -531,12 +577,16 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     """Fused O(1)-memory training path for MLP neural ODEs.
 
     Forward = ONE whole-solve kernel launch (`solve_mlp_spec`: K2 for an
-    adaptive method, K8 for a fixed-grid one); backward = ONE launch of an
+    adaptive method, K8 for a fixed-grid one, K10 for 'explicit_adams' /
+    'fixed_adams', K11 for 'adams'); backward = ONE launch of an
     adjoint-sweep kernel running the interval loop, stored-state resets,
     cotangent injections, the steps, MLP VJPs and the parameter
     quadrature: K3 (adaptive steps) for an adaptive adjoint_method, K9 for
     a fixed-grid one. On CPU tensors every kernel runs its plain PyTorch
-    version.
+    version. No adjoint kernel exists for the Adams family: with an Adams
+    forward, name an RK adjoint_method (e.g. method='adams',
+    adjoint_method='dopri5'); an Adams adjoint_method, the default when
+    method is one, raises ValueError before any launch.
 
     per_sample=True: both sweeps give every sample its own step
     controller, K5 forward and K6 backward, so a stiff sample sets the
@@ -567,7 +617,7 @@ def odeint_adjoint_mlp(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     adjoint_atol = atol if adjoint_atol is None else adjoint_atol
     adjoint_method = method if adjoint_method is None else adjoint_method
     _check_method(method, spec)
-    _check_method(adjoint_method)
+    _check_adjoint_method(adjoint_method)
     if per_sample and (method not in tableaus.TABLEAUS_BY_NAME
                        or adjoint_method not in tableaus.TABLEAUS_BY_NAME):
         raise ValueError("per_sample=True training applies to adaptive RK "

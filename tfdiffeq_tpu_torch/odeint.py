@@ -1,8 +1,9 @@
 """`odeint` front-end: validate inputs, dispatch to a solver, integrate.
 
 Counterpart of `tfdiffeq_tpu/odeint.py` for the five adaptive RK methods
-(dopri5, bosh3, adaptive_heun, tsit5, dopri8) and the four fixed-grid ones
-(euler, midpoint, rk4, rk4_38): same signature, defaults (rtol=1e-7,
+(dopri5, bosh3, adaptive_heun, tsit5, dopri8), the four fixed-grid ones
+(euler, midpoint, rk4, rk4_38) and the Adams family (explicit_adams,
+fixed_adams, adams): same signature, defaults (rtol=1e-7,
 atol=1e-9, method='dopri5') and `SOLVERS` names, tensor or tuple/dict
 state, reverse time, per-leaf tolerances.
 
@@ -32,9 +33,16 @@ Options of the adaptive methods, against the reference's allowlist:
   without ``per_sample``), ``dense_output`` and ``telemetry`` (item 3,
   remaining engine options).
 
-Methods that are not ported yet (Adams and VCABM, hypersolvers) raise
-NotImplementedError naming their ROADMAP item. No method falls back to
-another path.
+Options of the Adams family, registered by `solvers/fixed_adams.py` and
+`solvers/adams.py` with the reference's allowlists: ``max_order`` and
+``max_iters`` (the corrector iterations of ``fixed_adams``) beside the
+fixed-grid options for ``explicit_adams`` / ``fixed_adams``; ``max_order``,
+``first_step``, ``safety``, ``ifactor``, ``dfactor``, ``max_num_steps``
+and ``norm`` (a callable) for the VCABM ``adams``. ``fuse`` raises as
+above.
+
+The hypersolvers are not ported yet and raise NotImplementedError naming
+their ROADMAP item. No method falls back to another path.
 """
 
 from __future__ import annotations
@@ -64,12 +72,9 @@ _CUSTOM_ALLOWED = {}
 
 #: Methods of the reference not ported yet -> the ROADMAP item that brings
 #: them (ROADMAP.md, queue 1).
-_NOT_PORTED_METHODS = {
-    **{m: "queue 1 item 12 (Adams family)"
-       for m in ("adams", "explicit_adams", "fixed_adams")},
-    **{m: "queue 1 item 13 (hypersolvers)"
-       for m in ("hyper_euler", "hyper_midpoint", "hyper_heun")},
-}
+_NOT_PORTED_METHODS = {m: "queue 1 item 13 (hypersolvers)"
+                       for m in ("hyper_euler", "hyper_midpoint",
+                                 "hyper_heun")}
 
 _NOT_PORTED_OPTIONS = {
     "fuse": "queue 1 item 16 (fusion of arbitrary dynamics)",

@@ -33,7 +33,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "fixed_kernel.cu", "fixed_adjoint_kernel.cu",
            "conv_solve_kernel.cu", "perlane_solve_kernel.cu",
-           "perlane_adjoint_kernel.cu", "tier_net_kernel.cu")
+           "perlane_adjoint_kernel.cu", "tier_net_kernel.cu",
+           "adams_kernel.cu", "vcabm_kernel.cu")
 HEADERS = ("mlp_rk.cuh", "dot_tiers.cuh", "cnf_net.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -112,6 +113,22 @@ _TIER_NET_ARGS = ([_P] * 3                                  # tensors
                   + [_D, _P, _P, _L]                        # t, tiers, work
                   + [_P])                                   # stream
 
+_SOLVE_ADAMS_ARGS = ([_P] * 8                               # tensors
+                     + [_I] * 6                             # G .. blocks
+                     + [_D] * 3                             # sign .. atol
+                     + [_I] * 5                             # valid .. nfe
+                     + [_P, _P]                             # ab, am
+                     + [_I, _P, _I, _I, _I, _I]             # network
+                     + [_I]                                 # route
+                     + [_P])                                # stream
+_SOLVE_VCABM_ARGS = ([_P] * 7                               # tensors
+                     + [_I] * 4                             # T, B, D, threads
+                     + [_D] * 8                             # scalars
+                     + [_I] * 3 + [_P]                      # .. gstar
+                     + [_I, _P, _I, _I, _I, _I]             # network
+                     + [_I]                                 # route
+                     + [_P])                                # stream
+
 #: Launch functions -> argument lists, each in float32 and float64.
 _ENTRIES = {"tfd_dopri5_mlp_step": _STEP_ARGS, "tfd_mlp_solve": _SOLVE_ARGS,
             "tfd_mlp_adjoint": _ADJOINT_ARGS,
@@ -120,7 +137,9 @@ _ENTRIES = {"tfd_dopri5_mlp_step": _STEP_ARGS, "tfd_mlp_solve": _SOLVE_ARGS,
             "tfd_conv_solve": _CONV_SOLVE_ARGS,
             "tfd_mlp_solve_perlane": _SOLVE_PERLANE_ARGS,
             "tfd_mlp_perlane_adjoint": _ADJOINT_PERLANE_ARGS,
-            "tfd_tier_net": _TIER_NET_ARGS}
+            "tfd_tier_net": _TIER_NET_ARGS,
+            "tfd_mlp_solve_adams": _SOLVE_ADAMS_ARGS,
+            "tfd_mlp_solve_vcabm": _SOLVE_VCABM_ARGS}
 
 
 def _nvcc() -> str:
