@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Time the port's adaptive (K2), fixed-grid (K8) and per-sample (K5) solve
+kernels at the bench protocol, for two or more checkouts of the repository
+on one NVIDIA card, in alternating order.
+
+    python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS]
+
+Each checkout builds its own kernels first (all together), then every
+round runs one process a checkout, in the order A B B A A B ... (ROUNDS
+pairs, 3 by default), each timing with CUDA events (median of 7 after a
+warm-up): the MLP routes of K2 (dopri5, bench spiral y [4096, 2], hidden
+50, 64 outputs over [0, 25], rtol = atol = 1e-6, first step 0.01), K8
+(rk4 x 500) and K5 (every sample's first step 0.01), and, where the
+checkout has the plan route (`ops/cuda_plan.py`), the same spiral written
+as plain PyTorch in each of the three. It prints the card's name and power
+limit, a line a run and the median of each kernel a checkout.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+
+
+def _one(root: str) -> None:
+    """Time the kernels of the checkout at `root`; print one line."""
+    sys.path.insert(0, root)
+    import torch
+    from tfdiffeq_tpu_torch import fast
+    from tfdiffeq_tpu_torch.ops import _build, cuda_fixed as cf, \
+        cuda_kernels as ck, cuda_perlane as cp
+    _build.library()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    c = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    p = {"w1": c(rng.randn(2, 50) * 0.1), "b1": c(np.zeros(50)),
+         "w2": c(rng.randn(50, 2) * 0.1), "b2": c(np.zeros(2))}
+    y = c(np.random.RandomState(1).randn(4096, 2) * 1.5)
+    t = torch.linspace(0.0, 25.0, 64)
+    grid = torch.linspace(0.0, 25.0, 501)
+    dt0 = torch.full((4096,), 0.01, device=dev)
+    W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+    warr, dims = ck.pack_mlp_weights(W, torch.float32, dev)
+    f0 = fast.mlp_apply(fast.MLPSpec(activation="tanh", input_power=3), W, y)
+    kw = dict(f0=f0, activation="tanh", input_power=3)
+
+    def timed(fn, reps=7):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts)
+
+    out = {
+        "K2": timed(lambda: ck.mlp_solve(warr, dims, y, t, 0.01, 1e-6, 1e-6,
+                                         1.0, **kw)),
+        "K8": timed(lambda: cf.mlp_solve_fixed(warr, dims, y, t, grid, 1.0,
+                                               **kw)),
+        "K5": timed(lambda: cp.mlp_solve_perlane(warr, dims, y, t, dt0, 1e-6,
+                                                 1e-6, 1.0, **kw)),
+    }
+    plan_mod = os.path.join(root, "tfdiffeq_tpu_torch", "ops", "cuda_plan.py")
+    if os.path.exists(plan_mod):
+        from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, \
+            plan_bridge as pb
+
+        def f(tt, yy):
+            return torch.tanh((yy ** 3) @ p["w1"] + p["b1"]) @ p["w2"] \
+                + p["b2"]
+
+        plan, consts = pb.build_plan(f, t[0].to(dev), y)
+        packed = pb.pack_consts(plan, consts, torch.float32, dev)
+        g = cpl.plan_rhs(plan, packed, torch.tensor(1.0, device=dev))
+        pf0 = g(t[0].to(dev), y).contiguous()
+        cpl.build([(plan, "solve"), (plan, "fixed"), (plan, "perlane")])
+        out["K14 in K2"] = timed(lambda: cpl.plan_solve(
+            plan, packed, y, t, 0.01, 1e-6, 1e-6, 1.0, pf0))
+        out["K14 in K8"] = timed(lambda: cpl.plan_solve_fixed(
+            plan, packed, y, t, grid, 1.0, pf0))
+        out["K14 in K5"] = timed(lambda: cpl.plan_solve(
+            plan, packed, y, t, dt0, 1e-6, 1e-6, 1.0, pf0, per_sample=True))
+    print("RESULT " + " ".join(f"{k.replace(' ', '_')}={v:.3f}"
+                               for k, v in out.items()), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) >= 3 and sys.argv[1] == "--one":
+        _one(os.path.abspath(sys.argv[2]))
+        return 0
+    if len(sys.argv) < 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    dirs = [os.path.abspath(d) for d in sys.argv[1:3]]
+    rounds = int(sys.argv[3]) if len(sys.argv) > 3 else 3
+    me = os.path.abspath(__file__)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    builds = [subprocess.Popen([sys.executable, "-c",
+                                "import sys; sys.path.insert(0, sys.argv[1]);"
+                                " from tfdiffeq_tpu_torch.ops import _build;"
+                                " _build.library()", d]) for d in dirs]
+    if any(b.wait() for b in builds):
+        return 1
+    order = []
+    for r in range(rounds):
+        order += dirs if r % 2 == 0 else dirs[::-1]
+    runs = {d: [] for d in dirs}
+    for d in order:
+        res = subprocess.run([sys.executable, me, "--one", d],
+                             capture_output=True, text=True)
+        line = next((l for l in res.stdout.splitlines()
+                     if l.startswith("RESULT ")), None)
+        if res.returncode != 0 or line is None:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        vals = dict(kv.split("=") for kv in line.split()[1:])
+        runs[d].append({k: float(v) for k, v in vals.items()})
+        print(f"{d}: {line[7:]}", flush=True)
+    for d in dirs:
+        keys = runs[d][0].keys()
+        med = {k: statistics.median(r[k] for r in runs[d]) for k in keys}
+        print(f"median {d}: " + " ".join(f"{k}={v:.3f}"
+                                         for k, v in med.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -201,6 +201,41 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     agree with the generic `odeint_adjoint(method='adams',
     adjoint_method='dopri5')` within 1e-3 relative.
 
+28. K14, a traced plan's generated right-hand side (ops/plan_bridge.py,
+    ops/plan_codegen.py, csrc/plan_rhs.cuh), inside K2: the bench spiral
+    written as plain PyTorch over the bench weights and solved by
+    `odeint(..., options={'fuse': True, 'first_step': 0.01})` at the bench
+    protocol, float32 and float64: one plan-K2 launch, no fallback, status
+    0, finite [64, 4096, 2]; the launch, recorded with its inputs, held to
+    its plain version (`cuda_plan.plan_solve_plain`: K2's engine with
+    `eval_plan`) bitwise with identical stats, and run again bitwise. K2's
+    MLP route (`fast.solve_mlp`) and the generic engine on the same weights
+    are timed beside it and the largest gaps printed (not held: at B = 4096
+    over [0, 25] summation order moves the step counts); at B = 96 with 12
+    outputs over [0, 5] within 1e-5 relative of the generic solve. The
+    plan libraries of phases 28-32 are captured after [2] and built beside
+    phases 3-27 (one nvcc each, together); their build times and -Xptxas
+    -v reports are printed here.
+29. K14 in K8: the same plan, rk4 with 500 steps through
+    `fast.solve_fused` (one plan-K8 launch), held to its plain version in
+    both types; euler, midpoint and rk4_38 in float64 on the default grid
+    (the 64 output times) at B = 96; K8's MLP route timed beside it.
+30. K14 in K5: `solve(..., options={'fuse': True, 'per_sample': True})`
+    at the bench protocol (one plan-K5 launch), held to its plain version
+    in both types; the samples' nfe (min, median, max); K5's MLP route
+    timed beside it.
+31. Batch couplings in K2's batch route: the reference's `meanfield`,
+    `scalar_coupled` and a max coupling (y - max_j y) at B = 4096, D = 3, 7
+    outputs over [0, 2], each one plan-K2 launch held to its plain version
+    (the block's sum order) in both types; the generic engine timed beside.
+32. `fast.cnf_sample_auto` of BASELINE's flow (3 -> 32 -> 32 -> 2, concat-t,
+    tanh; flax-layout weights through `convert.cnf_from_flax`), written as
+    plain PyTorch, n = 4096 over [0, 1] at rtol 1e-5, atol 1e-7: one
+    plan-K2 launch held to its plain version; within 1e-4 relative of
+    `fast.cnf_sample_fused` on the same base noise; both timed. Then [28]
+    once more: no plan library is built again (the cache by structure),
+    and the result is bitwise the first run's.
+
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
 from its plain version, its time and its plain version's, and its bound,
@@ -212,7 +247,13 @@ any of these whole solves, steps or sweeps, so library_ms is null but for
 K4. K10 (`adams_solve`: fixed_adams, with explicit_adams' numbers under
 `explicit_*`) and K11 (`vcabm_solve`) carry the generic engine's time
 (`generic_engine_ms`), their launches in [27]'s training steps, and K11 the
-Adams-forward training step (`train_step_ms`). K7 has two records, its
+Adams-forward training step (`train_step_ms`). K14 (`plan_rhs`) carries
+its launches, largest difference from the plain version, times, plain
+times and bounds in each host (`*_by_host`: K2, K8, K5; the top-level
+numbers are K2's at the bench protocol), each plan library's build seconds
+(`build_s`), the hand-written MLP route's time on the same function in each
+host (`mlp_route_ms`, its nearest yardstick), the coupled plans' times
+beside the generic engine, and the two samplers' times. K7 has two records, its
 forward in K2 (`cnf_forward`, launches in
 [24]'s steps) and its adjoint in K3 (`cnf_adjoint`), each with the
 nearest library-built path's time beside it: the generic engine with
@@ -1490,6 +1531,384 @@ def _adams_tier(smi: str, dev) -> dict:
     return rec
 
 
+#: [28]-[32]: the coupled plans' state width, batch, outputs and span
+#: (tests/test_meanfield.py:23-26 at B = 4096).
+PLAN_D, PLAN_B, PLAN_T, PLAN_SPAN = 3, 4096, 7, 2.0
+#: The flow of [32] (BASELINE.md:83) and its sample count.
+FLOW_N = 4096
+
+
+def _spiral_func(p):
+    """The bench spiral as plain PyTorch over `p` (w1, b1, w2, b2)."""
+    import torch
+
+    def f(t, y):
+        return torch.tanh((y ** 3) @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+    return f
+
+
+def _coupled_funcs(dtype, device):
+    """The reference's mean-field dynamics (tests/test_meanfield.py:27-34)
+    and a max coupling, as plain PyTorch over its seed-0 weight."""
+    import torch
+    W = torch.tensor(np.random.RandomState(0).randn(PLAN_D, PLAN_D) * 0.3,
+                     dtype=dtype, device=device)
+    return {
+        "meanfield": lambda t, y: torch.tanh(y @ W) - 0.5 * (y - y.mean(0)),
+        "scalar_coupled": lambda t, y: (torch.tanh(y @ W)
+                                        - 0.1 * (y ** 2).mean() * y),
+        "bmax": lambda t, y: torch.tanh(y @ W) - 0.5 * (y - y.amax(0)),
+    }
+
+
+def _flow_variables():
+    """BASELINE's CNF flow (3 -> 32 -> 32 -> 2, concat-t, tanh) in the flax
+    layout that `convert.cnf_from_flax` reads, from a seeded generator."""
+    rng = np.random.RandomState(0)
+    widths = [CNF_D + 1, CNF_H, CNF_H, CNF_D]
+    return {"params": {f"Dense_{i}": {
+        "kernel": rng.randn(i_, o) * 0.6 / np.sqrt(i_),
+        "bias": rng.randn(o) * 0.1}
+        for i, (i_, o) in enumerate(zip(widths[:-1], widths[1:]))}}
+
+
+def _flow_func(t, z, params):
+    """The concat-t flow as plain PyTorch over [(W [din, dout], b), ...]."""
+    import torch
+    h = torch.cat([z, t.expand(z.shape[0], 1)], dim=1)
+    for i, (w, b) in enumerate(params):
+        h = h @ w + b
+        if i < len(params) - 1:
+            h = torch.tanh(h)
+    return h
+
+
+def _plan_pairs(dev):
+    """Every (plan, host) that phases 28-32 run, captured at a small batch
+    where the generated code does not depend on it, so that their libraries
+    build together before the phases need them."""
+    import torch
+    from tfdiffeq_tpu_torch import convert, fast
+    from tfdiffeq_tpu_torch.ops import plan_bridge as pb
+    t0 = torch.tensor(0.0, device=dev)
+    p, _, _ = _bench_params(8, torch.float32, dev)
+    spiral, _ = pb.build_plan(_spiral_func(p), t0, torch.ones(8, D,
+                                                             device=dev))
+    pairs = [(spiral, "solve"), (spiral, "fixed"), (spiral, "perlane")]
+    # A batch mean divides by B, a literal of the plan: the coupled plans
+    # are captured at their batch.
+    for f in _coupled_funcs(torch.float32, dev).values():
+        plan, _ = pb.build_plan(f, t0, torch.ones(PLAN_B, PLAN_D,
+                                                  device=dev))
+        pairs.append((plan, "solve"))
+    flow = convert.cnf_from_flax(_flow_variables(), device=dev)
+    W = fast.weights_from_linears(flow)
+    plan, _ = pb.build_plan(lambda t, z: _flow_func(t, z, W), t0,
+                            torch.ones(8, CNF_D, device=dev))
+    pairs.append((plan, "solve"))
+    return pairs
+
+
+def _plan_flops(plan) -> int:
+    """One evaluation of a plan for one sample: a multiply and an add a
+    dot weight, one operation an element of every elementwise op and
+    reduction (a transcendental function counted as one); moves, casts
+    and broadcasts are free."""
+    from tfdiffeq_tpu_torch.ops.plan_codegen import value_rows
+    rows = value_rows(plan)
+    n = 0
+    for ins in plan.instrs:
+        op = ins[0]
+        if op == "dot":
+            n += 2 * ins[4] * ins[5]
+        elif op in ("un", "bin", "select"):
+            n += rows[ins[1]]
+        elif op == "clamp":
+            n += 2 * rows[ins[1]]
+        elif op == "ipow":
+            n += max(abs(ins[3]) - 1, 1) * rows[ins[1]]
+        elif op in ("reduce", "bsum", "bmax"):
+            a = ins[2]
+            n += rows[a[1]] if a[0] == "v" else 1
+    return n
+
+
+def _plan_tier(smi: str, dev, builds, pairs) -> dict:
+    """Phases 28-32: K14, a traced plan's generated right-hand side, in K2,
+    K8 and K5. `builds` is the future of the build of `pairs`' plan
+    libraries, started after [2]. Returns the numbers of K14's record."""
+    import time
+    import torch
+    from tfdiffeq_tpu_torch import fast, odeint, solve
+    from tfdiffeq_tpu_torch import convert
+    from tfdiffeq_tpu_torch.ops import _build, cuda_fixed as cf, \
+        cuda_kernels as ck, cuda_perlane as cp, cuda_plan as cpl, \
+        plan_bridge as pb
+    from tfdiffeq_tpu_torch.ops.tableaus import DOPRI5, RK4
+    f32, f64 = torch.float32, torch.float64
+    rec = {"ms": {}, "plain_ms": {}, "mlp_route_ms": {}, "err": {},
+           "launches": {"K2": 0, "K8": 0, "K5": 0}}
+    t_wait = time.perf_counter()
+    builds.result()
+    rec["build_s"] = {f"{h}:{k}": round(v, 3) for (k, h), v in
+                      _build.plan_build_times.items()}
+    print(f"[28] plan libraries: {_build.plan_builds} nvcc builds in "
+          f"{_build.plan_build_seconds:.1f} s (started after [2], beside "
+          f"phases 3-27; waited {time.perf_counter() - t_wait:.1f} s here); "
+          f"per library {rec['build_s']}", flush=True)
+    for plan_, host in pairs:
+        for line in _build.plan_build_log(cpl.source(plan_, host),
+                                          host).splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"    {host}: " + line.strip())
+
+    def launches():
+        return (cpl.plan_solve_launches, cpl.plan_fixed_launches,
+                cpl.plan_perlane_launches)
+
+    def hold(call, plain, what, again):
+        """A recorded launch against its plain version, and run again."""
+        err, plain_ms = _hold_to_plain(call, plain, what)
+        args, kw, got = call
+        if not all(torch.equal(a, b) for a, b in zip(got, again(*args,
+                                                                 **kw))):
+            raise AssertionError(f"{what}: two kernel runs differ")
+        return err, plain_ms
+
+    t = torch.linspace(0.0, SPAN, T_OUT)
+
+    # [28] K14 in K2 at the bench protocol, through odeint(fuse).
+    def fused_bench():
+        p, y, _ = _bench_params(B, f32, dev)
+        return odeint(_spiral_func(p), y, t, rtol=TOL, atol=TOL,
+                      options={"fuse": True, "first_step": FIRST_STEP})
+
+    calls = {}
+    for dtype in (f32, f64):
+        p, y, _ = _bench_params(B, dtype, dev)
+        tt = t.to(dtype)
+        cpl.reset_launch_counts()
+        fb = fast.fuse_fallbacks
+        with _Recording(cpl, "plan_solve") as r:
+            ys = odeint(_spiral_func(p), y, tt, rtol=TOL, atol=TOL,
+                        options={"fuse": True, "first_step": FIRST_STEP})
+        torch.cuda.synchronize()
+        st = r.calls[0][2][1].tolist() if r.calls else None
+        print(f"[28] odeint(spiral as plain torch, fuse) {dtype}: plan "
+              f"launches (K2, K8, K5) {launches()}, fallbacks "
+              f"{fast.fuse_fallbacks - fb}, kernel stats {st}", flush=True)
+        if launches() != (1, 0, 0) or fast.fuse_fallbacks != fb \
+                or st[3] != 0 or tuple(ys.shape) != (T_OUT, B, D) \
+                or not torch.isfinite(ys).all():
+            raise AssertionError(f"[28] the fused spiral {dtype} failed")
+        rec["launches"]["K2"] += 1
+        calls[dtype] = r.calls[0]
+        err, plain_ms = hold(r.calls[0], cpl.plan_solve_plain,
+                             f"[28] K14 in K2 {dtype}", cpl.plan_solve)
+        if dtype == f32:
+            rec["err"]["K2"], rec["plain_ms"]["K2"] = err, plain_ms
+            ys32 = ys
+    args, kw, got = calls[f32]
+    rec["ms"]["K2"] = _timed(lambda: cpl.plan_solve(*args, **kw))
+    rec["k2_stats"] = got[1].tolist()
+    rec["n_consts"] = sum(x.numel() for x in args[1])
+    rec["plan_flops"] = _plan_flops(args[0])
+    p, y, _ = _bench_params(B, f32, dev)
+    mlp = fast.solve_mlp(p, y, t, rtol=TOL, atol=TOL, first_step=FIRST_STEP)
+    spec = fast.MLPSpec(activation="tanh", input_power=3)
+    W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+    warr, dims = ck.pack_mlp_weights(W, f32, dev)
+    f0 = fast.mlp_apply(spec, W, y)
+    mlp_args = (warr, dims, y, t, FIRST_STEP, TOL, TOL, 1.0)
+    mlp_kw = dict(f0=f0, activation="tanh", input_power=3)
+    y32 = y
+    rec["mlp_route_ms"]["K2"] = _timed(lambda: ck.mlp_solve(*mlp_args,
+                                                            **mlp_kw))
+    with torch.no_grad():
+        gen = solve(_spiral_func(p), y, t, rtol=TOL, atol=TOL,
+                    options={"first_step": FIRST_STEP})
+        gen_ms = _host_ms(lambda: solve(_spiral_func(p), y, t, rtol=TOL,
+                                        atol=TOL, options={
+                                            "first_step": FIRST_STEP}))[0]
+    print(f"[28] {smi}: K14 in K2 {rec['ms']['K2']:.3f} ms a solve (nfe "
+          f"{got[1][0].item()}) vs K2's MLP route "
+          f"{rec['mlp_route_ms']['K2']:.3f} ms (fast.solve_mlp nfe "
+          f"{mlp.stats.nfe}) vs the generic engine "
+          f"{gen_ms:.3f} ms (nfe {gen.stats.nfe}); plain version "
+          f"{rec['plain_ms']['K2']:.1f} ms; max |fused - solve_mlp| "
+          f"{float((ys32 - mlp.ys).abs().max()):.3e}, |fused - generic| "
+          f"{float((ys32 - gen.ys).abs().max()):.3e} (printed, not held: the "
+          f"bench protocol's step counts follow summation order)", flush=True)
+    ps, ys_, _ = _bench_params(96, f32, dev)
+    ts = torch.linspace(0.0, 5.0, 12)
+    small = odeint(_spiral_func(ps), ys_, ts, rtol=TOL, atol=TOL,
+                   options={"fuse": True})
+    with torch.no_grad():
+        small_g = solve(_spiral_func(ps), ys_, ts, rtol=TOL, atol=TOL).ys
+    rel = _rel(small, small_g)
+    print(f"[28] B=96: fused within {rel:.3e} relative of the generic solve "
+          "(bar 1e-5)", flush=True)
+    if rel > 1e-5:
+        raise AssertionError("[28] the fused spiral differs from the generic "
+                             "engine at B=96")
+
+    # [29] K14 in K8: rk4 with 500 steps at the bench widths.
+    for dtype in (f32, f64):
+        p, y, _ = _bench_params(B, dtype, dev)
+        cpl.reset_launch_counts()
+        with _Recording(cpl, "plan_solve_fixed") as r:
+            res = fast.solve_fused(_spiral_func(p), y, t.to(dtype),
+                                   method="rk4", num_steps=500)
+        if launches() != (0, 1, 0) or res.stats.status != 0 \
+                or not torch.isfinite(res.ys).all():
+            raise AssertionError(f"[29] K14 in K8 {dtype}: launches "
+                                 f"{launches()}, stats {res.stats}")
+        rec["launches"]["K8"] += 1
+        err, plain_ms = hold(r.calls[0], cpl.plan_solve_fixed_plain,
+                             f"[29] K14 in K8 rk4 x 500 {dtype}",
+                             cpl.plan_solve_fixed)
+        if dtype == f32:
+            rec["err"]["K8"], rec["plain_ms"]["K8"] = err, plain_ms
+            args8, kw8, _ = r.calls[0]
+            rec["k8_nfe"] = res.stats.nfe
+    rec["ms"]["K8"] = _timed(lambda: cpl.plan_solve_fixed(*args8, **kw8))
+    grid = args8[4]
+    rec["mlp_route_ms"]["K8"] = _timed(lambda: cf.mlp_solve_fixed(
+        warr, dims, y32, t, grid, 1.0, **mlp_kw))
+    # The other methods on the default grid (the output times), as [10].
+    ps, ys_, _ = _bench_params(96, f64, dev)
+    for method in ("euler", "midpoint", "rk4_38"):
+        cpl.reset_launch_counts()
+        with _Recording(cpl, "plan_solve_fixed") as r:
+            fast.solve_fused(_spiral_func(ps), ys_, t.to(f64),
+                             method=method)
+        rec["launches"]["K8"] += launches()[1]
+        hold(r.calls[0], cpl.plan_solve_fixed_plain,
+             f"[29] K14 in K8 {method} float64 B=96", cpl.plan_solve_fixed)
+    print(f"[29] {smi}: K14 in K8 {rec['ms']['K8']:.3f} ms an rk4 x 500 "
+          f"solve vs K8's MLP route {rec['mlp_route_ms']['K8']:.3f} ms; "
+          f"plain {rec['plain_ms']['K8']:.1f} ms", flush=True)
+
+    # [30] K14 in K5: a controller a sample, through solve(fuse,
+    # per_sample), HNW first steps per sample.
+    for dtype in (f32, f64):
+        p, y, _ = _bench_params(B, dtype, dev)
+        cpl.reset_launch_counts()
+        with _Recording(cpl, "plan_solve") as r:
+            res = solve(_spiral_func(p), y, t.to(dtype), rtol=TOL, atol=TOL,
+                        options={"fuse": True, "per_sample": True})
+        lane = res.lane_stats.nfe.float()
+        print(f"[30] solve(spiral, fuse, per_sample) {dtype}: launches "
+              f"{launches()}, stats {res.stats}, lane nfe min "
+              f"{lane.min():.0f} median {lane.median():.0f} max "
+              f"{lane.max():.0f}", flush=True)
+        if launches() != (0, 0, 1) or res.stats.status != 0 \
+                or not torch.isfinite(res.ys).all():
+            raise AssertionError(f"[30] K14 in K5 {dtype} failed")
+        rec["launches"]["K5"] += 1
+        # The per-sample counts last, as _hold_to_plain prints and compares
+        # them: (out, stats, lane_stats) -> (out, lane_stats, stats).
+        args5, kw5, got5 = r.calls[0]
+        swap = lambda fn: lambda *a, **k: (lambda o: (o[0], o[2], o[1]))(
+            fn(*a, **k))
+        err, plain_ms = hold((args5, kw5, (got5[0], got5[2], got5[1])),
+                             swap(cpl.plan_solve_plain),
+                             f"[30] K14 in K5 {dtype}", swap(cpl.plan_solve))
+        if dtype == f32:
+            rec["err"]["K5"], rec["plain_ms"]["K5"] = err, plain_ms
+            rec["k5_stats"] = got5[1].tolist()
+    rec["ms"]["K5"] = _timed(lambda: cpl.plan_solve(*args5, **kw5))
+    dt0 = args5[4]
+    rec["mlp_route_ms"]["K5"] = _timed(lambda: cp.mlp_solve_perlane(
+        warr, dims, y32, t, dt0, TOL, TOL, 1.0, **mlp_kw))
+    print(f"[30] {smi}: K14 in K5 {rec['ms']['K5']:.3f} ms a solve vs K5's "
+          f"MLP route {rec['mlp_route_ms']['K5']:.3f} ms; plain "
+          f"{rec['plain_ms']['K5']:.1f} ms", flush=True)
+
+    # [31] batch couplings in K2: the block meets in their fixed order.
+    tc = torch.linspace(0.0, PLAN_SPAN, PLAN_T)
+    rec["coupled"] = {}
+    for dtype in (f32, f64):
+        y = torch.tensor(np.random.RandomState(0).randn(PLAN_B, PLAN_D),
+                         dtype=dtype, device=dev)
+        for name, f in _coupled_funcs(dtype, dev).items():
+            cpl.reset_launch_counts()
+            with _Recording(cpl, "plan_solve") as r:
+                res = solve(f, y, tc.to(dtype), rtol=TOL, atol=1e-8,
+                            options={"fuse": True})
+            if launches() != (1, 0, 0) or res.stats.status != 0 \
+                    or not torch.isfinite(res.ys).all():
+                raise AssertionError(f"[31] {name} {dtype}: launches "
+                                     f"{launches()}, stats {res.stats}")
+            rec["launches"]["K2"] += 1
+            err, plain_ms = hold(r.calls[0], cpl.plan_solve_plain,
+                                 f"[31] K14 {name} in K2 (batch route) "
+                                 f"{dtype}", cpl.plan_solve)
+            if dtype == f32:
+                a, k, g_ = r.calls[0]
+                ms = _timed(lambda: cpl.plan_solve(*a, **k), reps=3)
+                with torch.no_grad():
+                    gen_ms = _host_ms(lambda: solve(
+                        f, y, tc, rtol=TOL, atol=1e-8))[0]
+                rec["coupled"][name] = {"ms": ms, "plain_ms": plain_ms,
+                                        "generic_engine_ms": gen_ms,
+                                        "nfe": g_[1][0].item()}
+                rec["err"]["K2"] = max(rec["err"]["K2"], err)
+                print(f"[31] {smi}: {name} K14 in K2 {ms:.3f} ms (nfe "
+                      f"{g_[1][0].item()}) vs the generic engine "
+                      f"{gen_ms:.3f} ms; plain {plain_ms:.1f} ms",
+                      flush=True)
+
+    # [32] cnf_sample_auto: BASELINE's flow as plain PyTorch.
+    flow = convert.cnf_from_flax(_flow_variables(), device=dev)
+    Wf = fast.weights_from_linears(flow)
+    cpl.reset_launch_counts()
+    with _Recording(cpl, "plan_solve") as r:
+        xs = fast.cnf_sample_auto(_flow_func, Wf,
+                                  torch.Generator(device=dev).manual_seed(7),
+                                  FLOW_N, CNF_D, rtol=CNF_RTOL, atol=CNF_ATOL)
+    if launches() != (1, 0, 0) or not torch.isfinite(xs).all():
+        raise AssertionError(f"[32] cnf_sample_auto: launches {launches()}")
+    rec["launches"]["K2"] += 1
+    err, plain_ms = hold(r.calls[0], cpl.plan_solve_plain,
+                         "[32] K14 (the flow) in K2 float32", cpl.plan_solve)
+    xs_f = fast.cnf_sample_fused(Wf, torch.Generator(device=dev).manual_seed(
+        7), FLOW_N, CNF_D, rtol=CNF_RTOL, atol=CNF_ATOL)
+    rel = _rel(xs, xs_f)
+    gen = lambda: torch.Generator(device=dev).manual_seed(7)
+    rec["flow_ms"] = _host_ms(lambda: fast.cnf_sample_auto(
+        _flow_func, Wf, gen(), FLOW_N, CNF_D, rtol=CNF_RTOL,
+        atol=CNF_ATOL))[0]
+    rec["flow_fused_ms"] = _host_ms(lambda: fast.cnf_sample_fused(
+        Wf, gen(), FLOW_N, CNF_D, rtol=CNF_RTOL, atol=CNF_ATOL))[0]
+    z = torch.randn((FLOW_N, CNF_D), device=dev)
+    rec["capture_ms"] = _host_ms(lambda: pb.build_plan(
+        lambda tt, zz: _flow_func(tt, zz, Wf), torch.tensor(0.0, device=dev),
+        z))[0]
+    a, k, _ = r.calls[0]
+    rec["flow_kernel_ms"] = _timed(lambda: cpl.plan_solve(*a, **k))
+    print(f"[32] {smi}: cnf_sample_auto {rec['flow_ms']:.3f} ms (its K2 "
+          f"launch {rec['flow_kernel_ms']:.3f} ms, the capture by make_fx "
+          f"{rec['capture_ms']:.3f} ms) vs cnf_sample_fused "
+          f"{rec['flow_fused_ms']:.3f} ms (n = {FLOW_N}); within {rel:.3e} "
+          "relative (bar 1e-4)", flush=True)
+    if rel > 1e-4:
+        raise AssertionError("[32] cnf_sample_auto differs from "
+                             "cnf_sample_fused")
+
+    # [28] again: the same structure builds nothing.
+    n_builds = _build.plan_builds
+    cpl.reset_launch_counts()
+    again = fused_bench()
+    if _build.plan_builds != n_builds or launches() != (1, 0, 0) \
+            or not torch.equal(again, ys32):
+        raise AssertionError("[28] a repeated structure rebuilt or differs")
+    rec["launches"]["K2"] += 1
+    print(f"[28] again: plan builds still {n_builds}, bitwise the first "
+          "run", flush=True)
+    return rec
+
+
 def main() -> int:
     import time
     import torch
@@ -1527,6 +1946,12 @@ def main() -> int:
             print("    " + line.strip())
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
+    # K14's plan libraries of phases 28-32 build beside phases 3-27.
+    from concurrent.futures import ThreadPoolExecutor
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    plan_pool = ThreadPoolExecutor(1)
+    plan_pairs = _plan_pairs(dev)
+    plan_builds = plan_pool.submit(cpl.build, plan_pairs)
 
     # [3] K1 against its plain version (dt 0.3: a typical main-path step).
     spec = fast.MLPSpec(activation="tanh", input_power=3)
@@ -2346,6 +2771,8 @@ def main() -> int:
     wide = _wide_tier(smi, dev)
     cnf = _cnf_tier(smi, dev)
     adams = _adams_tier(smi, dev)
+    plan = _plan_tier(smi, dev, plan_builds, plan_pairs)
+    plan_pool.shutdown()
 
     # Bounds: the operations and bytes of each timed run's inputs.
     mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
@@ -2385,6 +2812,19 @@ def main() -> int:
                       + 4 * 5 * B)
 
     k4_bound = wide["k4_bound"]
+    pf, nc = plan["plan_flops"], plan["n_consts"]
+    nfe14, acc14, rej14, _ = plan["k2_stats"]
+    nfe5, acc5, rej5, _ = plan["k5_stats"]
+    k14_bound = {
+        "K2": _bound(B * (nfe14 * pf + (acc14 + rej14) * D
+                          * _combine_flops(DOPRI5)),
+                     4 * (2 * B * D + T_OUT * B * D + T_OUT + nc)),
+        "K8": _bound(B * (plan["k8_nfe"] * pf + 500 * D
+                          * _combine_flops(RK4)),
+                     4 * (2 * B * D + T_OUT * B * D + nc + T_OUT + 501)),
+        "K5": _bound(nfe5 * pf + (acc5 + rej5) * D * _combine_flops(DOPRI5),
+                     4 * (2 * B * D + B + T_OUT * B * D + T_OUT + nc)
+                     + 4 * 5 * B)}
     kernels = [
         {"name": "dopri5_mlp_step", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/step_kernel.cu",
@@ -2491,6 +2931,26 @@ def main() -> int:
          "bound_by": adams["vcabm_bound"][1], "library_ms": None,
          "generic_engine_ms": adams["vcabm_generic_ms"],
          "train_step_ms": adams["train_ms"]},
+        {"name": "plan_rhs", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/plan_rhs.cuh",
+         "generated_by": "tfdiffeq_tpu_torch/ops/plan_codegen.py",
+         "replaces": "tfdiffeq_tpu/ops/jaxpr_bridge.py:826",
+         "launches": sum(plan["launches"].values()),
+         "launches_by_host": plan["launches"],
+         "max_abs_err": max(plan["err"].values()),
+         "max_abs_err_by_host": plan["err"],
+         "ms": plan["ms"]["K2"], "ms_by_host": plan["ms"],
+         "plain_ms": plan["plain_ms"]["K2"],
+         "plain_ms_by_host": plan["plain_ms"],
+         "bound_ms": k14_bound["K2"][0], "bound_by": k14_bound["K2"][1],
+         "bound_ms_by_host": {h: b[0] for h, b in k14_bound.items()},
+         "library_ms": None, "build_s": plan["build_s"],
+         "mlp_route_ms": plan["mlp_route_ms"],
+         "coupled_k2": plan["coupled"],
+         "cnf_sample_auto_ms": plan["flow_ms"],
+         "cnf_sample_auto_kernel_ms": plan["flow_kernel_ms"],
+         "capture_ms": plan["capture_ms"],
+         "cnf_sample_fused_ms": plan["flow_fused_ms"]},
     ]
     wide_ms = {"mlp_solve": wide["k2_highest"][0],
                "mlp_adjoint_solve": wide["K3_wide"],

@@ -1155,3 +1155,176 @@ def test_adams_entry_points_launch_k10_k11(cuda):
                             W, y, t, method="fixed_adams")
     assert (cad.mlp_solve_adams_launches,
             cad.mlp_solve_vcabm_launches) == (3, 2)
+
+
+# ---------------------------------------------------------------------------
+# K14: generated plans inside K2, K8 and K5 (ops/cuda_plan.py)
+# ---------------------------------------------------------------------------
+
+def _plan_dyns(dtype, device):
+    """Plain PyTorch dynamics that cover the plan's ops: products against
+    captured weights and module parameters, a time column, the activations,
+    round-half-even, a feature flip, trig and inverse hyperbolics, and the
+    batch couplings (K2 only)."""
+    rng = np.random.RandomState(3)
+    c = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    A = c([[-0.1, 2.0], [-2.0, -0.1]])
+    W1, b1, W2 = c(rng.randn(3, 16) * 0.3), c(rng.randn(16) * 0.1), \
+        c(rng.randn(16, 2) * 0.3)
+    WF = c(rng.randn(3, 3) * 0.3)
+    return {
+        "spiral": (lambda t, y: (y ** 3) @ A, 2),
+        "concat_t_gelu": (lambda t, y: torch.nn.functional.gelu(
+            torch.cat([y, t.expand(y.shape[0], 1)], 1) @ W1 + b1) @ W2, 2),
+        "gated_sigmoid": (lambda t, y: torch.where(
+            y > 0, -0.5 * y, torch.sigmoid(y) - 0.6) + 0.1 * torch.sin(t), 2),
+        "ops": (lambda t, y: 0.1 * (torch.tan(0.3 * y) + torch.asinh(y)
+                                    + torch.atanh(0.5 * torch.tanh(y))
+                                    + torch.erf(y) + torch.flip(y, (1,))
+                                    + torch.round(4 * y) / 64
+                                    + torch.expm1(-y * y)) - y, 2),
+        "meanfield": (lambda t, y: torch.tanh(y @ WF)
+                      - 0.5 * (y - y.mean(0)), 3),
+        "scalar_coupled": (lambda t, y: torch.tanh(y @ WF)
+                           - 0.1 * (y ** 2).mean() * y, 3),
+        "bmax": (lambda t, y: torch.tanh(y @ WF) - 0.3 * (y - y.amax(0)), 3),
+    }
+
+
+def _plan_case(name, dtype, device, B=96):
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, plan_bridge as pb
+    f, D = _plan_dyns(dtype, device)[name]
+    y0 = torch.tensor(np.random.RandomState(1).randn(B, D), dtype=dtype,
+                      device=device)
+    t = torch.linspace(0.0, 2.0, 7, dtype=dtype)
+    plan, consts = pb.build_plan(f, t[0].to(device), y0)
+    packed = pb.pack_consts(plan, consts, dtype, device)
+    g = cpl.plan_rhs(plan, packed, torch.tensor(1.0, dtype=dtype,
+                                                 device=device))
+    return plan, packed, y0, t, g, g(t[0].to(device), y0).contiguous()
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("name", ["spiral", "concat_t_gelu",
+                                  "gated_sigmoid", "ops", "meanfield",
+                                  "scalar_coupled", "bmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plan_hosts_match_plain(cuda, dtype, name):
+    """K14 in K2 (coupled plans batch-wide), K8 and K5: bitwise equal to
+    the plain engines with `eval_plan`, identical stats, and run to run;
+    the launch counters move, the plain engines are never reached."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    cpl.reset_launch_counts()
+    plan, packed, y0, t, g, f0 = _plan_case(name, dtype, cuda)
+    args = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+    got = cpl.plan_solve(*args)
+    assert _same(got, cpl.plan_solve(*args))
+    ref = ck.adaptive_solve_plain(
+        g, y0, f0, t, 0.01, 1e-6, 1e-6, ck.TABLEAUS_BY_NAME["dopri5"],
+        safety=0.9, ifactor=10.0, dfactor=0.2, max_steps=2 ** 31 - 1,
+        threads=ck.SOLVE_THREADS)
+    assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
+    assert got[1][3].item() == 0
+    if plan.batch_coupled:
+        assert cpl.plan_solve_launches == 2
+        return
+    grid = uniform_grid(t[0], t[-1], 40)
+    got = cpl.plan_solve_fixed(plan, packed, y0, t, grid, 1.0, f0)
+    ref = cf.fixed_solve_plain(g, y0, f0, t, grid,
+                               cf.FIXED_TABLEAUS_BY_NAME["rk4"])
+    assert _same(got, ref)
+    got = cpl.plan_solve(*args, per_sample=True)
+    ref = cp.perlane_solve_plain(
+        g, y0, f0, t, 0.01, 1e-6, 1e-6, cp.TABLEAUS_BY_NAME["dopri5"],
+        safety=0.9, ifactor=10.0, dfactor=0.2, max_steps=2 ** 31 - 1)
+    assert _same(got, ref)
+    assert (cpl.plan_solve_launches, cpl.plan_fixed_launches,
+            cpl.plan_perlane_launches) == (2, 1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plan_constants_past_shared_memory(cuda, dtype):
+    """A plan whose constants pass 220 KB reads them from global memory,
+    bitwise equal to its plain version on every host."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, plan_bridge as pb
+    rng = np.random.RandomState(4)
+    c = lambda a: torch.tensor(a, dtype=dtype, device=cuda)
+    Ws = [c(rng.randn(2, 256) / 2), c(rng.randn(256, 256) / 16),
+          c(rng.randn(256, 2) / 16)]
+
+    def f(t, y):
+        return torch.tanh(torch.tanh(y @ Ws[0]) @ Ws[1]) @ Ws[2]
+
+    y0 = torch.tensor(rng.randn(64, 2), dtype=dtype, device=cuda)
+    t = torch.linspace(0.0, 1.0, 4, dtype=dtype)
+    plan, consts = pb.build_plan(f, t[0].to(cuda), y0)
+    packed = pb.pack_consts(plan, consts, dtype, cuda)
+    g = cpl.plan_rhs(plan, packed, torch.tensor(1.0, dtype=dtype,
+                                                 device=cuda))
+    f0 = g(t[0].to(cuda), y0).contiguous()
+    args = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+    got = cpl.plan_solve(*args)
+    assert cpl.last_route["solve"] == "global"
+    ref = ck.adaptive_solve_plain(
+        g, y0, f0, t, 0.01, 1e-6, 1e-6, ck.TABLEAUS_BY_NAME["dopri5"],
+        safety=0.9, ifactor=10.0, dfactor=0.2, max_steps=2 ** 31 - 1,
+        threads=ck.SOLVE_THREADS)
+    assert _same(got, ref)
+    grid = uniform_grid(t[0], t[-1], 8)
+    got = cpl.plan_solve_fixed(plan, packed, y0, t, grid, 1.0, f0)
+    assert cpl.last_route["fixed"] == "global"
+    assert _same(got, cf.fixed_solve_plain(g, y0, f0, t, grid,
+                                           cf.FIXED_TABLEAUS_BY_NAME["rk4"]))
+    got = cpl.plan_solve(*args, per_sample=True)
+    assert cpl.last_route["perlane"] == "global"
+    assert _same(got, cp.perlane_solve_plain(
+        g, y0, f0, t, 0.01, 1e-6, 1e-6, cp.TABLEAUS_BY_NAME["dopri5"],
+        safety=0.9, ifactor=10.0, dfactor=0.2, max_steps=2 ** 31 - 1))
+
+
+def test_fused_entry_points_launch_and_never_fall_back(cuda, monkeypatch):
+    """odeint(options={'fuse': True}) and fast.solve_fused on the card:
+    one plan launch each, no plain engine reached (they are replaced by a
+    function that raises), no fallback counted; a broken generated source
+    raises RuntimeError (never FusionError, never the generic engine)."""
+    from tfdiffeq_tpu_torch import odeint
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+
+    def never(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for name in ("adaptive_solve_plain", "fixed_solve_plain",
+                 "perlane_solve_plain"):
+        monkeypatch.setattr(cpl, name, never)
+    cpl.reset_launch_counts()
+    before = fast.fuse_fallbacks
+    p, y = _bench(256, torch.float32, cuda)
+    t = torch.linspace(0.0, 5.0, 12)
+
+    def f(tt, yy):
+        return torch.tanh((yy ** 3) @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+    ys = odeint(f, y, t, rtol=1e-6, atol=1e-6,
+                options={"fuse": True, "first_step": 0.01})
+    ref = fast.solve_mlp(p, y, t, rtol=1e-6, atol=1e-6, first_step=0.01)
+    torch.testing.assert_close(ys, ref.ys, rtol=1e-3, atol=2e-4)
+    res = fast.solve_fused(f, y, t, method="rk4", num_steps=50)
+    res2 = fast.solve_fused(f, y, t, per_sample=True)
+    assert res.stats.status == 0 and res2.stats.status == 0
+    assert (cpl.plan_solve_launches, cpl.plan_fixed_launches,
+            cpl.plan_perlane_launches) == (1, 1, 1)
+    assert fast.fuse_fallbacks == before
+
+    cpl.source.cache_clear()
+    monkeypatch.setattr(cpl.plan_codegen, "cuda_source",
+                        lambda plan, host: "#error a broken plan\n")
+    g = lambda tt, yy: -yy * 0.5 + 0.25 * torch.cos(yy)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        odeint(g, y, t, options={"fuse": True})
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fast.solve_fused(g, y, t)
+    assert fast.fuse_fallbacks == before
+    cpl.source.cache_clear()

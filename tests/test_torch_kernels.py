@@ -194,7 +194,8 @@ def test_wrappers_refuse_bad_inputs():
 
 def test_build_sources_cover_csrc():
     names = {p.name for p in _build.CSRC.iterdir()}
-    assert names == set(_build.SOURCES + _build.HEADERS)
+    assert names == set(_build.SOURCES + _build.HEADERS
+                        + _build.PLAN_HEADERS)
     assert "adjoint_kernel.cu" in _build.SOURCES
     assert len(_build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -253,9 +253,9 @@ def _spec_args():
     (lambda: P.solve(lambda t, y: -y, torch.ones(2, 2), [0.0, 1.0],
                      method="rk4", options={"per_sample": True}),
      TypeError, "Unknown solver options"),
-    (lambda: P.solve(lambda t, y: -y, torch.ones(2, 2), [0.0, 1.0],
-                     options={"per_sample": True, "fuse": True}),
-     NotImplementedError, "item 16"),
+    (lambda: P.solve(lambda t, y: y - y.mean(0), torch.ones(3, 2),
+                     [0.0, 1.0], options={"per_sample": True, "fuse": True}),
+     ValueError, "batch-coupled"),
 ], ids=["spec_fixed", "adjoint_fixed_forward", "adjoint_fixed_backward",
         "spec_adams", "generic_not_2d", "generic_fixed", "generic_fuse"])
 def test_per_sample_refusals(call, exc, match):

@@ -1,0 +1,127 @@
+"""PyTorch port: K14's generated code checked without a card.
+
+For each plan of tests/test_torch_plan_bridge.py, the segments that
+`ops/plan_codegen.py` generates (the code that runs inside K2, K8 and K5)
+are compiled as host C++ (`c++ -O1 -shared -fPIC`, with a shim that
+defines __host__, __device__ and __forceinline__ as empty; csrc/
+plan_ops.cuh maps each operation to <math.h>), loaded with ctypes and run
+on the whole batch, every batch coupling reduced in the order of a K2
+block of 512 threads. The result is held against `plan_bridge.eval_plan`
+within 1e-12 relative to the output's largest entry in float64 and 1e-6 in
+float32: the host's libm is not PyTorch's, so transcendental functions may
+differ in their last bits, while a codegen fault (a wrong row, operand or
+op) shows as an O(1) gap. Generation is deterministic, and the source
+depends on neither the batch size nor the constants' values.
+
+Skipped only where no host C++ compiler is found.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from tfdiffeq_tpu_torch.ops import plan_bridge as PB
+from tfdiffeq_tpu_torch.ops import plan_codegen as PC
+from tfdiffeq_tpu_torch.ops.cuda_kernels import SOLVE_THREADS
+
+from test_torch_plan_bridge import NAMES, T0, _dyn
+
+CXX = shutil.which("c++") or shutil.which("g++")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tfdiffeq_tpu_torch", "csrc")
+SHIM = ("#define __host__\n#define __device__\n"
+        "#define __forceinline__ inline\n")
+
+pytestmark = pytest.mark.skipif(CXX is None, reason="no host C++ compiler")
+
+
+def _plan(name, dtype):
+    f, y0 = _dyn(torch, dtype)[name]
+    y = torch.tensor(y0, dtype=dtype)
+    t = torch.tensor(T0, dtype=dtype)
+    plan, consts = PB.build_plan(f, t, y)
+    return plan, PB.pack_consts(plan, consts, dtype), t, y
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """Every plan of the set compiled as host C++, all compilers started
+    together: {name: ctypes library}."""
+    d = tmp_path_factory.mktemp("plans")
+    jobs = {}
+    for name in NAMES:
+        plan = _plan(name, torch.float64)[0]
+        cpp, so = d / f"{name}.cpp", d / f"{name}.so"
+        cpp.write_text(SHIM + PC.host_source(plan, SOLVE_THREADS))
+        jobs[name] = (so, subprocess.Popen(
+            [CXX, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", CSRC, "-o",
+             str(so), str(cpp)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (so, proc) in jobs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, f"{name}:\n{log}"
+        out[name] = ctypes.CDLL(str(so))
+    return out
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", NAMES)
+def test_generated_segments_match_eval_plan(libs, name, dtype):
+    plan, packed, t, y = _plan(name, dtype)
+    B = y.shape[0]
+    want = PB.eval_plan_host(plan, packed, t, y)
+    lay = PC.layout(plan)
+    c, sc = PC.flat_consts(plan, packed, B)
+    out = torch.full((B, plan.out_rows), float("nan"), dtype=dtype)
+    live = torch.zeros(max(1, lay.live_rows * B), dtype=dtype)
+    red = torch.zeros(max(1, lay.red_values), dtype=dtype)
+    suffix, ct = (("f32", ctypes.c_float) if dtype == torch.float32
+                  else ("f64", ctypes.c_double))
+    fn = getattr(libs[name], f"plan_eval_{suffix}")
+    fn.argtypes = [ct] + [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 3
+    fn.restype = None
+    fn(float(t), _ptr(y.contiguous()), _ptr(c), _ptr(sc), B, _ptr(out),
+       _ptr(live), _ptr(red))
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    rel = float((out - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    assert rel <= tol, (name, rel)
+    assert lay.segments == 1 + sum(ins[0] in ("bsum", "bmax")
+                                   for ins in plan.instrs)
+
+
+@pytest.mark.parametrize("host", PC.HOSTS)
+def test_source_depends_on_structure_alone(host):
+    """The same structure at another batch size and with other weights
+    gives the same source; generation is deterministic; a coupled plan
+    runs on K2 only."""
+    a1 = torch.tensor(np.random.RandomState(0).randn(2, 16))
+    a2 = torch.tensor(np.random.RandomState(1).randn(2, 16))
+    b2 = torch.tensor(np.random.RandomState(2).randn(16, 2))
+
+    def f(a):
+        return lambda t, y: torch.tanh(y @ a + t) @ b2
+
+    p8, _ = PB.build_plan(f(a1), 0.0, torch.randn(8, 2, dtype=torch.float64))
+    p12, _ = PB.build_plan(f(a2), 0.0,
+                           torch.randn(12, 2, dtype=torch.float64))
+    assert p8 != p12                     # the batch is part of the plan
+    src = PC.cuda_source(p8, host)
+    assert src == PC.cuda_source(p12, host) == PC.cuda_source(p8, host)
+    coupled = _plan("meanfield", torch.float64)[0]
+    if host == "solve":
+        assert "kSegments = 2" in PC.cuda_source(coupled, host)
+    else:
+        with pytest.raises(ValueError, match="'solve' host only"):
+            PC.cuda_source(coupled, host)

@@ -11,7 +11,9 @@ evaluations. The fused tier (`tfdiffeq_tpu_torch.fast`) runs a whole MLP
 neural-ODE solve, a whole adjoint backward sweep, a whole solve of the
 ODE-Net's conv dynamics, and a continuous normalizing flow's density and
 training (`fast.cnf_*`, with `models.cnf`), each as one hand-written CUDA
-kernel on an NVIDIA Hopper card.
+kernel on an NVIDIA Hopper card. `solve_fused` (and `odeint(...,
+options={'fuse': True})`) captures arbitrary plain-PyTorch dynamics into a
+plan and runs its generated CUDA right-hand side inside those kernels.
 """
 
 from .adjoint import odeint_adjoint
@@ -23,12 +25,14 @@ from .solvers.base import SolveResult, SolverStats, Status
 from .solvers import fixed_adams as _fixed_adams  # noqa: F401,E402
 from .solvers import adams as _adams  # noqa: F401,E402
 from .utils.nfe import NFEMeter
+from .fast import solve_fused  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "odeint",
     "odeint_adjoint",
+    "solve_fused",
     "NFEMeter",
     "register_solver",
     "solve",

@@ -91,12 +91,15 @@ def _check_methods(method, adjoint_method, options: dict) -> None:
     for key in ("fuse", "per_sample"):
         if options.get(key):
             # The reference routes per_sample training only through its
-            # fused tier (adjoint.py:306-390).
+            # fused tier (adjoint.py:306-390), whose backward sweep walks
+            # the plan in reverse (K15, plan_adjoint.py:154).
             raise NotImplementedError(
                 f"odeint_adjoint(options={{{key!r}: True}}) is not ported "
-                "yet: ROADMAP.md queue 1 item 16 (fusion of arbitrary "
-                "dynamics); fast.odeint_adjoint_mlp(per_sample=True) trains "
-                "MLP dynamics per sample")
+                "yet: ROADMAP.md queue 1 item 16 (K15, the plan's "
+                "reverse-mode walk, with odeint_adjoint_fused; the forward "
+                "half, fast.solve_fused and odeint(options={'fuse': True}), "
+                "is ported); fast.odeint_adjoint_mlp(per_sample=True) "
+                "trains MLP dynamics per sample")
 
 
 class _Adjoint(torch.autograd.Function):

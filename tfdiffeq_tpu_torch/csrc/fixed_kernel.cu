@@ -1,6 +1,10 @@
 // K8: a whole fixed-grid explicit-RK solve (euler, midpoint, rk4, rk4_38)
 // of an MLP neural ODE in one launch.
 //
+// The engine is csrc/rk_fixed.cuh, a template on its right-hand side;
+// this file instantiates it with the MLP routes below
+// (csrc/plan_rhs.cuh does with K14's generated plans).
+//
 // Replaces the TPU kernel tfdiffeq_tpu/ops/pallas_fixed.py:102
 // (_make_fixed_solve_kernel with _fixed_stage_walk :59 and _hermite_drain
 // :76; launched by fixed_solve_call :178 from mlp_solve_fixed :250). Per
@@ -44,6 +48,7 @@
 // the tensor cores in float32 with all the block's warps. All samples
 // share one grid, so the blocks stay independent.
 #include "dot_tiers.cuh"
+#include "rk_fixed.cuh"
 
 namespace tfd {
 
@@ -52,172 +57,70 @@ namespace tfd {
 constexpr int kFixedBatchThreads = 256;
 constexpr int kFixedSamples = 64;
 
-template <typename T>
-struct FixedScalars {
-  T sign;
-  int valid, G, T_out, B, D;
-};
-
+// K8's MLP right-hand sides (csrc/rk_fixed.cuh's Rhs): the per-thread
+// narrow and wide routes (mlp_eval) and the batch route (batch_mlp_eval,
+// K4's tiers), where a block of kFixedBatchThreads threads owns
+// kFixedSamples samples.
 template <typename T, int kRoute>
-__global__ void mlp_solve_fixed_kernel(
-    const T* __restrict__ grid_g, const T* __restrict__ tau_g,
-    const T* __restrict__ y0g, const T* __restrict__ f0g,
-    const T* __restrict__ wg, T* __restrict__ out, int* __restrict__ stats,
-    T* __restrict__ work, BatchBufs<T> bb, int n_weights, Net net_in,
-    Tableau<T> tab_in, FixedScalars<T> sc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ Net net;
-  __shared__ Tableau<T> tab;
-  const int tid = threadIdx.x;
-  const T* w;   // [n_weights]
-  T* grid;      // [G]
-  if constexpr (kRoute == kRouteNarrow) {
-    T* ws = reinterpret_cast<T*>(smem_raw);
-    for (int i = tid; i < n_weights; i += blockDim.x) ws[i] = wg[i];
-    w = ws;
-    grid = ws + n_weights;
-  } else {
-    w = wg;
-    grid = reinterpret_cast<T*>(smem_raw);
-  }
-  T* tau = grid + sc.G;                   // [T_out]
-  if (tid == 0) {
-    net = net_in;
-    tab = tab_in;
-  }
-  for (int i = tid; i < sc.G; i += blockDim.x) grid[i] = grid_g[i];
-  for (int i = tid; i < sc.T_out; i += blockDim.x) tau[i] = tau_g[i];
-  // The batch route's block owns kFixedSamples rows of the workspace.
-  const int spb = kRoute == kRouteBatch ? kFixedSamples : blockDim.x;
-  const int row0 = blockIdx.x * spb;
-  if constexpr (kRoute == kRouteBatch) batch_clear(bb, row0, spb);
-  __syncthreads();
+struct MlpFixedRhs {
+  static constexpr bool kBatch = kRoute == kRouteBatch;
+  const T* wg;     // packed weights (pack_mlp_weights)
+  int n_weights;
+  Net net_in;
+  BatchBufs<T> bb;
 
-  const int G = sc.G, T_out = sc.T_out, B = sc.B, D = sc.D, S = tab.S;
-  if (blockIdx.x == 0 && tid == 0) {
-    stats[0] = sc.valid ? 1 + S * (G - 1) : 0;
-    stats[1] = sc.valid ? G - 1 : 0;
-    stats[2] = 0;
-    stats[3] = sc.valid ? 0 : 3;
-  }
-  const int b = row0 + tid;
-  const bool mine = tid < spb && b < B;
-  if constexpr (kRoute != kRouteBatch) {
-    if (!mine) return;  // no barrier follows
-  }
+  struct Shared {
+    Net net;
+  };
+  // The layer vectors. The weights' pointer stays out of this struct: a
+  // store through h_a or h_b could alias it and force a reload each time.
+  struct Local {
+    T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
+  };
 
-  const long BD = long(B) * D;
-  // Feature-major workspace rows of B values: row d of Y is y[d].
-  T* Y = work;             // state
-  T* C = Y + BD;           // Kahan compensation
-  T* F = C + BD;           // f(t0, y0): stage 0, chained
-  T* Y0 = F + BD;          // the step's start state (Hermite drain)
-  T* K = Y0 + BD;          // stages 1 .. S - 1
-  // This sample's value in workspace row `row`.
-  auto at = [B, b](int row) -> long { return long(row) * B + b; };
-  T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
-  const T sign = sc.sign;
-
-  // Row 0 is y0; the rest stays zero unless a step writes it
-  // (pallas_fixed.py:125-126).
-  for (int d = 0; mine && d < D; ++d) {
-    const long i = long(b) * D + d;
-    out[i] = y0g[i];
-    for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
-    Y[at(d)] = y0g[i];
-    F[at(d)] = f0g[i];
-    C[at(d)] = T(0);
-  }
-  if (!sc.valid) return;  // the same in every thread
-
-  int oi = 1;
-  for (int step = 0; step + 1 < G; ++step) {
-    const T t0 = grid[step];
-    const T t1 = grid[step + 1];
-    const T dt = t1 - t0;
-    // pallas_fixed.py:_fixed_stage_walk: yi = yi + (dt * a_ij) * k_j.
-    auto stage_state = [&](int i, int d) {
-      T v = Y[at(d)];
-      for (int j = 0; j < i; ++j) {
-        const T a = tab.a[i][j];
-        if (a != T(0)) {
-          const T kj = j == 0 ? F[at(d)] : K[at((j - 1) * D + d)];
-          v = v + (dt * a) * kj;
-        }
-      }
-      return v;
-    };
-    // The solution combine and the Kahan-compensated update; returns y1.
-    auto update = [&](int d) {
-      T delta = T(0);
-      bool first = true;
-      for (int j = 0; j < S; ++j) {
-        if (tab.b_sol[j] != T(0)) {
-          const T kj = j == 0 ? F[at(d)] : K[at((j - 1) * D + d)];
-          const T term = (dt * tab.b_sol[j]) * kj;
-          delta = first ? term : delta + term;
-          first = false;
-        }
-      }
-      const T y0 = Y[at(d)];
-      const T adj = delta - C[at(d)];
-      const T y1 = y0 + adj;
-      C[at(d)] = (y1 - y0) - adj;
-      Y[at(d)] = y1;
-      Y0[at(d)] = y0;
-      return y1;
-    };
-    const T* fo;     // f(t1, y1) of this thread's sample
-    if constexpr (kRoute != kRouteBatch) {
-      for (int i = 1; i < S; ++i) {
-        for (int d = 0; d < D; ++d) h_a[d] = stage_state(i, d);
-        const T ti = t0 + tab.c[i] * dt;
-        const T* f = mlp_eval(net, w, sign * ti, h_a, h_b);
-        for (int d = 0; d < D; ++d) K[at((i - 1) * D + d)] = sign * f[d];
-      }
-      for (int d = 0; d < D; ++d) h_a[d] = update(d);
-      // The chained end derivative f(t1, y1).
-      fo = mlp_eval(net, w, sign * t1, h_a, h_b);
+  // The packed weights: in shared memory on the narrow route (setup copies
+  // them there), else in global memory.
+  __device__ __forceinline__ const T* weights() const {
+    if constexpr (kRoute == kRouteNarrow) {
+      extern __shared__ __align__(16) unsigned char smem_raw[];
+      return reinterpret_cast<const T*>(smem_raw);
     } else {
-      for (int i = 1; i < S; ++i) {
-        const T ti = t0 + tab.c[i] * dt;
-        if (mine)
-          batch_put(bb, net, b, sign * ti,
-                    [&](int d) { return stage_state(i, d); });
-        __syncthreads();
-        const T* f = batch_mlp_eval(net, w, bb, row0, spb) + long(b) * bb.ld;
-        for (int d = 0; mine && d < D; ++d)
-          K[at((i - 1) * D + d)] = sign * f[d];
-      }
-      if (mine) batch_put(bb, net, b, sign * t1, update);
-      __syncthreads();
-      fo = batch_mlp_eval(net, w, bb, row0, spb) + long(b) * bb.ld;
+      return wg;
     }
-    // Every requested time in (t0, t1]; on the last interval, every one
-    // left. The cursor is the same in every thread.
-    const bool last = step + 2 == G;
-    int oi_new = oi;
-    while (oi_new < T_out && (tau[oi_new] <= t1 || last)) ++oi_new;
-    for (int d = 0; mine && d < D; ++d) {
-      const T f0 = F[at(d)];
-      const T f1 = sign * fo[d];
-      F[at(d)] = f1;
-      const T y0 = Y0[at(d)];
-      const T y1 = Y[at(d)];
-      const T df0 = dt * f0;
-      const T df1 = dt * f1;
-      const T cb = T(2) * (y0 - y1) + df0 + df1;
-      const T cc = T(3) * (y1 - y0) - T(2) * df0 - df1;
-      for (int o = oi; o < oi_new; ++o) {
-        const T tj = tau[o];
-        const T x = (tj - t0) / dt;
-        const T val = ((cb * x + cc) * x + df0) * x + y0;
-        out[long(o) * BD + long(b) * D + d] = (tj == t1) ? y1 : val;
-      }
-    }
-    oi = oi_new;
   }
-}
+
+  __device__ int spb() const { return kFixedSamples; }
+  __device__ T* setup(Shared& sh, Local&, unsigned char* smem, int row0,
+                      int spb) const {
+    const int tid = threadIdx.x;
+    T* rest;
+    if constexpr (kRoute == kRouteNarrow) {
+      T* ws = reinterpret_cast<T*>(smem);
+      for (int i = tid; i < n_weights; i += blockDim.x) ws[i] = wg[i];
+      rest = ws + n_weights;
+    } else {
+      rest = reinterpret_cast<T*>(smem);
+    }
+    if (tid == 0) sh.net = net_in;
+    if constexpr (kRoute == kRouteBatch) batch_clear(bb, row0, spb);
+    return rest;
+  }
+
+  __device__ T* in(Local& lo) const { return lo.h_a; }
+  __device__ const T* eval(const Shared& sh, Local& lo, T t, int, int) const {
+    return mlp_eval(sh.net, weights(), t, lo.h_a, lo.h_b);
+  }
+
+  template <class G>
+  __device__ void put(const Shared& sh, Local&, int b, T t, G get) const {
+    batch_put(bb, sh.net, b, t, get);
+  }
+  __device__ const T* eval_batch(const Shared& sh, Local& lo, int row0,
+                                 int spb) const {
+    return batch_mlp_eval(sh.net, weights(), bb, row0, spb);
+  }
+  __device__ long ld() const { return bb.ld; }
+};
 
 template <typename T, int kRoute>
 cudaError_t launch_fixed_route(const void* grid, const void* tau,
@@ -231,19 +134,14 @@ cudaError_t launch_fixed_route(const void* grid, const void* tau,
   const size_t smem =
       sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + sc.G +
                    sc.T_out);
-  auto kernel = mlp_solve_fixed_kernel<T, kRoute>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
+  MlpFixedRhs<T, kRoute> rhs;
+  rhs.wg = static_cast<const T*>(weights);
+  rhs.n_weights = n_w;
+  rhs.net_in = net;
+  rhs.bb = bb;
   const int spb = kRoute == kRouteBatch ? kFixedSamples : threads;
-  const int blocks = (sc.B + spb - 1) / spb;
-  kernel<<<blocks, threads, smem, stream>>>(
-      static_cast<const T*>(grid), static_cast<const T*>(tau),
-      static_cast<const T*>(y0), static_cast<const T*>(f0),
-      static_cast<const T*>(weights), static_cast<T*>(out),
-      static_cast<int*>(stats), static_cast<T*>(work), bb, n_w, net, tab,
-      sc);
-  return cudaGetLastError();
+  return launch_rk_fixed<T>(grid, tau, y0, f0, out, stats, work, rhs, smem,
+                            threads, spb, tab, sc, stream);
 }
 
 template <typename T>

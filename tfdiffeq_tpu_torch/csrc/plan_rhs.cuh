@@ -1,0 +1,365 @@
+// K14 inside its hosts: the right-hand sides that run a generated plan
+// (ops/plan_codegen.py) in K2 (csrc/rk_solve.cuh), K8 (csrc/rk_fixed.cuh)
+// and K5 (csrc/rk_perlane.cuh), and the launch functions of a plan
+// library.
+//
+// Replaces the TPU kernel functions tfdiffeq_tpu/ops/jaxpr_bridge.py:826
+// (eval_plan) and :1000 (make_plan_f), which walk a traced plan inside the
+// Pallas solve kernels launched by plan_solve (:1038) and plan_solve_fixed
+// (tfdiffeq_tpu/ops/pallas_fixed.py:1167). Where Mosaic unrolled the walk
+// when it compiled each plan structure, a plan here is generated as CUDA
+// C++ (one source per structure and host, built with nvcc at first use and
+// cached by the structure, ops/_build.py plan_library) and compiled into
+// the host kernel in place of its MLP right-hand side.
+//
+// A generated `Plan` provides kDim, kOutRows, kSegments, kLiveRows and
+// kRedValues, seg<T>(k, t, y, c, sc, b, B, live, red, out) (segment k of
+// the plan for sample b: y its kDim inputs, c the constants, sc the
+// per-sample constants as [rows][B], live the workspace rows [kLiveRows][B]
+// of values that outlive a segment, red the reduced values, out its
+// kOutRows outputs, written by the last segment) and meet(k, m) (the batch
+// couplings that end segment k, handed to m(kind, row, rows, red_off,
+// to_scalar)). A plan without a coupling is one segment.
+//
+// PlanRhs evaluates a sample at a time in its thread (K2, K5 and K8 for
+// uncoupled plans). PlanBatchRhs (K2 only) evaluates a stage batch-wide:
+// every thread runs segment k for the samples it owns, writing the rows a
+// coupling reduces into live rows; the block then meets and reduces them
+// (each thread's samples in order from 0, or from -inf / +inf for max /
+// min, then block_fold's fixed tree over the threads; a to-scalar
+// coupling folds its row results in row order), and segment k + 1 runs.
+// ops/plan_bridge.py eval_plan repeats that order (_batch_sums).
+//
+// Constants sit in shared memory when the launch says they fit
+// (smem_consts, from ops/cuda_plan.py against cuda_kernels.
+// MAX_WEIGHT_BYTES), else they are read from global memory.
+#pragma once
+
+#include "mlp_rk.cuh"
+#include "plan_ops.cuh"
+#include "rk_fixed.cuh"
+#include "rk_perlane.cuh"
+#include "rk_solve.cuh"
+
+namespace tfd {
+
+// The constants into shared memory when `in_smem` (no barrier); returns
+// the free shared memory.
+template <typename T>
+__device__ __forceinline__ T* plan_setup_consts(const T* cg, int n_consts,
+                                                int in_smem,
+                                                unsigned char* smem) {
+  T* s = reinterpret_cast<T*>(smem);
+  if (!in_smem) return s;
+  for (int i = threadIdx.x; i < n_consts; i += blockDim.x) s[i] = cg[i];
+  return s + n_consts;
+}
+
+// Where the segments read the constants: shared memory (plan_setup_consts
+// copied them) or global memory. It is worked out at each evaluation, not
+// kept in a per-thread struct, where a store could alias it.
+template <typename T>
+__device__ __forceinline__ const T* plan_consts(const T* cg, int in_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return in_smem ? reinterpret_cast<const T*>(smem_raw) : cg;
+}
+
+template <typename T, class P>
+struct PlanRhs {
+  static_assert(P::kSegments == 1, "a per-thread plan has no coupling");
+  static constexpr bool kBatch = false;
+  const T* cg;    // constants (plan_codegen.flat_consts)
+  const T* scg;   // per-sample constants [rows][B]
+  int n_consts;
+  int in_smem;    // copy the constants to shared memory
+
+  struct Shared {
+    int unused;
+  };
+  struct Local {
+    T in[P::kDim];
+    T out[P::kOutRows];
+  };
+
+  __device__ int spb() const { return blockDim.x; }
+  __device__ T* setup(Shared&, Local&, unsigned char* smem, int = 0,
+                      int = 0) const {
+    return plan_setup_consts<T>(cg, n_consts, in_smem, smem);
+  }
+  __device__ T* in(Local& lo) const { return lo.in; }
+  __device__ const T* eval(const Shared&, Local& lo, T t, int b, int B,
+                           T* = nullptr) const {
+    P::template seg<T>(0, t, lo.in, plan_consts(cg, in_smem), scg, b, B,
+                       nullptr, nullptr, lo.out);
+    return lo.out;
+  }
+};
+
+// Sum, max or min of one value per thread in a fixed tree order (every
+// thread returns it); blockDim.x a power of two, red [blockDim.x].
+template <typename T>
+__device__ T block_fold(T v, T* red, int kind) {
+  const int tid = threadIdx.x;
+  red[tid] = v;
+  __syncthreads();
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      const T a = red[tid], b = red[tid + s];
+      red[tid] = kind == 0 ? a + b : (kind == 1 ? p_max(a, b) : p_min(a, b));
+    }
+    __syncthreads();
+  }
+  const T total = red[0];
+  __syncthreads();
+  return total;
+}
+
+// The block's meet at a batch coupling: live rows [row, row + rows) reduced
+// over the batch into red[off ...], and with to_scalar their fold into
+// red[off + rows].
+template <typename T>
+struct BlockMeet {
+  const T* live;
+  T* red;
+  T* scratch;   // [blockDim.x]
+  int B;
+  __device__ void operator()(int kind, int row, int rows, int off,
+                             int to_scalar) {
+    const T init = kind == 0 ? T(0) : (kind == 1 ? -T(HUGE_VAL) : T(HUGE_VAL));
+    for (int r = 0; r < rows; ++r) {
+      T p = init;
+      for (int b = threadIdx.x; b < B; b += blockDim.x) {
+        const T v = live[long(row + r) * B + b];
+        p = kind == 0 ? p + v : (kind == 1 ? p_max(p, v) : p_min(p, v));
+      }
+      const T total = block_fold(p, scratch, kind);
+      if (threadIdx.x == 0) red[off + r] = total;
+    }
+    if (to_scalar && threadIdx.x == 0) {
+      T s = red[off];
+      for (int r = 1; r < rows; ++r)
+        s = kind == 0 ? s + red[off + r]
+                      : (kind == 1 ? p_max(s, red[off + r])
+                                   : p_min(s, red[off + r]));
+      red[off + rows] = s;
+    }
+    __syncthreads();
+  }
+};
+
+// K2's batch-wide plan route (coupled plans). Its workspace rows after the
+// solve's own: X [B][kDim] stage inputs, FO [B][kOutRows] outputs, the live
+// rows [kLiveRows][B], then kRedValues reduced values.
+template <typename T, class P>
+struct PlanBatchRhs {
+  static constexpr bool kBatch = true;
+  const T* cg;
+  const T* scg;
+  int n_consts;
+  int in_smem;
+
+  struct Shared {
+    int unused;
+  };
+  struct Local {
+    T t;
+  };
+
+  __device__ T* setup(Shared&, Local&, unsigned char* smem) const {
+    return plan_setup_consts<T>(cg, n_consts, in_smem, smem);
+  }
+  template <class G>
+  __device__ void put(const Shared&, Local& lo, int b, T t, G get, T* rw,
+                      int) const {
+    lo.t = t;
+    T* x = rw + long(b) * P::kDim;
+    for (int d = 0; d < P::kDim; ++d) x[d] = get(d);
+  }
+  __device__ const T* eval_batch(const Shared&, Local& lo, T* rw, T* scratch,
+                                 int B) const {
+    const T* X = rw;
+    T* FO = rw + long(B) * P::kDim;
+    T* live = FO + long(B) * P::kOutRows;
+    T* redv = live + long(B) * P::kLiveRows;
+    const T* c = plan_consts(cg, in_smem);
+    for (int k = 0; k < P::kSegments; ++k) {
+      for (int b = threadIdx.x; b < B; b += blockDim.x)
+        P::template seg<T>(k, lo.t, X + long(b) * P::kDim, c, scg, b, B,
+                           live, redv, FO + long(b) * P::kOutRows);
+      if (k + 1 < P::kSegments) {
+        BlockMeet<T> m{live, redv, scratch, B};
+        P::meet(k, m);
+      }
+    }
+    return FO;
+  }
+  __device__ long ld(const Local&) const { return P::kOutRows; }
+};
+
+// ---- launch functions of a plan library (one host each) ----
+
+template <typename T, class P>
+int launch_plan_solve(const void* tau, const void* y0, const void* f0,
+                      void* out, void* stats, void* work, int T_out, int B,
+                      int D, int threads, double dt0, double rtol,
+                      double atol, double dt_min, double sign,
+                      double safety, double ifactor, double dfactor,
+                      int max_steps, int valid, int stages, int order,
+                      int fsal, const double* c, const double* a,
+                      const double* b_sol, const double* b_err,
+                      const double* c_mid, const void* consts, int n_consts,
+                      const void* sample_consts, int smem_consts,
+                      void* stream) {
+  if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 ||
+      D != P::kDim || P::kOutRows != D || threads < 32 ||
+      threads > kSolveThreads || (threads & (threads - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Tableau<T> tab =
+      make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
+  const Scalars<T> sc =
+      make_scalars<T>(dt0, rtol, atol, dt_min, sign, safety, ifactor,
+                      dfactor, max_steps, valid, T_out, B, D);
+  const size_t smem =
+      sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + threads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* cg = static_cast<const T*>(consts);
+  const T* scg = static_cast<const T*>(sample_consts);
+  cudaError_t e;
+  if constexpr (P::kSegments > 1)
+    e = launch_rk_solve<T>(tau, y0, f0, out, stats, work,
+                           PlanBatchRhs<T, P>{cg, scg, n_consts, smem_consts},
+                           smem, threads, tab, sc, st);
+  else
+    e = launch_rk_solve<T>(tau, y0, f0, out, stats, work,
+                           PlanRhs<T, P>{cg, scg, n_consts, smem_consts},
+                           smem, threads, tab, sc, st);
+  return static_cast<int>(e);
+}
+
+template <typename T, class P>
+int launch_plan_fixed(const void* grid, const void* tau, const void* y0,
+                      const void* f0, void* out, void* stats, void* work,
+                      int G, int T_out, int B, int D, int threads,
+                      double sign, int valid, int stages, const double* c,
+                      const double* a, const double* b_sol,
+                      const void* consts, int n_consts,
+                      const void* sample_consts, int smem_consts,
+                      void* stream) {
+  if constexpr (P::kSegments > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (stages < 1 || stages > kMaxStages || G < 1 || T_out < 1 || B < 1 ||
+        D != P::kDim || P::kOutRows != D || threads < 32 || threads > 1024)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // Fixed tableaus have no error weights: b_sol stands in for b_err.
+    const Tableau<T> tab =
+        make_tableau<T>(stages, 0, 0, c, a, b_sol, b_sol, nullptr);
+    FixedScalars<T> sc;
+    sc.sign = T(sign);
+    sc.valid = valid;
+    sc.G = G;
+    sc.T_out = T_out;
+    sc.B = B;
+    sc.D = D;
+    const size_t smem =
+        sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + G + T_out);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const T* cg = static_cast<const T*>(consts);
+    const T* scg = static_cast<const T*>(sample_consts);
+    return static_cast<int>(launch_rk_fixed<T>(
+        grid, tau, y0, f0, out, stats, work,
+        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, smem, threads,
+        threads, tab, sc, st));
+  }
+}
+
+template <typename T, class P>
+int launch_plan_perlane(const void* tau, const void* y0, const void* f0,
+                        const void* dt0, void* out, void* lane_stats,
+                        void* stats, void* work, int T_out, int B, int D,
+                        int threads, double rtol, double atol, double dt_min,
+                        double sign, double safety, double ifactor,
+                        double dfactor, int max_steps, int valid, int stages,
+                        int order, int fsal, const double* c,
+                        const double* a, const double* b_sol,
+                        const double* b_err, const double* c_mid,
+                        const void* consts, int n_consts,
+                        const void* sample_consts, int smem_consts,
+                        void* stream) {
+  if constexpr (P::kSegments > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 ||
+        D != P::kDim || P::kOutRows != D || max_steps < 1 || threads < 32 ||
+        threads > 1024)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const Tableau<T> tab =
+        make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
+    const PerlaneScalars<T> sc = make_perlane_scalars<T>(
+        rtol, atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,
+        T_out, B, D);
+    const size_t smem =
+        sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + T_out);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const T* cg = static_cast<const T*>(consts);
+    const T* scg = static_cast<const T*>(sample_consts);
+    return static_cast<int>(launch_rk_perlane<T>(
+        tau, y0, f0, dt0, out, lane_stats, stats, work,
+        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, smem, threads, tab,
+        sc, st));
+  }
+}
+
+}  // namespace tfd
+
+// The C entry points of a plan library, float32 and float64, for one host
+// (ops/_build.py binds them by these names).
+#define TFD_PLAN_SOLVE_ENTRY(NAME, TYPE)                                     \
+  extern "C" int NAME(                                                       \
+      const void* tau, const void* y0, const void* f0, void* out,           \
+      void* stats, void* work, int T_out, int B, int D, int threads,        \
+      double dt0, double rtol, double atol, double dt_min, double sign,     \
+      double safety, double ifactor, double dfactor, int max_steps,         \
+      int valid, int stages, int order, int fsal, const double* c,          \
+      const double* a, const double* b_sol, const double* b_err,            \
+      const double* c_mid, const void* consts, int n_consts,                \
+      const void* sample_consts, int smem_consts, void* stream) {           \
+    return tfd::launch_plan_solve<TYPE, tfd::Plan>(                         \
+        tau, y0, f0, out, stats, work, T_out, B, D, threads, dt0, rtol,     \
+        atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,     \
+        stages, order, fsal, c, a, b_sol, b_err, c_mid, consts, n_consts,   \
+        sample_consts, smem_consts, stream);                                 \
+  }
+#define TFD_PLAN_FIXED_ENTRY(NAME, TYPE)                                     \
+  extern "C" int NAME(                                                       \
+      const void* grid, const void* tau, const void* y0, const void* f0,    \
+      void* out, void* stats, void* work, int G, int T_out, int B, int D,   \
+      int threads, double sign, int valid, int stages, const double* c,     \
+      const double* a, const double* b_sol, const void* consts,             \
+      int n_consts, const void* sample_consts, int smem_consts,             \
+      void* stream) {                                                        \
+    return tfd::launch_plan_fixed<TYPE, tfd::Plan>(                         \
+        grid, tau, y0, f0, out, stats, work, G, T_out, B, D, threads, sign, \
+        valid, stages, c, a, b_sol, consts, n_consts, sample_consts,        \
+        smem_consts, stream);                                                \
+  }
+#define TFD_PLAN_PERLANE_ENTRY(NAME, TYPE)                                   \
+  extern "C" int NAME(                                                       \
+      const void* tau, const void* y0, const void* f0, const void* dt0,     \
+      void* out, void* lane_stats, void* stats, void* work, int T_out,      \
+      int B, int D, int threads, double rtol, double atol, double dt_min,   \
+      double sign, double safety, double ifactor, double dfactor,           \
+      int max_steps, int valid, int stages, int order, int fsal,            \
+      const double* c, const double* a, const double* b_sol,                \
+      const double* b_err, const double* c_mid, const void* consts,         \
+      int n_consts, const void* sample_consts, int smem_consts,             \
+      void* stream) {                                                        \
+    return tfd::launch_plan_perlane<TYPE, tfd::Plan>(                       \
+        tau, y0, f0, dt0, out, lane_stats, stats, work, T_out, B, D,        \
+        threads, rtol, atol, dt_min, sign, safety, ifactor, dfactor,        \
+        max_steps, valid, stages, order, fsal, c, a, b_sol, b_err, c_mid,   \
+        consts, n_consts, sample_consts, smem_consts, stream);               \
+  }
+extern "C" const char* tfd_plan_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,215 @@
+// The body of K8: a whole fixed-grid explicit-RK solve (euler, midpoint,
+// rk4, rk4_38) in one launch, templated on its right-hand side.
+//
+// Replaces the engine of tfdiffeq_tpu/ops/pallas_fixed.py:102
+// (_make_fixed_solve_kernel with _fixed_stage_walk :59 and _hermite_drain
+// :76; launched by fixed_solve_call :178). Per grid interval: the stages of
+// the tableau from the chained derivative f(t0, y0), the Kahan-compensated
+// state update, the end derivative f(t1, y1) (the next step's first stage
+// and the interval's Hermite end slope, so a step costs `stages`
+// evaluations and the solve 1 + stages (G - 1)), and the cubic-Hermite
+// drain of every requested time the interval covers through an output
+// cursor, the last interval flushing the times that roundoff left past the
+// grid's end. Invalid times give status 3 and a zero tail.
+//
+// Design. A fixed grid has no error norm and no controller, so no sample
+// ever waits for another: one thread owns one sample for the whole solve,
+// over as many blocks as the batch needs, with no barrier after the
+// prologue. All samples share one grid, so the output cursor is the same in
+// every thread. The grid and the output times sit in shared memory after
+// what the right-hand side keeps there; the sample's state, compensation,
+// derivatives and stages live in a device workspace laid out feature-major
+// ([row][B]: a warp's 32 threads touch 32 consecutive values).
+//
+// The right-hand side `Rhs` (csrc/fixed_kernel.cu: the MLP routes;
+// csrc/plan_rhs.cuh: K14's generated plans) provides Shared and Local
+// state; setup(sh, lo, smem, row0, spb), which copies what it keeps in
+// shared memory (no barrier) and returns the free shared memory; and
+// either (kBatch false) in(lo) and eval(sh, lo, t, b, B), sample b's D
+// outputs from the D inputs written at in(lo), or (kBatch true) spb()
+// samples a block, put(sh, lo, b, t, get) and eval_batch(sh, lo, row0, spb),
+// the block's evaluation after a barrier (sample b's outputs at
+// b * ld()).
+#pragma once
+
+#include "mlp_rk.cuh"
+
+namespace tfd {
+
+template <typename T>
+struct FixedScalars {
+  T sign;
+  int valid, G, T_out, B, D;
+};
+
+template <typename T, class Rhs>
+__global__ void rk_fixed_kernel(const T* __restrict__ grid_g,
+                                const T* __restrict__ tau_g,
+                                const T* __restrict__ y0g,
+                                const T* __restrict__ f0g,
+                                T* __restrict__ out, int* __restrict__ stats,
+                                T* __restrict__ work, Rhs rhs,
+                                Tableau<T> tab_in, FixedScalars<T> sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Rhs::Shared rsh;
+  __shared__ Tableau<T> tab;
+  const int tid = threadIdx.x;
+  // A batch-wide right-hand side's block owns Rhs::spb() rows of the
+  // workspace; a per-thread one a sample a thread.
+  const int spb = Rhs::kBatch ? rhs.spb() : blockDim.x;
+  const int row0 = blockIdx.x * spb;
+  typename Rhs::Local lo;
+  T* grid = rhs.setup(rsh, lo, smem_raw, row0, spb);   // [G]
+  T* tau = grid + sc.G;                   // [T_out]
+  if (tid == 0) tab = tab_in;
+  for (int i = tid; i < sc.G; i += blockDim.x) grid[i] = grid_g[i];
+  for (int i = tid; i < sc.T_out; i += blockDim.x) tau[i] = tau_g[i];
+  __syncthreads();
+
+  const int G = sc.G, T_out = sc.T_out, B = sc.B, D = sc.D, S = tab.S;
+  if (blockIdx.x == 0 && tid == 0) {
+    stats[0] = sc.valid ? 1 + S * (G - 1) : 0;
+    stats[1] = sc.valid ? G - 1 : 0;
+    stats[2] = 0;
+    stats[3] = sc.valid ? 0 : 3;
+  }
+  const int b = row0 + tid;
+  const bool mine = tid < spb && b < B;
+  if constexpr (!Rhs::kBatch) {
+    if (!mine) return;  // no barrier follows
+  }
+
+  const long BD = long(B) * D;
+  // Feature-major workspace rows of B values: row d of Y is y[d].
+  T* Y = work;             // state
+  T* C = Y + BD;           // Kahan compensation
+  T* F = C + BD;           // f(t0, y0): stage 0, chained
+  T* Y0 = F + BD;          // the step's start state (Hermite drain)
+  T* K = Y0 + BD;          // stages 1 .. S - 1
+  // This sample's value in workspace row `row`.
+  auto at = [B, b](int row) -> long { return long(row) * B + b; };
+  const T sign = sc.sign;
+
+  // Row 0 is y0; the rest stays zero unless a step writes it
+  // (pallas_fixed.py:125-126).
+  for (int d = 0; mine && d < D; ++d) {
+    const long i = long(b) * D + d;
+    out[i] = y0g[i];
+    for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
+    Y[at(d)] = y0g[i];
+    F[at(d)] = f0g[i];
+    C[at(d)] = T(0);
+  }
+  if (!sc.valid) return;  // the same in every thread
+
+  int oi = 1;
+  for (int step = 0; step + 1 < G; ++step) {
+    const T t0 = grid[step];
+    const T t1 = grid[step + 1];
+    const T dt = t1 - t0;
+    // pallas_fixed.py:_fixed_stage_walk: yi = yi + (dt * a_ij) * k_j.
+    auto stage_state = [&](int i, int d) {
+      T v = Y[at(d)];
+      for (int j = 0; j < i; ++j) {
+        const T a = tab.a[i][j];
+        if (a != T(0)) {
+          const T kj = j == 0 ? F[at(d)] : K[at((j - 1) * D + d)];
+          v = v + (dt * a) * kj;
+        }
+      }
+      return v;
+    };
+    // The solution combine and the Kahan-compensated update; returns y1.
+    auto update = [&](int d) {
+      T delta = T(0);
+      bool first = true;
+      for (int j = 0; j < S; ++j) {
+        if (tab.b_sol[j] != T(0)) {
+          const T kj = j == 0 ? F[at(d)] : K[at((j - 1) * D + d)];
+          const T term = (dt * tab.b_sol[j]) * kj;
+          delta = first ? term : delta + term;
+          first = false;
+        }
+      }
+      const T y0 = Y[at(d)];
+      const T adj = delta - C[at(d)];
+      const T y1 = y0 + adj;
+      C[at(d)] = (y1 - y0) - adj;
+      Y[at(d)] = y1;
+      Y0[at(d)] = y0;
+      return y1;
+    };
+    const T* fo;     // f(t1, y1) of this thread's sample
+    if constexpr (!Rhs::kBatch) {
+      T* h_in = rhs.in(lo);
+      for (int i = 1; i < S; ++i) {
+        for (int d = 0; d < D; ++d) h_in[d] = stage_state(i, d);
+        const T ti = t0 + tab.c[i] * dt;
+        const T* f = rhs.eval(rsh, lo, sign * ti, b, B);
+        for (int d = 0; d < D; ++d) K[at((i - 1) * D + d)] = sign * f[d];
+      }
+      for (int d = 0; d < D; ++d) h_in[d] = update(d);
+      // The chained end derivative f(t1, y1).
+      fo = rhs.eval(rsh, lo, sign * t1, b, B);
+    } else {
+      for (int i = 1; i < S; ++i) {
+        const T ti = t0 + tab.c[i] * dt;
+        if (mine)
+          rhs.put(rsh, lo, b, sign * ti,
+                  [&](int d) { return stage_state(i, d); });
+        __syncthreads();
+        const T* f = rhs.eval_batch(rsh, lo, row0, spb) + long(b) * rhs.ld();
+        for (int d = 0; mine && d < D; ++d)
+          K[at((i - 1) * D + d)] = sign * f[d];
+      }
+      if (mine) rhs.put(rsh, lo, b, sign * t1, update);
+      __syncthreads();
+      fo = rhs.eval_batch(rsh, lo, row0, spb) + long(b) * rhs.ld();
+    }
+    // Every requested time in (t0, t1]; on the last interval, every one
+    // left. The cursor is the same in every thread.
+    const bool last = step + 2 == G;
+    int oi_new = oi;
+    while (oi_new < T_out && (tau[oi_new] <= t1 || last)) ++oi_new;
+    for (int d = 0; mine && d < D; ++d) {
+      const T f0 = F[at(d)];
+      const T f1 = sign * fo[d];
+      F[at(d)] = f1;
+      const T y0 = Y0[at(d)];
+      const T y1 = Y[at(d)];
+      const T df0 = dt * f0;
+      const T df1 = dt * f1;
+      const T cb = T(2) * (y0 - y1) + df0 + df1;
+      const T cc = T(3) * (y1 - y0) - T(2) * df0 - df1;
+      for (int o = oi; o < oi_new; ++o) {
+        const T tj = tau[o];
+        const T x = (tj - t0) / dt;
+        const T val = ((cb * x + cc) * x + df0) * x + y0;
+        out[long(o) * BD + long(b) * D + d] = (tj == t1) ? y1 : val;
+      }
+    }
+    oi = oi_new;
+  }
+}
+
+template <typename T, class Rhs>
+cudaError_t launch_rk_fixed(const void* grid, const void* tau,
+                            const void* y0, const void* f0, void* out,
+                            void* stats, void* work, const Rhs& rhs,
+                            size_t smem, int threads, int spb,
+                            const Tableau<T>& tab, const FixedScalars<T>& sc,
+                            cudaStream_t stream) {
+  auto kernel = rk_fixed_kernel<T, Rhs>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  const int blocks = (sc.B + spb - 1) / spb;
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(grid), static_cast<const T*>(tau),
+      static_cast<const T*>(y0), static_cast<const T*>(f0),
+      static_cast<T*>(out), static_cast<int*>(stats), static_cast<T*>(work),
+      rhs, tab, sc);
+  return cudaGetLastError();
+}
+
+}  // namespace tfd

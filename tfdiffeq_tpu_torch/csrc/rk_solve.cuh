@@ -1,0 +1,327 @@
+// The body of K2: a whole adaptive explicit-RK solve in one launch, under
+// one step controller shared by the batch, templated on its right-hand
+// side.
+//
+// Replaces the engine of tfdiffeq_tpu/ops/pallas_kernels.py:726
+// (_make_solve_kernel with _rk_stages :522, _interp_coeffs :558 and
+// _controller_factor :577; launched by whole_solve_call :1321). Per attempt:
+// the stages of the tableau, the masked RMS error over the whole batch, the
+// clamped I-controller, Kahan accumulation of the state, the dense-output
+// drain of every requested time the accepted step covers, the counters and
+// the status; zero fill of the output on early exit. The tableau comes in as
+// launch arguments. Output is written straight into the batch-major
+// [T, B, D] layout.
+//
+// Design. Every attempt's accept needs the error sum over the whole batch
+// (pallas_kernels.py:823-832), so the threads that hold the batch must meet
+// once per attempt: ONE thread block runs the whole solve; each thread owns
+// the samples b = tid, tid + blockDim.x, ... and walks their stages; the
+// stage derivatives, the state, the FSAL derivative and the Kahan term of
+// the batch live in device scratch (`work`, [(S + 5) B D] values, then the
+// right-hand side's own rows); one fixed-order block reduction per attempt
+// gives the error sum (the same bits on every run), __syncthreads_or the
+// finiteness flag, and every thread then takes the same accept and
+// controller decision from them.
+//
+// The right-hand side `Rhs` (csrc/solve_kernel.cu: the MLP routes and K7's
+// CNF flow; csrc/plan_rhs.cuh: K14's generated plans) provides
+//   Shared, Local         block-shared and per-thread state;
+//   setup(sh, lo, smem)   copies what it keeps in shared memory (no
+//                         barrier) and returns the free shared memory;
+// and either (kBatch false) a per-thread evaluation
+//   in(lo)                where the kernel writes a sample's D inputs,
+//   eval(sh, lo, t, b, B, rw)  sample b's D outputs (rw: its workspace rows),
+// or (kBatch true) a batch-wide one, every stage of an attempt evaluated for
+// the whole batch:
+//   put(sh, lo, b, t, get, rw, B)  sample b's inputs from get(d),
+//   eval_batch(sh, lo, rw, red, B) after a barrier, by every thread; returns
+//                         the outputs, sample b's at b * ld(lo) + d.
+#pragma once
+
+#include "mlp_rk.cuh"
+
+namespace tfd {
+
+// Most threads of the one block; the launch takes a power of two up to it
+// (block_sum), ops/cuda_kernels.py:SOLVE_THREADS.
+constexpr int kSolveThreads = 512;
+
+template <typename T>
+struct Scalars {
+  T dt0, rtol, atol, dt_min, sign, safety, ifactor, dfactor;
+  int max_steps, valid, T_out, B, D;
+};
+
+template <typename T, class Rhs>
+__global__ void __launch_bounds__(kSolveThreads, 1)
+    rk_solve_kernel(const T* __restrict__ tau, const T* __restrict__ y0g,
+                    const T* __restrict__ f0g, T* __restrict__ out,
+                    int* __restrict__ stats, T* __restrict__ work, Rhs rhs,
+                    Tableau<T> tab_in, Scalars<T> sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Rhs::Shared rsh;
+  __shared__ Tableau<T> tab;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  typename Rhs::Local lo;
+  T* red = rhs.setup(rsh, lo, smem_raw);     // [blockDim.x]
+  if (tid == 0) tab = tab_in;
+  const int T_out = sc.T_out, B = sc.B, D = sc.D;
+  __syncthreads();
+
+  const int S = tab.S;
+  const long BD = long(B) * D;
+  T* Y = work;              // state
+  T* F = Y + BD;            // derivative at (t, y): stage 0 (FSAL cache)
+  T* C = F + BD;            // Kahan compensation
+  T* DEL = C + BD;          // delta = y1 - y0 of the attempt
+  T* MID = DEL + BD;        // dense-output midpoint of the attempt
+  T* F1 = MID + BD;         // f(t1, y1) for tableaus that are not FSAL
+  T* K = F1 + BD;           // stages 1 .. S - 1
+  T* RW = K + (S - 1) * BD;  // the right-hand side's rows
+
+  const T sign = sc.sign;
+
+  // Deterministic output on early exit: zero fill, then y0 in row 0
+  // (pallas_kernels.py:792-793). Each thread fills its own samples.
+  for (int b = tid; b < B; b += nth) {
+    for (int d = 0; d < D; ++d) {
+      const long i = long(b) * D + d;
+      out[i] = y0g[i];
+      for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
+      Y[i] = y0g[i];
+      F[i] = f0g[i];
+      C[i] = T(0);
+    }
+  }
+
+  const T t_start = tau[0];
+  const T t_end = tau[T_out - 1];
+  const T denom = T(double(D) * double(B));
+  T t = t_start;
+  T dt = sc.dt0;
+  int oi = 1, nfe = 0, nacc = 0, nrej = 0;
+  // Non-monotonic times: status 3 (INVALID_TIMES), output zero beyond row 0.
+  int status = (t_end > t_start && sc.valid) ? 0 : 3;
+
+  while (t < t_end && status == 0) {
+    const T rem = t_end - t;
+    const T dt_eff = d_min(dt, rem);
+    const bool is_last = dt >= rem;
+    const T t1 = is_last ? t_end : t + dt_eff;
+    const T dth = t1 - t;
+
+    // ---- phase 1: stages, error and finiteness of each owned sample.
+    T ss = T(0);
+    bool bad = false;
+    // Stage i's state, feature d of the sample at `base`
+    // (pallas_kernels.py:_rk_stages: yi = yi + (dt * a_ij) * k_j).
+    auto stage_state = [&](long base, int i, int d) {
+      T v = Y[base + d];
+      for (int j = 0; j < i; ++j) {
+        const T a = tab.a[i][j];
+        if (a != T(0)) {
+          const T kj = j == 0 ? F[base + d] : K[(j - 1) * BD + base + d];
+          v = v + (dth * a) * kj;
+        }
+      }
+      return v;
+    };
+    // The solution, error and midpoint combines of feature d, its share of
+    // the error sum and the finiteness flag; returns y1.
+    auto combine = [&](long base, int d) {
+      const T y0 = Y[base + d];
+      T delta = T(0), err = T(0), ymid = y0;
+      bool first_d = true, first_e = true;
+      for (int j = 0; j < S; ++j) {
+        const T kj = j == 0 ? F[base + d] : K[(j - 1) * BD + base + d];
+        if (tab.b_sol[j] != T(0)) {
+          const T term = (dth * tab.b_sol[j]) * kj;
+          delta = first_d ? term : delta + term;
+          first_d = false;
+        }
+        if (tab.b_err[j] != T(0)) {
+          const T term = (dth * tab.b_err[j]) * kj;
+          err = first_e ? term : err + term;
+          first_e = false;
+        }
+        if (tab.has_mid && tab.c_mid[j] != T(0))
+          ymid = ymid + (dth * tab.c_mid[j]) * kj;
+      }
+      const T y1 = y0 + delta;
+      const T scale = sc.atol + sc.rtol * d_max(d_abs(y0), d_abs(y1));
+      const T esc = err / scale;
+      ss = ss + esc * esc;
+      bad = bad || !d_finite(y1);
+      DEL[base + d] = delta;
+      MID[base + d] = ymid;
+      return y1;
+    };
+    if constexpr (!Rhs::kBatch) {
+      T* h_in = rhs.in(lo);
+      for (int b = tid; b < B; b += nth) {
+        const long base = long(b) * D;
+        for (int i = 1; i < S; ++i) {
+          for (int d = 0; d < D; ++d) h_in[d] = stage_state(base, i, d);
+          const T ti = t + tab.c[i] * dth;
+          const T* fo = rhs.eval(rsh, lo, sign * ti, b, B, RW);
+          for (int d = 0; d < D; ++d) K[(i - 1) * BD + base + d] = sign * fo[d];
+        }
+        for (int d = 0; d < D; ++d) h_in[d] = combine(base, d);
+        if (!tab.fsal) {
+          // The end derivative costs one more evaluation (counted in evals).
+          const T* fo = rhs.eval(rsh, lo, sign * t1, b, B, RW);
+          for (int d = 0; d < D; ++d) F1[base + d] = sign * fo[d];
+        }
+      }
+    } else {
+      // Each stage's evaluation is batch-wide.
+      for (int i = 1; i < S; ++i) {
+        const T ti = t + tab.c[i] * dth;
+        for (int b = tid; b < B; b += nth) {
+          const long base = long(b) * D;
+          rhs.put(rsh, lo, b, sign * ti,
+                  [&](int d) { return stage_state(base, i, d); }, RW, B);
+        }
+        __syncthreads();
+        const T* fo = rhs.eval_batch(rsh, lo, RW, red, B);
+        const long ld = rhs.ld(lo);
+        for (int b = tid; b < B; b += nth)
+          for (int d = 0; d < D; ++d)
+            K[(i - 1) * BD + long(b) * D + d] = sign * fo[long(b) * ld + d];
+      }
+      for (int b = tid; b < B; b += nth) {
+        const long base = long(b) * D;
+        rhs.put(rsh, lo, b, sign * t1,
+                [&](int d) { return combine(base, d); }, RW, B);
+      }
+      if (!tab.fsal) {
+        // The end derivative at (t1, y1), the inputs just written.
+        __syncthreads();
+        const T* fo = rhs.eval_batch(rsh, lo, RW, red, B);
+        const long ld = rhs.ld(lo);
+        for (int b = tid; b < B; b += nth)
+          for (int d = 0; d < D; ++d)
+            F1[long(b) * D + d] = sign * fo[long(b) * ld + d];
+      }
+    }
+
+    // ---- the batch meets: error sum, finiteness, one shared decision.
+    const bool any_bad = __syncthreads_or(bad);
+    const T total = block_sum(ss, red);
+    const T ratio = d_sqrt(total / denom);
+    const bool finite = d_finite(total) && !any_bad;
+    const bool accept = (ratio <= T(1)) && finite;
+    const T fac = controller_factor(ratio, finite, accept, sc.safety,
+                                    sc.ifactor, sc.dfactor, tab.order);
+    // Rescale the CLAMPED attempted step, as the generic engine does.
+    const T dt_next = dth * fac;
+
+    if (accept) {
+      int oi_new = oi;
+      while (oi_new < T_out && tau[oi_new] <= t1) ++oi_new;
+      // ---- phase 2: dense output, Kahan update, drain, FSAL.
+      for (int b = tid; b < B; b += nth) {
+        const long base = long(b) * D;
+        for (int d = 0; d < D; ++d) {
+          const T y0 = Y[base + d];
+          const T delta = DEL[base + d];
+          const T f0 = F[base + d];
+          const T f1 = tab.fsal ? K[(S - 2) * BD + base + d] : F1[base + d];
+          const T y1 = y0 + delta;
+          const T df0 = dth * f0;
+          const T df1 = dth * f1;
+          // pallas_kernels.py:_interp_coeffs.
+          const T r1 = y1 - y0 - df0;
+          const T r2 = df1 - df0;
+          T ca, cb, cc;
+          if (tab.has_mid) {
+            const T r3 = T(16) * (MID[base + d] - y0) - T(8) * df0;
+            ca = r3 + T(2) * r2 - T(8) * r1;
+            cb = r2 - T(2) * r1 - T(2) * ca;
+            cc = r1 - ca - cb;
+          } else {
+            ca = T(0);
+            cb = T(2) * (y0 - y1) + df0 + df1;
+            cc = T(3) * (y1 - y0) - T(2) * df0 - df1;
+          }
+          // Kahan-compensated accumulation.
+          const T comp = C[base + d];
+          const T adj = delta - comp;
+          const T y_new = y0 + adj;
+          C[base + d] = (y_new - y0) - adj;
+          Y[base + d] = y_new;
+          F[base + d] = f1;
+          // Every requested time in (t, t1], exactly y_new at t1.
+          for (int o = oi; o < oi_new; ++o) {
+            const T tj = tau[o];
+            const T x = (tj - t) / dth;
+            const T val = (((ca * x + cb) * x + cc) * x + df0) * x + y0;
+            out[long(o) * BD + base + d] = (tj == t1) ? y_new : val;
+          }
+        }
+      }
+      oi = oi_new;
+    }
+
+    // Status rules of the kernel (pallas_kernels.py:896-902).
+    const int n_att = nacc + nrej + 1;
+    if (!accept && dt_next < sc.dt_min && status == 0) status = 2;
+    if (n_att >= sc.max_steps && t1 < t_end && status == 0) status = 1;
+    if (accept) t = t1;
+    dt = dt_next;
+    nfe += tab.evals;
+    nacc += accept ? 1 : 0;
+    nrej += accept ? 0 : 1;
+  }
+  if (tid == 0) {
+    stats[0] = nfe;
+    stats[1] = nacc;
+    stats[2] = nrej;
+    stats[3] = status;
+  }
+}
+
+// The controller's scalars from the host's doubles.
+template <typename T>
+Scalars<T> make_scalars(double dt0, double rtol, double atol, double dt_min,
+                        double sign, double safety, double ifactor,
+                        double dfactor, int max_steps, int valid, int T_out,
+                        int B, int D) {
+  Scalars<T> sc;
+  sc.dt0 = T(dt0);
+  sc.rtol = T(rtol);
+  sc.atol = T(atol);
+  sc.dt_min = T(dt_min);
+  sc.sign = T(sign);
+  sc.safety = T(safety);
+  sc.ifactor = T(ifactor);
+  sc.dfactor = T(dfactor);
+  sc.max_steps = max_steps;
+  sc.valid = valid;
+  sc.T_out = T_out;
+  sc.B = B;
+  sc.D = D;
+  return sc;
+}
+
+// One launch of rk_solve_kernel<T, Rhs> on `threads` threads with `smem`
+// bytes of dynamic shared memory.
+template <typename T, class Rhs>
+cudaError_t launch_rk_solve(const void* tau, const void* y0, const void* f0,
+                            void* out, void* stats, void* work,
+                            const Rhs& rhs, size_t smem, int threads,
+                            const Tableau<T>& tab, const Scalars<T>& sc,
+                            cudaStream_t stream) {
+  auto kernel = rk_solve_kernel<T, Rhs>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<1, threads, smem, stream>>>(
+      static_cast<const T*>(tau), static_cast<const T*>(y0),
+      static_cast<const T*>(f0), static_cast<T*>(out),
+      static_cast<int*>(stats), static_cast<T*>(work), rhs, tab, sc);
+  return cudaGetLastError();
+}
+
+}  // namespace tfd

@@ -1,6 +1,10 @@
 // K2: a whole adaptive explicit-RK solve of an MLP neural ODE in one
 // launch, under one step controller shared by the batch.
 //
+// The engine is csrc/rk_solve.cuh, a template on its right-hand side;
+// this file instantiates it with the MLP routes below
+// (csrc/plan_rhs.cuh does with K14's generated plans).
+//
 // Replaces the TPU kernel tfdiffeq_tpu/ops/pallas_kernels.py:726
 // (_make_solve_kernel with _rk_stages :522, _interp_coeffs :558,
 // _controller_factor :577 and the RHS _make_net :374; launched by
@@ -53,268 +57,79 @@
 // global-memory load beside each multiply-add.
 #include "cnf_net.cuh"
 #include "dot_tiers.cuh"
+#include "rk_solve.cuh"
 
 namespace tfd {
 
-// Most threads of the one block; the launch takes a power of two up to it
-// (block_sum), ops/cuda_kernels.py:SOLVE_THREADS.
-constexpr int kSolveThreads = 512;
-
-template <typename T>
-struct Scalars {
-  T dt0, rtol, atol, dt_min, sign, safety, ifactor, dfactor;
-  int max_steps, valid, T_out, B, D;
-};
-
+// K2's MLP right-hand sides (csrc/rk_solve.cuh's Rhs): the per-thread
+// narrow and wide routes (mlp_eval, or K7's cnf_eval with rhs = cnf, its
+// rows of B in the workspace after the solve's own) and the batch route
+// (batch_mlp_eval, K4's tiers).
 template <typename T, int kRoute, bool kCnf>
-__global__ void __launch_bounds__(kSolveThreads, 1)
-    mlp_solve_kernel(const T* __restrict__ tau, const T* __restrict__ y0g,
-                     const T* __restrict__ f0g, const T* __restrict__ wg,
-                     T* __restrict__ out, int* __restrict__ stats,
-                     T* __restrict__ work, BatchBufs<T> bb, int n_weights,
-                     Net net_in, Tableau<T> tab_in, Scalars<T> sc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ Net net;
-  __shared__ Tableau<T> tab;
-  const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-  const T* w;     // [n_weights]
-  T* red;         // [blockDim.x]
-  if constexpr (kRoute == kRouteNarrow) {
-    T* ws = reinterpret_cast<T*>(smem_raw);
-    for (int i = tid; i < n_weights; i += nth) ws[i] = wg[i];
-    w = ws;
-    red = ws + n_weights;
-  } else {
-    w = wg;
-    red = reinterpret_cast<T*>(smem_raw);
-  }
-  if (tid == 0) {
-    net = net_in;
-    tab = tab_in;
-  }
-  const int T_out = sc.T_out, B = sc.B, D = sc.D;
-  const int rows = (B + 15) / 16 * 16;
-  if constexpr (kRoute == kRouteBatch) batch_clear(bb, 0, rows);
-  __syncthreads();
+struct MlpSolveRhs {
+  static constexpr bool kBatch = kRoute == kRouteBatch;
+  const T* wg;     // packed weights (pack_mlp_weights)
+  int n_weights;
+  Net net_in;
+  BatchBufs<T> bb;
+  int rows;        // the batch route's sample rows (B padded to 16)
 
-  const int S = tab.S;
-  const long BD = long(B) * D;
-  T* Y = work;              // state
-  T* F = Y + BD;            // derivative at (t, y): stage 0 (FSAL cache)
-  T* C = F + BD;            // Kahan compensation
-  T* DEL = C + BD;          // delta = y1 - y0 of the attempt
-  T* MID = DEL + BD;        // dense-output midpoint of the attempt
-  T* F1 = MID + BD;         // f(t1, y1) for tableaus that are not FSAL
-  T* K = F1 + BD;           // stages 1 .. S - 1
-  T* CW = K + (S - 1) * BD;  // rhs = cnf: cnf_eval's rows of B
-
-  T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
-  const T sign = sc.sign;
-  // The right-hand side of one sample b at time tt, state in h_a.
-  auto rhs = [&](T tt, int b) -> const T* {
-    if constexpr (kCnf)
-      return cnf_eval(net, w, tt, h_a, h_b, CW, B, b);
-    else
-      return mlp_eval(net, w, tt, h_a, h_b);
+  struct Shared {
+    Net net;
+  };
+  // The layer vectors. The weights' pointer stays out of this struct: a
+  // store through h_a or h_b could alias it and force a reload each time.
+  struct Local {
+    T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
   };
 
-  // Deterministic output on early exit: zero fill, then y0 in row 0
-  // (pallas_kernels.py:792-793). Each thread fills its own samples.
-  for (int b = tid; b < B; b += nth) {
-    for (int d = 0; d < D; ++d) {
-      const long i = long(b) * D + d;
-      out[i] = y0g[i];
-      for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
-      Y[i] = y0g[i];
-      F[i] = f0g[i];
-      C[i] = T(0);
-    }
-  }
-
-  const T t_start = tau[0];
-  const T t_end = tau[T_out - 1];
-  const T denom = T(double(D) * double(B));
-  T t = t_start;
-  T dt = sc.dt0;
-  int oi = 1, nfe = 0, nacc = 0, nrej = 0;
-  // Non-monotonic times: status 3 (INVALID_TIMES), output zero beyond row 0.
-  int status = (t_end > t_start && sc.valid) ? 0 : 3;
-
-  while (t < t_end && status == 0) {
-    const T rem = t_end - t;
-    const T dt_eff = d_min(dt, rem);
-    const bool is_last = dt >= rem;
-    const T t1 = is_last ? t_end : t + dt_eff;
-    const T dth = t1 - t;
-
-    // ---- phase 1: stages, error and finiteness of each owned sample.
-    T ss = T(0);
-    bool bad = false;
-    // Stage i's state, feature d of the sample at `base`
-    // (pallas_kernels.py:_rk_stages: yi = yi + (dt * a_ij) * k_j).
-    auto stage_state = [&](long base, int i, int d) {
-      T v = Y[base + d];
-      for (int j = 0; j < i; ++j) {
-        const T a = tab.a[i][j];
-        if (a != T(0)) {
-          const T kj = j == 0 ? F[base + d] : K[(j - 1) * BD + base + d];
-          v = v + (dth * a) * kj;
-        }
-      }
-      return v;
-    };
-    // The solution, error and midpoint combines of feature d, its share of
-    // the error sum and the finiteness flag; returns y1.
-    auto combine = [&](long base, int d) {
-      const T y0 = Y[base + d];
-      T delta = T(0), err = T(0), ymid = y0;
-      bool first_d = true, first_e = true;
-      for (int j = 0; j < S; ++j) {
-        const T kj = j == 0 ? F[base + d] : K[(j - 1) * BD + base + d];
-        if (tab.b_sol[j] != T(0)) {
-          const T term = (dth * tab.b_sol[j]) * kj;
-          delta = first_d ? term : delta + term;
-          first_d = false;
-        }
-        if (tab.b_err[j] != T(0)) {
-          const T term = (dth * tab.b_err[j]) * kj;
-          err = first_e ? term : err + term;
-          first_e = false;
-        }
-        if (tab.has_mid && tab.c_mid[j] != T(0))
-          ymid = ymid + (dth * tab.c_mid[j]) * kj;
-      }
-      const T y1 = y0 + delta;
-      const T scale = sc.atol + sc.rtol * d_max(d_abs(y0), d_abs(y1));
-      const T esc = err / scale;
-      ss = ss + esc * esc;
-      bad = bad || !d_finite(y1);
-      DEL[base + d] = delta;
-      MID[base + d] = ymid;
-      return y1;
-    };
-    if constexpr (kRoute != kRouteBatch) {
-      for (int b = tid; b < B; b += nth) {
-        const long base = long(b) * D;
-        for (int i = 1; i < S; ++i) {
-          for (int d = 0; d < D; ++d) h_a[d] = stage_state(base, i, d);
-          const T ti = t + tab.c[i] * dth;
-          const T* fo = rhs(sign * ti, b);
-          for (int d = 0; d < D; ++d) K[(i - 1) * BD + base + d] = sign * fo[d];
-        }
-        for (int d = 0; d < D; ++d) h_a[d] = combine(base, d);
-        if (!tab.fsal) {
-          // The end derivative costs one more evaluation (counted in evals).
-          const T* fo = rhs(sign * t1, b);
-          for (int d = 0; d < D; ++d) F1[base + d] = sign * fo[d];
-        }
-      }
+  // The packed weights: in shared memory on the narrow route (setup copies
+  // them there), else in global memory.
+  __device__ __forceinline__ const T* weights() const {
+    if constexpr (kRoute == kRouteNarrow) {
+      extern __shared__ __align__(16) unsigned char smem_raw[];
+      return reinterpret_cast<const T*>(smem_raw);
     } else {
-      // The batch route: each stage's evaluation is batch-wide.
-      for (int i = 1; i < S; ++i) {
-        const T ti = t + tab.c[i] * dth;
-        for (int b = tid; b < B; b += nth) {
-          const long base = long(b) * D;
-          batch_put(bb, net, b, sign * ti,
-                    [&](int d) { return stage_state(base, i, d); });
-        }
-        __syncthreads();
-        const T* fo = batch_mlp_eval(net, w, bb, 0, rows);
-        for (int b = tid; b < B; b += nth)
-          for (int d = 0; d < D; ++d)
-            K[(i - 1) * BD + long(b) * D + d] = sign * fo[long(b) * bb.ld + d];
-      }
-      for (int b = tid; b < B; b += nth) {
-        const long base = long(b) * D;
-        batch_put(bb, net, b, sign * t1,
-                  [&](int d) { return combine(base, d); });
-      }
-      if (!tab.fsal) {
-        // The end derivative at (t1, y1), the inputs just written.
-        __syncthreads();
-        const T* fo = batch_mlp_eval(net, w, bb, 0, rows);
-        for (int b = tid; b < B; b += nth)
-          for (int d = 0; d < D; ++d)
-            F1[long(b) * D + d] = sign * fo[long(b) * bb.ld + d];
-      }
+      return wg;
     }
+  }
 
-    // ---- the batch meets: error sum, finiteness, one shared decision.
-    const bool any_bad = __syncthreads_or(bad);
-    const T total = block_sum(ss, red);
-    const T ratio = d_sqrt(total / denom);
-    const bool finite = d_finite(total) && !any_bad;
-    const bool accept = (ratio <= T(1)) && finite;
-    const T fac = controller_factor(ratio, finite, accept, sc.safety,
-                                    sc.ifactor, sc.dfactor, tab.order);
-    // Rescale the CLAMPED attempted step, as the generic engine does.
-    const T dt_next = dth * fac;
-
-    if (accept) {
-      int oi_new = oi;
-      while (oi_new < T_out && tau[oi_new] <= t1) ++oi_new;
-      // ---- phase 2: dense output, Kahan update, drain, FSAL.
-      for (int b = tid; b < B; b += nth) {
-        const long base = long(b) * D;
-        for (int d = 0; d < D; ++d) {
-          const T y0 = Y[base + d];
-          const T delta = DEL[base + d];
-          const T f0 = F[base + d];
-          const T f1 = tab.fsal ? K[(S - 2) * BD + base + d] : F1[base + d];
-          const T y1 = y0 + delta;
-          const T df0 = dth * f0;
-          const T df1 = dth * f1;
-          // pallas_kernels.py:_interp_coeffs.
-          const T r1 = y1 - y0 - df0;
-          const T r2 = df1 - df0;
-          T ca, cb, cc;
-          if (tab.has_mid) {
-            const T r3 = T(16) * (MID[base + d] - y0) - T(8) * df0;
-            ca = r3 + T(2) * r2 - T(8) * r1;
-            cb = r2 - T(2) * r1 - T(2) * ca;
-            cc = r1 - ca - cb;
-          } else {
-            ca = T(0);
-            cb = T(2) * (y0 - y1) + df0 + df1;
-            cc = T(3) * (y1 - y0) - T(2) * df0 - df1;
-          }
-          // Kahan-compensated accumulation.
-          const T comp = C[base + d];
-          const T adj = delta - comp;
-          const T y_new = y0 + adj;
-          C[base + d] = (y_new - y0) - adj;
-          Y[base + d] = y_new;
-          F[base + d] = f1;
-          // Every requested time in (t, t1], exactly y_new at t1.
-          for (int o = oi; o < oi_new; ++o) {
-            const T tj = tau[o];
-            const T x = (tj - t) / dth;
-            const T val = (((ca * x + cb) * x + cc) * x + df0) * x + y0;
-            out[long(o) * BD + base + d] = (tj == t1) ? y_new : val;
-          }
-        }
-      }
-      oi = oi_new;
+  __device__ T* setup(Shared& sh, Local&, unsigned char* smem) const {
+    const int tid = threadIdx.x, nth = blockDim.x;
+    T* red;
+    if constexpr (kRoute == kRouteNarrow) {
+      T* ws = reinterpret_cast<T*>(smem);
+      for (int i = tid; i < n_weights; i += nth) ws[i] = wg[i];
+      red = ws + n_weights;
+    } else {
+      red = reinterpret_cast<T*>(smem);
     }
+    if (tid == 0) sh.net = net_in;
+    if constexpr (kRoute == kRouteBatch)
+      batch_clear(bb, 0, rows);
+    return red;
+  }
 
-    // Status rules of the kernel (pallas_kernels.py:896-902).
-    const int n_att = nacc + nrej + 1;
-    if (!accept && dt_next < sc.dt_min && status == 0) status = 2;
-    if (n_att >= sc.max_steps && t1 < t_end && status == 0) status = 1;
-    if (accept) t = t1;
-    dt = dt_next;
-    nfe += tab.evals;
-    nacc += accept ? 1 : 0;
-    nrej += accept ? 0 : 1;
+  __device__ T* in(Local& lo) const { return lo.h_a; }
+  __device__ const T* eval(const Shared& sh, Local& lo, T t, int b, int B,
+                           T* rw) const {
+    if constexpr (kCnf)
+      return cnf_eval(sh.net, weights(), t, lo.h_a, lo.h_b, rw, B, b);
+    else
+      return mlp_eval(sh.net, weights(), t, lo.h_a, lo.h_b);
   }
-  if (tid == 0) {
-    stats[0] = nfe;
-    stats[1] = nacc;
-    stats[2] = nrej;
-    stats[3] = status;
+
+  template <class G>
+  __device__ void put(const Shared& sh, Local&, int b, T t, G get, T*,
+                      int) const {
+    batch_put(bb, sh.net, b, t, get);
   }
-}
+  __device__ const T* eval_batch(const Shared& sh, Local& lo, T*, T*,
+                                 int) const {
+    return batch_mlp_eval(sh.net, weights(), bb, 0, rows);
+  }
+  __device__ long ld(const Local&) const { return bb.ld; }
+};
 
 template <typename T, int kRoute, bool kCnf>
 cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
@@ -324,16 +139,14 @@ cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
                          const Scalars<T>& sc, cudaStream_t stream) {
   const size_t smem =
       sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + threads);
-  auto kernel = mlp_solve_kernel<T, kRoute, kCnf>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<1, threads, smem, stream>>>(
-      static_cast<const T*>(tau), static_cast<const T*>(y0),
-      static_cast<const T*>(f0), static_cast<const T*>(weights),
-      static_cast<T*>(out), static_cast<int*>(stats), static_cast<T*>(work),
-      bb, n_w, net, tab, sc);
-  return cudaGetLastError();
+  MlpSolveRhs<T, kRoute, kCnf> rhs;
+  rhs.wg = static_cast<const T*>(weights);
+  rhs.n_weights = n_w;
+  rhs.net_in = net;
+  rhs.bb = bb;
+  rhs.rows = (sc.B + 15) / 16 * 16;
+  return launch_rk_solve<T>(tau, y0, f0, out, stats, work, rhs, smem,
+                            threads, tab, sc, stream);
 }
 
 template <typename T>
@@ -378,20 +191,9 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
   const Tableau<T> tab =
       make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
 
-  Scalars<T> sc;
-  sc.dt0 = T(dt0);
-  sc.rtol = T(rtol);
-  sc.atol = T(atol);
-  sc.dt_min = T(dt_min);
-  sc.sign = T(sign);
-  sc.safety = T(safety);
-  sc.ifactor = T(ifactor);
-  sc.dfactor = T(dfactor);
-  sc.max_steps = max_steps;
-  sc.valid = valid;
-  sc.T_out = T_out;
-  sc.B = B;
-  sc.D = D;
+  const Scalars<T> sc =
+      make_scalars<T>(dt0, rtol, atol, dt_min, sign, safety, ifactor,
+                      dfactor, max_steps, valid, T_out, B, D);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;

@@ -47,16 +47,29 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
 - `calibrate_dot_precision` / `DOT_PASSES`: the reference's one-time
   choice of the cheapest tier by NFE x passes.
 
+- `solve_fused`: the whole solve of ARBITRARY plain-PyTorch dynamics: the
+  function is captured into a plan (`ops/plan_bridge.build_plan`), the
+  plan's right-hand side generated as CUDA C++ (`ops/plan_codegen.py`, K14)
+  and compiled into K2 (adaptive, one controller; batch couplings such as
+  y.mean(0) evaluated batch-wide), K5 (`per_sample=True`) or K8 (fixed
+  grids), one launch a solve (`ops/cuda_plan.py`). `odeint` / `solve`
+  route `options={'fuse': True}` here; `tree_state_adapter` carries tuple
+  and dict states; `cnf_sample_auto` samples a plain-PyTorch flow.
+  `fuse_fallbacks` counts the calls that ran the generic engine because the
+  dynamics fell outside the plan's subset (a trace-time FusionError, never a
+  build or launch failure).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
 item): the dot-precision tiers with
 `per_sample=True` (item 20), and the multi-card `axis_name` /
 `global_batch` coupling (item 18); `solve_conv_ode_sharded` has no
-counterpart here yet (item 18), nor have `cnf_log_prob_auto` and
-`cnf_sample_auto` (item 16, the plan tracer). What the kernels cannot take
-(widths past `MAX_WIDTH`) raises, as do the reduced tiers on the Adams
-kernels and an Adams `adjoint_method` (no adjoint kernel exists for it in
-either package). As in the reference, `solve_conv_ode`
-solves with the generic engine, with a warning, when not one sample fits a
+counterpart here yet (item 18), nor has `cnf_log_prob_auto` (item 16, the
+plan CNF); `solve_fused` takes no Adams method, no reduced dot_precision,
+no dense output and no coupled plan on a fixed grid yet (items 16 and 3).
+What the kernels cannot take (widths past `MAX_WIDTH`) raises, as do the
+reduced tiers on the Adams kernels and an Adams `adjoint_method` (no
+adjoint kernel exists for it in either package). As in the reference,
+`solve_conv_ode` solves with the generic engine, with a warning, when not one sample fits a
 controller block; nothing else falls back (the fused CNF runs K2 and K3 at
 every batch, where the reference falls back past its TPU memory budget).
 """
@@ -83,6 +96,9 @@ from .ops.cuda_kernels import (_ACTIVATIONS, dopri5_mlp_step, layer_tiers,
                                mlp_solve, pack_mlp_weights)
 from .ops.cuda_perlane import mlp_perlane_adjoint_solve, mlp_solve_perlane
 from .ops.norms import select_initial_step, select_initial_step_per_sample
+from .ops import cuda_plan
+from .ops import plan_bridge as _pb
+from .ops.pytree import tree_leaves, tree_unflatten
 from .odeint import solve as _generic_solve
 from .solvers.adaptive import AdaptiveConfig, solve_adaptive
 from .solvers.base import CanonicalProblem, SolveResult, SolverStats
@@ -1091,3 +1107,242 @@ def cnf_log_prob_train(weights, x: Tensor, *, t0: float = 0.0,
            "first_step": first_step, "nfe_meter": nfe_meter}
     out = _CNFTrain.apply(cfg, x, *flat)
     return _log_prob_from_base(out, D)
+
+
+# ---------------------------------------------------------------------------
+# Fusion of arbitrary dynamics (K14): solve_fused and its adapters
+# ---------------------------------------------------------------------------
+
+#: Calls of the fused front ends that ran the generic engine instead: the
+#: dynamics (or the options) fell outside the plan's subset.
+fuse_fallbacks = 0
+
+
+def tree_state_parts(y0):
+    """Pieces that put a tuple / dict state on the fused tier's [B, D]
+    layout (reference `fast.py:384`). Returns None for a plain [B, D] or
+    [D] tensor, else (y_bd, to_bd, from_bd, rebuild): to_bd maps a state
+    nest to the [B, D] concat of its leaves (each reshaped to [B, d_i]),
+    from_bd inverts it, rebuild maps a trajectory [..., B, D] back to the
+    nest with leaves [..., B, *leaf_shape[1:]]. A nest without a shared
+    leading batch axis raises FusionError."""
+    if isinstance(y0, Tensor) and y0.ndim in (1, 2):
+        return None
+    leaves = tree_leaves(y0)
+    if not leaves:
+        raise _pb.FusionError("empty pytree state")
+    if any(l.ndim < 1 for l in leaves):
+        raise _pb.FusionError(
+            "pytree state with scalar leaves is not fusable (the fused tier "
+            "needs a shared leading batch axis)")
+    B = int(leaves[0].shape[0])
+    if any(int(l.shape[0]) != B for l in leaves):
+        raise _pb.FusionError("pytree state leaves disagree on the leading "
+                              "(batch) axis; not fusable")
+    shapes = [tuple(l.shape) for l in leaves]
+    ds = [math.prod(s[1:]) for s in shapes]
+    offs = np.concatenate([[0], np.cumsum(ds)]).tolist()
+    dtype = leaves[0].dtype
+    for l in leaves[1:]:
+        dtype = torch.promote_types(dtype, l.dtype)
+
+    def to_bd(tree):
+        ls = tree_leaves(tree)
+        if len(ls) != len(shapes):
+            raise _pb.FusionError("dynamics returned a different pytree "
+                                  "structure than the state")
+        return torch.cat([l.reshape(B, d).to(dtype)
+                          for l, d in zip(ls, ds)], dim=1)
+
+    def from_bd(y):
+        return tree_unflatten(y0, [y[:, o:o + d].reshape(s) for o, d, s in
+                                   zip(offs, ds, shapes)])
+
+    def rebuild(ys):
+        lead = tuple(ys.shape[:-2])
+        return tree_unflatten(y0, [ys[..., o:o + d].reshape(lead + s)
+                                   for o, d, s in zip(offs, ds, shapes)])
+
+    return to_bd(y0), to_bd, from_bd, rebuild
+
+
+def tree_state_adapter(func, y0):
+    """A tuple / dict state on the fused tier (reference `fast.py:438`):
+    None for a plain tensor state, else (wrapped_func, y_bd, rebuild), the
+    function wrapped to map the [B, D] concat to itself (its slices,
+    reshapes and concat trace into the plan) and `rebuild` mapping the
+    trajectory back to the nest."""
+    parts = tree_state_parts(y0)
+    if parts is None:
+        return None
+    y_bd, to_bd, from_bd, rebuild = parts
+
+    def wrapped(t, y):
+        return to_bd(func(t, from_bd(y)))
+
+    return wrapped, y_bd, rebuild
+
+
+def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
+                method: str = "dopri5", max_num_steps=None, first_step=None,
+                matmul: str = "auto", safety: float = 0.9,
+                ifactor: float = 10.0, dfactor: float = 0.2,
+                num_steps=None, step_size=None, per_sample: bool = False,
+                dot_precision: str = "highest",
+                dense_output: bool = False) -> SolveResult:
+    """Whole-solve fused RK for arbitrary plain-PyTorch dynamics, one
+    kernel launch (reference `fast.py:784`).
+
+    func(t, y): a function of the batch-major state y [B, D] built from the
+    plan's subset (`ops/plan_bridge.py`: elementwise ops, products against
+    closed-over weights or module parameters, broadcasts, feature-axis
+    reductions, concats, slices and flips, and the batch couplings
+    y.sum(0) / y.mean(0) / y.amax(0)). It is captured once with make_fx on
+    y0; dynamics outside the subset raise `plan_bridge.FusionError` (the
+    `odeint(options={'fuse': True})` route catches it and runs the generic
+    engine). y0: [B, D], or [D] (vmapped over a batch of one); t may
+    increase or decrease. Returns ys [T, B, D] (or [T, D]) and stats.
+
+    Adaptive methods run K2 with the plan (per_sample=True: K5, a step
+    controller a sample, with `lane_stats`); the front end evaluates f0 and,
+    when first_step is None, the HNW first step with the plan's plain
+    version (2 extra evaluations, else 1, counted in nfe). Fixed-grid
+    methods run K8 on the requested times or a `num_steps` / `step_size`
+    grid. Not ported yet (NotImplementedError naming the ROADMAP item): the
+    Adams methods and a coupled plan on a fixed grid (queue 1 item 16), a
+    reduced dot_precision (K4 at the plan sites, item 16) and dense_output
+    (item 3).
+    """
+    y0 = torch.as_tensor(y0)
+    squeeze = False
+    if y0.ndim == 1:
+        inner = func
+
+        def func(tt, yy):
+            return torch.func.vmap(lambda v: inner(tt, v))(yy)
+
+        y0 = y0[None]
+        squeeze = True
+    if method in _ADAMS_METHODS:
+        raise NotImplementedError(
+            f"solve_fused(method={method!r}): K14 inside the Adams kernels "
+            "(K10, K11) is not ported yet: ROADMAP.md queue 1 item 16")
+    fixed = method in tableaus.FIXED_TABLEAUS_BY_NAME
+    if not fixed and method not in tableaus.TABLEAUS_BY_NAME:
+        raise _pb.FusionError(
+            f"method {method!r} has no whole-solve kernel (available: "
+            f"{sorted(tableaus.TABLEAUS_BY_NAME)} adaptive, "
+            f"{sorted(tableaus.FIXED_TABLEAUS_BY_NAME)} fixed-grid)")
+    if dot_precision not in ("highest", "bf16", "mixed"):
+        raise ValueError(f"dot_precision must be 'highest', 'bf16' or "
+                         f"'mixed', got {dot_precision!r}")
+    if dot_precision != "highest":
+        raise NotImplementedError(
+            f"solve_fused(dot_precision={dot_precision!r}): K4's tiers at "
+            "the plan's dots are not ported yet: ROADMAP.md queue 1 item 16")
+    if dense_output:
+        raise NotImplementedError(
+            "solve_fused(dense_output=True) is not ported yet: ROADMAP.md "
+            "queue 1 item 3 (remaining engine options)")
+    if per_sample and fixed:
+        raise _pb.FusionError(
+            "per_sample applies to adaptive RK methods only (fixed grids "
+            "have no controller)")
+    y0, t = _check_spec_inputs(y0, t)
+    dtype, dev = y0.dtype, y0.device
+
+    def result(out, stats, lane=None):
+        ys = out[:, 0] if squeeze else out
+        if lane is not None and squeeze:
+            lane = SolverStats(*(x[0] for x in lane))
+        return SolveResult(ys, stats, lane_stats=lane)
+
+    if t.shape[0] == 1:
+        return result(y0[None].clone(), SolverStats(0, 0, 0, 0))
+    y0 = y0.contiguous()
+    plan, consts = _pb.build_plan(func, t[0].to(dev), y0, matmul=matmul)
+    if plan.batch_coupled and per_sample:
+        raise ValueError(
+            "per_sample=True with batch-coupled dynamics (a cross-sample "
+            "reduction like y.mean(0)) is unsupported: per-sample stepping "
+            "would mix samples at different times")
+    if plan.batch_coupled and fixed:
+        raise NotImplementedError(
+            "batch-coupled dynamics on a fixed grid are not ported yet: "
+            "ROADMAP.md queue 1 item 16 (coupled plans in K8)")
+    packed = _pb.pack_consts(plan, consts, dtype, dev)
+    sign = torch.tensor(1.0 if t[-1] >= t[0] else -1.0, dtype=dtype)
+    tau = sign * t
+    sign_d = sign.to(dev)
+    g = cuda_plan.plan_rhs(plan, packed, sign_d)
+    f0 = g(tau[0].to(dev), y0).contiguous()
+    if fixed:
+        grid = _fixed_grid_tau(tau, t, num_steps, step_size)
+        out, stats = cuda_plan.plan_solve_fixed(
+            plan, packed, y0, tau, grid, float(sign), f0, method=method)
+        return result(out, SolverStats(*stats.tolist()))
+
+    if first_step is None:
+        rdt = torch.as_tensor(rtol, dtype=dtype).to(dev)
+        adt = torch.as_tensor(atol, dtype=dtype).to(dev)
+        pick = (select_initial_step_per_sample if per_sample
+                else select_initial_step)
+        dt0 = pick(g, tau[0].to(dev), y0, f0,
+                   tableaus.TABLEAUS_BY_NAME[method].order - 1, rdt, adt)
+        extra_nfe = 2
+    else:
+        dt0 = torch.abs(torch.as_tensor(first_step, dtype=dtype))
+        extra_nfe = 1
+    max_steps = (int(max_num_steps) if max_num_steps is not None
+                 else _INT32_MAX)
+    kw = dict(method=method, safety=safety, ifactor=ifactor,
+              dfactor=dfactor, max_steps=max_steps)
+    if per_sample:
+        out, stats, lane = cuda_plan.plan_solve(
+            plan, packed, y0, tau, dt0, rtol, atol, float(sign), f0,
+            per_sample=True, **kw)
+        nfe, nacc, nrej, status = stats.tolist()
+        return result(out, SolverStats(nfe + extra_nfe * y0.shape[0], nacc,
+                                       nrej, status),
+                      SolverStats(lane[0] + extra_nfe, lane[1], lane[2],
+                                  lane[3]))
+    out, stats = cuda_plan.plan_solve(plan, packed, y0, tau, dt0, rtol, atol,
+                                      float(sign), f0, **kw)
+    nfe, nacc, nrej, status = stats.tolist()
+    return result(out, SolverStats(nfe + extra_nfe, nacc, nrej, status))
+
+
+def cnf_sample_auto(flow, params, generator: torch.Generator, n: int,
+                    dim: int, *, t0: float = 0.0, t1: float = 1.0,
+                    rtol=1e-5, atol=1e-7, method: str = "dopri5",
+                    max_num_steps=None, matmul: str = "auto",
+                    dtype=torch.float32, z=None) -> Tensor:
+    """Samples of an arbitrary plain-PyTorch flow, the forward solve as one
+    fused launch (reference `fast.py:2713`; the plan counterpart of
+    `cnf_sample_fused`). flow(t, z [n, dim], params) -> dz; base noise
+    [n, dim] drawn from `generator` (the reference's key) on its device,
+    or handed in as `z`, moved to the device of params' first tensor and
+    solved from t0 to t1 by `solve_fused`. A flow outside the plan's subset
+    warns and runs the generic engine (`models.cnf.sample`'s solve on the
+    same noise), counted in `fuse_fallbacks`."""
+    global fuse_fallbacks
+    if z is None:
+        z = torch.randn((n, dim), generator=generator, dtype=dtype,
+                        device=generator.device)
+    p_leaves = tree_leaves(params)
+    if p_leaves:
+        z = z.to(p_leaves[0].device)
+    t = torch.tensor([t0, t1], dtype=z.dtype)
+
+    def f(tt, zz):
+        return flow(tt, zz, params)
+
+    try:
+        res = solve_fused(f, z, t, rtol=rtol, atol=atol, method=method,
+                          max_num_steps=max_num_steps, matmul=matmul)
+    except _pb.FusionError as e:
+        warnings.warn(f"cnf_sample_auto: flow not fusable ({e}); running "
+                      "the generic engine", stacklevel=2)
+        fuse_fallbacks += 1
+        res = _generic_solve(f, z, t, rtol=rtol, atol=atol, method=method)
+    return res.ys[-1]

@@ -28,18 +28,30 @@ Options of the adaptive methods, against the reference's allowlist:
   route, a loop over the batch here); stats sum the samples' counts and
   take the largest status, and `lane_stats` holds each sample's. The
   fused per-sample kernel is `fast.solve_mlp_spec(per_sample=True)`;
+- ``fuse``: the reference's `_try_fused` route: the dynamics are captured
+  into a plan and solved by `fast.solve_fused` in one kernel launch (K14
+  inside K2, K5 with ``per_sample``, K8 for the fixed-grid methods), with
+  the reference's option allowlists (``first_step``, ``max_num_steps``,
+  ``safety``, ``ifactor``, ``dfactor``, ``loop``, ``per_sample`` and
+  ``dot_precision`` for the adaptive methods; ``step_size``,
+  ``num_steps`` and ``dot_precision`` for the fixed-grid ones) and tuple
+  or dict states through `fast.tree_state_adapter`. Dynamics or options
+  outside the fused subset (a FusionError, raised while the plan is
+  captured, before any launch) warn, add 1 to `fast.fuse_fallbacks` and
+  run the generic engine (the per-sample loop below with ``per_sample``);
+  a reduced ``dot_precision`` that does not fuse raises ValueError. A
+  failed build or launch raises;
 - not ported yet, raising NotImplementedError with the ROADMAP item that
-  brings them: ``fuse`` (queue 1 item 16; for every method, with or
-  without ``per_sample``), ``dense_output`` and ``telemetry`` (item 3,
-  remaining engine options).
+  brings them: ``dense_output`` and ``telemetry`` (item 3, remaining
+  engine options), and ``fuse`` with the Adams methods (item 16).
 
 Options of the Adams family, registered by `solvers/fixed_adams.py` and
 `solvers/adams.py` with the reference's allowlists: ``max_order`` and
 ``max_iters`` (the corrector iterations of ``fixed_adams``) beside the
 fixed-grid options for ``explicit_adams`` / ``fixed_adams``; ``max_order``,
 ``first_step``, ``safety``, ``ifactor``, ``dfactor``, ``max_num_steps``
-and ``norm`` (a callable) for the VCABM ``adams``. ``fuse`` raises as
-above.
+and ``norm`` (a callable) for the VCABM ``adams``. ``fuse`` raises
+NotImplementedError for them (item 16).
 
 The hypersolvers are not ported yet and raise NotImplementedError naming
 their ROADMAP item. No method falls back to another path.
@@ -77,10 +89,18 @@ _NOT_PORTED_METHODS = {m: "queue 1 item 13 (hypersolvers)"
                                  "hyper_heun")}
 
 _NOT_PORTED_OPTIONS = {
-    "fuse": "queue 1 item 16 (fusion of arbitrary dynamics)",
     "dense_output": "queue 1 item 3 (remaining engine options)",
     "telemetry": "queue 1 item 3 (remaining engine options)",
 }
+
+#: Options the fused whole-solve kernels honour (reference odeint.py:103-121);
+#: any other option beside 'fuse' runs the generic engine.
+_FUSABLE_OPTIONS = frozenset({"first_step", "max_num_steps", "safety",
+                              "ifactor", "dfactor", "loop", "per_sample",
+                              "dot_precision"})
+_FUSABLE_FIXED_OPTIONS = frozenset({"step_size", "num_steps",
+                                    "dot_precision"})
+_ADAMS = frozenset({"adams", "explicit_adams", "fixed_adams"})
 
 #: Reference loop options with no counterpart in an eager loop.
 _NO_OP_OPTIONS = frozenset({"loop", "unroll", "chunk_size"})
@@ -166,6 +186,80 @@ def _per_sample(func: Callable, y0, t, rtol, atol, method: str,
                        lane_stats=SolverStats(*lanes))
 
 
+def _try_fused(func, y0, t, rtol, atol, method: str, options: dict,
+               kind: str) -> Optional[SolveResult]:
+    """The fused solve of `fast.solve_fused` (reference odeint.py:130);
+    None when the dynamics or options fall outside the fused subset (a
+    warning names the reason, `fast.fuse_fallbacks` counts it), and the
+    per-sample generic route when `per_sample` asked for it."""
+    import warnings
+
+    from . import fast
+    from .ops.plan_bridge import FusionError
+
+    prec = options.get("dot_precision", "highest")
+    try:
+        if prec != "highest" and method in _ADAMS:
+            raise ValueError(
+                f"dot_precision={prec!r} is not supported on the Adams "
+                "kernels (their corrector/order machinery assumes "
+                "f32-accurate dots); use an RK method")
+        if method in _ADAMS:
+            return fast.solve_fused(func, y0, t, method=method)
+        allowed = (_FUSABLE_OPTIONS if kind == "adaptive"
+                   else _FUSABLE_FIXED_OPTIONS)
+        unsupported = set(options) - allowed
+        if unsupported:
+            raise FusionError(f"options {sorted(unsupported)} are not "
+                              "supported by the fused kernel")
+        for tol in (rtol, atol):
+            if not (isinstance(tol, (int, float)) or (
+                    isinstance(tol, torch.Tensor) and tol.ndim == 0)):
+                raise FusionError("per-leaf tolerance pytrees are not "
+                                  "supported by the fused kernel")
+        rebuild = None
+        adapted = fast.tree_state_adapter(func, y0)
+        if adapted is not None:
+            func, y0, rebuild = adapted
+        if kind == "fixed":
+            res = fast.solve_fused(
+                func, y0, t, method=method,
+                num_steps=options.get("num_steps"),
+                step_size=options.get("step_size"), dot_precision=prec)
+        else:
+            res = fast.solve_fused(
+                func, y0, t, rtol=rtol, atol=atol, method=method,
+                max_num_steps=options.get("max_num_steps"),
+                first_step=options.get("first_step"),
+                safety=float(options.get("safety", 0.9)),
+                ifactor=float(options.get("ifactor", 10.0)),
+                dfactor=float(options.get("dfactor", 0.2)),
+                per_sample=bool(options.get("per_sample", False)),
+                dot_precision=prec)
+        if rebuild is not None:
+            res = SolveResult(rebuild(res.ys), res.stats,
+                              lane_stats=res.lane_stats)
+        return res
+    except FusionError as e:
+        if prec != "highest":
+            raise ValueError(
+                f"options={{'dot_precision': {prec!r}}} requires the fused "
+                f"kernel, but fusion failed: {e}") from e
+        fast.fuse_fallbacks += 1
+        if (kind == "adaptive" and options.get("per_sample")
+                and isinstance(y0, torch.Tensor) and y0.ndim == 2):
+            warnings.warn(
+                "odeint(options={'fuse': True, 'per_sample': True}): "
+                f"falling back to a generic solve a sample — {e}",
+                stacklevel=3)
+            opts = {k: v for k, v in options.items()
+                    if k not in ("per_sample", "loop")}
+            return _per_sample(func, y0, t, rtol, atol, method, opts)
+        warnings.warn(f"odeint(options={{'fuse': True}}): falling back to "
+                      f"the generic engine — {e}", stacklevel=3)
+        return None
+
+
 def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
           method: Optional[str] = None,
           options: Optional[dict] = None) -> SolveResult:
@@ -179,7 +273,23 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
     options = dict(options or {})
     _check_not_ported(method, options)
     kind, impl = SOLVERS[method]
+    if options.get("fuse") and kind not in ("adaptive", "fixed") \
+            and method not in _ADAMS:
+        raise ValueError("options={'fuse': True} is not supported for "
+                         f"method {method!r} (custom registered solvers run "
+                         "the generic engine)")
+    prec = options.pop("dot_precision", "highest")
+    if prec != "highest" and not options.get("fuse"):
+        raise ValueError(
+            "options={'dot_precision': ...} requires the fused kernel: pass "
+            "options={'fuse': True, 'dot_precision': ...}")
     options = check_options(options, _allowed_options(method))
+    if options.pop("fuse", False):
+        res = _try_fused(func, y0, t, rtol, atol, method,
+                         dict(options, dot_precision=prec)
+                         if prec != "highest" else options, kind)
+        if res is not None:
+            return res
     for key in _NO_OP_OPTIONS:
         options.pop(key, None)
     if options.pop("per_sample", False):

@@ -15,6 +15,14 @@ PyTorch's eager elementwise ops are, so a float64 kernel solve takes the
 same accept/reject decisions as its plain PyTorch version. `-Xptxas -v`
 reports each kernel's registers, shared memory and spills; the report is
 kept in `build_log()`.
+
+K14's plan libraries (`plan_libraries`): one generated source per plan
+structure and host kernel (ops/plan_codegen.py), compiled with the same
+flags by one `nvcc -shared` each, all started together, into
+`libtfd_plan_<hash>_<host>.so` in the same directory, named by a hash of
+the generated source, the headers and the flags. An in-process cache keyed
+by that hash makes a repeated structure build nothing; `plan_builds` counts
+the nvcc processes and `plan_build_seconds` their wall time.
 """
 
 from __future__ import annotations
@@ -35,7 +43,11 @@ SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "conv_solve_kernel.cu", "perlane_solve_kernel.cu",
            "perlane_adjoint_kernel.cu", "tier_net_kernel.cu",
            "adams_kernel.cu", "vcabm_kernel.cu")
-HEADERS = ("mlp_rk.cuh", "dot_tiers.cuh", "cnf_net.cuh")
+HEADERS = ("mlp_rk.cuh", "dot_tiers.cuh", "cnf_net.cuh", "rk_solve.cuh",
+           "rk_fixed.cuh", "rk_perlane.cuh")
+#: The headers a plan library compiles against.
+PLAN_HEADERS = ("mlp_rk.cuh", "rk_solve.cuh", "rk_fixed.cuh",
+                "rk_perlane.cuh", "plan_ops.cuh", "plan_rhs.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
@@ -128,6 +140,19 @@ _SOLVE_VCABM_ARGS = ([_P] * 7                               # tensors
                      + [_I, _P, _I, _I, _I, _I]             # network
                      + [_I]                                 # route
                      + [_P])                                # stream
+
+_PLAN_CONSTS = [_P, _I, _P, _I]                            # consts .. smem
+_PLAN_ARGS = {
+    "solve": ([_P] * 6 + [_I] * 4 + [_D] * 8 + [_I, _I]    # tau .. valid
+              + [_I, _I, _I, _P, _P, _P, _P, _P]           # tableau
+              + _PLAN_CONSTS + [_P]),
+    "fixed": ([_P] * 7 + [_I] * 5 + [_D, _I]               # grid .. valid
+              + [_I, _P, _P, _P]                           # tableau
+              + _PLAN_CONSTS + [_P]),
+    "perlane": ([_P] * 8 + [_I] * 4 + [_D] * 7 + [_I, _I]  # tau .. valid
+                + [_I, _I, _I, _P, _P, _P, _P, _P]         # tableau
+                + _PLAN_CONSTS + [_P]),
+}
 
 #: Launch functions -> argument lists, each in float32 and float64.
 _ENTRIES = {"tfd_dopri5_mlp_step": _STEP_ARGS, "tfd_mlp_solve": _SOLVE_ARGS,
@@ -232,6 +257,113 @@ def build_seconds():
     """Seconds the nvcc call took in this process (0.0 when the library
     was already built; None before the first use)."""
     return _seconds
+
+
+# ---------------------------------------------------------------------------
+# K14's plan libraries
+# ---------------------------------------------------------------------------
+
+plan_builds = 0
+plan_build_seconds = 0.0
+#: (source key, host) -> seconds from the start of its batch of builds to
+#: the end of its nvcc process.
+plan_build_times = {}
+_plan_libs = {}
+_plan_logs = {}
+
+
+def plan_key(source: str) -> str:
+    """Name of a plan library: a hash of its source, the headers it
+    includes and the flags."""
+    h = hashlib.sha256(source.encode())
+    for name in PLAN_HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _bind_plan(path: pathlib.Path, host: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for suffix in ("_f32", "_f64"):
+        fn = getattr(lib, f"tfd_plan_{host}{suffix}")
+        fn.argtypes = _PLAN_ARGS[host]
+        fn.restype = _I
+    lib.tfd_plan_error_string.argtypes = [_I]
+    lib.tfd_plan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def plan_libraries(sources) -> list:
+    """Build (or find) the plan library of each (source, host) pair and
+    load it: the missing ones by one `nvcc -shared` each, all started
+    together. Returns the ctypes libraries in order. An nvcc failure raises
+    RuntimeError with its output."""
+    global plan_builds, plan_build_seconds
+    keys = [(plan_key(src), host) for src, host in sources]
+    todo = {}
+    for (key, host), (src, _) in zip(keys, sources):
+        so = BUILD_DIR / f"libtfd_plan_{key}_{host}.so"
+        if (key, host) not in _plan_libs and not so.exists():
+            todo[(key, host)] = (src, so)
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        jobs = []
+        for (key, host), (src, so) in todo.items():
+            stem = BUILD_DIR / f"tfd_plan_{key}_{host}.{os.getpid()}"
+            cu, log = stem.with_suffix(".cu"), stem.with_suffix(".out")
+            cu.write_text(src)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o",
+                   str(tmp), str(cu)]
+            with open(log, "w") as fh:
+                proc = subprocess.Popen(cmd, stdout=fh,
+                                        stderr=subprocess.STDOUT)
+            jobs.append(((key, host), cu, log, tmp, so, cmd, proc))
+        # Each process's end is recorded as it comes.
+        pending = list(jobs)
+        while pending:
+            for job in list(pending):
+                if job[-1].poll() is not None:
+                    plan_build_times[job[0]] = time.perf_counter() - t0
+                    pending.remove(job)
+            time.sleep(0.05)
+        failed = []
+        for ident, cu, log, tmp, so, cmd, proc in jobs:
+            out = log.read_text()
+            _plan_logs[ident] = out
+            if proc.returncode != 0:
+                failed.append((cmd, proc.returncode, out))
+            else:
+                os.replace(tmp, so)
+                so.with_suffix(".log").write_text(out)
+            cu.unlink(missing_ok=True)
+            log.unlink(missing_ok=True)
+        plan_builds += len(jobs)
+        plan_build_seconds += time.perf_counter() - t0
+        if failed:
+            cmd, rc, out = failed[0]
+            raise RuntimeError(f"nvcc failed on a plan library ({rc}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    libs = []
+    for key, host in keys:
+        lib = _plan_libs.get((key, host))
+        if lib is None:
+            so = BUILD_DIR / f"libtfd_plan_{key}_{host}.so"
+            lib = _plan_libs[(key, host)] = _bind_plan(so, host)
+        libs.append(lib)
+    return libs
+
+
+def plan_build_log(source: str, host: str) -> str:
+    """nvcc's output (the `-Xptxas -v` report) of a plan library."""
+    key = plan_key(source)
+    if (key, host) in _plan_logs:
+        return _plan_logs[(key, host)]
+    saved = BUILD_DIR / f"libtfd_plan_{key}_{host}.log"
+    return saved.read_text() if saved.exists() else ""
 
 
 def check(err: int, what: str) -> None:

@@ -84,13 +84,7 @@ def mlp_solve_fixed_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                           tiers=None) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K8, step for step. Same contract as
     `mlp_solve_fixed`, except that f0 is required."""
-    tab = _tableau(method)
-    dev, dtype = y0.device, y0.dtype
-    T, G = tau.shape[0], grid.shape[0]
-    tau_h = tau.detach().to("cpu", dtype)
-    grid_h = grid.detach().to("cpu", dtype)
-    tau_d, grid_d = tau_h.to(dev), grid_h.to(dev)
-    sgn = torch.as_tensor(sign, dtype=dtype).to(dev)
+    sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     raw_f = _net_plain(warrays, dims, activation, final_activation,
                        input_power, time_input, tiers)
 
@@ -98,6 +92,19 @@ def mlp_solve_fixed_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
         # Canonical dynamics: g(tau, y) = sign * f(sign * tau, y).
         return sgn * raw_f(sgn * s, y)
 
+    return fixed_solve_plain(f, y0, f0, tau, grid, _tableau(method))
+
+
+def fixed_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, grid: Tensor,
+                      tab) -> Tuple[Tensor, Tensor]:
+    """K8's engine (`_make_fixed_solve_kernel`) step for step on the host:
+    f(s, y) is the canonical (signed) right-hand side on y0's [B, D]
+    layout. Returns (out [T, B, D], stats [4] int32)."""
+    dev, dtype = y0.device, y0.dtype
+    T, G = tau.shape[0], grid.shape[0]
+    tau_h = tau.detach().to("cpu", dtype)
+    grid_h = grid.detach().to("cpu", dtype)
+    tau_d, grid_d = tau_h.to(dev), grid_h.to(dev)
     out = torch.zeros((T,) + tuple(y0.shape), dtype=dtype, device=dev)
     out[0] = y0
     if not (_increasing(tau_h) and _increasing(grid_h)):

@@ -121,14 +121,7 @@ def mlp_solve_perlane_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     active sample takes its own attempt, the others masked out (one
     synchronisation an attempt). Same contract as `mlp_solve_perlane`,
     except that f0 is required."""
-    tab = _tableau(method)
-    dev, dtype = y0.device, y0.dtype
-    B, D = y0.shape
-    T = tau.shape[0]
-    tau_h, dt_min, dt, valid = _lane_setup(tau, dt0, B, dtype, dev)
-    on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
-    tau_d = on(tau_h)
-    rtol, atol, sgn = on(rtol), on(atol), on(sign)
+    sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     raw_f = _net_plain(warrays, dims, activation, final_activation,
                        input_power, time_input)
 
@@ -136,6 +129,29 @@ def mlp_solve_perlane_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
         # Canonical dynamics g(tau, y) = sign * f(sign * tau, y); s is a
         # [B, 1] column of each sample's time.
         return sgn * raw_f(sgn * s, y)
+
+    return perlane_solve_plain(f, y0, f0, tau, dt0, rtol, atol,
+                               _tableau(method), safety=safety,
+                               ifactor=ifactor, dfactor=dfactor,
+                               max_steps=max_steps)
+
+
+def perlane_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
+                        atol, tab, *, safety: float, ifactor: float,
+                        dfactor: float, max_steps: int
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K5's engine (`_make_perlane_kernel`) as a host loop of attempts in
+    which every active sample takes its own attempt, the others masked
+    out: f(s, y) is the canonical (signed) right-hand side on y0's [B, D]
+    layout at the samples' times s, a [B, 1] column. Returns (out
+    [T, B, D], stats [4], lane_stats [4, B])."""
+    dev, dtype = y0.device, y0.dtype
+    B, D = y0.shape
+    T = tau.shape[0]
+    tau_h, dt_min, dt, valid = _lane_setup(tau, dt0, B, dtype, dev)
+    on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
+    tau_d = on(tau_h)
+    rtol, atol = on(rtol), on(atol)
 
     tau_list = tau_h.tolist()
     out = torch.zeros((T, B, D), dtype=dtype, device=dev)

@@ -1,0 +1,308 @@
+"""K14 in its hosts: the launch wrappers of a generated plan in K2, K8 and
+K5, their launch counters and their plain PyTorch versions.
+
+Counterpart of `tfdiffeq_tpu/ops/jaxpr_bridge.py:1038` (`plan_solve`: the
+adaptive solve, one controller or, with `per_sample`, one a sample) and
+`tfdiffeq_tpu/ops/pallas_fixed.py:1167` (`plan_solve_fixed`). The plan's
+right-hand side is CUDA C++ generated for its structure
+(`plan_codegen.cuda_source`) and compiled into the host kernel
+(`csrc/plan_rhs.cuh` with `csrc/rk_solve.cuh`, `rk_fixed.cuh`,
+`rk_perlane.cuh`), one library a structure and host, built at first use
+(`_build.plan_libraries`).
+
+- `plan_solve`: K2 with the plan, one step controller over the batch. An
+  uncoupled plan is evaluated a sample a thread; a plan with batch
+  couplings ('bsum', 'bmax') batch-wide, every stage segment by segment
+  with a block meet at each coupling. With `per_sample=True`, K5: a
+  controller a sample (uncoupled plans only; a coupled one raises
+  ValueError, as the reference's front end does).
+- `plan_solve_fixed`: K8 with the plan on a fixed grid (uncoupled plans
+  only; a coupled one raises NotImplementedError, ROADMAP.md queue 1
+  item 16).
+
+Each wrapper takes its plain version only for tensors on the CPU: the
+whole-solve engines of `cuda_kernels.adaptive_solve_plain`,
+`cuda_fixed.fixed_solve_plain` and `cuda_perlane.perlane_solve_plain` with
+`plan_bridge.eval_plan_host` as the right-hand side. A CUDA tensor launches the
+kernel or raises; a failed build or launch raises RuntimeError.
+
+The constants sit in shared memory when they fit beside the kernel's own
+shared arrays within `cuda_kernels.MAX_WEIGHT_BYTES`, else the kernel reads
+them from global memory; `last_route` records the choice of the latest
+launch on each host ('shared' or 'global'). `plan_solve_launches`,
+`plan_fixed_launches` and `plan_perlane_launches` count launches;
+`reset_launch_counts()` zeroes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import torch
+
+from . import _build, plan_codegen
+from .cuda_fixed import FIXED_THREADS, fixed_solve_plain
+from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS,
+                           _check_float, _device_kind, _increasing, _ptr,
+                           _solve_setup, _stream, _tableau_args,
+                           adaptive_solve_plain)
+from .cuda_perlane import PERLANE_THREADS, _lane_setup, perlane_solve_plain
+from .plan_bridge import FusedPlan, eval_plan_host
+from .tableaus import FIXED_TABLEAUS_BY_NAME, TABLEAUS_BY_NAME
+
+Tensor = torch.Tensor
+
+plan_solve_launches = 0
+plan_fixed_launches = 0
+plan_perlane_launches = 0
+#: host -> 'shared' or 'global': where the latest launch read the constants.
+last_route = {}
+
+
+def reset_launch_counts() -> None:
+    global plan_solve_launches, plan_fixed_launches, plan_perlane_launches
+    plan_solve_launches = 0
+    plan_fixed_launches = 0
+    plan_perlane_launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def source(plan: FusedPlan, host: str) -> str:
+    """The generated CUDA source of `plan` on `host` ('solve', 'fixed',
+    'perlane')."""
+    return plan_codegen.cuda_source(plan, host)
+
+
+def build(pairs: Sequence[Tuple[FusedPlan, str]]) -> list:
+    """Build the libraries of several (plan, host) pairs at once (one nvcc
+    each, in parallel; a structure built before costs nothing)."""
+    return _build.plan_libraries([(source(p, h), h) for p, h in pairs])
+
+
+def plan_rhs(plan: FusedPlan, packed: Sequence[Tensor], sign,
+             threads: int = SOLVE_THREADS):
+    """The canonical right-hand side g(s, y) = sign * f(sign * s, y) of a
+    plan on the batch-major [B, D] layout, f by `eval_plan_host` (K14's
+    plain version). s is 0-d, or a [B, 1] column of per-sample times."""
+    def g(s, y):
+        s = s.reshape(1, -1) if s.ndim else s
+        return sign * eval_plan_host(plan, packed, sign * s, y, threads)
+    return g
+
+
+def _fn(lib, host: str, dtype):
+    return getattr(lib, f"tfd_plan_{host}_"
+                   f"{'f32' if dtype == torch.float32 else 'f64'}")
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.tfd_plan_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _consts_route(host: str, n_consts: int, extra: int,
+                  itemsize: int) -> bool:
+    """Whether the constants go to shared memory beside the kernel's own
+    `extra` shared values; raise when those alone do not fit."""
+    if extra * itemsize > MAX_WEIGHT_BYTES:
+        raise ValueError(f"plan on {host}: {extra} grid points and output "
+                         f"times need {extra * itemsize} bytes of shared "
+                         f"memory, above the {MAX_WEIGHT_BYTES} the kernel "
+                         "may use")
+    smem = (n_consts + extra) * itemsize <= MAX_WEIGHT_BYTES
+    last_route[host] = "shared" if smem else "global"
+    return smem
+
+
+def _inputs(plan: FusedPlan, packed, y0: Tensor, f0: Tensor):
+    if y0.ndim != 2 or tuple(y0.shape[1:]) != (plan.dim,):
+        raise ValueError(f"y0 must be [B, {plan.dim}], got "
+                         f"{tuple(y0.shape)}")
+    if plan.out_rows != plan.dim:
+        raise ValueError("a solve needs a square plan (out_rows == dim)")
+    dtype = y0.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"plan kernels take float32 or float64, got {dtype}")
+    for name, x in (("y0", y0), ("f0", f0)):
+        _check_float(name, x, dtype)
+    if f0.shape != y0.shape:
+        raise ValueError("f0 must have the shape of y0")
+    return plan_codegen.flat_consts(plan, [p.to(y0.device, dtype)
+                                           for p in packed], y0.shape[0])
+
+
+def plan_solve_plain(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
+                     tau: Tensor, dt0, rtol, atol, sign, f0: Tensor, *,
+                     method: str = "dopri5", safety: float = 0.9,
+                     ifactor: float = 10.0, dfactor: float = 0.2,
+                     max_steps: int = 2 ** 31 - 1, per_sample: bool = False):
+    """Plain PyTorch version of `plan_solve`, on y0's device: K2's engine
+    (`cuda_kernels.adaptive_solve_plain`, batch sums in the block's order)
+    or with per_sample K5's (`cuda_perlane.perlane_solve_plain`), the plan
+    evaluated by `eval_plan`. Same contract."""
+    tab = TABLEAUS_BY_NAME[method]
+    sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
+    g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
+    kw = dict(safety=safety, ifactor=ifactor, dfactor=dfactor,
+              max_steps=max_steps)
+    if per_sample:
+        return perlane_solve_plain(g, y0, f0, tau, dt0, rtol, atol, tab,
+                                   **kw)
+    return adaptive_solve_plain(g, y0, f0, tau, dt0, rtol, atol, tab,
+                                threads=SOLVE_THREADS, **kw)
+
+
+def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
+               tau: Tensor, dt0, rtol, atol, sign, f0: Tensor, *,
+               method: str = "dopri5", safety: float = 0.9,
+               ifactor: float = 10.0, dfactor: float = 0.2,
+               max_steps: int = 2 ** 31 - 1, per_sample: bool = False):
+    """Whole-solve adaptive RK with the plan as right-hand side, one launch.
+
+    packed: `plan_bridge.pack_consts`' output; y0, f0: [B, D] state and its
+    signed derivative at tau[0]; tau: [T] increasing canonical times (tau =
+    sign * t); dt0: the first step (per_sample: one a sample, [B], or one
+    for all). Returns (out [T, B, D], stats [4] int32), and with
+    per_sample also lane_stats [4, B], as `cuda_kernels.mlp_solve` and
+    `cuda_perlane.mlp_solve_perlane` do.
+    """
+    if method not in TABLEAUS_BY_NAME:
+        raise ValueError(f"unknown method {method!r}; available: "
+                         f"{sorted(TABLEAUS_BY_NAME)}")
+    if per_sample and plan.batch_coupled:
+        raise ValueError(
+            "per_sample=True with batch-coupled dynamics (a cross-sample "
+            "reduction like y.mean(0)) is unsupported: per-sample stepping "
+            "would mix samples at different times")
+    if max_steps < 1:
+        raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+    tab = TABLEAUS_BY_NAME[method]
+    if _device_kind(y0, f0) == "cpu":
+        return plan_solve_plain(plan, packed, y0, tau, dt0, rtol, atol, sign,
+                                f0, method=method, safety=safety,
+                                ifactor=ifactor, dfactor=dfactor,
+                                max_steps=max_steps, per_sample=per_sample)
+
+    global plan_solve_launches, plan_perlane_launches
+    consts, sample_consts = _inputs(plan, packed, y0, f0)
+    dtype, dev = y0.dtype, y0.device
+    B, D = y0.shape
+    T = tau.shape[0]
+    S = tab.stages
+    lay = plan_codegen.layout(plan)
+    c, a, b_sol, b_err = _tableau_args(tab)
+    c_mid = (None if tab.c_mid is None
+             else (ctypes.c_double * S)(*tab.c_mid))
+    out = torch.empty((T, B, D), dtype=dtype, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    steps = int(min(max_steps, 2 ** 31 - 1))
+    isz = y0.element_size()
+    if per_sample:
+        host = "perlane"
+        lib = build([(plan, host)])[0]
+        smem = _consts_route(host, lay.n_consts, T, isz)
+        # Named, so that they live until the launch has read them.
+        tau_h, dt_min, dt0_d, valid = _lane_setup(tau, dt0, B, dtype, dev)
+        tau_d = tau_h.to(dev)
+        lane = torch.empty((4, B), dtype=torch.int32, device=dev)
+        work = torch.empty((S + 5) * B * D, dtype=dtype, device=dev)
+        with torch.cuda.device(dev):
+            err = _fn(lib, host, dtype)(
+                _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(dt0_d), _ptr(out),
+                _ptr(lane), _ptr(stats), _ptr(work), T, B, D,
+                PERLANE_THREADS, float(rtol), float(atol), float(dt_min),
+                float(sign), float(safety), float(ifactor), float(dfactor),
+                steps, int(valid), S, tab.order, int(tab.fsal), c, a, b_sol,
+                b_err, c_mid, _ptr(consts), lay.n_consts,
+                _ptr(sample_consts), int(smem), _stream(dev))
+        _check(lib, err, "plan_solve(per_sample=True) launch")
+        plan_perlane_launches += 1
+        return out, stats, lane
+
+    host = "solve"
+    lib = build([(plan, host)])[0]
+    smem = _consts_route(host, lay.n_consts, SOLVE_THREADS, isz)
+    tau_h, dt_min, dt0, valid = _solve_setup(tau, dt0, dtype)
+    tau_d = tau_h.to(dev)
+    n_work = (S + 5) * B * D
+    if lay.segments > 1:
+        # The batch route's rows: stage inputs, outputs, live rows, then
+        # the reduced values (csrc/plan_rhs.cuh PlanBatchRhs).
+        n_work += B * (2 * D + lay.live_rows) + lay.red_values
+    work = torch.empty(n_work, dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _fn(lib, host, dtype)(
+            _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out), _ptr(stats),
+            _ptr(work), T, B, D, SOLVE_THREADS, float(dt0), float(rtol),
+            float(atol), float(dt_min), float(sign), float(safety),
+            float(ifactor), float(dfactor), steps, int(valid), S, tab.order,
+            int(tab.fsal), c, a, b_sol, b_err, c_mid, _ptr(consts),
+            lay.n_consts, _ptr(sample_consts), int(smem), _stream(dev))
+    _check(lib, err, "plan_solve launch")
+    plan_solve_launches += 1
+    return out, stats
+
+
+def plan_solve_fixed_plain(plan: FusedPlan, packed: Sequence[Tensor],
+                           y0: Tensor, tau: Tensor, grid: Tensor, sign,
+                           f0: Tensor, *, method: str = "rk4"
+                           ) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of `plan_solve_fixed`, on y0's device: K8's
+    engine (`cuda_fixed.fixed_solve_plain`) with `eval_plan`."""
+    sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
+    g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
+    return fixed_solve_plain(g, y0, f0, tau, grid,
+                             FIXED_TABLEAUS_BY_NAME[method])
+
+
+def plan_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
+                     tau: Tensor, grid: Tensor, sign, f0: Tensor, *,
+                     method: str = "rk4") -> Tuple[Tensor, Tensor]:
+    """Whole-solve fixed-grid RK (euler, midpoint, rk4, rk4_38) with the
+    plan as right-hand side, one K8 launch. tau: [T] canonical output
+    times; grid: [G] canonical step grid; f0: the signed derivative at
+    grid[0]. Returns (out [T, B, D], stats [4] int32), as
+    `cuda_fixed.mlp_solve_fixed` does."""
+    if method not in FIXED_TABLEAUS_BY_NAME:
+        raise ValueError(f"unknown fixed-grid method {method!r}; available: "
+                         f"{sorted(FIXED_TABLEAUS_BY_NAME)}")
+    if plan.batch_coupled:
+        raise NotImplementedError(
+            "batch-coupled dynamics on a fixed grid are not ported yet: "
+            "ROADMAP.md queue 1 item 16 (coupled plans in K8)")
+    tab = FIXED_TABLEAUS_BY_NAME[method]
+    if _device_kind(y0, f0) == "cpu":
+        return plan_solve_fixed_plain(plan, packed, y0, tau, grid, sign, f0,
+                                      method=method)
+
+    global plan_fixed_launches
+    consts, sample_consts = _inputs(plan, packed, y0, f0)
+    dtype, dev = y0.dtype, y0.device
+    B, D = y0.shape
+    T, G = tau.shape[0], grid.shape[0]
+    host = "fixed"
+    lib = build([(plan, host)])[0]
+    lay = plan_codegen.layout(plan)
+    smem = _consts_route(host, lay.n_consts, G + T, y0.element_size())
+    tau_h = tau.detach().to("cpu", dtype)
+    grid_h = grid.detach().to("cpu", dtype)
+    valid = _increasing(tau_h) and _increasing(grid_h)
+    S = tab.stages
+    c, a, b_sol, _ = _tableau_args(tab)
+    out = torch.empty((T, B, D), dtype=dtype, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    work = torch.empty((S + 3) * B * D, dtype=dtype, device=dev)
+    # Named, so that they live until the launch has read them.
+    grid_d, tau_d = grid_h.to(dev), tau_h.to(dev)
+    with torch.cuda.device(dev):
+        err = _fn(lib, host, dtype)(
+            _ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out),
+            _ptr(stats), _ptr(work), G, T, B, D, FIXED_THREADS, float(sign),
+            int(valid), S, c, a, b_sol, _ptr(consts), lay.n_consts,
+            _ptr(sample_consts), int(smem), _stream(dev))
+    _check(lib, err, "plan_solve_fixed launch")
+    plan_fixed_launches += 1
+    return out, stats
