@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's adaptive (K2), fixed-grid (K8) and per-sample (K5) solve
-kernels at the bench protocol, for two or more checkouts of the repository
-on one NVIDIA card, in alternating order.
+kernels and their adjoint sweeps (K3, K9, K6) at the bench protocol, for
+two or more checkouts of the repository on one NVIDIA card, in alternating
+order.
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS]
 
@@ -10,9 +11,11 @@ round runs one process a checkout, in the order A B B A A B ... (ROUNDS
 pairs, 3 by default), each timing with CUDA events (median of 7 after a
 warm-up): the MLP routes of K2 (dopri5, bench spiral y [4096, 2], hidden
 50, 64 outputs over [0, 25], rtol = atol = 1e-6, first step 0.01), K8
-(rk4 x 500) and K5 (every sample's first step 0.01), and, where the
-checkout has the plan route (`ops/cuda_plan.py`), the same spiral written
-as plain PyTorch in each of the three. It prints the card's name and power
+(rk4 x 500) and K5 (every sample's first step 0.01), the MLP routes of
+K3, K9 (8 rk4 steps an interval) and K6 on K2's trajectory with the
+bench training protocol's MSE cotangent (median of 3), and, where the
+checkout has the plan routes (`ops/cuda_plan.py`), the same spiral written
+as plain PyTorch in each host. It prints the card's name and power
 limit, a line a run and the median of each kernel a checkout.
 """
 
@@ -70,6 +73,19 @@ def _one(root: str) -> None:
         "K5": timed(lambda: cp.mlp_solve_perlane(warr, dims, y, t, dt0, 1e-6,
                                                  1e-6, 1.0, **kw)),
     }
+    from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca
+    ys, _ = ck.mlp_solve(warr, dims, y, t, 0.01, 1e-6, 1e-6, 1.0, **kw)
+    target = c(np.random.RandomState(2).randn(64, 4096, 2) * 0.5)
+    ct = (2.0 * (ys - target) / target.numel()).contiguous()
+    ys = ys.contiguous()
+    dt_b = 0.1 * abs(float(t[-1] - t[-2]))
+    akw = dict(activation="tanh", input_power=3)
+    out["K3"] = timed(lambda: ca.mlp_adjoint_solve(
+        warr, dims, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0, **akw), reps=3)
+    out["K9"] = timed(lambda: cf.mlp_adjoint_solve_fixed(
+        warr, dims, ys, ct, t, 1.0, num_steps=8, method="rk4", **akw), reps=3)
+    out["K6"] = timed(lambda: cp.mlp_perlane_adjoint_solve(
+        warr, dims, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0, **akw), reps=3)
     plan_mod = os.path.join(root, "tfdiffeq_tpu_torch", "ops", "cuda_plan.py")
     if os.path.exists(plan_mod):
         from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, \
@@ -90,6 +106,15 @@ def _one(root: str) -> None:
             plan, packed, y, t, grid, 1.0, pf0))
         out["K14 in K5"] = timed(lambda: cpl.plan_solve(
             plan, packed, y, t, dt0, 1e-6, 1e-6, 1.0, pf0, per_sample=True))
+        if hasattr(cpl, "plan_adjoint_solve"):
+            cpl.build([(plan, "adjoint"), (plan, "fixed_adjoint"),
+                       (plan, "perlane_adjoint")])
+            out["K15 in K3"] = timed(lambda: cpl.plan_adjoint_solve(
+                plan, packed, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0), reps=3)
+            out["K15 in K9"] = timed(lambda: cpl.plan_adjoint_solve_fixed(
+                plan, packed, ys, ct, t, 1.0, num_steps=8), reps=3)
+            out["K15 in K6"] = timed(lambda: cpl.plan_perlane_adjoint_solve(
+                plan, packed, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0), reps=3)
     print("RESULT " + " ".join(f"{k.replace(' ', '_')}={v:.3f}"
                                for k, v in out.items()), flush=True)
 

@@ -20,8 +20,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    zeroed just before and read just after; each kernel must have run.
    Outputs must be finite, of shape [64, 4096, 2], with status 0; on a
    small input (B=96, 12 outputs over [0, 5]) the three agree.
-6. Time each kernel and its plain version with CUDA events (median of 5
-   after a warm-up) and print them beside the card's name and power limit.
+6. Time each kernel with CUDA events (median of 5 after a warm-up) and
+   its plain version by one synchronised call on the host clock (it is
+   host-bound and takes seconds; so in every later phase), and print them
+   beside the card's name and power limit. Each phase prints the second
+   of the run at which it starts (`[clock]`).
 7. K3 `mlp_adjoint_solve` against its plain version at the bench protocol,
    with the cotangent of bench.py's MSE training loss (bench.py:800-807):
    float64 (identical stats, gradients within 1e-9 relative) and float32
@@ -236,6 +239,45 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     once more: no plan library is built again (the cache by structure),
     and the result is bitwise the first run's.
 
+33. K15, a traced plan's reverse walk (ops/plan_adjoint.py,
+    ops/plan_codegen.py `PlanAug`, csrc/plan_aug.cuh), inside K3: one SGD
+    step (lr 1e-3) of the spiral training protocol (bench.py:842-895: the
+    bench spiral as plain PyTorch over its four weights, B = 4096, 64
+    outputs over [0, 25], dopri5 at rtol = atol = 1e-6, the MSE against
+    the seed-2 target) through `odeint_adjoint(options={'fuse': True})`,
+    float32 and float64: one plan-K2 and one plan-K3 launch, no fallback,
+    finite gradients, the weights move; the K3 launch, recorded, held to
+    its plain version (`cuda_plan.plan_adjoint_solve_plain`: K3's engine
+    with `aug_terms`) bitwise with identical stats, and run again bitwise.
+    The sweep (CUDA events) beside K3's MLP route on the same trajectory
+    and cotangent; the step (median of 3 warm) beside
+    `fast.odeint_adjoint_mlp` and the generic `odeint_adjoint` (one step),
+    every timed step at the same weights (its update computed, not
+    applied).
+34. K15 in K6: one SGD step of the stiffness battery (bench.py:483-535:
+    sc[:, None] * (tanh((y^3) W1 + b1) W2), sc = logspace(0, 2, 4096), 5
+    outputs over [0, 2], the loss sum(ys^2)) through `odeint_adjoint(
+    options={'fuse': True, 'per_sample': True})` in float32: one plan-K5
+    and one plan-K6 launch, the K6 launch held to its plain version, a NaN
+    allowed only where a sample ended with a status (the stiffest samples'
+    reverse-time sweep underflows dt, and the front end then returns NaN
+    gradients by contract) or, in a batch sum, where any did; the samples'
+    backward nfe and how many failed; the step beside the same battery
+    under one shared controller (K2 + K3). Then one SGD step of [33]'s
+    spiral per sample, where every sample finishes, in both types: the K6
+    launch held bitwise to its plain version and every gradient finite.
+35. K15 in K3's batch-wide walk: one SGD step of each of [31]'s couplings
+    over a learnable weight (B = 4096, D = 3, 7 outputs over [0, 2], the
+    MSE against a seed-1 target): one plan-K2 and one plan-K3 launch each,
+    the K3 launch held to its plain version in both types (the couplings'
+    transposes meet in the block's order); the sweep timed, the step
+    beside the generic `odeint_adjoint`.
+36. K15 in K9: one SGD step of [33]'s spiral with rk4 (500 steps forward,
+    K8; 8 steps an interval backward, K9: [12]'s grid), held to the plain
+    versions in both types; the sweep beside K9's MLP route on the same
+    inputs, the step beside `fast.odeint_adjoint_mlp` and the generic
+    `odeint_adjoint`.
+
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
 from its plain version, its time and its plain version's, and its bound,
@@ -253,7 +295,13 @@ times and bounds in each host (`*_by_host`: K2, K8, K5; the top-level
 numbers are K2's at the bench protocol), each plan library's build seconds
 (`build_s`), the hand-written MLP route's time on the same function in each
 host (`mlp_route_ms`, its nearest yardstick), the coupled plans' times
-beside the generic engine, and the two samplers' times. K7 has two records, its
+beside the generic engine, and the two samplers' times. K15 (`plan_aug`)
+carries the same by host (K3, K6, K9; the top-level numbers K3's in [33]),
+the bound from `_plan_aug_flops`, the training step's time in each host,
+the MLP route's sweep and step on the same spiral (`mlp_route_ms`,
+`mlp_route_step_ms`), the generic `odeint_adjoint` step (`generic_ms`), the
+battery's shared-controller step and the couplings' sweeps and steps.
+K7 has two records, its
 forward in K2 (`cnf_forward`, launches in
 [24]'s steps) and its adjoint in K3 (`cnf_adjoint`), each with the
 nearest library-built path's time beside it: the generic engine with
@@ -365,6 +413,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
+#: perf_counter at the start of main(), for `_at`.
+_RUN_T0 = [0.0]
+
+
+def _at(phase) -> None:
+    """Print when a phase starts, in seconds since the run began: where the
+    run's time limit goes."""
+    import time
+    print(f"[clock] phase {phase} starts at "
+          f"{time.perf_counter() - _RUN_T0[0]:.1f} s", flush=True)
+
+
 def _bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """(bound in ms, what sets it): the larger of the operations over the
     peak (float32 unless given) and the bytes over the memory rate."""
@@ -430,6 +490,12 @@ def _host_call(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _plain_ms(fn) -> float:
+    """Host milliseconds of one synchronised call of a plain version: it
+    is host-bound and takes seconds, so one call needs no median."""
+    return _host_call(fn)[1]
+
+
 def _clone(v):
     """v with every tensor in it (through tuples, lists and dicts) cloned."""
     import torch
@@ -468,16 +534,33 @@ class _Recording:
         setattr(self.module, self.name, self.fn)
 
 
-def _hold_to_plain(call, plain, what: str):
+def _same(a, b, nan_ok=None) -> bool:
+    """Bitwise equal (`torch.equal`: a NaN fails). Where the bool mask
+    `nan_ok` (broadcast to a's shape) is true, a NaN in a matching a NaN at
+    the same place in b also counts: a failed sample's row."""
+    import torch
+    if nan_ok is None or not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(na, nb) and not bool((na & ~nan_ok).any())
+            and torch.equal(a[~na], b[~nb]))
+
+
+def _hold_to_plain(call, plain, what: str, nan_ok=None):
     """A recorded launch (args, kwargs, result, the stats last) against its
     plain version on the same inputs: every output bitwise equal and the
-    stats identical, else AssertionError. Returns (largest |kernel -
-    plain|, the plain version's host ms)."""
+    stats identical, else AssertionError. `nan_ok`, one mask an output (or
+    None), lets a NaN match a NaN where its mask is true (`_same`).
+    Returns (largest |kernel - plain| where both are numbers, the plain
+    version's host ms)."""
     import torch
     args, kw, got = call
     ref, plain_ms = _host_call(lambda: plain(*args, **kw))
-    err = max(float((a - b).abs().max()) for a, b in zip(got[:-1], ref[:-1]))
-    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    masks = nan_ok or [None] * len(got)
+    err = max(float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
+              if a.numel() else 0.0 for a, b in zip(got[:-1], ref[:-1]))
+    same = all(a.shape == b.shape and _same(a, b, m)
+               for a, b, m in zip(got, ref, masks))
     print(f"{what}: kernel stats {got[-1].tolist()}, plain "
           f"{ref[-1].tolist()}; max |kernel - plain| {err:.3e}; bitwise equal "
           f"to plain: {same}", flush=True)
@@ -570,6 +653,7 @@ def _wide_tier(smi: str, dev) -> dict:
     t8 = {dt: torch.linspace(0.0, 2.0, 8, dtype=dt) for dt in (f32, f64)}
     tol = 1e-6
 
+    _at("18")
     # [18] K2 at the bench tolerances, each tier against its plain version.
     k2, k2_plain = {}, {}
     for tier, dtype in (("highest", f32), ("highest", f64), ("mixed", f64),
@@ -630,6 +714,7 @@ def _wide_tier(smi: str, dev) -> dict:
         raise AssertionError("K2 highest differs between its routes")
     rec["k2_highest_batch"] = ms
 
+    _at("19")
     # [19] K8 rk4 x 128 at each tier.
     k8, k8_plain = {}, {}
     for tier, dtype, steps in (("highest", f32, 128), ("bf16", f32, 128),
@@ -783,6 +868,7 @@ def _wide_tier(smi: str, dev) -> dict:
           f"{rec['k4_library_ms']:.4f} ms for the three layers, "
           f"{lib_layer:.4f} ms for the 256 x 256 layer", flush=True)
 
+    _at("20")
     # [20] wide training, and K5, K6, K9 at width 256, B = 256.
     Bt = 256
     W, y = _wide_net(f32, dev, B=Bt)
@@ -857,6 +943,7 @@ def _wide_tier(smi: str, dev) -> dict:
             raise AssertionError(f"{name} wide differs from its plain "
                                  "version")
 
+    _at("21")
     # [21] calibration on the wide configuration.
     W, y = _wide_net(f32, dev)
     picked = fast.calibrate_dot_precision(spec, W, y, t8[f32], rtol=tol,
@@ -949,6 +1036,7 @@ def _cnf_tier(smi: str, dev) -> dict:
     W32 = [(w.detach(), b.detach()) for w, b in fast.weights_from_linears(flow)]
     dims = tuple((w.shape[0], w.shape[1]) for w, _ in W32)
 
+    _at("22")
     # [22] K7's forward in K2: the launch that fast.cnf_log_prob_fused makes,
     # held against its plain version on its own inputs.
     k2 = {}
@@ -1012,6 +1100,7 @@ def _cnf_tier(smi: str, dev) -> dict:
           f"{rec['fwd_bound'][0]:.4f} ms ({rec['fwd_bound'][1]}, "
           f"{_cnf_eval_flops(dims)} operations an evaluation)", flush=True)
 
+    _at("23")
     # [23] K7's adjoint in K3 on [22]'s trajectory, g = d(-mean log p)/dout.
     k3_args = {}
     for dtype in (f64, f32):
@@ -1122,6 +1211,7 @@ def _cnf_tier(smi: str, dev) -> dict:
           "of 3 after a first step", flush=True)
     rec.update(gen_train_ms=gen_train_ms, train_ms=train_ms)
 
+    _at("24")
     # [24] the example: Adam steps of examples/cnf.py --fused. The first
     # step's launches are recorded and held to their plain versions, then
     # three more are timed.
@@ -1270,6 +1360,7 @@ def _adams_tier(smi: str, dev) -> dict:
         "Dense_1": {"kernel": p_np["w2"], "bias": p_np["b2"]}}},
         device=dev, dtype=f32)
 
+    _at("25")
     # [25] K11 at the VCABM protocol (bench.py:237-253): the launch that
     # the public entry point makes, held against its plain version on its
     # own inputs in float32 and float64, then again at max_order 5.
@@ -1331,7 +1422,7 @@ def _adams_tier(smi: str, dev) -> dict:
         raise AssertionError("K11 and the generic VCABM engine differ")
     (args, kw, got), rec["vcabm_err"], orders = k11[(f32, 12)]
     rec["vcabm_ms"] = _timed(lambda: cad.mlp_solve_vcabm(*args, **kw))
-    rec["vcabm_plain_ms"] = _timed(
+    rec["vcabm_plain_ms"] = _plain_ms(
         lambda: cad.mlp_solve_vcabm_plain(*args, **kw))
     with torch.no_grad():
         rec["vcabm_generic_ms"] = _host_ms(lambda: solve(
@@ -1351,6 +1442,7 @@ def _adams_tier(smi: str, dev) -> dict:
           f"{rec['vcabm_bound'][0]:.4f} ms ({rec['vcabm_bound'][1]})",
           flush=True)
 
+    _at("26")
     # [26] K10 at the bench widths with bench.py:205's 512 steps, both
     # methods, float32 and float64, and on the default grid.
     k10 = {}
@@ -1417,7 +1509,7 @@ def _adams_tier(smi: str, dev) -> dict:
         (args, kw, got), _, _ = k10[(method, f32, ADAMS_STEPS)]
         key = "adams" if method == "fixed_adams" else "explicit"
         rec[f"{key}_ms"] = _timed(lambda: cad.mlp_solve_adams(*args, **kw))
-        rec[f"{key}_plain_ms"] = _timed(
+        rec[f"{key}_plain_ms"] = _plain_ms(
             lambda: cad.mlp_solve_adams_plain(*args, **kw))
         with torch.no_grad():
             rec[f"{key}_generic_ms"] = _host_ms(lambda: solve(
@@ -1439,6 +1531,7 @@ def _adams_tier(smi: str, dev) -> dict:
               f"{rec[f'{key}_bound'][0]:.4f} ms ({rec[f'{key}_bound'][1]})",
               flush=True)
 
+    _at("27")
     # [27] training with an Adams forward: three SGD steps of the spiral
     # (bench.py:788-838) on K11 + K3, one step on K10 + K9.
     p, _, y, _ = bench_w(f32)
@@ -1538,27 +1631,41 @@ PLAN_D, PLAN_B, PLAN_T, PLAN_SPAN = 3, 4096, 7, 2.0
 FLOW_N = 4096
 
 
-def _spiral_func(p):
-    """The bench spiral as plain PyTorch over `p` (w1, b1, w2, b2)."""
+def _spiral_params_func(t, y, q):
+    """The bench spiral as plain PyTorch over the weights (w1, b1, w2,
+    b2)."""
     import torch
+    return torch.tanh((y ** 3) @ q[0] + q[1]) @ q[2] + q[3]
 
-    def f(t, y):
-        return torch.tanh((y ** 3) @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
-    return f
+
+def _spiral_func(p):
+    """The bench spiral over the dict `p` (w1, b1, w2, b2)."""
+    q = (p["w1"], p["b1"], p["w2"], p["b2"])
+    return lambda t, y: _spiral_params_func(t, y, q)
+
+
+def _coupled_params_funcs():
+    """The reference's mean-field dynamics (tests/test_meanfield.py:27-34)
+    and a max coupling, as plain PyTorch over a weight W (the parameter
+    tuple's only entry)."""
+    import torch
+    return {
+        "meanfield": lambda t, y, q: (torch.tanh(y @ q[0])
+                                      - 0.5 * (y - y.mean(0))),
+        "scalar_coupled": lambda t, y, q: (torch.tanh(y @ q[0])
+                                           - 0.1 * (y ** 2).mean() * y),
+        "bmax": lambda t, y, q: (torch.tanh(y @ q[0])
+                                 - 0.5 * (y - y.amax(0))),
+    }
 
 
 def _coupled_funcs(dtype, device):
-    """The reference's mean-field dynamics (tests/test_meanfield.py:27-34)
-    and a max coupling, as plain PyTorch over its seed-0 weight."""
+    """[31]'s couplings over their seed-0 weight."""
     import torch
-    W = torch.tensor(np.random.RandomState(0).randn(PLAN_D, PLAN_D) * 0.3,
-                     dtype=dtype, device=device)
-    return {
-        "meanfield": lambda t, y: torch.tanh(y @ W) - 0.5 * (y - y.mean(0)),
-        "scalar_coupled": lambda t, y: (torch.tanh(y @ W)
-                                        - 0.1 * (y ** 2).mean() * y),
-        "bmax": lambda t, y: torch.tanh(y @ W) - 0.5 * (y - y.amax(0)),
-    }
+    W = (torch.tensor(np.random.RandomState(0).randn(PLAN_D, PLAN_D) * 0.3,
+                      dtype=dtype, device=device),)
+    return {name: (lambda t, y, f=f: f(t, y, W))
+            for name, f in _coupled_params_funcs().items()}
 
 
 def _flow_variables():
@@ -1677,6 +1784,7 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
 
     t = torch.linspace(0.0, SPAN, T_OUT)
 
+    _at("28")
     # [28] K14 in K2 at the bench protocol, through odeint(fuse).
     def fused_bench():
         p, y, _ = _bench_params(B, f32, dev)
@@ -1752,6 +1860,7 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
         raise AssertionError("[28] the fused spiral differs from the generic "
                              "engine at B=96")
 
+    _at("29")
     # [29] K14 in K8: rk4 with 500 steps at the bench widths.
     for dtype in (f32, f64):
         p, y, _ = _bench_params(B, dtype, dev)
@@ -1789,6 +1898,7 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
           f"solve vs K8's MLP route {rec['mlp_route_ms']['K8']:.3f} ms; "
           f"plain {rec['plain_ms']['K8']:.1f} ms", flush=True)
 
+    _at("30")
     # [30] K14 in K5: a controller a sample, through solve(fuse,
     # per_sample), HNW first steps per sample.
     for dtype in (f32, f64):
@@ -1825,6 +1935,7 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
           f"MLP route {rec['mlp_route_ms']['K5']:.3f} ms; plain "
           f"{rec['plain_ms']['K5']:.1f} ms", flush=True)
 
+    _at("31")
     # [31] batch couplings in K2: the block meets in their fixed order.
     tc = torch.linspace(0.0, PLAN_SPAN, PLAN_T)
     rec["coupled"] = {}
@@ -1859,6 +1970,7 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
                       f"{gen_ms:.3f} ms; plain {plain_ms:.1f} ms",
                       flush=True)
 
+    _at("32")
     # [32] cnf_sample_auto: BASELINE's flow as plain PyTorch.
     flow = convert.cnf_from_flax(_flow_variables(), device=dev)
     Wf = fast.weights_from_linears(flow)
@@ -1896,6 +2008,7 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
         raise AssertionError("[32] cnf_sample_auto differs from "
                              "cnf_sample_fused")
 
+    _at("28 again")
     # [28] again: the same structure builds nothing.
     n_builds = _build.plan_builds
     cpl.reset_launch_counts()
@@ -1909,10 +2022,448 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
     return rec
 
 
+#: [34]: the stiffness battery's outputs and span (bench.py:483-535).
+STIFF_T, STIFF_SPAN = 5, 2.0
+
+
+def _battery_func(sc):
+    """bench.py:502-504: the stiffness battery, a per-sample scale sc [B]
+    (a 'bvec' constant of the plan) over the spiral's net (w1, b1, w2)."""
+    import torch
+
+    def f(t, y, q):
+        return sc[:, None] * (torch.tanh((y ** 3) @ q[0] + q[1]) @ q[2])
+    return f
+
+
+def _aug_pairs(dev):
+    """Every (plan, host) that phases 33-36 run beyond [28]-[32]'s: the
+    spiral's reverse walk in K3 and K9, the battery in K5 and K6 (and in K2
+    and K3, the shared controller it is timed against; captured at a small batch: the per-sample scale is a
+    'bvec' constant, data of the plan), the couplings' walks in K3
+    (captured at their batch: a batch mean divides by B)."""
+    import torch
+    from tfdiffeq_tpu_torch.ops import plan_bridge as pb
+    t0 = torch.tensor(0.0, device=dev)
+    p, _, _ = _bench_params(8, torch.float32, dev)
+    q = (p["w1"], p["b1"], p["w2"], p["b2"])
+    spiral, _ = pb.build_plan(lambda t, y: _spiral_params_func(t, y, q), t0,
+                              torch.ones(8, D, device=dev))
+    sc = torch.ones(8, device=dev)
+    battery, _ = pb.build_plan(lambda t, y: _battery_func(sc)(t, y, q), t0,
+                               torch.ones(8, D, device=dev))
+    pairs = [(spiral, "adjoint"), (spiral, "fixed_adjoint"),
+             (battery, "perlane"), (battery, "perlane_adjoint"),
+             (battery, "solve"), (battery, "adjoint")]
+    W = (torch.ones(PLAN_D, PLAN_D, device=dev),)
+    for f in _coupled_params_funcs().values():
+        plan, _ = pb.build_plan(lambda t, y, f=f: f(t, y, W), t0,
+                                torch.ones(PLAN_B, PLAN_D, device=dev))
+        pairs.append((plan, "adjoint"))
+    return pairs
+
+
+def _plan_aug_flops(plan) -> int:
+    """One augmented evaluation of a plan for one sample (K15): three
+    forward walks (`_plan_flops`), the convention of K3's MLP bound (the
+    forward re-walk, the reverse walk's products with the cotangent and
+    each dot's dh and per-sample dW term, about twice the forward)."""
+    return 3 * _plan_flops(plan)
+
+
+def _aug_tier(smi: str, dev) -> dict:
+    """Phases 33-36: K15, a traced plan's reverse walk, in K3, K6 and K9,
+    through `odeint_adjoint(options={'fuse': True})` at full width. The
+    plan libraries were built with [28]'s. Returns K15's record."""
+    import torch
+    from tfdiffeq_tpu_torch import fast, odeint_adjoint
+    from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, \
+        cuda_fixed as cf, cuda_kernels as ck, cuda_plan as cpl
+    f32, f64 = torch.float32, torch.float64
+    spec = fast.MLPSpec(activation="tanh", input_power=3)
+    rec = {"ms": {}, "plain_ms": {}, "err": {}, "bound": {},
+           "launches": {"K3": 0, "K6": 0, "K9": 0}, "step_ms": {},
+           "mlp_route_ms": {}, "mlp_route_step_ms": {}, "generic_ms": {}}
+
+    def launches():
+        return {"K2": cpl.plan_solve_launches, "K8": cpl.plan_fixed_launches,
+                "K5": cpl.plan_perlane_launches,
+                "K3": cpl.plan_adjoint_launches,
+                "K9": cpl.plan_fixed_adjoint_launches,
+                "K6": cpl.plan_perlane_adjoint_launches}
+
+    def flat(fn):
+        """A sweep's result flattened to tensors, the stats last."""
+        def call(*a, **k):
+            r = fn(*a, **k)
+            lane = list(r[4:5])
+            return (r[0], *r[1], r[2], *lane, r[3])
+        return call
+
+    def hold(call, plain, kernel, what, nan_ok=None):
+        """A recorded launch against its plain version, and run again."""
+        args, kw, got = call
+        got = flat(lambda *a, **k: got)()
+        err, plain_ms = _hold_to_plain((args, kw, got), flat(plain), what,
+                                       nan_ok)
+        again = flat(kernel)(*args, **kw)
+        masks = nan_ok or [None] * len(got)
+        if not all(_same(a, b, m) for a, b, m in zip(got, again, masks)):
+            raise AssertionError(f"{what}: two kernel runs differ")
+        return err, plain_ms
+
+    def failed_masks(call):
+        """A K6 sweep's NaN masks (`_same`) from its lane status: ay0's and
+        each per-sample constant's rows where the sample failed, the batch
+        sums (the shared constants' cotangents, at) if any sample did."""
+        plan, lane = call[0][0], call[2][4]
+        bad = lane[3] != 0
+        anyb = bad.any()
+        masks = [bad[:, None]]
+        for lay in plan.const_layouts:
+            masks.append(bad[None, :] if lay[0] in ("batch", "bvec")
+                         else anyb)
+        return masks + [anyb, None, None]
+
+    def params(p, dtype, n=4):
+        return tuple(p[k].to(dtype).clone().requires_grad_()
+                     for k in ("w1", "b1", "w2", "b2")[:n])
+
+    def sgd(q, loss):
+        grads = torch.autograd.grad(loss, q)
+        with torch.no_grad():
+            for x, g_ in zip(q, grads):
+                x -= SGD_LR * g_
+        return grads
+
+    def update(q, loss):
+        """A timed step's update, left unapplied: every timed step (and
+        each path it is compared with) runs at the same weights."""
+        grads = torch.autograd.grad(loss, q)
+        return [x.detach() - SGD_LR * g_ for x, g_ in zip(q, grads)]
+
+    def check(tag, q0, q, grads, want, fb, failed=False):
+        """The launches, no fallback, and the gradients: finite and the
+        weights moved, or, after a sweep that failed (`failed`: its status
+        not 0), every gradient NaN, as the front end's contract says."""
+        got = launches()
+        moved = max(float((a.detach() - b).abs().max())
+                    for a, b in zip(q, q0))
+        print(f"[{tag}] launches {got}; fallbacks {fast.fuse_fallbacks - fb}"
+              f"; weights moved {moved:.3e}", flush=True)
+        ok = (all(torch.isnan(g_).all() for g_ in grads) if failed else
+              moved > 0.0 and all(torch.isfinite(g_).all() for g_ in grads))
+        if any(got[k] != v for k, v in want.items()) \
+                or fast.fuse_fallbacks != fb or not ok:
+            raise AssertionError(f"[{tag}] launches {got}, want {want}; "
+                                 f"gradients as the sweep's status: {ok}")
+
+    t = torch.linspace(0.0, SPAN, T_OUT)
+
+    _at("33")
+    # [33] P1: the spiral training step (bench.py:842-895) on K2 + K3.
+    for dtype in (f32, f64):
+        p, y, _ = _bench_params(B, dtype, dev)
+        q = params(p, dtype)
+        q0 = [x.detach().clone() for x in q]
+        target = _bench_target(dtype, dev)
+        cpl.reset_launch_counts()
+        fb = fast.fuse_fallbacks
+        with _Recording(cpl, "plan_adjoint_solve") as r:
+            ys = odeint_adjoint(_spiral_params_func, y, t.to(dtype),
+                                params=q, rtol=TOL, atol=TOL,
+                                options={"fuse": True})
+            grads = sgd(q, torch.mean((ys - target) ** 2))
+        check(f"33 {dtype}", q0, q, grads, {"K2": 1, "K3": 1}, fb)
+        rec["launches"]["K3"] += 1
+        err, plain_ms = hold(r.calls[0], cpl.plan_adjoint_solve_plain,
+                             cpl.plan_adjoint_solve,
+                             f"[33] K15 in K3 {dtype}")
+        if dtype == f32:
+            rec["err"]["K3"], rec["plain_ms"]["K3"] = err, plain_ms
+            a3, k3, g3 = r.calls[0]
+            rec["k3_stats"] = g3[3].tolist()
+            rec["aug_flops"] = _plan_aug_flops(a3[0])
+            rec["n_consts"] = sum(x.numel() for x in a3[1])
+    rec["ms"]["K3"] = _timed(lambda: cpl.plan_adjoint_solve(*a3, **k3),
+                             reps=3)
+    # K3's MLP route on the same trajectory, cotangent and weights.
+    p, y, _ = _bench_params(B, f32, dev)
+    W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+    warr, dims = ck.pack_mlp_weights(W, f32, dev)
+    ys3, g3_, tau3, dt03 = a3[2], a3[3], a3[4], a3[5]
+    rec["mlp_route_ms"]["K3"] = _timed(lambda: ca.mlp_adjoint_solve(
+        warr, dims, ys3, g3_, tau3, dt03, TOL, TOL, 1.0, activation="tanh",
+        input_power=3), reps=3)
+    target = _bench_target(f32, dev)
+    q = params(p, f32)
+
+    def fused_step():
+        ys_ = odeint_adjoint(_spiral_params_func, y, t, params=q, rtol=TOL,
+                             atol=TOL, options={"fuse": True})
+        update(q, torch.mean((ys_ - target) ** 2))
+
+    Wm = [(x.clone().requires_grad_(), b.clone().requires_grad_())
+          for x, b in W]
+
+    def mlp_step():
+        ys_ = fast.odeint_adjoint_mlp(spec, Wm, y, t, rtol=TOL, atol=TOL)
+        update([x for pair in Wm for x in pair],
+            torch.mean((ys_ - target) ** 2))
+
+    def generic_step():
+        ys_ = odeint_adjoint(_spiral_params_func, y, t, params=q, rtol=TOL,
+                             atol=TOL)
+        update(q, torch.mean((ys_ - target) ** 2))
+
+    fused_step()
+    rec["step_ms"]["K3"] = _host_ms(fused_step)[0]
+    mlp_step()
+    rec["mlp_route_step_ms"]["K3"] = _host_ms(mlp_step)[0]
+    rec["generic_ms"]["K3"] = _host_ms(generic_step, reps=1)[0]
+    print(f"[33] {smi}: K15 in K3 {rec['ms']['K3']:.3f} ms a sweep (stats "
+          f"{rec['k3_stats']}) vs K3's MLP route "
+          f"{rec['mlp_route_ms']['K3']:.3f} ms on the same inputs; plain "
+          f"{rec['plain_ms']['K3']:.1f} ms. Step: fused "
+          f"{rec['step_ms']['K3']:.3f} ms (median of 3) vs odeint_adjoint_mlp "
+          f"{rec['mlp_route_step_ms']['K3']:.3f} ms vs the generic "
+          f"odeint_adjoint {rec['generic_ms']['K3']:.3f} ms (one step)",
+          flush=True)
+
+    _at("34")
+    # [34] P2: per-sample training of the stiffness battery
+    # (bench.py:483-535) on K5 + K6, in float32; then the spiral per sample
+    # at the bench protocol, where every sample finishes, in both types.
+    t5 = torch.linspace(0.0, STIFF_SPAN, STIFF_T)
+    p, y, _ = _bench_params(B, f32, dev)
+    battery_sc = torch.tensor(np.logspace(0.0, 2.0, B), dtype=f32,
+                              device=dev)
+    q = params(p, f32, 3)
+    q0 = [x.detach().clone() for x in q]
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    with _Recording(cpl, "plan_perlane_adjoint_solve") as r:
+        ys = odeint_adjoint(_battery_func(battery_sc), y, t5, params=q,
+                            rtol=TOL, atol=TOL,
+                            options={"fuse": True, "per_sample": True})
+        grads = sgd(q, torch.sum(ys ** 2))
+    a6, k6, g6 = r.calls[0]
+    bst, lane_st = g6[3], g6[4]
+    n_failed = int((lane_st[3] != 0).sum())
+    lane = lane_st[0].float()
+    print(f"[34] battery float32: backward stats {bst.tolist()}; the "
+          f"samples' backward nfe min {lane.min():.0f}, median "
+          f"{lane.median():.0f}, max {lane.max():.0f}; {n_failed} samples "
+          "ended with a status (their reverse-time sweep underflows dt: NaN "
+          "gradients)", flush=True)
+    check("34 battery float32", q0, q, grads, {"K5": 1, "K6": 1, "K3": 0},
+          fb, failed=int(bst[3]) != 0)
+    rec["launches"]["K6"] += 1
+    rec["err"]["K6"], rec["plain_ms"]["K6"] = hold(
+        r.calls[0], cpl.plan_perlane_adjoint_solve_plain,
+        cpl.plan_perlane_adjoint_solve, "[34] K15 in K6, battery float32",
+        failed_masks(r.calls[0]))
+    rec["k6_failed_samples"] = n_failed
+    rec["k6_nfe"] = int(bst[0])
+    rec["ms"]["K6"] = _timed(lambda: cpl.plan_perlane_adjoint_solve(
+        *a6, **k6), reps=3)
+    rec["k6_spiral"] = {}
+    for dtype in (f32, f64):
+        p, y, _ = _bench_params(B, dtype, dev)
+        q = params(p, dtype)
+        q0 = [x.detach().clone() for x in q]
+        target = _bench_target(dtype, dev)
+        cpl.reset_launch_counts()
+        fb = fast.fuse_fallbacks
+        with _Recording(cpl, "plan_perlane_adjoint_solve") as r:
+            ys = odeint_adjoint(_spiral_params_func, y, t.to(dtype),
+                                params=q, rtol=TOL, atol=TOL,
+                                options={"fuse": True, "per_sample": True})
+            grads = sgd(q, torch.mean((ys - target) ** 2))
+        check(f"34 spiral {dtype}", q0, q, grads,
+              {"K5": 1, "K6": 1, "K3": 0}, fb)
+        a_, k_, g_ = r.calls[0]
+        if int((g_[4][3] != 0).sum()) != 0:
+            raise AssertionError(f"[34] spiral {dtype}: a sample's backward "
+                                 f"sweep failed: stats {g_[3].tolist()}")
+        rec["launches"]["K6"] += 1
+        err, plain_ms = hold(r.calls[0],
+                             cpl.plan_perlane_adjoint_solve_plain,
+                             cpl.plan_perlane_adjoint_solve,
+                             f"[34] K15 in K6, spiral {dtype}")
+        rec["err"]["K6"] = max(rec["err"]["K6"], err)
+        if dtype == f32:
+            rec["k6_spiral"] = {
+                "nfe": int(g_[3][0]), "plain_ms": plain_ms,
+                "ms": _timed(lambda: cpl.plan_perlane_adjoint_solve(
+                    *a_, **k_), reps=3)}
+    p, y, _ = _bench_params(B, f32, dev)
+    q = params(p, f32, 3)
+
+    def battery_step(per_sample):
+        def step():
+            ys_ = odeint_adjoint(_battery_func(battery_sc), y, t5, params=q,
+                                 rtol=TOL, atol=TOL,
+                                 options={"fuse": True,
+                                          "per_sample": per_sample})
+            update(q, torch.sum(ys_ ** 2))
+        return step
+
+    battery_step(True)()
+    rec["step_ms"]["K6"] = _host_ms(battery_step(True))[0]
+    # The nearest route: the same battery under one shared controller
+    # (K2 + K3), what a controller a sample is measured against.
+    battery_step(False)()
+    rec["mlp_route_step_ms"]["K6"] = None
+    rec["shared_controller_step_ms"] = _host_ms(battery_step(False))[0]
+    rec["generic_ms"]["K6"] = None
+    sp = rec["k6_spiral"]
+    print(f"[34] {smi}: K15 in K6 {rec['ms']['K6']:.3f} ms a float32 "
+          f"battery sweep (the samples' nfe {rec['k6_nfe']}); plain "
+          f"{rec['plain_ms']['K6']:.1f} ms. The spiral per sample "
+          f"{sp['ms']:.3f} ms (nfe {sp['nfe']}); plain {sp['plain_ms']:.1f}"
+          f" ms. Battery step: per-sample {rec['step_ms']['K6']:.3f} ms vs "
+          f"the shared controller (K2 + K3) "
+          f"{rec['shared_controller_step_ms']:.3f} ms (medians of 3)",
+          flush=True)
+
+    _at("35")
+    # [35] P3: coupled training on K2's batch route and K3's batch-wide
+    # walk, cut at each coupling and its transpose.
+    tc = torch.linspace(0.0, PLAN_SPAN, PLAN_T)
+    rec["coupled"] = {}
+    for dtype in (f32, f64):
+        y = torch.tensor(np.random.RandomState(0).randn(PLAN_B, PLAN_D),
+                         dtype=dtype, device=dev)
+        tgt = torch.tensor(np.random.RandomState(1).randn(
+            PLAN_T, PLAN_B, PLAN_D), dtype=dtype, device=dev)
+        for name, f in _coupled_params_funcs().items():
+            w = torch.tensor(np.random.RandomState(0).randn(PLAN_D, PLAN_D)
+                             * 0.3, dtype=dtype, device=dev)
+            q = (w.requires_grad_(),)
+            q0 = [w.detach().clone()]
+            cpl.reset_launch_counts()
+            fb = fast.fuse_fallbacks
+            with _Recording(cpl, "plan_adjoint_solve") as r:
+                ys = odeint_adjoint(f, y, tc.to(dtype), params=q, rtol=TOL,
+                                    atol=1e-8, options={"fuse": True})
+                grads = sgd(q, torch.mean((ys - tgt) ** 2))
+            check(f"35 {name} {dtype}", q0, q, grads, {"K2": 1, "K3": 1},
+                  fb)
+            rec["launches"]["K3"] += 1
+            err, plain_ms = hold(r.calls[0], cpl.plan_adjoint_solve_plain,
+                                 cpl.plan_adjoint_solve,
+                                 f"[35] K15 {name} in K3 (batch-wide) "
+                                 f"{dtype}")
+            if dtype == f32:
+                a_, k_, g_ = r.calls[0]
+                ms = _timed(lambda: cpl.plan_adjoint_solve(*a_, **k_),
+                            reps=3)
+
+                def gen_step():
+                    ys_ = odeint_adjoint(f, y, tc, params=q, rtol=TOL,
+                                         atol=1e-8)
+                    update(q, torch.mean((ys_ - tgt) ** 2))
+
+                def fused_c():
+                    ys_ = odeint_adjoint(f, y, tc, params=q, rtol=TOL,
+                                         atol=1e-8, options={"fuse": True})
+                    update(q, torch.mean((ys_ - tgt) ** 2))
+
+                rec["coupled"][name] = {
+                    "ms": ms, "plain_ms": plain_ms,
+                    "nfe": int(g_[3][0]), "step_ms": _host_ms(fused_c)[0],
+                    "generic_step_ms": _host_ms(gen_step, reps=1)[0],
+                    "aug_flops": _plan_aug_flops(a_[0])}
+                rec["err"]["K3"] = max(rec["err"]["K3"], err)
+                c_ = rec["coupled"][name]
+                print(f"[35] {smi}: {name} K15 in K3 {ms:.3f} ms a sweep "
+                      f"(nfe {c_['nfe']}); plain {plain_ms:.1f} ms; step "
+                      f"{c_['step_ms']:.3f} ms vs the generic odeint_adjoint"
+                      f" {c_['generic_step_ms']:.3f} ms", flush=True)
+
+    _at("36")
+    # [36] P4: fixed-grid training, rk4 x 500 forward (K8) and 8 steps an
+    # interval backward (K9), [12]'s grid.
+    fx = dict(method="rk4", options={"fuse": True, "num_steps": 500},
+              adjoint_options={"num_steps": 8})
+    for dtype in (f32, f64):
+        p, y, _ = _bench_params(B, dtype, dev)
+        q = params(p, dtype)
+        q0 = [x.detach().clone() for x in q]
+        target = _bench_target(dtype, dev)
+        cpl.reset_launch_counts()
+        fb = fast.fuse_fallbacks
+        with _Recording(cpl, "plan_adjoint_solve_fixed") as r:
+            ys = odeint_adjoint(_spiral_params_func, y, t.to(dtype),
+                                params=q, **fx)
+            grads = sgd(q, torch.mean((ys - target) ** 2))
+        check(f"36 {dtype}", q0, q, grads, {"K8": 1, "K9": 1}, fb)
+        rec["launches"]["K9"] += 1
+        err, plain_ms = hold(r.calls[0], cpl.plan_adjoint_solve_fixed_plain,
+                             cpl.plan_adjoint_solve_fixed,
+                             f"[36] K15 in K9 {dtype}")
+        if dtype == f32:
+            rec["err"]["K9"], rec["plain_ms"]["K9"] = err, plain_ms
+            a9, k9, g9 = r.calls[0]
+            rec["k9_nfe"] = int(g9[3][0])
+    rec["ms"]["K9"] = _timed(lambda: cpl.plan_adjoint_solve_fixed(
+        *a9, **k9), reps=3)
+    p, y, _ = _bench_params(B, f32, dev)
+    rec["mlp_route_ms"]["K9"] = _timed(lambda: cf.mlp_adjoint_solve_fixed(
+        warr, dims, a9[2], a9[3], a9[4], 1.0, num_steps=8, method="rk4",
+        activation="tanh", input_power=3), reps=3)
+    q = params(p, f32)
+    target = _bench_target(f32, dev)
+
+    def fixed_step():
+        ys_ = odeint_adjoint(_spiral_params_func, y, t, params=q, **fx)
+        update(q, torch.mean((ys_ - target) ** 2))
+
+    Wm = [(x.clone().requires_grad_(), b.clone().requires_grad_())
+          for x, b in W]
+
+    def mlp_fixed_step():
+        ys_ = fast.odeint_adjoint_mlp(spec, Wm, y, t, method="rk4",
+                                      num_steps=500, adjoint_num_steps=8)
+        update([x for pair in Wm for x in pair],
+            torch.mean((ys_ - target) ** 2))
+
+    def generic_fixed_step():
+        ys_ = odeint_adjoint(_spiral_params_func, y, t, params=q,
+                             method="rk4", options={"num_steps": 500},
+                             adjoint_options={"num_steps": 8})
+        update(q, torch.mean((ys_ - target) ** 2))
+
+    fixed_step()
+    rec["step_ms"]["K9"] = _host_ms(fixed_step)[0]
+    mlp_fixed_step()
+    rec["mlp_route_step_ms"]["K9"] = _host_ms(mlp_fixed_step)[0]
+    rec["generic_ms"]["K9"] = _host_ms(generic_fixed_step, reps=1)[0]
+    print(f"[36] {smi}: K15 in K9 {rec['ms']['K9']:.3f} ms a sweep (nfe "
+          f"{rec['k9_nfe']}) vs K9's MLP route "
+          f"{rec['mlp_route_ms']['K9']:.3f} ms on the same inputs; plain "
+          f"{rec['plain_ms']['K9']:.1f} ms. Step: fused "
+          f"{rec['step_ms']['K9']:.3f} ms vs odeint_adjoint_mlp "
+          f"{rec['mlp_route_step_ms']['K9']:.3f} ms vs the generic "
+          f"odeint_adjoint {rec['generic_ms']['K9']:.3f} ms (one step)",
+          flush=True)
+
+    # Bounds: the evaluations of these runs' inputs.
+    af, nc = rec["aug_flops"], rec["n_consts"]
+    traj = 2 * T_OUT * B * D + B * D + 2 * nc + T_OUT
+    rec["bound"]["K3"] = _bound(B * rec["k3_stats"][0] * af, 4 * traj)
+    rec["bound"]["K6"] = _bound(rec["k6_nfe"] * af,
+                                4 * (2 * STIFF_T * B * D + B * D + 2 * nc
+                                     + 2 * B + STIFF_T))
+    rec["bound"]["K9"] = _bound(B * rec["k9_nfe"] * af, 4 * traj)
+    return rec
+
+
 def main() -> int:
     import time
     import torch
-    run_t0 = time.perf_counter()
+    run_t0 = _RUN_T0[0] = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
               "an NVIDIA card", file=sys.stderr)
@@ -1951,8 +2502,9 @@ def main() -> int:
     from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
     plan_pool = ThreadPoolExecutor(1)
     plan_pairs = _plan_pairs(dev)
-    plan_builds = plan_pool.submit(cpl.build, plan_pairs)
+    plan_builds = plan_pool.submit(cpl.build, plan_pairs + _aug_pairs(dev))
 
+    _at("3")
     # [3] K1 against its plain version (dt 0.3: a typical main-path step).
     spec = fast.MLPSpec(activation="tanh", input_power=3)
     k1_err = {}
@@ -1974,6 +2526,7 @@ def main() -> int:
                                  "version")
         k1_err[dtype] = max(errs)
 
+    _at("4")
     # [4] K2 against its plain version at the bench protocol.
     k2_err, k2_args, k2_st = {}, {}, {}
     for dtype in (f32, f64):
@@ -2008,6 +2561,7 @@ def main() -> int:
         k2_err[dtype] = err
         k2_st[dtype] = st.tolist()
 
+    _at("5")
     # [5] the slice through the public entry points.
     p, y, p_np = _bench_params(B, f32, dev)
     t = torch.linspace(0.0, SPAN, T_OUT)
@@ -2057,6 +2611,7 @@ def main() -> int:
     print("[5] B=96: whole, stepwise and generic agree within rtol 1e-3 / "
           "atol 2e-4", flush=True)
 
+    _at("6")
     # [6] timings (these launches are not counted above).
     p, y, _ = _bench_params(B, f32, dev)
     f0 = fast.mlp_apply(spec, [(p["w1"], p["b1"]), (p["w2"], p["b2"])], y)
@@ -2066,7 +2621,7 @@ def main() -> int:
         lambda: ck.dopri5_mlp_step_plain(p, y, f0, 0.3, TOL, TOL), inner=5)
     args, kw = k2_args[f32]
     solve_ms = _timed(lambda: ck.mlp_solve(*args, **kw))
-    solve_plain_ms = _timed(lambda: ck.mlp_solve_plain(*args, **kw))
+    solve_plain_ms = _plain_ms(lambda: ck.mlp_solve_plain(*args, **kw))
     print(f"[6] {smi}: K1 dopri5_mlp_step {step_ms:.4f} ms/call vs plain "
           f"{step_plain_ms:.4f} ms (B=4096, float32)", flush=True)
     print(f"[6] {smi}: K2 mlp_solve {solve_ms:.3f} ms/solve vs plain "
@@ -2074,6 +2629,7 @@ def main() -> int:
           f"{whole.stats.n_accepted + whole.stats.n_rejected} attempts)",
           flush=True)
 
+    _at("7")
     # [7] K3 against its plain version at the bench protocol.
     k3_err, k3_args = {}, {}
     for dtype in (f64, f32):
@@ -2117,13 +2673,14 @@ def main() -> int:
                             for a, b in zip(got[:3], ref[:3]))
     args, kw = k3_args[f32]
     adj_ms = _timed(lambda: ca.mlp_adjoint_solve(*args, **kw))
-    adj_plain_ms = _timed(lambda: ca.mlp_adjoint_solve_plain(*args, **kw),
-                          reps=2)
+    adj_plain_ms = _plain_ms(lambda: ca.mlp_adjoint_solve_plain(*args,
+                                                                **kw))
     bst = ca.mlp_adjoint_solve(*args, **kw)[3].tolist()
     print(f"[7] {smi}: K3 mlp_adjoint_solve {adj_ms:.3f} ms/sweep vs plain "
           f"{adj_plain_ms:.3f} ms (bench protocol, float32, "
           f"{bst[1] + bst[2]} attempts, nfe {bst[0]})", flush=True)
 
+    _at("8")
     # [8] spiral training at the bench protocol: SGD through the fused path.
     p, y, _ = _bench_params(B, f32, dev)
     W = [(p["w1"].clone().requires_grad_(), p["b1"].clone().requires_grad_()),
@@ -2193,6 +2750,7 @@ def main() -> int:
     if gap > 1e-3:
         raise AssertionError("fused and generic adjoint gradients differ")
 
+    _at("9")
     # [9] latent-ODE training with --fused decoding at the defaults.
     largs = lode.parse_args(["--fused"])
     _, samp, _, samp_ts = lode.generate_spirals(
@@ -2232,6 +2790,7 @@ def main() -> int:
     if not all(np.isfinite(losses)):
         raise AssertionError(f"latent-ODE losses {losses}")
 
+    _at("10")
     # [10] K8 against its plain version at the bench widths.
     t64 = {dtype: torch.linspace(0.0, SPAN, T_OUT, dtype=dtype)
            for dtype in (f32, f64)}
@@ -2276,6 +2835,7 @@ def main() -> int:
             k8_args[dtype] = (args, kw)
             k8_st[dtype] = st.tolist()
 
+    _at("11")
     # [11] the fixed-grid forward through the public entry point.
     p, y, p_np = _bench_params(B, f32, dev)
     W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
@@ -2311,6 +2871,7 @@ def main() -> int:
     if gap > 1e-5:
         raise AssertionError("K8 and the generic fixed-grid engine differ")
 
+    _at("12")
     # [12] K9 against its plain version at the bench training protocol.
     k9_err, k9_args, k9_st = {}, {}, {}
     for dtype in (f64, f32):
@@ -2349,20 +2910,21 @@ def main() -> int:
         k9_st[dtype] = got[3].tolist()
     args, kw = k8_args[f32]
     fixed_ms = _timed(lambda: cf.mlp_solve_fixed(*args, **kw))
-    fixed_plain_ms = _timed(lambda: cf.mlp_solve_fixed_plain(*args, **kw),
-                            reps=2)
+    fixed_plain_ms = _plain_ms(lambda: cf.mlp_solve_fixed_plain(*args,
+                                                                **kw))
     print(f"[12] {smi}: K8 mlp_solve_fixed {fixed_ms:.3f} ms/solve vs plain "
           f"{fixed_plain_ms:.3f} ms (bench widths, rk4, 500 steps, "
           "float32)", flush=True)
     args, kw = k9_args[f32]
     fadj_ms = _timed(lambda: cf.mlp_adjoint_solve_fixed(*args, **kw))
-    fadj_plain_ms = _timed(
-        lambda: cf.mlp_adjoint_solve_fixed_plain(*args, **kw), reps=2)
+    fadj_plain_ms = _plain_ms(
+        lambda: cf.mlp_adjoint_solve_fixed_plain(*args, **kw))
     print(f"[12] {smi}: K9 mlp_adjoint_solve_fixed {fadj_ms:.3f} ms/sweep "
           f"vs plain {fadj_plain_ms:.3f} ms (bench training protocol, rk4, "
           f"8 steps an interval, {8 * (T_OUT - 1)} steps, float32)",
           flush=True)
 
+    _at("13")
     # [13] ode_demo --fused --method rk4 at its defaults: RMSprop steps.
     dargs = demo.parse_args(["--fused", "--method", "rk4"])
     t_d, _, true_y = demo.true_trajectory(dargs, dev)
@@ -2419,6 +2981,7 @@ def main() -> int:
         raise AssertionError(f"ode_demo losses {demo_losses}, weight "
                              f"change {moved}")
 
+    _at("14")
     # [14] K13 at the ODE-Net's full width, on the stem's output.
     fallbacks = fast.conv_ode_fallbacks
     oargs = onet.parse_args(["--synthetic_hard", "--adjoint", "--fused"])
@@ -2484,7 +3047,7 @@ def main() -> int:
     if gap > 1e-2 or any(r.stats.status != 0 for r in gen):
         raise AssertionError("K13 and the generic engine differ")
     conv_ms = _timed(lambda: cc.conv_solve(*args, **kw))
-    conv_plain_ms = _timed(lambda: cc.conv_solve_plain(*args, **kw), reps=2)
+    conv_plain_ms = _plain_ms(lambda: cc.conv_solve_plain(*args, **kw))
     conv_generic_ms = _timed(generic_blocks, reps=2)
     args256, kw256 = k13_args[(onet.EVAL_BATCH, f32)][:2]
     conv256_ms = _timed(lambda: cc.conv_solve(*args256, **kw256))
@@ -2494,6 +3057,7 @@ def main() -> int:
           f" ms (float32, {int(k13_st[:, 1].sum() + k13_st[:, 2].sum())} "
           f"attempts over {k13_st.shape[0]} blocks)", flush=True)
 
+    _at("15")
     # [15] the ODE-Net example: --synthetic_hard --adjoint --fused steps.
     ometer = NFEMeter()
     model = onet.build_model(oargs, dev, nfe_meter=ometer)
@@ -2551,6 +3115,7 @@ def main() -> int:
           + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in top),
           flush=True)
 
+    _at("16")
     # [16] K5 at the bench protocol, every sample under its own controller.
     def perlane_inputs(Bn, dtype, span, n_out):
         p, y, _ = _bench_params(Bn, dtype, dev)
@@ -2638,8 +3203,8 @@ def main() -> int:
         raise AssertionError("K5 and the generic per-sample solve differ")
     args, kw = k5_args[f32]
     perlane_ms = _timed(lambda: cp.mlp_solve_perlane(*args, **kw))
-    perlane_plain_ms = _timed(lambda: cp.mlp_solve_perlane_plain(*args, **kw),
-                              reps=2)
+    perlane_plain_ms = _plain_ms(lambda: cp.mlp_solve_perlane_plain(
+        *args, **kw))
     k2_args32, k2_kw32 = k2_args[f32]
     shared_ms = _timed(lambda: ck.mlp_solve(*k2_args32, **k2_kw32))
     k5_st = cp.mlp_solve_perlane(*args, **kw)[1].tolist()
@@ -2648,6 +3213,7 @@ def main() -> int:
           f"{shared_ms:.3f} ms (bench protocol, float32; K5 nfe {k5_st[0]}, "
           f"{k5_st[1] + k5_st[2]} attempts over the samples)", flush=True)
 
+    _at("17")
     # [17] K6 at the bench training protocol with per_sample=True.
     k6_err, k6_args = {}, {}
     for dtype in (f64, f32):
@@ -2757,8 +3323,8 @@ def main() -> int:
                              "differ")
     args, kw = k6_args[f32]
     perlane_adj_ms = _timed(lambda: cp.mlp_perlane_adjoint_solve(*args, **kw))
-    perlane_adj_plain_ms = _timed(
-        lambda: cp.mlp_perlane_adjoint_solve_plain(*args, **kw), reps=2)
+    perlane_adj_plain_ms = _plain_ms(
+        lambda: cp.mlp_perlane_adjoint_solve_plain(*args, **kw))
     k3a, k3k = k3_args[f32]
     shared_adj_ms = _timed(lambda: ca.mlp_adjoint_solve(*k3a, **k3k), reps=3)
     k6_st = cp.mlp_perlane_adjoint_solve(*args, **kw)[3].tolist()
@@ -2773,6 +3339,7 @@ def main() -> int:
     adams = _adams_tier(smi, dev)
     plan = _plan_tier(smi, dev, plan_builds, plan_pairs)
     plan_pool.shutdown()
+    aug = _aug_tier(smi, dev)
 
     # Bounds: the operations and bytes of each timed run's inputs.
     mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
@@ -2951,6 +3518,30 @@ def main() -> int:
          "cnf_sample_auto_kernel_ms": plan["flow_kernel_ms"],
          "capture_ms": plan["capture_ms"],
          "cnf_sample_fused_ms": plan["flow_fused_ms"]},
+        {"name": "plan_aug", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/plan_aug.cuh",
+         "generated_by": "tfdiffeq_tpu_torch/ops/plan_codegen.py",
+         "replaces": "tfdiffeq_tpu/ops/plan_adjoint.py:154",
+         "launches": sum(aug["launches"].values()),
+         "launches_by_host": aug["launches"],
+         "max_abs_err": max(aug["err"].values()),
+         "max_abs_err_by_host": aug["err"],
+         "ms": aug["ms"]["K3"], "ms_by_host": aug["ms"],
+         "plain_ms": aug["plain_ms"]["K3"],
+         "plain_ms_by_host": aug["plain_ms"],
+         "bound_ms": aug["bound"]["K3"][0],
+         "bound_by": aug["bound"]["K3"][1],
+         "bound_ms_by_host": {h: b[0] for h, b in aug["bound"].items()},
+         "library_ms": None,
+         "generic_ms": aug["generic_ms"]["K3"],
+         "generic_ms_by_host": aug["generic_ms"],
+         "train_step_ms_by_host": aug["step_ms"],
+         "mlp_route_ms": aug["mlp_route_ms"],
+         "mlp_route_step_ms": aug["mlp_route_step_ms"],
+         "shared_controller_step_ms": aug["shared_controller_step_ms"],
+         "k6_failed_samples": aug["k6_failed_samples"],
+         "k6_spiral": aug["k6_spiral"],
+         "coupled_k3": aug["coupled"]},
     ]
     wide_ms = {"mlp_solve": wide["k2_highest"][0],
                "mlp_adjoint_solve": wide["K3_wide"],

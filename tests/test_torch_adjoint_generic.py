@@ -225,13 +225,30 @@ def _adams_trains():
     np.testing.assert_allclose(y0.grad.numpy(), np.exp(-1.0), rtol=1e-6)
 
 
+def _trains_with(options):
+    """odeint_adjoint with `options` (fuse, per_sample: once refused here,
+    ROADMAP item 16) trains without a fallback: d sum(y(1)) / dy0 of
+    dy/dt = -y is close to exp(-1) (tests/test_torch_fused_adjoint.py
+    holds the fused route to the reference's gradients)."""
+    def call():
+        before = PF.fuse_fallbacks
+        y0 = torch.ones(3, 2, dtype=torch.float64, requires_grad=True)
+        ys = P.odeint_adjoint(lambda t, y: -y, y0,
+                              torch.tensor([0.0, 1.0], dtype=torch.float64),
+                              options=options)
+        ys[-1].sum().backward()
+        np.testing.assert_allclose(y0.grad.numpy(), np.exp(-1.0),
+                                   rtol=1e-6)
+        assert PF.fuse_fallbacks == before
+    return call
+
+
 @pytest.mark.parametrize("call, exc, match", [
     (_generic_call(adjoint_mode="interpolated"), NotImplementedError,
      "item 3"),
-    (_generic_call(options={"fuse": True}), NotImplementedError, "item 16"),
+    (_trains_with({"fuse": True}), None, None),
     (_adams_trains, None, None),
-    (_generic_call(options={"per_sample": True}), NotImplementedError,
-     "item 16"),
+    (_trains_with({"per_sample": True}), None, None),
     # No adjoint kernel exists for the Adams family in either package.
     (_spec_call(adjoint_method="adams"), ValueError,
      "adjoint_method='adams'"),

@@ -228,8 +228,9 @@ def test_unfusable_dynamics_fall_back_and_count():
     (lambda f, y: PF.solve_fused(lambda t, v: v - v.mean(0), y, _t(T),
                                  per_sample=True),
      ValueError, "per_sample"),
-    (lambda f, y: odeint_adjoint(f, y, _t(T), options={"fuse": True}),
-     NotImplementedError, "K15"),
+    (lambda f, y: odeint_adjoint(lambda t, v: v - v.mean(0), y, _t(T),
+                                 method="rk4", options={"fuse": True}),
+     NotImplementedError, "coupled plans in K8"),
     (lambda f, y: solve(f, y, _t(T), options={"dot_precision": "mixed"}),
      ValueError, "requires the fused kernel"),
 ], ids=["dot_precision", "dense_output", "adams", "explicit_adams",

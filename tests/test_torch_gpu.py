@@ -1328,3 +1328,120 @@ def test_fused_entry_points_launch_and_never_fall_back(cuda, monkeypatch):
         fast.solve_fused(g, y, t)
     assert fast.fuse_fallbacks == before
     cpl.source.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# K15: the plan's reverse walk inside K3, K6 and K9 (ops/cuda_plan.py)
+# ---------------------------------------------------------------------------
+
+def _aug_case(name, dtype, device):
+    """A plan of `_plan_dyns` (or 'drive': a per-sample constant and a
+    learnable scalar), its forward trajectory from the plain solve and a
+    seeded output cotangent."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, plan_bridge as pb
+    B = 96
+    if name == "drive":
+        rng = np.random.RandomState(5)
+        W = torch.tensor(rng.randn(2, 8) * 0.4, dtype=dtype, device=device)
+        V = torch.tensor(rng.randn(8, 2) * 0.4, dtype=dtype, device=device)
+        DR = torch.tensor(rng.randn(B, 2) * 0.3, dtype=dtype, device=device)
+        k = torch.nn.Parameter(torch.tensor(0.4, dtype=dtype, device=device))
+        f = lambda t, y: torch.tanh(y @ W) @ V + DR * y - k * y * torch.sin(t)
+        y0 = torch.tensor(np.random.RandomState(1).randn(B, 2), dtype=dtype,
+                          device=device)
+        t = torch.linspace(0.0, 2.0, 7, dtype=dtype)
+        plan, consts = pb.build_plan(f, t[0].to(device), y0)
+        packed = pb.pack_consts(plan, consts, dtype, device)
+        g = cpl.plan_rhs(plan, packed, torch.tensor(1.0, dtype=dtype,
+                                                     device=device))
+        f0 = g(t[0].to(device), y0).contiguous()
+    else:
+        plan, packed, y0, t, g, f0 = _plan_case(name, dtype, device, B)
+    ys, st = cpl.plan_solve_plain(plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0,
+                                  f0)
+    assert int(st[3]) == 0
+    ct = torch.tensor(np.random.RandomState(2).randn(*ys.shape), dtype=dtype,
+                      device=device)
+    return plan, packed, ys.contiguous(), ct, t
+
+
+def _same_sweep(a, b):
+    flat = lambda r: [x for v in r for x in (v if isinstance(v, list)
+                                             else [v])]
+    return all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+
+
+@pytest.mark.parametrize("name", ["spiral", "concat_t_gelu",
+                                  "gated_sigmoid", "ops", "drive",
+                                  "meanfield", "scalar_coupled", "bmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plan_adjoint_hosts_match_plain(cuda, dtype, name):
+    """K15 in K3 (coupled plans batch-wide), K6 and K9: bitwise equal to
+    the plain sweeps with `aug_terms` on the card, identical stats, and
+    run to run; each sweep moves its launch counter by one."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    cpl.reset_launch_counts()
+    plan, packed, ys, ct, t = _aug_case(name, dtype, cuda)
+    args = (plan, packed, ys, ct, t, 0.05, 1e-6, 1e-6, 1.0)
+    got = cpl.plan_adjoint_solve(*args)
+    assert _same_sweep(got, cpl.plan_adjoint_solve(*args))
+    ref = cpl.plan_adjoint_solve_plain(*args)
+    assert _same_sweep(got, ref), (got[3].tolist(), ref[3].tolist())
+    assert got[3][3].item() == 0
+    if plan.batch_coupled:
+        assert cpl.plan_adjoint_launches == 2
+        return
+    got = cpl.plan_perlane_adjoint_solve(*args)
+    assert _same_sweep(got, cpl.plan_perlane_adjoint_solve_plain(*args))
+    got = cpl.plan_adjoint_solve_fixed(plan, packed, ys, ct, t, 1.0,
+                                       num_steps=4)
+    assert _same_sweep(got, cpl.plan_adjoint_solve_fixed_plain(
+        plan, packed, ys, ct, t, 1.0, num_steps=4))
+    assert (cpl.plan_adjoint_launches, cpl.plan_perlane_adjoint_launches,
+            cpl.plan_fixed_adjoint_launches) == (2, 1, 1)
+
+
+def test_fused_training_launches_and_never_falls_back(cuda, monkeypatch):
+    """fast.odeint_adjoint_fused and odeint_adjoint(options={'fuse': True})
+    on the card: one plan forward and one K15 sweep a step (K2 + K3, K8 +
+    K9, K5 + K6), no plain sweep reached, no fallback counted, gradients
+    within the sweep's bar of the MLP route's K3 on the same function."""
+    from tfdiffeq_tpu_torch import odeint_adjoint
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+
+    def never(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for name in ("adjoint_sweep_plain", "perlane_adjoint_plain",
+                 "fixed_adjoint_plain", "adaptive_solve_plain",
+                 "fixed_solve_plain", "perlane_solve_plain"):
+        monkeypatch.setattr(cpl, name, never)
+    cpl.reset_launch_counts()
+    before = fast.fuse_fallbacks
+    p, y = _bench(256, torch.float32, cuda)
+    W = [(p["w1"].clone().requires_grad_(), p["b1"].clone().requires_grad_()),
+         (p["w2"].clone().requires_grad_(), p["b2"].clone().requires_grad_())]
+    t = torch.linspace(0.0, 5.0, 12)
+
+    def f(tt, yy, q):
+        return torch.tanh((yy ** 3) @ q[0][0] + q[0][1]) @ q[1][0] + q[1][1]
+
+    ys = fast.odeint_adjoint_fused(f, y, t, params=W, rtol=1e-6, atol=1e-6,
+                                   first_step=0.01, adjoint_first_step=0.05)
+    got = torch.autograd.grad(torch.mean(ys ** 2), [x for l in W for x in l])
+    ys = fast.odeint_adjoint_mlp(fast.MLPSpec(input_power=3), W, y, t,
+                                 rtol=1e-6, atol=1e-6, first_step=0.01,
+                                 adjoint_first_step=0.05)
+    ref = torch.autograd.grad(torch.mean(ys ** 2), [x for l in W for x in l])
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    assert (cpl.plan_solve_launches, cpl.plan_adjoint_launches) == (1, 1)
+    for method, opts in (("rk4", {"num_steps": 40}),
+                         ("dopri5", {"per_sample": True})):
+        ys = odeint_adjoint(f, y, t, params=W, rtol=1e-6, atol=1e-6,
+                            method=method, options={"fuse": True, **opts})
+        torch.mean(ys ** 2).backward()
+    assert (cpl.plan_fixed_launches, cpl.plan_fixed_adjoint_launches,
+            cpl.plan_perlane_launches,
+            cpl.plan_perlane_adjoint_launches) == (1, 1, 1, 1)
+    assert fast.fuse_fallbacks == before

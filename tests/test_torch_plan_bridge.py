@@ -2,9 +2,10 @@
 plain version (`eval_plan`) against the JAX package's jaxpr bridge.
 
 Each dynamics is written once in PyTorch and once in jax.numpy over the
-same numpy arrays (tests/test_fuse.py:23-73's set, the round-half-even,
-feature-flip, trig and inverse-hyperbolic cases of tests/test_fuse.py:448-
-582, its B = 1 edge plans, and the batch couplings of
+same numpy arrays (tests/test_fuse.py:23-73's set, the training families
+of tests/test_plan_adjoint.py:64-80 with their tied and computed weights,
+the round-half-even, feature-flip, trig and inverse-hyperbolic cases of
+tests/test_fuse.py:448-582, its B = 1 edge plans, and the couplings of
 tests/test_meanfield.py). One evaluation of the port's plan is held
 - against the PyTorch function itself, and
 - against the reference's `eval_plan_xla` on the reference's own plan,
@@ -94,6 +95,9 @@ def _dyn(xp, dtype):
     def ysum(y, axis):
         return y.sum(axis) if tor else jnp.sum(y, axis=axis)
 
+    def tr(w):
+        return w.t() if tor else w.T
+
     def reshape1(t):
         return t.reshape(1) if tor else jnp.reshape(t, (1,))
 
@@ -108,6 +112,9 @@ def _dyn(xp, dtype):
                     Y0),
         "gelu_exact": (lambda t, y: gelu(y @ K["W1"] + K["B1"]) @ K["W2"],
                        Y0),
+        "tied": (lambda t, y: xp.tanh(y @ K["W1"]) @ tr(K["W1"]) * 0.5, Y0),
+        "computed_bias": (lambda t, y: xp.tanh(y @ K["W1"] + 2.0 * K["B1"])
+                          @ K["W2"] - 0.1 * y, Y0),
         "erf": (lambda t, y: erf(y), Y0),
         "round_half_even": (lambda t, y: xp.round(y) - 0.1 * y, YR),
         "flip": (lambda t, y: flip1(y) * xp.exp(-0.1 * y), Y0),
@@ -119,6 +126,8 @@ def _dyn(xp, dtype):
         "scalar_coupled": (lambda t, y: xp.tanh(y @ K["WF"])
                            - 0.1 * mean(y ** 2) * y, Y3),
         "bmax": (lambda t, y: y - amax(y, 0), Y3),
+        "bmax_tanh": (lambda t, y: xp.tanh(y @ K["WF"])
+                      - 0.3 * (y - amax(y, 0)), Y3),
         "bmin": (lambda t, y: y - amax(y, 0, mn=True), Y3),
         "b1_mean_exp": (lambda t, y: -y * mean(xp.exp(y)), Y1),
         "b1_sum": (lambda t, y: y * 0.1 + 0.1 * ysum(y, 0), Y1),
@@ -151,7 +160,7 @@ def test_eval_plan_matches_function_and_reference(name, dtype):
     assert got.shape == want.shape and got.dtype == dtype
     assert _rel(got, want) <= TOL[dtype], (name, _rel(got, want))
     assert plan.batch_coupled == (name in ("meanfield", "scalar_coupled",
-                                           "bmax", "bmin"))
+                                           "bmax", "bmin", "bmax_tanh"))
 
     # The reference's own plan on the same numbers.
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64

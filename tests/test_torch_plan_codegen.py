@@ -13,6 +13,13 @@ differ in their last bits, while a codegen fault (a wrong row, operand or
 op) shows as an O(1) gap. Generation is deterministic, and the source
 depends on neither the batch size nor the constants' values.
 
+The reverse walk (K15, `plan_codegen.host_aug_source`: the code that runs
+inside K3, K6 and K9) is held the same way against `plan_adjoint.
+aug_terms` on every plan the walk takes: f, v_y, every shared
+quadrature's per-sample term (`quad_x`), v_t and the per-sample
+constants' cotangents (`sample_x`), each meet in the order of a K3 block
+of 512 threads, within the same bars.
+
 Skipped only where no host C++ compiler is found.
 """
 
@@ -25,8 +32,10 @@ import numpy as np
 import pytest
 import torch
 
+from tfdiffeq_tpu_torch.ops import plan_adjoint as PA
 from tfdiffeq_tpu_torch.ops import plan_bridge as PB
 from tfdiffeq_tpu_torch.ops import plan_codegen as PC
+from tfdiffeq_tpu_torch.ops.cuda_adjoint import ADJOINT_THREADS
 from tfdiffeq_tpu_torch.ops.cuda_kernels import SOLVE_THREADS
 
 from test_torch_plan_bridge import NAMES, T0, _dyn
@@ -48,16 +57,17 @@ def _plan(name, dtype):
     return plan, PB.pack_consts(plan, consts, dtype), t, y
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    """Every plan of the set compiled as host C++, all compilers started
-    together: {name: ctypes library}."""
-    d = tmp_path_factory.mktemp("plans")
+#: The plans the reverse walk takes (a full feature reduction it refuses).
+AUG_NAMES = [n for n in NAMES if n != "b1_mean_exp"]
+
+
+def _compile_all(d, sources):
+    """{name: ctypes library} of host C++ sources, all compilers started
+    together."""
     jobs = {}
-    for name in NAMES:
-        plan = _plan(name, torch.float64)[0]
+    for name, src in sources.items():
         cpp, so = d / f"{name}.cpp", d / f"{name}.so"
-        cpp.write_text(SHIM + PC.host_source(plan, SOLVE_THREADS))
+        cpp.write_text(SHIM + src)
         jobs[name] = (so, subprocess.Popen(
             [CXX, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", CSRC, "-o",
              str(so), str(cpp)], stdout=subprocess.PIPE,
@@ -68,6 +78,23 @@ def libs(tmp_path_factory):
         assert proc.returncode == 0, f"{name}:\n{log}"
         out[name] = ctypes.CDLL(str(so))
     return out
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """Every plan of the set compiled as host C++."""
+    return _compile_all(tmp_path_factory.mktemp("plans"), {
+        name: PC.host_source(_plan(name, torch.float64)[0], SOLVE_THREADS)
+        for name in NAMES})
+
+
+@pytest.fixture(scope="module")
+def aug_libs(tmp_path_factory):
+    """Every reverse walk of the set compiled as host C++."""
+    return _compile_all(tmp_path_factory.mktemp("augs"), {
+        name: PC.host_aug_source(_plan(name, torch.float64)[0],
+                                 ADJOINT_THREADS)
+        for name in AUG_NAMES})
 
 
 def _ptr(x):
@@ -124,4 +151,67 @@ def test_source_depends_on_structure_alone(host):
         assert "kSegments = 2" in PC.cuda_source(coupled, host)
     else:
         with pytest.raises(ValueError, match="'solve' host only"):
+            PC.cuda_source(coupled, host)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", AUG_NAMES)
+def test_generated_reverse_walk_matches_aug_terms(aug_libs, name, dtype):
+    plan, packed, t, y = _plan(name, dtype)
+    B = y.shape[0]
+    ay = torch.tensor(np.random.RandomState(3).randn(B, plan.out_rows),
+                      dtype=dtype)
+    want = PA.aug_terms(plan, packed, t, y.t().contiguous(),
+                        ay.t().contiguous())
+    lay = PC.aug_layout(plan)
+    nq = lay.n_quad + lay.time_input
+    buf = lambda n: torch.zeros(max(1, n), dtype=dtype)
+    f, vy = buf(B * plan.out_rows), buf(B * plan.dim)
+    xq, xs = buf(nq * B), buf(lay.n_sample * B)
+    live, red, qr = (buf(lay.live_rows * B), buf(lay.red_values),
+                     buf(lay.q_rows * B))
+    c, sc = PC.flat_consts(plan, packed, B)
+    suffix, ct = (("f32", ctypes.c_float) if dtype == torch.float32
+                  else ("f64", ctypes.c_double))
+    fn = getattr(aug_libs[name], f"aug_eval_{suffix}")
+    fn.argtypes = [ct] + [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 7
+    fn.restype = None
+    fn(float(t), _ptr(y.contiguous()), _ptr(ay), _ptr(c), _ptr(sc), B,
+       _ptr(f), _ptr(vy), _ptr(xq), _ptr(xs), _ptr(live), _ptr(red),
+       _ptr(qr))
+    got = [f.view(B, -1).t(), vy.view(B, -1).t(),
+           xq[:lay.n_quad * B].view(-1, B), xs[:lay.n_sample * B].view(-1, B),
+           xq[lay.n_quad * B:nq * B].view(-1, B)]
+    wants = list(want[:4]) + [want[4] if lay.time_input
+                              else want[4][:0]]
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    for i, (a, b) in enumerate(zip(got, wants)):
+        assert a.shape == b.shape, (name, i)
+        if b.numel():
+            rel = float((a - b).abs().max()
+                        / b.abs().max().clamp_min(1e-30))
+            assert rel <= tol, (name, i, rel)
+    assert lay.segments == 1 + 2 * sum(ins[0] in ("bsum", "bmax")
+                                       for ins in plan.instrs)
+
+
+def test_reverse_walk_source_depends_on_structure_alone():
+    a1 = torch.tensor(np.random.RandomState(0).randn(2, 16))
+    a2 = torch.tensor(np.random.RandomState(1).randn(2, 16))
+    b2 = torch.tensor(np.random.RandomState(2).randn(16, 2))
+
+    def f(a):
+        return lambda t, y: torch.tanh(y @ a + t) @ b2
+
+    p8, _ = PB.build_plan(f(a1), 0.0, torch.randn(8, 2, dtype=torch.float64))
+    p12, _ = PB.build_plan(f(a2), 0.0,
+                           torch.randn(12, 2, dtype=torch.float64))
+    for host in PC.AUG_HOSTS:
+        assert PC.cuda_source(p8, host) == PC.cuda_source(p12, host)
+    coupled = _plan("meanfield", torch.float64)[0]
+    assert "kSegments = 3" in PC.cuda_source(coupled, "adjoint")
+    for host in ("perlane_adjoint", "fixed_adjoint"):
+        with pytest.raises(ValueError, match="'adjoint' host only"):
             PC.cuda_source(coupled, host)

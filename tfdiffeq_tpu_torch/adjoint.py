@@ -25,10 +25,21 @@ step, when absent), or, given `adjoint_options={'step_size': h}`, walks
 ceil(span_i / h) steps over each interval in one chained sweep
 (`_bwd_fixed_grid_walk`). Adaptive adjoint methods ignore `step_size`.
 
+`options={'fuse': True}` follows the reference's tiers
+(`tfdiffeq_tpu/adjoint.py:300-410`). Tier 1, when the options map onto the
+kernels: `fast.odeint_adjoint_fused`, the forward one launch with the
+plan's right-hand side (K14) and the backward one sweep with its reverse
+walk (K15); a tuple or dict state rides it through
+`fast.tree_state_parts`, and `per_sample` gives every sample its own
+controller in both sweeps. Dynamics outside the fused adjoint's subset (a
+FusionError) warn, add 1 to `fast.fuse_fallbacks` and fall to tier 2: the
+fused forward (`odeint(options={'fuse': True})`, itself counted when it
+falls back) with the generic backward; with `per_sample`, the generic
+adjoint a sample at a time instead (the reference's vmap). Without `fuse`,
+`per_sample` reaches the forward solve only.
+
 Not ported yet (NotImplementedError naming the ROADMAP queue 1 item):
-`adjoint_mode='interpolated'` (needs `dense_output`, item 3), and
-`options={'fuse': True}` and `options={'per_sample': True}` (item 16: the
-reference trains per sample only through its fused tier).
+`adjoint_mode='interpolated'` (needs `dense_output`, item 3).
 """
 
 from __future__ import annotations
@@ -82,24 +93,19 @@ def _kind(method) -> str:
     return SOLVERS.get(method, ("",))[0]
 
 
-def _check_methods(method, adjoint_method, options: dict) -> None:
+def _check_methods(method, adjoint_method) -> None:
     for m in (method, adjoint_method):
         if m in _NOT_PORTED_METHODS:
             raise NotImplementedError(
                 f"method {m!r} is not ported to PyTorch yet: ROADMAP.md "
                 f"{_NOT_PORTED_METHODS[m]}")
-    for key in ("fuse", "per_sample"):
-        if options.get(key):
-            # The reference routes per_sample training only through its
-            # fused tier (adjoint.py:306-390), whose backward sweep walks
-            # the plan in reverse (K15, plan_adjoint.py:154).
-            raise NotImplementedError(
-                f"odeint_adjoint(options={{{key!r}: True}}) is not ported "
-                "yet: ROADMAP.md queue 1 item 16 (K15, the plan's "
-                "reverse-mode walk, with odeint_adjoint_fused; the forward "
-                "half, fast.solve_fused and odeint(options={'fuse': True}), "
-                "is ported); fast.odeint_adjoint_mlp(per_sample=True) "
-                "trains MLP dynamics per sample")
+
+
+#: Options tier 1 of `fuse` carries to the fused kernels (reference
+#: adjoint.py:306-307).
+_FULL_FUSE_OPTS = frozenset({"first_step", "max_num_steps", "loop",
+                             "per_sample"})
+_FULL_FUSE_FIXED_OPTS = frozenset({"num_steps", "step_size"})
 
 
 class _Adjoint(torch.autograd.Function):
@@ -290,7 +296,10 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     fwd_options = dict(options or {})
     bwd_options = dict(adjoint_options if adjoint_options is not None
                        else fwd_options)
-    _check_methods(method, adjoint_method, fwd_options)
+    _check_methods(method, adjoint_method)
+    use_fuse = bool(fwd_options.get("fuse", False))
+    per_sample = bool(fwd_options.get("per_sample", False))
+    bwd_options.pop("per_sample", None)
     if (fwd_options.get("dot_precision", "highest") != "highest"
             or bwd_options.get("dot_precision", "highest") != "highest"):
         # Reduced-precision tiers are serving-only: training would
@@ -302,6 +311,9 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     for o in (fwd_options, bwd_options):
         o.pop("dot_precision", None)
         o.pop("fuse", None)
+    if use_fuse:
+        # Tier 2's forward is the fused solve (`odeint`'s own fallback).
+        fwd_options["fuse"] = True
     if adjoint_mode not in ("resets", "interpolated"):
         raise ValueError(f"adjoint_mode must be 'resets' or 'interpolated',"
                          f" got {adjoint_mode!r}")
@@ -343,6 +355,14 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
                                       ADAPTIVE_OPTIONS - {"telemetry",
                                                           "dense_output"})
     bwd_options = {k: v for k, v in bwd_options.items() if k in allowed}
+
+    if use_fuse and forward_solver is None:
+        out = _fused_tiers(func, params, y0, t, rtol, atol, method,
+                           adjoint_rtol, adjoint_atol, adjoint_method,
+                           adjoint_seminorm, fwd_options, bwd_options, walk,
+                           per_sample, return_stats, nfe_meter)
+        if out is not None:
+            return out
 
     # Parameters: an explicit nest, a module's own, or none.
     if params is not None:
@@ -405,4 +425,106 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
         ys = unravel(ys)
     if return_stats:
         return ys, cfg["stats"]
+    return ys
+
+
+def _fused_tiers(func, params, y0, t, rtol, atol, method,
+                 adjoint_rtol, adjoint_atol, adjoint_method,
+                 adjoint_seminorm, fwd_options, bwd_options, walk,
+                 per_sample, return_stats, nfe_meter):
+    """`options={'fuse': True}`'s tier 1 (`fast.odeint_adjoint_fused`), or
+    with per_sample and unfusable dynamics the generic adjoint a sample at
+    a time; None sends the caller on to tier 2 (the fused forward with the
+    generic backward)."""
+    import warnings
+
+    from . import fast
+    from .ops.plan_bridge import FusionError
+
+    fwd = {k: v for k, v in fwd_options.items() if k != "fuse"}
+    kinds_ok = (_kind(method) in ("adaptive", "fixed")
+                and _kind(adjoint_method) in ("adaptive", "fixed"))
+    fwd_allowed = (_FULL_FUSE_OPTS if _kind(method) == "adaptive"
+                   else _FULL_FUSE_FIXED_OPTS)
+    bwd_allowed = (_FULL_FUSE_OPTS if _kind(adjoint_method) == "adaptive"
+                   else _FULL_FUSE_FIXED_OPTS)
+    # Options tier 1 would otherwise change: a fixed adjoint's step_size
+    # walk, or a backward max_num_steps other than the forward's (the fused
+    # front end carries one budget for both sweeps).
+    faithful = (walk is None and bwd_options.get(
+        "max_num_steps", fwd.get("max_num_steps"))
+        == fwd.get("max_num_steps"))
+    scalar_tols = all(isinstance(x, (int, float)) or (
+        isinstance(x, Tensor) and x.ndim == 0)
+        for x in (rtol, atol, adjoint_rtol, adjoint_atol))
+    if not (kinds_ok and faithful and scalar_tols
+            and not set(fwd) - fwd_allowed
+            and not set(bwd_options) - bwd_allowed):
+        return None
+    if params is not None:
+        def user(tt, yy, pp):
+            return func(tt, yy, pp)
+    else:
+        def user(tt, yy, pp):
+            return func(tt, yy)
+    try:
+        f3, y0f, rebuild = user, y0, None
+        parts = fast.tree_state_parts(y0)
+        if parts is not None:
+            y0f, to_bd, from_bd, rebuild = parts
+
+            def f3(tt, yy, pp):
+                return to_bd(user(tt, from_bd(yy), pp))
+        out = fast.odeint_adjoint_fused(
+            f3, y0f, t, params=params if params is not None else (),
+            rtol=rtol, atol=atol, adjoint_rtol=adjoint_rtol,
+            adjoint_atol=adjoint_atol, method=method,
+            adjoint_method=adjoint_method,
+            adjoint_seminorm=adjoint_seminorm,
+            max_num_steps=fwd.get("max_num_steps"),
+            first_step=fwd.get("first_step"),
+            adjoint_first_step=bwd_options.get("first_step"),
+            num_steps=fwd.get("num_steps"), step_size=fwd.get("step_size"),
+            adjoint_num_steps=bwd_options.get("num_steps"),
+            nfe_meter=nfe_meter, return_stats=return_stats,
+            per_sample=per_sample)
+        if rebuild is not None:
+            out = ((rebuild(out[0]),) + tuple(out[1:]) if return_stats
+                   else rebuild(out))
+        return out
+    except FusionError as e:
+        fast.fuse_fallbacks += 1
+        if not per_sample:
+            warnings.warn(
+                "odeint_adjoint(options={'fuse': True}): full two-kernel "
+                f"fusion unavailable — {e}; using a fused forward with the "
+                "generic backward", stacklevel=3)
+            return None
+        warnings.warn(
+            "odeint_adjoint(options={'fuse': True, 'per_sample': True}): "
+            f"per-sample fusion unavailable — {e}; running the generic "
+            "adjoint a sample at a time", stacklevel=3)
+    # Per-sample semantics survive the fallback: every sample its own
+    # generic solve in both sweeps (the reference's vmap, adjoint.py:365).
+    if not (isinstance(y0, Tensor) and y0.ndim == 2):
+        raise ValueError("options={'per_sample': True} needs a [B, D] "
+                         "tensor state")
+    opts = {k: v for k, v in fwd.items() if k not in ("per_sample",)}
+    bopts = {k: v for k, v in bwd_options.items() if k != "per_sample"}
+    outs = [odeint_adjoint(func, y0[b:b + 1], t, params=params, rtol=rtol,
+                           atol=atol, method=method, options=opts or None,
+                           adjoint_rtol=adjoint_rtol,
+                           adjoint_atol=adjoint_atol,
+                           adjoint_method=adjoint_method,
+                           adjoint_options=bopts,
+                           adjoint_seminorm=adjoint_seminorm,
+                           return_stats=True, nfe_meter=nfe_meter)
+            for b in range(y0.shape[0])]
+    ys = torch.cat([o[0] for o in outs], dim=1)
+    if return_stats:
+        st = [o[1] for o in outs]
+        return ys, SolverStats(sum(x.nfe for x in st),
+                               sum(x.n_accepted for x in st),
+                               sum(x.n_rejected for x in st),
+                               max(x.status for x in st))
     return ys

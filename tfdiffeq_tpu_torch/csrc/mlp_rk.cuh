@@ -325,8 +325,8 @@ __device__ T block_sum(T v, T* red) {
 }
 
 // ---------------------------------------------------------------------------
-// The adjoint sweeps that give each sample one thread (fixed_adjoint_kernel.cu
-// K9, perlane_adjoint_kernel.cu K6). Their per-sample state lives in a device
+// The adjoint sweeps that give each sample one thread (K9 and K6, whose
+// engines are in rk_adjoint.cuh). Their per-sample state lives in a device
 // workspace of feature-major rows of B values: sample b's value of row r is
 // at r * B + b, so a warp touches 32 consecutive values.
 // ---------------------------------------------------------------------------
@@ -499,6 +499,76 @@ __host__ __device__ inline long aug_rows_count(const Net& net) {
   long rows = 0;
   for (int l = 0; l < net.n_layers; ++l) rows += net.din[l] + net.dout[l];
   return rows;
+}
+
+// K6's and K9's MLP right-hand side (csrc/rk_adjoint.cuh's Aug, one sample
+// a thread): aug_stage on the narrow or wide route, its rows H [n_h][B]
+// and G [n_z][B].
+template <typename T, int kRoute>
+struct MlpLaneAug {
+  static constexpr bool kBatch = false;
+  const T* wg;     // packed weights (pack_mlp_weights)
+  int n_w, ti, n_ps;
+  int n_h;
+  Net net_in;
+  AugRows rows_in;
+
+  struct Shared {
+    Net net;
+    AugRows rows;
+  };
+  // The per-thread vectors of one sample; the weights' pointer stays out
+  // of this struct, where a store through them could alias it.
+  struct Local {
+    T ya[vec_width<kRoute>()], aya[vec_width<kRoute>()];
+    T buf_a[vec_width<kRoute>()], buf_b[vec_width<kRoute>()];
+  };
+
+  __device__ __forceinline__ const T* weights() const {
+    if constexpr (kRoute == kRouteNarrow) {
+      extern __shared__ __align__(16) unsigned char smem_raw[];
+      return reinterpret_cast<const T*>(smem_raw);
+    } else {
+      return wg;
+    }
+  }
+  __device__ T* setup(Shared& sh, Local&, unsigned char* smem) const {
+    if (threadIdx.x == 0) {
+      sh.net = net_in;
+      sh.rows = rows_in;
+    }
+    if constexpr (kRoute == kRouteNarrow) {
+      T* ws = reinterpret_cast<T*>(smem);
+      for (int i = threadIdx.x; i < n_w; i += blockDim.x) ws[i] = wg[i];
+      return ws + n_w;
+    } else {
+      return reinterpret_cast<T*>(smem);
+    }
+  }
+  __device__ T* ya(Local& lo) const { return lo.ya; }
+  __device__ T* aya(Local& lo) const { return lo.aya; }
+  __device__ void lane_stage(const Shared& sh, Local& lo, T t, int b, int B,
+                             T sf, T* ky, T* kay, T* STEP, T hb, bool add,
+                             bool first, T* rw) const {
+    aug_stage(sh.net, sh.rows, weights(), t, lo.ya, lo.aya, lo.buf_a,
+              lo.buf_b, rw, rw + long(n_h) * B, ky, kay, STEP, B, b, sf, hb,
+              add, first);
+  }
+};
+
+template <typename T, int kRoute>
+MlpLaneAug<T, kRoute> make_mlp_lane_aug(const void* weights, int n_w,
+                                        const Net& net) {
+  MlpLaneAug<T, kRoute> aug;
+  aug.wg = static_cast<const T*>(weights);
+  aug.n_w = n_w;
+  aug.ti = net.time_input;
+  aug.n_ps = 0;
+  aug.n_h = 0;
+  for (int l = 0; l < net.n_layers; ++l) aug.n_h += net.din[l];
+  aug.net_in = net;
+  aug.rows_in = make_aug_rows(net);
+  return aug;
 }
 
 // The batch sums of the per-sample quadratures: the block sums in

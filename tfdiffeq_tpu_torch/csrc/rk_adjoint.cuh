@@ -1,0 +1,879 @@
+// The engines of the adjoint sweeps, templated on their augmented
+// right-hand side: K3 (one step controller shared by the batch), K6 (one a
+// sample) and K9 (a fixed grid).
+//
+// Replaces the engines of tfdiffeq_tpu/ops/pallas_adjoint.py:430
+// (_make_adjoint_kernel), :681 (_make_perlane_adjoint_kernel) and
+// tfdiffeq_tpu/ops/pallas_fixed.py:726 (_make_fixed_adjoint_kernel). In
+// sigma = -tau, which increases on every backward interval, each integrates
+//
+//     dy/dsigma   = -sign f(y),     da_y/dsigma = sign (df/dy)^T a_y,
+//     da_q/dsigma = sign (df/dq)^T a_y  (each quadrature q),
+//
+// over the observation intervals in reverse: y is reset to the stored
+// forward state ys[i] and g[i] is added into a_y at each interval start;
+// ay0 = a_y + g[0] at the end. The quadratures are of two kinds: shared
+// ones, summed over the batch (the parameters' cotangents, then a_t when
+// the dynamics read the time), and per-sample ones (a per-sample
+// constant's cotangent: K15's 'batch' and 'bvec' constants), integrated a
+// sample each. Each engine's own comment says how it steps; the stage
+// states, combines, Kahan updates, controller and status rules are the
+// reference's, as before this file existed (csrc/adjoint_kernel.cu,
+// perlane_adjoint_kernel.cu and fixed_adjoint_kernel.cu hold the MLP and
+// CNF right-hand sides, csrc/plan_aug.cuh K15's).
+//
+// The augmented right-hand side `Aug` provides
+//   Shared, Local           block-shared and per-thread state;
+//   setup(sh, lo, smem)     copies what it keeps in shared memory (no
+//                           barrier), returns the free shared memory;
+//   n_w, ti, n_ps           the shared quadratures (then a_t when ti) and
+//                           the per-sample ones;
+//   ya(lo), aya(lo)         where the engine writes a sample's stage state;
+// for K3, either (kBatch false) a sample at a time
+//   stage(sh, lo, t, b, B, sf, ky, kay, rw)
+//                           sample b's stage: ky[d] = -sf f_d, kay[d] =
+//                           sf v_y,d (D values each), and what the batch
+//                           sums read into its rows rw;
+// or (kBatch true) the whole batch, every thread:
+//   put(sh, lo, b, B, rw)   sample b's state (ya, aya) into the rows,
+//   stage_batch(sh, lo, t, B, sf, KY, KAY, rw, red)  after a barrier;
+// and the stage's batch sums:
+//   quad_sum(sh, r, rw, B, lane)  shared quadrature r's per-sample term
+//                           summed over the batch in K3's order (lane 0
+//                           returns it; a warp calls it together),
+//   sample_x(sh, j, rw, B, b)     per-sample quadrature j's term;
+// for K6 and K9 one sample a thread:
+//   lane_stage(sh, lo, t, b, B, sf, ky, kay, STEP, hb, add, first, rw)
+//                           ky, kay as rows of B; with `add`, every
+//                           quadrature's weighted term hb (sf x) into STEP's
+//                           rows (set when `first`, else added), the shared
+//                           ones first.
+#pragma once
+
+#include "mlp_rk.cuh"
+
+namespace tfd {
+
+// Most threads of K3's one block; the launch takes a power of two from 32
+// up to it (block_sum, whole warps), ops/cuda_adjoint.py:ADJOINT_THREADS.
+constexpr int kAdjThreads = 512;
+constexpr int kWarp = 32;
+
+template <typename T>
+struct AdjScalars {
+  T dt0, rtol, atol, dt_min, sign, safety, ifactor, dfactor;
+  int max_steps, T_obs, B, D, seminorm;
+  int quad_smem;   // the shared quadratures' rows in shared memory
+};
+
+// Sum of v over the 32 lanes of a warp in the tree order of
+// ops/cuda_kernels.py:_tree_sum; lane 0 returns the sum.
+template <typename T>
+__device__ __forceinline__ T warp_tree_sum(T v) {
+  for (int s = kWarp / 2; s > 0; s >>= 1)
+    v = v + __shfl_down_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// Batch samples a lane loads before it adds them: the adds stay in sample
+// order, the loads overlap (one at a time would leave the warp waiting on
+// memory latency for every sample).
+constexpr int kUnroll = 8;
+
+// The batch sum of x(b) = xa[b] * xb[b] (kProduct) or xa[b], in K3's
+// order: lane j adds samples j, j + 32, ... in turn from 0 (a sample past
+// B adds +0, which changes no bit), then the warp's shuffle tree. Lane 0
+// returns the sum.
+template <typename T, bool kProduct>
+__device__ __forceinline__ T batch_sum(const T* __restrict__ xa,
+                                       const T* __restrict__ xb, int B,
+                                       int lane) {
+  T acc = T(0);
+  for (int b0 = lane; b0 < B; b0 += kUnroll * kWarp) {
+    T v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int b = b0 + u * kWarp;
+      v[u] = b < B ? (kProduct ? xa[b] * xb[b] : xa[b]) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc = acc + v[u];
+  }
+  return warp_tree_sum(acc);
+}
+
+// The same order for x(b) given by a function of the sample.
+template <typename T, typename Fn>
+__device__ __forceinline__ T batch_sum_of(Fn x, int B, int lane) {
+  T acc = T(0);
+  for (int b0 = lane; b0 < B; b0 += kUnroll * kWarp) {
+    T v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int b = b0 + u * kWarp;
+      v[u] = b < B ? x(b) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc = acc + v[u];
+  }
+  return warp_tree_sum(acc);
+}
+
+// sum_j (dth c_j) k_j over the nonzero c_j, in stage order; k_j = K(j).
+template <typename T, typename Fn>
+__device__ __forceinline__ T stage_combine(const T* coef, int S, T dth,
+                                           Fn K) {
+  T acc = T(0);
+  bool first = true;
+  for (int j = 0; j < S; ++j) {
+    if (coef[j] != T(0)) {
+      const T term = (dth * coef[j]) * K(j);
+      acc = first ? term : acc + term;
+      first = false;
+    }
+  }
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// K3: one controller for the batch.
+//
+// One thread block for the whole sweep, as K2: thread tid owns the samples
+// b = tid, tid + blockDim.x, ... The batch meets at every STAGE, not only
+// at every attempt: each stage's shared quadratures are sums over the
+// whole batch (pallas_adjoint.py:196-201, :503-509). Phase A evaluates the
+// augmented right-hand side of each owned sample, which writes what the
+// sums read to workspace rows of B values; phase B gives each warp whole
+// reductions (quad_sum). Every batch sum (the quadratures, a_t, the error)
+// is taken in one fixed order that the plain version in
+// ops/cuda_adjoint.py repeats, with no atomics: the same bits on every
+// run, and float64 sweeps that take the plain version's exact steps. Every
+// attempt takes all S stages of the tableau; the error norm covers
+// (y, a_y), then, unless `seminorm`, the per-sample quadratures after each
+// sample's own and the shared ones; the clamped I-controller, Kahan
+// accumulation of y and a_y (the quadratures add plainly), the counters
+// and the status follow the reference (:498-676).
+//
+// Workspace (`work`): y, a_y, their compensations and increments, the
+// stages of both ([S][B][D] each), the per-sample quadratures, their
+// increments and stages ([n_ps][B], [n_ps][B], [S][n_ps][B]), then the
+// right-hand side's rows. The shared quadratures' accumulator, increment
+// and stage values ((S + 2) n_w + S ti values) sit in shared memory when
+// `quad_smem`, else in `pwork`.
+// ---------------------------------------------------------------------------
+
+template <typename T, class Aug>
+__global__ void __launch_bounds__(kAdjThreads, 1)
+    rk_adjoint_kernel(const T* __restrict__ tau, const T* __restrict__ ys,
+                      const T* __restrict__ g, T* __restrict__ ay0_out,
+                      T* __restrict__ aw_out, T* __restrict__ at_out,
+                      T* __restrict__ aps_out, int* __restrict__ stats,
+                      T* __restrict__ work, T* __restrict__ pwork, Aug aug,
+                      Tableau<T> tab_in, AdjScalars<T> sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Aug::Shared ash;
+  __shared__ Tableau<T> tab;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int n_warps = nth / kWarp;
+  typename Aug::Local lo;
+  T* const free = aug.setup(ash, lo, smem_raw);
+  if (tid == 0) tab = tab_in;
+  const int n_w = aug.n_w;
+  const int ti = aug.ti;
+  const int n_ps = aug.n_ps;
+  const int n_red = n_w + ti;               // reductions per stage
+  const int S = tab_in.S;
+  T* AW;        // [n_w] shared quadratures
+  T* DW;        // [n_w] their attempt increment
+  T* KW;        // [S][n_red] stage values
+  T* red;       // [nth] block_sum scratch
+  if (sc.quad_smem) {
+    AW = free;
+    DW = AW + n_w;
+    KW = DW + n_w;
+    red = KW + S * n_red;
+  } else {
+    AW = pwork;
+    DW = AW + n_w;
+    KW = DW + n_w;
+    red = free;
+  }
+  for (int i = tid; i < n_w; i += nth) AW[i] = T(0);
+  __syncthreads();
+
+  const int T_obs = sc.T_obs, B = sc.B, D = sc.D;
+  const long BD = long(B) * D;
+  T* Y = work;              // y
+  T* AY = Y + BD;           // a_y
+  T* CY = AY + BD;          // Kahan compensation of y
+  T* CAY = CY + BD;         // ... and of a_y
+  T* DY = CAY + BD;         // the attempt's increments
+  T* DAY = DY + BD;
+  T* KY = DAY + BD;         // [S][B][D] stage derivatives of y
+  T* KAY = KY + S * BD;     // [S][B][D] ... and of a_y
+  const long BP = long(B) * n_ps;
+  T* APS = KAY + S * BD;    // [n_ps][B] per-sample quadratures
+  T* DPS = APS + BP;        // ... their attempt increment
+  T* KPS = DPS + BP;        // [S][n_ps][B] ... their stage values
+  T* RW = KPS + S * BP;     // the right-hand side's rows
+
+  const T sf = sc.sign;
+  const T denom = sc.seminorm
+      ? T(2.0 * double(D) * double(B))
+      : T(2.0 * double(D) * double(B) + double(n_w) + double(ti) +
+          double(n_ps) * double(B));
+
+  for (int b = tid; b < B; b += nth) {
+    for (int d = 0; d < D; ++d) AY[long(b) * D + d] = T(0);
+    for (int j = 0; j < n_ps; ++j) APS[long(j) * B + b] = T(0);
+  }
+
+  T dt = sc.dt0, at = T(0);
+  int nfe = 0, nacc = 0, nrej = 0, status = 0;
+
+  for (int i = T_obs - 1; i >= 1; --i) {
+    // Reset y to the stored forward state; inject the cotangent.
+    for (int b = tid; b < B; b += nth) {
+      for (int d = 0; d < D; ++d) {
+        const long k = long(b) * D + d;
+        Y[k] = ys[long(i) * BD + k];
+        AY[k] = AY[k] + g[long(i) * BD + k];
+        CY[k] = T(0);
+        CAY[k] = T(0);
+      }
+    }
+    T s = -tau[i];
+    const T s_end = -tau[i - 1];
+
+    while (s < s_end && status == 0) {
+      const T rem = s_end - s;
+      const T dt_eff = d_min(dt, rem);
+      const bool is_last = dt >= rem;
+      const T s1 = is_last ? s_end : s + dt_eff;
+      const T dth = s1 - s;
+
+      for (int st = 0; st < S; ++st) {
+        // ---- phase A: each owned sample's stage state and augmented
+        // right-hand side.
+        const T t_user = (-sf) * (s + tab.c[st] * dth);
+        for (int b = tid; b < B; b += nth) {
+          const long base = long(b) * D;
+          T* ya = aug.ya(lo);
+          T* aya = aug.aya(lo);
+          for (int d = 0; d < D; ++d) {
+            T yv = Y[base + d], av = AY[base + d];
+            for (int j = 0; j < st; ++j) {
+              const T a = tab.a[st][j];
+              if (a != T(0)) {
+                yv = yv + (dth * a) * KY[j * BD + base + d];
+                av = av + (dth * a) * KAY[j * BD + base + d];
+              }
+            }
+            ya[d] = yv;
+            aya[d] = av;
+          }
+          if constexpr (Aug::kBatch) {
+            aug.put(ash, lo, b, B, RW);
+          } else {
+            aug.stage(ash, lo, t_user, b, B, sf, KY + st * BD + base,
+                      KAY + st * BD + base, RW);
+            for (int j = 0; j < n_ps; ++j)
+              KPS[(long(st) * n_ps + j) * B + b] =
+                  sf * aug.sample_x(ash, j, RW, B, b);
+          }
+        }
+        if constexpr (Aug::kBatch) {
+          __syncthreads();
+          aug.stage_batch(ash, lo, t_user, B, sf, KY + st * BD,
+                          KAY + st * BD, RW, red);
+          for (int b = tid; b < B; b += nth)
+            for (int j = 0; j < n_ps; ++j)
+              KPS[(long(st) * n_ps + j) * B + b] =
+                  sf * aug.sample_x(ash, j, RW, B, b);
+        }
+        __syncthreads();
+
+        // ---- phase B: the stage's batch sums, one reduction per warp at a
+        // time: KW[st][r] = sign * sum_b x_r(b).
+        for (int r = warp; r < n_red; r += n_warps) {
+          const T acc = aug.quad_sum(ash, r, RW, B, lane);
+          if (lane == 0) KW[st * n_red + r] = sf * acc;
+        }
+        __syncthreads();
+      }
+
+      // ---- combine: increments, errors and finiteness of owned samples,
+      // then of owned shared quadratures (pallas_adjoint.py:578-621).
+      T ss = T(0);
+      bool bad = false;
+      for (int b = tid; b < B; b += nth) {
+        const long base = long(b) * D;
+        for (int pass = 0; pass < 2; ++pass) {
+          const T* V = pass ? AY : Y;
+          const T* KV = pass ? KAY : KY;
+          T* DV = pass ? DAY : DY;
+          for (int d = 0; d < D; ++d) {
+            T dv = T(0), ev = T(0);
+            bool first_d = true, first_e = true;
+            for (int j = 0; j < S; ++j) {
+              const T kj = KV[j * BD + base + d];
+              if (tab.b_sol[j] != T(0)) {
+                const T term = (dth * tab.b_sol[j]) * kj;
+                dv = first_d ? term : dv + term;
+                first_d = false;
+              }
+              if (tab.b_err[j] != T(0)) {
+                const T term = (dth * tab.b_err[j]) * kj;
+                ev = first_e ? term : ev + term;
+                first_e = false;
+              }
+            }
+            const T v0 = V[base + d];
+            const T v1 = v0 + dv;
+            const T scale = sc.atol + sc.rtol * d_max(d_abs(v0), d_abs(v1));
+            const T esc = ev / scale;
+            ss = ss + esc * esc;
+            bad = bad || !d_finite(v1);
+            DV[base + d] = dv;
+          }
+        }
+        for (int j = 0; j < n_ps; ++j) {
+          auto kq = [&](int q) { return KPS[(long(q) * n_ps + j) * B + b]; };
+          const T dv = stage_combine(tab.b_sol, S, dth, kq);
+          if (!sc.seminorm) {
+            const T ev = stage_combine(tab.b_err, S, dth, kq);
+            const T v0 = APS[long(j) * B + b];
+            const T scale =
+                sc.atol + sc.rtol * d_max(d_abs(v0), d_abs(v0 + dv));
+            const T esc = ev / scale;
+            ss = ss + esc * esc;
+          }
+          DPS[long(j) * B + b] = dv;
+        }
+      }
+      for (int p = tid; p < n_w; p += nth) {
+        T dv = T(0), ev = T(0);
+        bool first_d = true, first_e = true;
+        for (int j = 0; j < S; ++j) {
+          const T kj = KW[j * n_red + p];
+          if (tab.b_sol[j] != T(0)) {
+            const T term = (dth * tab.b_sol[j]) * kj;
+            dv = first_d ? term : dv + term;
+            first_d = false;
+          }
+          if (tab.b_err[j] != T(0)) {
+            const T term = (dth * tab.b_err[j]) * kj;
+            ev = first_e ? term : ev + term;
+            first_e = false;
+          }
+        }
+        if (!sc.seminorm) {
+          const T v0 = AW[p];
+          const T scale = sc.atol + sc.rtol * d_max(d_abs(v0),
+                                                    d_abs(v0 + dv));
+          const T esc = ev / scale;
+          ss = ss + esc * esc;
+        }
+        DW[p] = dv;
+      }
+      // The a_t quadrature, the same in every thread.
+      T d_at = T(0), e_at = T(0);
+      if (ti) {
+        bool first_d = true, first_e = true;
+        for (int j = 0; j < S; ++j) {
+          const T kj = KW[j * n_red + n_w];
+          if (tab.b_sol[j] != T(0)) {
+            const T term = (dth * tab.b_sol[j]) * kj;
+            d_at = first_d ? term : d_at + term;
+            first_d = false;
+          }
+          if (tab.b_err[j] != T(0)) {
+            const T term = (dth * tab.b_err[j]) * kj;
+            e_at = first_e ? term : e_at + term;
+            first_e = false;
+          }
+        }
+      }
+      const T at1 = at + d_at;
+
+      // ---- the batch meets: one shared decision.
+      const bool any_bad = __syncthreads_or(bad);
+      T total = block_sum(ss, red);
+      if (ti && !sc.seminorm) {
+        const T scale = sc.atol + sc.rtol * d_max(d_abs(at), d_abs(at1));
+        const T esc = e_at / scale;
+        total = total + esc * esc;
+      }
+      const T ratio = d_sqrt(total / denom);
+      const bool finite = d_finite(total) && !any_bad;
+      const bool accept = (ratio <= T(1)) && finite;
+      const T fac = controller_factor(ratio, finite, accept, sc.safety,
+                                      sc.ifactor, sc.dfactor, tab.order);
+      const T dt_next = dth * fac;
+
+      if (accept) {
+        // Kahan-compensated accumulation of y and a_y; the quadratures
+        // add plainly (pallas_adjoint.py:627-645).
+        for (int b = tid; b < B; b += nth) {
+          const long base = long(b) * D;
+          for (int d = 0; d < D; ++d) {
+            const long k = base + d;
+            const T adj_y = DY[k] - CY[k];
+            const T y0 = Y[k];
+            const T y_new = y0 + adj_y;
+            CY[k] = (y_new - y0) - adj_y;
+            Y[k] = y_new;
+            const T adj_a = DAY[k] - CAY[k];
+            const T a0 = AY[k];
+            const T a_new = a0 + adj_a;
+            CAY[k] = (a_new - a0) - adj_a;
+            AY[k] = a_new;
+          }
+          for (int j = 0; j < n_ps; ++j)
+            APS[long(j) * B + b] = APS[long(j) * B + b] +
+                                   DPS[long(j) * B + b];
+        }
+        for (int p = tid; p < n_w; p += nth) AW[p] = AW[p] + DW[p];
+        at = at1;
+        s = s1;
+      }
+      // Status rules of the kernel (pallas_adjoint.py:647-653).
+      const int n_att = nacc + nrej + 1;
+      if (!accept && dt_next < sc.dt_min && status == 0) status = 2;
+      if (n_att >= sc.max_steps && s1 < s_end && status == 0) status = 1;
+      dt = dt_next;
+      nfe += S;
+      nacc += accept ? 1 : 0;
+      nrej += accept ? 0 : 1;
+    }
+  }
+
+  for (int b = tid; b < B; b += nth) {
+    for (int d = 0; d < D; ++d) {
+      const long k = long(b) * D + d;
+      ay0_out[k] = AY[k] + g[k];
+    }
+    for (int j = 0; j < n_ps; ++j)
+      aps_out[long(j) * B + b] = APS[long(j) * B + b];
+  }
+  for (int p = tid; p < n_w; p += nth) aw_out[p] = AW[p];
+  if (tid == 0) {
+    at_out[0] = at;
+    stats[0] = nfe;
+    stats[1] = nacc;
+    stats[2] = nrej;
+    stats[3] = status;
+  }
+}
+
+// Workspace values of K3's engine before the right-hand side's rows.
+inline long rk_adjoint_work_size(int S, int B, int D, int n_ps) {
+  return (6 + 2 * long(S)) * B * D + (2 + long(S)) * n_ps * long(B);
+}
+
+// Shared quadrature values K3 keeps (in shared memory or pwork): the
+// accumulator, its increment and every stage's values.
+inline long rk_adjoint_quad_size(int n_w, int S, int ti) {
+  return 2 * long(n_w) + long(S) * (n_w + ti);
+}
+
+template <typename T, class Aug>
+cudaError_t launch_rk_adjoint(const void* tau, const void* ys, const void* g,
+                              void* ay0, void* aw, void* at, void* aps,
+                              void* stats, void* work, void* pwork,
+                              const Aug& aug, size_t smem, int threads,
+                              const Tableau<T>& tab, const AdjScalars<T>& sc,
+                              cudaStream_t stream) {
+  auto kernel = rk_adjoint_kernel<T, Aug>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<1, threads, smem, stream>>>(
+      static_cast<const T*>(tau), static_cast<const T*>(ys),
+      static_cast<const T*>(g), static_cast<T*>(ay0), static_cast<T*>(aw),
+      static_cast<T*>(at), static_cast<T*>(aps), static_cast<int*>(stats),
+      static_cast<T*>(work), static_cast<T*>(pwork), aug, tab, sc);
+  return cudaGetLastError();
+}
+
+template <typename T>
+AdjScalars<T> make_adj_scalars(double dt0, double rtol, double atol,
+                               double dt_min, double sign, double safety,
+                               double ifactor, double dfactor, int max_steps,
+                               int T_obs, int B, int D, int seminorm,
+                               int quad_smem) {
+  AdjScalars<T> sc;
+  sc.dt0 = T(dt0);
+  sc.rtol = T(rtol);
+  sc.atol = T(atol);
+  sc.dt_min = T(dt_min);
+  sc.sign = T(sign);
+  sc.safety = T(safety);
+  sc.ifactor = T(ifactor);
+  sc.dfactor = T(dfactor);
+  sc.max_steps = max_steps;
+  sc.T_obs = T_obs;
+  sc.B = B;
+  sc.D = D;
+  sc.seminorm = seminorm;
+  sc.quad_smem = quad_smem;
+  return sc;
+}
+
+// ---------------------------------------------------------------------------
+// K6 and K9: one thread a sample, over as many blocks as the batch needs,
+// with no barrier until the end. The per-sample state lives in the device
+// workspace, feature-major ([row][B]: a warp touches 32 consecutive
+// values): y, a_y, their compensations and stage derivatives, the step's
+// quadrature terms STEP and their running sums ACC (the shared ones, then
+// the per-sample ones), then the right-hand side's rows. The shared
+// quadratures' batch sums come once, at the end, in one fixed order with
+// no atomics: a shared-memory tree within each block (block_sum), then a
+// second, small launch that adds the block sums in block order
+// (quadrature_reduce_kernel); the per-sample ones are written out as they
+// are. ops/cuda_perlane.py:perlane_adjoint_plain and ops/cuda_fixed.py:
+// fixed_adjoint_plain repeat that order.
+// ---------------------------------------------------------------------------
+
+// Workspace values of K6's and K9's engines before the right-hand side's
+// rows: y, a_y, their compensations, the stages of both and the STEP and
+// ACC rows of every quadrature.
+inline long lane_adjoint_work_size(int S, int B, int D, int n_q) {
+  return ((4 + 2 * long(S)) * D + 2 * long(n_q)) * B;
+}
+
+// The block's sums of the shared quadratures (partial [blocks][R]) and the
+// per-sample ones written out; every thread of the block calls it.
+template <typename T>
+__device__ void lane_adjoint_finish(const T* ACC, int R, int n_ps, int B,
+                                    int b, bool mine, T* red, T* partial,
+                                    T* aps_out) {
+  auto at = [B, b](int row) -> long { return long(row) * B + b; };
+  for (int r = 0; r < R; ++r) {
+    const T total = block_sum(mine ? ACC[at(r)] : T(0), red);
+    if (threadIdx.x == 0) partial[long(blockIdx.x) * R + r] = total;
+  }
+  if (mine)
+    for (int j = 0; j < n_ps; ++j) aps_out[at(j)] = ACC[at(R + j)];
+}
+
+template <typename T>
+struct PerlaneAdjScalars {
+  T rtol, atol, dt_min, sign, safety, ifactor, dfactor;
+  int max_steps, T_obs, B, D;
+};
+
+// K6: every sample under its own step controller (pallas_adjoint.py:681).
+// Each sample takes adaptive steps on (y, a_y) with its own s, dt, accept
+// decision, counters and status, under the (y, a_y) seminorm sqrt(sum of
+// 2D squared scaled errors / 2D); dt carries over from one interval to the
+// next. The TPU kernel decides each lane's acceptance in a first pass and
+// then runs the stage evaluations again for the lane-summed quadratures
+// with each lane's accept x dt x b_sol folded into its cotangent. Here each
+// trial's weighted stage terms, (dt b_j) (sign x_j), join the sample's STEP
+// rows while the stages run, and ACC += STEP only when the sample accepts.
+// That one rule replaces the second pass, and it keeps a rejected trial
+// that overflowed out of the sums (the TPU kernel adds its Inf x 0 = NaN).
+// A sample whose attempts reach max_steps, or whose rejected step falls
+// below dt_min, stops with status 1 or 2 and stays inactive. lane_stats
+// holds each sample's nfe (stages an attempt), accepted, rejected and
+// status, stats their sums and the largest status.
+template <typename T, class Aug>
+__global__ void rk_perlane_adjoint_kernel(
+    const T* __restrict__ tau, const T* __restrict__ ys,
+    const T* __restrict__ g, const T* __restrict__ dt0g,
+    T* __restrict__ ay0_out, T* __restrict__ aps_out,
+    int* __restrict__ lane_stats, int* __restrict__ stats,
+    T* __restrict__ partial, T* __restrict__ work, Aug aug,
+    Tableau<T> tab_in, PerlaneAdjScalars<T> sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Aug::Shared ash;
+  __shared__ Tableau<T> tab;
+  const int tid = threadIdx.x;
+  typename Aug::Local lo;
+  T* const red = aug.setup(ash, lo, smem_raw);   // [blockDim.x]
+  if (tid == 0) tab = tab_in;
+  __syncthreads();
+
+  const int T_obs = sc.T_obs, B = sc.B, D = sc.D;
+  const int S = tab.S;
+  const int R = aug.n_w + aug.ti;         // shared quadratures a sample
+  const int n_q = R + aug.n_ps;           // every quadrature a sample
+  const long BD = long(B) * D;
+  T* Y = work;                      // [D] y
+  T* AY = Y + BD;                   // [D] a_y
+  T* CY = AY + BD;                  // [D] Kahan compensation of y
+  T* CAY = CY + BD;                 // [D] ... and of a_y
+  T* KY = CAY + BD;                 // [S][D] stage derivatives of y
+  T* KAY = KY + S * BD;             // [S][D] ... and of a_y
+  T* STEP = KAY + S * BD;           // [n_q] the trial's quadrature
+  T* ACC = STEP + long(n_q) * B;    // [n_q] the accepted quadrature
+  T* RW = ACC + long(n_q) * B;      // the right-hand side's rows
+
+  const int b = blockIdx.x * blockDim.x + tid;
+  const bool mine = b < B;          // idle threads still meet at the end
+  auto at = [B, b](int row) -> long { return long(row) * B + b; };
+  const T sf = sc.sign;
+  const T denom = T(2 * D);
+  int first_b = 0;                  // first stage with a nonzero weight
+  while (tab.b_sol[first_b] == T(0)) ++first_b;
+
+  T dt = mine ? dt0g[b] : T(0);
+  int nfe = 0, nacc = 0, nrej = 0, status = 0;
+  if (mine) {
+    for (int d = 0; d < D; ++d) AY[at(d)] = T(0);
+    for (int r = 0; r < n_q; ++r) ACC[at(r)] = T(0);
+  }
+  for (int i = T_obs - 1; mine && i >= 1; --i) {
+    // Reset y to the stored forward state; inject the cotangent.
+    for (int d = 0; d < D; ++d) {
+      const long k = long(i) * BD + long(b) * D + d;
+      Y[at(d)] = ys[k];
+      AY[at(d)] = AY[at(d)] + g[k];
+      CY[at(d)] = T(0);
+      CAY[at(d)] = T(0);
+    }
+    T s = -tau[i];
+    const T s_end = -tau[i - 1];
+    while (s < s_end && status == 0) {
+      const T rem = s_end - s;
+      const T dt_eff = d_min(dt, rem);
+      const bool is_last = dt >= rem;
+      const T s1 = is_last ? s_end : s + dt_eff;
+      const T dth = s1 - s;
+      for (int st = 0; st < S; ++st) {
+        aug_stage_state(tab, st, dth, Y, AY, KY, KAY, aug.ya(lo),
+                        aug.aya(lo), D, B, b);
+        // The right-hand side; the trial's weighted quadrature terms,
+        // (dt b_st) (sign x), join STEP in stage order.
+        aug.lane_stage(ash, lo, (-sf) * (s + tab.c[st] * dth), b, B, sf,
+                       KY + long(st) * BD, KAY + long(st) * BD, STEP,
+                       dth * tab.b_sol[st], tab.b_sol[st] != T(0),
+                       st == first_b, RW);
+      }
+      // The (y, a_y) seminorm of the sample's error, and finiteness.
+      T ss_part[2] = {T(0), T(0)};
+      bool bad = false;
+      for (int pass = 0; pass < 2; ++pass) {
+        const T* V = pass ? AY : Y;
+        const T* KV = pass ? KAY : KY;
+        for (int d = 0; d < D; ++d) {
+          T dv = T(0), ev = T(0);
+          bool first_d = true, first_e = true;
+          for (int q = 0; q < S; ++q) {
+            const T kq = KV[at(q * D + d)];
+            if (tab.b_sol[q] != T(0)) {
+              const T term = (dth * tab.b_sol[q]) * kq;
+              dv = first_d ? term : dv + term;
+              first_d = false;
+            }
+            if (tab.b_err[q] != T(0)) {
+              const T term = (dth * tab.b_err[q]) * kq;
+              ev = first_e ? term : ev + term;
+              first_e = false;
+            }
+          }
+          const T v0 = V[at(d)];
+          const T v1 = v0 + dv;
+          const T esc = ev / (sc.atol + sc.rtol * d_max(d_abs(v0), d_abs(v1)));
+          ss_part[pass] = ss_part[pass] + esc * esc;
+          bad = bad || !d_finite(v1);
+        }
+      }
+      const T ss = ss_part[0] + ss_part[1];
+      const T ratio = d_sqrt(ss / denom);
+      const bool finite = d_finite(ss) && !bad;
+      const bool accept = (ratio <= T(1)) && finite;
+      const T fac = controller_factor(ratio, finite, accept, sc.safety,
+                                      sc.ifactor, sc.dfactor, tab.order);
+      const T dt_next = dth * fac;
+      if (accept) {
+        // The Kahan-compensated update of (y, a_y), and the trial's
+        // quadratures into the sample's running sums.
+        aug_kahan_update(tab, dth, Y, AY, CY, CAY, KY, KAY, D, B, b);
+        for (int r = 0; r < n_q; ++r) ACC[at(r)] = ACC[at(r)] + STEP[at(r)];
+        s = s1;
+      }
+      // The sample's status rules (pallas_adjoint.py:881-890).
+      nfe += S;
+      nacc += accept ? 1 : 0;
+      nrej += accept ? 0 : 1;
+      if (!accept && dt_next < sc.dt_min && status == 0) status = 2;
+      if (nacc + nrej >= sc.max_steps && s < s_end && status == 0)
+        status = 1;
+      dt = dt_next;
+    }
+  }
+  if (mine) {
+    for (int d = 0; d < D; ++d) {
+      const long k = long(b) * D + d;
+      ay0_out[k] = AY[at(d)] + g[k];
+    }
+    lane_stats[b] = nfe;
+    lane_stats[B + b] = nacc;
+    lane_stats[2 * B + b] = nrej;
+    lane_stats[3 * B + b] = status;
+    // Integer sums: the same total in any order.
+    atomicAdd(stats, nfe);
+    atomicAdd(stats + 1, nacc);
+    atomicAdd(stats + 2, nrej);
+    atomicMax(stats + 3, status);
+  }
+  lane_adjoint_finish(ACC, R, aug.n_ps, B, b, mine, red, partial, aps_out);
+}
+
+// K6's launch: the sweep, then the block sums in block order.
+template <typename T, class Aug>
+cudaError_t launch_rk_perlane_adjoint(
+    const void* tau, const void* ys, const void* g, const void* dt0,
+    void* ay0, void* aw, void* at, void* aps, void* lane_stats, void* stats,
+    void* partial, void* work, const Aug& aug, size_t smem, int threads,
+    const Tableau<T>& tab, const PerlaneAdjScalars<T>& sc,
+    cudaStream_t st) {
+  cudaError_t e = cudaMemsetAsync(stats, 0, 4 * sizeof(int), st);
+  if (e != cudaSuccess) return e;
+  auto kernel = rk_perlane_adjoint_kernel<T, Aug>;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(smem));
+  if (e != cudaSuccess) return e;
+  const int blocks = (sc.B + threads - 1) / threads;
+  kernel<<<blocks, threads, smem, st>>>(
+      static_cast<const T*>(tau), static_cast<const T*>(ys),
+      static_cast<const T*>(g), static_cast<const T*>(dt0),
+      static_cast<T*>(ay0), static_cast<T*>(aps),
+      static_cast<int*>(lane_stats), static_cast<int*>(stats),
+      static_cast<T*>(partial), static_cast<T*>(work), aug, tab, sc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int R = aug.n_w + aug.ti;
+  quadrature_reduce_kernel<T><<<(R + 127) / 128 + (R == 0), 128, 0, st>>>(
+      static_cast<const T*>(partial), blocks, aug.n_w, aug.ti,
+      static_cast<T*>(aw), static_cast<T*>(at), nullptr, 0, 0);
+  return cudaGetLastError();
+}
+
+template <typename T>
+struct FixedAdjScalars {
+  T sign;
+  int T_obs, B, D, n_sub;
+};
+
+// K9: n_sub equal steps per observation interval
+// (pallas_fixed.py:726). Nothing in a fixed step reads the quadratures, so
+// the batch never has to meet during the sweep. Each sample accumulates
+// its own share of the quadratures: per step, sum_j (h b_j) (sign x_j)
+// over the stages in order (the stage combine of the reference), then
+// added to its running sum. stats: nfe = stages n_sub (T - 1), steps =
+// n_sub (T - 1), 0, 0.
+template <typename T, class Aug>
+__global__ void rk_fixed_adjoint_kernel(
+    const T* __restrict__ tau, const T* __restrict__ ys,
+    const T* __restrict__ g, T* __restrict__ ay0_out,
+    T* __restrict__ aps_out, T* __restrict__ partial, T* __restrict__ work,
+    Aug aug, Tableau<T> tab_in, FixedAdjScalars<T> sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Aug::Shared ash;
+  __shared__ Tableau<T> tab;
+  const int tid = threadIdx.x;
+  typename Aug::Local lo;
+  T* const red = aug.setup(ash, lo, smem_raw);   // [blockDim.x]
+  if (tid == 0) tab = tab_in;
+  __syncthreads();
+
+  const int T_obs = sc.T_obs, B = sc.B, D = sc.D, n_sub = sc.n_sub;
+  const int S = tab.S;
+  const int R = aug.n_w + aug.ti;         // shared quadratures a sample
+  const int n_q = R + aug.n_ps;           // every quadrature a sample
+  const long BD = long(B) * D;
+  T* Y = work;                      // [D] y
+  T* AY = Y + BD;                   // [D] a_y
+  T* CY = AY + BD;                  // [D] Kahan compensation of y
+  T* CAY = CY + BD;                 // [D] ... and of a_y
+  T* KY = CAY + BD;                 // [S][D] stage derivatives of y
+  T* KAY = KY + S * BD;             // [S][D] ... and of a_y
+  T* STEP = KAY + S * BD;           // [n_q] this step's quadrature
+  T* ACC = STEP + long(n_q) * B;    // [n_q] the running quadrature
+  T* RW = ACC + long(n_q) * B;      // the right-hand side's rows
+
+  const int b = blockIdx.x * blockDim.x + tid;
+  const bool mine = b < B;          // idle threads still meet at the end
+  auto at = [B, b](int row) -> long { return long(row) * B + b; };
+  const T sf = sc.sign;
+  int first_b = 0;                  // first stage with a nonzero weight
+  while (tab.b_sol[first_b] == T(0)) ++first_b;
+
+  if (mine) {
+    for (int d = 0; d < D; ++d) AY[at(d)] = T(0);
+    for (int r = 0; r < n_q; ++r) ACC[at(r)] = T(0);
+  }
+  for (int i = T_obs - 1; mine && i >= 1; --i) {
+    // Reset y to the stored forward state; inject the cotangent.
+    for (int d = 0; d < D; ++d) {
+      const long k = long(i) * BD + long(b) * D + d;
+      Y[at(d)] = ys[k];
+      AY[at(d)] = AY[at(d)] + g[k];
+      CY[at(d)] = T(0);
+      CAY[at(d)] = T(0);
+    }
+    const T s_start = -tau[i];
+    const T h = (-tau[i - 1] - s_start) / T(n_sub);
+    for (int j = 0; j < n_sub; ++j) {
+      const T s = s_start + h * T(j);
+      for (int st = 0; st < S; ++st) {
+        aug_stage_state(tab, st, h, Y, AY, KY, KAY, aug.ya(lo), aug.aya(lo),
+                        D, B, b);
+        // The right-hand side; this stage's weighted quadrature terms,
+        // (h b_st) (sign x), join the step's sums in stage order.
+        aug.lane_stage(ash, lo, (-sf) * (s + tab.c[st] * h), b, B, sf,
+                       KY + long(st) * BD, KAY + long(st) * BD, STEP,
+                       h * tab.b_sol[st], tab.b_sol[st] != T(0),
+                       st == first_b, RW);
+      }
+      aug_kahan_update(tab, h, Y, AY, CY, CAY, KY, KAY, D, B, b);
+      for (int r = 0; r < n_q; ++r) ACC[at(r)] = ACC[at(r)] + STEP[at(r)];
+    }
+  }
+  if (mine) {
+    for (int d = 0; d < D; ++d) {
+      const long k = long(b) * D + d;
+      ay0_out[k] = AY[at(d)] + g[k];
+    }
+  }
+  lane_adjoint_finish(ACC, R, aug.n_ps, B, b, mine, red, partial, aps_out);
+}
+
+// K9's launch: the sweep, then the block sums in block order.
+template <typename T, class Aug>
+cudaError_t launch_rk_fixed_adjoint(const void* tau, const void* ys,
+                                    const void* g, void* ay0, void* aw,
+                                    void* at, void* aps, void* stats,
+                                    void* partial, void* work,
+                                    const Aug& aug, size_t smem, int threads,
+                                    const Tableau<T>& tab,
+                                    const FixedAdjScalars<T>& sc,
+                                    cudaStream_t st) {
+  auto kernel = rk_fixed_adjoint_kernel<T, Aug>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  const int blocks = (sc.B + threads - 1) / threads;
+  kernel<<<blocks, threads, smem, st>>>(
+      static_cast<const T*>(tau), static_cast<const T*>(ys),
+      static_cast<const T*>(g), static_cast<T*>(ay0), static_cast<T*>(aps),
+      static_cast<T*>(partial), static_cast<T*>(work), aug, tab, sc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int R = aug.n_w + aug.ti;
+  const int steps = sc.n_sub * (sc.T_obs - 1);
+  quadrature_reduce_kernel<T><<<(R + 127) / 128 + (R == 0), 128, 0, st>>>(
+      static_cast<const T*>(partial), blocks, aug.n_w, aug.ti,
+      static_cast<T*>(aw), static_cast<T*>(at), static_cast<int*>(stats),
+      tab.S * steps, steps);
+  return cudaGetLastError();
+}
+
+}  // namespace tfd

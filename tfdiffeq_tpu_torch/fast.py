@@ -58,6 +58,12 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
   `fuse_fallbacks` counts the calls that ran the generic engine because the
   dynamics fell outside the plan's subset (a trace-time FusionError, never a
   build or launch failure).
+- `odeint_adjoint_fused`: training of such dynamics in two launches, the
+  plan's forward above and one backward sweep whose right-hand side is the
+  plan's reverse walk (K15, generated as CUDA C++ by `ops/plan_codegen.py`)
+  inside K3, K6 (`per_sample=True`) or K9 (fixed grids); the gradients reach
+  the user's tensors through autograd's graph of the packed constants.
+  `odeint_adjoint(options={'fuse': True})` routes here.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
 item): the dot-precision tiers with
@@ -1261,6 +1267,17 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         return result(y0[None].clone(), SolverStats(0, 0, 0, 0))
     y0 = y0.contiguous()
     plan, consts = _pb.build_plan(func, t[0].to(dev), y0, matmul=matmul)
+    _check_plan_route(plan, per_sample, fixed)
+    packed = _pb.pack_consts(plan, consts, dtype, dev)
+    out, stats, lane = _plan_solve(
+        plan, packed, y0, t, rtol=rtol, atol=atol, method=method,
+        max_num_steps=max_num_steps, first_step=first_step, safety=safety,
+        ifactor=ifactor, dfactor=dfactor, num_steps=num_steps,
+        step_size=step_size, per_sample=per_sample)
+    return result(out, stats, lane)
+
+
+def _check_plan_route(plan, per_sample: bool, fixed: bool) -> None:
     if plan.batch_coupled and per_sample:
         raise ValueError(
             "per_sample=True with batch-coupled dynamics (a cross-sample "
@@ -1270,7 +1287,19 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         raise NotImplementedError(
             "batch-coupled dynamics on a fixed grid are not ported yet: "
             "ROADMAP.md queue 1 item 16 (coupled plans in K8)")
-    packed = _pb.pack_consts(plan, consts, dtype, dev)
+
+
+def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
+                max_num_steps, first_step, safety=0.9, ifactor=10.0,
+                dfactor=0.2, num_steps=None, step_size=None,
+                per_sample=False):
+    """The forward solve of a captured plan (one K2, K5 or K8 launch): f0
+    and, for an adaptive method without first_step, the HNW first step by
+    the plan's plain version (2 extra evaluations, else 1, counted in nfe).
+    y0 [B, D] on its device, t the host times. Returns (out [T, B, D],
+    SolverStats, lane SolverStats or None)."""
+    dtype, dev = y0.dtype, y0.device
+    fixed = method in tableaus.FIXED_TABLEAUS_BY_NAME
     sign = torch.tensor(1.0 if t[-1] >= t[0] else -1.0, dtype=dtype)
     tau = sign * t
     sign_d = sign.to(dev)
@@ -1280,7 +1309,7 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         grid = _fixed_grid_tau(tau, t, num_steps, step_size)
         out, stats = cuda_plan.plan_solve_fixed(
             plan, packed, y0, tau, grid, float(sign), f0, method=method)
-        return result(out, SolverStats(*stats.tolist()))
+        return out, SolverStats(*stats.tolist()), None
 
     if first_step is None:
         rdt = torch.as_tensor(rtol, dtype=dtype).to(dev)
@@ -1302,14 +1331,195 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
             plan, packed, y0, tau, dt0, rtol, atol, float(sign), f0,
             per_sample=True, **kw)
         nfe, nacc, nrej, status = stats.tolist()
-        return result(out, SolverStats(nfe + extra_nfe * y0.shape[0], nacc,
-                                       nrej, status),
-                      SolverStats(lane[0] + extra_nfe, lane[1], lane[2],
-                                  lane[3]))
+        return (out, SolverStats(nfe + extra_nfe * y0.shape[0], nacc, nrej,
+                                 status),
+                SolverStats(lane[0] + extra_nfe, lane[1], lane[2], lane[3]))
     out, stats = cuda_plan.plan_solve(plan, packed, y0, tau, dt0, rtol, atol,
                                       float(sign), f0, **kw)
     nfe, nacc, nrej, status = stats.tolist()
-    return result(out, SolverStats(nfe + extra_nfe, nacc, nrej, status))
+    return out, SolverStats(nfe + extra_nfe, nacc, nrej, status), None
+
+
+class _AdjointFused(torch.autograd.Function):
+    """Forward: the plan's solve (K2, K5 or K8 with K14). Backward: one
+    sweep with K15, K3, K6 or K9 (reference `fast.py:_vjp_bwd` of
+    `odeint_adjoint_fused`). The inputs are y0, t and the packed constants,
+    which keep autograd's path to the user's tensors; `cfg` carries the
+    plan and the static options and receives the forward stats."""
+
+    @staticmethod
+    def forward(ctx, cfg, y0, t, *packed):
+        out, stats, _ = _plan_solve(
+            cfg["plan"], packed, y0, _host_times(t, y0.dtype),
+            rtol=cfg["rtol"], atol=cfg["atol"], method=cfg["method"],
+            max_num_steps=cfg["max_num_steps"],
+            first_step=cfg["first_step"], num_steps=cfg["num_steps"],
+            step_size=cfg["step_size"], per_sample=cfg["per_sample"])
+        emit_fwd(cfg["nfe_meter"], stats.nfe, stats.n_accepted)
+        cfg["stats"] = stats
+        ctx.cfg = cfg
+        ctx.save_for_backward(out, t, *packed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        plan = cfg["plan"]
+        ys, t, *packed = ctx.saved_tensors
+        T = t.shape[0]
+        dtype, dev = ys.dtype, ys.device
+        g = g.to(dtype).contiguous()
+        t_h = _host_times(t, dtype)
+        # d loss / d t_i = <f(t_i, y_i), g_i>; ts_bar[0] also carries the
+        # integrated a_t quadrature (zero for autonomous plans).
+        t_bars = torch.stack([
+            torch.sum(_pb.eval_plan_host(plan, packed, t_h[i].to(dev), ys[i])
+                      * g[i]) for i in range(T)]).to(t.device, t.dtype)
+        sign = 1.0 if bool(t_h[-1] >= t_h[0]) else -1.0
+        tau = sign * t_h
+        ys = ys.contiguous()
+        if cfg["adjoint_method"] in tableaus.FIXED_TABLEAUS_BY_NAME:
+            ay0, dconsts, at, bstats = cuda_plan.plan_adjoint_solve_fixed(
+                plan, packed, ys, g, tau, sign,
+                num_steps=cfg["bwd_num_steps"],
+                method=cfg["adjoint_method"])
+        else:
+            if cfg["adjoint_first_step"] is not None:
+                dt0 = torch.abs(torch.as_tensor(cfg["adjoint_first_step"],
+                                                dtype=dtype))
+            else:
+                dt0 = 0.1 * torch.abs(tau[-1] - tau[-2])
+            args = (plan, packed, ys, g, tau, dt0, cfg["adjoint_rtol"],
+                    cfg["adjoint_atol"], sign)
+            if cfg["per_sample"]:
+                # A controller a sample in the backward sweep too, always
+                # on the (y, a_y) seminorm.
+                ay0, dconsts, at, bstats, _ = (
+                    cuda_plan.plan_perlane_adjoint_solve(
+                        *args, method=cfg["adjoint_method"],
+                        max_steps=cfg["max_steps"]))
+            else:
+                ay0, dconsts, at, bstats = cuda_plan.plan_adjoint_solve(
+                    *args, method=cfg["adjoint_method"],
+                    max_steps=cfg["max_steps"],
+                    seminorm=cfg["adjoint_seminorm"])
+        nfe, nacc, _, status = bstats.tolist()
+        emit_bwd(cfg["nfe_meter"], nfe, nacc)
+        at = at.to(t.device, t.dtype)
+        ts_bar = torch.cat([(at - torch.sum(t_bars[1:]))[None], t_bars[1:]])
+        grads = [ay0, ts_bar] + [dc.to(p.dtype) for dc, p in
+                                 zip(dconsts, packed)]
+        if status != 0:
+            # A truncated sweep would return a partial adjoint: poison every
+            # gradient, as the reference does (fast.py:1938-1947).
+            grads = [torch.full_like(x, float("nan")) for x in grads]
+        return (None, *grads)
+
+
+def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
+                         atol=1e-8, adjoint_rtol=None, adjoint_atol=None,
+                         method: str = "dopri5",
+                         adjoint_method: Optional[str] = None,
+                         adjoint_seminorm: bool = False, max_num_steps=None,
+                         first_step=None, adjoint_first_step=None,
+                         matmul: str = "auto", nfe_meter=None,
+                         return_stats: bool = False, num_steps=None,
+                         step_size=None, adjoint_num_steps=None,
+                         per_sample: bool = False):
+    """O(1)-memory training of ARBITRARY plain-PyTorch dynamics in two
+    launches (reference `fast.py:1566`): the forward is the plan's solve
+    (`solve_fused`: K2, K5 or K8 with K14), the backward ONE sweep with the
+    plan's reverse walk K15 as its right-hand side (`ops/cuda_plan.py`:
+    K3 for an adaptive adjoint method, K9 for a fixed-grid one, K6 with
+    per_sample).
+
+    func(t, y, params), or func(t, y) when params is None (an nn.Module's
+    parameters are then the constants it closes over): dynamics in the
+    plan's subset (`ops/plan_bridge.py`) whose reverse walk exists
+    (`plan_bridge.check_plan_adjoint`); otherwise FusionError, which
+    `odeint_adjoint(options={'fuse': True})` catches to fall back. The
+    gradients reach every tensor the function closes over that requires
+    grad: the autograd boundary sits at the packed constants
+    (`pack_consts(differentiable=True)`), so tied weights, transposes and
+    a 0-d learnable scalar (a 'scalar' constant, data of the plan: a new
+    value builds nothing) differentiate through autograd's own graph.
+
+    per_sample=True: a controller a sample in both sweeps (K5 forward, K6
+    backward on the (y, a_y) seminorm; the reference's backward takes its
+    shared-controller kernel, ROADMAP.md queue 3); adaptive methods only;
+    a coupled plan raises FusionError. Fixed backward: adjoint_num_steps
+    steps an observation interval, else the forward's num_steps, else 1.
+    Differentiable wrt the constants, y0 ([B, D], or [D]) and t. Returns
+    the trajectory [T, B, D] ([T, D]), with the forward SolverStats when
+    return_stats; both sweeps' counts go to `nfe_meter`. A failed backward
+    sweep returns NaN gradients.
+    """
+    if params is None:
+        user_func = lambda tt, yy, pp: func(tt, yy)      # noqa: E731
+        params_in = ()
+    else:
+        user_func, params_in = func, params
+    adjoint_rtol = rtol if adjoint_rtol is None else adjoint_rtol
+    adjoint_atol = atol if adjoint_atol is None else adjoint_atol
+    adjoint_method = method if adjoint_method is None else adjoint_method
+    fixed_fwd = method in tableaus.FIXED_TABLEAUS_BY_NAME
+    fixed_bwd = adjoint_method in tableaus.FIXED_TABLEAUS_BY_NAME
+    for m, fx in ((method, fixed_fwd), (adjoint_method, fixed_bwd)):
+        if not fx and m not in tableaus.TABLEAUS_BY_NAME:
+            raise _pb.FusionError(
+                f"method {m!r} has no whole-solve tableau (available: "
+                f"{sorted(tableaus.TABLEAUS_BY_NAME)} adaptive, "
+                f"{sorted(tableaus.FIXED_TABLEAUS_BY_NAME)} fixed-grid)")
+    if per_sample and (fixed_fwd or fixed_bwd):
+        raise ValueError("per_sample=True training applies to adaptive RK "
+                         "methods only (forward and adjoint)")
+    y0 = torch.as_tensor(y0)
+    squeeze = False
+    if y0.ndim == 1:
+        inner = user_func
+
+        def user_func(tt, yy, pp):
+            return torch.func.vmap(lambda v: inner(tt, v, pp))(yy)
+
+        y0 = y0[None]
+        squeeze = True
+    y0c, t_h = _check_spec_inputs(y0, t)
+    if t_h.shape[0] < 2:
+        raise _pb.FusionError("fused adjoint needs >= 2 observation times")
+    dtype, dev = y0c.dtype, y0c.device
+    plan, consts = _pb.build_plan(
+        lambda tt, yy: user_func(tt, yy, params_in), t_h[0].to(dev),
+        y0c.detach().contiguous(), matmul=matmul)
+    _pb.check_plan_adjoint(plan)
+    if per_sample and plan.batch_coupled:
+        raise _pb.FusionError(
+            "per_sample=True with batch-coupled dynamics (a cross-sample "
+            "reduction makes the samples interdependent)")
+    _check_plan_route(plan, False, fixed_fwd or fixed_bwd)
+    packed = _pb.pack_consts(plan, consts, dtype, dev, differentiable=True)
+    cfg = {"plan": plan, "rtol": rtol, "atol": atol,
+           "adjoint_rtol": adjoint_rtol, "adjoint_atol": adjoint_atol,
+           "method": method, "adjoint_method": adjoint_method,
+           "adjoint_seminorm": bool(adjoint_seminorm),
+           "per_sample": bool(per_sample), "max_num_steps": max_num_steps,
+           "max_steps": (int(max_num_steps) if max_num_steps is not None
+                         else _INT32_MAX),
+           "first_step": first_step,
+           "adjoint_first_step": adjoint_first_step,
+           "num_steps": num_steps, "step_size": step_size,
+           "bwd_num_steps": int(adjoint_num_steps
+                                if adjoint_num_steps is not None
+                                else (num_steps if num_steps is not None
+                                      else 1)),
+           "nfe_meter": nfe_meter}
+    t_in = t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+    ys = _AdjointFused.apply(cfg, y0c.contiguous(), t_in.to(dtype),
+                             *packed)
+    if squeeze:
+        ys = ys[:, 0]
+    if return_stats:
+        return ys, cfg["stats"]
+    return ys
 
 
 def cnf_sample_auto(flow, params, generator: torch.Generator, n: int,

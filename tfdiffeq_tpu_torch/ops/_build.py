@@ -16,8 +16,9 @@ same accept/reject decisions as its plain PyTorch version. `-Xptxas -v`
 reports each kernel's registers, shared memory and spills; the report is
 kept in `build_log()`.
 
-K14's plan libraries (`plan_libraries`): one generated source per plan
-structure and host kernel (ops/plan_codegen.py), compiled with the same
+K14's and K15's plan libraries (`plan_libraries`): one generated source
+per plan structure and host kernel (ops/plan_codegen.py: K2, K8, K5, and
+the adjoint hosts K3, K6, K9), compiled with the same
 flags by one `nvcc -shared` each, all started together, into
 `libtfd_plan_<hash>_<host>.so` in the same directory, named by a hash of
 the generated source, the headers and the flags. An in-process cache keyed
@@ -44,10 +45,11 @@ SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "perlane_adjoint_kernel.cu", "tier_net_kernel.cu",
            "adams_kernel.cu", "vcabm_kernel.cu")
 HEADERS = ("mlp_rk.cuh", "dot_tiers.cuh", "cnf_net.cuh", "rk_solve.cuh",
-           "rk_fixed.cuh", "rk_perlane.cuh")
+           "rk_fixed.cuh", "rk_perlane.cuh", "rk_adjoint.cuh")
 #: The headers a plan library compiles against.
 PLAN_HEADERS = ("mlp_rk.cuh", "rk_solve.cuh", "rk_fixed.cuh",
-                "rk_perlane.cuh", "plan_ops.cuh", "plan_rhs.cuh")
+                "rk_perlane.cuh", "rk_adjoint.cuh", "plan_ops.cuh",
+                "plan_rhs.cuh", "plan_aug.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
@@ -152,6 +154,16 @@ _PLAN_ARGS = {
     "perlane": ([_P] * 8 + [_I] * 4 + [_D] * 7 + [_I, _I]  # tau .. valid
                 + [_I, _I, _I, _P, _P, _P, _P, _P]         # tableau
                 + _PLAN_CONSTS + [_P]),
+    # K15's hosts (csrc/plan_aug.cuh).
+    "adjoint": ([_P] * 10 + [_I] * 4 + [_D] * 8 + [_I, _I]  # tau .. seminorm
+                + [_I, _I, _P, _P, _P, _P]                  # tableau
+                + _PLAN_CONSTS + [_I, _P]),                 # quad_smem
+    "perlane_adjoint": ([_P] * 12 + [_I] * 4 + [_D] * 7 + [_I]
+                        + [_I, _I, _P, _P, _P, _P]          # tableau
+                        + _PLAN_CONSTS + [_P]),
+    "fixed_adjoint": ([_P] * 10 + [_I] * 5 + [_D]          # tau .. sign
+                      + [_I, _P, _P, _P]                    # tableau
+                      + _PLAN_CONSTS + [_P]),
 }
 
 #: Launch functions -> argument lists, each in float32 and float64.

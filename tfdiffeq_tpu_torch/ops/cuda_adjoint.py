@@ -291,13 +291,36 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     """Plain PyTorch version of K3: a host loop of attempts that mirrors
     `csrc/adjoint_kernel.cu` line for line. Same contract as
     `mlp_adjoint_solve`."""
-    tab = TABLEAUS_BY_NAME[method]
     if _check_rhs(rhs):
         time_input = True
         aug = _cnf_aug_eval_plain(warrays, dims, activation)
     else:
         aug = _aug_eval_plain(warrays, dims, activation, final_activation,
                               input_power, time_input)
+    ay0, aw, at, _, stats = adjoint_sweep_plain(
+        lambda t, y, ay: aug(t, y, ay) + (None,), warrays.shape[0],
+        time_input, 0, ys, g, tau, dt0, rtol, atol, sign,
+        seminorm=seminorm, method=method, safety=safety, ifactor=ifactor,
+        dfactor=dfactor, max_steps=max_steps)
+    return ay0, aw, at, stats
+
+
+def adjoint_sweep_plain(aug, n_w: int, time_input: bool, n_ps: int,
+                        ys: Tensor, g: Tensor, tau: Tensor, dt0, rtol, atol,
+                        sign, *, seminorm: bool = False,
+                        method: str = "dopri5", safety: float = 0.9,
+                        ifactor: float = 10.0, dfactor: float = 0.2,
+                        max_steps: int = 2 ** 31 - 1):
+    """K3's engine (csrc/rk_adjoint.cuh) in plain PyTorch, on a right-hand
+    side `aug(t, y, a_y)` -> (f, v_y [B, D], xw [B, n_w]: each sample's
+    cotangent term of every shared quadrature, v_t [B] or None, xs
+    [B, n_ps] or None: the per-sample quadratures' terms). The shared
+    quadratures are summed over the batch a stage (`_lane_sums`); the
+    per-sample ones are integrated a sample each, and join the error norm
+    after the sample's (y, a_y) (unless `seminorm`).
+
+    Returns (ay0 [B, D], aw [n_w], at (0-d), aps [B, n_ps], stats)."""
+    tab = TABLEAUS_BY_NAME[method]
     dev, dtype = ys.device, ys.dtype
     T, B, D = ys.shape
     S = tab.stages
@@ -305,13 +328,14 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
     rtol, atol, sf = on(rtol), on(atol), on(sign)
     sigma = on(-tau_h)
-    n_w = warrays.shape[0]
-    n_el = 2 * D * B if seminorm else 2 * D * B + n_w + int(time_input)
-    denom = torch.tensor(float(n_el), dtype=dtype, device=dev)
+    n_el = (2.0 * D * B if seminorm
+            else 2.0 * D * B + n_w + int(time_input) + float(n_ps) * B)
+    denom = torch.tensor(n_el, dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
 
     ay = torch.zeros((B, D), dtype=dtype, device=dev)
     aw = torch.zeros(n_w, dtype=dtype, device=dev)
+    aps = torch.zeros((B, n_ps), dtype=dtype, device=dev)
     at = zero
     dt, dt_min = on(dt0), on(dt_min)
     nfe = nacc = nrej = status = 0
@@ -326,7 +350,7 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
             rem = s_end - s
             s1 = torch.where(dt >= rem, s_end, s + torch.minimum(dt, rem))
             dth = s1 - s
-            ky, kay, kw = [], [], []
+            ky, kay, kw, kps = [], [], [], []
             for st in range(S):
                 yi, ayi = y, ay
                 if st > 0:
@@ -334,22 +358,29 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                         if aij != 0.0:
                             yi = yi + (dth * aij) * kyj
                             ayi = ayi + (dth * aij) * kayj
-                f, v_y, xw, v_t = aug((-sf) * (s + tab.c[st] * dth), yi,
-                                      ayi)
+                f, v_y, xw, v_t, xs = aug((-sf) * (s + tab.c[st] * dth), yi,
+                                          ayi)
                 ky.append((-sf) * f)
                 kay.append(sf * v_y)
                 if time_input:
                     xw = torch.cat([xw, v_t[:, None]], dim=1)
                 kw.append(sf * _lane_sums(xw))
+                if n_ps:
+                    kps.append(sf * xs)
             dy = _combine(dth, ky, tab.b_sol)
             day = _combine(dth, kay, tab.b_sol)
             y1, ay1 = y + dy, ay + day
-            sq = torch.cat([
-                _sq_scaled(_combine(dth, ky, tab.b_err), y, y1, rtol,
-                           atol),
-                _sq_scaled(_combine(dth, kay, tab.b_err), ay, ay1,
-                           rtol, atol)], dim=1)
-            ss = _owned_sums(sq, ADJOINT_THREADS)
+            sq = [_sq_scaled(_combine(dth, ky, tab.b_err), y, y1, rtol,
+                             atol),
+                  _sq_scaled(_combine(dth, kay, tab.b_err), ay, ay1,
+                             rtol, atol)]
+            dps = None
+            if n_ps:
+                dps = _combine(dth, kps, tab.b_sol)
+                if not seminorm:
+                    sq.append(_sq_scaled(_combine(dth, kps, tab.b_err), aps,
+                                         aps + dps, rtol, atol))
+            ss = _owned_sums(torch.cat(sq, dim=1), ADJOINT_THREADS)
             dw = _combine(dth, [k[:n_w] for k in kw], tab.b_sol)
             if not seminorm:
                 ew = _combine(dth, [k[:n_w] for k in kw], tab.b_err)
@@ -386,6 +417,8 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                 cay = (ay_new - ay) - adj
                 ay = ay_new
                 aw = aw + dw
+                if n_ps:
+                    aps = aps + dps
                 at = at + d_at
                 s, s_h = s1, s1_h
             n_att = nacc + nrej + 1
@@ -399,7 +432,7 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
             nrej += int(not accept)
     stats = torch.tensor([nfe, nacc, nrej, status], dtype=torch.int32,
                          device=dev)
-    return ay + g[0], aw, at, stats
+    return ay + g[0], aw, at, aps, stats
 
 
 def _work_size(dims, S: int, B: int, D: int, cnf: bool = False) -> int:

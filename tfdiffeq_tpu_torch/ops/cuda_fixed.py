@@ -262,6 +262,24 @@ def mlp_adjoint_solve_fixed_plain(warrays: Tensor, dims, ys: Tensor,
     the batch once, at the end, in `_block_sums`' order. (The reference
     sums each stage over the batch first, so the two agree to roundoff.)
     """
+    aug = _aug_eval_plain(warrays, dims, activation, final_activation,
+                          input_power, time_input)
+    ay0, aw, at, _, stats = fixed_adjoint_plain(
+        lambda t, y, ay: aug(t, y, ay) + (None,), warrays.shape[0],
+        time_input, 0, ys, g, tau, sign, num_steps=num_steps, method=method)
+    return ay0, aw, at, stats
+
+
+def fixed_adjoint_plain(aug, n_w: int, time_input: bool, n_ps: int,
+                        ys: Tensor, g: Tensor, tau: Tensor, sign, *,
+                        num_steps: int = 1, method: str = "rk4"):
+    """K9's engine in plain PyTorch, on a right-hand side `aug(t, y, a_y)`
+    -> (f, v_y, xw [B, n_w], v_t [B] or None, xs [B, n_ps] or None), as
+    `cuda_adjoint.adjoint_sweep_plain`'s: a sample's running quadratures
+    hold its shared ones (v_t's last), then its per-sample ones; only the
+    shared ones meet over the batch at the end.
+
+    Returns (ay0, aw [n_w], at, aps [B, n_ps], stats)."""
     tab = _tableau(method)
     dev, dtype = ys.device, ys.dtype
     T, B, D = ys.shape
@@ -269,9 +287,8 @@ def mlp_adjoint_solve_fixed_plain(warrays: Tensor, dims, ys: Tensor,
     on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
     sf = on(sign)
     sigma = on(-tau.detach().to("cpu", dtype))
-    aug = _aug_eval_plain(warrays, dims, activation, final_activation,
-                          input_power, time_input)
     n_sub_d = on(float(n_sub))
+    R = n_w + int(time_input)
 
     def comb(ks):
         acc = None
@@ -282,8 +299,7 @@ def mlp_adjoint_solve_fixed_plain(warrays: Tensor, dims, ys: Tensor,
         return acc
 
     ay = torch.zeros((B, D), dtype=dtype, device=dev)
-    acc = torch.zeros((B, warrays.shape[0] + int(time_input)), dtype=dtype,
-                      device=dev)
+    acc = torch.zeros((B, R + n_ps), dtype=dtype, device=dev)
     for i in range(T - 1, 0, -1):
         y = ys[i]
         ay = ay + g[i]
@@ -301,11 +317,12 @@ def mlp_adjoint_solve_fixed_plain(warrays: Tensor, dims, ys: Tensor,
                         if aij != 0.0:
                             yi = yi + (h * aij) * kyj
                             ayi = ayi + (h * aij) * kayj
-                f, v_y, xw, v_t = aug((-sf) * (s + tab.c[st] * h), yi, ayi)
+                f, v_y, xw, v_t, xs = aug((-sf) * (s + tab.c[st] * h), yi,
+                                          ayi)
                 ky.append((-sf) * f)
                 kay.append(sf * v_y)
-                if time_input:
-                    xw = torch.cat([xw, v_t[:, None]], dim=1)
+                xw = torch.cat([xw] + ([v_t[:, None]] if time_input else [])
+                               + ([xs] if n_ps else []), dim=1)
                 kx.append(sf * xw)
             adj = comb(ky) - cy
             y_new = y + adj
@@ -316,13 +333,12 @@ def mlp_adjoint_solve_fixed_plain(warrays: Tensor, dims, ys: Tensor,
             cay = (ay_new - ay) - adj
             ay = ay_new
             acc = acc + comb(kx)
-    total = _block_sums(acc, FIXED_THREADS)
-    n_w = warrays.shape[0]
+    total = _block_sums(acc[:, :R], FIXED_THREADS)
     at = total[n_w] if time_input else torch.zeros((), dtype=dtype,
                                                     device=dev)
     stats = torch.tensor([S * n_sub * (T - 1), n_sub * (T - 1), 0, 0],
                          dtype=torch.int32, device=dev)
-    return ay + g[0], total[:n_w], at, stats
+    return ay + g[0], total[:n_w], at, acc[:, R:], stats
 
 
 def _adjoint_work_size(dims, S: int, B: int, D: int,

@@ -348,6 +348,29 @@ def mlp_perlane_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor,
     `cuda_fixed._block_sums`' order. (The reference sums each stage over
     the batch first, so the two agree to roundoff.)
     """
+    aug = _aug_eval_plain(warrays, dims, activation, final_activation,
+                          input_power, time_input)
+    ay0, aw, at, _, stats, lane = perlane_adjoint_plain(
+        lambda t, y, ay: aug(t, y, ay) + (None,), warrays.shape[0],
+        time_input, 0, ys, g, tau, dt0, rtol, atol, sign, method=method,
+        safety=safety, ifactor=ifactor, dfactor=dfactor,
+        max_steps=max_steps)
+    return ay0, aw, at, stats, lane
+
+
+def perlane_adjoint_plain(aug, n_w: int, time_input: bool, n_ps: int,
+                          ys: Tensor, g: Tensor, tau: Tensor, dt0, rtol,
+                          atol, sign, *, method: str = "dopri5",
+                          safety: float = 0.9, ifactor: float = 10.0,
+                          dfactor: float = 0.2,
+                          max_steps: int = 2 ** 31 - 1):
+    """K6's engine in plain PyTorch, on a right-hand side `aug(t, y, a_y)`
+    -> (f, v_y, xw [B, n_w], v_t [B] or None, xs [B, n_ps] or None), as
+    `cuda_adjoint.adjoint_sweep_plain`'s. A sample's STEP row holds its
+    shared quadratures (v_t's last) and then its per-sample ones; only the
+    shared ones meet over the batch at the end.
+
+    Returns (ay0, aw [n_w], at, aps [B, n_ps], stats, lane_stats)."""
     tab = _tableau(method)
     dev, dtype = ys.device, ys.dtype
     T, B, D = ys.shape
@@ -356,13 +379,11 @@ def mlp_perlane_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor,
     on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
     rtol, atol, sf = on(rtol), on(atol), on(sign)
     sigma = on(-tau_h)
-    aug = _aug_eval_plain(warrays, dims, activation, final_activation,
-                          input_power, time_input)
-    n_w = warrays.shape[0]
     denom, dt_min = on(float(2 * D)), on(dt_min)
+    R = n_w + int(time_input)
 
     ay = torch.zeros((B, D), dtype=dtype, device=dev)
-    acc = torch.zeros((B, n_w + int(time_input)), dtype=dtype, device=dev)
+    acc = torch.zeros((B, R + n_ps), dtype=dtype, device=dev)
     zeros = torch.zeros(B, dtype=torch.int64, device=dev)
     nfe, nacc, nrej, status = zeros, zeros, zeros, zeros
     for i in range(T - 1, 0, -1):
@@ -388,13 +409,14 @@ def mlp_perlane_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor,
                         if aij != 0.0:
                             yi = yi + (h * aij) * kyj
                             ayi = ayi + (h * aij) * kayj
-                f, v_y, xw, v_t = aug((-sf) * (s + tab.c[st] * dth), yi,
-                                      ayi)
+                f, v_y, xw, v_t, xs = aug((-sf) * (s + tab.c[st] * dth),
+                                          yi, ayi)
                 ky.append((-sf) * f)
                 kay.append(sf * v_y)
                 if tab.b_sol[st] != 0.0:
-                    if time_input:
-                        xw = torch.cat([xw, v_t[:, None]], dim=1)
+                    xw = torch.cat([xw] + ([v_t[:, None]] if time_input
+                                           else [])
+                                   + ([xs] if n_ps else []), dim=1)
                     term = (h * tab.b_sol[st]) * (sf * xw)
                     step = term if step is None else step + term
             dy = _combine(h, ky, tab.b_sol)
@@ -434,11 +456,11 @@ def mlp_perlane_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor,
             status = torch.where((nacc + nrej >= max_steps) & (s < s_end)
                                  & (status == 0), 1, status)
             dt = dt_next
-    total = _block_sums(acc, PERLANE_THREADS)
+    total = _block_sums(acc[:, :R], PERLANE_THREADS)
     at = total[n_w] if time_input else torch.zeros((), dtype=dtype,
                                                     device=dev)
     stats, lane = _stats(nfe, nacc, nrej, status)
-    return ay + g[0], total[:n_w], at, stats, lane
+    return ay + g[0], total[:n_w], at, acc[:, R:], stats, lane
 
 
 def _adjoint_work_size(dims, S: int, B: int, D: int,

@@ -1,5 +1,6 @@
-"""K14 in its hosts: the launch wrappers of a generated plan in K2, K8 and
-K5, their launch counters and their plain PyTorch versions.
+"""K14 and K15 in their hosts: the launch wrappers of a generated plan in
+K2, K8 and K5, of its reverse walk in K3, K6 and K9, their launch counters
+and their plain PyTorch versions.
 
 Counterpart of `tfdiffeq_tpu/ops/jaxpr_bridge.py:1038` (`plan_solve`: the
 adaptive solve, one controller or, with `per_sample`, one a sample) and
@@ -20,17 +21,40 @@ right-hand side is CUDA C++ generated for its structure
   only; a coupled one raises NotImplementedError, ROADMAP.md queue 1
   item 16).
 
+K15, the plan's reverse-mode walk (reference `tfdiffeq_tpu/ops/
+plan_adjoint.py:154`), generated as CUDA C++ (`plan_codegen.aug_source`'s
+`PlanAug`) inside the adjoint sweeps (`csrc/plan_aug.cuh` with
+`csrc/rk_adjoint.cuh`):
+
+- `plan_adjoint_solve` (reference `plan_adjoint.py:529`): K3, one
+  controller; a coupled plan's walk batch-wide, cut at each coupling and at
+  each coupling's transpose with a block meet.
+- `plan_perlane_adjoint_solve` (`plan_adjoint.py:469`): K6, a controller a
+  sample, under the (y, a_y) seminorm; a coupled plan raises ValueError, as
+  in the reference.
+- `plan_adjoint_solve_fixed` (`pallas_fixed.py:1019`): K9 on a fixed grid;
+  a coupled plan raises NotImplementedError (ROADMAP.md queue 1 item 16).
+
+Each returns a cotangent for every packed constant (`pack_consts`'
+shapes): the shared ones summed over the batch, a per-sample constant's per
+sample.
+
 Each wrapper takes its plain version only for tensors on the CPU: the
 whole-solve engines of `cuda_kernels.adaptive_solve_plain`,
 `cuda_fixed.fixed_solve_plain` and `cuda_perlane.perlane_solve_plain` with
-`plan_bridge.eval_plan_host` as the right-hand side. A CUDA tensor launches the
-kernel or raises; a failed build or launch raises RuntimeError.
+`plan_bridge.eval_plan_host` as the right-hand side, and the sweeps of
+`cuda_adjoint.adjoint_sweep_plain`, `cuda_perlane.perlane_adjoint_plain`
+and `cuda_fixed.fixed_adjoint_plain` with `plan_adjoint.aug_terms`. A
+CUDA tensor launches the kernel or raises; a failed build or launch raises
+RuntimeError.
 
 The constants sit in shared memory when they fit beside the kernel's own
 shared arrays within `cuda_kernels.MAX_WEIGHT_BYTES`, else the kernel reads
 them from global memory; `last_route` records the choice of the latest
 launch on each host ('shared' or 'global'). `plan_solve_launches`,
-`plan_fixed_launches` and `plan_perlane_launches` count launches;
+`plan_fixed_launches`, `plan_perlane_launches`, `plan_adjoint_launches`,
+`plan_perlane_adjoint_launches` and `plan_fixed_adjoint_launches` count
+launches (a K6 or K9 sweep and its block-sum launch count one);
 `reset_launch_counts()` zeroes them.
 """
 
@@ -43,13 +67,17 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _build, plan_codegen
-from .cuda_fixed import FIXED_THREADS, fixed_solve_plain
+from .cuda_adjoint import ADJOINT_THREADS, adjoint_sweep_plain
+from .cuda_fixed import FIXED_THREADS, fixed_adjoint_plain, fixed_solve_plain
 from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS,
                            _check_float, _device_kind, _increasing, _ptr,
                            _solve_setup, _stream, _tableau_args,
                            adaptive_solve_plain)
-from .cuda_perlane import PERLANE_THREADS, _lane_setup, perlane_solve_plain
-from .plan_bridge import FusedPlan, eval_plan_host
+from .cuda_perlane import (PERLANE_THREADS, _lane_setup,
+                           perlane_adjoint_plain, perlane_solve_plain)
+from .plan_adjoint import aug_terms, split_consts
+from .plan_bridge import (FusedPlan, check_plan_adjoint, eval_plan_host,
+                          plan_uses_t)
 from .tableaus import FIXED_TABLEAUS_BY_NAME, TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
@@ -57,15 +85,23 @@ Tensor = torch.Tensor
 plan_solve_launches = 0
 plan_fixed_launches = 0
 plan_perlane_launches = 0
+plan_adjoint_launches = 0
+plan_perlane_adjoint_launches = 0
+plan_fixed_adjoint_launches = 0
 #: host -> 'shared' or 'global': where the latest launch read the constants.
 last_route = {}
 
 
 def reset_launch_counts() -> None:
     global plan_solve_launches, plan_fixed_launches, plan_perlane_launches
+    global plan_adjoint_launches, plan_perlane_adjoint_launches
+    global plan_fixed_adjoint_launches
     plan_solve_launches = 0
     plan_fixed_launches = 0
     plan_perlane_launches = 0
+    plan_adjoint_launches = 0
+    plan_perlane_adjoint_launches = 0
+    plan_fixed_adjoint_launches = 0
 
 
 @functools.lru_cache(maxsize=256)
@@ -306,3 +342,312 @@ def plan_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     _check(lib, err, "plan_solve_fixed launch")
     plan_fixed_launches += 1
     return out, stats
+
+
+# ---------------------------------------------------------------------------
+# K15: the plan's reverse walk inside K3, K6 and K9
+# ---------------------------------------------------------------------------
+
+def _quad_counts(plan: FusedPlan) -> Tuple[int, bool, int]:
+    """(shared quadratures: the flat constants' count, whether a_t joins
+    them, per-sample quadratures: the per-sample constants' rows)."""
+    _, n_flat, _, n_rows = plan_codegen._const_layout(plan)
+    return n_flat, plan_uses_t(plan), n_rows
+
+
+def plan_aug(plan: FusedPlan, packed: Sequence[Tensor]):
+    """K15's plain version as the plain sweeps take it: aug(t, y [B, D],
+    a_y [B, D]) -> (f, v_y, xw [B, n_flat], v_t [B] or None, xs [B, n_rows])
+    by `plan_adjoint.aug_terms`; t is 0-d, or [B] per-sample times."""
+    ti = plan_uses_t(plan)
+
+    def aug(t, y, ay):
+        tt = t.reshape(1, -1) if t.ndim else t
+        f, v_y, xq, xs, v_t = aug_terms(plan, packed, tt, y.t(), ay.t())
+        return f.t(), v_y.t(), xq.t(), (v_t[0] if ti else None), xs.t()
+    return aug
+
+
+def _adjoint_inputs(plan: FusedPlan, packed, ys: Tensor, g: Tensor,
+                    name: str):
+    check_plan_adjoint(plan)
+    if ys.ndim != 3 or g.shape != ys.shape:
+        raise ValueError(f"{name}: ys and g must both be [T, B, D], got "
+                         f"{tuple(ys.shape)} and {tuple(g.shape)}")
+    if ys.shape[1] != plan.batch or ys.shape[2] != plan.dim:
+        raise ValueError(f"{name}: ys is {tuple(ys.shape)}, the plan takes "
+                         f"[T, {plan.batch}, {plan.dim}]")
+    if plan.out_rows != plan.dim:
+        raise ValueError(f"{name}: the sweep needs a square plan "
+                         "(out_rows == dim)")
+    dtype = ys.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} takes float32 or float64, got {dtype}")
+    _check_float("g", g, dtype)
+    return [p.to(ys.device, dtype) for p in packed]
+
+
+def plan_adjoint_solve_plain(plan: FusedPlan, packed: Sequence[Tensor],
+                             ys: Tensor, g: Tensor, tau: Tensor, dt0, rtol,
+                             atol, sign, *, method: str = "dopri5",
+                             safety: float = 0.9, ifactor: float = 10.0,
+                             dfactor: float = 0.2,
+                             max_steps: int = 2 ** 31 - 1,
+                             seminorm: bool = False):
+    """Plain PyTorch version of `plan_adjoint_solve`, on ys' device: K3's
+    engine (`cuda_adjoint.adjoint_sweep_plain`) with `aug_terms`."""
+    packed = _adjoint_inputs(plan, packed, ys, g, "plan_adjoint_solve")
+    n_flat, ti, n_rows = _quad_counts(plan)
+    ay0, aw, at, aps, stats = adjoint_sweep_plain(
+        plan_aug(plan, packed), n_flat, ti, n_rows, ys, g, tau, dt0, rtol,
+        atol, sign, seminorm=seminorm, method=method, safety=safety,
+        ifactor=ifactor, dfactor=dfactor, max_steps=max_steps)
+    return ay0, split_consts(plan, packed, aw, aps.t()), at, stats
+
+
+def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
+                       ys: Tensor, g: Tensor, tau: Tensor, dt0, rtol, atol,
+                       sign, *, method: str = "dopri5", safety: float = 0.9,
+                       ifactor: float = 10.0, dfactor: float = 0.2,
+                       max_steps: int = 2 ** 31 - 1, seminorm: bool = False):
+    """Fused adjoint backward sweep of a plan's dynamics, one K3 launch with
+    K15 as its augmented right-hand side (reference `plan_adjoint.py:529`).
+
+    packed: `plan_bridge.pack_consts`' output; ys, g: [T, B, D] forward
+    trajectory and output cotangents at the canonical times tau ([T],
+    increasing; sign as in `plan_solve`); dt0: the first backward step in
+    sigma = -tau, clamped to the span-scaled minimum; seminorm: leave the
+    constants' and the time quadratures out of the step control.
+
+    Returns (ay0 [B, D] = dL/dy0, dconsts: one cotangent a packed constant
+    in its shape, at (0-d, the integrated a_t quadrature; 0 when the plan
+    does not read t), stats [4] int32: nfe, accepted, rejected, status)."""
+    if method not in TABLEAUS_BY_NAME:
+        raise ValueError(f"unknown method {method!r}; available: "
+                         f"{sorted(TABLEAUS_BY_NAME)}")
+    if max_steps < 1:
+        raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+    kw = dict(method=method, safety=safety, ifactor=ifactor,
+              dfactor=dfactor, max_steps=max_steps, seminorm=seminorm)
+    if _device_kind(ys, g) == "cpu":
+        return plan_adjoint_solve_plain(plan, packed, ys, g, tau, dt0, rtol,
+                                        atol, sign, **kw)
+
+    global plan_adjoint_launches
+    packed = _adjoint_inputs(plan, packed, ys, g, "plan_adjoint_solve")
+    dtype, dev = ys.dtype, ys.device
+    T, B, D = ys.shape
+    tab = TABLEAUS_BY_NAME[method]
+    S = tab.stages
+    host = "adjoint"
+    lib = build([(plan, host)])[0]
+    lay = plan_codegen.aug_layout(plan)
+    consts, sample_consts = plan_codegen.flat_consts(plan, packed, B)
+    n_quad = 2 * lay.n_quad + S * (lay.n_quad + lay.time_input)
+    # Shared memory for the constants first (read in every stage), then the
+    # shared quadratures' accumulator, increment and stage values.
+    isz = ys.element_size()
+    smem = _consts_route(host, lay.n_quad, ADJOINT_THREADS, isz)
+    quad_smem = ((lay.n_quad if smem else 0) + n_quad
+                 + ADJOINT_THREADS) * isz <= MAX_WEIGHT_BYTES
+    tau_h, dt_min, dt0, _ = _solve_setup(tau, dt0, dtype)
+    tau_d = tau_h.to(dev)
+    c, a, b_sol, b_err = _tableau_args(tab)
+    ay0 = torch.empty((B, D), dtype=dtype, device=dev)
+    aw = torch.empty(max(1, lay.n_quad), dtype=dtype, device=dev)
+    at = torch.empty((), dtype=dtype, device=dev)
+    aps = torch.empty((max(1, lay.n_sample), B), dtype=dtype, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    # The engine's rows (csrc/rk_adjoint.cuh rk_adjoint_work_size), then
+    # the walk's: qr, and on the batch route X, AX, FO, VO, the live rows
+    # and the reduced values (csrc/plan_aug.cuh).
+    n_work = ((6 + 2 * S) * B * D + (2 + S) * lay.n_sample * B
+              + lay.q_rows * B)
+    if lay.segments > 1:
+        n_work += 4 * B * D + lay.live_rows * B + lay.red_values
+    work = torch.empty(max(1, n_work), dtype=dtype, device=dev)
+    pwork = torch.empty(1 if quad_smem else n_quad, dtype=dtype, device=dev)
+    ys_c, g_c = ys.contiguous(), g.contiguous()
+    with torch.cuda.device(dev):
+        err = _fn(lib, host, dtype)(
+            _ptr(tau_d), _ptr(ys_c), _ptr(g_c), _ptr(ay0), _ptr(aw),
+            _ptr(at), _ptr(aps), _ptr(stats), _ptr(work), _ptr(pwork), T, B,
+            D, ADJOINT_THREADS, float(dt0), float(rtol), float(atol),
+            float(dt_min), float(sign), float(safety), float(ifactor),
+            float(dfactor), int(min(max_steps, 2 ** 31 - 1)), int(seminorm),
+            S, tab.order, c, a, b_sol, b_err, _ptr(consts), lay.n_quad,
+            _ptr(sample_consts), int(smem), int(quad_smem), _stream(dev))
+    _check(lib, err, "plan_adjoint_solve launch")
+    plan_adjoint_launches += 1
+    return (ay0, split_consts(plan, packed, aw[:lay.n_quad],
+                                  aps[:lay.n_sample]), at, stats)
+
+
+def plan_perlane_adjoint_solve_plain(plan: FusedPlan,
+                                     packed: Sequence[Tensor], ys: Tensor,
+                                     g: Tensor, tau: Tensor, dt0, rtol, atol,
+                                     sign, *, method: str = "dopri5",
+                                     safety: float = 0.9,
+                                     ifactor: float = 10.0,
+                                     dfactor: float = 0.2,
+                                     max_steps: int = 2 ** 31 - 1):
+    """Plain PyTorch version of `plan_perlane_adjoint_solve`: K6's engine
+    (`cuda_perlane.perlane_adjoint_plain`) with `aug_terms`."""
+    packed = _adjoint_inputs(plan, packed, ys, g,
+                             "plan_perlane_adjoint_solve")
+    n_flat, ti, n_rows = _quad_counts(plan)
+    ay0, aw, at, aps, stats, lane = perlane_adjoint_plain(
+        plan_aug(plan, packed), n_flat, ti, n_rows, ys, g, tau, dt0, rtol,
+        atol, sign, method=method, safety=safety, ifactor=ifactor,
+        dfactor=dfactor, max_steps=max_steps)
+    return (ay0, split_consts(plan, packed, aw, aps.t()), at, stats,
+            lane)
+
+
+def plan_perlane_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
+                               ys: Tensor, g: Tensor, tau: Tensor, dt0, rtol,
+                               atol, sign, *, method: str = "dopri5",
+                               safety: float = 0.9, ifactor: float = 10.0,
+                               dfactor: float = 0.2,
+                               max_steps: int = 2 ** 31 - 1):
+    """`plan_adjoint_solve` with a step controller a sample, one K6 launch
+    (and its block-sum launch) with K15 (reference `plan_adjoint.py:469`):
+    every sample steps on its own (y, a_y) seminorm, adds the quadratures
+    of its accepted trials only, and its dt carries from one interval to
+    the next; dt0 is one step or one a sample ([B]). A coupled plan raises
+    ValueError (the samples are not independent).
+
+    Returns (ay0, dconsts, at, stats, lane_stats [4, B] int32)."""
+    if method not in TABLEAUS_BY_NAME:
+        raise ValueError(f"unknown method {method!r}; available: "
+                         f"{sorted(TABLEAUS_BY_NAME)}")
+    if plan.batch_coupled:
+        raise ValueError("per_sample=True with batch-coupled dynamics is "
+                         "unsupported (lanes are interdependent)")
+    if max_steps < 1:
+        raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+    kw = dict(method=method, safety=safety, ifactor=ifactor,
+              dfactor=dfactor, max_steps=max_steps)
+    if _device_kind(ys, g) == "cpu":
+        return plan_perlane_adjoint_solve_plain(plan, packed, ys, g, tau,
+                                                dt0, rtol, atol, sign, **kw)
+
+    global plan_perlane_adjoint_launches
+    packed = _adjoint_inputs(plan, packed, ys, g,
+                             "plan_perlane_adjoint_solve")
+    dtype, dev = ys.dtype, ys.device
+    T, B, D = ys.shape
+    tab = TABLEAUS_BY_NAME[method]
+    S = tab.stages
+    host = "perlane_adjoint"
+    lib = build([(plan, host)])[0]
+    lay = plan_codegen.aug_layout(plan)
+    consts, sample_consts = plan_codegen.flat_consts(plan, packed, B)
+    smem = _consts_route(host, lay.n_quad, PERLANE_THREADS,
+                         ys.element_size())
+    R = lay.n_quad + lay.time_input
+    n_blk = -(-B // PERLANE_THREADS)
+    # Named, so that they live until the launch has read them.
+    tau_h, dt_min, dt0_d, _ = _lane_setup(tau, dt0, B, dtype, dev)
+    tau_d = tau_h.to(dev)
+    c, a, b_sol, b_err = _tableau_args(tab)
+    ay0 = torch.empty((B, D), dtype=dtype, device=dev)
+    aw = torch.empty(max(1, lay.n_quad), dtype=dtype, device=dev)
+    at = torch.empty((), dtype=dtype, device=dev)
+    aps = torch.empty((max(1, lay.n_sample), B), dtype=dtype, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    lane = torch.empty((4, B), dtype=torch.int32, device=dev)
+    partial = torch.empty(max(1, n_blk * R), dtype=dtype, device=dev)
+    n_work = ((4 + 2 * S) * D + 2 * (R + lay.n_sample) + lay.q_rows) * B
+    work = torch.empty(n_work, dtype=dtype, device=dev)
+    ys_c, g_c = ys.contiguous(), g.contiguous()
+    with torch.cuda.device(dev):
+        err = _fn(lib, host, dtype)(
+            _ptr(tau_d), _ptr(ys_c), _ptr(g_c), _ptr(dt0_d), _ptr(ay0),
+            _ptr(aw), _ptr(at), _ptr(aps), _ptr(lane), _ptr(stats),
+            _ptr(partial), _ptr(work), T, B, D, PERLANE_THREADS, float(rtol),
+            float(atol), float(dt_min), float(sign), float(safety),
+            float(ifactor), float(dfactor), int(min(max_steps, 2 ** 31 - 1)),
+            S, tab.order, c, a, b_sol, b_err, _ptr(consts), lay.n_quad,
+            _ptr(sample_consts), int(smem), _stream(dev))
+    _check(lib, err, "plan_perlane_adjoint_solve launch")
+    plan_perlane_adjoint_launches += 1
+    return (ay0, split_consts(plan, packed, aw[:lay.n_quad],
+                                  aps[:lay.n_sample]), at, stats, lane)
+
+
+def plan_adjoint_solve_fixed_plain(plan: FusedPlan, packed: Sequence[Tensor],
+                                   ys: Tensor, g: Tensor, tau: Tensor, sign,
+                                   *, num_steps: int = 1,
+                                   method: str = "rk4"):
+    """Plain PyTorch version of `plan_adjoint_solve_fixed`: K9's engine
+    (`cuda_fixed.fixed_adjoint_plain`) with `aug_terms`."""
+    packed = _adjoint_inputs(plan, packed, ys, g, "plan_adjoint_solve_fixed")
+    n_flat, ti, n_rows = _quad_counts(plan)
+    ay0, aw, at, aps, stats = fixed_adjoint_plain(
+        plan_aug(plan, packed), n_flat, ti, n_rows, ys, g, tau, sign,
+        num_steps=num_steps, method=method)
+    return ay0, split_consts(plan, packed, aw, aps.t()), at, stats
+
+
+def plan_adjoint_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor],
+                             ys: Tensor, g: Tensor, tau: Tensor, sign, *,
+                             num_steps: int = 1, method: str = "rk4"):
+    """Fixed-grid fused adjoint backward sweep of a plan's dynamics, one K9
+    launch (and its block-sum launch) with K15 (reference
+    `pallas_fixed.py:1019`): `num_steps` equal steps of the tableau an
+    observation interval. A coupled plan raises NotImplementedError, as the
+    forward K8 does.
+
+    Returns (ay0, dconsts, at, stats [4] int32: nfe = stages * num_steps *
+    (T - 1), steps, 0, 0)."""
+    if method not in FIXED_TABLEAUS_BY_NAME:
+        raise ValueError(f"unknown fixed-grid method {method!r}; available: "
+                         f"{sorted(FIXED_TABLEAUS_BY_NAME)}")
+    if plan.batch_coupled:
+        raise NotImplementedError(
+            "batch-coupled dynamics on a fixed grid are not ported yet: "
+            "ROADMAP.md queue 1 item 16 (coupled plans in K8 and K9)")
+    if int(num_steps) < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    if _device_kind(ys, g) == "cpu":
+        return plan_adjoint_solve_fixed_plain(plan, packed, ys, g, tau, sign,
+                                              num_steps=num_steps,
+                                              method=method)
+
+    global plan_fixed_adjoint_launches
+    packed = _adjoint_inputs(plan, packed, ys, g, "plan_adjoint_solve_fixed")
+    dtype, dev = ys.dtype, ys.device
+    T, B, D = ys.shape
+    tab = FIXED_TABLEAUS_BY_NAME[method]
+    S = tab.stages
+    host = "fixed_adjoint"
+    lib = build([(plan, host)])[0]
+    lay = plan_codegen.aug_layout(plan)
+    consts, sample_consts = plan_codegen.flat_consts(plan, packed, B)
+    smem = _consts_route(host, lay.n_quad, FIXED_THREADS,
+                         ys.element_size())
+    R = lay.n_quad + lay.time_input
+    n_blk = -(-B // FIXED_THREADS)
+    tau_d = tau.detach().to("cpu", dtype).to(dev)
+    c, a, b_sol, _ = _tableau_args(tab)
+    ay0 = torch.empty((B, D), dtype=dtype, device=dev)
+    aw = torch.empty(max(1, lay.n_quad), dtype=dtype, device=dev)
+    at = torch.empty((), dtype=dtype, device=dev)
+    aps = torch.empty((max(1, lay.n_sample), B), dtype=dtype, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    partial = torch.empty(max(1, n_blk * R), dtype=dtype, device=dev)
+    n_work = ((4 + 2 * S) * D + 2 * (R + lay.n_sample) + lay.q_rows) * B
+    work = torch.empty(n_work, dtype=dtype, device=dev)
+    ys_c, g_c = ys.contiguous(), g.contiguous()
+    with torch.cuda.device(dev):
+        err = _fn(lib, host, dtype)(
+            _ptr(tau_d), _ptr(ys_c), _ptr(g_c), _ptr(ay0), _ptr(aw),
+            _ptr(at), _ptr(aps), _ptr(stats), _ptr(partial), _ptr(work), T,
+            B, D, FIXED_THREADS, int(num_steps), float(sign), S, c, a, b_sol,
+            _ptr(consts), lay.n_quad, _ptr(sample_consts), int(smem),
+            _stream(dev))
+    _check(lib, err, "plan_adjoint_solve_fixed launch")
+    plan_fixed_adjoint_launches += 1
+    return (ay0, split_consts(plan, packed, aw[:lay.n_quad],
+                                  aps[:lay.n_sample]), at, stats)

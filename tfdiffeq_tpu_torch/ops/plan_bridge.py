@@ -265,10 +265,11 @@ class _Lowering:
                 c = getattr(self.gm, n.target)
                 if not isinstance(c, Tensor):
                     raise FusionError(f"attribute {n.target} is no tensor")
-                c = c.detach()
-                if c.ndim == 0:
-                    # A concrete scalar constant folds to a literal value.
-                    self.env[n] = self.b.emit("litv", float(c))
+                if c.ndim == 0 and not c.requires_grad:
+                    # A concrete scalar constant folds to a literal value;
+                    # one that takes a gradient stays a 'scalar' constant
+                    # (jaxpr_bridge.py:328-334), so that its value is data.
+                    self.env[n] = self.b.emit("litv", float(c.detach()))
                 else:
                     self.env[n] = ("v", self.b.add_const(c))
                 continue
@@ -702,7 +703,7 @@ def _transposed_const(L, x):
     if ci is None:
         raise FusionError("transpose of a computed value unsupported (write "
                           "the contraction with @ against a weight)")
-    return ("v", L.b.add_const(L.b.consts[ci].t().contiguous()))
+    return ("v", L.b.add_const(L.b.consts[ci].t()))
 
 
 def _h_t(L, n, x):
@@ -830,9 +831,12 @@ def build_plan(func: Callable, t0, y0: Tensor, matmul: str = "auto",
                out_dim: int = None) -> Tuple[FusedPlan, list]:
     """Trace func(t, y) on the [B, D] batch-major state into a FusedPlan.
 
-    Returns (plan, consts): the constants the function closes over (module
-    parameters, captured tensors), detached, in plan order. Raises
-    FusionError when the dynamics fall outside the fusable subset.
+    Returns (plan, consts): the constants the function closes over, in
+    plan order, each its differentiable source: the user's tensor itself
+    (a module parameter, a captured tensor), or its `.t()` where the
+    function transposes a weight. A 0-d tensor that requires grad is a
+    'scalar' constant, every other 0-d tensor a literal of the plan.
+    Raises FusionError when the dynamics fall outside the fusable subset.
     `out_dim` permits a rectangular plan (output [B, out_dim])."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
@@ -883,13 +887,22 @@ def build_plan(func: Callable, t0, y0: Tensor, matmul: str = "auto",
 # ---------------------------------------------------------------------------
 
 def pack_consts(plan: FusedPlan, consts: Sequence[Tensor], dtype,
-                device=None) -> list:
+                device=None, differentiable: bool = False) -> list:
     """The traced constants in the plan's layouts (jaxpr_bridge.py:764),
     unpadded: 'wT' [dout, din], 'col' [d, 1], 'scalar' 0-d, 'batch' [d, B],
-    'bvec' [1, B], 'unused' an empty tensor."""
+    'bvec' [1, B], 'unused' an empty tensor.
+
+    Detached, unless `differentiable`: then each packed constant keeps
+    autograd's path back to its source in `consts`, so the cotangents of
+    the packed constants (K15's dconsts) reach the user's tensors, and a
+    tensor packed twice (a tied weight) sums its two cotangents, as JAX's
+    transpose of the packing does in the reference."""
     out = []
     for layout, c in zip(plan.const_layouts, consts):
-        c = torch.as_tensor(c).detach().to(device=device, dtype=dtype)
+        c = torch.as_tensor(c)
+        if not differentiable:
+            c = c.detach()
+        c = c.to(device=device, dtype=dtype)
         tag = layout[0]
         if tag == "wT":
             _, din, dout, transpose = layout
@@ -903,10 +916,90 @@ def pack_consts(plan: FusedPlan, consts: Sequence[Tensor], dtype,
         elif tag == "batch":
             out.append(c.reshape(c.shape[0], layout[1]).t().contiguous())
         elif tag == "unused":
-            out.append(c.new_zeros(0))
+            out.append(c.detach().new_zeros(0))
         else:                                      # pragma: no cover
             raise FusionError(f"unknown const layout {layout}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# What K15 (the plan's reverse walk) takes
+# ---------------------------------------------------------------------------
+
+def _instr_in_vids(ins) -> list:
+    """Value ids an instruction reads (not literals nor dot weights)."""
+    op = ins[0]
+    if op == "litv":
+        return []
+    if op == "dot":
+        return [ins[2]]
+    if op == "concat":
+        return [a[1] for a in ins[2] if a[0] == "v"]
+    return [x[1] for x in ins[2:]
+            if isinstance(x, tuple) and len(x) == 2 and x[0] == "v"]
+
+
+def plan_uses_t(plan: FusedPlan) -> bool:
+    """Whether the plan's output depends on the time input (the adjoint
+    then integrates the a_t quadrature; plan_adjoint.py:80)."""
+    live = {plan.t_id}
+    for ins in plan.instrs:
+        if any(v in live for v in _instr_in_vids(ins)):
+            live.add(ins[1])
+    return plan.out_id in live
+
+
+#: Unary ops whose gradient is zero (the reverse walk drops the cotangent).
+ZERO_GRAD_UN = frozenset({"sign", "floor", "ceil", "round", "stop_gradient",
+                          "not"})
+#: Unary ops with a gradient rule (ops/plan_adjoint.py _UN_GRADS).
+GRAD_UN = frozenset({"neg", "exp", "log", "log1p", "tanh", "logistic", "sin",
+                     "cos", "sqrt", "rsqrt", "abs", "copy", "expm1", "cosh",
+                     "sinh", "erf", "erfc", "tan", "asinh", "acosh",
+                     "atanh"})
+#: Comparisons and logical ops: no gradient flows.
+NO_GRAD_BIN = frozenset({"and", "or", "xor", "gt", "lt", "ge", "le", "eq",
+                         "ne"})
+
+
+def check_plan_adjoint(plan: FusedPlan) -> None:
+    """Raise FusionError when the plan holds an instruction the reverse
+    walk cannot differentiate (plan_adjoint.py:126): a feature-axis max or
+    min (argmax routing), a full (to-scalar) feature reduction, a unary op
+    without a gradient rule. The front ends then fall back."""
+    for ins in plan.instrs:
+        op = ins[0]
+        if op == "reduce" and ins[3] in ("max", "min"):
+            raise FusionError(
+                "fused adjoint through reduce_max/reduce_min is "
+                "unsupported (argmax routing); use the generic backward")
+        if op == "reduce" and ins[4]:
+            raise FusionError(
+                "fused adjoint through a full (to-scalar) reduction is "
+                "unsupported; use the generic backward")
+        if op == "un" and ins[3] not in GRAD_UN \
+                and ins[3] not in ZERO_GRAD_UN:
+            raise FusionError(
+                f"fused adjoint has no gradient rule for {ins[3]!r}")
+
+
+def _true_elems(plan: FusedPlan) -> int:
+    """Elements of every constant's cotangent quadrature: the parameter
+    share of the adjoint's error-norm denominator (plan_adjoint.py:444)."""
+    n = 0
+    for layout in plan.const_layouts:
+        tag = layout[0]
+        if tag == "wT":
+            n += layout[1] * layout[2]
+        elif tag == "col":
+            n += layout[1]
+        elif tag == "scalar":
+            n += 1
+        elif tag == "bvec":
+            n += plan.batch
+        elif tag == "batch":
+            n += layout[1] * plan.batch
+    return n
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ the plan).
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -41,8 +42,10 @@ from .plan_bridge import FusedPlan, FusionError
 Tensor = torch.Tensor
 
 #: Host kernels a plan runs in: K2 (one controller), K8 (fixed grid), K5
-#: (a controller a sample).
+#: (a controller a sample); its reverse walk (K15) in K3 (one controller),
+#: K6 (a controller a sample) and K9 (fixed grid).
 HOSTS = ("solve", "fixed", "perlane")
+AUG_HOSTS = ("adjoint", "perlane_adjoint", "fixed_adjoint")
 
 _UN_FN = {"exp": "p_exp", "log": "p_log", "log1p": "p_log1p",
           "tanh": "p_tanh", "logistic": "p_logistic", "sin": "p_sin",
@@ -415,6 +418,469 @@ class _Gen:
             "}  // namespace tfd\n")
 
 
+# ---------------------------------------------------------------------------
+# K15: the plan's reverse walk (ops/plan_adjoint.py aug_terms)
+# ---------------------------------------------------------------------------
+
+#: d out / d x of the unary ops, from x (X) and out (O): the expressions of
+#: plan_adjoint._un_grad.
+_UN_GRAD = {
+    "neg": "-T(1)", "exp": "{O}", "log": "T(1) / {X}",
+    "log1p": "T(1) / (T(1) + {X})", "tanh": "T(1) - {O} * {O}",
+    "logistic": "{O} * (T(1) - {O})", "sin": "p_cos({X})",
+    "cos": "-p_sin({X})", "sqrt": "T(0.5) / {O}",
+    "rsqrt": "(T(-0.5) * {O}) / {X}", "abs": "p_sign({X})", "copy": "T(1)",
+    "expm1": "{O} + T(1)",
+    "cosh": "T(0.5) * (p_exp({X}) - p_exp(-{X}))",
+    "sinh": "T(0.5) * (p_exp({X}) + p_exp(-{X}))",
+    "erf": "T(0x1.20dd750429b6dp+0) * p_exp(-({X} * {X}))",
+    "erfc": "T(-0x1.20dd750429b6dp+0) * p_exp(-({X} * {X}))",
+    "tan": "T(1) + {O} * {O}", "asinh": "T(1) / p_sqrt({X} * {X} + T(1))",
+    "acosh": "T(1) / p_sqrt({X} * {X} - T(1))",
+    "atanh": "T(1) / (T(1) - {X} * {X})",
+}
+
+_VAR = re.compile(r"\b([vg]\d+)\[")
+
+
+@dataclasses.dataclass(frozen=True)
+class AugLayout:
+    """What a launch sizes from a plan's reverse walk
+    (csrc/plan_aug.cuh): the shared quadratures (the flat constants, then
+    a_t), the per-sample ones, the rows of the walk's per-sample outputs
+    (`qr`), the segments, live rows and reduced values of a coupled walk."""
+    n_quad: int
+    time_input: int
+    n_sample: int
+    q_rows: int
+    segments: int
+    live_rows: int
+    red_values: int
+
+
+class _AugGen:
+    """The reverse walk of a plan as CUDA C++ segments, in the order of
+    plan_adjoint.aug_terms: the forward re-walk (the forward generator's
+    instructions), then every cotangent in reverse instruction order, cut
+    at each batch coupling and at each coupling's transpose, where the
+    block meets."""
+
+    def __init__(self, plan: FusedPlan):
+        from .plan_bridge import (NO_GRAD_BIN, ZERO_GRAD_UN,
+                                  check_plan_adjoint, plan_uses_t)
+        check_plan_adjoint(plan)
+        self.plan = plan
+        self.fw = _Gen(plan)
+        self.rows = self.fw.rows
+        self.ops: List[tuple] = []       # ('code', lines, writes) / ('meet',)
+        self.meets: List[List[tuple]] = []
+        self.red = self.fw.red_values
+        self.q_rows = 0
+        self.has = set()
+        self.sites: Dict[int, List[Tuple[int, int]]] = {}
+        rows, fw = self.rows, self.fw
+
+        # Forward re-walk.
+        for ins in plan.instrs:
+            if ins[0] in ("bsum", "bmax"):
+                kind = 0 if ins[0] == "bsum" else (2 if ins[5] else 1)
+                off = fw.red_off[ins[1]] - (ins[3] if ins[4] else 0)
+                a = ins[2]
+                self._meet([(kind, ins[3], off, int(ins[4]),
+                             lambda i, a=a: fw.ref(a, i))])
+            else:
+                L = []
+                fw.instr(ins, L.append)
+                self.ops.append(("code", L, {f"v{ins[1]}"}))
+
+        # Reverse walk.
+        out = plan.out_id
+        self._contrib(("v", out), plan.out_rows, lambda i: f"ay[{i}]")
+        for ins in reversed(plan.instrs):
+            op, o = ins[0], ins[1]
+            if op == "litv" or o not in self.has:
+                continue
+            R = rows[o]
+            c = lambda i, o=o: self._g(o, i)
+            P = lambda a, i: fw.ref(a, i)
+            if op == "un":
+                if ins[3] in ZERO_GRAD_UN:
+                    continue
+                a = ins[2]
+                grad = _UN_GRAD[ins[3]]
+                self._contrib(a, R, lambda i: "(" + c(i) + ") * (" + grad.format(
+                    X=P(a, i), O=P(("v", o), i)) + ")")
+            elif op == "bin":
+                name, a, b = ins[4], ins[2], ins[3]
+                if name in NO_GRAD_BIN:
+                    continue
+                if name == "add":
+                    self._contrib(a, R, c)
+                    self._contrib(b, R, c)
+                elif name == "sub":
+                    self._contrib(a, R, c)
+                    self._contrib(b, R, lambda i: f"-{c(i)}")
+                elif name == "mul":
+                    self._contrib(a, R, lambda i: f"{c(i)} * {P(b, i)}")
+                    self._contrib(b, R, lambda i: f"{c(i)} * {P(a, i)}")
+                elif name == "div":
+                    self._contrib(a, R, lambda i: f"{c(i)} / {P(b, i)}")
+                    self._contrib(b, R, lambda i: (
+                        f"((-{c(i)}) * {P(a, i)}) / ({P(b, i)} * {P(b, i)})"))
+                elif name in ("max", "min"):
+                    cmp = ">" if name == "max" else "<"
+                    w = lambda i: (f"({P(a, i)} == {P(b, i)} ? T(0.5) : "
+                                   f"({P(a, i)} {cmp} {P(b, i)} ? T(1) : "
+                                   f"T(0)))")
+                    self._contrib(a, R, lambda i: f"{c(i)} * {w(i)}")
+                    self._contrib(b, R, lambda i: f"{c(i)} * (T(1) - {w(i)})")
+                elif name == "pow":
+                    oo = lambda i: P(("v", o), i)
+                    self._contrib(a, R, lambda i: (
+                        f"(({c(i)} * {P(b, i)}) * {oo(i)}) / {P(a, i)}"))
+                    self._contrib(b, R, lambda i: (
+                        f"({c(i)} * {oo(i)}) * p_log({P(a, i)})"))
+                else:                              # pragma: no cover
+                    raise FusionError(f"binary op {name!r}")
+            elif op == "ipow":
+                n, a = ins[3], ins[2]
+                if n == 0:
+                    continue
+                if n == 1:
+                    self._contrib(a, R, c)
+                elif n >= 2:
+                    xp = lambda i: " * ".join([P(a, i)] * (n - 1))
+                    self._contrib(a, R, lambda i: (
+                        f"{c(i)} * ({_lit(float(n))} * ({xp(i)}))"))
+                else:
+                    self._contrib(a, R, lambda i: (
+                        f"{c(i)} * (({_lit(float(n))} * {P(('v', o), i)}) / "
+                        f"{P(a, i)})"))
+            elif op == "clamp":
+                lo, x, hi = ins[2], ins[3], ins[4]
+                self._contrib(x, R, lambda i: (
+                    f"(({P(x, i)} >= {P(lo, i)}) && ({P(x, i)} <= "
+                    f"{P(hi, i)}) ? {c(i)} : T(0))"))
+                self._contrib(lo, R, lambda i: (
+                    f"({P(x, i)} < {P(lo, i)} ? {c(i)} : T(0))"))
+                self._contrib(hi, R, lambda i: (
+                    f"({P(x, i)} > {P(hi, i)} ? {c(i)} : T(0))"))
+            elif op == "select":
+                p, c0, c1 = ins[2], ins[3], ins[4]
+                self._contrib(c1, R, lambda i: (
+                    f"({P(p, i)} != T(0) ? {c(i)} : T(0))"))
+                self._contrib(c0, R, lambda i: (
+                    f"({P(p, i)} != T(0) ? T(0) : {c(i)})"))
+            elif op == "cast":
+                if not ins[3]:
+                    self._contrib(ins[2], R, c)
+            elif op in ("bcast", "reshape"):
+                self._contrib(ins[2], R, c)
+            elif op == "concat":
+                off = 0
+                for a in ins[2]:
+                    r = 1 if a[0] == "l" else rows[a[1]]
+                    self._contrib(a, r, lambda i, off=off: c(f"{off} + {i}"))
+                    off += r
+            elif op == "slice":
+                a, r0, r1 = ins[2], ins[3], ins[4]
+                self._contrib(a, rows[a[1]], lambda i: (
+                    f"(({i}) >= {r0} && ({i}) < {r1} ? "
+                    f"{c(f'({i}) - {r0}')} : T(0))"))
+            elif op == "rev":
+                self._contrib(ins[2], R, lambda i: c(f"{R - 1} - ({i})"))
+            elif op == "reduce":
+                a = ins[2]
+                self._contrib(a, rows[a[1]], lambda i: c("0"))
+            elif op == "bsum":
+                off = self._new_red(R)
+                self._meet([(0, R, off, 0, c)])
+                self._contrib(ins[2], ins[3], lambda i: (
+                    f"red[{off} + {i if R > 1 else 0}]"))
+            elif op == "bmax":
+                r, a = ins[3], ins[2]
+                # Bound now: the meet writes its input after the walk.
+                tie = (lambda i, a=a, o=o:
+                       f"p_bool<T>({P(a, i)} == {P(('v', o), i)})")
+                off_c = self._new_red(R)
+                off_n = self._new_red(r + (1 if ins[4] else 0))
+                self._meet([(0, R, off_c, 0, c),
+                            (0, r, off_n, int(ins[4]), tie)])
+                cnt = (lambda i: f"red[{off_n + r}]") if ins[4] else (
+                    lambda i: f"red[{off_n} + {i}]")
+                cc = (lambda i: f"red[{off_c} + {i}]") if R > 1 else (
+                    lambda i: f"red[{off_c}]")
+                self._contrib(a, r, lambda i: (
+                    f"{tie(i)} * ({cc(i)} / {cnt(i)})"))
+            elif op == "dot":
+                _, _, a_id, cidx, din, dout, _mxu = ins
+                w = fw.const_off[cidx]
+                hrow, crow = self._new_q(din), self._new_q(dout)
+                self.sites.setdefault(cidx, []).append((crow, hrow))
+                L = [_loop(din, f"qr[long({hrow} + i) * B + b] = "
+                               f"{P(('v', a_id), 'i')};"),
+                     _loop(dout, f"qr[long({crow} + i) * B + b] = "
+                                 f"{c('i')};")]
+                tmp = f"dh{len(self.ops)}"
+                unroll = ("#pragma unroll" if din * dout <= _UNROLL_DOT
+                          else "#pragma unroll 1")
+                L += [f"  T {tmp}[{din}];", unroll,
+                      f"  for (int i = 0; i < {din}; ++i) {{",
+                      f"    T acc = c[{w} + i] * {c('0')};"]
+                if dout > 1:
+                    L += [unroll,
+                          f"    for (int o = 1; o < {dout}; ++o) acc = acc "
+                          f"+ c[{w} + o * {din} + i] * {c('o')};"]
+                L += [f"    {tmp}[i] = acc;", "  }"]
+                self.ops.append(("code", L, set()))
+                self._contrib(("v", a_id), din, lambda i: f"{tmp}[{i}]")
+            else:                                  # pragma: no cover
+                raise AssertionError(f"bad instr {op}")
+
+        # The walk's outputs: f, v_y, and the rows of the quadratures.
+        L = [_loop(plan.out_rows, f"f[i] = {fw.ref(('v', out), 'i')};"),
+             _loop(plan.dim, "vy[i] = " + (self._g(plan.y_id, "i")
+                                           if plan.y_id in self.has
+                                           else "T(0)") + ";")]
+        self.final_row = {}
+        for vid in [plan.t_id] + list(plan.const_val_ids):
+            if vid in self.has and vid != plan.y_id:
+                r = self.rows[vid]
+                row = self.final_row[vid] = self._new_q(r)
+                L.append(_loop(r, f"qr[long({row} + i) * B + b] = "
+                                  f"{self._g(vid, 'i')};"))
+        self.ops.append(("code", L, set()))
+        self.time_input = int(plan_uses_t(plan))
+        self._segment()
+
+    # ---- building blocks ----
+    def _g(self, vid: int, i) -> str:
+        return f"g{vid}[{i if self.rows[vid] > 1 else 0}]"
+
+    def _new_red(self, n: int) -> int:
+        off = self.red
+        self.red += n
+        return off
+
+    def _new_q(self, n: int) -> int:
+        row = self.q_rows
+        self.q_rows += n
+        return row
+
+    def _meet(self, calls) -> None:
+        self.ops.append(("meet", calls))
+
+    def _contrib(self, a, R: int, expr) -> None:
+        """Add the R-row contribution expr(i) to atom a's cotangent: the
+        first assigns it, a later one adds; R rows into a one-row value
+        fold in row order (plan_adjoint.aug_terms addct)."""
+        if a[0] == "l":
+            return
+        vid = a[1]
+        tr = self.rows[vid]
+        name = f"g{vid}"
+        first = vid not in self.has
+        self.has.add(vid)
+        L = [f"  T {name}[{tr}];"] if first else []
+        if tr == R:
+            rhs = expr("i") if first else f"{name}[i] + {expr('i')}"
+            L.append(_loop(R, f"{name}[i] = {rhs};"))
+        else:
+            L.append(f"  {{ T acc = {expr('0')};")
+            if R > 1:
+                L.append("#pragma unroll" if R <= _UNROLL_ROWS
+                         else "#pragma unroll 1")
+                L.append(f"    for (int i = 1; i < {R}; ++i) "
+                         f"acc = acc + {expr('i')};")
+            L.append(f"    {name}[0] = " + ("acc" if first
+                                            else f"{name}[0] + acc") + "; }")
+        self.ops.append(("code", L, {name}))
+
+    def _segment(self) -> None:
+        """Cut the ops at the meets; give every variable that more than one
+        segment touches live rows; write each meet's inputs to their rows at
+        the end of the segment before it."""
+        segs, meets = [[]], []
+        for op in self.ops:
+            if op[0] == "meet":
+                meets.append(op[1])
+                segs.append([])
+            else:
+                segs[-1].append(op)
+        self.meets = meets
+        decl = {}
+        refs = []
+        for k, seg in enumerate(segs):
+            rk = set()
+            for op in seg:
+                for line in op[1]:
+                    rk.update(_VAR.findall(line))
+                for v in op[2]:
+                    decl.setdefault(v, k)
+            refs.append(rk)
+        # The meets' inputs read variables at the end of their segment.
+        self.cin = []
+        live = 0
+        meet_lines = []
+        for k, calls in enumerate(meets):
+            L, rows_k = [], []
+            for kind, r, off, to_scalar, expr in calls:
+                rows_k.append(live)
+                L.append(_loop(r, f"live[long({live} + i) * B + b] = "
+                                  f"{expr('i')};"))
+                live += r
+            self.cin.append(rows_k)
+            meet_lines.append(L)
+            for line in L:
+                refs[k].update(_VAR.findall(line))
+        nseg = len(segs)
+        self.live_row = {}
+        for v in sorted(decl, key=lambda v: (decl[v], v)):
+            if any(v in refs[k] for k in range(decl[v] + 1, nseg)):
+                self.live_row[v] = live
+                live += self.rows[int(v[1:])]
+        self.live_rows = live
+        self.segments = []
+        for k, seg in enumerate(segs):
+            L = []
+            for v in sorted(refs[k]):
+                if decl.get(v, k) < k:
+                    r, row = self.rows[int(v[1:])], self.live_row[v]
+                    L.append(f"  T {v}[{r}];")
+                    L.append(_loop(r, f"{v}[i] = live[long({row} + i) * B "
+                                      f"+ b];"))
+            for op in seg:
+                L.extend(op[1])
+            for v in sorted(refs[k]):
+                if v in self.live_row and any(
+                        v in refs[j] for j in range(k + 1, nseg)):
+                    r, row = self.rows[int(v[1:])], self.live_row[v]
+                    L.append(_loop(r, f"live[long({row} + i) * B + b] = "
+                                      f"{v}[i];"))
+            if k < len(meets):
+                L.extend(meet_lines[k])
+            self.segments.append(L)
+
+    # ---- output ----
+    def layout(self) -> AugLayout:
+        plan = self.plan
+        n_sample = sum(lay[1] if lay[0] == "batch" else 1
+                       for lay in plan.const_layouts
+                       if lay[0] in ("batch", "bvec"))
+        return AugLayout(self.fw.n_consts, self.time_input, n_sample,
+                         self.q_rows, len(self.segments), self.live_rows,
+                         self.red)
+
+    def quad_body(self) -> str:
+        """quad_x(r): a shared quadrature's per-sample term; sample_x(j): a
+        per-sample constant's cotangent (0 where nothing reaches it)."""
+        plan, fw = self.plan, self.fw
+        L = []
+        for cidx, lay in enumerate(plan.const_layouts):
+            tag = lay[0]
+            if tag not in ("wT", "col", "scalar"):
+                continue
+            off = fw.const_off[cidx]
+            n = lay[1] * lay[2] if tag == "wT" else (
+                lay[1] if tag == "col" else 1)
+            L.append(f"    if (r < {off + n}) {{")
+            if tag == "wT":
+                din = lay[1]
+                L.append(f"      const int o = (r - {off}) / {din}, "
+                         f"i = (r - {off}) % {din};")
+                terms = [f"qr[long({cr} + o) * B + b] * qr[long({hr} + i) * "
+                         f"B + b]" for cr, hr in self.sites.get(cidx, [])]
+                L.append("      T x = " + terms[0] + ";")
+                for tm in terms[1:]:
+                    L.append(f"      x = x + {tm};")
+                L.append("      return x;")
+            else:
+                row = self.final_row.get(plan.const_val_ids[cidx])
+                L.append("      return " + (
+                    "T(0)" if row is None
+                    else f"qr[long({row} + r - {off}) * B + b]") + ";")
+            L.append("    }")
+        row = self.final_row.get(plan.t_id)
+        L.append("    return " + ("T(0)" if row is None or not
+                                  self.time_input
+                                  else f"qr[long({row}) * B + b]") + ";")
+        S = []
+        j = 0
+        for cidx, lay in enumerate(plan.const_layouts):
+            if lay[0] not in ("batch", "bvec"):
+                continue
+            r = lay[1] if lay[0] == "batch" else 1
+            row = self.final_row.get(plan.const_val_ids[cidx])
+            S.append(f"    if (j < {j + r}) return " + (
+                "T(0)" if row is None
+                else f"qr[long({row} + j - {j}) * B + b]") + ";")
+            j += r
+        S.append("    return T(0);")
+        return (
+            "  template <typename T>\n"
+            "  __host__ __device__ static T quad_x(int r, const T* qr, int B,"
+            "\n                                       int b) {\n"
+            + "\n".join(L) + "\n  }\n"
+            "  template <typename T>\n"
+            "  __host__ __device__ static T sample_x(int j, const T* qr, "
+            "int B,\n                                         int b) {\n"
+            + "\n".join(S) + "\n  }\n")
+
+    def meet(self) -> str:
+        cases = []
+        for k, calls in enumerate(self.meets):
+            body = " ".join(
+                f"m({kind}, {row}, {r}, {off}, {ts});"
+                for (kind, r, off, ts, _), row in zip(calls, self.cin[k]))
+            cases.append(f"    case {k}: {body} break;")
+        if not cases:
+            return ("  template <class M>\n"
+                    "  __host__ __device__ static void meet(int, M&) {}\n")
+        return ("  template <class M>\n"
+                "  __host__ __device__ static void meet(int k, M& m) {\n"
+                "    switch (k) {\n" + "\n".join(cases) + "\n"
+                "    default: break;\n    }\n  }\n")
+
+    def body(self) -> str:
+        """The segments and the `PlanAug` struct, inside namespace tfd."""
+        plan = self.plan
+        lay = self.layout()
+        segs = []
+        for k, L in enumerate(self.segments):
+            segs.append(
+                f"template <typename T>\n"
+                f"__host__ __device__ __forceinline__ void aug_seg{k}(\n"
+                f"    const T t, const T* __restrict__ y,\n"
+                f"    const T* __restrict__ ay, const T* __restrict__ c,\n"
+                f"    const T* __restrict__ sc, const int b, const int B,\n"
+                f"    T* __restrict__ live, const T* __restrict__ red,\n"
+                f"    T* __restrict__ qr, T* __restrict__ f,\n"
+                f"    T* __restrict__ vy) {{\n" + "\n".join(L) + "\n}\n")
+        calls = "\n".join(
+            f"      case {k}: aug_seg{k}(t, y, ay, c, sc, b, B, live, red, "
+            f"qr, f, vy); break;" for k in range(len(self.segments)))
+        return (
+            "namespace tfd {\n\n" + "\n".join(segs) + "\n"
+            "struct PlanAug {\n"
+            f"  static constexpr int kDim = {plan.dim};\n"
+            f"  static constexpr int kOutRows = {plan.out_rows};\n"
+            f"  static constexpr int kSegments = {lay.segments};\n"
+            f"  static constexpr int kLiveRows = {lay.live_rows};\n"
+            f"  static constexpr int kRedValues = {lay.red_values};\n"
+            f"  static constexpr int kQRows = {lay.q_rows};\n"
+            f"  static constexpr int kNQuad = {lay.n_quad};\n"
+            f"  static constexpr int kTimeInput = {lay.time_input};\n"
+            f"  static constexpr int kNSample = {lay.n_sample};\n"
+            "  template <typename T>\n"
+            "  __host__ __device__ static void seg(\n"
+            "      int k, T t, const T* y, const T* ay, const T* c,\n"
+            "      const T* sc, int b, int B, T* live, const T* red, T* qr,\n"
+            "      T* f, T* vy) {\n"
+            "    switch (k) {\n" + calls + "\n"
+            "      default: break;\n    }\n  }\n" + self.meet()
+            + self.quad_body() + "};\n\n}  // namespace tfd\n")
+
+
 def _operand_ids(ins) -> List[int]:
     op = ins[0]
     if op == "dot":
@@ -454,19 +920,43 @@ def _loop(n: int, stmt: str) -> str:
 
 _ENTRY = {"solve": "TFD_PLAN_SOLVE_ENTRY(tfd_plan_solve_{t}, {ct})",
           "fixed": "TFD_PLAN_FIXED_ENTRY(tfd_plan_fixed_{t}, {ct})",
-          "perlane": "TFD_PLAN_PERLANE_ENTRY(tfd_plan_perlane_{t}, {ct})"}
+          "perlane": "TFD_PLAN_PERLANE_ENTRY(tfd_plan_perlane_{t}, {ct})",
+          "adjoint": "TFD_PLAN_ADJOINT_ENTRY(tfd_plan_adjoint_{t}, {ct})",
+          "perlane_adjoint": "TFD_PLAN_PERLANE_ADJOINT_ENTRY("
+                             "tfd_plan_perlane_adjoint_{t}, {ct})",
+          "fixed_adjoint": "TFD_PLAN_FIXED_ADJOINT_ENTRY("
+                           "tfd_plan_fixed_adjoint_{t}, {ct})"}
 
 
 def layout(plan: FusedPlan) -> PlanLayout:
     return _Gen(plan).layout()
 
 
+def aug_layout(plan: FusedPlan) -> AugLayout:
+    return _AugGen(plan).layout()
+
+
 def cuda_source(plan: FusedPlan, host: str) -> str:
     """The CUDA source of one plan library: the plan's segments, `Plan`,
     and the float32 and float64 entry points of one host kernel
-    (csrc/plan_rhs.cuh)."""
+    (csrc/plan_rhs.cuh); for an adjoint host (`AUG_HOSTS`) the reverse
+    walk's segments and `PlanAug` with the entry points of K3, K6 or K9
+    (csrc/plan_aug.cuh)."""
+    if host in AUG_HOSTS:
+        aug = _AugGen(plan)
+        if host != "adjoint" and len(aug.segments) > 1:
+            raise ValueError(f"a coupled plan runs on the 'adjoint' host "
+                             f"only, not {host!r}")
+        entries = "\n".join(_ENTRY[host].format(t=t, ct=ct)
+                            for t, ct in (("f32", "float"),
+                                          ("f64", "double")))
+        return ("// K15: a plan's reverse walk generated by tfdiffeq_tpu_"
+                "torch/ops/\n// plan_codegen.py for the " + host + " host "
+                "(csrc/plan_aug.cuh).\n#include \"plan_aug.cuh\"\n\n"
+                + aug.body() + "\n" + entries + "\n")
     if host not in HOSTS:
-        raise ValueError(f"host must be one of {HOSTS}, got {host!r}")
+        raise ValueError(f"host must be one of {HOSTS + AUG_HOSTS}, got "
+                         f"{host!r}")
     gen = _Gen(plan)
     if host != "solve" and len(gen.segs) > 1:
         raise ValueError(f"a coupled plan runs on the 'solve' host only, "
@@ -499,6 +989,43 @@ extern "C" void plan_eval_{t}({ct} t, const {ct}* y, const {ct}* c,
       tfd::Plan::seg<{ct}>(k, t, y + long(b) * {D}, c, sc, b, B, live, red,
                            out + long(b) * {R});
     if (k + 1 < tfd::Plan::kSegments) tfd::Plan::meet(k, m);
+  }}
+}}""")
+    return ("#include <vector>\n#include \"plan_ops.cuh\"\n\n"
+            "namespace tfd {\n" + _HOST_MEET + "}  // namespace tfd\n\n"
+            + gen.body() + "\n".join(evals) + "\n")
+
+
+def host_aug_source(plan: FusedPlan, threads: int) -> str:
+    """Host C++ of the plan's reverse walk with a plain host evaluator, for
+    the codegen tests: `aug_eval_f32` / `aug_eval_f64`(t, y [B][D], ay
+    [B][D], c, sc, B, f [B][out_rows], vy [B][D], xq [kNQuad + kTimeInput]
+    [B], xs [kNSample][B], live, red, qr) walk the whole batch, each meet
+    in the order of a K3 block of `threads` threads, then gather each
+    sample's quadrature terms (`quad_x`, `sample_x`). Include after the
+    shim of `host_source`."""
+    gen = _AugGen(plan)
+    D, R = plan.dim, plan.out_rows
+    evals = []
+    for t, ct in (("f32", "float"), ("f64", "double")):
+        evals.append(f"""
+extern "C" void aug_eval_{t}({ct} t, const {ct}* y, const {ct}* ay,
+                             const {ct}* c, const {ct}* sc, int B, {ct}* f,
+                             {ct}* vy, {ct}* xq, {ct}* xs, {ct}* live,
+                             {ct}* red, {ct}* qr) {{
+  using P = tfd::PlanAug;
+  tfd::HostMeet<{ct}> m{{live, red, B, {threads}}};
+  for (int k = 0; k < P::kSegments; ++k) {{
+    for (int b = 0; b < B; ++b)
+      P::seg<{ct}>(k, t, y + long(b) * {D}, ay + long(b) * {R}, c, sc, b, B,
+                   live, red, qr, f + long(b) * {R}, vy + long(b) * {D});
+    if (k + 1 < P::kSegments) P::meet(k, m);
+  }}
+  for (int b = 0; b < B; ++b) {{
+    for (int r = 0; r < P::kNQuad + P::kTimeInput; ++r)
+      xq[long(r) * B + b] = P::quad_x<{ct}>(r, qr, B, b);
+    for (int j = 0; j < P::kNSample; ++j)
+      xs[long(j) * B + b] = P::sample_x<{ct}>(j, qr, B, b);
   }}
 }}""")
     return ("#include <vector>\n#include \"plan_ops.cuh\"\n\n"
