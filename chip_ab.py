@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's adaptive (K2), fixed-grid (K8) and per-sample (K5) solve
-kernels and their adjoint sweeps (K3, K9, K6) at the bench protocol, for
-two or more checkouts of the repository on one NVIDIA card, in alternating
-order.
+kernels, their adjoint sweeps (K3, K9, K6) and the Adams kernels (K10,
+K11) at the bench protocol, for two or more checkouts of the repository on
+one NVIDIA card, in alternating order.
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS]
 
@@ -13,9 +13,11 @@ warm-up): the MLP routes of K2 (dopri5, bench spiral y [4096, 2], hidden
 50, 64 outputs over [0, 25], rtol = atol = 1e-6, first step 0.01), K8
 (rk4 x 500) and K5 (every sample's first step 0.01), the MLP routes of
 K3, K9 (8 rk4 steps an interval) and K6 on K2's trajectory with the
-bench training protocol's MSE cotangent (median of 3), and, where the
-checkout has the plan routes (`ops/cuda_plan.py`), the same spiral written
-as plain PyTorch in each host. It prints the card's name and power
+bench training protocol's MSE cotangent (median of 3), the MLP routes of
+K10 (fixed_adams and explicit_adams x 512, bench.py:205) and K11 (VCABM,
+first step 0.01; median of 3), and, where the checkout has the plan routes
+(`ops/cuda_plan.py`), the same spiral written as plain PyTorch in each
+host. It prints the card's name and power
 limit, a line a run and the median of each kernel a checkout.
 """
 
@@ -86,6 +88,16 @@ def _one(root: str) -> None:
         warr, dims, ys, ct, t, 1.0, num_steps=8, method="rk4", **akw), reps=3)
     out["K6"] = timed(lambda: cp.mlp_perlane_adjoint_solve(
         warr, dims, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0, **akw), reps=3)
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad
+    from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
+    grid512 = uniform_grid(t[0], t[-1], 512)
+    for key, implicit in (("K10 fixed_adams", True),
+                          ("K10 explicit_adams", False)):
+        out[key] = timed(lambda: cad.mlp_solve_adams(
+            warr, dims, y, t, grid512, 1e-6, 1e-6, 1.0, implicit=implicit,
+            **kw), reps=3)
+    out["K11"] = timed(lambda: cad.mlp_solve_vcabm(
+        warr, dims, y, t, 0.01, 1e-6, 1e-6, 1.0, **kw), reps=3)
     plan_mod = os.path.join(root, "tfdiffeq_tpu_torch", "ops", "cuda_plan.py")
     if os.path.exists(plan_mod):
         from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, \
@@ -115,6 +127,15 @@ def _one(root: str) -> None:
                 plan, packed, ys, ct, t, 1.0, num_steps=8), reps=3)
             out["K15 in K6"] = timed(lambda: cpl.plan_perlane_adjoint_solve(
                 plan, packed, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0), reps=3)
+        if hasattr(cpl, "plan_solve_adams"):
+            cpl.build([(plan, "adams"), (plan, "vcabm")])
+            for key, implicit in (("K14 in K10 fixed_adams", True),
+                                  ("K14 in K10 explicit_adams", False)):
+                out[key] = timed(lambda: cpl.plan_solve_adams(
+                    plan, packed, y, t, grid512, 1e-6, 1e-6, 1.0, pf0,
+                    implicit=implicit), reps=3)
+            out["K14 in K11"] = timed(lambda: cpl.plan_solve_vcabm(
+                plan, packed, y, t, 0.01, 1e-6, 1e-6, 1.0, pf0), reps=3)
     print("RESULT " + " ".join(f"{k.replace(' ', '_')}={v:.3f}"
                                for k, v in out.items()), flush=True)
 

@@ -278,6 +278,36 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     inputs, the step beside `fast.odeint_adjoint_mlp` and the generic
     `odeint_adjoint`.
 
+37. K12, the hypersolvers (`csrc/rk_hyper.cuh`: two generated plans, the
+    dynamics and the correction net, in one kernel), through
+    `fast.solve_hyper` at the example's widths (`examples/hypersolver.py`:
+    f = y^3 A, the 5 -> 32 -> 2 tanh hypernet from seed 0, B = 4096 states
+    in the unit disk): hyper_euler, hyper_midpoint and hyper_heun on the
+    output grid (33 nodes over [0, 2]), `num_steps=32` with 9 outputs and
+    reverse time with `step_size=0.0625`, float32 and float64: one launch a
+    solve, each held to `cuda_plan.plan_solve_hyper_plain` bitwise with
+    identical stats and run again bitwise; each kind timed (CUDA events)
+    against its plain version, the bound from both plans' `_plan_flops`.
+38. The hypersolver path through its entry points: `solve(f, y0, t,
+    method='hyper_euler', options={'hypernet': g, 'fuse': True})` is one
+    K12 launch with `fast.fuse_fallbacks` unchanged, within 2e-6 of the
+    generic hypersolver with its NFE (the reference's bar); both timed.
+    Then `examples/hypersolver.py --iters 300` at its defaults: its trained
+    hypersolver beats plain euler on fresh states, every fused serving call
+    one K12 launch, the serving ms printed.
+39. K14 in K10: the bench spiral as plain PyTorch through `solve(...,
+    method='fixed_adams' / 'explicit_adams', options={'fuse': True,
+    'num_steps': 512})` at the bench widths, float32 and float64: one
+    launch each, held to `cuda_plan.plan_solve_adams_plain` bitwise; timed
+    beside K10's MLP route on the same function and the generic engine.
+40. K14 in K11: VCABM at the bench protocol through `solve(...,
+    method='adams', options={'fuse': True, 'first_step': 0.01})`
+    (bench.py:237-253), float32 and float64, held to
+    `plan_solve_vcabm_plain` bitwise and timed beside K11's MLP route; one
+    `odeint_adjoint(method='adams', adjoint_method='dopri5', options={'fuse':
+    True})` SGD step of the bench training protocol: tier 2, one K11 launch
+    forward and the generic backward, no fallback, finite gradients.
+
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
 from its plain version, its time and its plain version's, and its bound,
@@ -301,6 +331,11 @@ the bound from `_plan_aug_flops`, the training step's time in each host,
 the MLP route's sweep and step on the same spiral (`mlp_route_ms`,
 `mlp_route_step_ms`), the generic `odeint_adjoint` step (`generic_ms`), the
 battery's shared-controller step and the couplings' sweeps and steps.
+K14 also carries its K10 and K11 hosts ([39], [40]) with the generic
+engine beside K10 and the Adams-forward training step through tier 2. K12
+(`hyper_solve`) carries each kind's time, plain time and bound, the
+entry point's and the generic hypersolver's times and the example's
+errors and serving time.
 K7 has two records, its
 forward in K2 (`cnf_forward`, launches in
 [24]'s steps) and its adjoint in K3 (`cnf_adjoint`), each with the
@@ -2460,6 +2495,316 @@ def _aug_tier(smi: str, dev) -> dict:
     return rec
 
 
+#: [37]-[38]: the hypersolver example's batch and hidden width
+#: (examples/hypersolver.py defaults: 32 steps over [0, 2]).
+HYPER_B, HYPER_H = 4096, 32
+
+
+def _hyper_funcs(dtype, dev, B=HYPER_B):
+    """The example's dynamics y^3 A, its 5 -> 32 -> 2 tanh hypernet with the
+    weights `init_hypernet` draws from seed 0, and B states from its disk
+    sampler (radius 1, seed 1)."""
+    import torch
+    from tfdiffeq_tpu_torch.examples import hypersolver as hx
+    params = {k: v.detach() for k, v in hx.init_hypernet(
+        torch.Generator().manual_seed(0), HYPER_H, dev, dtype).items()}
+    return (hx.dynamics(dev, dtype), hx.hypernet(params),
+            hx.disk(np.random.RandomState(1), B, 1.0, dev, dtype))
+
+
+def _late_pairs(dev):
+    """Every (plan, host) that phases 37-40 run: the bench spiral in K10
+    and K11, the example's two plans in K12; they build with [28]'s."""
+    import torch
+    from tfdiffeq_tpu_torch.ops import plan_bridge as pb
+    t0 = torch.tensor(0.0, device=dev)
+    p, _, _ = _bench_params(8, torch.float32, dev)
+    spiral, _ = pb.build_plan(_spiral_func(p), t0, torch.ones(8, D,
+                                                             device=dev))
+    f, g, y0 = _hyper_funcs(torch.float32, dev, B=8)
+    plan_f, _ = pb.build_plan(f, t0, y0)
+    plan_g, _ = pb.build_plan(lambda tt, ss: g(tt, ss[:, :D], ss[:, D:]),
+                              t0, torch.cat([y0, f(t0, y0)], 1), out_dim=D)
+    return [(spiral, "adams"), (spiral, "vcabm"), ((plan_f, plan_g),
+                                                   "hyper")]
+
+
+def _hyper_adams_tier(smi: str, dev) -> dict:
+    """Phases 37-40: K12 (the hypersolvers, two plans) and K14 inside K10
+    and K11. Returns K12's record and K14's numbers in K10, K11 and K12."""
+    import torch
+    from tfdiffeq_tpu_torch import fast, odeint_adjoint, solve
+    from tfdiffeq_tpu_torch.examples import hypersolver as hx
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, \
+        cuda_kernels as ck, cuda_plan as cpl
+    from tfdiffeq_tpu_torch.ops.tableaus import RK4
+    f32, f64 = torch.float32, torch.float64
+    rec = {"ms": {}, "plain_ms": {}, "err": {}, "bound": {},
+           "mlp_route_ms": {}, "generic_ms": {},
+           "launches": {"K10": 0, "K11": 0, "K12": 0}}
+
+    def hold(call, plain, kernel, what):
+        """A recorded launch against its plain version, and run again."""
+        err, plain_ms = _hold_to_plain(call, plain, what)
+        args, kw, got = call
+        if not all(torch.equal(a, b) for a, b in zip(got, kernel(*args,
+                                                                 **kw))):
+            raise AssertionError(f"{what}: two kernel runs differ")
+        return err, plain_ms
+
+    _at("37")
+    # [37] K12 through fast.solve_hyper: the three kinds on the output grid
+    # (33 nodes over [0, 2]), num_steps=32 with 9 outputs, and reverse time
+    # with step_size, float32 and float64, each launch held to its plain
+    # version.
+    cases = (("t", torch.linspace(0.0, 2.0, 33), {}),
+             ("num_steps", torch.linspace(0.0, 2.0, 9), {"num_steps": 32}),
+             ("reverse", torch.linspace(2.0, 0.0, 5), {"step_size": 0.0625}))
+    k12 = {}
+    for dtype in (f32, f64):
+        f, g, y0 = _hyper_funcs(dtype, dev)
+        for method in ("hyper_euler", "hyper_midpoint", "hyper_heun"):
+            for case, t, opts in cases:
+                cpl.reset_launch_counts()
+                with _Recording(cpl, "plan_solve_hyper") as r:
+                    res = fast.solve_hyper(f, g, y0, t.to(dtype),
+                                           method=method, **opts)
+                torch.cuda.synchronize()
+                if cpl.plan_hyper_launches != 1 or len(r.calls) != 1 \
+                        or res.stats.status != 0 \
+                        or not torch.isfinite(res.ys).all():
+                    raise AssertionError(f"[37] {method} {case} {dtype}: "
+                                         f"launches {cpl.plan_hyper_launches},"
+                                         f" stats {res.stats}")
+                err, plain_ms = hold(r.calls[0], cpl.plan_solve_hyper_plain,
+                                     cpl.plan_solve_hyper,
+                                     f"[37] K12 {method} {case} {dtype}")
+                k12[(dtype, method, case)] = (r.calls[0], err, plain_ms)
+    print(f"[37] K12: {len(k12)} launches bitwise equal to their plain "
+          f"versions, each run again bitwise; constants {cpl.last_route}",
+          flush=True)
+    rec["k12_err"] = max(e for (dt_, _, _), (_, e, _) in k12.items()
+                         if dt_ == f32)
+    rec["k12_ms_by_kind"], rec["k12_plain_ms_by_kind"] = {}, {}
+    for method in ("hyper_euler", "hyper_midpoint", "hyper_heun"):
+        (args, kw, got), _, plain_ms = k12[(f32, method, "t")]
+        # The CUDA-event window of a call holds the wrapper's host work
+        # too (the constants' flattening, the grid's copy).
+        ms = _timed(lambda: cpl.plan_solve_hyper(*args, **kw))
+        rec["k12_ms_by_kind"][method] = ms
+        rec["k12_plain_ms_by_kind"][method] = plain_ms
+        plan_f, plan_g = args[0], args[1]
+        evals = 1 if method == "hyper_euler" else 2
+        G, T_ = args[6].shape[0], args[5].shape[0]
+        n_c = sum(x.numel() for x in args[2]) + sum(x.numel()
+                                                    for x in args[3])
+        bound = _bound(HYPER_B * (G - 1) * (evals * _plan_flops(plan_f)
+                                            + _plan_flops(plan_g) + 8 * D),
+                       4 * (HYPER_B * D + T_ * HYPER_B * D + n_c + G + T_))
+        rec.setdefault("k12_bound_by_kind", {})[method] = bound
+        print(f"[37] {smi}: K12 {method} {ms:.3f} ms a call (B = "
+              f"{HYPER_B}, {G - 1} steps, nfe {got[1][0].item()}) vs plain "
+              f"{plain_ms:.1f} ms; bound {bound[0]:.5f} ms ({bound[1]}; f "
+              f"{_plan_flops(plan_f)}, g {_plan_flops(plan_g)} operations a "
+              "sample)", flush=True)
+    rec["ms"]["K12"] = rec["k12_ms_by_kind"]["hyper_euler"]
+    rec["plain_ms"]["K12"] = rec["k12_plain_ms_by_kind"]["hyper_euler"]
+    rec["bound"]["K12"] = rec["k12_bound_by_kind"]["hyper_euler"]
+    rec["err"]["K12"] = rec["k12_err"]
+
+    _at("38")
+    # [38] the hypersolver path through its entry points: odeint(fuse) is
+    # one K12 launch and no fallback, within 2e-6 of the generic
+    # hypersolver with its NFE; then the example at its defaults.
+    f, g, y0 = _hyper_funcs(f32, dev)
+    t = torch.linspace(0.0, 2.0, 33)
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    res = solve(f, y0, t, method="hyper_euler",
+                options={"hypernet": g, "fuse": True})
+    torch.cuda.synchronize()
+    launches = cpl.plan_hyper_launches
+    with torch.no_grad():
+        gen = solve(f, y0, t, method="hyper_euler", options={"hypernet": g})
+    gap = float((res.ys - gen.ys).abs().max())
+    print(f"[38] solve(hyper_euler, fuse): K12 launches {launches}, "
+          f"fallbacks {fast.fuse_fallbacks - fb}, nfe {res.stats.nfe} "
+          f"(generic {gen.stats.nfe}); max |fused - generic| {gap:.3e} (bar "
+          "2e-6)", flush=True)
+    if launches != 1 or fast.fuse_fallbacks != fb or gap > 2e-6 \
+            or res.stats.nfe != gen.stats.nfe or res.stats.status != 0:
+        raise AssertionError("[38] the fused hypersolver path failed")
+    rec["launches"]["K12"] += launches
+    rec["k12_entry_ms"] = _host_ms(lambda: solve(
+        f, y0, t, method="hyper_euler",
+        options={"hypernet": g, "fuse": True}))[0]
+    with torch.no_grad():
+        rec["generic_ms"]["K12"] = _host_ms(lambda: solve(
+            f, y0, t, method="hyper_euler", options={"hypernet": g}))[0]
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    ex = hx.main(["--iters", "300"])
+    ex_launches = cpl.plan_hyper_launches
+    print(f"[38] examples/hypersolver.py --iters 300: K12 launches "
+          f"{ex_launches}, fallbacks {fast.fuse_fallbacks - fb}; max error "
+          f"on fresh states: euler {ex['base_err']:.4e}, hypersolver "
+          f"{ex['hyper_err']:.4e}, fused {ex['fused_err']:.4e}; fused "
+          f"serving {ex['serve_ms']:.3f} ms a solve (B = 256, {smi})",
+          flush=True)
+    if ex_launches < 2 or fast.fuse_fallbacks != fb \
+            or not ex["hyper_err"] < ex["base_err"]:
+        raise AssertionError("[38] the example's hypersolver failed")
+    rec["launches"]["K12"] += ex_launches
+    rec["example"] = ex
+    print(f"[38] {smi}: solve(hyper_euler, fuse) {rec['k12_entry_ms']:.3f} "
+          f"ms (capture of both plans and one K12 launch) vs the generic "
+          f"hypersolver {rec['generic_ms']['K12']:.3f} ms (B = {HYPER_B}, 32"
+          " steps)", flush=True)
+
+    _at("39")
+    # [39] K14 in K10: the bench spiral as plain PyTorch, fixed_adams and
+    # explicit_adams x 512 at the bench widths, through solve(fuse).
+    spec = fast.MLPSpec(activation="tanh", input_power=3)
+    for method in ("fixed_adams", "explicit_adams"):
+        for dtype in (f32, f64):
+            p, y, _ = _bench_params(B, dtype, dev)
+            t = torch.linspace(0.0, SPAN, T_OUT, dtype=dtype)
+            cpl.reset_launch_counts()
+            fb = fast.fuse_fallbacks
+            with _Recording(cpl, "plan_solve_adams") as r:
+                res = solve(_spiral_func(p), y, t, rtol=TOL, atol=TOL,
+                            method=method, options={
+                                "fuse": True, "num_steps": ADAMS_STEPS})
+            torch.cuda.synchronize()
+            per = 5 if method == "fixed_adams" else 1
+            nfe = 1 + 4 * 3 + per * (ADAMS_STEPS - 3)
+            print(f"[39] solve(spiral, method={method!r}, fuse, num_steps="
+                  f"{ADAMS_STEPS}) {dtype}: K10 launches "
+                  f"{cpl.plan_adams_launches}, fallbacks "
+                  f"{fast.fuse_fallbacks - fb}, stats {res.stats}",
+                  flush=True)
+            if cpl.plan_adams_launches != 1 or fast.fuse_fallbacks != fb \
+                    or res.stats.status != 0 or res.stats.nfe != nfe \
+                    or not torch.isfinite(res.ys).all():
+                raise AssertionError(f"[39] K14 in K10 {method} {dtype}")
+            rec["launches"]["K10"] += 1
+            err, plain_ms = hold(r.calls[0], cpl.plan_solve_adams_plain,
+                                 cpl.plan_solve_adams,
+                                 f"[39] K14 in K10 {method} {dtype}")
+            if dtype != f32:
+                continue
+            args, kw, got = r.calls[0]
+            key = "K10" if method == "fixed_adams" else "K10 explicit"
+            rec["err"][key], rec["plain_ms"][key] = err, plain_ms
+            rec["ms"][key] = _timed(lambda: cpl.plan_solve_adams(*args,
+                                                                  **kw),
+                                    reps=3)
+            W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+            warr, dims = ck.pack_mlp_weights(W, f32, dev)
+            f0 = fast.mlp_apply(spec, W, y)
+            rec["mlp_route_ms"][key] = _timed(lambda: cad.mlp_solve_adams(
+                warr, dims, y, t, args[4], TOL, TOL, 1.0, f0=f0,
+                activation="tanh", input_power=3,
+                implicit=method == "fixed_adams"), reps=3)
+            with torch.no_grad():
+                rec["generic_ms"][key] = _host_ms(lambda: solve(
+                    _spiral_func(p), y, t, rtol=TOL, atol=TOL, method=method,
+                    options={"num_steps": ADAMS_STEPS}), reps=1)[0]
+            pf = _plan_flops(args[0])
+            rec["bound"][key] = _bound(
+                B * (nfe * pf + D * (3 * (_combine_flops(RK4) + 12)
+                                     + (ADAMS_STEPS - 3) * _adams_step_flops(
+                                         4, 4, method == "fixed_adams"))),
+                4 * (2 * B * D + T_OUT * B * D + T_OUT + ADAMS_STEPS + 1
+                     + sum(x.numel() for x in args[1])))
+            print(f"[39] {smi}: K14 in K10 {method} {rec['ms'][key]:.3f} ms "
+                  f"a solve vs K10's MLP route {rec['mlp_route_ms'][key]:.3f}"
+                  f" ms vs the generic engine {rec['generic_ms'][key]:.3f} ms"
+                  f" (nfe {nfe}); plain {plain_ms:.1f} ms; bound "
+                  f"{rec['bound'][key][0]:.4f} ms ({rec['bound'][key][1]})",
+                  flush=True)
+
+    _at("40")
+    # [40] K14 in K11: VCABM at the bench protocol through
+    # solve(method='adams', fuse) (bench.py:237-253), then one training
+    # step through odeint_adjoint(fuse): tier 2, the fused forward with the
+    # generic backward.
+    for dtype in (f32, f64):
+        p, y, _ = _bench_params(B, dtype, dev)
+        t = torch.linspace(0.0, SPAN, T_OUT, dtype=dtype)
+        cpl.reset_launch_counts()
+        fb = fast.fuse_fallbacks
+        with _Recording(cpl, "plan_solve_vcabm") as r:
+            res = solve(_spiral_func(p), y, t, rtol=TOL, atol=TOL,
+                        method="adams",
+                        options={"fuse": True, "first_step": FIRST_STEP})
+        torch.cuda.synchronize()
+        print(f"[40] solve(spiral, method='adams', fuse) {dtype}: K11 "
+              f"launches {cpl.plan_vcabm_launches}, fallbacks "
+              f"{fast.fuse_fallbacks - fb}, stats {res.stats}", flush=True)
+        if cpl.plan_vcabm_launches != 1 or fast.fuse_fallbacks != fb \
+                or res.stats.status != 0 or not torch.isfinite(res.ys).all():
+            raise AssertionError(f"[40] K14 in K11 {dtype}")
+        rec["launches"]["K11"] += 1
+        with _Orders() as o:
+            err, plain_ms = hold(r.calls[0], cpl.plan_solve_vcabm_plain,
+                                 cpl.plan_solve_vcabm,
+                                 f"[40] K14 in K11 {dtype}")
+        if dtype != f32:
+            continue
+        args, kw, got = r.calls[0]
+        rec["err"]["K11"], rec["plain_ms"]["K11"] = err, plain_ms
+        rec["ms"]["K11"] = _timed(lambda: cpl.plan_solve_vcabm(*args, **kw),
+                                  reps=3)
+        W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+        warr, dims = ck.pack_mlp_weights(W, f32, dev)
+        f0 = fast.mlp_apply(spec, W, y)
+        rec["mlp_route_ms"]["K11"] = _timed(lambda: cad.mlp_solve_vcabm(
+            warr, dims, y, t, FIRST_STEP, TOL, TOL, 1.0, f0=f0,
+            activation="tanh", input_power=3), reps=3)
+        orders = o.orders
+        nfe, acc, rej, _ = got[1].tolist()
+        rec["bound"]["K11"] = _bound(
+            B * (nfe * _plan_flops(args[0])
+                 + D * (sum(_vcabm_attempt_flops(k) for k in orders)
+                        + acc * _vcabm_accept_flops(
+                            sum(orders) / len(orders)))),
+            4 * (2 * B * D + T_OUT * B * D + T_OUT
+                 + sum(x.numel() for x in args[1])))
+        print(f"[40] {smi}: K14 in K11 {rec['ms']['K11']:.3f} ms a solve "
+              f"(nfe {nfe}, {acc + rej} attempts, orders "
+              f"{min(orders)}..{max(orders)}) vs K11's MLP route "
+              f"{rec['mlp_route_ms']['K11']:.3f} ms; plain {plain_ms:.1f} "
+              f"ms; bound {rec['bound']['K11'][0]:.4f} ms "
+              f"({rec['bound']['K11'][1]})", flush=True)
+    p, y, _ = _bench_params(B, f32, dev)
+    t = torch.linspace(0.0, SPAN, T_OUT)
+    q = [p["w1"].clone().requires_grad_(), p["b1"].clone().requires_grad_(),
+         p["w2"].clone().requires_grad_(), p["b2"].clone().requires_grad_()]
+    target = _bench_target(f32, dev)
+
+    def step():
+        ys = odeint_adjoint(_spiral_params_func, y, t, params=q, rtol=TOL,
+                            atol=TOL, method="adams", adjoint_method="dopri5",
+                            options={"fuse": True, "first_step": FIRST_STEP})
+        torch.mean((ys - target) ** 2).backward()
+
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    rec["train_step_ms"] = _host_ms(step, reps=1)[0]
+    grads = [x.grad for x in q]
+    print(f"[40] odeint_adjoint(method='adams', adjoint_method='dopri5', "
+          f"fuse) step: K11 launches {cpl.plan_vcabm_launches}, fallbacks "
+          f"{fast.fuse_fallbacks - fb}, {rec['train_step_ms']:.3f} ms (the "
+          f"fused forward and the generic backward, {smi})", flush=True)
+    if cpl.plan_vcabm_launches != 1 or fast.fuse_fallbacks != fb \
+            or not all(torch.isfinite(x).all() for x in grads):
+        raise AssertionError("[40] the Adams-forward fused training step "
+                             "failed")
+    rec["launches"]["K11"] += 1
+    return rec
+
+
 def main() -> int:
     import time
     import torch
@@ -2502,7 +2847,8 @@ def main() -> int:
     from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
     plan_pool = ThreadPoolExecutor(1)
     plan_pairs = _plan_pairs(dev)
-    plan_builds = plan_pool.submit(cpl.build, plan_pairs + _aug_pairs(dev))
+    plan_builds = plan_pool.submit(cpl.build, plan_pairs + _aug_pairs(dev)
+                                   + _late_pairs(dev))
 
     _at("3")
     # [3] K1 against its plain version (dt 0.3: a typical main-path step).
@@ -3340,6 +3686,7 @@ def main() -> int:
     plan = _plan_tier(smi, dev, plan_builds, plan_pairs)
     plan_pool.shutdown()
     aug = _aug_tier(smi, dev)
+    late = _hyper_adams_tier(smi, dev)
 
     # Bounds: the operations and bytes of each timed run's inputs.
     mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
@@ -3392,6 +3739,18 @@ def main() -> int:
         "K5": _bound(nfe5 * pf + (acc5 + rej5) * D * _combine_flops(DOPRI5),
                      4 * (2 * B * D + B + T_OUT * B * D + T_OUT + nc)
                      + 4 * 5 * B)}
+    # K14 in K10 and K11 ([39], [40]) beside its other hosts.
+    for host in ("K10", "K11"):
+        plan["launches"][host] = late["launches"][host]
+        plan["err"][host] = late["err"][host]
+        plan["ms"][host] = late["ms"][host]
+        plan["plain_ms"][host] = late["plain_ms"][host]
+        plan["mlp_route_ms"][host] = late["mlp_route_ms"][host]
+        k14_bound[host] = late["bound"][host]
+    plan["ms"]["K10 explicit"] = late["ms"]["K10 explicit"]
+    plan["plain_ms"]["K10 explicit"] = late["plain_ms"]["K10 explicit"]
+    plan["mlp_route_ms"]["K10 explicit"] = late["mlp_route_ms"][
+        "K10 explicit"]
     kernels = [
         {"name": "dopri5_mlp_step", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/step_kernel.cu",
@@ -3542,7 +3901,28 @@ def main() -> int:
          "k6_failed_samples": aug["k6_failed_samples"],
          "k6_spiral": aug["k6_spiral"],
          "coupled_k3": aug["coupled"]},
+        {"name": "hyper_solve", "route": "cuda",
+         "source": "tfdiffeq_tpu_torch/csrc/rk_hyper.cuh",
+         "generated_by": "tfdiffeq_tpu_torch/ops/plan_codegen.py",
+         "replaces": "tfdiffeq_tpu/ops/pallas_fixed.py:313",
+         "launches": late["launches"]["K12"],
+         "max_abs_err": late["err"]["K12"], "ms": late["ms"]["K12"],
+         "plain_ms": late["plain_ms"]["K12"],
+         "bound_ms": late["bound"]["K12"][0],
+         "bound_by": late["bound"]["K12"][1], "library_ms": None,
+         "ms_by_kind": late["k12_ms_by_kind"],
+         "plain_ms_by_kind": late["k12_plain_ms_by_kind"],
+         "bound_ms_by_kind": {k: b[0] for k, b in
+                              late["k12_bound_by_kind"].items()},
+         "entry_point_ms": late["k12_entry_ms"],
+         "generic_engine_ms": late["generic_ms"]["K12"],
+         "example": late["example"]},
     ]
+    # K14's record: the generic engine beside K10, and the Adams-forward
+    # training step on K11 (tier 2).
+    kernels[-3]["generic_engine_ms_by_host"] = {
+        h: late["generic_ms"][h] for h in ("K10", "K10 explicit")}
+    kernels[-3]["k11_tier2_train_step_ms"] = late["train_step_ms"]
     wide_ms = {"mlp_solve": wide["k2_highest"][0],
                "mlp_adjoint_solve": wide["K3_wide"],
                "fixed_solve": wide["k8_highest"][0],

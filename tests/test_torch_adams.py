@@ -229,10 +229,23 @@ def test_generic_engines_match_reference(name):
     ("adams", {"num_steps": 4}, TypeError, "Unknown solver options"),
     ("explicit_adams", {"first_step": 0.1}, TypeError,
      "Unknown solver options"),
-    ("fixed_adams", {"fuse": True}, NotImplementedError, "item 16"),
+    # 'fuse' (once refused here: ROADMAP queue 1 item 16) now runs K10
+    # with the plan; the case keeps its name and holds the fused solve to
+    # the generic one.
+    pytest.param("fixed_adams", {"fuse": True}, None, None,
+                 id="fixed_adams-options4-NotImplementedError-item 16"),
     ("adams", {"norm": "rms"}, ValueError, "callable"),
 ])
 def test_adams_options_are_checked(method, options, exc, match):
+    if exc is None:
+        res = P.solve(lambda t, y: -y, torch.ones(2, dtype=F64),
+                      [0.0, 0.5, 1.0], method=method, options=options)
+        ref = P.solve(lambda t, y: -y, torch.ones(2, dtype=F64),
+                      [0.0, 0.5, 1.0], method=method)
+        assert list(res.stats) == list(ref.stats)
+        np.testing.assert_allclose(res.ys.numpy(), ref.ys.numpy(),
+                                   rtol=1e-12)
+        return
     with pytest.raises(exc, match=match):
         P.solve(lambda t, y: -y, torch.ones(2, dtype=F64), [0.0, 1.0],
                 method=method, options=options)

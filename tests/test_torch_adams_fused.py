@@ -23,6 +23,12 @@
 - `fast.solve_mlp_spec` / `solve_mlp` with the three methods against the
   JAX `solve_mlp_spec(..., interpret=True)`, stats included; the
   reference's refusals (a reduced tier, per_sample).
+- K14 inside K10 and K11: the same MLP as plain PyTorch through
+  `fast.solve_fused` (the plan route's plain versions) against the
+  reference's `solve_fused(method=...)` in interpret mode and against the
+  port's MLP route, float64, identical stats, 1e-12 relative; the plan
+  route's refusals; `odeint_adjoint(options={'fuse': True})` with an Adams
+  forward taking tier 2.
 - `fast.odeint_adjoint_mlp(method='adams', adjoint_method='dopri5')` and
   `('fixed_adams', 'rk4')` gradients against `jax.grad` of the reference,
   within 1e-6 relative in float64; an Adams adjoint_method raises
@@ -298,6 +304,107 @@ def test_solve_mlp_adams_matches_reference():
     assert torch.equal(PF.odeint_mlp(pp, torch.tensor(y0), torch.tensor(t),
                                      method="adams", first_step=0.01),
                        pr.ys)
+
+
+@pytest.mark.parametrize("name", sorted(SPEC_CASES))
+def test_plan_route_matches_reference_and_mlp_route(name):
+    """K14 inside K10 and K11: the same MLP written as plain PyTorch through
+    `fast.solve_fused` (the plan's plain K10 / K11:
+    `cuda_plan.plan_solve_adams_plain` / `plan_solve_vcabm_plain`) against
+    the reference's `solve_fused(method=...)` in interpret mode (identical
+    stats, 1e-12 relative) and against the port's MLP route on the same
+    weights (`solve_mlp_spec`, identical stats, within 1e-12 relative: the
+    plan evaluates the same products in the same order)."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as CP
+
+    method, t, kw = SPEC_CASES[name]
+    jW, pW = _spec_weights()
+    y0 = np.random.RandomState(12).randn(8, 2)
+
+    def jf(tt, y):
+        return jnp.tanh((y ** 3) @ jW[0][0] + jW[0][1]) @ jW[1][0] \
+            + jW[1][1]
+
+    def pf(tt, y):
+        return torch.tanh((y ** 3) @ pW[0][0] + pW[0][1]) @ pW[1][0] \
+            + pW[1][1]
+
+    jr = JF.solve_fused(jf, jnp.asarray(y0), jnp.asarray(t), method=method,
+                        interpret=True, **kw)
+    wrapper = "plan_solve_vcabm" if method == "adams" else "plan_solve_adams"
+    calls = []
+    orig = getattr(CP, wrapper)
+
+    def seen(*a, **k):
+        calls.append(wrapper)
+        return orig(*a, **k)
+
+    setattr(CP, wrapper, seen)
+    try:
+        pr = PF.solve_fused(pf, torch.tensor(y0), torch.tensor(t),
+                            method=method, **kw)
+    finally:
+        setattr(CP, wrapper, orig)
+    assert calls == [wrapper]
+    assert pr.stats.status == 0
+    assert list(pr.stats) == [int(x) for x in jr.stats]
+    assert _rel(pr.ys.numpy(), jr.ys) < 1e-12
+    mr = PF.solve_mlp_spec(PF.MLPSpec(activation="tanh", input_power=3), pW,
+                           torch.tensor(y0), torch.tensor(t), method=method,
+                           **kw)
+    assert list(pr.stats) == list(mr.stats)
+    assert _rel(pr.ys.numpy(), mr.ys.numpy()) < 1e-12
+
+
+def test_plan_route_refusals():
+    """A coupled plan on K10 / K11 names ROADMAP queue 2 item 3; a reduced
+    dot_precision with an Adams method raises ValueError, as in the
+    reference (odeint.py:137-143)."""
+    y = torch.ones(3, 2, dtype=F64)
+    t = torch.tensor([0.0, 0.5, 1.0], dtype=F64)
+    for method in ("explicit_adams", "fixed_adams", "adams"):
+        with pytest.raises(NotImplementedError, match="queue 2 item 3"):
+            PF.solve_fused(lambda tt, v: v - v.mean(0), y, t, method=method)
+        with pytest.raises(ValueError, match="not supported on the Adams"):
+            PF.solve_fused(lambda tt, v: -v, y, t, method=method,
+                           dot_precision="bf16")
+        with pytest.raises(ValueError, match="not supported on the Adams"):
+            _solve_fused_mixed(method)
+
+
+def _solve_fused_mixed(method):
+    from tfdiffeq_tpu_torch import solve
+    return solve(lambda tt, v: -v, torch.ones(3, 2, dtype=F64), [0.0, 1.0],
+                 method=method, options={"fuse": True,
+                                         "dot_precision": "mixed"})
+
+
+def test_fused_adams_adjoint_takes_tier_two():
+    """odeint_adjoint(options={'fuse': True}) with an Adams method: the
+    fused forward on K10 / K11 and the generic backward (the reference's
+    tier 2), no fallback counted; the gradient of sum(y(1)) for
+    dy/dt = -y is exp(-1)."""
+    from tfdiffeq_tpu_torch import odeint_adjoint
+    from tfdiffeq_tpu_torch.ops import cuda_plan as CP
+
+    for method, opts in (("adams", {}), ("fixed_adams", {"num_steps": 50})):
+        before = PF.fuse_fallbacks
+        calls = []
+        name = "plan_solve_vcabm" if method == "adams" else "plan_solve_adams"
+        orig = getattr(CP, name)
+        setattr(CP, name, lambda *a, _o=orig, **k: (calls.append(1),
+                                                     _o(*a, **k))[1])
+        try:
+            y0 = torch.ones(3, 2, dtype=F64, requires_grad=True)
+            ys = odeint_adjoint(lambda tt, v: -v, y0,
+                                torch.tensor([0.0, 1.0], dtype=F64),
+                                method=method, adjoint_method="dopri5",
+                                options={"fuse": True, **opts})
+            ys[-1].sum().backward()
+        finally:
+            setattr(CP, name, orig)
+        assert calls == [1] and PF.fuse_fallbacks == before
+        np.testing.assert_allclose(y0.grad.numpy(), np.exp(-1.0), rtol=1e-5)
 
 
 @pytest.mark.parametrize("call, exc, match", [

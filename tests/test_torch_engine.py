@@ -249,21 +249,25 @@ def test_loop_options_are_no_ops_and_max_steps_is_refused():
         P.solve(f, _tt(pr.y0), _tt(pr.t), options={"bogus": 1})
 
 
-@pytest.mark.parametrize("method,item", [
-    ("adams", None), ("fixed_adams", None), ("hyper_euler", "item 13")],
+@pytest.mark.parametrize("method,options", [
+    ("adams", {}), ("fixed_adams", {}),
+    ("hyper_euler", {"hypernet": lambda t, y, f: 0.0 * y})],
     ids=["adams-item 12", "fixed_adams-item 12", "hyper_euler-item 13"])
-def test_unported_methods_name_their_roadmap_item(method, item):
-    """The hypersolvers wait for ROADMAP item 13; the Adams family (item
-    12, once refused here) now solves, as the reference does
-    (tests/test_torch_adams.py holds it to the reference in full)."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0],
-                    method=method)
-        return
+def test_unported_methods_name_their_roadmap_item(method, options):
+    """The Adams family (ROADMAP item 12) and the hypersolvers (item 13),
+    once refused here, now solve as the reference does
+    (tests/test_torch_adams.py and tests/test_torch_hyper.py hold them to
+    the reference in full); a zero hypernet leaves hyper_euler's euler
+    step."""
     res = P.solve(lambda t, y: -y, torch.ones(2, dtype=torch.float64),
-                  [0.0, 0.5, 1.0], method=method)
+                  [0.0, 0.5, 1.0], method=method, options=options)
     assert res.stats.status == 0
+    if method == "hyper_euler":
+        ref = P.solve(lambda t, y: -y, torch.ones(2, dtype=torch.float64),
+                      [0.0, 0.5, 1.0], method="euler")
+        np.testing.assert_allclose(res.ys.numpy(), ref.ys.numpy(),
+                                   rtol=1e-12)
+        return
     np.testing.assert_allclose(res.ys[-1].numpy(), np.exp(-1.0), rtol=1e-2)
 
 
@@ -282,16 +286,17 @@ def test_fixed_grid_methods_are_ported(method):
     assert list(res.stats) == [int(x) for x in ref.stats]
 
 
-@pytest.mark.parametrize("option,item,method", [
-    ("fuse", "item 16", "adams"), ("dense_output", "item 3", None),
-    ("telemetry", "item 3", None)],
+@pytest.mark.parametrize("options,item", [
+    ({"fuse": True, "dot_precision": "mixed"}, "item 16"),
+    ({"dense_output": True}, "item 3"), ({"telemetry": True}, "item 3")],
     ids=["fuse-item 16", "dense_output-item 3", "telemetry-item 3"])
-def test_unported_options_name_their_roadmap_item(option, item, method):
-    # 'fuse' runs the fused tier (tests/test_torch_fuse.py); with
-    # an Adams method it still waits for K14 inside K10 and K11.
+def test_unported_options_name_their_roadmap_item(options, item):
+    # 'fuse' runs the fused tier with every method
+    # (tests/test_torch_fuse.py); K4's reduced tiers at a plan's dots
+    # still wait for item 16.
     with pytest.raises(NotImplementedError, match=item):
-        P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0], method=method,
-                options={option: True})
+        P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0],
+                options=options)
 
 
 def test_odeint_returns_trajectory_and_raises_on_failure():

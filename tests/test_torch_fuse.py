@@ -23,7 +23,10 @@ f0, first step, the engines, the stats) to the reference:
   (tests/test_meanfield.py), each with the reference's NFE;
 - the port's own contract: an unfusable function warns, matches the
   generic engine bitwise and counts one fallback; what is not ported
-  raises NotImplementedError naming its ROADMAP item; `cnf_sample_auto`
+  raises NotImplementedError naming its ROADMAP item; every built-in
+  method in `SOLVERS` fuses (the reference's
+  test_every_builtin_method_fuses): no warning, its kernel's wrapper
+  reached, the generic engine's answer within 5e-4; `cnf_sample_auto`
   equals `cnf_sample_fused` within 1e-4 on the same base noise.
 """
 
@@ -217,11 +220,14 @@ def test_unfusable_dynamics_fall_back_and_count():
      NotImplementedError, "item 16"),
     (lambda f, y: PF.solve_fused(f, y, _t(T), dense_output=True),
      NotImplementedError, "item 3"),
+    # The Adams methods, once refused here (K14 inside K10 and K11,
+    # ROADMAP queue 2 items 1-2), now run: `match` names the method whose
+    # generic solve the fused one is held to.
     (lambda f, y: solve(f, y, _t(T), method="adams",
                         options={"fuse": True}),
-     NotImplementedError, "item 16"),
+     None, "adams"),
     (lambda f, y: PF.solve_fused(f, y, _t(T), method="explicit_adams"),
-     NotImplementedError, "item 16"),
+     None, "explicit_adams"),
     (lambda f, y: PF.solve_fused(lambda t, v: v - v.mean(0), y, _t(T),
                                  method="rk4"),
      NotImplementedError, "coupled plans in K8"),
@@ -237,6 +243,13 @@ def test_unfusable_dynamics_fall_back_and_count():
         "coupled_fixed", "coupled_per_sample", "adjoint", "precision_alone"])
 def test_refusals(call, exc, match):
     f, _, y0 = _pair("spiral")
+    if exc is None:
+        res = _fused_quietly(call, f, _t(y0))
+        ref = solve(f, _t(y0), _t(T), method=match)
+        assert res.stats.status == 0
+        np.testing.assert_allclose(res.ys.numpy(), ref.ys.numpy(),
+                                   atol=5e-4)
+        return
     with pytest.raises(exc, match=match):
         call(f, _t(y0))
 
@@ -284,3 +297,64 @@ def test_cnf_sample_auto_matches_fused_and_reference():
     assert torch.equal(mine, got)
     np.testing.assert_allclose(mine.numpy(), np.asarray(rj.ys[-1]),
                                atol=1e-5)
+
+
+#: Each built-in method's kernel wrapper (ops/cuda_plan.py).
+_WRAPPER = {**{m: "plan_solve" for m in ("dopri5", "bosh3", "adaptive_heun",
+                                         "tsit5", "dopri8")},
+            **{m: "plan_solve_fixed" for m in ("euler", "midpoint", "rk4",
+                                               "rk4_38")},
+            "explicit_adams": "plan_solve_adams",
+            "fixed_adams": "plan_solve_adams", "adams": "plan_solve_vcabm",
+            **{m: "plan_solve_hyper" for m in ("hyper_euler",
+                                               "hyper_midpoint",
+                                               "hyper_heun")}}
+
+
+def test_every_builtin_method_fuses(monkeypatch):
+    """The reference's tests/test_fixed_fused.py:612 in the port: with
+    options={'fuse': True} every method in SOLVERS reaches its whole-solve
+    kernel's wrapper (its plain version here) with no fallback warning,
+    and agrees with the generic engine within 5e-4."""
+    from tfdiffeq_tpu_torch import SOLVERS
+    from tfdiffeq_tpu_torch.ops import cuda_plan as CP
+
+    rng = np.random.RandomState(81)
+    W1 = _t(rng.randn(2, 16) * 0.3)
+    W2 = _t(rng.randn(16, 2) * 0.3)
+    # Hidden width 12: distinct from the batch of 8 (the capture refuses a
+    # batch equal to a feature width).
+    Hw = _t(rng.randn(5, 12) * 0.2)
+    Hv = _t(rng.randn(12, 2) * 0.2)
+
+    def f(tt, yy):
+        return torch.tanh((yy ** 3) @ W1) @ W2
+
+    def g(tt, yy, ff):
+        tc = tt.reshape(1, 1).expand(yy.shape[0], 1)
+        return torch.tanh(torch.cat([yy, ff, tc], 1) @ Hw) @ Hv
+
+    y0 = _t(rng.randn(8, 2))
+    t = _t(np.linspace(0.0, 1.0, 5))
+    per_method = {
+        "dopri5": {}, "bosh3": {}, "adaptive_heun": {}, "tsit5": {},
+        "dopri8": {}, "euler": {"num_steps": 32}, "midpoint": {}, "rk4": {},
+        "rk4_38": {}, "explicit_adams": {"num_steps": 16}, "fixed_adams": {},
+        "adams": {"first_step": 0.05}, "hyper_euler": {"hypernet": g},
+        "hyper_midpoint": {"hypernet": g}, "hyper_heun": {"hypernet": g}}
+    assert set(per_method) == set(SOLVERS) == set(_WRAPPER)
+    seen = []
+    for name in set(_WRAPPER.values()):
+        orig = getattr(CP, name)
+        monkeypatch.setattr(CP, name, lambda *a, _n=name, _o=orig, **k: (
+            seen.append(_n), _o(*a, **k))[1])
+    for method, opts in per_method.items():
+        seen.clear()
+        rf = _fused_quietly(solve, f, y0, t, rtol=1e-5, atol=1e-7,
+                            method=method, options={"fuse": True, **opts})
+        assert seen == [_WRAPPER[method]], method
+        rg = solve(f, y0, t, rtol=1e-5, atol=1e-7, method=method,
+                   options=opts)
+        assert rf.stats.status == 0, method
+        np.testing.assert_allclose(rf.ys.numpy(), rg.ys.numpy(), rtol=0,
+                                   atol=5e-4, err_msg=method)

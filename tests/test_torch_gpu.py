@@ -45,7 +45,11 @@ second-order adjoint in K3 (rhs='cnf'), narrow and wide: bitwise equal to
 their plain versions in both types, with identical stats. K10 and K11, the
 fixed-step Adams and VCABM solves, narrow and wide, every order and both
 directions: bitwise equal to their plain versions in both types, with
-identical stats, and from run to run.
+identical stats, and from run to run; so are K14 (a generated plan) inside
+K2, K8, K5, K10 and K11, K15 inside K3, K6 and K9, and K12 (the
+hypersolvers, two plans) for its three kinds on the output grid, a finer
+grid and in reverse time. Every built-in method with options={'fuse':
+True} launches one whole-solve kernel and never falls back.
 """
 
 import numpy as np
@@ -1444,4 +1448,115 @@ def test_fused_training_launches_and_never_falls_back(cuda, monkeypatch):
     assert (cpl.plan_fixed_launches, cpl.plan_fixed_adjoint_launches,
             cpl.plan_perlane_launches,
             cpl.plan_perlane_adjoint_launches) == (1, 1, 1, 1)
+    assert fast.fuse_fallbacks == before
+
+
+# ---------------------------------------------------------------------------
+# K14 inside K10 and K11, and K12 with two plans (ops/cuda_plan.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["spiral", "concat_t_gelu", "ops"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plan_adams_hosts_match_plain(cuda, dtype, name):
+    """K14 in K10 (explicit_adams and fixed_adams on a 40-step grid) and in
+    K11 (VCABM): bitwise equal to the plain engines with `eval_plan`,
+    identical stats, and run to run; the coupled plans raise."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, cuda_plan as cpl
+    cpl.reset_launch_counts()
+    plan, packed, y0, t, g, _ = _plan_case(name, dtype, cuda)
+    # States of norm about 0.5: 40 explicit Adams steps over [0, 2] keep
+    # the spiral stable there (from randn states it overflows to NaN).
+    y0 = 0.5 * y0
+    f0 = g(t[0].to(cuda), y0).contiguous()
+    grid = uniform_grid(t[0], t[-1], 40)
+    for implicit in (False, True):
+        args = (plan, packed, y0, t, grid, 1e-6, 1e-6, 1.0, f0)
+        got = cpl.plan_solve_adams(*args, implicit=implicit)
+        assert _same(got, cpl.plan_solve_adams(*args, implicit=implicit))
+        ref = cad.adams_solve_plain(g, y0, f0, t, grid, 1e-6, 1e-6,
+                                    implicit=implicit)
+        assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
+        assert torch.isfinite(got[0]).all()
+    args = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+    got = cpl.plan_solve_vcabm(*args)
+    assert _same(got, cpl.plan_solve_vcabm(*args))
+    ref = cad.vcabm_solve_plain(g, y0, f0, t, 0.01, 1e-6, 1e-6)
+    assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
+    assert got[1][3].item() == 0
+    assert (cpl.plan_adams_launches, cpl.plan_vcabm_launches) == (4, 2)
+    plan, packed, y0, t, g, f0 = _plan_case("meanfield", dtype, cuda)
+    with pytest.raises(NotImplementedError, match="queue 2 item 3"):
+        cpl.plan_solve_vcabm(plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+
+
+def _hyper_case(dtype, device, B=300):
+    """The example's dynamics y^3 A and a 5 -> 16 -> 2 tanh hypernet over
+    [y, f, t], states in the unit disk."""
+    from tfdiffeq_tpu_torch.examples import hypersolver as hx
+    rng = np.random.RandomState(5)
+    c = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    w1, b1, w2 = c(rng.randn(5, 16) * 0.3), c(rng.randn(16) * 0.1), \
+        c(rng.randn(16, 2) * 0.1)
+
+    def g(t, y, fv):
+        tc = t.reshape(1, 1).expand(y.shape[0], 1)
+        return torch.tanh(torch.cat([y, fv, tc], 1) @ w1 + b1) @ w2
+
+    y0 = hx.disk(np.random.RandomState(1), B, 1.0, device, dtype)
+    return hx.dynamics(device, dtype), g, y0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hyper_kernel_matches_plain(cuda, dtype, monkeypatch):
+    """K12 through `fast.solve_hyper` for the three kinds on the output
+    grid, a num_steps grid and reverse time with step_size: each launch
+    bitwise equal to `plan_solve_hyper_plain` on its own inputs, identical
+    stats, and run to run; one launch a solve, no plain engine reached."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    f, g, y0 = _hyper_case(dtype, cuda)
+    calls = []
+    orig = cpl.plan_solve_hyper
+
+    def record(*a, **k):
+        out = orig(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    monkeypatch.setattr(cpl, "plan_solve_hyper", record)
+    cpl.reset_launch_counts()
+    cases = [(torch.linspace(0.0, 2.0, 33, dtype=dtype), {}),
+             (torch.linspace(0.0, 2.0, 9, dtype=dtype), {"num_steps": 32}),
+             (torch.linspace(2.0, 0.0, 5, dtype=dtype),
+              {"step_size": 0.0625})]
+    n = 0
+    for method in ("hyper_euler", "hyper_midpoint", "hyper_heun"):
+        for t, opts in cases:
+            res = fast.solve_hyper(f, g, y0, t, method=method, **opts)
+            n += 1
+            a, k, got = calls[-1]
+            assert _same(got, orig(*a, **k))
+            ref = cpl.plan_solve_hyper_plain(*a, **k)
+            assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
+            assert res.stats.status == 0 and torch.isfinite(res.ys).all()
+    assert cpl.plan_hyper_launches == 2 * n
+
+
+def test_every_builtin_method_launches_its_kernel(cuda):
+    """odeint(options={'fuse': True}) launches one whole-solve kernel for
+    each of the 15 built-in methods, with no fallback."""
+    from tfdiffeq_tpu_torch import SOLVERS, solve
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    f, g, y0 = _hyper_case(torch.float32, cuda, B=96)
+    t = torch.linspace(0.0, 1.0, 5)
+    before = fast.fuse_fallbacks
+    counters = ("plan_solve_launches", "plan_fixed_launches",
+                "plan_adams_launches", "plan_vcabm_launches",
+                "plan_hyper_launches")
+    for method in SOLVERS:
+        opts = {"hypernet": g} if method.startswith("hyper_") else {}
+        cpl.reset_launch_counts()
+        res = solve(f, y0, t, rtol=1e-5, atol=1e-7, method=method,
+                    options={"fuse": True, **opts})
+        assert sum(getattr(cpl, c) for c in counters) == 1, method
+        assert res.stats.status == 0, method
     assert fast.fuse_fallbacks == before

@@ -215,3 +215,61 @@ def test_reverse_walk_source_depends_on_structure_alone():
     for host in ("perlane_adjoint", "fixed_adjoint"):
         with pytest.raises(ValueError, match="'adjoint' host only"):
             PC.cuda_source(coupled, host)
+
+
+def _hyper_plans(dtype):
+    """K12's two plans: the spiral dynamics (square) and a correction net
+    over the stacked [y, f, t] ([B, 4] -> [B, 2])."""
+    rng = np.random.RandomState(7)
+    w1 = torch.tensor(rng.randn(2, 12) * 0.4, dtype=dtype)
+    w2 = torch.tensor(rng.randn(12, 2) * 0.4, dtype=dtype)
+    hw = torch.tensor(rng.randn(5, 10) * 0.3, dtype=dtype)
+    hv = torch.tensor(rng.randn(10, 2) * 0.3, dtype=dtype)
+
+    def f(t, y):
+        return torch.tanh((y ** 3) @ w1) @ w2
+
+    def g(t, y, fv):
+        tc = t.reshape(1, 1).expand(y.shape[0], 1)
+        return torch.tanh(torch.cat([y, fv, tc], 1) @ hw) @ hv
+
+    y = torch.tensor(rng.randn(6, 2), dtype=dtype)
+    t = torch.tensor(0.3, dtype=dtype)
+    pf, cf = PB.build_plan(f, t, y)
+    s = torch.cat([y, f(t, y)], 1)
+    pg, cg = PB.build_plan(lambda tt, ss: g(tt, ss[:, :2], ss[:, 2:]), t, s,
+                           out_dim=2)
+    return ((pf, PB.pack_consts(pf, cf, dtype), y),
+            (pg, PB.pack_consts(pg, cg, dtype), s), t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_hyper_source_holds_both_plans(tmp_path, dtype):
+    """The 'hyper' host's two plans (`Plan`, `PlanG`) in one translation
+    unit compile as host C++, and each evaluates as `eval_plan` does; the
+    CUDA source names both structs and K12's entry points."""
+    (pf, kf, y), (pg, kg, s), t = _hyper_plans(dtype)
+    src = PC.cuda_source((pf, pg), PC.HYPER_HOST)
+    assert "struct Plan {" in src and "struct PlanG {" in src
+    assert "TFD_PLAN_HYPER_ENTRY(tfd_plan_hyper_f32, float)" in src
+    lib = _compile_all(tmp_path, {"hyper": PC.host_hyper_source(pf, pg)})[
+        "hyper"]
+    suffix, ct = (("f32", ctypes.c_float) if dtype == torch.float32
+                  else ("f64", ctypes.c_double))
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    for prefix, plan, packed, x in (("plan", pf, kf, y), ("plang", pg, kg, s)):
+        B = x.shape[0]
+        want = PB.eval_plan_host(plan, packed, t, x)
+        c, sc = PC.flat_consts(plan, packed, B)
+        out = torch.full((B, plan.out_rows), float("nan"), dtype=dtype)
+        buf = torch.zeros(1, dtype=dtype)
+        fn = getattr(lib, f"{prefix}_eval_{suffix}")
+        fn.argtypes = [ct] + [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+            [ctypes.c_void_p] * 3
+        fn.restype = None
+        fn(float(t), _ptr(x.contiguous()), _ptr(c), _ptr(sc), B, _ptr(out),
+           _ptr(buf), _ptr(buf))
+        rel = float((out - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        assert rel <= tol, (prefix, rel)

@@ -4,8 +4,8 @@ The JAX package `tfdiffeq_tpu` beside it is the reference: each module here
 keeps the name of its counterpart there, and the tests hold the two to the
 same numbers. This package imports `torch` and never `jax`.
 
-Public surface: `odeint` and `solve` over the adaptive RK, fixed-grid and
-Adams methods in `SOLVERS`, with `SolveResult`, `SolverStats` and `Status`; `odeint_adjoint`
+Public surface: `odeint` and `solve` over the adaptive RK, fixed-grid,
+Adams and hypersolver methods in `SOLVERS`, with `SolveResult`, `SolverStats` and `Status`; `odeint_adjoint`
 for O(1)-memory gradients, with `NFEMeter` counting forward and backward
 evaluations. The fused tier (`tfdiffeq_tpu_torch.fast`) runs a whole MLP
 neural-ODE solve, a whole adjoint backward sweep, a whole solve of the
@@ -20,10 +20,11 @@ from .adjoint import odeint_adjoint
 from .odeint import SOLVERS, odeint, register_solver, solve
 from .solvers.base import SolveResult, SolverStats, Status
 
-# Register the Adams family into SOLVERS (import side effect, as in the
-# reference).
+# Register the Adams family and the hypersolvers into SOLVERS (import side
+# effect, as in the reference).
 from .solvers import fixed_adams as _fixed_adams  # noqa: F401,E402
 from .solvers import adams as _adams  # noqa: F401,E402
+from .solvers import hyper as _hyper  # noqa: F401,E402
 from .utils.nfe import NFEMeter
 from .fast import solve_fused  # noqa: E402
 

@@ -50,7 +50,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from .odeint import _CUSTOM_ALLOWED, _NOT_PORTED_METHODS, SOLVERS, solve
+from .odeint import _CUSTOM_ALLOWED, SOLVERS, solve
 from .ops.norms import rms_norm
 from .ops.pytree import (flat_ode_func, flatten_state, tree_leaves,
                          tree_unflatten)
@@ -91,14 +91,6 @@ def _build_backward_walk(t_np: np.ndarray, step_size: float) -> _BackwardWalk:
 
 def _kind(method) -> str:
     return SOLVERS.get(method, ("",))[0]
-
-
-def _check_methods(method, adjoint_method) -> None:
-    for m in (method, adjoint_method):
-        if m in _NOT_PORTED_METHODS:
-            raise NotImplementedError(
-                f"method {m!r} is not ported to PyTorch yet: ROADMAP.md "
-                f"{_NOT_PORTED_METHODS[m]}")
 
 
 #: Options tier 1 of `fuse` carries to the fused kernels (reference
@@ -296,7 +288,6 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     fwd_options = dict(options or {})
     bwd_options = dict(adjoint_options if adjoint_options is not None
                        else fwd_options)
-    _check_methods(method, adjoint_method)
     use_fuse = bool(fwd_options.get("fuse", False))
     per_sample = bool(fwd_options.get("per_sample", False))
     bwd_options.pop("per_sample", None)

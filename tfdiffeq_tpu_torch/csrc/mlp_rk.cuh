@@ -501,6 +501,55 @@ __host__ __device__ inline long aug_rows_count(const Net& net) {
   return rows;
 }
 
+// The per-thread MLP right-hand side of K5 (csrc/rk_perlane.cuh), K10
+// (csrc/rk_adams.cuh) and K11 (csrc/rk_vcabm.cuh): one sample's mlp_eval
+// in its thread, on the narrow or the wide route.
+template <typename T, int kRoute>
+struct MlpThreadRhs {
+  static constexpr bool kBatch = false;
+  const T* wg;     // packed weights (pack_mlp_weights)
+  int n_weights;
+  Net net_in;
+
+  struct Shared {
+    Net net;
+  };
+  // The layer vectors. The weights' pointer stays out of this struct: a
+  // store through h_a or h_b could alias it and force a reload each time.
+  struct Local {
+    T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
+  };
+
+  // The packed weights: in shared memory on the narrow route (setup copies
+  // them there), else in global memory.
+  __device__ __forceinline__ const T* weights() const {
+    if constexpr (kRoute == kRouteNarrow) {
+      extern __shared__ __align__(16) unsigned char smem_raw[];
+      return reinterpret_cast<const T*>(smem_raw);
+    } else {
+      return wg;
+    }
+  }
+
+  __device__ T* setup(Shared& sh, Local&, unsigned char* smem) const {
+    const int tid = threadIdx.x;
+    T* rest;
+    if constexpr (kRoute == kRouteNarrow) {
+      T* ws = reinterpret_cast<T*>(smem);
+      for (int i = tid; i < n_weights; i += blockDim.x) ws[i] = wg[i];
+      rest = ws + n_weights;
+    } else {
+      rest = reinterpret_cast<T*>(smem);
+    }
+    if (tid == 0) sh.net = net_in;
+    return rest;
+  }
+  __device__ T* in(Local& lo) const { return lo.h_a; }
+  __device__ const T* eval(const Shared& sh, Local& lo, T t, int, int) const {
+    return mlp_eval(sh.net, weights(), t, lo.h_a, lo.h_b);
+  }
+};
+
 // K6's and K9's MLP right-hand side (csrc/rk_adjoint.cuh's Aug, one sample
 // a thread): aug_stage on the narrow or wide route, its rows H [n_h][B]
 // and G [n_z][B].

@@ -51,53 +51,7 @@
 namespace tfd {
 
 // K5's MLP right-hand sides (csrc/rk_perlane.cuh's Rhs): the narrow and
-// wide per-thread routes (mlp_eval).
-template <typename T, int kRoute>
-struct MlpPerlaneRhs {
-  static constexpr bool kBatch = false;
-  const T* wg;     // packed weights (pack_mlp_weights)
-  int n_weights;
-  Net net_in;
-
-  struct Shared {
-    Net net;
-  };
-  // The layer vectors. The weights' pointer stays out of this struct: a
-  // store through h_a or h_b could alias it and force a reload each time.
-  struct Local {
-    T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
-  };
-
-  // The packed weights: in shared memory on the narrow route (setup copies
-  // them there), else in global memory.
-  __device__ __forceinline__ const T* weights() const {
-    if constexpr (kRoute == kRouteNarrow) {
-      extern __shared__ __align__(16) unsigned char smem_raw[];
-      return reinterpret_cast<const T*>(smem_raw);
-    } else {
-      return wg;
-    }
-  }
-
-  __device__ T* setup(Shared& sh, Local&, unsigned char* smem) const {
-    const int tid = threadIdx.x;
-    T* rest;
-    if constexpr (kRoute == kRouteNarrow) {
-      T* ws = reinterpret_cast<T*>(smem);
-      for (int i = tid; i < n_weights; i += blockDim.x) ws[i] = wg[i];
-      rest = ws + n_weights;
-    } else {
-      rest = reinterpret_cast<T*>(smem);
-    }
-    if (tid == 0) sh.net = net_in;
-    return rest;
-  }
-  __device__ T* in(Local& lo) const { return lo.h_a; }
-  __device__ const T* eval(const Shared& sh, Local& lo, T t, int, int) const {
-    return mlp_eval(sh.net, weights(), t, lo.h_a, lo.h_b);
-  }
-};
-
+// wide per-thread routes, mlp_rk.cuh MlpThreadRhs.
 template <typename T, int kRoute>
 cudaError_t launch_perlane_route(const void* tau, const void* y0,
                                  const void* f0, const void* dt0,
@@ -109,7 +63,7 @@ cudaError_t launch_perlane_route(const void* tau, const void* y0,
                                  cudaStream_t stream) {
   const size_t smem =
       sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + sc.T_out);
-  MlpPerlaneRhs<T, kRoute> rhs;
+  MlpThreadRhs<T, kRoute> rhs;
   rhs.wg = static_cast<const T*>(weights);
   rhs.n_weights = n_w;
   rhs.net_in = net;

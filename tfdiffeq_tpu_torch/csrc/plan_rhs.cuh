@@ -1,7 +1,9 @@
 // K14 inside its hosts: the right-hand sides that run a generated plan
-// (ops/plan_codegen.py) in K2 (csrc/rk_solve.cuh), K8 (csrc/rk_fixed.cuh)
-// and K5 (csrc/rk_perlane.cuh), and the launch functions of a plan
-// library.
+// (ops/plan_codegen.py) in K2 (csrc/rk_solve.cuh), K8 (csrc/rk_fixed.cuh),
+// K5 (csrc/rk_perlane.cuh), K10 (csrc/rk_adams.cuh), K11
+// (csrc/rk_vcabm.cuh) and K12 (csrc/rk_hyper.cuh, two plans: the dynamics
+// `Plan` and the correction net `PlanG`), and the launch functions of a
+// plan library.
 //
 // Replaces the TPU kernel functions tfdiffeq_tpu/ops/jaxpr_bridge.py:826
 // (eval_plan) and :1000 (make_plan_f), which walk a traced plan inside the
@@ -21,8 +23,8 @@
 // couplings that end segment k, handed to m(kind, row, rows, red_off,
 // to_scalar)). A plan without a coupling is one segment.
 //
-// PlanRhs evaluates a sample at a time in its thread (K2, K5 and K8 for
-// uncoupled plans). PlanBatchRhs (K2 only) evaluates a stage batch-wide:
+// PlanRhs evaluates a sample at a time in its thread (K2, K5, K8, K10, K11
+// and K12, for uncoupled plans). PlanBatchRhs (K2 only) evaluates a stage batch-wide:
 // every thread runs segment k for the samples it owns, writing the rows a
 // coupling reduces into live rows; the block then meets and reduces them
 // (each thread's samples in order from 0, or from -inf / +inf for max /
@@ -37,9 +39,12 @@
 
 #include "mlp_rk.cuh"
 #include "plan_ops.cuh"
+#include "rk_adams.cuh"
 #include "rk_fixed.cuh"
+#include "rk_hyper.cuh"
 #include "rk_perlane.cuh"
 #include "rk_solve.cuh"
+#include "rk_vcabm.cuh"
 
 namespace tfd {
 
@@ -58,10 +63,13 @@ __device__ __forceinline__ T* plan_setup_consts(const T* cg, int n_consts,
 // Where the segments read the constants: shared memory (plan_setup_consts
 // copied them) or global memory. It is worked out at each evaluation, not
 // kept in a per-thread struct, where a store could alias it.
+// `off` is where they start in shared memory: 0, or past the first plan's
+// for K12's second plan (PlanRhsAfter).
 template <typename T>
-__device__ __forceinline__ const T* plan_consts(const T* cg, int in_smem) {
+__device__ __forceinline__ const T* plan_consts(const T* cg, int in_smem,
+                                                int off = 0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  return in_smem ? reinterpret_cast<const T*>(smem_raw) : cg;
+  return in_smem ? reinterpret_cast<const T*>(smem_raw) + off : cg;
 }
 
 template <typename T, class P>
@@ -91,6 +99,22 @@ struct PlanRhs {
                            T* = nullptr) const {
     P::template seg<T>(0, t, lo.in, plan_consts(cg, in_smem), scg, b, B,
                        nullptr, nullptr, lo.out);
+    return lo.out;
+  }
+};
+
+// K12's second plan (the correction net): setup puts its constants in
+// shared memory past the first plan's, at smem_off.
+template <typename T, class P>
+struct PlanRhsAfter : PlanRhs<T, P> {
+  int smem_off;
+
+  __device__ const T* eval(const typename PlanRhs<T, P>::Shared&,
+                           typename PlanRhs<T, P>::Local& lo, T t, int b,
+                           int B) const {
+    P::template seg<T>(0, t, lo.in,
+                       plan_consts(this->cg, this->in_smem, smem_off),
+                       this->scg, b, B, nullptr, nullptr, lo.out);
     return lo.out;
   }
 };
@@ -310,6 +334,113 @@ int launch_plan_perlane(const void* tau, const void* y0, const void* f0,
   }
 }
 
+// K10 and K11 take uncoupled plans only (ROADMAP.md queue 2 item 3): a
+// coupled one is refused by its wrapper (ops/cuda_plan.py) and here.
+template <typename T, class P>
+int launch_plan_adams(const void* grid, const void* tau, const void* y0,
+                      const void* f0, void* out, void* stats, void* work,
+                      int G, int T_out, int B, int D, int threads,
+                      int blocks, double sign, double rtol, double atol,
+                      int valid, int max_order, int max_iters, int implicit,
+                      int nfe, const double* ab, const double* am,
+                      const void* consts, int n_consts,
+                      const void* sample_consts, int smem_consts,
+                      void* stream) {
+  if constexpr (P::kSegments > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (!adams_args_ok(G, T_out, B, D, max_order, max_iters, implicit,
+                       threads, blocks) ||
+        D != P::kDim || P::kOutRows != D)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem =
+        sizeof(T) *
+        ((smem_consts ? size_t(n_consts) : 0) + G + T_out + threads);
+    const T* cg = static_cast<const T*>(consts);
+    const T* scg = static_cast<const T*>(sample_consts);
+    return static_cast<int>(launch_rk_adams<T>(
+        grid, tau, y0, f0, out, stats, work,
+        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, smem, threads, blocks,
+        make_adams_tables<T>(max_order, ab, am),
+        make_adams_scalars<T>(G, T_out, B, D, sign, rtol, atol, valid,
+                              max_order, max_iters, implicit, nfe),
+        static_cast<cudaStream_t>(stream)));
+  }
+}
+
+template <typename T, class P>
+int launch_plan_vcabm(const void* tau, const void* y0, const void* f0,
+                      void* out, void* stats, void* work, int T_out, int B,
+                      int D, int threads, double dt0, double rtol,
+                      double atol, double dt_min, double sign, double safety,
+                      double ifactor, double dfactor, int max_steps,
+                      int valid, int max_order, const double* gstar,
+                      const void* consts, int n_consts,
+                      const void* sample_consts, int smem_consts,
+                      void* stream) {
+  if constexpr (P::kSegments > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (!vcabm_args_ok(T_out, B, D, max_order, max_steps, threads) ||
+        D != P::kDim || P::kOutRows != D)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem =
+        sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + T_out + threads);
+    const T* cg = static_cast<const T*>(consts);
+    const T* scg = static_cast<const T*>(sample_consts);
+    return static_cast<int>(launch_rk_vcabm<T>(
+        tau, y0, f0, out, stats, work,
+        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, smem, threads,
+        make_vcabm_scalars<T>(T_out, B, D, dt0, rtol, atol, dt_min, sign,
+                              safety, ifactor, dfactor, max_steps, valid,
+                              max_order, gstar),
+        static_cast<cudaStream_t>(stream)));
+  }
+}
+
+// K12 with the dynamics PF (square) and the correction net PG (2 D inputs,
+// D outputs); g's constants follow f's in shared memory.
+template <typename T, class PF, class PG>
+int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
+                      void* out, void* stats, void* work, int G, int T_out,
+                      int B, int D, int threads, double sign, int valid,
+                      int kind, int grid_is_t, const void* consts_f,
+                      int n_f, const void* sample_f, int smem_f,
+                      const void* consts_g, int n_g, const void* sample_g,
+                      int smem_g, void* stream) {
+  if constexpr (PF::kSegments > 1 || PG::kSegments > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (G < 2 || T_out < 1 || B < 1 || D != PF::kDim || PF::kOutRows != D ||
+        PG::kDim != 2 * D || PG::kOutRows != D || kind < 0 || kind > 2 ||
+        threads < 32 || threads > 1024)
+      return static_cast<int>(cudaErrorInvalidValue);
+    HyperScalars<T> sc;
+    sc.sign = T(sign);
+    sc.valid = valid;
+    sc.G = G;
+    sc.T_out = T_out;
+    sc.B = B;
+    sc.D = D;
+    sc.kind = kind;
+    sc.grid_is_t = grid_is_t;
+    const size_t smem =
+        sizeof(T) * ((smem_f ? size_t(n_f) : 0) + (smem_g ? size_t(n_g) : 0) +
+                     G + T_out);
+    const PlanRhs<T, PF> rf{static_cast<const T*>(consts_f),
+                            static_cast<const T*>(sample_f), n_f, smem_f};
+    PlanRhsAfter<T, PG> rg;
+    rg.cg = static_cast<const T*>(consts_g);
+    rg.scg = static_cast<const T*>(sample_g);
+    rg.n_consts = n_g;
+    rg.in_smem = smem_g;
+    rg.smem_off = smem_f ? n_f : 0;
+    return static_cast<int>(launch_rk_hyper<T>(
+        grid, tau, y0, out, stats, work, rf, rg, smem, threads, sc,
+        static_cast<cudaStream_t>(stream)));
+  }
+}
+
 }  // namespace tfd
 
 // The C entry points of a plan library, float32 and float64, for one host
@@ -359,6 +490,48 @@ int launch_plan_perlane(const void* tau, const void* y0, const void* f0,
         threads, rtol, atol, dt_min, sign, safety, ifactor, dfactor,        \
         max_steps, valid, stages, order, fsal, c, a, b_sol, b_err, c_mid,   \
         consts, n_consts, sample_consts, smem_consts, stream);               \
+  }
+#define TFD_PLAN_ADAMS_ENTRY(NAME, TYPE)                                     \
+  extern "C" int NAME(                                                       \
+      const void* grid, const void* tau, const void* y0, const void* f0,    \
+      void* out, void* stats, void* work, int G, int T_out, int B, int D,   \
+      int threads, int blocks, double sign, double rtol, double atol,       \
+      int valid, int max_order, int max_iters, int implicit, int nfe,       \
+      const double* ab, const double* am, const void* consts, int n_consts, \
+      const void* sample_consts, int smem_consts, void* stream) {           \
+    return tfd::launch_plan_adams<TYPE, tfd::Plan>(                         \
+        grid, tau, y0, f0, out, stats, work, G, T_out, B, D, threads,       \
+        blocks, sign, rtol, atol, valid, max_order, max_iters, implicit,    \
+        nfe, ab, am, consts, n_consts, sample_consts, smem_consts, stream);  \
+  }
+#define TFD_PLAN_VCABM_ENTRY(NAME, TYPE)                                     \
+  extern "C" int NAME(                                                       \
+      const void* tau, const void* y0, const void* f0, void* out,           \
+      void* stats, void* work, int T_out, int B, int D, int threads,        \
+      double dt0, double rtol, double atol, double dt_min, double sign,     \
+      double safety, double ifactor, double dfactor, int max_steps,         \
+      int valid, int max_order, const double* gstar, const void* consts,    \
+      int n_consts, const void* sample_consts, int smem_consts,             \
+      void* stream) {                                                        \
+    return tfd::launch_plan_vcabm<TYPE, tfd::Plan>(                         \
+        tau, y0, f0, out, stats, work, T_out, B, D, threads, dt0, rtol,     \
+        atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,     \
+        max_order, gstar, consts, n_consts, sample_consts, smem_consts,     \
+        stream);                                                             \
+  }
+// K12's entry: the dynamics `Plan` and the correction net `PlanG` of one
+// source.
+#define TFD_PLAN_HYPER_ENTRY(NAME, TYPE)                                     \
+  extern "C" int NAME(                                                       \
+      const void* grid, const void* tau, const void* y0, void* out,         \
+      void* stats, void* work, int G, int T_out, int B, int D, int threads, \
+      double sign, int valid, int kind, int grid_is_t, const void* consts_f,\
+      int n_f, const void* sample_f, int smem_f, const void* consts_g,      \
+      int n_g, const void* sample_g, int smem_g, void* stream) {            \
+    return tfd::launch_plan_hyper<TYPE, tfd::Plan, tfd::PlanG>(             \
+        grid, tau, y0, out, stats, work, G, T_out, B, D, threads, sign,     \
+        valid, kind, grid_is_t, consts_f, n_f, sample_f, smem_f, consts_g,  \
+        n_g, sample_g, smem_g, stream);                                      \
   }
 extern "C" const char* tfd_plan_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,5 +1,6 @@
 // The body of K8: a whole fixed-grid explicit-RK solve (euler, midpoint,
-// rk4, rk4_38) in one launch, templated on its right-hand side.
+// rk4, rk4_38) in one launch, templated on its right-hand side; and its
+// output drain (drain_cursor, hermite_drain), which K10 and K12 share.
 //
 // Replaces the engine of tfdiffeq_tpu/ops/pallas_fixed.py:102
 // (_make_fixed_solve_kernel with _fixed_stage_walk :59 and _hermite_drain
@@ -41,6 +42,39 @@ struct FixedScalars {
   T sign;
   int valid, G, T_out, B, D;
 };
+
+// The output cursor (pallas_fixed.py:_hermite_drain's loop bound): past
+// `oi`, every requested time in (t0, t1]; on the last interval every one
+// left. All samples share the grid, so it is the same in every thread.
+template <typename T>
+__device__ __forceinline__ int drain_cursor(const T* tau, int oi, int T_out,
+                                            T t1, bool last) {
+  int o = oi;
+  while (o < T_out && (tau[o] <= t1 || last)) ++o;
+  return o;
+}
+
+// The cubic-Hermite drain of one state element over outputs [oi, oi_new)
+// (pallas_fixed.py:76-98): y0, y1 the interval's end values, f0, f1 their
+// canonical derivatives, the output element o at out[o * stride + at].
+// Shared by K8, K10 and K12.
+template <typename T>
+__device__ __forceinline__ void hermite_drain(T* __restrict__ out,
+                                              const T* tau, int oi,
+                                              int oi_new, T t0, T t1, T dt,
+                                              T y0, T y1, T f0, T f1,
+                                              long stride, long at) {
+  const T df0 = dt * f0;
+  const T df1 = dt * f1;
+  const T cb = T(2) * (y0 - y1) + df0 + df1;
+  const T cc = T(3) * (y1 - y0) - T(2) * df0 - df1;
+  for (int o = oi; o < oi_new; ++o) {
+    const T tj = tau[o];
+    const T x = (tj - t0) / dt;
+    const T val = ((cb * x + cc) * x + df0) * x + y0;
+    out[long(o) * stride + at] = (tj == t1) ? y1 : val;
+  }
+}
 
 template <typename T, class Rhs>
 __global__ void rk_fixed_kernel(const T* __restrict__ grid_g,
@@ -166,27 +200,13 @@ __global__ void rk_fixed_kernel(const T* __restrict__ grid_g,
       __syncthreads();
       fo = rhs.eval_batch(rsh, lo, row0, spb) + long(b) * rhs.ld();
     }
-    // Every requested time in (t0, t1]; on the last interval, every one
-    // left. The cursor is the same in every thread.
-    const bool last = step + 2 == G;
-    int oi_new = oi;
-    while (oi_new < T_out && (tau[oi_new] <= t1 || last)) ++oi_new;
+    const int oi_new = drain_cursor(tau, oi, T_out, t1, step + 2 == G);
     for (int d = 0; mine && d < D; ++d) {
       const T f0 = F[at(d)];
       const T f1 = sign * fo[d];
       F[at(d)] = f1;
-      const T y0 = Y0[at(d)];
-      const T y1 = Y[at(d)];
-      const T df0 = dt * f0;
-      const T df1 = dt * f1;
-      const T cb = T(2) * (y0 - y1) + df0 + df1;
-      const T cc = T(3) * (y1 - y0) - T(2) * df0 - df1;
-      for (int o = oi; o < oi_new; ++o) {
-        const T tj = tau[o];
-        const T x = (tj - t0) / dt;
-        const T val = ((cb * x + cc) * x + df0) * x + y0;
-        out[long(o) * BD + long(b) * D + d] = (tj == t1) ? y1 : val;
-      }
+      hermite_drain(out, tau, oi, oi_new, t0, t1, dt, Y0[at(d)], Y[at(d)],
+                    f0, f1, BD, long(b) * D + d);
     }
     oi = oi_new;
   }

@@ -1,0 +1,356 @@
+// The body of K11: a whole variable-coefficient, variable-order
+// Adams-Bashforth-Moulton solve (VCABM, method 'adams') in one launch,
+// templated on its right-hand side.
+//
+// Replaces the engine of tfdiffeq_tpu/ops/pallas_vcabm.py:51
+// (_make_vcabm_kernel; launched by vcabm_solve_call :312 from
+// mlp_solve_vcabm :399 and plan_solve_vcabm :449). Per attempt, in the
+// kernel's order (not the generic engine's, where the two differ):
+// - the g / beta / c recurrences over orders 1 .. max_order, each entry
+//   masked by the live order, a zero denominator replaced by 1 before the
+//   divide; the explicit phi rows phi[j] beta_j;
+// - the predictor y + dt sum_{j < max(order - 1, 1)} g_j ephi_j, one
+//   evaluation f_pred, the implicit phi rows, the corrector at row
+//   cidx = max(order - 1, 1), and the RMS error at order k over all B D
+//   values with the finiteness flag;
+// - on accept: a second evaluation f_next, the errors at orders k - 1,
+//   k - 2 and k + 1, the 4-step / order-3 startup and the order choice,
+//   "keep dt when raising the order" else the controller at order k + 1,
+//   the committed state, phi and prev_t, and the output when the step
+//   lands on the next requested time; on reject the controller at order k;
+// - the controller factor safety exp((-1/k) log r), r >= 1e-38, clipped
+//   to [1, ifactor] on accept and [dfactor, 1] on reject; the statuses
+//   DT_UNDERFLOW (2) before MAX_STEPS (1), with max_num_steps counting
+//   attempts; 3 with a zero tail for times that do not increase.
+// The sentinel prev_t slots are t0 - slot (pallas_vcabm.py:93-95). Stats
+// are [nfe, accepted, rejected, status], 2 evaluations an accepted attempt
+// and 1 a rejected one. Output is written straight into [T, B, D].
+//
+// Design. Every attempt's accept needs the error over the whole batch, so
+// the solve runs on ONE thread block (as K2 does): each thread owns the
+// samples b = tid, tid + blockDim.x, ... and walks their evaluations; the
+// three divided-difference stacks (phi, explicit phi, the predictor's
+// implicit phi: 3 (max_order + 2) rows of D values a sample, 1.38 MB at
+// max_order 12, D = 2, B = 4096 in float32, L2-resident), the state and
+// y_next live in a device workspace laid out feature-major ([row][B]); the
+// output times sit in shared memory after what the right-hand side keeps
+// there. The scalar machinery (the c vector, g, beta, prev_t, the order and
+// next_t) is computed by every thread identically from the same values, so
+// no thread waits for another's. The error sums are block reductions in a
+// fixed order (mlp_rk.cuh block_sum), the finiteness flag
+// __syncthreads_or; every thread then takes the same decisions. The plain
+// version (ops/cuda_adams.py vcabm_solve_plain) repeats every operation in
+// this order, and the libraries are built with --fmad=false, so the two
+// give the same bits. max_order is a launch argument: one binary serves
+// orders 1 .. 12.
+//
+// The right-hand side `Rhs` (mlp_rk.cuh MlpThreadRhs: the MLP routes of
+// csrc/vcabm_kernel.cu; csrc/plan_rhs.cuh PlanRhs: K14's generated plans)
+// evaluates one sample in its thread, as csrc/rk_adams.cuh describes.
+#pragma once
+
+#include "mlp_rk.cuh"
+
+namespace tfd {
+
+constexpr int kVcabmMaxOrder = 12;
+constexpr int kVcabmK = kVcabmMaxOrder + 2;  // phi rows 0 .. order + 1
+// Most threads of the one block (a power of two for block_sum;
+// ops/cuda_adams.py VCABM_THREADS).
+constexpr int kVcabmThreads = 512;
+
+template <typename T>
+struct VcabmScalars {
+  T dt0, rtol, atol, dt_min, sign, safety, ifactor, dfactor;
+  T gstar[kVcabmK + 1];  // gamma*_0 .. gamma*_K of the host's doubles
+  int max_steps, valid, T_out, B, D, max_order;
+};
+
+// pallas_vcabm.py:optimal_dt: safety exp((-1/k) log r), r clamped to
+// 1e-38, k = max(order, 1); ifactor when ratio <= 0; clipped.
+template <typename T>
+__device__ __forceinline__ T vcabm_dt(T dt, T ratio, int order,
+                                      bool accepted, T safety, T ifactor,
+                                      T dfactor) {
+  const T r = d_max(ratio, T(1e-38));
+  const T k = d_max(T(order), T(1));
+  T fac = safety * d_exp((T(-1) / k) * d_log(r));
+  const T lo = accepted ? T(1) : dfactor;
+  const T hi = accepted ? ifactor : T(1);
+  fac = ratio <= T(0) ? ifactor : d_min(d_max(fac, lo), hi);
+  return dt * fac;
+}
+
+template <typename T, class Rhs>
+__global__ void __launch_bounds__(kVcabmThreads, 1)
+    rk_vcabm_kernel(const T* __restrict__ tau_g, const T* __restrict__ y0g,
+                    const T* __restrict__ f0g, T* __restrict__ out,
+                    int* __restrict__ stats, T* __restrict__ work, Rhs rhs,
+                    VcabmScalars<T> sc_in) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Rhs::Shared rsh;
+  __shared__ VcabmScalars<T> sc;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  typename Rhs::Local lo;
+  T* tau = rhs.setup(rsh, lo, smem_raw);  // [T_out]
+  T* red = tau + sc_in.T_out;  // [blockDim.x]
+  if (tid == 0) sc = sc_in;
+  for (int i = tid; i < sc_in.T_out; i += nth) tau[i] = tau_g[i];
+  __syncthreads();
+
+  const int T_out = sc.T_out, B = sc.B, D = sc.D;
+  const int MO = sc.max_order, K = MO + 2;
+  const long BD = long(B) * D;
+  // Feature-major workspace rows of B values.
+  T* Y = work;               // state
+  T* YN = Y + BD;            // p_next, then y_next of the attempt
+  T* PHI = YN + BD;          // phi rows 0 .. K - 1, D rows each
+  T* EPHI = PHI + K * BD;    // explicit phi
+  T* PHIP = EPHI + K * BD;   // the predictor's implicit phi
+  T* h_in = rhs.in(lo);
+  const T sign = sc.sign;
+  auto row = [B](int j, int D_, int d, int b) -> long {
+    return (long(j) * D_ + d) * B + b;
+  };
+
+  // Zero fill, y0 in row 0 (pallas_vcabm.py:81-87); each thread its own
+  // samples.
+  for (int b = tid; b < B; b += nth) {
+    for (int d = 0; d < D; ++d) {
+      const long i = long(b) * D + d;
+      const long r = long(d) * B + b;
+      out[i] = y0g[i];
+      for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
+      Y[r] = y0g[i];
+      for (int j = 0; j < K; ++j) {
+        PHI[row(j, D, d, b)] = j == 0 ? f0g[i] : T(0);
+        EPHI[row(j, D, d, b)] = T(0);
+        PHIP[row(j, D, d, b)] = T(0);
+      }
+    }
+  }
+
+  const T denom = T(double(D) * double(B));
+  const T t0 = tau[0];
+  T prev_t[kVcabmK];
+  for (int j = 0; j < K; ++j) prev_t[j] = j ? t0 - T(double(j)) : t0;
+  T next_t_c = t0 + sc.dt0;
+  int order = 1, oi = 1, nacc = 0, nrej = 0, nfe = 0;
+  int status = sc.valid ? 0 : 3;
+
+  while (oi < T_out && status == 0) {
+    const T final_t = tau[oi < T_out - 1 ? oi : T_out - 1];
+    const T next_t = d_min(next_t_c, final_t);
+    const T curr_t = prev_t[0];
+    const T dt = next_t - curr_t;
+
+    // ---- g / beta recurrences (pallas_vcabm.py:122-146).
+    T cvec[kVcabmK + 1];
+    for (int i = 0; i <= K; ++i) cvec[i] = T(1.0 / double(i + 1));
+    T g[kVcabmK];
+    T betas[kVcabmK];  // beta_j of explicit phi row j, for j < order
+    g[0] = T(1);
+    T beta = T(1);
+    for (int j = 1; j <= MO; ++j) {
+      if (j <= order) {
+        const T den = next_t - prev_t[j - 1];
+        const T factor = dt / (den == T(0) ? T(1) : den);
+        for (int i = 0; i <= K; ++i)
+          cvec[i] = cvec[i] - (i < K ? cvec[i + 1] : cvec[i]) * factor;
+        g[j] = cvec[0];
+      } else {
+        g[j] = T(0);
+      }
+      if (j < order) {
+        const T den = curr_t - prev_t[j];
+        beta = beta * ((next_t - prev_t[j - 1]) / (den == T(0) ? T(1) : den));
+        betas[j] = beta;
+      }
+    }
+    g[MO + 1] = T(0);  // never selected (order <= max_order)
+    const int n_pred = order - 1 > 1 ? order - 1 : 1;
+    const int om1 = order - 1 > 0 ? order - 1 : 0;
+    const int cidx = order - 1 > 1 ? order - 1 : 1;
+    const T c_corr = dt * g[cidx];
+    const T c_err = dt * (g[order] - g[om1]);
+
+    // ---- phase 1: explicit phi, predictor, f_pred, implicit phi,
+    // corrector and the error at order k of each owned sample.
+    T ss = T(0);
+    bool bad = false;
+    for (int b = tid; b < B; b += nth) {
+      for (int d = 0; d < D; ++d) {
+        EPHI[row(0, D, d, b)] = PHI[row(0, D, d, b)];
+        for (int j = 1; j <= MO; ++j)
+          EPHI[row(j, D, d, b)] =
+              j < order ? PHI[row(j, D, d, b)] * betas[j] : T(0);
+        T acc = (0 < n_pred ? g[0] : T(0)) * EPHI[row(0, D, d, b)];
+        for (int j = 1; j < MO; ++j)
+          acc = acc + (j < n_pred ? g[j] : T(0)) * EPHI[row(j, D, d, b)];
+        const T p = Y[long(d) * B + b] + dt * acc;
+        YN[long(d) * B + b] = p;
+        h_in[d] = p;
+      }
+      const T* fo = rhs.eval(rsh, lo, sign * next_t, b, B);
+      for (int d = 0; d < D; ++d) {
+        const T fp = sign * fo[d];
+        T run = T(0);
+        for (int j = 0; j < K; ++j) {
+          PHIP[row(j, D, d, b)] = j < order + 1 ? fp - run : T(0);
+          if (j < K - 1) run = run + EPHI[row(j, D, d, b)];
+        }
+        const long r = long(d) * B + b;
+        const T yn = YN[r] + c_corr * PHIP[row(cidx, D, d, b)];
+        YN[r] = yn;
+        const T scale = sc.atol + sc.rtol * d_max(d_abs(Y[r]), d_abs(yn));
+        const T esc = (c_err * PHIP[row(order, D, d, b)]) / scale;
+        ss = ss + esc * esc;
+        bad = bad || !d_finite(yn);
+      }
+    }
+
+    // ---- the batch meets: error at order k, finiteness, one decision.
+    const bool any_bad = __syncthreads_or(bad);
+    const T error_k = d_sqrt(block_sum(ss, red) / denom);
+    const bool finite = d_finite(error_k) && !any_bad;
+    const bool accept = error_k <= T(1) && finite;
+    const T error_ctrl = finite ? error_k : T(1048576.0);  // 2 ** 20
+    const bool hit = accept && next_t >= final_t;
+
+    int next_order = order;
+    T dt_acc = dt;
+    if (accept) {
+      // ---- phase 2: f_next, the errors at orders k - 1, k - 2, k + 1,
+      // and the commit of each owned sample.
+      const int om2 = order - 2 > 0 ? order - 2 : 0;
+      const int om3 = order - 3 > 0 ? order - 3 : 0;
+      const T c_km1 = dt * (g[om1] - g[om2]);
+      const T c_km2 = dt * (g[om2] - g[om3]);
+      const T c_kp1 = dt * sc.gstar[order];
+      T s1 = T(0), s2 = T(0), s3 = T(0);
+      for (int b = tid; b < B; b += nth) {
+        for (int d = 0; d < D; ++d) h_in[d] = YN[long(d) * B + b];
+        const T* fo = rhs.eval(rsh, lo, sign * next_t, b, B);
+        for (int d = 0; d < D; ++d) {
+          const long r = long(d) * B + b;
+          const T yn = YN[r];
+          const T scale = sc.atol + sc.rtol * d_max(d_abs(Y[r]), d_abs(yn));
+          const T e1 = (c_km1 * PHIP[row(om1, D, d, b)]) / scale;
+          const T e2 = (c_km2 * PHIP[row(om2, D, d, b)]) / scale;
+          s1 = s1 + e1 * e1;
+          s2 = s2 + e2 * e2;
+          // The new phi rows f_next - sum_{i<j} ephi_i, j < order + 2; row
+          // `order` also feeds the error at order k + 1.
+          const T fn = sign * fo[d];
+          T run = T(0);
+          for (int j = 0; j < K; ++j) {
+            const T v = j < order + 2 ? fn - run : T(0);
+            if (j == order) {
+              const T e3 = (c_kp1 * v) / scale;
+              s3 = s3 + e3 * e3;
+            }
+            PHI[row(j, D, d, b)] = v;
+            if (j < K - 1) run = run + EPHI[row(j, D, d, b)];
+          }
+          Y[r] = yn;
+          if (hit) out[long(oi) * BD + long(b) * D + d] = yn;
+        }
+      }
+      const T error_km1 = d_sqrt(block_sum(s1, red) / denom);
+      const T error_km2 = d_sqrt(block_sum(s2, red) / denom);
+      const T error_kp1 = d_sqrt(block_sum(s3, red) / denom);
+      // Order adaptation (pallas_vcabm.py:246-257).
+      const bool startup = nacc + 1 <= 4 || order < 3;
+      const bool dec = d_min(error_km1, error_km2) < error_k;
+      const int cap = MO < nacc + 1 ? MO : nacc + 1;
+      const bool inc = !dec && order < cap && error_kp1 < error_k;
+      if (startup) {
+        next_order = order + 1 < 3 ? order + 1 : 3;
+        next_order = next_order < MO ? next_order : MO;
+      } else {
+        next_order = dec ? order - 1 : (inc ? order + 1 : order);
+      }
+      next_order = next_order < 1 ? 1 : (next_order > MO ? MO : next_order);
+      if (next_order <= order)
+        dt_acc = vcabm_dt(dt, error_ctrl, order + 1, true, sc.safety,
+                          sc.ifactor, sc.dfactor);
+      for (int j = K - 1; j > 0; --j) prev_t[j] = prev_t[j - 1];
+      prev_t[0] = next_t;
+    }
+    const T dt_rej = vcabm_dt(dt, error_ctrl, order, false, sc.safety,
+                              sc.ifactor, sc.dfactor);
+
+    // Status rules (pallas_vcabm.py:280-287): 2 before 1.
+    const int oi_new = oi + (hit ? 1 : 0);
+    const int n_att = nacc + nrej + 1;
+    if (!accept && dt_rej < sc.dt_min && status == 0) status = 2;
+    if (n_att >= sc.max_steps && oi_new < T_out && status == 0) status = 1;
+    next_t_c = accept ? next_t + dt_acc : curr_t + dt_rej;
+    if (accept) order = next_order;
+    oi = oi_new;
+    nacc += accept ? 1 : 0;
+    nrej += accept ? 0 : 1;
+    nfe += accept ? 2 : 1;
+  }
+  if (tid == 0) {
+    stats[0] = nfe;
+    stats[1] = nacc;
+    stats[2] = nrej;
+    stats[3] = status;
+  }
+}
+
+// The launch arguments' checks that do not depend on the right-hand side.
+inline bool vcabm_args_ok(int T_out, int B, int D, int max_order,
+                          int max_steps, int threads) {
+  return T_out >= 2 && B >= 1 && D >= 1 && max_order >= 1 &&
+         max_order <= kVcabmMaxOrder && max_steps >= 1 && threads >= 32 &&
+         threads <= kVcabmThreads && !(threads & (threads - 1));
+}
+
+template <typename T>
+VcabmScalars<T> make_vcabm_scalars(int T_out, int B, int D, double dt0,
+                                   double rtol, double atol, double dt_min,
+                                   double sign, double safety, double ifactor,
+                                   double dfactor, int max_steps, int valid,
+                                   int max_order, const double* gstar) {
+  VcabmScalars<T> sc;
+  sc.dt0 = T(dt0);
+  sc.rtol = T(rtol);
+  sc.atol = T(atol);
+  sc.dt_min = T(dt_min);
+  sc.sign = T(sign);
+  sc.safety = T(safety);
+  sc.ifactor = T(ifactor);
+  sc.dfactor = T(dfactor);
+  for (int i = 0; i <= kVcabmK; ++i)
+    sc.gstar[i] = i <= max_order + 2 ? T(gstar[i]) : T(0);
+  sc.max_steps = max_steps;
+  sc.valid = valid;
+  sc.T_out = T_out;
+  sc.B = B;
+  sc.D = D;
+  sc.max_order = max_order;
+  return sc;
+}
+
+// One launch of K11 on one block with `rhs`; `smem` is the right-hand
+// side's shared memory (its setup) and the output times' and reduction's.
+template <typename T, class Rhs>
+cudaError_t launch_rk_vcabm(const void* tau, const void* y0, const void* f0,
+                            void* out, void* stats, void* work,
+                            const Rhs& rhs, size_t smem, int threads,
+                            const VcabmScalars<T>& sc, cudaStream_t stream) {
+  auto kernel = rk_vcabm_kernel<T, Rhs>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<1, threads, smem, stream>>>(
+      static_cast<const T*>(tau), static_cast<const T*>(y0),
+      static_cast<const T*>(f0), static_cast<T*>(out),
+      static_cast<int*>(stats), static_cast<T*>(work), rhs, sc);
+  return cudaGetLastError();
+}
+
+}  // namespace tfd

@@ -51,13 +51,19 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
   function is captured into a plan (`ops/plan_bridge.build_plan`), the
   plan's right-hand side generated as CUDA C++ (`ops/plan_codegen.py`, K14)
   and compiled into K2 (adaptive, one controller; batch couplings such as
-  y.mean(0) evaluated batch-wide), K5 (`per_sample=True`) or K8 (fixed
-  grids), one launch a solve (`ops/cuda_plan.py`). `odeint` / `solve`
+  y.mean(0) evaluated batch-wide), K5 (`per_sample=True`), K8 (fixed
+  grids), K10 (explicit_adams, fixed_adams) or K11 (VCABM 'adams'), one
+  launch a solve (`ops/cuda_plan.py`). `odeint` / `solve`
   route `options={'fuse': True}` here; `tree_state_adapter` carries tuple
   and dict states; `cnf_sample_auto` samples a plain-PyTorch flow.
   `fuse_fallbacks` counts the calls that ran the generic engine because the
   dynamics fell outside the plan's subset (a trace-time FusionError, never a
   build or launch failure).
+- `solve_hyper`: the hypersolvers (hyper_euler, hyper_midpoint,
+  hyper_heun) with both the dynamics and the correction net captured into
+  plans and generated into one K12 launch (`cuda_plan.plan_solve_hyper`);
+  `odeint(method='hyper_*', options={'fuse': True, 'hypernet': g})` routes
+  here. Inference only: the hypernet trains through the generic walk.
 - `odeint_adjoint_fused`: training of such dynamics in two launches, the
   plan's forward above and one backward sweep whose right-hand side is the
   plan's reverse walk (K15, generated as CUDA C++ by `ops/plan_codegen.py`)
@@ -70,8 +76,9 @@ item): the dot-precision tiers with
 `per_sample=True` (item 20), and the multi-card `axis_name` /
 `global_batch` coupling (item 18); `solve_conv_ode_sharded` has no
 counterpart here yet (item 18), nor has `cnf_log_prob_auto` (item 16, the
-plan CNF); `solve_fused` takes no Adams method, no reduced dot_precision,
-no dense output and no coupled plan on a fixed grid yet (items 16 and 3).
+plan CNF); `solve_fused` takes no reduced dot_precision, no dense output
+and no coupled plan on a fixed grid or on the Adams kernels yet (items 16
+and 3, queue 2 item 3), nor `solve_hyper` a coupled plan.
 What the kernels cannot take (widths past `MAX_WIDTH`) raises, as do the
 reduced tiers on the Adams kernels and an Adams `adjoint_method` (no
 adjoint kernel exists for it in either package). As in the reference,
@@ -109,6 +116,7 @@ from .odeint import solve as _generic_solve
 from .solvers.adaptive import AdaptiveConfig, solve_adaptive
 from .solvers.base import CanonicalProblem, SolveResult, SolverStats
 from .solvers.fixed_grid import steps_for_size, uniform_grid
+from .solvers.hyper import HYPER_KINDS
 from .utils.nfe import emit_bwd, emit_fwd
 
 Tensor = torch.Tensor
@@ -1194,9 +1202,10 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
                 matmul: str = "auto", safety: float = 0.9,
                 ifactor: float = 10.0, dfactor: float = 0.2,
                 num_steps=None, step_size=None, per_sample: bool = False,
-                dot_precision: str = "highest",
-                dense_output: bool = False) -> SolveResult:
-    """Whole-solve fused RK for arbitrary plain-PyTorch dynamics, one
+                dot_precision: str = "highest", dense_output: bool = False,
+                max_order: Optional[int] = None,
+                max_iters: int = 4) -> SolveResult:
+    """Whole-solve fused solve of arbitrary plain-PyTorch dynamics, one
     kernel launch (reference `fast.py:784`).
 
     func(t, y): a function of the batch-major state y [B, D] built from the
@@ -1214,10 +1223,14 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
     when first_step is None, the HNW first step with the plan's plain
     version (2 extra evaluations, else 1, counted in nfe). Fixed-grid
     methods run K8 on the requested times or a `num_steps` / `step_size`
-    grid. Not ported yet (NotImplementedError naming the ROADMAP item): the
-    Adams methods and a coupled plan on a fixed grid (queue 1 item 16), a
-    reduced dot_precision (K4 at the plan sites, item 16) and dense_output
-    (item 3).
+    grid. The Adams family runs K10 ('explicit_adams', 'fixed_adams': the
+    same grids, max_order default 4, max_iters) or K11 ('adams': VCABM from
+    f0 and the HNW first step at order 1, max_order default 12), as
+    `solve_mlp_spec` does; a reduced dot_precision raises ValueError there,
+    as in the reference. Not ported yet (NotImplementedError naming the
+    ROADMAP item): a coupled plan on a fixed grid or on the Adams kernels
+    (queue 1 item 16, queue 2 item 3), a reduced dot_precision (K4 at the
+    plan sites, item 16) and dense_output (item 3).
     """
     y0 = torch.as_tensor(y0)
     squeeze = False
@@ -1229,19 +1242,23 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
 
         y0 = y0[None]
         squeeze = True
-    if method in _ADAMS_METHODS:
-        raise NotImplementedError(
-            f"solve_fused(method={method!r}): K14 inside the Adams kernels "
-            "(K10, K11) is not ported yet: ROADMAP.md queue 1 item 16")
     fixed = method in tableaus.FIXED_TABLEAUS_BY_NAME
-    if not fixed and method not in tableaus.TABLEAUS_BY_NAME:
+    adams = method in _ADAMS_METHODS
+    if not (fixed or adams or method in tableaus.TABLEAUS_BY_NAME):
         raise _pb.FusionError(
             f"method {method!r} has no whole-solve kernel (available: "
             f"{sorted(tableaus.TABLEAUS_BY_NAME)} adaptive, "
-            f"{sorted(tableaus.FIXED_TABLEAUS_BY_NAME)} fixed-grid)")
+            f"{sorted(tableaus.FIXED_TABLEAUS_BY_NAME)} fixed-grid, "
+            f"{sorted(_ADAMS_METHODS)} Adams; the hypersolvers run "
+            "solve_hyper)")
     if dot_precision not in ("highest", "bf16", "mixed"):
         raise ValueError(f"dot_precision must be 'highest', 'bf16' or "
                          f"'mixed', got {dot_precision!r}")
+    if adams and dot_precision != "highest":
+        raise ValueError(
+            f"dot_precision={dot_precision!r} is not supported on the Adams "
+            "kernels (their corrector/order machinery assumes f32-accurate "
+            "dots); use an RK method")
     if dot_precision != "highest":
         raise NotImplementedError(
             f"solve_fused(dot_precision={dot_precision!r}): K4's tiers at "
@@ -1250,10 +1267,10 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         raise NotImplementedError(
             "solve_fused(dense_output=True) is not ported yet: ROADMAP.md "
             "queue 1 item 3 (remaining engine options)")
-    if per_sample and fixed:
+    if per_sample and (fixed or adams):
         raise _pb.FusionError(
             "per_sample applies to adaptive RK methods only (fixed grids "
-            "have no controller)")
+            "and the Adams kernels have one controller or none)")
     y0, t = _check_spec_inputs(y0, t)
     dtype, dev = y0.dtype, y0.device
 
@@ -1267,17 +1284,19 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         return result(y0[None].clone(), SolverStats(0, 0, 0, 0))
     y0 = y0.contiguous()
     plan, consts = _pb.build_plan(func, t[0].to(dev), y0, matmul=matmul)
-    _check_plan_route(plan, per_sample, fixed)
+    _check_plan_route(plan, per_sample, fixed, method)
     packed = _pb.pack_consts(plan, consts, dtype, dev)
     out, stats, lane = _plan_solve(
         plan, packed, y0, t, rtol=rtol, atol=atol, method=method,
         max_num_steps=max_num_steps, first_step=first_step, safety=safety,
         ifactor=ifactor, dfactor=dfactor, num_steps=num_steps,
-        step_size=step_size, per_sample=per_sample)
+        step_size=step_size, per_sample=per_sample, max_order=max_order,
+        max_iters=max_iters)
     return result(out, stats, lane)
 
 
-def _check_plan_route(plan, per_sample: bool, fixed: bool) -> None:
+def _check_plan_route(plan, per_sample: bool, fixed: bool,
+                      method: str = "") -> None:
     if plan.batch_coupled and per_sample:
         raise ValueError(
             "per_sample=True with batch-coupled dynamics (a cross-sample "
@@ -1287,17 +1306,22 @@ def _check_plan_route(plan, per_sample: bool, fixed: bool) -> None:
         raise NotImplementedError(
             "batch-coupled dynamics on a fixed grid are not ported yet: "
             "ROADMAP.md queue 1 item 16 (coupled plans in K8)")
+    if plan.batch_coupled and method in _ADAMS_METHODS:
+        raise NotImplementedError(
+            f"batch-coupled dynamics with method={method!r} are not ported "
+            "yet: ROADMAP.md queue 2 item 3 (coupled plans in K8, K9, K10, "
+            "K11 and K12)")
 
 
 def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
                 max_num_steps, first_step, safety=0.9, ifactor=10.0,
                 dfactor=0.2, num_steps=None, step_size=None,
-                per_sample=False):
-    """The forward solve of a captured plan (one K2, K5 or K8 launch): f0
-    and, for an adaptive method without first_step, the HNW first step by
-    the plan's plain version (2 extra evaluations, else 1, counted in nfe).
-    y0 [B, D] on its device, t the host times. Returns (out [T, B, D],
-    SolverStats, lane SolverStats or None)."""
+                per_sample=False, max_order=None, max_iters=4):
+    """The forward solve of a captured plan (one K2, K5, K8, K10 or K11
+    launch): f0 and, for an adaptive method or VCABM without first_step,
+    the HNW first step by the plan's plain version (2 extra evaluations,
+    else 1, counted in nfe). y0 [B, D] on its device, t the host times.
+    Returns (out [T, B, D], SolverStats, lane SolverStats or None)."""
     dtype, dev = y0.dtype, y0.device
     fixed = method in tableaus.FIXED_TABLEAUS_BY_NAME
     sign = torch.tensor(1.0 if t[-1] >= t[0] else -1.0, dtype=dtype)
@@ -1305,25 +1329,45 @@ def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
     sign_d = sign.to(dev)
     g = cuda_plan.plan_rhs(plan, packed, sign_d)
     f0 = g(tau[0].to(dev), y0).contiguous()
-    if fixed:
+    if max_order is None:
+        max_order = 12 if method == "adams" else 4   # the engines' defaults
+    if fixed or method in ("explicit_adams", "fixed_adams"):
         grid = _fixed_grid_tau(tau, t, num_steps, step_size)
-        out, stats = cuda_plan.plan_solve_fixed(
-            plan, packed, y0, tau, grid, float(sign), f0, method=method)
+        if fixed:
+            out, stats = cuda_plan.plan_solve_fixed(
+                plan, packed, y0, tau, grid, float(sign), f0, method=method)
+        else:
+            out, stats = cuda_plan.plan_solve_adams(
+                plan, packed, y0, tau, grid, rtol, atol, float(sign), f0,
+                implicit=method == "fixed_adams", max_order=int(max_order),
+                max_iters=int(max_iters))
         return out, SolverStats(*stats.tolist()), None
 
     if first_step is None:
+        # HNW's first step at the method's order - 1; VCABM's at order 1,
+        # as the generic engine's.
         rdt = torch.as_tensor(rtol, dtype=dtype).to(dev)
         adt = torch.as_tensor(atol, dtype=dtype).to(dev)
         pick = (select_initial_step_per_sample if per_sample
                 else select_initial_step)
         dt0 = pick(g, tau[0].to(dev), y0, f0,
-                   tableaus.TABLEAUS_BY_NAME[method].order - 1, rdt, adt)
+                   1 if method == "adams"
+                   else tableaus.TABLEAUS_BY_NAME[method].order - 1,
+                   rdt, adt)
         extra_nfe = 2
     else:
         dt0 = torch.abs(torch.as_tensor(first_step, dtype=dtype))
         extra_nfe = 1
     max_steps = (int(max_num_steps) if max_num_steps is not None
                  else _INT32_MAX)
+    if method == "adams":
+        out, stats = cuda_plan.plan_solve_vcabm(
+            plan, packed, y0, tau, dt0, rtol, atol, float(sign), f0,
+            max_order=int(max_order), safety=safety, ifactor=ifactor,
+            dfactor=dfactor, max_steps=max_steps)
+        nfe, nacc, nrej, status = stats.tolist()
+        return (out, SolverStats(nfe + extra_nfe, nacc, nrej, status),
+                None)
     kw = dict(method=method, safety=safety, ifactor=ifactor,
               dfactor=dfactor, max_steps=max_steps)
     if per_sample:
@@ -1338,6 +1382,72 @@ def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
                                       float(sign), f0, **kw)
     nfe, nacc, nrej, status = stats.tolist()
     return out, SolverStats(nfe + extra_nfe, nacc, nrej, status), None
+
+
+def solve_hyper(func, hypernet, y0: Tensor, t, *,
+                method: str = "hyper_euler", num_steps=None, step_size=None,
+                matmul: str = "auto") -> SolveResult:
+    """Whole-solve fused hypersolver (Poli et al. 2020) for arbitrary
+    plain-PyTorch dynamics and correction nets, one K12 launch (reference
+    `fast.py:1223`).
+
+    func(t, y) and hypernet(t, y, f) work on batch-major [B, D] states;
+    both are captured into plans (`ops/plan_bridge.build_plan`: the
+    dynamics square, the correction net over the stacked [y, f] as a
+    [B, 2 D] -> [B, D] plan) and generated as CUDA C++ into one kernel
+    (`cuda_plan.plan_solve_hyper`). Either one outside the plan's subset
+    raises `plan_bridge.FusionError` (`odeint(options={'fuse': True})`
+    catches it and runs the generic `solvers/hyper.py`); a batch coupling
+    raises NotImplementedError (ROADMAP.md queue 2 item 3). y0: [B, D], or
+    [D] (vmapped over a batch of one); t may increase or decrease; the grid
+    is t itself, or `num_steps` / `step_size` uniform steps with the
+    outputs cubic-Hermite interpolated (nfe = evaluations of func, one more
+    off the output grid). Inference only: training the hypernet
+    differentiates the generic walk, as in the reference. Returns ys
+    [T, B, D] (or [T, D]) and stats.
+    """
+    kind = method[len("hyper_"):]
+    if not method.startswith("hyper_") or kind not in HYPER_KINDS:
+        raise ValueError(f"unknown hypersolver {method!r}; available: "
+                         f"{[f'hyper_{k}' for k in HYPER_KINDS]}")
+    y0 = torch.as_tensor(y0)
+    squeeze = False
+    if y0.ndim == 1:
+        inner_f, inner_g = func, hypernet
+
+        def func(tt, yy):
+            return torch.func.vmap(lambda v: inner_f(tt, v))(yy)
+
+        def hypernet(tt, yy, ff):
+            return torch.func.vmap(lambda v, w: inner_g(tt, v, w))(yy, ff)
+
+        y0 = y0[None]
+        squeeze = True
+    y0, t = _check_spec_inputs(y0, t)
+    dtype, dev = y0.dtype, y0.device
+    if t.shape[0] == 1:
+        ys = y0[None].clone()
+        return SolveResult(ys[:, 0] if squeeze else ys,
+                           SolverStats(0, 0, 0, 0))
+    D = y0.shape[1]
+    y0 = y0.contiguous()
+    sign = torch.tensor(1.0 if t[-1] >= t[0] else -1.0, dtype=dtype)
+    tau = sign * t
+    grid = _fixed_grid_tau(tau, t, num_steps, step_size)
+    t0 = t[0].to(dev)
+    plan_f, consts_f = _pb.build_plan(func, t0, y0, matmul=matmul)
+    with torch.no_grad():
+        f0u = func(t0, y0)
+    plan_g, consts_g = _pb.build_plan(
+        lambda tt, ss: hypernet(tt, ss[:, :D], ss[:, D:]), t0,
+        torch.cat([y0, f0u.to(dtype)], dim=1), matmul=matmul, out_dim=D)
+    out, stats = cuda_plan.plan_solve_hyper(
+        plan_f, plan_g, _pb.pack_consts(plan_f, consts_f, dtype, dev),
+        _pb.pack_consts(plan_g, consts_g, dtype, dev), y0, tau, grid,
+        float(sign), kind=kind,
+        grid_is_t=num_steps is None and step_size is None)
+    return SolveResult(out[:, 0] if squeeze else out,
+                       SolverStats(*stats.tolist()))
 
 
 class _AdjointFused(torch.autograd.Function):

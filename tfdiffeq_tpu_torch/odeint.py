@@ -2,8 +2,9 @@
 
 Counterpart of `tfdiffeq_tpu/odeint.py` for the five adaptive RK methods
 (dopri5, bosh3, adaptive_heun, tsit5, dopri8), the four fixed-grid ones
-(euler, midpoint, rk4, rk4_38) and the Adams family (explicit_adams,
-fixed_adams, adams): same signature, defaults (rtol=1e-7,
+(euler, midpoint, rk4, rk4_38), the Adams family (explicit_adams,
+fixed_adams, adams) and the hypersolvers (hyper_euler, hyper_midpoint,
+hyper_heun): same signature, defaults (rtol=1e-7,
 atol=1e-9, method='dopri5') and `SOLVERS` names, tensor or tuple/dict
 state, reverse time, per-leaf tolerances.
 
@@ -29,32 +30,37 @@ Options of the adaptive methods, against the reference's allowlist:
   take the largest status, and `lane_stats` holds each sample's. The
   fused per-sample kernel is `fast.solve_mlp_spec(per_sample=True)`;
 - ``fuse``: the reference's `_try_fused` route: the dynamics are captured
-  into a plan and solved by `fast.solve_fused` in one kernel launch (K14
-  inside K2, K5 with ``per_sample``, K8 for the fixed-grid methods), with
-  the reference's option allowlists (``first_step``, ``max_num_steps``,
-  ``safety``, ``ifactor``, ``dfactor``, ``loop``, ``per_sample`` and
-  ``dot_precision`` for the adaptive methods; ``step_size``,
-  ``num_steps`` and ``dot_precision`` for the fixed-grid ones) and tuple
-  or dict states through `fast.tree_state_adapter`. Dynamics or options
-  outside the fused subset (a FusionError, raised while the plan is
-  captured, before any launch) warn, add 1 to `fast.fuse_fallbacks` and
-  run the generic engine (the per-sample loop below with ``per_sample``);
-  a reduced ``dot_precision`` that does not fuse raises ValueError. A
-  failed build or launch raises;
+  into a plan and solved by one whole-solve kernel launch (K14 inside K2,
+  K5 with ``per_sample``, K8 for the fixed-grid methods, K10 and K11 for
+  the Adams family; `fast.solve_fused`), with the reference's option
+  allowlists (``first_step``, ``max_num_steps``, ``safety``, ``ifactor``,
+  ``dfactor``, ``loop``, ``per_sample`` and ``dot_precision`` for the
+  adaptive methods; ``step_size``, ``num_steps`` and ``dot_precision`` for
+  the fixed-grid ones) and tuple or dict states through
+  `fast.tree_state_adapter`. Dynamics or options outside the fused subset
+  (a FusionError, raised while the plan is captured, before any launch)
+  warn, add 1 to `fast.fuse_fallbacks` and run the generic engine (the
+  per-sample loop below with ``per_sample``); a reduced ``dot_precision``
+  that does not fuse raises ValueError. A failed build or launch raises;
 - not ported yet, raising NotImplementedError with the ROADMAP item that
   brings them: ``dense_output`` and ``telemetry`` (item 3, remaining
-  engine options), and ``fuse`` with the Adams methods (item 16).
+  engine options).
 
 Options of the Adams family, registered by `solvers/fixed_adams.py` and
 `solvers/adams.py` with the reference's allowlists: ``max_order`` and
 ``max_iters`` (the corrector iterations of ``fixed_adams``) beside the
 fixed-grid options for ``explicit_adams`` / ``fixed_adams``; ``max_order``,
 ``first_step``, ``safety``, ``ifactor``, ``dfactor``, ``max_num_steps``
-and ``norm`` (a callable) for the VCABM ``adams``. ``fuse`` raises
-NotImplementedError for them (item 16).
+and ``norm`` (a callable) for the VCABM ``adams``. With ``fuse`` they run
+K10 (``step_size``, ``num_steps``, ``max_order``, ``max_iters``) or K11
+(``max_order``, ``first_step``, ``safety``, ``ifactor``, ``dfactor``,
+``max_num_steps``); a reduced ``dot_precision`` raises ValueError there.
 
-The hypersolvers are not ported yet and raise NotImplementedError naming
-their ROADMAP item. No method falls back to another path.
+The hypersolvers (``hyper_euler``, ``hyper_midpoint``, ``hyper_heun``,
+`solvers/hyper.py`) take ``hypernet`` with the fixed-grid options; with
+``fuse`` the dynamics and the hypernet both run as plans in one K12 launch
+(`fast.solve_hyper`: ``hypernet``, ``step_size``, ``num_steps``; a
+[B, D] or [D] tensor state). No method falls back to another path.
 """
 
 from __future__ import annotations
@@ -82,12 +88,6 @@ SOLVERS = {**{name: ("fixed", tab)
 #: Option allowlists of solvers added with `register_solver`.
 _CUSTOM_ALLOWED = {}
 
-#: Methods of the reference not ported yet -> the ROADMAP item that brings
-#: them (ROADMAP.md, queue 1).
-_NOT_PORTED_METHODS = {m: "queue 1 item 13 (hypersolvers)"
-                       for m in ("hyper_euler", "hyper_midpoint",
-                                 "hyper_heun")}
-
 _NOT_PORTED_OPTIONS = {
     "dense_output": "queue 1 item 3 (remaining engine options)",
     "telemetry": "queue 1 item 3 (remaining engine options)",
@@ -101,6 +101,12 @@ _FUSABLE_OPTIONS = frozenset({"first_step", "max_num_steps", "safety",
 _FUSABLE_FIXED_OPTIONS = frozenset({"step_size", "num_steps",
                                     "dot_precision"})
 _ADAMS = frozenset({"adams", "explicit_adams", "fixed_adams"})
+_FUSABLE_ADAMS_OPTIONS = frozenset({"step_size", "num_steps", "max_order",
+                                    "max_iters"})
+_FUSABLE_VCABM_OPTIONS = frozenset({"max_order", "first_step", "safety",
+                                    "ifactor", "dfactor", "max_num_steps"})
+_HYPER = frozenset({"hyper_euler", "hyper_midpoint", "hyper_heun"})
+_FUSABLE_HYPER_OPTIONS = frozenset({"hypernet", "step_size", "num_steps"})
 
 #: Reference loop options with no counterpart in an eager loop.
 _NO_OP_OPTIONS = frozenset({"loop", "unroll", "chunk_size"})
@@ -141,10 +147,6 @@ def _allowed_options(method: str) -> frozenset:
 
 
 def _check_not_ported(method: str, options: dict) -> None:
-    if method in _NOT_PORTED_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not ported to PyTorch yet: ROADMAP.md "
-            f"{_NOT_PORTED_METHODS[method]}")
     if method not in SOLVERS:
         raise ValueError(f"Unknown method {method!r}; available: "
                          f"{sorted(SOLVERS)}")
@@ -204,10 +206,16 @@ def _try_fused(func, y0, t, rtol, atol, method: str, options: dict,
                 f"dot_precision={prec!r} is not supported on the Adams "
                 "kernels (their corrector/order machinery assumes "
                 "f32-accurate dots); use an RK method")
-        if method in _ADAMS:
-            return fast.solve_fused(func, y0, t, method=method)
-        allowed = (_FUSABLE_OPTIONS if kind == "adaptive"
-                   else _FUSABLE_FIXED_OPTIONS)
+        if kind == "adaptive":
+            allowed = _FUSABLE_OPTIONS
+        elif method == "adams":
+            allowed = _FUSABLE_VCABM_OPTIONS
+        elif method in _ADAMS:
+            allowed = _FUSABLE_ADAMS_OPTIONS
+        elif method in _HYPER:
+            allowed = _FUSABLE_HYPER_OPTIONS
+        else:
+            allowed = _FUSABLE_FIXED_OPTIONS
         unsupported = set(options) - allowed
         if unsupported:
             raise FusionError(f"options {sorted(unsupported)} are not "
@@ -217,11 +225,40 @@ def _try_fused(func, y0, t, rtol, atol, method: str, options: dict,
                     isinstance(tol, torch.Tensor) and tol.ndim == 0)):
                 raise FusionError("per-leaf tolerance pytrees are not "
                                   "supported by the fused kernel")
+        if method in _HYPER:
+            # The hypernet's [y; f] input is defined on the flat feature
+            # axis, so the hypersolvers take tensor states only.
+            if not (isinstance(y0, torch.Tensor) and y0.ndim in (1, 2)):
+                raise FusionError("fused hypersolvers need a [B, D] (or "
+                                  "[D]) tensor state")
+            hypernet = options.get("hypernet")
+            if hypernet is None:
+                raise ValueError(
+                    f"method {method!r} requires options={{'hypernet': g}}")
+            return fast.solve_hyper(func, hypernet, y0, t, method=method,
+                                    num_steps=options.get("num_steps"),
+                                    step_size=options.get("step_size"))
         rebuild = None
         adapted = fast.tree_state_adapter(func, y0)
         if adapted is not None:
             func, y0, rebuild = adapted
-        if kind == "fixed":
+        if method == "adams":
+            res = fast.solve_fused(
+                func, y0, t, rtol=rtol, atol=atol, method=method,
+                max_num_steps=options.get("max_num_steps"),
+                first_step=options.get("first_step"),
+                safety=float(options.get("safety", 0.9)),
+                ifactor=float(options.get("ifactor", 10.0)),
+                dfactor=float(options.get("dfactor", 0.2)),
+                max_order=int(options.get("max_order", 12)))
+        elif method in _ADAMS:
+            res = fast.solve_fused(
+                func, y0, t, rtol=rtol, atol=atol, method=method,
+                num_steps=options.get("num_steps"),
+                step_size=options.get("step_size"),
+                max_order=int(options.get("max_order", 4)),
+                max_iters=int(options.get("max_iters", 4)))
+        elif kind == "fixed":
             res = fast.solve_fused(
                 func, y0, t, method=method,
                 num_steps=options.get("num_steps"),
@@ -274,7 +311,7 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
     _check_not_ported(method, options)
     kind, impl = SOLVERS[method]
     if options.get("fuse") and kind not in ("adaptive", "fixed") \
-            and method not in _ADAMS:
+            and method not in _ADAMS and method not in _HYPER:
         raise ValueError("options={'fuse': True} is not supported for "
                          f"method {method!r} (custom registered solvers run "
                          "the generic engine)")

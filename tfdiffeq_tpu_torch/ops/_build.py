@@ -17,9 +17,9 @@ reports each kernel's registers, shared memory and spills; the report is
 kept in `build_log()`.
 
 K14's and K15's plan libraries (`plan_libraries`): one generated source
-per plan structure and host kernel (ops/plan_codegen.py: K2, K8, K5, and
-the adjoint hosts K3, K6, K9), compiled with the same
-flags by one `nvcc -shared` each, all started together, into
+per plan structure and host kernel (ops/plan_codegen.py: K2, K8, K5, K10,
+K11, K12 with its two plans, and the adjoint hosts K3, K6, K9), compiled
+with the same flags by one `nvcc -shared` each, all started together, into
 `libtfd_plan_<hash>_<host>.so` in the same directory, named by a hash of
 the generated source, the headers and the flags. An in-process cache keyed
 by that hash makes a repeated structure build nothing; `plan_builds` counts
@@ -29,6 +29,7 @@ the nvcc processes and `plan_build_seconds` their wall time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -45,10 +46,12 @@ SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "perlane_adjoint_kernel.cu", "tier_net_kernel.cu",
            "adams_kernel.cu", "vcabm_kernel.cu")
 HEADERS = ("mlp_rk.cuh", "dot_tiers.cuh", "cnf_net.cuh", "rk_solve.cuh",
-           "rk_fixed.cuh", "rk_perlane.cuh", "rk_adjoint.cuh")
+           "rk_fixed.cuh", "rk_perlane.cuh", "rk_adjoint.cuh",
+           "rk_adams.cuh", "rk_vcabm.cuh")
 #: The headers a plan library compiles against.
 PLAN_HEADERS = ("mlp_rk.cuh", "rk_solve.cuh", "rk_fixed.cuh",
-                "rk_perlane.cuh", "rk_adjoint.cuh", "plan_ops.cuh",
+                "rk_perlane.cuh", "rk_adjoint.cuh", "rk_adams.cuh",
+                "rk_vcabm.cuh", "rk_hyper.cuh", "plan_ops.cuh",
                 "plan_rhs.cuh", "plan_aug.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -154,6 +157,15 @@ _PLAN_ARGS = {
     "perlane": ([_P] * 8 + [_I] * 4 + [_D] * 7 + [_I, _I]  # tau .. valid
                 + [_I, _I, _I, _P, _P, _P, _P, _P]         # tableau
                 + _PLAN_CONSTS + [_P]),
+    "adams": ([_P] * 7 + [_I] * 6 + [_D] * 3             # grid .. atol
+              + [_I] * 5 + [_P, _P]                       # valid .. am
+              + _PLAN_CONSTS + [_P]),
+    "vcabm": ([_P] * 6 + [_I] * 4 + [_D] * 8             # tau .. dfactor
+              + [_I] * 3 + [_P]                           # .. gstar
+              + _PLAN_CONSTS + [_P]),
+    # K12: two plans' constants (csrc/plan_rhs.cuh launch_plan_hyper).
+    "hyper": ([_P] * 6 + [_I] * 5 + [_D] + [_I] * 3       # grid .. grid_is_t
+              + [_P, _I, _P, _I] * 2 + [_P]),
     # K15's hosts (csrc/plan_aug.cuh).
     "adjoint": ([_P] * 10 + [_I] * 4 + [_D] * 8 + [_I, _I]  # tau .. seminorm
                 + [_I, _I, _P, _P, _P, _P]                  # tableau
@@ -284,9 +296,11 @@ _plan_libs = {}
 _plan_logs = {}
 
 
+@functools.lru_cache(maxsize=256)
 def plan_key(source: str) -> str:
     """Name of a plan library: a hash of its source, the headers it
-    includes and the flags."""
+    includes and the flags, worked out once a source in a process (every
+    plan launch asks for its library by this key)."""
     h = hashlib.sha256(source.encode())
     for name in PLAN_HEADERS:
         h.update(name.encode())

@@ -13,6 +13,12 @@ built by `_build.py`):
   `_make_vcabm_kernel` (pallas_vcabm.py:51): a whole VCABM ('adams') solve
   in one launch.
 
+Both kernels are templates on their right-hand side (`csrc/rk_adams.cuh`,
+`csrc/rk_vcabm.cuh`): the MLP routes here, a generated plan in
+`cuda_plan.plan_solve_adams` / `plan_solve_vcabm` (K14). Their engines'
+plain versions, `adams_solve_plain` and `vcabm_solve_plain`, take any
+canonical right-hand side and serve both.
+
 The wrappers take the plain versions only for tensors on the CPU; a CUDA
 tensor launches the kernel or raises. The plain versions follow the
 kernels operation for operation on the batch-major [B, D] layout, the
@@ -37,6 +43,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .cuda_fixed import hermite_drain_plain
 from .cuda_kernels import (_ACT_CODES, _check_activations, _check_float,
                            _check_mlp, _count, _device_kind, _dims_arg,
                            _increasing, _net_plain, _owned_sums, _ptr,
@@ -107,6 +114,22 @@ def mlp_solve_adams_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                           max_iters: int = 4) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K10, step for step. Same contract as
     `mlp_solve_adams`, except that f0 is required."""
+    f = _signed_net(warrays, dims, sign, y0.dtype, y0.device, activation,
+                    final_activation, input_power, time_input)
+    return adams_solve_plain(f, y0, f0, tau, grid, rtol, atol,
+                             implicit=implicit, max_order=max_order,
+                             max_iters=max_iters)
+
+
+def adams_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, grid: Tensor,
+                      rtol, atol, *, implicit: bool = True,
+                      max_order: int = 4, max_iters: int = 4
+                      ) -> Tuple[Tensor, Tensor]:
+    """K10's engine (`_make_adams_solve_kernel`) step for step on the host:
+    f(s, y) is the canonical (signed) right-hand side on y0's [B, D]
+    layout, f0 = f(grid[0], y0). Returns (out [T, B, D], stats [4] int32).
+    Shared by the MLP route (`mlp_solve_adams_plain`) and the plan route
+    (`cuda_plan.plan_solve_adams_plain`)."""
     MO = check_max_order(max_order)
     dev, dtype = y0.device, y0.dtype
     T, G = tau.shape[0], grid.shape[0]
@@ -117,8 +140,6 @@ def mlp_solve_adams_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     rtol, atol = on(rtol), on(atol)
     ab = on(BASHFORTH_TABLE[:MO, :MO])
     am = on(MOULTON_TABLE[:MO, :MO])
-    f = _signed_net(warrays, dims, sign, dtype, dev, activation,
-                    final_activation, input_power, time_input)
 
     out = torch.zeros((T,) + tuple(y0.shape), dtype=dtype, device=dev)
     out[0] = y0
@@ -184,18 +205,8 @@ def mlp_solve_adams_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
         y1 = y + adj
         comp = (y1 - y) - adj
         hist = [f1] + hist[:-1]
-        # Cubic-Hermite drain of every requested time in (t0, t1]
-        # (pallas_fixed.py:76-98); the last step flushes the rest.
-        df0, df1 = dt * f_head, dt * f1
-        cb = 2.0 * (y - y1) + df0 + df1
-        cc = 3.0 * (y1 - y) - 2.0 * df0 - df1
-        last = n == G - 2
-        while oi < T and (bool(tau_h[oi] <= grid_h[n + 1]) or last):
-            tj = tau_d[oi]
-            x = (tj - t0) / dt
-            val = ((cb * x + cc) * x + df0) * x + y
-            out[oi] = torch.where(tj == t1, y1, val)
-            oi += 1
+        oi = hermite_drain_plain(out, oi, tau_h, tau_d, grid_h[n + 1], t0,
+                                 t1, y, y1, f_head, f1, n == G - 2)
         y = y1
     stats = torch.tensor([_adams_nfe(G, MO, max_iters, implicit), G - 1, 0,
                           0], dtype=torch.int32, device=dev)
@@ -328,10 +339,27 @@ def mlp_solve_vcabm_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                           safety: float = 0.9, ifactor: float = 10.0,
                           dfactor: float = 0.2, max_steps: int = _INT32_MAX
                           ) -> Tuple[Tensor, Tensor]:
-    """Plain PyTorch version of K11: a host loop of attempts that mirrors
+    """Plain PyTorch version of K11. Same contract as `mlp_solve_vcabm`,
+    except that f0 is required."""
+    f = _signed_net(warrays, dims, sign, y0.dtype, y0.device, activation,
+                    final_activation, input_power, time_input)
+    return vcabm_solve_plain(f, y0, f0, tau, dt0, rtol, atol,
+                             max_order=max_order, safety=safety,
+                             ifactor=ifactor, dfactor=dfactor,
+                             max_steps=max_steps)
+
+
+def vcabm_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
+                      atol, *, max_order: int = MAX_ORDER,
+                      safety: float = 0.9, ifactor: float = 10.0,
+                      dfactor: float = 0.2, max_steps: int = _INT32_MAX
+                      ) -> Tuple[Tensor, Tensor]:
+    """K11's engine: a host loop of attempts that mirrors
     `_make_vcabm_kernel` line for line, every scalar a 0-d tensor on y0's
     device (one synchronisation per attempt, two for an accepted one).
-    Same contract as `mlp_solve_vcabm`, except that f0 is required."""
+    f(s, y) is the canonical (signed) right-hand side, f0 = f(tau[0], y0).
+    Shared by the MLP route (`mlp_solve_vcabm_plain`) and the plan route
+    (`cuda_plan.plan_solve_vcabm_plain`)."""
     MO = check_max_order(max_order)
     K = MO + 2
     dev, dtype = y0.device, y0.dtype
@@ -341,8 +369,6 @@ def mlp_solve_vcabm_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     tau_d = on(tau_h)
     rtol, atol, dt_min = on(rtol), on(atol), on(dt_min)
     gstar = on(GAMMA_STAR[:K + 1])
-    f = _signed_net(warrays, dims, sign, dtype, dev, activation,
-                    final_activation, input_power, time_input)
 
     out = torch.zeros((T,) + tuple(y0.shape), dtype=dtype, device=dev)
     out[0] = y0

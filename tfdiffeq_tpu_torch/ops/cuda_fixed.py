@@ -95,6 +95,30 @@ def mlp_solve_fixed_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     return fixed_solve_plain(f, y0, f0, tau, grid, _tableau(method))
 
 
+def hermite_drain_plain(out: Tensor, oi: int, tau_h: Tensor, tau_d: Tensor,
+                        t1_h: Tensor, t0: Tensor, t1: Tensor, y0: Tensor,
+                        y1: Tensor, f0: Tensor, f1: Tensor,
+                        last: bool) -> int:
+    """K8's cubic-Hermite drain (pallas_fixed.py:76-98, csrc/rk_fixed.cuh
+    hermite_drain) of every requested time in (t0, t1] from the output
+    cursor oi, from the interval's end states and canonical derivatives;
+    `last` flushes the times that roundoff left beyond the grid's end.
+    tau_h / t1_h are the host times the cursor compares, tau_d / t0 / t1
+    their device copies. Returns the advanced cursor. Shared by the plain
+    K8, K10 and K12."""
+    dt = t1 - t0
+    df0, df1 = dt * f0, dt * f1
+    cb = 2.0 * (y0 - y1) + df0 + df1
+    cc = 3.0 * (y1 - y0) - 2.0 * df0 - df1
+    while oi < tau_h.shape[0] and (bool(tau_h[oi] <= t1_h) or last):
+        tj = tau_d[oi]
+        x = (tj - t0) / dt
+        val = ((cb * x + cc) * x + df0) * x + y0
+        out[oi] = torch.where(tj == t1, y1, val)
+        oi += 1
+    return oi
+
+
 def fixed_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, grid: Tensor,
                       tab) -> Tuple[Tensor, Tensor]:
     """K8's engine (`_make_fixed_solve_kernel`) step for step on the host:
@@ -120,19 +144,8 @@ def fixed_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, grid: Tensor,
         y1 = y + adj
         comp = (y1 - y) - adj
         f1 = f(t1, y1)
-        # Cubic-Hermite drain of every requested time in (t0, t1] through
-        # the output cursor (pallas_fixed.py:76-98); the last step flushes
-        # the times that roundoff left beyond the grid's end.
-        df0, df1 = dt * fy, dt * f1
-        cb = 2.0 * (y - y1) + df0 + df1
-        cc = 3.0 * (y1 - y) - 2.0 * df0 - df1
-        last = i == G - 2
-        while oi < T and (bool(tau_h[oi] <= grid_h[i + 1]) or last):
-            tj = tau_d[oi]
-            x = (tj - t0) / dt
-            val = ((cb * x + cc) * x + df0) * x + y
-            out[oi] = torch.where(tj == t1, y1, val)
-            oi += 1
+        oi = hermite_drain_plain(out, oi, tau_h, tau_d, grid_h[i + 1], t0,
+                                 t1, y, y1, fy, f1, i == G - 2)
         y, fy = y1, f1
     stats = torch.tensor([1 + tab.stages * (G - 1), G - 1, 0, 0],
                          dtype=torch.int32, device=dev)

@@ -1,14 +1,17 @@
 """K14 and K15 in their hosts: the launch wrappers of a generated plan in
-K2, K8 and K5, of its reverse walk in K3, K6 and K9, their launch counters
-and their plain PyTorch versions.
+K2, K8, K5, K10, K11 and (two plans) K12, of its reverse walk in K3, K6
+and K9, their launch counters and their plain PyTorch versions.
 
 Counterpart of `tfdiffeq_tpu/ops/jaxpr_bridge.py:1038` (`plan_solve`: the
-adaptive solve, one controller or, with `per_sample`, one a sample) and
-`tfdiffeq_tpu/ops/pallas_fixed.py:1167` (`plan_solve_fixed`). The plan's
+adaptive solve, one controller or, with `per_sample`, one a sample),
+`tfdiffeq_tpu/ops/pallas_fixed.py:1167` (`plan_solve_fixed`), `:1143`
+(`plan_solve_adams`), `:440` (`plan_solve_hyper`) and
+`tfdiffeq_tpu/ops/pallas_vcabm.py:449` (`plan_solve_vcabm`). The plan's
 right-hand side is CUDA C++ generated for its structure
 (`plan_codegen.cuda_source`) and compiled into the host kernel
 (`csrc/plan_rhs.cuh` with `csrc/rk_solve.cuh`, `rk_fixed.cuh`,
-`rk_perlane.cuh`), one library a structure and host, built at first use
+`rk_perlane.cuh`, `rk_adams.cuh`, `rk_vcabm.cuh`, `rk_hyper.cuh`), one
+library a structure and host, built at first use
 (`_build.plan_libraries`).
 
 - `plan_solve`: K2 with the plan, one step controller over the batch. An
@@ -20,6 +23,14 @@ right-hand side is CUDA C++ generated for its structure
 - `plan_solve_fixed`: K8 with the plan on a fixed grid (uncoupled plans
   only; a coupled one raises NotImplementedError, ROADMAP.md queue 1
   item 16).
+- `plan_solve_adams` (explicit_adams, fixed_adams) and `plan_solve_vcabm`
+  ('adams'): K10 and K11 with the plan, a sample a thread in the kernels'
+  own layouts; a coupled plan raises NotImplementedError (ROADMAP.md
+  queue 2 item 3).
+- `plan_solve_hyper`: K12, the hypersolvers, with two plans, the dynamics
+  and the correction net over the stacked [y, f_user]; f's constants in
+  shared memory first, g's after them when both fit (`last_route['hyper']`
+  and `['hyper_g']`); a coupled plan raises NotImplementedError.
 
 K15, the plan's reverse-mode walk (reference `tfdiffeq_tpu/ops/
 plan_adjoint.py:154`), generated as CUDA C++ (`plan_codegen.aug_source`'s
@@ -41,8 +52,10 @@ sample.
 
 Each wrapper takes its plain version only for tensors on the CPU: the
 whole-solve engines of `cuda_kernels.adaptive_solve_plain`,
-`cuda_fixed.fixed_solve_plain` and `cuda_perlane.perlane_solve_plain` with
-`plan_bridge.eval_plan_host` as the right-hand side, and the sweeps of
+`cuda_fixed.fixed_solve_plain`, `cuda_perlane.perlane_solve_plain`,
+`cuda_adams.adams_solve_plain` and `vcabm_solve_plain` with
+`plan_bridge.eval_plan_host` as the right-hand side, K12's step by step in
+`plan_solve_hyper_plain`, and the sweeps of
 `cuda_adjoint.adjoint_sweep_plain`, `cuda_perlane.perlane_adjoint_plain`
 and `cuda_fixed.fixed_adjoint_plain` with `plan_adjoint.aug_terms`. A
 CUDA tensor launches the kernel or raises; a failed build or launch raises
@@ -52,7 +65,8 @@ The constants sit in shared memory when they fit beside the kernel's own
 shared arrays within `cuda_kernels.MAX_WEIGHT_BYTES`, else the kernel reads
 them from global memory; `last_route` records the choice of the latest
 launch on each host ('shared' or 'global'). `plan_solve_launches`,
-`plan_fixed_launches`, `plan_perlane_launches`, `plan_adjoint_launches`,
+`plan_fixed_launches`, `plan_perlane_launches`, `plan_adams_launches`,
+`plan_vcabm_launches`, `plan_hyper_launches`, `plan_adjoint_launches`,
 `plan_perlane_adjoint_launches` and `plan_fixed_adjoint_launches` count
 launches (a K6 or K9 sweep and its block-sum launch count one);
 `reset_launch_counts()` zeroes them.
@@ -67,8 +81,12 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _build, plan_codegen
+from .cuda_adams import (ADAMS_EXPLICIT_THREADS, ADAMS_THREADS,
+                         VCABM_THREADS, _adams_nfe, adams_solve_plain,
+                         vcabm_solve_plain)
 from .cuda_adjoint import ADJOINT_THREADS, adjoint_sweep_plain
-from .cuda_fixed import FIXED_THREADS, fixed_adjoint_plain, fixed_solve_plain
+from .cuda_fixed import (FIXED_THREADS, fixed_adjoint_plain,
+                         fixed_solve_plain, hermite_drain_plain)
 from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS,
                            _check_float, _device_kind, _increasing, _ptr,
                            _solve_setup, _stream, _tableau_args,
@@ -79,6 +97,10 @@ from .plan_adjoint import aug_terms, split_consts
 from .plan_bridge import (FusedPlan, check_plan_adjoint, eval_plan_host,
                           plan_uses_t)
 from .tableaus import FIXED_TABLEAUS_BY_NAME, TABLEAUS_BY_NAME
+from ..solvers.adams import GAMMA_STAR
+from ..solvers.fixed_adams import (BASHFORTH_TABLE, MOULTON_TABLE,
+                                   check_max_order)
+from ..solvers.hyper import HYPER_KINDS
 
 Tensor = torch.Tensor
 
@@ -88,26 +110,34 @@ plan_perlane_launches = 0
 plan_adjoint_launches = 0
 plan_perlane_adjoint_launches = 0
 plan_fixed_adjoint_launches = 0
-#: host -> 'shared' or 'global': where the latest launch read the constants.
+plan_adams_launches = 0
+plan_vcabm_launches = 0
+plan_hyper_launches = 0
+#: host -> 'shared' or 'global': where the latest launch read the constants
+#: (K12: 'hyper' its dynamics', 'hyper_g' its correction net's).
 last_route = {}
 
 
 def reset_launch_counts() -> None:
     global plan_solve_launches, plan_fixed_launches, plan_perlane_launches
     global plan_adjoint_launches, plan_perlane_adjoint_launches
-    global plan_fixed_adjoint_launches
+    global plan_fixed_adjoint_launches, plan_adams_launches
+    global plan_vcabm_launches, plan_hyper_launches
     plan_solve_launches = 0
     plan_fixed_launches = 0
     plan_perlane_launches = 0
     plan_adjoint_launches = 0
     plan_perlane_adjoint_launches = 0
     plan_fixed_adjoint_launches = 0
+    plan_adams_launches = 0
+    plan_vcabm_launches = 0
+    plan_hyper_launches = 0
 
 
 @functools.lru_cache(maxsize=256)
-def source(plan: FusedPlan, host: str) -> str:
-    """The generated CUDA source of `plan` on `host` ('solve', 'fixed',
-    'perlane')."""
+def source(plan, host: str) -> str:
+    """The generated CUDA source of `plan` on `host` (`plan_codegen.HOSTS`,
+    `AUG_HOSTS`; for 'hyper' the pair (dynamics, correction net))."""
     return plan_codegen.cuda_source(plan, host)
 
 
@@ -341,6 +371,302 @@ def plan_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
             _ptr(sample_consts), int(smem), _stream(dev))
     _check(lib, err, "plan_solve_fixed launch")
     plan_fixed_launches += 1
+    return out, stats
+
+
+# ---------------------------------------------------------------------------
+# K14 inside K10 and K11, and K12 with two plans
+# ---------------------------------------------------------------------------
+
+def _refuse_coupled(plans, kernel: str) -> None:
+    if any(p.batch_coupled for p in plans):
+        raise NotImplementedError(
+            f"batch-coupled dynamics in {kernel} are not ported yet: "
+            "ROADMAP.md queue 2 item 3 (coupled plans in K8, K9, K10, K11 "
+            "and K12)")
+
+
+def plan_solve_adams_plain(plan: FusedPlan, packed: Sequence[Tensor],
+                           y0: Tensor, tau: Tensor, grid: Tensor, rtol, atol,
+                           sign, f0: Tensor, *, implicit: bool = True,
+                           max_order: int = 4, max_iters: int = 4
+                           ) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of `plan_solve_adams`, on y0's device: K10's
+    engine (`cuda_adams.adams_solve_plain`) with `eval_plan`."""
+    sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
+    g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
+    return adams_solve_plain(g, y0, f0, tau, grid, rtol, atol,
+                             implicit=implicit, max_order=max_order,
+                             max_iters=max_iters)
+
+
+def plan_solve_adams(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
+                     tau: Tensor, grid: Tensor, rtol, atol, sign, f0: Tensor,
+                     *, implicit: bool = True, max_order: int = 4,
+                     max_iters: int = 4) -> Tuple[Tensor, Tensor]:
+    """Whole-solve fixed-step Adams (explicit_adams with implicit=False,
+    fixed_adams) with the plan as right-hand side, one K10 launch
+    (reference `pallas_fixed.py:1143`). tau: [T] canonical output times;
+    grid: [G] canonical step grid; f0: the signed derivative at grid[0].
+    Returns (out [T, B, D], stats [4] int32), as
+    `cuda_adams.mlp_solve_adams` does."""
+    _refuse_coupled([plan], "K10")
+    MO = check_max_order(max_order)
+    if int(max_iters) < 0:
+        raise ValueError(f"max_iters must be >= 0, got {max_iters}")
+    if grid.shape[0] < 2:
+        raise ValueError("the step grid needs at least two points")
+    kw = dict(implicit=implicit, max_order=MO, max_iters=int(max_iters))
+    if _device_kind(y0, f0) == "cpu":
+        return plan_solve_adams_plain(plan, packed, y0, tau, grid, rtol,
+                                      atol, sign, f0, **kw)
+
+    global plan_adams_launches
+    consts, sample_consts = _inputs(plan, packed, y0, f0)
+    dtype, dev = y0.dtype, y0.device
+    B, D = y0.shape
+    T, G = tau.shape[0], grid.shape[0]
+    host = "adams"
+    lib = build([(plan, host)])[0]
+    lay = plan_codegen.layout(plan)
+    threads = ADAMS_THREADS if implicit else ADAMS_EXPLICIT_THREADS
+    blocks = 1 if implicit else -(-B // threads)
+    smem = _consts_route(host, lay.n_consts, G + T + threads,
+                         y0.element_size())
+    tau_h = tau.detach().to("cpu", dtype)
+    grid_h = grid.detach().to("cpu", dtype)
+    valid = _increasing(tau_h) and _increasing(grid_h)
+    dbl = lambda a: (ctypes.c_double * a.size)(*a.reshape(-1).tolist())
+    out = torch.empty((T, B, D), dtype=dtype, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    work = torch.empty((8 + MO) * B * D, dtype=dtype, device=dev)
+    # Named, so that they live until the launch has read them.
+    grid_d, tau_d = grid_h.to(dev), tau_h.to(dev)
+    with torch.cuda.device(dev):
+        err = _fn(lib, host, dtype)(
+            _ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out),
+            _ptr(stats), _ptr(work), G, T, B, D, threads, blocks,
+            float(sign), float(rtol), float(atol), int(valid), MO,
+            int(max_iters), int(bool(implicit)),
+            _adams_nfe(G, MO, int(max_iters), bool(implicit)),
+            dbl(BASHFORTH_TABLE[:MO, :MO]), dbl(MOULTON_TABLE[:MO, :MO]),
+            _ptr(consts), lay.n_consts, _ptr(sample_consts), int(smem),
+            _stream(dev))
+    _check(lib, err, "plan_solve_adams launch")
+    plan_adams_launches += 1
+    return out, stats
+
+
+def plan_solve_vcabm_plain(plan: FusedPlan, packed: Sequence[Tensor],
+                           y0: Tensor, tau: Tensor, dt0, rtol, atol, sign,
+                           f0: Tensor, *, max_order: int = 12,
+                           safety: float = 0.9, ifactor: float = 10.0,
+                           dfactor: float = 0.2,
+                           max_steps: int = 2 ** 31 - 1
+                           ) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of `plan_solve_vcabm`, on y0's device: K11's
+    engine (`cuda_adams.vcabm_solve_plain`) with `eval_plan`."""
+    sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
+    g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
+    return vcabm_solve_plain(g, y0, f0, tau, dt0, rtol, atol,
+                             max_order=max_order, safety=safety,
+                             ifactor=ifactor, dfactor=dfactor,
+                             max_steps=max_steps)
+
+
+def plan_solve_vcabm(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
+                     tau: Tensor, dt0, rtol, atol, sign, f0: Tensor, *,
+                     max_order: int = 12, safety: float = 0.9,
+                     ifactor: float = 10.0, dfactor: float = 0.2,
+                     max_steps: int = 2 ** 31 - 1) -> Tuple[Tensor, Tensor]:
+    """Whole-solve VCABM ('adams') with the plan as right-hand side, one K11
+    launch (reference `pallas_vcabm.py:449`). tau: [T] increasing canonical
+    times; dt0: the first step, clamped to the span-scaled minimum; f0: the
+    signed derivative at tau[0]; max_steps caps the attempts. Returns (out
+    [T, B, D], stats [4] int32), as `cuda_adams.mlp_solve_vcabm` does."""
+    _refuse_coupled([plan], "K11")
+    MO = check_max_order(max_order)
+    if tau.shape[0] < 2:
+        raise ValueError("plan_solve_vcabm needs at least two output times")
+    if int(max_steps) < 1:
+        raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+    kw = dict(max_order=MO, safety=safety, ifactor=ifactor, dfactor=dfactor,
+              max_steps=int(max_steps))
+    if _device_kind(y0, f0) == "cpu":
+        return plan_solve_vcabm_plain(plan, packed, y0, tau, dt0, rtol, atol,
+                                      sign, f0, **kw)
+
+    global plan_vcabm_launches
+    consts, sample_consts = _inputs(plan, packed, y0, f0)
+    dtype, dev = y0.dtype, y0.device
+    B, D = y0.shape
+    T = tau.shape[0]
+    host = "vcabm"
+    lib = build([(plan, host)])[0]
+    lay = plan_codegen.layout(plan)
+    smem = _consts_route(host, lay.n_consts, T + VCABM_THREADS,
+                         y0.element_size())
+    tau_h, dt_min, dt0, valid = _solve_setup(tau, dt0, dtype)
+    K = MO + 2
+    out = torch.empty((T, B, D), dtype=dtype, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    work = torch.empty((2 + 3 * K) * B * D, dtype=dtype, device=dev)
+    gstar = (ctypes.c_double * (K + 1))(*GAMMA_STAR[:K + 1].tolist())
+    # Named, so that it lives until the launch has read it.
+    tau_d = tau_h.to(dev)
+    with torch.cuda.device(dev):
+        err = _fn(lib, host, dtype)(
+            _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out), _ptr(stats),
+            _ptr(work), T, B, D, VCABM_THREADS, float(dt0), float(rtol),
+            float(atol), float(dt_min), float(sign), float(safety),
+            float(ifactor), float(dfactor), int(min(max_steps, 2 ** 31 - 1)),
+            int(valid), MO, gstar, _ptr(consts), lay.n_consts,
+            _ptr(sample_consts), int(smem), _stream(dev))
+    _check(lib, err, "plan_solve_vcabm launch")
+    plan_vcabm_launches += 1
+    return out, stats
+
+
+def _hyper_inputs(plan_f: FusedPlan, plan_g: FusedPlan, y0: Tensor,
+                  kind: str) -> None:
+    if kind not in HYPER_KINDS:
+        raise ValueError(f"kind must be one of {sorted(HYPER_KINDS)}, got "
+                         f"{kind!r}")
+    D = plan_f.dim
+    if plan_f.out_rows != D or plan_g.dim != 2 * D or plan_g.out_rows != D:
+        raise ValueError(
+            f"K12 takes a square dynamics plan [B, D] -> [B, D] and a "
+            f"correction plan [B, 2 D] -> [B, D]; got {plan_f.dim} -> "
+            f"{plan_f.out_rows} and {plan_g.dim} -> {plan_g.out_rows}")
+    if y0.ndim != 2 or y0.shape[1] != D:
+        raise ValueError(f"y0 must be [B, {D}], got {tuple(y0.shape)}")
+
+
+def plan_solve_hyper_plain(plan_f: FusedPlan, plan_g: FusedPlan,
+                           packed_f: Sequence[Tensor],
+                           packed_g: Sequence[Tensor], y0: Tensor,
+                           tau: Tensor, grid: Tensor, sign, *,
+                           kind: str = "euler", grid_is_t: bool = False
+                           ) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of `plan_solve_hyper`: K12's arithmetic step
+    by step in the kernel's order (csrc/rk_hyper.cuh), both plans by
+    `eval_plan`, on y0's device. Same contract."""
+    _hyper_inputs(plan_f, plan_g, y0, kind)
+    dev, dtype = y0.device, y0.dtype
+    T, G = tau.shape[0], grid.shape[0]
+    tau_h = tau.detach().to("cpu", dtype)
+    grid_h = grid.detach().to("cpu", dtype)
+    tau_d, grid_d = tau_h.to(dev), grid_h.to(dev)
+    sgn = torch.as_tensor(sign, dtype=dtype).to(dev)
+    pf = [p.to(dev, dtype) for p in packed_f]
+    pg = [p.to(dev, dtype) for p in packed_g]
+    f = plan_rhs(plan_f, pf, sgn)
+    power, evals = HYPER_KINDS[kind]
+    out = torch.zeros((T,) + tuple(y0.shape), dtype=dtype, device=dev)
+    out[0] = y0
+    if not (_increasing(tau_h) and _increasing(grid_h)):
+        # Non-monotonic times: status 3, output zero beyond row 0.
+        return out, torch.tensor([0, 0, 0, 3], dtype=torch.int32, device=dev)
+    y = y0
+    oi = 1
+    for i in range(G - 1):
+        t0, t1 = grid_d[i], grid_d[i + 1]
+        dt = t1 - t0
+        f0 = f(t0, y)
+        if not grid_is_t:
+            if i > 0:
+                # The previous interval's drain, one step late.
+                oi = hermite_drain_plain(out, oi, tau_h, tau_d, grid_h[i],
+                                         grid_d[i - 1], t0, yp, y, fp, f0,
+                                         False)
+            yp, fp = y, f0
+        if kind == "euler":
+            base = f0
+        elif kind == "midpoint":
+            h = 0.5 * dt
+            base = f(t0 + h, y + h * f0)
+        else:
+            base = 0.5 * (f0 + f(t1, y + dt * f0))
+        corr = eval_plan_host(plan_g, pg, sgn * t0,
+                              torch.cat([y, sgn * f0], dim=1))
+        sdt = sgn * dt
+        sdt_p = sdt * sdt
+        for _ in range(power - 2):
+            sdt_p = sdt_p * sdt
+        y = y + dt * base + sdt_p * corr
+        if grid_is_t:
+            out[i + 1] = y
+    nfe = evals * (G - 1)
+    if not grid_is_t:
+        hermite_drain_plain(out, oi, tau_h, tau_d, grid_h[G - 1],
+                            grid_d[G - 2], grid_d[G - 1], yp, y, fp,
+                            f(grid_d[G - 1], y), True)
+        nfe += 1
+    stats = torch.tensor([nfe, G - 1, 0, 0], dtype=torch.int32, device=dev)
+    return out, stats
+
+
+def plan_solve_hyper(plan_f: FusedPlan, plan_g: FusedPlan,
+                     packed_f: Sequence[Tensor], packed_g: Sequence[Tensor],
+                     y0: Tensor, tau: Tensor, grid: Tensor, sign, *,
+                     kind: str = "euler", grid_is_t: bool = False
+                     ) -> Tuple[Tensor, Tensor]:
+    """Whole-solve hypersolver, one K12 launch with two plans as its
+    right-hand sides (reference `pallas_fixed.py:440`): `plan_f` the
+    dynamics (square), `plan_g` the correction net over the stacked
+    [y, f_user] ([B, 2 D] -> [B, D], `build_plan(out_dim=D)`). kind:
+    'euler', 'midpoint' or 'heun'; tau: [T] canonical output times; grid:
+    [G] canonical step grid; grid_is_t: the grid is tau (the outputs are
+    the nodes), else they are drained by cubic-Hermite interpolation one
+    step late. Returns (out [T, B, D], stats [4] int32: nfe = evaluations
+    of f, steps, 0, status; 3 with a zero tail for times that do not
+    increase)."""
+    _refuse_coupled([plan_f, plan_g], "K12")
+    _hyper_inputs(plan_f, plan_g, y0, kind)
+    if grid.shape[0] < 2:
+        raise ValueError("the step grid needs at least two points")
+    kw = dict(kind=kind, grid_is_t=bool(grid_is_t))
+    if _device_kind(y0) == "cpu":
+        return plan_solve_hyper_plain(plan_f, plan_g, packed_f, packed_g, y0,
+                                      tau, grid, sign, **kw)
+
+    global plan_hyper_launches
+    dtype, dev = y0.dtype, y0.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"plan kernels take float32 or float64, got {dtype}")
+    B, D = y0.shape
+    T, G = tau.shape[0], grid.shape[0]
+    host = "hyper"
+    lib = build([((plan_f, plan_g), host)])[0]
+    cf, sf = plan_codegen.flat_consts(
+        plan_f, [p.to(dev, dtype) for p in packed_f], B)
+    cg, sg = plan_codegen.flat_consts(
+        plan_g, [p.to(dev, dtype) for p in packed_g], B)
+    n_f = plan_codegen.layout(plan_f).n_consts
+    n_g = plan_codegen.layout(plan_g).n_consts
+    isz = y0.element_size()
+    # f's constants first, then g's after them (csrc/rk_hyper.cuh).
+    smem_f = _consts_route(host, n_f, G + T, isz)
+    smem_g = _consts_route("hyper_g", n_g, G + T + (n_f if smem_f else 0),
+                           isz)
+    tau_h = tau.detach().to("cpu", dtype)
+    grid_h = grid.detach().to("cpu", dtype)
+    valid = _increasing(tau_h) and _increasing(grid_h)
+    y0c = y0.contiguous()
+    out = torch.empty((T, B, D), dtype=dtype, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    work = torch.empty(4 * B * D, dtype=dtype, device=dev)
+    # Named, so that they live until the launch has read them.
+    grid_d, tau_d = grid_h.to(dev), tau_h.to(dev)
+    with torch.cuda.device(dev):
+        err = _fn(lib, host, dtype)(
+            _ptr(grid_d), _ptr(tau_d), _ptr(y0c), _ptr(out), _ptr(stats),
+            _ptr(work), G, T, B, D, FIXED_THREADS, float(sign), int(valid),
+            list(HYPER_KINDS).index(kind), int(bool(grid_is_t)), _ptr(cf),
+            n_f, _ptr(sf), int(smem_f), _ptr(cg), n_g, _ptr(sg),
+            int(smem_g), _stream(dev))
+    _check(lib, err, "plan_solve_hyper launch")
+    plan_hyper_launches += 1
     return out, stats
 
 

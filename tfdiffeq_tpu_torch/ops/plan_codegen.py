@@ -1,5 +1,6 @@
 """Generate K14's CUDA C++ from a plan: the right-hand side of the plan
-hosts K2, K8 and K5 (csrc/plan_rhs.cuh).
+hosts K2, K8, K5, K10, K11 and, two plans in one source, K12
+(csrc/plan_rhs.cuh).
 
 No reference counterpart: the reference interprets its plan inside the
 Pallas kernel, and Mosaic unrolls the walk per plan structure
@@ -42,10 +43,14 @@ from .plan_bridge import FusedPlan, FusionError
 Tensor = torch.Tensor
 
 #: Host kernels a plan runs in: K2 (one controller), K8 (fixed grid), K5
-#: (a controller a sample); its reverse walk (K15) in K3 (one controller),
-#: K6 (a controller a sample) and K9 (fixed grid).
-HOSTS = ("solve", "fixed", "perlane")
+#: (a controller a sample), K10 (fixed-step Adams), K11 (VCABM); its
+#: reverse walk (K15) in K3 (one controller), K6 (a controller a sample)
+#: and K9 (fixed grid).
+HOSTS = ("solve", "fixed", "perlane", "adams", "vcabm")
 AUG_HOSTS = ("adjoint", "perlane_adjoint", "fixed_adjoint")
+#: K12 (csrc/rk_hyper.cuh): two plans in one source, the dynamics `Plan`
+#: and the correction net `PlanG`.
+HYPER_HOST = "hyper"
 
 _UN_FN = {"exp": "p_exp", "log": "p_log", "log1p": "p_log1p",
           "tanh": "p_tanh", "logistic": "p_logistic", "sin": "p_sin",
@@ -237,7 +242,7 @@ class _Gen:
             raise FusionError(f"constant {ci} ({tag}) read elementwise")
         return f"v{vid}[{idx}]"
 
-    def segment(self, k: int) -> str:
+    def segment(self, k: int, prefix: str = "plan") -> str:
         L = []
         emit = L.append
         for vid in self.loads[k]:
@@ -260,7 +265,7 @@ class _Gen:
             emit(_loop(self.plan.out_rows, f"out[i] = {self.ref(out, 'i')};"))
         body = "\n".join(L)
         return (f"template <typename T>\n"
-                f"__host__ __device__ __forceinline__ void plan_seg{k}(\n"
+                f"__host__ __device__ __forceinline__ void {prefix}_seg{k}(\n"
                 f"    const T t, const T* __restrict__ y,\n"
                 f"    const T* __restrict__ c, const T* __restrict__ sc,\n"
                 f"    const int b, const int B, T* __restrict__ live,\n"
@@ -394,16 +399,19 @@ class _Gen:
         return PlanLayout(self.n_consts, len(self.segs), self.live_rows,
                           self.red_values)
 
-    def body(self) -> str:
-        """The segments and the `Plan` struct, inside namespace tfd."""
+    def body(self, name: str = "Plan") -> str:
+        """The segments and the plan's struct `name` (`Plan`; K12's
+        correction net `PlanG`), inside namespace tfd."""
         plan = self.plan
-        segs = "\n".join(self.segment(k) for k in range(len(self.segs)))
+        prefix = name.lower()
+        segs = "\n".join(self.segment(k, prefix)
+                         for k in range(len(self.segs)))
         calls = "\n".join(
-            f"      case {k}: plan_seg{k}(t, y, c, sc, b, B, live, red, "
+            f"      case {k}: {prefix}_seg{k}(t, y, c, sc, b, B, live, red, "
             f"out); break;" for k in range(len(self.segs)))
         return (
             "namespace tfd {\n\n" + segs + "\n"
-            "struct Plan {\n"
+            f"struct {name} {{\n"
             f"  static constexpr int kDim = {plan.dim};\n"
             f"  static constexpr int kOutRows = {plan.out_rows};\n"
             f"  static constexpr int kSegments = {len(self.segs)};\n"
@@ -921,6 +929,9 @@ def _loop(n: int, stmt: str) -> str:
 _ENTRY = {"solve": "TFD_PLAN_SOLVE_ENTRY(tfd_plan_solve_{t}, {ct})",
           "fixed": "TFD_PLAN_FIXED_ENTRY(tfd_plan_fixed_{t}, {ct})",
           "perlane": "TFD_PLAN_PERLANE_ENTRY(tfd_plan_perlane_{t}, {ct})",
+          "adams": "TFD_PLAN_ADAMS_ENTRY(tfd_plan_adams_{t}, {ct})",
+          "vcabm": "TFD_PLAN_VCABM_ENTRY(tfd_plan_vcabm_{t}, {ct})",
+          "hyper": "TFD_PLAN_HYPER_ENTRY(tfd_plan_hyper_{t}, {ct})",
           "adjoint": "TFD_PLAN_ADJOINT_ENTRY(tfd_plan_adjoint_{t}, {ct})",
           "perlane_adjoint": "TFD_PLAN_PERLANE_ADJOINT_ENTRY("
                              "tfd_plan_perlane_adjoint_{t}, {ct})",
@@ -936,37 +947,78 @@ def aug_layout(plan: FusedPlan) -> AugLayout:
     return _AugGen(plan).layout()
 
 
-def cuda_source(plan: FusedPlan, host: str) -> str:
+def _entries(host: str) -> str:
+    return "\n".join(_ENTRY[host].format(t=t, ct=ct)
+                     for t, ct in (("f32", "float"), ("f64", "double")))
+
+
+def cuda_source(plan, host: str) -> str:
     """The CUDA source of one plan library: the plan's segments, `Plan`,
     and the float32 and float64 entry points of one host kernel
     (csrc/plan_rhs.cuh); for an adjoint host (`AUG_HOSTS`) the reverse
     walk's segments and `PlanAug` with the entry points of K3, K6 or K9
-    (csrc/plan_aug.cuh)."""
+    (csrc/plan_aug.cuh); for K12 (`HYPER_HOST`) `plan` is the pair
+    (dynamics, correction net), generated as `Plan` and `PlanG`."""
+    if host == HYPER_HOST:
+        plan_f, plan_g = plan
+        gens = (_Gen(plan_f), _Gen(plan_g))
+        if any(len(g.segs) > 1 for g in gens):
+            raise ValueError("a coupled plan runs on the 'solve' host only, "
+                             "not 'hyper'")
+        return ("// K14 x 2: the dynamics and the correction net generated "
+                "by\n// tfdiffeq_tpu_torch/ops/plan_codegen.py for the hyper "
+                "host\n// (csrc/plan_rhs.cuh, csrc/rk_hyper.cuh).\n"
+                "#include \"plan_rhs.cuh\"\n\n" + gens[0].body("Plan") + "\n"
+                + gens[1].body("PlanG") + "\n" + _entries(host) + "\n")
     if host in AUG_HOSTS:
         aug = _AugGen(plan)
         if host != "adjoint" and len(aug.segments) > 1:
             raise ValueError(f"a coupled plan runs on the 'adjoint' host "
                              f"only, not {host!r}")
-        entries = "\n".join(_ENTRY[host].format(t=t, ct=ct)
-                            for t, ct in (("f32", "float"),
-                                          ("f64", "double")))
+        entries = _entries(host)
         return ("// K15: a plan's reverse walk generated by tfdiffeq_tpu_"
                 "torch/ops/\n// plan_codegen.py for the " + host + " host "
                 "(csrc/plan_aug.cuh).\n#include \"plan_aug.cuh\"\n\n"
                 + aug.body() + "\n" + entries + "\n")
     if host not in HOSTS:
-        raise ValueError(f"host must be one of {HOSTS + AUG_HOSTS}, got "
+        raise ValueError(f"host must be one of "
+                         f"{HOSTS + AUG_HOSTS + (HYPER_HOST,)}, got "
                          f"{host!r}")
     gen = _Gen(plan)
     if host != "solve" and len(gen.segs) > 1:
         raise ValueError(f"a coupled plan runs on the 'solve' host only, "
                          f"not {host!r}")
-    entries = "\n".join(_ENTRY[host].format(t=t, ct=ct)
-                        for t, ct in (("f32", "float"), ("f64", "double")))
+    entries = _entries(host)
     return ("// K14: a plan generated by tfdiffeq_tpu_torch/ops/"
             "plan_codegen.py\n// for the " + host + " host "
             "(csrc/plan_rhs.cuh).\n#include \"plan_rhs.cuh\"\n\n"
             + gen.body() + "\n" + entries + "\n")
+
+
+def _host_evals(plan: FusedPlan, threads: int, name: str) -> str:
+    """`<name lower>_eval_f32` / `_f64`: a plain host evaluator of the
+    generated struct `name` over the whole batch."""
+    D, R = plan.dim, plan.out_rows
+    prefix = name.lower()
+    evals = []
+    for t, ct in (("f32", "float"), ("f64", "double")):
+        evals.append(f"""
+extern "C" void {prefix}_eval_{t}({ct} t, const {ct}* y, const {ct}* c,
+                              const {ct}* sc, int B, {ct}* out, {ct}* live,
+                              {ct}* red) {{
+  tfd::HostMeet<{ct}> m{{live, red, B, {threads}}};
+  for (int k = 0; k < tfd::{name}::kSegments; ++k) {{
+    for (int b = 0; b < B; ++b)
+      tfd::{name}::seg<{ct}>(k, t, y + long(b) * {D}, c, sc, b, B, live, red,
+                           out + long(b) * {R});
+    if (k + 1 < tfd::{name}::kSegments) tfd::{name}::meet(k, m);
+  }}
+}}""")
+    return "\n".join(evals) + "\n"
+
+
+_HOST_HEAD = ("#include <vector>\n#include \"plan_ops.cuh\"\n\n"
+              "namespace tfd {\n")
 
 
 def host_source(plan: FusedPlan, threads: int) -> str:
@@ -975,25 +1027,17 @@ def host_source(plan: FusedPlan, threads: int) -> str:
     B, out [B][out_rows], live, red) evaluate the whole batch, each coupling
     reduced in the order of a K2 block of `threads` threads. Include after
     a shim that defines __host__, __device__ and __forceinline__ empty."""
-    gen = _Gen(plan)
-    D, R = plan.dim, plan.out_rows
-    evals = []
-    for t, ct in (("f32", "float"), ("f64", "double")):
-        evals.append(f"""
-extern "C" void plan_eval_{t}({ct} t, const {ct}* y, const {ct}* c,
-                              const {ct}* sc, int B, {ct}* out, {ct}* live,
-                              {ct}* red) {{
-  tfd::HostMeet<{ct}> m{{live, red, B, {threads}}};
-  for (int k = 0; k < tfd::Plan::kSegments; ++k) {{
-    for (int b = 0; b < B; ++b)
-      tfd::Plan::seg<{ct}>(k, t, y + long(b) * {D}, c, sc, b, B, live, red,
-                           out + long(b) * {R});
-    if (k + 1 < tfd::Plan::kSegments) tfd::Plan::meet(k, m);
-  }}
-}}""")
-    return ("#include <vector>\n#include \"plan_ops.cuh\"\n\n"
-            "namespace tfd {\n" + _HOST_MEET + "}  // namespace tfd\n\n"
-            + gen.body() + "\n".join(evals) + "\n")
+    return (_HOST_HEAD + _HOST_MEET + "}  // namespace tfd\n\n"
+            + _Gen(plan).body() + _host_evals(plan, threads, "Plan"))
+
+
+def host_hyper_source(plan_f: FusedPlan, plan_g: FusedPlan) -> str:
+    """Host C++ of K12's two plans as the 'hyper' host generates them, one
+    translation unit with `Plan` and `PlanG`, and their host evaluators
+    `plan_eval_*` and `plang_eval_*` (`host_source`'s contract)."""
+    return (_HOST_HEAD + _HOST_MEET + "}  // namespace tfd\n\n"
+            + _Gen(plan_f).body("Plan") + _Gen(plan_g).body("PlanG")
+            + _host_evals(plan_f, 1, "Plan") + _host_evals(plan_g, 1, "PlanG"))
 
 
 def host_aug_source(plan: FusedPlan, threads: int) -> str:
@@ -1028,8 +1072,7 @@ extern "C" void aug_eval_{t}({ct} t, const {ct}* y, const {ct}* ay,
       xs[long(j) * B + b] = P::sample_x<{ct}>(j, qr, B, b);
   }}
 }}""")
-    return ("#include <vector>\n#include \"plan_ops.cuh\"\n\n"
-            "namespace tfd {\n" + _HOST_MEET + "}  // namespace tfd\n\n"
+    return (_HOST_HEAD + _HOST_MEET + "}  // namespace tfd\n\n"
             + gen.body() + "\n".join(evals) + "\n")
 
 
