@@ -15,10 +15,16 @@ warm-up): the MLP routes of K2 (dopri5, bench spiral y [4096, 2], hidden
 K3, K9 (8 rk4 steps an interval) and K6 on K2's trajectory with the
 bench training protocol's MSE cotangent (median of 3), the MLP routes of
 K10 (fixed_adams and explicit_adams x 512, bench.py:205) and K11 (VCABM,
-first step 0.01; median of 3), and, where the checkout has the plan routes
-(`ops/cuda_plan.py`), the same spiral written as plain PyTorch in each
-host. It prints the card's name and power
-limit, a line a run and the median of each kernel a checkout.
+first step 0.01; median of 3), K4 alone (`tier_net`: the bf16 weight pack
+and one evaluation of the wide net 128 -> 256 -> 256 -> 128 at B = 1024,
+'mixed' and 'bf16'; ten calls queued behind a sleep on the card, so the
+device time alone), K8 rk4 x 128 and K2 dopri5 at 'mixed' on that net
+(the batch route), K3 on the wide route at B = 256, K7's adjoint sweep in
+K3 (the CNF flow 3 -> 32 -> 32 -> 2 at B = 4096), and, where the checkout
+has the plan routes (`ops/cuda_plan.py`), the same spiral written as
+plain PyTorch in each host (K15 in K3 among them). It prints the card's
+name and power limit, a line a run and the median of each kernel a
+checkout.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ def _one(root: str) -> None:
     from tfdiffeq_tpu_torch import fast
     from tfdiffeq_tpu_torch.ops import _build, cuda_fixed as cf, \
         cuda_kernels as ck, cuda_perlane as cp
+    from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
     _build.library()
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
@@ -89,7 +96,6 @@ def _one(root: str) -> None:
     out["K6"] = timed(lambda: cp.mlp_perlane_adjoint_solve(
         warr, dims, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0, **akw), reps=3)
     from tfdiffeq_tpu_torch.ops import cuda_adams as cad
-    from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
     grid512 = uniform_grid(t[0], t[-1], 512)
     for key, implicit in (("K10 fixed_adams", True),
                           ("K10 explicit_adams", False)):
@@ -98,6 +104,75 @@ def _one(root: str) -> None:
             **kw), reps=3)
     out["K11"] = timed(lambda: cad.mlp_solve_vcabm(
         warr, dims, y, t, 0.01, 1e-6, 1e-6, 1.0, **kw), reps=3)
+    # The wide net 128 -> 256 -> 256 -> 128 at B = 1024: K4 alone (the bf16
+    # weight pack and one evaluation) at 'mixed' and 'bf16', K8 rk4 x 128
+    # and K2 dopri5 at 'mixed' (the batch route); K3 on the wide route at
+    # B = 256.
+    rw = np.random.RandomState(1)
+    wd = ((128, 256), (256, 256), (256, 128))
+    WW = [(c(rw.randn(i, o) / np.sqrt(i)), c(rw.randn(o) * 0.05))
+          for i, o in wd]
+    xw = c(rw.randn(1024, 128) * 0.5)
+    wwarr, wpd = ck.pack_mlp_weights(WW, torch.float32, dev)
+    tiers = {tier: ck.layer_tiers(wpd, "auto", tier)
+             for tier in ("mixed", "bf16")}
+    def device_timed(fn, reps=7, inner=10):
+        # Calls queued behind a sleep on the card: the device time alone.
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            torch.cuda._sleep(20_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(inner):
+                fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b) / inner)
+        return statistics.median(ts)
+
+    for tier, tt in tiers.items():
+        out[f"K4 {tier}"] = device_timed(lambda: ck.tier_net(wwarr, wpd, xw,
+                                                             tiers=tt))
+    wspec = fast.MLPSpec(activation="tanh")
+    wf0 = fast.mlp_apply(wspec, WW, xw)
+    tw = torch.linspace(0.0, 1.0, 8)
+    out["K8 wide mixed"] = timed(lambda: cf.mlp_solve_fixed(
+        wwarr, wpd, xw, tw, uniform_grid(tw[0], tw[-1], 128), 1.0, f0=wf0,
+        method="rk4", tiers=tiers["mixed"]), reps=3)
+    out["K2 wide mixed"] = timed(lambda: ck.mlp_solve(
+        wwarr, wpd, xw, tw, 0.01, 1e-5, 1e-5, 1.0, f0=wf0,
+        tiers=tiers["mixed"]), reps=3)
+    xs = xw[:256].contiguous()
+    wys, _ = ck.mlp_solve(wwarr, wpd, xs, tw[:4], 0.01, 1e-5, 1e-5, 1.0,
+                          f0=wf0[:256].contiguous())
+    wg = c(rw.randn(*wys.shape) * 0.01)
+    out["K3 wide"] = timed(lambda: ca.mlp_adjoint_solve(
+        wwarr, wpd, wys.contiguous(), wg, tw[:4], 0.05, 1e-5, 1e-5, 1.0),
+        reps=3)
+    # K7's adjoint in K3: the CNF flow 3 -> 32 -> 32 -> 2 at B = 4096, t =
+    # 1 -> 0, on its own forward trajectory with the density loss's
+    # cotangent.
+    rc = np.random.RandomState(3)
+    CW = [(c(rc.randn(i, o) * 0.6 / np.sqrt(i)), c(rc.randn(o) * 0.1))
+          for i, o in ((3, 32), (32, 32), (32, 2))]
+    cpk, cpd = ck.pack_mlp_weights(CW, torch.float32, dev)
+    s0 = torch.cat([c(rc.randn(4096, 2)), torch.zeros(4096, 1, device=dev)],
+                   dim=1)
+    tau = torch.tensor([-1.0, 0.0])
+    cf0 = -ck._cnf_net_plain(cpk, cpd, "tanh")(torch.tensor(1.0, device=dev),
+                                               s0)
+    cys, _ = ck.mlp_solve(cpk, cpd, s0, tau, 0.1, 1e-5, 1e-7, -1.0,
+                          f0=cf0.contiguous(), activation="tanh",
+                          time_input=True, rhs="cnf")
+    cg = torch.zeros_like(cys)
+    cg[-1, :, :2] = cys[-1, :, :2] / 4096
+    cg[-1, :, 2] = 1.0 / 4096
+    out["K7 in K3"] = timed(lambda: ca.mlp_adjoint_solve(
+        cpk, cpd, cys.contiguous(), cg, tau, 0.1, 1e-5, 1e-7, -1.0,
+        activation="tanh", rhs="cnf"), reps=3)
     plan_mod = os.path.join(root, "tfdiffeq_tpu_torch", "ops", "cuda_plan.py")
     if os.path.exists(plan_mod):
         from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, \

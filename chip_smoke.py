@@ -441,6 +441,33 @@ def _timed(fn, reps=5, inner=1):
     return statistics.median(times)
 
 
+#: Cycles of the sleep `_device_ms` queues first (about 10 ms on an H100).
+SLEEP_CYCLES = 20_000_000
+
+
+def _device_ms(fn, reps=7, inner=10):
+    """Median device ms per call of fn, whose launches queue behind a sleep
+    on the card: CUDA events around `inner` calls enqueued while the card
+    sleeps, so the window holds the device work alone and none of the
+    host's (which `_timed` measures when it is the slower). fn must not
+    synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
 #: H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
 #: dense bf16 on the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -581,6 +608,22 @@ def _same(a, b, nan_ok=None) -> bool:
             and torch.equal(a[~na], b[~nb]))
 
 
+def _grid_kw(plain, args, kw) -> dict:
+    """kw with K3's grid for its plain version: the n_blocks that the
+    kernel's wrapper chose for these inputs (`cuda_adjoint.adjoint_blocks`,
+    one block for a coupled plan), when `plain` is one of K3's; else kw."""
+    from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, cuda_plan as cpl
+    if "n_blocks" in kw or plain not in (ca.mlp_adjoint_solve_plain,
+                                         cpl.plan_adjoint_solve_plain):
+        return kw
+    ys = args[2]
+    nb = (ca.adjoint_blocks(ys.shape[1], ys.device)
+          if plain is ca.mlp_adjoint_solve_plain
+          else cpl.plan_adjoint_blocks(args[0], ys.shape[1], ys.device))
+    print(f"K3 grid: n_blocks = {nb} (B = {ys.shape[1]})", flush=True)
+    return {**kw, "n_blocks": nb}
+
+
 def _hold_to_plain(call, plain, what: str, nan_ok=None):
     """A recorded launch (args, kwargs, result, the stats last) against its
     plain version on the same inputs: every output bitwise equal and the
@@ -590,6 +633,7 @@ def _hold_to_plain(call, plain, what: str, nan_ok=None):
     version's host ms)."""
     import torch
     args, kw, got = call
+    kw = _grid_kw(plain, args, kw)
     ref, plain_ms = _host_call(lambda: plain(*args, **kw))
     masks = nan_ok or [None] * len(got)
     err = max(float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
@@ -663,7 +707,7 @@ def _wide_tier(smi: str, dev) -> dict:
     kernel records take."""
     import torch
     from tfdiffeq_tpu_torch import fast
-    from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, \
+    from tfdiffeq_tpu_torch.ops import _build, cuda_adjoint as ca, \
         cuda_fixed as cf, cuda_kernels as ck, cuda_perlane as cp
     from tfdiffeq_tpu_torch.ops.tableaus import DOPRI5, RK4
     from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
@@ -877,13 +921,58 @@ def _wide_tier(smi: str, dev) -> dict:
         if tier != "highest":
             k4_err = max(k4_err, mx)
     rec["k4_err"], rec["k4_ms"] = k4_err, k4_ms["mixed"]
+    # K4's two launches apart, at each reduced tier: the bf16 weight pack
+    # alone, then the evaluation alone on the packed workspace (the solves
+    # pack once and evaluate many times); and float64, bitwise.
+    out_k4, work_k4 = torch.empty_like(x), ck.tier_net_work(pd, x)
+    k4_parts = {}
+    for tier in ("mixed", "bf16"):
+        def part(mode, tt=tiers[tier]):
+            ck.tier_net_parts(warr, pd, x, 0.0, out_k4, work_k4, tiers=tt,
+                              mode=mode)
+        k4_parts[tier] = (_device_ms(lambda: part(1)),
+                          _device_ms(lambda: part(2)),
+                          _device_ms(lambda: part(0)))
+        if not torch.equal(out_k4, ck.tier_net(warr, pd, x,
+                                               tiers=tiers[tier])):
+            raise AssertionError(f"K4 {tier}: the evaluation alone differs "
+                                 "from tier_net")
+    W64 = [(a.double(), b.double()) for a, b in W]
+    warr64, pd64 = ck.pack_mlp_weights(W64, f64, dev)
+    for tier in ("mixed", "bf16"):
+        tt = ck.layer_tiers(pd64, "auto", tier)
+        got = ck.tier_net(warr64, pd64, x.double(), tiers=tt)
+        ref = ck._net_plain(warr64, pd64, "tanh", "identity", 1, False,
+                            tt)(0.0, x.double())
+        print(f"[19] K4 float64 {tier}: bitwise equal to plain "
+              f"{torch.equal(got, ref)}", flush=True)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K4 float64 {tier} differs from its plain "
+                                 "version")
+    rec["k4_parts"] = k4_parts
+    # The new kernel's registers and static shared memory (-Xptxas -v), and
+    # its tiles' dynamic shared memory (csrc/dot_tiers.cuh tier_tile for 8
+    # warps and 16 rows a block: 16-row tiles, 256-output chunks).
+    log = _build.build_log().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and "tier_net_kernel" in line:
+            for more in log[i:i + 4]:
+                if "Compiling entry" in more or "Used" in more \
+                        or "spill" in more:
+                    print("[19] ptxas: " + more.strip(), flush=True)
+    ldf = ck._pad16(max(w for dd in pd for w in dd)) + 8
+    print(f"[19] K4 tile: {2 * 16 * ldf * 4 + 2 * 256 * 72 * 2} bytes of "
+          "dynamic shared memory a block (two 16-row float regions and "
+          "two 256 x 64 bf16 weight slices)", flush=True)
     h16 = torch.tensor(np.random.RandomState(3).randn(WIDE_B, WIDE_H),
                        dtype=torch.bfloat16, device=dev)
     ws16 = [w.to(torch.bfloat16) for w, _ in W]
     xs16 = [x.to(torch.bfloat16), h16, h16]
-    rec["k4_library_ms"] = _timed(
+    rec["k4_library_host_ms"] = _timed(
         lambda: [torch.matmul(a, w) for a, w in zip(xs16, ws16)], reps=5,
         inner=20)
+    rec["k4_library_ms"] = _device_ms(
+        lambda: [torch.matmul(a, w) for a, w in zip(xs16, ws16)])
     lib_layer = _timed(lambda: torch.matmul(h16, ws16[1]), reps=5, inner=20)
     net_plain = ck._net_plain(warr, pd, "tanh", "identity", 1, False,
                               tiers["mixed"])
@@ -900,8 +989,18 @@ def _wide_tier(smi: str, dev) -> dict:
           f"'bf16' {k4_ms['bf16']:.4f}, 'highest' on the CUDA cores "
           f"{k4_ms['highest']:.4f}) vs plain {rec['k4_plain_ms']:.3f} ms; "
           f"torch.matmul of the bf16 operands (bf16 output) "
-          f"{rec['k4_library_ms']:.4f} ms for the three layers, "
+          f"{rec['k4_library_host_ms']:.4f} ms for the three layers, "
           f"{lib_layer:.4f} ms for the 256 x 256 layer", flush=True)
+    for tier, (pack_ms, eval_ms, both_ms) in k4_parts.items():
+        print(f"[19] {smi}: K4 {tier!r} device time (`_device_ms`): the bf16 "
+              f"weight pack {pack_ms:.4f} ms, the evaluation alone "
+              f"{eval_ms:.4f} ms, both {both_ms:.4f} ms (host-clocked "
+              f"`tier_net` {k4_ms[tier]:.4f} ms) vs torch.matmul's device "
+              f"time {rec['k4_library_ms']:.4f} ms (host-clocked "
+              f"{rec['k4_library_host_ms']:.4f}); bound "
+              f"{rec['k4_bound'][0] / (2 if tier == 'bf16' else 1):.5f} ms",
+              flush=True)
+    rec["k4_device_ms"] = k4_parts["mixed"][2]
 
     _at("20")
     # [20] wide training, and K5, K6, K9 at width 256, B = 256.
@@ -959,7 +1058,8 @@ def _wide_tier(smi: str, dev) -> dict:
     }
     for name, (fn, plain, args, kw) in cases.items():
         got = fn(*args, **kw)
-        ref, plain_ms = _host_call(lambda: plain(*args, **kw))
+        pkw = _grid_kw(plain, args, kw)
+        ref, plain_ms = _host_call(lambda: plain(*args, **pkw))
         same = all(torch.equal(a, b) for a, b in zip(got, ref))
         counts = [a for a in got if not a.is_floating_point()]
         counts_ref = [a for a in ref if not a.is_floating_point()]
@@ -974,7 +1074,8 @@ def _wide_tier(smi: str, dev) -> dict:
               f"{bound(nfe, 9 * Bt * WIDE_D, per=1 if name == 'K5' else 3)}",
               flush=True)
         if any(not torch.equal(a, b) for a, b in zip(counts, counts_ref)) \
-                or max(rels) > 1e-5 or counts[0][3].item() != 0:
+                or max(rels) > 1e-5 or counts[0][3].item() != 0 \
+                or (name == "K3" and not same):
             raise AssertionError(f"{name} wide differs from its plain "
                                  "version")
 
@@ -2139,8 +2240,8 @@ def _aug_tier(smi: str, dev) -> dict:
         """A recorded launch against its plain version, and run again."""
         args, kw, got = call
         got = flat(lambda *a, **k: got)()
-        err, plain_ms = _hold_to_plain((args, kw, got), flat(plain), what,
-                                       nan_ok)
+        err, plain_ms = _hold_to_plain((args, _grid_kw(plain, args, kw), got),
+                                       flat(plain), what, nan_ok)
         again = flat(kernel)(*args, **kw)
         masks = nan_ok or [None] * len(got)
         if not all(_same(a, b, m) for a, b, m in zip(got, again, masks)):
@@ -2488,6 +2589,10 @@ def _aug_tier(smi: str, dev) -> dict:
     af, nc = rec["aug_flops"], rec["n_consts"]
     traj = 2 * T_OUT * B * D + B * D + 2 * nc + T_OUT
     rec["bound"]["K3"] = _bound(B * rec["k3_stats"][0] * af, 4 * traj)
+    print(f"[33] {smi}: K15 in K3 {rec['ms']['K3']:.3f} ms a sweep against "
+          f"its bound {rec['bound']['K3'][0]:.5f} ms "
+          f"({rec['bound']['K3'][1]}; n_blocks "
+          f"{ca.adjoint_blocks(B, dev)})", flush=True)
     rec["bound"]["K6"] = _bound(rec["k6_nfe"] * af,
                                 4 * (2 * STIFF_T * B * D + B * D + 2 * nc
                                      + 2 * B + STIFF_T))
@@ -2498,6 +2603,40 @@ def _aug_tier(smi: str, dev) -> dict:
 #: [37]-[38]: the hypersolver example's batch and hidden width
 #: (examples/hypersolver.py defaults: 32 steps over [0, 2]).
 HYPER_B, HYPER_H = 4096, 32
+
+
+def _launch_ms(module, call, reps=7) -> float:
+    """Median device ms of the plan library launch inside `call`: CUDA
+    events recorded on the stream right before and after the ctypes call
+    of `module._fn`'s launch function, behind a queued sleep (so that the
+    start event waits on the card and the launch is queued before it
+    runs): the window holds the kernel and none of the wrapper's host
+    work."""
+    import torch
+    fn0, times = module._fn, []
+
+    def timed_fn(lib, host, dtype):
+        launch = fn0(lib, host, dtype)
+
+        def run(*a):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(SLEEP_CYCLES)
+            s.record()
+            err = launch(*a)
+            e.record()
+            times.append((s, e))
+            return err
+        return run
+
+    module._fn = timed_fn
+    try:
+        call()
+        for _ in range(reps):
+            call()
+    finally:
+        module._fn = fn0
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times[1:])
 
 
 def _hyper_funcs(dtype, dev, B=HYPER_B):
@@ -2593,6 +2732,11 @@ def _hyper_adams_tier(smi: str, dev) -> dict:
         ms = _timed(lambda: cpl.plan_solve_hyper(*args, **kw))
         rec["k12_ms_by_kind"][method] = ms
         rec["k12_plain_ms_by_kind"][method] = plain_ms
+        kern_ms = _launch_ms(cpl, lambda: cpl.plan_solve_hyper(*args, **kw))
+        rec.setdefault("k12_kernel_ms_by_kind", {})[method] = kern_ms
+        print(f"[37] {smi}: K12 {method} the kernel's own device time "
+              f"{kern_ms:.4f} ms (CUDA events around the launch alone; the "
+              f"wrapper's call {ms:.3f} ms)", flush=True)
         plan_f, plan_g = args[0], args[1]
         evals = 1 if method == "hyper_euler" else 2
         G, T_ = args[6].shape[0], args[5].shape[0]
@@ -2992,7 +3136,8 @@ def main() -> int:
         k3_args[dtype] = (args, kw)
         got = ca.mlp_adjoint_solve(*args, **kw)
         again = ca.mlp_adjoint_solve(*args, **kw)
-        ref = ca.mlp_adjoint_solve_plain(*args, **kw)
+        ref = ca.mlp_adjoint_solve_plain(
+            *args, **_grid_kw(ca.mlp_adjoint_solve_plain, args, kw))
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         same = all(torch.equal(a, b) for a, b in zip(got, ref))
@@ -3004,6 +3149,9 @@ def main() -> int:
               f"equal: {bitwise}", flush=True)
         if not bitwise:
             raise AssertionError("K3 is not deterministic from run to run")
+        if not same:
+            raise AssertionError(f"K3 {dtype} is not bitwise equal to its "
+                                 "plain version at its grid")
         if got[3][3].item() != 0 or not all(
                 torch.isfinite(x).all() for x in got[:3]):
             raise AssertionError(f"K3 {dtype} failed: {got[3].tolist()}")
@@ -3019,12 +3167,16 @@ def main() -> int:
                             for a, b in zip(got[:3], ref[:3]))
     args, kw = k3_args[f32]
     adj_ms = _timed(lambda: ca.mlp_adjoint_solve(*args, **kw))
+    pkw = _grid_kw(ca.mlp_adjoint_solve_plain, args, kw)
     adj_plain_ms = _plain_ms(lambda: ca.mlp_adjoint_solve_plain(*args,
-                                                                **kw))
+                                                                **pkw))
     bst = ca.mlp_adjoint_solve(*args, **kw)[3].tolist()
     print(f"[7] {smi}: K3 mlp_adjoint_solve {adj_ms:.3f} ms/sweep vs plain "
           f"{adj_plain_ms:.3f} ms (bench protocol, float32, "
-          f"{bst[1] + bst[2]} attempts, nfe {bst[0]})", flush=True)
+          f"{bst[1] + bst[2]} attempts, nfe {bst[0]}, n_blocks "
+          f"{pkw['n_blocks']}); bound "
+          f"{_bound(B * bst[0] * 3 * _mlp_flops(((D, H), (H, D)), 3), 4 * (2 * T_OUT * B * D + B * D + 2 * (2 * D * H + H + D) + T_OUT))}",
+          flush=True)
 
     _at("8")
     # [8] spiral training at the bench protocol: SGD through the fused path.
@@ -3814,7 +3966,11 @@ def main() -> int:
          "source": "tfdiffeq_tpu_torch/csrc/dot_tiers.cuh",
          "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:361",
          "launches": wide["k4_launches"], "max_abs_err": wide["k4_err"],
-         "ms": wide["k4_ms"], "plain_ms": wide["k4_plain_ms"],
+         "ms": wide["k4_device_ms"], "host_clocked_ms": wide["k4_ms"],
+         "pack_ms": wide["k4_parts"]["mixed"][0],
+         "eval_ms": wide["k4_parts"]["mixed"][1],
+         "library_host_clocked_ms": wide["k4_library_host_ms"],
+         "plain_ms": wide["k4_plain_ms"],
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": wide["k4_library_ms"]},
         {"name": "cnf_forward", "route": "cuda",
@@ -3911,6 +4067,7 @@ def main() -> int:
          "bound_ms": late["bound"]["K12"][0],
          "bound_by": late["bound"]["K12"][1], "library_ms": None,
          "ms_by_kind": late["k12_ms_by_kind"],
+         "kernel_ms_by_kind": late["k12_kernel_ms_by_kind"],
          "plain_ms_by_kind": late["k12_plain_ms_by_kind"],
          "bound_ms_by_kind": {k: b[0] for k, b in
                               late["k12_bound_by_kind"].items()},

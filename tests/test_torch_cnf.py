@@ -10,7 +10,9 @@ The same numpy inputs go to both packages. Tolerances:
 - whole generic solves in float64 (`log_prob`, its gradient, `sample`):
   both engines take the same steps, so 1e-10 relative;
 - the analytic linear flow at rtol 1e-10 and the Hutchinson estimate with
-  64 probes: 1e-8, the reference's own bar (tests/test_cnf.py).
+  64 probes: 1e-8, the reference's own bar (tests/test_cnf.py);
+- K3's plain sweep with K7's adjoint in the order of a grid of 1, 3 or 7
+  blocks against the reference's sweep: identical stats, 1e-10 relative.
 """
 
 import math
@@ -290,3 +292,54 @@ def test_example_auto_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 16"):
         example.main(["--device", "cpu", "--auto", "--niters", "1"])
 
+
+
+_SWEEP_REF = {}
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3, 7])
+def test_k7_sweep_grid_matches_reference(n_blocks):
+    """K3's plain version with K7's adjoint (rhs='cnf') in the order of a
+    grid of n_blocks blocks (B = 8: ranges of unequal length past one
+    block) against the reference's sweep (`pallas_adjoint`
+    mlp_adjoint_solve with rhs='cnf', interpret mode, pack=1), float64:
+    identical stats, outputs within rtol 1e-10 (its batch sums add
+    per-sample cotangents, which the reference sums product by product)."""
+    W, B = _flow(D=2, H=8, depth=3, seed=1, scale=0.6), 8
+    wa, dims = JK.pad_mlp_weights(
+        [(jnp.asarray(a), jnp.asarray(b)) for a, b in W], jnp.float64)
+    packed, pd = PK.pack_mlp_weights(
+        [(torch.tensor(a), torch.tensor(b)) for a, b in W], F64)
+    rng = np.random.RandomState(4)
+    s0 = np.concatenate([rng.randn(B, 2), np.zeros((B, 1))], axis=1)
+    tau = np.array([-1.0, -0.5, 0.0])            # t = 1 -> 0, sign -1
+    sign, rtol, atol = -1.0, 1e-6, 1e-8
+    f0 = sign * PK._cnf_net_plain(packed, pd, "tanh")(
+        torch.tensor(1.0, dtype=F64), torch.tensor(s0))
+    ys, st = PK.mlp_solve(packed, pd, torch.tensor(s0), torch.tensor(tau),
+                          0.05, rtol, atol, sign, f0=f0, activation="tanh",
+                          time_input=True, rhs="cnf")
+    assert st[3].item() == 0
+    g = rng.randn(*ys.shape)
+    kw = dict(activation="tanh", method="dopri5", seminorm=False)
+    if "ref" not in _SWEEP_REF:
+        _SWEEP_REF["ref"] = JA.mlp_adjoint_solve(
+            wa, dims, jnp.asarray(ys.numpy().transpose(0, 2, 1)),
+            jnp.asarray(g.transpose(0, 2, 1)), jnp.asarray(tau), 0.05, rtol,
+            atol, sign, rhs="cnf", interpret=True, pack=1, **kw)
+    ay0_j, aws_j, at_j, bst_j = _SWEEP_REF["ref"]
+    ay0, aw, at, bst = PA.mlp_adjoint_solve(
+        packed, pd, ys, torch.tensor(g), torch.tensor(tau), 0.05, rtol, atol,
+        sign, rhs="cnf", n_blocks=n_blocks, **kw)
+    assert bst.tolist() == [int(v) for v in bst_j] and bst[3].item() == 0
+    np.testing.assert_allclose(ay0.numpy(), np.asarray(ay0_j).T, rtol=1e-10,
+                               atol=1e-12)
+    ref = []
+    for (dW, db), (din, dout) in zip(aws_j, dims):
+        ref += [np.asarray(dW)[:dout, :din].reshape(-1),
+                np.asarray(db)[:dout, 0]]
+    np.testing.assert_allclose(aw.numpy(), np.concatenate(ref), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(float(at), float(at_j), rtol=1e-10,
+                               atol=1e-12)
+    assert PA.mlp_adjoint_solve_launches == 0

@@ -279,3 +279,21 @@ def test_dataclass_replace_keeps_matmul():
     spec = dataclasses.replace(PF.MLPSpec(matmul="mxu"),
                                dot_precision="bf16")
     assert (spec.matmul, spec.dot_precision) == ("mxu", "bf16")
+
+
+@pytest.mark.parametrize("width", [256, 512])
+def test_batch_route_keeps_long_grids(width):
+    """K8's batch route keeps its grid and output times in global memory
+    (K4's tiles take the shared memory), so a grid too long for the other
+    routes' shared memory still takes it; those routes raise."""
+    dims = [(64, width), (width, width), (width, 64)]
+    n_w = sum(i * o + o for i, o in dims)
+    long_grid = 60000
+    for tier in ("mixed", "bf16"):
+        tiers = PK.layer_tiers(dims, "auto", tier)
+        assert PK._route("mlp_solve_fixed", dims, n_w, 4, tiers,
+                         input_values=long_grid) == PK.ROUTE_BATCH
+    with pytest.raises(ValueError, match="grid points"):
+        PK._route("mlp_solve_fixed", dims, n_w, 4,
+                  PK.layer_tiers(dims, "auto", "highest"),
+                  input_values=long_grid)

@@ -27,7 +27,10 @@ t_bars, the sweep, ts_bar, the stats, the fallbacks) to the reference:
   the reference's backward takes its shared controller, ROADMAP.md queue
   3);
 - a 0-d learnable parameter receives its gradient, and two values of it
-  give one generated source (no new library).
+  give one generated source (no new library);
+- K15 in K3's plain sweep in the order of a grid of 1, 3 or 7 blocks
+  against the reference's `plan_adjoint_solve`, float64 (identical stats,
+  1e-9 relative), and a coupled plan's sweep on one block.
 """
 
 import warnings
@@ -40,6 +43,7 @@ import torch
 
 from tfdiffeq_tpu import odeint_adjoint as j_odeint_adjoint
 from tfdiffeq_tpu.fast import odeint_adjoint_fused as j_fused
+from tfdiffeq_tpu.ops import plan_adjoint as JPA
 from tfdiffeq_tpu_torch import fast as PF, odeint_adjoint
 from tfdiffeq_tpu_torch.ops import cuda_plan as CP
 from tfdiffeq_tpu_torch.ops import plan_bridge as PB
@@ -377,3 +381,49 @@ def test_refusals():
     with pytest.raises(PB.FusionError, match="batch-coupled"):
         _port(g, (W_MF,), y0=Y_MF, t=T_MF, g=np.ones((7, 12, 3)),
               per_sample=True)
+
+
+_PLAN_REF = {}
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3, 7])
+@pytest.mark.parametrize("name", ["spiral", "timedep", "batch_const"])
+def test_plan_sweep_grid_matches_reference(name, n_blocks):
+    """K15 in K3's plain version in the order of a grid of n_blocks blocks
+    (B = 8: ranges of unequal length past one block; 'batch_const' has
+    per-sample quadratures, 'timedep' the a_t one) against the
+    reference's `plan_adjoint_solve` (interpret mode, pack=1), float64:
+    identical stats, outputs within the plan sweeps' tolerance (1e-9
+    relative, tests/test_torch_plan_adjoint.py)."""
+    from test_torch_plan_adjoint import (_check_consts, _ref_sweep_inputs,
+                                         _rel, _sweep_inputs, _sweep_tol)
+    plan, packed, ys, g, tau = _sweep_inputs(name)
+    f64 = torch.float64
+    assert ys.shape[1] == 8
+    ay0, dconsts, at, stats = CP.plan_adjoint_solve(
+        plan, packed, torch.tensor(ys, dtype=f64), torch.tensor(g, dtype=f64),
+        torch.tensor(tau, dtype=f64), 0.05, 1e-7, 1e-9, 1.0,
+        n_blocks=n_blocks)
+    if name not in _PLAN_REF:
+        jplan, jpacked, jys, jg, jtau = _ref_sweep_inputs(name)
+        _PLAN_REF[name] = JPA.plan_adjoint_solve(
+            jplan, tuple(jpacked), jys, jg, jtau, 0.05, 1e-7, 1e-9, 1.0,
+            interpret=True, pack=1)
+    jay0, jdc, jat, jst = _PLAN_REF[name]
+    assert [int(x) for x in stats] == [int(x) for x in jst]
+    tol = _sweep_tol(name)
+    assert _rel(ay0, np.asarray(jay0).T) <= tol
+    assert abs(float(at) - float(jat)) <= tol * max(1.0, abs(float(jat)))
+    _check_consts(plan, dconsts, jdc, tol)
+
+
+def test_coupled_plan_sweep_takes_one_block():
+    """A coupled plan's sweep meets the block inside a stage: it runs on
+    one block and refuses a wider grid."""
+    from test_torch_plan_adjoint import _sweep_inputs
+    plan, packed, ys, g, tau = _sweep_inputs("meanfield")
+    assert plan.batch_coupled and CP.plan_adjoint_blocks(plan, 8, "cpu") == 1
+    with pytest.raises(ValueError, match="one block"):
+        CP.plan_adjoint_solve(plan, packed, torch.tensor(ys),
+                              torch.tensor(g), torch.tensor(tau), 0.05, 1e-7,
+                              1e-9, 1.0, n_blocks=3)

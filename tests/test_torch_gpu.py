@@ -49,7 +49,14 @@ identical stats, and from run to run; so are K14 (a generated plan) inside
 K2, K8, K5, K10 and K11, K15 inside K3, K6 and K9, and K12 (the
 hypersolvers, two plans) for its three kinds on the output grid, a finer
 grid and in reverse time. Every built-in method with options={'fuse':
-True} launches one whole-solve kernel and never falls back.
+True} launches one whole-solve kernel and never falls back. K3 on a grid
+of n_blocks blocks (1, 2, 132; the wrapper's default one per SM) is
+bitwise equal to its plain version at the same n_blocks in both types on
+the narrow, wide, CNF and plan routes; a grid the card cannot hold at once
+raises. K4's shared-memory tiles at widths 256 and 512: one evaluation
+within EVAL_BARS, float64 bitwise; K8 on them within chip_smoke.py's
+SOLVE_BARS for the wide rk4 x 128 (its 'bf16' mean gap grows with the
+width, so the tier is told apart per evaluation there).
 """
 
 import numpy as np
@@ -1560,3 +1567,206 @@ def test_every_builtin_method_launches_its_kernel(cuda):
         assert sum(getattr(cpl, c) for c in counters) == 1, method
         assert res.stats.status == 0, method
     assert fast.fuse_fallbacks == before
+
+
+# ---------------------------------------------------------------------------
+# K3 over the card: a grid of n_blocks blocks, each a range of the samples
+# and of the parameters, the blocks' partials merged in block order.
+# ---------------------------------------------------------------------------
+
+def _k3_grid_case(route, dtype, device):
+    """(wrapper, plain, args, kw) of a K3 sweep on `route`: the narrow MLP
+    (B = 300, the time column), a narrow MLP that nearly fills shared
+    memory (B = 64), the wide MLP (width 144, B = 48), K7's
+    adjoint (B = 96) and K15's 'drive' plan (B = 96, a per-sample constant
+    and a learnable scalar)."""
+    if route == "narrow":
+        warr, dims, ys, g, t = _adjoint_case(device, dtype, time_input=True)
+        return (ca.mlp_adjoint_solve, ca.mlp_adjoint_solve_plain,
+                (warr, dims, ys, g, t, 0.05, 1e-6, 1e-8, 1.0),
+                dict(activation="elu", time_input=True))
+    if route == "narrow_full":
+        # 8 -> 128 -> 8: in float64 its weights and stage cotangents take
+        # 179 KB of shared memory, so the grouped walk fits 8 slots of 32.
+        rng = np.random.RandomState(9)
+        weights = [(torch.tensor(rng.randn(i, o) / np.sqrt(i), dtype=dtype,
+                                 device=device),
+                    torch.tensor(rng.randn(o) * 0.1, dtype=dtype,
+                                 device=device))
+                   for i, o in ((8, 128), (128, 8))]
+        y0 = torch.tensor(rng.randn(64, 8) * 0.5, dtype=dtype, device=device)
+        t = torch.linspace(0.0, 1.0, 4, dtype=dtype)
+        ys = fast.solve_mlp_spec(fast.MLPSpec(activation="tanh"), weights,
+                                 y0, t, rtol=1e-7, atol=1e-9).ys.contiguous()
+        g = torch.tensor(rng.randn(*ys.shape), dtype=dtype, device=device)
+        warr, dims = ck.pack_mlp_weights(weights, dtype, device)
+        assert ck._route("K3", dims, ca._shared_values(dims, 7, False),
+                         ys.element_size()) == ck.ROUTE_NARROW
+        return (ca.mlp_adjoint_solve, ca.mlp_adjoint_solve_plain,
+                (warr, dims, ys, g, t, 0.05, 1e-6, 1e-8, 1.0), {})
+    if route == "wide":
+        weights, warr, dims, y0, t = _wide_case(device, dtype)
+        ys = fast.solve_mlp_spec(fast.MLPSpec(activation="tanh"), weights,
+                                 y0, t, rtol=1e-7, atol=1e-9).ys.contiguous()
+        g = torch.tensor(np.random.RandomState(5).randn(*ys.shape),
+                         dtype=dtype, device=device)
+        assert ck._route("K3", dims, ca._shared_values(dims, 7, False),
+                         ys.element_size()) == ck.ROUTE_WIDE
+        return (ca.mlp_adjoint_solve, ca.mlp_adjoint_solve_plain,
+                (warr, dims, ys, g, t, 0.05, 1e-6, 1e-8, 1.0), {})
+    if route == "cnf":
+        _, packed, dims, s0, tau, f0 = _cnf_case(device, dtype, 64, 96)
+        out, st = ck.mlp_solve_plain(packed, dims, s0, tau, 0.05, 1e-5, 1e-7,
+                                     -1.0, f0=f0, activation="tanh",
+                                     time_input=True, rhs="cnf")
+        g = torch.tensor(np.random.RandomState(32).randn(*out.shape),
+                         dtype=dtype, device=device)
+        return (ca.mlp_adjoint_solve, ca.mlp_adjoint_solve_plain,
+                (packed, dims, out.contiguous(), g, tau, 0.05, 1e-5, 1e-7,
+                 -1.0), dict(activation="tanh", rhs="cnf"))
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    plan, packed, ys, ct, t = _aug_case("drive", dtype, device)
+    return (cpl.plan_adjoint_solve, cpl.plan_adjoint_solve_plain,
+            (plan, packed, ys, ct, t, 0.05, 1e-6, 1e-6, 1.0), {})
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 132])
+@pytest.mark.parametrize("route",
+                         ["narrow", "narrow_full", "wide", "cnf", "plan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_adjoint_grid_matches_plain(cuda, dtype, route, n_blocks):
+    """K3 on a grid of n_blocks blocks (132: blocks past the batch own no
+    samples) bitwise equal to its plain version at the same n_blocks, in
+    both types, on every route: trajectories' cotangents, parameter
+    cotangents, a_t and stats; and equal from run to run."""
+    fn, plain, args, kw = _k3_grid_case(route, dtype, cuda)
+    got = fn(*args, n_blocks=n_blocks, **kw)
+    again = fn(*args, n_blocks=n_blocks, **kw)
+    ref = plain(*args, n_blocks=n_blocks, **kw)
+    torch.cuda.synchronize()
+    assert _same_sweep(got, again) and _same_sweep(got, ref), \
+        (got[3].tolist(), ref[3].tolist())
+    assert got[3][3].item() == 0
+
+
+@pytest.mark.parametrize("route", ["narrow", "plan"])
+def test_adjoint_default_grid_is_the_cards(cuda, route):
+    """With no n_blocks the wrapper takes one block per SM (fewer for a
+    smaller batch), and the plain version on the card's tensors the same
+    grid; the spiral's batch of 4096 takes every SM."""
+    fn, plain, args, kw = _k3_grid_case(route, torch.float64, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ca.adjoint_blocks(4096, cuda) == sms > 1
+    assert ca.adjoint_blocks(3, cuda) == 3
+    got = fn(*args, **kw)
+    ref = plain(*args, **kw)
+    assert _same_sweep(got, ref)
+
+
+def test_adjoint_grid_refuses_what_cannot_be_resident(cuda):
+    """A grid larger than the card can hold at once is refused with an
+    error; it never runs on fewer blocks. A coupled plan refuses a wider
+    grid than one block."""
+    fn, _, args, kw = _k3_grid_case("narrow", torch.float32, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    before = ca.mlp_adjoint_solve_launches
+    with pytest.raises(RuntimeError, match="mlp_adjoint_solve launch"):
+        fn(*args, n_blocks=64 * sms, **kw)
+    assert ca.mlp_adjoint_solve_launches == before
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    plan, packed, ys, ct, t = _aug_case("meanfield", torch.float32, cuda)
+    with pytest.raises(ValueError, match="one block"):
+        cpl.plan_adjoint_solve(plan, packed, ys, ct, t, 0.05, 1e-6, 1e-6,
+                               1.0, n_blocks=2)
+
+
+@pytest.mark.parametrize("tier", ["mixed", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tier_net_tiles_at_the_wide_widths(cuda, dtype, tier):
+    """K4 alone on the wide MLP 128 -> 256 -> 256 -> 128 at B = 1024 (16
+    tiles of 64 rows, two 128-output chunks a layer) and on a 512-wide
+    hidden layer (32-row tiles): float32 within EVAL_BARS of its own tier's
+    plain version and outside them against the other tiers', float64
+    bitwise; the evaluation alone on a packed workspace equals the whole
+    call."""
+    for D, H, B in ((128, 256, 1024), (64, 512, 200)):
+        weights, warr, dims, y0, _ = _wide_case(cuda, dtype, B=B, D=D, H=H)
+        plains = {o: ck._net_plain(warr, dims, "tanh", "identity", 1, False,
+                                   ck.layer_tiers(dims, "auto", o))(0.0, y0)
+                  for o in ("highest", "mixed", "bf16")}
+        tiers = ck.layer_tiers(dims, "auto", tier)
+        got = ck.tier_net(warr, dims, y0, tiers=tiers)
+        out, work = torch.empty_like(y0), ck.tier_net_work(dims, y0)
+        ck.tier_net_parts(warr, dims, y0, 0.0, out, work, tiers=tiers,
+                          mode=1)
+        ck.tier_net_parts(warr, dims, y0, 0.0, out, work, tiers=tiers,
+                          mode=2)
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+        if dtype == torch.float64:
+            assert torch.equal(got, plains[tier])
+            continue
+        bar = EVAL_BARS[tier]
+        ok = lambda g: g[0] <= bar[0] and g[1] <= bar[1]
+        own = _gap(got, plains[tier])
+        ctl = {o: _gap(got, r) for o, r in plains.items() if o != tier}
+        assert ok(own), (D, H, own, ctl)
+        assert not any(ok(c) for c in ctl.values()), (D, H, own, ctl)
+
+
+@pytest.mark.parametrize("H", [256, 512])
+@pytest.mark.parametrize("tier", ["mixed", "bf16"])
+def test_tier_batch_routes_at_the_wide_widths(cuda, tier, H):
+    """K8 (rk4, 16 steps) and K2 (dopri5) on the batch route with the
+    shared-memory tiles at widths 256 and 512 (K2's one block of 16 warps
+    takes 16-row tiles at 512). K8: its largest gap to its plain version
+    within chip_smoke.py's SOLVE_BARS for the wide rk4 x 128 (1e-5 'mixed',
+    2e-3 'bf16'), and for 'mixed' the other tiers' plain versions outside
+    that bar (the 'bf16' tier's mean gap grows with the width, 7e-5 at 512
+    on the card, as more inputs meet a bf16 rounding boundary, so a whole
+    solve does not separate it from 'mixed'; one evaluation does, in
+    test_tier_net_tiles_at_the_wide_widths). K2's one accepted step of
+    0.25 within the step's bar (as test_tier_solve_kernel_matches_plain)."""
+    weights, warr, dims, y0, t = _wide_case(cuda, torch.float32, B=96, D=64,
+                                            H=H)
+    tiers = ck.layer_tiers(dims, "auto", tier)
+    f0 = fast.mlp_apply(fast.MLPSpec(), weights, y0)
+    args = (warr, dims, y0, t, uniform_grid(t[0], t[-1], 16), 1.0)
+    kw = dict(f0=f0, method="rk4", tiers=tiers)
+    out, st = cf.mlp_solve_fixed(*args, **kw)
+    ref, st_ref = cf.mlp_solve_fixed_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(st, st_ref) and st[3].item() == 0
+    bar = {"mixed": 1e-5, "bf16": 2e-3}[tier]
+    own = _gap(out, ref)
+    assert own[0] <= bar, own
+    if tier == "mixed":
+        for o in ("highest", "bf16"):
+            ctl = _gap(out, cf.mlp_solve_fixed_plain(*args, **dict(
+                kw, tiers=ck.layer_tiers(dims, "auto", o)))[0])
+            assert ctl[0] > bar, (own, o, ctl)
+    one = (warr, dims, y0, torch.tensor([0.0, 0.25]), 0.25, 1.0, 1.0, 1.0)
+    got, st1 = ck.mlp_solve(*one, f0=f0, tiers=tiers)
+    want = ck.mlp_solve_plain(*one, f0=f0, tiers=tiers)[0]
+    assert st1.tolist() == [6, 1, 0, 0]
+    assert _gap(got, want)[0] < {"mixed": 5e-5, "bf16": 2e-3}[tier]
+
+
+def test_fixed_batch_route_takes_long_grids(cuda):
+    """K8's batch route at width 512 with output times and grid points
+    (6017 values) that no longer fit in shared memory beside K4's tiles:
+    they stay in global memory, the solve runs and is within SOLVE_BARS of
+    its plain version ('mixed', euler on 16 steps, 6000 outputs)."""
+    weights, warr, dims, y0, _ = _wide_case(cuda, torch.float32, B=32, D=64,
+                                            H=512)
+    tiers = ck.layer_tiers(dims, "auto", "mixed")
+    t = torch.linspace(0.0, 1.0, 6000)
+    f0 = fast.mlp_apply(fast.MLPSpec(), weights, y0)
+    args = (warr, dims, y0, t, uniform_grid(t[0], t[-1], 16), 1.0)
+    kw = dict(f0=f0, method="euler", tiers=tiers)
+    out, st = cf.mlp_solve_fixed(*args, **kw)
+    ref, st_ref = cf.mlp_solve_fixed_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(st, st_ref) and st[3].item() == 0
+    assert bool(torch.isfinite(out).all())
+    assert _gap(out, ref)[0] <= SOLVE_BARS["mixed"][0]

@@ -23,43 +23,51 @@
 // augmented right-hand side; this file holds the MLP and CNF right-hand
 // sides (MlpAdjAug) and their launch; csrc/plan_aug.cuh holds K15's.
 //
-// Design. One thread block for the whole sweep, as K2: thread tid owns the
-// samples b = tid, tid + blockDim.x, ... and walks each one's stage state,
-// MLP forward and VJP alone; the per-sample stage data live in a device
-// workspace (`work`), the weights, the parameter accumulator and every
-// stage's parameter cotangent in shared memory ((S + 3) n_w values; the
-// b_sol and b_err combines need all S stages at once). Unlike K2, the
-// batch meets at every STAGE, not only at every attempt: each stage's
-// parameter cotangent is a sum over the whole batch
-// (pallas_adjoint.py:196-201, :503-509). The per-sample layer inputs,
-// activation derivatives and pre-activation cotangents go to the
-// workspace feature-major ([row][B], so a warp reads 32 consecutive
-// samples), and then each warp takes whole reductions: lane j adds samples
-// j, j + 32, j + 64, ... in order (loading 8 ahead) and the 32 lane sums
-// meet in a fixed shuffle tree. Every batch sum
-// (parameter cotangents, a_t, the error) is taken in one fixed order that
-// the plain version in ops/cuda_adjoint.py repeats, with no atomics: the
-// same bits on every run, and float64 sweeps that take the plain version's
-// exact steps.
+// Design (csrc/rk_adjoint.cuh rk_adjoint_kernel). A grid of n_blocks blocks,
+// at most one per SM and all resident together, the wrapper's choice
+// (ops/cuda_adjoint.py adjoint_blocks: one per SM, or one a sample when the
+// batch is smaller). Block k owns a contiguous range of samples, about 31
+// at B = 4096 on 132 SMs. Phase A walks each one's stage state, MLP forward
+// and VJP with a group of threads (stage_group: 16 of the block's 512 at 32
+// samples a round; more for fewer samples), each layer's outputs, and in
+// the VJP each layer's inputs, spread over the group, every value one
+// thread's sum in input (or output) order, the layer vectors in shared
+// memory; it writes the
+// per-sample layer inputs, activation derivatives and pre-activation
+// cotangents to the workspace feature-major ([row][B]). Phase B gives each
+// thread whole parameter cotangents, summed over the block's samples in
+// K3's lane order (lane j adds samples j, j + 32, ... of the range, then
+// the 32 lane sums meet in the shuffle tree's order: csrc/rk_adjoint.cuh
+// lane_sum_small, its 32 samples' terms loaded together into registers),
+// into the block's partial of the stage. After the attempt's S stages the
+// grid meets; the owner of each parameter (the parameters, too, are cut
+// into n_blocks ranges) adds the blocks' partials in block order and
+// combines; each block's share of the error norm meets the others' at a
+// second grid meeting, in block order, so every block takes the same
+// decision. Every sum (parameter cotangents, a_t, the error) is taken in
+// one fixed order that the plain version in ops/cuda_adjoint.py repeats
+// for the same n_blocks, with no atomics: the same bits on every run, and
+// float64 sweeps that take the plain version's exact steps. The weights,
+// the group vectors, the parameter accumulator and every stage's
+// parameter cotangents sit in each block's shared memory ((S + 3) n_w
+// values and the groups'; the block uses its own parameters' entries).
+// K7's CNF walk (kCnf) stays a thread a sample.
 //
-// Bound on the H100. One SM of 132 does all the work. Per stage, each of
-// the 512 threads walks the MLP forward and VJP of B / 512 samples (about
-// 800 flops a sample at the spiral, its vectors in local memory), then each
-// warp reads two values and adds once per (parameter, sample) pair of its
-// share of the batch sums (252 x 4096 pairs at the spiral), with 2 block
-// barriers a stage: both bound by one SM's instruction throughput and
-// memory latency. Loading 8 samples ahead in the batch sums took the
-// spiral training sweep on an H100 from 1053 to 816 ms (0.53 ms a stage,
-// PERF.md), so most of the rest is likely the per-sample pass. Spreading the batch over the card
-// (one block per SM, a grid-wide barrier per stage, per-block partial sums
-// merged in a fixed order) is the follow-up, the same as K2's.
+// Bound on the H100. A stage's work is cut 132 ways (B = 4096) and a
+// sample's walk 16 ways: the stage's chain is a layer's longest sum (50
+// terms at the spiral) and a block barrier a layer, then about 2
+// reductions of 31 samples a thread; an attempt adds two grid meetings (an
+// atomic and a spin in L2) and the block-order merges (132 L2 loads a
+// value). Latency, not operations or bytes, bounds it: the spiral sweep's
+// 1540 stages do 0.14 ms of the card's float32 work.
 //
 // Routes (mlp_rk.cuh Route): narrow as above; wide, for layers up to
-// kMaxWidth or weights past shared memory, the per-thread vectors of 512
-// values in local memory and the weights, the parameter accumulator, its
-// increment and the stage cotangents in global memory (`pwork`, L2-resident:
-// 3.7 MB at the wide MLP 128 -> 256 -> 256 -> 128 with dopri5). The sums
-// keep their order, so both routes give the same bits.
+// kMaxWidth or weights past shared memory, the group vectors (fewer slots,
+// more threads a sample) in shared memory and the weights, the parameter
+// accumulator, its increment and the stage cotangents in global memory
+// (`pwork`, L2-resident: 3.7 MB at the wide MLP 128 -> 256 -> 256 -> 128
+// with dopri5). The sums keep their order, so both routes give the same
+// bits.
 //
 // rhs = cnf (K7's adjoint, csrc/cnf_net.cuh, replacing pallas_adjoint.py:240
 // _make_cnf_aug_eval at :1088-1131): the sweep of the augmented FFJORD
@@ -70,10 +78,17 @@
 // B takes each weight's batch sum of cnf_weight_x, the sample's cotangent
 // in one fixed order (2 D + 4 workspace reads a sample), in K3's lane and
 // tree order, without atomics, as the plain version repeats.
+#include <type_traits>
+
 #include "cnf_net.cuh"
 #include "rk_adjoint.cuh"
 
 namespace tfd {
+
+// Shared memory a K3 block may take in all (ops/cuda_kernels.py
+// MAX_WEIGHT_BYTES): the grouped walk gets as many slots as fit beside the
+// route's own values; the wrapper's route choice counts one slot.
+constexpr long kAdjSmemBytes = 220L * 1024;
 
 // Workspace rows of the per-stage batch reductions: layer l's inputs start
 // at row h_off[l] of H, its activation derivatives act'(z) and the
@@ -91,9 +106,13 @@ struct Rows {
 template <typename T, int kRoute, bool kCnf>
 struct MlpAdjAug {
   static constexpr bool kBatch = false;
+  // The MLP walks a sample with a group of threads (stage_group).
+  static constexpr bool kGroup = !kCnf;
   const T* wg;     // packed weights (pack_mlp_weights)
   int n_w, ti, n_ps;
   int n_h, n_z;
+  int gw;          // the group vectors' width: the widest layer
+  int slots;       // samples a round of the grouped walk
   Net net_in;
   Rows rows_in;
   CnfRows cr;
@@ -102,12 +121,15 @@ struct MlpAdjAug {
     Net net;
     Rows rows;
   };
-  // The per-thread vectors of one sample. The weights' pointer stays out
-  // of this struct: a store through them could alias it.
-  struct Local {
+  // K7's per-thread vectors of one sample (the MLP routes keep theirs in
+  // shared memory, group_vec). The weights' pointer stays out of this
+  // struct: a store through them could alias it.
+  struct CnfLocal {
     T ya[vec_width<kRoute>()], aya[vec_width<kRoute>()];
     T buf_a[vec_width<kRoute>()], buf_b[vec_width<kRoute>()];
   };
+  struct NoLocal {};
+  using Local = typename std::conditional<kCnf, CnfLocal, NoLocal>::type;
 
   // The packed weights: in shared memory on the narrow route (setup copies
   // them there), else in global memory.
@@ -125,22 +147,43 @@ struct MlpAdjAug {
       sh.net = net_in;
       sh.rows = rows_in;
     }
-    if constexpr (kRoute == kRouteNarrow) {
-      T* ws = reinterpret_cast<T*>(smem);
+    T* ws = reinterpret_cast<T*>(smem);
+    if constexpr (kRoute == kRouteNarrow)
       for (int i = threadIdx.x; i < n_w; i += blockDim.x) ws[i] = wg[i];
-      return ws + n_w;
-    } else {
-      return reinterpret_cast<T*>(smem);
-    }
+    return ws + smem_weights() + (kGroup ? long(slots) * 4 * gw : 0);
   }
   __device__ T* ya(Local& lo) const { return lo.ya; }
   __device__ T* aya(Local& lo) const { return lo.aya; }
 
-  // Phase A for sample b (pallas_adjoint.py:_make_aug_eval): the MLP
-  // forward, keeping each layer's input and act'(z), and its VJP, keeping
-  // the pre-activations' cotangents, for the batch sums.
-  __device__ void stage(const Shared& sh, Local& lo, T t_user, int b, int B,
-                        T sf, T* ky, T* kay, T* rw) const {
+  // The weights' values in shared memory (the narrow route's).
+  __device__ int smem_weights() const {
+    return kRoute == kRouteNarrow ? n_w : 0;
+  }
+  // A group's four shared vectors of gw values, after the weights: the
+  // stage state ya, aya, then the walk's two layer buffers.
+  __device__ T* group_vec(int slot) const {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    return reinterpret_cast<T*>(smem_raw) + smem_weights() +
+           long(slot) * 4 * gw;
+  }
+  __device__ T* group_ya(int slot) const { return group_vec(slot); }
+  __device__ T* group_aya(int slot) const { return group_vec(slot) + gw; }
+
+  // Phase A for sample b (pallas_adjoint.py:_make_aug_eval) with the gsz
+  // threads of its group: the MLP forward, keeping each layer's input and
+  // act'(z) (the VJP needs nothing else of z), and its VJP, keeping the
+  // pre-activations' cotangents, for the batch sums. Each layer's outputs
+  // (forward) and inputs (backward) are spread over the members, one
+  // member a value, and each value is one member's sum in a fixed order:
+  // a pre-activation W[o][0] h[0] + W[o][1] h[1] + ... in input order, then
+  // the bias; an input cotangent W[0][k] dz[0] + W[1][k] dz[1] + ... in
+  // output order, then times act'. The plain version (ops/cuda_adjoint.py
+  // _aug_eval_plain) sums in the same order. The block meets between layers.
+  // Every thread of the block calls it; `on` says whether the group has a
+  // sample this round.
+  __device__ void stage_group(const Shared& sh, T t_user, int b, bool on,
+                              int B, T sf, int m, int gsz, int slot, T* ky,
+                              T* kay, T* rw) const {
     const Net& net = sh.net;
     const Rows& rows = sh.rows;
     const T* w = weights();
@@ -149,32 +192,27 @@ struct MlpAdjAug {
     T* __restrict__ H = rw;
     T* __restrict__ G = H + long(n_h) * B;
     T* __restrict__ DZ = G + long(n_z) * B;
-    T* __restrict__ VT = kCnf ? H + long(cr.vt) * B : DZ + long(n_z) * B;
-    const T* ya_ = lo.ya;
-    const T* aya_ = lo.aya;
-    if constexpr (kCnf) {
-      cnf_aug_eval(net, cr, w, t_user, ya_, aya_, lo.buf_a, lo.buf_b, H, B,
-                   b, ky, kay, sf);
-      return;
-    }
-    // Forward, keeping each layer's input and act'(z) (the VJP needs
-    // nothing else of z).
-    T* hin = lo.buf_a;
-    T* hout = lo.buf_b;
-    for (int d = 0; d < D; ++d) {
+    T* __restrict__ VT = DZ + long(n_z) * B;
+    T* const gv = group_vec(slot);
+    const T* ya_ = gv;
+    const T* aya_ = gv + gw;
+    T* hin = gv + 2 * gw;
+    T* hout = gv + 3 * gw;
+    for (int d = m; on && d < D; d += gsz) {
       T h = ya_[d];
       for (int p = 1; p < net.input_power; ++p) h = h * ya_[d];
       hin[d] = h;
     }
-    if (net.time_input) hin[D] = t_user;
+    if (on && net.time_input && m == 0) hin[D] = t_user;
+    __syncthreads();
     for (int l = 0; l < L; ++l) {
       const int din = net.din[l], dout = net.dout[l];
       const T* W = w + net.w_off[l];
       const T* bias = w + net.b_off[l];
       const int code = (l == L - 1) ? net.act_final : net.act_hidden;
-      for (int k = 0; k < din; ++k)
+      for (int k = m; on && k < din; k += gsz)
         H[long(rows.h_off[l] + k) * B + b] = hin[k];
-      for (int o = 0; o < dout; ++o) {
+      for (int o = m; on && o < dout; o += gsz) {
         const T* row = W + o * din;
         T acc = row[0] * hin[0];
         for (int k = 1; k < din; ++k) acc = acc + row[k] * hin[k];
@@ -183,23 +221,25 @@ struct MlpAdjAug {
         G[long(rows.z_off[l] + o) * B + b] = act_grad(code, z, a);
         hout[o] = a;
       }
+      __syncthreads();
       T* tmp = hin;
       hin = hout;
       hout = tmp;
     }
     // hin holds f. Backward: dz of the last layer into hout.
-    for (int d = 0; d < D; ++d) {
+    for (int d = m; on && d < D; d += gsz) {
       ky[d] = (-sf) * hin[d];
       const T dz = aya_[d] * G[long(rows.z_off[L - 1] + d) * B + b];
       hout[d] = dz;
       DZ[long(rows.z_off[L - 1] + d) * B + b] = dz;
     }
+    __syncthreads();
     T* dz = hout;
     T* dh = hin;
     for (int l = L - 1; l >= 0; --l) {
       const int din = net.din[l], dout = net.dout[l];
       const T* W = w + net.w_off[l];
-      for (int k = 0; k < din; ++k) {
+      for (int k = m; on && k < din; k += gsz) {
         T acc = W[k] * dz[0];
         for (int o = 1; o < dout; ++o) acc = acc + W[o * din + k] * dz[o];
         if (l > 0) {
@@ -208,12 +248,13 @@ struct MlpAdjAug {
         }
         dh[k] = acc;
       }
+      __syncthreads();
       T* tmp = dz;
       dz = dh;
       dh = tmp;
     }
     // dz now holds the layer-0 input cotangent: v_y, then v_t.
-    for (int d = 0; d < D; ++d) {
+    for (int d = m; on && d < D; d += gsz) {
       T vy = dz[d];
       if (net.input_power > 1) {
         T yp = ya_[d];
@@ -222,13 +263,24 @@ struct MlpAdjAug {
       }
       kay[d] = sf * vy;
     }
-    if (net.time_input) VT[b] = dz[D];
+    if (on && net.time_input && m == 0) VT[b] = dz[D];
+    __syncthreads();
   }
 
-  // Phase B: reduction r's batch sum in K3's order, weight (o, k) the sum
-  // of dz_o h_k, a bias of dz_o, then a_t of v_t (kCnf: cnf_weight_x).
-  __device__ T quad_sum(const Shared& sh, int r, const T* rw, int B,
-                        int lane) const {
+  // Phase A of K7's CNF walk for sample b, a thread a sample (cnf_net.cuh
+  // cnf_aug_eval; the MLP routes take stage_group).
+  __device__ void stage(const Shared& sh, Local& lo, T t_user, int b, int B,
+                        T sf, T* ky, T* kay, T* rw) const {
+    cnf_aug_eval(sh.net, cr, weights(), t_user, lo.ya, lo.aya, lo.buf_a,
+                 lo.buf_b, rw, B, b, ky, kay, sf);
+  }
+
+  // Phase B: sum(x) of reduction r's per-sample term x(b) (csrc/
+  // rk_adjoint.cuh quad), weight (o, k) dz_o h_k, a bias dz_o, then a_t
+  // v_t (kCnf: cnf_weight_x); the decode is the reduction's, once.
+  template <class Sum>
+  __device__ T quad(const Shared& sh, int r, const T* rw, int B,
+                    const Sum& sum) const {
     const Net& net = sh.net;
     const Rows& rows = sh.rows;
     const int L = net.n_layers;
@@ -236,7 +288,7 @@ struct MlpAdjAug {
     const T* __restrict__ DZ = rw + long(n_h + n_z) * B;
     const T* __restrict__ VT =
         kCnf ? H + long(cr.vt) * B : DZ + long(n_z) * B;
-    if (r >= n_w) return batch_sum<T, false>(VT, nullptr, B, lane);
+    if (r >= n_w) return sum([&](int b) { return VT[b]; });
     int l = 0;
     while (l + 1 < L && r >= net.w_off[l + 1]) ++l;
     if constexpr (kCnf) {
@@ -245,18 +297,20 @@ struct MlpAdjAug {
       const int o = weight ? idx / net.din[l] : idx;
       const int k = weight ? idx % net.din[l] : -1;
       const CnfRows crr = cr;
-      return batch_sum_of<T>(
-          [&](int b) { return cnf_weight_x<T>(net, crr, H, l, o, k, B, b); },
-          B, lane);
+      return sum([&](int b) {
+        return cnf_weight_x<T>(net, crr, H, l, o, k, B, b);
+      });
     } else {
       if (r < net.b_off[l]) {
         const int idx = r - net.w_off[l];
         const int o = idx / net.din[l], k = idx % net.din[l];
-        return batch_sum<T, true>(H + long(rows.h_off[l] + k) * B,
-                                  DZ + long(rows.z_off[l] + o) * B, B, lane);
+        const T* __restrict__ xh = H + long(rows.h_off[l] + k) * B;
+        const T* __restrict__ xz = DZ + long(rows.z_off[l] + o) * B;
+        return sum([&](int b) { return xh[b] * xz[b]; });
       }
-      return batch_sum<T, false>(
-          DZ + long(rows.z_off[l] + r - net.b_off[l]) * B, nullptr, B, lane);
+      const T* __restrict__ xz =
+          DZ + long(rows.z_off[l] + r - net.b_off[l]) * B;
+      return sum([&](int b) { return xz[b]; });
     }
   }
   __device__ T sample_x(const Shared&, int, const T*, int, int) const {
@@ -277,19 +331,35 @@ template <typename T, int kRoute, bool kCnf>
 cudaError_t launch_adjoint_route(const void* tau, const void* ys,
                                  const void* g, const void* weights,
                                  void* ay0, void* aw, void* at, void* stats,
-                                 void* work, void* pwork, int n_w,
+                                 void* work, void* pwork, void* gwork,
+                                 long gwork_bytes, int n_blocks, int n_w,
                                  int threads, const Net& net,
                                  const Rows& rows, const CnfRows& cr,
                                  const Tableau<T>& tab,
                                  const AdjScalars<T>& sc,
                                  cudaStream_t stream) {
   const int S = tab.S, ti = net.time_input;
-  const size_t smem =
+  using Aug = MlpAdjAug<T, kRoute, kCnf>;
+  const int gw = net_max_width(net);
+  // Slots of the grouped walk: enough for a block's samples, at most
+  // kAdjSlots, and their vectors within what the route leaves of
+  // kAdjSmemBytes. The slots change no sum's order, only how many
+  // threads share a sample.
+  const size_t own =
       sizeof(T) * ((kRoute == kRouteNarrow
                         ? size_t(3 + S) * n_w + size_t(S) * ti
                         : 0) +
                    threads);
-  MlpAdjAug<T, kRoute, kCnf> aug;
+  const size_t slot_bytes = sizeof(T) * 4 * size_t(gw);
+  const int per_block = (sc.B + n_blocks - 1) / n_blocks;
+  int slots = 1;
+  while (slots < kAdjSlots && slots < per_block &&
+         own + 2 * slots * slot_bytes <= size_t(kAdjSmemBytes))
+    slots *= 2;
+  const size_t smem = own + (Aug::kGroup ? slots * slot_bytes : 0);
+  Aug aug;
+  aug.gw = gw;
+  aug.slots = slots;
   aug.wg = static_cast<const T*>(weights);
   aug.n_w = n_w;
   aug.ti = ti;
@@ -306,7 +376,8 @@ cudaError_t launch_adjoint_route(const void* tau, const void* ys,
   AdjScalars<T> s2 = sc;
   s2.quad_smem = kRoute == kRouteNarrow;
   return launch_rk_adjoint<T>(tau, ys, g, ay0, aw, at, nullptr, stats, work,
-                              pwork, aug, smem, threads, tab, s2, stream);
+                              pwork, gwork, gwork_bytes, n_blocks, aug, smem,
+                              threads, tab, s2, stream);
 }
 
 template <typename T>
@@ -320,7 +391,8 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
                    int input_power, int time_input, int stages, int order,
                    const double* c, const double* a, const double* b_sol,
                    const double* b_err, int route, void* pwork,
-                   long pwork_size, int cnf, void* stream) {
+                   long pwork_size, int cnf, void* gwork, long gwork_bytes,
+                   int n_blocks, void* stream) {
   if (stages < 2 || stages > kMaxStages || T_obs < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || threads < kWarp ||
       threads > kAdjThreads || (threads & (threads - 1)))
@@ -361,19 +433,23 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
   if (cnf)
     e = route == kRouteNarrow
             ? launch_adjoint_route<T, kRouteNarrow, true>(
-                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
-                  threads, net, rows, cr, tab, sc, st)
+                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, gwork,
+                  gwork_bytes, n_blocks, n_w, threads, net, rows, cr, tab, sc,
+                  st)
             : launch_adjoint_route<T, kRouteWide, true>(
-                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
-                  threads, net, rows, cr, tab, sc, st);
+                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, gwork,
+                  gwork_bytes, n_blocks, n_w, threads, net, rows, cr, tab, sc,
+                  st);
   else
     e = route == kRouteNarrow
             ? launch_adjoint_route<T, kRouteNarrow, false>(
-                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
-                  threads, net, rows, cr, tab, sc, st)
+                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, gwork,
+                  gwork_bytes, n_blocks, n_w, threads, net, rows, cr, tab, sc,
+                  st)
             : launch_adjoint_route<T, kRouteWide, false>(
-                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, n_w,
-                  threads, net, rows, cr, tab, sc, st);
+                  tau, ys, g, weights, ay0, aw, at, stats, work, pwork, gwork,
+                  gwork_bytes, n_blocks, n_w, threads, net, rows, cr, tab, sc,
+                  st);
   return static_cast<int>(e);
 }
 
@@ -390,13 +466,14 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
       int input_power, int time_input, int stages, int order,               \
       const double* c, const double* a, const double* b_sol,                \
       const double* b_err, int route, void* pwork, long pwork_size,         \
-      int cnf, void* stream) {                                               \
+      int cnf, void* gwork, long gwork_bytes, int n_blocks, void* stream) { \
     return tfd::launch_adjoint<TYPE>(                                        \
         tau, ys, g, weights, ay0, aw, at, stats, work, work_size, T_obs, B, \
         D, threads, dt0, rtol, atol, dt_min, sign, safety, ifactor,         \
         dfactor, max_steps, seminorm, n_layers, dims, act_hidden,           \
         act_final, input_power, time_input, stages, order, c, a, b_sol,     \
-        b_err, route, pwork, pwork_size, cnf, stream);                       \
+        b_err, route, pwork, pwork_size, cnf, gwork, gwork_bytes, n_blocks, \
+        stream);                                                             \
   }
 
 TFD_ADJOINT_ENTRY(tfd_mlp_adjoint_f32, float)

@@ -52,10 +52,12 @@
 
 namespace tfd {
 
-// The batch route's block: threads, and samples (a multiple of 16; the
-// per-thread routes' block, ops/cuda_fixed.py:FIXED_THREADS).
+// The batch route's block: threads, and samples (a multiple of 16: one
+// 16-row tile of K4 a block, so that the batch spreads over 4x the SMs of
+// 64-row blocks; ops/cuda_fixed.py pads the rows to FIXED_THREADS, a
+// multiple of it).
 constexpr int kFixedBatchThreads = 256;
-constexpr int kFixedSamples = 64;
+constexpr int kFixedSamples = 16;
 
 // K8's MLP right-hand sides (csrc/rk_fixed.cuh's Rhs): the per-thread
 // narrow and wide routes (mlp_eval) and the batch route (batch_mlp_eval,
@@ -98,6 +100,8 @@ struct MlpFixedRhs {
       T* ws = reinterpret_cast<T*>(smem);
       for (int i = tid; i < n_weights; i += blockDim.x) ws[i] = wg[i];
       rest = ws + n_weights;
+    } else if constexpr (kRoute == kRouteBatch) {
+      rest = nullptr;   // K4's tiles take the shared memory; grid in global
     } else {
       rest = reinterpret_cast<T*>(smem);
     }
@@ -132,8 +136,10 @@ cudaError_t launch_fixed_route(const void* grid, const void* tau,
                                const FixedScalars<T>& sc,
                                cudaStream_t stream) {
   const size_t smem =
-      sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + sc.G +
-                   sc.T_out);
+      kRoute == kRouteBatch
+          ? batch_smem(bb)
+          : sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + sc.G +
+                         sc.T_out);
   MlpFixedRhs<T, kRoute> rhs;
   rhs.wg = static_cast<const T*>(weights);
   rhs.n_weights = n_w;
@@ -171,7 +177,9 @@ int launch_solve_fixed(const void* grid, const void* tau, const void* y0,
     if (threads != kFixedBatchThreads || !batch_work ||
         batch_bytes < batch_work_bytes(net, n_w16, rows, sizeof(T)))
       return static_cast<int>(cudaErrorInvalidValue);
-    bb = batch_bufs<T>(batch_work, net, n_w16, rows);
+    bb = batch_bufs<T>(batch_work, net, n_w16, rows,
+                       kFixedBatchThreads / kWarpSize, kFixedSamples);
+    if (bb.tile.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   } else if (!route_fits(net, route) || tiers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -30,9 +30,10 @@
 //                 cotangent row, v_t last.
 // A plan without a coupling is one segment.
 //
-// PlanAugRhs walks a sample at a time in its thread (K3); PlanLaneAug the
-// same in K6 and K9, each quadrature's weighted term into the sample's
-// STEP rows; PlanBatchAugRhs (K3 only) walks a stage batch-wide, segment
+// PlanAugRhs walks a sample at a time in its thread (K3, over the grid that
+// cuts the batch into ranges, csrc/rk_adjoint.cuh); PlanLaneAug the same in
+// K6 and K9, each quadrature's weighted term into the sample's STEP rows;
+// PlanBatchAugRhs (K3 only, one block) walks a stage batch-wide, segment
 // by segment, every thread for the samples it owns, the block meeting at
 // each coupling and at each coupling's transpose (csrc/plan_rhs.cuh
 // BlockMeet: each thread's samples in order, then block_fold's tree),
@@ -71,11 +72,12 @@ struct PlanAugBase {
                         int b) const {
     return P::template sample_x<T>(j, rw, B, b);
   }
-  // Shared quadrature r's batch sum in K3's lane order.
-  __device__ T quad_sum(const Shared&, int r, const T* rw, int B,
-                        int lane) const {
-    return batch_sum_of<T>(
-        [&](int b) { return P::template quad_x<T>(r, rw, B, b); }, B, lane);
+  // sum(x) of shared quadrature r's per-sample term (csrc/rk_adjoint.cuh
+  // quad).
+  template <class Sum>
+  __device__ T quad(const Shared&, int r, const T* rw, int B,
+                    const Sum& sum) const {
+    return sum([&](int b) { return P::template quad_x<T>(r, rw, B, b); });
   }
 };
 
@@ -83,6 +85,7 @@ template <typename T, class P>
 struct PlanAugRhs : PlanAugBase<T, P> {
   static_assert(P::kSegments == 1, "a per-thread walk has no coupling");
   static constexpr bool kBatch = false;
+  static constexpr bool kGroup = false;
   using Shared = typename PlanAugBase<T, P>::Shared;
   struct Local {
     T ya[P::kDim], aya[P::kDim], f[P::kOutRows], vy[P::kDim];
@@ -140,6 +143,7 @@ struct PlanLaneAug : PlanAugRhs<T, P> {
 template <typename T, class P>
 struct PlanBatchAugRhs : PlanAugBase<T, P> {
   static constexpr bool kBatch = true;
+  static constexpr bool kGroup = false;
   using Shared = typename PlanAugBase<T, P>::Shared;
   struct Local {
     T ya[P::kDim], aya[P::kDim];
@@ -202,7 +206,8 @@ int launch_plan_adjoint(const void* tau, const void* ys, const void* g,
                         const double* b_sol, const double* b_err,
                         const void* consts, int n_consts,
                         const void* sample_consts, int smem_consts,
-                        int quad_smem, void* stream) {
+                        int quad_smem, void* gwork, long gwork_bytes,
+                        int n_blocks, void* stream) {
   if (stages < 2 || stages > kMaxStages || T_obs < 1 || B < 1 ||
       D != P::kDim || P::kOutRows != D || threads < kWarp ||
       threads > kAdjThreads || (threads & (threads - 1)) ||
@@ -231,7 +236,8 @@ int launch_plan_adjoint(const void* tau, const void* ys, const void* g,
     aug.n_consts = n_consts;
     aug.in_smem = smem_consts;
     e = launch_rk_adjoint<T>(tau, ys, g, ay0, aw, at, aps, stats, work,
-                             pwork, aug, smem, threads, tab, sc, st);
+                             pwork, gwork, gwork_bytes, n_blocks, aug, smem,
+                             threads, tab, sc, st);
   } else {
     PlanAugRhs<T, P> aug;
     aug.cg = cg;
@@ -239,7 +245,8 @@ int launch_plan_adjoint(const void* tau, const void* ys, const void* g,
     aug.n_consts = n_consts;
     aug.in_smem = smem_consts;
     e = launch_rk_adjoint<T>(tau, ys, g, ay0, aw, at, aps, stats, work,
-                             pwork, aug, smem, threads, tab, sc, st);
+                             pwork, gwork, gwork_bytes, n_blocks, aug, smem,
+                             threads, tab, sc, st);
   }
   return static_cast<int>(e);
 }
@@ -353,12 +360,13 @@ int launch_plan_fixed_adjoint(const void* tau, const void* ys, const void* g,
       const double* c, const double* a, const double* b_sol,                \
       const double* b_err, const void* consts, int n_consts,                \
       const void* sample_consts, int smem_consts, int quad_smem,            \
-      void* stream) {                                                        \
+      void* gwork, long gwork_bytes, int n_blocks, void* stream) {          \
     return tfd::launch_plan_adjoint<TYPE, tfd::PlanAug>(                    \
         tau, ys, g, ay0, aw, at, aps, stats, work, pwork, T_obs, B, D,      \
         threads, dt0, rtol, atol, dt_min, sign, safety, ifactor, dfactor,   \
         max_steps, seminorm, stages, order, c, a, b_sol, b_err, consts,     \
-        n_consts, sample_consts, smem_consts, quad_smem, stream);            \
+        n_consts, sample_consts, smem_consts, quad_smem, gwork, gwork_bytes,\
+        n_blocks, stream);                                                   \
   }
 #define TFD_PLAN_PERLANE_ADJOINT_ENTRY(NAME, TYPE)                           \
   extern "C" int NAME(                                                       \

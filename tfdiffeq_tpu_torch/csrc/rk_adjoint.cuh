@@ -28,19 +28,25 @@
 //                           barrier), returns the free shared memory;
 //   n_w, ti, n_ps           the shared quadratures (then a_t when ti) and
 //                           the per-sample ones;
-//   ya(lo), aya(lo)         where the engine writes a sample's stage state;
+//   ya(lo), aya(lo)         where the engine writes a sample's stage state
+//                           (not with kGroup);
 // for K3, either (kBatch false) a sample at a time
 //   stage(sh, lo, t, b, B, sf, ky, kay, rw)
 //                           sample b's stage: ky[d] = -sf f_d, kay[d] =
 //                           sf v_y,d (D values each), and what the batch
 //                           sums read into its rows rw;
+// or (kGroup true) a group of threads a sample, every thread of the block:
+//   group_ya(slot), group_aya(slot)  the group's stage state (shared),
+//   stage_group(sh, t, b, on, B, sf, m, gsz, slot, ky, kay, rw)
+//                           the same for sample b (on: the slot has one),
+//                           member m of gsz;
 // or (kBatch true) the whole batch, every thread:
 //   put(sh, lo, b, B, rw)   sample b's state (ya, aya) into the rows,
 //   stage_batch(sh, lo, t, B, sf, KY, KAY, rw, red)  after a barrier;
 // and the stage's batch sums:
-//   quad_sum(sh, r, rw, B, lane)  shared quadrature r's per-sample term
-//                           summed over the batch in K3's order (lane 0
-//                           returns it; a warp calls it together),
+//   quad(sh, r, rw, B, sum)  sum(x) of x(b), shared quadrature r's term for
+//                           sample b (sum: lane_sum_small or lane_sum_warp
+//                           over the block's samples),
 //   sample_x(sh, j, rw, B, b)     per-sample quadrature j's term;
 // for K6 and K9 one sample a thread:
 //   lane_stage(sh, lo, t, b, B, sf, ky, kay, STEP, hb, add, first, rw)
@@ -54,10 +60,14 @@
 
 namespace tfd {
 
-// Most threads of K3's one block; the launch takes a power of two from 32
-// up to it (block_sum, whole warps), ops/cuda_adjoint.py:ADJOINT_THREADS.
+// Threads of each K3 block (the block sums' tree, block_sum, takes a power
+// of two), ops/cuda_adjoint.py:ADJOINT_THREADS.
 constexpr int kAdjThreads = 512;
 constexpr int kWarp = 32;
+// Most samples a round of a grouped walk (kGroup): the block's threads
+// split into Aug::slots groups (a power of two up to kAdjSlots), one a
+// sample (16 threads at 512 and 32 slots).
+constexpr int kAdjSlots = 32;
 
 template <typename T>
 struct AdjScalars {
@@ -75,26 +85,29 @@ __device__ __forceinline__ T warp_tree_sum(T v) {
   return v;
 }
 
-// Batch samples a lane loads before it adds them: the adds stay in sample
-// order, the loads overlap (one at a time would leave the warp waiting on
-// memory latency for every sample).
+// Batch samples a lane loads before it adds them (lane_sum_warp): the adds
+// stay in sample order, the loads overlap.
 constexpr int kUnroll = 8;
 
-// The batch sum of x(b) = xa[b] * xb[b] (kProduct) or xa[b], in K3's
-// order: lane j adds samples j, j + 32, ... in turn from 0 (a sample past
-// B adds +0, which changes no bit), then the warp's shuffle tree. Lane 0
-// returns the sum.
-template <typename T, bool kProduct>
-__device__ __forceinline__ T batch_sum(const T* __restrict__ xa,
-                                       const T* __restrict__ xb, int B,
-                                       int lane) {
+// The sum of x(b) over the samples [lo, lo + n) in K3's lane order: lane j
+// adds samples lo + j, lo + j + 32, ... in turn from +0, then the 32 lane
+// sums meet in warp_tree_sum's tree (ops/cuda_adjoint.py _lane_sums on the
+// rows lo .. lo + n - 1). A lane past the range sums to +0, which the tree
+// adds without changing a bit, so n = B gives the bits of the one-block
+// kernel's batch sum. Two ways to the same bits:
+//   lane_sum_warp   (n > 32) a warp together, lane 0 returns the sum;
+//   lane_sum_small  (n <= 32) one thread, its (at most) 32 samples loaded
+//                   together into registers, then the tree.
+template <typename T, typename Fn>
+__device__ __forceinline__ T lane_sum_warp(const Fn& x, int lo, int n,
+                                           int lane) {
   T acc = T(0);
-  for (int b0 = lane; b0 < B; b0 += kUnroll * kWarp) {
+  for (int b0 = lane; b0 < n; b0 += kUnroll * kWarp) {
     T v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int b = b0 + u * kWarp;
-      v[u] = b < B ? (kProduct ? xa[b] * xb[b] : xa[b]) : T(0);
+      v[u] = b < n ? x(lo + b) : T(0);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) acc = acc + v[u];
@@ -102,21 +115,16 @@ __device__ __forceinline__ T batch_sum(const T* __restrict__ xa,
   return warp_tree_sum(acc);
 }
 
-// The same order for x(b) given by a function of the sample.
 template <typename T, typename Fn>
-__device__ __forceinline__ T batch_sum_of(Fn x, int B, int lane) {
-  T acc = T(0);
-  for (int b0 = lane; b0 < B; b0 += kUnroll * kWarp) {
-    T v[kUnroll];
+__device__ __forceinline__ T lane_sum_small(const Fn& x, int lo, int n) {
+  T v[kWarp];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int b = b0 + u * kWarp;
-      v[u] = b < B ? x(b) : T(0);
-    }
+  for (int j = 0; j < kWarp; ++j) v[j] = j < n ? T(0) + x(lo + j) : T(0);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) acc = acc + v[u];
-  }
-  return warp_tree_sum(acc);
+  for (int s = kWarp / 2; s > 0; s >>= 1)
+#pragma unroll
+    for (int j = 0; j < s; ++j) v[j] = v[j] + v[j + s];
+  return v[0];
 }
 
 // sum_j (dth c_j) k_j over the nonzero c_j, in stage order; k_j = K(j).
@@ -135,31 +143,97 @@ __device__ __forceinline__ T stage_combine(const T* coef, int S, T dth,
   return acc;
 }
 
+// The grid's meeting point. Thread 0 of every block publishes the block's
+// writes (a device-scope fence), adds one to `count` and waits until every
+// block of this meeting has; `target` counts the meetings' arrivals, the
+// same in every block. The block's other threads wait at its barriers.
+// The launch makes every block resident together (a cooperative launch),
+// or this would wait forever; a wait of some seconds (2^28 polls), far
+// past any stage, traps, so that a fault fails the launch instead of
+// holding the card.
+__device__ __forceinline__ void grid_sync(unsigned long long* count,
+                                          unsigned long long& target) {
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1ull);
+    for (unsigned polls = 0;
+         *static_cast<volatile unsigned long long*>(count) < target;
+         ++polls) {
+      if (polls == (1u << 28)) __trap();
+      __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// v[0] + v[stride] + ... + v[(nb - 1) stride] in block order, read past L1
+// (other blocks wrote them).
+template <typename T>
+__device__ __forceinline__ T merge_blocks(const T* v, long stride, int nb) {
+  T acc = __ldcg(v);
+  for (int k = 1; k < nb; ++k) acc = acc + __ldcg(v + k * stride);
+  return acc;
+}
+
 // ---------------------------------------------------------------------------
-// K3: one controller for the batch.
+// K3: one controller for the batch, the sweep spread over the card.
 //
-// One thread block for the whole sweep, as K2: thread tid owns the samples
-// b = tid, tid + blockDim.x, ... The batch meets at every STAGE, not only
-// at every attempt: each stage's shared quadratures are sums over the
-// whole batch (pallas_adjoint.py:196-201, :503-509). Phase A evaluates the
-// augmented right-hand side of each owned sample, which writes what the
-// sums read to workspace rows of B values; phase B gives each warp whole
-// reductions (quad_sum). Every batch sum (the quadratures, a_t, the error)
-// is taken in one fixed order that the plain version in
-// ops/cuda_adjoint.py repeats, with no atomics: the same bits on every
-// run, and float64 sweeps that take the plain version's exact steps. Every
-// attempt takes all S stages of the tableau; the error norm covers
-// (y, a_y), then, unless `seminorm`, the per-sample quadratures after each
-// sample's own and the shared ones; the clamped I-controller, Kahan
-// accumulation of y and a_y (the quadratures add plainly), the counters
-// and the status follow the reference (:498-676).
+// A grid of n_blocks blocks (at most one per SM, all resident together)
+// cuts the batch into n_blocks contiguous ranges, block k the samples
+// [k B / n_blocks, (k + 1) B / n_blocks), and the shared quadratures into
+// as many ranges, block k the parameters [k n_w / n_blocks, ...). The batch
+// meets at every STAGE, not only at every attempt: each stage's shared
+// quadratures are sums over the whole batch (pallas_adjoint.py:196-201,
+// :503-509). Phase A evaluates the augmented right-hand side of each of
+// the block's samples (a thread a sample, or a group of threads a sample:
+// kGroup), which writes what the sums read to
+// workspace rows of B values; phase B gives each thread (or, past 32
+// samples a block, each warp) whole reductions over the block's samples
+// (quad), into the block's partial of that stage, [S][n_blocks][n_w + ti]
+// in `gwork`. Nothing of a stage waits for another block, so the grid
+// meets twice an attempt: after the S stages,
+// when each block merges the partials of its own parameters (and every
+// block those of a_t) in block order, combines, and writes its share of
+// the error norm (its samples', then its parameters', summed by its
+// threads and block_sum) and its finiteness flag; and after that, when
+// every block adds the n_blocks shares in block order and ORs the flags.
+// Every block merges the same values in the same order with the same
+// instructions, so every block takes bitwise the same total, the same
+// accept/reject, the same dt, status and counters, and leaves the attempt
+// loop at the same meeting (a block that decided otherwise would leave the
+// others waiting for it). No atomics sum a value: the same bits on every
+// run, and float64 sweeps that take the plain version's exact steps
+// (ops/cuda_adjoint.py adjoint_sweep_plain repeats the order for any
+// n_blocks; n_blocks = 1 is the order of the one-block kernel before it).
+// The error norm covers (y, a_y), then, unless `seminorm`, the per-sample
+// quadratures after each sample's own and the shared ones; the clamped
+// I-controller, Kahan accumulation of y and a_y (the quadratures add
+// plainly), the counters and the status follow the reference (:498-676).
+// A coupled plan (kBatch: the block meets inside a stage) runs on one
+// block.
 //
 // Workspace (`work`): y, a_y, their compensations and increments, the
 // stages of both ([S][B][D] each), the per-sample quadratures, their
 // increments and stages ([n_ps][B], [n_ps][B], [S][n_ps][B]), then the
 // right-hand side's rows. The shared quadratures' accumulator, increment
-// and stage values ((S + 2) n_w + S ti values) sit in shared memory when
-// `quad_smem`, else in `pwork`.
+// and stage values ((S + 2) n_w + S ti values, each block using its own
+// parameters' entries) sit in shared memory when `quad_smem`, else in
+// `pwork`. `gwork`: the meetings' counter (16 bytes), the stage partials
+// and the error shares ([n_blocks][2]).
+//
+// Bound on the H100. A stage costs one walk of a sample's augmented
+// right-hand side (about 31 samples a block at B = 4096) and one thread's
+// lane sums over the block's samples, with no wait for other blocks; an
+// attempt adds the two meetings (an atomic and a spin on L2) and the
+// block-order merges (n_blocks loads a value). The walk is a dependent
+// chain: a thread a sample for K15's generated plans (their vectors in
+// registers) and K7; a group of threads a sample for the MLP routes
+// (kGroup, csrc/adjoint_kernel.cu stage_group: each layer's outputs over
+// the group's threads, its vectors in shared memory), whose chain is then
+// a layer's longest sum and a block barrier a layer.
 // ---------------------------------------------------------------------------
 
 template <typename T, class Aug>
@@ -168,16 +242,22 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
                       const T* __restrict__ g, T* __restrict__ ay0_out,
                       T* __restrict__ aw_out, T* __restrict__ at_out,
                       T* __restrict__ aps_out, int* __restrict__ stats,
-                      T* __restrict__ work, T* __restrict__ pwork, Aug aug,
+                      T* __restrict__ work, T* __restrict__ pwork,
+                      unsigned char* __restrict__ gwork, Aug aug,
                       Tableau<T> tab_in, AdjScalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ typename Aug::Shared ash;
   __shared__ Tableau<T> tab;
+  __shared__ T kat[kMaxStages];   // a_t's stage values (every block's)
+  __shared__ T s_total;           // the merged error norm
+  __shared__ int s_bad;           // ... and non-finite flag
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
   const int n_warps = nth / kWarp;
+  const int nb = gridDim.x;
+  const int blk = blockIdx.x;
   typename Aug::Local lo;
   T* const free = aug.setup(ash, lo, smem_raw);
   if (tid == 0) tab = tab_in;
@@ -201,10 +281,22 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
     KW = DW + n_w;
     red = free;
   }
-  for (int i = tid; i < n_w; i += nth) AW[i] = T(0);
+  const int T_obs = sc.T_obs, B = sc.B, D = sc.D;
+  // The block's samples and parameters.
+  const int b_lo = int(long(blk) * B / nb);
+  const int b_hi = int(long(blk + 1) * B / nb);
+  const int n_own = b_hi - b_lo;
+  const int p_lo = int(long(blk) * n_w / nb);
+  const int p_hi = int(long(blk + 1) * n_w / nb);
+  unsigned long long* const meet =
+      reinterpret_cast<unsigned long long*>(gwork);
+  T* const PART = reinterpret_cast<T*>(gwork + 16);   // [S][nb][n_red]
+  T* const ERR = PART + long(S) * nb * n_red;          // [nb][2]
+  unsigned long long target = 0;
+
+  for (int p = p_lo + tid; p < p_hi; p += nth) AW[p] = T(0);
   __syncthreads();
 
-  const int T_obs = sc.T_obs, B = sc.B, D = sc.D;
   const long BD = long(B) * D;
   T* Y = work;              // y
   T* AY = Y + BD;           // a_y
@@ -226,7 +318,7 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
       : T(2.0 * double(D) * double(B) + double(n_w) + double(ti) +
           double(n_ps) * double(B));
 
-  for (int b = tid; b < B; b += nth) {
+  for (int b = b_lo + tid; b < b_hi; b += nth) {
     for (int d = 0; d < D; ++d) AY[long(b) * D + d] = T(0);
     for (int j = 0; j < n_ps; ++j) APS[long(j) * B + b] = T(0);
   }
@@ -236,7 +328,7 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
 
   for (int i = T_obs - 1; i >= 1; --i) {
     // Reset y to the stored forward state; inject the cotangent.
-    for (int b = tid; b < B; b += nth) {
+    for (int b = b_lo + tid; b < b_hi; b += nth) {
       for (int d = 0; d < D; ++d) {
         const long k = long(b) * D + d;
         Y[k] = ys[long(i) * BD + k];
@@ -256,33 +348,66 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
       const T dth = s1 - s;
 
       for (int st = 0; st < S; ++st) {
-        // ---- phase A: each owned sample's stage state and augmented
-        // right-hand side.
+        // ---- phase A: each of the block's samples' stage state and
+        // augmented right-hand side.
         const T t_user = (-sf) * (s + tab.c[st] * dth);
-        for (int b = tid; b < B; b += nth) {
-          const long base = long(b) * D;
-          T* ya = aug.ya(lo);
-          T* aya = aug.aya(lo);
-          for (int d = 0; d < D; ++d) {
-            T yv = Y[base + d], av = AY[base + d];
-            for (int j = 0; j < st; ++j) {
-              const T a = tab.a[st][j];
-              if (a != T(0)) {
-                yv = yv + (dth * a) * KY[j * BD + base + d];
-                av = av + (dth * a) * KAY[j * BD + base + d];
+        if constexpr (Aug::kGroup) {
+          // A group of gsz threads a sample (member m), `slots` samples a
+          // round: the stage state into the group's shared vectors, then
+          // the walk with the group's threads across each layer's outputs.
+          const int slots = aug.slots;
+          const int gsz = nth / slots, m = tid % gsz, slot = tid / gsz;
+          // y and a_y were last written a thread a sample (the reset, the
+          // accepted update), not by the group's members.
+          __syncthreads();
+          for (int r0 = b_lo; r0 < b_hi; r0 += slots) {
+            const int b = r0 + slot;
+            const bool on = b < b_hi;
+            const long base = long(b) * D;
+            T* ya = aug.group_ya(slot);
+            T* aya = aug.group_aya(slot);
+            for (int d = m; on && d < D; d += gsz) {
+              T yv = Y[base + d], av = AY[base + d];
+              for (int j = 0; j < st; ++j) {
+                const T a = tab.a[st][j];
+                if (a != T(0)) {
+                  yv = yv + (dth * a) * KY[j * BD + base + d];
+                  av = av + (dth * a) * KAY[j * BD + base + d];
+                }
               }
+              ya[d] = yv;
+              aya[d] = av;
             }
-            ya[d] = yv;
-            aya[d] = av;
+            __syncthreads();
+            aug.stage_group(ash, t_user, b, on, B, sf, m, gsz, slot,
+                            KY + st * BD + base, KAY + st * BD + base, RW);
           }
-          if constexpr (Aug::kBatch) {
-            aug.put(ash, lo, b, B, RW);
-          } else {
-            aug.stage(ash, lo, t_user, b, B, sf, KY + st * BD + base,
-                      KAY + st * BD + base, RW);
-            for (int j = 0; j < n_ps; ++j)
-              KPS[(long(st) * n_ps + j) * B + b] =
-                  sf * aug.sample_x(ash, j, RW, B, b);
+        } else {
+          for (int b = b_lo + tid; b < b_hi; b += nth) {
+            const long base = long(b) * D;
+            T* ya = aug.ya(lo);
+            T* aya = aug.aya(lo);
+            for (int d = 0; d < D; ++d) {
+              T yv = Y[base + d], av = AY[base + d];
+              for (int j = 0; j < st; ++j) {
+                const T a = tab.a[st][j];
+                if (a != T(0)) {
+                  yv = yv + (dth * a) * KY[j * BD + base + d];
+                  av = av + (dth * a) * KAY[j * BD + base + d];
+                }
+              }
+              ya[d] = yv;
+              aya[d] = av;
+            }
+            if constexpr (Aug::kBatch) {
+              aug.put(ash, lo, b, B, RW);
+            } else {
+              aug.stage(ash, lo, t_user, b, B, sf, KY + st * BD + base,
+                        KAY + st * BD + base, RW);
+              for (int j = 0; j < n_ps; ++j)
+                KPS[(long(st) * n_ps + j) * B + b] =
+                    sf * aug.sample_x(ash, j, RW, B, b);
+            }
           }
         }
         if constexpr (Aug::kBatch) {
@@ -296,20 +421,44 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
         }
         __syncthreads();
 
-        // ---- phase B: the stage's batch sums, one reduction per warp at a
-        // time: KW[st][r] = sign * sum_b x_r(b).
-        for (int r = warp; r < n_red; r += n_warps) {
-          const T acc = aug.quad_sum(ash, r, RW, B, lane);
-          if (lane == 0) KW[st * n_red + r] = sf * acc;
+        // ---- phase B: the block's partial of each of the stage's batch
+        // sums: a thread a reduction over at most 32 samples, else a warp.
+        T* const part = PART + (long(st) * nb + blk) * n_red;
+        if (n_own <= kWarp) {
+          for (int r = tid; r < n_red; r += nth)
+            part[r] = aug.quad(ash, r, RW, B, [&](const auto& x) {
+              return lane_sum_small<T>(x, b_lo, n_own);
+            });
+        } else {
+          for (int r = warp; r < n_red; r += n_warps) {
+            const T acc = aug.quad(ash, r, RW, B, [&](const auto& x) {
+              return lane_sum_warp<T>(x, b_lo, n_own, lane);
+            });
+            if (lane == 0) part[r] = acc;
+          }
         }
         __syncthreads();
       }
 
-      // ---- combine: increments, errors and finiteness of owned samples,
-      // then of owned shared quadratures (pallas_adjoint.py:578-621).
+      // ---- the grid meets: every stage's partials are in. Each block
+      // merges its parameters' stage values, KW[st][p] = sign * sum over
+      // the blocks in block order, and every block a_t's.
+      grid_sync(meet, target);
+      const long st_stride = long(nb) * n_red;
+      for (int p = p_lo + tid; p < p_hi; p += nth)
+        for (int st = 0; st < S; ++st)
+          KW[st * n_red + p] = sf * merge_blocks(PART + st * st_stride + p,
+                                                 long(n_red), nb);
+      if (ti && tid < S)
+        kat[tid] = sf * merge_blocks(PART + tid * st_stride + n_w,
+                                     long(n_red), nb);
+      __syncthreads();
+
+      // ---- combine: increments, errors and finiteness of the block's
+      // samples, then of its shared quadratures (pallas_adjoint.py:578-621).
       T ss = T(0);
       bool bad = false;
-      for (int b = tid; b < B; b += nth) {
+      for (int b = b_lo + tid; b < b_hi; b += nth) {
         const long base = long(b) * D;
         for (int pass = 0; pass < 2; ++pass) {
           const T* V = pass ? AY : Y;
@@ -354,7 +503,7 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
           DPS[long(j) * B + b] = dv;
         }
       }
-      for (int p = tid; p < n_w; p += nth) {
+      for (int p = p_lo + tid; p < p_hi; p += nth) {
         T dv = T(0), ev = T(0);
         bool first_d = true, first_e = true;
         for (int j = 0; j < S; ++j) {
@@ -379,12 +528,12 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
         }
         DW[p] = dv;
       }
-      // The a_t quadrature, the same in every thread.
+      // The a_t quadrature, the same in every thread of every block.
       T d_at = T(0), e_at = T(0);
       if (ti) {
         bool first_d = true, first_e = true;
         for (int j = 0; j < S; ++j) {
-          const T kj = KW[j * n_red + n_w];
+          const T kj = kat[j];
           if (tab.b_sol[j] != T(0)) {
             const T term = (dth * tab.b_sol[j]) * kj;
             d_at = first_d ? term : d_at + term;
@@ -399,9 +548,29 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
       }
       const T at1 = at + d_at;
 
-      // ---- the batch meets: one shared decision.
-      const bool any_bad = __syncthreads_or(bad);
-      T total = block_sum(ss, red);
+      // ---- the grid meets again: one shared decision. Each block's
+      // share of the error norm and its flag; then every block merges the
+      // shares in block order (thread 0, into shared memory).
+      const bool blk_bad = __syncthreads_or(bad);
+      const T blk_ss = block_sum(ss, red);
+      if (tid == 0) {
+        ERR[2 * blk] = blk_ss;
+        ERR[2 * blk + 1] = blk_bad ? T(1) : T(0);
+      }
+      grid_sync(meet, target);
+      if (tid == 0) {
+        T tot = __ldcg(ERR);
+        bool any = __ldcg(ERR + 1) != T(0);
+        for (int k = 1; k < nb; ++k) {
+          tot = tot + __ldcg(ERR + 2 * k);
+          any = any || __ldcg(ERR + 2 * k + 1) != T(0);
+        }
+        s_total = tot;
+        s_bad = any;
+      }
+      __syncthreads();
+      T total = s_total;
+      const bool any_bad = s_bad != 0;
       if (ti && !sc.seminorm) {
         const T scale = sc.atol + sc.rtol * d_max(d_abs(at), d_abs(at1));
         const T esc = e_at / scale;
@@ -417,7 +586,7 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
       if (accept) {
         // Kahan-compensated accumulation of y and a_y; the quadratures
         // add plainly (pallas_adjoint.py:627-645).
-        for (int b = tid; b < B; b += nth) {
+        for (int b = b_lo + tid; b < b_hi; b += nth) {
           const long base = long(b) * D;
           for (int d = 0; d < D; ++d) {
             const long k = base + d;
@@ -436,7 +605,7 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
             APS[long(j) * B + b] = APS[long(j) * B + b] +
                                    DPS[long(j) * B + b];
         }
-        for (int p = tid; p < n_w; p += nth) AW[p] = AW[p] + DW[p];
+        for (int p = p_lo + tid; p < p_hi; p += nth) AW[p] = AW[p] + DW[p];
         at = at1;
         s = s1;
       }
@@ -451,7 +620,7 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
     }
   }
 
-  for (int b = tid; b < B; b += nth) {
+  for (int b = b_lo + tid; b < b_hi; b += nth) {
     for (int d = 0; d < D; ++d) {
       const long k = long(b) * D + d;
       ay0_out[k] = AY[k] + g[k];
@@ -459,8 +628,8 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
     for (int j = 0; j < n_ps; ++j)
       aps_out[long(j) * B + b] = APS[long(j) * B + b];
   }
-  for (int p = tid; p < n_w; p += nth) aw_out[p] = AW[p];
-  if (tid == 0) {
+  for (int p = p_lo + tid; p < p_hi; p += nth) aw_out[p] = AW[p];
+  if (blk == 0 && tid == 0) {
     at_out[0] = at;
     stats[0] = nfe;
     stats[1] = nacc;
@@ -480,22 +649,64 @@ inline long rk_adjoint_quad_size(int n_w, int S, int ti) {
   return 2 * long(n_w) + long(S) * (n_w + ti);
 }
 
+// Bytes of K3's grid workspace: the meetings' counter, the stage partials
+// [S][n_blocks][n_w + ti] and the error shares [n_blocks][2].
+inline long rk_adjoint_grid_bytes(int S, int n_blocks, int n_red,
+                                  long item) {
+  return 16 + (long(S) * n_blocks * n_red + 2L * n_blocks) * item;
+}
+
+// K3's launch: n_blocks blocks of `threads`, all resident together (a
+// cooperative launch, which refuses a grid that cannot be), or an error;
+// never fewer blocks than asked. A coupled plan takes one block.
 template <typename T, class Aug>
 cudaError_t launch_rk_adjoint(const void* tau, const void* ys, const void* g,
                               void* ay0, void* aw, void* at, void* aps,
                               void* stats, void* work, void* pwork,
+                              void* gwork, long gwork_bytes, int n_blocks,
                               const Aug& aug, size_t smem, int threads,
                               const Tableau<T>& tab, const AdjScalars<T>& sc,
                               cudaStream_t stream) {
+  if (n_blocks < 1 || (Aug::kBatch && n_blocks != 1) || !gwork ||
+      gwork_bytes < rk_adjoint_grid_bytes(tab.S, n_blocks,
+                                          aug.n_w + aug.ti, sizeof(T)))
+    return cudaErrorInvalidValue;
   auto kernel = rk_adjoint_kernel<T, Aug>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<1, threads, smem, stream>>>(
-      static_cast<const T*>(tau), static_cast<const T*>(ys),
-      static_cast<const T*>(g), static_cast<T*>(ay0), static_cast<T*>(aw),
-      static_cast<T*>(at), static_cast<T*>(aps), static_cast<int*>(stats),
-      static_cast<T*>(work), static_cast<T*>(pwork), aug, tab, sc);
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return e;
+  if (long(per_sm) * n_sm < n_blocks)
+    return cudaErrorCooperativeLaunchTooLarge;
+  if ((e = cudaMemsetAsync(gwork, 0, 16, stream)) != cudaSuccess) return e;
+  const T* a_tau = static_cast<const T*>(tau);
+  const T* a_ys = static_cast<const T*>(ys);
+  const T* a_g = static_cast<const T*>(g);
+  T* a_ay0 = static_cast<T*>(ay0);
+  T* a_aw = static_cast<T*>(aw);
+  T* a_at = static_cast<T*>(at);
+  T* a_aps = static_cast<T*>(aps);
+  int* a_stats = static_cast<int*>(stats);
+  T* a_work = static_cast<T*>(work);
+  T* a_pwork = static_cast<T*>(pwork);
+  unsigned char* a_gwork = static_cast<unsigned char*>(gwork);
+  Aug a_aug = aug;
+  Tableau<T> a_tab = tab;
+  AdjScalars<T> a_sc = sc;
+  void* args[] = {&a_tau,  &a_ys,    &a_g,     &a_ay0,   &a_aw,
+                  &a_at,   &a_aps,   &a_stats, &a_work,  &a_pwork,
+                  &a_gwork, &a_aug,  &a_tab,   &a_sc};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                  dim3(n_blocks), dim3(threads), args, smem,
+                                  stream);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 

@@ -18,14 +18,18 @@
 // over as many blocks as the batch needs, with no barrier after the
 // prologue. All samples share one grid, so the output cursor is the same in
 // every thread. The grid and the output times sit in shared memory after
-// what the right-hand side keeps there; the sample's state, compensation,
-// derivatives and stages live in a device workspace laid out feature-major
-// ([row][B]: a warp's 32 threads touch 32 consecutive values).
+// what the right-hand side keeps there, or, where setup returns null (K4's
+// batch route, whose tiles take the block's shared memory), are read from
+// global memory, so that their length is not bounded by the tiles. The
+// sample's state, compensation, derivatives and stages live in a device
+// workspace laid out feature-major ([row][B]: a warp's 32 threads touch 32
+// consecutive values).
 //
 // The right-hand side `Rhs` (csrc/fixed_kernel.cu: the MLP routes;
 // csrc/plan_rhs.cuh: K14's generated plans) provides Shared and Local
 // state; setup(sh, lo, smem, row0, spb), which copies what it keeps in
-// shared memory (no barrier) and returns the free shared memory; and
+// shared memory (no barrier) and returns the free shared memory (or null:
+// the grid stays in global memory); and
 // either (kBatch false) in(lo) and eval(sh, lo, t, b, B), sample b's D
 // outputs from the D inputs written at in(lo), or (kBatch true) spb()
 // samples a block, put(sh, lo, b, t, get) and eval_batch(sh, lo, row0, spb),
@@ -93,11 +97,15 @@ __global__ void rk_fixed_kernel(const T* __restrict__ grid_g,
   const int spb = Rhs::kBatch ? rhs.spb() : blockDim.x;
   const int row0 = blockIdx.x * spb;
   typename Rhs::Local lo;
-  T* grid = rhs.setup(rsh, lo, smem_raw, row0, spb);   // [G]
-  T* tau = grid + sc.G;                   // [T_out]
+  T* rest = rhs.setup(rsh, lo, smem_raw, row0, spb);
   if (tid == 0) tab = tab_in;
-  for (int i = tid; i < sc.G; i += blockDim.x) grid[i] = grid_g[i];
-  for (int i = tid; i < sc.T_out; i += blockDim.x) tau[i] = tau_g[i];
+  if (rest) {
+    for (int i = tid; i < sc.G; i += blockDim.x) rest[i] = grid_g[i];
+    for (int i = tid; i < sc.T_out; i += blockDim.x)
+      rest[sc.G + i] = tau_g[i];
+  }
+  const T* grid = rest ? rest : grid_g;               // [G]
+  const T* tau = rest ? rest + sc.G : tau_g;          // [T_out]
   __syncthreads();
 
   const int G = sc.G, T_out = sc.T_out, B = sc.B, D = sc.D, S = tab.S;

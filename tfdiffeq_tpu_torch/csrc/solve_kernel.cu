@@ -101,6 +101,8 @@ struct MlpSolveRhs {
       T* ws = reinterpret_cast<T*>(smem);
       for (int i = tid; i < n_weights; i += nth) ws[i] = wg[i];
       red = ws + n_weights;
+    } else if constexpr (kRoute == kRouteBatch) {
+      red = reinterpret_cast<T*>(smem + batch_smem(bb));   // K4's tiles first
     } else {
       red = reinterpret_cast<T*>(smem);
     }
@@ -138,7 +140,8 @@ cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
                          int threads, const Net& net, const Tableau<T>& tab,
                          const Scalars<T>& sc, cudaStream_t stream) {
   const size_t smem =
-      sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + threads);
+      sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + threads) +
+      (kRoute == kRouteBatch ? batch_smem(bb) : 0);
   MlpSolveRhs<T, kRoute, kCnf> rhs;
   rhs.wg = static_cast<const T*>(weights);
   rhs.n_weights = n_w;
@@ -183,7 +186,9 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
     if (!batch_work ||
         batch_bytes < batch_work_bytes(net, n_w16, rows, sizeof(T)))
       return static_cast<int>(cudaErrorInvalidValue);
-    bb = batch_bufs<T>(batch_work, net, n_w16, rows);
+    bb = batch_bufs<T>(batch_work, net, n_w16, rows, threads / kWarpSize,
+                       rows);
+    if (bb.tile.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   } else if (!route_fits(net, route) || tiers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,15 +10,17 @@
 //
 // Design. K8's batch-route block: kTierNetThreads threads own kTierNetRows
 // samples, write their layer-0 inputs to the workspace, meet, and evaluate
-// the net layer by layer (batch_mlp_eval); the blocks are independent. The
-// weights are packed to bf16 by tier_pack_kernel first, a launch of its own,
-// as in the solves.
+// the net (batch_mlp_eval: in float32 one 16-row tile in shared memory
+// through every layer); the blocks are independent. The weights are packed
+// to bf16 by tier_pack_kernel first, a launch of its own, as in the solves;
+// `mode` runs both (0), the pack alone (1) or the evaluation alone on a
+// workspace already packed (2), so that each can be timed.
 #include "dot_tiers.cuh"
 
 namespace tfd {
 
 constexpr int kTierNetThreads = 256;
-constexpr int kTierNetRows = 64;
+constexpr int kTierNetRows = 16;
 
 template <typename T>
 __global__ void __launch_bounds__(kTierNetThreads)
@@ -46,8 +48,9 @@ int launch_tier_net(const void* x, const void* weights, void* out, int B,
                     int D, int n_layers, const int* dims, int act_hidden,
                     int act_final, int input_power, int time_input, double t,
                     const int* tiers, void* batch_work, long batch_bytes,
-                    void* stream) {
-  if (B < 1 || D < 1 || D + time_input > kMaxWidth || input_power < 1)
+                    int mode, void* stream) {
+  if (B < 1 || D < 1 || D + time_input > kMaxWidth || input_power < 1 ||
+      mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Net net;
   if (make_net(net, n_layers, dims, D, act_hidden, act_final, input_power,
@@ -59,14 +62,25 @@ int launch_tier_net(const void* x, const void* weights, void* out, int B,
   if (n_w16 < 0 || !batch_work ||
       batch_bytes < batch_work_bytes(net, n_w16, rows, sizeof(T)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BatchBufs<T> bb = batch_bufs<T>(batch_work, net, n_w16, rows);
+  const BatchBufs<T> bb = batch_bufs<T>(batch_work, net, n_w16, rows,
+                                        kTierNetThreads / kWarpSize,
+                                        kTierNetRows);
+  if (bb.tile.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  tier_pack_kernel<T><<<64, 256, 0, st>>>(
-      static_cast<const T*>(weights), net,
-      reinterpret_cast<__nv_bfloat16*>(batch_work));
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaSuccess;
+  if (mode != 2) {
+    tier_pack_kernel<T><<<64, 256, 0, st>>>(
+        static_cast<const T*>(weights), net,
+        reinterpret_cast<__nv_bfloat16*>(batch_work));
+    e = cudaGetLastError();
+    if (e != cudaSuccess || mode == 1) return static_cast<int>(e);
+  }
+  const size_t smem = batch_smem(bb);
+  auto kernel = tier_net_kernel<T>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  tier_net_kernel<T><<<int(rows / kTierNetRows), kTierNetThreads, 0, st>>>(
+  kernel<<<int(rows / kTierNetRows), kTierNetThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(weights),
       static_cast<T*>(out), bb, net, T(t), B, D);
   return static_cast<int>(cudaGetLastError());
@@ -79,10 +93,11 @@ int launch_tier_net(const void* x, const void* weights, void* out, int B,
                       int D, int n_layers, const int* dims, int act_hidden, \
                       int act_final, int input_power, int time_input,       \
                       double t, const int* tiers, void* batch_work,         \
-                      long batch_bytes, void* stream) {                     \
+                      long batch_bytes, int mode, void* stream) {           \
     return tfd::launch_tier_net<TYPE>(                                       \
         x, weights, out, B, D, n_layers, dims, act_hidden, act_final,       \
-        input_power, time_input, t, tiers, batch_work, batch_bytes, stream); \
+        input_power, time_input, t, tiers, batch_work, batch_bytes, mode,   \
+        stream);                                                             \
   }
 
 TFD_TIER_NET_ENTRY(tfd_tier_net_f32, float)

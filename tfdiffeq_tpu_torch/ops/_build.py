@@ -88,6 +88,7 @@ _ADJOINT_ARGS = ([_P] * 9                                   # tensors
                  + [_I, _I, _P, _P, _P, _P]                 # tableau
                  + [_I, _P, _L]                             # route, pwork
                  + [_I]                                     # rhs = cnf
+                 + [_P, _L, _I]                             # grid
                  + [_P])                                    # stream
 _SOLVE_FIXED_ARGS = ([_P] * 8                               # tensors
                      + [_I] * 5                             # G .. threads
@@ -128,6 +129,7 @@ _TIER_NET_ARGS = ([_P] * 3                                  # tensors
                   + [_I, _I]                                # B, D
                   + [_I, _P, _I, _I, _I, _I]                # network
                   + [_D, _P, _P, _L]                        # t, tiers, work
+                  + [_I]                                    # mode
                   + [_P])                                   # stream
 
 _SOLVE_ADAMS_ARGS = ([_P] * 8                               # tensors
@@ -169,7 +171,8 @@ _PLAN_ARGS = {
     # K15's hosts (csrc/plan_aug.cuh).
     "adjoint": ([_P] * 10 + [_I] * 4 + [_D] * 8 + [_I, _I]  # tau .. seminorm
                 + [_I, _I, _P, _P, _P, _P]                  # tableau
-                + _PLAN_CONSTS + [_I, _P]),                 # quad_smem
+                + _PLAN_CONSTS + [_I]                       # quad_smem
+                + [_P, _L, _I, _P]),                        # grid, stream
     "perlane_adjoint": ([_P] * 12 + [_I] * 4 + [_D] * 7 + [_I]
                         + [_I, _I, _P, _P, _P, _P]          # tableau
                         + _PLAN_CONSTS + [_P]),

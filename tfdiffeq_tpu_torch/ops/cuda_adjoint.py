@@ -12,11 +12,17 @@ forward and hand-written VJP in each stage, the parameter and a_t
 quadratures, the error norm and the shared controller.
 
 The wrapper takes the plain version (`mlp_adjoint_solve_plain`) only for
-tensors on the CPU; a CUDA tensor launches the kernel or raises. The plain
+tensors on the CPU; a CUDA tensor launches the kernel or raises. The kernel
+runs on a grid of `n_blocks` blocks, all resident together (`adjoint_blocks`
+chooses it: one per SM, fewer for a batch smaller than the card), each
+owning a contiguous range of the samples and of the parameters. The plain
 version mirrors the kernel attempt for attempt, with one host
 synchronisation per attempt, and takes every batch sum in the kernel's
-fixed order (`_lane_sums`, `cuda_kernels._owned_sums`, `_tree_sum`), so
-the two take the same steps in float64.
+fixed order for the same `n_blocks` (each block's lane sums over its own
+samples, `_block_lane_sums`; its threads' error terms, `_block_owned_sums`,
+and `_tree_sum`; the blocks' partials added in block order,
+`_merge_blocks`), so the two take the same steps in float64; n_blocks = 1
+is one block's order (`_lane_sums`).
 
 The kernel takes the routes of `cuda_kernels._route`: narrow (the weights,
 the parameter accumulator and the stage cotangents in shared memory) or wide
@@ -45,14 +51,14 @@ from .cuda_kernels import (ROUTE_WIDE, _ACT_CODES, _ACTIVATION_GRAD2,
                            _check_activations, _check_cnf, _check_float,
                            _check_mlp, _check_rhs,
                            _controller_factor, _device_kind, _dims_arg,
-                           _dot_in_order, _owned_sums, _ptr, _route,
+                           _dot_in_order, _ptr, _route,
                            _solve_setup, _stream, _tableau_args, _tree_sum,
                            _unpack)
 from .tableaus import TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
 
-#: Threads of K3's one block (at most csrc/adjoint_kernel.cu kAdjThreads).
+#: Threads of each K3 block (csrc/rk_adjoint.cuh kAdjThreads).
 ADJOINT_THREADS = 512
 #: Lanes of a batch sum: lane j adds samples j, j + 32, ... (one warp).
 LANES = 32
@@ -69,17 +75,68 @@ def reset_launch_counts() -> None:
 
 
 def _lane_sums(x: Tensor) -> Tensor:
-    """Sums of x [B, R] over the batch in K3's order: lane j adds rows
-    j, j + 32, j + 64, ... in turn from 0, then the 32 lane sums meet in
-    `_tree_sum`'s tree. Returns [R]."""
-    B, R = x.shape
-    K = -(-B // LANES)
-    x = torch.nn.functional.pad(x, (0, 0, 0, K * LANES - B)).view(
-        K, LANES, R)
-    acc = torch.zeros(LANES, R, dtype=x.dtype, device=x.device)
-    for k in range(K):
-        acc = acc + x[k]
-    return _tree_sum(acc.t())
+    """Sums of x [B, R] over the batch in one K3 block's order: lane j adds
+    rows j, j + 32, j + 64, ... in turn from 0, then the 32 lane sums meet
+    in `_tree_sum`'s tree. Returns [R]."""
+    return _block_lane_sums(x, _block_index(x.shape[0], 1, LANES,
+                                            x.device))[0]
+
+
+def _block_bounds(n: int, n_blocks: int) -> list:
+    """Ends of the kernel's ranges: block k owns items [e[k], e[k + 1]) with
+    e[k] = k n // n_blocks (samples and parameters alike)."""
+    return [k * n // n_blocks for k in range(n_blocks + 1)]
+
+
+def _block_index(n: int, n_blocks: int, width: int, device) -> Tensor:
+    """[n_blocks, K, width] item indices: slot j of round m of block k holds
+    item e[k] + j + width m, or n (a zero pad) past the block's range."""
+    e = _block_bounds(n, n_blocks)
+    K = -(-max(e[k + 1] - e[k] for k in range(n_blocks)) // width)
+    lo = torch.tensor(e[:-1]).view(-1, 1, 1)
+    hi = torch.tensor(e[1:]).view(-1, 1, 1)
+    idx = (lo + torch.arange(K).view(1, -1, 1) * width
+           + torch.arange(width).view(1, 1, -1))
+    return torch.where(idx < hi, idx, torch.full_like(idx, n)).to(device)
+
+
+def _gather(x: Tensor, idx: Tensor) -> Tensor:
+    """x [n, R] at idx, a zero row for the pad index n."""
+    return torch.cat([x, x.new_zeros(1, x.shape[1])])[idx]
+
+
+def _block_lane_sums(x: Tensor, idx: Tensor) -> Tensor:
+    """Each block's sums of x [B, R] over its samples in K3's lane order
+    (`_lane_sums` on its rows; idx from `_block_index(B, n_blocks,
+    LANES)`). Returns [n_blocks, R]."""
+    xp = _gather(x, idx)                         # [n_blocks, K, LANES, R]
+    acc = x.new_zeros(idx.shape[0], LANES, x.shape[1])
+    for k in range(idx.shape[1]):
+        acc = acc + xp[:, k]
+    return _tree_sum(acc.transpose(1, 2))
+
+
+def _block_owned_sums(sq: Tensor, idx: Tensor, acc: Tensor = None
+                      ) -> Tensor:
+    """`cuda_kernels._owned_sums` in every block: thread i of block k owns
+    items e[k] + i, e[k] + i + threads, ... (idx from `_block_index(n,
+    n_blocks, threads)`) and adds their values in order, from 0 or acc
+    [n_blocks, threads]. Returns [n_blocks, threads]."""
+    sp = _gather(sq, idx)                        # [n_blocks, K, threads, C]
+    if acc is None:
+        acc = sq.new_zeros(idx.shape[0], idx.shape[2])
+    for k in range(idx.shape[1]):
+        for d in range(sq.shape[1]):
+            acc = acc + sp[:, k, :, d]
+    return acc
+
+
+def _merge_blocks(parts: Tensor) -> Tensor:
+    """parts[0] + parts[1] + ... in block order (dim 0)."""
+    acc = parts[0]
+    for k in range(1, parts.shape[0]):
+        acc = acc + parts[k]
+    return acc
 
 
 def _dot_t_in_order(wT: Tensor, x: Tensor) -> Tensor:
@@ -286,10 +343,13 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                             seminorm: bool = False, method: str = "dopri5",
                             safety: float = 0.9, ifactor: float = 10.0,
                             dfactor: float = 0.2,
-                            max_steps: int = 2 ** 31 - 1, rhs: str = "mlp"
+                            max_steps: int = 2 ** 31 - 1, rhs: str = "mlp",
+                            n_blocks: int = None
                             ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain PyTorch version of K3: a host loop of attempts that mirrors
-    `csrc/adjoint_kernel.cu` line for line. Same contract as
+    `csrc/adjoint_kernel.cu` line for line, its sums in the order of a grid
+    of `n_blocks` blocks (None: the kernel's grid for ys' device,
+    `adjoint_blocks`; one block on the CPU). Same contract as
     `mlp_adjoint_solve`."""
     if _check_rhs(rhs):
         time_input = True
@@ -301,7 +361,7 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
         lambda t, y, ay: aug(t, y, ay) + (None,), warrays.shape[0],
         time_input, 0, ys, g, tau, dt0, rtol, atol, sign,
         seminorm=seminorm, method=method, safety=safety, ifactor=ifactor,
-        dfactor=dfactor, max_steps=max_steps)
+        dfactor=dfactor, max_steps=max_steps, n_blocks=n_blocks)
     return ay0, aw, at, stats
 
 
@@ -310,20 +370,31 @@ def adjoint_sweep_plain(aug, n_w: int, time_input: bool, n_ps: int,
                         sign, *, seminorm: bool = False,
                         method: str = "dopri5", safety: float = 0.9,
                         ifactor: float = 10.0, dfactor: float = 0.2,
-                        max_steps: int = 2 ** 31 - 1):
+                        max_steps: int = 2 ** 31 - 1, n_blocks: int = None):
     """K3's engine (csrc/rk_adjoint.cuh) in plain PyTorch, on a right-hand
     side `aug(t, y, a_y)` -> (f, v_y [B, D], xw [B, n_w]: each sample's
     cotangent term of every shared quadrature, v_t [B] or None, xs
     [B, n_ps] or None: the per-sample quadratures' terms). The shared
-    quadratures are summed over the batch a stage (`_lane_sums`); the
-    per-sample ones are integrated a sample each, and join the error norm
-    after the sample's (y, a_y) (unless `seminorm`).
+    quadratures are summed over the batch a stage in the order of a grid of
+    `n_blocks` blocks: each block's lane sums over its own samples
+    (`_block_lane_sums`), the partials then added in block order
+    (`_merge_blocks`); so is the error norm, each block's share its
+    samples' terms and then its parameters' (`_block_owned_sums`). The
+    per-sample quadratures are integrated a sample each, and join the error
+    norm after the sample's (y, a_y) (unless `seminorm`). n_blocks = 1 is
+    the one-block order (`_lane_sums`); None the kernel's grid for ys'
+    device (`adjoint_blocks`: one block on the CPU).
 
     Returns (ay0 [B, D], aw [n_w], at (0-d), aps [B, n_ps], stats)."""
     tab = TABLEAUS_BY_NAME[method]
     dev, dtype = ys.device, ys.dtype
     T, B, D = ys.shape
     S = tab.stages
+    _check_blocks(n_blocks)
+    n_blocks = n_blocks or adjoint_blocks(B, dev)
+    lanes_of = _block_index(B, n_blocks, LANES, dev)
+    samples_of = _block_index(B, n_blocks, ADJOINT_THREADS, dev)
+    params_of = _block_index(n_w, n_blocks, ADJOINT_THREADS, dev)
     tau_h, dt_min, dt0, _ = _solve_setup(tau, dt0, dtype)
     on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
     rtol, atol, sf = on(rtol), on(atol), on(sign)
@@ -364,9 +435,11 @@ def adjoint_sweep_plain(aug, n_w: int, time_input: bool, n_ps: int,
                 kay.append(sf * v_y)
                 if time_input:
                     xw = torch.cat([xw, v_t[:, None]], dim=1)
-                kw.append(sf * _lane_sums(xw))
+                kw.append(_block_lane_sums(xw, lanes_of))
                 if n_ps:
                     kps.append(sf * xs)
+            # The grid meets: each stage's partials added in block order.
+            kw = list(sf * _merge_blocks(torch.stack(kw, dim=1)))
             dy = _combine(dth, ky, tab.b_sol)
             day = _combine(dth, kay, tab.b_sol)
             y1, ay1 = y + dy, ay + day
@@ -380,14 +453,15 @@ def adjoint_sweep_plain(aug, n_w: int, time_input: bool, n_ps: int,
                 if not seminorm:
                     sq.append(_sq_scaled(_combine(dth, kps, tab.b_err), aps,
                                          aps + dps, rtol, atol))
-            ss = _owned_sums(torch.cat(sq, dim=1), ADJOINT_THREADS)
+            ss = _block_owned_sums(torch.cat(sq, dim=1), samples_of)
             dw = _combine(dth, [k[:n_w] for k in kw], tab.b_sol)
             if not seminorm:
                 ew = _combine(dth, [k[:n_w] for k in kw], tab.b_err)
-                ss = _owned_sums(_sq_scaled(ew, aw, aw + dw, rtol,
-                                            atol)[:, None],
-                                 ADJOINT_THREADS, ss)
-            total = _tree_sum(ss)
+                ss = _block_owned_sums(_sq_scaled(ew, aw, aw + dw, rtol,
+                                                  atol)[:, None],
+                                       params_of, ss)
+            # The grid meets again: the blocks' shares in block order.
+            total = _merge_blocks(_tree_sum(ss))
             d_at = zero
             if time_input:
                 d_at = _combine(dth, [k[n_w] for k in kw], tab.b_sol)
@@ -449,18 +523,48 @@ def _work_size(dims, S: int, B: int, D: int, cnf: bool = False) -> int:
     return (6 + 2 * S) * B * D + rows * B
 
 
-def _shared_values(dims, S: int, time_input: bool) -> int:
+def _shared_values(dims, S: int, time_input: bool, group: bool = True
+                   ) -> int:
     """Shared memory K3's narrow route needs, in values: the weights, the
-    parameter accumulator and its increment, every stage's cotangents and
-    the block-sum scratch."""
+    parameter accumulator and its increment, every stage's cotangents, the
+    block-sum scratch and, for the MLP walk (`group`; not K7's CNF walk),
+    one slot's four vectors (csrc/adjoint_kernel.cu stage_group: the
+    kernel adds as many slots as the rest of MAX_WEIGHT_BYTES holds)."""
     n_w = sum(din * dout + dout for din, dout in dims)
-    return (3 + S) * n_w + S * int(time_input) + ADJOINT_THREADS
+    width = max(w for dd in dims for w in dd)
+    return ((3 + S) * n_w + 4 * width * int(group) + S * int(time_input)
+            + ADJOINT_THREADS)
 
 
 def _wide_work_size(n_w: int, S: int, time_input: bool) -> int:
     """csrc/adjoint_kernel.cu adjoint_pwork_size: the wide route's parameter
     accumulator, its increment and the stage cotangents."""
     return 2 * n_w + S * (n_w + int(time_input))
+
+
+def adjoint_blocks(B: int, device) -> int:
+    """K3's grid on `device`'s card: one block per SM, or one a sample when
+    the batch has fewer samples than the card has SMs (on the CPU the
+    plain version's default, one block)."""
+    if torch.device(device).type != "cuda":
+        return 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(B, sms))
+
+
+def _grid_work(S: int, n_blocks: int, n_red: int, dtype, device) -> Tensor:
+    """K3's grid workspace (csrc/rk_adjoint.cuh rk_adjoint_grid_bytes): the
+    meetings' counter, the stage partials and the error shares."""
+    item = torch.empty((), dtype=dtype).element_size()
+    n = 16 + (S * n_blocks * n_red + 2 * n_blocks) * item
+    return torch.empty(n, dtype=torch.uint8, device=device)
+
+
+def _check_blocks(n_blocks) -> None:
+    if n_blocks is not None and (not isinstance(n_blocks, int)
+                                 or n_blocks < 1):
+        raise ValueError(f"n_blocks must be a positive int, got "
+                         f"{n_blocks!r}")
 
 
 def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
@@ -471,7 +575,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                       seminorm: bool = False, method: str = "dopri5",
                       safety: float = 0.9, ifactor: float = 10.0,
                       dfactor: float = 0.2, max_steps: int = 2 ** 31 - 1,
-                      rhs: str = "mlp"
+                      rhs: str = "mlp", n_blocks: int = None
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Fused adjoint backward sweep of an MLP neural ODE, one launch.
 
@@ -495,6 +599,11 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     outputs); time_input is forced on (the a_t quadrature applies), and
     final_activation and input_power do not apply. The error norm counts
     2 (D + 1) B + n_w + 1 values, 2 (D + 1) B with the seminorm.
+
+    n_blocks: the kernel's grid (None: `adjoint_blocks(B, device)`); every
+    block is resident at once, or the launch raises. The sums' order, and
+    so the float32 bits, depend on it; the plain version takes the same
+    default (on the CPU, one block).
     """
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
@@ -512,9 +621,10 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
               seminorm=seminorm, method=method, safety=safety,
               ifactor=ifactor, dfactor=dfactor, max_steps=max_steps,
               rhs=rhs)
+    _check_blocks(n_blocks)
     if _device_kind(ys, g, warrays) == "cpu":
         return mlp_adjoint_solve_plain(warrays, dims, ys, g, tau, dt0, rtol,
-                                       atol, sign, **kw)
+                                       atol, sign, n_blocks=n_blocks, **kw)
 
     global mlp_adjoint_solve_launches, cnf_adjoint_launches
     dtype = ys.dtype
@@ -526,7 +636,8 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                      time_input)
     S = TABLEAUS_BY_NAME[method].stages
     route = _route("mlp_adjoint_solve", dims,
-                   _shared_values(dims, S, time_input), ys.element_size())
+                   _shared_values(dims, S, time_input, group=not cnf),
+                   ys.element_size())
     if max_steps < 1:
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
     for name, x in (("ys", ys), ("g", g), ("warrays", warrays)):
@@ -546,6 +657,8 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     n_pwork = (_wide_work_size(n_w, S, time_input) if route == ROUTE_WIDE
                else 0)
     pwork = torch.empty(n_pwork, dtype=dtype, device=ys.device)
+    nb = n_blocks or adjoint_blocks(B, ys.device)
+    gwork = _grid_work(S, nb, n_w + int(time_input), dtype, ys.device)
     lib = _build.library()
     fn = (lib.tfd_mlp_adjoint_f32 if dtype == torch.float32
           else lib.tfd_mlp_adjoint_f64)
@@ -559,7 +672,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                  _ACT_CODES[activation], _ACT_CODES[final_activation],
                  int(input_power), int(time_input), S, tab.order, c, a,
                  b_sol, b_err, route, _ptr(pwork), n_pwork, int(cnf),
-                 _stream(ys.device))
+                 _ptr(gwork), gwork.numel(), nb, _stream(ys.device))
     _build.check(err, "mlp_adjoint_solve launch")
     mlp_adjoint_solve_launches += 1
     cnf_adjoint_launches += cnf

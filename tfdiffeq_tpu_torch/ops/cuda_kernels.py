@@ -253,8 +253,10 @@ def _route(name: str, dims, net_values: int, itemsize: int, tiers=None,
     the narrow route's shared memory for the network (`net_values` values
     of `itemsize` bytes: weights and fixed scratch) fits MAX_WEIGHT_BYTES,
     else wide. `input_values` (grid points, output times) sit in shared
-    memory beside them on every route; raise when they do not fit there,
-    so that an input's length never changes the route."""
+    memory beside them on the narrow and wide routes; raise when they do
+    not fit there, so that an input's length never changes the route. The
+    batch route keeps them in global memory: K4's tiles take the shared
+    memory there (at most 214016 bytes, at MAX_WIDTH)."""
     if tiers is not None and any(t != "highest" for t in tiers):
         route = ROUTE_BATCH
     elif (max(w for dd in dims for w in dd) <= NARROW_WIDTH
@@ -262,8 +264,8 @@ def _route(name: str, dims, net_values: int, itemsize: int, tiers=None,
         route = ROUTE_NARROW
     else:
         route = ROUTE_WIDE
-    smem = (input_values + (net_values if route == ROUTE_NARROW else 0)) \
-        * itemsize
+    smem = 0 if route == ROUTE_BATCH else itemsize * (
+        input_values + (net_values if route == ROUTE_NARROW else 0))
     if smem > MAX_WEIGHT_BYTES:
         raise ValueError(f"{name}: {input_values} grid points and output "
                          f"times need {smem} bytes of shared memory on its "
@@ -692,7 +694,7 @@ def _cnf_net_plain(packed: Tensor, dims, activation: str):
 
 #: Samples (rows) and threads of a tier_net block (csrc/tier_net_kernel.cu
 #: kTierNetRows, kTierNetThreads: K8's batch-route block).
-TIER_NET_ROWS = 64
+TIER_NET_ROWS = 16
 
 
 def tier_net(warrays: Tensor, dims, x: Tensor, t=0.0, *, tiers,
@@ -714,17 +716,36 @@ def tier_net(warrays: Tensor, dims, x: Tensor, t=0.0, *, tiers,
         return _net_plain(warrays, dims, activation, final_activation,
                           input_power, time_input, tiers)(t, x)
     global tier_net_launches
+    out = torch.empty_like(x)
+    work = tier_net_work(dims, x)
+    tier_net_parts(warrays, dims, x, t, out, work, tiers=tiers,
+                   activation=activation, final_activation=final_activation,
+                   input_power=input_power, time_input=time_input, mode=0)
+    tier_net_launches += 1
+    return out
+
+
+def tier_net_work(dims, x: Tensor) -> Tensor:
+    """The workspace of `tier_net_parts` for x [B, D] (bytes)."""
+    rows = -(-x.shape[0] // TIER_NET_ROWS) * TIER_NET_ROWS
+    return torch.empty(_tier_work_bytes(dims, rows, x.element_size()),
+                       dtype=torch.uint8, device=x.device)
+
+
+def tier_net_parts(warrays: Tensor, dims, x: Tensor, t, out: Tensor,
+                   work: Tensor, *, tiers, activation: str = "tanh",
+                   final_activation: str = "identity", input_power: int = 1,
+                   time_input: bool = False, mode: int = 0) -> None:
+    """K4's launches on the card, for `tier_net` and for timing its parts:
+    mode 0 packs the bf16 weights into `work` and evaluates into `out`, 1
+    only packs, 2 only evaluates (on a `work` packed before)."""
     dtype = x.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"tier_net takes float32 or float64, got {dtype}")
     B, D = x.shape
     _check_mlp("tier_net", warrays, dims, D, time_input, tiers)
-    for name, v in (("x", x), ("warrays", warrays)):
+    for name, v in (("x", x), ("warrays", warrays), ("out", out)):
         _check_float(name, v, dtype)
-    out = torch.empty_like(x)
-    rows = -(-B // TIER_NET_ROWS) * TIER_NET_ROWS
-    n_work = _tier_work_bytes(dims, rows, x.element_size())
-    work = torch.empty(n_work, dtype=torch.uint8, device=x.device)
     fn = (_build.library().tfd_tier_net_f32 if dtype == torch.float32
           else _build.library().tfd_tier_net_f64)
     with torch.cuda.device(x.device):
@@ -732,10 +753,8 @@ def tier_net(warrays: Tensor, dims, x: Tensor, t=0.0, *, tiers,
                  _dims_arg(dims), _ACT_CODES[activation],
                  _ACT_CODES[final_activation], int(input_power),
                  int(time_input), float(t), _tiers_arg(tiers), _ptr(work),
-                 n_work, _stream(x.device))
+                 work.numel(), int(mode), _stream(x.device))
     _build.check(err, "tier_net launch")
-    tier_net_launches += 1
-    return out
 
 
 def _solve_setup(tau: Tensor, dt0, dtype):

@@ -84,7 +84,8 @@ from . import _build, plan_codegen
 from .cuda_adams import (ADAMS_EXPLICIT_THREADS, ADAMS_THREADS,
                          VCABM_THREADS, _adams_nfe, adams_solve_plain,
                          vcabm_solve_plain)
-from .cuda_adjoint import ADJOINT_THREADS, adjoint_sweep_plain
+from .cuda_adjoint import (ADJOINT_THREADS, _check_blocks, _grid_work,
+                           adjoint_blocks, adjoint_sweep_plain)
 from .cuda_fixed import (FIXED_THREADS, fixed_adjoint_plain,
                          fixed_solve_plain, hermite_drain_plain)
 from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS,
@@ -719,23 +720,34 @@ def plan_adjoint_solve_plain(plan: FusedPlan, packed: Sequence[Tensor],
                              safety: float = 0.9, ifactor: float = 10.0,
                              dfactor: float = 0.2,
                              max_steps: int = 2 ** 31 - 1,
-                             seminorm: bool = False):
+                             seminorm: bool = False, n_blocks: int = None):
     """Plain PyTorch version of `plan_adjoint_solve`, on ys' device: K3's
-    engine (`cuda_adjoint.adjoint_sweep_plain`) with `aug_terms`."""
+    engine (`cuda_adjoint.adjoint_sweep_plain`) with `aug_terms`, its sums
+    in the order of a grid of `n_blocks` blocks (None: the kernel's grid,
+    `plan_adjoint_blocks`)."""
     packed = _adjoint_inputs(plan, packed, ys, g, "plan_adjoint_solve")
     n_flat, ti, n_rows = _quad_counts(plan)
     ay0, aw, at, aps, stats = adjoint_sweep_plain(
         plan_aug(plan, packed), n_flat, ti, n_rows, ys, g, tau, dt0, rtol,
         atol, sign, seminorm=seminorm, method=method, safety=safety,
-        ifactor=ifactor, dfactor=dfactor, max_steps=max_steps)
+        ifactor=ifactor, dfactor=dfactor, max_steps=max_steps,
+        n_blocks=n_blocks or plan_adjoint_blocks(plan, ys.shape[1],
+                                                 ys.device))
     return ay0, split_consts(plan, packed, aw, aps.t()), at, stats
+
+
+def plan_adjoint_blocks(plan: FusedPlan, B: int, device) -> int:
+    """K3's grid for a plan's sweep: `cuda_adjoint.adjoint_blocks`, or one
+    block for a coupled plan (its walk meets the block inside a stage)."""
+    return 1 if plan.batch_coupled else adjoint_blocks(B, device)
 
 
 def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
                        ys: Tensor, g: Tensor, tau: Tensor, dt0, rtol, atol,
                        sign, *, method: str = "dopri5", safety: float = 0.9,
                        ifactor: float = 10.0, dfactor: float = 0.2,
-                       max_steps: int = 2 ** 31 - 1, seminorm: bool = False):
+                       max_steps: int = 2 ** 31 - 1, seminorm: bool = False,
+                       n_blocks: int = None):
     """Fused adjoint backward sweep of a plan's dynamics, one K3 launch with
     K15 as its augmented right-hand side (reference `plan_adjoint.py:529`).
 
@@ -747,7 +759,11 @@ def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
 
     Returns (ay0 [B, D] = dL/dy0, dconsts: one cotangent a packed constant
     in its shape, at (0-d, the integrated a_t quadrature; 0 when the plan
-    does not read t), stats [4] int32: nfe, accepted, rejected, status)."""
+    does not read t), stats [4] int32: nfe, accepted, rejected, status).
+
+    n_blocks: K3's grid (None: `cuda_adjoint.adjoint_blocks`), as in
+    `mlp_adjoint_solve`; a coupled plan (the block meets inside a stage)
+    runs on one block, and refuses another count."""
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
                          f"{sorted(TABLEAUS_BY_NAME)}")
@@ -755,9 +771,13 @@ def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
     kw = dict(method=method, safety=safety, ifactor=ifactor,
               dfactor=dfactor, max_steps=max_steps, seminorm=seminorm)
+    _check_blocks(n_blocks)
+    if (n_blocks or 1) != 1 and plan.batch_coupled:
+        raise ValueError("a coupled plan's sweep runs on one block, got "
+                         f"n_blocks={n_blocks}")
     if _device_kind(ys, g) == "cpu":
         return plan_adjoint_solve_plain(plan, packed, ys, g, tau, dt0, rtol,
-                                        atol, sign, **kw)
+                                        atol, sign, n_blocks=n_blocks, **kw)
 
     global plan_adjoint_launches
     packed = _adjoint_inputs(plan, packed, ys, g, "plan_adjoint_solve")
@@ -793,6 +813,8 @@ def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
         n_work += 4 * B * D + lay.live_rows * B + lay.red_values
     work = torch.empty(max(1, n_work), dtype=dtype, device=dev)
     pwork = torch.empty(1 if quad_smem else n_quad, dtype=dtype, device=dev)
+    nb = n_blocks or plan_adjoint_blocks(plan, B, dev)
+    gwork = _grid_work(S, nb, lay.n_quad + lay.time_input, dtype, dev)
     ys_c, g_c = ys.contiguous(), g.contiguous()
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
@@ -802,7 +824,8 @@ def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
             float(dt_min), float(sign), float(safety), float(ifactor),
             float(dfactor), int(min(max_steps, 2 ** 31 - 1)), int(seminorm),
             S, tab.order, c, a, b_sol, b_err, _ptr(consts), lay.n_quad,
-            _ptr(sample_consts), int(smem), int(quad_smem), _stream(dev))
+            _ptr(sample_consts), int(smem), int(quad_smem), _ptr(gwork),
+            gwork.numel(), nb, _stream(dev))
     _check(lib, err, "plan_adjoint_solve launch")
     plan_adjoint_launches += 1
     return (ay0, split_consts(plan, packed, aw[:lay.n_quad],
