@@ -115,7 +115,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     rejected counts within one and trajectories within 5e-5, and more than
     5e-5 from the plain 'highest' (a control); each tier timed with its
     NFE. 'highest' forced onto the batch route: bitwise the wide route's
-    solve, and timed against it.
+    solve on the same grid (one block a 16-row tile on both routes, so
+    each block owns the same samples and the error sums keep their order),
+    and timed against the wide route at its own grid.
 19. K8 at rk4 x 128 steps over [0, 2] on the same net, 'highest', 'bf16'
     and 'mixed': 'highest' bitwise, float32 'mixed' within 1e-5 of its
     plain version and 'bf16' within 2e-3 (SOLVE_BARS: it rounds every layer
@@ -344,7 +346,11 @@ autograd's exact trace (`generic_engine_ms`, the density solve;
 `generic_train_step_ms`, a training step, beside the fused step's
 `train_step_ms`). The MLP kernels' records also carry their wide-route time (`wide_ms`,
 phases 18-20), and K2's and K8's records their 'highest' time on the batch
-route (`wide_batch_route_ms`). The run's total time is printed before them. The last line
+route (`wide_batch_route_ms`). The grid kernels' records (K2 `mlp_solve`, K3
+`mlp_adjoint_solve`, K11 `vcabm_solve`, K14 `plan_rhs`) carry `n_blocks`,
+their grid at the bench batch; every phase that holds a K2, K3 or K11
+launch to its plain version hands it the wrapper's grid (`_grid_kw`) and
+prints it. The run's total time is printed before them. The last line
 is {"ok": true, "device": {...}}.
 """
 
@@ -609,18 +615,31 @@ def _same(a, b, nan_ok=None) -> bool:
 
 
 def _grid_kw(plain, args, kw) -> dict:
-    """kw with K3's grid for its plain version: the n_blocks that the
-    kernel's wrapper chose for these inputs (`cuda_adjoint.adjoint_blocks`,
-    one block for a coupled plan), when `plain` is one of K3's; else kw."""
-    from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, cuda_plan as cpl
-    if "n_blocks" in kw or plain not in (ca.mlp_adjoint_solve_plain,
-                                         cpl.plan_adjoint_solve_plain):
+    """kw with the kernel's grid for the plain version of K2, K3 or K11:
+    the n_blocks that the kernel's wrapper chose for these inputs
+    (`cuda_kernels.solve_blocks`: one block per SM, one a 16-row tile on
+    K2's batch route; one block for a coupled plan), printed; else kw."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, \
+        cuda_adjoint as ca, cuda_kernels as ck, cuda_plan as cpl
+    grids = {ca.mlp_adjoint_solve_plain: "K3", cpl.plan_adjoint_solve_plain:
+             "K3", ck.mlp_solve_plain: "K2", cpl.plan_solve_plain: "K2",
+             cad.mlp_solve_vcabm_plain: "K11",
+             cpl.plan_solve_vcabm_plain: "K11"}
+    if "n_blocks" in kw or plain not in grids or kw.get("per_sample"):
         return kw
-    ys = args[2]
-    nb = (ca.adjoint_blocks(ys.shape[1], ys.device)
-          if plain is ca.mlp_adjoint_solve_plain
-          else cpl.plan_adjoint_blocks(args[0], ys.shape[1], ys.device))
-    print(f"K3 grid: n_blocks = {nb} (B = {ys.shape[1]})", flush=True)
+    if grids[plain] == "K3":
+        B, dev = args[2].shape[1], args[2].device
+    else:
+        B, dev = args[2].shape[0], args[2].device
+    if plain in (cpl.plan_adjoint_solve_plain, cpl.plan_solve_plain,
+                 cpl.plan_solve_vcabm_plain):
+        nb = cpl.plan_blocks(args[0], B, dev)
+    elif plain is ck.mlp_solve_plain:
+        nb = ck.solve_blocks(B, dev, ck._solve_unit(args[1], args[2],
+                                                    kw.get("tiers")))
+    else:
+        nb = ck.solve_blocks(B, dev)
+    print(f"{grids[plain]} grid: n_blocks = {nb} (B = {B})", flush=True)
     return {**kw, "n_blocks": nb}
 
 
@@ -743,8 +762,9 @@ def _wide_tier(smi: str, dev) -> dict:
         args = (warr, pd, y, t8[dtype], 0.01, tol, tol, 1.0)
         kw = dict(f0=fast.mlp_apply(spec, W, y), tiers=tiers)
         out, st = ck.mlp_solve(*args, **kw)
+        pkw = _grid_kw(ck.mlp_solve_plain, args, kw)
         (ref, st_ref), plain_ms = _host_call(
-            lambda: ck.mlp_solve_plain(*args, **kw))
+            lambda: ck.mlp_solve_plain(*args, **pkw))
         err = float((out - ref).abs().max())
         same = bool(torch.equal(out, ref) and torch.equal(st, st_ref))
         print(f"[18] K2 wide {tier} {dtype}: kernel stats {st.tolist()}, "
@@ -779,11 +799,15 @@ def _wide_tier(smi: str, dev) -> dict:
               f"evaluation); bound "
               f"{bound(WIDE_B * st[0], 9 * WIDE_B * WIDE_D, tier)}",
               flush=True)
-    # 'highest' on the batch route: bitwise the same solve, and its time
-    # against the wide route's.
-    args, kw, st, _, out = k2[("highest", f32)]
+    # 'highest' on the batch route: bitwise the wide route's solve on the
+    # same grid (one block a 16-row tile on both: the same samples a block,
+    # so the same error sums), and its time against the wide route's.
+    args, kw, st, _, _ = k2[("highest", f32)]
+    nb = ck.solve_blocks(WIDE_B, dev, ck.TILE_ROWS)
+    out, st = ck.mlp_solve(*args, n_blocks=nb, **kw)
+    st = st.tolist()
     with _batch_route():
-        got, st_b = ck.mlp_solve(*args, **kw)
+        got, st_b = ck.mlp_solve(*args, n_blocks=nb, **kw)
         ms = _timed(lambda: ck.mlp_solve(*args, **kw), reps=3)
     print(f"[18] {smi}: K2 wide highest on the batch route {ms:.3f} ms/solve"
           f" ({ms / st[0]:.4f} ms an evaluation) against the wide route's "
@@ -2592,7 +2616,7 @@ def _aug_tier(smi: str, dev) -> dict:
     print(f"[33] {smi}: K15 in K3 {rec['ms']['K3']:.3f} ms a sweep against "
           f"its bound {rec['bound']['K3'][0]:.5f} ms "
           f"({rec['bound']['K3'][1]}; n_blocks "
-          f"{ca.adjoint_blocks(B, dev)})", flush=True)
+          f"{ck.solve_blocks(B, dev)})", flush=True)
     rec["bound"]["K6"] = _bound(rec["k6_nfe"] * af,
                                 4 * (2 * STIFF_T * B * D + B * D + 2 * nc
                                      + 2 * B + STIFF_T))
@@ -3030,7 +3054,9 @@ def main() -> int:
         k2_args[dtype] = (args, kw)
         out, st = ck.mlp_solve(*args, **kw)
         again, st2 = ck.mlp_solve(*args, **kw)
-        ref, st_ref = ck.mlp_solve_plain(*args, **kw)
+        ref, st_ref = ck.mlp_solve_plain(*args,
+                                         **_grid_kw(ck.mlp_solve_plain, args,
+                                                    kw))
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         bitwise = bool(torch.equal(out, again) and torch.equal(st, st2))
@@ -3917,14 +3943,16 @@ def main() -> int:
          "launches": launches["mlp_solve"],
          "max_abs_err": k2_err[f32], "ms": solve_ms,
          "plain_ms": solve_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "n_blocks": ck.solve_blocks(B, dev)},
         {"name": "mlp_adjoint_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/adjoint_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_adjoint.py:430",
          "launches": train_launches["mlp_adjoint_solve"],
          "max_abs_err": k3_err[f32], "ms": adj_ms,
          "plain_ms": adj_plain_ms, "bound_ms": k3_bound[0],
-         "bound_by": k3_bound[1], "library_ms": None},
+         "bound_by": k3_bound[1], "library_ms": None,
+         "n_blocks": ck.solve_blocks(B, dev)},
         {"name": "fixed_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/fixed_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_fixed.py:102",
@@ -4012,7 +4040,8 @@ def main() -> int:
          "bound_ms": adams["vcabm_bound"][0],
          "bound_by": adams["vcabm_bound"][1], "library_ms": None,
          "generic_engine_ms": adams["vcabm_generic_ms"],
-         "train_step_ms": adams["train_ms"]},
+         "train_step_ms": adams["train_ms"],
+         "n_blocks": ck.solve_blocks(B, dev)},
         {"name": "plan_rhs", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/plan_rhs.cuh",
          "generated_by": "tfdiffeq_tpu_torch/ops/plan_codegen.py",
@@ -4027,6 +4056,7 @@ def main() -> int:
          "bound_ms": k14_bound["K2"][0], "bound_by": k14_bound["K2"][1],
          "bound_ms_by_host": {h: b[0] for h, b in k14_bound.items()},
          "library_ms": None, "build_s": plan["build_s"],
+         "n_blocks": ck.solve_blocks(B, dev),
          "mlp_route_ms": plan["mlp_route_ms"],
          "coupled_k2": plan["coupled"],
          "cnf_sample_auto_ms": plan["flow_ms"],

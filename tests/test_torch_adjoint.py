@@ -189,7 +189,7 @@ def test_block_partials_are_the_lane_sums_of_their_ranges(n_blocks):
     partials in block order."""
     B = 40
     x = torch.tensor(np.random.RandomState(n_blocks).randn(B, 4))
-    e = PA._block_bounds(B, n_blocks)
+    e = PK._block_bounds(B, n_blocks)
     assert e[0] == 0 and e[-1] == B and len(set(np.diff(e))) > 1
     parts = PA._block_lane_sums(x, PA._block_index(B, n_blocks, PA.LANES,
                                                    "cpu"))

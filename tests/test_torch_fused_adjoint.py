@@ -422,7 +422,7 @@ def test_coupled_plan_sweep_takes_one_block():
     one block and refuses a wider grid."""
     from test_torch_plan_adjoint import _sweep_inputs
     plan, packed, ys, g, tau = _sweep_inputs("meanfield")
-    assert plan.batch_coupled and CP.plan_adjoint_blocks(plan, 8, "cpu") == 1
+    assert plan.batch_coupled and CP.plan_blocks(plan, 8, "cpu") == 1
     with pytest.raises(ValueError, match="one block"):
         CP.plan_adjoint_solve(plan, packed, torch.tensor(ys),
                               torch.tensor(g), torch.tensor(tau), 0.05, 1e-7,

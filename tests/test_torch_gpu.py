@@ -53,7 +53,10 @@ True} launches one whole-solve kernel and never falls back. K3 on a grid
 of n_blocks blocks (1, 2, 132; the wrapper's default one per SM) is
 bitwise equal to its plain version at the same n_blocks in both types on
 the narrow, wide, CNF and plan routes; a grid the card cannot hold at once
-raises. K4's shared-memory tiles at widths 256 and 512: one evaluation
+raises. So are K2 (narrow, wide, CNF, plan) and K11 (narrow, wide, plan)
+on grids of 1, 7 and the card's blocks, and K2's batch route (a block a
+16-row tile) in float64; its float32 tiers sum on the tensor cores, so
+they are held to the bars above at the same grid. K4's shared-memory tiles at widths 256 and 512: one evaluation
 within EVAL_BARS, float64 bitwise; K8 on them within chip_smoke.py's
 SOLVE_BARS for the wide rk4 x 128 (its 'bf16' mean gap grows with the
 width, so the tier is told apart per evaluation there).
@@ -1233,10 +1236,12 @@ def test_plan_hosts_match_plain(cuda, dtype, name):
     args = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
     got = cpl.plan_solve(*args)
     assert _same(got, cpl.plan_solve(*args))
+    # The wrapper's grid: one block per SM, one block for a coupled plan.
     ref = ck.adaptive_solve_plain(
         g, y0, f0, t, 0.01, 1e-6, 1e-6, ck.TABLEAUS_BY_NAME["dopri5"],
         safety=0.9, ifactor=10.0, dfactor=0.2, max_steps=2 ** 31 - 1,
-        threads=ck.SOLVE_THREADS)
+        threads=ck.SOLVE_THREADS,
+        n_blocks=cpl.plan_blocks(plan, y0.shape[0], cuda))
     assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
     assert got[1][3].item() == 0
     if plan.batch_coupled:
@@ -1656,8 +1661,8 @@ def test_adjoint_default_grid_is_the_cards(cuda, route):
     grid; the spiral's batch of 4096 takes every SM."""
     fn, plain, args, kw = _k3_grid_case(route, torch.float64, cuda)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert ca.adjoint_blocks(4096, cuda) == sms > 1
-    assert ca.adjoint_blocks(3, cuda) == 3
+    assert ck.solve_blocks(4096, cuda) == sms > 1
+    assert ck.solve_blocks(3, cuda) == 3
     got = fn(*args, **kw)
     ref = plain(*args, **kw)
     assert _same_sweep(got, ref)
@@ -1770,3 +1775,157 @@ def test_fixed_batch_route_takes_long_grids(cuda):
     assert torch.equal(st, st_ref) and st[3].item() == 0
     assert bool(torch.isfinite(out).all())
     assert _gap(out, ref)[0] <= SOLVE_BARS["mixed"][0]
+
+
+# ---------------------------------------------------------------------------
+# K2 and K11 over the card: a grid of n_blocks blocks, each a range of the
+# samples, one controller, the error sums' shares merged in block order.
+# ---------------------------------------------------------------------------
+
+def _k2_grid_case(route, dtype, device):
+    """(wrapper, plain, args, kw) of a K2 solve on `route`: the narrow MLP
+    (B = 300, ELU with a time column), the wide MLP (width 144, B = 200),
+    K7's CNF flow (B = 96), K14's 'concat_t_gelu' plan (B = 96) and the
+    batch route at 'mixed' or 'bf16' (the wide MLP, B = 200: 13 tiles)."""
+    if route == "narrow":
+        from tfdiffeq_tpu_torch.ops import cuda_adams as cad
+        warr, dims, y0, kw = _adams_case(device, dtype, time_input=True)
+        t = torch.linspace(0.0, 2.0, 6, dtype=dtype)
+        f0 = cad._f0(warr, dims, y0, t[0], 1.0, kw["activation"],
+                     "identity", kw["input_power"], kw["time_input"])
+        return (ck.mlp_solve, ck.mlp_solve_plain,
+                (warr, dims, y0, t, 0.05, 1e-6, 1e-8, 1.0),
+                dict(kw, f0=f0))
+    if route == "cnf":
+        _, packed, dims, s0, tau, f0 = _cnf_case(device, dtype, 64, 96)
+        return (ck.mlp_solve, ck.mlp_solve_plain,
+                (packed, dims, s0, tau, 0.05, 1e-5, 1e-7, -1.0),
+                dict(f0=f0, activation="tanh", time_input=True, rhs="cnf"))
+    if route == "plan":
+        from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+        plan, packed, y0, t, _, f0 = _plan_case("concat_t_gelu", dtype,
+                                                device)
+        return (cpl.plan_solve, cpl.plan_solve_plain,
+                (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0), {})
+    weights, warr, dims, y0, t = _wide_case(device, dtype, B=200)
+    f0 = fast.mlp_apply(fast.MLPSpec(activation="tanh"), weights, y0)
+    kw = dict(f0=f0)
+    if route != "wide":
+        kw["tiers"] = ck.layer_tiers(dims, "auto", route)
+    return (ck.mlp_solve, ck.mlp_solve_plain,
+            (warr, dims, y0, t, 0.05, 1e-4, 1e-4, 1.0), kw)
+
+
+def _grid_of(n_blocks, device):
+    """n_blocks, or the card's SM count for 'card'."""
+    if n_blocks == "card":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return n_blocks
+
+
+@pytest.mark.parametrize("n_blocks", [1, 7, "card"])
+@pytest.mark.parametrize("route", ["narrow", "wide", "cnf", "plan", "mixed",
+                                   "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_grid_matches_plain(cuda, dtype, route, n_blocks):
+    """K2 on a grid of n_blocks blocks (the card's: blocks past the batch
+    own no samples; the batch route takes at most a block a tile, so 13
+    here) bitwise equal to its plain version at the same n_blocks, stats
+    included, on the per-thread routes in both types and on the batch
+    route in float64; the float32 tiers within their bars (their products
+    sum on the tensor cores); two launches bitwise equal."""
+    fn, plain, args, kw = _k2_grid_case(route, dtype, cuda)
+    nb = _grid_of(n_blocks, cuda)
+    if route in ("mixed", "bf16"):
+        nb = min(nb, 13)
+    got = fn(*args, n_blocks=nb, **kw)
+    again = fn(*args, n_blocks=nb, **kw)
+    ref = plain(*args, n_blocks=nb, **kw)
+    torch.cuda.synchronize()
+    assert _same(got, again)
+    assert got[1][3].item() == 0 and torch.isfinite(got[0]).all()
+    if route in ("mixed", "bf16") and dtype == torch.float32:
+        if route == "mixed":
+            assert abs(got[1][1].item() - ref[1][1].item()) <= 1
+            assert abs(got[1][2].item() - ref[1][2].item()) <= 1
+        assert float((got[0] - ref[0]).abs().max()) < (
+            5e-5 if route == "mixed" else 1e-2)
+        return
+    assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
+
+
+@pytest.mark.parametrize("n_blocks", [1, 7, "card"])
+@pytest.mark.parametrize("route", ["narrow", "wide", "plan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vcabm_grid_matches_plain(cuda, dtype, route, n_blocks):
+    """K11 on a grid of n_blocks blocks bitwise equal to its plain version
+    at the same n_blocks, stats included, in both types, on the narrow and
+    wide MLP routes and a plan; two launches bitwise equal."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, cuda_plan as cpl
+    nb = _grid_of(n_blocks, cuda)
+    if route == "plan":
+        plan, packed, y0, t, g, _ = _plan_case("spiral", dtype, cuda)
+        y0 = 0.5 * y0
+        f0 = g(t[0].to(cuda), y0).contiguous()
+        args = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+        fn, plain, kw, pkw = (cpl.plan_solve_vcabm,
+                              cpl.plan_solve_vcabm_plain, {}, {})
+    else:
+        width = 24 if route == "narrow" else 144
+        warr, dims, y0, kw = _adams_case(cuda, dtype, width=width)
+        assert ck._route("t", dims, warr.numel(), y0.element_size()) == (
+            ck.ROUTE_NARROW if route == "narrow" else ck.ROUTE_WIDE)
+        t = torch.tensor([0.0, 0.37, 1.11, 2.0], dtype=dtype)
+        args = (warr, dims, y0, t, 0.02, 1e-5, 1e-7, 1.0)
+        fn, plain = cad.mlp_solve_vcabm, cad.mlp_solve_vcabm_plain
+        pkw = dict(f0=cad._f0(warr, dims, y0, t[0], 1.0, kw["activation"],
+                              "identity", kw["input_power"],
+                              kw["time_input"]))
+    got = fn(*args, n_blocks=nb, **kw)
+    again = fn(*args, n_blocks=nb, **kw)
+    ref = plain(*args, n_blocks=nb, **kw, **pkw)
+    torch.cuda.synchronize()
+    assert got[1][3].item() == 0 and torch.isfinite(got[0]).all()
+    assert _same(got, again)
+    assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
+
+
+def test_solve_grids_default_to_the_card_and_refuse_the_rest(cuda):
+    """With no n_blocks K2 and K11 take one block per SM (fewer for a
+    smaller batch; the batch route one a tile), as their plain versions do
+    on the card's tensors; a grid the card cannot hold at once raises
+    (never a quiet one-block launch); the batch route refuses more blocks
+    than tiles; a coupled plan runs on one block and refuses more."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, cuda_plan as cpl
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ck.solve_blocks(4096, cuda) == sms > 1
+    assert ck.solve_blocks(5, cuda) == 5
+    assert ck.solve_blocks(200, cuda, ck.TILE_ROWS) == 13
+    for route in ("narrow", "mixed"):
+        fn, plain, args, kw = _k2_grid_case(route, torch.float64, cuda)
+        assert _same(fn(*args, **kw), plain(*args, **kw))
+    warr, dims, y0, kw = _adams_case(cuda, torch.float64)
+    t = torch.tensor([0.0, 0.5, 1.0], dtype=torch.float64)
+    f0 = cad._f0(warr, dims, y0, t[0], 1.0, kw["activation"], "identity",
+                 kw["input_power"], kw["time_input"])
+    args = (warr, dims, y0, t, 0.02, 1e-5, 1e-7, 1.0)
+    assert _same(cad.mlp_solve_vcabm(*args, **kw),
+                 cad.mlp_solve_vcabm_plain(*args, f0=f0, **kw))
+    ck.reset_launch_counts()
+    cad.reset_launch_counts()
+    fn, _, args2, kw2 = _k2_grid_case("narrow", torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="mlp_solve launch"):
+        fn(*args2, n_blocks=64 * sms, **kw2)
+    with pytest.raises(RuntimeError, match="mlp_solve_vcabm launch"):
+        cad.mlp_solve_vcabm(*args, n_blocks=64 * sms, **kw)
+    fn, _, args2, kw2 = _k2_grid_case("mixed", torch.float32, cuda)
+    with pytest.raises(ValueError, match="one block a tile"):
+        fn(*args2, n_blocks=14, **kw2)
+    assert ck.mlp_solve_launches == cad.mlp_solve_vcabm_launches == 0
+    plan, packed, y0, t, g, f0 = _plan_case("meanfield", torch.float64, cuda)
+    pargs = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+    with pytest.raises(ValueError, match="one block"):
+        cpl.plan_solve(*pargs, n_blocks=2)
+    assert cpl.plan_blocks(plan, y0.shape[0], cuda) == 1
+    assert _same(cpl.plan_solve(*pargs),
+                 cpl.plan_solve_plain(*pargs, n_blocks=1))

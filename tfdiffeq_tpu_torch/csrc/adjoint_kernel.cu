@@ -25,7 +25,7 @@
 //
 // Design (csrc/rk_adjoint.cuh rk_adjoint_kernel). A grid of n_blocks blocks,
 // at most one per SM and all resident together, the wrapper's choice
-// (ops/cuda_adjoint.py adjoint_blocks: one per SM, or one a sample when the
+// (ops/cuda_kernels.py solve_blocks: one per SM, or one a sample when the
 // batch is smaller). Block k owns a contiguous range of samples, about 31
 // at B = 4096 on 132 SMs. Phase A walks each one's stage state, MLP forward
 // and VJP with a group of threads (stage_group: 16 of the block's 512 at 32

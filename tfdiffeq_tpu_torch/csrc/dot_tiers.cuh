@@ -19,7 +19,8 @@
 //
 // Float32 (tier_tile_eval). A block takes its rows a tile of `rt` rows at a
 // time (TierTile: up to 64, no more than the block owns; K8 and tier_net give
-// a block 16 rows, K2's one block takes 64-row tiles) and keeps the tile's
+// a block 16 rows, K2's grid a block its own share of the 16-row tiles, one
+// each at B = 1024 over 64 blocks) and keeps the tile's
 // activations in shared memory across all layers, in two float regions of rt x
 // (ld + 8); only the layer-0 inputs come from the workspace and only the last
 // layer's outputs go back to it. A tier layer first writes its input's hi and
@@ -56,8 +57,8 @@
 // CUDA cores), so 'bf16' takes as long as 'mixed' (chip_smoke.py [19]
 // times both). The epilogue's activation is a template argument and its
 // biases load before its stores; 16-row tiles give each block a quarter of
-// that chain's elementwise work and spread B = 1024 over 64 SMs. In K2 the
-// whole batch is one block's tiles in turn.
+// that chain's elementwise work and spread B = 1024 over 64 SMs, in K8 and
+// in K2 alike.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -290,6 +290,70 @@ __device__ T* mlp_eval(const Net& net, const T* __restrict__ w, T t, T* h_a,
   return hin;
 }
 
+// mlp_eval for one sample with the gsz threads of its group (member m;
+// `on`: the group has a sample this round), every thread of the block
+// calling it: the sample's D state values in hin[0 .. D) (2 gw values of
+// shared memory, gw the widest layer: the two layer buffers), each layer's
+// outputs spread over the members, one member an output, each output the
+// same sum in input order (the time column last, then the bias) as
+// mlp_eval's, so the same bits; a block barrier a layer. Returns the
+// buffer that holds the outputs, which every member may read.
+template <typename T>
+__device__ const T* mlp_eval_group(const Net& net, const T* __restrict__ w,
+                                   T t, T* hin, int gw, bool on, int m,
+                                   int gsz) {
+  T* hout = hin + gw;
+  const int D = net.din[0] - net.time_input;
+  for (int i = m; on && i < D; i += gsz) {
+    const T v = hin[i];
+    T h = v;
+    for (int p = 1; p < net.input_power; ++p) h = h * v;
+    hin[i] = h;
+  }
+  __syncthreads();
+  for (int l = 0; l < net.n_layers; ++l) {
+    const int din = net.din[l];
+    const int dout = net.dout[l];
+    const bool tcol = net.time_input && l == 0;
+    const int n_state = tcol ? din - 1 : din;
+    const T* W = w + net.w_off[l];
+    const T* bias = w + net.b_off[l];
+    const int code = (l == net.n_layers - 1) ? net.act_final : net.act_hidden;
+    for (int o = m; on && o < dout; o += gsz) {
+      const T* row = W + o * din;
+      T acc = row[0] * hin[0];
+      for (int i = 1; i < n_state; ++i) acc = acc + row[i] * hin[i];
+      if (tcol) acc = acc + row[n_state] * t;
+      hout[o] = activate(code, acc + bias[o]);
+    }
+    __syncthreads();
+    T* tmp = hin;
+    hin = hout;
+    hout = tmp;
+  }
+  return hin;
+}
+
+// The samples a round of a grouped walk (a power of two up to kGroupSlots)
+// that fit: the group vectors (2 gw values a slot) share the block's
+// reduction scratch (`threads` values, free during a walk) and may grow it
+// while `fixed` bytes plus the scratch stay within `budget`; never more
+// slots than a block has samples. Returns at least 1.
+constexpr int kGroupSlots = 32;
+
+inline int group_slots(size_t fixed, size_t budget, int threads, int gw,
+                       int per_block, size_t item) {
+  auto scratch = [&](int s) {
+    return item * (size_t(threads) > size_t(2) * s * gw ? size_t(threads)
+                                                         : size_t(2) * s * gw);
+  };
+  int slots = 1;
+  while (slots < kGroupSlots && slots < per_block &&
+         fixed + scratch(2 * slots) <= budget)
+    slots *= 2;
+  return slots;
+}
+
 // pallas_kernels.py:_controller_factor. r ** (-1/order) is exp(log) there,
 // and stays exp(log) here: pow rounds differently and can flip a float64
 // accept against the plain version.

@@ -24,7 +24,8 @@
 // to_scalar)). A plan without a coupling is one segment.
 //
 // PlanRhs evaluates a sample at a time in its thread (K2, K5, K8, K10, K11
-// and K12, for uncoupled plans). PlanBatchRhs (K2 only) evaluates a stage batch-wide:
+// and K12, for uncoupled plans; K2 and K11 spread it over their grids).
+// PlanBatchRhs (K2 only, on one block) evaluates a stage batch-wide:
 // every thread runs segment k for the samples it owns, writing the rows a
 // coupling reduces into live rows; the block then meets and reduces them
 // (each thread's samples in order from 0, or from -inf / +inf for max /
@@ -76,6 +77,9 @@ template <typename T, class P>
 struct PlanRhs {
   static_assert(P::kSegments == 1, "a per-thread plan has no coupling");
   static constexpr bool kBatch = false;
+  static constexpr int kUnit = 1;       // K2's grid: a block any samples
+  static constexpr bool kGrid = true;
+  static constexpr bool kGroup = false;  // its vectors stay in registers
   const T* cg;    // constants (plan_codegen.flat_consts)
   const T* scg;   // per-sample constants [rows][B]
   int n_consts;
@@ -173,10 +177,14 @@ struct BlockMeet {
 
 // K2's batch-wide plan route (coupled plans). Its workspace rows after the
 // solve's own: X [B][kDim] stage inputs, FO [B][kOutRows] outputs, the live
-// rows [kLiveRows][B], then kRedValues reduced values.
+// rows [kLiveRows][B], then kRedValues reduced values. Its block meets
+// inside a stage, so it runs on one block (kGrid false).
 template <typename T, class P>
 struct PlanBatchRhs {
   static constexpr bool kBatch = true;
+  static constexpr int kUnit = 1;
+  static constexpr bool kGrid = false;
+  static constexpr bool kGroup = false;
   const T* cg;
   const T* scg;
   int n_consts;
@@ -189,7 +197,8 @@ struct PlanBatchRhs {
     T t;
   };
 
-  __device__ T* setup(Shared&, Local&, unsigned char* smem) const {
+  __device__ T* setup(Shared&, Local&, unsigned char* smem, int,
+                      int) const {
     return plan_setup_consts<T>(cg, n_consts, in_smem, smem);
   }
   template <class G>
@@ -200,7 +209,7 @@ struct PlanBatchRhs {
     for (int d = 0; d < P::kDim; ++d) x[d] = get(d);
   }
   __device__ const T* eval_batch(const Shared&, Local& lo, T* rw, T* scratch,
-                                 int B) const {
+                                 int B, int, int) const {
     const T* X = rw;
     T* FO = rw + long(B) * P::kDim;
     T* live = FO + long(B) * P::kOutRows;
@@ -233,6 +242,7 @@ int launch_plan_solve(const void* tau, const void* y0, const void* f0,
                       const double* b_sol, const double* b_err,
                       const double* c_mid, const void* consts, int n_consts,
                       const void* sample_consts, int smem_consts,
+                      void* gwork, long gwork_bytes, int n_blocks,
                       void* stream) {
   if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 ||
       D != P::kDim || P::kOutRows != D || threads < 32 ||
@@ -250,11 +260,13 @@ int launch_plan_solve(const void* tau, const void* y0, const void* f0,
   const T* scg = static_cast<const T*>(sample_consts);
   cudaError_t e;
   if constexpr (P::kSegments > 1)
-    e = launch_rk_solve<T>(tau, y0, f0, out, stats, work,
+    e = launch_rk_solve<T>(tau, y0, f0, out, stats, work, gwork, gwork_bytes,
+                           n_blocks,
                            PlanBatchRhs<T, P>{cg, scg, n_consts, smem_consts},
                            smem, threads, tab, sc, st);
   else
-    e = launch_rk_solve<T>(tau, y0, f0, out, stats, work,
+    e = launch_rk_solve<T>(tau, y0, f0, out, stats, work, gwork, gwork_bytes,
+                           n_blocks,
                            PlanRhs<T, P>{cg, scg, n_consts, smem_consts},
                            smem, threads, tab, sc, st);
   return static_cast<int>(e);
@@ -377,6 +389,7 @@ int launch_plan_vcabm(const void* tau, const void* y0, const void* f0,
                       int valid, int max_order, const double* gstar,
                       const void* consts, int n_consts,
                       const void* sample_consts, int smem_consts,
+                      void* gwork, long gwork_bytes, int n_blocks,
                       void* stream) {
   if constexpr (P::kSegments > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -384,13 +397,12 @@ int launch_plan_vcabm(const void* tau, const void* y0, const void* f0,
     if (!vcabm_args_ok(T_out, B, D, max_order, max_steps, threads) ||
         D != P::kDim || P::kOutRows != D)
       return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem =
-        sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + T_out + threads);
+    const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
     const T* cg = static_cast<const T*>(consts);
     const T* scg = static_cast<const T*>(sample_consts);
     return static_cast<int>(launch_rk_vcabm<T>(
-        tau, y0, f0, out, stats, work,
-        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, smem, threads,
+        tau, y0, f0, out, stats, work, gwork, gwork_bytes, n_blocks,
+        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, fixed, threads,
         make_vcabm_scalars<T>(T_out, B, D, dt0, rtol, atol, dt_min, sign,
                               safety, ifactor, dfactor, max_steps, valid,
                               max_order, gstar),
@@ -454,12 +466,13 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
       int valid, int stages, int order, int fsal, const double* c,          \
       const double* a, const double* b_sol, const double* b_err,            \
       const double* c_mid, const void* consts, int n_consts,                \
-      const void* sample_consts, int smem_consts, void* stream) {           \
+      const void* sample_consts, int smem_consts, void* gwork,              \
+      long gwork_bytes, int n_blocks, void* stream) {                       \
     return tfd::launch_plan_solve<TYPE, tfd::Plan>(                         \
         tau, y0, f0, out, stats, work, T_out, B, D, threads, dt0, rtol,     \
         atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,     \
         stages, order, fsal, c, a, b_sol, b_err, c_mid, consts, n_consts,   \
-        sample_consts, smem_consts, stream);                                 \
+        sample_consts, smem_consts, gwork, gwork_bytes, n_blocks, stream);  \
   }
 #define TFD_PLAN_FIXED_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \
@@ -512,12 +525,12 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
       double safety, double ifactor, double dfactor, int max_steps,         \
       int valid, int max_order, const double* gstar, const void* consts,    \
       int n_consts, const void* sample_consts, int smem_consts,             \
-      void* stream) {                                                        \
+      void* gwork, long gwork_bytes, int n_blocks, void* stream) {          \
     return tfd::launch_plan_vcabm<TYPE, tfd::Plan>(                         \
         tau, y0, f0, out, stats, work, T_out, B, D, threads, dt0, rtol,     \
         atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,     \
         max_order, gstar, consts, n_consts, sample_consts, smem_consts,     \
-        stream);                                                             \
+        gwork, gwork_bytes, n_blocks, stream);                               \
   }
 // K12's entry: the dynamics `Plan` and the correction net `PlanG` of one
 // source.

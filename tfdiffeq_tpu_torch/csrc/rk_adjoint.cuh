@@ -56,6 +56,7 @@
 //                           ones first.
 #pragma once
 
+#include "grid_meet.cuh"
 #include "mlp_rk.cuh"
 
 namespace tfd {
@@ -143,41 +144,6 @@ __device__ __forceinline__ T stage_combine(const T* coef, int S, T dth,
   return acc;
 }
 
-// The grid's meeting point. Thread 0 of every block publishes the block's
-// writes (a device-scope fence), adds one to `count` and waits until every
-// block of this meeting has; `target` counts the meetings' arrivals, the
-// same in every block. The block's other threads wait at its barriers.
-// The launch makes every block resident together (a cooperative launch),
-// or this would wait forever; a wait of some seconds (2^28 polls), far
-// past any stage, traps, so that a fault fails the launch instead of
-// holding the card.
-__device__ __forceinline__ void grid_sync(unsigned long long* count,
-                                          unsigned long long& target) {
-  __syncthreads();
-  target += gridDim.x;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1ull);
-    for (unsigned polls = 0;
-         *static_cast<volatile unsigned long long*>(count) < target;
-         ++polls) {
-      if (polls == (1u << 28)) __trap();
-      __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// v[0] + v[stride] + ... + v[(nb - 1) stride] in block order, read past L1
-// (other blocks wrote them).
-template <typename T>
-__device__ __forceinline__ T merge_blocks(const T* v, long stride, int nb) {
-  T acc = __ldcg(v);
-  for (int k = 1; k < nb; ++k) acc = acc + __ldcg(v + k * stride);
-  return acc;
-}
-
 // ---------------------------------------------------------------------------
 // K3: one controller for the batch, the sweep spread over the card.
 //
@@ -213,7 +179,8 @@ __device__ __forceinline__ T merge_blocks(const T* v, long stride, int nb) {
 // I-controller, Kahan accumulation of y and a_y (the quadratures add
 // plainly), the counters and the status follow the reference (:498-676).
 // A coupled plan (kBatch: the block meets inside a stage) runs on one
-// block.
+// block. The grid primitives (grid_sync, merge_blocks, launch_grid) are
+// csrc/grid_meet.cuh's, shared with K2 and K11.
 //
 // Workspace (`work`): y, a_y, their compensations and increments, the
 // stages of both ([S][B][D] each), the per-sample quadratures, their
@@ -671,21 +638,6 @@ cudaError_t launch_rk_adjoint(const void* tau, const void* ys, const void* g,
       gwork_bytes < rk_adjoint_grid_bytes(tab.S, n_blocks,
                                           aug.n_w + aug.ti, sizeof(T)))
     return cudaErrorInvalidValue;
-  auto kernel = rk_adjoint_kernel<T, Aug>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess)
-    return e;
-  if (long(per_sm) * n_sm < n_blocks)
-    return cudaErrorCooperativeLaunchTooLarge;
-  if ((e = cudaMemsetAsync(gwork, 0, 16, stream)) != cudaSuccess) return e;
   const T* a_tau = static_cast<const T*>(tau);
   const T* a_ys = static_cast<const T*>(ys);
   const T* a_g = static_cast<const T*>(g);
@@ -703,11 +655,8 @@ cudaError_t launch_rk_adjoint(const void* tau, const void* ys, const void* g,
   void* args[] = {&a_tau,  &a_ys,    &a_g,     &a_ay0,   &a_aw,
                   &a_at,   &a_aps,   &a_stats, &a_work,  &a_pwork,
                   &a_gwork, &a_aug,  &a_tab,   &a_sc};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                  dim3(n_blocks), dim3(threads), args, smem,
-                                  stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_grid(rk_adjoint_kernel<T, Aug>, n_blocks, threads, smem,
+                     args, gwork, stream);
 }
 
 template <typename T>

@@ -12,37 +12,58 @@
 // launch arguments. Output is written straight into the batch-major
 // [T, B, D] layout.
 //
-// Design. Every attempt's accept needs the error sum over the whole batch
-// (pallas_kernels.py:823-832), so the threads that hold the batch must meet
-// once per attempt: ONE thread block runs the whole solve; each thread owns
-// the samples b = tid, tid + blockDim.x, ... and walks their stages; the
-// stage derivatives, the state, the FSAL derivative and the Kahan term of
-// the batch live in device scratch (`work`, [(S + 5) B D] values, then the
-// right-hand side's own rows); one fixed-order block reduction per attempt
-// gives the error sum (the same bits on every run), __syncthreads_or the
-// finiteness flag, and every thread then takes the same accept and
-// controller decision from them.
+// Design. The solve runs on a grid of n_blocks blocks of up to 512 threads
+// (ops/cuda_kernels.py solve_blocks: one per SM, or fewer for a small
+// batch), all resident together (csrc/grid_meet.cuh launch_grid). Block k
+// owns the contiguous samples [k B / n, (k + 1) B / n) (on the batch route
+// the rows of its own 16-row tiles, Rhs::kUnit rows a unit); its threads own
+// them as b = lo + tid, lo + tid + blockDim.x, ... and walk their stages,
+// combine, Kahan update and dense-output drain with no wait for another
+// block. The stage derivatives, the state, the FSAL derivative and the
+// Kahan term of the batch live in device scratch (`work`, [(S + 5) B D]
+// values, then the right-hand side's own rows). The batch meets once an
+// attempt, for the one shared controller (pallas_kernels.py:823-832): each
+// block's share of the error sum (its threads' terms, block_sum's fixed
+// tree) and its finiteness flag go to the grid workspace, and every block
+// adds the n_blocks shares in block order (grid_shares: two share buffers
+// alternate by the meeting's parity, so one grid_sync a meeting) and takes
+// bitwise the same accept, factor, dt, status and counters; block 0
+// writes the stats. ops/cuda_kernels.py adaptive_solve_plain repeats the
+// order for any n_blocks (n_blocks = 1 is the one-block order before the
+// grid). A coupled plan (csrc/plan_rhs.cuh PlanBatchRhs, whose block meets
+// inside a stage) runs on one block.
 //
 // The right-hand side `Rhs` (csrc/solve_kernel.cu: the MLP routes and K7's
 // CNF flow; csrc/plan_rhs.cuh: K14's generated plans) provides
 //   Shared, Local         block-shared and per-thread state;
-//   setup(sh, lo, smem)   copies what it keeps in shared memory (no
-//                         barrier) and returns the free shared memory;
+//   kUnit                 rows a unit of a block's range (16 on the batch
+//                         route: K4's tiles; else 1);
+//   kGrid                 whether it may run on more than one block;
+//   setup(sh, lo, smem, r0, nr)  copies what it keeps in shared memory (no
+//                         barrier; r0, nr: the block's rows) and returns the
+//                         free shared memory;
 // and either (kBatch false) a per-thread evaluation
 //   in(lo)                where the kernel writes a sample's D inputs,
 //   eval(sh, lo, t, b, B, rw)  sample b's D outputs (rw: its workspace rows),
+// or (kGroup true: the MLP routes) a group of threads a sample, `slots`
+// samples a round, their vectors (2 gw values each) in the block's
+// reduction scratch, free during a walk:
+//   eval_group(sh, t, on, m, gsz, hin)  the sample's D inputs in hin,
+//                         member m of gsz (mlp_rk.cuh mlp_eval_group);
 // or (kBatch true) a batch-wide one, every stage of an attempt evaluated for
-// the whole batch:
+// the block's rows:
 //   put(sh, lo, b, t, get, rw, B)  sample b's inputs from get(d),
-//   eval_batch(sh, lo, rw, red, B) after a barrier, by every thread; returns
-//                         the outputs, sample b's at b * ld(lo) + d.
+//   eval_batch(sh, lo, rw, red, B, r0, nr)  after a barrier, by every
+//                         thread of the block; returns the outputs, sample
+//                         b's at b * ld(lo) + d.
 #pragma once
 
+#include "grid_meet.cuh"
 #include "mlp_rk.cuh"
 
 namespace tfd {
 
-// Most threads of the one block; the launch takes a power of two up to it
+// Most threads of a block; the launch takes a power of two up to it
 // (block_sum), ops/cuda_kernels.py:SOLVE_THREADS.
 constexpr int kSolveThreads = 512;
 
@@ -52,21 +73,39 @@ struct Scalars {
   int max_steps, valid, T_out, B, D;
 };
 
+// Bytes of K2's grid workspace: the meetings' counter and the two share
+// buffers of (error sum, non-finite flag) a block.
+inline long rk_solve_grid_bytes(int n_blocks, long item) {
+  return grid_shares_bytes(n_blocks, 2, item);
+}
+
 template <typename T, class Rhs>
 __global__ void __launch_bounds__(kSolveThreads, 1)
     rk_solve_kernel(const T* __restrict__ tau, const T* __restrict__ y0g,
                     const T* __restrict__ f0g, T* __restrict__ out,
-                    int* __restrict__ stats, T* __restrict__ work, Rhs rhs,
+                    int* __restrict__ stats, T* __restrict__ work,
+                    unsigned char* __restrict__ gwork, Rhs rhs,
                     Tableau<T> tab_in, Scalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ typename Rhs::Shared rsh;
   __shared__ Tableau<T> tab;
+  __shared__ T met[2];   // the merged error sum and non-finite count
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
-  typename Rhs::Local lo;
-  T* red = rhs.setup(rsh, lo, smem_raw);     // [blockDim.x]
-  if (tid == 0) tab = tab_in;
+  const int nb = gridDim.x;
+  const int blk = blockIdx.x;
   const int T_out = sc.T_out, B = sc.B, D = sc.D;
+  // The block's rows [r_lo, r_hi) (units of kUnit rows, the last unit
+  // padded) and its samples [b_lo, b_hi).
+  const long units = (long(B) + Rhs::kUnit - 1) / Rhs::kUnit;
+  const int r_lo = int(Rhs::kUnit * (long(blk) * units / nb));
+  const int r_hi = int(Rhs::kUnit * (long(blk + 1) * units / nb));
+  const int b_lo = r_lo < B ? r_lo : B;
+  const int b_hi = r_hi < B ? r_hi : B;
+  typename Rhs::Local lo;
+  T* red = rhs.setup(rsh, lo, smem_raw, r_lo, r_hi - r_lo);  // [blockDim.x]
+  if (tid == 0) tab = tab_in;
+  GridMeet gm{reinterpret_cast<unsigned long long*>(gwork), 0, 0};
   __syncthreads();
 
   const int S = tab.S;
@@ -84,7 +123,7 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
 
   // Deterministic output on early exit: zero fill, then y0 in row 0
   // (pallas_kernels.py:792-793). Each thread fills its own samples.
-  for (int b = tid; b < B; b += nth) {
+  for (int b = b_lo + tid; b < b_hi; b += nth) {
     for (int d = 0; d < D; ++d) {
       const long i = long(b) * D + d;
       out[i] = y0g[i];
@@ -157,9 +196,45 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
       MID[base + d] = ymid;
       return y1;
     };
-    if constexpr (!Rhs::kBatch) {
+    if constexpr (Rhs::kGroup) {
+      // A group of gsz threads a sample (member m), `slots` samples a
+      // round, stage by stage: the stage state into the group's vector,
+      // the walk with the group's threads across each layer's outputs.
+      // The combine stays a thread a sample: the error sum's order.
+      const int slots = rhs.slots;
+      const int gsz = nth / slots, m = tid % gsz, slot = tid / gsz;
+      T* const g_in = red + long(slot) * 2 * rhs.gw;
+      auto walk = [&](T t_eval, auto input, T* dst) {
+        for (int r0 = b_lo; r0 < b_hi; r0 += slots) {
+          const int b = r0 + slot;
+          const bool on = b < b_hi;
+          const long base = long(b) * D;
+          for (int d = m; on && d < D; d += gsz) g_in[d] = input(base, d);
+          __syncthreads();
+          const T* fo =
+              rhs.eval_group(rsh, sign * t_eval, on, m, gsz, g_in);
+          for (int d = m; on && d < D; d += gsz)
+            dst[base + d] = sign * fo[d];
+          __syncthreads();
+        }
+      };
+      // Y and F were last written a thread a sample.
+      __syncthreads();
+      for (int i = 1; i < S; ++i)
+        walk(t + tab.c[i] * dth,
+             [&](long base, int d) { return stage_state(base, i, d); },
+             K + (i - 1) * BD);
+      for (int b = b_lo + tid; b < b_hi; b += nth)
+        for (int d = 0; d < D; ++d) combine(long(b) * D, d);
+      if (!tab.fsal) {
+        // The end derivative at (t1, y1), y1 = y0 + delta as combine has it.
+        __syncthreads();
+        walk(t1, [&](long base, int d) { return Y[base + d] + DEL[base + d]; },
+             F1);
+      }
+    } else if constexpr (!Rhs::kBatch) {
       T* h_in = rhs.in(lo);
-      for (int b = tid; b < B; b += nth) {
+      for (int b = b_lo + tid; b < b_hi; b += nth) {
         const long base = long(b) * D;
         for (int i = 1; i < S; ++i) {
           for (int d = 0; d < D; ++d) h_in[d] = stage_state(base, i, d);
@@ -178,19 +253,19 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
       // Each stage's evaluation is batch-wide.
       for (int i = 1; i < S; ++i) {
         const T ti = t + tab.c[i] * dth;
-        for (int b = tid; b < B; b += nth) {
+        for (int b = b_lo + tid; b < b_hi; b += nth) {
           const long base = long(b) * D;
           rhs.put(rsh, lo, b, sign * ti,
                   [&](int d) { return stage_state(base, i, d); }, RW, B);
         }
         __syncthreads();
-        const T* fo = rhs.eval_batch(rsh, lo, RW, red, B);
+        const T* fo = rhs.eval_batch(rsh, lo, RW, red, B, r_lo, r_hi - r_lo);
         const long ld = rhs.ld(lo);
-        for (int b = tid; b < B; b += nth)
+        for (int b = b_lo + tid; b < b_hi; b += nth)
           for (int d = 0; d < D; ++d)
             K[(i - 1) * BD + long(b) * D + d] = sign * fo[long(b) * ld + d];
       }
-      for (int b = tid; b < B; b += nth) {
+      for (int b = b_lo + tid; b < b_hi; b += nth) {
         const long base = long(b) * D;
         rhs.put(rsh, lo, b, sign * t1,
                 [&](int d) { return combine(base, d); }, RW, B);
@@ -198,17 +273,21 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
       if (!tab.fsal) {
         // The end derivative at (t1, y1), the inputs just written.
         __syncthreads();
-        const T* fo = rhs.eval_batch(rsh, lo, RW, red, B);
+        const T* fo = rhs.eval_batch(rsh, lo, RW, red, B, r_lo, r_hi - r_lo);
         const long ld = rhs.ld(lo);
-        for (int b = tid; b < B; b += nth)
+        for (int b = b_lo + tid; b < b_hi; b += nth)
           for (int d = 0; d < D; ++d)
             F1[long(b) * D + d] = sign * fo[long(b) * ld + d];
       }
     }
 
-    // ---- the batch meets: error sum, finiteness, one shared decision.
-    const bool any_bad = __syncthreads_or(bad);
-    const T total = block_sum(ss, red);
+    // ---- the batch meets: each block's share of the error sum and its
+    // finiteness flag, merged in block order; one shared decision.
+    const bool blk_bad = __syncthreads_or(bad);
+    const T share[2] = {block_sum(ss, red), blk_bad ? T(1) : T(0)};
+    grid_shares(gm, gwork, share, met, red);
+    const T total = met[0];
+    const bool any_bad = met[1] != T(0);
     const T ratio = d_sqrt(total / denom);
     const bool finite = d_finite(total) && !any_bad;
     const bool accept = (ratio <= T(1)) && finite;
@@ -221,7 +300,7 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
       int oi_new = oi;
       while (oi_new < T_out && tau[oi_new] <= t1) ++oi_new;
       // ---- phase 2: dense output, Kahan update, drain, FSAL.
-      for (int b = tid; b < B; b += nth) {
+      for (int b = b_lo + tid; b < b_hi; b += nth) {
         const long base = long(b) * D;
         for (int d = 0; d < D; ++d) {
           const T y0 = Y[base + d];
@@ -274,7 +353,7 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
     nacc += accept ? 1 : 0;
     nrej += accept ? 0 : 1;
   }
-  if (tid == 0) {
+  if (blk == 0 && tid == 0) {
     stats[0] = nfe;
     stats[1] = nacc;
     stats[2] = nrej;
@@ -305,23 +384,41 @@ Scalars<T> make_scalars(double dt0, double rtol, double atol, double dt_min,
   return sc;
 }
 
-// One launch of rk_solve_kernel<T, Rhs> on `threads` threads with `smem`
-// bytes of dynamic shared memory.
+// Shared memory a K2 block's right-hand side may take beside the reduction
+// scratch (ops/cuda_kernels.py MAX_WEIGHT_BYTES); a grouped walk takes as
+// many slots as fit within it and the scratch.
+constexpr long kSolveSmemBytes = 220L * 1024;
+
+// One launch of rk_solve_kernel<T, Rhs> on n_blocks blocks of `threads`
+// threads with `smem` bytes of dynamic shared memory, all resident together
+// (launch_grid), or an error; a right-hand side that meets inside a stage
+// (not Rhs::kGrid) takes one block, and the batch route at most one block a
+// unit.
 template <typename T, class Rhs>
 cudaError_t launch_rk_solve(const void* tau, const void* y0, const void* f0,
-                            void* out, void* stats, void* work,
-                            const Rhs& rhs, size_t smem, int threads,
-                            const Tableau<T>& tab, const Scalars<T>& sc,
-                            cudaStream_t stream) {
-  auto kernel = rk_solve_kernel<T, Rhs>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<1, threads, smem, stream>>>(
-      static_cast<const T*>(tau), static_cast<const T*>(y0),
-      static_cast<const T*>(f0), static_cast<T*>(out),
-      static_cast<int*>(stats), static_cast<T*>(work), rhs, tab, sc);
-  return cudaGetLastError();
+                            void* out, void* stats, void* work, void* gwork,
+                            long gwork_bytes, int n_blocks, const Rhs& rhs,
+                            size_t smem, int threads, const Tableau<T>& tab,
+                            const Scalars<T>& sc, cudaStream_t stream) {
+  const long units = (long(sc.B) + Rhs::kUnit - 1) / Rhs::kUnit;
+  if (n_blocks < 1 || (!Rhs::kGrid && n_blocks != 1) ||
+      (Rhs::kUnit > 1 && n_blocks > units) || !gwork ||
+      gwork_bytes < rk_solve_grid_bytes(n_blocks, sizeof(T)))
+    return cudaErrorInvalidValue;
+  const T* a_tau = static_cast<const T*>(tau);
+  const T* a_y0 = static_cast<const T*>(y0);
+  const T* a_f0 = static_cast<const T*>(f0);
+  T* a_out = static_cast<T*>(out);
+  int* a_stats = static_cast<int*>(stats);
+  T* a_work = static_cast<T*>(work);
+  unsigned char* a_gwork = static_cast<unsigned char*>(gwork);
+  Rhs a_rhs = rhs;
+  Tableau<T> a_tab = tab;
+  Scalars<T> a_sc = sc;
+  void* args[] = {&a_tau,  &a_y0,   &a_f0,  &a_out, &a_stats,
+                  &a_work, &a_gwork, &a_rhs, &a_tab, &a_sc};
+  return launch_grid(rk_solve_kernel<T, Rhs>, n_blocks, threads, smem, args,
+                     gwork, stream);
 }
 
 }  // namespace tfd

@@ -26,36 +26,52 @@
 // are [nfe, accepted, rejected, status], 2 evaluations an accepted attempt
 // and 1 a rejected one. Output is written straight into [T, B, D].
 //
-// Design. Every attempt's accept needs the error over the whole batch, so
-// the solve runs on ONE thread block (as K2 does): each thread owns the
-// samples b = tid, tid + blockDim.x, ... and walks their evaluations; the
-// three divided-difference stacks (phi, explicit phi, the predictor's
-// implicit phi: 3 (max_order + 2) rows of D values a sample, 1.38 MB at
-// max_order 12, D = 2, B = 4096 in float32, L2-resident), the state and
-// y_next live in a device workspace laid out feature-major ([row][B]); the
-// output times sit in shared memory after what the right-hand side keeps
-// there. The scalar machinery (the c vector, g, beta, prev_t, the order and
-// next_t) is computed by every thread identically from the same values, so
-// no thread waits for another's. The error sums are block reductions in a
-// fixed order (mlp_rk.cuh block_sum), the finiteness flag
-// __syncthreads_or; every thread then takes the same decisions. The plain
-// version (ops/cuda_adams.py vcabm_solve_plain) repeats every operation in
-// this order, and the libraries are built with --fmad=false, so the two
-// give the same bits. max_order is a launch argument: one binary serves
-// orders 1 .. 12.
+// Design. The solve runs on a grid of n_blocks blocks of up to 512 threads
+// (ops/cuda_kernels.py solve_blocks: one per SM, or fewer for a small
+// batch), all resident together (csrc/grid_meet.cuh launch_grid). Block k
+// owns the contiguous samples [k B / n, (k + 1) B / n) and its threads own
+// them as b = lo + tid, lo + tid + blockDim.x, ..., walking their phi rows,
+// predictor and corrector with no wait for another block. A sample's state
+// (y, y_next, the attempt's evaluation and the three divided-difference
+// stacks phi, explicit phi and the predictor's implicit phi: 3 + 3
+// (max_order + 2) rows of D values, feature-major) sits in the block's
+// shared memory when the block's rows fit there (90 values a sample at
+// max_order 12, D = 2: 11.5 KB a block at B = 4096 in float32), else in the
+// device workspace ([row][B], L2-resident). Each evaluation is a step of
+// its own: a thread a sample, or for the MLP routes a group of threads a
+// sample (mlp_rk.cuh mlp_eval_group, `slots` samples a round, as K2's).
+// The scalar machinery (the c vector, g, beta, prev_t, the order and
+// next_t) is computed by every thread of every block identically from the
+// same values, unrolled to the largest order so that it stays in
+// registers. The batch meets where the shared controller needs a sum over
+// it: after the corrector (the error sum at order k and the finiteness
+// flag) and, on an accepted attempt, after f_next (the sums of the errors
+// at orders k - 1, k - 2 and k + 1, one share of three values). Each
+// block's shares are its threads' sums in a fixed-order block reduction
+// (mlp_rk.cuh block_sum); every block adds the n_blocks shares in block
+// order (grid_shares: two share buffers alternate by the meeting's
+// parity, so one grid_sync a meeting) and takes the same decisions; block
+// 0 writes the stats. The plain version (ops/cuda_adams.py
+// vcabm_solve_plain) repeats every operation in this order for any
+// n_blocks (n_blocks = 1 is the one-block order before the grid), and the
+// libraries are built with --fmad=false, so the two give the same bits.
+// max_order is a launch argument: one binary serves orders 1 .. 12.
 //
-// The right-hand side `Rhs` (mlp_rk.cuh MlpThreadRhs: the MLP routes of
-// csrc/vcabm_kernel.cu; csrc/plan_rhs.cuh PlanRhs: K14's generated plans)
-// evaluates one sample in its thread, as csrc/rk_adams.cuh describes.
+// The right-hand side `Rhs` (csrc/vcabm_kernel.cu MlpVcabmRhs: the MLP
+// routes; csrc/plan_rhs.cuh PlanRhs: K14's generated plans) evaluates one
+// sample in its thread, as csrc/rk_adams.cuh describes, and with kGroup
+// (the MLP routes) also eval_group(sh, t, on, m, gsz, hin) for a group of
+// threads a sample (its gw-wide vectors and `slots`, set by the launch).
 #pragma once
 
+#include "grid_meet.cuh"
 #include "mlp_rk.cuh"
 
 namespace tfd {
 
 constexpr int kVcabmMaxOrder = 12;
 constexpr int kVcabmK = kVcabmMaxOrder + 2;  // phi rows 0 .. order + 1
-// Most threads of the one block (a power of two for block_sum;
+// Most threads of a block (a power of two for block_sum;
 // ops/cuda_adams.py VCABM_THREADS).
 constexpr int kVcabmThreads = 512;
 
@@ -64,6 +80,8 @@ struct VcabmScalars {
   T dt0, rtol, atol, dt_min, sign, safety, ifactor, dfactor;
   T gstar[kVcabmK + 1];  // gamma*_0 .. gamma*_K of the host's doubles
   int max_steps, valid, T_out, B, D, max_order;
+  int scratch;     // values of the reduction scratch (and group vectors)
+  int state_smem;  // the block's state rows in shared memory (else `work`)
 };
 
 // pallas_vcabm.py:optimal_dt: safety exp((-1/k) log r), r clamped to
@@ -81,20 +99,38 @@ __device__ __forceinline__ T vcabm_dt(T dt, T ratio, int order,
   return dt * fac;
 }
 
+// Bytes of K11's grid workspace: the meetings' counter and the two share
+// buffers of three values a block.
+inline long rk_vcabm_grid_bytes(int n_blocks, long item) {
+  return grid_shares_bytes(n_blocks, 3, item);
+}
+
+// State rows a sample: y, y_next, the evaluation's output and the three
+// phi stacks, D values each.
+inline long vcabm_state_rows(int max_order) { return 3 + 3L * (max_order + 2); }
+
 template <typename T, class Rhs>
 __global__ void __launch_bounds__(kVcabmThreads, 1)
     rk_vcabm_kernel(const T* __restrict__ tau_g, const T* __restrict__ y0g,
                     const T* __restrict__ f0g, T* __restrict__ out,
-                    int* __restrict__ stats, T* __restrict__ work, Rhs rhs,
+                    int* __restrict__ stats, T* __restrict__ work,
+                    unsigned char* __restrict__ gwork, Rhs rhs,
                     VcabmScalars<T> sc_in) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ typename Rhs::Shared rsh;
   __shared__ VcabmScalars<T> sc;
+  __shared__ T met[3];   // a meeting's merged sums
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
+  const int nb = gridDim.x;
+  const int blk = blockIdx.x;
+  // The block's samples.
+  const int b_lo = int(long(blk) * sc_in.B / nb);
+  const int b_hi = int(long(blk + 1) * sc_in.B / nb);
+  GridMeet gm{reinterpret_cast<unsigned long long*>(gwork), 0, 0};
   typename Rhs::Local lo;
   T* tau = rhs.setup(rsh, lo, smem_raw);  // [T_out]
-  T* red = tau + sc_in.T_out;  // [blockDim.x]
+  T* red = tau + sc_in.T_out;  // [scratch]: block_sum, grid_shares, groups
   if (tid == 0) sc = sc_in;
   for (int i = tid; i < sc_in.T_out; i += nth) tau[i] = tau_g[i];
   __syncthreads();
@@ -102,27 +138,62 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
   const int T_out = sc.T_out, B = sc.B, D = sc.D;
   const int MO = sc.max_order, K = MO + 2;
   const long BD = long(B) * D;
-  // Feature-major workspace rows of B values.
-  T* Y = work;               // state
-  T* YN = Y + BD;            // p_next, then y_next of the attempt
-  T* PHI = YN + BD;          // phi rows 0 .. K - 1, D rows each
-  T* EPHI = PHI + K * BD;    // explicit phi
-  T* PHIP = EPHI + K * BD;   // the predictor's implicit phi
-  T* h_in = rhs.in(lo);
+  // Feature-major state rows: in the block's shared memory when they fit
+  // (rows of the most samples a block owns, from b_lo), else rows of B
+  // values in `work`.
+  const bool in_smem = sc.state_smem != 0;
+  const long ldb = in_smem ? (long(B) + nb - 1) / nb : long(B);
+  const int b0 = in_smem ? b_lo : 0;
+  const long RD = ldb * D;
+  T* Y = in_smem ? red + sc.scratch : work;   // state
+  T* YN = Y + RD;            // p_next, then y_next of the attempt
+  T* FE = YN + RD;           // the attempt's evaluation, sign f
+  T* PHI = FE + RD;          // phi rows 0 .. K - 1, D rows each
+  T* EPHI = PHI + K * RD;    // explicit phi
+  T* PHIP = EPHI + K * RD;   // the predictor's implicit phi
   const T sign = sc.sign;
-  auto row = [B](int j, int D_, int d, int b) -> long {
-    return (long(j) * D_ + d) * B + b;
+  auto row = [ldb, b0](int j, int D_, int d, int b) -> long {
+    return (long(j) * D_ + d) * ldb + (b - b0);
+  };
+
+  // sign f(sign next_t, YN) of every owned sample into FE: a thread a
+  // sample, or (Rhs::kGroup, the MLP routes) a group of gsz threads a
+  // sample, `slots` samples a round, the group's vectors in the scratch.
+  // Every thread of the block calls it.
+  auto evaluate = [&](T t_eval) {
+    if constexpr (Rhs::kGroup) {
+      const int slots = rhs.slots;
+      const int gsz = nth / slots, m = tid % gsz, slot = tid / gsz;
+      T* const g_in = red + long(slot) * 2 * rhs.gw;
+      __syncthreads();   // YN was written a thread a sample
+      for (int r0 = b_lo; r0 < b_hi; r0 += slots) {
+        const int b = r0 + slot;
+        const bool on = b < b_hi;
+        for (int d = m; on && d < D; d += gsz) g_in[d] = YN[row(0, 1, d, b)];
+        __syncthreads();
+        const T* fo = rhs.eval_group(rsh, sign * t_eval, on, m, gsz, g_in);
+        for (int d = m; on && d < D; d += gsz)
+          FE[row(0, 1, d, b)] = sign * fo[d];
+        __syncthreads();
+      }
+    } else {
+      T* h_in = rhs.in(lo);
+      for (int b = b_lo + tid; b < b_hi; b += nth) {
+        for (int d = 0; d < D; ++d) h_in[d] = YN[row(0, 1, d, b)];
+        const T* fo = rhs.eval(rsh, lo, sign * t_eval, b, B);
+        for (int d = 0; d < D; ++d) FE[row(0, 1, d, b)] = sign * fo[d];
+      }
+    }
   };
 
   // Zero fill, y0 in row 0 (pallas_vcabm.py:81-87); each thread its own
   // samples.
-  for (int b = tid; b < B; b += nth) {
+  for (int b = b_lo + tid; b < b_hi; b += nth) {
     for (int d = 0; d < D; ++d) {
       const long i = long(b) * D + d;
-      const long r = long(d) * B + b;
       out[i] = y0g[i];
       for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
-      Y[r] = y0g[i];
+      Y[row(0, 1, d, b)] = y0g[i];
       for (int j = 0; j < K; ++j) {
         PHI[row(j, D, d, b)] = j == 0 ? f0g[i] : T(0);
         EPHI[row(j, D, d, b)] = T(0);
@@ -134,7 +205,8 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
   const T denom = T(double(D) * double(B));
   const T t0 = tau[0];
   T prev_t[kVcabmK];
-  for (int j = 0; j < K; ++j) prev_t[j] = j ? t0 - T(double(j)) : t0;
+#pragma unroll
+  for (int j = 0; j < kVcabmK; ++j) prev_t[j] = j ? t0 - T(double(j)) : t0;
   T next_t_c = t0 + sc.dt0;
   int order = 1, oi = 1, nacc = 0, nrej = 0, nfe = 0;
   int status = sc.valid ? 0 : 3;
@@ -145,29 +217,40 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
     const T curr_t = prev_t[0];
     const T dt = next_t - curr_t;
 
-    // ---- g / beta recurrences (pallas_vcabm.py:122-146).
+    // ---- g / beta recurrences (pallas_vcabm.py:122-146), unrolled to the
+    // largest order so that the vectors stay in registers; entries past
+    // the live K and max_order take no part.
     T cvec[kVcabmK + 1];
-    for (int i = 0; i <= K; ++i) cvec[i] = T(1.0 / double(i + 1));
+#pragma unroll
+    for (int i = 0; i <= kVcabmK; ++i) cvec[i] = T(1.0 / double(i + 1));
     T g[kVcabmK];
     T betas[kVcabmK];  // beta_j of explicit phi row j, for j < order
     g[0] = T(1);
+    betas[0] = T(1);
     T beta = T(1);
-    for (int j = 1; j <= MO; ++j) {
-      if (j <= order) {
+#pragma unroll
+    for (int j = 1; j <= kVcabmMaxOrder; ++j) {
+      if (j <= MO && j <= order) {
         const T den = next_t - prev_t[j - 1];
         const T factor = dt / (den == T(0) ? T(1) : den);
-        for (int i = 0; i <= K; ++i)
-          cvec[i] = cvec[i] - (i < K ? cvec[i + 1] : cvec[i]) * factor;
+#pragma unroll
+        for (int i = 0; i <= kVcabmK; ++i)
+          if (i <= K)
+            cvec[i] = cvec[i] - (i < K ? cvec[i + 1 <= kVcabmK ? i + 1 : i]
+                                       : cvec[i]) * factor;
         g[j] = cvec[0];
       } else {
         g[j] = T(0);
       }
-      if (j < order) {
+      if (j <= MO && j < order) {
         const T den = curr_t - prev_t[j];
         beta = beta * ((next_t - prev_t[j - 1]) / (den == T(0) ? T(1) : den));
         betas[j] = beta;
+      } else {
+        betas[j] = T(0);
       }
     }
+    g[kVcabmK - 1] = T(0);
     g[MO + 1] = T(0);  // never selected (order <= max_order)
     const int n_pred = order - 1 > 1 ? order - 1 : 1;
     const int om1 = order - 1 > 0 ? order - 1 : 0;
@@ -175,11 +258,10 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
     const T c_corr = dt * g[cidx];
     const T c_err = dt * (g[order] - g[om1]);
 
-    // ---- phase 1: explicit phi, predictor, f_pred, implicit phi,
-    // corrector and the error at order k of each owned sample.
-    T ss = T(0);
-    bool bad = false;
-    for (int b = tid; b < B; b += nth) {
+    // ---- phase 1: explicit phi and the predictor of each owned sample,
+    // f_pred, then the implicit phi, the corrector and the error at order
+    // k.
+    for (int b = b_lo + tid; b < b_hi; b += nth) {
       for (int d = 0; d < D; ++d) {
         EPHI[row(0, D, d, b)] = PHI[row(0, D, d, b)];
         for (int j = 1; j <= MO; ++j)
@@ -188,19 +270,21 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
         T acc = (0 < n_pred ? g[0] : T(0)) * EPHI[row(0, D, d, b)];
         for (int j = 1; j < MO; ++j)
           acc = acc + (j < n_pred ? g[j] : T(0)) * EPHI[row(j, D, d, b)];
-        const T p = Y[long(d) * B + b] + dt * acc;
-        YN[long(d) * B + b] = p;
-        h_in[d] = p;
+        YN[row(0, 1, d, b)] = Y[row(0, 1, d, b)] + dt * acc;
       }
-      const T* fo = rhs.eval(rsh, lo, sign * next_t, b, B);
+    }
+    evaluate(next_t);
+    T ss = T(0);
+    bool bad = false;
+    for (int b = b_lo + tid; b < b_hi; b += nth) {
       for (int d = 0; d < D; ++d) {
-        const T fp = sign * fo[d];
+        const T fp = FE[row(0, 1, d, b)];
         T run = T(0);
         for (int j = 0; j < K; ++j) {
           PHIP[row(j, D, d, b)] = j < order + 1 ? fp - run : T(0);
           if (j < K - 1) run = run + EPHI[row(j, D, d, b)];
         }
-        const long r = long(d) * B + b;
+        const long r = row(0, 1, d, b);
         const T yn = YN[r] + c_corr * PHIP[row(cidx, D, d, b)];
         YN[r] = yn;
         const T scale = sc.atol + sc.rtol * d_max(d_abs(Y[r]), d_abs(yn));
@@ -211,8 +295,11 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
     }
 
     // ---- the batch meets: error at order k, finiteness, one decision.
-    const bool any_bad = __syncthreads_or(bad);
-    const T error_k = d_sqrt(block_sum(ss, red) / denom);
+    const bool blk_bad = __syncthreads_or(bad);
+    const T share1[2] = {block_sum(ss, red), blk_bad ? T(1) : T(0)};
+    grid_shares(gm, gwork, share1, met, red);
+    const bool any_bad = met[1] != T(0);
+    const T error_k = d_sqrt(met[0] / denom);
     const bool finite = d_finite(error_k) && !any_bad;
     const bool accept = error_k <= T(1) && finite;
     const T error_ctrl = finite ? error_k : T(1048576.0);  // 2 ** 20
@@ -228,12 +315,11 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
       const T c_km1 = dt * (g[om1] - g[om2]);
       const T c_km2 = dt * (g[om2] - g[om3]);
       const T c_kp1 = dt * sc.gstar[order];
+      evaluate(next_t);
       T s1 = T(0), s2 = T(0), s3 = T(0);
-      for (int b = tid; b < B; b += nth) {
-        for (int d = 0; d < D; ++d) h_in[d] = YN[long(d) * B + b];
-        const T* fo = rhs.eval(rsh, lo, sign * next_t, b, B);
+      for (int b = b_lo + tid; b < b_hi; b += nth) {
         for (int d = 0; d < D; ++d) {
-          const long r = long(d) * B + b;
+          const long r = row(0, 1, d, b);
           const T yn = YN[r];
           const T scale = sc.atol + sc.rtol * d_max(d_abs(Y[r]), d_abs(yn));
           const T e1 = (c_km1 * PHIP[row(om1, D, d, b)]) / scale;
@@ -242,7 +328,7 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
           s2 = s2 + e2 * e2;
           // The new phi rows f_next - sum_{i<j} ephi_i, j < order + 2; row
           // `order` also feeds the error at order k + 1.
-          const T fn = sign * fo[d];
+          const T fn = FE[r];
           T run = T(0);
           for (int j = 0; j < K; ++j) {
             const T v = j < order + 2 ? fn - run : T(0);
@@ -257,9 +343,13 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
           if (hit) out[long(oi) * BD + long(b) * D + d] = yn;
         }
       }
-      const T error_km1 = d_sqrt(block_sum(s1, red) / denom);
-      const T error_km2 = d_sqrt(block_sum(s2, red) / denom);
-      const T error_kp1 = d_sqrt(block_sum(s3, red) / denom);
+      // ---- the batch meets again: the three sums in one share.
+      const T share2[3] = {block_sum(s1, red), block_sum(s2, red),
+                           block_sum(s3, red)};
+      grid_shares(gm, gwork, share2, met, red);
+      const T error_km1 = d_sqrt(met[0] / denom);
+      const T error_km2 = d_sqrt(met[1] / denom);
+      const T error_kp1 = d_sqrt(met[2] / denom);
       // Order adaptation (pallas_vcabm.py:246-257).
       const bool startup = nacc + 1 <= 4 || order < 3;
       const bool dec = d_min(error_km1, error_km2) < error_k;
@@ -275,7 +365,8 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
       if (next_order <= order)
         dt_acc = vcabm_dt(dt, error_ctrl, order + 1, true, sc.safety,
                           sc.ifactor, sc.dfactor);
-      for (int j = K - 1; j > 0; --j) prev_t[j] = prev_t[j - 1];
+#pragma unroll
+      for (int j = kVcabmK - 1; j > 0; --j) prev_t[j] = prev_t[j - 1];
       prev_t[0] = next_t;
     }
     const T dt_rej = vcabm_dt(dt, error_ctrl, order, false, sc.safety,
@@ -293,7 +384,7 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
     nrej += accept ? 0 : 1;
     nfe += accept ? 2 : 1;
   }
-  if (tid == 0) {
+  if (blk == 0 && tid == 0) {
     stats[0] = nfe;
     stats[1] = nacc;
     stats[2] = nrej;
@@ -332,25 +423,59 @@ VcabmScalars<T> make_vcabm_scalars(int T_out, int B, int D, double dt0,
   sc.B = B;
   sc.D = D;
   sc.max_order = max_order;
+  sc.scratch = 0;
+  sc.state_smem = 0;
   return sc;
 }
 
-// One launch of K11 on one block with `rhs`; `smem` is the right-hand
-// side's shared memory (its setup) and the output times' and reduction's.
+// Shared memory a K11 block's right-hand side and output times may take
+// beside the reduction scratch (ops/cuda_kernels.py MAX_WEIGHT_BYTES); the
+// grouped walk's slots and the block's state rows take what they leave.
+constexpr long kVcabmSmemBytes = 220L * 1024;
+
+// One launch of K11 on n_blocks blocks of `threads` threads with `rhs`,
+// all resident together (launch_grid), or an error. `fixed` is the bytes
+// the right-hand side keeps in shared memory (its setup); the launch adds
+// the output times, the reduction scratch (grown for the grouped walk's
+// slots, Rhs::kGroup) and, when they fit, the block's state rows.
 template <typename T, class Rhs>
 cudaError_t launch_rk_vcabm(const void* tau, const void* y0, const void* f0,
-                            void* out, void* stats, void* work,
-                            const Rhs& rhs, size_t smem, int threads,
+                            void* out, void* stats, void* work, void* gwork,
+                            long gwork_bytes, int n_blocks, const Rhs& rhs,
+                            size_t fixed, int threads,
                             const VcabmScalars<T>& sc, cudaStream_t stream) {
-  auto kernel = rk_vcabm_kernel<T, Rhs>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<1, threads, smem, stream>>>(
-      static_cast<const T*>(tau), static_cast<const T*>(y0),
-      static_cast<const T*>(f0), static_cast<T*>(out),
-      static_cast<int*>(stats), static_cast<T*>(work), rhs, sc);
-  return cudaGetLastError();
+  if (n_blocks < 1 || !gwork ||
+      gwork_bytes < rk_vcabm_grid_bytes(n_blocks, sizeof(T)))
+    return cudaErrorInvalidValue;
+  const size_t item = sizeof(T);
+  const size_t own = fixed + item * size_t(sc.T_out);
+  const size_t budget = size_t(kVcabmSmemBytes) + item * threads;
+  const int per_block = (sc.B + n_blocks - 1) / n_blocks;
+  Rhs a_rhs = rhs;
+  VcabmScalars<T> a_sc = sc;
+  size_t scratch = size_t(threads);
+  if constexpr (Rhs::kGroup) {
+    a_rhs.slots = group_slots(own, budget, threads, a_rhs.gw, per_block,
+                              item);
+    if (size_t(2) * a_rhs.slots * a_rhs.gw > scratch)
+      scratch = size_t(2) * a_rhs.slots * a_rhs.gw;
+  }
+  const size_t rows =
+      size_t(vcabm_state_rows(sc.max_order)) * sc.D * size_t(per_block);
+  a_sc.scratch = int(scratch);
+  a_sc.state_smem = own + item * (scratch + rows) <= budget;
+  const size_t smem = own + item * (scratch + (a_sc.state_smem ? rows : 0));
+  const T* a_tau = static_cast<const T*>(tau);
+  const T* a_y0 = static_cast<const T*>(y0);
+  const T* a_f0 = static_cast<const T*>(f0);
+  T* a_out = static_cast<T*>(out);
+  int* a_stats = static_cast<int*>(stats);
+  T* a_work = static_cast<T*>(work);
+  unsigned char* a_gwork = static_cast<unsigned char*>(gwork);
+  void* args[] = {&a_tau,  &a_y0,    &a_f0,  &a_out, &a_stats,
+                  &a_work, &a_gwork, &a_rhs, &a_sc};
+  return launch_grid(rk_vcabm_kernel<T, Rhs>, n_blocks, threads, smem, args,
+                     gwork, stream);
 }
 
 }  // namespace tfd

@@ -18,17 +18,17 @@
 // [T, B, D] layout (the TPU kernel's feature-major [D, B] put the batch on
 // its vector lanes and is not copied).
 //
-// Design. Every attempt's accept needs the error sum over the whole batch
-// (pallas_kernels.py:823-832), so the threads that hold the batch must meet
-// once per attempt. The simple, right design of this first version is ONE
-// thread block for the whole solve: each thread owns the samples b = tid,
-// tid + blockDim.x, ... through the whole solve and walks their stages one
-// sample at a time; the stage derivatives, the state, the FSAL derivative
-// and the Kahan term of the batch live in device scratch (`work`,
-// [(S + 5) B D] values: 256 KB at the main path, L2-resident); the
-// weights and the tableau sit in shared memory. One fixed-order block
-// reduction per attempt gives the error sum (the same bits on every run),
-// __syncthreads_or the finiteness flag, and every thread then takes the
+// Design (csrc/rk_solve.cuh). The solve runs on a grid of n_blocks blocks
+// of 512 threads, one per SM (fewer for a small batch), all resident
+// together; block k owns the samples [k B / n, (k + 1) B / n) and each of
+// its threads walks its own samples' stages one sample at a time. The
+// stage derivatives, the state, the FSAL derivative and the Kahan term of
+// the batch live in device scratch (`work`, [(S + 5) B D] values: 256 KB
+// at the main path, L2-resident); each block copies the weights (narrow
+// route) and the tableau into its own shared memory. The blocks meet once
+// an attempt: each block's share of the error sum (a fixed-order block
+// reduction) and its finiteness flag, added in block order by every block
+// (the same bits on every run), then every thread of every block takes the
 // same accept and controller decision from them.
 //
 // Routes (mlp_rk.cuh Route). Narrow: the layer vectors of 128 values in
@@ -37,8 +37,10 @@
 // from global memory (131,712 float32 weights, 527 KB, at the wide MLP
 // 128 -> 256 -> 256 -> 128: L2-resident, a warp-uniform read per product).
 // Batch (csrc/dot_tiers.cuh, the dot-precision tiers): every stage
-// evaluation of the attempt is batch-wide, layer by layer, the tier layers
-// on the tensor cores in float32; the controller is the same.
+// evaluation of the attempt is batch-wide over the block's own 16-row
+// tiles, layer by layer, the tier layers on the tensor cores in float32;
+// rows are independent within a stage, so a stage needs no meeting, and
+// the grid has at most one block a tile. The controller is the same.
 //
 // rhs = cnf (K7's forward, csrc/cnf_net.cuh cnf_eval, replacing
 // pallas_kernels.py:442 _make_cnf_net at :1291-1294): the state is the CNF
@@ -47,14 +49,13 @@
 // act'(z) and f go to workspace rows after the solve's own. Narrow and wide
 // routes only (the flow takes no tier).
 //
-// Bound on the H100. One SM of 132 does all the work: per sample and
-// attempt, S - 1 evaluations of the MLP (at the main path 2 -> 50 -> 2:
-// about 400 flops and 50 tanh each) run one instruction stream per
-// thread, so the solve is bound by the instruction throughput of a single
-// SM, and the other 131 idle. Spreading the batch over the card (one block
-// per SM and a grid-wide barrier per attempt) is the first optimisation to
-// make (see PERF.md). The wide route is bound the same way, with a
-// global-memory load beside each multiply-add.
+// Bound on the H100. Per sample and attempt, S - 1 evaluations of the MLP
+// (at the main path 2 -> 50 -> 2: about 400 flops and 50 tanh each) run one
+// instruction stream per thread; at B = 4096 over 132 blocks a block owns
+// about 31 samples, one warp's worth, so an attempt costs one thread's
+// dependent chain of S - 1 evaluations and one grid meeting (an atomic and
+// a spin on L2, then n_blocks loads of the shares). The wide route is
+// bound the same way, with a global-memory load beside each multiply-add.
 #include "cnf_net.cuh"
 #include "dot_tiers.cuh"
 #include "rk_solve.cuh"
@@ -68,11 +69,17 @@ namespace tfd {
 template <typename T, int kRoute, bool kCnf>
 struct MlpSolveRhs {
   static constexpr bool kBatch = kRoute == kRouteBatch;
+  static constexpr int kUnit = kBatch ? 16 : 1;   // K4's tile rows
+  static constexpr bool kGrid = true;
+  // The MLP walks a sample with a group of threads (mlp_eval_group); K7's
+  // CNF walk stays a thread a sample.
+  static constexpr bool kGroup = !kBatch && !kCnf;
   const T* wg;     // packed weights (pack_mlp_weights)
   int n_weights;
+  int gw;          // the group vectors' width: the widest layer
+  int slots;       // samples a round of the grouped walk
   Net net_in;
   BatchBufs<T> bb;
-  int rows;        // the batch route's sample rows (B padded to 16)
 
   struct Shared {
     Net net;
@@ -94,7 +101,8 @@ struct MlpSolveRhs {
     }
   }
 
-  __device__ T* setup(Shared& sh, Local&, unsigned char* smem) const {
+  __device__ T* setup(Shared& sh, Local&, unsigned char* smem, int r0,
+                      int nr) const {
     const int tid = threadIdx.x, nth = blockDim.x;
     T* red;
     if constexpr (kRoute == kRouteNarrow) {
@@ -108,11 +116,15 @@ struct MlpSolveRhs {
     }
     if (tid == 0) sh.net = net_in;
     if constexpr (kRoute == kRouteBatch)
-      batch_clear(bb, 0, rows);
+      batch_clear(bb, r0, nr);
     return red;
   }
 
   __device__ T* in(Local& lo) const { return lo.h_a; }
+  __device__ const T* eval_group(const Shared& sh, T t, bool on, int m,
+                                 int gsz, T* hin) const {
+    return mlp_eval_group(sh.net, weights(), t, hin, gw, on, m, gsz);
+  }
   __device__ const T* eval(const Shared& sh, Local& lo, T t, int b, int B,
                            T* rw) const {
     if constexpr (kCnf)
@@ -126,9 +138,9 @@ struct MlpSolveRhs {
                       int) const {
     batch_put(bb, sh.net, b, t, get);
   }
-  __device__ const T* eval_batch(const Shared& sh, Local& lo, T*, T*,
-                                 int) const {
-    return batch_mlp_eval(sh.net, weights(), bb, 0, rows);
+  __device__ const T* eval_batch(const Shared& sh, Local& lo, T*, T*, int,
+                                 int r0, int nr) const {
+    return batch_mlp_eval(sh.net, weights(), bb, r0, nr);
   }
   __device__ long ld(const Local&) const { return bb.ld; }
 };
@@ -136,20 +148,38 @@ struct MlpSolveRhs {
 template <typename T, int kRoute, bool kCnf>
 cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
                          const void* weights, void* out, void* stats,
-                         void* work, const BatchBufs<T>& bb, int n_w,
+                         void* work, void* gwork, long gwork_bytes,
+                         int n_blocks, const BatchBufs<T>& bb, int n_w,
                          int threads, const Net& net, const Tableau<T>& tab,
                          const Scalars<T>& sc, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + threads) +
+  using Rhs = MlpSolveRhs<T, kRoute, kCnf>;
+  const size_t fixed =
+      sizeof(T) * (kRoute == kRouteNarrow ? size_t(n_w) : 0) +
       (kRoute == kRouteBatch ? batch_smem(bb) : 0);
-  MlpSolveRhs<T, kRoute, kCnf> rhs;
+  // The grouped walk's slots: enough for a block's samples, up to
+  // kGroupSlots, their vectors in (or growing) the reduction scratch.
+  const int gw = net_max_width(net);
+  const int slots =
+      Rhs::kGroup
+          ? group_slots(fixed, kSolveSmemBytes + sizeof(T) * threads,
+                        threads, gw, (sc.B + n_blocks - 1) / n_blocks,
+                        sizeof(T))
+          : 1;
+  const size_t scratch =
+      Rhs::kGroup && size_t(2) * slots * gw > size_t(threads)
+          ? size_t(2) * slots * gw
+          : size_t(threads);
+  const size_t smem = fixed + sizeof(T) * scratch;
+  Rhs rhs;
   rhs.wg = static_cast<const T*>(weights);
   rhs.n_weights = n_w;
+  rhs.gw = gw;
+  rhs.slots = slots;
   rhs.net_in = net;
   rhs.bb = bb;
-  rhs.rows = (sc.B + 15) / 16 * 16;
-  return launch_rk_solve<T>(tau, y0, f0, out, stats, work, rhs, smem,
-                            threads, tab, sc, stream);
+  return launch_rk_solve<T>(tau, y0, f0, out, stats, work, gwork,
+                            gwork_bytes, n_blocks, rhs, smem, threads, tab,
+                            sc, stream);
 }
 
 template <typename T>
@@ -164,7 +194,8 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
                  int fsal, const double* c, const double* a,
                  const double* b_sol, const double* b_err,
                  const double* c_mid, int route, const int* tiers,
-                 void* batch_work, long batch_bytes, int cnf, void* stream) {
+                 void* batch_work, long batch_bytes, int cnf, void* gwork,
+                 long gwork_bytes, int n_blocks, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || stages < 2 ||
       stages > kMaxStages || T_out < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || threads < 32 ||
@@ -183,11 +214,13 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
   const long rows = (B + 15) / 16 * 16;
   BatchBufs<T> bb{};
   if (route == kRouteBatch) {
-    if (!batch_work ||
+    // Each block owns at most ceil(tiles / n_blocks) tiles of 16 rows.
+    const long tiles = rows / 16;
+    if (!batch_work || n_blocks < 1 || n_blocks > tiles ||
         batch_bytes < batch_work_bytes(net, n_w16, rows, sizeof(T)))
       return static_cast<int>(cudaErrorInvalidValue);
     bb = batch_bufs<T>(batch_work, net, n_w16, rows, threads / kWarpSize,
-                       rows);
+                       16 * ((tiles + n_blocks - 1) / n_blocks));
     if (bb.tile.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   } else if (!route_fits(net, route) || tiers) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -201,32 +234,26 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
                       dfactor, max_steps, valid, T_out, B, D);
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // The arguments every route takes.
+  auto route_args = [&](auto launch) {
+    return launch(tau, y0, f0, weights, out, stats, work, gwork,
+                  gwork_bytes, n_blocks, bb, off, threads, net, tab, sc, st);
+  };
   cudaError_t e;
   if (cnf) {
     e = route == kRouteNarrow
-            ? launch_route<T, kRouteNarrow, true>(tau, y0, f0, weights, out,
-                                                  stats, work, bb, off,
-                                                  threads, net, tab, sc, st)
-            : launch_route<T, kRouteWide, true>(tau, y0, f0, weights, out,
-                                                stats, work, bb, off,
-                                                threads, net, tab, sc, st);
+            ? route_args(launch_route<T, kRouteNarrow, true>)
+            : route_args(launch_route<T, kRouteWide, true>);
   } else if (route == kRouteNarrow) {
-    e = launch_route<T, kRouteNarrow, false>(tau, y0, f0, weights, out,
-                                             stats, work, bb, off, threads,
-                                             net, tab, sc, st);
+    e = route_args(launch_route<T, kRouteNarrow, false>);
   } else if (route == kRouteWide) {
-    e = launch_route<T, kRouteWide, false>(tau, y0, f0, weights, out, stats,
-                                           work, bb, off, threads, net, tab,
-                                           sc, st);
+    e = route_args(launch_route<T, kRouteWide, false>);
   } else {
     tier_pack_kernel<T><<<64, 256, 0, st>>>(
         static_cast<const T*>(weights), net,
         reinterpret_cast<__nv_bfloat16*>(batch_work));
     e = cudaGetLastError();
-    if (e == cudaSuccess)
-      e = launch_route<T, kRouteBatch, false>(tau, y0, f0, weights, out,
-                                              stats, work, bb, off, threads,
-                                              net, tab, sc, st);
+    if (e == cudaSuccess) e = route_args(launch_route<T, kRouteBatch, false>);
   }
   return static_cast<int>(e);
 }
@@ -244,13 +271,14 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
       int stages, int order, int fsal, const double* c, const double* a,    \
       const double* b_sol, const double* b_err, const double* c_mid,        \
       int route, const int* tiers, void* batch_work, long batch_bytes,      \
-      int cnf, void* stream) {                                               \
+      int cnf, void* gwork, long gwork_bytes, int n_blocks, void* stream) { \
     return tfd::launch_solve<TYPE>(                                          \
         tau, y0, f0, weights, out, stats, work, T_out, B, D, threads, dt0,  \
         rtol, atol, dt_min, sign, safety, ifactor, dfactor, max_steps,      \
         valid, n_layers, dims, act_hidden, act_final, input_power,          \
         time_input, stages, order, fsal, c, a, b_sol, b_err, c_mid, route,  \
-        tiers, batch_work, batch_bytes, cnf, stream);                        \
+        tiers, batch_work, batch_bytes, cnf, gwork, gwork_bytes, n_blocks,  \
+        stream);                                                             \
   }
 
 TFD_SOLVE_ENTRY(tfd_mlp_solve_f32, float)

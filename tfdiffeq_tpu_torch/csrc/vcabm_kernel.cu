@@ -10,32 +10,49 @@
 // mlp_solve_vcabm :399). What it computes, and its design, are in
 // csrc/rk_vcabm.cuh.
 //
-// Bound on the H100. One SM of 132 does the work: per sample and attempt
-// two MLP evaluations (at the bench widths 2 -> 50 -> 2: about 400
-// operations and 50 tanh each) and the phi rows (about 10 (max_order + 2)
-// operations a feature), in one instruction stream a thread, so the solve
-// is bound by the instruction throughput of one SM, as K2 is. Spreading the
-// batch over the card with a grid-wide meet per attempt is the way to more.
+// Bound on the H100. Per sample and attempt two MLP evaluations (at the
+// bench widths 2 -> 50 -> 2: about 400 operations and 50 tanh each) and the
+// phi rows (about 10 (max_order + 2) operations a feature), in one
+// instruction stream a thread; the batch is spread over a grid of one block
+// per SM (about 31 samples a block at B = 4096), so an attempt costs one
+// thread's chain of those and one or two grid meetings, as in K2.
 #include "rk_vcabm.cuh"
 
 namespace tfd {
 
+// K11's MLP right-hand side: mlp_rk.cuh's MlpThreadRhs, and a group of
+// threads a sample (mlp_eval_group) where the engine walks one.
+template <typename T, int kRoute>
+struct MlpVcabmRhs : MlpThreadRhs<T, kRoute> {
+  static constexpr bool kGroup = true;
+  int gw;      // the group vectors' width: the widest layer
+  int slots;   // samples a round (the launch's choice)
+
+  __device__ const T* eval_group(
+      const typename MlpThreadRhs<T, kRoute>::Shared& sh, T t, bool on,
+      int m, int gsz, T* hin) const {
+    return mlp_eval_group(sh.net, this->weights(), t, hin, gw, on, m, gsz);
+  }
+};
+
 template <typename T, int kRoute>
 cudaError_t launch_vcabm_route(const void* tau, const void* y0,
                                const void* f0, const void* weights,
-                               void* out, void* stats, void* work, int n_w,
-                               int threads, const Net& net,
+                               void* out, void* stats, void* work,
+                               void* gwork, long gwork_bytes, int n_blocks,
+                               int n_w, int threads, const Net& net,
                                const VcabmScalars<T>& sc,
                                cudaStream_t stream) {
-  const size_t smem =
-      sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + sc.T_out +
-                   threads);
-  MlpThreadRhs<T, kRoute> rhs;
+  MlpVcabmRhs<T, kRoute> rhs;
   rhs.wg = static_cast<const T*>(weights);
   rhs.n_weights = n_w;
   rhs.net_in = net;
-  return launch_rk_vcabm<T>(tau, y0, f0, out, stats, work, rhs, smem,
-                            threads, sc, stream);
+  rhs.gw = net_max_width(net);
+  rhs.slots = 1;
+  return launch_rk_vcabm<T>(
+      tau, y0, f0, out, stats, work, gwork, gwork_bytes, n_blocks, rhs,
+      sizeof(T) * (kRoute == kRouteNarrow ? size_t(n_w) : 0), threads, sc,
+      stream);
 }
 
 template <typename T>
@@ -48,6 +65,7 @@ int launch_solve_vcabm(const void* tau, const void* y0, const void* f0,
                        int max_order, const double* gstar, int n_layers,
                        const int* dims, int act_hidden, int act_final,
                        int input_power, int time_input, int route,
+                       void* gwork, long gwork_bytes, int n_blocks,
                        void* stream) {
   if (!vcabm_args_ok(T_out, B, D, max_order, max_steps, threads) ||
       D + time_input > kMaxWidth || input_power < 1)
@@ -65,11 +83,13 @@ int launch_solve_vcabm(const void* tau, const void* y0, const void* f0,
   cudaError_t e;
   if (route == kRouteNarrow)
     e = launch_vcabm_route<T, kRouteNarrow>(tau, y0, f0, weights, out,
-                                            stats, work, off, threads, net,
-                                            sc, st);
+                                            stats, work, gwork, gwork_bytes,
+                                            n_blocks, off, threads, net, sc,
+                                            st);
   else
     e = launch_vcabm_route<T, kRouteWide>(tau, y0, f0, weights, out, stats,
-                                          work, off, threads, net, sc, st);
+                                          work, gwork, gwork_bytes, n_blocks,
+                                          off, threads, net, sc, st);
   return static_cast<int>(e);
 }
 
@@ -83,12 +103,14 @@ int launch_solve_vcabm(const void* tau, const void* y0, const void* f0,
       double sign, double safety, double ifactor, double dfactor,           \
       int max_steps, int valid, int max_order, const double* gstar,         \
       int n_layers, const int* dims, int act_hidden, int act_final,         \
-      int input_power, int time_input, int route, void* stream) {           \
+      int input_power, int time_input, int route, void* gwork,              \
+      long gwork_bytes, int n_blocks, void* stream) {                       \
     return tfd::launch_solve_vcabm<TYPE>(                                    \
         tau, y0, f0, weights, out, stats, work, T_out, B, D, threads, dt0,  \
         rtol, atol, dt_min, sign, safety, ifactor, dfactor, max_steps,      \
         valid, max_order, gstar, n_layers, dims, act_hidden, act_final,     \
-        input_power, time_input, route, stream);                             \
+        input_power, time_input, route, gwork, gwork_bytes, n_blocks,       \
+        stream);                                                             \
   }
 
 TFD_SOLVE_VCABM_ENTRY(tfd_mlp_solve_vcabm_f32, float)

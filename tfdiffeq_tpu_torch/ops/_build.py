@@ -45,14 +45,14 @@ SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "conv_solve_kernel.cu", "perlane_solve_kernel.cu",
            "perlane_adjoint_kernel.cu", "tier_net_kernel.cu",
            "adams_kernel.cu", "vcabm_kernel.cu")
-HEADERS = ("mlp_rk.cuh", "dot_tiers.cuh", "cnf_net.cuh", "rk_solve.cuh",
-           "rk_fixed.cuh", "rk_perlane.cuh", "rk_adjoint.cuh",
-           "rk_adams.cuh", "rk_vcabm.cuh")
+HEADERS = ("grid_meet.cuh", "mlp_rk.cuh", "dot_tiers.cuh", "cnf_net.cuh",
+           "rk_solve.cuh", "rk_fixed.cuh", "rk_perlane.cuh",
+           "rk_adjoint.cuh", "rk_adams.cuh", "rk_vcabm.cuh")
 #: The headers a plan library compiles against.
-PLAN_HEADERS = ("mlp_rk.cuh", "rk_solve.cuh", "rk_fixed.cuh",
-                "rk_perlane.cuh", "rk_adjoint.cuh", "rk_adams.cuh",
-                "rk_vcabm.cuh", "rk_hyper.cuh", "plan_ops.cuh",
-                "plan_rhs.cuh", "plan_aug.cuh")
+PLAN_HEADERS = ("grid_meet.cuh", "mlp_rk.cuh", "rk_solve.cuh",
+                "rk_fixed.cuh", "rk_perlane.cuh", "rk_adjoint.cuh",
+                "rk_adams.cuh", "rk_vcabm.cuh", "rk_hyper.cuh",
+                "plan_ops.cuh", "plan_rhs.cuh", "plan_aug.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
@@ -79,6 +79,7 @@ _SOLVE_ARGS = ([_P] * 7                                     # tensors
                + [_I, _I, _I, _P, _P, _P, _P, _P]           # tableau
                + [_I, _P, _P, _L]                           # route, tiers
                + [_I]                                       # rhs = cnf
+               + [_P, _L, _I]                               # grid
                + [_P])                                      # stream
 _ADJOINT_ARGS = ([_P] * 9                                   # tensors
                  + [_L]                                     # work size
@@ -146,13 +147,14 @@ _SOLVE_VCABM_ARGS = ([_P] * 7                               # tensors
                      + [_I] * 3 + [_P]                      # .. gstar
                      + [_I, _P, _I, _I, _I, _I]             # network
                      + [_I]                                 # route
+                     + [_P, _L, _I]                         # grid
                      + [_P])                                # stream
 
 _PLAN_CONSTS = [_P, _I, _P, _I]                            # consts .. smem
 _PLAN_ARGS = {
     "solve": ([_P] * 6 + [_I] * 4 + [_D] * 8 + [_I, _I]    # tau .. valid
               + [_I, _I, _I, _P, _P, _P, _P, _P]           # tableau
-              + _PLAN_CONSTS + [_P]),
+              + _PLAN_CONSTS + [_P, _L, _I, _P]),          # grid, stream
     "fixed": ([_P] * 7 + [_I] * 5 + [_D, _I]               # grid .. valid
               + [_I, _P, _P, _P]                           # tableau
               + _PLAN_CONSTS + [_P]),
@@ -164,7 +166,7 @@ _PLAN_ARGS = {
               + _PLAN_CONSTS + [_P]),
     "vcabm": ([_P] * 6 + [_I] * 4 + [_D] * 8             # tau .. dfactor
               + [_I] * 3 + [_P]                           # .. gstar
-              + _PLAN_CONSTS + [_P]),
+              + _PLAN_CONSTS + [_P, _L, _I, _P]),         # grid, stream
     # K12: two plans' constants (csrc/plan_rhs.cuh launch_plan_hyper).
     "hyper": ([_P] * 6 + [_I] * 5 + [_D] + [_I] * 3       # grid .. grid_is_t
               + [_P, _I, _P, _I] * 2 + [_P]),

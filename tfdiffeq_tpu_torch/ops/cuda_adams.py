@@ -25,7 +25,11 @@ kernels operation for operation on the batch-major [B, D] layout, the
 batch sums in the kernels' fixed order (`_owned_sums`, then `_tree_sum`)
 and every scalar of the VCABM machinery as a 0-d tensor on the state's
 device, so that a kernel run equals its plain version on the same card to
-the bit. Both take the narrow and wide routes of `cuda_kernels._route`;
+the bit. K11 runs on a grid of `n_blocks` blocks (`cuda_kernels.
+solve_blocks`: one per SM), each owning a contiguous range of the samples,
+under one controller; its plain version takes every batch sum in the
+grid's order for the same n_blocks (`cuda_kernels._grid_sum`), one block
+on the CPU. Both take the narrow and wide routes of `cuda_kernels._route`;
 neither takes a reduced dot precision (the reference refuses the tiers
 for the Adams kernels) nor `rhs='cnf'`. Not ported: the TPU machinery of
 the reference (`pack` sublane packing, `n_blocks` grid blocks, padded
@@ -44,10 +48,12 @@ import torch
 
 from . import _build
 from .cuda_fixed import hermite_drain_plain
-from .cuda_kernels import (_ACT_CODES, _check_activations, _check_float,
-                           _check_mlp, _count, _device_kind, _dims_arg,
-                           _increasing, _net_plain, _owned_sums, _ptr,
-                           _route, _solve_setup, _stream, _tree_sum)
+from .cuda_kernels import (_ACT_CODES, _block_index, _check_activations,
+                           _check_blocks, _check_float, _check_mlp, _count,
+                           _device_kind, _dims_arg, _grid_sum, _increasing,
+                           _net_plain, _owned_sums, _ptr, _route,
+                           _shares_work, _solve_setup, _stream, _tree_sum,
+                           solve_blocks)
 from .tableaus import RK4
 from ..solvers.adams import GAMMA_STAR
 from ..solvers.fixed_adams import (BASHFORTH_TABLE, MAX_ORDER,
@@ -55,10 +61,9 @@ from ..solvers.fixed_adams import (BASHFORTH_TABLE, MAX_ORDER,
 
 Tensor = torch.Tensor
 
-#: Threads of K10's one block for fixed_adams and of K11's one block
-#: (csrc/adams_kernel.cu kAdamsThreads, csrc/vcabm_kernel.cu
-#: kVcabmThreads): thread i owns samples i, i + threads, ... of the batch
-#: sums.
+#: Threads of K10's one block for fixed_adams and of each K11 block
+#: (csrc/adams_kernel.cu kAdamsThreads, csrc/rk_vcabm.cuh kVcabmThreads):
+#: thread i owns samples i, i + threads, ... of its block's batch sums.
 ADAMS_THREADS = 512
 VCABM_THREADS = 512
 #: Threads of an explicit_adams block, one sample a thread.
@@ -309,9 +314,10 @@ def mlp_solve_adams(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
 # K11: the whole VCABM solve (pallas_vcabm.py:51)
 # ---------------------------------------------------------------------------
 
-def _batch_rms(x: Tensor, denom: Tensor) -> Tensor:
-    """sqrt(sum(x^2) / denom), the sum in K11's order."""
-    return torch.sqrt(_tree_sum(_owned_sums(x * x, VCABM_THREADS)) / denom)
+def _batch_rms(x: Tensor, denom: Tensor, owned: Tensor) -> Tensor:
+    """sqrt(sum(x^2) / denom), the sum in the order of K11's grid (owned:
+    `_block_index(B, n_blocks, VCABM_THREADS)`)."""
+    return torch.sqrt(_grid_sum(x * x, owned) / denom)
 
 
 def _vcabm_dt(dt: Tensor, ratio: Tensor, order: int, accepted: bool,
@@ -337,8 +343,8 @@ def mlp_solve_vcabm_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                           input_power: int = 1, time_input: bool = False,
                           max_order: int = MAX_ORDER,
                           safety: float = 0.9, ifactor: float = 10.0,
-                          dfactor: float = 0.2, max_steps: int = _INT32_MAX
-                          ) -> Tuple[Tensor, Tensor]:
+                          dfactor: float = 0.2, max_steps: int = _INT32_MAX,
+                          n_blocks: int = None) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K11. Same contract as `mlp_solve_vcabm`,
     except that f0 is required."""
     f = _signed_net(warrays, dims, sign, y0.dtype, y0.device, activation,
@@ -346,23 +352,30 @@ def mlp_solve_vcabm_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     return vcabm_solve_plain(f, y0, f0, tau, dt0, rtol, atol,
                              max_order=max_order, safety=safety,
                              ifactor=ifactor, dfactor=dfactor,
-                             max_steps=max_steps)
+                             max_steps=max_steps, n_blocks=n_blocks)
 
 
 def vcabm_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
                       atol, *, max_order: int = MAX_ORDER,
                       safety: float = 0.9, ifactor: float = 10.0,
-                      dfactor: float = 0.2, max_steps: int = _INT32_MAX
-                      ) -> Tuple[Tensor, Tensor]:
+                      dfactor: float = 0.2, max_steps: int = _INT32_MAX,
+                      n_blocks: int = None) -> Tuple[Tensor, Tensor]:
     """K11's engine: a host loop of attempts that mirrors
     `_make_vcabm_kernel` line for line, every scalar a 0-d tensor on y0's
     device (one synchronisation per attempt, two for an accepted one).
     f(s, y) is the canonical (signed) right-hand side, f0 = f(tau[0], y0).
-    Shared by the MLP route (`mlp_solve_vcabm_plain`) and the plan route
+    Every batch sum is taken in the order of K11's grid of `n_blocks`
+    blocks (None: the kernel's grid for y0's device, `solve_blocks`; one
+    block on the CPU, the one-block order). Shared by the MLP route
+    (`mlp_solve_vcabm_plain`) and the plan route
     (`cuda_plan.plan_solve_vcabm_plain`)."""
     MO = check_max_order(max_order)
     K = MO + 2
     dev, dtype = y0.device, y0.dtype
+    _check_blocks(n_blocks)
+    owned = _block_index(y0.shape[0],
+                         n_blocks or solve_blocks(y0.shape[0], dev),
+                         VCABM_THREADS, dev)
     T = tau.shape[0]
     tau_h, dt_min, dt0, valid = _solve_setup(tau, dt0, dtype)
     on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
@@ -426,7 +439,7 @@ def vcabm_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
         y_next = p_next + (dt * g[cidx]) * phip[cidx]
         scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y_next))
         error_k = _batch_rms(((dt * (g[order] - g[om1])) * phip[order])
-                             / scale, denom)
+                             / scale, denom, owned)
         finite = torch.isfinite(error_k) & torch.all(torch.isfinite(y_next))
         ok = (error_k <= 1.0) & finite
         hit = ok & (next_t >= final_t)
@@ -445,11 +458,11 @@ def vcabm_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
                     run = run + ephi[j]
             errs = torch.stack([
                 _batch_rms(((dt * (g[om1] - g[om2])) * phip[om1]) / scale,
-                           denom),
+                           denom, owned),
                 _batch_rms(((dt * (g[om2] - g[om3])) * phip[om2]) / scale,
-                           denom),
+                           denom, owned),
                 _batch_rms(((dt * gstar[order]) * new_phi[order]) / scale,
-                           denom),
+                           denom, owned),
                 error_k])
             e_km1, e_km2, e_kp1, e_k = errs.tolist()
             if nacc + 1 <= 4 or order < 3:
@@ -493,7 +506,8 @@ def mlp_solve_vcabm(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
                     input_power: int = 1, time_input: bool = False,
                     max_order: int = MAX_ORDER, safety: float = 0.9,
                     ifactor: float = 10.0, dfactor: float = 0.2,
-                    max_steps: int = _INT32_MAX) -> Tuple[Tensor, Tensor]:
+                    max_steps: int = _INT32_MAX, n_blocks: int = None
+                    ) -> Tuple[Tensor, Tensor]:
     """Whole-solve fused VCABM ('adams') for a general MLP neural ODE, one
     kernel launch: the g / beta / c recurrences, the phi stacks, predictor
     and corrector, the batch-wide errors at orders k - 2 .. k + 1, the
@@ -511,8 +525,14 @@ def mlp_solve_vcabm(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
     caller's), accepted, rejected, status). Status: 0 OK, 1
     MAX_STEPS_REACHED, 2 DT_UNDERFLOW, 3 INVALID_TIMES (tau not strictly
     increasing; the output is then zero beyond row 0).
+
+    n_blocks: the kernel's grid, each block a contiguous range of the
+    samples (None: `cuda_kernels.solve_blocks`, one block per SM); it
+    changes only the order of the batch sums, which the plain version
+    repeats for the same n_blocks.
     """
     _check_activations(activation, final_activation)
+    _check_blocks(n_blocks)
     MO = check_max_order(max_order)
     if tau.shape[0] < 2:
         raise ValueError("mlp_solve_vcabm needs at least two output times")
@@ -526,7 +546,7 @@ def mlp_solve_vcabm(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
         return mlp_solve_vcabm_plain(
             warrays, dims, y0, tau, dt0, rtol, atol, sign, f0=f0,
             max_order=MO, safety=safety, ifactor=ifactor, dfactor=dfactor,
-            max_steps=max_steps, **kw)
+            max_steps=max_steps, n_blocks=n_blocks, **kw)
 
     global mlp_solve_vcabm_launches
     B, D = y0.shape
@@ -538,7 +558,12 @@ def mlp_solve_vcabm(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
     K = MO + 2
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
-    work = torch.empty((2 + 3 * K) * B * D, dtype=dtype, device=y0.device)
+    # csrc/rk_vcabm.cuh vcabm_state_rows: y, y_next, the evaluation and the
+    # three phi stacks (the kernel keeps a block's rows in its shared
+    # memory where they fit).
+    work = torch.empty((3 + 3 * K) * B * D, dtype=dtype, device=y0.device)
+    nb = n_blocks or solve_blocks(B, y0.device)
+    gwork = _shares_work(nb, 3, dtype, y0.device)
     gstar = (ctypes.c_double * (K + 1))(*GAMMA_STAR[:K + 1].tolist())
     # Named, so that it lives until the launch has read it.
     tau_d = tau_h.to(y0.device)
@@ -553,7 +578,8 @@ def mlp_solve_vcabm(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
                  int(min(max_steps, _INT32_MAX)), int(valid), MO, gstar,
                  len(dims), _dims_arg(dims), _ACT_CODES[activation],
                  _ACT_CODES[final_activation], int(input_power),
-                 int(time_input), route, _stream(y0.device))
+                 int(time_input), route, _ptr(gwork), gwork.numel(), nb,
+                 _stream(y0.device))
     _build.check(err, "mlp_solve_vcabm launch")
     mlp_solve_vcabm_launches += 1
     return out, stats

@@ -13,7 +13,7 @@ quadratures, the error norm and the shared controller.
 
 The wrapper takes the plain version (`mlp_adjoint_solve_plain`) only for
 tensors on the CPU; a CUDA tensor launches the kernel or raises. The kernel
-runs on a grid of `n_blocks` blocks, all resident together (`adjoint_blocks`
+runs on a grid of `n_blocks` blocks, all resident together (`solve_blocks`
 chooses it: one per SM, fewer for a batch smaller than the card), each
 owning a contiguous range of the samples and of the parameters. The plain
 version mirrors the kernel attempt for attempt, with one host
@@ -47,13 +47,14 @@ import torch
 
 from . import _build
 from .cuda_kernels import (ROUTE_WIDE, _ACT_CODES, _ACTIVATION_GRAD2,
-                           _ACTIVATION_GRADS, _ACTIVATIONS,
+                           _ACTIVATION_GRADS, _ACTIVATIONS, _block_index,
+                           _block_owned_sums, _check_blocks,
                            _check_activations, _check_cnf, _check_float,
                            _check_mlp, _check_rhs,
                            _controller_factor, _device_kind, _dims_arg,
-                           _dot_in_order, _ptr, _route,
-                           _solve_setup, _stream, _tableau_args, _tree_sum,
-                           _unpack)
+                           _dot_in_order, _gather, _merge_blocks, _ptr,
+                           _route, _solve_setup, _stream, _tableau_args,
+                           _tree_sum, _unpack, solve_blocks)
 from .tableaus import TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
@@ -82,29 +83,6 @@ def _lane_sums(x: Tensor) -> Tensor:
                                             x.device))[0]
 
 
-def _block_bounds(n: int, n_blocks: int) -> list:
-    """Ends of the kernel's ranges: block k owns items [e[k], e[k + 1]) with
-    e[k] = k n // n_blocks (samples and parameters alike)."""
-    return [k * n // n_blocks for k in range(n_blocks + 1)]
-
-
-def _block_index(n: int, n_blocks: int, width: int, device) -> Tensor:
-    """[n_blocks, K, width] item indices: slot j of round m of block k holds
-    item e[k] + j + width m, or n (a zero pad) past the block's range."""
-    e = _block_bounds(n, n_blocks)
-    K = -(-max(e[k + 1] - e[k] for k in range(n_blocks)) // width)
-    lo = torch.tensor(e[:-1]).view(-1, 1, 1)
-    hi = torch.tensor(e[1:]).view(-1, 1, 1)
-    idx = (lo + torch.arange(K).view(1, -1, 1) * width
-           + torch.arange(width).view(1, 1, -1))
-    return torch.where(idx < hi, idx, torch.full_like(idx, n)).to(device)
-
-
-def _gather(x: Tensor, idx: Tensor) -> Tensor:
-    """x [n, R] at idx, a zero row for the pad index n."""
-    return torch.cat([x, x.new_zeros(1, x.shape[1])])[idx]
-
-
 def _block_lane_sums(x: Tensor, idx: Tensor) -> Tensor:
     """Each block's sums of x [B, R] over its samples in K3's lane order
     (`_lane_sums` on its rows; idx from `_block_index(B, n_blocks,
@@ -114,29 +92,6 @@ def _block_lane_sums(x: Tensor, idx: Tensor) -> Tensor:
     for k in range(idx.shape[1]):
         acc = acc + xp[:, k]
     return _tree_sum(acc.transpose(1, 2))
-
-
-def _block_owned_sums(sq: Tensor, idx: Tensor, acc: Tensor = None
-                      ) -> Tensor:
-    """`cuda_kernels._owned_sums` in every block: thread i of block k owns
-    items e[k] + i, e[k] + i + threads, ... (idx from `_block_index(n,
-    n_blocks, threads)`) and adds their values in order, from 0 or acc
-    [n_blocks, threads]. Returns [n_blocks, threads]."""
-    sp = _gather(sq, idx)                        # [n_blocks, K, threads, C]
-    if acc is None:
-        acc = sq.new_zeros(idx.shape[0], idx.shape[2])
-    for k in range(idx.shape[1]):
-        for d in range(sq.shape[1]):
-            acc = acc + sp[:, k, :, d]
-    return acc
-
-
-def _merge_blocks(parts: Tensor) -> Tensor:
-    """parts[0] + parts[1] + ... in block order (dim 0)."""
-    acc = parts[0]
-    for k in range(1, parts.shape[0]):
-        acc = acc + parts[k]
-    return acc
 
 
 def _dot_t_in_order(wT: Tensor, x: Tensor) -> Tensor:
@@ -349,7 +304,7 @@ def mlp_adjoint_solve_plain(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     """Plain PyTorch version of K3: a host loop of attempts that mirrors
     `csrc/adjoint_kernel.cu` line for line, its sums in the order of a grid
     of `n_blocks` blocks (None: the kernel's grid for ys' device,
-    `adjoint_blocks`; one block on the CPU). Same contract as
+    `cuda_kernels.solve_blocks`; one block on the CPU). Same contract as
     `mlp_adjoint_solve`."""
     if _check_rhs(rhs):
         time_input = True
@@ -383,7 +338,7 @@ def adjoint_sweep_plain(aug, n_w: int, time_input: bool, n_ps: int,
     per-sample quadratures are integrated a sample each, and join the error
     norm after the sample's (y, a_y) (unless `seminorm`). n_blocks = 1 is
     the one-block order (`_lane_sums`); None the kernel's grid for ys'
-    device (`adjoint_blocks`: one block on the CPU).
+    device (`solve_blocks`: one block on the CPU).
 
     Returns (ay0 [B, D], aw [n_w], at (0-d), aps [B, n_ps], stats)."""
     tab = TABLEAUS_BY_NAME[method]
@@ -391,7 +346,7 @@ def adjoint_sweep_plain(aug, n_w: int, time_input: bool, n_ps: int,
     T, B, D = ys.shape
     S = tab.stages
     _check_blocks(n_blocks)
-    n_blocks = n_blocks or adjoint_blocks(B, dev)
+    n_blocks = n_blocks or solve_blocks(B, dev)
     lanes_of = _block_index(B, n_blocks, LANES, dev)
     samples_of = _block_index(B, n_blocks, ADJOINT_THREADS, dev)
     params_of = _block_index(n_w, n_blocks, ADJOINT_THREADS, dev)
@@ -542,29 +497,12 @@ def _wide_work_size(n_w: int, S: int, time_input: bool) -> int:
     return 2 * n_w + S * (n_w + int(time_input))
 
 
-def adjoint_blocks(B: int, device) -> int:
-    """K3's grid on `device`'s card: one block per SM, or one a sample when
-    the batch has fewer samples than the card has SMs (on the CPU the
-    plain version's default, one block)."""
-    if torch.device(device).type != "cuda":
-        return 1
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(B, sms))
-
-
 def _grid_work(S: int, n_blocks: int, n_red: int, dtype, device) -> Tensor:
     """K3's grid workspace (csrc/rk_adjoint.cuh rk_adjoint_grid_bytes): the
     meetings' counter, the stage partials and the error shares."""
     item = torch.empty((), dtype=dtype).element_size()
     n = 16 + (S * n_blocks * n_red + 2 * n_blocks) * item
     return torch.empty(n, dtype=torch.uint8, device=device)
-
-
-def _check_blocks(n_blocks) -> None:
-    if n_blocks is not None and (not isinstance(n_blocks, int)
-                                 or n_blocks < 1):
-        raise ValueError(f"n_blocks must be a positive int, got "
-                         f"{n_blocks!r}")
 
 
 def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
@@ -600,7 +538,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     final_activation and input_power do not apply. The error norm counts
     2 (D + 1) B + n_w + 1 values, 2 (D + 1) B with the seminorm.
 
-    n_blocks: the kernel's grid (None: `adjoint_blocks(B, device)`); every
+    n_blocks: the kernel's grid (None: `solve_blocks(B, device)`); every
     block is resident at once, or the launch raises. The sums' order, and
     so the float32 bits, depend on it; the plain version takes the same
     default (on the CPU, one block).
@@ -657,7 +595,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     n_pwork = (_wide_work_size(n_w, S, time_input) if route == ROUTE_WIDE
                else 0)
     pwork = torch.empty(n_pwork, dtype=dtype, device=ys.device)
-    nb = n_blocks or adjoint_blocks(B, ys.device)
+    nb = n_blocks or solve_blocks(B, ys.device)
     gwork = _grid_work(S, nb, n_w + int(time_input), dtype, ys.device)
     lib = _build.library()
     fn = (lib.tfd_mlp_adjoint_f32 if dtype == torch.float32

@@ -182,7 +182,8 @@ def conv_solve_plain(wpack: Tensor, spec: ConvODESpec, y0: Tensor,
         out, st = adaptive_solve_plain(
             f, y0[sl].reshape(-1, 1), f0[sl].reshape(-1, 1), tau, dt0[k],
             rtol, atol, tab, safety=safety, ifactor=ifactor,
-            dfactor=dfactor, max_steps=max_steps, threads=CONV_THREADS)
+            dfactor=dfactor, max_steps=max_steps, threads=CONV_THREADS,
+            n_blocks=1)
         outs.append(out.view((tau.shape[0], -1) + tuple(y0.shape[1:])))
         stats.append(st)
     return torch.cat(outs, dim=1), torch.stack(stats)

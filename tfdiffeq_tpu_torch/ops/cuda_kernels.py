@@ -31,8 +31,15 @@ here) only for tensors on the CPU, where there is no kernel; a CUDA tensor
 launches the kernel or raises, never falls back. The plain versions follow
 the JAX kernels operation for operation, on the batch-major [B, D] layout
 of the public functions: the TPU kernels' feature-major [D, B] layout and
-their sublane packing, VMEM budgets, grid blocks and streamed output are
-TPU machinery with no counterpart here.
+their sublane packing, VMEM budgets, grid blocks (a controller a slice) and
+streamed output are TPU machinery with no counterpart here.
+
+K2 runs on a grid of `n_blocks` blocks, all resident together
+(`solve_blocks`: one per SM, fewer for a small batch), each owning a
+contiguous range of the samples, under ONE step controller: the blocks
+meet once an attempt for the error sum, which they add in block order. Its
+plain version takes that sum in the same order for the same n_blocks
+(`_grid_sum`), one block on the CPU, so the two take the same steps.
 
 `dopri5_mlp_step_launches` and `mlp_solve_launches` count kernel launches
 (never plain-version calls), `cnf_solve_launches` the K2 launches with K7's
@@ -68,8 +75,11 @@ ROUTE_NARROW, ROUTE_WIDE, ROUTE_BATCH = 0, 1, 2
 STEP_MAX_D = 16
 #: Threads per K1 block; each block writes one partial error sum.
 STEP_THREADS = 256
-#: Threads of K2's one block (at most csrc/solve_kernel.cu kSolveThreads).
+#: Threads of each K2 block (at most csrc/rk_solve.cuh kSolveThreads).
 SOLVE_THREADS = 512
+#: Samples a unit of K2's batch-route grid: K4's tile rows (a block owns
+#: whole tiles; csrc/solve_kernel.cu MlpSolveRhs::kUnit).
+TILE_ROWS = 16
 #: Shared memory a kernel may give the packed weights (the card has 227 KB
 #: per block; 4 KB stay for the reduction and the tableau). An MLP kernel
 #: whose narrow-route share does not fit takes the wide route.
@@ -348,6 +358,108 @@ def _owned_sums(sq: Tensor, threads: int, acc: Tensor = None) -> Tensor:
         for d in range(D):
             acc = acc + sq[k, :, d]
     return acc
+
+
+# ---------------------------------------------------------------------------
+# The grids of K2, K3 and K11: n_blocks blocks, block k owning a contiguous
+# range of the items (samples, or K3's parameters), and the kernels' batch
+# sums in their order: each block's own (its threads' in-order sums, then
+# `_tree_sum`), the blocks' partials then added in block order.
+# ---------------------------------------------------------------------------
+
+def _block_bounds(n: int, n_blocks: int, unit: int = 1) -> list:
+    """Ends of the kernel's ranges: block k owns items [e[k], e[k + 1]) with
+    e[k] = min(n, unit (k U // n_blocks)), U = ceil(n / unit) units of
+    `unit` items (samples and parameters alike; K2's batch route takes
+    units of K4's 16-row tiles). unit = 1 gives e[k] = k n // n_blocks."""
+    units = -(-n // unit)
+    return [min(n, unit * (k * units // n_blocks))
+            for k in range(n_blocks + 1)]
+
+
+def _block_index(n: int, n_blocks: int, width: int, device,
+                 unit: int = 1) -> Tensor:
+    """[n_blocks, K, width] item indices: slot j of round m of block k holds
+    item e[k] + j + width m, or n (a zero pad) past the block's range."""
+    e = _block_bounds(n, n_blocks, unit)
+    K = -(-max(e[k + 1] - e[k] for k in range(n_blocks)) // width)
+    lo = torch.tensor(e[:-1]).view(-1, 1, 1)
+    hi = torch.tensor(e[1:]).view(-1, 1, 1)
+    idx = (lo + torch.arange(K).view(1, -1, 1) * width
+           + torch.arange(width).view(1, 1, -1))
+    return torch.where(idx < hi, idx, torch.full_like(idx, n)).to(device)
+
+
+def _gather(x: Tensor, idx: Tensor) -> Tensor:
+    """x [n, R] at idx, a zero row for the pad index n."""
+    return torch.cat([x, x.new_zeros(1, x.shape[1])])[idx]
+
+
+def _block_owned_sums(sq: Tensor, idx: Tensor, acc: Tensor = None
+                      ) -> Tensor:
+    """`_owned_sums` in every block: thread i of block k owns items
+    e[k] + i, e[k] + i + threads, ... (idx from `_block_index(n, n_blocks,
+    threads)`) and adds their values in order, from 0 or acc
+    [n_blocks, threads]. Returns [n_blocks, threads]."""
+    sp = _gather(sq, idx)                        # [n_blocks, K, threads, C]
+    if acc is None:
+        acc = sq.new_zeros(idx.shape[0], idx.shape[2])
+    for k in range(idx.shape[1]):
+        for d in range(sq.shape[1]):
+            acc = acc + sp[:, k, :, d]
+    return acc
+
+
+def _merge_blocks(parts: Tensor) -> Tensor:
+    """parts[0] + parts[1] + ... in block order (dim 0)."""
+    acc = parts[0]
+    for k in range(1, parts.shape[0]):
+        acc = acc + parts[k]
+    return acc
+
+
+def _grid_sum(sq: Tensor, owned: Tensor) -> Tensor:
+    """The sum of sq [B, C] in a grid's order (owned: `_block_index(B,
+    n_blocks, threads)`): each block's `_block_owned_sums` and `_tree_sum`,
+    then the blocks' shares in block order. At n_blocks = 1 it is
+    `_tree_sum(_owned_sums(sq, threads))` to the bit. Returns 0-d.
+
+    The shares are added one at a time in their dtype on the host (numpy's
+    adds round as the card's do), one copy instead of a launch a share."""
+    shares = _tree_sum(_block_owned_sums(sq, owned))
+    if shares.shape[0] == 1:
+        return shares[0]
+    host = shares.cpu().numpy()
+    acc = host[0]
+    for v in host[1:]:
+        acc = acc + v
+    return torch.tensor(acc, dtype=shares.dtype, device=shares.device)
+
+
+def _check_blocks(n_blocks) -> None:
+    if n_blocks is not None and (not isinstance(n_blocks, int)
+                                 or n_blocks < 1):
+        raise ValueError(f"n_blocks must be a positive int, got "
+                         f"{n_blocks!r}")
+
+
+def solve_blocks(B: int, device, unit: int = 1) -> int:
+    """The grid of K2, K3 and K11 on `device`'s card: one block per SM, or
+    one a unit of `unit` samples (1; 16 on K2's batch route, K4's tiles)
+    when the batch has fewer units than the card has SMs. On the CPU the
+    plain versions' default, one block."""
+    if torch.device(device).type != "cuda":
+        return 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-B // unit), sms))
+
+
+def _shares_work(n_blocks: int, n_values: int, dtype, device) -> Tensor:
+    """A solve's grid workspace (csrc/grid_meet.cuh grid_shares_bytes): the
+    meetings' counter and two buffers of n_values shares a block."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return torch.empty(16 + 2 * n_blocks * n_values * item,
+                       dtype=torch.uint8, device=device)
 
 
 def _count(y: Tensor) -> Tensor:
@@ -780,9 +892,12 @@ def mlp_solve_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
                     method: str = "dopri5", safety: float = 0.9,
                     ifactor: float = 10.0, dfactor: float = 0.2,
                     max_steps: int = 2 ** 31 - 1,
-                    tiers=None, rhs: str = "mlp") -> Tuple[Tensor, Tensor]:
+                    tiers=None, rhs: str = "mlp", n_blocks: int = None
+                    ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K2: a host loop of attempts that mirrors
-    `_make_solve_kernel` line for line (one synchronisation per attempt).
+    `_make_solve_kernel` line for line (one synchronisation per attempt),
+    the error sum in the order of a grid of `n_blocks` blocks (None: the
+    kernel's grid for y0's device, `solve_blocks`; one block on the CPU).
     Same contract as `mlp_solve`, except that f0 is required."""
     sign_d = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     if _check_rhs(rhs):
@@ -798,20 +913,38 @@ def mlp_solve_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
     return adaptive_solve_plain(
         f, y0, f0, tau, dt0, rtol, atol, TABLEAUS_BY_NAME[method],
         safety=safety, ifactor=ifactor, dfactor=dfactor,
-        max_steps=max_steps, threads=SOLVE_THREADS)
+        max_steps=max_steps, threads=SOLVE_THREADS, n_blocks=n_blocks,
+        unit=_solve_unit(dims, y0, tiers))
+
+
+def _solve_unit(dims, y0: Tensor, tiers) -> int:
+    """Samples a unit of K2's grid on the wrapper's route: TILE_ROWS on the
+    batch route, else 1."""
+    n_w = sum(din * dout + dout for din, dout in dims)
+    route = _route("mlp_solve", dims, n_w, y0.element_size(), tiers)
+    return TILE_ROWS if route == ROUTE_BATCH else 1
 
 
 def adaptive_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
                          atol, tab: ButcherTableau, *, safety: float,
                          ifactor: float, dfactor: float, max_steps: int,
-                         threads: int) -> Tuple[Tensor, Tensor]:
+                         threads: int, n_blocks: int = None, unit: int = 1
+                         ) -> Tuple[Tensor, Tensor]:
     """The whole-solve kernels' engine (`_make_solve_kernel`) as a host
     loop of attempts, one synchronisation each: f(s, y) is the canonical
-    (signed) right-hand side on y0's [rows, D] layout; thread i of the
-    kernel's `threads` owns rows i, i + threads, ... of the error sum.
+    (signed) right-hand side on y0's [rows, D] layout. The error sum is
+    taken in the order of K2's grid of `n_blocks` blocks, each of
+    `threads` threads (`_grid_sum`): block k owns the rows [e[k], e[k + 1])
+    of `_block_bounds(rows, n_blocks, unit)` and its thread i the rows
+    e[k] + i, e[k] + i + threads, ...; n_blocks = 1 is the one-block order
+    (K13 runs a controller a block: its plain version passes 1); None the
+    kernel's grid for y0's device (`solve_blocks`: one block on the CPU).
     Returns (out [T, rows, D], stats [4] int32)."""
     dev, dtype = y0.device, y0.dtype
     T = tau.shape[0]
+    _check_blocks(n_blocks)
+    n_blocks = n_blocks or solve_blocks(y0.shape[0], dev, unit)
+    owned = _block_index(y0.shape[0], n_blocks, threads, dev, unit)
     tau_h, dt_min, dt0, valid = _solve_setup(tau, dt0, dtype)
     on = lambda v: torch.as_tensor(v, dtype=dtype).to(dev)
     tau_d = on(tau_h)
@@ -839,7 +972,7 @@ def adaptive_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
         esc = err / scale
         # The kernel's fixed reduction order, so that a float64 solve takes
         # the kernel's exact step sequence.
-        ss = _tree_sum(_owned_sums(esc * esc, threads))
+        ss = _grid_sum(esc * esc, owned)
         ratio = torch.sqrt(ss / denom)
         fin = torch.isfinite(ss) & torch.all(torch.isfinite(y1))
         # The attempt's one synchronisation.
@@ -896,7 +1029,8 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
               time_input: bool = False, method: str = "dopri5",
               safety: float = 0.9, ifactor: float = 10.0,
               dfactor: float = 0.2, max_steps: int = 2 ** 31 - 1,
-              tiers=None, rhs: str = "mlp") -> Tuple[Tensor, Tensor]:
+              tiers=None, rhs: str = "mlp", n_blocks: int = None
+              ) -> Tuple[Tensor, Tensor]:
     """Whole-solve fused adaptive RK for a general MLP neural ODE: every
     stage evaluation, combine, error norm, controller decision and
     dense-output write of the solve runs in one kernel launch.
@@ -926,6 +1060,13 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     and its exact divergence, F = [f; -div f]. The error norm and the dense
     output cover all D + 1 columns. f0 is required, as in the reference,
     and the layers take no reduced tier.
+
+    n_blocks: the kernel's grid, each block a contiguous range of the
+    samples (None: `solve_blocks`, one block per SM; on the batch route a
+    block owns whole 16-row tiles, at most one block a tile). Every block
+    takes the one controller's same decisions; the grid changes only the
+    order of the error sum (the plain version repeats it for the same
+    n_blocks). A grid that cannot be resident together raises.
     """
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
@@ -949,6 +1090,7 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
         tau0 = torch.as_tensor(tau[0], dtype=dtype).to(y0.device)
         f0 = sgn * _net_plain(warrays, dims, activation, final_activation,
                               input_power, time_input)(sgn * tau0, y0)
+    _check_blocks(n_blocks)
     kind = _device_kind(y0, f0, warrays)
     if kind == "cpu":
         return mlp_solve_plain(
@@ -956,7 +1098,7 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
             activation=activation, final_activation=final_activation,
             input_power=input_power, time_input=time_input, method=method,
             safety=safety, ifactor=ifactor, dfactor=dfactor,
-            max_steps=max_steps, tiers=tiers, rhs=rhs)
+            max_steps=max_steps, tiers=tiers, rhs=rhs, n_blocks=n_blocks)
 
     global mlp_solve_launches, dot_tier_launches, cnf_solve_launches
     if dtype not in (torch.float32, torch.float64):
@@ -988,6 +1130,13 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     n_batch = (_tier_work_bytes(dims, _pad16(B), y0.element_size())
                if route == ROUTE_BATCH else 0)
     batch_work = torch.empty(n_batch, dtype=torch.uint8, device=y0.device)
+    nb = n_blocks or solve_blocks(B, y0.device, TILE_ROWS
+                                  if route == ROUTE_BATCH else 1)
+    if route == ROUTE_BATCH and nb > -(-B // TILE_ROWS):
+        raise ValueError(f"mlp_solve: the batch route takes at most one "
+                         f"block a tile of {TILE_ROWS} samples, "
+                         f"{-(-B // TILE_ROWS)} here; got n_blocks={nb}")
+    gwork = _shares_work(nb, 2, dtype, y0.device)
     lib = _build.library()
     fn = (lib.tfd_mlp_solve_f32 if dtype == torch.float32
           else lib.tfd_mlp_solve_f64)
@@ -1003,7 +1152,8 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
                  _ACT_CODES[final_activation], int(input_power),
                  int(time_input), S, tab.order, int(tab.fsal), c, a, b_sol,
                  b_err, c_mid, route, _tiers_arg(tiers), _ptr(batch_work),
-                 n_batch, int(cnf), _stream(y0.device))
+                 n_batch, int(cnf), _ptr(gwork), gwork.numel(), nb,
+                 _stream(y0.device))
     _build.check(err, "mlp_solve launch")
     mlp_solve_launches += 1
     dot_tier_launches += route == ROUTE_BATCH

@@ -15,9 +15,10 @@ library a structure and host, built at first use
 (`_build.plan_libraries`).
 
 - `plan_solve`: K2 with the plan, one step controller over the batch. An
-  uncoupled plan is evaluated a sample a thread; a plan with batch
-  couplings ('bsum', 'bmax') batch-wide, every stage segment by segment
-  with a block meet at each coupling. With `per_sample=True`, K5: a
+  uncoupled plan is evaluated a sample a thread, over K2's grid of one
+  block per SM; a plan with batch couplings ('bsum', 'bmax') batch-wide,
+  every stage segment by segment with a block meet at each coupling, on
+  one block (`plan_blocks`). With `per_sample=True`, K5: a
   controller a sample (uncoupled plans only; a coupled one raises
   ValueError, as the reference's front end does).
 - `plan_solve_fixed`: K8 with the plan on a fixed grid (uncoupled plans
@@ -25,8 +26,8 @@ library a structure and host, built at first use
   item 16).
 - `plan_solve_adams` (explicit_adams, fixed_adams) and `plan_solve_vcabm`
   ('adams'): K10 and K11 with the plan, a sample a thread in the kernels'
-  own layouts; a coupled plan raises NotImplementedError (ROADMAP.md
-  queue 2 item 3).
+  own layouts (K11 over its grid); a coupled plan raises
+  NotImplementedError (ROADMAP.md queue 2 item 3).
 - `plan_solve_hyper`: K12, the hypersolvers, with two plans, the dynamics
   and the correction net over the stacked [y, f_user]; f's constants in
   shared memory first, g's after them when both fit (`last_route['hyper']`
@@ -84,14 +85,13 @@ from . import _build, plan_codegen
 from .cuda_adams import (ADAMS_EXPLICIT_THREADS, ADAMS_THREADS,
                          VCABM_THREADS, _adams_nfe, adams_solve_plain,
                          vcabm_solve_plain)
-from .cuda_adjoint import (ADJOINT_THREADS, _check_blocks, _grid_work,
-                           adjoint_blocks, adjoint_sweep_plain)
+from .cuda_adjoint import ADJOINT_THREADS, _grid_work, adjoint_sweep_plain
 from .cuda_fixed import (FIXED_THREADS, fixed_adjoint_plain,
                          fixed_solve_plain, hermite_drain_plain)
-from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS,
+from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS, _check_blocks,
                            _check_float, _device_kind, _increasing, _ptr,
-                           _solve_setup, _stream, _tableau_args,
-                           adaptive_solve_plain)
+                           _shares_work, _solve_setup, _stream,
+                           _tableau_args, adaptive_solve_plain, solve_blocks)
 from .cuda_perlane import (PERLANE_THREADS, _lane_setup,
                            perlane_adjoint_plain, perlane_solve_plain)
 from .plan_adjoint import aug_terms, split_consts
@@ -205,10 +205,12 @@ def plan_solve_plain(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                      tau: Tensor, dt0, rtol, atol, sign, f0: Tensor, *,
                      method: str = "dopri5", safety: float = 0.9,
                      ifactor: float = 10.0, dfactor: float = 0.2,
-                     max_steps: int = 2 ** 31 - 1, per_sample: bool = False):
+                     max_steps: int = 2 ** 31 - 1, per_sample: bool = False,
+                     n_blocks: int = None):
     """Plain PyTorch version of `plan_solve`, on y0's device: K2's engine
-    (`cuda_kernels.adaptive_solve_plain`, batch sums in the block's order)
-    or with per_sample K5's (`cuda_perlane.perlane_solve_plain`), the plan
+    (`cuda_kernels.adaptive_solve_plain`, the error sum in the order of a
+    grid of `n_blocks` blocks; None: the kernel's grid, `plan_blocks`) or
+    with per_sample K5's (`cuda_perlane.perlane_solve_plain`), the plan
     evaluated by `eval_plan`. Same contract."""
     tab = TABLEAUS_BY_NAME[method]
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
@@ -218,15 +220,33 @@ def plan_solve_plain(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     if per_sample:
         return perlane_solve_plain(g, y0, f0, tau, dt0, rtol, atol, tab,
                                    **kw)
-    return adaptive_solve_plain(g, y0, f0, tau, dt0, rtol, atol, tab,
-                                threads=SOLVE_THREADS, **kw)
+    return adaptive_solve_plain(
+        g, y0, f0, tau, dt0, rtol, atol, tab, threads=SOLVE_THREADS,
+        n_blocks=n_blocks or plan_blocks(plan, y0.shape[0], y0.device), **kw)
+
+
+def plan_blocks(plan: FusedPlan, B: int, device) -> int:
+    """The grid of K2, K3 or K11 for a plan: `cuda_kernels.solve_blocks`,
+    or one block for a coupled plan (its evaluation meets the block inside
+    a stage)."""
+    return 1 if plan.batch_coupled else solve_blocks(B, device)
+
+
+def _plan_grid(plan: FusedPlan, n_blocks, what: str) -> None:
+    """Refuse a grid of more than one block for a coupled plan, before any
+    launch."""
+    _check_blocks(n_blocks)
+    if (n_blocks or 1) != 1 and plan.batch_coupled:
+        raise ValueError(f"a coupled plan's {what} runs on one block, got "
+                         f"n_blocks={n_blocks}")
 
 
 def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                tau: Tensor, dt0, rtol, atol, sign, f0: Tensor, *,
                method: str = "dopri5", safety: float = 0.9,
                ifactor: float = 10.0, dfactor: float = 0.2,
-               max_steps: int = 2 ** 31 - 1, per_sample: bool = False):
+               max_steps: int = 2 ** 31 - 1, per_sample: bool = False,
+               n_blocks: int = None):
     """Whole-solve adaptive RK with the plan as right-hand side, one launch.
 
     packed: `plan_bridge.pack_consts`' output; y0, f0: [B, D] state and its
@@ -235,6 +255,10 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     for all). Returns (out [T, B, D], stats [4] int32), and with
     per_sample also lane_stats [4, B], as `cuda_kernels.mlp_solve` and
     `cuda_perlane.mlp_solve_perlane` do.
+
+    n_blocks: K2's grid (None: `plan_blocks`, one block per SM); a coupled
+    plan runs on one block and refuses another count (ValueError). K5
+    (per_sample) takes no grid argument.
     """
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
@@ -246,12 +270,16 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
             "would mix samples at different times")
     if max_steps < 1:
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+    _plan_grid(plan, n_blocks, "solve")
+    if per_sample and n_blocks is not None:
+        raise ValueError("per_sample=True (K5) takes no n_blocks")
     tab = TABLEAUS_BY_NAME[method]
     if _device_kind(y0, f0) == "cpu":
         return plan_solve_plain(plan, packed, y0, tau, dt0, rtol, atol, sign,
                                 f0, method=method, safety=safety,
                                 ifactor=ifactor, dfactor=dfactor,
-                                max_steps=max_steps, per_sample=per_sample)
+                                max_steps=max_steps, per_sample=per_sample,
+                                n_blocks=n_blocks)
 
     global plan_solve_launches, plan_perlane_launches
     consts, sample_consts = _inputs(plan, packed, y0, f0)
@@ -300,6 +328,8 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
         # the reduced values (csrc/plan_rhs.cuh PlanBatchRhs).
         n_work += B * (2 * D + lay.live_rows) + lay.red_values
     work = torch.empty(n_work, dtype=dtype, device=dev)
+    nb = n_blocks or plan_blocks(plan, B, dev)
+    gwork = _shares_work(nb, 2, dtype, dev)
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
             _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out), _ptr(stats),
@@ -307,7 +337,8 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
             float(atol), float(dt_min), float(sign), float(safety),
             float(ifactor), float(dfactor), steps, int(valid), S, tab.order,
             int(tab.fsal), c, a, b_sol, b_err, c_mid, _ptr(consts),
-            lay.n_consts, _ptr(sample_consts), int(smem), _stream(dev))
+            lay.n_consts, _ptr(sample_consts), int(smem), _ptr(gwork),
+            gwork.numel(), nb, _stream(dev))
     _check(lib, err, "plan_solve launch")
     plan_solve_launches += 1
     return out, stats
@@ -463,29 +494,34 @@ def plan_solve_vcabm_plain(plan: FusedPlan, packed: Sequence[Tensor],
                            f0: Tensor, *, max_order: int = 12,
                            safety: float = 0.9, ifactor: float = 10.0,
                            dfactor: float = 0.2,
-                           max_steps: int = 2 ** 31 - 1
+                           max_steps: int = 2 ** 31 - 1,
+                           n_blocks: int = None
                            ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of `plan_solve_vcabm`, on y0's device: K11's
-    engine (`cuda_adams.vcabm_solve_plain`) with `eval_plan`."""
+    engine (`cuda_adams.vcabm_solve_plain`, its sums in the order of a grid
+    of `n_blocks` blocks; None: the kernel's grid) with `eval_plan`."""
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
     return vcabm_solve_plain(g, y0, f0, tau, dt0, rtol, atol,
                              max_order=max_order, safety=safety,
                              ifactor=ifactor, dfactor=dfactor,
-                             max_steps=max_steps)
+                             max_steps=max_steps, n_blocks=n_blocks)
 
 
 def plan_solve_vcabm(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                      tau: Tensor, dt0, rtol, atol, sign, f0: Tensor, *,
                      max_order: int = 12, safety: float = 0.9,
                      ifactor: float = 10.0, dfactor: float = 0.2,
-                     max_steps: int = 2 ** 31 - 1) -> Tuple[Tensor, Tensor]:
+                     max_steps: int = 2 ** 31 - 1, n_blocks: int = None
+                     ) -> Tuple[Tensor, Tensor]:
     """Whole-solve VCABM ('adams') with the plan as right-hand side, one K11
     launch (reference `pallas_vcabm.py:449`). tau: [T] increasing canonical
     times; dt0: the first step, clamped to the span-scaled minimum; f0: the
-    signed derivative at tau[0]; max_steps caps the attempts. Returns (out
+    signed derivative at tau[0]; max_steps caps the attempts; n_blocks:
+    K11's grid (None: `plan_blocks`, one block per SM). Returns (out
     [T, B, D], stats [4] int32), as `cuda_adams.mlp_solve_vcabm` does."""
     _refuse_coupled([plan], "K11")
+    _check_blocks(n_blocks)
     MO = check_max_order(max_order)
     if tau.shape[0] < 2:
         raise ValueError("plan_solve_vcabm needs at least two output times")
@@ -495,7 +531,7 @@ def plan_solve_vcabm(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
               max_steps=int(max_steps))
     if _device_kind(y0, f0) == "cpu":
         return plan_solve_vcabm_plain(plan, packed, y0, tau, dt0, rtol, atol,
-                                      sign, f0, **kw)
+                                      sign, f0, n_blocks=n_blocks, **kw)
 
     global plan_vcabm_launches
     consts, sample_consts = _inputs(plan, packed, y0, f0)
@@ -511,7 +547,10 @@ def plan_solve_vcabm(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     K = MO + 2
     out = torch.empty((T, B, D), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    work = torch.empty((2 + 3 * K) * B * D, dtype=dtype, device=dev)
+    # csrc/rk_vcabm.cuh vcabm_state_rows.
+    work = torch.empty((3 + 3 * K) * B * D, dtype=dtype, device=dev)
+    nb = n_blocks or plan_blocks(plan, B, dev)
+    gwork = _shares_work(nb, 3, dtype, dev)
     gstar = (ctypes.c_double * (K + 1))(*GAMMA_STAR[:K + 1].tolist())
     # Named, so that it lives until the launch has read it.
     tau_d = tau_h.to(dev)
@@ -522,7 +561,8 @@ def plan_solve_vcabm(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
             float(atol), float(dt_min), float(sign), float(safety),
             float(ifactor), float(dfactor), int(min(max_steps, 2 ** 31 - 1)),
             int(valid), MO, gstar, _ptr(consts), lay.n_consts,
-            _ptr(sample_consts), int(smem), _stream(dev))
+            _ptr(sample_consts), int(smem), _ptr(gwork), gwork.numel(), nb,
+            _stream(dev))
     _check(lib, err, "plan_solve_vcabm launch")
     plan_vcabm_launches += 1
     return out, stats
@@ -724,22 +764,16 @@ def plan_adjoint_solve_plain(plan: FusedPlan, packed: Sequence[Tensor],
     """Plain PyTorch version of `plan_adjoint_solve`, on ys' device: K3's
     engine (`cuda_adjoint.adjoint_sweep_plain`) with `aug_terms`, its sums
     in the order of a grid of `n_blocks` blocks (None: the kernel's grid,
-    `plan_adjoint_blocks`)."""
+    `plan_blocks`)."""
     packed = _adjoint_inputs(plan, packed, ys, g, "plan_adjoint_solve")
     n_flat, ti, n_rows = _quad_counts(plan)
     ay0, aw, at, aps, stats = adjoint_sweep_plain(
         plan_aug(plan, packed), n_flat, ti, n_rows, ys, g, tau, dt0, rtol,
         atol, sign, seminorm=seminorm, method=method, safety=safety,
         ifactor=ifactor, dfactor=dfactor, max_steps=max_steps,
-        n_blocks=n_blocks or plan_adjoint_blocks(plan, ys.shape[1],
+        n_blocks=n_blocks or plan_blocks(plan, ys.shape[1],
                                                  ys.device))
     return ay0, split_consts(plan, packed, aw, aps.t()), at, stats
-
-
-def plan_adjoint_blocks(plan: FusedPlan, B: int, device) -> int:
-    """K3's grid for a plan's sweep: `cuda_adjoint.adjoint_blocks`, or one
-    block for a coupled plan (its walk meets the block inside a stage)."""
-    return 1 if plan.batch_coupled else adjoint_blocks(B, device)
 
 
 def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
@@ -761,7 +795,7 @@ def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
     in its shape, at (0-d, the integrated a_t quadrature; 0 when the plan
     does not read t), stats [4] int32: nfe, accepted, rejected, status).
 
-    n_blocks: K3's grid (None: `cuda_adjoint.adjoint_blocks`), as in
+    n_blocks: K3's grid (None: `plan_blocks`), as in
     `mlp_adjoint_solve`; a coupled plan (the block meets inside a stage)
     runs on one block, and refuses another count."""
     if method not in TABLEAUS_BY_NAME:
@@ -771,10 +805,7 @@ def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
     kw = dict(method=method, safety=safety, ifactor=ifactor,
               dfactor=dfactor, max_steps=max_steps, seminorm=seminorm)
-    _check_blocks(n_blocks)
-    if (n_blocks or 1) != 1 and plan.batch_coupled:
-        raise ValueError("a coupled plan's sweep runs on one block, got "
-                         f"n_blocks={n_blocks}")
+    _plan_grid(plan, n_blocks, "sweep")
     if _device_kind(ys, g) == "cpu":
         return plan_adjoint_solve_plain(plan, packed, ys, g, tau, dt0, rtol,
                                         atol, sign, n_blocks=n_blocks, **kw)
@@ -813,7 +844,7 @@ def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
         n_work += 4 * B * D + lay.live_rows * B + lay.red_values
     work = torch.empty(max(1, n_work), dtype=dtype, device=dev)
     pwork = torch.empty(1 if quad_smem else n_quad, dtype=dtype, device=dev)
-    nb = n_blocks or plan_adjoint_blocks(plan, B, dev)
+    nb = n_blocks or plan_blocks(plan, B, dev)
     gwork = _grid_work(S, nb, lay.n_quad + lay.time_input, dtype, dev)
     ys_c, g_c = ys.contiguous(), g.contiguous()
     with torch.cuda.device(dev):
