@@ -94,11 +94,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     float64) within 1e-5 relative of the generic `solve(ODEFunc,
     options={'per_sample': True})`, every sample's nfe within max(8, 15%)
     of its generic count. K5, its plain version and K2 timed.
-17. K6 `mlp_perlane_adjoint_solve` at the bench training protocol with K5
-    as the forward and the MSE cotangent: float64 (identical per-sample
-    counts, gradients within 1e-9 relative) and float32 (within 1e-3;
-    whether bitwise equal is printed), run to run bitwise; the samples'
-    backward nfe. Three SGD steps through
+17. K6 `mlp_perlane_adjoint_solve` (a group of 16 threads a sample, 32
+    samples a block; the layout printed) at the bench training protocol
+    with K5 as the forward and the MSE cotangent: bitwise equal to its
+    plain version in float64 and float32, per-sample counts included, run
+    to run bitwise; the samples' backward nfe. Three SGD steps through
     `fast.odeint_adjoint_mlp(per_sample=True)`: K5 = K6 = 3 launches,
     K2 = K3 = 0, forward status 0, finite gradients, the weights move. At
     B=96 (float64) the per-sample gradients agree with the shared-
@@ -143,8 +143,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 20. Wide training and the other kernels at width 256, B = 256: one
     `fast.odeint_adjoint_mlp` SGD step (K2 + K3 on the wide route) and one
     with a 'mixed' forward; K5, K6 and K9 on the wide route against their
-    plain versions (identical counts, close values; whether bitwise equal
-    is printed) and timed.
+    plain versions (identical counts, close values, K3 and K6 bitwise;
+    whether bitwise equal is printed) and timed.
 21. `fast.calibrate_dot_precision` on the wide configuration ('bf16' and
     'mixed' against 'highest', the reference's NFE x passes model): the
     tier it picks and the NFEs.
@@ -192,17 +192,19 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 26. K10 `mlp_solve_adams` at the bench widths with bench.py:205's 512
     steps: fixed_adams and explicit_adams (max_order 4, max_iters 4) in
     float32 and float64, and both on the default grid (outputs at t), each
-    the launch that `fast.solve_mlp_spec` makes (one K10), held to its plain
-    version (bitwise, identical stats, nfe 1 + 3 x 4 + 5 or 1 a step) and
-    run again bitwise; at B = 96 within 1e-5 relative of the generic
-    engine; both methods timed against their plain versions and the
+    the launch that `fast.solve_mlp_spec` makes (one K10; fixed_adams on
+    its grid of one block per SM, n_blocks printed), held to its plain
+    version at the kernel's grid (bitwise, identical stats, nfe 1 + 3 x 4 +
+    5 or 1 a step) and run again bitwise; at B = 96 within 1e-5 relative
+    of the generic engine; both methods timed against their plain versions and the
     generic engine.
 27. Three SGD steps of the spiral (bench.py:788-838) through
     `fast.odeint_adjoint_mlp(method='adams', adjoint_method='dopri5')`:
     K11 = K3 = 3 launches and no K2, forward status 0, finite gradients,
     the weights move; one step with `method='fixed_adams',
     adjoint_method='rk4', num_steps=512` and 8 backward steps an interval
-    (phase 12's): K10 = K9 = 1. At B = 96 the Adams-forward gradients
+    (phase 12's): K10 = K9 = 1, the K10 launch held bitwise to its plain
+    version at its grid. At B = 96 the Adams-forward gradients
     agree with the generic `odeint_adjoint(method='adams',
     adjoint_method='dopri5')` within 1e-3 relative.
 
@@ -300,7 +302,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 39. K14 in K10: the bench spiral as plain PyTorch through `solve(...,
     method='fixed_adams' / 'explicit_adams', options={'fuse': True,
     'num_steps': 512})` at the bench widths, float32 and float64: one
-    launch each, held to `cuda_plan.plan_solve_adams_plain` bitwise; timed
+    launch each, held to `cuda_plan.plan_solve_adams_plain` bitwise at
+    fixed_adams' grid (n_blocks printed); timed
     beside K10's MLP route on the same function and the generic engine.
 40. K14 in K11: VCABM at the bench protocol through `solve(...,
     method='adams', options={'fuse': True, 'first_step': 0.01})`
@@ -614,18 +617,31 @@ def _same(a, b, nan_ok=None) -> bool:
             and torch.equal(a[~na], b[~nb]))
 
 
+def _k6_layout(B: int) -> str:
+    """K6's launch shape at batch B (csrc/lane_group.h): a group of threads
+    a sample, 32 samples a block."""
+    from tfdiffeq_tpu_torch.ops import cuda_perlane as cp
+    return (f"K6 a group of {cp.PERLANE_GROUP} threads a sample, "
+            f"{-(-B // cp.PERLANE_THREADS)} blocks of "
+            f"{cp.PERLANE_ADJOINT_THREADS}")
+
+
 def _grid_kw(plain, args, kw) -> dict:
-    """kw with the kernel's grid for the plain version of K2, K3 or K11:
-    the n_blocks that the kernel's wrapper chose for these inputs
-    (`cuda_kernels.solve_blocks`: one block per SM, one a 16-row tile on
-    K2's batch route; one block for a coupled plan), printed; else kw."""
+    """kw with the kernel's grid for the plain version of K2, K3, K11 or
+    fixed_adams' K10: the n_blocks that the kernel's wrapper chose for
+    these inputs (`cuda_kernels.solve_blocks`: one block per SM, one a
+    16-row tile on K2's batch route; one block for a coupled plan),
+    printed; else kw (explicit_adams has no grid)."""
     from tfdiffeq_tpu_torch.ops import cuda_adams as cad, \
         cuda_adjoint as ca, cuda_kernels as ck, cuda_plan as cpl
     grids = {ca.mlp_adjoint_solve_plain: "K3", cpl.plan_adjoint_solve_plain:
              "K3", ck.mlp_solve_plain: "K2", cpl.plan_solve_plain: "K2",
              cad.mlp_solve_vcabm_plain: "K11",
-             cpl.plan_solve_vcabm_plain: "K11"}
-    if "n_blocks" in kw or plain not in grids or kw.get("per_sample"):
+             cpl.plan_solve_vcabm_plain: "K11",
+             cad.mlp_solve_adams_plain: "K10",
+             cpl.plan_solve_adams_plain: "K10"}
+    if "n_blocks" in kw or plain not in grids or kw.get("per_sample") \
+            or (grids[plain] == "K10" and not kw.get("implicit", True)):
         return kw
     if grids[plain] == "K3":
         B, dev = args[2].shape[1], args[2].device
@@ -1095,11 +1111,12 @@ def _wide_tier(smi: str, dev) -> dict:
               f"{ms:.3f} ms vs plain {plain_ms:.3f} ms; stats "
               f"{counts[0].tolist()}; max relative |kernel - plain| "
               f"{max(rels):.3e}; bitwise equal to plain: {same}; bound "
-              f"{bound(nfe, 9 * Bt * WIDE_D, per=1 if name == 'K5' else 3)}",
+              f"{bound(nfe, 9 * Bt * WIDE_D, per=1 if name == 'K5' else 3)}"
+              + (f"; {_k6_layout(Bt)}" if name == "K6" else ""),
               flush=True)
         if any(not torch.equal(a, b) for a, b in zip(counts, counts_ref)) \
                 or max(rels) > 1e-5 or counts[0][3].item() != 0 \
-                or (name == "K3" and not same):
+                or (name in ("K3", "K6") and not same):
             raise AssertionError(f"{name} wide differs from its plain "
                                  "version")
 
@@ -1741,12 +1758,15 @@ def _adams_tier(smi: str, dev) -> dict:
     rec["vcabm_launches"] = train_launches["mlp_solve_vcabm"]
     for mod in (cad, cf):
         mod.reset_launch_counts()
-    fixed_ms, _ = _host_ms(lambda: sgd_step(
-        method="fixed_adams", adjoint_method="rk4", num_steps=ADAMS_STEPS,
-        adjoint_num_steps=8), reps=1)
+    with _Recording(fast, "mlp_solve_adams") as r:
+        fixed_ms, _ = _host_ms(lambda: sgd_step(
+            method="fixed_adams", adjoint_method="rk4",
+            num_steps=ADAMS_STEPS, adjoint_num_steps=8), reps=1)
     fixed_launches = {"mlp_solve_adams": cad.mlp_solve_adams_launches,
                       "mlp_adjoint_solve_fixed":
                           cf.mlp_adjoint_solve_fixed_launches}
+    _hold_to_plain(r.calls[0], cad.mlp_solve_adams_plain,
+                   "[27] K10 fixed_adams forward of the training step")
     print(f"[27] one SGD step (method='fixed_adams', adjoint_method='rk4', "
           f"num_steps={ADAMS_STEPS}, adjoint_num_steps=8): launches "
           f"{fixed_launches}; {fixed_ms:.3f} ms ({smi})", flush=True)
@@ -2479,7 +2499,8 @@ def _aug_tier(smi: str, dev) -> dict:
     rec["generic_ms"]["K6"] = None
     sp = rec["k6_spiral"]
     print(f"[34] {smi}: K15 in K6 {rec['ms']['K6']:.3f} ms a float32 "
-          f"battery sweep (the samples' nfe {rec['k6_nfe']}); plain "
+          f"battery sweep (the samples' nfe {rec['k6_nfe']}; "
+          f"{_k6_layout(B)}); plain "
           f"{rec['plain_ms']['K6']:.1f} ms. The spiral per sample "
           f"{sp['ms']:.3f} ms (nfe {sp['nfe']}); plain {sp['plain_ms']:.1f}"
           f" ms. Battery step: per-sample {rec['step_ms']['K6']:.3f} ms vs "
@@ -3772,13 +3793,10 @@ def main() -> int:
         if (got[4][3] != 0).any() or not all(
                 torch.isfinite(x).all() for x in got[:3]):
             raise AssertionError(f"K6 {dtype} failed: {got[3].tolist()}")
-        if dtype == f64 and (not same_lanes or max(rels) > 1e-9):
-            raise AssertionError("K6 float64 differs from its plain version "
-                                 "(needs identical per-sample counts, "
-                                 "gradients within 1e-9 relative)")
-        if dtype == f32 and max(rels) > 1e-3:
-            raise AssertionError("K6 float32 differs from its plain version "
-                                 "by more than 1e-3 relative")
+        if not (same and same_lanes):
+            raise AssertionError(f"K6 {dtype} differs from its plain "
+                                 "version (outputs, stats and per-sample "
+                                 "counts must be bitwise equal)")
         k6_err[dtype] = max(float((a - b).abs().max())
                             for a, b in zip(got[:3], ref[:3]))
     # Three SGD steps through the public entry point.
@@ -3856,7 +3874,7 @@ def main() -> int:
           f"ms/sweep vs plain {perlane_adj_plain_ms:.3f} ms vs K3 (shared "
           f"controller) {shared_adj_ms:.3f} ms (bench training protocol, "
           f"float32; K6 nfe {k6_st[0]}, {k6_st[1] + k6_st[2]} attempts over "
-          f"the samples)", flush=True)
+          f"the samples; {_k6_layout(B)})", flush=True)
 
     wide = _wide_tier(smi, dev)
     cnf = _cnf_tier(smi, dev)
@@ -3989,7 +4007,8 @@ def main() -> int:
          "max_abs_err": k6_err[f32], "ms": perlane_adj_ms,
          "plain_ms": perlane_adj_plain_ms, "bound_ms": k6_bound[0],
          "bound_by": k6_bound[1], "library_ms": None,
-         "shared_controller_ms": shared_adj_ms},
+         "shared_controller_ms": shared_adj_ms,
+         "group": cp.PERLANE_GROUP, "blocks": -(-B // cp.PERLANE_THREADS)},
         {"name": "dot_tiers", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/dot_tiers.cuh",
          "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:361",
@@ -4030,7 +4049,8 @@ def main() -> int:
          "explicit_ms": adams["explicit_ms"],
          "explicit_plain_ms": adams["explicit_plain_ms"],
          "explicit_bound_ms": adams["explicit_bound"][0],
-         "explicit_generic_engine_ms": adams["explicit_generic_ms"]},
+         "explicit_generic_engine_ms": adams["explicit_generic_ms"],
+         "n_blocks": ck.solve_blocks(B, dev)},
         {"name": "vcabm_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/vcabm_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_vcabm.py:51",

@@ -56,7 +56,14 @@ the narrow, wide, CNF and plan routes; a grid the card cannot hold at once
 raises. So are K2 (narrow, wide, CNF, plan) and K11 (narrow, wide, plan)
 on grids of 1, 7 and the card's blocks, and K2's batch route (a block a
 16-row tile) in float64; its float32 tiers sum on the tensor cores, so
-they are held to the bars above at the same grid. K4's shared-memory tiles at widths 256 and 512: one evaluation
+they are held to the bars above at the same grid. fixed_adams' K10
+(narrow, wide, plan) on grids of 1, 7 and the card's blocks is bitwise
+equal to its plain version at the same n_blocks, explicit_adams as before;
+K6 with a group of threads a sample (narrow, wide, plan, a float32
+stiffness battery whose stiffest samples fail, the overflowing trial) is
+bitwise equal to its plain version, outputs, stats and lane stats, a NaN
+only where the plain version has one. K4's shared-memory tiles at widths
+256 and 512: one evaluation
 within EVAL_BARS, float64 bitwise; K8 on them within chip_smoke.py's
 SOLVE_BARS for the wide rk4 x 128 (its 'bf16' mean gap grows with the
 width, so the tier is told apart per evaluation there).
@@ -701,6 +708,7 @@ def test_perlane_adjoint_keeps_overflowing_trials_out(cuda):
     """A sample whose first backward trial overflows (a stiff sample with
     a cotangent near the float64 limit, a first step of the whole
     interval) while the others accept: the sums stay finite on the card
+    and bitwise equal to the plain version's
     (tests/test_torch_perlane_adjoint.py holds this input to the generic
     adjoint and shows the reference's NaN)."""
     f64 = torch.float64
@@ -721,6 +729,7 @@ def test_perlane_adjoint_keeps_overflowing_trials_out(cuda):
     assert torch.equal(got[4], ref[4])
     for a, b in zip(got[:3], ref[:3]):
         assert torch.isfinite(a).all() and _rel(a, b) < 1e-12
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -1929,3 +1938,169 @@ def test_solve_grids_default_to_the_card_and_refuse_the_rest(cuda):
     assert cpl.plan_blocks(plan, y0.shape[0], cuda) == 1
     assert _same(cpl.plan_solve(*pargs),
                  cpl.plan_solve_plain(*pargs, n_blocks=1))
+
+
+# ---------------------------------------------------------------------------
+# fixed_adams' K10 over the card (a grid of n_blocks blocks, one convergence
+# decision a corrector iteration), and K6 a group of threads a sample
+# ---------------------------------------------------------------------------
+
+def _k10_grid_case(route, dtype, device):
+    """(wrapper, plain version, args, kw, the plain version's extra kw) of a
+    K10 solve on a 40-step grid: the MLP narrow or wide route at B = 300,
+    or the spiral as a plan at B = 96."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, cuda_plan as cpl
+    if route == "plan":
+        plan, packed, y0, t, g, _ = _plan_case("spiral", dtype, device)
+        y0 = 0.5 * y0
+        f0 = g(t[0].to(device), y0).contiguous()
+        grid = uniform_grid(t[0], t[-1], 40)
+        return (cpl.plan_solve_adams, cpl.plan_solve_adams_plain,
+                (plan, packed, y0, t, grid, 1e-6, 1e-6, 1.0, f0), {}, {})
+    warr, dims, y0, kw = _adams_case(device, dtype,
+                                     width=24 if route == "narrow" else 144)
+    assert ck._route("t", dims, warr.numel(), y0.element_size()) == (
+        ck.ROUTE_NARROW if route == "narrow" else ck.ROUTE_WIDE)
+    t = torch.tensor([0.0, 0.37, 1.11, 2.0], dtype=dtype)
+    grid = uniform_grid(t[0], t[-1], 40)
+    f0 = cad._f0(warr, dims, y0, grid[0], 1.0, kw["activation"], "identity",
+                 kw["input_power"], kw["time_input"])
+    return (cad.mlp_solve_adams, cad.mlp_solve_adams_plain,
+            (warr, dims, y0, t, grid, 1e-6, 1e-8, 1.0), kw, dict(f0=f0))
+
+
+@pytest.mark.parametrize("n_blocks", [1, 7, "card"])
+@pytest.mark.parametrize("route", ["narrow", "wide", "plan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_adams_grid_matches_plain(cuda, dtype, route, n_blocks):
+    """fixed_adams' K10 on a grid of n_blocks blocks (the card's: on the
+    plan's 96 samples, blocks past the batch own none) bitwise equal to its
+    plain version at the same n_blocks, stats included, on the narrow and
+    wide MLP routes and a plan, in both types; two launches bitwise equal.
+    explicit_adams (a thread a sample, no grid) stays bitwise too."""
+    fn, plain, args, kw, pkw = _k10_grid_case(route, dtype, cuda)
+    nb = _grid_of(n_blocks, cuda)
+    for implicit in (True, False):
+        got = fn(*args, n_blocks=nb, implicit=implicit, **kw)
+        again = fn(*args, n_blocks=nb, implicit=implicit, **kw)
+        ref = plain(*args, n_blocks=nb, implicit=implicit, **kw, **pkw)
+        torch.cuda.synchronize()
+        assert got[1][3].item() == 0 and torch.isfinite(got[0]).all()
+        assert _same(got, again)
+        assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
+
+
+def test_adams_grid_defaults_to_the_card_and_refuses_the_rest(cuda):
+    """With no n_blocks fixed_adams' K10 takes one block per SM (one a
+    sample for a smaller batch), as its plain version does on the card's
+    tensors; a grid the card cannot hold at once raises before counting a
+    launch, never a quiet one-block launch; a bad n_blocks raises before
+    any launch."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, cuda_plan as cpl
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for route in ("narrow", "plan"):
+        fn, plain, args, kw, pkw = _k10_grid_case(route, torch.float64, cuda)
+        assert _same(fn(*args, **kw), plain(*args, **kw, **pkw))
+        assert _same(fn(*args, **kw),
+                     plain(*args, n_blocks=min(sms, args[2].shape[0]), **kw,
+                           **pkw))
+    cad.reset_launch_counts()
+    cpl.reset_launch_counts()
+    fn, _, args, kw, _ = _k10_grid_case("narrow", torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="mlp_solve_adams launch"):
+        fn(*args, n_blocks=64 * sms, **kw)
+    for bad in (0, -1, 2.0):
+        with pytest.raises(ValueError, match="n_blocks"):
+            fn(*args, n_blocks=bad, **kw)
+    fn, _, args, kw, _ = _k10_grid_case("plan", torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="plan_solve_adams launch"):
+        fn(*args, n_blocks=64 * sms, **kw)
+    assert cad.mlp_solve_adams_launches == cpl.plan_adams_launches == 0
+
+
+def _same_nan(got, ref):
+    """Bitwise equal, tensor by tensor (lists flattened), a NaN matching
+    only a NaN at the same place."""
+    flat = lambda r: [x for v in r for x in (v if isinstance(v, list)
+                                             else [v])]
+    for a, b in zip(flat(got), flat(ref)):
+        if not a.is_floating_point():
+            assert torch.equal(a, b)
+            continue
+        na, nb = torch.isnan(a), torch.isnan(b)
+        assert torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+    return True
+
+
+@pytest.mark.parametrize("route", ["narrow", "narrow_t", "wide", "plan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_perlane_adjoint_group_matches_plain(cuda, dtype, route):
+    """K6 with a group of 16 threads a sample, 32 samples a block: bitwise
+    equal to its plain version (ay0, the quadratures, stats and lane stats)
+    on the narrow route (with a time column: a_t), the wide route and a
+    plan with a per-sample constant (its per-sample quadratures), in both
+    types; B = 300 and 96 leave idle groups in the last block; two launches
+    bitwise equal."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    if route == "plan":
+        plan, packed, ys, ct, t = _aug_case("drive", dtype, cuda)
+        args = (plan, packed, ys, ct, t, 0.05, 1e-6, 1e-6, 1.0)
+        fn, plain, kw = (cpl.plan_perlane_adjoint_solve,
+                         cpl.plan_perlane_adjoint_solve_plain, {})
+    else:
+        if route == "wide":
+            weights, warr, dims, y0, t = _wide_case(cuda, dtype)
+            spec = fast.MLPSpec()
+            kw = {}
+        else:
+            spec, weights, warr, dims, y0 = _perlane_case(
+                cuda, dtype, time_input=route == "narrow_t")
+            t = torch.linspace(0.0, 2.0, 6, dtype=dtype)
+            kw = dict(input_power=3, time_input=route == "narrow_t")
+        ys = fast.solve_mlp_spec(spec, weights, y0, t, rtol=1e-7, atol=1e-9,
+                                 per_sample=True).ys
+        g = torch.tensor(np.random.RandomState(3).randn(*ys.shape),
+                         dtype=dtype, device=cuda)
+        args = (warr, dims, ys.contiguous(), g, t, 0.05, 1e-6, 1e-8, 1.0)
+        fn, plain = cp.mlp_perlane_adjoint_solve, \
+            cp.mlp_perlane_adjoint_solve_plain
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    stats, lane = got[-2], got[-1]
+    assert stats[3].item() == 0 and len(set(lane[0].tolist())) > 1
+    assert _same_nan(got, again) and _same_nan(got, ref)
+
+
+def test_perlane_adjoint_group_battery_slice(cuda):
+    """K15 in K6 on a slice of the stiffness battery (bench.py:483-535:
+    a per-sample scale from 1 to 100 over the spiral's net, float32,
+    B = 300): its stiffest samples fail (dt underflow, status 2, NaN rows
+    by contract) while the rest finish; outputs, stats and lane stats
+    bitwise equal to the plain version, a NaN only where it has one."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, plan_bridge as pb
+    f32, B = torch.float32, 300
+    p, y0 = _bench(B, f32, cuda)
+    sc = torch.tensor(np.logspace(0.0, 2.0, B), dtype=f32, device=cuda)
+
+    def f(t, y):
+        return sc[:, None] * (torch.tanh((y ** 3) @ p["w1"] + p["b1"])
+                              @ p["w2"])
+    t = torch.linspace(0.0, 2.0, 5)
+    plan, consts = pb.build_plan(f, t[0].to(cuda), y0)
+    packed = pb.pack_consts(plan, consts, f32, cuda)
+    g = cpl.plan_rhs(plan, packed, torch.tensor(1.0, device=cuda))
+    f0 = g(t[0].to(cuda), y0).contiguous()
+    ys = cpl.plan_solve(plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0,
+                        per_sample=True)[0]
+    args = (plan, packed, ys.contiguous(), 2.0 * ys, t, 0.05, 1e-6, 1e-6,
+            1.0)
+    got = cpl.plan_perlane_adjoint_solve(*args)
+    ref = cpl.plan_perlane_adjoint_solve_plain(*args)
+    lane = got[-1]
+    failed = lane[3] != 0
+    assert 0 < int(failed.sum()) < B and int(got[-2][3]) == 2
+    assert torch.isfinite(got[0][~failed]).all()
+    assert _same_nan(got, ref)
+    assert _same_nan(got, cpl.plan_perlane_adjoint_solve(*args))

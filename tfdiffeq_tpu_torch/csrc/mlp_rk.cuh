@@ -565,9 +565,9 @@ __host__ __device__ inline long aug_rows_count(const Net& net) {
   return rows;
 }
 
-// The per-thread MLP right-hand side of K5 (csrc/rk_perlane.cuh), K10
-// (csrc/rk_adams.cuh) and K11 (csrc/rk_vcabm.cuh): one sample's mlp_eval
-// in its thread, on the narrow or the wide route.
+// The per-thread MLP right-hand side of K5 (csrc/rk_perlane.cuh) and
+// explicit_adams' K10 (csrc/rk_adams.cuh): one sample's mlp_eval in its
+// thread, on the narrow or the wide route.
 template <typename T, int kRoute>
 struct MlpThreadRhs {
   static constexpr bool kBatch = false;
@@ -613,6 +613,33 @@ struct MlpThreadRhs {
     return mlp_eval(sh.net, weights(), t, lo.h_a, lo.h_b);
   }
 };
+
+// MlpThreadRhs, and a group of threads a sample (mlp_eval_group) where the
+// engine walks one: the MLP routes of K10's fixed_adams grid and of K11.
+template <typename T, int kRoute>
+struct MlpGroupRhs : MlpThreadRhs<T, kRoute> {
+  static constexpr bool kGroup = true;
+  int gw;      // the group vectors' width: the widest layer
+  int slots;   // samples a round (the launch's choice)
+
+  __device__ const T* eval_group(
+      const typename MlpThreadRhs<T, kRoute>::Shared& sh, T t, bool on,
+      int m, int gsz, T* hin) const {
+    return mlp_eval_group(sh.net, this->weights(), t, hin, gw, on, m, gsz);
+  }
+};
+
+template <typename T, int kRoute>
+MlpGroupRhs<T, kRoute> make_mlp_group_rhs(const void* weights, int n_w,
+                                          const Net& net) {
+  MlpGroupRhs<T, kRoute> rhs;
+  rhs.wg = static_cast<const T*>(weights);
+  rhs.n_weights = n_w;
+  rhs.net_in = net;
+  rhs.gw = net_max_width(net);
+  rhs.slots = 1;
+  return rhs;
+}
 
 // K6's and K9's MLP right-hand side (csrc/rk_adjoint.cuh's Aug, one sample
 // a thread): aug_stage on the narrow or wide route, its rows H [n_h][B]

@@ -32,7 +32,8 @@
 //
 // PlanAugRhs walks a sample at a time in its thread (K3, over the grid that
 // cuts the batch into ranges, csrc/rk_adjoint.cuh); PlanLaneAug the same in
-// K6 and K9, each quadrature's weighted term into the sample's STEP rows;
+// K9, each quadrature's weighted term into the sample's STEP rows, and in
+// K6 in every member of the sample's group of threads (group_stage);
 // PlanBatchAugRhs (K3 only, one block) walks a stage batch-wide, segment
 // by segment, every thread for the samples it owns, the block meeting at
 // each coupling and at each coupling's transpose (csrc/plan_rhs.cuh
@@ -134,6 +135,45 @@ struct PlanLaneAug : PlanAugRhs<T, P> {
       const T term = hb * (sf * x);
       STEP[at(r)] = first ? term : STEP[at(r)] + term;
     }
+  }
+
+  // K6's stage of sample b with a group of threads
+  // (csrc/rk_adjoint.cuh rk_perlane_adjoint_kernel). The walk's rows sit in
+  // the sample's slot gs, one value a row (the qr rows, then the sample's
+  // per-sample constants, copied there once by group_init), so the walk
+  // runs with a row stride of 1 (B = 1, b = 0) in shared memory where the
+  // slots fit. Every member runs the walk at once (one instruction stream
+  // for the group, so no dearer than one member), each writing the same
+  // rows with the same values and reading back its own; member m writes
+  // ky[d], kay[d] for d = m, m + gsz, ...
+  __host__ __device__ long walk_values() const {
+    return P::kQRows + P::kNSample;
+  }
+  __device__ void group_init(const Shared&, T* gs, int b, int B, int m,
+                             int gsz) const {
+    for (int r = m; r < P::kNSample; r += gsz)
+      gs[P::kQRows + r] = this->scg[long(r) * B + b];
+  }
+  __device__ void group_stage(const Shared&, Local& lo, T t, int, int, T sf,
+                              const T* ya, const T* aya, T* ky, T* kay,
+                              T* gs, int m, int gsz, unsigned) const {
+    for (int d = 0; d < P::kDim; ++d) {
+      lo.ya[d] = ya[d];
+      lo.aya[d] = aya[d];
+    }
+    P::template seg<T>(0, t, lo.ya, lo.aya,
+                       plan_consts(this->cg, this->in_smem),
+                       gs + P::kQRows, 0, 1, nullptr, nullptr, gs, lo.f,
+                       lo.vy);
+    for (int d = m; d < P::kDim; d += gsz) {
+      ky[d] = (-sf) * lo.f[d];
+      kay[d] = sf * lo.vy[d];
+    }
+  }
+  __device__ T group_x(const Shared&, int r, const T* gs) const {
+    constexpr int R = P::kNQuad + P::kTimeInput;
+    return r < R ? P::template quad_x<T>(r, gs, 1, 0)
+                 : P::template sample_x<T>(r - R, gs, 1, 0);
   }
 };
 
@@ -267,10 +307,10 @@ template <typename T, class P>
 int launch_plan_perlane_adjoint(
     const void* tau, const void* ys, const void* g, const void* dt0,
     void* ay0, void* aw, void* at, void* aps, void* lane_stats, void* stats,
-    void* partial, void* work, int T_obs, int B, int D, int threads,
-    double rtol, double atol, double dt_min, double sign, double safety,
-    double ifactor, double dfactor, int max_steps, int stages, int order,
-    const double* c, const double* a, const double* b_sol,
+    void* partial, void* work, long work_size, int T_obs, int B, int D,
+    int threads, double rtol, double atol, double dt_min, double sign,
+    double safety, double ifactor, double dfactor, int max_steps, int stages,
+    int order, const double* c, const double* a, const double* b_sol,
     const double* b_err, const void* consts, int n_consts,
     const void* sample_consts, int smem_consts, void* stream) {
   if constexpr (P::kSegments > 1) {
@@ -280,8 +320,8 @@ int launch_plan_perlane_adjoint(
     for (int i = 0; i < stages && i < kMaxStages; ++i)
       any = any || b_sol[i] != 0.0;
     if (stages < 2 || stages > kMaxStages || T_obs < 1 || B < 1 ||
-        D != P::kDim || P::kOutRows != D || max_steps < 1 || threads < 32 ||
-        threads > 1024 || (threads & (threads - 1)) || !any)
+        D != P::kDim || P::kOutRows != D || max_steps < 1 ||
+        threads != kLaneGroup * kLaneGroups || !any)
       return static_cast<int>(cudaErrorInvalidValue);
     const Tableau<T> tab =
         make_tableau<T>(stages, order, 0, c, a, b_sol, b_err, nullptr);
@@ -297,13 +337,13 @@ int launch_plan_perlane_adjoint(
     sc.T_obs = T_obs;
     sc.B = B;
     sc.D = D;
-    const size_t smem =
-        sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + threads);
+    const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
     return static_cast<int>(launch_rk_perlane_adjoint<T>(
         tau, ys, g, dt0, ay0, aw, at, aps, lane_stats, stats, partial, work,
+        work_size,
         make_plan_lane_aug<T, P>(consts, n_consts, sample_consts,
                                  smem_consts),
-        smem, threads, tab, sc, static_cast<cudaStream_t>(stream)));
+        fixed, tab, sc, static_cast<cudaStream_t>(stream)));
   }
 }
 
@@ -372,18 +412,18 @@ int launch_plan_fixed_adjoint(const void* tau, const void* ys, const void* g,
   extern "C" int NAME(                                                       \
       const void* tau, const void* ys, const void* g, const void* dt0,      \
       void* ay0, void* aw, void* at, void* aps, void* lane_stats,           \
-      void* stats, void* partial, void* work, int T_obs, int B, int D,      \
-      int threads, double rtol, double atol, double dt_min, double sign,    \
-      double safety, double ifactor, double dfactor, int max_steps,         \
-      int stages, int order, const double* c, const double* a,              \
-      const double* b_sol, const double* b_err, const void* consts,         \
-      int n_consts, const void* sample_consts, int smem_consts,             \
-      void* stream) {                                                        \
+      void* stats, void* partial, void* work, long work_size, int T_obs,    \
+      int B, int D, int threads, double rtol, double atol, double dt_min,   \
+      double sign, double safety, double ifactor, double dfactor,           \
+      int max_steps, int stages, int order, const double* c,                \
+      const double* a, const double* b_sol, const double* b_err,            \
+      const void* consts, int n_consts, const void* sample_consts,          \
+      int smem_consts, void* stream) {                                       \
     return tfd::launch_plan_perlane_adjoint<TYPE, tfd::PlanAug>(            \
         tau, ys, g, dt0, ay0, aw, at, aps, lane_stats, stats, partial, work,\
-        T_obs, B, D, threads, rtol, atol, dt_min, sign, safety, ifactor,    \
-        dfactor, max_steps, stages, order, c, a, b_sol, b_err, consts,      \
-        n_consts, sample_consts, smem_consts, stream);                       \
+        work_size, T_obs, B, D, threads, rtol, atol, dt_min, sign, safety,  \
+        ifactor, dfactor, max_steps, stages, order, c, a, b_sol, b_err,     \
+        consts, n_consts, sample_consts, smem_consts, stream);               \
   }
 #define TFD_PLAN_FIXED_ADJOINT_ENTRY(NAME, TYPE)                             \
   extern "C" int NAME(                                                       \

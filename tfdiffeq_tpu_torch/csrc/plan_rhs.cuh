@@ -24,7 +24,8 @@
 // to_scalar)). A plan without a coupling is one segment.
 //
 // PlanRhs evaluates a sample at a time in its thread (K2, K5, K8, K10, K11
-// and K12, for uncoupled plans; K2 and K11 spread it over their grids).
+// and K12, for uncoupled plans; K2, K11 and fixed_adams' K10 spread it over
+// their grids).
 // PlanBatchRhs (K2 only, on one block) evaluates a stage batch-wide:
 // every thread runs segment k for the samples it owns, writing the rows a
 // coupling reduces into live rows; the block then meets and reduces them
@@ -352,27 +353,24 @@ template <typename T, class P>
 int launch_plan_adams(const void* grid, const void* tau, const void* y0,
                       const void* f0, void* out, void* stats, void* work,
                       int G, int T_out, int B, int D, int threads,
-                      int blocks, double sign, double rtol, double atol,
-                      int valid, int max_order, int max_iters, int implicit,
-                      int nfe, const double* ab, const double* am,
-                      const void* consts, int n_consts,
-                      const void* sample_consts, int smem_consts,
-                      void* stream) {
+                      double sign, double rtol, double atol, int valid,
+                      int max_order, int max_iters, int implicit, int nfe,
+                      const double* ab, const double* am, const void* consts,
+                      int n_consts, const void* sample_consts,
+                      int smem_consts, void* gwork, long gwork_bytes,
+                      int n_blocks, void* stream) {
   if constexpr (P::kSegments > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    if (!adams_args_ok(G, T_out, B, D, max_order, max_iters, implicit,
-                       threads, blocks) ||
+    if (!adams_args_ok(G, T_out, B, D, max_order, max_iters, threads) ||
         D != P::kDim || P::kOutRows != D)
       return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem =
-        sizeof(T) *
-        ((smem_consts ? size_t(n_consts) : 0) + G + T_out + threads);
+    const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
     const T* cg = static_cast<const T*>(consts);
     const T* scg = static_cast<const T*>(sample_consts);
     return static_cast<int>(launch_rk_adams<T>(
-        grid, tau, y0, f0, out, stats, work,
-        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, smem, threads, blocks,
+        grid, tau, y0, f0, out, stats, work, gwork, gwork_bytes, n_blocks,
+        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, fixed, threads,
         make_adams_tables<T>(max_order, ab, am),
         make_adams_scalars<T>(G, T_out, B, D, sign, rtol, atol, valid,
                               max_order, max_iters, implicit, nfe),
@@ -508,14 +506,16 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
   extern "C" int NAME(                                                       \
       const void* grid, const void* tau, const void* y0, const void* f0,    \
       void* out, void* stats, void* work, int G, int T_out, int B, int D,   \
-      int threads, int blocks, double sign, double rtol, double atol,       \
-      int valid, int max_order, int max_iters, int implicit, int nfe,       \
-      const double* ab, const double* am, const void* consts, int n_consts, \
-      const void* sample_consts, int smem_consts, void* stream) {           \
+      int threads, double sign, double rtol, double atol, int valid,        \
+      int max_order, int max_iters, int implicit, int nfe, const double* ab,\
+      const double* am, const void* consts, int n_consts,                   \
+      const void* sample_consts, int smem_consts, void* gwork,              \
+      long gwork_bytes, int n_blocks, void* stream) {                       \
     return tfd::launch_plan_adams<TYPE, tfd::Plan>(                         \
-        grid, tau, y0, f0, out, stats, work, G, T_out, B, D, threads,       \
-        blocks, sign, rtol, atol, valid, max_order, max_iters, implicit,    \
-        nfe, ab, am, consts, n_consts, sample_consts, smem_consts, stream);  \
+        grid, tau, y0, f0, out, stats, work, G, T_out, B, D, threads, sign, \
+        rtol, atol, valid, max_order, max_iters, implicit, nfe, ab, am,     \
+        consts, n_consts, sample_consts, smem_consts, gwork, gwork_bytes,   \
+        n_blocks, stream);                                                   \
   }
 #define TFD_PLAN_VCABM_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \

@@ -27,37 +27,55 @@
 // has no history term and fails to trace (pallas_fixed.py:598-605); here
 // the history part is 0, the generic engine's arithmetic.
 //
-// Design. The history is a ring of max_order slabs with a rotating head in
-// a device workspace laid out feature-major ([row][B]: a warp's threads
-// touch consecutive values), as is the rest of a sample's state (the
-// state, its compensation, the RK4 stages, and the corrector's y_cur,
-// y_next and history part); the grid, output times and the coefficient
-// tables sit in shared memory after what the right-hand side keeps there.
-// explicit_adams has no batch meet, so it takes K8's layout: one thread a
-// sample, over as many blocks as the batch needs. fixed_adams meets the
-// batch at every corrector iteration, so it runs on ONE block (as K2 does):
-// each thread owns the samples b = tid, tid + blockDim.x, ..., and the
-// norm's sum is a block reduction in a fixed order (mlp_rk.cuh block_sum)
-// that the plain version (ops/cuda_adams.py adams_solve_plain) repeats, as
-// it repeats every other operation here: the libraries are built with
-// --fmad=false, so kernel and plain version give the same bits.
+// Design. explicit_adams has no batch meet, so it takes K8's layout
+// (rk_adams_kernel): one thread a sample, over as many blocks as the batch
+// needs, its state in a device workspace laid out feature-major ([row][B]:
+// a warp's threads touch consecutive values). fixed_adams meets the batch
+// at every corrector iteration (rk_adams_grid_kernel): a grid of n_blocks
+// blocks of 512 threads (ops/cuda_kernels.py solve_blocks: one per SM, or
+// one a sample for a smaller batch), all resident together (csrc/
+// grid_meet.cuh launch_grid; a grid that cannot be is an error, never one
+// block instead). Block k owns the contiguous samples [k B / n, (k + 1)
+// B / n); the RK4 bootstrap, the predictor, each corrector update and each
+// step's finish (the Kahan update, the history shift, the Hermite drain)
+// are a sample's own work and wait for no other block. Each evaluation is
+// a step of its own: a thread a sample, or for the MLP routes a group of
+// threads a sample (mlp_rk.cuh mlp_eval_group, `slots` samples a round, as
+// K11's). A sample's state rows (the state, its compensation, y_cur,
+// y_next, the history part, the evaluation, the RK4 stages and the ring of
+// max_order history slabs, feature-major) sit in the block's shared memory
+// when the block's rows fit there (26 values a sample at max_order 4,
+// D = 2: 3.2 KB a block at B = 4096 in float32), else in the device
+// workspace ([row][B]). The batch meets once a corrector iteration: each
+// block's share of the convergence norm's sum is its threads' sums (thread
+// i owning b = lo + i, lo + i + 512, ..., each adding its samples' D terms
+// in order) in a fixed-order block reduction (mlp_rk.cuh block_sum); every
+// block adds the n_blocks shares in block order (grid_shares, its two
+// buffers alternating by the meeting's parity, so one grid_sync a meeting)
+// and takes the same norm and the same `done`; block 0 writes the stats.
+// The plain version (ops/cuda_adams.py adams_solve_plain) repeats every
+// operation in this order for any n_blocks (n_blocks = 1 is the one-block
+// order before the grid), and the libraries are built with --fmad=false,
+// so kernel and plain version give the same bits.
 //
-// The right-hand side `Rhs` (mlp_rk.cuh MlpThreadRhs: the MLP routes of
+// The right-hand side `Rhs` (mlp_rk.cuh MlpGroupRhs: the MLP routes of
 // csrc/adams_kernel.cu; csrc/plan_rhs.cuh PlanRhs: K14's generated plans)
 // evaluates one sample in its thread: Shared and Local state; setup(sh,
 // lo, smem), which copies what it keeps in shared memory (no barrier) and
 // returns the free shared memory; in(lo), where the D inputs go; and
-// eval(sh, lo, t, b, B), sample b's D outputs.
+// eval(sh, lo, t, b, B), sample b's D outputs; with kGroup (the MLP
+// routes) also eval_group(sh, t, on, m, gsz, hin) for a group of threads a
+// sample (its gw-wide vectors and `slots`, set by the launch).
 #pragma once
 
+#include "grid_meet.cuh"
 #include "rk_fixed.cuh"
 
 namespace tfd {
 
 constexpr int kAdamsMaxOrder = 12;
-// Threads of fixed_adams' one block (a power of two for block_sum) and of
-// an explicit_adams block (ops/cuda_adams.py ADAMS_THREADS,
-// ADAMS_EXPLICIT_THREADS).
+// Threads of a fixed_adams block (a power of two for block_sum;
+// ops/cuda_adams.py ADAMS_THREADS).
 constexpr int kAdamsThreads = 512;
 
 // The Adams-Bashforth and Adams-Moulton tables, rows 0 .. max_order - 1 of
@@ -72,15 +90,40 @@ template <typename T>
 struct AdamsScalars {
   T sign, rtol, atol;
   int valid, G, T_out, B, D, max_order, max_iters, implicit, nfe;
+  int scratch;     // fixed_adams: values of the reduction scratch (and
+                   // the group vectors)
+  int state_smem;  // fixed_adams: the block's state rows in shared memory
 };
 
+// RK4 (ops/tableaus.py RK4, the same doubles rounded to T): the nodes and
+// the solution weights; a = [[1/2], [0, 1/2], [0, 0, 1]].
+template <typename T>
+struct Rk4 {
+  T c[4] = {T(0), T(0.5), T(0.5), T(1.0)};
+  T b[4] = {T(1.0 / 6.0), T(1.0 / 3.0), T(1.0 / 3.0), T(1.0 / 6.0)};
+};
+
+// The stats of a launch: [nfe, G - 1, 0, 0], or [0, 0, 0, 3] for times
+// that do not increase.
+__device__ __forceinline__ void adams_stats(int* stats, int valid, int nfe,
+                                            int G) {
+  stats[0] = valid ? nfe : 0;
+  stats[1] = valid ? G - 1 : 0;
+  stats[2] = 0;
+  stats[3] = valid ? 0 : 3;
+}
+
+// explicit_adams: one thread a sample, the state rows in `work` ([row][B]).
 template <typename T, class Rhs>
 __global__ void __launch_bounds__(kAdamsThreads)
-    rk_adams_kernel(const T* __restrict__ grid_g, const T* __restrict__ tau_g,
-                    const T* __restrict__ y0g, const T* __restrict__ f0g,
-                    T* __restrict__ out, int* __restrict__ stats,
-                    T* __restrict__ work, Rhs rhs, AdamsTables<T> tables_in,
-                    AdamsScalars<T> sc) {
+    rk_adams_kernel(const T* __restrict__ grid_g,
+                                const T* __restrict__ tau_g,
+                                const T* __restrict__ y0g,
+                                const T* __restrict__ f0g,
+                                T* __restrict__ out, int* __restrict__ stats,
+                                T* __restrict__ work, Rhs rhs,
+                                AdamsTables<T> tables_in,
+                                AdamsScalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ typename Rhs::Shared rsh;
   __shared__ AdamsTables<T> tab;
@@ -88,7 +131,6 @@ __global__ void __launch_bounds__(kAdamsThreads)
   typename Rhs::Local lo;
   T* grid = rhs.setup(rsh, lo, smem_raw);  // [G]
   T* tau = grid + sc.G;      // [T_out]
-  T* red = tau + sc.T_out;   // [blockDim.x]: fixed_adams' reduction
   if (tid == 0) tab = tables_in;
   for (int i = tid; i < sc.G; i += blockDim.x) grid[i] = grid_g[i];
   for (int i = tid; i < sc.T_out; i += blockDim.x) tau[i] = tau_g[i];
@@ -96,49 +138,212 @@ __global__ void __launch_bounds__(kAdamsThreads)
 
   const int G = sc.G, T_out = sc.T_out, B = sc.B, D = sc.D;
   const int MO = sc.max_order;
-  const bool implicit = sc.implicit != 0;
-  if (blockIdx.x == 0 && tid == 0) {
-    stats[0] = sc.valid ? sc.nfe : 0;
-    stats[1] = sc.valid ? G - 1 : 0;
-    stats[2] = 0;
-    stats[3] = sc.valid ? 0 : 3;
-  }
-  // Samples b = first, first + stride, ...: one a thread for
-  // explicit_adams, B / blockDim.x a thread on fixed_adams' one block.
-  const int first = blockIdx.x * blockDim.x + tid;
-  const int stride = gridDim.x * blockDim.x;
+  if (blockIdx.x == 0 && tid == 0) adams_stats(stats, sc.valid, sc.nfe, G);
+  const int b = blockIdx.x * blockDim.x + tid;
+  if (b >= B) return;   // no barrier follows
 
   const long BD = long(B) * D;
   // Feature-major workspace rows of B values.
   T* Y = work;              // state
   T* C = Y + BD;            // Kahan compensation
-  T* YC = C + BD;           // fixed_adams: y_cur (y_pred first)
-  T* YN = YC + BD;          // fixed_adams: y_next; then the increment
-  T* HP = YN + BD;          // fixed_adams: y-independent history part
-  T* KS = HP + BD;          // RK4 stages 1 .. 3
+  T* YN = C + BD;           // the step's increment
+  T* KS = YN + BD;          // RK4 stages 1 .. 3
   T* HIST = KS + 3 * BD;    // ring of max_order slabs of D rows
   T* h_in = rhs.in(lo);
   const T sign = sc.sign;
 
   // Row 0 is y0; the rest stays zero unless a step writes it.
-  for (int b = first; b < B; b += stride) {
+  for (int d = 0; d < D; ++d) {
+    const long i = long(b) * D + d;
+    const long r = long(d) * B + b;
+    out[i] = y0g[i];
+    for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
+    Y[r] = y0g[i];
+    C[r] = T(0);
+    HIST[r] = f0g[i];
+    for (int j = 1; j < MO; ++j) HIST[long(j) * BD + r] = T(0);
+  }
+  if (!sc.valid) return;
+
+  const Rk4<T> rk;
+  int head = 0;  // ring slot of hist[0], the newest derivative
+  int oi = 1;
+  for (int n = 0; n + 1 < G; ++n) {
+    const T t0 = grid[n];
+    const T t1 = grid[n + 1];
+    const T dt = t1 - t0;
+    const int oi_new = drain_cursor(tau, oi, T_out, t1, n + 2 == G);
+    const int slot_new = (head + MO - 1) % MO;
+    // Row of hist[j], feature d.
+    auto hrow = [&](int j, int d) -> long {
+      return long((head + j) % MO) * BD + long(d) * B + b;
+    };
+    if (n < MO - 1) {
+      // RK4 bootstrap: yi = y0 + (dt a_ij) k_j over the nonzero a_ij,
+      // delta = sum_j (dt b_j) k_j.
+      for (int i = 1; i < 4; ++i) {
+        for (int d = 0; d < D; ++d) {
+          const long r = long(d) * B + b;
+          const T kp = i == 1 ? HIST[hrow(0, d)] : KS[long(i - 2) * BD + r];
+          h_in[d] = Y[r] + (dt * rk.c[i]) * kp;
+        }
+        const T* fo = rhs.eval(rsh, lo, sign * (t0 + rk.c[i] * dt), b, B);
+        for (int d = 0; d < D; ++d)
+          KS[long(i - 1) * BD + long(d) * B + b] = sign * fo[d];
+      }
+      for (int d = 0; d < D; ++d) {
+        const long r = long(d) * B + b;
+        T acc = (dt * rk.b[0]) * HIST[hrow(0, d)];
+        for (int i = 1; i < 4; ++i)
+          acc = acc + (dt * rk.b[i]) * KS[long(i - 1) * BD + r];
+        YN[r] = acc;
+        h_in[d] = Y[r] + acc;
+      }
+    } else {
+      // f1 = f(t1, y_pred), y_pred = y0 + delta with the increment
+      // delta = dt sum_j ab[k_eff - 1][j] hist[j], newest first.
+      const int k_eff = n + 1 < MO ? n + 1 : MO;
+      const T* abr = tab.ab + (k_eff - 1) * MO;
+      for (int d = 0; d < D; ++d) {
+        const long r = long(d) * B + b;
+        T acc = abr[0] * HIST[hrow(0, d)];
+        for (int j = 1; j < MO; ++j) acc = acc + abr[j] * HIST[hrow(j, d)];
+        YN[r] = dt * acc;
+        h_in[d] = Y[r] + YN[r];
+      }
+    }
+    // The step's end: the Kahan update, the history shift (the new slot
+    // is the oldest, read already), the Hermite drain.
+    const T* fo = rhs.eval(rsh, lo, sign * t1, b, B);
+    for (int d = 0; d < D; ++d) {
+      const long r = long(d) * B + b;
+      const T f_head = HIST[hrow(0, d)];
+      const T y0 = Y[r];
+      const T adj = YN[r] - C[r];
+      const T y1 = y0 + adj;
+      C[r] = (y1 - y0) - adj;
+      Y[r] = y1;
+      const T f1 = sign * fo[d];
+      HIST[long(slot_new) * BD + r] = f1;
+      hermite_drain(out, tau, oi, oi_new, t0, t1, dt, y0, y1, f_head, f1,
+                    BD, long(b) * D + d);
+    }
+    head = slot_new;
+    oi = oi_new;
+  }
+}
+
+// fixed_adams' state rows of D values a sample: the state, its
+// compensation, y_cur, y_next, the history part, the evaluation, the RK4
+// stages and the history ring (ops/cuda_adams.py adams_work_size).
+inline long adams_grid_rows(int max_order) { return 9 + long(max_order); }
+
+// fixed_adams on a grid of n_blocks blocks; see the design above.
+template <typename T, class Rhs>
+__global__ void __launch_bounds__(kAdamsThreads, 1)
+    rk_adams_grid_kernel(const T* __restrict__ grid_g,
+                         const T* __restrict__ tau_g,
+                         const T* __restrict__ y0g,
+                         const T* __restrict__ f0g, T* __restrict__ out,
+                         int* __restrict__ stats, T* __restrict__ work,
+                         unsigned char* __restrict__ gwork, Rhs rhs,
+                         AdamsTables<T> tables_in, AdamsScalars<T> sc_in) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Rhs::Shared rsh;
+  __shared__ AdamsTables<T> tab;
+  __shared__ AdamsScalars<T> sc;
+  __shared__ T met[1];   // a meeting's merged sum
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int nb = gridDim.x;
+  const int blk = blockIdx.x;
+  // The block's samples.
+  const int b_lo = int(long(blk) * sc_in.B / nb);
+  const int b_hi = int(long(blk + 1) * sc_in.B / nb);
+  GridMeet gm{reinterpret_cast<unsigned long long*>(gwork), 0, 0};
+  typename Rhs::Local lo;
+  T* grid = rhs.setup(rsh, lo, smem_raw);  // [G]
+  T* tau = grid + sc_in.G;     // [T_out]
+  T* red = tau + sc_in.T_out;  // [scratch]: block_sum, grid_shares, groups
+  if (tid == 0) {
+    tab = tables_in;
+    sc = sc_in;
+  }
+  for (int i = tid; i < sc_in.G; i += nth) grid[i] = grid_g[i];
+  for (int i = tid; i < sc_in.T_out; i += nth) tau[i] = tau_g[i];
+  __syncthreads();
+
+  const int G = sc.G, T_out = sc.T_out, B = sc.B, D = sc.D;
+  const int MO = sc.max_order;
+  const long BD = long(B) * D;
+  if (blk == 0 && tid == 0) adams_stats(stats, sc.valid, sc.nfe, G);
+  // Feature-major state rows: in the block's shared memory when they fit
+  // (rows of the most samples a block owns, from b_lo), else rows of B
+  // values in `work`.
+  const bool in_smem = sc.state_smem != 0;
+  const long ldb = in_smem ? (long(B) + nb - 1) / nb : long(B);
+  const int b0 = in_smem ? b_lo : 0;
+  const long RD = ldb * D;
+  T* Y = in_smem ? red + sc.scratch : work;   // state
+  T* C = Y + RD;            // Kahan compensation
+  T* YC = C + RD;           // y_cur (y_pred first); an evaluation's input
+  T* YN = YC + RD;          // y_next; then the step's increment
+  T* HP = YN + RD;          // the y-independent history part
+  T* FE = HP + RD;          // an evaluation's output, sign f
+  T* KS = FE + RD;          // RK4 stages 1 .. 3
+  T* HIST = KS + 3 * RD;    // ring of max_order slabs of D rows
+  auto row = [ldb, b0](long j, int d, int b) -> long {
+    return (j + d) * ldb + (b - b0);
+  };
+  const T sign = sc.sign;
+
+  // sign f(sign t_eval, IN) of every owned sample into OUT: a thread a
+  // sample, or (Rhs::kGroup, the MLP routes) a group of gsz threads a
+  // sample, `slots` samples a round, the group's vectors in the scratch.
+  // Every thread of the block calls it; the rows are read and written
+  // after a barrier, so by any thread.
+  auto evaluate = [&](const T* IN, T t_eval, T* OUT) {
+    if constexpr (Rhs::kGroup) {
+      const int slots = rhs.slots;
+      const int gsz = nth / slots, m = tid % gsz, slot = tid / gsz;
+      T* const g_in = red + long(slot) * 2 * rhs.gw;
+      __syncthreads();   // IN was written a thread a sample
+      for (int r0 = b_lo; r0 < b_hi; r0 += slots) {
+        const int b = r0 + slot;
+        const bool on = b < b_hi;
+        for (int d = m; on && d < D; d += gsz) g_in[d] = IN[row(0, d, b)];
+        __syncthreads();
+        const T* fo = rhs.eval_group(rsh, sign * t_eval, on, m, gsz, g_in);
+        for (int d = m; on && d < D; d += gsz)
+          OUT[row(0, d, b)] = sign * fo[d];
+        __syncthreads();
+      }
+    } else {
+      T* h_in = rhs.in(lo);
+      for (int b = b_lo + tid; b < b_hi; b += nth) {
+        for (int d = 0; d < D; ++d) h_in[d] = IN[row(0, d, b)];
+        const T* fo = rhs.eval(rsh, lo, sign * t_eval, b, B);
+        for (int d = 0; d < D; ++d) OUT[row(0, d, b)] = sign * fo[d];
+      }
+    }
+  };
+
+  // Row 0 is y0; the rest stays zero unless a step writes it.
+  for (int b = b_lo + tid; b < b_hi; b += nth) {
     for (int d = 0; d < D; ++d) {
       const long i = long(b) * D + d;
-      const long r = long(d) * B + b;
       out[i] = y0g[i];
       for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
-      Y[r] = y0g[i];
-      C[r] = T(0);
-      HIST[r] = f0g[i];
-      for (int j = 1; j < MO; ++j) HIST[long(j) * BD + r] = T(0);
+      Y[row(0, d, b)] = y0g[i];
+      C[row(0, d, b)] = T(0);
+      HIST[row(0, d, b)] = f0g[i];
+      for (int j = 1; j < MO; ++j) HIST[row(long(j) * D, d, b)] = T(0);
     }
   }
-  if (!sc.valid) return;  // the same in every thread
+  if (!sc.valid) return;  // the same in every block: no meeting follows
 
   const T denom = T(double(D) * double(B));
-  // RK4 (ops/tableaus.py RK4, the same doubles rounded to T).
-  const T rk_c[4] = {T(0), T(0.5), T(0.5), T(1.0)};
-  const T rk_b[4] = {T(1.0 / 6.0), T(1.0 / 3.0), T(1.0 / 3.0), T(1.0 / 6.0)};
+  const Rk4<T> rk;
   int head = 0;  // ring slot of hist[0], the newest derivative
   int oi = 1;
   for (int n = 0; n + 1 < G; ++n) {
@@ -149,125 +354,96 @@ __global__ void __launch_bounds__(kAdamsThreads)
     const int slot_new = (head + MO - 1) % MO;
     // Row of hist[j], feature d, sample b.
     auto hrow = [&](int j, int d, int b) -> long {
-      return long((head + j) % MO) * BD + long(d) * B + b;
+      return row(long((head + j) % MO) * D, d, b);
     };
-    const int k_eff = n + 1 < MO ? n + 1 : MO;
-    const T* abr = tab.ab + (k_eff - 1) * MO;
-    const T* amr = tab.am + (k_eff - 1) * MO;
-    // The predictor's history sum of feature d of sample b, newest first.
-    auto predictor = [&](int d, int b) {
-      T acc = abr[0] * HIST[hrow(0, d, b)];
-      for (int j = 1; j < MO; ++j) acc = acc + abr[j] * HIST[hrow(j, d, b)];
-      return acc;
-    };
-    // The step's end for sample b, its increment in YN and fo = the
-    // unsigned f(t1, .) that becomes hist[0]: the Kahan update, the
-    // history shift (the new slot is the oldest, read already), the
-    // Hermite drain.
-    auto finish = [&](int b, const T* fo) {
-      for (int d = 0; d < D; ++d) {
-        const long r = long(d) * B + b;
-        const T f_head = HIST[hrow(0, d, b)];
-        const T y0 = Y[r];
-        const T adj = YN[r] - C[r];
-        const T y1 = y0 + adj;
-        C[r] = (y1 - y0) - adj;
-        Y[r] = y1;
-        const T f1 = sign * fo[d];
-        HIST[long(slot_new) * BD + r] = f1;
-        hermite_drain(out, tau, oi, oi_new, t0, t1, dt, y0, y1, f_head, f1,
-                      BD, long(b) * D + d);
-      }
-    };
-
     if (n < MO - 1) {
-      // RK4 bootstrap: yi = y0 + (dt a_ij) k_j over the nonzero a_ij
-      // (a = [[1/2], [0, 1/2], [0, 0, 1]]), delta = sum_j (dt b_j) k_j.
-      for (int b = first; b < B; b += stride) {
-        for (int i = 1; i < 4; ++i) {
+      // RK4 bootstrap: yi = y0 + (dt a_ij) k_j over the nonzero a_ij,
+      // delta = sum_j (dt b_j) k_j (the increment, kept in YN).
+      for (int i = 1; i < 4; ++i) {
+        for (int b = b_lo + tid; b < b_hi; b += nth)
           for (int d = 0; d < D; ++d) {
-            const long r = long(d) * B + b;
             const T kp = i == 1 ? HIST[hrow(0, d, b)]
-                                : KS[long(i - 2) * BD + r];
-            h_in[d] = Y[r] + (dt * rk_c[i]) * kp;
+                                : KS[row(long(i - 2) * D, d, b)];
+            YC[row(0, d, b)] = Y[row(0, d, b)] + (dt * rk.c[i]) * kp;
           }
-          const T* fo = rhs.eval(rsh, lo, sign * (t0 + rk_c[i] * dt), b, B);
-          for (int d = 0; d < D; ++d)
-            KS[long(i - 1) * BD + long(d) * B + b] = sign * fo[d];
-        }
-        // The increment, kept in YN (unused by the bootstrap).
+        evaluate(YC, t0 + rk.c[i] * dt, KS + (i - 1) * RD);
+      }
+      for (int b = b_lo + tid; b < b_hi; b += nth)
         for (int d = 0; d < D; ++d) {
-          const long r = long(d) * B + b;
-          T acc = (dt * rk_b[0]) * HIST[hrow(0, d, b)];
+          T acc = (dt * rk.b[0]) * HIST[hrow(0, d, b)];
           for (int i = 1; i < 4; ++i)
-            acc = acc + (dt * rk_b[i]) * KS[long(i - 1) * BD + r];
-          YN[r] = acc;
-          h_in[d] = Y[r] + acc;
+            acc = acc + (dt * rk.b[i]) * KS[row(long(i - 1) * D, d, b)];
+          YN[row(0, d, b)] = acc;
+          YC[row(0, d, b)] = Y[row(0, d, b)] + acc;
         }
-        finish(b, rhs.eval(rsh, lo, sign * t1, b, B));
-      }
-    } else if (!implicit) {
-      // explicit_adams: f1 = f(t1, y_pred), y_pred = y0 + delta with the
-      // increment delta = dt acc kept in YN.
-      for (int b = first; b < B; b += stride) {
-        for (int d = 0; d < D; ++d) {
-          const long r = long(d) * B + b;
-          YN[r] = dt * predictor(d, b);
-          h_in[d] = Y[r] + YN[r];
-        }
-        finish(b, rhs.eval(rsh, lo, sign * t1, b, B));
-      }
     } else {
-      // fixed_adams: y_pred and the history part, then the corrector.
+      // The predictor y_pred = y0 + dt sum_j ab[k_eff - 1][j] hist[j] and
+      // the history part sum_j am[k_eff - 1][j + 1] hist[j], newest first;
+      // then the corrector y_next = y0 + dt (hist_part + g0 f(t1, y_cur)).
+      const int k_eff = n + 1 < MO ? n + 1 : MO;
+      const T* abr = tab.ab + (k_eff - 1) * MO;
+      const T* amr = tab.am + (k_eff - 1) * MO;
       const T g0 = amr[0];
-      for (int b = first; b < B; b += stride) {
+      for (int b = b_lo + tid; b < b_hi; b += nth)
         for (int d = 0; d < D; ++d) {
-          const long r = long(d) * B + b;
           T hp = T(0);
           if (MO > 1) {
             hp = amr[1] * HIST[hrow(0, d, b)];
             for (int j = 1; j < MO - 1; ++j)
               hp = hp + amr[j + 1] * HIST[hrow(j, d, b)];
           }
-          HP[r] = hp;
-          YC[r] = Y[r] + dt * predictor(d, b);
+          HP[row(0, d, b)] = hp;
+          T acc = abr[0] * HIST[hrow(0, d, b)];
+          for (int j = 1; j < MO; ++j)
+            acc = acc + abr[j] * HIST[hrow(j, d, b)];
+          YC[row(0, d, b)] = Y[row(0, d, b)] + dt * acc;
         }
-      }
       bool done = false;
       for (int it = 0; it < sc.max_iters; ++it) {
+        evaluate(YC, t1, FE);
         T ss = T(0);
-        for (int b = first; b < B; b += stride) {
-          for (int d = 0; d < D; ++d) h_in[d] = YC[long(d) * B + b];
-          const T* fo = rhs.eval(rsh, lo, sign * t1, b, B);
+        for (int b = b_lo + tid; b < b_hi; b += nth)
           for (int d = 0; d < D; ++d) {
-            const long r = long(d) * B + b;
+            const long r = row(0, d, b);
             const T y_cur = YC[r];
-            const T y_next = Y[r] + dt * (HP[r] + g0 * (sign * fo[d]));
+            const T y_next = Y[r] + dt * (HP[r] + g0 * FE[r]);
             const T scale =
                 sc.atol + sc.rtol * d_max(d_abs(y_cur), d_abs(y_next));
             const T esc = (y_next - y_cur) / scale;
             ss = ss + esc * esc;
             YN[r] = y_next;
           }
-        }
-        const T norm = d_sqrt(block_sum(ss, red) / denom);
-        if (!done) {
-          for (int b = first; b < B; b += stride)
-            for (int d = 0; d < D; ++d)
-              YC[long(d) * B + b] = YN[long(d) * B + b];
-        }
+        // The batch meets: the convergence norm, one decision.
+        const T share[1] = {block_sum(ss, red)};
+        grid_shares(gm, gwork, share, met, red);
+        const T norm = d_sqrt(met[0] / denom);
+        if (!done)
+          for (int b = b_lo + tid; b < b_hi; b += nth)
+            for (int d = 0; d < D; ++d) YC[row(0, d, b)] = YN[row(0, d, b)];
         done = done || norm <= T(1);
       }
       // The increment y_cur - y0, kept in YN.
-      for (int b = first; b < B; b += stride) {
-        for (int d = 0; d < D; ++d) {
-          const long r = long(d) * B + b;
-          h_in[d] = YC[r];
-          YN[r] = YC[r] - Y[r];
-        }
-        finish(b, rhs.eval(rsh, lo, sign * t1, b, B));
-      }
+      for (int b = b_lo + tid; b < b_hi; b += nth)
+        for (int d = 0; d < D; ++d)
+          YN[row(0, d, b)] = YC[row(0, d, b)] - Y[row(0, d, b)];
     }
+    // The step's end f1 = f(t1, YC): the Kahan update, the history shift
+    // (the new slot is the oldest, read already), the Hermite drain.
+    evaluate(YC, t1, FE);
+    for (int b = b_lo + tid; b < b_hi; b += nth)
+      for (int d = 0; d < D; ++d) {
+        const long r = row(0, d, b);
+        const T f_head = HIST[hrow(0, d, b)];
+        const T y0 = Y[r];
+        const T adj = YN[r] - C[r];
+        const T y1 = y0 + adj;
+        C[r] = (y1 - y0) - adj;
+        Y[r] = y1;
+        const T f1 = FE[r];
+        HIST[row(long(slot_new) * D, d, b)] = f1;
+        hermite_drain(out, tau, oi, oi_new, t0, t1, dt, y0, y1, f_head, f1,
+                      BD, long(b) * D + d);
+      }
     head = slot_new;
     oi = oi_new;
   }
@@ -275,12 +451,10 @@ __global__ void __launch_bounds__(kAdamsThreads)
 
 // The launch arguments' checks that do not depend on the right-hand side.
 inline bool adams_args_ok(int G, int T_out, int B, int D, int max_order,
-                          int max_iters, int implicit, int threads,
-                          int blocks) {
+                          int max_iters, int threads) {
   return G >= 2 && T_out >= 1 && B >= 1 && D >= 1 && max_order >= 1 &&
          max_order <= kAdamsMaxOrder && max_iters >= 0 && threads >= 32 &&
-         threads <= kAdamsThreads && !(threads & (threads - 1)) &&
-         blocks >= 1 && !(implicit && blocks != 1);
+         threads <= kAdamsThreads && !(threads & (threads - 1));
 }
 
 // The tables and scalars of a launch from its arguments.
@@ -314,28 +488,80 @@ AdamsScalars<T> make_adams_scalars(int G, int T_out, int B, int D,
   sc.max_iters = max_iters;
   sc.implicit = implicit;
   sc.nfe = nfe;
+  sc.scratch = 0;
+  sc.state_smem = 0;
   return sc;
 }
 
-// One launch of K10 with `rhs`; `smem` is the right-hand side's shared
-// memory (its setup) and the grid, output times and reduction's.
+// Bytes of fixed_adams' grid workspace: the meetings' counter and the two
+// share buffers of one value a block.
+inline long rk_adams_grid_bytes(int n_blocks, long item) {
+  return grid_shares_bytes(n_blocks, 1, item);
+}
+
+// Shared memory a fixed_adams block's right-hand side, grid and output
+// times may take beside the reduction scratch (ops/cuda_kernels.py
+// MAX_WEIGHT_BYTES); the grouped walk's slots and the block's state rows
+// take what they leave.
+constexpr long kAdamsSmemBytes = 220L * 1024;
+
+// One launch of K10 with `rhs`, or an error. `fixed` is the bytes the
+// right-hand side keeps in shared memory (its setup); the launch adds the
+// grid and output times. explicit_adams: blocks of `threads` threads, one
+// a sample. fixed_adams: n_blocks blocks of `threads` threads, all
+// resident together (launch_grid), with the reduction scratch (grown for
+// the grouped walk's slots, Rhs::kGroup) and, when they fit, the block's
+// state rows.
 template <typename T, class Rhs>
 cudaError_t launch_rk_adams(const void* grid, const void* tau, const void* y0,
                             const void* f0, void* out, void* stats,
-                            void* work, const Rhs& rhs, size_t smem,
-                            int threads, int blocks,
-                            const AdamsTables<T>& tables,
+                            void* work, void* gwork, long gwork_bytes,
+                            int n_blocks, const Rhs& rhs, size_t fixed,
+                            int threads, const AdamsTables<T>& tables,
                             const AdamsScalars<T>& sc, cudaStream_t stream) {
-  auto kernel = rk_adams_kernel<T, Rhs>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<blocks, threads, smem, stream>>>(
-      static_cast<const T*>(grid), static_cast<const T*>(tau),
-      static_cast<const T*>(y0), static_cast<const T*>(f0),
-      static_cast<T*>(out), static_cast<int*>(stats), static_cast<T*>(work),
-      rhs, tables, sc);
-  return cudaGetLastError();
+  const size_t item = sizeof(T);
+  const size_t own = fixed + item * (size_t(sc.G) + sc.T_out);
+  const T* a_grid = static_cast<const T*>(grid);
+  const T* a_tau = static_cast<const T*>(tau);
+  const T* a_y0 = static_cast<const T*>(y0);
+  const T* a_f0 = static_cast<const T*>(f0);
+  T* a_out = static_cast<T*>(out);
+  int* a_stats = static_cast<int*>(stats);
+  T* a_work = static_cast<T*>(work);
+  if (!sc.implicit) {
+    auto kernel = rk_adams_kernel<T, Rhs>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(own));
+    if (e != cudaSuccess) return e;
+    kernel<<<(sc.B + threads - 1) / threads, threads, own, stream>>>(
+        a_grid, a_tau, a_y0, a_f0, a_out, a_stats, a_work, rhs, tables, sc);
+    return cudaGetLastError();
+  }
+  if (n_blocks < 1 || !gwork ||
+      gwork_bytes < rk_adams_grid_bytes(n_blocks, item))
+    return cudaErrorInvalidValue;
+  const size_t budget = size_t(kAdamsSmemBytes) + item * threads;
+  const int per_block = (sc.B + n_blocks - 1) / n_blocks;
+  Rhs a_rhs = rhs;
+  AdamsScalars<T> a_sc = sc;
+  size_t scratch = size_t(threads);
+  if constexpr (Rhs::kGroup) {
+    a_rhs.slots = group_slots(own, budget, threads, a_rhs.gw, per_block,
+                              item);
+    if (size_t(2) * a_rhs.slots * a_rhs.gw > scratch)
+      scratch = size_t(2) * a_rhs.slots * a_rhs.gw;
+  }
+  const size_t rows =
+      size_t(adams_grid_rows(sc.max_order)) * sc.D * size_t(per_block);
+  a_sc.scratch = int(scratch);
+  a_sc.state_smem = own + item * (scratch + rows) <= budget;
+  const size_t smem = own + item * (scratch + (a_sc.state_smem ? rows : 0));
+  unsigned char* a_gwork = static_cast<unsigned char*>(gwork);
+  AdamsTables<T> a_tab = tables;
+  void* args[] = {&a_grid, &a_tau,   &a_y0,  &a_f0,  &a_out, &a_stats,
+                  &a_work, &a_gwork, &a_rhs, &a_tab, &a_sc};
+  return launch_grid(rk_adams_grid_kernel<T, Rhs>, n_blocks, threads, smem,
+                     args, gwork, stream);
 }
 
 }  // namespace tfd

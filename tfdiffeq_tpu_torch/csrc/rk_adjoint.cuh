@@ -48,15 +48,30 @@
 //                           sample b (sum: lane_sum_small or lane_sum_warp
 //                           over the block's samples),
 //   sample_x(sh, j, rw, B, b)     per-sample quadrature j's term;
-// for K6 and K9 one sample a thread:
+// for K9 one sample a thread:
 //   lane_stage(sh, lo, t, b, B, sf, ky, kay, STEP, hb, add, first, rw)
 //                           ky, kay as rows of B; with `add`, every
 //                           quadrature's weighted term hb (sf x) into STEP's
 //                           rows (set when `first`, else added), the shared
-//                           ones first.
+//                           ones first;
+// for K6 a group of kLaneGroup threads a sample (csrc/lane_group.h):
+//   walk_values()           values of a sample's walk scratch gs (host
+//                           too);
+//   group_init(sh, gs, b, B, m, gsz)  sample b's own values into gs, once
+//                           (member m of gsz; the engine syncs after);
+//   group_stage(sh, lo, t, b, B, sf, ya, aya, ky, kay, gs, m, gsz, mask)
+//                           sample b's stage from its stage state ya, aya
+//                           (D values each, every member reads them):
+//                           member m writes ky[d], kay[d] for d = m, m +
+//                           gsz, ...; gs keeps what the quadratures read
+//                           (mask: the group's lanes, for its syncs);
+//   group_x(sh, r, gs)      quadrature r's term after group_stage, the
+//                           shared ones (a_t last), then the per-sample
+//                           ones.
 #pragma once
 
 #include "grid_meet.cuh"
+#include "lane_group.h"
 #include "mlp_rk.cuh"
 
 namespace tfd {
@@ -684,8 +699,8 @@ AdjScalars<T> make_adj_scalars(double dt0, double rtol, double atol,
 }
 
 // ---------------------------------------------------------------------------
-// K6 and K9: one thread a sample, over as many blocks as the batch needs,
-// with no barrier until the end. The per-sample state lives in the device
+// K9: one thread a sample, over as many blocks as the batch needs, with no
+// barrier until the end. The per-sample state lives in the device
 // workspace, feature-major ([row][B]: a warp touches 32 consecutive
 // values): y, a_y, their compensations and stage derivatives, the step's
 // quadrature terms STEP and their running sums ACC (the shared ones, then
@@ -694,13 +709,12 @@ AdjScalars<T> make_adj_scalars(double dt0, double rtol, double atol,
 // no atomics: a shared-memory tree within each block (block_sum), then a
 // second, small launch that adds the block sums in block order
 // (quadrature_reduce_kernel); the per-sample ones are written out as they
-// are. ops/cuda_perlane.py:perlane_adjoint_plain and ops/cuda_fixed.py:
-// fixed_adjoint_plain repeat that order.
+// are. ops/cuda_fixed.py:fixed_adjoint_plain repeats that order.
 // ---------------------------------------------------------------------------
 
-// Workspace values of K6's and K9's engines before the right-hand side's
-// rows: y, a_y, their compensations, the stages of both and the STEP and
-// ACC rows of every quadrature.
+// Workspace values of K9's engine before the right-hand side's rows: y,
+// a_y, their compensations, the stages of both and the STEP and ACC rows
+// of every quadrature.
 inline long lane_adjoint_work_size(int S, int B, int D, int n_q) {
   return ((4 + 2 * long(S)) * D + 2 * long(n_q)) * B;
 }
@@ -724,6 +738,9 @@ template <typename T>
 struct PerlaneAdjScalars {
   T rtol, atol, dt_min, sign, safety, ifactor, dfactor;
   int max_steps, T_obs, B, D;
+  int slot_values;  // a sample's slot (lane_group_slot_values)
+  int slot_smem;    // the block's slots in shared memory (else `work`)
+  int quad_regs;    // the quadratures in registers (lane_group_quad_regs)
 };
 
 // K6: every sample under its own step controller (pallas_adjoint.py:681).
@@ -734,48 +751,88 @@ struct PerlaneAdjScalars {
 // then runs the stage evaluations again for the lane-summed quadratures
 // with each lane's accept x dt x b_sol folded into its cotangent. Here each
 // trial's weighted stage terms, (dt b_j) (sign x_j), join the sample's STEP
-// rows while the stages run, and ACC += STEP only when the sample accepts.
+// sums while the stages run, and ACC += STEP only when the sample accepts.
 // That one rule replaces the second pass, and it keeps a rejected trial
 // that overflowed out of the sums (the TPU kernel adds its Inf x 0 = NaN).
 // A sample whose attempts reach max_steps, or whose rejected step falls
 // below dt_min, stops with status 1 or 2 and stays inactive. lane_stats
 // holds each sample's nfe (stages an attempt), accepted, rejected and
 // status, stats their sums and the largest status.
+//
+// Design. A group of kLaneGroup = 16 threads (a tile of one warp) owns a
+// sample for the whole sweep, and a block of 512 threads the 32
+// consecutive samples [32 k, 32 k + 32): 128 blocks of 16 warps at
+// B = 4096. The group splits the sample's work: the stage states, the
+// error terms and the Kahan updates a feature a member (d = m, m + 16,
+// ...), the right-hand side's walk as the Aug says (the MLP routes a
+// layer's outputs and, in the VJP, its inputs a member; K15's generated
+// walk in every member at once), and the quadratures a member each (r = m,
+// m + 16, ...), each member's STEP terms in registers when a sample has
+// at most 16 x 16 of them (else in workspace rows, sample-major, so that a
+// group's members touch neighbouring values), their running sums ACC in
+// the sample's slot (read and written once an accepted attempt). Every
+// member takes the same decisions from the same values: the seminorm is
+// summed by every member from the group's error terms in the plain order
+// (y's D terms, then a_y's), the finiteness by a vote of the group. A
+// sample's slot (y, a_y, their compensations and stages, the stage state,
+// the error terms, ACC and the walk's values) sits in the block's shared
+// memory when the block's 32 slots fit there (about 52 KB at the spiral
+// in float32), else in the workspace. Groups never wait for one another
+// inside the sweep: every sync is the group's (__syncwarp with its lanes'
+// mask). At the end every
+// thread, idle groups past B too, meets at one barrier; then each
+// quadrature's 32 sample sums meet in a warp's shuffle tree, the order of
+// block_sum over 32 values, and a second, small launch adds the block
+// sums in block order (quadrature_reduce_kernel):
+// ops/cuda_perlane.py:perlane_adjoint_plain repeats that order
+// (cuda_fixed._block_sums(acc, 32)).
 template <typename T, class Aug>
-__global__ void rk_perlane_adjoint_kernel(
-    const T* __restrict__ tau, const T* __restrict__ ys,
-    const T* __restrict__ g, const T* __restrict__ dt0g,
-    T* __restrict__ ay0_out, T* __restrict__ aps_out,
-    int* __restrict__ lane_stats, int* __restrict__ stats,
-    T* __restrict__ partial, T* __restrict__ work, Aug aug,
-    Tableau<T> tab_in, PerlaneAdjScalars<T> sc) {
+__global__ void __launch_bounds__(kLaneGroup * kLaneGroups, 1)
+    rk_perlane_adjoint_kernel(
+        const T* __restrict__ tau, const T* __restrict__ ys,
+        const T* __restrict__ g, const T* __restrict__ dt0g,
+        T* __restrict__ ay0_out, T* __restrict__ aps_out,
+        int* __restrict__ lane_stats, int* __restrict__ stats,
+        T* __restrict__ partial, T* __restrict__ work, Aug aug,
+        Tableau<T> tab_in, PerlaneAdjScalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ typename Aug::Shared ash;
   __shared__ Tableau<T> tab;
   const int tid = threadIdx.x;
   typename Aug::Local lo;
-  T* const red = aug.setup(ash, lo, smem_raw);   // [blockDim.x]
+  T* const rest = aug.setup(ash, lo, smem_raw);
   if (tid == 0) tab = tab_in;
   __syncthreads();
 
+  constexpr int gsz = kLaneGroup;
+  const unsigned mask = 0xFFFFu << (tid & 16);   // the group's lanes
+  const int slot = tid / gsz, m = tid % gsz;
   const int T_obs = sc.T_obs, B = sc.B, D = sc.D;
   const int S = tab.S;
   const int R = aug.n_w + aug.ti;         // shared quadratures a sample
   const int n_q = R + aug.n_ps;           // every quadrature a sample
   const long BD = long(B) * D;
-  T* Y = work;                      // [D] y
-  T* AY = Y + BD;                   // [D] a_y
-  T* CY = AY + BD;                  // [D] Kahan compensation of y
-  T* CAY = CY + BD;                 // [D] ... and of a_y
-  T* KY = CAY + BD;                 // [S][D] stage derivatives of y
-  T* KAY = KY + S * BD;             // [S][D] ... and of a_y
-  T* STEP = KAY + S * BD;           // [n_q] the trial's quadrature
-  T* ACC = STEP + long(n_q) * B;    // [n_q] the accepted quadrature
-  T* RW = ACC + long(n_q) * B;      // the right-hand side's rows
-
-  const int b = blockIdx.x * blockDim.x + tid;
-  const bool mine = b < B;          // idle threads still meet at the end
-  auto at = [B, b](int row) -> long { return long(row) * B + b; };
+  const long SV = sc.slot_values;
+  const int b = blockIdx.x * kLaneGroups + slot;
+  const bool mine = b < B;          // idle groups still meet at the end
+  // The sample's slot: in the block's shared memory or in the workspace.
+  T* const SL = sc.slot_smem ? rest + slot * SV
+                             : work + long(mine ? b : 0) * SV;
+  T* const Y = SL;                  // [D] y
+  T* const AY = Y + D;              // [D] a_y
+  T* const CY = AY + D;             // [D] Kahan compensation of y
+  T* const CAY = CY + D;            // [D] ... and of a_y
+  T* const KY = CAY + D;            // [S][D] stage derivatives of y
+  T* const KAY = KY + S * D;        // [S][D] ... and of a_y
+  T* const YA = KAY + S * D;        // [D] the stage state of y
+  T* const AYA = YA + D;            // [D] ... and of a_y
+  T* const E = AYA + D;             // [2 D] the squared scaled errors
+  T* const ACC = E + 2 * D;         // [n_q] the accepted quadratures
+  T* const GS = ACC + n_q;          // the walk's values
+  // [B][n_q] the trial's quadratures where they do not fit in registers.
+  T* const STEP = work + long(B) * SV + long(mine ? b : 0) * n_q;
+  const bool regs = sc.quad_regs != 0;
+  T stepr[kLaneQuadRegs];
   const T sf = sc.sign;
   const T denom = T(2 * D);
   int first_b = 0;                  // first stage with a nonzero weight
@@ -784,17 +841,19 @@ __global__ void rk_perlane_adjoint_kernel(
   T dt = mine ? dt0g[b] : T(0);
   int nfe = 0, nacc = 0, nrej = 0, status = 0;
   if (mine) {
-    for (int d = 0; d < D; ++d) AY[at(d)] = T(0);
-    for (int r = 0; r < n_q; ++r) ACC[at(r)] = T(0);
+    for (int d = m; d < D; d += gsz) AY[d] = T(0);
+    for (int r = m; r < n_q; r += gsz) ACC[r] = T(0);
+    aug.group_init(ash, GS, b, B, m, gsz);
+    __syncwarp(mask);
   }
   for (int i = T_obs - 1; mine && i >= 1; --i) {
     // Reset y to the stored forward state; inject the cotangent.
-    for (int d = 0; d < D; ++d) {
+    for (int d = m; d < D; d += gsz) {
       const long k = long(i) * BD + long(b) * D + d;
-      Y[at(d)] = ys[k];
-      AY[at(d)] = AY[at(d)] + g[k];
-      CY[at(d)] = T(0);
-      CAY[at(d)] = T(0);
+      Y[d] = ys[k];
+      AY[d] = AY[d] + g[k];
+      CY[d] = T(0);
+      CAY[d] = T(0);
     }
     T s = -tau[i];
     const T s_end = -tau[i - 1];
@@ -805,26 +864,56 @@ __global__ void rk_perlane_adjoint_kernel(
       const T s1 = is_last ? s_end : s + dt_eff;
       const T dth = s1 - s;
       for (int st = 0; st < S; ++st) {
-        aug_stage_state(tab, st, dth, Y, AY, KY, KAY, aug.ya(lo),
-                        aug.aya(lo), D, B, b);
-        // The right-hand side; the trial's weighted quadrature terms,
-        // (dt b_st) (sign x), join STEP in stage order.
-        aug.lane_stage(ash, lo, (-sf) * (s + tab.c[st] * dth), b, B, sf,
-                       KY + long(st) * BD, KAY + long(st) * BD, STEP,
-                       dth * tab.b_sol[st], tab.b_sol[st] != T(0),
-                       st == first_b, RW);
+        // Stage st's state ya = y + sum_q (h a_stq) ky_q, aya likewise.
+        for (int d = m; d < D; d += gsz) {
+          T yv = Y[d], av = AY[d];
+          for (int q = 0; q < st; ++q) {
+            const T a = tab.a[st][q];
+            if (a != T(0)) {
+              yv = yv + (dth * a) * KY[q * D + d];
+              av = av + (dth * a) * KAY[q * D + d];
+            }
+          }
+          YA[d] = yv;
+          AYA[d] = av;
+        }
+        __syncwarp(mask);
+        aug.group_stage(ash, lo, (-sf) * (s + tab.c[st] * dth), b, B, sf,
+                        YA, AYA, KY + st * D, KAY + st * D, GS, m, gsz,
+                        mask);
+        // The trial's weighted quadrature terms, (dt b_st) (sign x), join
+        // STEP in stage order, set at the first weighted stage.
+        if (tab.b_sol[st] != T(0)) {
+          const T hb = dth * tab.b_sol[st];
+          const bool first = st == first_b;
+          if (regs) {
+#pragma unroll
+            for (int j = 0; j < kLaneQuadRegs; ++j) {
+              const int r = m + j * gsz;
+              if (r < n_q) {
+                const T term = hb * (sf * aug.group_x(ash, r, GS));
+                stepr[j] = first ? term : stepr[j] + term;
+              }
+            }
+          } else {
+            for (int r = m; r < n_q; r += gsz) {
+              const T term = hb * (sf * aug.group_x(ash, r, GS));
+              STEP[r] = first ? term : STEP[r] + term;
+            }
+          }
+        }
+        __syncwarp(mask);   // the next walk overwrites what these read
       }
       // The (y, a_y) seminorm of the sample's error, and finiteness.
-      T ss_part[2] = {T(0), T(0)};
       bool bad = false;
       for (int pass = 0; pass < 2; ++pass) {
         const T* V = pass ? AY : Y;
         const T* KV = pass ? KAY : KY;
-        for (int d = 0; d < D; ++d) {
+        for (int d = m; d < D; d += gsz) {
           T dv = T(0), ev = T(0);
           bool first_d = true, first_e = true;
           for (int q = 0; q < S; ++q) {
-            const T kq = KV[at(q * D + d)];
+            const T kq = KV[q * D + d];
             if (tab.b_sol[q] != T(0)) {
               const T term = (dth * tab.b_sol[q]) * kq;
               dv = first_d ? term : dv + term;
@@ -836,16 +925,22 @@ __global__ void rk_perlane_adjoint_kernel(
               first_e = false;
             }
           }
-          const T v0 = V[at(d)];
+          const T v0 = V[d];
           const T v1 = v0 + dv;
           const T esc = ev / (sc.atol + sc.rtol * d_max(d_abs(v0), d_abs(v1)));
-          ss_part[pass] = ss_part[pass] + esc * esc;
+          E[pass * D + d] = esc * esc;
           bad = bad || !d_finite(v1);
         }
       }
+      const bool any_bad = __any_sync(mask, bad);
+      __syncwarp(mask);
+      T ss_part[2] = {T(0), T(0)};
+      for (int pass = 0; pass < 2; ++pass)
+        for (int d = 0; d < D; ++d)
+          ss_part[pass] = ss_part[pass] + E[pass * D + d];
       const T ss = ss_part[0] + ss_part[1];
       const T ratio = d_sqrt(ss / denom);
-      const bool finite = d_finite(ss) && !bad;
+      const bool finite = d_finite(ss) && !any_bad;
       const bool accept = (ratio <= T(1)) && finite;
       const T fac = controller_factor(ratio, finite, accept, sc.safety,
                                       sc.ifactor, sc.dfactor, tab.order);
@@ -853,8 +948,36 @@ __global__ void rk_perlane_adjoint_kernel(
       if (accept) {
         // The Kahan-compensated update of (y, a_y), and the trial's
         // quadratures into the sample's running sums.
-        aug_kahan_update(tab, dth, Y, AY, CY, CAY, KY, KAY, D, B, b);
-        for (int r = 0; r < n_q; ++r) ACC[at(r)] = ACC[at(r)] + STEP[at(r)];
+        for (int pass = 0; pass < 2; ++pass) {
+          T* V = pass ? AY : Y;
+          T* CV = pass ? CAY : CY;
+          const T* KV = pass ? KAY : KY;
+          for (int d = m; d < D; d += gsz) {
+            T dv = T(0);
+            bool first = true;
+            for (int q = 0; q < S; ++q) {
+              if (tab.b_sol[q] != T(0)) {
+                const T term = (dth * tab.b_sol[q]) * KV[q * D + d];
+                dv = first ? term : dv + term;
+                first = false;
+              }
+            }
+            const T v0 = V[d];
+            const T adj = dv - CV[d];
+            const T v1 = v0 + adj;
+            CV[d] = (v1 - v0) - adj;
+            V[d] = v1;
+          }
+        }
+        if (regs) {
+#pragma unroll
+          for (int j = 0; j < kLaneQuadRegs; ++j) {
+            const int r = m + j * gsz;
+            if (r < n_q) ACC[r] = ACC[r] + stepr[j];
+          }
+        } else {
+          for (int r = m; r < n_q; r += gsz) ACC[r] = ACC[r] + STEP[r];
+        }
         s = s1;
       }
       // The sample's status rules (pallas_adjoint.py:881-890).
@@ -868,31 +991,64 @@ __global__ void rk_perlane_adjoint_kernel(
     }
   }
   if (mine) {
-    for (int d = 0; d < D; ++d) {
+    for (int d = m; d < D; d += gsz) {
       const long k = long(b) * D + d;
-      ay0_out[k] = AY[at(d)] + g[k];
+      ay0_out[k] = AY[d] + g[k];
     }
-    lane_stats[b] = nfe;
-    lane_stats[B + b] = nacc;
-    lane_stats[2 * B + b] = nrej;
-    lane_stats[3 * B + b] = status;
-    // Integer sums: the same total in any order.
-    atomicAdd(stats, nfe);
-    atomicAdd(stats + 1, nacc);
-    atomicAdd(stats + 2, nrej);
-    atomicMax(stats + 3, status);
+    if (m == 0) {
+      lane_stats[b] = nfe;
+      lane_stats[B + b] = nacc;
+      lane_stats[2 * B + b] = nrej;
+      lane_stats[3 * B + b] = status;
+      // Integer sums: the same total in any order.
+      atomicAdd(stats, nfe);
+      atomicAdd(stats + 1, nacc);
+      atomicAdd(stats + 2, nrej);
+      atomicMax(stats + 3, status);
+    }
+    // The per-sample quadratures out.
+    for (int r = R + m; r < n_q; r += gsz)
+      aps_out[long(r - R) * B + b] = ACC[r];
   }
-  lane_adjoint_finish(ACC, R, aug.n_ps, B, b, mine, red, partial, aps_out);
+  __syncthreads();   // every thread: the block's sums are final
+  // The block's sum of each shared quadrature over its 32 samples, a warp
+  // a quadrature: block_sum's tree over 32 values, by shuffles.
+  const int lane = tid % kWarp;
+  const int bl = blockIdx.x * kLaneGroups + lane;
+  const T* const acc_l =
+      (sc.slot_smem ? rest + lane * SV : work + long(bl < B ? bl : 0) * SV) +
+      (ACC - SL);
+  for (int r = tid / kWarp; r < R; r += blockDim.x / kWarp) {
+    T v = bl < B ? acc_l[r] : T(0);
+    for (int o = kWarp / 2; o > 0; o >>= 1)
+      v = v + __shfl_down_sync(0xFFFFFFFFu, v, o);
+    if (lane == 0) partial[long(blockIdx.x) * R + r] = v;
+  }
 }
 
-// K6's launch: the sweep, then the block sums in block order.
+// Shared memory a K6 block's right-hand side and slots may take.
+constexpr long kLaneSmemBytes = 220L * 1024;
+
+// K6's launch: the sweep, then the block sums in block order. `fixed` is
+// the bytes the right-hand side keeps in shared memory (its setup); the
+// launch adds the block's 32 slots where they fit beside it.
 template <typename T, class Aug>
 cudaError_t launch_rk_perlane_adjoint(
     const void* tau, const void* ys, const void* g, const void* dt0,
     void* ay0, void* aw, void* at, void* aps, void* lane_stats, void* stats,
-    void* partial, void* work, const Aug& aug, size_t smem, int threads,
-    const Tableau<T>& tab, const PerlaneAdjScalars<T>& sc,
+    void* partial, void* work, long work_size, const Aug& aug, size_t fixed,
+    const Tableau<T>& tab, const PerlaneAdjScalars<T>& sc_in,
     cudaStream_t st) {
+  const int n_q = aug.n_w + aug.ti + aug.n_ps;
+  const long walk = aug.walk_values();
+  if (work_size < lane_group_work_size(tab.S, sc_in.B, sc_in.D, n_q, walk))
+    return cudaErrorInvalidValue;
+  PerlaneAdjScalars<T> sc = sc_in;
+  sc.slot_values = int(lane_group_slot_values(tab.S, sc.D, n_q, walk));
+  sc.quad_regs = lane_group_quad_regs(n_q);
+  const size_t slots = sizeof(T) * size_t(kLaneGroups) * sc.slot_values;
+  sc.slot_smem = fixed + slots <= size_t(kLaneSmemBytes);
+  const size_t smem = fixed + (sc.slot_smem ? slots : 0);
   cudaError_t e = cudaMemsetAsync(stats, 0, 4 * sizeof(int), st);
   if (e != cudaSuccess) return e;
   auto kernel = rk_perlane_adjoint_kernel<T, Aug>;
@@ -900,8 +1056,8 @@ cudaError_t launch_rk_perlane_adjoint(
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            int(smem));
   if (e != cudaSuccess) return e;
-  const int blocks = (sc.B + threads - 1) / threads;
-  kernel<<<blocks, threads, smem, st>>>(
+  const int blocks = (sc.B + kLaneGroups - 1) / kLaneGroups;
+  kernel<<<blocks, kLaneGroup * kLaneGroups, smem, st>>>(
       static_cast<const T*>(tau), static_cast<const T*>(ys),
       static_cast<const T*>(g), static_cast<const T*>(dt0),
       static_cast<T*>(ay0), static_cast<T*>(aps),

@@ -57,11 +57,12 @@
 // libraries are built with --fmad=false, so the two give the same bits.
 // max_order is a launch argument: one binary serves orders 1 .. 12.
 //
-// The right-hand side `Rhs` (csrc/vcabm_kernel.cu MlpVcabmRhs: the MLP
-// routes; csrc/plan_rhs.cuh PlanRhs: K14's generated plans) evaluates one
-// sample in its thread, as csrc/rk_adams.cuh describes, and with kGroup
-// (the MLP routes) also eval_group(sh, t, on, m, gsz, hin) for a group of
-// threads a sample (its gw-wide vectors and `slots`, set by the launch).
+// The right-hand side `Rhs` (mlp_rk.cuh MlpGroupRhs: the MLP routes of
+// csrc/vcabm_kernel.cu; csrc/plan_rhs.cuh PlanRhs: K14's generated plans)
+// evaluates one sample in its thread, as csrc/rk_adams.cuh describes, and
+// with kGroup (the MLP routes) also eval_group(sh, t, on, m, gsz, hin) for
+// a group of threads a sample (its gw-wide vectors and `slots`, set by the
+// launch).
 #pragma once
 
 #include "grid_meet.cuh"

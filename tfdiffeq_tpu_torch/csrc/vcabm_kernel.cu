@@ -2,7 +2,7 @@
 // solve (VCABM, method 'adams') of an MLP neural ODE in one launch.
 //
 // The engine is csrc/rk_vcabm.cuh, a template on its right-hand side; this
-// file instantiates it with the MLP routes (mlp_rk.cuh MlpThreadRhs), as
+// file instantiates it with the MLP routes (mlp_rk.cuh MlpGroupRhs), as
 // csrc/plan_rhs.cuh does with K14's generated plans.
 //
 // Replaces the TPU kernel tfdiffeq_tpu/ops/pallas_vcabm.py:51
@@ -20,21 +20,6 @@
 
 namespace tfd {
 
-// K11's MLP right-hand side: mlp_rk.cuh's MlpThreadRhs, and a group of
-// threads a sample (mlp_eval_group) where the engine walks one.
-template <typename T, int kRoute>
-struct MlpVcabmRhs : MlpThreadRhs<T, kRoute> {
-  static constexpr bool kGroup = true;
-  int gw;      // the group vectors' width: the widest layer
-  int slots;   // samples a round (the launch's choice)
-
-  __device__ const T* eval_group(
-      const typename MlpThreadRhs<T, kRoute>::Shared& sh, T t, bool on,
-      int m, int gsz, T* hin) const {
-    return mlp_eval_group(sh.net, this->weights(), t, hin, gw, on, m, gsz);
-  }
-};
-
 template <typename T, int kRoute>
 cudaError_t launch_vcabm_route(const void* tau, const void* y0,
                                const void* f0, const void* weights,
@@ -43,14 +28,9 @@ cudaError_t launch_vcabm_route(const void* tau, const void* y0,
                                int n_w, int threads, const Net& net,
                                const VcabmScalars<T>& sc,
                                cudaStream_t stream) {
-  MlpVcabmRhs<T, kRoute> rhs;
-  rhs.wg = static_cast<const T*>(weights);
-  rhs.n_weights = n_w;
-  rhs.net_in = net;
-  rhs.gw = net_max_width(net);
-  rhs.slots = 1;
   return launch_rk_vcabm<T>(
-      tau, y0, f0, out, stats, work, gwork, gwork_bytes, n_blocks, rhs,
+      tau, y0, f0, out, stats, work, gwork, gwork_bytes, n_blocks,
+      make_mlp_group_rhs<T, kRoute>(weights, n_w, net),
       sizeof(T) * (kRoute == kRouteNarrow ? size_t(n_w) : 0), threads, sc,
       stream);
 }

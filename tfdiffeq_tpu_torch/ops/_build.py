@@ -45,14 +45,15 @@ SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "conv_solve_kernel.cu", "perlane_solve_kernel.cu",
            "perlane_adjoint_kernel.cu", "tier_net_kernel.cu",
            "adams_kernel.cu", "vcabm_kernel.cu")
-HEADERS = ("grid_meet.cuh", "mlp_rk.cuh", "dot_tiers.cuh", "cnf_net.cuh",
-           "rk_solve.cuh", "rk_fixed.cuh", "rk_perlane.cuh",
+HEADERS = ("grid_meet.cuh", "lane_group.h", "mlp_rk.cuh", "dot_tiers.cuh",
+           "cnf_net.cuh", "rk_solve.cuh", "rk_fixed.cuh", "rk_perlane.cuh",
            "rk_adjoint.cuh", "rk_adams.cuh", "rk_vcabm.cuh")
 #: The headers a plan library compiles against.
-PLAN_HEADERS = ("grid_meet.cuh", "mlp_rk.cuh", "rk_solve.cuh",
-                "rk_fixed.cuh", "rk_perlane.cuh", "rk_adjoint.cuh",
-                "rk_adams.cuh", "rk_vcabm.cuh", "rk_hyper.cuh",
-                "plan_ops.cuh", "plan_rhs.cuh", "plan_aug.cuh")
+PLAN_HEADERS = ("grid_meet.cuh", "lane_group.h", "mlp_rk.cuh",
+                "rk_solve.cuh", "rk_fixed.cuh", "rk_perlane.cuh",
+                "rk_adjoint.cuh", "rk_adams.cuh", "rk_vcabm.cuh",
+                "rk_hyper.cuh", "plan_ops.cuh", "plan_rhs.cuh",
+                "plan_aug.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
@@ -134,12 +135,13 @@ _TIER_NET_ARGS = ([_P] * 3                                  # tensors
                   + [_P])                                   # stream
 
 _SOLVE_ADAMS_ARGS = ([_P] * 8                               # tensors
-                     + [_I] * 6                             # G .. blocks
+                     + [_I] * 5                             # G .. threads
                      + [_D] * 3                             # sign .. atol
                      + [_I] * 5                             # valid .. nfe
                      + [_P, _P]                             # ab, am
                      + [_I, _P, _I, _I, _I, _I]             # network
                      + [_I]                                 # route
+                     + [_P, _L, _I]                         # grid
                      + [_P])                                # stream
 _SOLVE_VCABM_ARGS = ([_P] * 7                               # tensors
                      + [_I] * 4                             # T, B, D, threads
@@ -161,9 +163,9 @@ _PLAN_ARGS = {
     "perlane": ([_P] * 8 + [_I] * 4 + [_D] * 7 + [_I, _I]  # tau .. valid
                 + [_I, _I, _I, _P, _P, _P, _P, _P]         # tableau
                 + _PLAN_CONSTS + [_P]),
-    "adams": ([_P] * 7 + [_I] * 6 + [_D] * 3             # grid .. atol
+    "adams": ([_P] * 7 + [_I] * 5 + [_D] * 3             # grid .. atol
               + [_I] * 5 + [_P, _P]                       # valid .. am
-              + _PLAN_CONSTS + [_P]),
+              + _PLAN_CONSTS + [_P, _L, _I, _P]),         # grid, stream
     "vcabm": ([_P] * 6 + [_I] * 4 + [_D] * 8             # tau .. dfactor
               + [_I] * 3 + [_P]                           # .. gstar
               + _PLAN_CONSTS + [_P, _L, _I, _P]),         # grid, stream
@@ -175,7 +177,8 @@ _PLAN_ARGS = {
                 + [_I, _I, _P, _P, _P, _P]                  # tableau
                 + _PLAN_CONSTS + [_I]                       # quad_smem
                 + [_P, _L, _I, _P]),                        # grid, stream
-    "perlane_adjoint": ([_P] * 12 + [_I] * 4 + [_D] * 7 + [_I]
+    "perlane_adjoint": ([_P] * 12 + [_L]                   # .. work size
+                        + [_I] * 4 + [_D] * 7 + [_I]
                         + [_I, _I, _P, _P, _P, _P]          # tableau
                         + _PLAN_CONSTS + [_P]),
     "fixed_adjoint": ([_P] * 10 + [_I] * 5 + [_D]          # tau .. sign

@@ -22,15 +22,17 @@ canonical right-hand side and serve both.
 The wrappers take the plain versions only for tensors on the CPU; a CUDA
 tensor launches the kernel or raises. The plain versions follow the
 kernels operation for operation on the batch-major [B, D] layout, the
-batch sums in the kernels' fixed order (`_owned_sums`, then `_tree_sum`)
-and every scalar of the VCABM machinery as a 0-d tensor on the state's
+batch sums in the kernels' fixed order (`cuda_kernels._grid_sum`) and
+every scalar of the VCABM machinery as a 0-d tensor on the state's
 device, so that a kernel run equals its plain version on the same card to
-the bit. K11 runs on a grid of `n_blocks` blocks (`cuda_kernels.
-solve_blocks`: one per SM), each owning a contiguous range of the samples,
-under one controller; its plain version takes every batch sum in the
+the bit. K11 and fixed_adams' K10 run on a grid of `n_blocks` blocks
+(`cuda_kernels.solve_blocks`: one per SM), each owning a contiguous range
+of the samples, under one controller (K10: one convergence decision a
+corrector iteration); their plain versions take every batch sum in the
 grid's order for the same n_blocks (`cuda_kernels._grid_sum`), one block
-on the CPU. Both take the narrow and wide routes of `cuda_kernels._route`;
-neither takes a reduced dot precision (the reference refuses the tiers
+on the CPU. explicit_adams has no batch sum: a thread a sample. Both
+kernels take the narrow and wide routes of `cuda_kernels._route`; neither
+takes a reduced dot precision (the reference refuses the tiers
 for the Adams kernels) nor `rhs='cnf'`. Not ported: the TPU machinery of
 the reference (`pack` sublane packing, `n_blocks` grid blocks, padded
 lanes).
@@ -51,9 +53,8 @@ from .cuda_fixed import hermite_drain_plain
 from .cuda_kernels import (_ACT_CODES, _block_index, _check_activations,
                            _check_blocks, _check_float, _check_mlp, _count,
                            _device_kind, _dims_arg, _grid_sum, _increasing,
-                           _net_plain, _owned_sums, _ptr, _route,
-                           _shares_work, _solve_setup, _stream, _tree_sum,
-                           solve_blocks)
+                           _net_plain, _ptr, _route, _shares_work,
+                           _solve_setup, _stream, solve_blocks)
 from .tableaus import RK4
 from ..solvers.adams import GAMMA_STAR
 from ..solvers.fixed_adams import (BASHFORTH_TABLE, MAX_ORDER,
@@ -61,9 +62,9 @@ from ..solvers.fixed_adams import (BASHFORTH_TABLE, MAX_ORDER,
 
 Tensor = torch.Tensor
 
-#: Threads of K10's one block for fixed_adams and of each K11 block
-#: (csrc/adams_kernel.cu kAdamsThreads, csrc/rk_vcabm.cuh kVcabmThreads):
-#: thread i owns samples i, i + threads, ... of its block's batch sums.
+#: Threads of each block of fixed_adams' K10 and of K11 (csrc/rk_adams.cuh
+#: kAdamsThreads, csrc/rk_vcabm.cuh kVcabmThreads): thread i owns samples
+#: lo + i, lo + i + threads, ... of its block's batch sums.
 ADAMS_THREADS = 512
 VCABM_THREADS = 512
 #: Threads of an explicit_adams block, one sample a thread.
@@ -110,32 +111,56 @@ def _adams_nfe(G: int, max_order: int, max_iters: int,
     return 1 + 4 * boot + per * (G - 1 - boot)
 
 
+def adams_work_size(max_order: int, implicit: bool, B: int, D: int) -> int:
+    """K10's workspace: rows of D values a sample for the state, its
+    compensation, the increment, the RK4 stages and the history ring;
+    fixed_adams also y_cur, the history part and the evaluation
+    (csrc/rk_adams.cuh adams_grid_rows; its grid keeps a block's rows in
+    the block's shared memory where they fit)."""
+    return ((9 if implicit else 6) + max_order) * B * D
+
+
+def _adams_grid(implicit: bool, n_blocks, B: int, dtype, device):
+    """(n_blocks, grid workspace) of a K10 launch: fixed_adams' grid
+    (`solve_blocks` when None) and its meetings' workspace of one share a
+    block; explicit_adams has neither (1 and a byte)."""
+    if not implicit:
+        return 1, torch.empty(1, dtype=torch.uint8, device=device)
+    nb = n_blocks or solve_blocks(B, device)
+    return nb, _shares_work(nb, 1, dtype, device)
+
+
 def mlp_solve_adams_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                           grid: Tensor, rtol, atol, sign, *, f0: Tensor,
                           activation: str = "tanh",
                           final_activation: str = "identity",
                           input_power: int = 1, time_input: bool = False,
                           implicit: bool = True, max_order: int = 4,
-                          max_iters: int = 4) -> Tuple[Tensor, Tensor]:
+                          max_iters: int = 4, n_blocks: int = None
+                          ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K10, step for step. Same contract as
     `mlp_solve_adams`, except that f0 is required."""
     f = _signed_net(warrays, dims, sign, y0.dtype, y0.device, activation,
                     final_activation, input_power, time_input)
     return adams_solve_plain(f, y0, f0, tau, grid, rtol, atol,
                              implicit=implicit, max_order=max_order,
-                             max_iters=max_iters)
+                             max_iters=max_iters, n_blocks=n_blocks)
 
 
 def adams_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, grid: Tensor,
                       rtol, atol, *, implicit: bool = True,
-                      max_order: int = 4, max_iters: int = 4
-                      ) -> Tuple[Tensor, Tensor]:
+                      max_order: int = 4, max_iters: int = 4,
+                      n_blocks: int = None) -> Tuple[Tensor, Tensor]:
     """K10's engine (`_make_adams_solve_kernel`) step for step on the host:
     f(s, y) is the canonical (signed) right-hand side on y0's [B, D]
     layout, f0 = f(grid[0], y0). Returns (out [T, B, D], stats [4] int32).
-    Shared by the MLP route (`mlp_solve_adams_plain`) and the plan route
+    fixed_adams' convergence norm sums in the order of K10's grid of
+    `n_blocks` blocks (None: the kernel's grid for y0's device,
+    `solve_blocks`; one block on the CPU, the one-block order). Shared by
+    the MLP route (`mlp_solve_adams_plain`) and the plan route
     (`cuda_plan.plan_solve_adams_plain`)."""
     MO = check_max_order(max_order)
+    _check_blocks(n_blocks)
     dev, dtype = y0.device, y0.dtype
     T, G = tau.shape[0], grid.shape[0]
     tau_h = tau.detach().to("cpu", dtype)
@@ -152,6 +177,9 @@ def adams_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, grid: Tensor,
         # Non-monotonic times: status 3, output zero beyond row 0.
         return out, torch.tensor([0, 0, 0, 3], dtype=torch.int32, device=dev)
     denom = _count(y0)
+    B = y0.shape[0]
+    owned = (_block_index(B, n_blocks or solve_blocks(B, dev), ADAMS_THREADS,
+                          dev) if implicit else None)
     # RK4's stages 1 .. 3: each row's one nonzero weight a_i,i-1, and c_i.
     rk = [(a[-1], c) for a, c in zip(RK4.a, RK4.c[1:])]
     y, comp = y0, torch.zeros_like(y0)
@@ -197,9 +225,7 @@ def adams_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, grid: Tensor,
                 scale = atol + rtol * torch.maximum(torch.abs(y_cur),
                                                     torch.abs(y_next))
                 esc = (y_next - y_cur) / scale
-                norm = torch.sqrt(_tree_sum(_owned_sums(esc * esc,
-                                                        ADAMS_THREADS))
-                                  / denom)
+                norm = torch.sqrt(_grid_sum(esc * esc, owned) / denom)
                 if not done:
                     y_cur = y_next
                 done = done or bool(norm <= 1.0)
@@ -240,7 +266,8 @@ def mlp_solve_adams(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                     final_activation: str = "identity",
                     input_power: int = 1, time_input: bool = False,
                     implicit: bool = True, max_order: int = 4,
-                    max_iters: int = 4) -> Tuple[Tensor, Tensor]:
+                    max_iters: int = 4, n_blocks: int = None
+                    ) -> Tuple[Tensor, Tensor]:
     """Whole-solve fused fixed-step Adams for a general MLP neural ODE, one
     kernel launch: the RK4 bootstrap, the predictor over the history and,
     with `implicit` ('fixed_adams'), `max_iters` corrector iterations with
@@ -259,8 +286,15 @@ def mlp_solve_adams(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     per bootstrap step + 1 or max_iters + 1 per Adams step, steps = G - 1,
     0, status). Status 3 (INVALID_TIMES): tau or grid not strictly
     increasing; the output is then zero beyond row 0 and the counts are 0.
+
+    n_blocks: fixed_adams' grid, each block a contiguous range of the
+    samples (None: `cuda_kernels.solve_blocks`, one block per SM); it
+    changes only the order of the convergence norm's sum, which the plain
+    version repeats for the same n_blocks. explicit_adams has no batch sum
+    and gives each sample a thread.
     """
     _check_activations(activation, final_activation)
+    _check_blocks(n_blocks)
     MO = check_max_order(max_order)
     if int(max_iters) < 0:
         raise ValueError(f"max_iters must be >= 0, got {max_iters}")
@@ -273,7 +307,8 @@ def mlp_solve_adams(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     if _device_kind(y0, f0, warrays) == "cpu":
         return mlp_solve_adams_plain(
             warrays, dims, y0, tau, grid, rtol, atol, sign, f0=f0,
-            implicit=implicit, max_order=MO, max_iters=max_iters, **kw)
+            implicit=implicit, max_order=MO, max_iters=max_iters,
+            n_blocks=n_blocks, **kw)
 
     global mlp_solve_adams_launches
     B, D = y0.shape
@@ -285,11 +320,12 @@ def mlp_solve_adams(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     grid_h = grid.detach().to("cpu", dtype)
     valid = _increasing(tau_h) and _increasing(grid_h)
     threads = ADAMS_THREADS if implicit else ADAMS_EXPLICIT_THREADS
-    blocks = 1 if implicit else -(-B // threads)
     dbl = lambda a: (ctypes.c_double * a.size)(*a.reshape(-1).tolist())
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
-    work = torch.empty((8 + MO) * B * D, dtype=dtype, device=y0.device)
+    work = torch.empty(adams_work_size(MO, implicit, B, D), dtype=dtype,
+                       device=y0.device)
+    nb, gwork = _adams_grid(implicit, n_blocks, B, dtype, y0.device)
     # Named, so that they live until the launch has read them.
     grid_d, tau_d = grid_h.to(y0.device), tau_h.to(y0.device)
     lib = _build.library()
@@ -298,13 +334,14 @@ def mlp_solve_adams(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     with torch.cuda.device(y0.device):
         err = fn(_ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0),
                  _ptr(warrays), _ptr(out), _ptr(stats), _ptr(work), G, T, B,
-                 D, threads, blocks, float(sign), float(rtol), float(atol),
+                 D, threads, float(sign), float(rtol), float(atol),
                  int(valid), MO, int(max_iters), int(bool(implicit)),
                  _adams_nfe(G, MO, int(max_iters), bool(implicit)),
                  dbl(BASHFORTH_TABLE[:MO, :MO]), dbl(MOULTON_TABLE[:MO, :MO]),
                  len(dims), _dims_arg(dims), _ACT_CODES[activation],
                  _ACT_CODES[final_activation], int(input_power),
-                 int(time_input), route, _stream(y0.device))
+                 int(time_input), route, _ptr(gwork), gwork.numel(), nb,
+                 _stream(y0.device))
     _build.check(err, "mlp_solve_adams launch")
     mlp_solve_adams_launches += 1
     return out, stats

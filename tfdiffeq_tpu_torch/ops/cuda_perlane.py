@@ -13,8 +13,9 @@ and `pallas_adjoint.py` (sources in `tfdiffeq_tpu_torch/csrc/`, built by
   `_make_perlane_adjoint_kernel` (pallas_adjoint.py:681): the whole adjoint
   backward sweep, every sample under its own controller on (y, a_y).
 
-No sample waits for another, so both kernels give each sample its own
-thread, over as many blocks as the batch needs. The wrappers take the plain
+No sample waits for another, so K5 gives each sample its own thread, over
+as many blocks as the batch needs, and K6 a group of PERLANE_GROUP threads,
+32 samples a block of PERLANE_ADJOINT_THREADS. The wrappers take the plain
 versions only for tensors on the CPU; a CUDA tensor launches the kernel or
 raises. The plain versions step every sample together, each masked by its
 own state (a host loop of attempts until no sample is active), with each
@@ -49,10 +50,14 @@ from .tableaus import TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
 
-#: Threads per block of K5 and K6 (one sample a thread: 128 blocks at
-#: B = 4096); K6's per-block quadrature sums take a tree over them, so a
-#: power of two.
+#: Threads per block of K5 (one sample a thread: 128 blocks at B = 4096),
+#: and the samples of a K6 block, whose quadrature sums take a tree over
+#: them (a power of two).
 PERLANE_THREADS = 32
+#: K6 (csrc/lane_group.h): the threads of a sample's group, and of a block
+#: of PERLANE_THREADS groups (128 blocks of 16 warps at B = 4096).
+PERLANE_GROUP = 16
+PERLANE_ADJOINT_THREADS = PERLANE_GROUP * PERLANE_THREADS
 
 mlp_solve_perlane_launches = 0
 mlp_perlane_adjoint_solve_launches = 0
@@ -463,16 +468,28 @@ def perlane_adjoint_plain(aug, n_w: int, time_input: bool, n_ps: int,
     return ay + g[0], total[:n_w], at, acc[:, R:], stats, lane
 
 
+def _group_work_size(S: int, B: int, D: int, n_q: int,
+                     walk_values: int) -> int:
+    """csrc/lane_group.h lane_group_work_size: every sample's slot (y, a_y,
+    their compensations, the stages of both, the stage state and the error
+    terms: (8 + 2 S) D values, the running sums of its n_q quadratures,
+    then the walk's `walk_values`) and the STEP rows of its n_q
+    quadratures."""
+    return B * ((8 + 2 * S) * D + walk_values + 2 * n_q)
+
+
+def _mlp_walk_values(dims, D: int) -> int:
+    """csrc/lane_group.h lane_group_mlp_walk_values: each layer's inputs and
+    pre-activation cotangents, f (D) and the layer-0 input cotangent."""
+    return D + dims[0][0] + sum(din + dout for din, dout in dims)
+
+
 def _adjoint_work_size(dims, S: int, B: int, D: int,
                        time_input: bool) -> int:
-    """csrc/perlane_adjoint_kernel.cu perlane_adjoint_work_size: per-sample
-    rows of B values for (y, a_y), their compensations and stage
-    derivatives, each layer's inputs and act'(z), and the trial's and the
-    running quadrature sums."""
+    """The MLP routes' workspace of K6 (`_group_work_size` with the
+    parameter and a_t quadratures and the MLP walk's values)."""
     R = sum(din * dout + dout for din, dout in dims) + int(time_input)
-    rows = ((4 + 2 * S) * D + sum(din + dout for din, dout in dims)
-            + 2 * R)
-    return rows * B
+    return _group_work_size(S, B, D, R, _mlp_walk_values(dims, D))
 
 
 def mlp_perlane_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
@@ -556,7 +573,8 @@ def mlp_perlane_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
         err = fn(_ptr(tau_d), _ptr(ys), _ptr(g), _ptr(dt0_d), _ptr(warrays),
                  _ptr(ay0), _ptr(aw), _ptr(at), _ptr(lane), _ptr(stats),
                  _ptr(partial), _ptr(work), n_work, T, B, D,
-                 PERLANE_THREADS, float(rtol), float(atol), float(dt_min),
+                 PERLANE_ADJOINT_THREADS, float(rtol), float(atol),
+                 float(dt_min),
                  float(sign), float(safety), float(ifactor), float(dfactor),
                  int(min(max_steps, 2 ** 31 - 1)), len(dims),
                  _dims_arg(dims), _ACT_CODES[activation],

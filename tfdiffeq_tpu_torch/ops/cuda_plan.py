@@ -26,8 +26,8 @@ library a structure and host, built at first use
   item 16).
 - `plan_solve_adams` (explicit_adams, fixed_adams) and `plan_solve_vcabm`
   ('adams'): K10 and K11 with the plan, a sample a thread in the kernels'
-  own layouts (K11 over its grid); a coupled plan raises
-  NotImplementedError (ROADMAP.md queue 2 item 3).
+  own layouts (K11 and fixed_adams' K10 over their grids); a coupled plan
+  raises NotImplementedError (ROADMAP.md queue 2 item 3).
 - `plan_solve_hyper`: K12, the hypersolvers, with two plans, the dynamics
   and the correction net over the stacked [y, f_user]; f's constants in
   shared memory first, g's after them when both fit (`last_route['hyper']`
@@ -43,7 +43,8 @@ plan_adjoint.py:154`), generated as CUDA C++ (`plan_codegen.aug_source`'s
   each coupling's transpose with a block meet.
 - `plan_perlane_adjoint_solve` (`plan_adjoint.py:469`): K6, a controller a
   sample, under the (y, a_y) seminorm; a coupled plan raises ValueError, as
-  in the reference.
+  in the reference; a group of 16 threads a sample, each running the
+  walk.
 - `plan_adjoint_solve_fixed` (`pallas_fixed.py:1019`): K9 on a fixed grid;
   a coupled plan raises NotImplementedError (ROADMAP.md queue 1 item 16).
 
@@ -83,7 +84,8 @@ import torch
 
 from . import _build, plan_codegen
 from .cuda_adams import (ADAMS_EXPLICIT_THREADS, ADAMS_THREADS,
-                         VCABM_THREADS, _adams_nfe, adams_solve_plain,
+                         VCABM_THREADS, _adams_grid, _adams_nfe,
+                         adams_solve_plain, adams_work_size,
                          vcabm_solve_plain)
 from .cuda_adjoint import ADJOINT_THREADS, _grid_work, adjoint_sweep_plain
 from .cuda_fixed import (FIXED_THREADS, fixed_adjoint_plain,
@@ -92,7 +94,8 @@ from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS, _check_blocks,
                            _check_float, _device_kind, _increasing, _ptr,
                            _shares_work, _solve_setup, _stream,
                            _tableau_args, adaptive_solve_plain, solve_blocks)
-from .cuda_perlane import (PERLANE_THREADS, _lane_setup,
+from .cuda_perlane import (PERLANE_ADJOINT_THREADS, PERLANE_THREADS,
+                           _group_work_size, _lane_setup,
                            perlane_adjoint_plain, perlane_solve_plain)
 from .plan_adjoint import aug_terms, split_consts
 from .plan_bridge import (FusedPlan, check_plan_adjoint, eval_plan_host,
@@ -421,34 +424,40 @@ def _refuse_coupled(plans, kernel: str) -> None:
 def plan_solve_adams_plain(plan: FusedPlan, packed: Sequence[Tensor],
                            y0: Tensor, tau: Tensor, grid: Tensor, rtol, atol,
                            sign, f0: Tensor, *, implicit: bool = True,
-                           max_order: int = 4, max_iters: int = 4
-                           ) -> Tuple[Tensor, Tensor]:
+                           max_order: int = 4, max_iters: int = 4,
+                           n_blocks: int = None) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of `plan_solve_adams`, on y0's device: K10's
-    engine (`cuda_adams.adams_solve_plain`) with `eval_plan`."""
+    engine (`cuda_adams.adams_solve_plain`, fixed_adams' norm in the order
+    of a grid of `n_blocks` blocks; None: the kernel's grid) with
+    `eval_plan`."""
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
     return adams_solve_plain(g, y0, f0, tau, grid, rtol, atol,
                              implicit=implicit, max_order=max_order,
-                             max_iters=max_iters)
+                             max_iters=max_iters, n_blocks=n_blocks)
 
 
 def plan_solve_adams(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                      tau: Tensor, grid: Tensor, rtol, atol, sign, f0: Tensor,
                      *, implicit: bool = True, max_order: int = 4,
-                     max_iters: int = 4) -> Tuple[Tensor, Tensor]:
+                     max_iters: int = 4, n_blocks: int = None
+                     ) -> Tuple[Tensor, Tensor]:
     """Whole-solve fixed-step Adams (explicit_adams with implicit=False,
     fixed_adams) with the plan as right-hand side, one K10 launch
     (reference `pallas_fixed.py:1143`). tau: [T] canonical output times;
-    grid: [G] canonical step grid; f0: the signed derivative at grid[0].
+    grid: [G] canonical step grid; f0: the signed derivative at grid[0];
+    n_blocks: fixed_adams' grid (None: `solve_blocks`, one block per SM).
     Returns (out [T, B, D], stats [4] int32), as
     `cuda_adams.mlp_solve_adams` does."""
     _refuse_coupled([plan], "K10")
+    _check_blocks(n_blocks)
     MO = check_max_order(max_order)
     if int(max_iters) < 0:
         raise ValueError(f"max_iters must be >= 0, got {max_iters}")
     if grid.shape[0] < 2:
         raise ValueError("the step grid needs at least two points")
-    kw = dict(implicit=implicit, max_order=MO, max_iters=int(max_iters))
+    kw = dict(implicit=implicit, max_order=MO, max_iters=int(max_iters),
+              n_blocks=n_blocks)
     if _device_kind(y0, f0) == "cpu":
         return plan_solve_adams_plain(plan, packed, y0, tau, grid, rtol,
                                       atol, sign, f0, **kw)
@@ -462,7 +471,6 @@ def plan_solve_adams(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     lib = build([(plan, host)])[0]
     lay = plan_codegen.layout(plan)
     threads = ADAMS_THREADS if implicit else ADAMS_EXPLICIT_THREADS
-    blocks = 1 if implicit else -(-B // threads)
     smem = _consts_route(host, lay.n_consts, G + T + threads,
                          y0.element_size())
     tau_h = tau.detach().to("cpu", dtype)
@@ -471,19 +479,21 @@ def plan_solve_adams(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     dbl = lambda a: (ctypes.c_double * a.size)(*a.reshape(-1).tolist())
     out = torch.empty((T, B, D), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    work = torch.empty((8 + MO) * B * D, dtype=dtype, device=dev)
+    work = torch.empty(adams_work_size(MO, implicit, B, D), dtype=dtype,
+                       device=dev)
+    nb, gwork = _adams_grid(implicit, n_blocks, B, dtype, dev)
     # Named, so that they live until the launch has read them.
     grid_d, tau_d = grid_h.to(dev), tau_h.to(dev)
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
             _ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out),
-            _ptr(stats), _ptr(work), G, T, B, D, threads, blocks,
-            float(sign), float(rtol), float(atol), int(valid), MO,
-            int(max_iters), int(bool(implicit)),
+            _ptr(stats), _ptr(work), G, T, B, D, threads, float(sign),
+            float(rtol), float(atol), int(valid), MO, int(max_iters),
+            int(bool(implicit)),
             _adams_nfe(G, MO, int(max_iters), bool(implicit)),
             dbl(BASHFORTH_TABLE[:MO, :MO]), dbl(MOULTON_TABLE[:MO, :MO]),
             _ptr(consts), lay.n_consts, _ptr(sample_consts), int(smem),
-            _stream(dev))
+            _ptr(gwork), gwork.numel(), nb, _stream(dev))
     _check(lib, err, "plan_solve_adams launch")
     plan_adams_launches += 1
     return out, stats
@@ -938,15 +948,19 @@ def plan_perlane_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
     stats = torch.empty(4, dtype=torch.int32, device=dev)
     lane = torch.empty((4, B), dtype=torch.int32, device=dev)
     partial = torch.empty(max(1, n_blk * R), dtype=dtype, device=dev)
-    n_work = ((4 + 2 * S) * D + 2 * (R + lay.n_sample) + lay.q_rows) * B
+    # csrc/plan_aug.cuh PlanLaneAug::walk_values: the walk's rows and the
+    # per-sample constants, one value each in a sample's slot.
+    n_work = _group_work_size(S, B, D, R + lay.n_sample,
+                              lay.q_rows + lay.n_sample)
     work = torch.empty(n_work, dtype=dtype, device=dev)
     ys_c, g_c = ys.contiguous(), g.contiguous()
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
             _ptr(tau_d), _ptr(ys_c), _ptr(g_c), _ptr(dt0_d), _ptr(ay0),
             _ptr(aw), _ptr(at), _ptr(aps), _ptr(lane), _ptr(stats),
-            _ptr(partial), _ptr(work), T, B, D, PERLANE_THREADS, float(rtol),
-            float(atol), float(dt_min), float(sign), float(safety),
+            _ptr(partial), _ptr(work), n_work, T, B, D,
+            PERLANE_ADJOINT_THREADS, float(rtol), float(atol),
+            float(dt_min), float(sign), float(safety),
             float(ifactor), float(dfactor), int(min(max_steps, 2 ** 31 - 1)),
             S, tab.order, c, a, b_sol, b_err, _ptr(consts), lay.n_quad,
             _ptr(sample_consts), int(smem), _stream(dev))
