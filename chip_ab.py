@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's adaptive (K2), fixed-grid (K8) and per-sample (K5) solve
-kernels, their adjoint sweeps (K3, K9, K6) and the Adams kernels (K10,
-K11) at the bench protocol, for two or more checkouts of the repository on
-one NVIDIA card, in alternating order.
+kernels, their adjoint sweeps (K3, K9, K6), the Adams kernels (K10, K11)
+at the bench protocol and the conv-ODE solve (K13), for two or more
+checkouts of the repository on one NVIDIA card, in alternating order.
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS]
 
@@ -19,8 +19,11 @@ first step 0.01; median of 3), K4 alone (`tier_net`: the bf16 weight pack
 and one evaluation of the wide net 128 -> 256 -> 256 -> 128 at B = 1024,
 'mixed' and 'bf16'; ten calls queued behind a sleep on the card, so the
 device time alone), K8 rk4 x 128 and K2 dopri5 at 'mixed' on that net
-(the batch route), K3 on the wide route at B = 256, K7's adjoint sweep in
-K3 (the CNF flow 3 -> 32 -> 32 -> 2 at B = 4096), and, where the checkout
+(the batch route), K3 and K9 on the wide route at B = 256, K7's adjoint
+sweep in K3 (the CNF flow 3 -> 32 -> 32 -> 2 at B = 4096), K13 at the
+ODE-Net's width (C = 64, 32 groups, 7x7, controller blocks of 18, t = [0,
+1], rtol = atol = 1e-3, each block's first step 0.05; weights and states
+from numpy seeds) at B = 128 and 256 (median of 3), and, where the checkout
 has the plan routes (`ops/cuda_plan.py`), the same spiral written as
 plain PyTorch in each host (K15 in K3 among them). It prints the card's
 name and power limit, a line a run and the median of each kernel a
@@ -152,6 +155,29 @@ def _one(root: str) -> None:
     out["K3 wide"] = timed(lambda: ca.mlp_adjoint_solve(
         wwarr, wpd, wys.contiguous(), wg, tw[:4], 0.05, 1e-5, 1e-5, 1.0),
         reps=3)
+    out["K9 wide"] = timed(lambda: cf.mlp_adjoint_solve_fixed(
+        wwarr, wpd, wys.contiguous(), wg, tw[:4], 1.0, num_steps=2),
+        reps=3)
+    # K13 at the ODE-Net's width: the conv-ODE block's parameters (HWIO
+    # kernels with lecun-normal variance, perturbed GroupNorm affines).
+    from tfdiffeq_tpu_torch.ops import conv_ode as co, cuda_conv as cc
+    rn = np.random.RandomState(11)
+    C = 64
+    params = {"gn": [(1.0 + 0.1 * rn.randn(C), 0.1 * rn.randn(C))
+                     for _ in range(3)],
+              "conv": [(rn.randn(3, 3, C + 1, C) / np.sqrt(9 * (C + 1)),
+                        0.1 * rn.randn(C)) for _ in range(2)]}
+    spec = co.ConvODESpec(channels=C, groups=32)
+    wpack = cc.pack_conv_ode_weights(params, spec, torch.float32, dev)
+    xo = c(rn.randn(256, C, 7, 7) * 0.5)
+    tau = torch.tensor([0.0, 1.0])
+    for Bc in (128, 256):
+        x = xo[:Bc].contiguous()
+        cf0 = co.conv_ode_apply(params, tau[0].to(dev), x, spec).contiguous()
+        cdt = torch.full((-(-Bc // 18),), 0.05, device=dev)
+        out[f"K13 B{Bc}"] = timed(lambda: cc.conv_solve(
+            wpack, spec, x, tau, cdt, 1e-3, 1e-3, 1.0, f0=cf0,
+            block_size=18), reps=3)
     # K7's adjoint in K3: the CNF flow 3 -> 32 -> 32 -> 2 at B = 4096, t =
     # 1 -> 0, on its own forward trajectory with the density loss's
     # cotangent.

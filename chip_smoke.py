@@ -54,9 +54,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     `solve(ODEFunc, method='rk4', options={'num_steps': 500})`.
 12. K9 `mlp_adjoint_solve_fixed` against its plain version at the bench
     training protocol with rk4: forward K8 with num_steps=500, backward
-    8 steps an interval, the MSE cotangent. Float64: identical stats,
-    gradients within 1e-9 relative; float32 within 1e-3; run to run
-    bitwise. K8 and K9 are timed against their plain versions.
+    8 steps an interval, the MSE cotangent: bitwise equal in float32 and
+    float64 (stats included; K9 a group of 16 threads a sample, 128 blocks
+    of 16 warps, printed), run to run bitwise. K8 and K9 are timed against
+    their plain versions.
 13. Three RMSprop steps of `examples/ode_demo.py --fused --method rk4` at
     its defaults: K8 = K9 = 3 launches, forward NFE 37 a step, finite
     losses, weights moved; at the first step the fused gradients agree with
@@ -65,10 +66,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 14. K13 `conv_solve` at the ODE-Net's full width (C = 64, 7x7, 32 groups,
     dopri5, rtol = atol = 1e-3, t = [0, 1]) on the port's stem applied to
     `--synthetic_hard` images, at B = 128 and B = 256 (8 and 15 controller
-    blocks of 18): against its plain version in float32 and float64
-    (identical stats in every block; float64 within 1e-12 relative,
-    float32 within 1e-5, whether bitwise equal is printed), run to run
-    bitwise; against the generic engine `solve(ODEConvFunc)` (cuDNN, TF32
+    blocks of 18, each on several CTAs of a cooperative grid, the CTAs per
+    controller block printed): against its plain version at the same grid
+    in float32 and float64 (identical stats in every block, bitwise equal
+    outputs), run to run bitwise; against the generic engine
+    `solve(ODEConvFunc)` (cuDNN, TF32
     off) run block by block with the kernel's first steps, within the
     solve's tolerance. K13, its plain version and the generic engine are
     timed with CUDA events at B = 128.
@@ -143,7 +145,7 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 20. Wide training and the other kernels at width 256, B = 256: one
     `fast.odeint_adjoint_mlp` SGD step (K2 + K3 on the wide route) and one
     with a 'mixed' forward; K5, K6 and K9 on the wide route against their
-    plain versions (identical counts, close values, K3 and K6 bitwise;
+    plain versions (identical counts, close values, K3, K6 and K9 bitwise;
     whether bitwise equal is printed) and timed.
 21. `fast.calibrate_dot_precision` on the wide configuration ('bf16' and
     'mixed' against 'highest', the reference's NFE x passes model): the
@@ -624,6 +626,23 @@ def _k6_layout(B: int) -> str:
     return (f"K6 a group of {cp.PERLANE_GROUP} threads a sample, "
             f"{-(-B // cp.PERLANE_THREADS)} blocks of "
             f"{cp.PERLANE_ADJOINT_THREADS}")
+
+
+def _k9_layout(B: int) -> str:
+    """K9's launch shape at batch B: K6's layout, a group of threads a
+    sample, 32 samples a block of 512 threads."""
+    from tfdiffeq_tpu_torch.ops import cuda_fixed as cf
+    return (f"K9 a group of 16 threads a sample, {-(-B // 32)} blocks of "
+            f"{cf.FIXED_ADJOINT_THREADS} ({cf.FIXED_ADJOINT_THREADS // 32} "
+            "warps)")
+
+
+def _k13_grid(B: int, block: int, dev) -> str:
+    """K13's grid at batch B: each controller block's CTAs."""
+    from tfdiffeq_tpu_torch.ops import cuda_conv as cc
+    ctas = cc.conv_ctas(B, block, dev)
+    return (f"K13 grid: {sum(ctas)} CTAs, CTAs per controller block "
+            f"{ctas}")
 
 
 def _grid_kw(plain, args, kw) -> dict:
@@ -1112,11 +1131,12 @@ def _wide_tier(smi: str, dev) -> dict:
               f"{counts[0].tolist()}; max relative |kernel - plain| "
               f"{max(rels):.3e}; bitwise equal to plain: {same}; bound "
               f"{bound(nfe, 9 * Bt * WIDE_D, per=1 if name == 'K5' else 3)}"
-              + (f"; {_k6_layout(Bt)}" if name == "K6" else ""),
+              + (f"; {_k6_layout(Bt)}" if name == "K6" else "")
+              + (f"; {_k9_layout(Bt)}" if name == "K9" else ""),
               flush=True)
         if any(not torch.equal(a, b) for a, b in zip(counts, counts_ref)) \
                 or max(rels) > 1e-5 or counts[0][3].item() != 0 \
-                or (name in ("K3", "K6") and not same):
+                or (name in ("K3", "K6", "K9") and not same):
             raise AssertionError(f"{name} wide differs from its plain "
                                  "version")
 
@@ -3439,10 +3459,13 @@ def main() -> int:
         print(f"[12] K9 {dtype}: kernel stats {got[3].tolist()}, plain "
               f"{ref[3].tolist()}; max relative |kernel - plain| ay0 "
               f"{rels[0]:.3e} aw {rels[1]:.3e}; kernel bitwise equal to "
-              f"plain: {same}; two kernel runs bitwise equal: {bitwise}",
-              flush=True)
+              f"plain: {same}; two kernel runs bitwise equal: {bitwise}; "
+              f"{_k9_layout(B)}", flush=True)
         if not bitwise:
             raise AssertionError("K9 is not deterministic from run to run")
+        if not same:
+            raise AssertionError(f"K9 {dtype} is not bitwise its plain "
+                                 "version")
         if got[3].tolist() != ref[3].tolist() or got[3][0].item() != \
                 4 * 8 * (T_OUT - 1) or not all(
                     torch.isfinite(x).all() for x in got[:3]):
@@ -3554,10 +3577,14 @@ def main() -> int:
                   f"{st.tolist() == st_ref.tolist()}; max |kernel - plain| "
                   f"{err:.3e} (relative {_rel(out, ref):.3e}); bitwise equal "
                   f"to plain: {torch.equal(out, ref)}; two kernel runs "
-                  f"bitwise equal: {bitwise}", flush=True)
+                  f"bitwise equal: {bitwise}; "
+                  f"{_k13_grid(Bc, kw['block_size'], dev)}", flush=True)
             if not bitwise:
                 raise AssertionError("K13 is not deterministic from run to "
                                      "run")
+            if not torch.equal(out, ref):
+                raise AssertionError(f"K13 B={Bc} {dtype} is not bitwise its "
+                                     "plain version")
             if st.tolist() != st_ref.tolist() or (st[:, 3] != 0).any() \
                     or not torch.isfinite(out).all():
                 raise AssertionError(f"K13 B={Bc} {dtype} failed: stats "
@@ -3984,14 +4011,20 @@ def main() -> int:
          "launches": demo_launches["mlp_adjoint_solve_fixed"],
          "max_abs_err": k9_err[f32], "ms": fadj_ms,
          "plain_ms": fadj_plain_ms, "bound_ms": k9_bound[0],
-         "bound_by": k9_bound[1], "library_ms": None},
+         "bound_by": k9_bound[1], "library_ms": None,
+         "group": 16, "blocks": -(-B // 32)},
         {"name": "conv_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/conv_solve_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_conv.py:110",
          "launches": k13_launches, "max_abs_err": k13_err[(OB, f32)],
          "ms": conv_ms, "plain_ms": conv_plain_ms, "bound_ms": k13_bound[0],
          "bound_by": k13_bound[1], "library_ms": None,
-         "generic_engine_ms": conv_generic_ms},
+         "generic_engine_ms": conv_generic_ms,
+         "ms_eval_batch": conv256_ms,
+         "ctas": cc.conv_ctas(OB, k13_args[(OB, f32)][1]["block_size"], dev),
+         "ctas_eval_batch": cc.conv_ctas(
+             onet.EVAL_BATCH, k13_args[(onet.EVAL_BATCH, f32)][1][
+                 "block_size"], dev)},
         {"name": "mlp_solve_perlane", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/perlane_solve_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:929",

@@ -414,14 +414,17 @@ def test_fixed_kernel_status_and_raises(cuda):
     assert cf.mlp_adjoint_solve_fixed_launches == 0
 
 
+@pytest.mark.parametrize("B", [300, 4096])
 @pytest.mark.parametrize("time_input", [False, True])
 @pytest.mark.parametrize("method", ["rk4", "euler"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_fixed_adjoint_kernel_matches_plain(cuda, dtype, method, time_input):
-    """K9 against its plain version, with and without the a_t quadrature,
-    at a batch that leaves threads of the last block idle; bitwise equal
-    run to run."""
-    spec, W, warr, dims, y0 = _fixed_case(cuda, dtype, time_input, B=300)
+def test_fixed_adjoint_kernel_matches_plain(cuda, dtype, method, time_input,
+                                            B):
+    """K9 (a group of 16 threads a sample, 32 samples a block) against its
+    plain version, with and without the a_t quadrature, at B = 300 (idle
+    groups in the last block, a ragged last 64-sample tree) and 4096:
+    bitwise equal, stats included, and bitwise equal run to run."""
+    spec, W, warr, dims, y0 = _fixed_case(cuda, dtype, time_input, B=B)
     t = torch.linspace(0.0, 2.0, 6, dtype=dtype)
     ys = fast.solve_mlp_spec(spec, W, y0, t, method="rk4",
                              num_steps=20).ys.contiguous()
@@ -433,13 +436,44 @@ def test_fixed_adjoint_kernel_matches_plain(cuda, dtype, method, time_input):
     again = cf.mlp_adjoint_solve_fixed(warr, dims, ys, g, t, 1.0, **kw)
     ref = cf.mlp_adjoint_solve_fixed_plain(warr, dims, ys, g, t, 1.0, **kw)
     torch.cuda.synchronize()
-    assert got[3].tolist() == ref[3].tolist()
-    tol = 1e-12 if dtype == torch.float64 else 1e-4
-    for a, b, c in zip(got, again, ref):
-        assert torch.equal(a, b)
-        if a.is_floating_point():
-            assert _rel(a, c) < tol
+    assert _same(got, again) and _same(got, ref)
+    assert got[3].tolist() == [(4 if method == "rk4" else 1) * 3 * 5, 15, 0,
+                               0]
+    assert all(torch.isfinite(x).all() for x in got[:3])
     assert cf.mlp_adjoint_solve_fixed_launches == 2
+
+
+@pytest.mark.parametrize("route", ["wide", "plan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fixed_adjoint_group_routes_match_plain(cuda, dtype, route):
+    """K9's wide route (layers past 128: the slots in the workspace) and K15
+    in K9 (a plan with a per-sample constant: its per-sample quadratures)
+    with a group of threads a sample: bitwise equal to their plain
+    versions, stats included, and run to run."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    cpl.reset_launch_counts()
+    if route == "plan":
+        plan, packed, ys, ct, t = _aug_case("drive", dtype, cuda)
+        args = (plan, packed, ys, ct, t, 1.0)
+        fn, plain = (cpl.plan_adjoint_solve_fixed,
+                     cpl.plan_adjoint_solve_fixed_plain)
+        kw = dict(num_steps=4)
+    else:
+        weights, warr, dims, y0, t = _wide_case(cuda, dtype, B=300)
+        ys = fast.solve_mlp_spec(fast.MLPSpec(), weights, y0, t, rtol=1e-7,
+                                 atol=1e-9).ys.contiguous()
+        ct = torch.tensor(np.random.RandomState(9).randn(*ys.shape),
+                          dtype=dtype, device=cuda)
+        args = (warr, dims, ys, ct, t, 1.0)
+        fn, plain = cf.mlp_adjoint_solve_fixed, \
+            cf.mlp_adjoint_solve_fixed_plain
+        kw = dict(num_steps=2, method="midpoint")
+    got = fn(*args, **kw)
+    assert _same_sweep(got, fn(*args, **kw))
+    assert _same_sweep(got, plain(*args, **kw))
+    torch.cuda.synchronize()
+    assert (cpl.plan_fixed_adjoint_launches if route == "plan"
+            else cf.mlp_adjoint_solve_fixed_launches) == 2
 
 
 def test_fixed_training_step_launches_each_kernel_once(cuda):
@@ -506,12 +540,15 @@ def _conv_inputs(params, x, spec, t, block, first_step=0.05):
     (5, 16, 8, 2, [1.0, 0.4, 0.0]),       # reverse time
     (36, 64, 32, 18, [0.0, 1.0]),         # full width, two whole blocks
     (20, 64, 32, 18, [0.0, 1.0]),         # full width, ragged last block
+    (7, 12, 4, 3, [0.0, 1.0]),            # a ragged channel tile (12 = 8 + 4)
+    (128, 64, 32, 18, [0.0, 1.0]),        # the ODE-Net's batch: 128 CTAs
+    (256, 64, 32, 18, [0.0, 1.0]),        # its evaluation batch
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_conv_kernel_matches_plain(cuda, dtype, case):
-    """K13 against its plain version: identical stats in each block,
-    float64 within 1e-12 relative, float32 within 1e-5 (the plain version
-    repeats the kernel's order, so both are expected bitwise equal), and
+    """K13 on its grid (each controller block on several CTAs, one or two
+    samples a CTA at B = 128 and 256) against its plain version at the
+    same grid: identical stats in each block, bitwise equal outputs, and
     bitwise equal from run to run."""
     from tfdiffeq_tpu_torch.ops import cuda_conv as cc
     B, C, G, block, t = case
@@ -527,10 +564,34 @@ def test_conv_kernel_matches_plain(cuda, dtype, case):
     assert st.tolist() == st_ref.tolist()
     assert st.shape == (-(-B // block), 4) and (st[:, 3] == 0).all()
     assert torch.isfinite(out).all()
-    if dtype == torch.float64:
-        assert _rel(out, ref) < 1e-12
-    else:
-        assert float((out - ref).abs().max()) <= 1e-5
+    assert torch.equal(out, ref)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ctas = cc.conv_ctas(B, block, cuda)
+    assert sum(ctas) <= sms and all(1 <= c <= block for c in ctas)
+    if B == 128:
+        assert sum(ctas) > 8
+
+
+def test_conv_grid_refuses_what_cannot_be_resident(cuda):
+    """A K13 grid of more CTAs than the card holds at once (300 controller
+    blocks of one sample, a CTA each) raises, launches nothing and takes
+    no plain version; one CTA a controller block on a smaller batch is
+    bitwise the plain version at that grid."""
+    from tfdiffeq_tpu_torch.ops import cuda_conv as cc
+    params, x, spec = _conv_case(cuda, torch.float32, 300, 16, 8)
+    args, kw = _conv_inputs(params, x, spec, [0.0, 1.0], 1)
+    cc.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="conv_solve launch"):
+        cc.conv_solve(*args, **kw, max_ctas=300)
+    assert cc.conv_solve_launches == 0
+    with pytest.raises(ValueError, match="n_blocks"):
+        cc.conv_solve(*args, **kw, max_ctas=0)
+    params, x, spec = _conv_case(cuda, torch.float64, 20, 16, 8)
+    args, kw = _conv_inputs(params, x, spec, [0.0, 1.0], 6)
+    out, st = cc.conv_solve(*args, **kw, max_ctas=4)
+    ref, st_ref = cc.conv_solve_plain(*args, **kw, max_ctas=4)
+    assert cc.conv_ctas(20, 6, cuda, 4) == [1, 1, 1, 1]
+    assert torch.equal(out, ref) and torch.equal(st, st_ref.to(st.device))
 
 
 def test_conv_kernel_status_codes(cuda):
@@ -749,12 +810,6 @@ def _wide_case(device, dtype, B=48, D=32, H=144, seed=21):
     warr, pdims = ck.pack_mlp_weights(weights, dtype, device)
     t = torch.linspace(0.0, 2.0, 5, dtype=dtype)
     return weights, warr, pdims, y0, t
-
-
-def _same(got, ref):
-    """Bitwise equal, tensor by tensor."""
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
 
 
 def _gap(a, b):
@@ -1227,8 +1282,12 @@ def _plan_case(name, dtype, device, B=96):
     return plan, packed, y0, t, g, g(t[0].to(device), y0).contiguous()
 
 
-def _same(a, b):
-    return all(torch.equal(x, y) for x, y in zip(a, b))
+def _same(got, ref):
+    """Bitwise equal, tensor by tensor (asserted, so that a bare call
+    checks too); True."""
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    return True
 
 
 @pytest.mark.parametrize("name", ["spiral", "concat_t_gelu",

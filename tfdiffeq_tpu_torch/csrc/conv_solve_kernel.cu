@@ -16,85 +16,127 @@
 //
 // Design. The batch is cut into controller blocks (ops/cuda_conv.py), each
 // with its own controller, error norm and first step, as the reference's
-// grid programs are; a block's accept needs only its own error sum, so ONE
-// thread block runs one controller block and no grid-wide barrier exists.
-// Every phase of an attempt (stage combine, each GroupNorm, each conv, the
-// error sum, the drain) is a loop of the block's threads over the block's
-// elements, closed by __syncthreads(). A sample's state is C * H * W values
-// (12.5 KB in float32 at C = 64), so a block's state and stages do not fit
-// in shared memory: they live in device scratch (`work`, (S + 8) buffers of
-// b * C * H * W values a block, L2-resident at the ODE-Net's batches). The
-// conv weights of the conv being applied sit in shared memory when they fit
-// (float32 up to C = 64: 147 KB), else are read from device memory (float64).
-// The conv runs on the CUDA cores in full precision, each output summing its
-// taps in OFFSETS order and each tap input channel after input channel; a
-// thread computes kCoTile output channels at one position, so one load of
-// the input serves kCoTile products. GroupNorm sums each channel's
-// positions in order, then each group's channels in order. The error sum
-// is each thread's owned elements in order, then a fixed tree. Built with
-// --fmad=false, the plain version in ops/cuda_conv.py repeats all of it
-// operation for operation.
+// grid programs are. A controller block runs on several CTAs of one
+// cooperative grid (at most one 512-thread block per SM, csrc/grid_meet.cuh
+// launch_grid): ops/cuda_conv.py conv_grid gives the controller blocks the
+// CTAs in proportion to their samples, at least one each and at most one a
+// sample, and CTA k of a controller block of nb samples on n CTAs owns its
+// samples [k nb / n, (k + 1) nb / n) (one sample a CTA at B = 128, two at
+// B = 256). GroupNorm and the conv are per sample, so a CTA's samples need
+// nothing from other CTAs but the step decision: the CTAs of a controller
+// block meet once an attempt (group_shares at the controller block's own
+// counter), each bringing its share of the error sum (its threads' owned
+// elements in order, then block_sum's tree) and its finiteness flag; every
+// CTA adds the shares in CTA order and takes the same total and decision.
+// The state and the stages sit in device scratch (L2-resident; [S + 7]
+// buffers of B * C * H * W values, each CTA its samples' rows). In shared
+// memory: the conv input of one sample, zero-padded to (H + 2) x (W + 2)
+// (so every tap reads a value and the loop has no branch), the applied
+// conv's weights where they fit (float32 up to C = 64: 147 KB; float64
+// reads them from L2; they arrive by cp.async while the GroupNorm before
+// the conv runs), and the conv outputs of the CTA's samples where they
+// fit. The conv runs on the CUDA cores in full precision: a thread
+// computes kCoTile output channels at one position (a warp 32 positions of
+// one channel tile), each output summing its nine taps in OFFSETS order
+// (an outside tap multiplies the zero padding, as the plain version does)
+// and each tap input channel after input channel, one load of the input
+// and two of eight weights (16-byte loads, the warp's broadcast) feeding
+// eight products. GroupNorm sums each channel's positions in order, then
+// each group's channels in order. Built with --fmad=false, the plain
+// version in ops/cuda_conv.py repeats all of it operation for operation,
+// the error sum in the grid's order (cuda_kernels.adaptive_solve_plain
+// with n_blocks the controller block's CTAs, a sample's elements a unit).
 //
 // Bound on the H100. Two convs of 2 C^2 9 H W flops a sample (7.2 MFLOP at
-// C = 64, 7x7) an evaluation: compute-bound (a few MB move a solve). One SM
-// runs a controller block, so at the ODE-Net's batch 128 only 8 of 132 SMs
-// work; a cluster of SMs a controller block, and the tensor-core tiers,
-// are later work (PERF.md, ROADMAP.md).
+// C = 64, 7x7) an evaluation: compute-bound (a few MB move a solve). A CTA
+// owns one or two samples at the ODE-Net's batches, so 128 SMs work where
+// 8 did (one a controller block). Measured with clock64 stamps at B = 128
+// (one sample a CTA): the conv is about 70% of a CTA's cycles, 392 of its
+// 512 threads busy and each input channel's step about 130 cycles for the
+// CTA's 13 warps, near what the shared-memory wavefronts of its loads
+// allow (a 16-byte broadcast costs four); two positions a thread, with
+// half the warps, ran slower. The tensor-core tiers (3xTF32) are later
+// work (ROADMAP).
+#include "grid_meet.cuh"
 #include "mlp_rk.cuh"
 
 namespace tfd {
 
-// Threads of each thread block, a power of two (block_sum);
+// Threads of each CTA, a power of two (block_sum);
 // ops/cuda_conv.py:CONV_THREADS.
 constexpr int kConvThreads = 512;
 // Output channels a thread computes at one position of the conv.
 constexpr int kCoTile = 8;
+// Ints a CTA's row of the grid table (ops/cuda_conv.py _conv_table): its
+// controller block, the block's first sample and samples, the CTA's rank
+// in it and the block's CTAs, the block's first CTA and its meeting
+// counter.
+constexpr int kConvCtaInts = 7;
 
 template <typename T>
 struct ConvScalars {
   T rtol, atol, dt_min, sign, eps, safety, ifactor, dfactor;
-  int max_steps, valid, T_out, B, b_blk, C, G, H, W, w_smem;
+  int max_steps, valid, T_out, B, C, G, H, W, w_smem, z_smem, n_meet;
 };
 
-// One controller block's view of the problem, the same in every thread.
+// One CTA's view of the field, the same in every thread.
 template <typename T>
 struct ConvCtx {
-  int nb, C, G, H, W, P;
-  long N;            // nb * C * P elements this block owns
+  int n_own, C, G, H, W, P, PW, PP;   // PW, PP: the padded row and map
   T eps;
   const T* wg;       // packed weights in device memory
   T* w_s;            // one conv's weights in shared memory, or null
-  T* s_ch;           // [2][nb * C] channel sums, sums of squares
-  T* s_grp;          // [2][nb * G] group means, inverse deviations
-  T* Hb;             // GroupNorm output (scratch)
-  T* Zb;             // conv output (scratch)
+  T* s_ch;           // [2][C] channel sums, sums of squares
+  T* s_grp;          // [2][G] group means, inverse deviations
+  T* Hs;             // [C][PP] the conv input, zero-padded (shared)
+  int h_off, w_off;  // Hs and w_s as offsets into the shared array
+  T* Zb;             // [n_own][C][P] conv outputs (shared, or scratch)
 };
 
-// GroupNorm of X [nb, C, P] into Y: mode 0 applies relu after it, mode 1
-// multiplies it by `mult` (the time direction's sign).
-template <typename T>
-__device__ void group_norm(const ConvCtx<T>& cx, const T* X, T* Y,
-                           const T* scale, const T* bias, int mode, T mult) {
+// Where position p of a [C][P] map sits in the padded [C][PP] layout.
+__device__ __forceinline__ int padded(int p, int W) {
+  return (p / W + 1) * (W + 2) + p % W + 1;
+}
+
+// GroupNorm of one sample's X [C][H][W] (padded layout when kPadIn) into Y
+// (padded when kPadOut; Y may be X): mode 0 applies relu after it, mode 1
+// multiplies it by `mult` (the time direction's sign). s_ch [2 C] and
+// s_grp [2 G] are shared scratch. Not inlined (nor is conv3x3): inside the
+// kernel, with its whole solve's state live, the loops spilled registers
+// to local memory, which the shared-memory carve-out leaves to L2.
+template <typename T, bool kPadIn, bool kPadOut>
+__device__ __noinline__ void group_norm(const T* X, T* Y, const T* scale,
+                                        const T* bias, int mode, T mult,
+                                        int C, int G, int H, int W, T eps,
+                                        T* s_ch, T* s_grp) {
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int C = cx.C, G = cx.G, P = cx.P, cg = C / G;
-  const int nbC = cx.nb * C, nbG = cx.nb * G;
-  for (int i = tid; i < nbC; i += nth) {
-    const T* x = X + long(i) * P;
-    T s1 = x[0];
-    T s2 = x[0] * x[0];
-    for (int p = 1; p < P; ++p) {
-      s1 = s1 + x[p];
-      s2 = s2 + x[p] * x[p];
+  const int cg = C / G, P = H * W, PW = W + 2, PP = (H + 2) * PW;
+  // Where row i of channel c starts in each layout.
+  auto in_row = [=](int c, int i) {
+    return kPadIn ? c * PP + (i + 1) * PW + 1 : c * P + i * W;
+  };
+  auto out_row = [=](int c, int i) {
+    return kPadOut ? c * PP + (i + 1) * PW + 1 : c * P + i * W;
+  };
+  for (int c = tid; c < C; c += nth) {
+    const T x0 = X[in_row(c, 0)];
+    T s1 = x0;
+    T s2 = x0 * x0;
+    for (int i = 0; i < H; ++i) {
+      const T* x = X + in_row(c, i);
+      for (int j = i == 0 ? 1 : 0; j < W; ++j) {
+        s1 = s1 + x[j];
+        s2 = s2 + x[j] * x[j];
+      }
     }
-    cx.s_ch[i] = s1;
-    cx.s_ch[nbC + i] = s2;
+    s_ch[c] = s1;
+    s_ch[C + c] = s2;
   }
   __syncthreads();
   const T cnt = T(cg * P);
-  for (int i = tid; i < nbG; i += nth) {
-    const int s = i / G, g = i % G;
-    const T* c1 = cx.s_ch + s * C + g * cg;
-    const T* c2 = c1 + nbC;
+  for (int g = tid; g < G; g += nth) {
+    const T* c1 = s_ch + g * cg;
+    const T* c2 = c1 + C;
     T gs = c1[0], gq = c2[0];
     for (int k = 1; k < cg; ++k) {
       gs = gs + c1[k];
@@ -103,107 +145,204 @@ __device__ void group_norm(const ConvCtx<T>& cx, const T* X, T* Y,
     const T mean = gs / cnt;
     T var = gq / cnt - mean * mean;
     var = var < T(0) ? T(0) : var;   // flax's clamp; NaN stays NaN
-    cx.s_grp[i] = mean;
-    cx.s_grp[nbG + i] = T(1) / d_sqrt(var + cx.eps);
+    s_grp[g] = mean;
+    s_grp[G + g] = T(1) / d_sqrt(var + eps);
   }
   __syncthreads();
-  for (long e = tid; e < cx.N; e += nth) {
-    const int sc = int(e / P);            // s * C + c
-    const int c = sc % C;
-    const int gi = (sc / C) * G + c / cg;
-    T v = ((X[e] - cx.s_grp[gi]) * cx.s_grp[nbG + gi]) * scale[c] + bias[c];
-    if (mode == 0) {
-      v = v < T(0) ? T(0) : v;
-    } else {
-      v = mult * v;
+  // A row of W elements a thread.
+  for (int r = tid; r < C * H; r += nth) {
+    const int c = r / H, i = r % H, gi = c / cg;
+    const T* x = X + in_row(c, i);
+    T* y = Y + out_row(c, i);
+    const T mean = s_grp[gi], inv = s_grp[G + gi];
+    const T sc = scale[c], bc = bias[c];
+    for (int j = 0; j < W; ++j) {
+      T v = ((x[j] - mean) * inv) * sc + bc;
+      if (mode == 0) {
+        v = v < T(0) ? T(0) : v;
+      } else {
+        v = mult * v;
+      }
+      y[j] = v;
     }
-    Y[e] = v;
   }
   __syncthreads();
 }
 
-// The concat-t 3x3 SAME conv of Hin [nb, C, P] into Zout:
-// out = (sum over valid taps of (sum over c_in of w * h) + bias) + tm * t.
-// Wc: [tap][c_in][c_out] in device memory; copied to shared memory first
-// when cx.w_s is set.
-template <typename T>
-__device__ void conv3x3(const ConvCtx<T>& cx, const T* Hin, T* Zout,
-                        const T* Wc, const T* bias, const T* tm, T tval) {
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int C = cx.C, P = cx.P, H = cx.H, W = cx.W;
-  const T* Wt = Wc;
-  if (cx.w_s != nullptr) {
-    for (int i = tid; i < 9 * C * C; i += nth) cx.w_s[i] = Wc[i];
-    __syncthreads();
-    Wt = cx.w_s;
+// The kCoTile weights of one tap and input channel from wt (0 past ntile
+// unless kFull): two 16-byte loads where kVec.
+template <typename T, bool kFull, bool kVec>
+__device__ __forceinline__ void load_weights(const T* __restrict__ wt,
+                                             int ntile, T (&w)[kCoTile]) {
+  if constexpr (kVec) {
+    const float4 a = reinterpret_cast<const float4*>(wt)[0];
+    const float4 b = reinterpret_cast<const float4*>(wt)[1];
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < kCoTile; ++u)
+      w[u] = (kFull || u < ntile) ? wt[u] : T(0);
   }
+}
+
+// One output tile of the conv: kCoTile output channels from co0 (ntile
+// of them real unless kFull) at position p. Hs: the padded input [C][PP]
+// in shared memory; Wt: [tap][c_in][c_out], in shared memory (16-byte
+// loads where kVec) or device memory.
+template <typename T, bool kFull, bool kVec>
+__device__ __forceinline__ void conv_tile(const T* __restrict__ Hs,
+                                          const T* __restrict__ Wt, T* Z,
+                                          const T* bias, const T* tm,
+                                          T tval, int C, int P, int W,
+                                          int PP, int co0, int p) {
+  const int ntile = kFull ? kCoTile : min(kCoTile, C - co0);
+  const int PW = W + 2;
+  const T* const h_tl = Hs + (p / W) * PW + p % W;   // tap (0, 0)
+  T acc[kCoTile];
+  for (int tap = 0; tap < 9; ++tap) {
+    const T* h = h_tl + (tap / 3) * PW + tap % 3;
+    const T* wt = Wt + tap * C * C + co0;
+    T term[kCoTile], w[kCoTile];
+    load_weights<T, kFull, kVec>(wt, ntile, w);
+    const T h0 = h[0];
+#pragma unroll
+    for (int u = 0; u < kCoTile; ++u) term[u] = w[u] * h0;
+    for (int ci = 1; ci < C; ++ci) {
+      load_weights<T, kFull, kVec>(wt + ci * C, ntile, w);
+      const T hv = h[ci * PP];
+#pragma unroll
+      for (int u = 0; u < kCoTile; ++u) term[u] = term[u] + w[u] * hv;
+    }
+#pragma unroll
+    for (int u = 0; u < kCoTile; ++u)
+      acc[u] = tap == 0 ? term[u] : acc[u] + term[u];
+  }
+#pragma unroll
+  for (int u = 0; u < kCoTile; ++u) {
+    if (kFull || u < ntile) {
+      const int co = co0 + u;
+      Z[co * P + p] = (acc[u] + bias[co]) + tm[co * P + p] * tval;
+    }
+  }
+}
+
+// The concat-t 3x3 SAME conv of the padded input (shared memory, h_off
+// values into it) into Z [C][P]: out = (sum over the nine taps of (sum
+// over c_in of w * h) + bias) + tm * t. The weights [tap][c_in][c_out]
+// sit in shared memory at w_off when kSmemW, else at Wg in device memory.
+// A thread computes a tile of kCoTile output channels at one position (a
+// warp 32 positions of one tile): per input channel one load of the input
+// and one of eight weights (two 16-byte loads in float, the warp's
+// broadcast) feed eight products. The buffers are named as offsets into
+// the shared array so that the loads are shared-memory loads.
+template <typename T, bool kSmemW>
+__device__ __noinline__ void conv3x3(int h_off, const T* Wg, int w_off,
+                                     T* Z, const T* bias, const T* tm,
+                                     T tval, int C, int P, int W, int PP) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const T* const Hs = reinterpret_cast<const T*>(smem_raw) + h_off;
+  const T* const Wt =
+      kSmemW ? reinterpret_cast<const T*>(smem_raw) + w_off : Wg;
   const int n_ct = (C + kCoTile - 1) / kCoTile;
-  const long items = long(cx.nb) * n_ct * P;
-  for (long it = tid; it < items; it += nth) {
-    const int p = int(it % P);
-    const long r = it / P;
-    const int co0 = int(r % n_ct) * kCoTile;
-    const int s = int(r / n_ct);
-    const int ntile = min(kCoTile, C - co0);
-    const int i = p / W, j = p % W;
-    const T* hs = Hin + long(s) * C * P;
-    T acc[kCoTile];
-    bool first = true;
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ii = i + tap / 3 - 1, jj = j + tap % 3 - 1;
-      // A tap outside the map adds an exact zero in the reference.
-      if (ii < 0 || ii >= H || jj < 0 || jj >= W) continue;
-      const int q = ii * W + jj;
-      const T* wt = Wt + long(tap) * C * C + co0;
-      T term[kCoTile];
-      const T h0 = hs[q];
-#pragma unroll
-      for (int u = 0; u < kCoTile; ++u)
-        term[u] = u < ntile ? wt[u] * h0 : T(0);
-      for (int ci = 1; ci < C; ++ci) {
-        const T hv = hs[long(ci) * P + q];
-        const T* w = wt + long(ci) * C;
-#pragma unroll
-        for (int u = 0; u < kCoTile; ++u)
-          if (u < ntile) term[u] = term[u] + w[u] * hv;
-      }
-#pragma unroll
-      for (int u = 0; u < kCoTile; ++u)
-        acc[u] = first ? term[u] : acc[u] + term[u];
-      first = false;
-    }
-    // The centre tap is always valid, so every acc is set.
-#pragma unroll
-    for (int u = 0; u < kCoTile; ++u) {
-      if (u < ntile) {
-        const int co = co0 + u;
-        Zout[(long(s) * C + co) * P + p] =
-            (acc[u] + bias[co]) + tm[long(co) * P + p] * tval;
-      }
-    }
+  constexpr bool kVec = kSmemW && sizeof(T) == 4;
+  for (int it = threadIdx.x; it < n_ct * P; it += blockDim.x) {
+    const int p = it % P;
+    const int co0 = (it / P) * kCoTile;
+    if (C % kCoTile == 0)
+      conv_tile<T, true, kVec>(Hs, Wt, Z, bias, tm, tval, C, P, W, PP, co0,
+                               p);
+    else
+      conv_tile<T, false, false>(Hs, Wt, Z, bias, tm, tval, C, P, W, PP,
+                                 co0, p);
   }
   __syncthreads();
 }
 
-// out = sign * f(sign * s, X) of the whole field; tval = sign * s is the
-// raw time the conv's time channel sees.
+// Start copying n values from device memory into shared memory with
+// 16-byte cp.async (the caller waits, cp_async_wait_all, and meets at a
+// barrier before reading them); where either end is not 16-byte aligned,
+// copy them now with plain loads (the caller's barrier still orders them).
+template <typename T>
+__device__ void copy_in_async(T* dst, const T* src, int n) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  constexpr int kV = 16 / sizeof(T);
+  if (n % kV == 0 && (reinterpret_cast<unsigned long long>(src) & 15) == 0 &&
+      (reinterpret_cast<unsigned long long>(dst) & 15) == 0) {
+    for (int i = tid; i < n / kV; i += nth) {
+      const unsigned a = static_cast<unsigned>(
+          __cvta_generic_to_shared(dst + i * kV));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+                   "l"(src + i * kV));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  } else {
+    for (int i = tid; i < n; i += nth) dst[i] = src[i];
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// out = sign * f(sign * s, X) for the CTA's samples (X, out: [n_own][C][P]
+// in scratch); tval = sign * s is the raw time the conv's time channel
+// sees. Conv by conv, sample by sample: GN -> relu into the padded input,
+// the conv into Z; then the last GN.
 template <typename T>
 __device__ void conv_rhs(const ConvCtx<T>& cx, const T* X, T* out, T tval,
                          T sign) {
   const int C = cx.C, P = cx.P;
+  const long CP = long(C) * P;
   const T* w0 = cx.wg;
   const T* w1 = w0 + 9L * C * C;
   const T* b0 = w1 + 9L * C * C;
   const T* b1 = b0 + C;
   const T* tm0 = b1 + C;
-  const T* tm1 = tm0 + long(C) * P;
-  const T* gs = tm1 + long(C) * P;
+  const T* tm1 = tm0 + CP;
+  const T* gs = tm1 + CP;
   const T* gb = gs + 3 * C;
-  group_norm(cx, X, cx.Hb, gs, gb, 0, sign);
-  conv3x3(cx, cx.Hb, cx.Zb, w0, b0, tm0, tval);
-  group_norm(cx, cx.Zb, cx.Hb, gs + C, gb + C, 0, sign);
-  conv3x3(cx, cx.Hb, cx.Zb, w1, b1, tm1, tval);
-  group_norm(cx, cx.Zb, out, gs + 2 * C, gb + 2 * C, 1, sign);
+  for (int k = 0; k < 2; ++k) {
+    const T* Wt = k ? w1 : w0;
+    // The previous conv's last barrier: nobody reads w_s any more. The
+    // weights arrive while the first sample's GroupNorm runs.
+    if (cx.w_s != nullptr) copy_in_async(cx.w_s, Wt, 9 * C * C);
+    for (int s = 0; s < cx.n_own; ++s) {
+      T* Z = cx.Zb + s * CP;
+      if (k == 0) {
+        for (int e = threadIdx.x; e < C * P; e += blockDim.x)
+          cx.Hs[(e / P) * cx.PP + padded(e % P, cx.W)] = X[s * CP + e];
+        __syncthreads();
+        group_norm<T, true, true>(cx.Hs, cx.Hs, gs, gb, 0, sign, C, cx.G,
+                                  cx.H, cx.W, cx.eps, cx.s_ch, cx.s_grp);
+      } else {
+        group_norm<T, false, true>(Z, cx.Hs, gs + C, gb + C, 0, sign, C,
+                                   cx.G, cx.H, cx.W, cx.eps, cx.s_ch,
+                                   cx.s_grp);
+      }
+      if (cx.w_s != nullptr && s == 0) {
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      if (cx.w_s != nullptr)
+        conv3x3<T, true>(cx.h_off, nullptr, cx.w_off, Z, k ? b1 : b0,
+                         k ? tm1 : tm0, tval, C, P, cx.W, cx.PP);
+      else
+        conv3x3<T, false>(cx.h_off, Wt, 0, Z, k ? b1 : b0, k ? tm1 : tm0,
+                          tval, C, P, cx.W, cx.PP);
+    }
+  }
+  for (int s = 0; s < cx.n_own; ++s)
+    group_norm<T, false, false>(cx.Zb + s * CP, out + s * CP, gs + 2 * C,
+                                gb + 2 * C, 1, sign, C, cx.G, cx.H, cx.W,
+                                cx.eps, cx.s_ch, cx.s_grp);
+}
+
+// Values of a shared-memory region of n values, rounded up to 16 bytes.
+template <typename T>
+__host__ __device__ inline long smem_align(long n) {
+  constexpr long kV = 16 / long(sizeof(T));
+  return (n + kV - 1) / kV * kV;
 }
 
 template <typename T>
@@ -212,52 +351,72 @@ __global__ void __launch_bounds__(kConvThreads, 1)
                       const T* __restrict__ f0g, const T* __restrict__ wg,
                       const T* __restrict__ dt0g, T* __restrict__ out,
                       int* __restrict__ stats, T* __restrict__ work,
-                      Tableau<T> tab_in, ConvScalars<T> sc) {
+                      unsigned char* __restrict__ gwork,
+                      const int* __restrict__ ctab, Tableau<T> tab_in,
+                      ConvScalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Tableau<T> tab;
+  __shared__ T merged[2];
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
   if (tid == 0) tab = tab_in;
 
-  const int blk = blockIdx.x;
+  // The CTA's row of the grid table.
+  const int* const row = ctab + kConvCtaInts * blockIdx.x;
+  const int cblk = row[0], b_first = row[1], nb = row[2], rank = row[3];
+  const int n_ctas = row[4], cta0 = row[5], meet = row[6];
+  const int s_lo = b_first + int(long(rank) * nb / n_ctas);
+  const int s_hi = b_first + int(long(rank + 1) * nb / n_ctas);
+
+  const int C = sc.C, G = sc.G;
   const int P = sc.H * sc.W;
-  const long CP = long(sc.C) * P;
-  const int b_first = blk * sc.b_blk;
+  const long CP = long(C) * P;
   ConvCtx<T> cx;
-  cx.nb = min(sc.b_blk, sc.B - b_first);
-  cx.C = sc.C;
-  cx.G = sc.G;
+  cx.n_own = s_hi - s_lo;
+  cx.C = C;
+  cx.G = G;
   cx.H = sc.H;
   cx.W = sc.W;
   cx.P = P;
-  cx.N = long(cx.nb) * CP;
+  cx.PW = sc.W + 2;
+  cx.PP = (sc.H + 2) * cx.PW;
   cx.eps = sc.eps;
   cx.wg = wg;
-  T* red = reinterpret_cast<T*>(smem_raw);          // [nth]
-  cx.s_ch = red + nth;                              // [2 * b_blk * C]
-  cx.s_grp = cx.s_ch + 2 * sc.b_blk * sc.C;         // [2 * b_blk * G]
-  cx.w_s = sc.w_smem ? cx.s_grp + 2 * sc.b_blk * sc.G : nullptr;
-  __syncthreads();
+  T* red = reinterpret_cast<T*>(smem_raw);                 // [nth]
+  cx.s_ch = red + smem_align<T>(nth);                      // [2 C]
+  cx.s_grp = cx.s_ch + smem_align<T>(2 * C);               // [2 G]
+  cx.Hs = cx.s_grp + smem_align<T>(2 * G);                 // [C][PP]
+  T* next = cx.Hs + smem_align<T>(long(C) * cx.PP);
+  cx.w_s = sc.w_smem ? next : nullptr;                     // [9 C C]
+  cx.h_off = int(cx.Hs - red);
+  cx.w_off = int(next - red);
+  if (sc.w_smem) next += smem_align<T>(9L * C * C);
+  // The padded input's border stays zero.
+  for (int i = tid; i < C * cx.PP; i += nth) cx.Hs[i] = T(0);
 
-  const int S = tab.S;
-  const long Nb = long(sc.b_blk) * CP;              // one scratch buffer
-  T* base = work + long(blk) * (S + 8) * Nb;
-  T* Y = base;               // state
-  T* F = Y + Nb;             // derivative at (t, y): stage 0 (FSAL cache)
-  T* Cm = F + Nb;            // Kahan compensation
-  T* DEL = Cm + Nb;          // delta = y1 - y0 of the attempt
-  T* MID = DEL + Nb;         // dense-output midpoint of the attempt
-  T* F1 = MID + Nb;          // f(t1, y1) for tableaus that are not FSAL
-  T* YS = F1 + Nb;           // the stage's input state
-  cx.Hb = YS + Nb;
-  cx.Zb = cx.Hb + Nb;
-  T* K = cx.Zb + Nb;         // stages 1 .. S - 1
+  const int S = tab_in.S;
+  const long BN = long(sc.B) * CP;                  // one scratch buffer
+  const long off = long(s_lo) * CP;                 // the CTA's samples
+  T* Y = work + off;         // state
+  T* F = Y + BN;             // derivative at (t, y): stage 0 (FSAL cache)
+  T* Cm = F + BN;            // Kahan compensation
+  T* DEL = Cm + BN;          // delta = y1 - y0 of the attempt
+  T* MID = DEL + BN;         // dense-output midpoint of the attempt
+  T* F1 = MID + BN;          // f(t1, y1) for tableaus that are not FSAL
+  T* YS = F1 + BN;           // the stage's input state
+  T* Zg = YS + BN;           // conv outputs where shared memory has no room
+  T* K = Zg + BN;            // stages 1 .. S - 1
+  cx.Zb = sc.z_smem ? next : Zg;
 
-  const long N = cx.N;
-  const long off = long(b_first) * CP;              // the block's samples
-  const long BN = long(sc.B) * CP;                  // one output row
+  const long N = long(cx.n_own) * CP;               // the CTA's elements
+  const T T_den = T(double(nb) * double(CP));       // the block's elements
   const int T_out = sc.T_out;
   const T sign = sc.sign;
+  unsigned long long* const count =
+      reinterpret_cast<unsigned long long*>(gwork) + 2 * meet;
+  T* const shares = reinterpret_cast<T*>(gwork + 16L * sc.n_meet);
+  unsigned long long target = 0;
+  int meeting = 0;
 
   // Deterministic output on early exit: zero fill, then y0 in row 0.
   for (long e = tid; e < N; e += nth) {
@@ -270,9 +429,8 @@ __global__ void __launch_bounds__(kConvThreads, 1)
 
   const T t_start = tau[0];
   const T t_end = tau[T_out - 1];
-  const T denom = T(double(N));
   T t = t_start;
-  T dt = d_max(d_abs(dt0g[blk]), sc.dt_min);
+  T dt = d_max(d_abs(dt0g[cblk]), sc.dt_min);
   int oi = 1, nfe = 0, nacc = 0, nrej = 0;
   // Non-monotonic times: status 3 (INVALID_TIMES), output zero beyond row 0.
   int status = (t_end > t_start && sc.valid) ? 0 : 3;
@@ -292,7 +450,7 @@ __global__ void __launch_bounds__(kConvThreads, 1)
         for (int j = 0; j < i; ++j) {
           const T a = tab.a[i][j];
           if (a != T(0)) {
-            const T kj = j == 0 ? F[e] : K[(j - 1) * Nb + e];
+            const T kj = j == 0 ? F[e] : K[(j - 1) * BN + e];
             v = v + (dth * a) * kj;
           }
         }
@@ -300,7 +458,7 @@ __global__ void __launch_bounds__(kConvThreads, 1)
       }
       __syncthreads();
       const T ti = t + tab.c[i] * dth;
-      conv_rhs(cx, YS, K + (i - 1) * Nb, sign * ti, sign);
+      conv_rhs(cx, YS, K + (i - 1) * BN, sign * ti, sign);
     }
 
     // ---- solution, error and midpoint of each owned element.
@@ -311,7 +469,7 @@ __global__ void __launch_bounds__(kConvThreads, 1)
       T delta = T(0), err = T(0), ymid = y0;
       bool first_d = true, first_e = true;
       for (int j = 0; j < S; ++j) {
-        const T kj = j == 0 ? F[e] : K[(j - 1) * Nb + e];
+        const T kj = j == 0 ? F[e] : K[(j - 1) * BN + e];
         if (tab.b_sol[j] != T(0)) {
           const T term = (dth * tab.b_sol[j]) * kj;
           delta = first_d ? term : delta + term;
@@ -340,10 +498,15 @@ __global__ void __launch_bounds__(kConvThreads, 1)
       conv_rhs(cx, YS, F1, sign * t1, sign);
     }
 
-    // ---- the block meets: error sum, finiteness, one shared decision.
-    const bool any_bad = __syncthreads_or(bad);
-    const T total = block_sum(ss, red);
-    const T ratio = d_sqrt(total / denom);
+    // ---- the controller block's CTAs meet: each brings its share of the
+    // error sum and its finiteness flag, every one adds them in CTA order.
+    const bool cta_bad = __syncthreads_or(bad);
+    const T share[2] = {block_sum(ss, red), cta_bad ? T(1) : T(0)};
+    group_shares<T, 2>(count, target, meeting, shares, gridDim.x, cta0,
+                       n_ctas, share, merged, red);
+    const T total = merged[0];
+    const bool any_bad = merged[1] != T(0);
+    const T ratio = d_sqrt(total / T_den);
     const bool finite = d_finite(total) && !any_bad;
     const bool accept = (ratio <= T(1)) && finite;
     const T fac = controller_factor(ratio, finite, accept, sc.safety,
@@ -359,7 +522,7 @@ __global__ void __launch_bounds__(kConvThreads, 1)
         const T y0 = Y[e];
         const T delta = DEL[e];
         const T f0 = F[e];
-        const T f1 = tab.fsal ? K[(S - 2) * Nb + e] : F1[e];
+        const T f1 = tab.fsal ? K[(S - 2) * BN + e] : F1[e];
         const T y1 = y0 + delta;
         const T df0 = dth * f0;
         const T df1 = dth * f1;
@@ -406,28 +569,51 @@ __global__ void __launch_bounds__(kConvThreads, 1)
     nacc += accept ? 1 : 0;
     nrej += accept ? 0 : 1;
   }
-  if (tid == 0) {
-    stats[4 * blk + 0] = nfe;
-    stats[4 * blk + 1] = nacc;
-    stats[4 * blk + 2] = nrej;
-    stats[4 * blk + 3] = status;
+  if (rank == 0 && tid == 0) {
+    stats[4 * cblk + 0] = nfe;
+    stats[4 * cblk + 1] = nacc;
+    stats[4 * cblk + 2] = nrej;
+    stats[4 * cblk + 3] = status;
   }
+}
+
+// Shared memory of a CTA: the reduction, the GroupNorm statistics and the
+// padded conv input (always), the applied conv's weights (w_smem), the
+// conv outputs of n_max samples (z_smem); ops/cuda_conv.py _conv_smem
+// repeats it.
+template <typename T>
+long conv_smem_bytes(int threads, int C, int G, int H, int W, int w_smem,
+                     int z_smem, int n_max) {
+  return long(sizeof(T)) *
+         (smem_align<T>(threads) + smem_align<T>(2L * C) +
+          smem_align<T>(2L * G) + smem_align<T>(long(C) * (H + 2) * (W + 2)) +
+          (w_smem ? smem_align<T>(9L * C * C) : 0) +
+          (z_smem ? long(n_max) * C * H * W : 0));
+}
+
+// Bytes of a launch's grid workspace: a 16-byte meeting counter a
+// controller block, then the share buffers [2][n_cta][2].
+inline long conv_grid_bytes(int n_meet, int n_cta, long item) {
+  return 16L * n_meet + 4L * n_cta * item;
 }
 
 template <typename T>
 int launch_conv_solve(const void* tau, const void* y0, const void* f0,
                       const void* weights, const void* dt0, void* out,
-                      void* stats, void* work, int T_out, int B, int b_blk,
-                      int C, int G, int H, int W, int threads, int w_smem,
-                      double rtol, double atol, double dt_min, double sign,
-                      double eps, double safety, double ifactor,
-                      double dfactor, int max_steps, int valid, int stages,
-                      int order, int fsal, const double* c, const double* a,
+                      void* stats, void* work, void* gwork, long gwork_bytes,
+                      const void* ctab, int n_cta, int n_meet, int n_max,
+                      int T_out, int B, int C, int G, int H, int W,
+                      int threads, int w_smem, int z_smem, double rtol,
+                      double atol, double dt_min, double sign, double eps,
+                      double safety, double ifactor, double dfactor,
+                      int max_steps, int valid, int stages, int order,
+                      int fsal, const double* c, const double* a,
                       const double* b_sol, const double* b_err,
                       const double* c_mid, void* stream) {
-  if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 ||
-      b_blk < 1 || C < 1 || G < 1 || C % G || H < 1 || W < 1 ||
-      threads < 32 || threads > kConvThreads || (threads & (threads - 1)))
+  if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 || C < 1 ||
+      G < 1 || C % G || H < 1 || W < 1 || threads != kConvThreads ||
+      n_cta < 1 || n_meet < 1 || n_meet > n_cta || n_max < 1 || !gwork ||
+      gwork_bytes < conv_grid_bytes(n_meet, n_cta, sizeof(T)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tableau<T> tab =
       make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
@@ -445,27 +631,37 @@ int launch_conv_solve(const void* tau, const void* y0, const void* f0,
   sc.valid = valid;
   sc.T_out = T_out;
   sc.B = B;
-  sc.b_blk = b_blk;
   sc.C = C;
   sc.G = G;
   sc.H = H;
   sc.W = W;
   sc.w_smem = w_smem;
+  sc.z_smem = z_smem;
+  sc.n_meet = n_meet;
 
-  const int n_blocks = (B + b_blk - 1) / b_blk;
-  const size_t smem =
-      sizeof(T) * (size_t(threads) + 2 * size_t(b_blk) * (C + G) +
-                   (w_smem ? 9 * size_t(C) * C : 0));
-  auto kernel = conv_solve_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  const size_t smem = size_t(
+      conv_smem_bytes<T>(threads, C, G, H, W, w_smem, z_smem, n_max));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // Every controller block's meeting counter starts at zero.
+  cudaError_t e = cudaMemsetAsync(gwork, 0, 16L * n_meet, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<n_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(tau), static_cast<const T*>(y0),
-      static_cast<const T*>(f0), static_cast<const T*>(weights),
-      static_cast<const T*>(dt0), static_cast<T*>(out),
-      static_cast<int*>(stats), static_cast<T*>(work), tab, sc);
-  return static_cast<int>(cudaGetLastError());
+  const T* a_tau = static_cast<const T*>(tau);
+  const T* a_y0 = static_cast<const T*>(y0);
+  const T* a_f0 = static_cast<const T*>(f0);
+  const T* a_w = static_cast<const T*>(weights);
+  const T* a_dt0 = static_cast<const T*>(dt0);
+  T* a_out = static_cast<T*>(out);
+  int* a_stats = static_cast<int*>(stats);
+  T* a_work = static_cast<T*>(work);
+  unsigned char* a_gwork = static_cast<unsigned char*>(gwork);
+  const int* a_ctab = static_cast<const int*>(ctab);
+  Tableau<T> a_tab = tab;
+  ConvScalars<T> a_sc = sc;
+  void* args[] = {&a_tau,  &a_y0,    &a_f0,   &a_w,    &a_dt0,
+                  &a_out,  &a_stats, &a_work, &a_gwork, &a_ctab,
+                  &a_tab,  &a_sc};
+  return static_cast<int>(launch_grid(conv_solve_kernel<T>, n_cta, threads,
+                                      smem, args, gwork, st));
 }
 
 }  // namespace tfd
@@ -473,18 +669,20 @@ int launch_conv_solve(const void* tau, const void* y0, const void* f0,
 #define TFD_CONV_SOLVE_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \
       const void* tau, const void* y0, const void* f0, const void* weights, \
-      const void* dt0, void* out, void* stats, void* work, int T_out,       \
-      int B, int b_blk, int C, int G, int H, int W, int threads,            \
-      int w_smem, double rtol, double atol, double dt_min, double sign,     \
-      double eps, double safety, double ifactor, double dfactor,            \
-      int max_steps, int valid, int stages, int order, int fsal,            \
-      const double* c, const double* a, const double* b_sol,                \
+      const void* dt0, void* out, void* stats, void* work, void* gwork,     \
+      long gwork_bytes, const void* ctab, int n_cta, int n_meet, int n_max, \
+      int T_out, int B, int C, int G, int H, int W, int threads,            \
+      int w_smem, int z_smem, double rtol, double atol, double dt_min,      \
+      double sign, double eps, double safety, double ifactor,               \
+      double dfactor, int max_steps, int valid, int stages, int order,      \
+      int fsal, const double* c, const double* a, const double* b_sol,      \
       const double* b_err, const double* c_mid, void* stream) {            \
     return tfd::launch_conv_solve<TYPE>(                                     \
-        tau, y0, f0, weights, dt0, out, stats, work, T_out, B, b_blk, C, G, \
-        H, W, threads, w_smem, rtol, atol, dt_min, sign, eps, safety,       \
-        ifactor, dfactor, max_steps, valid, stages, order, fsal, c, a,      \
-        b_sol, b_err, c_mid, stream);                                        \
+        tau, y0, f0, weights, dt0, out, stats, work, gwork, gwork_bytes,    \
+        ctab, n_cta, n_meet, n_max, T_out, B, C, G, H, W, threads, w_smem,  \
+        z_smem, rtol, atol, dt_min, sign, eps, safety, ifactor, dfactor,    \
+        max_steps, valid, stages, order, fsal, c, a, b_sol, b_err, c_mid,   \
+        stream);                                                             \
   }
 
 TFD_CONV_SOLVE_ENTRY(tfd_conv_solve_f32, float)

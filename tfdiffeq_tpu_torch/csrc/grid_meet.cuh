@@ -1,15 +1,19 @@
 // The grid primitives of the kernels that spread one step controller over
-// the card: K2 (csrc/rk_solve.cuh), K3 (csrc/rk_adjoint.cuh) and K11
-// (csrc/rk_vcabm.cuh). Each launches one block of 512 threads per SM, all
-// resident together (a cooperative launch, launch_grid), and the blocks
-// meet only where the controller needs a sum over the whole batch:
+// the card: K2 (csrc/rk_solve.cuh), K3 (csrc/rk_adjoint.cuh), K11
+// (csrc/rk_vcabm.cuh), fixed_adams' K10 (csrc/rk_adams.cuh), and K13
+// (csrc/conv_solve_kernel.cu: a controller a group of blocks). Each
+// launches one block of 512 threads per SM, all resident together (a
+// cooperative launch, launch_grid), and the blocks meet only where the
+// controller needs a sum over its samples:
 //
 //   grid_sync      the meeting point (an atomic counter in the grid
-//                  workspace, zeroed before each launch);
+//                  workspace, zeroed before each launch); group_sync a
+//                  group of blocks' own;
 //   merge_blocks   a value's per-block partials added in block order;
-//   grid_shares    one meeting of the solves (K2, K11): each block's share
-//                  of a few sums in, every block's merged sums out (the
-//                  adds of merge_blocks, its loads spread over the block).
+//   grid_shares    one meeting of the solves (K2, K11, K10): each block's
+//                  share of a few sums in, every block's merged sums out
+//                  (the adds of merge_blocks, its loads spread over the
+//                  block); group_shares the same for a group of blocks.
 //
 // Every block merges the same values in the same order with the same
 // instructions, read past L1, so every block takes bitwise the same total
@@ -25,11 +29,13 @@ namespace tfd {
 // The launch makes every block resident together (a cooperative launch),
 // or this would wait forever; a wait of some seconds (2^28 polls), far
 // past any stage, traps, so that a fault fails the launch instead of
-// holding the card.
-__device__ __forceinline__ void grid_sync(unsigned long long* count,
-                                          unsigned long long& target) {
+// holding the card. group_sync is the same for a group of n blocks that
+// meet at their own counter (K13's controller blocks).
+__device__ __forceinline__ void group_sync(unsigned long long* count,
+                                           unsigned long long& target,
+                                           int n) {
   __syncthreads();
-  target += gridDim.x;
+  target += n;
   if (threadIdx.x == 0) {
     __threadfence();
     atomicAdd(count, 1ull);
@@ -42,6 +48,11 @@ __device__ __forceinline__ void grid_sync(unsigned long long* count,
     __threadfence();
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void grid_sync(unsigned long long* count,
+                                          unsigned long long& target) {
+  group_sync(count, target, gridDim.x);
 }
 
 // v[0] + v[stride] + ... + v[(nb - 1) stride] in block order, read past L1
@@ -65,34 +76,37 @@ inline long grid_shares_bytes(int n_blocks, int n_values, long item) {
   return 16 + 2L * n_blocks * n_values * item;
 }
 
-// One meeting of a solve's grid. Every thread passes its block's shares
-// `v` (the same in every thread: block sums); thread 0 writes them into
-// this meeting's buffer. After grid_sync the block's threads load the
-// n_blocks shares together (past L1) into `stage` (the block's reduction
+// One meeting of a group of n blocks of the grid, [first, first + n), at
+// their counter `count`. Every thread passes its block's shares `v` (the
+// same in every thread: block sums); thread 0 writes them into this
+// meeting's buffer, [n_total][N] at `base` (a slot a block of the grid,
+// indexed by blockIdx.x). After group_sync the block's threads load the
+// group's n shares together (past L1) into `stage` (the block's reduction
 // scratch, blockDim.x values, free at a meeting), a chunk of whole blocks
 // at a time, and thread 0 adds each value's shares in block order: the
 // adds of merge_blocks, one L2 round trip a chunk instead of one a share.
 // The merged sums go to `merged` (shared memory), which every thread reads
 // on return. The two buffers alternate with the meeting's parity: a block
 // writes a buffer again only at the meeting after next, which it reaches
-// only after every block has arrived at the next one, and so has read this
-// one's shares. So one grid_sync a meeting does.
+// only after every block of its group has arrived at the next one, and so
+// has read this one's shares. So one group_sync a meeting does.
 template <typename T, int N>
-__device__ __forceinline__ void grid_shares(GridMeet& gm, unsigned char* gwork,
-                                            const T (&v)[N], T* merged,
-                                            T* stage) {
-  const int nb = gridDim.x, tid = threadIdx.x;
-  T* const buf = reinterpret_cast<T*>(gwork + 16) +
-                 long(gm.meeting & 1) * nb * N;
+__device__ __forceinline__ void group_shares(
+    unsigned long long* count, unsigned long long& target, int& meeting,
+    T* base, int n_total, int first, int n, const T (&v)[N], T* merged,
+    T* stage) {
+  const int tid = threadIdx.x;
+  T* const buf = base + long(meeting & 1) * n_total * N;
   if (tid == 0)
     for (int i = 0; i < N; ++i) buf[long(blockIdx.x) * N + i] = v[i];
-  grid_sync(gm.count, gm.target);
-  const int n = nb * N;
+  group_sync(count, target, n);
+  const T* const src = buf + long(first) * N;
+  const int total = n * N;
   const int chunk = blockDim.x / N * N;
   T acc[N];
-  for (int c0 = 0; c0 < n; c0 += chunk) {
-    const int cnt = n - c0 < chunk ? n - c0 : chunk;
-    if (tid < cnt) stage[tid] = __ldcg(buf + c0 + tid);
+  for (int c0 = 0; c0 < total; c0 += chunk) {
+    const int cnt = total - c0 < chunk ? total - c0 : chunk;
+    if (tid < cnt) stage[tid] = __ldcg(src + c0 + tid);
     __syncthreads();
     if (tid == 0) {
       for (int j = 0; j < cnt; j += N) {
@@ -106,7 +120,18 @@ __device__ __forceinline__ void grid_shares(GridMeet& gm, unsigned char* gwork,
   if (tid == 0)
     for (int i = 0; i < N; ++i) merged[i] = acc[i];
   __syncthreads();
-  ++gm.meeting;
+  ++meeting;
+}
+
+// One meeting of a solve's grid (K2, K11, fixed_adams' K10): group_shares
+// over the whole grid, its buffers after the counter in `gwork`.
+template <typename T, int N>
+__device__ __forceinline__ void grid_shares(GridMeet& gm, unsigned char* gwork,
+                                            const T (&v)[N], T* merged,
+                                            T* stage) {
+  group_shares<T, N>(gm.count, gm.target, gm.meeting,
+                     reinterpret_cast<T*>(gwork + 16), gridDim.x, 0,
+                     gridDim.x, v, merged, stage);
 }
 
 // Launch `kernel` on n_blocks blocks of `threads` threads with `smem` bytes

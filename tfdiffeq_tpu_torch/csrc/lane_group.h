@@ -1,8 +1,9 @@
-// K6's layout (csrc/rk_adjoint.cuh rk_perlane_adjoint_kernel): a group of
-// kLaneGroup threads a sample, kLaneGroups samples a block, and the
-// workspace the sweep needs. Plain C++, so that the host (and a test
-// through a host compiler) computes the same sizes the launch checks;
-// ops/cuda_perlane.py repeats them (_group_work_size).
+// The layout of K6 and K9 (csrc/rk_adjoint.cuh rk_perlane_adjoint_kernel,
+// rk_fixed_adjoint_kernel): a group of kLaneGroup threads a sample,
+// kLaneGroups samples a block, and the workspace each sweep needs. Plain
+// C++, so that the host (and a test through a host compiler) computes the
+// same sizes the launch checks; ops/cuda_fixed.py repeats them
+// (_group_work_size, _fixed_work_size).
 #pragma once
 
 namespace tfd {
@@ -44,6 +45,20 @@ inline long lane_group_mlp_walk_values(int n_layers, const int* dims,
 inline long lane_group_work_size(int S, int B, int D, long n_q,
                                  long walk_values) {
   return long(B) * (lane_group_slot_values(S, D, n_q, walk_values) + n_q);
+}
+
+// K9's end-of-sweep tree: the shared quadratures' batch sums take
+// block_sum's tree over kFixedTree consecutive samples (two blocks' worth),
+// then the trees in order: the order K9 had when a sample was a thread of
+// a 64-thread block.
+constexpr int kFixedTree = 64;
+
+// K9's workspace: K6's (the slots and the STEP rows), then every sample's
+// running sums of its R shared quadratures ([R][B]) for the end-of-sweep
+// trees.
+inline long fixed_group_work_size(int S, int B, int D, long n_q,
+                                  long walk_values, long R) {
+  return lane_group_work_size(S, B, D, n_q, walk_values) + R * B;
 }
 
 }  // namespace tfd

@@ -1,8 +1,8 @@
 // Code shared by the fused-tier kernels (csrc/*.cu): the MLP right-hand
 // side, the activations and their derivatives, the tableau and network
 // descriptions built on the host, the controller factor, a fixed-order
-// block reduction, and the stage and quadrature sums of the adjoint sweeps
-// that give each sample one thread (K9, K6).
+// block reduction, and the layout of the MLP walk of the per-sample
+// adjoint sweeps (K6, K9) and K6's block sums.
 //
 // Every formula follows its JAX reference in tfdiffeq_tpu/ops/
 // pallas_kernels.py operation for operation (the library is built with
@@ -389,13 +389,13 @@ __device__ T block_sum(T v, T* red) {
 }
 
 // ---------------------------------------------------------------------------
-// The adjoint sweeps that give each sample one thread (K9 and K6, whose
-// engines are in rk_adjoint.cuh). Their per-sample state lives in a device
-// workspace of feature-major rows of B values: sample b's value of row r is
-// at r * B + b, so a warp touches 32 consecutive values.
+// The MLP walk of the adjoint sweeps that give each sample a group of
+// threads (K6 and K9, csrc/mlp_group_aug.cuh): where each layer's inputs
+// and act'(z) sit among a sample's walk values.
 // ---------------------------------------------------------------------------
 
-// Workspace row offsets of each layer's inputs (H) and act'(z) (G).
+// Offsets of each layer's inputs (H) and act'(z) (G) among the walk's
+// values.
 struct AugRows {
   int h_off[kMaxLayers];
   int z_off[kMaxLayers];
@@ -410,158 +410,6 @@ inline AugRows make_aug_rows(const Net& net) {
     h += net.din[l];
     z += net.dout[l];
   }
-  return rows;
-}
-
-// Stage st's state of sample b: ya = y + sum_q (h a_stq) ky_q and aya the
-// same for a_y, from the rows Y, AY and the earlier stages' KY, KAY
-// ([S][D] rows each).
-template <typename T>
-__device__ void aug_stage_state(const Tableau<T>& tab, int st, T h,
-                                const T* Y, const T* AY, const T* KY,
-                                const T* KAY, T* ya, T* aya, int D, int B,
-                                int b) {
-  auto at = [B, b](int row) -> long { return long(row) * B + b; };
-  for (int d = 0; d < D; ++d) {
-    T yv = Y[at(d)], av = AY[at(d)];
-    for (int q = 0; q < st; ++q) {
-      const T a = tab.a[st][q];
-      if (a != T(0)) {
-        yv = yv + (h * a) * KY[at(q * D + d)];
-        av = av + (h * a) * KAY[at(q * D + d)];
-      }
-    }
-    ya[d] = yv;
-    aya[d] = av;
-  }
-}
-
-// The solution combine of sample b's (y, a_y) with weights h b_sol,
-// Kahan-compensated: rows Y, AY and their compensations CY, CAY updated in
-// place from the stages' KY, KAY.
-template <typename T>
-__device__ void aug_kahan_update(const Tableau<T>& tab, T h, T* Y, T* AY,
-                                 T* CY, T* CAY, const T* KY, const T* KAY,
-                                 int D, int B, int b) {
-  auto at = [B, b](int row) -> long { return long(row) * B + b; };
-  for (int pass = 0; pass < 2; ++pass) {
-    T* V = pass ? AY : Y;
-    T* CV = pass ? CAY : CY;
-    const T* KV = pass ? KAY : KY;
-    for (int d = 0; d < D; ++d) {
-      T dv = T(0);
-      bool first = true;
-      for (int q = 0; q < tab.S; ++q) {
-        if (tab.b_sol[q] != T(0)) {
-          const T term = (h * tab.b_sol[q]) * KV[at(q * D + d)];
-          dv = first ? term : dv + term;
-          first = false;
-        }
-      }
-      const T v0 = V[at(d)];
-      const T adj = dv - CV[at(d)];
-      const T v1 = v0 + adj;
-      CV[at(d)] = (v1 - v0) - adj;
-      V[at(d)] = v1;
-    }
-  }
-}
-
-// One stage of the augmented adjoint system for sample b
-// (pallas_adjoint.py:_make_aug_eval): the MLP forward at (t, ya), keeping
-// each layer's input in rows H and act'(z) in rows G; the stage derivatives
-// ky = -sf f and kay = sf v_y (rows of B values: feature d of sample b at
-// d * B + b); and, when `add`, the stage's weighted quadrature term
-// hb (sf x) for every parameter (pack_mlp_weights' layout, then a_t with a
-// time column) joined into the sample's STEP rows, set when `first` and
-// added otherwise. ya, aya: the stage state and adjoint; buf_a, buf_b:
-// scratch of the network's widest layer each.
-template <typename T>
-__device__ void aug_stage(const Net& net, const AugRows& rows,
-                          const T* __restrict__ w, T t, const T* ya,
-                          const T* aya, T* buf_a, T* buf_b, T* H, T* G,
-                          T* ky, T* kay, T* STEP, int B, int b, T sf, T hb,
-                          bool add, bool first) {
-  auto at = [B, b](int row) -> long { return long(row) * B + b; };
-  const int L = net.n_layers, ti = net.time_input;
-  const int D = net.din[0] - ti;
-  const int n_w = net.b_off[L - 1] + net.dout[L - 1];
-  // Forward, keeping each layer's input and act'(z).
-  T* hin = buf_a;
-  T* hout = buf_b;
-  for (int d = 0; d < D; ++d) {
-    T v = ya[d];
-    for (int p = 1; p < net.input_power; ++p) v = v * ya[d];
-    hin[d] = v;
-  }
-  if (ti) hin[D] = t;
-  for (int l = 0; l < L; ++l) {
-    const int din = net.din[l], dout = net.dout[l];
-    const T* W = w + net.w_off[l];
-    const T* bias = w + net.b_off[l];
-    const int code = (l == L - 1) ? net.act_final : net.act_hidden;
-    for (int k = 0; k < din; ++k) H[at(rows.h_off[l] + k)] = hin[k];
-    for (int o = 0; o < dout; ++o) {
-      const T* row = W + o * din;
-      T acc = row[0] * hin[0];
-      for (int k = 1; k < din; ++k) acc = acc + row[k] * hin[k];
-      const T z = acc + bias[o];
-      const T a = activate(code, z);
-      G[at(rows.z_off[l] + o)] = act_grad(code, z, a);
-      hout[o] = a;
-    }
-    T* tmp = hin;
-    hin = hout;
-    hout = tmp;
-  }
-  // hin holds f. Backward: the last layer's dz into hout.
-  for (int d = 0; d < D; ++d) {
-    ky[at(d)] = (-sf) * hin[d];
-    hout[d] = aya[d] * G[at(rows.z_off[L - 1] + d)];
-  }
-  auto quad = [&](int r, T x) {
-    const T term = hb * (sf * x);
-    STEP[at(r)] = first ? term : STEP[at(r)] + term;
-  };
-  T* dz = hout;
-  T* dh = hin;
-  for (int l = L - 1; l >= 0; --l) {
-    const int din = net.din[l], dout = net.dout[l];
-    const T* W = w + net.w_off[l];
-    if (add) {
-      for (int o = 0; o < dout; ++o) {
-        for (int k = 0; k < din; ++k)
-          quad(net.w_off[l] + o * din + k, dz[o] * H[at(rows.h_off[l] + k)]);
-        quad(net.b_off[l] + o, dz[o]);
-      }
-    }
-    for (int k = 0; k < din; ++k) {
-      T acc = W[k] * dz[0];
-      for (int o = 1; o < dout; ++o) acc = acc + W[o * din + k] * dz[o];
-      if (l > 0) acc = acc * G[at(rows.z_off[l - 1] + k)];
-      dh[k] = acc;
-    }
-    T* tmp = dz;
-    dz = dh;
-    dh = tmp;
-  }
-  // dz holds the layer-0 input cotangent: v_y, then v_t.
-  for (int d = 0; d < D; ++d) {
-    T vy = dz[d];
-    if (net.input_power > 1) {
-      T yp = ya[d];
-      for (int p = 2; p < net.input_power; ++p) yp = yp * ya[d];
-      vy = vy * (T(net.input_power) * yp);
-    }
-    kay[at(d)] = sf * vy;
-  }
-  if (ti && add) quad(n_w, dz[D]);
-}
-
-// Workspace rows of H and G: each layer's inputs and outputs.
-__host__ __device__ inline long aug_rows_count(const Net& net) {
-  long rows = 0;
-  for (int l = 0; l < net.n_layers; ++l) rows += net.din[l] + net.dout[l];
   return rows;
 }
 
@@ -641,98 +489,17 @@ MlpGroupRhs<T, kRoute> make_mlp_group_rhs(const void* weights, int n_w,
   return rhs;
 }
 
-// K6's and K9's MLP right-hand side (csrc/rk_adjoint.cuh's Aug, one sample
-// a thread): aug_stage on the narrow or wide route, its rows H [n_h][B]
-// and G [n_z][B].
-template <typename T, int kRoute>
-struct MlpLaneAug {
-  static constexpr bool kBatch = false;
-  const T* wg;     // packed weights (pack_mlp_weights)
-  int n_w, ti, n_ps;
-  int n_h;
-  Net net_in;
-  AugRows rows_in;
-
-  struct Shared {
-    Net net;
-    AugRows rows;
-  };
-  // The per-thread vectors of one sample; the weights' pointer stays out
-  // of this struct, where a store through them could alias it.
-  struct Local {
-    T ya[vec_width<kRoute>()], aya[vec_width<kRoute>()];
-    T buf_a[vec_width<kRoute>()], buf_b[vec_width<kRoute>()];
-  };
-
-  __device__ __forceinline__ const T* weights() const {
-    if constexpr (kRoute == kRouteNarrow) {
-      extern __shared__ __align__(16) unsigned char smem_raw[];
-      return reinterpret_cast<const T*>(smem_raw);
-    } else {
-      return wg;
-    }
-  }
-  __device__ T* setup(Shared& sh, Local&, unsigned char* smem) const {
-    if (threadIdx.x == 0) {
-      sh.net = net_in;
-      sh.rows = rows_in;
-    }
-    if constexpr (kRoute == kRouteNarrow) {
-      T* ws = reinterpret_cast<T*>(smem);
-      for (int i = threadIdx.x; i < n_w; i += blockDim.x) ws[i] = wg[i];
-      return ws + n_w;
-    } else {
-      return reinterpret_cast<T*>(smem);
-    }
-  }
-  __device__ T* ya(Local& lo) const { return lo.ya; }
-  __device__ T* aya(Local& lo) const { return lo.aya; }
-  __device__ void lane_stage(const Shared& sh, Local& lo, T t, int b, int B,
-                             T sf, T* ky, T* kay, T* STEP, T hb, bool add,
-                             bool first, T* rw) const {
-    aug_stage(sh.net, sh.rows, weights(), t, lo.ya, lo.aya, lo.buf_a,
-              lo.buf_b, rw, rw + long(n_h) * B, ky, kay, STEP, B, b, sf, hb,
-              add, first);
-  }
-};
-
-template <typename T, int kRoute>
-MlpLaneAug<T, kRoute> make_mlp_lane_aug(const void* weights, int n_w,
-                                        const Net& net) {
-  MlpLaneAug<T, kRoute> aug;
-  aug.wg = static_cast<const T*>(weights);
-  aug.n_w = n_w;
-  aug.ti = net.time_input;
-  aug.n_ps = 0;
-  aug.n_h = 0;
-  for (int l = 0; l < net.n_layers; ++l) aug.n_h += net.din[l];
-  aug.net_in = net;
-  aug.rows_in = make_aug_rows(net);
-  return aug;
-}
-
-// The batch sums of the per-sample quadratures: the block sums in
+// K6's batch sums of the per-sample quadratures: the block sums in
 // `partial` ([n_blocks][R], R = n_w + ti) added in block order, one thread
 // a value; aw gets the first n_w, at_out the a_t (0 without a time column).
-// With `stats`, block 0's thread 0 also writes nfe, steps, 0, 0 there.
 template <typename T>
 __global__ void quadrature_reduce_kernel(const T* __restrict__ partial,
                                          int n_blocks, int n_w, int ti,
                                          T* __restrict__ aw,
-                                         T* __restrict__ at_out,
-                                         int* __restrict__ stats, int nfe,
-                                         int steps) {
+                                         T* __restrict__ at_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int R = n_w + ti;
-  if (r == 0) {
-    if (stats) {
-      stats[0] = nfe;
-      stats[1] = steps;
-      stats[2] = 0;
-      stats[3] = 0;
-    }
-    if (!ti) at_out[0] = T(0);
-  }
+  if (r == 0 && !ti) at_out[0] = T(0);
   if (r >= R) return;
   T total = partial[r];
   for (int k = 1; k < n_blocks; ++k) total = total + partial[long(k) * R + r];

@@ -32,8 +32,8 @@
 //
 // PlanAugRhs walks a sample at a time in its thread (K3, over the grid that
 // cuts the batch into ranges, csrc/rk_adjoint.cuh); PlanLaneAug the same in
-// K9, each quadrature's weighted term into the sample's STEP rows, and in
-// K6 in every member of the sample's group of threads (group_stage);
+// K6 and K9 in every member of the sample's group of threads
+// (group_stage);
 // PlanBatchAugRhs (K3 only, one block) walks a stage batch-wide, segment
 // by segment, every thread for the samples it owns, the block meeting at
 // each coupling and at each coupling's transpose (csrc/plan_rhs.cuh
@@ -113,32 +113,9 @@ template <typename T, class P>
 struct PlanLaneAug : PlanAugRhs<T, P> {
   using Shared = typename PlanAugBase<T, P>::Shared;
   using Local = typename PlanAugRhs<T, P>::Local;
-  // K6's and K9's stage of sample b: ky, kay rows of B; with `add`, every
-  // quadrature's weighted term hb (sf x) joins its STEP row (set when
-  // `first`), the shared ones (v_t last) and then the per-sample ones.
-  __device__ void lane_stage(const Shared&, Local& lo, T t, int b, int B,
-                             T sf, T* ky, T* kay, T* STEP, T hb, bool add,
-                             bool first, T* rw) const {
-    auto at = [B, b](int row) -> long { return long(row) * B + b; };
-    P::template seg<T>(0, t, lo.ya, lo.aya,
-                       plan_consts(this->cg, this->in_smem), this->scg, b, B,
-                       nullptr, nullptr, rw, lo.f, lo.vy);
-    for (int d = 0; d < P::kDim; ++d) {
-      ky[at(d)] = (-sf) * lo.f[d];
-      kay[at(d)] = sf * lo.vy[d];
-    }
-    if (!add) return;
-    constexpr int R = P::kNQuad + P::kTimeInput;
-    for (int r = 0; r < R + P::kNSample; ++r) {
-      const T x = r < R ? P::template quad_x<T>(r, rw, B, b)
-                        : P::template sample_x<T>(r - R, rw, B, b);
-      const T term = hb * (sf * x);
-      STEP[at(r)] = first ? term : STEP[at(r)] + term;
-    }
-  }
-
-  // K6's stage of sample b with a group of threads
-  // (csrc/rk_adjoint.cuh rk_perlane_adjoint_kernel). The walk's rows sit in
+  // K6's and K9's stage of sample b with a group of threads
+  // (csrc/rk_adjoint.cuh rk_perlane_adjoint_kernel,
+  // rk_fixed_adjoint_kernel). The walk's rows sit in
   // the sample's slot gs, one value a row (the qr rows, then the sample's
   // per-sample constants, copied there once by group_init), so the walk
   // runs with a row stride of 1 (B = 1, b = 0) in shared memory where the
@@ -350,7 +327,7 @@ int launch_plan_perlane_adjoint(
 template <typename T, class P>
 int launch_plan_fixed_adjoint(const void* tau, const void* ys, const void* g,
                               void* ay0, void* aw, void* at, void* aps,
-                              void* stats, void* partial, void* work,
+                              void* stats, void* work, long work_size,
                               int T_obs, int B, int D, int threads,
                               int n_sub, double sign, int stages,
                               const double* c, const double* a,
@@ -364,8 +341,8 @@ int launch_plan_fixed_adjoint(const void* tau, const void* ys, const void* g,
     for (int i = 0; i < stages && i < kMaxStages; ++i)
       any = any || b_sol[i] != 0.0;
     if (stages < 1 || stages > kMaxStages || T_obs < 1 || B < 1 ||
-        n_sub < 1 || D != P::kDim || P::kOutRows != D || threads < 32 ||
-        threads > 1024 || (threads & (threads - 1)) || !any)
+        n_sub < 1 || D != P::kDim || P::kOutRows != D ||
+        threads != kLaneGroup * kLaneGroups || !any)
       return static_cast<int>(cudaErrorInvalidValue);
     // Fixed tableaus have no error weights: b_sol stands in for b_err.
     const Tableau<T> tab =
@@ -376,13 +353,12 @@ int launch_plan_fixed_adjoint(const void* tau, const void* ys, const void* g,
     sc.B = B;
     sc.D = D;
     sc.n_sub = n_sub;
-    const size_t smem =
-        sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + threads);
+    const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
     return static_cast<int>(launch_rk_fixed_adjoint<T>(
-        tau, ys, g, ay0, aw, at, aps, stats, partial, work,
+        tau, ys, g, ay0, aw, at, aps, stats, work, work_size,
         make_plan_lane_aug<T, P>(consts, n_consts, sample_consts,
                                  smem_consts),
-        smem, threads, tab, sc, static_cast<cudaStream_t>(stream)));
+        fixed, tab, sc, static_cast<cudaStream_t>(stream)));
   }
 }
 
@@ -428,13 +404,13 @@ int launch_plan_fixed_adjoint(const void* tau, const void* ys, const void* g,
 #define TFD_PLAN_FIXED_ADJOINT_ENTRY(NAME, TYPE)                             \
   extern "C" int NAME(                                                       \
       const void* tau, const void* ys, const void* g, void* ay0, void* aw,  \
-      void* at, void* aps, void* stats, void* partial, void* work,          \
+      void* at, void* aps, void* stats, void* work, long work_size,         \
       int T_obs, int B, int D, int threads, int n_sub, double sign,         \
       int stages, const double* c, const double* a, const double* b_sol,    \
       const void* consts, int n_consts, const void* sample_consts,          \
       int smem_consts, void* stream) {                                       \
     return tfd::launch_plan_fixed_adjoint<TYPE, tfd::PlanAug>(              \
-        tau, ys, g, ay0, aw, at, aps, stats, partial, work, T_obs, B, D,    \
+        tau, ys, g, ay0, aw, at, aps, stats, work, work_size, T_obs, B, D,  \
         threads, n_sub, sign, stages, c, a, b_sol, consts, n_consts,        \
         sample_consts, smem_consts, stream);                                 \
   }

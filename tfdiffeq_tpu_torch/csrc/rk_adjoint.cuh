@@ -48,13 +48,8 @@
 //                           sample b (sum: lane_sum_small or lane_sum_warp
 //                           over the block's samples),
 //   sample_x(sh, j, rw, B, b)     per-sample quadrature j's term;
-// for K9 one sample a thread:
-//   lane_stage(sh, lo, t, b, B, sf, ky, kay, STEP, hb, add, first, rw)
-//                           ky, kay as rows of B; with `add`, every
-//                           quadrature's weighted term hb (sf x) into STEP's
-//                           rows (set when `first`, else added), the shared
-//                           ones first;
-// for K6 a group of kLaneGroup threads a sample (csrc/lane_group.h):
+// for K6 and K9 a group of kLaneGroup threads a sample
+// (csrc/lane_group.h):
 //   walk_values()           values of a sample's walk scratch gs (host
 //                           too);
 //   group_init(sh, gs, b, B, m, gsz)  sample b's own values into gs, once
@@ -698,42 +693,6 @@ AdjScalars<T> make_adj_scalars(double dt0, double rtol, double atol,
   return sc;
 }
 
-// ---------------------------------------------------------------------------
-// K9: one thread a sample, over as many blocks as the batch needs, with no
-// barrier until the end. The per-sample state lives in the device
-// workspace, feature-major ([row][B]: a warp touches 32 consecutive
-// values): y, a_y, their compensations and stage derivatives, the step's
-// quadrature terms STEP and their running sums ACC (the shared ones, then
-// the per-sample ones), then the right-hand side's rows. The shared
-// quadratures' batch sums come once, at the end, in one fixed order with
-// no atomics: a shared-memory tree within each block (block_sum), then a
-// second, small launch that adds the block sums in block order
-// (quadrature_reduce_kernel); the per-sample ones are written out as they
-// are. ops/cuda_fixed.py:fixed_adjoint_plain repeats that order.
-// ---------------------------------------------------------------------------
-
-// Workspace values of K9's engine before the right-hand side's rows: y,
-// a_y, their compensations, the stages of both and the STEP and ACC rows
-// of every quadrature.
-inline long lane_adjoint_work_size(int S, int B, int D, int n_q) {
-  return ((4 + 2 * long(S)) * D + 2 * long(n_q)) * B;
-}
-
-// The block's sums of the shared quadratures (partial [blocks][R]) and the
-// per-sample ones written out; every thread of the block calls it.
-template <typename T>
-__device__ void lane_adjoint_finish(const T* ACC, int R, int n_ps, int B,
-                                    int b, bool mine, T* red, T* partial,
-                                    T* aps_out) {
-  auto at = [B, b](int row) -> long { return long(row) * B + b; };
-  for (int r = 0; r < R; ++r) {
-    const T total = block_sum(mine ? ACC[at(r)] : T(0), red);
-    if (threadIdx.x == 0) partial[long(blockIdx.x) * R + r] = total;
-  }
-  if (mine)
-    for (int j = 0; j < n_ps; ++j) aps_out[at(j)] = ACC[at(R + j)];
-}
-
 template <typename T>
 struct PerlaneAdjScalars {
   T rtol, atol, dt_min, sign, safety, ifactor, dfactor;
@@ -1026,7 +985,7 @@ __global__ void __launch_bounds__(kLaneGroup * kLaneGroups, 1)
   }
 }
 
-// Shared memory a K6 block's right-hand side and slots may take.
+// Shared memory a K6 or K9 block's right-hand side and slots may take.
 constexpr long kLaneSmemBytes = 220L * 1024;
 
 // K6's launch: the sweep, then the block sums in block order. `fixed` is
@@ -1068,7 +1027,7 @@ cudaError_t launch_rk_perlane_adjoint(
   const int R = aug.n_w + aug.ti;
   quadrature_reduce_kernel<T><<<(R + 127) / 128 + (R == 0), 128, 0, st>>>(
       static_cast<const T*>(partial), blocks, aug.n_w, aug.ti,
-      static_cast<T*>(aw), static_cast<T*>(at), nullptr, 0, 0);
+      static_cast<T*>(aw), static_cast<T*>(at));
   return cudaGetLastError();
 }
 
@@ -1076,6 +1035,9 @@ template <typename T>
 struct FixedAdjScalars {
   T sign;
   int T_obs, B, D, n_sub;
+  int slot_values;  // a sample's slot (lane_group_slot_values)
+  int slot_smem;    // the block's slots in shared memory (else `work`)
+  int quad_regs;    // the quadratures in registers (lane_group_quad_regs)
 };
 
 // K9: n_sub equal steps per observation interval
@@ -1085,110 +1047,260 @@ struct FixedAdjScalars {
 // over the stages in order (the stage combine of the reference), then
 // added to its running sum. stats: nfe = stages n_sub (T - 1), steps =
 // n_sub (T - 1), 0, 0.
+//
+// Design: K6's layout without its controller. A group of kLaneGroup = 16
+// threads (a tile of one warp) owns a sample for the whole sweep, a block
+// of 512 threads the 32 consecutive samples [32 k, 32 k + 32): 128 blocks
+// of 16 warps at B = 4096. The group splits the sample's work: the stage
+// states and the Kahan updates a feature a member (d = m, m + 16, ...),
+// the right-hand side's walk as the Aug says (group_stage), and the
+// quadratures a member each (r = m, m + 16, ...): each member's STEP terms
+// in registers when a sample has at most 16 x 16 of them (else in
+// workspace rows, sample-major), their running sums ACC in the sample's
+// slot, added to once a step. The slot (y, a_y, their compensations and
+// stages, the stage state, ACC and the walk's values) sits in the block's
+// shared memory when the block's 32 slots fit there, else in the
+// workspace. The groups never wait for one another: every sync is the
+// group's (__syncwarp with its lanes' mask), and a group past B leaves at
+// once. At the end each sample writes its shared quadratures' running sums
+// to the workspace ([R][B]) and its per-sample ones out; a second, small
+// launch (fixed_tree_reduce_kernel) sums the shared ones over the batch.
 template <typename T, class Aug>
-__global__ void rk_fixed_adjoint_kernel(
-    const T* __restrict__ tau, const T* __restrict__ ys,
-    const T* __restrict__ g, T* __restrict__ ay0_out,
-    T* __restrict__ aps_out, T* __restrict__ partial, T* __restrict__ work,
-    Aug aug, Tableau<T> tab_in, FixedAdjScalars<T> sc) {
+__global__ void __launch_bounds__(kLaneGroup * kLaneGroups, 1)
+    rk_fixed_adjoint_kernel(const T* __restrict__ tau,
+                            const T* __restrict__ ys,
+                            const T* __restrict__ g, T* __restrict__ ay0_out,
+                            T* __restrict__ aps_out, T* __restrict__ work,
+                            Aug aug, Tableau<T> tab_in,
+                            FixedAdjScalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ typename Aug::Shared ash;
   __shared__ Tableau<T> tab;
   const int tid = threadIdx.x;
   typename Aug::Local lo;
-  T* const red = aug.setup(ash, lo, smem_raw);   // [blockDim.x]
+  T* const rest = aug.setup(ash, lo, smem_raw);
   if (tid == 0) tab = tab_in;
   __syncthreads();
 
+  constexpr int gsz = kLaneGroup;
+  const unsigned mask = 0xFFFFu << (tid & 16);   // the group's lanes
+  const int slot = tid / gsz, m = tid % gsz;
   const int T_obs = sc.T_obs, B = sc.B, D = sc.D, n_sub = sc.n_sub;
+  const int b = blockIdx.x * kLaneGroups + slot;
+  if (b >= B) return;
   const int S = tab.S;
   const int R = aug.n_w + aug.ti;         // shared quadratures a sample
   const int n_q = R + aug.n_ps;           // every quadrature a sample
   const long BD = long(B) * D;
-  T* Y = work;                      // [D] y
-  T* AY = Y + BD;                   // [D] a_y
-  T* CY = AY + BD;                  // [D] Kahan compensation of y
-  T* CAY = CY + BD;                 // [D] ... and of a_y
-  T* KY = CAY + BD;                 // [S][D] stage derivatives of y
-  T* KAY = KY + S * BD;             // [S][D] ... and of a_y
-  T* STEP = KAY + S * BD;           // [n_q] this step's quadrature
-  T* ACC = STEP + long(n_q) * B;    // [n_q] the running quadrature
-  T* RW = ACC + long(n_q) * B;      // the right-hand side's rows
-
-  const int b = blockIdx.x * blockDim.x + tid;
-  const bool mine = b < B;          // idle threads still meet at the end
-  auto at = [B, b](int row) -> long { return long(row) * B + b; };
+  const long SV = sc.slot_values;
+  // The sample's slot: in the block's shared memory or in the workspace.
+  T* const SL = sc.slot_smem ? rest + slot * SV : work + long(b) * SV;
+  T* const Y = SL;                  // [D] y
+  T* const AY = Y + D;              // [D] a_y
+  T* const CY = AY + D;             // [D] Kahan compensation of y
+  T* const CAY = CY + D;            // [D] ... and of a_y
+  T* const KY = CAY + D;            // [S][D] stage derivatives of y
+  T* const KAY = KY + S * D;        // [S][D] ... and of a_y
+  T* const YA = KAY + S * D;        // [D] the stage state of y
+  T* const AYA = YA + D;            // [D] ... and of a_y
+  // (K6's error terms, 2 D values, unused here.)
+  T* const ACC = AYA + 3 * D;       // [n_q] the running quadratures
+  T* const GS = ACC + n_q;          // the walk's values
+  // [B][n_q] the step's quadratures where they do not fit in registers,
+  // then [R][B] the running sums for the end-of-sweep trees.
+  T* const STEP = work + long(B) * SV + long(b) * n_q;
+  T* const X = work + long(B) * (SV + n_q);
+  const bool regs = sc.quad_regs != 0;
+  T stepr[kLaneQuadRegs];
   const T sf = sc.sign;
   int first_b = 0;                  // first stage with a nonzero weight
   while (tab.b_sol[first_b] == T(0)) ++first_b;
 
-  if (mine) {
-    for (int d = 0; d < D; ++d) AY[at(d)] = T(0);
-    for (int r = 0; r < n_q; ++r) ACC[at(r)] = T(0);
-  }
-  for (int i = T_obs - 1; mine && i >= 1; --i) {
+  for (int d = m; d < D; d += gsz) AY[d] = T(0);
+  for (int r = m; r < n_q; r += gsz) ACC[r] = T(0);
+  aug.group_init(ash, GS, b, B, m, gsz);
+  __syncwarp(mask);
+  for (int i = T_obs - 1; i >= 1; --i) {
     // Reset y to the stored forward state; inject the cotangent.
-    for (int d = 0; d < D; ++d) {
+    for (int d = m; d < D; d += gsz) {
       const long k = long(i) * BD + long(b) * D + d;
-      Y[at(d)] = ys[k];
-      AY[at(d)] = AY[at(d)] + g[k];
-      CY[at(d)] = T(0);
-      CAY[at(d)] = T(0);
+      Y[d] = ys[k];
+      AY[d] = AY[d] + g[k];
+      CY[d] = T(0);
+      CAY[d] = T(0);
     }
     const T s_start = -tau[i];
     const T h = (-tau[i - 1] - s_start) / T(n_sub);
     for (int j = 0; j < n_sub; ++j) {
       const T s = s_start + h * T(j);
       for (int st = 0; st < S; ++st) {
-        aug_stage_state(tab, st, h, Y, AY, KY, KAY, aug.ya(lo), aug.aya(lo),
-                        D, B, b);
-        // The right-hand side; this stage's weighted quadrature terms,
-        // (h b_st) (sign x), join the step's sums in stage order.
-        aug.lane_stage(ash, lo, (-sf) * (s + tab.c[st] * h), b, B, sf,
-                       KY + long(st) * BD, KAY + long(st) * BD, STEP,
-                       h * tab.b_sol[st], tab.b_sol[st] != T(0),
-                       st == first_b, RW);
+        // Stage st's state ya = y + sum_q (h a_stq) ky_q, aya likewise.
+        for (int d = m; d < D; d += gsz) {
+          T yv = Y[d], av = AY[d];
+          for (int q = 0; q < st; ++q) {
+            const T a = tab.a[st][q];
+            if (a != T(0)) {
+              yv = yv + (h * a) * KY[q * D + d];
+              av = av + (h * a) * KAY[q * D + d];
+            }
+          }
+          YA[d] = yv;
+          AYA[d] = av;
+        }
+        __syncwarp(mask);
+        aug.group_stage(ash, lo, (-sf) * (s + tab.c[st] * h), b, B, sf, YA,
+                        AYA, KY + st * D, KAY + st * D, GS, m, gsz, mask);
+        // This stage's weighted quadrature terms, (h b_st) (sign x), join
+        // the step's sums in stage order, set at the first weighted stage.
+        if (tab.b_sol[st] != T(0)) {
+          const T hb = h * tab.b_sol[st];
+          const bool first = st == first_b;
+          if (regs) {
+#pragma unroll
+            for (int q = 0; q < kLaneQuadRegs; ++q) {
+              const int r = m + q * gsz;
+              if (r < n_q) {
+                const T term = hb * (sf * aug.group_x(ash, r, GS));
+                stepr[q] = first ? term : stepr[q] + term;
+              }
+            }
+          } else {
+            for (int r = m; r < n_q; r += gsz) {
+              const T term = hb * (sf * aug.group_x(ash, r, GS));
+              STEP[r] = first ? term : STEP[r] + term;
+            }
+          }
+        }
+        __syncwarp(mask);   // the next walk overwrites what these read
       }
-      aug_kahan_update(tab, h, Y, AY, CY, CAY, KY, KAY, D, B, b);
-      for (int r = 0; r < n_q; ++r) ACC[at(r)] = ACC[at(r)] + STEP[at(r)];
+      // The Kahan-compensated update of (y, a_y), and the step's
+      // quadratures into the running sums.
+      for (int pass = 0; pass < 2; ++pass) {
+        T* V = pass ? AY : Y;
+        T* CV = pass ? CAY : CY;
+        const T* KV = pass ? KAY : KY;
+        for (int d = m; d < D; d += gsz) {
+          T dv = T(0);
+          bool first = true;
+          for (int q = 0; q < S; ++q) {
+            if (tab.b_sol[q] != T(0)) {
+              const T term = (h * tab.b_sol[q]) * KV[q * D + d];
+              dv = first ? term : dv + term;
+              first = false;
+            }
+          }
+          const T v0 = V[d];
+          const T adj = dv - CV[d];
+          const T v1 = v0 + adj;
+          CV[d] = (v1 - v0) - adj;
+          V[d] = v1;
+        }
+      }
+      if (regs) {
+#pragma unroll
+        for (int q = 0; q < kLaneQuadRegs; ++q) {
+          const int r = m + q * gsz;
+          if (r < n_q) ACC[r] = ACC[r] + stepr[q];
+        }
+      } else {
+        for (int r = m; r < n_q; r += gsz) ACC[r] = ACC[r] + STEP[r];
+      }
     }
   }
-  if (mine) {
-    for (int d = 0; d < D; ++d) {
-      const long k = long(b) * D + d;
-      ay0_out[k] = AY[at(d)] + g[k];
-    }
+  for (int d = m; d < D; d += gsz) {
+    const long k = long(b) * D + d;
+    ay0_out[k] = AY[d] + g[k];
   }
-  lane_adjoint_finish(ACC, R, aug.n_ps, B, b, mine, red, partial, aps_out);
+  for (int r = m; r < R; r += gsz) X[long(r) * B + b] = ACC[r];
+  for (int r = R + m; r < n_q; r += gsz)
+    aps_out[long(r - R) * B + b] = ACC[r];
 }
 
-// K9's launch: the sweep, then the block sums in block order.
+// K9's batch sums of the shared quadratures, a warp a quadrature r: over
+// each kFixedTree samples, block_sum's tree (lane j adds samples 64 k + j
+// and 64 k + 32 + j, then warp_tree_sum's shuffles by 16, 8, 4, 2, 1;
+// samples past B add +0), the trees then added in order
+// (ops/cuda_fixed.py _block_sums(acc, 64)). X: [R][B]; aw gets the first
+// n_w, at_out the a_t (0 without a time column); block 0's thread 0 writes
+// stats nfe, steps, 0, 0.
+template <typename T>
+__global__ void fixed_tree_reduce_kernel(const T* __restrict__ X, int B,
+                                         int n_w, int ti,
+                                         T* __restrict__ aw,
+                                         T* __restrict__ at_out,
+                                         int* __restrict__ stats, int nfe,
+                                         int steps) {
+  const int lane = threadIdx.x % kWarp;
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    stats[0] = nfe;
+    stats[1] = steps;
+    stats[2] = 0;
+    stats[3] = 0;
+    if (!ti) at_out[0] = T(0);
+  }
+  if (r >= n_w + ti) return;
+  const T* const x = X + long(r) * B;
+  T total = T(0);
+  for (int k = 0; k * kFixedTree < B; ++k) {
+    const int b0 = k * kFixedTree + lane, b1 = b0 + kWarp;
+    const T v = warp_tree_sum((b0 < B ? x[b0] : T(0)) +
+                              (b1 < B ? x[b1] : T(0)));
+    total = k == 0 ? v : total + v;
+  }
+  if (lane == 0) {
+    if (r < n_w)
+      aw[r] = total;
+    else
+      at_out[0] = total;
+  }
+}
+
+// K9's launch: the sweep, then the trees. `fixed` is the bytes the
+// right-hand side keeps in shared memory (its setup); the launch adds the
+// block's 32 slots where they fit beside it.
 template <typename T, class Aug>
 cudaError_t launch_rk_fixed_adjoint(const void* tau, const void* ys,
                                     const void* g, void* ay0, void* aw,
                                     void* at, void* aps, void* stats,
-                                    void* partial, void* work,
-                                    const Aug& aug, size_t smem, int threads,
+                                    void* work, long work_size,
+                                    const Aug& aug, size_t fixed,
                                     const Tableau<T>& tab,
-                                    const FixedAdjScalars<T>& sc,
+                                    const FixedAdjScalars<T>& sc_in,
                                     cudaStream_t st) {
+  const int R = aug.n_w + aug.ti;
+  const int n_q = R + aug.n_ps;
+  const long walk = aug.walk_values();
+  if (work_size <
+      fixed_group_work_size(tab.S, sc_in.B, sc_in.D, n_q, walk, R))
+    return cudaErrorInvalidValue;
+  FixedAdjScalars<T> sc = sc_in;
+  sc.slot_values = int(lane_group_slot_values(tab.S, sc.D, n_q, walk));
+  sc.quad_regs = lane_group_quad_regs(n_q);
+  const size_t slots = sizeof(T) * size_t(kLaneGroups) * sc.slot_values;
+  sc.slot_smem = fixed + slots <= size_t(kLaneSmemBytes);
+  const size_t smem = fixed + (sc.slot_smem ? slots : 0);
   auto kernel = rk_fixed_adjoint_kernel<T, Aug>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
-  const int blocks = (sc.B + threads - 1) / threads;
-  kernel<<<blocks, threads, smem, st>>>(
+  const int blocks = (sc.B + kLaneGroups - 1) / kLaneGroups;
+  kernel<<<blocks, kLaneGroup * kLaneGroups, smem, st>>>(
       static_cast<const T*>(tau), static_cast<const T*>(ys),
       static_cast<const T*>(g), static_cast<T*>(ay0), static_cast<T*>(aps),
-      static_cast<T*>(partial), static_cast<T*>(work), aug, tab, sc);
+      static_cast<T*>(work), aug, tab, sc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int R = aug.n_w + aug.ti;
+  const long SV = sc.slot_values;
+  const T* X = static_cast<const T*>(work) + long(sc.B) * (SV + n_q);
   const int steps = sc.n_sub * (sc.T_obs - 1);
-  quadrature_reduce_kernel<T><<<(R + 127) / 128 + (R == 0), 128, 0, st>>>(
-      static_cast<const T*>(partial), blocks, aug.n_w, aug.ti,
-      static_cast<T*>(aw), static_cast<T*>(at), static_cast<int*>(stats),
-      tab.S * steps, steps);
+  constexpr int kReduceWarps = 8;
+  fixed_tree_reduce_kernel<T>
+      <<<(R + kReduceWarps - 1) / kReduceWarps + (R == 0),
+         kReduceWarps * kWarp, 0, st>>>(
+          X, sc.B, aug.n_w, aug.ti, static_cast<T*>(aw),
+          static_cast<T*>(at), static_cast<int*>(stats), tab.S * steps,
+          steps);
   return cudaGetLastError();
 }
 

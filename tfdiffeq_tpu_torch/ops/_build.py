@@ -45,7 +45,8 @@ SOURCES = ("step_kernel.cu", "solve_kernel.cu", "adjoint_kernel.cu",
            "conv_solve_kernel.cu", "perlane_solve_kernel.cu",
            "perlane_adjoint_kernel.cu", "tier_net_kernel.cu",
            "adams_kernel.cu", "vcabm_kernel.cu")
-HEADERS = ("grid_meet.cuh", "lane_group.h", "mlp_rk.cuh", "dot_tiers.cuh",
+HEADERS = ("grid_meet.cuh", "lane_group.h", "mlp_rk.cuh", "mlp_group_aug.cuh",
+           "dot_tiers.cuh",
            "cnf_net.cuh", "rk_solve.cuh", "rk_fixed.cuh", "rk_perlane.cuh",
            "rk_adjoint.cuh", "rk_adams.cuh", "rk_vcabm.cuh")
 #: The headers a plan library compiles against.
@@ -99,7 +100,7 @@ _SOLVE_FIXED_ARGS = ([_P] * 8                               # tensors
                      + [_I, _P, _P, _P]                     # tableau
                      + [_I, _P, _P, _L]                     # route, tiers
                      + [_P])                                # stream
-_ADJOINT_FIXED_ARGS = ([_P] * 10                            # tensors
+_ADJOINT_FIXED_ARGS = ([_P] * 9                             # tensors
                        + [_L]                               # work size
                        + [_I] * 5                           # T .. n_sub
                        + [_D]                               # sign
@@ -107,8 +108,9 @@ _ADJOINT_FIXED_ARGS = ([_P] * 10                            # tensors
                        + [_I, _P, _P, _P]                   # tableau
                        + [_I]                               # route
                        + [_P])                              # stream
-_CONV_SOLVE_ARGS = ([_P] * 8                                # tensors
-                    + [_I] * 9                              # T .. w_smem
+_CONV_SOLVE_ARGS = ([_P] * 9                                # tensors
+                    + [_L, _P]                              # grid, table
+                    + [_I] * 12                             # n_cta .. z_smem
                     + [_D] * 8 + [_I, _I]                   # scalars
                     + [_I, _I, _I, _P, _P, _P, _P, _P]      # tableau
                     + [_P])                                 # stream
@@ -181,7 +183,8 @@ _PLAN_ARGS = {
                         + [_I] * 4 + [_D] * 7 + [_I]
                         + [_I, _I, _P, _P, _P, _P]          # tableau
                         + _PLAN_CONSTS + [_P]),
-    "fixed_adjoint": ([_P] * 10 + [_I] * 5 + [_D]          # tau .. sign
+    "fixed_adjoint": ([_P] * 9 + [_L]                      # .. work size
+                      + [_I] * 5 + [_D]                     # T .. sign
                       + [_I, _P, _P, _P]                    # tableau
                       + _PLAN_CONSTS + [_P]),
 }

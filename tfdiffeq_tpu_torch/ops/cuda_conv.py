@@ -11,17 +11,24 @@ drain, for every controller block of the batch, in one launch.
 
 The batch is cut into controller blocks of `block_size` samples (the last
 block holds what is left, unpadded); each block has its own step
-controller and initial step, and its own thread block on the card. The
-state is NCHW [B, C, H, W]; the output [T, B, C, H, W].
+controller and initial step. On the card each controller block runs on
+several CTAs of one cooperative grid (`conv_grid`: at most one 512-thread
+CTA per SM, the controller blocks' CTAs in proportion to their samples,
+each CTA whole samples of one controller block), whose CTAs meet once an
+attempt for the block's error sum. The state is NCHW [B, C, H, W]; the
+output [T, B, C, H, W].
 
 `conv_solve_plain` repeats the kernel's arithmetic in the kernel's order:
-each conv output sums its taps in `OFFSETS` order, each tap's C-deep
-contraction input channel by input channel; each GroupNorm sums a
-channel's positions in order, then the group's channels in order; the
-error sum runs over the block's flat [b, C, H * W] elements, thread i of
-CONV_THREADS owning elements i, i + CONV_THREADS, ..., then the fixed tree.
-On a CPU tensor `conv_solve` runs it; a CUDA tensor launches the kernel or
-raises, never falls back. `conv_solve_launches` counts kernel launches.
+each conv output sums its nine taps in `OFFSETS` order (an outside tap
+multiplies the zero padding), each tap's C-deep contraction input channel
+by input channel; each GroupNorm sums a channel's positions in order, then
+the group's channels in order; the error sum runs over each CTA's flat
+[b, C, H * W] elements, thread i of CONV_THREADS owning elements i, i +
+CONV_THREADS, ..., then the fixed tree, and the CTAs' shares add in CTA
+order. On a CPU tensor `conv_solve` runs it; a CUDA tensor launches the
+kernel or raises, never falls back. `conv_solve_launches` counts the
+wrapper calls that launched the kernel (a batch of more controller blocks
+than the card has SMs takes one launch for each SMs' worth).
 """
 
 from __future__ import annotations
@@ -35,15 +42,15 @@ import torch.nn.functional as F
 from . import _build
 from .conv_ode import OFFSETS, ConvODESpec, as_tensors, t_channel_map, \
     tap_weights
-from .cuda_kernels import (MAX_WEIGHT_BYTES, _check_float, _device_kind,
-                           _ptr, _solve_setup, _stream, _tableau_args,
-                           adaptive_solve_plain)
+from .cuda_kernels import (MAX_WEIGHT_BYTES, _check_blocks, _check_float,
+                           _device_kind, _ptr, _solve_setup, _stream,
+                           _tableau_args, adaptive_solve_plain)
 from .tableaus import TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
 
-#: Threads of each thread block (csrc/conv_solve_kernel.cu kConvThreads);
-#: a power of two for the fixed-order error sum.
+#: Threads of each CTA (csrc/conv_solve_kernel.cu kConvThreads); a power of
+#: two for the fixed-order error sum.
 CONV_THREADS = 512
 
 conv_solve_launches = 0
@@ -144,6 +151,67 @@ def conv_rhs_plain(wpack: Tensor, spec: ConvODESpec):
     return f
 
 
+def conv_grid(B: int, block_size: int, max_ctas: int) -> list:
+    """K13's grid: the controller blocks of `block_size` samples (the last
+    one ragged) spread over CTAs, at most `max_ctas` (the card's SMs) a
+    launch. Returns the launches, each a list of its controller blocks as
+    (first sample, samples, CTAs); a launch takes at most `max_ctas`
+    controller blocks, in order. A controller block of n samples in a
+    launch of N samples gets max(1, min(n, n max_ctas // N)) CTAs: in
+    proportion to its samples, at least one and at most one a sample, at
+    most `max_ctas` in all. Its CTA k owns the samples [k n // c, (k + 1) n
+    // c) of its c CTAs."""
+    if B < 1 or block_size < 1 or max_ctas < 1:
+        raise ValueError(f"conv_grid takes positive B, block_size and "
+                         f"max_ctas, got {B}, {block_size}, {max_ctas}")
+    sizes = [min(block_size, B - b) for b in range(0, B, block_size)]
+    launches = []
+    for k0 in range(0, len(sizes), max_ctas):
+        chunk = sizes[k0:k0 + max_ctas]
+        N = sum(chunk)
+        first = k0 * block_size
+        blocks = []
+        for n in chunk:
+            blocks.append((first, n, max(1, min(n, n * max_ctas // N))))
+            first += n
+        launches.append(blocks)
+    return launches
+
+
+def conv_ctas(B: int, block_size: int, device, max_ctas: int = None) -> list:
+    """Each controller block's CTA count on `device`: `conv_grid` with
+    max_ctas (None: the card's SMs on a CUDA device, and on the CPU the
+    plain version's default, one CTA a controller block)."""
+    _check_blocks(max_ctas)
+    if max_ctas is None:
+        dev = torch.device(device)
+        max_ctas = (torch.cuda.get_device_properties(dev).multi_processor_count
+                    if dev.type == "cuda" else -(-B // block_size))
+    return [c for launch in conv_grid(B, block_size, max_ctas)
+            for _, _, c in launch]
+
+
+def _conv_table(launch: list, block0: int) -> list:
+    """The launch's grid table (csrc/conv_solve_kernel.cu kConvCtaInts a
+    CTA): controller block, its first sample and samples, the CTA's rank,
+    the block's CTAs, its first CTA and its meeting counter."""
+    rows, cta = [], 0
+    for k, (first, n, c) in enumerate(launch):
+        rows += [[block0 + k, first, n, r, c, cta, k] for r in range(c)]
+        cta += c
+    return rows
+
+
+def _conv_smem(esz: int, C: int, G: int, H: int, W: int, w_smem: bool,
+               z_smem: bool, n_max: int) -> int:
+    """csrc/conv_solve_kernel.cu conv_smem_bytes: each region rounded up to
+    16 bytes."""
+    al = lambda n: -(-n * esz // 16) * 16
+    return (al(CONV_THREADS) + al(2 * C) + al(2 * G)
+            + al(C * (H + 2) * (W + 2)) + (al(9 * C * C) if w_smem else 0)
+            + (n_max * C * H * W * esz if z_smem else 0))
+
+
 def _check_spec(spec: ConvODESpec, y0: Tensor) -> None:
     if y0.ndim != 4 or tuple(y0.shape[1:]) != (spec.channels, spec.height,
                                               spec.width):
@@ -158,11 +226,15 @@ def conv_solve_plain(wpack: Tensor, spec: ConvODESpec, y0: Tensor,
                      tau: Tensor, dt0: Tensor, rtol, atol, sign, *,
                      f0: Tensor, block_size: int, method: str = "dopri5",
                      safety: float = 0.9, ifactor: float = 10.0,
-                     dfactor: float = 0.2, max_steps: int = 2 ** 31 - 1
-                     ) -> Tuple[Tensor, Tensor]:
+                     dfactor: float = 0.2, max_steps: int = 2 ** 31 - 1,
+                     max_ctas: int = None) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of K13, block after block: the whole-solve
     engine (`adaptive_solve_plain`) on each block's flat state with
-    `conv_rhs_plain`. Same contract as `conv_solve`."""
+    `conv_rhs_plain`, its error sum in the order of the block's CTAs
+    (`conv_ctas`; a sample's C H W elements a unit, so CTA k owns its
+    samples [k n // c, (k + 1) n // c)). Same contract as `conv_solve`;
+    max_ctas None takes the kernel's grid on a CUDA tensor and one CTA a
+    controller block on the CPU."""
     _check_spec(spec, y0)
     B = y0.shape[0]
     tab = TABLEAUS_BY_NAME[method]
@@ -176,6 +248,7 @@ def conv_solve_plain(wpack: Tensor, spec: ConvODESpec, y0: Tensor,
         x = y.view(-1, C, P)
         return (sign_d * rhs(sign_d * s, x)).view(-1, 1)
 
+    ctas = conv_ctas(B, block_size, y0.device, max_ctas)
     outs, stats = [], []
     for k, b0 in enumerate(range(0, B, block_size)):
         sl = slice(b0, min(B, b0 + block_size))
@@ -183,7 +256,7 @@ def conv_solve_plain(wpack: Tensor, spec: ConvODESpec, y0: Tensor,
             f, y0[sl].reshape(-1, 1), f0[sl].reshape(-1, 1), tau, dt0[k],
             rtol, atol, tab, safety=safety, ifactor=ifactor,
             dfactor=dfactor, max_steps=max_steps, threads=CONV_THREADS,
-            n_blocks=1)
+            n_blocks=ctas[k], unit=C * P)
         outs.append(out.view((tau.shape[0], -1) + tuple(y0.shape[1:])))
         stats.append(st)
     return torch.cat(outs, dim=1), torch.stack(stats)
@@ -193,7 +266,8 @@ def conv_solve(wpack: Tensor, spec: ConvODESpec, y0: Tensor, tau: Tensor,
                dt0: Tensor, rtol, atol, sign, *, f0: Tensor, block_size: int,
                method: str = "dopri5", safety: float = 0.9,
                ifactor: float = 10.0, dfactor: float = 0.2,
-               max_steps: int = 2 ** 31 - 1) -> Tuple[Tensor, Tensor]:
+               max_steps: int = 2 ** 31 - 1,
+               max_ctas: int = None) -> Tuple[Tensor, Tensor]:
     """Whole adaptive RK solve of the conv-ODE block, one launch.
 
     wpack: from `pack_conv_ode_weights`; y0, f0: [B, C, H, W] state and
@@ -207,6 +281,10 @@ def conv_solve(wpack: Tensor, spec: ConvODESpec, y0: Tensor, tau: Tensor,
     device: nfe, accepted, rejected, status of each block). Status: 0 OK,
     1 MAX_STEPS_REACHED, 2 DT_UNDERFLOW, 3 INVALID_TIMES (tau not strictly
     increasing; the output is then zero beyond row 0).
+
+    max_ctas: the CTAs a launch may take (`conv_grid`; None: the card's
+    SMs). A grid the card cannot hold at once raises; the launch never
+    takes fewer CTAs than asked.
     """
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
@@ -221,12 +299,14 @@ def conv_solve(wpack: Tensor, spec: ConvODESpec, y0: Tensor, tau: Tensor,
     if tuple(dt0.shape) != (n_blocks,):
         raise ValueError(f"dt0 must be [{n_blocks}] (one first step a "
                          f"block), got {tuple(dt0.shape)}")
+    _check_blocks(max_ctas)
     kind = _device_kind(y0, f0, wpack, dt0)
     if kind == "cpu":
         return conv_solve_plain(
             wpack, spec, y0, tau, dt0, rtol, atol, sign, f0=f0,
             block_size=block_size, method=method, safety=safety,
-            ifactor=ifactor, dfactor=dfactor, max_steps=max_steps)
+            ifactor=ifactor, dfactor=dfactor, max_steps=max_steps,
+            max_ctas=max_ctas)
 
     global conv_solve_launches
     dtype = y0.dtype
@@ -241,40 +321,60 @@ def conv_solve(wpack: Tensor, spec: ConvODESpec, y0: Tensor, tau: Tensor,
         _check_float(name, x, dtype)
     if f0.shape != y0.shape:
         raise ValueError("f0 must have the shape of y0")
+    dev = y0.device
+    if max_ctas is None:
+        max_ctas = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    launches = conv_grid(B, block_size, max_ctas)
+    n_max = max(-(-n // c) for launch in launches for _, n, c in launch)
     esz = y0.element_size()
-    # Shared memory: the reduction, each block's GroupNorm statistics and,
-    # when they fit, one conv's weights (float32 up to C = 64).
-    smem = esz * (CONV_THREADS + 2 * block_size * (C + G))
-    if smem > MAX_WEIGHT_BYTES:
-        raise ValueError(f"conv_solve: a block of {block_size} samples needs "
-                         f"{smem} bytes of shared memory, above "
+    H, W = spec.height, spec.width
+    # Shared memory: the reduction, the GroupNorm statistics and the padded
+    # conv input; then, where they fit, the applied conv's weights (float32
+    # up to C = 64) and the conv outputs of a CTA's samples.
+    base = _conv_smem(esz, C, G, H, W, False, False, n_max)
+    if base > MAX_WEIGHT_BYTES:
+        raise ValueError(f"conv_solve: a sample of {C} channels at {H}x{W} "
+                         f"needs {base} bytes of shared memory, above "
                          f"{MAX_WEIGHT_BYTES}")
-    w_smem = smem + esz * 9 * C * C <= MAX_WEIGHT_BYTES
+    w_smem = _conv_smem(esz, C, G, H, W, True, False, n_max) \
+        <= MAX_WEIGHT_BYTES
+    z_smem = _conv_smem(esz, C, G, H, W, w_smem, True, n_max) \
+        <= MAX_WEIGHT_BYTES
     tab = TABLEAUS_BY_NAME[method]
     S = tab.stages
     tau_h, dt_min, _, valid = _solve_setup(tau, 0.0, dtype)
-    # Every device argument of the launch stays referenced until it returns.
-    tau_d = tau_h.to(y0.device)
+    # Every device argument of a launch stays referenced until it returns.
+    tau_d = tau_h.to(dev)
     out = torch.empty((tau.shape[0],) + tuple(y0.shape), dtype=dtype,
-                      device=y0.device)
-    stats = torch.empty((n_blocks, 4), dtype=torch.int32, device=y0.device)
-    work = torch.empty(n_blocks * (S + 8) * block_size * C * P, dtype=dtype,
-                       device=y0.device)
+                      device=dev)
+    stats = torch.empty((n_blocks, 4), dtype=torch.int32, device=dev)
+    work = torch.empty((S + 7) * B * C * P, dtype=dtype, device=dev)
     c, a, b_sol, b_err = _tableau_args(tab)
     c_mid = (None if tab.c_mid is None
              else (ctypes.c_double * S)(*tab.c_mid))
     lib = _build.library()
     fn = (lib.tfd_conv_solve_f32 if dtype == torch.float32
           else lib.tfd_conv_solve_f64)
-    with torch.cuda.device(y0.device):
-        err = fn(_ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(wpack), _ptr(dt0),
-                 _ptr(out), _ptr(stats), _ptr(work), tau.shape[0], B,
-                 block_size, C, G, spec.height, spec.width, CONV_THREADS,
-                 int(w_smem), float(rtol), float(atol), float(dt_min),
-                 float(sign), float(spec.eps), float(safety), float(ifactor),
-                 float(dfactor), int(min(max_steps, 2 ** 31 - 1)),
-                 int(valid), S, tab.order, int(tab.fsal), c, a, b_sol,
-                 b_err, c_mid, _stream(y0.device))
-    _build.check(err, "conv_solve launch")
+    block0 = 0
+    for launch in launches:
+        table = torch.tensor(_conv_table(launch, block0), dtype=torch.int32,
+                             device=dev)
+        n_cta, n_meet = table.shape[0], len(launch)
+        gwork = torch.empty(16 * n_meet + 4 * n_cta * esz, dtype=torch.uint8,
+                            device=dev)
+        with torch.cuda.device(dev):
+            err = fn(_ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(wpack),
+                     _ptr(dt0), _ptr(out), _ptr(stats), _ptr(work),
+                     _ptr(gwork), gwork.numel(), _ptr(table), n_cta, n_meet,
+                     n_max, tau.shape[0], B, C, G, H, W, CONV_THREADS,
+                     int(w_smem), int(z_smem), float(rtol), float(atol),
+                     float(dt_min), float(sign), float(spec.eps),
+                     float(safety), float(ifactor), float(dfactor),
+                     int(min(max_steps, 2 ** 31 - 1)), int(valid), S,
+                     tab.order, int(tab.fsal), c, a, b_sol, b_err, c_mid,
+                     _stream(dev))
+        _build.check(err, "conv_solve launch")
+        block0 += n_meet
     conv_solve_launches += 1
     return out, stats

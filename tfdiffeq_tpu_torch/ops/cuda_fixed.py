@@ -12,12 +12,13 @@ and rk4_38 (sources in `tfdiffeq_tpu_torch/csrc/`, built by `_build.py`):
   adjoint backward sweep.
 
 A fixed grid needs no error norm and no controller, so no sample waits for
-another: both kernels give each sample its own thread, over as many blocks
-as the batch needs. The wrappers take the plain versions only for tensors
-on the CPU; a CUDA tensor launches the kernel or raises. The plain versions
-follow the kernels operation for operation on the batch-major [B, D]
-layout, so a float64 kernel run equals its plain version to roundoff and a
-float32 one usually to the bit.
+another: K8 gives each sample its own thread, over as many blocks as the
+batch needs, and K9 a group of 16 threads (K6's layout, csrc/lane_group.h),
+32 samples a block of FIXED_ADJOINT_THREADS. The wrappers take the plain
+versions only for tensors on the CPU; a CUDA tensor launches the kernel or
+raises. The plain versions follow the kernels operation for operation on
+the batch-major [B, D] layout, so a kernel run equals its plain version to
+the bit.
 
 `mlp_solve_fixed_launches` and `mlp_adjoint_solve_fixed_launches` count
 wrapper calls that launched their kernel; `reset_launch_counts()` zeroes
@@ -47,9 +48,14 @@ from .tableaus import FIXED_TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
 
-#: Threads per block of K8 and K9 (one sample a thread); K9's per-block
-#: quadrature sums take a tree over them, so a power of two.
+#: Threads per block of K8 (one sample a thread).
 FIXED_THREADS = 64
+#: K9's block: a group of 16 threads a sample, 32 samples (csrc/lane_group.h
+#: kLaneGroup, kLaneGroups), 128 blocks of 16 warps at B = 4096.
+FIXED_ADJOINT_THREADS = 512
+#: Samples of each tree of K9's end-of-sweep batch sums (lane_group.h
+#: kFixedTree): block_sum's tree over 64 samples, then the trees in order.
+FIXED_TREE = 64
 #: Threads of a K8 block on the batch route (csrc/fixed_kernel.cu
 #: kFixedBatchThreads); it owns FIXED_THREADS samples.
 FIXED_BATCH_THREADS = 256
@@ -244,9 +250,10 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
 # ---------------------------------------------------------------------------
 
 def _block_sums(x: Tensor, threads: int) -> Tensor:
-    """Sums of x [B, R] over the batch in K9's order: each block of
-    `threads` consecutive samples meets in `_tree_sum`'s tree (samples past
-    B add 0), then the block sums add in block order. Returns [R]."""
+    """Sums of x [B, R] over the batch in K9's (threads = FIXED_TREE) and
+    K6's (32) order: each run of `threads` consecutive samples meets in
+    `_tree_sum`'s tree (samples past B add 0), then the run sums add in
+    order. Returns [R]."""
     B, R = x.shape
     n_blk = -(-B // threads)
     x = torch.nn.functional.pad(x, (0, 0, 0, n_blk * threads - B))
@@ -272,8 +279,11 @@ def mlp_adjoint_solve_fixed_plain(warrays: Tensor, dims, ys: Tensor,
     Order of the quadratures: each sample accumulates its own weighted
     stage cotangents, per step sum_j (h b_j) (sign x_j) over the stages in
     order and then added to its running sum; the per-sample sums meet over
-    the batch once, at the end, in `_block_sums`' order. (The reference
-    sums each stage over the batch first, so the two agree to roundoff.)
+    the batch once, at the end, in `_block_sums(acc, FIXED_TREE)`' order:
+    `_tree_sum`'s tree over each 64 consecutive samples, the trees in order
+    (the kernel's second launch, csrc/rk_adjoint.cuh
+    fixed_tree_reduce_kernel). (The reference sums each stage over the
+    batch first, so the two agree to roundoff.)
     """
     aug = _aug_eval_plain(warrays, dims, activation, final_activation,
                           input_power, time_input)
@@ -346,7 +356,7 @@ def fixed_adjoint_plain(aug, n_w: int, time_input: bool, n_ps: int,
             cay = (ay_new - ay) - adj
             ay = ay_new
             acc = acc + comb(kx)
-    total = _block_sums(acc[:, :R], FIXED_THREADS)
+    total = _block_sums(acc[:, :R], FIXED_TREE)
     at = total[n_w] if time_input else torch.zeros((), dtype=dtype,
                                                     device=dev)
     stats = torch.tensor([S * n_sub * (T - 1), n_sub * (T - 1), 0, 0],
@@ -354,16 +364,36 @@ def fixed_adjoint_plain(aug, n_w: int, time_input: bool, n_ps: int,
     return ay + g[0], total[:n_w], at, acc[:, R:], stats
 
 
+def _group_work_size(S: int, B: int, D: int, n_q: int,
+                     walk_values: int) -> int:
+    """csrc/lane_group.h lane_group_work_size (K6's workspace): every
+    sample's slot (y, a_y, their compensations, the stages of both, the
+    stage state and the error terms: (8 + 2 S) D values, the running sums
+    of its n_q quadratures, then the walk's `walk_values`) and the STEP
+    rows of its n_q quadratures."""
+    return B * ((8 + 2 * S) * D + walk_values + 2 * n_q)
+
+
+def _fixed_work_size(S: int, B: int, D: int, n_q: int, walk_values: int,
+                     R: int) -> int:
+    """csrc/lane_group.h fixed_group_work_size (K9's workspace): K6's, then
+    every sample's running sums of its R shared quadratures for the
+    end-of-sweep trees."""
+    return _group_work_size(S, B, D, n_q, walk_values) + R * B
+
+
+def _mlp_walk_values(dims, D: int) -> int:
+    """csrc/lane_group.h lane_group_mlp_walk_values: each layer's inputs and
+    pre-activation cotangents, f (D) and the layer-0 input cotangent."""
+    return D + dims[0][0] + sum(din + dout for din, dout in dims)
+
+
 def _adjoint_work_size(dims, S: int, B: int, D: int,
                        time_input: bool) -> int:
-    """csrc/fixed_adjoint_kernel.cu fixed_adjoint_work_size: per-sample rows
-    of B values for (y, a_y), their compensations and stage derivatives,
-    each layer's inputs and act'(z), and the step and running quadrature
-    sums."""
+    """The MLP routes' workspace of K9 (`_fixed_work_size` with the
+    parameter and a_t quadratures and the MLP walk's values)."""
     R = sum(din * dout + dout for din, dout in dims) + int(time_input)
-    rows = ((4 + 2 * S) * D + sum(din + dout for din, dout in dims)
-            + 2 * R)
-    return rows * B
+    return _fixed_work_size(S, B, D, R, _mlp_walk_values(dims, D), R)
 
 
 def mlp_adjoint_solve_fixed(warrays: Tensor, dims, ys: Tensor, g: Tensor,
@@ -382,7 +412,8 @@ def mlp_adjoint_solve_fixed(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     `time_input`, the a_t) quadrature; the batch sums come at the end, in a
     fixed order with no atomics (the same bits on every run). That sum is a
     second, small launch of the same wrapper call: the launch counter
-    counts one per call.
+    counts one per call. A group of 16 threads walks a sample, 32 samples a
+    512-thread block.
 
     warrays/dims: from `pack_mlp_weights`; ys, g: [T, B, D] forward
     trajectory and output cotangents at the canonical times tau ([T],
@@ -413,21 +444,19 @@ def mlp_adjoint_solve_fixed(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     T, B, D = ys.shape
     n_w = _check_mlp("mlp_adjoint_solve_fixed", warrays, dims, D,
                      time_input)
-    route = _route("mlp_adjoint_solve_fixed", dims, n_w + FIXED_THREADS,
+    # The weights and K6's allowance for the quadrature table.
+    route = _route("mlp_adjoint_solve_fixed", dims, n_w + 32,
                    ys.element_size())
     for name, x in (("ys", ys), ("g", g), ("warrays", warrays)):
         _check_float(name, x, dtype)
 
     S = tab.stages
     c, a, b_sol, _ = _tableau_args(tab)
-    R = n_w + int(time_input)
-    n_blk = -(-B // FIXED_THREADS)
     tau_d = tau.detach().to("cpu", dtype).to(ys.device)
     ay0 = torch.empty((B, D), dtype=dtype, device=ys.device)
     aw = torch.empty(n_w, dtype=dtype, device=ys.device)
     at = torch.empty((), dtype=dtype, device=ys.device)
     stats = torch.empty(4, dtype=torch.int32, device=ys.device)
-    partial = torch.empty(n_blk * R, dtype=dtype, device=ys.device)
     n_work = _adjoint_work_size(dims, S, B, D, time_input)
     work = torch.empty(n_work, dtype=dtype, device=ys.device)
     lib = _build.library()
@@ -435,8 +464,8 @@ def mlp_adjoint_solve_fixed(warrays: Tensor, dims, ys: Tensor, g: Tensor,
           else lib.tfd_mlp_adjoint_fixed_f64)
     with torch.cuda.device(ys.device):
         err = fn(_ptr(tau_d), _ptr(ys), _ptr(g), _ptr(warrays), _ptr(ay0),
-                 _ptr(aw), _ptr(at), _ptr(stats), _ptr(partial), _ptr(work),
-                 n_work, T, B, D, FIXED_THREADS, int(num_steps),
+                 _ptr(aw), _ptr(at), _ptr(stats), _ptr(work), n_work, T, B,
+                 D, FIXED_ADJOINT_THREADS, int(num_steps),
                  float(sign), len(dims), _dims_arg(dims),
                  _ACT_CODES[activation], _ACT_CODES[final_activation],
                  int(input_power), int(time_input), S, c, a, b_sol, route,

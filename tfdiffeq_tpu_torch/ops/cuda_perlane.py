@@ -40,7 +40,7 @@ import torch
 
 from . import _build
 from .cuda_adjoint import _aug_eval_plain, _combine, _sq_scaled
-from .cuda_fixed import _block_sums
+from .cuda_fixed import _block_sums, _group_work_size, _mlp_walk_values
 from .cuda_kernels import (_ACT_CODES, _check_activations, _check_float,
                            _check_mlp, _controller_factor, _device_kind,
                            _dims_arg, _net_plain, _ptr, _rk_stages, _route,
@@ -466,22 +466,6 @@ def perlane_adjoint_plain(aug, n_w: int, time_input: bool, n_ps: int,
                                                     device=dev)
     stats, lane = _stats(nfe, nacc, nrej, status)
     return ay + g[0], total[:n_w], at, acc[:, R:], stats, lane
-
-
-def _group_work_size(S: int, B: int, D: int, n_q: int,
-                     walk_values: int) -> int:
-    """csrc/lane_group.h lane_group_work_size: every sample's slot (y, a_y,
-    their compensations, the stages of both, the stage state and the error
-    terms: (8 + 2 S) D values, the running sums of its n_q quadratures,
-    then the walk's `walk_values`) and the STEP rows of its n_q
-    quadratures."""
-    return B * ((8 + 2 * S) * D + walk_values + 2 * n_q)
-
-
-def _mlp_walk_values(dims, D: int) -> int:
-    """csrc/lane_group.h lane_group_mlp_walk_values: each layer's inputs and
-    pre-activation cotangents, f (D) and the layer-0 input cotangent."""
-    return D + dims[0][0] + sum(din + dout for din, dout in dims)
 
 
 def _adjoint_work_size(dims, S: int, B: int, D: int,

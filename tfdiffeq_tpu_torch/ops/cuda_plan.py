@@ -88,7 +88,8 @@ from .cuda_adams import (ADAMS_EXPLICIT_THREADS, ADAMS_THREADS,
                          adams_solve_plain, adams_work_size,
                          vcabm_solve_plain)
 from .cuda_adjoint import ADJOINT_THREADS, _grid_work, adjoint_sweep_plain
-from .cuda_fixed import (FIXED_THREADS, fixed_adjoint_plain,
+from .cuda_fixed import (FIXED_ADJOINT_THREADS, FIXED_THREADS,
+                         _fixed_work_size, fixed_adjoint_plain,
                          fixed_solve_plain, hermite_drain_plain)
 from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS, _check_blocks,
                            _check_float, _device_kind, _increasing, _ptr,
@@ -1019,10 +1020,9 @@ def plan_adjoint_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor],
     lib = build([(plan, host)])[0]
     lay = plan_codegen.aug_layout(plan)
     consts, sample_consts = plan_codegen.flat_consts(plan, packed, B)
-    smem = _consts_route(host, lay.n_quad, FIXED_THREADS,
+    smem = _consts_route(host, lay.n_quad, PERLANE_THREADS,
                          ys.element_size())
     R = lay.n_quad + lay.time_input
-    n_blk = -(-B // FIXED_THREADS)
     tau_d = tau.detach().to("cpu", dtype).to(dev)
     c, a, b_sol, _ = _tableau_args(tab)
     ay0 = torch.empty((B, D), dtype=dtype, device=dev)
@@ -1030,16 +1030,18 @@ def plan_adjoint_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor],
     at = torch.empty((), dtype=dtype, device=dev)
     aps = torch.empty((max(1, lay.n_sample), B), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    partial = torch.empty(max(1, n_blk * R), dtype=dtype, device=dev)
-    n_work = ((4 + 2 * S) * D + 2 * (R + lay.n_sample) + lay.q_rows) * B
+    # K6's slot and STEP rows (the walk's rows and the per-sample constants
+    # in the slot), then the end-of-sweep trees' rows.
+    n_work = _fixed_work_size(S, B, D, R + lay.n_sample,
+                              lay.q_rows + lay.n_sample, R)
     work = torch.empty(n_work, dtype=dtype, device=dev)
     ys_c, g_c = ys.contiguous(), g.contiguous()
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
             _ptr(tau_d), _ptr(ys_c), _ptr(g_c), _ptr(ay0), _ptr(aw),
-            _ptr(at), _ptr(aps), _ptr(stats), _ptr(partial), _ptr(work), T,
-            B, D, FIXED_THREADS, int(num_steps), float(sign), S, c, a, b_sol,
-            _ptr(consts), lay.n_quad, _ptr(sample_consts), int(smem),
+            _ptr(at), _ptr(aps), _ptr(stats), _ptr(work), n_work, T, B, D,
+            FIXED_ADJOINT_THREADS, int(num_steps), float(sign), S, c, a,
+            b_sol, _ptr(consts), lay.n_quad, _ptr(sample_consts), int(smem),
             _stream(dev))
     _check(lib, err, "plan_adjoint_solve_fixed launch")
     plan_fixed_adjoint_launches += 1
