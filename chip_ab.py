@@ -19,7 +19,8 @@ first step 0.01; median of 3), K4 alone (`tier_net`: the bf16 weight pack
 and one evaluation of the wide net 128 -> 256 -> 256 -> 128 at B = 1024,
 'mixed' and 'bf16'; ten calls queued behind a sleep on the card, so the
 device time alone), K8 rk4 x 128 and K2 dopri5 at 'mixed' on that net
-(the batch route), K3 and K9 on the wide route at B = 256, K7's adjoint
+(the batch route), K8 rk4 x 128 at 'highest' (the wide route), K5, K3 and
+K9 on the wide route at B = 256, K7's adjoint
 sweep in K3 (the CNF flow 3 -> 32 -> 32 -> 2 at B = 4096), K13 at the
 ODE-Net's width (C = 64, 32 groups, 7x7, controller blocks of 18, t = [0,
 1], rtol = atol = 1e-3, each block's first step 0.05; weights and states
@@ -109,8 +110,8 @@ def _one(root: str) -> None:
         warr, dims, y, t, 0.01, 1e-6, 1e-6, 1.0, **kw), reps=3)
     # The wide net 128 -> 256 -> 256 -> 128 at B = 1024: K4 alone (the bf16
     # weight pack and one evaluation) at 'mixed' and 'bf16', K8 rk4 x 128
-    # and K2 dopri5 at 'mixed' (the batch route); K3 on the wide route at
-    # B = 256.
+    # and K2 dopri5 at 'mixed' (the batch route), K8 at 'highest' (the
+    # wide route); K5, K3 and K9 on the wide route at B = 256.
     rw = np.random.RandomState(1)
     wd = ((128, 256), (256, 256), (256, 128))
     WW = [(c(rw.randn(i, o) / np.sqrt(i)), c(rw.randn(o) * 0.05))
@@ -148,7 +149,13 @@ def _one(root: str) -> None:
     out["K2 wide mixed"] = timed(lambda: ck.mlp_solve(
         wwarr, wpd, xw, tw, 0.01, 1e-5, 1e-5, 1.0, f0=wf0,
         tiers=tiers["mixed"]), reps=3)
+    out["K8 wide highest"] = timed(lambda: cf.mlp_solve_fixed(
+        wwarr, wpd, xw, tw, uniform_grid(tw[0], tw[-1], 128), 1.0, f0=wf0,
+        method="rk4"), reps=3)
     xs = xw[:256].contiguous()
+    out["K5 wide"] = timed(lambda: cp.mlp_solve_perlane(
+        wwarr, wpd, xs, tw[:4], 0.05, 1e-5, 1e-5, 1.0,
+        f0=wf0[:256].contiguous()), reps=3)
     wys, _ = ck.mlp_solve(wwarr, wpd, xs, tw[:4], 0.01, 1e-5, 1e-5, 1.0,
                           f0=wf0[:256].contiguous())
     wg = c(rw.randn(*wys.shape) * 0.01)

@@ -45,8 +45,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     [4096, 2], hidden 50, 64 outputs over [0, 25]): rk4 with num_steps=500
     (the Hermite drain) and on the default grid, each in float32 and
     float64; euler, midpoint and rk4_38 in float64 on the default grid.
-    Float64: identical stats, outputs within 1e-12 relative; float32: 1e-5
-    absolute (whether bitwise equal is printed); run to run bitwise.
+    Bitwise equal to the plain version in both types, stats included, and
+    run to run bitwise (K8 a group of 16 threads a sample, 128 blocks of
+    16 warps; the layout printed, also in [11], [19]).
 11. `fast.solve_mlp_spec(method='rk4', num_steps=500)` at the bench
     widths: one K8 launch (counter zeroed before, read after), status 0,
     finite [64, 4096, 2]; the gap to `fast.solve_mlp` (dopri5, K2) printed;
@@ -87,9 +88,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 16. K5 `mlp_solve_perlane` at the bench protocol with every sample's own
     controller, from the per-sample HNW first steps
     (`select_initial_step_per_sample`): against its plain version in
-    float64 (identical per-sample counts, ys within 1e-12 relative) and
-    float32 (within 1e-5 relative; whether bitwise equal is printed), run
-    to run bitwise. `fast.solve_mlp_spec(per_sample=True)`: one K5 launch
+    float64 and float32: bitwise equal, per-sample counts included (K5 a
+    group of 16 threads a sample under its own controller, 128 blocks of
+    16 warps; the layout printed), run to run bitwise.
+    `fast.solve_mlp_spec(per_sample=True)`: one K5 launch
     and no K2 launch (counters zeroed before, read after), status 0, finite
     [64, 4096, 2]; the samples' nfe (min, median, max) beside the shared
     controller's (`fast.solve_mlp`, K2). At B=96 (12 outputs over [0, 5],
@@ -144,9 +146,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     library time.
 20. Wide training and the other kernels at width 256, B = 256: one
     `fast.odeint_adjoint_mlp` SGD step (K2 + K3 on the wide route) and one
-    with a 'mixed' forward; K5, K6 and K9 on the wide route against their
-    plain versions (identical counts, close values, K3, K6 and K9 bitwise;
-    whether bitwise equal is printed) and timed.
+    with a 'mixed' forward; K3, K5, K6 and K9 on the wide route against
+    their plain versions (bitwise, identical counts; K5's group layout
+    printed) and timed.
 21. `fast.calibrate_dot_precision` on the wide configuration ('bf16' and
     'mixed' against 'highest', the reference's NFE x passes model): the
     tier it picks and the NFEs.
@@ -619,6 +621,30 @@ def _same(a, b, nan_ok=None) -> bool:
             and torch.equal(a[~na], b[~nb]))
 
 
+def _group_layout(name: str, B: int, group: int, threads: int) -> str:
+    """A group engine's launch shape at batch B: threads a sample, blocks,
+    warps a block."""
+    return (f"{name} a group of {group} threads a sample, "
+            f"{-(-B // (threads // group))} blocks of {threads} "
+            f"({threads // 32} warps a block)")
+
+
+def _k8_layout(B: int, route: int = 0) -> str:
+    """K8's launch shape at batch B on an MLP route (0 narrow, 1 wide;
+    csrc/lane_group.h): a group of threads a sample, 512-thread blocks."""
+    from tfdiffeq_tpu_torch.ops import cuda_fixed as cf
+    return _group_layout("K8", B, cf.fixed_group(route),
+                         cf.FIXED_GROUP_THREADS)
+
+
+def _k5_layout(B: int, route: int = 0) -> str:
+    """K5's launch shape at batch B on an MLP route: K8's layout, each
+    group under its own controller."""
+    from tfdiffeq_tpu_torch.ops import cuda_perlane as cp
+    return _group_layout("K5", B, cp.perlane_group(route),
+                         cp.PERLANE_SOLVE_THREADS)
+
+
 def _k6_layout(B: int) -> str:
     """K6's launch shape at batch B (csrc/lane_group.h): a group of threads
     a sample, 32 samples a block."""
@@ -871,7 +897,10 @@ def _wide_tier(smi: str, dev) -> dict:
         same = bool(torch.equal(out, ref))
         print(f"[19] K8 wide rk4 x {steps} {tier} {dtype}: stats "
               f"{st.tolist()}; max |kernel - plain| {err:.3e}; bitwise equal"
-              f" to plain: {same}", flush=True)
+              f" to plain: {same}"
+              + (f"; {_k8_layout(WIDE_B, ck.ROUTE_WIDE)}"
+                 if tier == "highest" else "; the batch route (K4)"),
+              flush=True)
         if not torch.equal(st, st_ref) or st[3].item() != 0 \
                 or not torch.isfinite(out).all() \
                 or ((dtype == f64 or tier == "highest") and not same) \
@@ -1132,11 +1161,13 @@ def _wide_tier(smi: str, dev) -> dict:
               f"{max(rels):.3e}; bitwise equal to plain: {same}; bound "
               f"{bound(nfe, 9 * Bt * WIDE_D, per=1 if name == 'K5' else 3)}"
               + (f"; {_k6_layout(Bt)}" if name == "K6" else "")
-              + (f"; {_k9_layout(Bt)}" if name == "K9" else ""),
+              + (f"; {_k9_layout(Bt)}" if name == "K9" else "")
+              + (f"; {_k5_layout(Bt, ck.ROUTE_WIDE)}" if name == "K5"
+                 else ""),
               flush=True)
         if any(not torch.equal(a, b) for a, b in zip(counts, counts_ref)) \
                 or max(rels) > 1e-5 or counts[0][3].item() != 0 \
-                or (name in ("K3", "K6", "K9") and not same):
+                or not same:
             raise AssertionError(f"{name} wide differs from its plain "
                                  "version")
 
@@ -3382,9 +3413,12 @@ def main() -> int:
               f"kernel stats {st.tolist()}, plain {st_ref.tolist()}; max "
               f"|kernel - plain| {err:.3e} (relative {_rel(out, ref):.3e}); "
               f"bitwise equal to plain: {torch.equal(out, ref)}; two kernel "
-              f"runs bitwise equal: {bitwise}", flush=True)
+              f"runs bitwise equal: {bitwise}; {_k8_layout(B)}", flush=True)
         if not bitwise:
             raise AssertionError("K8 is not deterministic from run to run")
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K8 {method} {dtype} is not bitwise its "
+                                 "plain version")
         if st[3].item() != 0 or not torch.isfinite(out).all() \
                 or st.tolist() != st_ref.tolist():
             raise AssertionError(f"K8 {method} {dtype} failed: stats "
@@ -3411,8 +3445,8 @@ def main() -> int:
     k8_launches = cf.mlp_solve_fixed_launches
     nfe, acc, rej, status = fixed.stats
     print(f"[11] fast.solve_mlp_spec(method='rk4', num_steps=500): nfe {nfe}"
-          f", steps {acc}, status {status}; K8 launches {k8_launches}",
-          flush=True)
+          f", steps {acc}, status {status}; K8 launches {k8_launches}; "
+          f"{_k8_layout(B)}", flush=True)
     if k8_launches != 1 or status != 0 or nfe != 1 + 4 * 500 \
             or tuple(fixed.ys.shape) != (T_OUT, B, D) \
             or not torch.isfinite(fixed.ys).all():
@@ -3719,9 +3753,12 @@ def main() -> int:
               f"samples: {same_lanes}; max |kernel - plain| "
               f"{float((out - ref).abs().max()):.3e} (relative {rel:.3e}); "
               f"bitwise equal to plain: {torch.equal(out, ref)}; two kernel "
-              f"runs bitwise equal: {bitwise}", flush=True)
+              f"runs bitwise equal: {bitwise}; {_k5_layout(B)}", flush=True)
         if not bitwise:
             raise AssertionError("K5 is not deterministic from run to run")
+        if not (same_lanes and torch.equal(out, ref)):
+            raise AssertionError(f"K5 {dtype} is not bitwise its plain "
+                                 "version")
         if (lane[3] != 0).any() or not torch.isfinite(out).all():
             raise AssertionError(f"K5 {dtype} failed: stats {st.tolist()}")
         if dtype == f64 and (not same_lanes or rel > 1e-12):
@@ -3744,7 +3781,7 @@ def main() -> int:
     lane_nfe = per.lane_stats.nfe.float()
     shared = fast.solve_mlp(p, y, t, rtol=TOL, atol=TOL)
     print(f"[16] fast.solve_mlp_spec(per_sample=True): stats {per.stats}; "
-          f"launches {k5_launches}; the samples' nfe min "
+          f"launches {k5_launches} ({_k5_layout(B)}); the samples' nfe min "
           f"{int(lane_nfe.min())}, median {int(lane_nfe.median())}, max "
           f"{int(lane_nfe.max())} against {shared.stats.nfe} for every "
           f"sample under the shared controller (fast.solve_mlp, K2); max "
@@ -4004,7 +4041,8 @@ def main() -> int:
          "launches": k8_launches, "max_abs_err": k8_err[f32],
          "ms": fixed_ms, "plain_ms": fixed_plain_ms,
          "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
-         "library_ms": None},
+         "library_ms": None, "group": cf.FIXED_GROUP,
+         "blocks": -(-B // (cf.FIXED_GROUP_THREADS // cf.FIXED_GROUP))},
         {"name": "fixed_adjoint_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/fixed_adjoint_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_fixed.py:726",
@@ -4032,7 +4070,8 @@ def main() -> int:
          "max_abs_err": k5_err[f32], "ms": perlane_ms,
          "plain_ms": perlane_plain_ms, "bound_ms": k5_bound[0],
          "bound_by": k5_bound[1], "library_ms": None,
-         "shared_controller_ms": shared_ms},
+         "shared_controller_ms": shared_ms, "group": cp.PERLANE_GROUP,
+         "blocks": -(-B // (cp.PERLANE_SOLVE_THREADS // cp.PERLANE_GROUP))},
         {"name": "mlp_perlane_adjoint_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/perlane_adjoint_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_adjoint.py:681",

@@ -2163,3 +2163,92 @@ def test_perlane_adjoint_group_battery_slice(cuda):
     assert torch.isfinite(got[0][~failed]).all()
     assert _same_nan(got, ref)
     assert _same_nan(got, cpl.plan_perlane_adjoint_solve(*args))
+
+
+def _group_solve_case(route, dtype, device, B):
+    """An MLP on each route of K8's and K5's group engines: 'narrow' the
+    perlane case's 2 -> 16 -> 2 on y**3, 'narrow_t' with a time column,
+    'wide' a 32 -> 144 -> 144 -> 32 net (a group of FIXED_WIDE_GROUP
+    threads a sample). Returns (spec, weights, packed, dims, y0, kw)."""
+    if route == "wide":
+        weights, warr, dims, y0, _ = _wide_case(device, dtype, B=B)
+        return fast.MLPSpec(), weights, warr, dims, y0, {}
+    ti = route == "narrow_t"
+    spec, weights, warr, dims, y0 = _perlane_case(device, dtype, B=B,
+                                                  time_input=ti)
+    return spec, weights, warr, dims, y0, dict(input_power=3, time_input=ti)
+
+
+@pytest.mark.parametrize("B", [1, 33, 300, 4097])
+@pytest.mark.parametrize("route", ["narrow", "narrow_t", "wide"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fixed_group_routes_match_plain(cuda, dtype, route, B):
+    """K8 with a group of threads a sample on each MLP route, at ragged B
+    (a last block part-empty at 33, 300 and 4097): bitwise equal to its
+    plain version, outputs and stats, on a finer grid (the Hermite drain)
+    in reverse time, and run to run."""
+    spec, W, warr, dims, y0, kw = _group_solve_case(route, dtype, cuda, B)
+    t = torch.tensor([0.0, 0.37, 1.11, 2.0], dtype=dtype)
+    tau = (-t).flip(0)
+    grid = uniform_grid(tau[0], tau[-1], 11)
+    f0 = -fast.mlp_apply(spec, W, y0, t=float(-tau[0]))
+    kw = dict(kw, f0=f0, method="rk4" if route != "narrow_t" else "rk4_38")
+    args = (warr, dims, y0, tau, grid, -1.0)
+    got = cf.mlp_solve_fixed(*args, **kw)
+    again = cf.mlp_solve_fixed(*args, **kw)
+    ref = cf.mlp_solve_fixed_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[1].tolist() == [1 + 4 * 11, 11, 0, 0]
+    assert torch.isfinite(got[0]).all()
+    assert _same(got, again) and _same(got, ref)
+    assert cf.mlp_solve_fixed_launches == 2
+
+
+@pytest.mark.parametrize("B", [1, 33, 300, 4097])
+@pytest.mark.parametrize("route", ["narrow", "narrow_t", "wide"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_perlane_group_routes_match_plain(cuda, dtype, route, B):
+    """K5 with a group of threads a sample under its own controller on
+    each MLP route, at ragged B: bitwise equal to its plain version
+    (outputs, stats, every sample's counts) and run to run; the samples
+    take different numbers of attempts (tsit5 on the time column: an end
+    derivative past FSAL's)."""
+    spec, W, warr, dims, y0, kw = _group_solve_case(route, dtype, cuda, B)
+    t = torch.linspace(0.0, 2.0, 7, dtype=dtype)
+    f0 = fast.mlp_apply(spec, W, y0, t=0.0)
+    dt0 = torch.linspace(0.01, 0.1, B, dtype=dtype, device=cuda)
+    kw = dict(kw, f0=f0,
+              method="tsit5" if route == "narrow_t" else "dopri5")
+    args = (warr, dims, y0, t, dt0, 1e-6, 1e-8, 1.0)
+    got = cp.mlp_solve_perlane(*args, **kw)
+    again = cp.mlp_solve_perlane(*args, **kw)
+    ref = cp.mlp_solve_perlane_plain(*args, **kw)
+    torch.cuda.synchronize()
+    st, lane = got[1], got[2]
+    assert st[3].item() == 0 and torch.isfinite(got[0]).all()
+    assert B < 33 or len(set(lane[0].tolist())) > 1
+    assert _same(got, again) and _same(got, ref)
+    assert cp.mlp_solve_perlane_launches == 2
+
+
+def test_group_solves_keep_their_statuses(cuda):
+    """K5's group engine: status 1 on the samples whose own attempts run
+    out, invalid times status 3 with a zero tail, bitwise its plain
+    version; K8's invalid times likewise."""
+    spec, W, warr, dims, y0, kw = _group_solve_case("narrow", torch.float64,
+                                                    cuda, 300)
+    t = torch.linspace(0.0, 2.0, 5, dtype=torch.float64)
+    args = (warr, dims, y0, t, 0.05, 1e-8, 1e-10, 1.0)
+    kw = dict(kw, f0=fast.mlp_apply(spec, W, y0), max_steps=6)
+    got = cp.mlp_solve_perlane(*args, **kw)
+    assert _same(got, cp.mlp_solve_perlane_plain(*args, **kw))
+    assert got[1][3].item() == 1 and 0 < int((got[2][3] == 1).sum()) < 300
+    bad = torch.tensor([0.0, 1.0, 0.5], dtype=torch.float64)
+    out, st, lane = cp.mlp_solve_perlane(warr, dims, y0, bad, 0.05, 1e-6,
+                                         1e-8, 1.0, input_power=3)
+    assert st.tolist() == [0, 0, 0, 3] and (lane[3] == 3).all()
+    assert torch.equal(out[0], y0) and not out[1:].any()
+    out, st = cf.mlp_solve_fixed(warr, dims, y0, bad, bad, 1.0,
+                                 input_power=3)
+    assert st.tolist() == [0, 0, 0, 3]
+    assert torch.equal(out[0], y0) and not out[1:].any()

@@ -15,7 +15,7 @@
 // Bound on the H100. Per sample and step the MLP evaluations (at the bench
 // widths 2 -> 50 -> 2: about 400 operations and 50 tanh each; 5 a
 // fixed_adams step, 1 an explicit_adams one). explicit_adams gives each
-// sample a thread's dependent chain, as K8 does. fixed_adams spreads the
+// sample a thread's dependent chain, as K14 in K8 does. fixed_adams spreads the
 // batch over a grid of one block per SM (about 31 samples a block at
 // B = 4096), each evaluation a group of 16 threads a sample, so a corrector
 // iteration costs a layer's longest sum a layer, a block barrier a layer

@@ -1,9 +1,11 @@
 // The layout of K6 and K9 (csrc/rk_adjoint.cuh rk_perlane_adjoint_kernel,
 // rk_fixed_adjoint_kernel): a group of kLaneGroup threads a sample,
-// kLaneGroups samples a block, and the workspace each sweep needs. Plain
-// C++, so that the host (and a test through a host compiler) computes the
-// same sizes the launch checks; ops/cuda_fixed.py repeats them
-// (_group_work_size, _fixed_work_size).
+// kLaneGroups samples a block, and the workspace each sweep needs; and
+// that of K8's and K5's MLP routes (csrc/rk_fixed.cuh, rk_perlane.cuh
+// rk_*_group_kernel). Plain C++, so that the host (and a test through a
+// host compiler) computes the same sizes the launch checks;
+// ops/cuda_fixed.py repeats them (_group_work_size, _fixed_work_size,
+// _solve_work_size).
 #pragma once
 
 namespace tfd {
@@ -45,6 +47,53 @@ inline long lane_group_mlp_walk_values(int n_layers, const int* dims,
 inline long lane_group_work_size(int S, int B, int D, long n_q,
                                  long walk_values) {
   return long(B) * (lane_group_slot_values(S, D, n_q, walk_values) + n_q);
+}
+
+// Shared memory a block of these layouts may give its right-hand side and
+// its slots (K6, K9, and K8's and K5's MLP routes).
+constexpr long kLaneSmemBytes = 220L * 1024;
+
+// ---------------------------------------------------------------------------
+// The forward solves with a group of threads a sample (K8 and K5 on the
+// MLP routes): a block of kGroupBlock threads, `group` threads a sample
+// (a power of two from 16 to kGroupBlock), kGroupBlock / group samples a
+// block, each sample's slot in the block's shared memory where the block's
+// slots fit there beside the right-hand side's share, else in the
+// workspace.
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupBlock = kLaneGroup * kLaneGroups;
+
+inline bool group_size_ok(int group) {
+  return group >= 16 && group <= kGroupBlock && (group & (group - 1)) == 0;
+}
+
+// Samples a block of `group` threads a sample.
+inline int group_samples(int group) { return kGroupBlock / group; }
+
+// K8's slot: the state, its Kahan compensation, the chained derivative
+// f(t0, y0), the step's start state, the S - 1 later stages (D values
+// each), then the walk's two layer vectors of gw values (the widest
+// layer).
+inline long fixed_solve_slot_values(int S, int D, int gw) {
+  return long(S + 3) * D + 2L * gw;
+}
+
+// K5's slot: the state, the FSAL derivative, the compensation, the
+// attempt's increment, dense-output midpoint, end derivative and squared
+// scaled errors, the S - 1 later stages (D values each), then the walk's
+// two layer vectors.
+inline long perlane_solve_slot_values(int S, int D, int gw) {
+  return long(S + 6) * D + 2L * gw;
+}
+
+// The workspace of K8's and K5's MLP routes: a slot for every sample of
+// the blocks (B rounded up to whole blocks), then n_wt values (the wide
+// route's transposed weights; 0 on the narrow route).
+inline long group_solve_work_size(long slot_values, int B, int group,
+                                  long n_wt) {
+  const long spb = group_samples(group);
+  return (long(B) + spb - 1) / spb * spb * slot_values + n_wt;
 }
 
 // K9's end-of-sweep tree: the shared quadratures' batch sums take

@@ -235,6 +235,90 @@ Tableau<T> make_tableau(int stages, int order, int fsal, const double* c,
   return tab;
 }
 
+// One state element's stage i: y + sum_j (dt a_ij) k(j) over the nonzero
+// a_ij in order (pallas_kernels.py:_rk_stages, pallas_fixed.py:
+// _fixed_stage_walk); k(j) is the element's stage j.
+template <typename T, class KGet>
+__device__ __forceinline__ T stage_value(const Tableau<T>& tab, int i, T dt,
+                                         T y, KGet k) {
+  T v = y;
+  for (int j = 0; j < i; ++j) {
+    const T a = tab.a[i][j];
+    if (a != T(0)) v = v + (dt * a) * k(j);
+  }
+  return v;
+}
+
+// One state element's combines over the stages in order: delta = sum_j
+// (dt b_sol_j) k(j) and err = sum_j (dt b_err_j) k(j) over the nonzero
+// weights, each from its first term, and the dense-output midpoint ymid =
+// y0 + sum_j (dt c_mid_j) k(j) where the tableau has one.
+template <typename T, class KGet>
+__device__ __forceinline__ void combine_value(const Tableau<T>& tab, T dt,
+                                              T y0, KGet k, T& delta, T& err,
+                                              T& ymid) {
+  delta = T(0);
+  err = T(0);
+  ymid = y0;
+  bool first_d = true, first_e = true;
+  for (int j = 0; j < tab.S; ++j) {
+    const T kj = k(j);
+    if (tab.b_sol[j] != T(0)) {
+      const T term = (dt * tab.b_sol[j]) * kj;
+      delta = first_d ? term : delta + term;
+      first_d = false;
+    }
+    if (tab.b_err[j] != T(0)) {
+      const T term = (dt * tab.b_err[j]) * kj;
+      err = first_e ? term : err + term;
+      first_e = false;
+    }
+    if (tab.has_mid && tab.c_mid[j] != T(0))
+      ymid = ymid + (dt * tab.c_mid[j]) * kj;
+  }
+}
+
+// One state element's accepted step (K5): the interpolant of
+// pallas_kernels.py:_interp_coeffs from y0, delta, the midpoint ymid and
+// the end derivatives f0, f1; the Kahan update of y with its compensation
+// comp (both updated); and every requested time o in [oi, oi_new) of
+// (t, t1] written to out[o * stride + at], exactly the new y at t1.
+template <typename T>
+__device__ __forceinline__ void accept_value(const Tableau<T>& tab, T& y,
+                                             T& comp, T delta, T ymid, T f0,
+                                             T f1, T t, T t1, T dth,
+                                             const T* tau, int oi,
+                                             int oi_new, T* __restrict__ out,
+                                             long stride, long at) {
+  const T y0 = y;
+  const T y1 = y0 + delta;
+  const T df0 = dth * f0;
+  const T df1 = dth * f1;
+  const T r1 = y1 - y0 - df0;
+  const T r2 = df1 - df0;
+  T ca, cb, cc;
+  if (tab.has_mid) {
+    const T r3 = T(16) * (ymid - y0) - T(8) * df0;
+    ca = r3 + T(2) * r2 - T(8) * r1;
+    cb = r2 - T(2) * r1 - T(2) * ca;
+    cc = r1 - ca - cb;
+  } else {
+    ca = T(0);
+    cb = T(2) * (y0 - y1) + df0 + df1;
+    cc = T(3) * (y1 - y0) - T(2) * df0 - df1;
+  }
+  const T adj = delta - comp;
+  const T y_new = y0 + adj;
+  comp = (y_new - y0) - adj;
+  y = y_new;
+  for (int o = oi; o < oi_new; ++o) {
+    const T tj = tau[o];
+    const T x = (tj - t) / dth;
+    const T val = (((ca * x + cb) * x + cc) * x + df0) * x + y0;
+    out[long(o) * stride + at] = (tj == t1) ? y_new : val;
+  }
+}
+
 // Widest layer of a network built by make_net.
 inline int net_max_width(const Net& net) {
   int m = 0;
@@ -334,6 +418,230 @@ __device__ const T* mlp_eval_group(const Net& net, const T* __restrict__ w,
   return hin;
 }
 
+// A group's barrier (csrc/lane_group.h: the forward solves' groups of
+// `n` threads, K5's diverging from one another): __syncwarp over the
+// group's lanes up to a warp, else a named barrier, one a group of the
+// block (1 + its index; barrier 0 stays __syncthreads').
+struct GroupSync {
+  unsigned mask;  // the group's lanes of its warp (n <= 32)
+  int bar;        // its named barrier (n > 32)
+  int n;          // threads of the group
+
+  __device__ static GroupSync of(int n) {
+    const int tid = threadIdx.x;
+    GroupSync s;
+    s.mask = n >= 32 ? 0xFFFFFFFFu
+                     : ((1u << n) - 1u) << ((tid & 31) & ~(n - 1));
+    s.bar = 1 + tid / n;
+    s.n = n;
+    return s;
+  }
+  __device__ __forceinline__ void operator()() const {
+    if (n <= 32)
+      __syncwarp(mask);
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(n) : "memory");
+  }
+};
+
+// The transposed weights of the forward solves' group walk (mlp_eval_lanes):
+// layer l's weight (o, i) at w_off[l] + i dout[l] + o, so that the members
+// of a group, one output each, read neighbouring values; the biases where
+// they were. Elements r = r0, r0 + stride, ... of the n_w packed values.
+template <typename T>
+__device__ void transpose_weights(const Net& net, const T* __restrict__ w,
+                                  T* __restrict__ wt, int n_w, int r0,
+                                  int stride) {
+  for (int r = r0; r < n_w; r += stride) {
+    int l = 0;
+    while (l + 1 < net.n_layers && r >= net.w_off[l + 1]) ++l;
+    int at = r;
+    if (r < net.b_off[l]) {
+      const int idx = r - net.w_off[l];
+      at = net.w_off[l] + (idx % net.din[l]) * net.dout[l] + idx / net.din[l];
+    }
+    wt[at] = w[r];
+  }
+}
+
+// The wide route's transposed weights, into global memory before the solve.
+template <typename T>
+__global__ void transpose_weights_kernel(const T* __restrict__ w, Net net,
+                                         int n_w, T* __restrict__ wt) {
+  transpose_weights(net, w, wt, n_w, blockIdx.x * blockDim.x + threadIdx.x,
+                    gridDim.x * blockDim.x);
+}
+
+// kJ outputs of one layer for member o0's pass of mlp_eval_lanes (o0,
+// o0 + gsz, ...): each the product with input 0, then inputs 1 .. n_state
+// - 1 in order, the time column, the bias, the activation; one pass over
+// the inputs for all kJ, so kJ independent chains.
+template <int kJ, typename T>
+__device__ __forceinline__ void lane_outputs(const T* __restrict__ W,
+                                             const T* __restrict__ bias,
+                                             const T* hin, T* hout, int o0,
+                                             int gsz, int dout, int n_state,
+                                             bool tcol, T t, int code) {
+  T acc[kJ];
+  const T h0 = hin[0];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) acc[j] = W[o0 + j * gsz] * h0;
+  for (int i = 1; i < n_state; ++i) {
+    const T h = hin[i];
+    const T* row = W + long(i) * dout + o0;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) acc[j] = acc[j] + row[j * gsz] * h;
+  }
+  if (tcol) {
+    const T* row = W + long(n_state) * dout + o0;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) acc[j] = acc[j] + row[j * gsz] * t;
+  }
+#pragma unroll
+  for (int j = 0; j < kJ; ++j)
+    hout[o0 + j * gsz] = activate(code, acc[j] + bias[o0 + j * gsz]);
+}
+
+// mlp_eval for one sample with the gsz threads of its group (member m),
+// the group meeting at `sync`: the sample's D state values in hin[0, D),
+// hout the second layer vector (each as wide as the widest layer), wt the
+// transposed weights (transpose_weights). Each layer's outputs o = m,
+// m + gsz, ... go up to kLaneOuts at a time through one pass over the
+// inputs (lane_outputs), each the same sum in input order (the time column
+// last, then the bias) as mlp_eval's, so the same bits; the group meets
+// after the input power and after each layer. Returns the buffer that
+// holds the outputs, which every member may read.
+constexpr int kLaneOuts = 4;
+
+template <typename T, class Sync>
+__device__ const T* mlp_eval_lanes(const Net& net, const T* __restrict__ wt,
+                                   T t, T* hin, T* hout, int m, int gsz,
+                                   const Sync& sync) {
+  const int D = net.din[0] - net.time_input;
+  for (int i = m; i < D; i += gsz) {
+    const T v = hin[i];
+    T h = v;
+    for (int p = 1; p < net.input_power; ++p) h = h * v;
+    hin[i] = h;
+  }
+  sync();
+  for (int l = 0; l < net.n_layers; ++l) {
+    const int din = net.din[l];
+    const int dout = net.dout[l];
+    const bool tcol = net.time_input && l == 0;
+    const int n_state = tcol ? din - 1 : din;
+    const T* W = wt + net.w_off[l];
+    const T* bias = wt + net.b_off[l];
+    const int code = (l == net.n_layers - 1) ? net.act_final : net.act_hidden;
+    for (int o0 = m; o0 < dout; o0 += kLaneOuts * gsz) {
+      const int left = (dout - o0 + gsz - 1) / gsz;
+      switch (left < kLaneOuts ? left : kLaneOuts) {
+        case 1:
+          lane_outputs<1>(W, bias, hin, hout, o0, gsz, dout, n_state, tcol,
+                          t, code);
+          break;
+        case 2:
+          lane_outputs<2>(W, bias, hin, hout, o0, gsz, dout, n_state, tcol,
+                          t, code);
+          break;
+        case 3:
+          lane_outputs<3>(W, bias, hin, hout, o0, gsz, dout, n_state, tcol,
+                          t, code);
+          break;
+        default:
+          lane_outputs<kLaneOuts>(W, bias, hin, hout, o0, gsz, dout,
+                                  n_state, tcol, t, code);
+      }
+    }
+    sync();
+    T* tmp = hin;
+    hin = hout;
+    hout = tmp;
+  }
+  return hin;
+}
+
+// The MLP right-hand side of K8's and K5's group engines
+// (csrc/rk_fixed.cuh rk_fixed_group_kernel, csrc/rk_perlane.cuh
+// rk_perlane_group_kernel): one sample's mlp_eval_lanes with its group.
+// Narrow route: setup copies the weights into shared memory, transposed;
+// wide route: a first launch (transpose_weights_kernel) writes the
+// transposed weights to `wt` in the workspace, read from global memory
+// (L2). gw: the walk vectors' width, the widest layer.
+template <typename T, int kRoute>
+struct MlpLaneRhs {
+  const T* wg;     // packed weights (pack_mlp_weights)
+  const T* wt;     // the wide route's transposed weights
+  int n_weights;
+  int gw;
+  Net net_in;
+
+  struct Shared {
+    Net net;
+  };
+
+  // Values the setup keeps in shared memory, and the transposed weights'
+  // values in the workspace.
+  long smem_values() const { return kRoute == kRouteNarrow ? n_weights : 0; }
+  long wt_values() const { return kRoute == kRouteNarrow ? 0 : n_weights; }
+
+  __device__ __forceinline__ const T* weights() const {
+    if constexpr (kRoute == kRouteNarrow) {
+      extern __shared__ __align__(16) unsigned char smem_raw[];
+      return reinterpret_cast<const T*>(smem_raw);
+    } else {
+      return wt;
+    }
+  }
+  // Copies what it keeps in shared memory (no barrier); returns the free
+  // shared memory.
+  __device__ T* setup(Shared& sh, unsigned char* smem) const {
+    T* rest = reinterpret_cast<T*>(smem);
+    if constexpr (kRoute == kRouteNarrow) {
+      transpose_weights(net_in, wg, rest, n_weights, threadIdx.x,
+                        blockDim.x);
+      rest += n_weights;
+    }
+    if (threadIdx.x == 0) sh.net = net_in;
+    return rest;
+  }
+  // The sample's D inputs in hin (2 gw values: the two layer vectors).
+  template <class Sync>
+  __device__ const T* eval_lanes(const Shared& sh, T t, T* hin, int m,
+                                 int gsz, const Sync& sync) const {
+    return mlp_eval_lanes(sh.net, weights(), t, hin, hin + gw, m, gsz, sync);
+  }
+};
+
+template <typename T, int kRoute>
+MlpLaneRhs<T, kRoute> make_mlp_lane_rhs(const void* weights, void* wt,
+                                        int n_w, const Net& net) {
+  MlpLaneRhs<T, kRoute> rhs;
+  rhs.wg = static_cast<const T*>(weights);
+  rhs.wt = static_cast<const T*>(wt);
+  rhs.n_weights = n_w;
+  rhs.gw = net_max_width(net);
+  rhs.net_in = net;
+  return rhs;
+}
+
+// The transposed weights of a wide-route launch: one small launch before
+// the solve, on its stream (a no-op on the narrow route).
+template <typename T, int kRoute>
+cudaError_t launch_lane_weights(const MlpLaneRhs<T, kRoute>& rhs,
+                                cudaStream_t stream) {
+  if constexpr (kRoute == kRouteNarrow) {
+    return cudaSuccess;
+  } else {
+    const int n = rhs.n_weights;
+    transpose_weights_kernel<T><<<(n + 255) / 256 < 264 ? (n + 255) / 256
+                                                         : 264,
+                                  256, 0, stream>>>(
+        rhs.wg, rhs.net_in, n, const_cast<T*>(rhs.wt));
+    return cudaGetLastError();
+  }
+}
+
 // The samples a round of a grouped walk (a power of two up to kGroupSlots)
 // that fit: the group vectors (2 gw values a slot) share the block's
 // reduction scratch (`threads` values, free during a walk) and may grow it
@@ -413,9 +721,9 @@ inline AugRows make_aug_rows(const Net& net) {
   return rows;
 }
 
-// The per-thread MLP right-hand side of K5 (csrc/rk_perlane.cuh) and
-// explicit_adams' K10 (csrc/rk_adams.cuh): one sample's mlp_eval in its
-// thread, on the narrow or the wide route.
+// The per-thread MLP right-hand side of explicit_adams' K10
+// (csrc/rk_adams.cuh): one sample's mlp_eval in its thread, on the narrow
+// or the wide route.
 template <typename T, int kRoute>
 struct MlpThreadRhs {
   static constexpr bool kBatch = false;

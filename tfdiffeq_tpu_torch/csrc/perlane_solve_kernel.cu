@@ -22,60 +22,72 @@
 // serves dopri5, bosh3, adaptive_heun, tsit5 and dopri8. Output is written
 // straight into the batch-major [T, B, D] layout.
 //
-// Design. No sample ever reads another's state, so one thread owns one
-// sample for the whole solve, over as many blocks as the batch needs, with
-// no barrier after the prologue. Where the TPU kernel steps every lane in
-// lockstep (done or rejected lanes do masked work) and drains rows through
-// a global cursor, a thread here simply stops when its sample is done and
-// drains through its own cursor: every row is still written once, from the
-// same interpolant. The weights and the output times sit in shared memory;
-// the sample's state, FSAL derivative, compensation, increments and stages
-// live in a device workspace laid out feature-major ([row][B]: a warp's 32
-// threads touch 32 consecutive values); the MLP's layer vectors in
-// per-thread local memory (mlp_rk.cuh mlp_eval).
+// Design. No sample ever reads another's state. On the MLP routes a group
+// of threads owns one sample for the whole solve (csrc/rk_perlane.cuh
+// rk_perlane_group_kernel; csrc/lane_group.h): 16 threads a sample on the
+// narrow route, 32 samples a 512-thread block (128 blocks of 16 warps at
+// B = 4096, where a warp of 32 samples ran a block), and on the wide route
+// K8's wide group (ops/cuda_fixed.py FIXED_WIDE_GROUP). Each group
+// keeps its own controller and meets only its own members (a __syncwarp
+// over its lanes, a named barrier past a warp), so groups diverge freely;
+// a group stops when its sample is done and drains through its own
+// cursor. Where the TPU kernel steps every lane in lockstep (done or
+// rejected lanes do masked work) and drains rows through a global cursor,
+// every row is still written once, from the same interpolant. The members
+// split the stages, the combines and the drain a feature a member, and
+// each layer of an evaluation an output a member (mlp_rk.cuh
+// mlp_eval_lanes, the weights transposed: in shared memory on the narrow
+// route, in the workspace on the wide one); the error norm is every
+// member's sum of the slot's squared errors in feature order, the plain
+// version's. The output times and the block's sample slots sit in shared
+// memory where they fit, the slots else in the workspace.
 //
-// Bound on the H100. Each thread walks its sample's MLP evaluations (at
-// the spiral 2 -> 50 -> 2: about 500 operations and 50 tanh each) one
-// dependent instruction after another, so the solve is bound by the
-// latency of that chain, not by the card's arithmetic or bandwidth: at
-// B = 4096 there are 128 warps, about one an SM. The samples of a warp also
-// diverge: a warp runs until its slowest sample is done. Several samples a
-// thread, or a warp across one sample's hidden units, is the way to more
-// throughput.
+// Bound on the H100. A group's evaluation is a chain of one layer's
+// longest sum a member (the spiral's output layer: 50 terms) and a group
+// meeting a layer; the solve is bound by that chain over the slowest
+// sample's attempts in each pair of a warp, with 16 warps an SM hiding
+// each other's latencies. The wide route streams its weights from L2 to
+// every group, as K8's does.
 //
-// Routes (mlp_rk.cuh Route): narrow as above; wide, for layers up to
-// kMaxWidth or weights past shared memory, the layer vectors of 512 values
-// in local memory and the weights read from global memory (L2).
+// Routes (mlp_rk.cuh Route): narrow; wide, for layers up to kMaxWidth or
+// weights past shared memory, the weights read from global memory (L2).
+// K14's plans keep a thread a sample (csrc/rk_perlane.cuh
+// rk_perlane_kernel).
 #include "rk_perlane.cuh"
 
 namespace tfd {
 
-// K5's MLP right-hand sides (csrc/rk_perlane.cuh's Rhs): the narrow and
-// wide per-thread routes, mlp_rk.cuh MlpThreadRhs.
+// K5's MLP right-hand sides: the narrow and wide routes with a group of
+// `group` threads a sample (mlp_rk.cuh MlpLaneRhs), the wide route's
+// transposed weights written to the end of the workspace first.
 template <typename T, int kRoute>
-cudaError_t launch_perlane_route(const void* tau, const void* y0,
+cudaError_t launch_perlane_lanes(const void* tau, const void* y0,
                                  const void* f0, const void* dt0,
                                  const void* weights, void* out,
                                  void* lane_stats, void* stats, void* work,
-                                 int n_w, int threads, const Net& net,
-                                 const Tableau<T>& tab,
+                                 long work_size, int n_w, int group,
+                                 const Net& net, const Tableau<T>& tab,
                                  const PerlaneScalars<T>& sc,
                                  cudaStream_t stream) {
-  const size_t smem =
-      sizeof(T) * ((kRoute == kRouteNarrow ? size_t(n_w) : 0) + sc.T_out);
-  MlpThreadRhs<T, kRoute> rhs;
-  rhs.wg = static_cast<const T*>(weights);
-  rhs.n_weights = n_w;
-  rhs.net_in = net;
-  return launch_rk_perlane<T>(tau, y0, f0, dt0, out, lane_stats, stats, work,
-                              rhs, smem, threads, tab, sc, stream);
+  const long slots =
+      group_solve_work_size(perlane_solve_slot_values(tab.S, sc.D,
+                                                      net_max_width(net)),
+                            sc.B, group, 0);
+  const auto rhs = make_mlp_lane_rhs<T, kRoute>(
+      weights, static_cast<T*>(work) + slots, n_w, net);
+  cudaError_t e = launch_lane_weights(rhs, stream);
+  if (e != cudaSuccess) return e;
+  return launch_rk_perlane_group<T>(tau, y0, f0, dt0, out, lane_stats,
+                                    stats, work, work_size, rhs, group, tab,
+                                    sc, stream);
 }
 
 template <typename T>
 int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
                          const void* dt0, const void* weights, void* out,
-                         void* lane_stats, void* stats, void* work, int T_out,
-                         int B, int D, int threads, double rtol, double atol,
+                         void* lane_stats, void* stats, void* work,
+                         long work_size, int T_out, int B, int D,
+                         int threads, int group, double rtol, double atol,
                          double dt_min, double sign, double safety,
                          double ifactor, double dfactor, int max_steps,
                          int valid, int n_layers, const int* dims,
@@ -86,7 +98,7 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
                          const double* c_mid, int route, void* stream) {
   if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || max_steps < 1 ||
-      threads < 32 || threads > 1024)
+      threads != kGroupBlock)
     return static_cast<int>(cudaErrorInvalidValue);
   Net net;
   const int off = make_net(net, n_layers, dims, D, act_hidden, act_final,
@@ -101,14 +113,12 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       route == kRouteNarrow
-          ? launch_perlane_route<T, kRouteNarrow>(tau, y0, f0, dt0, weights,
-                                                  out, lane_stats, stats,
-                                                  work, off, threads, net,
-                                                  tab, sc, st)
-          : launch_perlane_route<T, kRouteWide>(tau, y0, f0, dt0, weights,
-                                                out, lane_stats, stats, work,
-                                                off, threads, net, tab, sc,
-                                                st);
+          ? launch_perlane_lanes<T, kRouteNarrow>(
+                tau, y0, f0, dt0, weights, out, lane_stats, stats, work,
+                work_size, off, group, net, tab, sc, st)
+          : launch_perlane_lanes<T, kRouteWide>(
+                tau, y0, f0, dt0, weights, out, lane_stats, stats, work,
+                work_size, off, group, net, tab, sc, st);
   return static_cast<int>(e);
 }
 
@@ -118,20 +128,20 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
   extern "C" int NAME(                                                       \
       const void* tau, const void* y0, const void* f0, const void* dt0,     \
       const void* weights, void* out, void* lane_stats, void* stats,        \
-      void* work, int T_out, int B, int D, int threads, double rtol,        \
-      double atol, double dt_min, double sign, double safety,               \
-      double ifactor, double dfactor, int max_steps, int valid,             \
-      int n_layers, const int* dims, int act_hidden, int act_final,         \
-      int input_power, int time_input, int stages, int order, int fsal,     \
-      const double* c, const double* a, const double* b_sol,                \
-      const double* b_err, const double* c_mid, int route,                 \
-      void* stream) {                                                        \
+      void* work, long work_size, int T_out, int B, int D, int threads,     \
+      int group, double rtol, double atol, double dt_min, double sign,      \
+      double safety, double ifactor, double dfactor, int max_steps,         \
+      int valid, int n_layers, const int* dims, int act_hidden,             \
+      int act_final, int input_power, int time_input, int stages,           \
+      int order, int fsal, const double* c, const double* a,                \
+      const double* b_sol, const double* b_err, const double* c_mid,        \
+      int route, void* stream) {                                             \
     return tfd::launch_solve_perlane<TYPE>(                                  \
-        tau, y0, f0, dt0, weights, out, lane_stats, stats, work, T_out, B,  \
-        D, threads, rtol, atol, dt_min, sign, safety, ifactor, dfactor,     \
-        max_steps, valid, n_layers, dims, act_hidden, act_final,            \
-        input_power, time_input, stages, order, fsal, c, a, b_sol, b_err,   \
-        c_mid, route, stream);                                               \
+        tau, y0, f0, dt0, weights, out, lane_stats, stats, work, work_size, \
+        T_out, B, D, threads, group, rtol, atol, dt_min, sign, safety,      \
+        ifactor, dfactor, max_steps, valid, n_layers, dims, act_hidden,     \
+        act_final, input_power, time_input, stages, order, fsal, c, a,      \
+        b_sol, b_err, c_mid, route, stream);                                 \
   }
 
 TFD_SOLVE_PERLANE_ENTRY(tfd_mlp_solve_perlane_f32, float)

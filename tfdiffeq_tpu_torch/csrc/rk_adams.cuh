@@ -27,10 +27,10 @@
 // has no history term and fails to trace (pallas_fixed.py:598-605); here
 // the history part is 0, the generic engine's arithmetic.
 //
-// Design. explicit_adams has no batch meet, so it takes K8's layout
-// (rk_adams_kernel): one thread a sample, over as many blocks as the batch
-// needs, its state in a device workspace laid out feature-major ([row][B]:
-// a warp's threads touch consecutive values). fixed_adams meets the batch
+// Design. explicit_adams has no batch meet, so it takes the layout of
+// K14 in K8 (rk_adams_kernel): one thread a sample, over as many blocks as
+// the batch needs, its state in a device workspace laid out feature-major
+// ([row][B]: a warp's threads touch consecutive values). fixed_adams meets the batch
 // at every corrector iteration (rk_adams_grid_kernel): a grid of n_blocks
 // blocks of 512 threads (ops/cuda_kernels.py solve_blocks: one per SM, or
 // one a sample for a smaller batch), all resident together (csrc/

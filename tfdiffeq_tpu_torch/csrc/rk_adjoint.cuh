@@ -985,9 +985,6 @@ __global__ void __launch_bounds__(kLaneGroup * kLaneGroups, 1)
   }
 }
 
-// Shared memory a K6 or K9 block's right-hand side and slots may take.
-constexpr long kLaneSmemBytes = 220L * 1024;
-
 // K6's launch: the sweep, then the block sums in block order. `fixed` is
 // the bytes the right-hand side keeps in shared memory (its setup); the
 // launch adds the block's 32 slots where they fit beside it.

@@ -14,22 +14,26 @@
 // grid's end. Invalid times give status 3 and a zero tail.
 //
 // Design. A fixed grid has no error norm and no controller, so no sample
-// ever waits for another: one thread owns one sample for the whole solve,
-// over as many blocks as the batch needs, with no barrier after the
-// prologue. All samples share one grid, so the output cursor is the same in
-// every thread. The grid and the output times sit in shared memory after
-// what the right-hand side keeps there, or, where setup returns null (K4's
-// batch route, whose tiles take the block's shared memory), are read from
-// global memory, so that their length is not bounded by the tiles. The
-// sample's state, compensation, derivatives and stages live in a device
-// workspace laid out feature-major ([row][B]: a warp's 32 threads touch 32
+// ever waits for another. Two kernels: rk_fixed_group_kernel (below; the
+// MLP routes of csrc/fixed_kernel.cu) gives each sample a group of
+// threads, its slot in shared memory; rk_fixed_kernel (K14's plans and
+// K4's batch route) gives each sample a thread, over as many blocks as the
+// batch needs, with no barrier after the prologue (on the batch route a
+// barrier before each block-wide evaluation). All samples share one grid,
+// so the output cursor is the same in every thread. In rk_fixed_kernel
+// the grid and the output times sit in shared memory after what the
+// right-hand side keeps there, or, where setup returns null (K4's batch
+// route, whose tiles take the block's shared memory), are read from global
+// memory, so that their length is not bounded by the tiles. The sample's
+// state, compensation, derivatives and stages live in a device workspace
+// laid out feature-major ([row][B]: a warp's 32 threads touch 32
 // consecutive values).
 //
-// The right-hand side `Rhs` (csrc/fixed_kernel.cu: the MLP routes;
-// csrc/plan_rhs.cuh: K14's generated plans) provides Shared and Local
-// state; setup(sh, lo, smem, row0, spb), which copies what it keeps in
-// shared memory (no barrier) and returns the free shared memory (or null:
-// the grid stays in global memory); and
+// rk_fixed_kernel's right-hand side `Rhs` (csrc/fixed_kernel.cu: K4's
+// batch route; csrc/plan_rhs.cuh: K14's generated plans) provides Shared
+// and Local state; setup(sh, lo, smem, row0, spb), which copies what it
+// keeps in shared memory (no barrier) and returns the free shared memory
+// (or null: the grid stays in global memory); and
 // either (kBatch false) in(lo) and eval(sh, lo, t, b, B), sample b's D
 // outputs from the D inputs written at in(lo), or (kBatch true) spb()
 // samples a block, put(sh, lo, b, t, get) and eval_batch(sh, lo, row0, spb),
@@ -37,6 +41,7 @@
 // b * ld()).
 #pragma once
 
+#include "lane_group.h"
 #include "mlp_rk.cuh"
 
 namespace tfd {
@@ -45,6 +50,10 @@ template <typename T>
 struct FixedScalars {
   T sign;
   int valid, G, T_out, B, D;
+  // The group engine's layout (rk_fixed_group_kernel).
+  int group;        // threads a sample
+  int slot_values;  // a sample's slot (lane_group.h fixed_solve_slot_values)
+  int slot_smem;    // the block's slots in shared memory (else `work`)
 };
 
 // The output cursor (pallas_fixed.py:_hermite_drain's loop bound): past
@@ -78,6 +87,32 @@ __device__ __forceinline__ void hermite_drain(T* __restrict__ out,
     const T val = ((cb * x + cc) * x + df0) * x + y0;
     out[long(o) * stride + at] = (tj == t1) ? y1 : val;
   }
+}
+
+// The solution combine of one element: sum_j (dt b_sol_j) k(j) over the
+// nonzero weights in order, from the first term.
+template <typename T, class KGet>
+__device__ __forceinline__ T sol_delta(const Tableau<T>& tab, T dt, KGet k) {
+  T delta = T(0);
+  bool first = true;
+  for (int j = 0; j < tab.S; ++j) {
+    if (tab.b_sol[j] != T(0)) {
+      const T term = (dt * tab.b_sol[j]) * k(j);
+      delta = first ? term : delta + term;
+      first = false;
+    }
+  }
+  return delta;
+}
+
+// The Kahan-compensated update y0 + delta with compensation c (updated);
+// returns the new y.
+template <typename T>
+__device__ __forceinline__ T kahan_step(T y0, T& c, T delta) {
+  const T adj = delta - c;
+  const T y1 = y0 + adj;
+  c = (y1 - y0) - adj;
+  return y1;
 }
 
 template <typename T, class Rhs>
@@ -149,34 +184,21 @@ __global__ void rk_fixed_kernel(const T* __restrict__ grid_g,
     const T t0 = grid[step];
     const T t1 = grid[step + 1];
     const T dt = t1 - t0;
-    // pallas_fixed.py:_fixed_stage_walk: yi = yi + (dt * a_ij) * k_j.
+    // Element d's stage j.
+    auto kd = [&](int d) {
+      return [&, d](int j) {
+        return j == 0 ? F[at(d)] : K[at((j - 1) * D + d)];
+      };
+    };
     auto stage_state = [&](int i, int d) {
-      T v = Y[at(d)];
-      for (int j = 0; j < i; ++j) {
-        const T a = tab.a[i][j];
-        if (a != T(0)) {
-          const T kj = j == 0 ? F[at(d)] : K[at((j - 1) * D + d)];
-          v = v + (dt * a) * kj;
-        }
-      }
-      return v;
+      return stage_value(tab, i, dt, Y[at(d)], kd(d));
     };
     // The solution combine and the Kahan-compensated update; returns y1.
     auto update = [&](int d) {
-      T delta = T(0);
-      bool first = true;
-      for (int j = 0; j < S; ++j) {
-        if (tab.b_sol[j] != T(0)) {
-          const T kj = j == 0 ? F[at(d)] : K[at((j - 1) * D + d)];
-          const T term = (dt * tab.b_sol[j]) * kj;
-          delta = first ? term : delta + term;
-          first = false;
-        }
-      }
       const T y0 = Y[at(d)];
-      const T adj = delta - C[at(d)];
-      const T y1 = y0 + adj;
-      C[at(d)] = (y1 - y0) - adj;
+      T c = C[at(d)];
+      const T y1 = kahan_step(y0, c, sol_delta(tab, dt, kd(d)));
+      C[at(d)] = c;
       Y[at(d)] = y1;
       Y0[at(d)] = y0;
       return y1;
@@ -233,6 +255,157 @@ cudaError_t launch_rk_fixed(const void* grid, const void* tau,
   if (e != cudaSuccess) return e;
   const int blocks = (sc.B + spb - 1) / spb;
   kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(grid), static_cast<const T*>(tau),
+      static_cast<const T*>(y0), static_cast<const T*>(f0),
+      static_cast<T*>(out), static_cast<int*>(stats), static_cast<T*>(work),
+      rhs, tab, sc);
+  return cudaGetLastError();
+}
+
+// K8 on the MLP routes: a group of sc.group threads walks one sample
+// (csrc/lane_group.h), kGroupBlock / sc.group samples a block, where one
+// thread walked one sample. A fixed grid has no controller and every
+// sample takes the same stages on the same grid, so the groups of a block
+// run the same instructions; each still meets only its own members
+// (GroupSync), so a group past B leaves at once. The members split the
+// sample's work: the stage states, the Kahan update and the Hermite drain
+// a feature a member (d = m, m + group, ...), each evaluation's layers an
+// output a member (Rhs::eval_lanes, mlp_rk.cuh mlp_eval_lanes), each sum
+// in the plain version's order, so the same bits. Nothing but the walk
+// reads another member's values. The sample's slot (state, compensation,
+// chained derivative, step-start state, stages and the walk's two layer
+// vectors) sits in the block's shared memory after the right-hand side's
+// share, the grid and the output times, where the block's slots fit
+// there (about 15 KB at the spiral in float32), else in the workspace.
+//
+// The right-hand side `Rhs` (mlp_rk.cuh MlpLaneRhs) provides Shared,
+// setup(sh, smem) (copies what it keeps in shared memory, no barrier;
+// returns the free shared memory) and eval_lanes(sh, t, hin, m, gsz,
+// sync) (the sample's D inputs in hin; returns its D outputs).
+template <typename T, class Rhs>
+__global__ void __launch_bounds__(kGroupBlock, 1)
+    rk_fixed_group_kernel(const T* __restrict__ grid_g,
+                          const T* __restrict__ tau_g,
+                          const T* __restrict__ y0g,
+                          const T* __restrict__ f0g, T* __restrict__ out,
+                          int* __restrict__ stats, T* __restrict__ work,
+                          Rhs rhs, Tableau<T> tab_in, FixedScalars<T> sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Rhs::Shared rsh;
+  __shared__ Tableau<T> tab;
+  const int tid = threadIdx.x;
+  T* const rest = rhs.setup(rsh, smem_raw);
+  if (tid == 0) tab = tab_in;
+  for (int i = tid; i < sc.G; i += blockDim.x) rest[i] = grid_g[i];
+  for (int i = tid; i < sc.T_out; i += blockDim.x) rest[sc.G + i] = tau_g[i];
+  const T* const grid = rest;             // [G]
+  const T* const tau = rest + sc.G;       // [T_out]
+  __syncthreads();
+
+  const int G = sc.G, T_out = sc.T_out, B = sc.B, D = sc.D, S = tab.S;
+  if (blockIdx.x == 0 && tid == 0) {
+    stats[0] = sc.valid ? 1 + S * (G - 1) : 0;
+    stats[1] = sc.valid ? G - 1 : 0;
+    stats[2] = 0;
+    stats[3] = sc.valid ? 0 : 3;
+  }
+  const int gsz = sc.group, slot = tid / gsz, m = tid % gsz;
+  const int b = blockIdx.x * (blockDim.x / gsz) + slot;
+  if (b >= B) return;  // only the group's own members meet from here on
+  const GroupSync sync = GroupSync::of(gsz);
+
+  const long BD = long(B) * D;
+  const long SV = sc.slot_values;
+  // The sample's slot: in the block's shared memory or in the workspace.
+  T* const Y = sc.slot_smem ? rest + sc.G + sc.T_out + slot * SV
+                            : work + long(b) * SV;   // [D] state
+  T* const C = Y + D;             // [D] Kahan compensation
+  T* const F = C + D;             // [D] f(t0, y0): stage 0, chained
+  T* const Y0 = F + D;            // [D] the step's start state
+  T* const K = Y0 + D;            // [S - 1][D] stages 1 .. S - 1
+  T* const H = K + (S - 1) * D;   // the walk's two layer vectors
+  const T sign = sc.sign;
+
+  // Row 0 is y0; the rest stays zero unless a step writes it
+  // (pallas_fixed.py:125-126).
+  for (int d = m; d < D; d += gsz) {
+    const long i = long(b) * D + d;
+    out[i] = y0g[i];
+    for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
+    Y[d] = y0g[i];
+    F[d] = f0g[i];
+    C[d] = T(0);
+  }
+  if (!sc.valid) return;  // the same in every thread
+
+  int oi = 1;
+  for (int step = 0; step + 1 < G; ++step) {
+    const T t0 = grid[step];
+    const T t1 = grid[step + 1];
+    const T dt = t1 - t0;
+    // Element d's stage j.
+    auto kd = [&](int d) {
+      return [&, d](int j) { return j == 0 ? F[d] : K[(j - 1) * D + d]; };
+    };
+    for (int i = 1; i < S; ++i) {
+      for (int d = m; d < D; d += gsz)
+        H[d] = stage_value(tab, i, dt, Y[d], kd(d));
+      const T ti = t0 + tab.c[i] * dt;
+      const T* f = rhs.eval_lanes(rsh, sign * ti, H, m, gsz, sync);
+      for (int d = m; d < D; d += gsz) K[(i - 1) * D + d] = sign * f[d];
+    }
+    // The solution combine and the Kahan-compensated update.
+    for (int d = m; d < D; d += gsz) {
+      const T y0 = Y[d];
+      const T y1 = kahan_step(y0, C[d], sol_delta(tab, dt, kd(d)));
+      Y[d] = y1;
+      Y0[d] = y0;
+      H[d] = y1;
+    }
+    // The chained end derivative f(t1, y1).
+    const T* fo = rhs.eval_lanes(rsh, sign * t1, H, m, gsz, sync);
+    const int oi_new = drain_cursor(tau, oi, T_out, t1, step + 2 == G);
+    for (int d = m; d < D; d += gsz) {
+      const T f0 = F[d];
+      const T f1 = sign * fo[d];
+      F[d] = f1;
+      hermite_drain(out, tau, oi, oi_new, t0, t1, dt, Y0[d], Y[d], f0, f1,
+                    BD, long(b) * D + d);
+    }
+    oi = oi_new;
+  }
+}
+
+// K8's group launch: the slots in shared memory where the block's fit
+// beside the right-hand side's share, the grid and the output times, else
+// in `work` (work_size values; lane_group.h group_solve_work_size, then
+// the wide route's transposed weights).
+template <typename T, class Rhs>
+cudaError_t launch_rk_fixed_group(const void* grid, const void* tau,
+                                  const void* y0, const void* f0, void* out,
+                                  void* stats, void* work, long work_size,
+                                  const Rhs& rhs, int group,
+                                  const Tableau<T>& tab,
+                                  const FixedScalars<T>& sc_in,
+                                  cudaStream_t stream) {
+  if (!group_size_ok(group)) return cudaErrorInvalidValue;
+  FixedScalars<T> sc = sc_in;
+  sc.group = group;
+  sc.slot_values = int(fixed_solve_slot_values(tab.S, sc.D, rhs.gw));
+  if (work_size <
+      group_solve_work_size(sc.slot_values, sc.B, group, rhs.wt_values()))
+    return cudaErrorInvalidValue;
+  const size_t fixed = sizeof(T) * (rhs.smem_values() + sc.G + sc.T_out);
+  const size_t slots =
+      sizeof(T) * size_t(group_samples(group)) * sc.slot_values;
+  sc.slot_smem = fixed + slots <= size_t(kLaneSmemBytes);
+  const size_t smem = fixed + (sc.slot_smem ? slots : 0);
+  auto kernel = rk_fixed_group_kernel<T, Rhs>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  const int spb = group_samples(group);
+  kernel<<<(sc.B + spb - 1) / spb, kGroupBlock, smem, stream>>>(
       static_cast<const T*>(grid), static_cast<const T*>(tau),
       static_cast<const T*>(y0), static_cast<const T*>(f0),
       static_cast<T*>(out), static_cast<int*>(stats), static_cast<T*>(work),

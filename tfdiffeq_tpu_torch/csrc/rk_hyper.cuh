@@ -23,7 +23,7 @@
 // with a zero tail for times that do not increase. Output is written
 // straight into the batch-major [T, B, D] layout.
 //
-// Design. Like K8 a fixed grid has no meet between samples: one thread
+// Design. Like K8's a fixed grid has no meet between samples: one thread
 // owns one sample for the whole solve, over as many blocks as the batch
 // needs, with no barrier after the prologue; the output cursor is the same
 // in every thread. f's and g's constants sit in shared memory when they
@@ -47,7 +47,7 @@
 // nets (at the example's widths f = (y^3) A: about 20 operations; g
 // 5 -> 32 -> 2: about 450 operations and 32 tanh) one dependent
 // instruction after another, so the solve is bound by the latency of that
-// chain and by instruction issue, as K8 is.
+// chain and by instruction issue, as K14 in K8 is.
 #pragma once
 
 #include "rk_fixed.cuh"

@@ -94,7 +94,8 @@ _ADJOINT_ARGS = ([_P] * 9                                   # tensors
                  + [_P, _L, _I]                             # grid
                  + [_P])                                    # stream
 _SOLVE_FIXED_ARGS = ([_P] * 8                               # tensors
-                     + [_I] * 5                             # G .. threads
+                     + [_L]                                 # work size
+                     + [_I] * 6                             # G .. group
                      + [_D, _I]                             # sign, valid
                      + [_I, _P, _I, _I, _I, _I]             # network
                      + [_I, _P, _P, _P]                     # tableau
@@ -115,7 +116,8 @@ _CONV_SOLVE_ARGS = ([_P] * 9                                # tensors
                     + [_I, _I, _I, _P, _P, _P, _P, _P]      # tableau
                     + [_P])                                 # stream
 _SOLVE_PERLANE_ARGS = ([_P] * 9                             # tensors
-                       + [_I] * 4                           # T, B, D, threads
+                       + [_L]                               # work size
+                       + [_I] * 5                           # T .. group
                        + [_D] * 7 + [_I, _I]                # scalars
                        + [_I, _P, _I, _I, _I, _I]           # network
                        + [_I, _I, _I, _P, _P, _P, _P, _P]   # tableau

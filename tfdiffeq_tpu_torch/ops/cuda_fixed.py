@@ -12,11 +12,12 @@ and rk4_38 (sources in `tfdiffeq_tpu_torch/csrc/`, built by `_build.py`):
   adjoint backward sweep.
 
 A fixed grid needs no error norm and no controller, so no sample waits for
-another: K8 gives each sample its own thread, over as many blocks as the
-batch needs, and K9 a group of 16 threads (K6's layout, csrc/lane_group.h),
-32 samples a block of FIXED_ADJOINT_THREADS. The wrappers take the plain
-versions only for tensors on the CPU; a CUDA tensor launches the kernel or
-raises. The plain versions follow the kernels operation for operation on
+another: on the MLP routes K8 gives each sample a group of threads
+(FIXED_GROUP on the narrow route, FIXED_WIDE_GROUP on the wide one) in
+blocks of FIXED_GROUP_THREADS (csrc/lane_group.h), and K9 a group of 16
+threads (K6's layout), 32 samples a block of FIXED_ADJOINT_THREADS. The
+wrappers take the plain versions only for tensors on the CPU; a CUDA tensor
+launches the kernel or raises. The plain versions follow the kernels operation for operation on
 the batch-major [B, D] layout, so a kernel run equals its plain version to
 the bit.
 
@@ -24,10 +25,10 @@ the bit.
 wrapper calls that launched their kernel; `reset_launch_counts()` zeroes
 them. Both take the routes of `cuda_kernels._route`; K8 with a reduced dot
 precision (`tiers`) takes the batch route, where a block of
-FIXED_BATCH_THREADS threads owns FIXED_THREADS samples and evaluates them
-layer by layer (K4, csrc/dot_tiers.cuh). Not ported: `rhs='cnf'` (K7), and
-the TPU machinery of the reference (`pack` sublane packing, `n_blocks` grid
-blocks, padded lanes).
+FIXED_BATCH_THREADS threads owns 16 samples (csrc/fixed_kernel.cu
+kFixedSamples) and evaluates them layer by layer (K4, csrc/dot_tiers.cuh).
+Not ported: `rhs='cnf'` (K7), and the TPU machinery of the reference
+(`pack` sublane packing, `n_blocks` grid blocks, padded lanes).
 """
 
 from __future__ import annotations
@@ -39,17 +40,30 @@ import torch
 from . import _build
 from . import cuda_kernels as _ck
 from .cuda_adjoint import _aug_eval_plain
-from .cuda_kernels import (ROUTE_BATCH, _ACT_CODES, _check_activations,
-                           _check_float, _check_mlp, _device_kind, _dims_arg,
-                           _increasing, _net_plain, _ptr, _rk_stages, _route,
-                           _stream, _tableau_args, _tier_work_bytes,
-                           _tiers_arg, _tree_sum)
+from .cuda_kernels import (ROUTE_BATCH, ROUTE_NARROW, ROUTE_WIDE,
+                           _ACT_CODES, _check_activations, _check_float,
+                           _check_mlp, _device_kind, _dims_arg, _increasing,
+                           _net_plain, _ptr, _rk_stages, _route, _stream,
+                           _tableau_args, _tier_work_bytes, _tiers_arg,
+                           _tree_sum)
 from .tableaus import FIXED_TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
 
-#: Threads per block of K8 (one sample a thread).
+#: Threads per block of K14 in K8 (ops/cuda_plan.py: one sample a
+#: thread); K8's batch route pads its rows to a multiple of it (a multiple
+#: of its blocks' 16 samples, csrc/fixed_kernel.cu kFixedSamples).
 FIXED_THREADS = 64
+#: K8's MLP routes (csrc/lane_group.h kGroupBlock): a block of
+#: FIXED_GROUP_THREADS threads, a group of FIXED_GROUP threads a sample on
+#: the narrow route (32 samples a block: 128 blocks of 16 warps at
+#: B = 4096) and of FIXED_WIDE_GROUP on the wide route (4 samples a block;
+#: on the H100 it ran the wide net 128 -> 256 -> 256 -> 128 about 5%
+#: faster than 64 in K8 at B = 1024 and 25% in K5 at B = 256, and 32 half
+#: as fast; PERF.md).
+FIXED_GROUP_THREADS = 512
+FIXED_GROUP = 16
+FIXED_WIDE_GROUP = 128
 #: K9's block: a group of 16 threads a sample, 32 samples (csrc/lane_group.h
 #: kLaneGroup, kLaneGroups), 128 blocks of 16 warps at B = 4096.
 FIXED_ADJOINT_THREADS = 512
@@ -57,7 +71,7 @@ FIXED_ADJOINT_THREADS = 512
 #: kFixedTree): block_sum's tree over 64 samples, then the trees in order.
 FIXED_TREE = 64
 #: Threads of a K8 block on the batch route (csrc/fixed_kernel.cu
-#: kFixedBatchThreads); it owns FIXED_THREADS samples.
+#: kFixedBatchThreads); it owns 16 samples (kFixedSamples).
 FIXED_BATCH_THREADS = 256
 
 mlp_solve_fixed_launches = 0
@@ -219,8 +233,11 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     c, a, b_sol, _ = _tableau_args(tab)
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
-    work = torch.empty((S + 3) * B * D, dtype=dtype, device=y0.device)
     batch = route == ROUTE_BATCH
+    group = fixed_group(route)
+    n_work = ((S + 3) * B * D if batch else _solve_work_size(
+        _fixed_slot_values(S, D, dims), B, group, _wt_values(route, n_w)))
+    work = torch.empty(n_work, dtype=dtype, device=y0.device)
     rows = -(-B // FIXED_THREADS) * FIXED_THREADS
     n_batch = (_tier_work_bytes(dims, rows, y0.element_size()) if batch
                else 0)
@@ -232,9 +249,10 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
           else lib.tfd_mlp_solve_fixed_f64)
     with torch.cuda.device(y0.device):
         err = fn(_ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0),
-                 _ptr(warrays), _ptr(out), _ptr(stats), _ptr(work), G, T, B,
-                 D, FIXED_BATCH_THREADS if batch else FIXED_THREADS,
-                 float(sign), int(valid), len(dims), _dims_arg(dims),
+                 _ptr(warrays), _ptr(out), _ptr(stats), _ptr(work), n_work,
+                 G, T, B, D,
+                 FIXED_BATCH_THREADS if batch else FIXED_GROUP_THREADS,
+                 group, float(sign), int(valid), len(dims), _dims_arg(dims),
                  _ACT_CODES[activation], _ACT_CODES[final_activation],
                  int(input_power), int(time_input), S, c, a, b_sol, route,
                  _tiers_arg(tiers), _ptr(batch_work), n_batch,
@@ -243,6 +261,44 @@ def mlp_solve_fixed(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     mlp_solve_fixed_launches += 1
     _ck.dot_tier_launches += batch
     return out, stats
+
+
+def fixed_group(route: int) -> int:
+    """Threads a sample of K8 (and of K5, `cuda_perlane.perlane_group`) on
+    an MLP route: FIXED_GROUP on the narrow route, FIXED_WIDE_GROUP on the
+    wide one; 0 on the batch route (a thread a sample)."""
+    return {ROUTE_NARROW: FIXED_GROUP, ROUTE_WIDE: FIXED_WIDE_GROUP}.get(
+        route, 0)
+
+
+def _solve_work_size(slot_values: int, B: int, group: int,
+                     n_wt: int) -> int:
+    """csrc/lane_group.h group_solve_work_size (the workspace of K8's and
+    K5's MLP routes): a slot for every sample of the blocks of
+    FIXED_GROUP_THREADS // group samples, then n_wt values (the wide
+    route's transposed weights)."""
+    spb = FIXED_GROUP_THREADS // group
+    return -(-B // spb) * spb * slot_values + n_wt
+
+
+def _widest(dims) -> int:
+    """The widest layer of an MLP (csrc/mlp_rk.cuh net_max_width): the
+    group walk's vectors."""
+    return max(w for dd in dims for w in dd)
+
+
+def _fixed_slot_values(S: int, D: int, dims) -> int:
+    """csrc/lane_group.h fixed_solve_slot_values: K8's slot (state,
+    compensation, chained derivative, step-start state, the S - 1 later
+    stages, then the walk's two layer vectors)."""
+    return (S + 3) * D + 2 * _widest(dims)
+
+
+def _wt_values(route: int, n_w: int) -> int:
+    """The transposed weights' values at the end of the workspace: the
+    wide route's n_w, none on the narrow route (they sit in shared
+    memory)."""
+    return n_w if route == ROUTE_WIDE else 0
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,12 @@ and `pallas_adjoint.py` (sources in `tfdiffeq_tpu_torch/csrc/`, built by
   `_make_perlane_adjoint_kernel` (pallas_adjoint.py:681): the whole adjoint
   backward sweep, every sample under its own controller on (y, a_y).
 
-No sample waits for another, so K5 gives each sample its own thread, over
-as many blocks as the batch needs, and K6 a group of PERLANE_GROUP threads,
-32 samples a block of PERLANE_ADJOINT_THREADS. The wrappers take the plain
-versions only for tensors on the CPU; a CUDA tensor launches the kernel or
-raises. The plain versions step every sample together, each masked by its
+No sample waits for another, so on the MLP routes K5 gives each sample a
+group of threads under its own controller (PERLANE_GROUP on the narrow
+route, 32 samples a block of PERLANE_SOLVE_THREADS; K8's wide group on the
+wide one), and K6 a group of PERLANE_GROUP threads, 32 samples a block of
+PERLANE_ADJOINT_THREADS. The wrappers take the plain versions only for
+tensors on the CPU; a CUDA tensor launches the kernel or raises. The plain versions step every sample together, each masked by its
 own state (a host loop of attempts until no sample is active), with each
 sample's arithmetic in its kernel thread's order: a float64 kernel run
 takes every sample's steps exactly as its plain version does.
@@ -40,24 +41,33 @@ import torch
 
 from . import _build
 from .cuda_adjoint import _aug_eval_plain, _combine, _sq_scaled
-from .cuda_fixed import _block_sums, _group_work_size, _mlp_walk_values
-from .cuda_kernels import (_ACT_CODES, _check_activations, _check_float,
-                           _check_mlp, _controller_factor, _device_kind,
-                           _dims_arg, _net_plain, _ptr, _rk_stages, _route,
-                           _solve_setup, _stream, _tableau_args)
+from . import cuda_fixed
+from .cuda_fixed import (FIXED_GROUP_THREADS, _block_sums, _group_work_size,
+                         _mlp_walk_values, _solve_work_size, _widest,
+                         _wt_values)
+from .cuda_kernels import (ROUTE_NARROW, _ACT_CODES, _check_activations,
+                           _check_float, _check_mlp, _controller_factor,
+                           _device_kind, _dims_arg, _net_plain, _ptr,
+                           _rk_stages, _route, _solve_setup, _stream,
+                           _tableau_args)
 from .rk import interp_fit_cubic_hermite, interp_fit_quartic
 from .tableaus import TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
 
-#: Threads per block of K5 (one sample a thread: 128 blocks at B = 4096),
-#: and the samples of a K6 block, whose quadrature sums take a tree over
-#: them (a power of two).
+#: The samples of a K6 block, whose quadrature sums take a tree over them
+#: (a power of two), and the threads per block of K14 in K5
+#: (ops/cuda_plan.py: one sample a thread).
 PERLANE_THREADS = 32
 #: K6 (csrc/lane_group.h): the threads of a sample's group, and of a block
 #: of PERLANE_THREADS groups (128 blocks of 16 warps at B = 4096).
 PERLANE_GROUP = 16
 PERLANE_ADJOINT_THREADS = PERLANE_GROUP * PERLANE_THREADS
+#: K5's MLP routes (csrc/lane_group.h kGroupBlock): a block of
+#: PERLANE_SOLVE_THREADS threads, a group of PERLANE_GROUP threads a sample
+#: on the narrow route (32 samples a block: 128 blocks of 16 warps at
+#: B = 4096) and of K8's wide group on the wide route (`perlane_group`).
+PERLANE_SOLVE_THREADS = FIXED_GROUP_THREADS
 
 mlp_solve_perlane_launches = 0
 mlp_perlane_adjoint_solve_launches = 0
@@ -112,6 +122,21 @@ def _stats(nfe, nacc, nrej, status) -> Tuple[Tensor, Tensor]:
 # ---------------------------------------------------------------------------
 # K5: the whole per-sample adaptive solve (pallas_kernels.py:929)
 # ---------------------------------------------------------------------------
+
+def perlane_group(route: int) -> int:
+    """Threads a sample of K5 on an MLP route: PERLANE_GROUP on the narrow
+    route, K8's `cuda_fixed.FIXED_WIDE_GROUP` on the wide one."""
+    return (PERLANE_GROUP if route == ROUTE_NARROW
+            else cuda_fixed.FIXED_WIDE_GROUP)
+
+
+def _perlane_slot_values(S: int, D: int, dims) -> int:
+    """csrc/lane_group.h perlane_solve_slot_values: K5's slot (state, FSAL
+    derivative, compensation, increment, midpoint, end derivative, squared
+    scaled errors, the S - 1 later stages, then the walk's two layer
+    vectors)."""
+    return (S + 6) * D + 2 * _widest(dims)
+
 
 def mlp_solve_perlane_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                             dt0, rtol, atol, sign, *, f0: Tensor,
@@ -309,14 +334,18 @@ def mlp_solve_perlane(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
     lane = torch.empty((4, B), dtype=torch.int32, device=y0.device)
-    work = torch.empty((S + 5) * B * D, dtype=dtype, device=y0.device)
+    group = perlane_group(route)
+    n_work = _solve_work_size(_perlane_slot_values(S, D, dims), B, group,
+                              _wt_values(route, n_w))
+    work = torch.empty(n_work, dtype=dtype, device=y0.device)
     lib = _build.library()
     fn = (lib.tfd_mlp_solve_perlane_f32 if dtype == torch.float32
           else lib.tfd_mlp_solve_perlane_f64)
     with torch.cuda.device(y0.device):
         err = fn(_ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(dt0_d), _ptr(warrays),
-                 _ptr(out), _ptr(lane), _ptr(stats), _ptr(work), T, B, D,
-                 PERLANE_THREADS, float(rtol), float(atol), float(dt_min),
+                 _ptr(out), _ptr(lane), _ptr(stats), _ptr(work), n_work, T,
+                 B, D, PERLANE_SOLVE_THREADS, group, float(rtol),
+                 float(atol), float(dt_min),
                  float(sign), float(safety), float(ifactor), float(dfactor),
                  int(min(max_steps, 2 ** 31 - 1)), int(valid), len(dims),
                  _dims_arg(dims), _ACT_CODES[activation],
