@@ -4,11 +4,12 @@ kernels, their adjoint sweeps (K3, K9, K6), the Adams kernels (K10, K11)
 at the bench protocol and the conv-ODE solve (K13), for two or more
 checkouts of the repository on one NVIDIA card, in alternating order.
 
-    python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS]
+    python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS] [plans]
 
 Each checkout builds its own kernels first (all together), then every
 round runs one process a checkout, in the order A B B A A B ... (ROUNDS
-pairs, 3 by default), each timing with CUDA events (median of 7 after a
+pairs, 3 by default; with `plans` the plan rows alone), each timing with
+CUDA events (median of 7 after a
 warm-up): the MLP routes of K2 (dopri5, bench spiral y [4096, 2], hidden
 50, 64 outputs over [0, 25], rtol = atol = 1e-6, first step 0.01), K8
 (rk4 x 500) and K5 (every sample's first step 0.01), the MLP routes of
@@ -26,7 +27,9 @@ ODE-Net's width (C = 64, 32 groups, 7x7, controller blocks of 18, t = [0,
 1], rtol = atol = 1e-3, each block's first step 0.05; weights and states
 from numpy seeds) at B = 128 and 256 (median of 3), and, where the checkout
 has the plan routes (`ops/cuda_plan.py`), the same spiral written as
-plain PyTorch in each host (K15 in K3 among them). It prints the card's
+plain PyTorch in each host (K15 in K3 among them) and the
+stiffness battery per sample (K15 in K6 on its own K5 trajectory, the
+cotangent of sum(ys ** 2), first backward step 0.01). It prints the card's
 name and power limit, a line a run and the median of each kernel a
 checkout.
 """
@@ -41,8 +44,9 @@ import sys
 import numpy as np
 
 
-def _one(root: str) -> None:
-    """Time the kernels of the checkout at `root`; print one line."""
+def _one(root: str, plans_only: bool = False) -> None:
+    """Time the kernels of the checkout at `root` (with `plans_only` the
+    plan rows alone); print one line."""
     sys.path.insert(0, root)
     import torch
     from tfdiffeq_tpu_torch import fast
@@ -78,7 +82,7 @@ def _one(root: str) -> None:
             ts.append(a.elapsed_time(b))
         return statistics.median(ts)
 
-    out = {
+    out = {} if plans_only else {
         "K2": timed(lambda: ck.mlp_solve(warr, dims, y, t, 0.01, 1e-6, 1e-6,
                                          1.0, **kw)),
         "K8": timed(lambda: cf.mlp_solve_fixed(warr, dims, y, t, grid, 1.0,
@@ -93,119 +97,122 @@ def _one(root: str) -> None:
     ys = ys.contiguous()
     dt_b = 0.1 * abs(float(t[-1] - t[-2]))
     akw = dict(activation="tanh", input_power=3)
-    out["K3"] = timed(lambda: ca.mlp_adjoint_solve(
-        warr, dims, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0, **akw), reps=3)
-    out["K9"] = timed(lambda: cf.mlp_adjoint_solve_fixed(
-        warr, dims, ys, ct, t, 1.0, num_steps=8, method="rk4", **akw), reps=3)
-    out["K6"] = timed(lambda: cp.mlp_perlane_adjoint_solve(
-        warr, dims, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0, **akw), reps=3)
     from tfdiffeq_tpu_torch.ops import cuda_adams as cad
     grid512 = uniform_grid(t[0], t[-1], 512)
-    for key, implicit in (("K10 fixed_adams", True),
-                          ("K10 explicit_adams", False)):
-        out[key] = timed(lambda: cad.mlp_solve_adams(
-            warr, dims, y, t, grid512, 1e-6, 1e-6, 1.0, implicit=implicit,
-            **kw), reps=3)
-    out["K11"] = timed(lambda: cad.mlp_solve_vcabm(
-        warr, dims, y, t, 0.01, 1e-6, 1e-6, 1.0, **kw), reps=3)
-    # The wide net 128 -> 256 -> 256 -> 128 at B = 1024: K4 alone (the bf16
-    # weight pack and one evaluation) at 'mixed' and 'bf16', K8 rk4 x 128
-    # and K2 dopri5 at 'mixed' (the batch route), K8 at 'highest' (the
-    # wide route); K5, K3 and K9 on the wide route at B = 256.
-    rw = np.random.RandomState(1)
-    wd = ((128, 256), (256, 256), (256, 128))
-    WW = [(c(rw.randn(i, o) / np.sqrt(i)), c(rw.randn(o) * 0.05))
-          for i, o in wd]
-    xw = c(rw.randn(1024, 128) * 0.5)
-    wwarr, wpd = ck.pack_mlp_weights(WW, torch.float32, dev)
-    tiers = {tier: ck.layer_tiers(wpd, "auto", tier)
-             for tier in ("mixed", "bf16")}
-    def device_timed(fn, reps=7, inner=10):
-        # Calls queued behind a sleep on the card: the device time alone.
-        fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(reps):
-            torch.cuda._sleep(20_000_000)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(inner):
-                fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b) / inner)
-        return statistics.median(ts)
+    if not plans_only:
+        out["K3"] = timed(lambda: ca.mlp_adjoint_solve(
+            warr, dims, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0, **akw), reps=3)
+        out["K9"] = timed(lambda: cf.mlp_adjoint_solve_fixed(
+            warr, dims, ys, ct, t, 1.0, num_steps=8, method="rk4", **akw),
+            reps=3)
+        out["K6"] = timed(lambda: cp.mlp_perlane_adjoint_solve(
+            warr, dims, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0, **akw), reps=3)
+        for key, implicit in (("K10 fixed_adams", True),
+                              ("K10 explicit_adams", False)):
+            out[key] = timed(lambda: cad.mlp_solve_adams(
+                warr, dims, y, t, grid512, 1e-6, 1e-6, 1.0, implicit=implicit,
+                **kw), reps=3)
+        out["K11"] = timed(lambda: cad.mlp_solve_vcabm(
+            warr, dims, y, t, 0.01, 1e-6, 1e-6, 1.0, **kw), reps=3)
+        # The wide net 128 -> 256 -> 256 -> 128 at B = 1024: K4 alone (the bf16
+        # weight pack and one evaluation) at 'mixed' and 'bf16', K8 rk4 x 128
+        # and K2 dopri5 at 'mixed' (the batch route), K8 at 'highest' (the
+        # wide route); K5, K3 and K9 on the wide route at B = 256.
+        rw = np.random.RandomState(1)
+        wd = ((128, 256), (256, 256), (256, 128))
+        WW = [(c(rw.randn(i, o) / np.sqrt(i)), c(rw.randn(o) * 0.05))
+              for i, o in wd]
+        xw = c(rw.randn(1024, 128) * 0.5)
+        wwarr, wpd = ck.pack_mlp_weights(WW, torch.float32, dev)
+        tiers = {tier: ck.layer_tiers(wpd, "auto", tier)
+                 for tier in ("mixed", "bf16")}
+        def device_timed(fn, reps=7, inner=10):
+            # Calls queued behind a sleep on the card: the device time alone.
+            fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(reps):
+                torch.cuda._sleep(20_000_000)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(inner):
+                    fn()
+                b.record()
+                b.synchronize()
+                ts.append(a.elapsed_time(b) / inner)
+            return statistics.median(ts)
 
-    for tier, tt in tiers.items():
-        out[f"K4 {tier}"] = device_timed(lambda: ck.tier_net(wwarr, wpd, xw,
-                                                             tiers=tt))
-    wspec = fast.MLPSpec(activation="tanh")
-    wf0 = fast.mlp_apply(wspec, WW, xw)
-    tw = torch.linspace(0.0, 1.0, 8)
-    out["K8 wide mixed"] = timed(lambda: cf.mlp_solve_fixed(
-        wwarr, wpd, xw, tw, uniform_grid(tw[0], tw[-1], 128), 1.0, f0=wf0,
-        method="rk4", tiers=tiers["mixed"]), reps=3)
-    out["K2 wide mixed"] = timed(lambda: ck.mlp_solve(
-        wwarr, wpd, xw, tw, 0.01, 1e-5, 1e-5, 1.0, f0=wf0,
-        tiers=tiers["mixed"]), reps=3)
-    out["K8 wide highest"] = timed(lambda: cf.mlp_solve_fixed(
-        wwarr, wpd, xw, tw, uniform_grid(tw[0], tw[-1], 128), 1.0, f0=wf0,
-        method="rk4"), reps=3)
-    xs = xw[:256].contiguous()
-    out["K5 wide"] = timed(lambda: cp.mlp_solve_perlane(
-        wwarr, wpd, xs, tw[:4], 0.05, 1e-5, 1e-5, 1.0,
-        f0=wf0[:256].contiguous()), reps=3)
-    wys, _ = ck.mlp_solve(wwarr, wpd, xs, tw[:4], 0.01, 1e-5, 1e-5, 1.0,
-                          f0=wf0[:256].contiguous())
-    wg = c(rw.randn(*wys.shape) * 0.01)
-    out["K3 wide"] = timed(lambda: ca.mlp_adjoint_solve(
-        wwarr, wpd, wys.contiguous(), wg, tw[:4], 0.05, 1e-5, 1e-5, 1.0),
-        reps=3)
-    out["K9 wide"] = timed(lambda: cf.mlp_adjoint_solve_fixed(
-        wwarr, wpd, wys.contiguous(), wg, tw[:4], 1.0, num_steps=2),
-        reps=3)
-    # K13 at the ODE-Net's width: the conv-ODE block's parameters (HWIO
-    # kernels with lecun-normal variance, perturbed GroupNorm affines).
-    from tfdiffeq_tpu_torch.ops import conv_ode as co, cuda_conv as cc
-    rn = np.random.RandomState(11)
-    C = 64
-    params = {"gn": [(1.0 + 0.1 * rn.randn(C), 0.1 * rn.randn(C))
-                     for _ in range(3)],
-              "conv": [(rn.randn(3, 3, C + 1, C) / np.sqrt(9 * (C + 1)),
-                        0.1 * rn.randn(C)) for _ in range(2)]}
-    spec = co.ConvODESpec(channels=C, groups=32)
-    wpack = cc.pack_conv_ode_weights(params, spec, torch.float32, dev)
-    xo = c(rn.randn(256, C, 7, 7) * 0.5)
-    tau = torch.tensor([0.0, 1.0])
-    for Bc in (128, 256):
-        x = xo[:Bc].contiguous()
-        cf0 = co.conv_ode_apply(params, tau[0].to(dev), x, spec).contiguous()
-        cdt = torch.full((-(-Bc // 18),), 0.05, device=dev)
-        out[f"K13 B{Bc}"] = timed(lambda: cc.conv_solve(
-            wpack, spec, x, tau, cdt, 1e-3, 1e-3, 1.0, f0=cf0,
-            block_size=18), reps=3)
-    # K7's adjoint in K3: the CNF flow 3 -> 32 -> 32 -> 2 at B = 4096, t =
-    # 1 -> 0, on its own forward trajectory with the density loss's
-    # cotangent.
-    rc = np.random.RandomState(3)
-    CW = [(c(rc.randn(i, o) * 0.6 / np.sqrt(i)), c(rc.randn(o) * 0.1))
-          for i, o in ((3, 32), (32, 32), (32, 2))]
-    cpk, cpd = ck.pack_mlp_weights(CW, torch.float32, dev)
-    s0 = torch.cat([c(rc.randn(4096, 2)), torch.zeros(4096, 1, device=dev)],
-                   dim=1)
-    tau = torch.tensor([-1.0, 0.0])
-    cf0 = -ck._cnf_net_plain(cpk, cpd, "tanh")(torch.tensor(1.0, device=dev),
-                                               s0)
-    cys, _ = ck.mlp_solve(cpk, cpd, s0, tau, 0.1, 1e-5, 1e-7, -1.0,
-                          f0=cf0.contiguous(), activation="tanh",
-                          time_input=True, rhs="cnf")
-    cg = torch.zeros_like(cys)
-    cg[-1, :, :2] = cys[-1, :, :2] / 4096
-    cg[-1, :, 2] = 1.0 / 4096
-    out["K7 in K3"] = timed(lambda: ca.mlp_adjoint_solve(
-        cpk, cpd, cys.contiguous(), cg, tau, 0.1, 1e-5, 1e-7, -1.0,
-        activation="tanh", rhs="cnf"), reps=3)
+        for tier, tt in tiers.items():
+            out[f"K4 {tier}"] = device_timed(lambda: ck.tier_net(
+                wwarr, wpd, xw, tiers=tt))
+        wspec = fast.MLPSpec(activation="tanh")
+        wf0 = fast.mlp_apply(wspec, WW, xw)
+        tw = torch.linspace(0.0, 1.0, 8)
+        out["K8 wide mixed"] = timed(lambda: cf.mlp_solve_fixed(
+            wwarr, wpd, xw, tw, uniform_grid(tw[0], tw[-1], 128), 1.0, f0=wf0,
+            method="rk4", tiers=tiers["mixed"]), reps=3)
+        out["K2 wide mixed"] = timed(lambda: ck.mlp_solve(
+            wwarr, wpd, xw, tw, 0.01, 1e-5, 1e-5, 1.0, f0=wf0,
+            tiers=tiers["mixed"]), reps=3)
+        out["K8 wide highest"] = timed(lambda: cf.mlp_solve_fixed(
+            wwarr, wpd, xw, tw, uniform_grid(tw[0], tw[-1], 128), 1.0, f0=wf0,
+            method="rk4"), reps=3)
+        xs = xw[:256].contiguous()
+        out["K5 wide"] = timed(lambda: cp.mlp_solve_perlane(
+            wwarr, wpd, xs, tw[:4], 0.05, 1e-5, 1e-5, 1.0,
+            f0=wf0[:256].contiguous()), reps=3)
+        wys, _ = ck.mlp_solve(wwarr, wpd, xs, tw[:4], 0.01, 1e-5, 1e-5, 1.0,
+                              f0=wf0[:256].contiguous())
+        wg = c(rw.randn(*wys.shape) * 0.01)
+        out["K3 wide"] = timed(lambda: ca.mlp_adjoint_solve(
+            wwarr, wpd, wys.contiguous(), wg, tw[:4], 0.05, 1e-5, 1e-5, 1.0),
+            reps=3)
+        out["K9 wide"] = timed(lambda: cf.mlp_adjoint_solve_fixed(
+            wwarr, wpd, wys.contiguous(), wg, tw[:4], 1.0, num_steps=2),
+            reps=3)
+        # K13 at the ODE-Net's width: the conv-ODE block's parameters (HWIO
+        # kernels with lecun-normal variance, perturbed GroupNorm affines).
+        from tfdiffeq_tpu_torch.ops import conv_ode as co, cuda_conv as cc
+        rn = np.random.RandomState(11)
+        C = 64
+        params = {"gn": [(1.0 + 0.1 * rn.randn(C), 0.1 * rn.randn(C))
+                         for _ in range(3)],
+                  "conv": [(rn.randn(3, 3, C + 1, C) / np.sqrt(9 * (C + 1)),
+                            0.1 * rn.randn(C)) for _ in range(2)]}
+        spec = co.ConvODESpec(channels=C, groups=32)
+        wpack = cc.pack_conv_ode_weights(params, spec, torch.float32, dev)
+        xo = c(rn.randn(256, C, 7, 7) * 0.5)
+        tau = torch.tensor([0.0, 1.0])
+        for Bc in (128, 256):
+            x = xo[:Bc].contiguous()
+            cf0 = co.conv_ode_apply(params, tau[0].to(dev), x,
+                                    spec).contiguous()
+            cdt = torch.full((-(-Bc // 18),), 0.05, device=dev)
+            out[f"K13 B{Bc}"] = timed(lambda: cc.conv_solve(
+                wpack, spec, x, tau, cdt, 1e-3, 1e-3, 1.0, f0=cf0,
+                block_size=18), reps=3)
+        # K7's adjoint in K3: the CNF flow 3 -> 32 -> 32 -> 2 at B = 4096, t =
+        # 1 -> 0, on its own forward trajectory with the density loss's
+        # cotangent.
+        rc = np.random.RandomState(3)
+        CW = [(c(rc.randn(i, o) * 0.6 / np.sqrt(i)), c(rc.randn(o) * 0.1))
+              for i, o in ((3, 32), (32, 32), (32, 2))]
+        cpk, cpd = ck.pack_mlp_weights(CW, torch.float32, dev)
+        s0 = torch.cat([c(rc.randn(4096, 2)),
+                        torch.zeros(4096, 1, device=dev)], dim=1)
+        tau = torch.tensor([-1.0, 0.0])
+        cf0 = -ck._cnf_net_plain(cpk, cpd, "tanh")(
+            torch.tensor(1.0, device=dev), s0)
+        cys, _ = ck.mlp_solve(cpk, cpd, s0, tau, 0.1, 1e-5, 1e-7, -1.0,
+                              f0=cf0.contiguous(), activation="tanh",
+                              time_input=True, rhs="cnf")
+        cg = torch.zeros_like(cys)
+        cg[-1, :, :2] = cys[-1, :, :2] / 4096
+        cg[-1, :, 2] = 1.0 / 4096
+        out["K7 in K3"] = timed(lambda: ca.mlp_adjoint_solve(
+            cpk, cpd, cys.contiguous(), cg, tau, 0.1, 1e-5, 1e-7, -1.0,
+            activation="tanh", rhs="cnf"), reps=3)
     plan_mod = os.path.join(root, "tfdiffeq_tpu_torch", "ops", "cuda_plan.py")
     if os.path.exists(plan_mod):
         from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, \
@@ -235,6 +242,27 @@ def _one(root: str) -> None:
                 plan, packed, ys, ct, t, 1.0, num_steps=8), reps=3)
             out["K15 in K6"] = timed(lambda: cpl.plan_perlane_adjoint_solve(
                 plan, packed, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0), reps=3)
+            # The stiffness battery (bench.py:502-504: a per-sample scale
+            # over the spiral's net, 5 outputs over [0, 2]) per sample: its
+            # K5 forward, the cotangent of sum(ys ** 2), a K6 sweep.
+            scb = c(np.logspace(0.0, 2.0, 4096))
+
+            def fb(tt, yy):
+                return scb[:, None] * (torch.tanh((yy ** 3) @ p["w1"]
+                                                  + p["b1"]) @ p["w2"])
+
+            bplan, bconsts = pb.build_plan(fb, t[0].to(dev), y)
+            bpk = pb.pack_consts(bplan, bconsts, torch.float32, dev)
+            t5 = torch.linspace(0.0, 2.0, 5)
+            bf0 = cpl.plan_rhs(bplan, bpk, torch.tensor(1.0, device=dev))(
+                t5[0].to(dev), y).contiguous()
+            cpl.build([(bplan, "perlane"), (bplan, "perlane_adjoint")])
+            bys = cpl.plan_solve(bplan, bpk, y, t5, dt0, 1e-6, 1e-6, 1.0,
+                                 bf0, per_sample=True)[0].contiguous()
+            bct = (2.0 * bys).contiguous()
+            out["K15 in K6 battery"] = timed(
+                lambda: cpl.plan_perlane_adjoint_solve(
+                    bplan, bpk, bys, bct, t5, 0.01, 1e-6, 1e-6, 1.0), reps=3)
         if hasattr(cpl, "plan_solve_adams"):
             cpl.build([(plan, "adams"), (plan, "vcabm")])
             for key, implicit in (("K14 in K10 fixed_adams", True),
@@ -250,13 +278,14 @@ def _one(root: str) -> None:
 
 def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        _one(os.path.abspath(sys.argv[2]))
+        _one(os.path.abspath(sys.argv[2]), "plans" in sys.argv[3:])
         return 0
     if len(sys.argv) < 3:
         print(__doc__, file=sys.stderr)
         return 2
     dirs = [os.path.abspath(d) for d in sys.argv[1:3]]
     rounds = int(sys.argv[3]) if len(sys.argv) > 3 else 3
+    only = sys.argv[4:5]
     me = os.path.abspath(__file__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -272,7 +301,7 @@ def main() -> int:
         order += dirs if r % 2 == 0 else dirs[::-1]
     runs = {d: [] for d in dirs}
     for d in order:
-        res = subprocess.run([sys.executable, me, "--one", d],
+        res = subprocess.run([sys.executable, me, "--one", d] + only,
                              capture_output=True, text=True)
         line = next((l for l in res.stdout.splitlines()
                      if l.startswith("RESULT ")), None)

@@ -1971,6 +1971,14 @@ def _plan_flops(plan) -> int:
     return n
 
 
+def _walk_of(cpl, host: str) -> dict:
+    """How the latest launch on a plan host walked a sample: `group`
+    threads (1: a thread a sample; else the generated group walk) and
+    where it read the constants (`route`: 'shared' or 'global')."""
+    return {"group": cpl.last_group.get(host),
+            "route": cpl.last_route.get(host)}
+
+
 def _plan_tier(smi: str, dev, builds, pairs) -> dict:
     """Phases 28-32: K14, a traced plan's generated right-hand side, in K2,
     K8 and K5. `builds` is the future of the build of `pairs`' plan
@@ -2112,6 +2120,7 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
             args8, kw8, _ = r.calls[0]
             rec["k8_nfe"] = res.stats.nfe
     rec["ms"]["K8"] = _timed(lambda: cpl.plan_solve_fixed(*args8, **kw8))
+    rec.setdefault("walk", {})["K8"] = _walk_of(cpl, "fixed")
     grid = args8[4]
     rec["mlp_route_ms"]["K8"] = _timed(lambda: cf.mlp_solve_fixed(
         warr, dims, y32, t, grid, 1.0, **mlp_kw))
@@ -2127,7 +2136,8 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
              f"[29] K14 in K8 {method} float64 B=96", cpl.plan_solve_fixed)
     print(f"[29] {smi}: K14 in K8 {rec['ms']['K8']:.3f} ms an rk4 x 500 "
           f"solve vs K8's MLP route {rec['mlp_route_ms']['K8']:.3f} ms; "
-          f"plain {rec['plain_ms']['K8']:.1f} ms", flush=True)
+          f"plain {rec['plain_ms']['K8']:.1f} ms; walk {rec['walk']['K8']}",
+          flush=True)
 
     _at("30")
     # [30] K14 in K5: a controller a sample, through solve(fuse,
@@ -2159,12 +2169,14 @@ def _plan_tier(smi: str, dev, builds, pairs) -> dict:
             rec["err"]["K5"], rec["plain_ms"]["K5"] = err, plain_ms
             rec["k5_stats"] = got5[1].tolist()
     rec["ms"]["K5"] = _timed(lambda: cpl.plan_solve(*args5, **kw5))
+    rec.setdefault("walk", {})["K5"] = _walk_of(cpl, "perlane")
     dt0 = args5[4]
     rec["mlp_route_ms"]["K5"] = _timed(lambda: cp.mlp_solve_perlane(
         warr, dims, y32, t, dt0, TOL, TOL, 1.0, **mlp_kw))
     print(f"[30] {smi}: K14 in K5 {rec['ms']['K5']:.3f} ms a solve vs K5's "
           f"MLP route {rec['mlp_route_ms']['K5']:.3f} ms; plain "
-          f"{rec['plain_ms']['K5']:.1f} ms", flush=True)
+          f"{rec['plain_ms']['K5']:.1f} ms; walk {rec['walk']['K5']}",
+          flush=True)
 
     _at("31")
     # [31] batch couplings in K2: the block meets in their fixed order.
@@ -2418,6 +2430,7 @@ def _aug_tier(smi: str, dev) -> dict:
             rec["n_consts"] = sum(x.numel() for x in a3[1])
     rec["ms"]["K3"] = _timed(lambda: cpl.plan_adjoint_solve(*a3, **k3),
                              reps=3)
+    rec.setdefault("walk", {})["K3"] = _walk_of(cpl, "adjoint")
     # K3's MLP route on the same trajectory, cotangent and weights.
     p, y, _ = _bench_params(B, f32, dev)
     W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
@@ -2458,8 +2471,8 @@ def _aug_tier(smi: str, dev) -> dict:
           f"{rec['plain_ms']['K3']:.1f} ms. Step: fused "
           f"{rec['step_ms']['K3']:.3f} ms (median of 3) vs odeint_adjoint_mlp "
           f"{rec['mlp_route_step_ms']['K3']:.3f} ms vs the generic "
-          f"odeint_adjoint {rec['generic_ms']['K3']:.3f} ms (one step)",
-          flush=True)
+          f"odeint_adjoint {rec['generic_ms']['K3']:.3f} ms (one step); "
+          f"walk {rec['walk']['K3']}", flush=True)
 
     _at("34")
     # [34] P2: per-sample training of the stiffness battery
@@ -2498,6 +2511,7 @@ def _aug_tier(smi: str, dev) -> dict:
     rec["k6_nfe"] = int(bst[0])
     rec["ms"]["K6"] = _timed(lambda: cpl.plan_perlane_adjoint_solve(
         *a6, **k6), reps=3)
+    rec.setdefault("walk", {})["K6"] = _walk_of(cpl, "perlane_adjoint")
     rec["k6_spiral"] = {}
     for dtype in (f32, f64):
         p, y, _ = _bench_params(B, dtype, dev)
@@ -2556,8 +2570,8 @@ def _aug_tier(smi: str, dev) -> dict:
           f"{sp['ms']:.3f} ms (nfe {sp['nfe']}); plain {sp['plain_ms']:.1f}"
           f" ms. Battery step: per-sample {rec['step_ms']['K6']:.3f} ms vs "
           f"the shared controller (K2 + K3) "
-          f"{rec['shared_controller_step_ms']:.3f} ms (medians of 3)",
-          flush=True)
+          f"{rec['shared_controller_step_ms']:.3f} ms (medians of 3); walk "
+          f"{rec['walk']['K6']}", flush=True)
 
     _at("35")
     # [35] P3: coupled training on K2's batch route and K3's batch-wide
@@ -2641,6 +2655,7 @@ def _aug_tier(smi: str, dev) -> dict:
             rec["k9_nfe"] = int(g9[3][0])
     rec["ms"]["K9"] = _timed(lambda: cpl.plan_adjoint_solve_fixed(
         *a9, **k9), reps=3)
+    rec.setdefault("walk", {})["K9"] = _walk_of(cpl, "fixed_adjoint")
     p, y, _ = _bench_params(B, f32, dev)
     rec["mlp_route_ms"]["K9"] = _timed(lambda: cf.mlp_adjoint_solve_fixed(
         warr, dims, a9[2], a9[3], a9[4], 1.0, num_steps=8, method="rk4",
@@ -2678,8 +2693,8 @@ def _aug_tier(smi: str, dev) -> dict:
           f"{rec['plain_ms']['K9']:.1f} ms. Step: fused "
           f"{rec['step_ms']['K9']:.3f} ms vs odeint_adjoint_mlp "
           f"{rec['mlp_route_step_ms']['K9']:.3f} ms vs the generic "
-          f"odeint_adjoint {rec['generic_ms']['K9']:.3f} ms (one step)",
-          flush=True)
+          f"odeint_adjoint {rec['generic_ms']['K9']:.3f} ms (one step); "
+          f"walk {rec['walk']['K9']}", flush=True)
 
     # Bounds: the evaluations of these runs' inputs.
     af, nc = rec["aug_flops"], rec["n_consts"]
@@ -4150,6 +4165,7 @@ def main() -> int:
          "library_ms": None, "build_s": plan["build_s"],
          "n_blocks": ck.solve_blocks(B, dev),
          "mlp_route_ms": plan["mlp_route_ms"],
+         "walk_by_host": plan["walk"],
          "coupled_k2": plan["coupled"],
          "cnf_sample_auto_ms": plan["flow_ms"],
          "cnf_sample_auto_kernel_ms": plan["flow_kernel_ms"],
@@ -4175,6 +4191,7 @@ def main() -> int:
          "train_step_ms_by_host": aug["step_ms"],
          "mlp_route_ms": aug["mlp_route_ms"],
          "mlp_route_step_ms": aug["mlp_route_step_ms"],
+         "walk_by_host": aug["walk"],
          "shared_controller_step_ms": aug["shared_controller_step_ms"],
          "k6_failed_samples": aug["k6_failed_samples"],
          "k6_spiral": aug["k6_spiral"],

@@ -1418,12 +1418,11 @@ def test_fused_entry_points_launch_and_never_fall_back(cuda, monkeypatch):
 # K15: the plan's reverse walk inside K3, K6 and K9 (ops/cuda_plan.py)
 # ---------------------------------------------------------------------------
 
-def _aug_case(name, dtype, device):
+def _aug_case(name, dtype, device, B=96):
     """A plan of `_plan_dyns` (or 'drive': a per-sample constant and a
-    learnable scalar), its forward trajectory from the plain solve and a
-    seeded output cotangent."""
+    learnable scalar) at batch B, its forward trajectory from the plain
+    solve and a seeded output cotangent."""
     from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, plan_bridge as pb
-    B = 96
     if name == "drive":
         rng = np.random.RandomState(5)
         W = torch.tensor(rng.randn(2, 8) * 0.4, dtype=dtype, device=device)
@@ -1483,6 +1482,43 @@ def test_plan_adjoint_hosts_match_plain(cuda, dtype, name):
         plan, packed, ys, ct, t, 1.0, num_steps=4))
     assert (cpl.plan_adjoint_launches, cpl.plan_perlane_adjoint_launches,
             cpl.plan_fixed_adjoint_launches) == (2, 1, 1)
+
+
+@pytest.mark.parametrize("B", [1, 33, 300, 4097])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plan_group_walks_match_plain(cuda, dtype, B):
+    """The generated group walks: K14 in K5 and K8, K15 in K6 and K9, with
+    a time column and a per-sample constant,
+    at B = 1, 33, 300 and 4097 (idle groups in the last block): bitwise
+    equal to the unchanged plain versions and from run to run; each host
+    records the group its walk took."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    plan, packed, y0, t, g, f0 = _plan_case("concat_t_gelu", dtype, cuda, B)
+    args = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+    got = cpl.plan_solve(*args, per_sample=True)
+    assert _same(got, cpl.plan_solve(*args, per_sample=True))
+    assert _same(got, cpl.plan_solve_plain(*args, per_sample=True))
+    assert cpl.last_group["perlane"] == cpl.PERLANE_GROUP
+    grid = uniform_grid(t[0], t[-1], 40)
+    got = cpl.plan_solve_fixed(plan, packed, y0, t, grid, 1.0, f0)
+    assert _same(got, cpl.plan_solve_fixed(plan, packed, y0, t, grid, 1.0,
+                                           f0))
+    assert _same(got, cpl.plan_solve_fixed_plain(plan, packed, y0, t, grid,
+                                                 1.0, f0))
+    assert cpl.last_group["fixed"] == cpl.FIXED_GROUP
+    plan, packed, ys, ct, t = _aug_case("drive", dtype, cuda, B)
+    args = (plan, packed, ys, ct, t, 0.05, 1e-6, 1e-6, 1.0)
+    got = cpl.plan_perlane_adjoint_solve(*args)
+    assert _same_sweep(got, cpl.plan_perlane_adjoint_solve(*args))
+    assert _same_sweep(got, cpl.plan_perlane_adjoint_solve_plain(*args))
+    assert cpl.last_group["perlane_adjoint"] == cpl.PERLANE_GROUP
+    fargs = (plan, packed, ys, ct, t, 1.0)
+    got = cpl.plan_adjoint_solve_fixed(*fargs, num_steps=4)
+    assert _same_sweep(got, cpl.plan_adjoint_solve_fixed(*fargs,
+                                                         num_steps=4))
+    assert _same_sweep(got, cpl.plan_adjoint_solve_fixed_plain(
+        *fargs, num_steps=4))
+    assert cpl.last_group["fixed_adjoint"] == cpl.PERLANE_GROUP
 
 
 def test_fused_training_launches_and_never_falls_back(cuda, monkeypatch):

@@ -13,7 +13,8 @@
 //   grid_shares    one meeting of the solves (K2, K11, K10): each block's
 //                  share of a few sums in, every block's merged sums out
 //                  (the adds of merge_blocks, its loads spread over the
-//                  block); group_shares the same for a group of blocks.
+//                  block); group_shares the same for a group of blocks (K3
+//                  stages a few merges the same way, rk_adjoint_kernel).
 //
 // Every block merges the same values in the same order with the same
 // instructions, read past L1, so every block takes bitwise the same total

@@ -41,6 +41,15 @@ inline long lane_group_mlp_walk_values(int n_layers, const int* dims,
   return v;
 }
 
+// The walk values of K15's generated group walk (csrc/plan_aug.cuh
+// PlanGroupAug) in K6's and K9's slot: the walk's quadrature rows
+// (q_rows), the sample's per-sample constants (n_sample), the walk's own
+// values (group_values, ops/plan_codegen.py kGroupValues), then f and v_y.
+inline long plan_aug_walk_values(int q_rows, int n_sample, int group_values,
+                                 int out_rows, int D) {
+  return long(q_rows) + n_sample + group_values + out_rows + D;
+}
+
 // The sweep's workspace: every sample's slot (used where the block's slots
 // do not fit in its shared memory), then the STEP rows of its n_q
 // quadratures (sample-major; used where they do not fit in registers).
@@ -70,6 +79,13 @@ inline bool group_size_ok(int group) {
 
 // Samples a block of `group` threads a sample.
 inline int group_samples(int group) { return kGroupBlock / group; }
+
+// The walk values of K14's generated group walk (csrc/plan_rhs.cuh
+// PlanLaneRhs) in K8's and K5's slot: the sample's D inputs, the walk's own
+// values (group_values, ops/plan_codegen.py kGroupValues), its outputs.
+inline long plan_solve_walk_values(int D, int out_rows, int group_values) {
+  return long(D) + group_values + out_rows;
+}
 
 // K8's slot: the state, its Kahan compensation, the chained derivative
 // f(t0, y0), the step's start state, the S - 1 later stages (D values

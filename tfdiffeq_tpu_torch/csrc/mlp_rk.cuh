@@ -584,6 +584,8 @@ struct MlpLaneRhs {
   // values in the workspace.
   long smem_values() const { return kRoute == kRouteNarrow ? n_weights : 0; }
   long wt_values() const { return kRoute == kRouteNarrow ? 0 : n_weights; }
+  // The walk's values in a sample's slot: the two layer vectors.
+  long walk_values() const { return 2L * gw; }
 
   __device__ __forceinline__ const T* weights() const {
     if constexpr (kRoute == kRouteNarrow) {
@@ -608,7 +610,8 @@ struct MlpLaneRhs {
   // The sample's D inputs in hin (2 gw values: the two layer vectors).
   template <class Sync>
   __device__ const T* eval_lanes(const Shared& sh, T t, T* hin, int m,
-                                 int gsz, const Sync& sync) const {
+                                 int gsz, const Sync& sync, int,
+                                 int) const {
     return mlp_eval_lanes(sh.net, weights(), t, hin, hin + gw, m, gsz, sync);
   }
 };

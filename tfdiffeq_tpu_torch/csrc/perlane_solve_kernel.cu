@@ -51,8 +51,8 @@
 //
 // Routes (mlp_rk.cuh Route): narrow; wide, for layers up to kMaxWidth or
 // weights past shared memory, the weights read from global memory (L2).
-// K14's plans keep a thread a sample (csrc/rk_perlane.cuh
-// rk_perlane_kernel).
+// K14's plans take the same group engine with the generated group walk
+// (csrc/plan_rhs.cuh PlanLaneRhs).
 #include "rk_perlane.cuh"
 
 namespace tfd {

@@ -31,9 +31,8 @@
 // A plan without a coupling is one segment.
 //
 // PlanAugRhs walks a sample at a time in its thread (K3, over the grid that
-// cuts the batch into ranges, csrc/rk_adjoint.cuh); PlanLaneAug the same in
-// K6 and K9 in every member of the sample's group of threads
-// (group_stage);
+// cuts the batch into ranges, csrc/rk_adjoint.cuh); PlanGroupAug splits a
+// sample's walk over its group of threads in K6 and K9 (group_stage);
 // PlanBatchAugRhs (K3 only, one block) walks a stage batch-wide, segment
 // by segment, every thread for the samples it owns, the block meeting at
 // each coupling and at each coupling's transpose (csrc/plan_rhs.cuh
@@ -109,42 +108,57 @@ struct PlanAugRhs : PlanAugBase<T, P> {
   }
 };
 
+// K6's and K9's stage of sample b with its group of threads
+// (csrc/rk_adjoint.cuh rk_perlane_adjoint_kernel, rk_fixed_adjoint_kernel):
+// the generated group walk (`PlanAug::group_walk`, ops/plan_codegen.py),
+// each row of a value computed by the member that owns it (row i: member
+// i % gsz), a dot's outputs and the VJP dot's inputs over the
+// members, a reduction by member 0, the group meeting (__syncwarp with its
+// lanes' mask) only where a member reads a row another one wrote, and
+// after the walk. Every row is the same expression as in the per-thread
+// walk, computed in the same order, so the same bits. The walk's rows sit
+// in the sample's slot gs, one value a row: the qr rows, the sample's
+// per-sample constants (copied there once by group_init), the walk's own
+// values, then f and v_y; so the walk runs with a row stride of 1 (B = 1,
+// b = 0), in shared memory where the slots fit; member m then writes
+// ky[d], kay[d] for d = m, m + gsz, ... The constants are the flat array
+// and its transposed copy (n_consts counts both). The walk takes its group
+// size from `walk_group` (kLaneGroup, set at launch), not the kernel's
+// compile-time gsz: with the constant, K15 in K9 took 21.8 ms a spiral
+// sweep against 13.7 (chip_ab.py, PERF.md §6).
 template <typename T, class P>
-struct PlanLaneAug : PlanAugRhs<T, P> {
+struct PlanGroupAug : PlanAugBase<T, P> {
+  static_assert(P::kSegments == 1, "a group walk has no coupling");
+  static constexpr bool kBatch = false;
   using Shared = typename PlanAugBase<T, P>::Shared;
-  using Local = typename PlanAugRhs<T, P>::Local;
-  // K6's and K9's stage of sample b with a group of threads
-  // (csrc/rk_adjoint.cuh rk_perlane_adjoint_kernel,
-  // rk_fixed_adjoint_kernel). The walk's rows sit in
-  // the sample's slot gs, one value a row (the qr rows, then the sample's
-  // per-sample constants, copied there once by group_init), so the walk
-  // runs with a row stride of 1 (B = 1, b = 0) in shared memory where the
-  // slots fit. Every member runs the walk at once (one instruction stream
-  // for the group, so no dearer than one member), each writing the same
-  // rows with the same values and reading back its own; member m writes
-  // ky[d], kay[d] for d = m, m + gsz, ...
-  __host__ __device__ long walk_values() const {
-    return P::kQRows + P::kNSample;
+  struct Local {};
+  int walk_group;   // == the engine's kLaneGroup
+
+  long walk_values() const {
+    return plan_aug_walk_values(P::kQRows, P::kNSample, P::kGroupValues,
+                                P::kOutRows, P::kDim);
+  }
+  __device__ T* setup(Shared& sh, Local&, unsigned char* smem) const {
+    return PlanAugBase<T, P>::setup(sh, nullptr, smem);
   }
   __device__ void group_init(const Shared&, T* gs, int b, int B, int m,
                              int gsz) const {
     for (int r = m; r < P::kNSample; r += gsz)
       gs[P::kQRows + r] = this->scg[long(r) * B + b];
   }
-  __device__ void group_stage(const Shared&, Local& lo, T t, int, int, T sf,
+  __device__ void group_stage(const Shared&, Local&, T t, int, int, T sf,
                               const T* ya, const T* aya, T* ky, T* kay,
-                              T* gs, int m, int gsz, unsigned) const {
-    for (int d = 0; d < P::kDim; ++d) {
-      lo.ya[d] = ya[d];
-      lo.aya[d] = aya[d];
-    }
-    P::template seg<T>(0, t, lo.ya, lo.aya,
-                       plan_consts(this->cg, this->in_smem),
-                       gs + P::kQRows, 0, 1, nullptr, nullptr, gs, lo.f,
-                       lo.vy);
+                              T* gs, int m, int gsz, unsigned mask) const {
+    T* const ws = gs + P::kQRows + P::kNSample;
+    T* const F = ws + P::kGroupValues;
+    T* const VY = F + P::kOutRows;
+    P::template group_walk<T>(t, ya, aya,
+                              plan_consts(this->cg, this->in_smem),
+                              gs + P::kQRows, 0, 1, gs, F, VY, ws, m,
+                              walk_group, [mask]() { __syncwarp(mask); });
     for (int d = m; d < P::kDim; d += gsz) {
-      ky[d] = (-sf) * lo.f[d];
-      kay[d] = sf * lo.vy[d];
+      ky[d] = (-sf) * F[d];
+      kay[d] = sf * VY[d];
     }
   }
   __device__ T group_x(const Shared&, int r, const T* gs) const {
@@ -269,14 +283,15 @@ int launch_plan_adjoint(const void* tau, const void* ys, const void* g,
 }
 
 template <typename T, class P>
-PlanLaneAug<T, P> make_plan_lane_aug(const void* consts, int n_consts,
-                                     const void* sample_consts,
-                                     int smem_consts) {
-  PlanLaneAug<T, P> aug;
+PlanGroupAug<T, P> make_plan_group_aug(const void* consts, int n_consts,
+                                       const void* sample_consts,
+                                       int smem_consts) {
+  PlanGroupAug<T, P> aug;
   aug.cg = static_cast<const T*>(consts);
   aug.scg = static_cast<const T*>(sample_consts);
   aug.n_consts = n_consts;
   aug.in_smem = smem_consts;
+  aug.walk_group = kLaneGroup;
   return aug;
 }
 
@@ -318,8 +333,8 @@ int launch_plan_perlane_adjoint(
     return static_cast<int>(launch_rk_perlane_adjoint<T>(
         tau, ys, g, dt0, ay0, aw, at, aps, lane_stats, stats, partial, work,
         work_size,
-        make_plan_lane_aug<T, P>(consts, n_consts, sample_consts,
-                                 smem_consts),
+        make_plan_group_aug<T, P>(consts, n_consts, sample_consts,
+                                  smem_consts),
         fixed, tab, sc, static_cast<cudaStream_t>(stream)));
   }
 }
@@ -356,8 +371,8 @@ int launch_plan_fixed_adjoint(const void* tau, const void* ys, const void* g,
     const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
     return static_cast<int>(launch_rk_fixed_adjoint<T>(
         tau, ys, g, ay0, aw, at, aps, stats, work, work_size,
-        make_plan_lane_aug<T, P>(consts, n_consts, sample_consts,
-                                 smem_consts),
+        make_plan_group_aug<T, P>(consts, n_consts, sample_consts,
+                                  smem_consts),
         fixed, tab, sc, static_cast<cudaStream_t>(stream)));
   }
 }

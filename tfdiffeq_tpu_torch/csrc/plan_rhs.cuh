@@ -23,9 +23,18 @@
 // couplings that end segment k, handed to m(kind, row, rows, red_off,
 // to_scalar)). A plan without a coupling is one segment.
 //
-// PlanRhs evaluates a sample at a time in its thread (K2, K5, K8, K10, K11
-// and K12, for uncoupled plans; K2, K11 and fixed_adams' K10 spread it over
-// their grids).
+// PlanRhs evaluates a sample at a time in its thread (K2, K10, K11 and
+// K12, for uncoupled plans; K2, K11 and fixed_adams' K10 spread it over
+// their grids). PlanLaneRhs walks a
+// sample with a group of threads (K5 and K8, csrc/rk_perlane.cuh and
+// rk_fixed.cuh rk_*_group_kernel): the generated group walk (`Plan::
+// group_walk`, ops/plan_codegen.py), each row of a value computed by the
+// member that owns it, a dot's outputs over the members, the group meeting
+// only where a member reads a row another one wrote; every row the same
+// expression as in the per-thread walk, so the same bits. Its values sit in
+// the sample's slot after its D inputs; its constants are the flat array
+// and its transposed copy (plan_codegen.flat_consts(transposed=True)), in
+// shared memory where they fit.
 // PlanBatchRhs (K2 only, on one block) evaluates a stage batch-wide:
 // every thread runs segment k for the samples it owns, writing the rows a
 // coupling reduces into live rows; the block then meets and reduces them
@@ -121,6 +130,40 @@ struct PlanRhsAfter : PlanRhs<T, P> {
                        plan_consts(this->cg, this->in_smem, smem_off),
                        this->scg, b, B, nullptr, nullptr, lo.out);
     return lo.out;
+  }
+};
+
+// K5's and K8's group walk (csrc/lane_group.h). n_consts counts both
+// copies of the constants.
+template <typename T, class P>
+struct PlanLaneRhs {
+  static_assert(P::kSegments == 1, "a group walk has no coupling");
+  const T* cg;    // the constants and their transposed copy
+  const T* scg;   // per-sample constants [rows][B]
+  int n_consts;
+  int in_smem;
+
+  struct Shared {
+    int unused;
+  };
+  long smem_values() const { return in_smem ? n_consts : 0; }
+  long wt_values() const { return 0; }
+  long walk_values() const {
+    return plan_solve_walk_values(P::kDim, P::kOutRows, P::kGroupValues);
+  }
+  __device__ T* setup(Shared&, unsigned char* smem) const {
+    return plan_setup_consts<T>(cg, n_consts, in_smem, smem);
+  }
+  // Sample b's outputs from its D inputs at hin; the walk's values follow
+  // them, then the outputs.
+  template <class Sync>
+  __device__ const T* eval_lanes(const Shared&, T t, T* hin, int m, int gsz,
+                                 const Sync& sync, int b, int B) const {
+    T* const gs = hin + P::kDim;
+    T* const out = gs + P::kGroupValues;
+    P::template group_walk<T>(t, hin, plan_consts(cg, in_smem), scg, b, B,
+                              gs, out, m, gsz, sync);
+    return out;
   }
 };
 
@@ -273,12 +316,14 @@ int launch_plan_solve(const void* tau, const void* y0, const void* f0,
   return static_cast<int>(e);
 }
 
+// K8 with the plan: `group` threads a sample (PlanLaneRhs, n_consts
+// counting the transposed copy).
 template <typename T, class P>
 int launch_plan_fixed(const void* grid, const void* tau, const void* y0,
                       const void* f0, void* out, void* stats, void* work,
-                      int G, int T_out, int B, int D, int threads,
-                      double sign, int valid, int stages, const double* c,
-                      const double* a, const double* b_sol,
+                      long work_size, int G, int T_out, int B, int D,
+                      int group, double sign, int valid, int stages,
+                      const double* c, const double* a, const double* b_sol,
                       const void* consts, int n_consts,
                       const void* sample_consts, int smem_consts,
                       void* stream) {
@@ -286,7 +331,7 @@ int launch_plan_fixed(const void* grid, const void* tau, const void* y0,
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (stages < 1 || stages > kMaxStages || G < 1 || T_out < 1 || B < 1 ||
-        D != P::kDim || P::kOutRows != D || threads < 32 || threads > 1024)
+        D != P::kDim || P::kOutRows != D)
       return static_cast<int>(cudaErrorInvalidValue);
     // Fixed tableaus have no error weights: b_sol stands in for b_err.
     const Tableau<T> tab =
@@ -298,23 +343,23 @@ int launch_plan_fixed(const void* grid, const void* tau, const void* y0,
     sc.T_out = T_out;
     sc.B = B;
     sc.D = D;
-    const size_t smem =
-        sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + G + T_out);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const T* cg = static_cast<const T*>(consts);
-    const T* scg = static_cast<const T*>(sample_consts);
-    return static_cast<int>(launch_rk_fixed<T>(
-        grid, tau, y0, f0, out, stats, work,
-        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, smem, threads,
-        threads, tab, sc, st));
+    return static_cast<int>(launch_rk_fixed_group<T>(
+        grid, tau, y0, f0, out, stats, work, work_size,
+        PlanLaneRhs<T, P>{static_cast<const T*>(consts),
+                          static_cast<const T*>(sample_consts), n_consts,
+                          smem_consts},
+        group, tab, sc, static_cast<cudaStream_t>(stream)));
   }
 }
 
+// K5 with the plan: `group` threads a sample (PlanLaneRhs, n_consts
+// counting the transposed copy).
 template <typename T, class P>
 int launch_plan_perlane(const void* tau, const void* y0, const void* f0,
                         const void* dt0, void* out, void* lane_stats,
-                        void* stats, void* work, int T_out, int B, int D,
-                        int threads, double rtol, double atol, double dt_min,
+                        void* stats, void* work, long work_size, int T_out,
+                        int B, int D, int group, double rtol, double atol,
+                        double dt_min,
                         double sign, double safety, double ifactor,
                         double dfactor, int max_steps, int valid, int stages,
                         int order, int fsal, const double* c,
@@ -327,23 +372,19 @@ int launch_plan_perlane(const void* tau, const void* y0, const void* f0,
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 ||
-        D != P::kDim || P::kOutRows != D || max_steps < 1 || threads < 32 ||
-        threads > 1024)
+        D != P::kDim || P::kOutRows != D || max_steps < 1)
       return static_cast<int>(cudaErrorInvalidValue);
     const Tableau<T> tab =
         make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
     const PerlaneScalars<T> sc = make_perlane_scalars<T>(
         rtol, atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,
         T_out, B, D);
-    const size_t smem =
-        sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + T_out);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const T* cg = static_cast<const T*>(consts);
-    const T* scg = static_cast<const T*>(sample_consts);
-    return static_cast<int>(launch_rk_perlane<T>(
-        tau, y0, f0, dt0, out, lane_stats, stats, work,
-        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, smem, threads, tab,
-        sc, st));
+    return static_cast<int>(launch_rk_perlane_group<T>(
+        tau, y0, f0, dt0, out, lane_stats, stats, work, work_size,
+        PlanLaneRhs<T, P>{static_cast<const T*>(consts),
+                          static_cast<const T*>(sample_consts), n_consts,
+                          smem_consts},
+        group, tab, sc, static_cast<cudaStream_t>(stream)));
   }
 }
 
@@ -475,21 +516,22 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
 #define TFD_PLAN_FIXED_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \
       const void* grid, const void* tau, const void* y0, const void* f0,    \
-      void* out, void* stats, void* work, int G, int T_out, int B, int D,   \
-      int threads, double sign, int valid, int stages, const double* c,     \
-      const double* a, const double* b_sol, const void* consts,             \
-      int n_consts, const void* sample_consts, int smem_consts,             \
-      void* stream) {                                                        \
+      void* out, void* stats, void* work, long work_size, int G, int T_out, \
+      int B, int D, int group, double sign, int valid, int stages,          \
+      const double* c, const double* a, const double* b_sol,                \
+      const void* consts, int n_consts, const void* sample_consts,          \
+      int smem_consts, void* stream) {                                       \
     return tfd::launch_plan_fixed<TYPE, tfd::Plan>(                         \
-        grid, tau, y0, f0, out, stats, work, G, T_out, B, D, threads, sign, \
-        valid, stages, c, a, b_sol, consts, n_consts, sample_consts,        \
-        smem_consts, stream);                                                \
+        grid, tau, y0, f0, out, stats, work, work_size, G, T_out, B, D,     \
+        group, sign, valid, stages, c, a, b_sol, consts, n_consts,          \
+        sample_consts, smem_consts, stream);                                 \
   }
 #define TFD_PLAN_PERLANE_ENTRY(NAME, TYPE)                                   \
   extern "C" int NAME(                                                       \
       const void* tau, const void* y0, const void* f0, const void* dt0,     \
-      void* out, void* lane_stats, void* stats, void* work, int T_out,      \
-      int B, int D, int threads, double rtol, double atol, double dt_min,   \
+      void* out, void* lane_stats, void* stats, void* work, long work_size, \
+      int T_out, int B, int D, int group, double rtol, double atol,         \
+      double dt_min,                                                        \
       double sign, double safety, double ifactor, double dfactor,           \
       int max_steps, int valid, int stages, int order, int fsal,            \
       const double* c, const double* a, const double* b_sol,                \
@@ -497,8 +539,8 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
       int n_consts, const void* sample_consts, int smem_consts,             \
       void* stream) {                                                        \
     return tfd::launch_plan_perlane<TYPE, tfd::Plan>(                       \
-        tau, y0, f0, dt0, out, lane_stats, stats, work, T_out, B, D,        \
-        threads, rtol, atol, dt_min, sign, safety, ifactor, dfactor,        \
+        tau, y0, f0, dt0, out, lane_stats, stats, work, work_size, T_out, B,\
+        D, group, rtol, atol, dt_min, sign, safety, ifactor, dfactor,        \
         max_steps, valid, stages, order, fsal, c, a, b_sol, b_err, c_mid,   \
         consts, n_consts, sample_consts, smem_consts, stream);               \
   }

@@ -99,6 +99,8 @@ __device__ __forceinline__ T warp_tree_sum(T v) {
 // Batch samples a lane loads before it adds them (lane_sum_warp): the adds
 // stay in sample order, the loads overlap.
 constexpr int kUnroll = 8;
+// Most chunks of K3's staged merges (rk_adjoint_kernel's first meeting).
+constexpr int kStagedChunks = 8;
 
 // The sum of x(b) over the samples [lo, lo + n) in K3's lane order: lane j
 // adds samples lo + j, lo + j + 32, ... in turn from +0, then the 32 lane
@@ -205,9 +207,13 @@ __device__ __forceinline__ T stage_combine(const T* coef, int S, T dth,
 // right-hand side (about 31 samples a block at B = 4096) and one thread's
 // lane sums over the block's samples, with no wait for other blocks; an
 // attempt adds the two meetings (an atomic and a spin on L2) and the
-// block-order merges (n_blocks loads a value). The walk is a dependent
-// chain: a thread a sample for K15's generated plans (their vectors in
-// registers) and K7; a group of threads a sample for the MLP routes
+// block-order merges (n_blocks partials a value; a few merges a chunk
+// loaded by the block at once, many a thread a merge). The walk is a
+// dependent chain: a thread a sample for K15's generated plans (their
+// vectors in registers; at about 31 samples a block that is one warp whose
+// lanes are all busy, and a clock64 profile put the walk at 14% of a
+// sweep, phase B and the merges and meetings at 75%, PERF.md §6) and
+// K7; a group of threads a sample for the MLP routes
 // (kGroup, csrc/adjoint_kernel.cu stage_group: each layer's outputs over
 // the group's threads, its vectors in shared memory), whose chain is then
 // a layer's longest sum and a block barrier a layer.
@@ -419,17 +425,58 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
 
       // ---- the grid meets: every stage's partials are in. Each block
       // merges its parameters' stage values, KW[st][p] = sign * sum over
-      // the blocks in block order, and every block a_t's.
+      // the blocks in block order, and every block a_t's: the merges
+      // (st, p) in order, then a_t's S. Where they fill at most
+      // kStagedChunks chunks of whole merges (the spiral's 14 at 132
+      // blocks: 5), a chunk's nb partials a merge are loaded by the block
+      // together (past L1: other blocks wrote them) into `red`, then a
+      // thread a merge adds them in block order (one L2 round trip a
+      // chunk, where a thread's nb loads in turn took 63k cycles an
+      // attempt); past that (the wide net's thousands), a thread a merge
+      // loads and adds its own (merge_blocks). The same adds either way.
       grid_sync(meet, target);
-      const long st_stride = long(nb) * n_red;
-      for (int p = p_lo + tid; p < p_hi; p += nth)
-        for (int st = 0; st < S; ++st)
-          KW[st * n_red + p] = sf * merge_blocks(PART + st * st_stride + p,
-                                                 long(n_red), nb);
-      if (ti && tid < S)
-        kat[tid] = sf * merge_blocks(PART + tid * st_stride + n_w,
-                                     long(n_red), nb);
-      __syncthreads();
+      {
+        const long st_stride = long(nb) * n_red;
+        const int np = p_hi - p_lo;
+        const int n_pm = S * np;
+        const int n_merge = n_pm + (ti ? S : 0);
+        const int per = nth / nb;   // merges a chunk
+        const bool staged = n_merge <= kStagedChunks * per;
+        if (!staged) {
+          for (int q = tid; q < n_merge; q += nth) {
+            const int st = q < n_pm ? q / np : q - n_pm;
+            const int col = q < n_pm ? p_lo + q % np : n_w;
+            const T acc =
+                merge_blocks(PART + st * st_stride + col, long(n_red), nb);
+            if (q < n_pm)
+              KW[st * n_red + col] = sf * acc;
+            else
+              kat[q - n_pm] = sf * acc;
+          }
+          __syncthreads();
+        }
+        for (int q0 = 0; staged && q0 < n_merge; q0 += per) {
+          const int cnt = n_merge - q0 < per ? n_merge - q0 : per;
+          for (int i = tid; i < cnt * nb; i += nth) {
+            const int q = q0 + i / nb, k = i % nb;
+            const int st = q < n_pm ? q / np : q - n_pm;
+            const int col = q < n_pm ? p_lo + q % np : n_w;
+            red[i] = __ldcg(PART + st * st_stride + long(k) * n_red + col);
+          }
+          __syncthreads();
+          if (tid < cnt) {
+            const int q = q0 + tid;
+            const T* v = red + tid * nb;
+            T acc = v[0];
+            for (int k = 1; k < nb; ++k) acc = acc + v[k];
+            if (q < n_pm)
+              KW[(q / np) * n_red + p_lo + q % np] = sf * acc;
+            else
+              kat[q - n_pm] = sf * acc;
+          }
+          __syncthreads();
+        }
+      }
 
       // ---- combine: increments, errors and finiteness of the block's
       // samples, then of its shared quadratures (pallas_adjoint.py:578-621).
@@ -725,7 +772,8 @@ struct PerlaneAdjScalars {
 // error terms and the Kahan updates a feature a member (d = m, m + 16,
 // ...), the right-hand side's walk as the Aug says (the MLP routes a
 // layer's outputs and, in the VJP, its inputs a member; K15's generated
-// walk in every member at once), and the quadratures a member each (r = m,
+// group walk each row of a value a member, csrc/plan_aug.cuh
+// PlanGroupAug), and the quadratures a member each (r = m,
 // m + 16, ...), each member's STEP terms in registers when a sample has
 // at most 16 x 16 of them (else in workspace rows, sample-major, so that a
 // group's members touch neighbouring values), their running sums ACC in

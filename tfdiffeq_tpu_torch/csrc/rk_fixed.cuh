@@ -15,10 +15,10 @@
 //
 // Design. A fixed grid has no error norm and no controller, so no sample
 // ever waits for another. Two kernels: rk_fixed_group_kernel (below; the
-// MLP routes of csrc/fixed_kernel.cu) gives each sample a group of
-// threads, its slot in shared memory; rk_fixed_kernel (K14's plans and
-// K4's batch route) gives each sample a thread, over as many blocks as the
-// batch needs, with no barrier after the prologue (on the batch route a
+// MLP routes of csrc/fixed_kernel.cu and K14's plans, csrc/plan_rhs.cuh
+// PlanLaneRhs) gives each sample a group of threads, its slot in shared
+// memory; rk_fixed_kernel (K4's batch route) gives each sample a thread,
+// over as many blocks as the batch needs, with no barrier after the prologue (on the batch route a
 // barrier before each block-wide evaluation). All samples share one grid,
 // so the output cursor is the same in every thread. In rk_fixed_kernel
 // the grid and the output times sit in shared memory after what the
@@ -273,15 +273,17 @@ cudaError_t launch_rk_fixed(const void* grid, const void* tau,
 // output a member (Rhs::eval_lanes, mlp_rk.cuh mlp_eval_lanes), each sum
 // in the plain version's order, so the same bits. Nothing but the walk
 // reads another member's values. The sample's slot (state, compensation,
-// chained derivative, step-start state, stages and the walk's two layer
-// vectors) sits in the block's shared memory after the right-hand side's
+// chained derivative, step-start state, stages and the walk's values)
+// sits in the block's shared memory after the right-hand side's
 // share, the grid and the output times, where the block's slots fit
 // there (about 15 KB at the spiral in float32), else in the workspace.
 //
-// The right-hand side `Rhs` (mlp_rk.cuh MlpLaneRhs) provides Shared,
-// setup(sh, smem) (copies what it keeps in shared memory, no barrier;
-// returns the free shared memory) and eval_lanes(sh, t, hin, m, gsz,
-// sync) (the sample's D inputs in hin; returns its D outputs).
+// The right-hand side `Rhs` (mlp_rk.cuh MlpLaneRhs, plan_rhs.cuh
+// PlanLaneRhs) provides Shared, setup(sh, smem) (copies what it keeps in
+// shared memory, no barrier; returns the free shared memory),
+// smem_values(), wt_values(), walk_values() (the walk's values in the
+// slot, its D inputs first) and eval_lanes(sh, t, hin, m, gsz, sync, b, B)
+// (sample b's D inputs in hin; returns its D outputs).
 template <typename T, class Rhs>
 __global__ void __launch_bounds__(kGroupBlock, 1)
     rk_fixed_group_kernel(const T* __restrict__ grid_g,
@@ -323,7 +325,7 @@ __global__ void __launch_bounds__(kGroupBlock, 1)
   T* const F = C + D;             // [D] f(t0, y0): stage 0, chained
   T* const Y0 = F + D;            // [D] the step's start state
   T* const K = Y0 + D;            // [S - 1][D] stages 1 .. S - 1
-  T* const H = K + (S - 1) * D;   // the walk's two layer vectors
+  T* const H = K + (S - 1) * D;   // the walk's values, its D inputs first
   const T sign = sc.sign;
 
   // Row 0 is y0; the rest stays zero unless a step writes it
@@ -351,7 +353,7 @@ __global__ void __launch_bounds__(kGroupBlock, 1)
       for (int d = m; d < D; d += gsz)
         H[d] = stage_value(tab, i, dt, Y[d], kd(d));
       const T ti = t0 + tab.c[i] * dt;
-      const T* f = rhs.eval_lanes(rsh, sign * ti, H, m, gsz, sync);
+      const T* f = rhs.eval_lanes(rsh, sign * ti, H, m, gsz, sync, b, B);
       for (int d = m; d < D; d += gsz) K[(i - 1) * D + d] = sign * f[d];
     }
     // The solution combine and the Kahan-compensated update.
@@ -363,7 +365,7 @@ __global__ void __launch_bounds__(kGroupBlock, 1)
       H[d] = y1;
     }
     // The chained end derivative f(t1, y1).
-    const T* fo = rhs.eval_lanes(rsh, sign * t1, H, m, gsz, sync);
+    const T* fo = rhs.eval_lanes(rsh, sign * t1, H, m, gsz, sync, b, B);
     const int oi_new = drain_cursor(tau, oi, T_out, t1, step + 2 == G);
     for (int d = m; d < D; d += gsz) {
       const T f0 = F[d];
@@ -391,7 +393,8 @@ cudaError_t launch_rk_fixed_group(const void* grid, const void* tau,
   if (!group_size_ok(group)) return cudaErrorInvalidValue;
   FixedScalars<T> sc = sc_in;
   sc.group = group;
-  sc.slot_values = int(fixed_solve_slot_values(tab.S, sc.D, rhs.gw));
+  sc.slot_values =
+      int(fixed_solve_slot_values(tab.S, sc.D, 0) + rhs.walk_values());
   if (work_size <
       group_solve_work_size(sc.slot_values, sc.B, group, rhs.wt_values()))
     return cudaErrorInvalidValue;

@@ -15,24 +15,20 @@
 // sample's nfe, accepted, rejected and status; stats their sums and the
 // largest status.
 //
-// Design. No sample ever reads another's state. Two kernels:
-// rk_perlane_group_kernel (below; the MLP routes of
-// csrc/perlane_solve_kernel.cu) gives each sample a group of threads, its
-// slot in shared memory; rk_perlane_kernel (K14's plans) gives each
-// sample a thread, over as many blocks as the batch needs, with no barrier
-// after the prologue. A sample's threads stop when it is done and drain
-// through its own cursor. In rk_perlane_kernel the output times sit in
-// shared memory after what the right-hand side keeps there; the sample's
-// state, FSAL derivative, compensation, increments and stages live in a
-// device workspace laid out feature-major ([row][B]).
+// Design. No sample ever reads another's state. One kernel,
+// rk_perlane_group_kernel (below), gives each sample a group of threads,
+// its slot in shared memory, for the MLP routes (csrc/
+// perlane_solve_kernel.cu) and K14's generated plans (csrc/plan_rhs.cuh
+// PlanLaneRhs). A sample's threads stop when it is done and drain through
+// its own cursor.
 //
-// rk_perlane_kernel's right-hand side `Rhs` (csrc/plan_rhs.cuh: K14's
-// generated plans) provides Shared and Local state, setup(sh, lo, smem)
-// (copies what it keeps in shared memory, no barrier; returns the free
-// shared memory), in(lo) (where the kernel writes a sample's D inputs) and
-// eval(sh, lo, t, b, B) (sample b's D outputs); rk_perlane_group_kernel's
-// (mlp_rk.cuh MlpLaneRhs) Shared, setup(sh, smem) and eval_lanes(sh, t,
-// hin, m, gsz, sync).
+// Its right-hand side `Rhs` (mlp_rk.cuh MlpLaneRhs, plan_rhs.cuh
+// PlanLaneRhs) provides Shared, setup(sh, smem) (copies what it keeps in
+// shared memory, no barrier; returns the free shared memory),
+// smem_values() and wt_values() (its shares of shared memory and of the
+// workspace), walk_values() (the walk's values in a sample's slot, its D
+// inputs first) and eval_lanes(sh, t, hin, m, gsz, sync, b, B) (sample b's
+// D outputs from the D inputs at hin, member m of gsz).
 #pragma once
 
 #include "lane_group.h"
@@ -49,171 +45,6 @@ struct PerlaneScalars {
   int slot_values;  // a sample's slot (lane_group.h perlane_solve_slot_values)
   int slot_smem;    // the block's slots in shared memory (else `work`)
 };
-
-template <typename T, class Rhs>
-__global__ void rk_perlane_kernel(const T* __restrict__ tau_g,
-                                  const T* __restrict__ y0g,
-                                  const T* __restrict__ f0g,
-                                  const T* __restrict__ dt0g,
-                                  T* __restrict__ out,
-                                  int* __restrict__ lane_stats,
-                                  int* __restrict__ stats,
-                                  T* __restrict__ work, Rhs rhs,
-                                  Tableau<T> tab_in, PerlaneScalars<T> sc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ typename Rhs::Shared rsh;
-  __shared__ Tableau<T> tab;
-  const int tid = threadIdx.x;
-  typename Rhs::Local lo;
-  T* tau = rhs.setup(rsh, lo, smem_raw);   // [T_out]
-  if (tid == 0) tab = tab_in;
-  for (int i = tid; i < sc.T_out; i += blockDim.x) tau[i] = tau_g[i];
-  __syncthreads();
-
-  const int T_out = sc.T_out, B = sc.B, D = sc.D, S = tab.S;
-  const int b = blockIdx.x * blockDim.x + tid;
-  if (b >= B) return;  // no barrier follows
-
-  const long BD = long(B) * D;
-  // Feature-major workspace rows of B values: row d of Y is y[d].
-  T* Y = work;              // state
-  T* F = Y + BD;            // derivative at (t, y): stage 0 (FSAL cache)
-  T* C = F + BD;            // Kahan compensation
-  T* DEL = C + BD;          // delta = y1 - y0 of the attempt
-  T* MID = DEL + BD;        // dense-output midpoint of the attempt
-  T* F1 = MID + BD;         // f(t1, y1) for tableaus that are not FSAL
-  T* K = F1 + BD;           // stages 1 .. S - 1
-  auto at = [B, b](int row) -> long { return long(row) * B + b; };
-  T* h_in = rhs.in(lo);
-  const T sign = sc.sign;
-
-  // Row 0 is y0; the rest stays zero unless an accepted step writes it
-  // (pallas_kernels.py:975-976).
-  for (int d = 0; d < D; ++d) {
-    const long i = long(b) * D + d;
-    out[i] = y0g[i];
-    for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
-    Y[at(d)] = y0g[i];
-    F[at(d)] = f0g[i];
-    C[at(d)] = T(0);
-  }
-
-  const T t_start = tau[0];
-  const T t_end = tau[T_out - 1];
-  const T denom = T(D);
-  T t = t_start;
-  T dt = dt0g[b];
-  int oi = 1, nfe = 0, nacc = 0, nrej = 0;
-  int status = (t_end > t_start && sc.valid) ? 0 : 3;
-
-  while (t < t_end && status == 0) {
-    const T rem = t_end - t;
-    const T dt_eff = d_min(dt, rem);
-    const bool is_last = dt >= rem;
-    const T t1 = is_last ? t_end : t + dt_eff;
-    const T dth = t1 - t;
-
-    // Element d's stage j.
-    auto kd = [&](int d) {
-      return [&, d](int j) {
-        return j == 0 ? F[at(d)] : K[at((j - 1) * D + d)];
-      };
-    };
-    // Stages: yi = yi + (dt * a_ij) * k_j (pallas_kernels.py:_rk_stages).
-    for (int i = 1; i < S; ++i) {
-      for (int d = 0; d < D; ++d)
-        h_in[d] = stage_value(tab, i, dth, Y[at(d)], kd(d));
-      const T ti = t + tab.c[i] * dth;
-      const T* fo = rhs.eval(rsh, lo, sign * ti, b, B);
-      for (int d = 0; d < D; ++d) K[at((i - 1) * D + d)] = sign * fo[d];
-    }
-    // The combines, the sample's error over its D features, finiteness.
-    T ss = T(0);
-    bool bad = false;
-    for (int d = 0; d < D; ++d) {
-      const T y0 = Y[at(d)];
-      T delta, err, ymid;
-      combine_value(tab, dth, y0, kd(d), delta, err, ymid);
-      const T y1 = y0 + delta;
-      const T scale = sc.atol + sc.rtol * d_max(d_abs(y0), d_abs(y1));
-      const T esc = err / scale;
-      ss = ss + esc * esc;
-      bad = bad || !d_finite(y1);
-      DEL[at(d)] = delta;
-      MID[at(d)] = ymid;
-      h_in[d] = y1;
-    }
-    const T ratio = d_sqrt(ss / denom);
-    const bool finite = d_finite(ss) && !bad;
-    const bool accept = (ratio <= T(1)) && finite;
-    const T fac = controller_factor(ratio, finite, accept, sc.safety,
-                                    sc.ifactor, sc.dfactor, tab.order);
-    // Rescale the CLAMPED attempted step, as the generic engine does.
-    const T dt_next = dth * fac;
-
-    if (accept) {
-      if (!tab.fsal) {
-        // The end derivative (counted in evals on every attempt).
-        const T* fo = rhs.eval(rsh, lo, sign * t1, b, B);
-        for (int d = 0; d < D; ++d) F1[at(d)] = sign * fo[d];
-      }
-      int oi_new = oi;
-      while (oi_new < T_out && tau[oi_new] <= t1) ++oi_new;
-      for (int d = 0; d < D; ++d) {
-        const T f1 = tab.fsal ? K[at((S - 2) * D + d)] : F1[at(d)];
-        T y = Y[at(d)], comp = C[at(d)];
-        accept_value(tab, y, comp, DEL[at(d)], MID[at(d)], F[at(d)], f1, t,
-                     t1, dth, tau, oi, oi_new, out, BD, long(b) * D + d);
-        C[at(d)] = comp;
-        Y[at(d)] = y;
-        F[at(d)] = f1;
-      }
-      oi = oi_new;
-      t = t1;
-    }
-
-    // The sample's status rules (pallas_kernels.py:1077-1092).
-    nfe += tab.evals;
-    nacc += accept ? 1 : 0;
-    nrej += accept ? 0 : 1;
-    if (!accept && dt_next < sc.dt_min && status == 0) status = 2;
-    if (nacc + nrej >= sc.max_steps && t < t_end && status == 0) status = 1;
-    dt = dt_next;
-  }
-  lane_stats[b] = nfe;
-  lane_stats[B + b] = nacc;
-  lane_stats[2 * B + b] = nrej;
-  lane_stats[3 * B + b] = status;
-  // Integer sums: the same total in any order.
-  atomicAdd(stats, nfe);
-  atomicAdd(stats + 1, nacc);
-  atomicAdd(stats + 2, nrej);
-  atomicMax(stats + 3, status);
-}
-
-template <typename T, class Rhs>
-cudaError_t launch_rk_perlane(const void* tau, const void* y0, const void* f0,
-                              const void* dt0, void* out, void* lane_stats,
-                              void* stats, void* work, const Rhs& rhs,
-                              size_t smem, int threads,
-                              const Tableau<T>& tab,
-                              const PerlaneScalars<T>& sc,
-                              cudaStream_t stream) {
-  cudaError_t e = cudaMemsetAsync(stats, 0, 4 * sizeof(int), stream);
-  if (e != cudaSuccess) return e;
-  auto kernel = rk_perlane_kernel<T, Rhs>;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           int(smem));
-  if (e != cudaSuccess) return e;
-  const int blocks = (sc.B + threads - 1) / threads;
-  kernel<<<blocks, threads, smem, stream>>>(
-      static_cast<const T*>(tau), static_cast<const T*>(y0),
-      static_cast<const T*>(f0), static_cast<const T*>(dt0),
-      static_cast<T*>(out), static_cast<int*>(lane_stats),
-      static_cast<int*>(stats), static_cast<T*>(work), rhs, tab, sc);
-  return cudaGetLastError();
-}
 
 // K5 on the MLP routes: a group of sc.group threads walks one sample under
 // its own controller (csrc/lane_group.h), kGroupBlock / sc.group samples a
@@ -233,7 +64,7 @@ cudaError_t launch_rk_perlane(const void* tau, const void* y0, const void* f0,
 // same accept decision, step, counters and status, bitwise the plain
 // version's. The sample's slot (state, FSAL derivative, compensation,
 // increment, midpoint, end derivative, squared errors, stages and the
-// walk's two layer vectors) sits in the block's shared memory after the
+// walk's values) sits in the block's shared memory after the
 // right-hand side's share and the output times where the block's slots fit
 // there (about 16 KB at the spiral in float32), else in the workspace.
 template <typename T, class Rhs>
@@ -272,7 +103,7 @@ __global__ void __launch_bounds__(kGroupBlock, 1)
   T* const F1 = MID + D;          // [D] f(t1, y1), tableaus not FSAL
   T* const E = F1 + D;            // [D] the squared scaled errors
   T* const K = E + D;             // [S - 1][D] stages 1 .. S - 1
-  T* const H = K + (S - 1) * D;   // the walk's two layer vectors
+  T* const H = K + (S - 1) * D;   // the walk's values, its D inputs first
   const T sign = sc.sign;
 
   // Row 0 is y0; the rest stays zero unless an accepted step writes it
@@ -310,7 +141,7 @@ __global__ void __launch_bounds__(kGroupBlock, 1)
       for (int d = m; d < D; d += gsz)
         H[d] = stage_value(tab, i, dth, Y[d], kd(d));
       const T ti = t + tab.c[i] * dth;
-      const T* fo = rhs.eval_lanes(rsh, sign * ti, H, m, gsz, sync);
+      const T* fo = rhs.eval_lanes(rsh, sign * ti, H, m, gsz, sync, b, B);
       for (int d = m; d < D; d += gsz) K[(i - 1) * D + d] = sign * fo[d];
     }
     // The combines and each feature's squared scaled error; y1 into the
@@ -348,7 +179,7 @@ __global__ void __launch_bounds__(kGroupBlock, 1)
     if (accept) {
       if (!tab.fsal) {
         // The end derivative (counted in evals on every attempt).
-        const T* fo = rhs.eval_lanes(rsh, sign * t1, H, m, gsz, sync);
+        const T* fo = rhs.eval_lanes(rsh, sign * t1, H, m, gsz, sync, b, B);
         for (int d = m; d < D; d += gsz) F1[d] = sign * fo[d];
       }
       int oi_new = oi;
@@ -400,7 +231,8 @@ cudaError_t launch_rk_perlane_group(const void* tau, const void* y0,
   if (!group_size_ok(group)) return cudaErrorInvalidValue;
   PerlaneScalars<T> sc = sc_in;
   sc.group = group;
-  sc.slot_values = int(perlane_solve_slot_values(tab.S, sc.D, rhs.gw));
+  sc.slot_values =
+      int(perlane_solve_slot_values(tab.S, sc.D, 0) + rhs.walk_values());
   if (work_size <
       group_solve_work_size(sc.slot_values, sc.B, group, rhs.wt_values()))
     return cudaErrorInvalidValue;

@@ -161,10 +161,11 @@ _PLAN_ARGS = {
     "solve": ([_P] * 6 + [_I] * 4 + [_D] * 8 + [_I, _I]    # tau .. valid
               + [_I, _I, _I, _P, _P, _P, _P, _P]           # tableau
               + _PLAN_CONSTS + [_P, _L, _I, _P]),          # grid, stream
-    "fixed": ([_P] * 7 + [_I] * 5 + [_D, _I]               # grid .. valid
+    "fixed": ([_P] * 7 + [_L] + [_I] * 5 + [_D, _I]        # grid .. valid
               + [_I, _P, _P, _P]                           # tableau
               + _PLAN_CONSTS + [_P]),
-    "perlane": ([_P] * 8 + [_I] * 4 + [_D] * 7 + [_I, _I]  # tau .. valid
+    "perlane": ([_P] * 8 + [_L] + [_I] * 4 + [_D] * 7      # tau .. dfactor
+                + [_I, _I]                                 # .. valid
                 + [_I, _I, _I, _P, _P, _P, _P, _P]         # tableau
                 + _PLAN_CONSTS + [_P]),
     "adams": ([_P] * 7 + [_I] * 5 + [_D] * 3             # grid .. atol

@@ -19,10 +19,12 @@ library a structure and host, built at first use
   block per SM; a plan with batch couplings ('bsum', 'bmax') batch-wide,
   every stage segment by segment with a block meet at each coupling, on
   one block (`plan_blocks`). With `per_sample=True`, K5: a
-  controller a sample (uncoupled plans only; a coupled one raises
+  controller a sample, a group of PERLANE_GROUP threads a sample running
+  the plan's group walk (uncoupled plans only; a coupled one raises
   ValueError, as the reference's front end does).
-- `plan_solve_fixed`: K8 with the plan on a fixed grid (uncoupled plans
-  only; a coupled one raises NotImplementedError, ROADMAP.md queue 1
+- `plan_solve_fixed`: K8 with the plan on a fixed grid, a group of
+  FIXED_GROUP threads a sample running the plan's group walk (uncoupled
+  plans only; a coupled one raises NotImplementedError, ROADMAP.md queue 1
   item 16).
 - `plan_solve_adams` (explicit_adams, fixed_adams) and `plan_solve_vcabm`
   ('adams'): K10 and K11 with the plan, a sample a thread in the kernels'
@@ -43,10 +45,11 @@ plan_adjoint.py:154`), generated as CUDA C++ (`plan_codegen.aug_source`'s
   each coupling's transpose with a block meet.
 - `plan_perlane_adjoint_solve` (`plan_adjoint.py:469`): K6, a controller a
   sample, under the (y, a_y) seminorm; a coupled plan raises ValueError, as
-  in the reference; a group of 16 threads a sample, each running the
-  walk.
-- `plan_adjoint_solve_fixed` (`pallas_fixed.py:1019`): K9 on a fixed grid;
-  a coupled plan raises NotImplementedError (ROADMAP.md queue 1 item 16).
+  in the reference; a group of 16 threads a sample splitting the walk
+  (`plan_codegen`'s group walk: each row of a value a member).
+- `plan_adjoint_solve_fixed` (`pallas_fixed.py:1019`): K9 on a fixed grid,
+  K6's layout and group walk; a coupled plan raises NotImplementedError
+  (ROADMAP.md queue 1 item 16).
 
 Each returns a cotangent for every packed constant (`pack_consts`'
 shapes): the shared ones summed over the batch, a per-sample constant's per
@@ -88,15 +91,16 @@ from .cuda_adams import (ADAMS_EXPLICIT_THREADS, ADAMS_THREADS,
                          adams_solve_plain, adams_work_size,
                          vcabm_solve_plain)
 from .cuda_adjoint import ADJOINT_THREADS, _grid_work, adjoint_sweep_plain
-from .cuda_fixed import (FIXED_ADJOINT_THREADS, FIXED_THREADS,
-                         _fixed_work_size, fixed_adjoint_plain,
-                         fixed_solve_plain, hermite_drain_plain)
+from .cuda_fixed import (FIXED_ADJOINT_THREADS, FIXED_GROUP, FIXED_THREADS,
+                         _fixed_work_size, _solve_work_size,
+                         fixed_adjoint_plain, fixed_solve_plain,
+                         hermite_drain_plain)
 from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS, _check_blocks,
                            _check_float, _device_kind, _increasing, _ptr,
                            _shares_work, _solve_setup, _stream,
                            _tableau_args, adaptive_solve_plain, solve_blocks)
-from .cuda_perlane import (PERLANE_ADJOINT_THREADS, PERLANE_THREADS,
-                           _group_work_size, _lane_setup,
+from .cuda_perlane import (PERLANE_ADJOINT_THREADS, PERLANE_GROUP,
+                           PERLANE_THREADS, _group_work_size, _lane_setup,
                            perlane_adjoint_plain, perlane_solve_plain)
 from .plan_adjoint import aug_terms, split_consts
 from .plan_bridge import (FusedPlan, check_plan_adjoint, eval_plan_host,
@@ -121,6 +125,10 @@ plan_hyper_launches = 0
 #: host -> 'shared' or 'global': where the latest launch read the constants
 #: (K12: 'hyper' its dynamics', 'hyper_g' its correction net's).
 last_route = {}
+#: host -> threads a sample of the latest launch's walk: the group walk's
+#: group ('perlane', 'fixed', 'perlane_adjoint', 'fixed_adjoint'), or 1
+#: where a thread walks a sample ('adjoint').
+last_group = {}
 
 
 def reset_launch_counts() -> None:
@@ -188,7 +196,49 @@ def _consts_route(host: str, n_consts: int, extra: int,
     return smem
 
 
-def _inputs(plan: FusedPlan, packed, y0: Tensor, f0: Tensor):
+def plan_walk_values(plan: FusedPlan) -> int:
+    """csrc/lane_group.h plan_solve_walk_values: K14's group walk in a K8
+    or K5 slot (the sample's inputs, the walk's values, its outputs)."""
+    return (plan.dim + plan_codegen.group_values(plan) + plan.out_rows)
+
+
+def aug_walk_values(plan: FusedPlan) -> int:
+    """csrc/lane_group.h plan_aug_walk_values: K15's group walk in a K6 or
+    K9 slot (the qr rows, the per-sample constants, the walk's values, f
+    and v_y)."""
+    lay = plan_codegen.aug_layout(plan)
+    return (lay.q_rows + lay.n_sample + plan_codegen.aug_group_values(plan)
+            + plan.out_rows + plan.dim)
+
+
+def fixed_group_work(plan: FusedPlan, S: int, B: int) -> int:
+    """The workspace of K8's group route (lane_group.h
+    group_solve_work_size of fixed_solve_slot_values with the walk)."""
+    return _solve_work_size((S + 3) * plan.dim + plan_walk_values(plan), B,
+                            FIXED_GROUP, 0)
+
+
+def perlane_group_work(plan: FusedPlan, S: int, B: int) -> int:
+    """The workspace of K5's group route (perlane_solve_slot_values with
+    the walk)."""
+    return _solve_work_size((S + 6) * plan.dim + plan_walk_values(plan), B,
+                            PERLANE_GROUP, 0)
+
+
+def aug_group_work(plan: FusedPlan, S: int, B: int, fixed: bool) -> int:
+    """The workspace of K6 (lane_group_work_size) or, `fixed`, K9
+    (fixed_group_work_size) with K15's group walk."""
+    lay = plan_codegen.aug_layout(plan)
+    R = lay.n_quad + lay.time_input
+    if fixed:
+        return _fixed_work_size(S, B, plan.dim, R + lay.n_sample,
+                                aug_walk_values(plan), R)
+    return _group_work_size(S, B, plan.dim, R + lay.n_sample,
+                            aug_walk_values(plan))
+
+
+def _inputs(plan: FusedPlan, packed, y0: Tensor, f0: Tensor,
+            transposed: bool = False):
     if y0.ndim != 2 or tuple(y0.shape[1:]) != (plan.dim,):
         raise ValueError(f"y0 must be [B, {plan.dim}], got "
                          f"{tuple(y0.shape)}")
@@ -202,7 +252,8 @@ def _inputs(plan: FusedPlan, packed, y0: Tensor, f0: Tensor):
     if f0.shape != y0.shape:
         raise ValueError("f0 must have the shape of y0")
     return plan_codegen.flat_consts(plan, [p.to(y0.device, dtype)
-                                           for p in packed], y0.shape[0])
+                                           for p in packed], y0.shape[0],
+                                    transposed)
 
 
 def plan_solve_plain(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
@@ -286,7 +337,7 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                                 n_blocks=n_blocks)
 
     global plan_solve_launches, plan_perlane_launches
-    consts, sample_consts = _inputs(plan, packed, y0, f0)
+    consts, sample_consts = _inputs(plan, packed, y0, f0, per_sample)
     dtype, dev = y0.dtype, y0.device
     B, D = y0.shape
     T = tau.shape[0]
@@ -300,23 +351,27 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     steps = int(min(max_steps, 2 ** 31 - 1))
     isz = y0.element_size()
     if per_sample:
+        # K5's group walk: the constants and their transposed copy.
         host = "perlane"
         lib = build([(plan, host)])[0]
-        smem = _consts_route(host, lay.n_consts, T, isz)
+        n_c = 2 * lay.n_consts
+        smem = _consts_route(host, n_c, T, isz)
+        last_group[host] = PERLANE_GROUP
         # Named, so that they live until the launch has read them.
         tau_h, dt_min, dt0_d, valid = _lane_setup(tau, dt0, B, dtype, dev)
         tau_d = tau_h.to(dev)
         lane = torch.empty((4, B), dtype=torch.int32, device=dev)
-        work = torch.empty((S + 5) * B * D, dtype=dtype, device=dev)
+        n_work = perlane_group_work(plan, S, B)
+        work = torch.empty(n_work, dtype=dtype, device=dev)
         with torch.cuda.device(dev):
             err = _fn(lib, host, dtype)(
                 _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(dt0_d), _ptr(out),
-                _ptr(lane), _ptr(stats), _ptr(work), T, B, D,
-                PERLANE_THREADS, float(rtol), float(atol), float(dt_min),
+                _ptr(lane), _ptr(stats), _ptr(work), n_work, T, B, D,
+                PERLANE_GROUP, float(rtol), float(atol), float(dt_min),
                 float(sign), float(safety), float(ifactor), float(dfactor),
                 steps, int(valid), S, tab.order, int(tab.fsal), c, a, b_sol,
-                b_err, c_mid, _ptr(consts), lay.n_consts,
-                _ptr(sample_consts), int(smem), _stream(dev))
+                b_err, c_mid, _ptr(consts), n_c, _ptr(sample_consts),
+                int(smem), _stream(dev))
         _check(lib, err, "plan_solve(per_sample=True) launch")
         plan_perlane_launches += 1
         return out, stats, lane
@@ -381,29 +436,33 @@ def plan_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                                       method=method)
 
     global plan_fixed_launches
-    consts, sample_consts = _inputs(plan, packed, y0, f0)
+    # K8's group walk: the constants and their transposed copy.
+    consts, sample_consts = _inputs(plan, packed, y0, f0, True)
     dtype, dev = y0.dtype, y0.device
     B, D = y0.shape
     T, G = tau.shape[0], grid.shape[0]
     host = "fixed"
     lib = build([(plan, host)])[0]
     lay = plan_codegen.layout(plan)
-    smem = _consts_route(host, lay.n_consts, G + T, y0.element_size())
+    S = tab.stages
+    n_c = 2 * lay.n_consts
+    smem = _consts_route(host, n_c, G + T, y0.element_size())
+    last_group[host] = FIXED_GROUP
     tau_h = tau.detach().to("cpu", dtype)
     grid_h = grid.detach().to("cpu", dtype)
     valid = _increasing(tau_h) and _increasing(grid_h)
-    S = tab.stages
     c, a, b_sol, _ = _tableau_args(tab)
     out = torch.empty((T, B, D), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    work = torch.empty((S + 3) * B * D, dtype=dtype, device=dev)
+    n_work = fixed_group_work(plan, S, B)
+    work = torch.empty(n_work, dtype=dtype, device=dev)
     # Named, so that they live until the launch has read them.
     grid_d, tau_d = grid_h.to(dev), tau_h.to(dev)
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
             _ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out),
-            _ptr(stats), _ptr(work), G, T, B, D, FIXED_THREADS, float(sign),
-            int(valid), S, c, a, b_sol, _ptr(consts), lay.n_consts,
+            _ptr(stats), _ptr(work), n_work, G, T, B, D, FIXED_GROUP,
+            float(sign), int(valid), S, c, a, b_sol, _ptr(consts), n_c,
             _ptr(sample_consts), int(smem), _stream(dev))
     _check(lib, err, "plan_solve_fixed launch")
     plan_fixed_launches += 1
@@ -831,6 +890,8 @@ def plan_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
     lib = build([(plan, host)])[0]
     lay = plan_codegen.aug_layout(plan)
     consts, sample_consts = plan_codegen.flat_consts(plan, packed, B)
+    # K3 walks a sample a thread (or a coupled plan batch-wide).
+    last_group[host] = 1
     n_quad = 2 * lay.n_quad + S * (lay.n_quad + lay.time_input)
     # Shared memory for the constants first (read in every stage), then the
     # shared quadratures' accumulator, increment and stage values.
@@ -933,9 +994,11 @@ def plan_perlane_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
     host = "perlane_adjoint"
     lib = build([(plan, host)])[0]
     lay = plan_codegen.aug_layout(plan)
-    consts, sample_consts = plan_codegen.flat_consts(plan, packed, B)
-    smem = _consts_route(host, lay.n_quad, PERLANE_THREADS,
-                         ys.element_size())
+    # The group walk reads the constants and their transposed copy.
+    consts, sample_consts = plan_codegen.flat_consts(plan, packed, B, True)
+    n_c = 2 * lay.n_quad
+    smem = _consts_route(host, n_c, PERLANE_THREADS, ys.element_size())
+    last_group[host] = PERLANE_GROUP
     R = lay.n_quad + lay.time_input
     n_blk = -(-B // PERLANE_THREADS)
     # Named, so that they live until the launch has read them.
@@ -949,10 +1012,7 @@ def plan_perlane_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
     stats = torch.empty(4, dtype=torch.int32, device=dev)
     lane = torch.empty((4, B), dtype=torch.int32, device=dev)
     partial = torch.empty(max(1, n_blk * R), dtype=dtype, device=dev)
-    # csrc/plan_aug.cuh PlanLaneAug::walk_values: the walk's rows and the
-    # per-sample constants, one value each in a sample's slot.
-    n_work = _group_work_size(S, B, D, R + lay.n_sample,
-                              lay.q_rows + lay.n_sample)
+    n_work = aug_group_work(plan, S, B, fixed=False)
     work = torch.empty(n_work, dtype=dtype, device=dev)
     ys_c, g_c = ys.contiguous(), g.contiguous()
     with torch.cuda.device(dev):
@@ -963,7 +1023,7 @@ def plan_perlane_adjoint_solve(plan: FusedPlan, packed: Sequence[Tensor],
             PERLANE_ADJOINT_THREADS, float(rtol), float(atol),
             float(dt_min), float(sign), float(safety),
             float(ifactor), float(dfactor), int(min(max_steps, 2 ** 31 - 1)),
-            S, tab.order, c, a, b_sol, b_err, _ptr(consts), lay.n_quad,
+            S, tab.order, c, a, b_sol, b_err, _ptr(consts), n_c,
             _ptr(sample_consts), int(smem), _stream(dev))
     _check(lib, err, "plan_perlane_adjoint_solve launch")
     plan_perlane_adjoint_launches += 1
@@ -1019,9 +1079,11 @@ def plan_adjoint_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor],
     host = "fixed_adjoint"
     lib = build([(plan, host)])[0]
     lay = plan_codegen.aug_layout(plan)
-    consts, sample_consts = plan_codegen.flat_consts(plan, packed, B)
-    smem = _consts_route(host, lay.n_quad, PERLANE_THREADS,
-                         ys.element_size())
+    # The group walk reads the constants and their transposed copy.
+    consts, sample_consts = plan_codegen.flat_consts(plan, packed, B, True)
+    n_c = 2 * lay.n_quad
+    smem = _consts_route(host, n_c, PERLANE_THREADS, ys.element_size())
+    last_group[host] = PERLANE_GROUP
     R = lay.n_quad + lay.time_input
     tau_d = tau.detach().to("cpu", dtype).to(dev)
     c, a, b_sol, _ = _tableau_args(tab)
@@ -1030,10 +1092,7 @@ def plan_adjoint_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor],
     at = torch.empty((), dtype=dtype, device=dev)
     aps = torch.empty((max(1, lay.n_sample), B), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    # K6's slot and STEP rows (the walk's rows and the per-sample constants
-    # in the slot), then the end-of-sweep trees' rows.
-    n_work = _fixed_work_size(S, B, D, R + lay.n_sample,
-                              lay.q_rows + lay.n_sample, R)
+    n_work = aug_group_work(plan, S, B, fixed=True)
     work = torch.empty(n_work, dtype=dtype, device=dev)
     ys_c, g_c = ys.contiguous(), g.contiguous()
     with torch.cuda.device(dev):
@@ -1041,7 +1100,7 @@ def plan_adjoint_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor],
             _ptr(tau_d), _ptr(ys_c), _ptr(g_c), _ptr(ay0), _ptr(aw),
             _ptr(at), _ptr(aps), _ptr(stats), _ptr(work), n_work, T, B, D,
             FIXED_ADJOINT_THREADS, int(num_steps), float(sign), S, c, a,
-            b_sol, _ptr(consts), lay.n_quad, _ptr(sample_consts), int(smem),
+            b_sol, _ptr(consts), n_c, _ptr(sample_consts), int(smem),
             _stream(dev))
     _check(lib, err, "plan_adjoint_solve_fixed launch")
     plan_fixed_adjoint_launches += 1

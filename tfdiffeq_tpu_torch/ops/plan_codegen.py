@@ -23,6 +23,21 @@ order, jaxpr_bridge.py:991-994; `--fmad=false` keeps each product and sum
 separately rounded), reductions fold rows in order, exactly as
 `plan_bridge.eval_plan` does.
 
+Beside the segments, an uncoupled plan gets a group walk (`Plan::
+group_walk`, `PlanAug::group_walk`): one sample's walk split over the gsz
+members of its group in K5, K8, K6 and K9. Each value's rows lie in the
+sample's scratch `gs`; row i of a value is computed by member i % gsz, by
+the same expression as in the per-thread walk; a 1-row value, a reduction
+and a fold into one row by member 0; a dot's outputs o = m, m + gsz, ...
+(its weights read from a transposed copy of the constants) and a VJP
+dot's inputs likewise, each the same sum in the same order. So every row
+has the per-thread walk's bits. The walk is cut into phases, a group sync
+between them, where an instruction reads a row that another member wrote
+(the host's stage state counting as written); each phase is a function
+of (m, gsz), so a host can run the members in turn. A value's region of
+`gs` is reused by a later one once a sync separates their phases
+(`_group_walk`).
+
 The source depends on the plan's structure and literals alone: not on the
 batch size (a runtime argument) nor on the constants' values (a runtime
 array), so equal structures share one library at any B, unless the
@@ -33,6 +48,7 @@ the plan).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from typing import Dict, List, Sequence, Tuple
 
@@ -138,12 +154,15 @@ def _const_layout(plan: FusedPlan):
     return const_off, n, sample_off, s
 
 
-def flat_consts(plan: FusedPlan, packed: Sequence[Tensor], B: int
-                ) -> Tuple[Tensor, Tensor]:
+def flat_consts(plan: FusedPlan, packed: Sequence[Tensor], B: int,
+                transposed: bool = False) -> Tuple[Tensor, Tensor]:
     """`plan_bridge.pack_consts`' output as the kernels read it: one flat
     array of the shared constants (a weight [dout][din] row-major, a column,
     a scalar) and the per-sample constants as [rows, B]. Each has at least
-    one element, so that its pointer is valid."""
+    one element, so that its pointer is valid. With `transposed` (the group
+    walks' constants) the flat array is followed by a copy of itself in
+    which each weight is [din][dout] row-major, where a group's members,
+    an output each, read neighbouring values."""
     ref = next((p for p in packed if p.numel()), None)
     dtype = ref.dtype if ref is not None else torch.float32
     dev = ref.device if ref is not None else None
@@ -155,6 +174,11 @@ def flat_consts(plan: FusedPlan, packed: Sequence[Tensor], B: int
             rows.append(p.reshape(-1, B))
     c = (torch.cat(flat) if flat
          else torch.zeros(1, dtype=dtype, device=dev))
+    if transposed and flat:
+        c = torch.cat([c] + [
+            p.reshape(lay[2], lay[1]).t().reshape(-1) if lay[0] == "wT"
+            else p.reshape(-1) for lay, p in zip(plan.const_layouts, packed)
+            if lay[0] in ("wT", "col", "scalar")])
     sc = (torch.cat(rows, dim=0) if rows
           else torch.zeros((1, B), dtype=dtype, device=dev))
     return c.contiguous(), sc.contiguous()
@@ -272,97 +296,89 @@ class _Gen:
                 f"    const T* __restrict__ red, T* __restrict__ out) {{\n"
                 f"{body}\n}}\n")
 
-    def instr(self, ins, emit) -> None:
-        op, out = ins[0], ins[1]
-        R = self.rows[out]
-        decl = f"  T v{out}[{R}];"
+    def elem(self, ins) -> str:
+        """Row i's expression of an elementwise instruction (un, bin, ipow,
+        clamp, select, cast, bcast, reshape, slice, rev)."""
+        op = ins[0]
         ref = self.ref
-        if op == "litv":
-            emit(decl)
-            emit(f"  v{out}[0] = {_lit(ins[2])};")
-        elif op == "un":
-            emit(decl)
+        if op == "un":
             name, a = ins[3], ins[2]
             if name == "neg":
-                e = f"-{ref(a, 'i')}"
-            elif name in ("copy", "stop_gradient"):
-                e = ref(a, "i")
-            elif name == "not":
-                e = f"p_bool<T>({ref(a, 'i')} == T(0))"
-            else:
-                e = f"{_UN_FN[name]}({ref(a, 'i')})"
-            emit(_loop(R, f"v{out}[i] = {e};"))
-        elif op == "bin":
-            emit(decl)
+                return f"-{ref(a, 'i')}"
+            if name in ("copy", "stop_gradient"):
+                return ref(a, "i")
+            if name == "not":
+                return f"p_bool<T>({ref(a, 'i')} == T(0))"
+            return f"{_UN_FN[name]}({ref(a, 'i')})"
+        if op == "bin":
             name, a, b = ins[4], ref(ins[2], "i"), ref(ins[3], "i")
             if name in _BIN_INFIX:
-                e = f"{a} {_BIN_INFIX[name]} {b}"
-            elif name in _BIN_CMP:
-                e = f"p_bool<T>({a} {_BIN_CMP[name]} {b})"
-            elif name in _BIN_LOGIC:
-                e = (f"p_bool<T>(({a} != T(0)) {_BIN_LOGIC[name]} "
-                     f"({b} != T(0)))")
-            elif name == "max":
-                e = f"p_max({a}, {b})"
-            elif name == "min":
-                e = f"p_min({a}, {b})"
-            elif name == "pow":
-                e = f"p_pow({a}, {b})"
-            else:                                  # pragma: no cover
-                raise FusionError(f"binary op {name!r}")
-            emit(_loop(R, f"v{out}[i] = {e};"))
-        elif op == "ipow":
-            emit(decl)
+                return f"{a} {_BIN_INFIX[name]} {b}"
+            if name in _BIN_CMP:
+                return f"p_bool<T>({a} {_BIN_CMP[name]} {b})"
+            if name in _BIN_LOGIC:
+                return (f"p_bool<T>(({a} != T(0)) {_BIN_LOGIC[name]} "
+                        f"({b} != T(0)))")
+            if name == "max":
+                return f"p_max({a}, {b})"
+            if name == "min":
+                return f"p_min({a}, {b})"
+            if name == "pow":
+                return f"p_pow({a}, {b})"
+            raise FusionError(f"binary op {name!r}")   # pragma: no cover
+        if op == "ipow":
             x, n = ref(ins[2], "i"), ins[3]
             m = abs(n)
             e = "T(1)" if m == 0 else " * ".join([x] * m)
-            if n < 0:
-                e = f"T(1) / ({e})"
-            emit(_loop(R, f"v{out}[i] = {e};"))
-        elif op == "clamp":
-            emit(decl)
+            return f"T(1) / ({e})" if n < 0 else e
+        if op == "clamp":
             lo, x, hi = (ref(ins[j], "i") for j in (2, 3, 4))
-            emit(_loop(R, f"v{out}[i] = p_min(p_max({x}, {lo}), {hi});"))
-        elif op == "select":
-            emit(decl)
+            return f"p_min(p_max({x}, {lo}), {hi})"
+        if op == "select":
             p, c0, c1 = (ref(ins[j], "i") for j in (2, 3, 4))
-            emit(_loop(R, f"v{out}[i] = ({p} != T(0)) ? {c1} : {c0};"))
-        elif op in ("cast", "bcast", "reshape"):
-            emit(decl)
-            emit(_loop(R, f"v{out}[i] = {ref(ins[2], 'i')};"))
+            return f"({p} != T(0)) ? {c1} : {c0}"
+        if op in ("cast", "bcast", "reshape"):
+            return ref(ins[2], "i")
+        if op == "slice":
+            return ref(ins[2], f"{ins[3]} + i")
+        if op == "rev":
+            return ref(ins[2], f"{ins[3] - 1} - i")
+        raise AssertionError(f"bad instr {op}")       # pragma: no cover
+
+    def _reduce_lines(self, ins) -> List[str]:
+        a, fn, out = ins[2], ins[3], ins[1]
+        r = 1 if a[0] == "l" else self.rows[a[1]]
+        L = [f"  {{ T acc = {self.ref(a, '0')};"]
+        step = {"sum": "acc + {x}", "max": "p_max(acc, {x})",
+                "min": "p_min(acc, {x})"}[fn]
+        if r > 1:
+            L.append("#pragma unroll" if r <= _UNROLL_ROWS
+                     else "#pragma unroll 1")
+            L.append(f"    for (int i = 1; i < {r}; ++i) "
+                     f"acc = {step.format(x=self.ref(a, 'i'))};")
+        L.append(f"    v{out}[0] = acc; }}")
+        return L
+
+    def instr(self, ins, emit) -> None:
+        op, out = ins[0], ins[1]
+        R = self.rows[out]
+        emit(f"  T v{out}[{R}];")
+        if op == "litv":
+            emit(f"  v{out}[0] = {_lit(ins[2])};")
         elif op == "concat":
-            emit(decl)
             off = 0
             for a in ins[2]:
                 r = 1 if a[0] == "l" else self.rows[a[1]]
-                emit(_loop(r, f"v{out}[{off} + i] = {ref(a, 'i')};"))
+                emit(_loop(r, f"v{out}[{off} + i] = {self.ref(a, 'i')};"))
                 off += r
-        elif op == "slice":
-            emit(decl)
-            emit(_loop(R, f"v{out}[i] = {ref(ins[2], f'{ins[3]} + i')};"))
-        elif op == "rev":
-            emit(decl)
-            emit(_loop(R, f"v{out}[i] = "
-                          f"{ref(ins[2], f'{ins[3] - 1} - i')};"))
         elif op == "reduce":
-            emit(decl)
-            a, fn = ins[2], ins[3]
-            r = 1 if a[0] == "l" else self.rows[a[1]]
-            emit(f"  {{ T acc = {ref(a, '0')};")
-            step = {"sum": "acc + {x}", "max": "p_max(acc, {x})",
-                    "min": "p_min(acc, {x})"}[fn]
-            if r > 1:
-                emit("#pragma unroll" if r <= _UNROLL_ROWS
-                     else "#pragma unroll 1")
-                emit(f"    for (int i = 1; i < {r}; ++i) "
-                     f"acc = {step.format(x=ref(a, 'i'))};")
-            emit(f"    v{out}[0] = acc; }}")
+            for line in self._reduce_lines(ins):
+                emit(line)
         elif op == "dot":
             _, _, a_id, cidx, din, dout, _mxu = ins
             w = self.const_off[cidx]
             h = self.ref(("v", a_id), "i")
             h0 = self.ref(("v", a_id), "0")
-            emit(decl)
             # A product past _UNROLL_DOT weights runs as loops (its vectors
             # then live in local memory), which keeps ptxas quick.
             unroll = ("#pragma unroll" if din * dout <= _UNROLL_DOT
@@ -377,8 +393,49 @@ class _Gen:
                      f"acc = acc + wr[i] * {h};")
             emit(f"    v{out}[o] = acc;")
             emit("  }")
-        else:                                      # pragma: no cover
-            raise AssertionError(f"bad instr {op}")
+        else:
+            emit(_loop(R, f"v{out}[i] = {self.elem(ins)};"))
+
+    def group_instr(self, ins) -> List["_GOp"]:
+        """The instruction in the group walk: the same expression for
+        every row as `instr`, each row computed by the member that owns
+        it (row i: member i % gsz), a 1-row value and a reduction by
+        member 0; a dot's outputs o = m, m + gsz, ... each the same sum in
+        input order, its weights read from the transposed copy of the
+        constants (`flat_consts(transposed=True)`) so that the members
+        read neighbouring values."""
+        op, out = ins[0], ins[1]
+        R = self.rows[out]
+        name = f"v{out}"
+        if op == "litv":
+            return [_GOp.rows(name, 0, 1, _lit(ins[2]), f"{name}[0]")]
+        if op == "concat":
+            ops, off = [], 0
+            for a in ins[2]:
+                r = 1 if a[0] == "l" else self.rows[a[1]]
+                ops.append(_GOp.rows(name, off, r, self.ref(a, "i"),
+                                     f"{name}[{off} + i]"))
+                off += r
+            return ops
+        if op == "reduce":
+            return [_GOp.member0(name, self._reduce_lines(ins))]
+        if op == "dot":
+            _, _, a_id, cidx, din, dout, _mxu = ins
+            wt = self.n_consts + self.const_off[cidx]
+            h = self.ref(("v", a_id), "i")
+            h0 = self.ref(("v", a_id), "0")
+            L = [f"  for (int o = m; o < {dout}; o += gsz) {{",
+                 f"    const T* wr = c + {wt} + o;",
+                 f"    T acc = wr[0] * {h0};"]
+            if din > 1:
+                L.append(("#pragma unroll" if din <= _UNROLL_ROWS
+                          else "#pragma unroll 1"))
+                L.append(f"    for (int i = 1; i < {din}; ++i) "
+                         f"acc = acc + wr[i * {dout}] * {h};")
+            L += [f"    {name}[o] = acc;", "  }"]
+            return [_GOp(L, {name}, _GOp.reads(h0 + h) if din * dout > 1
+                         else set())]
+        return [_GOp.rows(name, 0, R, self.elem(ins), f"{name}[i]")]
 
     def meet(self) -> str:
         cases = []
@@ -399,6 +456,23 @@ class _Gen:
         return PlanLayout(self.n_consts, len(self.segs), self.live_rows,
                           self.red_values)
 
+    def group(self, prefix: str):
+        """The forward group walk of an uncoupled plan (`_group_walk`):
+        y the sample's kDim inputs, out its kOutRows outputs, gs the
+        walk's kGroupValues values."""
+        ops = []
+        for ins in self.segs[0]:
+            ops += self.group_instr(ins)
+        ops.append(_GOp.rows("out", 0, self.plan.out_rows,
+                             self.ref(("v", self.plan.out_id), "i"),
+                             "out[i]"))
+        return _group_walk(
+            prefix, ops, lambda v: self.rows[int(v[1:])],
+            "    const T t, const T* __restrict__ y, const T* __restrict__ c,"
+            "\n    const T* __restrict__ sc, const int b, const int B,\n"
+            "    T* __restrict__ gs, T* __restrict__ out",
+            "t, y, c, sc, b, B, gs, out")
+
     def body(self, name: str = "Plan") -> str:
         """The segments and the plan's struct `name` (`Plan`; K12's
         correction net `PlanG`), inside namespace tfd."""
@@ -406,11 +480,15 @@ class _Gen:
         prefix = name.lower()
         segs = "\n".join(self.segment(k, prefix)
                          for k in range(len(self.segs)))
+        gfuncs, gmembers = "", ("  static constexpr int kGroupValues = 0;\n"
+                                "  static constexpr int kGroupPhases = 0;\n")
+        if len(self.segs) == 1:
+            gfuncs, gmembers, _, _ = self.group(prefix)
         calls = "\n".join(
             f"      case {k}: {prefix}_seg{k}(t, y, c, sc, b, B, live, red, "
             f"out); break;" for k in range(len(self.segs)))
         return (
-            "namespace tfd {\n\n" + segs + "\n"
+            "namespace tfd {\n\n" + segs + "\n" + gfuncs + "\n"
             f"struct {name} {{\n"
             f"  static constexpr int kDim = {plan.dim};\n"
             f"  static constexpr int kOutRows = {plan.out_rows};\n"
@@ -422,8 +500,8 @@ class _Gen:
             "      int k, T t, const T* y, const T* c, const T* sc, int b,\n"
             "      int B, T* live, const T* red, T* out) {\n"
             "    switch (k) {\n" + calls + "\n"
-            "      default: break;\n    }\n  }\n" + self.meet() + "};\n\n"
-            "}  // namespace tfd\n")
+            "      default: break;\n    }\n  }\n" + self.meet() + gmembers
+            + "};\n\n}  // namespace tfd\n")
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +527,14 @@ _UN_GRAD = {
 }
 
 _VAR = re.compile(r"\b([vg]\d+)\[")
+
+
+def _qr(row: str) -> str:
+    """Row `row` of sample b in the walk's quadrature rows, [kQRows][B]:
+    K3's walk, a thread a sample, stores each row's 32 samples of a warp
+    in one line. (Sample-major rows, which K3's batch sums would read in
+    fewer lines, made K15 in K3 22% slower on the card: PERF.md §6.)"""
+    return f"qr[long({row}) * B + b]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -486,6 +572,8 @@ class _AugGen:
         self.q_rows = 0
         self.has = set()
         self.sites: Dict[int, List[Tuple[int, int]]] = {}
+        self.gops: List[_GOp] = []       # the group walk (uncoupled plans)
+        self.dh_rows: Dict[str, int] = {}
         rows, fw = self.rows, self.fw
 
         # Forward re-walk.
@@ -500,6 +588,7 @@ class _AugGen:
                 L = []
                 fw.instr(ins, L.append)
                 self.ops.append(("code", L, {f"v{ins[1]}"}))
+                self.gops += fw.group_instr(ins)
 
         # Reverse walk.
         out = plan.out_id
@@ -625,38 +714,53 @@ class _AugGen:
                 w = fw.const_off[cidx]
                 hrow, crow = self._new_q(din), self._new_q(dout)
                 self.sites.setdefault(cidx, []).append((crow, hrow))
-                L = [_loop(din, f"qr[long({hrow} + i) * B + b] = "
-                               f"{P(('v', a_id), 'i')};"),
-                     _loop(dout, f"qr[long({crow} + i) * B + b] = "
-                                 f"{c('i')};")]
+                hq = (_qr(f"{hrow} + i"), P(("v", a_id), "i"))
+                cq = (_qr(f"{crow} + i"), c("i"))
+                L = [_loop(din, f"{hq[0]} = {hq[1]};"),
+                     _loop(dout, f"{cq[0]} = {cq[1]};")]
                 tmp = f"dh{len(self.ops)}"
                 unroll = ("#pragma unroll" if din * dout <= _UNROLL_DOT
                           else "#pragma unroll 1")
-                L += [f"  T {tmp}[{din}];", unroll,
-                      f"  for (int i = 0; i < {din}; ++i) {{",
-                      f"    T acc = c[{w} + i] * {c('0')};"]
+                # din[i] = sum_o w[o][i] c[o] in output order: a member an
+                # input i in the group walk, the members reading
+                # neighbouring weights.
+                acc = [f"    T acc = c[{w} + i] * {c('0')};"]
                 if dout > 1:
-                    L += [unroll,
-                          f"    for (int o = 1; o < {dout}; ++o) acc = acc "
-                          f"+ c[{w} + o * {din} + i] * {c('o')};"]
-                L += [f"    {tmp}[i] = acc;", "  }"]
+                    acc += [unroll,
+                            f"    for (int o = 1; o < {dout}; ++o) acc = acc "
+                            f"+ c[{w} + o * {din} + i] * {c('o')};"]
+                acc += [f"    {tmp}[i] = acc;", "  }"]
+                L += [f"  T {tmp}[{din}];", unroll,
+                      f"  for (int i = 0; i < {din}; ++i) {{"] + acc
                 self.ops.append(("code", L, set()))
+                self.dh_rows[tmp] = din
+                self.gops += [
+                    _GOp.rows("qr", 0, din, hq[1], hq[0]),
+                    _GOp.rows("qr", 0, dout, cq[1], cq[0]),
+                    _GOp([f"  for (int i = m; i < {din}; i += gsz) {{"]
+                         + acc, {tmp}, _GOp.reads(c("0") + c("o"))
+                         if din * dout > 1 else set())]
                 self._contrib(("v", a_id), din, lambda i: f"{tmp}[{i}]")
             else:                                  # pragma: no cover
                 raise AssertionError(f"bad instr {op}")
 
         # The walk's outputs: f, v_y, and the rows of the quadratures.
-        L = [_loop(plan.out_rows, f"f[i] = {fw.ref(('v', out), 'i')};"),
-             _loop(plan.dim, "vy[i] = " + (self._g(plan.y_id, "i")
-                                           if plan.y_id in self.has
-                                           else "T(0)") + ";")]
+        fo = fw.ref(("v", out), "i")
+        vy = self._g(plan.y_id, "i") if plan.y_id in self.has else "T(0)"
+        L = [_loop(plan.out_rows, f"f[i] = {fo};"),
+             _loop(plan.dim, f"vy[i] = {vy};")]
+        self.gops += [_GOp.rows("f", 0, plan.out_rows, fo, "f[i]"),
+                      _GOp.rows("vy", 0, plan.dim, vy, "vy[i]")]
         self.final_row = {}
         for vid in [plan.t_id] + list(plan.const_val_ids):
             if vid in self.has and vid != plan.y_id:
                 r = self.rows[vid]
                 row = self.final_row[vid] = self._new_q(r)
-                L.append(_loop(r, f"qr[long({row} + i) * B + b] = "
+                L.append(_loop(r, f"{_qr(f'{row} + i')} = "
                                   f"{self._g(vid, 'i')};"))
+                self.gops.append(_GOp.rows(
+                    "qr", 0, r, self._g(vid, "i"),
+                    _qr(f"{row} + i")))
         self.ops.append(("code", L, set()))
         self.time_input = int(plan_uses_t(plan))
         self._segment()
@@ -693,15 +797,18 @@ class _AugGen:
         if tr == R:
             rhs = expr("i") if first else f"{name}[i] + {expr('i')}"
             L.append(_loop(R, f"{name}[i] = {rhs};"))
+            self.gops.append(_GOp.rows(name, 0, R, rhs, f"{name}[i]"))
         else:
-            L.append(f"  {{ T acc = {expr('0')};")
+            F = [f"  {{ T acc = {expr('0')};"]
             if R > 1:
-                L.append("#pragma unroll" if R <= _UNROLL_ROWS
+                F.append("#pragma unroll" if R <= _UNROLL_ROWS
                          else "#pragma unroll 1")
-                L.append(f"    for (int i = 1; i < {R}; ++i) "
+                F.append(f"    for (int i = 1; i < {R}; ++i) "
                          f"acc = acc + {expr('i')};")
-            L.append(f"    {name}[0] = " + ("acc" if first
+            F.append(f"    {name}[0] = " + ("acc" if first
                                             else f"{name}[0] + acc") + "; }")
+            L += F
+            self.gops.append(_GOp.member0(name, F))
         self.ops.append(("code", L, {name}))
 
     def _segment(self) -> None:
@@ -796,8 +903,8 @@ class _AugGen:
                 din = lay[1]
                 L.append(f"      const int o = (r - {off}) / {din}, "
                          f"i = (r - {off}) % {din};")
-                terms = [f"qr[long({cr} + o) * B + b] * qr[long({hr} + i) * "
-                         f"B + b]" for cr, hr in self.sites.get(cidx, [])]
+                terms = [f"{_qr(f'{cr} + o')} * {_qr(f'{hr} + i')}"
+                         for cr, hr in self.sites.get(cidx, [])]
                 L.append("      T x = " + terms[0] + ";")
                 for tm in terms[1:]:
                     L.append(f"      x = x + {tm};")
@@ -806,12 +913,12 @@ class _AugGen:
                 row = self.final_row.get(plan.const_val_ids[cidx])
                 L.append("      return " + (
                     "T(0)" if row is None
-                    else f"qr[long({row} + r - {off}) * B + b]") + ";")
+                    else _qr(f"{row} + r - {off}")) + ";")
             L.append("    }")
         row = self.final_row.get(plan.t_id)
         L.append("    return " + ("T(0)" if row is None or not
                                   self.time_input
-                                  else f"qr[long({row}) * B + b]") + ";")
+                                  else _qr(f"{row}")) + ";")
         S = []
         j = 0
         for cidx, lay in enumerate(plan.const_layouts):
@@ -821,7 +928,7 @@ class _AugGen:
             row = self.final_row.get(plan.const_val_ids[cidx])
             S.append(f"    if (j < {j + r}) return " + (
                 "T(0)" if row is None
-                else f"qr[long({row} + j - {j}) * B + b]") + ";")
+                else _qr(f"{row} + j - {j}")) + ";")
             j += r
         S.append("    return T(0);")
         return (
@@ -849,10 +956,30 @@ class _AugGen:
                 "    switch (k) {\n" + "\n".join(cases) + "\n"
                 "    default: break;\n    }\n  }\n")
 
+    def group(self):
+        """The reverse group walk of an uncoupled plan (`_group_walk`): y,
+        ay the sample's stage state, f and vy its outputs, qr its quadrature
+        rows ([kQRows][B], `_qr`), gs the walk's
+        kGroupValues values."""
+        size = lambda v: (self.dh_rows[v] if v.startswith("dh")
+                          else self.rows[int(v[1:])])
+        return _group_walk(
+            "aug", self.gops, size,
+            "    const T t, const T* __restrict__ y,\n"
+            "    const T* __restrict__ ay, const T* __restrict__ c,\n"
+            "    const T* __restrict__ sc, const int b, const int B,\n"
+            "    T* __restrict__ qr, T* __restrict__ f, T* __restrict__ vy,\n"
+            "    T* __restrict__ gs",
+            "t, y, ay, c, sc, b, B, qr, f, vy, gs")
+
     def body(self) -> str:
         """The segments and the `PlanAug` struct, inside namespace tfd."""
         plan = self.plan
         lay = self.layout()
+        gfuncs, gmembers = "", ("  static constexpr int kGroupValues = 0;\n"
+                                "  static constexpr int kGroupPhases = 0;\n")
+        if not self.meets:
+            gfuncs, gmembers, _, _ = self.group()
         segs = []
         for k, L in enumerate(self.segments):
             segs.append(
@@ -868,7 +995,7 @@ class _AugGen:
             f"      case {k}: aug_seg{k}(t, y, ay, c, sc, b, B, live, red, "
             f"qr, f, vy); break;" for k in range(len(self.segments)))
         return (
-            "namespace tfd {\n\n" + "\n".join(segs) + "\n"
+            "namespace tfd {\n\n" + "\n".join(segs) + "\n" + gfuncs + "\n"
             "struct PlanAug {\n"
             f"  static constexpr int kDim = {plan.dim};\n"
             f"  static constexpr int kOutRows = {plan.out_rows};\n"
@@ -886,7 +1013,7 @@ class _AugGen:
             "      T* f, T* vy) {\n"
             "    switch (k) {\n" + calls + "\n"
             "      default: break;\n    }\n  }\n" + self.meet()
-            + self.quad_body() + "};\n\n}  // namespace tfd\n")
+            + self.quad_body() + gmembers + "};\n\n}  // namespace tfd\n")
 
 
 def _operand_ids(ins) -> List[int]:
@@ -926,6 +1053,130 @@ def _loop(n: int, stmt: str) -> str:
     return f"{unroll}\n  for (int i = 0; i < {n}; ++i) {stmt}"
 
 
+# ---------------------------------------------------------------------------
+# The group walk: one sample's walk split over the gsz members of its group
+# ---------------------------------------------------------------------------
+
+#: A value of the group walk, read at row [index]: the plan's computed
+#: values (v), their cotangents (g), a VJP dot's input cotangent (dh), and
+#: the host's stage state (y, ay).
+_SLOT = re.compile(r"\b((?:v|g|dh)\d+|y|ay)\[([^\[\]]*)\]")
+#: The values that live in the walk's scratch (`gs`).
+_SCRATCH = re.compile(r"(?:v|g|dh)\d+$")
+#: What the host wrote before the walk, read by any member.
+_HOST_ROWS = ("y", "ay")
+
+
+def _gloop(off: int, n: int, stmt: str) -> str:
+    """stmt for the rows off + i (i < n) that member m owns, (off + i) %
+    gsz == m."""
+    start = "m" if off == 0 else f"((m - {off}) % gsz + gsz) % gsz"
+    return f"  for (int i = {start}; i < {n}; i += gsz) {stmt}"
+
+
+@dataclasses.dataclass
+class _GOp:
+    """One instruction of the group walk: its lines, the values it writes,
+    and the values it reads at rows that other members wrote (`cross`),
+    which a group sync must precede once they were written in the walk."""
+    lines: List[str]
+    writes: set
+    cross: set
+
+    @staticmethod
+    def reads(text: str) -> set:
+        return {v for v, _ in _SLOT.findall(text)}
+
+    @staticmethod
+    def rows(name: str, off: int, n: int, expr: str, lhs: str) -> "_GOp":
+        """Rows off + i of `name` (lhs, with i) set to expr (with i), each by
+        its owner; a read is the member's own row where it is row i of
+        an n-row output at off 0 (row 0 of a 1-row one)."""
+        own = lambda idx: off == 0 and (idx == "i" or (n == 1 and idx == "0"))
+        return _GOp([_gloop(off, n, f"{lhs} = {expr};")], {name},
+                    {v for v, idx in _SLOT.findall(expr)
+                     if not own(idx.strip())})
+
+    @staticmethod
+    def member0(name: str, lines: List[str]) -> "_GOp":
+        """A 1-row result that member 0 computes (a reduction, a fold)."""
+        return _GOp(["  if (m == 0) {"] + lines + ["  }"], {name},
+                    {v for v, idx in _SLOT.findall("\n".join(lines))
+                     if idx.strip() != "0"})
+
+    def names(self) -> set:
+        return self.writes | self.reads("\n".join(self.lines))
+
+
+def _name_key(v: str):
+    return (v.rstrip("0123456789"), int(v[len(v.rstrip("0123456789")):] or 0))
+
+
+def _group_walk(prefix: str, ops: List[_GOp], size_of, params: str,
+                args: str):
+    """The group walk of `ops`: phases cut where an op reads a row that
+    another member wrote in the walk (a group sync between phases, and one
+    after the last), each value in a region of the scratch `gs` (a region
+    reused by a later value once a sync separates their phases). Returns
+    (the phase functions, the struct's members, values, phases)."""
+    phases, dirty = [[]], set(_HOST_ROWS)
+    for op in ops:
+        if op.cross & dirty:
+            phases.append([])
+            dirty = set()
+        phases[-1].append(op)
+        dirty |= op.writes
+    span: Dict[str, Tuple[int, int]] = {}
+    for k, ph in enumerate(phases):
+        for op in ph:
+            for v in op.names():
+                if _SCRATCH.match(v):
+                    a, b = span.get(v, (k, k))
+                    span[v] = (min(a, k), max(b, k))
+    regions, off, total = [], {}, 0
+    for v in sorted(span, key=lambda v: (span[v][0], _name_key(v))):
+        n, (first, last) = size_of(v), span[v]
+        for reg in regions:
+            if reg[2] < first and reg[1] >= n:
+                off[v] = reg[0]
+                reg[2] = last
+                break
+        else:
+            off[v] = total
+            regions.append([total, n, last])
+            total += n
+    funcs, calls = [], []
+    for k, ph in enumerate(phases):
+        names = sorted({v for op in ph for v in op.names() if v in off},
+                       key=_name_key)
+        body = [f"  T* const {v} = gs + {off[v]};" for v in names]
+        for op in ph:
+            body += op.lines
+        funcs.append(f"template <typename T>\n"
+                     f"__host__ __device__ __forceinline__ void "
+                     f"{prefix}_gph{k}(\n{params}, const int m,\n"
+                     f"    const int gsz) {{\n" + "\n".join(body) + "\n}\n")
+        calls.append(f"{prefix}_gph{k}<T>({args}, m, gsz);")
+    cases = "\n".join(f"      case {k}: {c} break;"
+                      for k, c in enumerate(calls))
+    walk = "\n".join(f"    {c}\n    sync();" for c in calls)
+    members = (
+        f"  static constexpr int kGroupValues = {total};\n"
+        f"  static constexpr int kGroupPhases = {len(phases)};\n"
+        "  // Phase k of the group walk for member m of gsz (a host runs the\n"
+        "  // members in turn, phase by phase).\n"
+        "  template <typename T>\n"
+        f"  __host__ __device__ static void group_phase(\n      int k, "
+        f"{params.strip()},\n      int m, int gsz) {{\n"
+        f"    switch (k) {{\n{cases}\n      default: break;\n    }}\n  }}\n"
+        "  // The whole walk for member m, the group meeting at sync()\n"
+        "  // between phases and after the last.\n"
+        "  template <typename T, class Sync>\n"
+        f"  __device__ static void group_walk(\n      {params.strip()},\n"
+        f"      int m, int gsz, const Sync& sync) {{\n{walk}\n  }}\n")
+    return "\n".join(funcs), members, total, len(phases)
+
+
 _ENTRY = {"solve": "TFD_PLAN_SOLVE_ENTRY(tfd_plan_solve_{t}, {ct})",
           "fixed": "TFD_PLAN_FIXED_ENTRY(tfd_plan_fixed_{t}, {ct})",
           "perlane": "TFD_PLAN_PERLANE_ENTRY(tfd_plan_perlane_{t}, {ct})",
@@ -945,6 +1196,18 @@ def layout(plan: FusedPlan) -> PlanLayout:
 
 def aug_layout(plan: FusedPlan) -> AugLayout:
     return _AugGen(plan).layout()
+
+
+@functools.lru_cache(maxsize=256)
+def group_values(plan: FusedPlan) -> int:
+    """kGroupValues of an uncoupled plan's forward group walk."""
+    return _Gen(plan).group("plan")[2]
+
+
+@functools.lru_cache(maxsize=256)
+def aug_group_values(plan: FusedPlan) -> int:
+    """kGroupValues of an uncoupled plan's reverse group walk."""
+    return _AugGen(plan).group()[2]
 
 
 def _entries(host: str) -> str:
@@ -1021,14 +1284,40 @@ _HOST_HEAD = ("#include <vector>\n#include \"plan_ops.cuh\"\n\n"
               "namespace tfd {\n")
 
 
+def _host_group_evals(plan: FusedPlan) -> str:
+    """`plan_group_f32` / `_f64`(t, y [B][D], c, sc, B, out [B][out_rows],
+    gs [kGroupValues], gsz): the forward group walk of an uncoupled plan
+    over the whole batch, phase by phase, the gsz members of a sample in
+    turn; `plan_group_values()` the scratch values (kGroupValues)."""
+    D, R = plan.dim, plan.out_rows
+    evals = ['extern "C" int plan_group_values() '
+             '{ return tfd::Plan::kGroupValues; }']
+    for t, ct in (("f32", "float"), ("f64", "double")):
+        evals.append(f"""
+extern "C" void plan_group_{t}({ct} t, const {ct}* y, const {ct}* c,
+                               const {ct}* sc, int B, {ct}* out, {ct}* gs,
+                               int gsz) {{
+  using P = tfd::Plan;
+  for (int b = 0; b < B; ++b)
+    for (int k = 0; k < P::kGroupPhases; ++k)
+      for (int m = 0; m < gsz; ++m)
+        P::group_phase<{ct}>(k, t, y + long(b) * {D}, c, sc, b, B, gs,
+                             out + long(b) * {R}, m, gsz);
+}}""")
+    return "\n".join(evals) + "\n"
+
+
 def host_source(plan: FusedPlan, threads: int) -> str:
     """Host C++ of the plan's segments with a plain host evaluator, for the
     codegen tests: `plan_eval_f32` / `plan_eval_f64`(t, y [B][D], c, sc,
     B, out [B][out_rows], live, red) evaluate the whole batch, each coupling
-    reduced in the order of a K2 block of `threads` threads. Include after
+    reduced in the order of a K2 block of `threads` threads; for an
+    uncoupled plan also its group walk (`_host_group_evals`). Include after
     a shim that defines __host__, __device__ and __forceinline__ empty."""
+    gen = _Gen(plan)
     return (_HOST_HEAD + _HOST_MEET + "}  // namespace tfd\n\n"
-            + _Gen(plan).body() + _host_evals(plan, threads, "Plan"))
+            + gen.body() + _host_evals(plan, threads, "Plan")
+            + (_host_group_evals(plan) if len(gen.segs) == 1 else ""))
 
 
 def host_hyper_source(plan_f: FusedPlan, plan_g: FusedPlan) -> str:
@@ -1065,6 +1354,32 @@ extern "C" void aug_eval_{t}({ct} t, const {ct}* y, const {ct}* ay,
                    live, red, qr, f + long(b) * {R}, vy + long(b) * {D});
     if (k + 1 < P::kSegments) P::meet(k, m);
   }}
+  for (int b = 0; b < B; ++b) {{
+    for (int r = 0; r < P::kNQuad + P::kTimeInput; ++r)
+      xq[long(r) * B + b] = P::quad_x<{ct}>(r, qr, B, b);
+    for (int j = 0; j < P::kNSample; ++j)
+      xs[long(j) * B + b] = P::sample_x<{ct}>(j, qr, B, b);
+  }}
+}}""")
+    if not gen.meets:
+        # The reverse group walk (aug_group_*: aug_eval_*'s contract, its
+        # qr rows [kQRows][B], gs [kGroupValues], the gsz members of a
+        # sample in turn as plan_group_* runs them).
+        evals.append('extern "C" int aug_group_values() '
+                     '{ return tfd::PlanAug::kGroupValues; }')
+        for t, ct in (("f32", "float"), ("f64", "double")):
+            evals.append(f"""
+extern "C" void aug_group_{t}({ct} t, const {ct}* y, const {ct}* ay,
+                              const {ct}* c, const {ct}* sc, int B, {ct}* f,
+                              {ct}* vy, {ct}* xq, {ct}* xs, {ct}* qr,
+                              {ct}* gs, int gsz) {{
+  using P = tfd::PlanAug;
+  for (int b = 0; b < B; ++b)
+    for (int k = 0; k < P::kGroupPhases; ++k)
+      for (int m = 0; m < gsz; ++m)
+        P::group_phase<{ct}>(k, t, y + long(b) * {D}, ay + long(b) * {R}, c,
+                             sc, b, B, qr, f + long(b) * {R},
+                             vy + long(b) * {D}, gs, m, gsz);
   for (int b = 0; b < B; ++b) {{
     for (int r = 0; r < P::kNQuad + P::kTimeInput; ++r)
       xq[long(r) * B + b] = P::quad_x<{ct}>(r, qr, B, b);
