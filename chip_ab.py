@@ -4,11 +4,12 @@ kernels, their adjoint sweeps (K3, K9, K6), the Adams kernels (K10, K11)
 at the bench protocol and the conv-ODE solve (K13), for two or more
 checkouts of the repository on one NVIDIA card, in alternating order.
 
-    python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS] [plans]
+    python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS] [plans | cnf]
 
 Each checkout builds its own kernels first (all together), then every
 round runs one process a checkout, in the order A B B A A B ... (ROUNDS
-pairs, 3 by default; with `plans` the plan rows alone), each timing with
+pairs, 3 by default; with `plans` the plan rows alone, with `cnf` the K2
+and K3 rows and the K7, K1 and CNF rows below), each timing with
 CUDA events (median of 7 after a
 warm-up): the MLP routes of K2 (dopri5, bench spiral y [4096, 2], hidden
 50, 64 outputs over [0, 25], rtol = atol = 1e-6, first step 0.01), K8
@@ -29,8 +30,18 @@ from numpy seeds) at B = 128 and 256 (median of 3), and, where the checkout
 has the plan routes (`ops/cuda_plan.py`), the same spiral written as
 plain PyTorch in each host (K15 in K3 among them) and the
 stiffness battery per sample (K15 in K6 on its own K5 trajectory, the
-cotangent of sum(ys ** 2), first backward step 0.01). It prints the card's
-name and power limit, a line a run and the median of each kernel a
+cotangent of sum(ys ** 2), first backward step 0.01). Then K7's forward in
+K2 on that flow and trajectory, K1 (one dopri5 step of the bench spiral at
+B = 4096, dt 0.3: the kernel alone, events around its launch behind a
+queued sleep; and a wrapper call, ten queued behind a sleep, its device
+work with the partials' sum),
+`fast.solve_mlp_stepwise` at the bench protocol, and on chip_smoke.py
+[22]'s flow (`CNFDynamics(2, 32, 3)` from seed 0, 4096 two-moons points,
+rtol 1e-5, atol 1e-7) a `fast.cnf_log_prob_train` step with its backward
+(two chunks of 2048), an `examples/cnf.py --fused` Adam step at its
+defaults (B = 512, hidden 64) and `fast.cnf_sample_fused` of 1000 points
+(median of 3 each, CUDA events around the host's call). It prints the
+card's name and power limit, a line a run and the median of each kernel a
 checkout.
 """
 
@@ -44,9 +55,94 @@ import sys
 import numpy as np
 
 
-def _one(root: str, plans_only: bool = False) -> None:
-    """Time the kernels of the checkout at `root` (with `plans_only` the
-    plan rows alone); print one line."""
+def _kernel_ms(lib, name: str, call, reps: int = 7) -> float:
+    """Median device ms of the launch of lib.<name> inside call(): CUDA
+    events right before and after the ctypes call, behind a sleep queued
+    first, so that the window holds the kernel alone and none of the
+    wrapper's host or device work."""
+    import torch
+    fn0, marks = getattr(lib, name), []
+
+    def timed(*a):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(20_000_000)
+        s.record()
+        r = fn0(*a)
+        e.record()
+        marks.append((s, e))
+        return r
+
+    setattr(lib, name, timed)
+    try:
+        for _ in range(reps + 1):
+            call()
+    finally:
+        setattr(lib, name, fn0)
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in marks[1:])
+
+
+def _cnf_rows(out: dict, timed, device_timed, dev) -> None:
+    """K1, the stepwise solve and chip_smoke.py [22]-[24]'s CNF steps."""
+    import torch
+    from tfdiffeq_tpu_torch import fast
+    from tfdiffeq_tpu_torch.examples import cnf as cnf_example
+    from tfdiffeq_tpu_torch.models import cnf as mcnf
+    from tfdiffeq_tpu_torch.ops import _build, cuda_kernels as ck
+    rng = np.random.RandomState(0)
+    c = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    p = {"w1": c(rng.randn(2, 50) * 0.1), "b1": c(np.zeros(50)),
+         "w2": c(rng.randn(50, 2) * 0.1), "b2": c(np.zeros(2))}
+    y = c(np.random.RandomState(1).randn(4096, 2) * 1.5)
+    f0 = fast.mlp_apply(fast.MLPSpec(activation="tanh", input_power=3),
+                        [(p["w1"], p["b1"]), (p["w2"], p["b2"])], y)
+    out["K1"] = _kernel_ms(_build.library(), "tfd_dopri5_mlp_step_f32",
+                           lambda: ck.dopri5_mlp_step(p, y, f0, 0.3, 1e-6,
+                                                      1e-6))
+    out["K1 call"] = device_timed(lambda: ck.dopri5_mlp_step(
+        p, y, f0, 0.3, 1e-6, 1e-6))
+    t = torch.linspace(0.0, 25.0, 64)
+    out["stepwise"] = timed(lambda: fast.solve_mlp_stepwise(
+        p, y, t, rtol=1e-6, atol=1e-6, first_step=0.01), reps=3)
+    flow = mcnf.CNFDynamics(2, 32, 3, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    x = c(cnf_example.two_moons(4096, np.random.RandomState(0)))
+    W = [(w.detach(), b.detach()) for w, b in fast.weights_from_linears(flow)]
+    Wg = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+          for w, b in W]
+
+    def train_step():
+        loss = -torch.mean(fast.cnf_log_prob_train(Wg, x, rtol=1e-5,
+                                                   atol=1e-7))
+        loss.backward()
+
+    out["CNF train step"] = timed(train_step, reps=3)
+    eargs = cnf_example.parse_args(["--fused", "--device", "cuda"])
+    erng = np.random.RandomState(eargs.seed)
+    eflow = mcnf.CNFDynamics(2, eargs.hidden, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(eflow.parameters(), lr=eargs.lr)
+    nll = cnf_example.make_nll(eargs, eflow)
+    xb = c(cnf_example.two_moons(eargs.batch_size, erng))
+
+    def adam_step():
+        opt.zero_grad(set_to_none=True)
+        nll(xb).backward()
+        opt.step()
+
+    out["CNF example step"] = timed(adam_step, reps=3)
+    ew = [(m.weight.detach().t().contiguous(), m.bias.detach())
+          for m in eflow.layers]
+    out["cnf_sample_fused"] = timed(lambda: fast.cnf_sample_fused(
+        ew, torch.Generator(device=dev).manual_seed(1), 1000, 2,
+        rtol=eargs.rtol, atol=eargs.atol), reps=3)
+
+
+def _one(root: str, only: str = "") -> None:
+    """Time the kernels of the checkout at `root` (with `only` = "plans"
+    the plan rows alone, "cnf" the K2, K3, K7, K1 and CNF rows); print one
+    line."""
+    plans_only, cnf_only = only == "plans", only == "cnf"
     sys.path.insert(0, root)
     import torch
     from tfdiffeq_tpu_torch import fast
@@ -82,14 +178,32 @@ def _one(root: str, plans_only: bool = False) -> None:
             ts.append(a.elapsed_time(b))
         return statistics.median(ts)
 
-    out = {} if plans_only else {
-        "K2": timed(lambda: ck.mlp_solve(warr, dims, y, t, 0.01, 1e-6, 1e-6,
-                                         1.0, **kw)),
-        "K8": timed(lambda: cf.mlp_solve_fixed(warr, dims, y, t, grid, 1.0,
-                                               **kw)),
-        "K5": timed(lambda: cp.mlp_solve_perlane(warr, dims, y, t, dt0, 1e-6,
-                                                 1e-6, 1.0, **kw)),
-    }
+    def device_timed(fn, reps=7, inner=10):
+        # Calls queued behind a sleep on the card: the device time alone.
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            torch.cuda._sleep(20_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(inner):
+                fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b) / inner)
+        return statistics.median(ts)
+
+    out = {}
+    if not plans_only:
+        out["K2"] = timed(lambda: ck.mlp_solve(warr, dims, y, t, 0.01, 1e-6,
+                                               1e-6, 1.0, **kw))
+    if not (plans_only or cnf_only):
+        out["K8"] = timed(lambda: cf.mlp_solve_fixed(warr, dims, y, t, grid,
+                                                     1.0, **kw))
+        out["K5"] = timed(lambda: cp.mlp_solve_perlane(
+            warr, dims, y, t, dt0, 1e-6, 1e-6, 1.0, **kw))
     from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca
     ys, _ = ck.mlp_solve(warr, dims, y, t, 0.01, 1e-6, 1e-6, 1.0, **kw)
     target = c(np.random.RandomState(2).randn(64, 4096, 2) * 0.5)
@@ -102,6 +216,7 @@ def _one(root: str, plans_only: bool = False) -> None:
     if not plans_only:
         out["K3"] = timed(lambda: ca.mlp_adjoint_solve(
             warr, dims, ys, ct, t, dt_b, 1e-6, 1e-6, 1.0, **akw), reps=3)
+    if not (plans_only or cnf_only):
         out["K9"] = timed(lambda: cf.mlp_adjoint_solve_fixed(
             warr, dims, ys, ct, t, 1.0, num_steps=8, method="rk4", **akw),
             reps=3)
@@ -126,23 +241,6 @@ def _one(root: str, plans_only: bool = False) -> None:
         wwarr, wpd = ck.pack_mlp_weights(WW, torch.float32, dev)
         tiers = {tier: ck.layer_tiers(wpd, "auto", tier)
                  for tier in ("mixed", "bf16")}
-        def device_timed(fn, reps=7, inner=10):
-            # Calls queued behind a sleep on the card: the device time alone.
-            fn()
-            torch.cuda.synchronize()
-            ts = []
-            for _ in range(reps):
-                torch.cuda._sleep(20_000_000)
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                for _ in range(inner):
-                    fn()
-                b.record()
-                b.synchronize()
-                ts.append(a.elapsed_time(b) / inner)
-            return statistics.median(ts)
-
         for tier, tt in tiers.items():
             out[f"K4 {tier}"] = device_timed(lambda: ck.tier_net(
                 wwarr, wpd, xw, tiers=tt))
@@ -192,9 +290,10 @@ def _one(root: str, plans_only: bool = False) -> None:
             out[f"K13 B{Bc}"] = timed(lambda: cc.conv_solve(
                 wpack, spec, x, tau, cdt, 1e-3, 1e-3, 1.0, f0=cf0,
                 block_size=18), reps=3)
-        # K7's adjoint in K3: the CNF flow 3 -> 32 -> 32 -> 2 at B = 4096, t =
-        # 1 -> 0, on its own forward trajectory with the density loss's
-        # cotangent.
+    if not plans_only:
+        # K7's forward in K2 and its adjoint in K3: the CNF flow 3 -> 32 ->
+        # 32 -> 2 at B = 4096, t = 1 -> 0, the adjoint on its own forward
+        # trajectory with the density loss's cotangent.
         rc = np.random.RandomState(3)
         CW = [(c(rc.randn(i, o) * 0.6 / np.sqrt(i)), c(rc.randn(o) * 0.1))
               for i, o in ((3, 32), (32, 32), (32, 2))]
@@ -204,17 +303,20 @@ def _one(root: str, plans_only: bool = False) -> None:
         tau = torch.tensor([-1.0, 0.0])
         cf0 = -ck._cnf_net_plain(cpk, cpd, "tanh")(
             torch.tensor(1.0, device=dev), s0)
-        cys, _ = ck.mlp_solve(cpk, cpd, s0, tau, 0.1, 1e-5, 1e-7, -1.0,
-                              f0=cf0.contiguous(), activation="tanh",
-                              time_input=True, rhs="cnf")
+        ckw = dict(f0=cf0.contiguous(), activation="tanh", time_input=True,
+                   rhs="cnf")
+        cys, _ = ck.mlp_solve(cpk, cpd, s0, tau, 0.1, 1e-5, 1e-7, -1.0, **ckw)
+        out["K7 in K2"] = timed(lambda: ck.mlp_solve(
+            cpk, cpd, s0, tau, 0.1, 1e-5, 1e-7, -1.0, **ckw))
         cg = torch.zeros_like(cys)
         cg[-1, :, :2] = cys[-1, :, :2] / 4096
         cg[-1, :, 2] = 1.0 / 4096
         out["K7 in K3"] = timed(lambda: ca.mlp_adjoint_solve(
             cpk, cpd, cys.contiguous(), cg, tau, 0.1, 1e-5, 1e-7, -1.0,
             activation="tanh", rhs="cnf"), reps=3)
+        _cnf_rows(out, timed, device_timed, dev)
     plan_mod = os.path.join(root, "tfdiffeq_tpu_torch", "ops", "cuda_plan.py")
-    if os.path.exists(plan_mod):
+    if os.path.exists(plan_mod) and not cnf_only:
         from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, \
             plan_bridge as pb
 
@@ -278,7 +380,7 @@ def _one(root: str, plans_only: bool = False) -> None:
 
 def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        _one(os.path.abspath(sys.argv[2]), "plans" in sys.argv[3:])
+        _one(os.path.abspath(sys.argv[2]), (sys.argv[3:] or [""])[0])
         return 0
     if len(sys.argv) < 3:
         print(__doc__, file=sys.stderr)

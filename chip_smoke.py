@@ -10,7 +10,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 2. Build the CUDA kernels from csrc/ with nvcc; print the build time and
    the -Xptxas -v register and spill report.
 3. K1 `dopri5_mlp_step` against its plain PyTorch version at B=4096, D=2,
-   H=50, in float32 and float64.
+   H=50 (and at B = 1, 33, 4097), in float32 and float64, bitwise; each
+   prints its blocks and threads a sample.
 4. K2 `mlp_solve` against its plain version at the bench protocol (dopri5,
    y [4096, 2], hidden 50, 64 outputs over [0, 25], rtol = atol = 1e-6,
    first step 0.01), in float32 and float64, and run to run bitwise.
@@ -20,7 +21,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    zeroed just before and read just after; each kernel must have run.
    Outputs must be finite, of shape [64, 4096, 2], with status 0; on a
    small input (B=96, 12 outputs over [0, 5]) the three agree.
-6. Time each kernel with CUDA events (median of 5 after a warm-up) and
+6. Time each kernel with CUDA events (median of 5 after a warm-up; K1's
+   kernel alone by events around its launch behind a queued sleep, its
+   wrapper's device work beside it) and
    its plain version by one synchronised call on the host clock (it is
    host-bound and takes seconds; so in every later phase), and print them
    beside the card's name and power limit. Each phase prints the second
@@ -163,7 +166,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     (bitwise); float32 within 1e-4 of the generic
     `models.cnf.log_prob(trace='exact')` on the card. The kernel (CUDA
     events), its plain version (host clock), the entry point and the
-    generic path timed; the bound from the run's NFE.
+    generic path timed; the bound from the run's NFE. [22]-[24] print each
+    recorded launch's grouped walk (blocks, samples a round, threads a
+    sample).
 23. K7's adjoint in K3 (`mlp_adjoint_solve(rhs='cnf')`) on [22]'s
     trajectory with g = d(-mean log p)/d out, B = 4096: against its plain
     version in float64 and float32 (bitwise, identical stats; one K3 launch
@@ -479,6 +484,33 @@ def _device_ms(fn, reps=7, inner=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _kernel_ms(lib, name: str, call, reps: int = 7) -> float:
+    """Median device ms of the launch of lib.<name> (a ctypes launch
+    function of the kernels' library) inside call(): CUDA events right
+    before and after the ctypes call, behind a sleep queued first, so that
+    the window holds the kernel alone and none of the wrapper's work."""
+    import torch
+    fn0, marks = getattr(lib, name), []
+
+    def timed(*a):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        s.record()
+        r = fn0(*a)
+        e.record()
+        marks.append((s, e))
+        return r
+
+    setattr(lib, name, timed)
+    try:
+        for _ in range(reps + 1):
+            call()
+    finally:
+        setattr(lib, name, fn0)
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in marks[1:])
 
 
 #: H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
@@ -1246,6 +1278,30 @@ def _cnf_stage_flops(dims) -> int:
     return forward + passes + part_a + part_b + delta + 3 * D + 3 + sums
 
 
+def _cnf_layout(what: str, call, dev) -> dict:
+    """Print the grouped walk a recorded K2 or K3 launch with K7 took: its
+    blocks, samples a round (slots) and threads a sample
+    (ops/cuda_kernels.solve_layout, ops/cuda_adjoint.adjoint_layout, the
+    launches' own arithmetic)."""
+    from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, cuda_kernels as ck
+    from tfdiffeq_tpu_torch.ops.tableaus import TABLEAUS_BY_NAME
+    args, kw, _ = call
+    dims, x = args[1], args[2]
+    adjoint = x.ndim == 3
+    B = x.shape[-2]
+    nb = kw.get("n_blocks") or ck.solve_blocks(B, dev)
+    if adjoint:
+        S = TABLEAUS_BY_NAME[kw.get("method", "dopri5")].stages
+        lay = ca.adjoint_layout(dims, B, S, x.element_size(), nb, cnf=True)
+    else:
+        lay = ck.solve_layout(dims, B, x.element_size(), nb, cnf=True)
+    print(f"{what} ({x.dtype}, B = {B}, flow {dims}): {lay['blocks']} "
+          f"blocks of 512 threads, {lay['slots']} samples a round, "
+          f"{lay['threads_a_sample']} threads a sample, "
+          f"{lay['slot_values']} values a slot", flush=True)
+    return lay
+
+
 def _cnf_tier(smi: str, dev) -> dict:
     """Phases 22-24: the CNF path (K7 in K2 and K3). Returns the numbers
     that the kernel records take."""
@@ -1286,6 +1342,7 @@ def _cnf_tier(smi: str, dev) -> dict:
             raise AssertionError(f"cnf_log_prob_fused {dtype} launches "
                                  f"{fwd_launches}, stats {st}")
         k2[dtype] = call = k2_rec.calls[0]
+        rec["fwd_layout"] = _cnf_layout("[22] K7 forward in K2", call, dev)
         err, plain_ms = _hold_to_plain(
             call, ck.mlp_solve_plain, f"[22] K7 forward (K2 rhs='cnf') {dtype}")
         args, kw, got = call
@@ -1345,6 +1402,8 @@ def _cnf_tier(smi: str, dev) -> dict:
         got = ca.mlp_adjoint_solve(*args, **kw)
         torch.cuda.synchronize()
         sweep_launches = ca.cnf_adjoint_launches
+        rec["adj_layout"] = _cnf_layout("[23] K7 adjoint in K3",
+                                        (args, kw, got), dev)
         err, plain_ms = _hold_to_plain(
             (args, kw, got), ca.mlp_adjoint_solve_plain,
             f"[23] K7 adjoint (K3 rhs='cnf') {dtype}, B = {B}")
@@ -1402,6 +1461,8 @@ def _cnf_tier(smi: str, dev) -> dict:
             or len(t_k2.calls) != 2 or len(t_k3.calls) != 2:
         raise AssertionError(f"training launches {train_launches}")
     chunk = t_k2.calls[0][0][2].shape[0]
+    _cnf_layout("[23] training chunk, K2", t_k2.calls[0], dev)
+    _cnf_layout("[23] training chunk, K3", t_k3.calls[0], dev)
     errs = [_hold_to_plain(t_k2.calls[0], ck.mlp_solve_plain,
                            f"[23] training step, chunk 1 of 2 ({chunk} "
                            "samples): K2 with K7")[0],
@@ -1486,6 +1547,8 @@ def _cnf_tier(smi: str, dev) -> dict:
         raise AssertionError(f"CNF example launches {ex_launches}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"CNF example losses {losses}")
+    _cnf_layout("[24] example, K2", e_k2.calls[0], dev)
+    _cnf_layout("[24] example, K3", e_k3.calls[0], dev)
     errs += [_hold_to_plain(e_k2.calls[0], ck.mlp_solve_plain,
                             f"[24] first step's K2 with K7 (B = "
                             f"{eargs.batch_size}, hidden {eargs.hidden})")[0],
@@ -3106,26 +3169,34 @@ def main() -> int:
                                    + _late_pairs(dev))
 
     _at("3")
-    # [3] K1 against its plain version (dt 0.3: a typical main-path step).
+    # [3] K1 against its plain version (dt 0.3: a typical main-path step),
+    # bitwise, at the bench batch and at batches that leave a block part
+    # empty.
     spec = fast.MLPSpec(activation="tanh", input_power=3)
     k1_err = {}
-    for dtype, tol in ((f32, 1e-5), (f64, 1e-12)):
-        p, y, _ = _bench_params(B, dtype, dev)
-        f0 = fast.mlp_apply(spec, [(p["w1"], p["b1"]), (p["w2"], p["b2"])],
-                            y)
-        got = ck.dopri5_mlp_step(p, y, f0, 0.3, TOL, TOL)
-        ref = ck.dopri5_mlp_step_plain(p, y, f0, 0.3, TOL, TOL)
-        torch.cuda.synchronize()
-        errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-        rel = abs(float(got[2]) / float(ref[2]) - 1.0)
-        print(f"[3] K1 {dtype}: max |kernel - plain| y1 {errs[0]:.3e} f1 "
-              f"{errs[1]:.3e} y_mid {errs[3]:.3e}; ratio {float(got[2]):.9e}"
-              f" vs {float(ref[2]):.9e} (rel {rel:.3e}); tolerance {tol}",
-              flush=True)
-        if max(errs[0], errs[1], errs[3]) > tol or rel > tol:
-            raise AssertionError(f"K1 {dtype} disagrees with its plain "
-                                 "version")
-        k1_err[dtype] = max(errs)
+    for dtype in (f32, f64):
+        for Bk in (B, 1, 33, B + 1):
+            p, y, _ = _bench_params(Bk, dtype, dev)
+            f0 = fast.mlp_apply(spec, [(p["w1"], p["b1"]),
+                                       (p["w2"], p["b2"])], y)
+            got = ck.dopri5_mlp_step(p, y, f0, 0.3, TOL, TOL)
+            ref = ck.dopri5_mlp_step_plain(p, y, f0, 0.3, TOL, TOL)
+            torch.cuda.synchronize()
+            errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            spb = ck.step_samples(D, p["w1"].shape[1], y.element_size())
+            print(f"[3] K1 {dtype}, B = {Bk}: {-(-Bk // spb)} blocks of "
+                  f"{ck.STEP_BLOCK} threads, {spb} samples a block, "
+                  f"{ck.STEP_BLOCK // spb} threads a sample; max |kernel - "
+                  f"plain| y1 {errs[0]:.3e} f1 {errs[1]:.3e} y_mid "
+                  f"{errs[3]:.3e}; ratio {float(got[2]):.9e} vs "
+                  f"{float(ref[2]):.9e}; bitwise equal to plain: {same}",
+                  flush=True)
+            if not same or not bool(torch.isfinite(got[2])):
+                raise AssertionError(f"K1 {dtype} at B = {Bk} differs from "
+                                     "its plain version")
+            if Bk == B:
+                k1_err[dtype] = max(errs)
 
     _at("4")
     # [4] K2 against its plain version at the bench protocol.
@@ -3218,15 +3289,19 @@ def main() -> int:
     # [6] timings (these launches are not counted above).
     p, y, _ = _bench_params(B, f32, dev)
     f0 = fast.mlp_apply(spec, [(p["w1"], p["b1"]), (p["w2"], p["b2"])], y)
-    step_ms = _timed(lambda: ck.dopri5_mlp_step(p, y, f0, 0.3, TOL, TOL),
-                     inner=20)
+    step_ms = _kernel_ms(_build.library(), "tfd_dopri5_mlp_step_f32",
+                         lambda: ck.dopri5_mlp_step(p, y, f0, 0.3, TOL, TOL))
+    step_call_ms = _device_ms(
+        lambda: ck.dopri5_mlp_step(p, y, f0, 0.3, TOL, TOL))
     step_plain_ms = _timed(
         lambda: ck.dopri5_mlp_step_plain(p, y, f0, 0.3, TOL, TOL), inner=5)
     args, kw = k2_args[f32]
     solve_ms = _timed(lambda: ck.mlp_solve(*args, **kw))
     solve_plain_ms = _plain_ms(lambda: ck.mlp_solve_plain(*args, **kw))
-    print(f"[6] {smi}: K1 dopri5_mlp_step {step_ms:.4f} ms/call vs plain "
-          f"{step_plain_ms:.4f} ms (B=4096, float32)", flush=True)
+    print(f"[6] {smi}: K1 dopri5_mlp_step {step_ms:.4f} ms the kernel "
+          f"({step_call_ms:.4f} ms of device work a wrapper call, with the "
+          f"partials' sum) vs plain {step_plain_ms:.4f} ms (B=4096, "
+          "float32)", flush=True)
     print(f"[6] {smi}: K2 mlp_solve {solve_ms:.3f} ms/solve vs plain "
           f"{solve_plain_ms:.3f} ms (bench protocol, float32, "
           f"{whole.stats.n_accepted + whole.stats.n_rejected} attempts)",
@@ -4033,7 +4108,9 @@ def main() -> int:
          "launches": launches["dopri5_mlp_step"],
          "max_abs_err": k1_err[f32], "ms": step_ms,
          "plain_ms": step_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "threads_a_sample": ck.STEP_BLOCK // ck.step_samples(D, H, 4),
+         "call_device_ms": step_call_ms},
         {"name": "mlp_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/solve_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:726",
@@ -4114,7 +4191,8 @@ def main() -> int:
          "max_abs_err": cnf["fwd_err"], "ms": cnf["fwd_ms"],
          "plain_ms": cnf["fwd_plain_ms"], "bound_ms": cnf["fwd_bound"][0],
          "bound_by": cnf["fwd_bound"][1], "library_ms": None,
-         "generic_engine_ms": cnf["fwd_generic_ms"]},
+         "generic_engine_ms": cnf["fwd_generic_ms"],
+         "layout": cnf["fwd_layout"]},
         {"name": "cnf_adjoint", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/cnf_net.cuh",
          "replaces": "tfdiffeq_tpu/ops/pallas_adjoint.py:240",
@@ -4123,7 +4201,8 @@ def main() -> int:
          "plain_ms": cnf["adj_plain_ms"], "bound_ms": cnf["adj_bound"][0],
          "bound_by": cnf["adj_bound"][1], "library_ms": None,
          "train_step_ms": cnf["train_ms"],
-         "generic_train_step_ms": cnf["gen_train_ms"]},
+         "generic_train_step_ms": cnf["gen_train_ms"],
+         "layout": cnf["adj_layout"]},
         {"name": "adams_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/adams_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_fixed.py:512",

@@ -318,18 +318,20 @@ def test_grid_refusals():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_narrow_route_counts_one_group_slot(dtype):
     """K3's route counts one slot of the grouped walk's four vectors for an
-    MLP (the kernel fits as many more as shared memory holds) and none for
-    K7's CNF walk: a net whose weights and stage cotangents nearly fill
-    MAX_WEIGHT_BYTES in float64 keeps the narrow route."""
+    MLP (the kernel fits as many more as shared memory holds) and, for
+    K7's CNF walk, one of its slots and the weights' transposed copy: a
+    net whose weights and stage cotangents nearly fill MAX_WEIGHT_BYTES in
+    float64 keeps the narrow route."""
     isz = torch.empty((), dtype=dtype).element_size()
     dims = [(8, 128), (128, 8)]
     n_w = sum(i * o + o for i, o in dims)
     own = (3 + 7) * n_w + PA.ADJOINT_THREADS
     assert PA._shared_values(dims, 7, False) == own + 4 * 128
-    assert PA._shared_values(dims, 7, True, group=False) == own + 7
+    assert PA._shared_values(dims, 7, True) == own + 7 + 4 * 128
     assert PK._route("K3", dims, PA._shared_values(dims, 7, False),
                      isz) == PK.ROUTE_NARROW
     cnf_dims = [(3, 32), (32, 32), (32, 2)]
     n_c = sum(i * o + o for i, o in cnf_dims)
-    assert PA._shared_values(cnf_dims, 7, True, group=False) == \
-        (3 + 7) * n_c + 7 + PA.ADJOINT_THREADS
+    assert PA._shared_values(cnf_dims, 7, True, cnf=True) == \
+        (4 + 7) * n_c + 7 + PA.ADJOINT_THREADS + \
+        PA.cnf_aug_slot_values(cnf_dims)

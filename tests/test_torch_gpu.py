@@ -103,17 +103,29 @@ def _bench(B, dtype, device):
     return {k: as_t(v) for k, v in p.items()}, as_t(y0)
 
 
+@pytest.mark.parametrize("B,D", [(4096, 2), (1, 2), (33, 2), (4097, 2),
+                                 (33, 7), (300, ck.STEP_MAX_D)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_step_kernel_matches_plain(cuda, dtype):
-    p, y = _bench(4096, dtype, cuda)
+def test_step_kernel_matches_plain(cuda, dtype, B, D):
+    """K1 (a group of threads a sample, step_samples samples a block)
+    bitwise equal to its plain version: the step, the midpoint and the
+    ratio from the blocks' partial sums."""
+    if D == 2:
+        p, y = _bench(B, dtype, cuda)
+    else:
+        rng = np.random.RandomState(D)
+        p = {k: torch.tensor(v, dtype=dtype, device=cuda) for k, v in (
+            ("w1", rng.randn(D, 24) * 0.3), ("b1", rng.randn(24) * 0.1),
+            ("w2", rng.randn(24, D) * 0.3), ("b2", rng.randn(D) * 0.1))}
+        y = torch.tensor(rng.randn(B, D), dtype=dtype, device=cuda)
     f0 = fast.mlp_apply(fast.MLPSpec(input_power=3),
                         [(p["w1"], p["b1"]), (p["w2"], p["b2"])], y)
     got = ck.dopri5_mlp_step(p, y, f0, 0.3, 1e-6, 1e-6)
     ref = ck.dopri5_mlp_step_plain(p, y, f0, 0.3, 1e-6, 1e-6)
     torch.cuda.synchronize()
-    tol = 1e-12 if dtype == torch.float64 else 1e-5
     for a, b in zip(got, ref):
-        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+        assert torch.equal(a, b)
+    assert torch.isfinite(got[2])
     assert ck.dopri5_mlp_step_launches == 1
 
 
@@ -1013,14 +1025,25 @@ def _cnf_case(device, dtype, H, B, seed=31):
     return W, packed, dims, s0, tau, f0.contiguous()
 
 
-@pytest.mark.parametrize("H,B,route", [(64, 96, ck.ROUTE_NARROW),
-                                       (144, 40, ck.ROUTE_WIDE)])
+@pytest.mark.parametrize("H,B,route", [
+    (64, 96, ck.ROUTE_NARROW), (144, 40, ck.ROUTE_WIDE),
+    (32, 4096, ck.ROUTE_NARROW), (32, 2048, ck.ROUTE_NARROW),
+    (32, 512, ck.ROUTE_NARROW), (32, 100, ck.ROUTE_NARROW),
+    (64, 4096, ck.ROUTE_NARROW), (64, 2048, ck.ROUTE_NARROW),
+    (64, 512, ck.ROUTE_NARROW), (64, 100, ck.ROUTE_NARROW),
+    (144, 512, ck.ROUTE_WIDE)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cnf_kernels_match_plain(cuda, dtype, H, B, route):
-    """K7's forward in K2 and its adjoint in K3 (rhs='cnf'), narrow and wide:
-    bitwise equal to their plain versions with identical stats."""
+    """K7's forward in K2 and its adjoint in K3 (rhs='cnf'), narrow and wide,
+    at batches that give a block about 31, 16, 4 and 1 samples (a group of
+    16, 32, 128 and 512 threads a sample): bitwise equal to their plain
+    versions with identical stats."""
     _, packed, dims, s0, tau, f0 = _cnf_case(cuda, dtype, H, B)
     assert ck._route("t", dims, packed.numel(), s0.element_size()) == route
+    nb = ck.solve_blocks(B, cuda)
+    lay = ck.solve_layout(dims, B, s0.element_size(), nb, cnf=True)
+    per = -(-B // nb)
+    assert lay["slots"] == min(ck.GROUP_SLOTS, 1 << (per - 1).bit_length())
     args = (packed, dims, s0, tau, 0.05, 1e-5, 1e-7, -1.0)
     kw = dict(f0=f0, activation="tanh", time_input=True, rhs="cnf")
     out, st = ck.mlp_solve(*args, **kw)

@@ -51,7 +51,7 @@
 // the group vectors, the parameter accumulator and every stage's
 // parameter cotangents sit in each block's shared memory ((S + 3) n_w
 // values and the groups'; the block uses its own parameters' entries).
-// K7's CNF walk (kCnf) stays a thread a sample.
+// K7's CNF walk (kCnf) takes the same groups.
 //
 // Bound on the H100. A stage's work is cut 132 ways (B = 4096) and a
 // sample's walk 16 ways: the stage's chain is a layer's longest sum (50
@@ -72,14 +72,17 @@
 // rhs = cnf (K7's adjoint, csrc/cnf_net.cuh, replacing pallas_adjoint.py:240
 // _make_cnf_aug_eval at :1088-1131): the sweep of the augmented FFJORD
 // system, the state [z; logp] of D + 1 values and the network the concat-t
-// flow (time_input forced). Phase A runs cnf_aug_eval for each owned
-// sample, which writes the sample's rows of the layers' inputs, act',
-// act'', the passes' v, u and vb, part A's cotangents and the deltas; phase
-// B takes each weight's batch sum of cnf_weight_x, the sample's cotangent
-// in one fixed order (2 D + 4 workspace reads a sample), in K3's lane and
-// tree order, without atomics, as the plain version repeats.
-#include <type_traits>
-
+// flow (time_input forced). Phase A runs cnf_aug_eval_group for each owned
+// sample with its group, which keeps act', act'' and the passes' products
+// in the sample's slot (lane_group.h cnf_aug_slot_values) and writes the
+// sample's rows (cnf_net.cuh CnfRows, CnfRowsAt: in the block's shared
+// memory where they fit) of the layers' inputs, the passes' u and vb, part
+// A's cotangents and the deltas; phase B takes each weight's batch sum of
+// cnf_weight_x, the sample's cotangent in one fixed order (2 D + 4 reads a
+// sample, a thread's samples of a row next to each other), in K3's lane
+// and tree order, without atomics, as the plain version repeats. On the
+// narrow route the weights sit in shared memory twice, row-major for the
+// VJPs and transposed for the products over a layer's inputs.
 #include "cnf_net.cuh"
 #include "rk_adjoint.cuh"
 
@@ -100,19 +103,22 @@ struct Rows {
 };
 
 // K3's MLP right-hand sides (csrc/rk_adjoint.cuh's Aug): the narrow and
-// wide routes, and K7's CNF adjoint with kCnf. The right-hand side's rows:
-// H [n_h][B], G [n_z][B], DZ [n_z][B] and VT [B] (kCnf: cnf_net.cuh's
-// rows, VT among them).
+// wide routes, and K7's CNF adjoint with kCnf, each a group of threads a
+// sample (stage_group). The right-hand side's rows: H [n_h][B], G [n_z][B],
+// DZ [n_z][B] and VT [B] (kCnf: cnf_net.cuh's CnfRows, VT among them, in
+// the block's shared memory where they fit).
 template <typename T, int kRoute, bool kCnf>
 struct MlpAdjAug {
   static constexpr bool kBatch = false;
-  // The MLP walks a sample with a group of threads (stage_group).
-  static constexpr bool kGroup = !kCnf;
+  static constexpr bool kGroup = true;
   const T* wg;     // packed weights (pack_mlp_weights)
   int n_w, ti, n_ps;
   int n_h, n_z;
   int gw;          // the group vectors' width: the widest layer
   int slots;       // samples a round of the grouped walk
+  int sv;          // values of a slot
+  int rows_smem;   // kCnf: the block's rows in shared memory
+  int row_stride;  // ... their stride (the block's samples + 1)
   Net net_in;
   Rows rows_in;
   CnfRows cr;
@@ -121,15 +127,7 @@ struct MlpAdjAug {
     Net net;
     Rows rows;
   };
-  // K7's per-thread vectors of one sample (the MLP routes keep theirs in
-  // shared memory, group_vec). The weights' pointer stays out of this
-  // struct: a store through them could alias it.
-  struct CnfLocal {
-    T ya[vec_width<kRoute>()], aya[vec_width<kRoute>()];
-    T buf_a[vec_width<kRoute>()], buf_b[vec_width<kRoute>()];
-  };
-  struct NoLocal {};
-  using Local = typename std::conditional<kCnf, CnfLocal, NoLocal>::type;
+  struct Local {};
 
   // The packed weights: in shared memory on the narrow route (setup copies
   // them there), else in global memory.
@@ -148,23 +146,34 @@ struct MlpAdjAug {
       sh.rows = rows_in;
     }
     T* ws = reinterpret_cast<T*>(smem);
-    if constexpr (kRoute == kRouteNarrow)
+    if constexpr (kRoute == kRouteNarrow) {
       for (int i = threadIdx.x; i < n_w; i += blockDim.x) ws[i] = wg[i];
-    return ws + smem_weights() + (kGroup ? long(slots) * 4 * gw : 0);
+      if constexpr (kCnf)
+        transpose_weights(net_in, wg, ws + n_w, n_w, threadIdx.x,
+                          blockDim.x);
+    }
+    return ws + smem_weights() + long(slots) * sv +
+           (rows_smem ? long(cr.n) * row_stride : 0);
   }
-  __device__ T* ya(Local& lo) const { return lo.ya; }
-  __device__ T* aya(Local& lo) const { return lo.aya; }
 
-  // The weights' values in shared memory (the narrow route's).
+  // The weights' values in shared memory (the narrow route's; K7's flow
+  // twice: row-major, then transposed).
   __device__ int smem_weights() const {
-    return kRoute == kRouteNarrow ? n_w : 0;
+    return kRoute == kRouteNarrow ? (kCnf ? 2 : 1) * n_w : 0;
   }
-  // A group's four shared vectors of gw values, after the weights: the
-  // stage state ya, aya, then the walk's two layer buffers.
+  // A group's slot of sv values, after the weights: the stage state ya,
+  // aya (gw values each), then the walk's values (the MLP's two layer
+  // buffers).
   __device__ T* group_vec(int slot) const {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    return reinterpret_cast<T*>(smem_raw) + smem_weights() +
-           long(slot) * 4 * gw;
+    return reinterpret_cast<T*>(smem_raw) + smem_weights() + long(slot) * sv;
+  }
+  // K7's rows (cnf_net.cuh CnfRowsAt): in the block's shared memory after
+  // the slots, or the workspace rows rw.
+  __device__ CnfRowsAt<T> rows_at(T* rw, int B) const {
+    if (!rows_smem) return {rw, B};
+    const long b_lo = long(blockIdx.x) * B / gridDim.x;
+    return {group_vec(slots) - b_lo, row_stride};
   }
   __device__ T* group_ya(int slot) const { return group_vec(slot); }
   __device__ T* group_aya(int slot) const { return group_vec(slot) + gw; }
@@ -185,8 +194,14 @@ struct MlpAdjAug {
                               int B, T sf, int m, int gsz, int slot, T* ky,
                               T* kay, T* rw) const {
     const Net& net = sh.net;
-    const Rows& rows = sh.rows;
     const T* w = weights();
+    if constexpr (kCnf) {
+      cnf_aug_eval_group<kRoute == kRouteNarrow>(
+          net, cr, w, kRoute == kRouteNarrow ? w + n_w : w, t_user,
+          group_vec(slot), gw, rows_at(rw, B), b, ky, kay, sf, on, m, gsz);
+      return;
+    }
+    const Rows& rows = sh.rows;
     const int L = net.n_layers;
     const int D = net.din[0] - net.time_input;
     T* __restrict__ H = rw;
@@ -267,14 +282,6 @@ struct MlpAdjAug {
     __syncthreads();
   }
 
-  // Phase A of K7's CNF walk for sample b, a thread a sample (cnf_net.cuh
-  // cnf_aug_eval; the MLP routes take stage_group).
-  __device__ void stage(const Shared& sh, Local& lo, T t_user, int b, int B,
-                        T sf, T* ky, T* kay, T* rw) const {
-    cnf_aug_eval(sh.net, cr, weights(), t_user, lo.ya, lo.aya, lo.buf_a,
-                 lo.buf_b, rw, B, b, ky, kay, sf);
-  }
-
   // Phase B: sum(x) of reduction r's per-sample term x(b) (csrc/
   // rk_adjoint.cuh quad), weight (o, k) dz_o h_k, a bias dz_o, then a_t
   // v_t (kCnf: cnf_weight_x); the decode is the reduction's, once.
@@ -286,21 +293,24 @@ struct MlpAdjAug {
     const int L = net.n_layers;
     const T* __restrict__ H = rw;
     const T* __restrict__ DZ = rw + long(n_h + n_z) * B;
-    const T* __restrict__ VT =
-        kCnf ? H + long(cr.vt) * B : DZ + long(n_z) * B;
-    if (r >= n_w) return sum([&](int b) { return VT[b]; });
-    int l = 0;
-    while (l + 1 < L && r >= net.w_off[l + 1]) ++l;
+    const T* __restrict__ VT = DZ + long(n_z) * B;
     if constexpr (kCnf) {
+      const CnfRows crr = cr;
+      const CnfRowsAt<T> at = rows_at(const_cast<T*>(rw), B);
+      if (r >= n_w) return sum([&](int b) { return at(crr.vt, b); });
+      int l = 0;
+      while (l + 1 < L && r >= net.w_off[l + 1]) ++l;
       const bool weight = r < net.b_off[l];
       const int idx = weight ? r - net.w_off[l] : r - net.b_off[l];
-      const int o = weight ? idx / net.din[l] : idx;
-      const int k = weight ? idx % net.din[l] : -1;
-      const CnfRows crr = cr;
-      return sum([&](int b) {
-        return cnf_weight_x<T>(net, crr, H, l, o, k, B, b);
-      });
+      const CnfWeight cw = cnf_weight(net, crr, l,
+                                      weight ? idx / net.din[l] : idx,
+                                      weight ? idx % net.din[l] : -1);
+      const int D = net.dout[L - 1];
+      return sum([&](int b) { return cnf_weight_x<T>(crr, cw, at, b, D); });
     } else {
+      if (r >= n_w) return sum([&](int b) { return VT[b]; });
+      int l = 0;
+      while (l + 1 < L && r >= net.w_off[l + 1]) ++l;
       if (r < net.b_off[l]) {
         const int idx = r - net.w_off[l];
         const int o = idx / net.din[l], k = idx % net.din[l];
@@ -342,24 +352,38 @@ cudaError_t launch_adjoint_route(const void* tau, const void* ys,
   using Aug = MlpAdjAug<T, kRoute, kCnf>;
   const int gw = net_max_width(net);
   // Slots of the grouped walk: enough for a block's samples, at most
-  // kAdjSlots, and their vectors within what the route leaves of
-  // kAdjSmemBytes. The slots change no sum's order, only how many
-  // threads share a sample.
+  // kGroupSlots, and their values (the stage state, then the MLP's two
+  // layer vectors or K7's cnf_aug_slot_values) within what the route
+  // leaves of kAdjSmemBytes. The slots change no sum's order, only how
+  // many threads share a sample.
+  const long sv = kCnf ? cnf_aug_slot_values(gw, cr.n_hid,
+                                             net.dout[net.n_layers - 1])
+                       : 4L * gw;
   const size_t own =
       sizeof(T) * ((kRoute == kRouteNarrow
-                        ? size_t(3 + S) * n_w + size_t(S) * ti
+                        ? size_t(3 + S + kCnf) * n_w + size_t(S) * ti
                         : 0) +
                    threads);
-  const size_t slot_bytes = sizeof(T) * 4 * size_t(gw);
-  const int per_block = (sc.B + n_blocks - 1) / n_blocks;
-  int slots = 1;
-  while (slots < kAdjSlots && slots < per_block &&
-         own + 2 * slots * slot_bytes <= size_t(kAdjSmemBytes))
-    slots *= 2;
-  const size_t smem = own + (Aug::kGroup ? slots * slot_bytes : 0);
+  const size_t slot_bytes = sizeof(T) * size_t(sv);
+  const int slots = adjoint_slots(own, slot_bytes,
+                                  (sc.B + n_blocks - 1) / n_blocks,
+                                  size_t(kAdjSmemBytes));
+  // K7's rows go to shared memory after the slots where the block's
+  // samples' (one column more: an odd stride) fit (adjoint_rows_fit), else
+  // they stay in the workspace.
+  const int cols = (sc.B + n_blocks - 1) / n_blocks + 1;
+  const size_t row_bytes = kCnf ? sizeof(T) * size_t(cr.n) : 0;
+  const bool rows_smem =
+      kCnf && adjoint_rows_fit(own + slots * slot_bytes, row_bytes, cols,
+                               size_t(kAdjSmemBytes));
+  const size_t smem = own + slots * slot_bytes +
+                      (rows_smem ? size_t(cols) * row_bytes : 0);
   Aug aug;
   aug.gw = gw;
   aug.slots = slots;
+  aug.sv = int(sv);
+  aug.rows_smem = rows_smem;
+  aug.row_stride = cols;
   aug.wg = static_cast<const T*>(weights);
   aug.n_w = n_w;
   aug.ti = ti;
@@ -406,7 +430,7 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
   if (n_w < 0 || !route_fits(net, route))
     return static_cast<int>(cudaErrorInvalidValue);
   const long need =
-      cnf ? rk_adjoint_work_size(stages, B, D, 0) + cnf_rows_count(net) * B
+      cnf ? rk_adjoint_work_size(stages, B, D, 0) + make_cnf_rows(net).n * B
           : adjoint_work_size(net, stages, B, D);
   if (work_size < need) return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteWide &&

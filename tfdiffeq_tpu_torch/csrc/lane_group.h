@@ -5,8 +5,12 @@
 // rk_*_group_kernel). Plain C++, so that the host (and a test through a
 // host compiler) computes the same sizes the launch checks;
 // ops/cuda_fixed.py repeats them (_group_work_size, _fixed_work_size,
-// _solve_work_size).
+// _solve_work_size). Also the grouped walks' slot counts of K2 and K3
+// (group_slots, adjoint_slots), K7's slot and row sizes and K1's block
+// (ops/cuda_kernels.py, ops/cuda_adjoint.py repeat them).
 #pragma once
+
+#include <cstddef>
 
 namespace tfd {
 
@@ -124,6 +128,91 @@ constexpr int kFixedTree = 64;
 inline long fixed_group_work_size(int S, int B, int D, long n_q,
                                   long walk_values, long R) {
   return lane_group_work_size(S, B, D, n_q, walk_values) + R * B;
+}
+
+// The samples a round of a grouped walk in K2, K10 and K11 (a power of two
+// up to kGroupSlots) that fit: the slots (slot_values values each; the MLP
+// walk's two layer vectors, 2 gw) share the block's reduction scratch
+// (`threads` values, free during a walk) and may grow it while `fixed`
+// bytes plus the scratch stay within `budget`; never more slots than a
+// block has samples. Returns at least 1.
+constexpr int kGroupSlots = 32;
+
+inline int group_slots(size_t fixed, size_t budget, int threads,
+                       long slot_values, int per_block, size_t item) {
+  auto scratch = [&](int s) {
+    const size_t v = size_t(s) * size_t(slot_values);
+    return item * (size_t(threads) > v ? size_t(threads) : v);
+  };
+  int slots = 1;
+  while (slots < kGroupSlots && slots < per_block &&
+         fixed + scratch(2 * slots) <= budget)
+    slots *= 2;
+  return slots;
+}
+
+// K3's grouped walk: the samples a round (a power of two up to
+// kGroupSlots, at most a block's samples) whose slots of slot_bytes fit
+// beside the block's own `own` bytes within `budget`; at least 1.
+inline int adjoint_slots(size_t own, size_t slot_bytes, int per_block,
+                         size_t budget) {
+  int slots = 1;
+  while (slots < kGroupSlots && slots < per_block &&
+         own + 2 * size_t(slots) * slot_bytes <= budget)
+    slots *= 2;
+  return slots;
+}
+
+// Whether K3's block keeps K7's rows (`cols` columns, its samples and one
+// more, of row_bytes each) in shared memory beside the `used` bytes within
+// `budget`.
+inline bool adjoint_rows_fit(size_t used, size_t row_bytes, int cols,
+                             size_t budget) {
+  return used + size_t(cols) * row_bytes <= budget;
+}
+
+// K7's group walks (csrc/cnf_net.cuh): gw the widest layer, n_hid the
+// hidden layers' outputs, D the flow's outputs (the state is [z; logp],
+// D + 1 values). K2's slot: the two layer vectors, act' of the hidden
+// outputs, F (D + 1) and the passes' trace terms (D).
+inline long cnf_solve_slot_values(int gw, int n_hid, int D) {
+  return 2L * gw + n_hid + 2L * D + 1;
+}
+
+// K3's slot: the stage state y and a_y and the two layer vectors (gw each),
+// act' and act'' of the hidden outputs, the passes' products v (D of
+// them), the gathered zbar, part A's input cotangent (D + 1) and the
+// passes' trace terms (D).
+inline long cnf_aug_slot_values(int gw, int n_hid, int D) {
+  return 4L * gw + (3L + D) * n_hid + 2L * D + 1;
+}
+
+// K3's rows of one sample, which its phase B reads (sample-major, a sample's
+// values contiguous): the layers' inputs (n_h), then over the layers'
+// outputs (n_z) part A's cotangents and the deltas, the passes' u and vb (D
+// each), then v_t.
+inline long cnf_aug_row_values(int n_h, int n_z, int D) {
+  return n_h + (2L + 2L * D) * n_z + 1;
+}
+
+// K1 (csrc/step_kernel.cu): blocks of kStepBlock threads, `samples` samples a
+// block (a power of two up to kStepSamples), kStepBlock / samples threads a
+// sample. Shared memory in values: the weights (2 D H + H + D), then each
+// sample's slot (y0, the stage input, the 7 stages, the squared errors: 10
+// D; the hidden units: H) and its error sum.
+constexpr int kStepBlock = 512;
+constexpr int kStepSamples = 32;
+
+inline long step_smem_values(int D, int H, int samples) {
+  return 2L * D * H + H + D + long(samples) * (10L * D + H + 1);
+}
+
+// The most samples a block whose shared memory fits `budget` bytes (items
+// of `item` bytes), or 0 when even one does not.
+inline int step_samples(int D, int H, size_t item, size_t budget) {
+  for (int s = kStepSamples; s >= 1; s /= 2)
+    if (item * size_t(step_smem_values(D, H, s)) <= budget) return s;
+  return 0;
 }
 
 }  // namespace tfd

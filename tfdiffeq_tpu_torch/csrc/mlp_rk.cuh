@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lane_group.h"
+
 namespace tfd {
 
 // Widest layer of the MLP kernels (state width D, D + 1 with a time column,
@@ -643,26 +645,6 @@ cudaError_t launch_lane_weights(const MlpLaneRhs<T, kRoute>& rhs,
         rhs.wg, rhs.net_in, n, const_cast<T*>(rhs.wt));
     return cudaGetLastError();
   }
-}
-
-// The samples a round of a grouped walk (a power of two up to kGroupSlots)
-// that fit: the group vectors (2 gw values a slot) share the block's
-// reduction scratch (`threads` values, free during a walk) and may grow it
-// while `fixed` bytes plus the scratch stay within `budget`; never more
-// slots than a block has samples. Returns at least 1.
-constexpr int kGroupSlots = 32;
-
-inline int group_slots(size_t fixed, size_t budget, int threads, int gw,
-                       int per_block, size_t item) {
-  auto scratch = [&](int s) {
-    return item * (size_t(threads) > size_t(2) * s * gw ? size_t(threads)
-                                                         : size_t(2) * s * gw);
-  };
-  int slots = 1;
-  while (slots < kGroupSlots && slots < per_block &&
-         fixed + scratch(2 * slots) <= budget)
-    slots *= 2;
-  return slots;
 }
 
 // pallas_kernels.py:_controller_factor. r ** (-1/order) is exp(log) there,

@@ -75,10 +75,6 @@ namespace tfd {
 // of two), ops/cuda_adjoint.py:ADJOINT_THREADS.
 constexpr int kAdjThreads = 512;
 constexpr int kWarp = 32;
-// Most samples a round of a grouped walk (kGroup): the block's threads
-// split into Aug::slots groups (a power of two up to kAdjSlots), one a
-// sample (16 threads at 512 and 32 slots).
-constexpr int kAdjSlots = 32;
 
 template <typename T>
 struct AdjScalars {
@@ -212,11 +208,13 @@ __device__ __forceinline__ T stage_combine(const T* coef, int S, T dth,
 // dependent chain: a thread a sample for K15's generated plans (their
 // vectors in registers; at about 31 samples a block that is one warp whose
 // lanes are all busy, and a clock64 profile put the walk at 14% of a
-// sweep, phase B and the merges and meetings at 75%, PERF.md §6) and
-// K7; a group of threads a sample for the MLP routes
-// (kGroup, csrc/adjoint_kernel.cu stage_group: each layer's outputs over
-// the group's threads, its vectors in shared memory), whose chain is then
-// a layer's longest sum and a block barrier a layer.
+// sweep, phase B and the merges and meetings at 75%, PERF.md §6); a group
+// of threads a sample for the MLP routes and K7's flow (kGroup,
+// csrc/adjoint_kernel.cu stage_group: each layer's outputs over the
+// group's threads, its vectors in shared memory; the block's threads split
+// into Aug::slots groups, a power of two up to lane_group.h kGroupSlots,
+// 16 threads a sample at 512 and 32 slots), whose chain is then a layer's
+// longest sum and a block barrier a layer.
 // ---------------------------------------------------------------------------
 
 template <typename T, class Aug>

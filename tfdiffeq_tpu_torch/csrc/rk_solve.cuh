@@ -45,11 +45,13 @@
 // and either (kBatch false) a per-thread evaluation
 //   in(lo)                where the kernel writes a sample's D inputs,
 //   eval(sh, lo, t, b, B, rw)  sample b's D outputs (rw: its workspace rows),
-// or (kGroup true: the MLP routes) a group of threads a sample, `slots`
-// samples a round, their vectors (2 gw values each) in the block's
-// reduction scratch, free during a walk:
-//   eval_group(sh, t, on, m, gsz, hin)  the sample's D inputs in hin,
-//                         member m of gsz (mlp_rk.cuh mlp_eval_group);
+// or (kGroup true: the MLP routes and K7's flow) a group of threads a
+// sample, `slots` samples a round, each sample's slot (sv values: the MLP's
+// two layer vectors, K7's walk values) in the block's reduction scratch,
+// free during a walk:
+//   eval_group(sh, t, on, m, gsz, hin)  the sample's D inputs in hin (its
+//                         slot), member m of gsz (mlp_rk.cuh
+//                         mlp_eval_group, cnf_net.cuh cnf_eval_group);
 // or (kBatch true) a batch-wide one, every stage of an attempt evaluated for
 // the block's rows:
 //   put(sh, lo, b, t, get, rw, B)  sample b's inputs from get(d),
@@ -203,7 +205,7 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
       // The combine stays a thread a sample: the error sum's order.
       const int slots = rhs.slots;
       const int gsz = nth / slots, m = tid % gsz, slot = tid / gsz;
-      T* const g_in = red + long(slot) * 2 * rhs.gw;
+      T* const g_in = red + long(slot) * rhs.sv;
       auto walk = [&](T t_eval, auto input, T* dst) {
         for (int r0 = b_lo; r0 < b_hi; r0 += slots) {
           const int b = r0 + slot;

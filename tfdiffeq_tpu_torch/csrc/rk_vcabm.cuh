@@ -456,8 +456,8 @@ cudaError_t launch_rk_vcabm(const void* tau, const void* y0, const void* f0,
   VcabmScalars<T> a_sc = sc;
   size_t scratch = size_t(threads);
   if constexpr (Rhs::kGroup) {
-    a_rhs.slots = group_slots(own, budget, threads, a_rhs.gw, per_block,
-                              item);
+    a_rhs.slots = group_slots(own, budget, threads, 2L * a_rhs.gw,
+                              per_block, item);
     if (size_t(2) * a_rhs.slots * a_rhs.gw > scratch)
       scratch = size_t(2) * a_rhs.slots * a_rhs.gw;
   }

@@ -20,8 +20,10 @@
 //
 // Design (csrc/rk_solve.cuh). The solve runs on a grid of n_blocks blocks
 // of 512 threads, one per SM (fewer for a small batch), all resident
-// together; block k owns the samples [k B / n, (k + 1) B / n) and each of
-// its threads walks its own samples' stages one sample at a time. The
+// together; block k owns the samples [k B / n, (k + 1) B / n), a group of
+// its threads walks each sample's stage evaluations (`slots` samples a
+// round: 16 threads a sample at 32 slots), and each thread combines,
+// updates and drains its own samples. The
 // stage derivatives, the state, the FSAL derivative and the Kahan term of
 // the batch live in device scratch (`work`, [(S + 5) B D] values: 256 KB
 // at the main path, L2-resident); each block copies the weights (narrow
@@ -31,67 +33,65 @@
 // (the same bits on every run), then every thread of every block takes the
 // same accept and controller decision from them.
 //
-// Routes (mlp_rk.cuh Route). Narrow: the layer vectors of 128 values in
-// each thread, the weights in shared memory (the main path). Wide: layers
-// up to kMaxWidth, vectors of 512 values in local memory, the weights read
-// from global memory (131,712 float32 weights, 527 KB, at the wide MLP
-// 128 -> 256 -> 256 -> 128: L2-resident, a warp-uniform read per product).
+// Routes (mlp_rk.cuh Route). Narrow: layers up to 128 wide, the weights in
+// shared memory (the main path). Wide: layers up to kMaxWidth, the weights
+// read from global memory (131,712 float32 weights, 527 KB, at the wide MLP
+// 128 -> 256 -> 256 -> 128: L2-resident). Both keep a group's layer
+// vectors in its slot in shared memory.
 // Batch (csrc/dot_tiers.cuh, the dot-precision tiers): every stage
 // evaluation of the attempt is batch-wide over the block's own 16-row
 // tiles, layer by layer, the tier layers on the tensor cores in float32;
 // rows are independent within a stage, so a stage needs no meeting, and
 // the grid has at most one block a tile. The controller is the same.
 //
-// rhs = cnf (K7's forward, csrc/cnf_net.cuh cnf_eval, replacing
+// rhs = cnf (K7's forward, csrc/cnf_net.cuh cnf_eval_group, replacing
 // pallas_kernels.py:442 _make_cnf_net at :1291-1294): the state is the CNF
 // state [z; logp] of D + 1 values, the network the concat-t flow, and each
-// per-thread evaluation is the flow plus its exact divergence; a sample's
-// act'(z) and f go to workspace rows after the solve's own. Narrow and wide
-// routes only (the flow takes no tier).
+// evaluation is the flow plus its exact divergence, walked by the same
+// groups of threads as the MLP, a sample's act'(z), F and trace terms in
+// its slot (lane_group.h cnf_solve_slot_values); on the narrow route the
+// weights sit in shared memory transposed. Narrow and wide routes only (the
+// flow takes no tier).
 //
 // Bound on the H100. Per sample and attempt, S - 1 evaluations of the MLP
-// (at the main path 2 -> 50 -> 2: about 400 flops and 50 tanh each) run one
-// instruction stream per thread; at B = 4096 over 132 blocks a block owns
-// about 31 samples, one warp's worth, so an attempt costs one thread's
-// dependent chain of S - 1 evaluations and one grid meeting (an atomic and
-// a spin on L2, then n_blocks loads of the shares). The wide route is
-// bound the same way, with a global-memory load beside each multiply-add.
+// (at the main path 2 -> 50 -> 2: about 400 flops and 50 tanh each); at
+// B = 4096 over 132 blocks a block owns about 31 samples, a round of its
+// groups, so an attempt costs S - 1 evaluations' longest chains (a layer's
+// longest sum a layer, and a block barrier after each) and one grid
+// meeting (an atomic and a spin on L2, then n_blocks loads of the shares).
+// The wide route is bound the same way, with a global-memory load beside
+// each multiply-add.
 #include "cnf_net.cuh"
 #include "dot_tiers.cuh"
 #include "rk_solve.cuh"
 
 namespace tfd {
 
-// K2's MLP right-hand sides (csrc/rk_solve.cuh's Rhs): the per-thread
-// narrow and wide routes (mlp_eval, or K7's cnf_eval with rhs = cnf, its
-// rows of B in the workspace after the solve's own) and the batch route
-// (batch_mlp_eval, K4's tiers).
+// K2's MLP right-hand sides (csrc/rk_solve.cuh's Rhs): the narrow and wide
+// routes, a group of threads a sample (mlp_eval_group, or K7's
+// cnf_eval_group with rhs = cnf), and the batch route (batch_mlp_eval, K4's
+// tiers).
 template <typename T, int kRoute, bool kCnf>
 struct MlpSolveRhs {
   static constexpr bool kBatch = kRoute == kRouteBatch;
   static constexpr int kUnit = kBatch ? 16 : 1;   // K4's tile rows
   static constexpr bool kGrid = true;
-  // The MLP walks a sample with a group of threads (mlp_eval_group); K7's
-  // CNF walk stays a thread a sample.
-  static constexpr bool kGroup = !kBatch && !kCnf;
+  static constexpr bool kGroup = !kBatch;
   const T* wg;     // packed weights (pack_mlp_weights)
   int n_weights;
   int gw;          // the group vectors' width: the widest layer
   int slots;       // samples a round of the grouped walk
+  int sv;          // values of a slot
   Net net_in;
   BatchBufs<T> bb;
 
   struct Shared {
     Net net;
   };
-  // The layer vectors. The weights' pointer stays out of this struct: a
-  // store through h_a or h_b could alias it and force a reload each time.
-  struct Local {
-    T h_a[vec_width<kRoute>()], h_b[vec_width<kRoute>()];
-  };
+  struct Local {};
 
   // The packed weights: in shared memory on the narrow route (setup copies
-  // them there), else in global memory.
+  // them there; K7's flow transposed), else in global memory.
   __device__ __forceinline__ const T* weights() const {
     if constexpr (kRoute == kRouteNarrow) {
       extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -107,7 +107,10 @@ struct MlpSolveRhs {
     T* red;
     if constexpr (kRoute == kRouteNarrow) {
       T* ws = reinterpret_cast<T*>(smem);
-      for (int i = tid; i < n_weights; i += nth) ws[i] = wg[i];
+      if constexpr (kCnf)
+        transpose_weights(net_in, wg, ws, n_weights, tid, nth);
+      else
+        for (int i = tid; i < n_weights; i += nth) ws[i] = wg[i];
       red = ws + n_weights;
     } else if constexpr (kRoute == kRouteBatch) {
       red = reinterpret_cast<T*>(smem + batch_smem(bb));   // K4's tiles first
@@ -120,17 +123,13 @@ struct MlpSolveRhs {
     return red;
   }
 
-  __device__ T* in(Local& lo) const { return lo.h_a; }
   __device__ const T* eval_group(const Shared& sh, T t, bool on, int m,
                                  int gsz, T* hin) const {
-    return mlp_eval_group(sh.net, weights(), t, hin, gw, on, m, gsz);
-  }
-  __device__ const T* eval(const Shared& sh, Local& lo, T t, int b, int B,
-                           T* rw) const {
     if constexpr (kCnf)
-      return cnf_eval(sh.net, weights(), t, lo.h_a, lo.h_b, rw, B, b);
+      return cnf_eval_group<kRoute == kRouteNarrow>(sh.net, weights(), t,
+                                                    hin, gw, on, m, gsz);
     else
-      return mlp_eval(sh.net, weights(), t, lo.h_a, lo.h_b);
+      return mlp_eval_group(sh.net, weights(), t, hin, gw, on, m, gsz);
   }
 
   template <class G>
@@ -157,17 +156,21 @@ cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
       sizeof(T) * (kRoute == kRouteNarrow ? size_t(n_w) : 0) +
       (kRoute == kRouteBatch ? batch_smem(bb) : 0);
   // The grouped walk's slots: enough for a block's samples, up to
-  // kGroupSlots, their vectors in (or growing) the reduction scratch.
+  // kGroupSlots, each sv values (the MLP's two layer vectors, K7's
+  // cnf_solve_slot_values) in (or growing) the reduction scratch.
   const int gw = net_max_width(net);
+  const long sv = kCnf ? cnf_solve_slot_values(gw, cnf_hidden(net),
+                                               net.dout[net.n_layers - 1])
+                       : 2L * gw;
   const int slots =
       Rhs::kGroup
           ? group_slots(fixed, kSolveSmemBytes + sizeof(T) * threads,
-                        threads, gw, (sc.B + n_blocks - 1) / n_blocks,
+                        threads, sv, (sc.B + n_blocks - 1) / n_blocks,
                         sizeof(T))
           : 1;
   const size_t scratch =
-      Rhs::kGroup && size_t(2) * slots * gw > size_t(threads)
-          ? size_t(2) * slots * gw
+      Rhs::kGroup && size_t(slots) * sv > size_t(threads)
+          ? size_t(slots) * sv
           : size_t(threads);
   const size_t smem = fixed + sizeof(T) * scratch;
   Rhs rhs;
@@ -175,6 +178,7 @@ cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
   rhs.n_weights = n_w;
   rhs.gw = gw;
   rhs.slots = slots;
+  rhs.sv = int(sv);
   rhs.net_in = net;
   rhs.bb = bb;
   return launch_rk_solve<T>(tau, y0, f0, out, stats, work, gwork,

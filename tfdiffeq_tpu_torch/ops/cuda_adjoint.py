@@ -30,10 +30,10 @@ the parameter accumulator and the stage cotangents in shared memory) or wide
 float32-accurate: the reference's dot-precision tiers reach the forward
 solves only (`fast.odeint_adjoint_mlp`).
 
-`rhs='cnf'` runs K7's adjoint (csrc/cnf_net.cuh `cnf_aug_eval`, replacing
-`_make_cnf_aug_eval`, pallas_adjoint.py:240) in each stage instead: the
-backward sweep of the augmented FFJORD system, with the divergence's
-second-order VJP; `_cnf_aug_eval_plain` is its plain version.
+`rhs='cnf'` runs K7's adjoint (csrc/cnf_net.cuh `cnf_aug_eval_group`,
+replacing `_make_cnf_aug_eval`, pallas_adjoint.py:240) in each stage
+instead: the backward sweep of the augmented FFJORD system, with the
+divergence's second-order VJP; `_cnf_aug_eval_plain` is its plain version.
 
 Not ported: the TPU machinery of the reference (`pack` sublane packing,
 `n_blocks` grid blocks, `stream_io`).
@@ -46,15 +46,16 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .cuda_kernels import (ROUTE_WIDE, _ACT_CODES, _ACTIVATION_GRAD2,
+from .cuda_kernels import (GROUP_SLOTS, MAX_WEIGHT_BYTES, ROUTE_NARROW,
+                           ROUTE_WIDE, _ACT_CODES, _ACTIVATION_GRAD2,
                            _ACTIVATION_GRADS, _ACTIVATIONS, _block_index,
                            _block_owned_sums, _check_blocks,
                            _check_activations, _check_cnf, _check_float,
                            _check_mlp, _check_rhs,
                            _controller_factor, _device_kind, _dims_arg,
-                           _dot_in_order, _gather, _merge_blocks, _ptr,
-                           _route, _solve_setup, _stream, _tableau_args,
-                           _tree_sum, _unpack, solve_blocks)
+                           _dot_in_order, _gather, _merge_blocks,
+                           _net_widths, _ptr, _route, _solve_setup, _stream,
+                           _tableau_args, _tree_sum, _unpack, solve_blocks)
 from .tableaus import TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
@@ -158,7 +159,8 @@ def _aug_eval_plain(packed: Tensor, dims, activation: str,
 
 def _cnf_aug_eval_plain(packed: Tensor, dims, activation: str):
     """Plain version of K7's adjoint (pallas_adjoint.py:_make_cnf_aug_eval)
-    on [B, D + 1], in the kernel's order (csrc/cnf_net.cuh cnf_aug_eval).
+    on [B, D + 1], in the kernel's order (csrc/cnf_net.cuh
+    cnf_aug_eval_group).
     For y = [z; logp] and a = [a_z; a_l]:
 
     - the forward keeps each layer's input, act'(z) and act''(z); D
@@ -464,31 +466,93 @@ def adjoint_sweep_plain(aug, n_w: int, time_input: bool, n_ps: int,
     return ay + g[0], aw, at, aps, stats
 
 
+def cnf_aug_row_values(dims) -> int:
+    """csrc/lane_group.h cnf_aug_row_values: a sample's values of K7's
+    rows in K3 (csrc/cnf_net.cuh CnfRows, sample-major): the layers'
+    inputs, part A's cotangents and the deltas of the layers' outputs, the
+    passes' u and vb, v_t."""
+    n_h = sum(din for din, _ in dims)
+    n_z = sum(dout for _, dout in dims)
+    return n_h + (2 + 2 * dims[-1][1]) * n_z + 1
+
+
+def cnf_aug_slot_values(dims) -> int:
+    """csrc/lane_group.h cnf_aug_slot_values: K7's slot in K3 (the stage
+    state and two layer vectors, act' and act'' of the hidden outputs, the
+    passes' products, zbar, part A's input cotangent, the trace terms)."""
+    gw, n_hid, D = _net_widths(dims)
+    return 4 * gw + (3 + D) * n_hid + 2 * D + 1
+
+
 def _work_size(dims, S: int, B: int, D: int, cnf: bool = False) -> int:
     """csrc/adjoint_kernel.cu adjoint_work_size: state, compensation and
     increments of (y, a_y), S stage derivatives of each, and the per-stage
     reduction rows (layer inputs, pre-activations, their cotangents, v_t;
-    for rhs='cnf' csrc/cnf_net.cuh cnf_rows_count: the layer inputs, and
-    act', act'', part A's cotangents and the deltas of each layer's outputs,
-    and v, u and vb of each of the D - 1 passes)."""
+    for rhs='cnf' `cnf_aug_row_values` a sample)."""
     n_h = sum(din for din, _ in dims)
     n_z = sum(dout for _, dout in dims)
-    rows = (n_h + n_z * (4 + 3 * (D - 1)) + 1 if cnf
-            else 1 + n_h + 2 * n_z)
+    rows = cnf_aug_row_values(dims) if cnf else 1 + n_h + 2 * n_z
     return (6 + 2 * S) * B * D + rows * B
 
 
-def _shared_values(dims, S: int, time_input: bool, group: bool = True
-                   ) -> int:
-    """Shared memory K3's narrow route needs, in values: the weights, the
-    parameter accumulator and its increment, every stage's cotangents, the
-    block-sum scratch and, for the MLP walk (`group`; not K7's CNF walk),
-    one slot's four vectors (csrc/adjoint_kernel.cu stage_group: the
-    kernel adds as many slots as the rest of MAX_WEIGHT_BYTES holds)."""
+def _own_values(dims, S: int, time_input: bool, cnf: bool) -> int:
+    """Shared memory a K3 block on the narrow route takes besides its
+    slots, in values: the weights (K7's flow twice, row-major and
+    transposed), the parameter accumulator and its increment, every stage's
+    cotangents and the block-sum scratch."""
     n_w = sum(din * dout + dout for din, dout in dims)
-    width = max(w for dd in dims for w in dd)
-    return ((3 + S) * n_w + 4 * width * int(group) + S * int(time_input)
+    return ((3 + S + int(cnf)) * n_w + S * int(time_input)
             + ADJOINT_THREADS)
+
+
+def _slot_values(dims, cnf: bool) -> int:
+    """A K3 slot: the MLP walk's four vectors, or K7's."""
+    return cnf_aug_slot_values(dims) if cnf else 4 * _net_widths(dims)[0]
+
+
+def _shared_values(dims, S: int, time_input: bool, cnf: bool = False
+                   ) -> int:
+    """Shared memory K3's narrow route needs, in values: `_own_values`
+    and one slot (csrc/adjoint_kernel.cu stage_group: the kernel adds as
+    many slots as the rest of MAX_WEIGHT_BYTES holds)."""
+    return _own_values(dims, S, time_input, cnf) + _slot_values(dims, cnf)
+
+
+def adjoint_slots(own: int, slot_bytes: int, per_block: int,
+                  budget: int) -> int:
+    """csrc/lane_group.h adjoint_slots: K3's samples a round (a power of
+    two up to GROUP_SLOTS, at most a block's) whose slots fit beside `own`
+    bytes within `budget`."""
+    slots = 1
+    while (slots < GROUP_SLOTS and slots < per_block
+           and own + 2 * slots * slot_bytes <= budget):
+        slots *= 2
+    return slots
+
+
+def adjoint_layout(dims, B: int, S: int, itemsize: int, n_blocks: int,
+                   time_input: bool = False, cnf: bool = False) -> dict:
+    """K3's grouped walk as the launch picks it (csrc/adjoint_kernel.cu
+    launch_adjoint_route): blocks, samples a round (`slots`), threads a
+    sample, a slot's values and, for K7's flow, whether the block's rows
+    (`cnf_aug_row_values` a sample, a column a sample and one more) sit in
+    its shared memory (lane_group.h adjoint_rows_fit) or in the
+    workspace."""
+    if cnf:
+        time_input = True
+    route = _route("mlp_adjoint_solve", dims,
+                   _shared_values(dims, S, time_input, cnf), itemsize)
+    own = itemsize * (_own_values(dims, S, time_input, cnf)
+                      if route == ROUTE_NARROW else ADJOINT_THREADS)
+    sv = _slot_values(dims, cnf)
+    per = -(-B // n_blocks)
+    slots = adjoint_slots(own, itemsize * sv, per, MAX_WEIGHT_BYTES)
+    rows = cnf and (own + slots * itemsize * sv
+                    + (per + 1) * itemsize * cnf_aug_row_values(dims)
+                    <= MAX_WEIGHT_BYTES)
+    return {"blocks": n_blocks, "slots": slots,
+            "threads_a_sample": ADJOINT_THREADS // slots, "slot_values": sv,
+            "rows_in_shared_memory": rows}
 
 
 def _wide_work_size(n_w: int, S: int, time_input: bool) -> int:
@@ -574,7 +638,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                      time_input)
     S = TABLEAUS_BY_NAME[method].stages
     route = _route("mlp_adjoint_solve", dims,
-                   _shared_values(dims, S, time_input, group=not cnf),
+                   _shared_values(dims, S, time_input, cnf),
                    ys.element_size())
     if max_steps < 1:
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")

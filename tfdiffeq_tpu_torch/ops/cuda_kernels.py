@@ -9,7 +9,7 @@ the main path (sources in `tfdiffeq_tpu_torch/csrc/`, built by `_build.py`):
 - K2 `mlp_solve` (csrc/solve_kernel.cu) replaces `_make_solve_kernel`
   (pallas_kernels.py:726): a whole adaptive RK solve of a general MLP
   neural ODE in one launch.
-- K7's forward (csrc/cnf_net.cuh `cnf_eval`), inside K2 with
+- K7's forward (csrc/cnf_net.cuh `cnf_eval_group`), inside K2 with
   `mlp_solve(rhs='cnf')`, replaces `_make_cnf_net` (pallas_kernels.py:442):
   the CNF right-hand side [f; -div f] with the exact divergence;
   `_cnf_net_plain` is its plain version.
@@ -73,8 +73,10 @@ NARROW_WIDTH = 128
 ROUTE_NARROW, ROUTE_WIDE, ROUTE_BATCH = 0, 1, 2
 #: Widest state of K1 (csrc/step_kernel.cu kStepMaxD).
 STEP_MAX_D = 16
-#: Threads per K1 block; each block writes one partial error sum.
-STEP_THREADS = 256
+#: Threads of a K1 block and most samples a block (csrc/lane_group.h
+#: kStepBlock, kStepSamples); each block writes one partial error sum.
+STEP_BLOCK = 512
+STEP_SAMPLES = 32
 #: Threads of each K2 block (at most csrc/rk_solve.cuh kSolveThreads).
 SOLVE_THREADS = 512
 #: Samples a unit of K2's batch-route grid: K4's tile rows (a block owns
@@ -465,8 +467,9 @@ def _shares_work(n_blocks: int, n_values: int, dtype, device) -> Tensor:
 def _count(y: Tensor) -> Tensor:
     """y.numel() as a 0-d tensor on y's device: PyTorch's CUDA division by a
     host scalar multiplies by its reciprocal, which is not the division
-    the kernels and the JAX reference perform."""
-    return torch.tensor(float(y.numel()), dtype=y.dtype, device=y.device)
+    the kernels and the JAX reference perform. Filled on the device (no
+    copy from the host, which would wait for the card)."""
+    return torch.full((), float(y.numel()), dtype=y.dtype, device=y.device)
 
 
 # ---------------------------------------------------------------------------
@@ -544,6 +547,25 @@ def _mlp_tanh_plain(params: dict, y: Tensor) -> Tensor:
     return out + b2
 
 
+def _step_smem_values(D: int, H: int, samples: int) -> int:
+    """csrc/lane_group.h step_smem_values: K1's shared memory in values,
+    the weights, then each sample's slot (10 D + H) and error sum."""
+    return 2 * D * H + H + D + samples * (10 * D + H + 1)
+
+
+def step_samples(D: int, H: int, itemsize: int) -> int:
+    """csrc/lane_group.h step_samples: the samples a K1 block (a power of
+    two up to STEP_SAMPLES, STEP_BLOCK // samples threads each) whose
+    shared memory fits MAX_WEIGHT_BYTES, or 0 when one does not. The
+    partial error sums follow it: one a block of that many samples."""
+    s = STEP_SAMPLES
+    while s >= 1:
+        if itemsize * _step_smem_values(D, H, s) <= MAX_WEIGHT_BYTES:
+            return s
+        s //= 2
+    return 0
+
+
 def _step_scalars(y: Tensor, dt, rtol, atol):
     as_t = lambda v: torch.as_tensor(v, dtype=y.dtype).to(y.device)
     return as_t(dt), as_t(rtol), as_t(atol)
@@ -558,15 +580,19 @@ def dopri5_mlp_step_plain(params: dict, y: Tensor, f0: Tensor, dt, rtol,
     y1 = y + delta
     scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y1))
     esc = err / scale
-    # Per-block partial sums in the kernel's order, +inf for a block whose
-    # sum or y1 is not finite (pallas_kernels.py:646-648 per tile).
-    n_blocks = -(-y.shape[0] // STEP_THREADS)
-    part = _tree_sum(_owned_sums(esc * esc, n_blocks * STEP_THREADS)
-                     .view(n_blocks, STEP_THREADS))
+    # Per-block partial sums in the kernel's order (each sample's squared
+    # errors from 0 in feature order, then the block's samples in the
+    # tree), +inf for a block whose sum or y1 is not finite
+    # (pallas_kernels.py:646-648 per tile).
+    # (A network too wide for the kernel's shared memory: a sample a block.)
+    spb = step_samples(y.shape[1], params["w1"].shape[1],
+                       y.element_size()) or 1
+    n_blocks = -(-y.shape[0] // spb)
+    part = _tree_sum(_owned_sums(esc * esc, n_blocks * spb)
+                     .view(n_blocks, spb))
     bad = ~torch.isfinite(y1).all(dim=1)
-    bad = torch.nn.functional.pad(bad, (0, n_blocks * STEP_THREADS
-                                        - y.shape[0]))
-    ok = torch.isfinite(part) & ~bad.view(n_blocks, STEP_THREADS).any(dim=1)
+    bad = torch.nn.functional.pad(bad, (0, n_blocks * spb - y.shape[0]))
+    ok = torch.isfinite(part) & ~bad.view(n_blocks, spb).any(dim=1)
     part = torch.where(ok, part, torch.full_like(part, float("inf")))
     return y1, k[-1], torch.sqrt(torch.sum(part) / _count(y)), y_mid
 
@@ -606,15 +632,16 @@ def dopri5_mlp_step(params: dict, y: Tensor, f0: Tensor, dt, rtol, atol
     _check_float("f0", f0, y.dtype)
     if f0.shape != y.shape:
         raise ValueError("f0 must have the shape of y")
-    smem = y.element_size() * (2 * D * H + H + D + STEP_THREADS)
-    if smem > MAX_WEIGHT_BYTES:
+    spb = step_samples(D, H, y.element_size())
+    if spb == 0:
+        smem = y.element_size() * _step_smem_values(D, H, 1)
         raise ValueError(f"dopri5_mlp_step: hidden width {H} needs {smem} "
                          f"bytes of shared memory, above {MAX_WEIGHT_BYTES}")
     lib = _build.library()
     y1 = torch.empty_like(y)
     f1 = torch.empty_like(y)
     ymid = torch.empty_like(y)
-    n_blocks = -(-B // STEP_THREADS)
+    n_blocks = -(-B // spb)
     partial = torch.empty(n_blocks, dtype=y.dtype, device=y.device)
     coeffs = [x for row in DOPRI5.a for x in row + (0.0,) * (6 - len(row))]
     coeffs += list(DOPRI5.b_sol) + list(DOPRI5.b_err) + list(DOPRI5.c_mid)
@@ -624,7 +651,7 @@ def dopri5_mlp_step(params: dict, y: Tensor, f0: Tensor, dt, rtol, atol
     with torch.cuda.device(y.device):
         err = fn(_ptr(y), _ptr(f0), _ptr(params["w1"]), _ptr(params["b1"]),
                  _ptr(params["w2"]), _ptr(params["b2"]), _ptr(y1), _ptr(f1),
-                 _ptr(ymid), _ptr(partial), B, D, H, STEP_THREADS, float(dt),
+                 _ptr(ymid), _ptr(partial), B, D, H, spb, float(dt),
                  float(rtol), float(atol), coeffs, _stream(y.device))
     _build.check(err, "dopri5_mlp_step launch")
     dopri5_mlp_step_launches += 1
@@ -867,6 +894,60 @@ def tier_net_parts(warrays: Tensor, dims, x: Tensor, t, out: Tensor,
                  int(time_input), float(t), _tiers_arg(tiers), _ptr(work),
                  work.numel(), int(mode), _stream(x.device))
     _build.check(err, "tier_net launch")
+
+
+# ---------------------------------------------------------------------------
+# The grouped walks of K2 and K3 (csrc/lane_group.h): samples a round of a
+# block (`slots`), each walked by SOLVE_THREADS // slots threads.
+# ---------------------------------------------------------------------------
+
+#: Most samples a round of a grouped walk (csrc/lane_group.h kGroupSlots).
+GROUP_SLOTS = 32
+
+
+def _net_widths(dims):
+    """(gw, n_hid, D): the widest layer, the hidden layers' outputs and the
+    last layer's outputs."""
+    return (max(w for dd in dims for w in dd),
+            sum(dout for _, dout in dims[:-1]), dims[-1][1])
+
+
+def cnf_solve_slot_values(dims) -> int:
+    """csrc/lane_group.h cnf_solve_slot_values: K7's slot in K2 (the two
+    layer vectors, act' of the hidden outputs, F and the trace terms)."""
+    gw, n_hid, D = _net_widths(dims)
+    return 2 * gw + n_hid + 2 * D + 1
+
+
+def group_slots(fixed: int, budget: int, threads: int, slot_values: int,
+                per_block: int, item: int) -> int:
+    """csrc/lane_group.h group_slots: the samples a round (a power of two
+    up to GROUP_SLOTS, at most a block's) whose slots, in the reduction
+    scratch of `threads` values or growing it, fit beside `fixed` bytes
+    within `budget`."""
+    def scratch(n):
+        return item * max(threads, n * slot_values)
+    slots = 1
+    while (slots < GROUP_SLOTS and slots < per_block
+           and fixed + scratch(2 * slots) <= budget):
+        slots *= 2
+    return slots
+
+
+def solve_layout(dims, B: int, itemsize: int, n_blocks: int,
+                 cnf: bool = False) -> dict:
+    """K2's grouped walk on the narrow or wide route as the launch picks it
+    (csrc/solve_kernel.cu launch_route): blocks, samples a round (`slots`),
+    threads a sample and a slot's values (the MLP's two layer vectors, K7's
+    `cnf_solve_slot_values`)."""
+    n_w = sum(i * o + o for i, o in dims)
+    route = _route("mlp_solve", dims, n_w, itemsize)
+    sv = cnf_solve_slot_values(dims) if cnf else 2 * _net_widths(dims)[0]
+    fixed = itemsize * n_w if route == ROUTE_NARROW else 0
+    slots = group_slots(fixed, MAX_WEIGHT_BYTES + itemsize * SOLVE_THREADS,
+                        SOLVE_THREADS, sv, -(-B // n_blocks), itemsize)
+    return {"blocks": n_blocks, "slots": slots,
+            "threads_a_sample": SOLVE_THREADS // slots, "slot_values": sv}
 
 
 def _solve_setup(tau: Tensor, dt0, dtype):
@@ -1122,11 +1203,9 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
     dims_c = _dims_arg(dims)
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
-    # rhs='cnf' adds a sample's act'(z) rows and its f (csrc/cnf_net.cuh
-    # cnf_eval) after the solve's own rows.
-    cnf_rows = sum(dout for _, dout in dims) + D - 1 if cnf else 0
-    work = torch.empty(((S + 5) * D + cnf_rows) * B, dtype=dtype,
-                       device=y0.device)
+    # (K7's walk keeps its values in the slots of its groups, in shared
+    # memory: csrc/cnf_net.cuh cnf_eval_group.)
+    work = torch.empty((S + 5) * D * B, dtype=dtype, device=y0.device)
     n_batch = (_tier_work_bytes(dims, _pad16(B), y0.element_size())
                if route == ROUTE_BATCH else 0)
     batch_work = torch.empty(n_batch, dtype=torch.uint8, device=y0.device)
