@@ -22,8 +22,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    Outputs must be finite, of shape [64, 4096, 2], with status 0; on a
    small input (B=96, 12 outputs over [0, 5]) the three agree.
 6. Time each kernel with CUDA events (median of 5 after a warm-up; K1's
-   kernel alone by events around its launch behind a queued sleep, its
-   wrapper's device work beside it) and
+   wrapper calls behind a queued sleep, their device work, with the
+   kernel alone, events around its launch, beside it as `kernel_ms`) and
    its plain version by one synchronised call on the host clock (it is
    host-bound and takes seconds; so in every later phase), and print them
    beside the card's name and power limit. Each phase prints the second
@@ -1278,27 +1278,26 @@ def _cnf_stage_flops(dims) -> int:
     return forward + passes + part_a + part_b + delta + 3 * D + 3 + sums
 
 
-def _cnf_layout(what: str, call, dev) -> dict:
-    """Print the grouped walk a recorded K2 or K3 launch with K7 took: its
-    blocks, samples a round (slots) and threads a sample
-    (ops/cuda_kernels.solve_layout, ops/cuda_adjoint.adjoint_layout, the
-    launches' own arithmetic)."""
-    from tfdiffeq_tpu_torch.ops import cuda_adjoint as ca, cuda_kernels as ck
-    from tfdiffeq_tpu_torch.ops.tableaus import TABLEAUS_BY_NAME
-    args, kw, _ = call
+def _cnf_layout(what: str, call, lay) -> dict:
+    """Print the grouped walk that a recorded K2 or K3 launch with K7
+    reported (ops/cuda_kernels.last_solve_layout,
+    ops/cuda_adjoint.last_adjoint_layout, read right after it): its
+    blocks, samples a round (slots), threads a sample, a slot's values and,
+    for K3, where the rows of its batch sums sit."""
+    args = call[0]
     dims, x = args[1], args[2]
-    adjoint = x.ndim == 3
-    B = x.shape[-2]
-    nb = kw.get("n_blocks") or ck.solve_blocks(B, dev)
-    if adjoint:
-        S = TABLEAUS_BY_NAME[kw.get("method", "dopri5")].stages
-        lay = ca.adjoint_layout(dims, B, S, x.element_size(), nb, cnf=True)
-    else:
-        lay = ck.solve_layout(dims, B, x.element_size(), nb, cnf=True)
-    print(f"{what} ({x.dtype}, B = {B}, flow {dims}): {lay['blocks']} "
-          f"blocks of 512 threads, {lay['slots']} samples a round, "
-          f"{lay['threads_a_sample']} threads a sample, "
-          f"{lay['slot_values']} values a slot", flush=True)
+    if not lay or not lay["slots"]:
+        raise AssertionError(f"{what}: the launch reported no grouped walk")
+    rows = ""
+    if "rows_in_shared_memory" in lay:
+        rows = ", rows in " + ("the block's shared memory"
+                               if lay["rows_in_shared_memory"]
+                               else "the workspace")
+    print(f"{what} ({x.dtype}, B = {x.shape[-2]}, flow {dims}): "
+          f"{lay['blocks']} blocks of 512 threads, {lay['slots']} samples a "
+          f"round, {lay['threads_a_sample']} threads a sample, "
+          f"{lay['slot_values']} values a slot{rows} (as the launch "
+          "reported)", flush=True)
     return lay
 
 
@@ -1342,7 +1341,8 @@ def _cnf_tier(smi: str, dev) -> dict:
             raise AssertionError(f"cnf_log_prob_fused {dtype} launches "
                                  f"{fwd_launches}, stats {st}")
         k2[dtype] = call = k2_rec.calls[0]
-        rec["fwd_layout"] = _cnf_layout("[22] K7 forward in K2", call, dev)
+        rec["fwd_layout"] = _cnf_layout("[22] K7 forward in K2", call,
+                                        ck.last_solve_layout)
         err, plain_ms = _hold_to_plain(
             call, ck.mlp_solve_plain, f"[22] K7 forward (K2 rhs='cnf') {dtype}")
         args, kw, got = call
@@ -1403,7 +1403,8 @@ def _cnf_tier(smi: str, dev) -> dict:
         torch.cuda.synchronize()
         sweep_launches = ca.cnf_adjoint_launches
         rec["adj_layout"] = _cnf_layout("[23] K7 adjoint in K3",
-                                        (args, kw, got), dev)
+                                        (args, kw, got),
+                                        ca.last_adjoint_layout)
         err, plain_ms = _hold_to_plain(
             (args, kw, got), ca.mlp_adjoint_solve_plain,
             f"[23] K7 adjoint (K3 rhs='cnf') {dtype}, B = {B}")
@@ -1461,8 +1462,10 @@ def _cnf_tier(smi: str, dev) -> dict:
             or len(t_k2.calls) != 2 or len(t_k3.calls) != 2:
         raise AssertionError(f"training launches {train_launches}")
     chunk = t_k2.calls[0][0][2].shape[0]
-    _cnf_layout("[23] training chunk, K2", t_k2.calls[0], dev)
-    _cnf_layout("[23] training chunk, K3", t_k3.calls[0], dev)
+    _cnf_layout("[23] training step's last K2", t_k2.calls[-1],
+                ck.last_solve_layout)
+    _cnf_layout("[23] training step's last K3", t_k3.calls[-1],
+                ca.last_adjoint_layout)
     errs = [_hold_to_plain(t_k2.calls[0], ck.mlp_solve_plain,
                            f"[23] training step, chunk 1 of 2 ({chunk} "
                            "samples): K2 with K7")[0],
@@ -1531,6 +1534,7 @@ def _cnf_tier(smi: str, dev) -> dict:
     with _Recording(fast, "mlp_solve") as e_k2, \
             _Recording(fast, "mlp_adjoint_solve") as e_k3:
         adam_step()
+    e_lay = ck.last_solve_layout, ca.last_adjoint_layout
     ex_ms, ex_all = _host_ms(adam_step, reps=TRAIN_STEPS)
     ex_launches = {"cnf_solve": ck.cnf_solve_launches,
                    "cnf_adjoint": ca.cnf_adjoint_launches}
@@ -1547,8 +1551,8 @@ def _cnf_tier(smi: str, dev) -> dict:
         raise AssertionError(f"CNF example launches {ex_launches}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"CNF example losses {losses}")
-    _cnf_layout("[24] example, K2", e_k2.calls[0], dev)
-    _cnf_layout("[24] example, K3", e_k3.calls[0], dev)
+    _cnf_layout("[24] example, K2", e_k2.calls[0], e_lay[0])
+    _cnf_layout("[24] example, K3", e_k3.calls[0], e_lay[1])
     errs += [_hold_to_plain(e_k2.calls[0], ck.mlp_solve_plain,
                             f"[24] first step's K2 with K7 (B = "
                             f"{eargs.batch_size}, hidden {eargs.hidden})")[0],
@@ -3289,18 +3293,19 @@ def main() -> int:
     # [6] timings (these launches are not counted above).
     p, y, _ = _bench_params(B, f32, dev)
     f0 = fast.mlp_apply(spec, [(p["w1"], p["b1"]), (p["w2"], p["b2"])], y)
-    step_ms = _kernel_ms(_build.library(), "tfd_dopri5_mlp_step_f32",
-                         lambda: ck.dopri5_mlp_step(p, y, f0, 0.3, TOL, TOL))
-    step_call_ms = _device_ms(
+    step_kernel_ms = _kernel_ms(
+        _build.library(), "tfd_dopri5_mlp_step_f32",
+        lambda: ck.dopri5_mlp_step(p, y, f0, 0.3, TOL, TOL))
+    step_ms = _device_ms(
         lambda: ck.dopri5_mlp_step(p, y, f0, 0.3, TOL, TOL))
     step_plain_ms = _timed(
         lambda: ck.dopri5_mlp_step_plain(p, y, f0, 0.3, TOL, TOL), inner=5)
     args, kw = k2_args[f32]
     solve_ms = _timed(lambda: ck.mlp_solve(*args, **kw))
     solve_plain_ms = _plain_ms(lambda: ck.mlp_solve_plain(*args, **kw))
-    print(f"[6] {smi}: K1 dopri5_mlp_step {step_ms:.4f} ms the kernel "
-          f"({step_call_ms:.4f} ms of device work a wrapper call, with the "
-          f"partials' sum) vs plain {step_plain_ms:.4f} ms (B=4096, "
+    print(f"[6] {smi}: K1 dopri5_mlp_step {step_ms:.4f} ms of device work "
+          f"a wrapper call, with the partials' sum ({step_kernel_ms:.4f} ms "
+          f"the kernel alone) vs plain {step_plain_ms:.4f} ms (B=4096, "
           "float32)", flush=True)
     print(f"[6] {smi}: K2 mlp_solve {solve_ms:.3f} ms/solve vs plain "
           f"{solve_plain_ms:.3f} ms (bench protocol, float32, "
@@ -4110,7 +4115,7 @@ def main() -> int:
          "plain_ms": step_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
          "threads_a_sample": ck.STEP_BLOCK // ck.step_samples(D, H, 4),
-         "call_device_ms": step_call_ms},
+         "kernel_ms": step_kernel_ms},
         {"name": "mlp_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/solve_kernel.cu",
          "replaces": "tfdiffeq_tpu/ops/pallas_kernels.py:726",

@@ -1,9 +1,9 @@
 """PyTorch port: K7's group walks (csrc/cnf_net.cuh) and K1's group kernel
-(csrc/step_kernel.cu), run on the CPU, and the host-side layout helpers.
+(csrc/step_kernel.cu), run on the CPU, and the host-side size helpers.
 
-- The sizes the launches check (csrc/lane_group.h: group_slots,
-  adjoint_slots, K7's slot and row values, K1's step_samples), compiled as
-  host C++ and called through ctypes, against their Python mirrors in
+- The sizes the wrappers allocate or route by (csrc/lane_group.h: K3's
+  CNF slot and row values, K1's step_samples), compiled as host C++ and
+  called through ctypes, against their Python counterparts in
   ops/cuda_kernels.py and ops/cuda_adjoint.py.
 - The CUDA sources themselves, compiled as host C++ with a stand-in
   cuda_runtime.h whose __syncthreads is a barrier of host threads: a group
@@ -231,21 +231,6 @@ static void step(const T* y, const T* f0, const T* w1, const T* b1,
 ENTRIES(f32, float)
 ENTRIES(f64, double)
 
-extern "C" int group_slots_(long fixed, long budget, int threads, long sv,
-                            int per_block, long item) {
-  return group_slots(fixed, budget, threads, sv, per_block, item);
-}
-extern "C" int adjoint_slots_(long own, long slot_bytes, int per_block,
-                              long budget) {
-  return adjoint_slots(own, slot_bytes, per_block, budget);
-}
-extern "C" int rows_fit_(long used, long row_bytes, int per_block,
-                         long budget) {
-  return adjoint_rows_fit(used, row_bytes, per_block, budget);
-}
-extern "C" long cnf_solve_slot_(int gw, int n_hid, int D) {
-  return cnf_solve_slot_values(gw, n_hid, D);
-}
 extern "C" long cnf_aug_slot_(int gw, int n_hid, int D) {
   return cnf_aug_slot_values(gw, n_hid, D);
 }
@@ -258,7 +243,6 @@ extern "C" long step_smem_(int D, int H, int samples) {
 extern "C" int step_samples_(int D, int H, long item, long budget) {
   return step_samples(D, H, item, budget);
 }
-extern "C" long solve_smem_bytes() { return kSolveSmemBytesHost; }
 """
 
 
@@ -275,9 +259,7 @@ def host(tmp_path_factory):
             (d / f.name).write_text(
                 re.sub(r"<<<[^;]*?>>>", "", f.read_text()))
     (d / "cuda_runtime.h").write_text(_RUNTIME)
-    (d / "driver.cpp").write_text(
-        _DRIVER.replace("kSolveSmemBytesHost",
-                        str(ck.MAX_WEIGHT_BYTES)))
+    (d / "driver.cpp").write_text(_DRIVER)
     so = d / "libcnf_group.so"
     subprocess.run([CXX, "-O1", "-std=c++17", "-ffp-contract=off",
                     "-pthread", "-shared", "-fPIC", "-I", str(d), "-o",
@@ -291,14 +273,10 @@ def host(tmp_path_factory):
                                                   I, P, P, P, P]
         getattr(lib, f"step_{s}").argtypes = ([P] * 10 + [I] * 4
                                               + [ctypes.c_double] * 3 + [P])
-    lib.group_slots_.argtypes = [L, L, I, L, I, L]
-    lib.adjoint_slots_.argtypes = [L, L, I, L]
-    for name in ("cnf_solve_slot_", "cnf_aug_slot_", "cnf_aug_rows_",
-                 "step_smem_"):
+    for name in ("cnf_aug_slot_", "cnf_aug_rows_", "step_smem_"):
         getattr(lib, name).argtypes = [I, I, I]
         getattr(lib, name).restype = L
     lib.step_samples_.argtypes = [I, I, L, L]
-    lib.rows_fit_.argtypes = [L, L, I, L]
     return lib
 
 
@@ -443,52 +421,20 @@ def test_step_group_kernel_matches_plain(host, libm_tanh, B, D, H,
 
 @pytest.mark.parametrize("item", [4, 8])
 def test_layout_helpers_match_the_headers(host, item):
-    """lane_group.h's slot counts and sizes against the Python mirrors the
-    wrappers and chip_smoke.py use."""
+    """lane_group.h's sizes against the Python counterparts the wrappers
+    allocate and route by: K3's CNF slot (the narrow route's share) and
+    rows (the workspace), K1's shared memory and samples a block (the
+    partial sums' count)."""
     for dims in [((3, 32), (32, 32), (32, 2)), ((3, 64), (64, 64), (64, 2)),
                  ((3, 128), (128, 128), (128, 2)), ((5, 512), (512, 4)),
                  ((2, 50), (50, 2))]:
         gw, n_hid, D = ck._net_widths(dims)
         n_h = sum(i for i, _ in dims)
         n_z = sum(o for _, o in dims)
-        assert host.cnf_solve_slot_(gw, n_hid, D) == \
-            ck.cnf_solve_slot_values(dims)
         assert host.cnf_aug_slot_(gw, n_hid, D) == \
             ca.cnf_aug_slot_values(dims)
         assert host.cnf_aug_rows_(n_h, n_z, D) == \
             ca.cnf_aug_row_values(dims)
-        for B, nb in [(4096, 132), (2048, 132), (512, 132), (100, 100),
-                      (20000, 132)]:
-            per = -(-B // nb)
-            for cnf in (False, True):
-                lay = ck.solve_layout(dims, B, item, nb, cnf)
-                n_w = sum(i * o + o for i, o in dims)
-                route = ck._route("mlp_solve", dims, n_w, item)
-                fixed = item * n_w if route == ck.ROUTE_NARROW else 0
-                assert lay["slots"] == host.group_slots_(
-                    fixed, ck.MAX_WEIGHT_BYTES + item * ck.SOLVE_THREADS,
-                    ck.SOLVE_THREADS, lay["slot_values"], per, item)
-                alay = ca.adjoint_layout(dims, B, 7, item, nb, cnf=cnf)
-                own = item * (ca._own_values(dims, 7, cnf, cnf)
-                              if ck._route("mlp_adjoint_solve", dims,
-                                           ca._shared_values(dims, 7, cnf,
-                                                             cnf), item)
-                              == ck.ROUTE_NARROW else ca.ADJOINT_THREADS)
-                assert alay["slots"] == host.adjoint_slots_(
-                    own, item * alay["slot_values"], per,
-                    ck.MAX_WEIGHT_BYTES)
-                assert alay["rows_in_shared_memory"] == (cnf and bool(
-                    host.rows_fit_(own + alay["slots"] * item
-                                   * alay["slot_values"],
-                                   item * ca.cnf_aug_row_values(dims),
-                                   per + 1, ck.MAX_WEIGHT_BYTES)))
-                assert alay["slots"] * alay["threads_a_sample"] == \
-                    ca.ADJOINT_THREADS
-    # The CNF flow of chip_smoke.py [22]-[23] at B = 4096 on 132 blocks.
-    cnf = ((3, 32), (32, 32), (32, 2))
-    assert ck.solve_layout(cnf, 4096, 4, 132, True)["threads_a_sample"] == 16
-    assert ca.adjoint_layout(cnf, 4096, 7, 4, 132,
-                             cnf=True)["threads_a_sample"] == 16
     for D in (1, 2, 5, 16):
         for H in (1, 50, 300, 2000, 7000):
             assert host.step_smem_(D, H, 32) == ck._step_smem_values(D, H, 32)

@@ -1037,16 +1037,20 @@ def test_cnf_kernels_match_plain(cuda, dtype, H, B, route):
     """K7's forward in K2 and its adjoint in K3 (rhs='cnf'), narrow and wide,
     at batches that give a block about 31, 16, 4 and 1 samples (a group of
     16, 32, 128 and 512 threads a sample): bitwise equal to their plain
-    versions with identical stats."""
+    versions with identical stats. The layouts are the ones the launches
+    report: K2 a round of as many samples as a block owns, up to 32
+    (csrc/lane_group.h kGroupSlots), K3 at most that many."""
     _, packed, dims, s0, tau, f0 = _cnf_case(cuda, dtype, H, B)
     assert ck._route("t", dims, packed.numel(), s0.element_size()) == route
     nb = ck.solve_blocks(B, cuda)
-    lay = ck.solve_layout(dims, B, s0.element_size(), nb, cnf=True)
     per = -(-B // nb)
-    assert lay["slots"] == min(ck.GROUP_SLOTS, 1 << (per - 1).bit_length())
+    round_max = min(32, 1 << (per - 1).bit_length())
     args = (packed, dims, s0, tau, 0.05, 1e-5, 1e-7, -1.0)
     kw = dict(f0=f0, activation="tanh", time_input=True, rhs="cnf")
     out, st = ck.mlp_solve(*args, **kw)
+    lay = ck.last_solve_layout
+    assert lay["blocks"] == nb and lay["slots"] == round_max
+    assert lay["slots"] * lay["threads_a_sample"] == ck.SOLVE_THREADS
     ref, st_r = ck.mlp_solve_plain(*args, **kw)
     torch.cuda.synchronize()
     assert st.tolist() == st_r.tolist() and st[3].item() == 0
@@ -1058,6 +1062,10 @@ def test_cnf_kernels_match_plain(cuda, dtype, H, B, route):
     got = ca.mlp_adjoint_solve(*aargs, activation="tanh", rhs="cnf")
     want = ca.mlp_adjoint_solve_plain(*aargs, activation="tanh", rhs="cnf")
     torch.cuda.synchronize()
+    alay = ca.last_adjoint_layout
+    assert alay["slot_values"] == ca.cnf_aug_slot_values(dims)
+    assert 1 <= alay["slots"] <= round_max
+    assert alay["slots"] * alay["threads_a_sample"] == ca.ADJOINT_THREADS
     assert got[3].tolist() == want[3].tolist() and got[3][3].item() == 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -346,7 +346,7 @@ cudaError_t launch_adjoint_route(const void* tau, const void* ys,
                                  int threads, const Net& net,
                                  const Rows& rows, const CnfRows& cr,
                                  const Tableau<T>& tab,
-                                 const AdjScalars<T>& sc,
+                                 const AdjScalars<T>& sc, int* layout,
                                  cudaStream_t stream) {
   const int S = tab.S, ti = net.time_input;
   using Aug = MlpAdjAug<T, kRoute, kCnf>;
@@ -378,6 +378,11 @@ cudaError_t launch_adjoint_route(const void* tau, const void* ys,
                                size_t(kAdjSmemBytes));
   const size_t smem = own + slots * slot_bytes +
                       (rows_smem ? size_t(cols) * row_bytes : 0);
+  // What this launch runs, for the wrapper to report.
+  layout[0] = slots;
+  layout[1] = threads / slots;
+  layout[2] = int(sv);
+  layout[3] = rows_smem;
   Aug aug;
   aug.gw = gw;
   aug.slots = slots;
@@ -416,8 +421,9 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
                    const double* c, const double* a, const double* b_sol,
                    const double* b_err, int route, void* pwork,
                    long pwork_size, int cnf, void* gwork, long gwork_bytes,
-                   int n_blocks, void* stream) {
-  if (stages < 2 || stages > kMaxStages || T_obs < 1 || B < 1 || D < 1 ||
+                   int n_blocks, int* layout, void* stream) {
+  if (!layout || stages < 2 || stages > kMaxStages || T_obs < 1 || B < 1 ||
+      D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || threads < kWarp ||
       threads > kAdjThreads || (threads & (threads - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -459,21 +465,21 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
             ? launch_adjoint_route<T, kRouteNarrow, true>(
                   tau, ys, g, weights, ay0, aw, at, stats, work, pwork, gwork,
                   gwork_bytes, n_blocks, n_w, threads, net, rows, cr, tab, sc,
-                  st)
+                  layout, st)
             : launch_adjoint_route<T, kRouteWide, true>(
                   tau, ys, g, weights, ay0, aw, at, stats, work, pwork, gwork,
                   gwork_bytes, n_blocks, n_w, threads, net, rows, cr, tab, sc,
-                  st);
+                  layout, st);
   else
     e = route == kRouteNarrow
             ? launch_adjoint_route<T, kRouteNarrow, false>(
                   tau, ys, g, weights, ay0, aw, at, stats, work, pwork, gwork,
                   gwork_bytes, n_blocks, n_w, threads, net, rows, cr, tab, sc,
-                  st)
+                  layout, st)
             : launch_adjoint_route<T, kRouteWide, false>(
                   tau, ys, g, weights, ay0, aw, at, stats, work, pwork, gwork,
                   gwork_bytes, n_blocks, n_w, threads, net, rows, cr, tab, sc,
-                  st);
+                  layout, st);
   return static_cast<int>(e);
 }
 
@@ -490,14 +496,15 @@ int launch_adjoint(const void* tau, const void* ys, const void* g,
       int input_power, int time_input, int stages, int order,               \
       const double* c, const double* a, const double* b_sol,                \
       const double* b_err, int route, void* pwork, long pwork_size,         \
-      int cnf, void* gwork, long gwork_bytes, int n_blocks, void* stream) { \
+      int cnf, void* gwork, long gwork_bytes, int n_blocks, int* layout,    \
+      void* stream) {                                                        \
     return tfd::launch_adjoint<TYPE>(                                        \
         tau, ys, g, weights, ay0, aw, at, stats, work, work_size, T_obs, B, \
         D, threads, dt0, rtol, atol, dt_min, sign, safety, ifactor,         \
         dfactor, max_steps, seminorm, n_layers, dims, act_hidden,           \
         act_final, input_power, time_input, stages, order, c, a, b_sol,     \
         b_err, route, pwork, pwork_size, cnf, gwork, gwork_bytes, n_blocks, \
-        stream);                                                             \
+        layout, stream);                                                     \
   }
 
 TFD_ADJOINT_ENTRY(tfd_mlp_adjoint_f32, float)

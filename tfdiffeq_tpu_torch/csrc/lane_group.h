@@ -6,8 +6,9 @@
 // host compiler) computes the same sizes the launch checks;
 // ops/cuda_fixed.py repeats them (_group_work_size, _fixed_work_size,
 // _solve_work_size). Also the grouped walks' slot counts of K2 and K3
-// (group_slots, adjoint_slots), K7's slot and row sizes and K1's block
-// (ops/cuda_kernels.py, ops/cuda_adjoint.py repeat them).
+// (group_slots, adjoint_slots; the launches report what they chose), K7's
+// slot and row sizes and K1's block (ops/cuda_kernels.py and
+// ops/cuda_adjoint.py repeat the sizes the wrappers allocate or route by).
 #pragma once
 
 #include <cstddef>
@@ -63,7 +64,7 @@ inline long lane_group_work_size(int S, int B, int D, long n_q,
 }
 
 // Shared memory a block of these layouts may give its right-hand side and
-// its slots (K6, K9, and K8's and K5's MLP routes).
+// its slots (K6, K9, K8's and K5's MLP routes, and K1).
 constexpr long kLaneSmemBytes = 220L * 1024;
 
 // ---------------------------------------------------------------------------
@@ -187,10 +188,12 @@ inline long cnf_aug_slot_values(int gw, int n_hid, int D) {
   return 4L * gw + (3L + D) * n_hid + 2L * D + 1;
 }
 
-// K3's rows of one sample, which its phase B reads (sample-major, a sample's
-// values contiguous): the layers' inputs (n_h), then over the layers'
-// outputs (n_z) part A's cotangents and the deltas, the passes' u and vb (D
-// each), then v_t.
+// K3's rows, which its phase B reads, in values a sample (cnf_net.cuh
+// CnfRowsAt: row-major, row X of sample b at X * stride + b, each row's
+// samples contiguous; the stride is the block's samples plus one in shared
+// memory, B in the workspace): the layers' inputs (n_h), then over the
+// layers' outputs (n_z) part A's cotangents and the deltas, the passes' u
+// and vb (D each), then v_t.
 inline long cnf_aug_row_values(int n_h, int n_z, int D) {
   return n_h + (2L + 2L * D) * n_z + 1;
 }

@@ -150,7 +150,8 @@ cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
                          void* work, void* gwork, long gwork_bytes,
                          int n_blocks, const BatchBufs<T>& bb, int n_w,
                          int threads, const Net& net, const Tableau<T>& tab,
-                         const Scalars<T>& sc, cudaStream_t stream) {
+                         const Scalars<T>& sc, int* layout,
+                         cudaStream_t stream) {
   using Rhs = MlpSolveRhs<T, kRoute, kCnf>;
   const size_t fixed =
       sizeof(T) * (kRoute == kRouteNarrow ? size_t(n_w) : 0) +
@@ -173,6 +174,12 @@ cudaError_t launch_route(const void* tau, const void* y0, const void* f0,
           ? size_t(slots) * sv
           : size_t(threads);
   const size_t smem = fixed + sizeof(T) * scratch;
+  // What this launch runs, for the wrapper to report: samples a round,
+  // threads a sample and a slot's values (zeros on the batch route, which
+  // walks no sample with a group).
+  layout[0] = Rhs::kGroup ? slots : 0;
+  layout[1] = Rhs::kGroup ? threads / slots : 0;
+  layout[2] = Rhs::kGroup ? int(sv) : 0;
   Rhs rhs;
   rhs.wg = static_cast<const T*>(weights);
   rhs.n_weights = n_w;
@@ -199,8 +206,8 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
                  const double* b_sol, const double* b_err,
                  const double* c_mid, int route, const int* tiers,
                  void* batch_work, long batch_bytes, int cnf, void* gwork,
-                 long gwork_bytes, int n_blocks, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || stages < 2 ||
+                 long gwork_bytes, int n_blocks, int* layout, void* stream) {
+  if (!layout || n_layers < 1 || n_layers > kMaxLayers || stages < 2 ||
       stages > kMaxStages || T_out < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || threads < 32 ||
       threads > kSolveThreads || (threads & (threads - 1)))
@@ -241,7 +248,8 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
   // The arguments every route takes.
   auto route_args = [&](auto launch) {
     return launch(tau, y0, f0, weights, out, stats, work, gwork,
-                  gwork_bytes, n_blocks, bb, off, threads, net, tab, sc, st);
+                  gwork_bytes, n_blocks, bb, off, threads, net, tab, sc,
+                  layout, st);
   };
   cudaError_t e;
   if (cnf) {
@@ -275,14 +283,15 @@ int launch_solve(const void* tau, const void* y0, const void* f0,
       int stages, int order, int fsal, const double* c, const double* a,    \
       const double* b_sol, const double* b_err, const double* c_mid,        \
       int route, const int* tiers, void* batch_work, long batch_bytes,      \
-      int cnf, void* gwork, long gwork_bytes, int n_blocks, void* stream) { \
+      int cnf, void* gwork, long gwork_bytes, int n_blocks, int* layout,    \
+      void* stream) {                                                        \
     return tfd::launch_solve<TYPE>(                                          \
         tau, y0, f0, weights, out, stats, work, T_out, B, D, threads, dt0,  \
         rtol, atol, dt_min, sign, safety, ifactor, dfactor, max_steps,      \
         valid, n_layers, dims, act_hidden, act_final, input_power,          \
         time_input, stages, order, fsal, c, a, b_sol, b_err, c_mid, route,  \
         tiers, batch_work, batch_bytes, cnf, gwork, gwork_bytes, n_blocks,  \
-        stream);                                                             \
+        layout, stream);                                                     \
   }
 
 TFD_SOLVE_ENTRY(tfd_mlp_solve_f32, float)

@@ -37,8 +37,6 @@
 namespace tfd {
 
 constexpr int kStepMaxD = 16;  // ops/cuda_kernels.py:STEP_MAX_D
-// Shared memory a block may take (ops/cuda_kernels.py:MAX_WEIGHT_BYTES).
-constexpr long kStepSmemBytes = 220L * 1024;
 
 // dopri5 coefficients, handed over from the host as doubles
 // (tfdiffeq_tpu_torch/ops/tableaus.py DOPRI5, the exact rationals of the
@@ -187,7 +185,7 @@ int launch_step(const void* y, const void* f0, const void* w1,
                 const double* coeffs, void* stream) {
   // `samples` is the wrapper's step_samples: the partials' count follows it.
   if (D < 1 || D > kStepMaxD || H < 1 || B < 1 ||
-      samples != step_samples(D, H, sizeof(T), kStepSmemBytes))
+      samples != step_samples(D, H, sizeof(T), kLaneSmemBytes))
     return static_cast<int>(cudaErrorInvalidValue);
   Dopri5Coeffs cw;
   const double* p = coeffs;  // a (6 x 6), b_sol, b_err, c_mid

@@ -82,6 +82,7 @@ _SOLVE_ARGS = ([_P] * 7                                     # tensors
                + [_I, _P, _P, _L]                           # route, tiers
                + [_I]                                       # rhs = cnf
                + [_P, _L, _I]                               # grid
+               + [_P]                                       # layout
                + [_P])                                      # stream
 _ADJOINT_ARGS = ([_P] * 9                                   # tensors
                  + [_L]                                     # work size
@@ -92,6 +93,7 @@ _ADJOINT_ARGS = ([_P] * 9                                   # tensors
                  + [_I, _P, _L]                             # route, pwork
                  + [_I]                                     # rhs = cnf
                  + [_P, _L, _I]                             # grid
+                 + [_P]                                     # layout
                  + [_P])                                    # stream
 _SOLVE_FIXED_ARGS = ([_P] * 8                               # tensors
                      + [_L]                                 # work size

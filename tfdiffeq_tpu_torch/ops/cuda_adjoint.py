@@ -41,13 +41,13 @@ Not ported: the TPU machinery of the reference (`pack` sublane packing,
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
 from . import _build
-from .cuda_kernels import (GROUP_SLOTS, MAX_WEIGHT_BYTES, ROUTE_NARROW,
-                           ROUTE_WIDE, _ACT_CODES, _ACTIVATION_GRAD2,
+from .cuda_kernels import (ROUTE_WIDE, _ACT_CODES, _ACTIVATION_GRAD2,
                            _ACTIVATION_GRADS, _ACTIVATIONS, _block_index,
                            _block_owned_sums, _check_blocks,
                            _check_activations, _check_cnf, _check_float,
@@ -55,7 +55,8 @@ from .cuda_kernels import (GROUP_SLOTS, MAX_WEIGHT_BYTES, ROUTE_NARROW,
                            _controller_factor, _device_kind, _dims_arg,
                            _dot_in_order, _gather, _merge_blocks,
                            _net_widths, _ptr, _route, _solve_setup, _stream,
-                           _tableau_args, _tree_sum, _unpack, solve_blocks)
+                           _tableau_args, _tree_sum, _unpack, launch_layout,
+                           solve_blocks)
 from .tableaus import TABLEAUS_BY_NAME
 
 Tensor = torch.Tensor
@@ -68,12 +69,17 @@ LANES = 32
 #: K3 launches, and those with K7's adjoint (rhs='cnf') among them.
 mlp_adjoint_solve_launches = 0
 cnf_adjoint_launches = 0
+#: The grouped walk that K3's last launch ran, as the launch reported it
+#: (`cuda_kernels.launch_layout`); None before one.
+last_adjoint_layout = None
 
 
 def reset_launch_counts() -> None:
     global mlp_adjoint_solve_launches, cnf_adjoint_launches
+    global last_adjoint_layout
     mlp_adjoint_solve_launches = 0
     cnf_adjoint_launches = 0
+    last_adjoint_layout = None
 
 
 def _lane_sums(x: Tensor) -> Tensor:
@@ -468,9 +474,10 @@ def adjoint_sweep_plain(aug, n_w: int, time_input: bool, n_ps: int,
 
 def cnf_aug_row_values(dims) -> int:
     """csrc/lane_group.h cnf_aug_row_values: a sample's values of K7's
-    rows in K3 (csrc/cnf_net.cuh CnfRows, sample-major): the layers'
-    inputs, part A's cotangents and the deltas of the layers' outputs, the
-    passes' u and vb, v_t."""
+    rows in K3 (csrc/cnf_net.cuh CnfRows; CnfRowsAt lays them out
+    row-major, each row's samples contiguous): the layers' inputs, part
+    A's cotangents and the deltas of the layers' outputs, the passes' u and
+    vb, v_t."""
     n_h = sum(din for din, _ in dims)
     n_z = sum(dout for _, dout in dims)
     return n_h + (2 + 2 * dims[-1][1]) * n_z + 1
@@ -495,64 +502,18 @@ def _work_size(dims, S: int, B: int, D: int, cnf: bool = False) -> int:
     return (6 + 2 * S) * B * D + rows * B
 
 
-def _own_values(dims, S: int, time_input: bool, cnf: bool) -> int:
-    """Shared memory a K3 block on the narrow route takes besides its
-    slots, in values: the weights (K7's flow twice, row-major and
-    transposed), the parameter accumulator and its increment, every stage's
-    cotangents and the block-sum scratch."""
-    n_w = sum(din * dout + dout for din, dout in dims)
-    return ((3 + S + int(cnf)) * n_w + S * int(time_input)
-            + ADJOINT_THREADS)
-
-
-def _slot_values(dims, cnf: bool) -> int:
-    """A K3 slot: the MLP walk's four vectors, or K7's."""
-    return cnf_aug_slot_values(dims) if cnf else 4 * _net_widths(dims)[0]
-
-
 def _shared_values(dims, S: int, time_input: bool, cnf: bool = False
                    ) -> int:
-    """Shared memory K3's narrow route needs, in values: `_own_values`
-    and one slot (csrc/adjoint_kernel.cu stage_group: the kernel adds as
-    many slots as the rest of MAX_WEIGHT_BYTES holds)."""
-    return _own_values(dims, S, time_input, cnf) + _slot_values(dims, cnf)
-
-
-def adjoint_slots(own: int, slot_bytes: int, per_block: int,
-                  budget: int) -> int:
-    """csrc/lane_group.h adjoint_slots: K3's samples a round (a power of
-    two up to GROUP_SLOTS, at most a block's) whose slots fit beside `own`
-    bytes within `budget`."""
-    slots = 1
-    while (slots < GROUP_SLOTS and slots < per_block
-           and own + 2 * slots * slot_bytes <= budget):
-        slots *= 2
-    return slots
-
-
-def adjoint_layout(dims, B: int, S: int, itemsize: int, n_blocks: int,
-                   time_input: bool = False, cnf: bool = False) -> dict:
-    """K3's grouped walk as the launch picks it (csrc/adjoint_kernel.cu
-    launch_adjoint_route): blocks, samples a round (`slots`), threads a
-    sample, a slot's values and, for K7's flow, whether the block's rows
-    (`cnf_aug_row_values` a sample, a column a sample and one more) sit in
-    its shared memory (lane_group.h adjoint_rows_fit) or in the
-    workspace."""
-    if cnf:
-        time_input = True
-    route = _route("mlp_adjoint_solve", dims,
-                   _shared_values(dims, S, time_input, cnf), itemsize)
-    own = itemsize * (_own_values(dims, S, time_input, cnf)
-                      if route == ROUTE_NARROW else ADJOINT_THREADS)
-    sv = _slot_values(dims, cnf)
-    per = -(-B // n_blocks)
-    slots = adjoint_slots(own, itemsize * sv, per, MAX_WEIGHT_BYTES)
-    rows = cnf and (own + slots * itemsize * sv
-                    + (per + 1) * itemsize * cnf_aug_row_values(dims)
-                    <= MAX_WEIGHT_BYTES)
-    return {"blocks": n_blocks, "slots": slots,
-            "threads_a_sample": ADJOINT_THREADS // slots, "slot_values": sv,
-            "rows_in_shared_memory": rows}
+    """Shared memory K3's narrow route needs, in values: the weights (K7's
+    flow twice, row-major and transposed), the parameter accumulator and
+    its increment, every stage's cotangents, the block-sum scratch and one
+    slot, the MLP walk's four vectors or K7's `cnf_aug_slot_values`
+    (csrc/adjoint_kernel.cu launch_adjoint_route: the launch adds as many
+    slots as the rest of MAX_WEIGHT_BYTES holds)."""
+    n_w = sum(din * dout + dout for din, dout in dims)
+    slot = cnf_aug_slot_values(dims) if cnf else 4 * _net_widths(dims)[0]
+    return ((3 + S + int(cnf)) * n_w + S * int(time_input)
+            + ADJOINT_THREADS + slot)
 
 
 def _wide_work_size(n_w: int, S: int, time_input: bool) -> int:
@@ -629,6 +590,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                                        atol, sign, n_blocks=n_blocks, **kw)
 
     global mlp_adjoint_solve_launches, cnf_adjoint_launches
+    global last_adjoint_layout
     dtype = ys.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"mlp_adjoint_solve takes float32 or float64, got "
@@ -664,6 +626,7 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
     lib = _build.library()
     fn = (lib.tfd_mlp_adjoint_f32 if dtype == torch.float32
           else lib.tfd_mlp_adjoint_f64)
+    reported = (ctypes.c_int * 4)()
     with torch.cuda.device(ys.device):
         err = fn(_ptr(tau_d), _ptr(ys), _ptr(g), _ptr(warrays), _ptr(ay0),
                  _ptr(aw), _ptr(at), _ptr(stats), _ptr(work), n_work, T, B,
@@ -674,8 +637,10 @@ def mlp_adjoint_solve(warrays: Tensor, dims, ys: Tensor, g: Tensor,
                  _ACT_CODES[activation], _ACT_CODES[final_activation],
                  int(input_power), int(time_input), S, tab.order, c, a,
                  b_sol, b_err, route, _ptr(pwork), n_pwork, int(cnf),
-                 _ptr(gwork), gwork.numel(), nb, _stream(ys.device))
+                 _ptr(gwork), gwork.numel(), nb, reported,
+                 _stream(ys.device))
     _build.check(err, "mlp_adjoint_solve launch")
+    last_adjoint_layout = launch_layout(nb, reported, rows=True)
     mlp_adjoint_solve_launches += 1
     cnf_adjoint_launches += cnf
     return ay0, aw, at, stats

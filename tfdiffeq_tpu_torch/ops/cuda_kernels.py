@@ -92,16 +92,34 @@ mlp_solve_launches = 0
 dot_tier_launches = 0
 tier_net_launches = 0
 cnf_solve_launches = 0
+#: The grouped walk that K2's last launch ran, as the launch reported it
+#: (`launch_layout`); None before one.
+last_solve_layout = None
 
 
 def reset_launch_counts() -> None:
     global dopri5_mlp_step_launches, mlp_solve_launches, dot_tier_launches
-    global tier_net_launches, cnf_solve_launches
+    global tier_net_launches, cnf_solve_launches, last_solve_layout
     dopri5_mlp_step_launches = 0
     mlp_solve_launches = 0
     dot_tier_launches = 0
     tier_net_launches = 0
     cnf_solve_launches = 0
+    last_solve_layout = None
+
+
+def launch_layout(n_blocks: int, reported, rows: bool = False) -> dict:
+    """The grouped walk of a K2 or K3 launch from the values the launch
+    wrote (csrc/solve_kernel.cu launch_route, csrc/adjoint_kernel.cu
+    launch_adjoint_route): blocks, samples a round of a block (`slots`),
+    threads a sample and a slot's values, zeros on K2's batch route, which
+    walks no sample with a group; for K3 (`rows`) also whether K7's rows
+    sit in the block's shared memory."""
+    lay = {"blocks": n_blocks, "slots": reported[0],
+           "threads_a_sample": reported[1], "slot_values": reported[2]}
+    if rows:
+        lay["rows_in_shared_memory"] = bool(reported[3])
+    return lay
 
 
 def _elu(x: Tensor) -> Tensor:
@@ -896,58 +914,11 @@ def tier_net_parts(warrays: Tensor, dims, x: Tensor, t, out: Tensor,
     _build.check(err, "tier_net launch")
 
 
-# ---------------------------------------------------------------------------
-# The grouped walks of K2 and K3 (csrc/lane_group.h): samples a round of a
-# block (`slots`), each walked by SOLVE_THREADS // slots threads.
-# ---------------------------------------------------------------------------
-
-#: Most samples a round of a grouped walk (csrc/lane_group.h kGroupSlots).
-GROUP_SLOTS = 32
-
-
 def _net_widths(dims):
     """(gw, n_hid, D): the widest layer, the hidden layers' outputs and the
     last layer's outputs."""
     return (max(w for dd in dims for w in dd),
             sum(dout for _, dout in dims[:-1]), dims[-1][1])
-
-
-def cnf_solve_slot_values(dims) -> int:
-    """csrc/lane_group.h cnf_solve_slot_values: K7's slot in K2 (the two
-    layer vectors, act' of the hidden outputs, F and the trace terms)."""
-    gw, n_hid, D = _net_widths(dims)
-    return 2 * gw + n_hid + 2 * D + 1
-
-
-def group_slots(fixed: int, budget: int, threads: int, slot_values: int,
-                per_block: int, item: int) -> int:
-    """csrc/lane_group.h group_slots: the samples a round (a power of two
-    up to GROUP_SLOTS, at most a block's) whose slots, in the reduction
-    scratch of `threads` values or growing it, fit beside `fixed` bytes
-    within `budget`."""
-    def scratch(n):
-        return item * max(threads, n * slot_values)
-    slots = 1
-    while (slots < GROUP_SLOTS and slots < per_block
-           and fixed + scratch(2 * slots) <= budget):
-        slots *= 2
-    return slots
-
-
-def solve_layout(dims, B: int, itemsize: int, n_blocks: int,
-                 cnf: bool = False) -> dict:
-    """K2's grouped walk on the narrow or wide route as the launch picks it
-    (csrc/solve_kernel.cu launch_route): blocks, samples a round (`slots`),
-    threads a sample and a slot's values (the MLP's two layer vectors, K7's
-    `cnf_solve_slot_values`)."""
-    n_w = sum(i * o + o for i, o in dims)
-    route = _route("mlp_solve", dims, n_w, itemsize)
-    sv = cnf_solve_slot_values(dims) if cnf else 2 * _net_widths(dims)[0]
-    fixed = itemsize * n_w if route == ROUTE_NARROW else 0
-    slots = group_slots(fixed, MAX_WEIGHT_BYTES + itemsize * SOLVE_THREADS,
-                        SOLVE_THREADS, sv, -(-B // n_blocks), itemsize)
-    return {"blocks": n_blocks, "slots": slots,
-            "threads_a_sample": SOLVE_THREADS // slots, "slot_values": sv}
 
 
 def _solve_setup(tau: Tensor, dt0, dtype):
@@ -1182,6 +1153,7 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
             max_steps=max_steps, tiers=tiers, rhs=rhs, n_blocks=n_blocks)
 
     global mlp_solve_launches, dot_tier_launches, cnf_solve_launches
+    global last_solve_layout
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"mlp_solve takes float32 or float64, got {dtype}")
     B, D = y0.shape
@@ -1221,6 +1193,7 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
           else lib.tfd_mlp_solve_f64)
     c_mid = (None if tab.c_mid is None
              else (ctypes.c_double * S)(*tab.c_mid))
+    reported = (ctypes.c_int * 4)()
     with torch.cuda.device(y0.device):
         err = fn(_ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(warrays), _ptr(out),
                  _ptr(stats), _ptr(work), T, B, D, SOLVE_THREADS,
@@ -1232,8 +1205,9 @@ def mlp_solve(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0, rtol,
                  int(time_input), S, tab.order, int(tab.fsal), c, a, b_sol,
                  b_err, c_mid, route, _tiers_arg(tiers), _ptr(batch_work),
                  n_batch, int(cnf), _ptr(gwork), gwork.numel(), nb,
-                 _stream(y0.device))
+                 reported, _stream(y0.device))
     _build.check(err, "mlp_solve launch")
+    last_solve_layout = launch_layout(nb, reported)
     mlp_solve_launches += 1
     dot_tier_launches += route == ROUTE_BATCH
     cnf_solve_launches += cnf
