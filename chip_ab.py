@@ -4,12 +4,13 @@ kernels, their adjoint sweeps (K3, K9, K6), the Adams kernels (K10, K11)
 at the bench protocol and the conv-ODE solve (K13), for two or more
 checkouts of the repository on one NVIDIA card, in alternating order.
 
-    python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS] [plans | cnf]
+    python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS] [plans | cnf | hyper]
 
 Each checkout builds its own kernels first (all together), then every
 round runs one process a checkout, in the order A B B A A B ... (ROUNDS
 pairs, 3 by default; with `plans` the plan rows alone, with `cnf` the K2
-and K3 rows and the K7, K1 and CNF rows below), each timing with
+and K3 rows and the K7, K1 and CNF rows below, with `hyper` the K12 and
+explicit_adams rows below), each timing with
 CUDA events (median of 7 after a
 warm-up): the MLP routes of K2 (dopri5, bench spiral y [4096, 2], hidden
 50, 64 outputs over [0, 25], rtol = atol = 1e-6, first step 0.01), K8
@@ -40,7 +41,12 @@ work with the partials' sum),
 rtol 1e-5, atol 1e-7) a `fast.cnf_log_prob_train` step with its backward
 (two chunks of 2048), an `examples/cnf.py --fused` Adam step at its
 defaults (B = 512, hidden 64) and `fast.cnf_sample_fused` of 1000 points
-(median of 3 each, CUDA events around the host's call). It prints the
+(median of 3 each, CUDA events around the host's call). Then K12 (the
+hypersolvers, `plan_solve_hyper`) on examples/hypersolver.py's dynamics
+and hypernet at B = 4096 on its 33-point output grid: the kernel alone for
+the three kinds and for euler at B = 256, and a wrapper call's device
+work (ten calls queued behind a sleep); and a wrapper call's device work
+of explicit_adams' K10 x 512 at the bench widths, B = 4096. It prints the
 card's name and power limit, a line a run and the median of each kernel a
 checkout.
 """
@@ -138,11 +144,58 @@ def _cnf_rows(out: dict, timed, device_timed, dev) -> None:
         rtol=eargs.rtol, atol=eargs.atol), reps=3)
 
 
+def _hyper_rows(out: dict, device_timed, dev) -> None:
+    """K12 alone and a wrapper call's device work; explicit_adams' K10 a
+    wrapper call's device work."""
+    import torch
+    from tfdiffeq_tpu_torch import fast
+    from tfdiffeq_tpu_torch.examples import hypersolver as hx
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, \
+        cuda_kernels as ck, cuda_plan as cpl, plan_bridge as pb
+    from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
+    f32 = torch.float32
+    params = {k: v.detach() for k, v in hx.init_hypernet(
+        torch.Generator().manual_seed(0), 32, dev, f32).items()}
+    f, g = hx.dynamics(dev, f32), hx.hypernet(params)
+    y0 = hx.disk(np.random.RandomState(1), 4096, 1.0, dev, f32)
+    t0 = torch.tensor(0.0, device=dev)
+    pf, cf = pb.build_plan(f, t0, y0)
+    pg, cg = pb.build_plan(lambda tt, ss: g(tt, ss[:, :2], ss[:, 2:]), t0,
+                           torch.cat([y0, f(t0, y0)], 1), out_dim=2)
+    kf, kg = (pb.pack_consts(pf, cf, f32, dev),
+              pb.pack_consts(pg, cg, f32, dev))
+    lib = cpl.build([((pf, pg), "hyper")])[0]
+    t = torch.linspace(0.0, 2.0, 33)
+    for B, kinds in ((4096, ("euler", "midpoint", "heun")), (256, ("euler",))):
+        y = y0[:B].contiguous()
+        for kind in kinds:
+            key = f"K12 {kind}" + ("" if B == 4096 else f" B{B}")
+            out[key] = _kernel_ms(lib, "tfd_plan_hyper_f32", lambda: (
+                cpl.plan_solve_hyper(pf, pg, kf, kg, y, t, t, 1.0, kind=kind,
+                                     grid_is_t=True)))
+    out["K12 call"] = device_timed(lambda: cpl.plan_solve_hyper(
+        pf, pg, kf, kg, y0, t, t, 1.0, kind="euler", grid_is_t=True))
+    rng = np.random.RandomState(0)
+    c = lambda a: torch.tensor(a, dtype=f32, device=dev)
+    W = [(c(rng.randn(2, 50) * 0.1), c(np.zeros(50))),
+         (c(rng.randn(50, 2) * 0.1), c(np.zeros(2)))]
+    y = c(np.random.RandomState(1).randn(4096, 2) * 1.5)
+    warr, dims = ck.pack_mlp_weights(W, f32, dev)
+    f0 = fast.mlp_apply(fast.MLPSpec(activation="tanh", input_power=3), W, y)
+    ts = torch.linspace(0.0, 25.0, 64)
+    grid512 = uniform_grid(ts[0], ts[-1], 512)
+    out["K10 explicit call"] = device_timed(lambda: cad.mlp_solve_adams(
+        warr, dims, y, ts, grid512, 1e-6, 1e-6, 1.0, f0=f0,
+        activation="tanh", input_power=3, implicit=False), reps=3, inner=5)
+
+
 def _one(root: str, only: str = "") -> None:
     """Time the kernels of the checkout at `root` (with `only` = "plans"
-    the plan rows alone, "cnf" the K2, K3, K7, K1 and CNF rows); print one
-    line."""
-    plans_only, cnf_only = only == "plans", only == "cnf"
+    the plan rows alone, "cnf" the K2, K3, K7, K1 and CNF rows, "hyper"
+    the K12 and explicit_adams rows); print one line."""
+    # `hyper` (the K12 and explicit_adams rows alone) skips both.
+    plans_only = only in ("plans", "hyper")
+    cnf_only = only in ("cnf", "hyper")
     sys.path.insert(0, root)
     import torch
     from tfdiffeq_tpu_torch import fast
@@ -374,6 +427,8 @@ def _one(root: str, only: str = "") -> None:
                     implicit=implicit), reps=3)
             out["K14 in K11"] = timed(lambda: cpl.plan_solve_vcabm(
                 plan, packed, y, t, 0.01, 1e-6, 1e-6, 1.0, pf0), reps=3)
+    if only in ("", "hyper"):
+        _hyper_rows(out, device_timed, dev)
     print("RESULT " + " ".join(f"{k.replace(' ', '_')}={v:.3f}"
                                for k, v in out.items()), flush=True)
 

@@ -206,7 +206,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     version at the kernel's grid (bitwise, identical stats, nfe 1 + 3 x 4 +
     5 or 1 a step) and run again bitwise; at B = 96 within 1e-5 relative
     of the generic engine; both methods timed against their plain versions and the
-    generic engine.
+    generic engine. Then explicit_adams' group kernel (a group of threads a
+    sample) on the narrow route and the wide route (128 -> 256 -> 256 ->
+    128) at B = 4096, 256, 33 and 1, max_order 1 forward and 12 in reverse
+    time on a 40-step grid over [0, 0.25], float32 and float64, each launch
+    held to its plain version and run again bitwise, the layout each
+    launch reported printed (threads a sample, samples a block, where the
+    slots sit).
 27. Three SGD steps of the spiral (bench.py:788-838) through
     `fast.odeint_adjoint_mlp(method='adams', adjoint_method='dopri5')`:
     K11 = K3 = 3 launches and no K2, forward status 0, finite gradients,
@@ -295,9 +301,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     dynamics and the correction net, in one kernel), through
     `fast.solve_hyper` at the example's widths (`examples/hypersolver.py`:
     f = y^3 A, the 5 -> 32 -> 2 tanh hypernet from seed 0, B = 4096 states
-    in the unit disk): hyper_euler, hyper_midpoint and hyper_heun on the
-    output grid (33 nodes over [0, 2]), `num_steps=32` with 9 outputs and
-    reverse time with `step_size=0.0625`, float32 and float64: one launch a
+    in the unit disk, and the same at B = 256, 33 and 1, each batch's layout
+    as its launch reported it printed): hyper_euler, hyper_midpoint and
+    hyper_heun on the output grid (33 nodes over [0, 2]), `num_steps=32`
+    with 9 outputs and reverse time with `step_size=0.0625`, float32 and
+    float64: one launch a
     solve, each held to `cuda_plan.plan_solve_hyper_plain` bitwise with
     identical stats and run again bitwise; each kind timed (CUDA events)
     against its plain version, the bound from both plans' `_plan_flops`.
@@ -314,6 +322,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     launch each, held to `cuda_plan.plan_solve_adams_plain` bitwise at
     fixed_adams' grid (n_blocks printed); timed
     beside K10's MLP route on the same function and the generic engine.
+    Then explicit_adams' group kernel on the plan route at B = 4096, 256,
+    33 and 1, max_order 1 and 12 as in [26], each launch held to its plain
+    version, its reported layout printed.
 40. K14 in K11: VCABM at the bench protocol through `solve(...,
     method='adams', options={'fuse': True, 'first_step': 0.01})`
     (bench.py:237-253), float32 and float64, held to
@@ -1631,6 +1642,79 @@ class _Orders:
         self.mod._vcabm_dt = self.fn
 
 
+#: The batches at which [26], [37] and [39] hold every group launch of
+#: explicit_adams' K10 and of K12 to its plain version: the bench batch,
+#: the example's, and two that leave groups past B.
+GROUP_BATCHES = (B, 256, 33, 1)
+
+
+def _held_launch(wrapper, plain, args, kw, what: str):
+    """wrapper(*args, **kw) on the card, held to plain(*args, **kw)
+    bitwise (`_hold_to_plain`), finite with status 0, and run again
+    bitwise."""
+    import torch
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    if got[-1][3].item() != 0 or not torch.isfinite(got[0]).all():
+        raise AssertionError(f"{what}: stats {got[-1].tolist()}")
+    _hold_to_plain((args, kw, got), plain, what)
+    if not all(torch.equal(a, b) for a, b in zip(got, wrapper(*args,
+                                                              **kw))):
+        raise AssertionError(f"{what}: two kernel runs differ")
+
+
+def _layout_str(lay) -> str:
+    return (f"{lay['threads_a_sample']} threads a sample, "
+            f"{lay['samples_a_block']} samples a block, slots in "
+            f"{'shared memory' if lay['slots_in_shared_memory'] else 'the workspace'}")
+
+
+def _explicit_group_sweep(dev) -> dict:
+    """[26]: explicit_adams' K10 (a group of threads a sample) on the
+    narrow route (the bench spiral) and the wide route (section 1's wide
+    net) at GROUP_BATCHES, max_order 1 forward and 12 in reverse time on a
+    40-step Hermite grid over [0, 0.25], float32 and float64, each launch held to its
+    plain version; prints and returns the layout each launch reported."""
+    import torch
+    from tfdiffeq_tpu_torch import fast
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, cuda_kernels as ck
+    from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
+    layouts = {}
+    for dtype in (torch.float32, torch.float64):
+        for route in ("narrow", "wide"):
+            if route == "narrow":
+                p, yb, _ = _bench_params(B, dtype, dev)
+                W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
+                net = dict(activation="tanh", input_power=3)
+            else:
+                W, yb = _wide_net(dtype, dev, B)
+                net = dict(activation="tanh")
+            warr, dims = ck.pack_mlp_weights(W, dtype, dev)
+            spec = fast.MLPSpec(**net)
+            # A short span: AB12 multiplies float32 roundoff by about 1e5
+            # over 40 steps of 0.00625 (1e7 at 0.025).
+            t = torch.linspace(0.0, 0.25, 5, dtype=dtype)
+            for Bx in GROUP_BATCHES:
+                y = yb[:Bx].contiguous()
+                for order, sign in ((1, 1.0), (12, -1.0)):
+                    tau = t if sign > 0 else (-t).flip(0)
+                    grid = uniform_grid(tau[0], tau[-1], 40)
+                    sgn = torch.tensor(sign, dtype=dtype, device=dev)
+                    f0 = (sgn * fast.mlp_apply(spec, W, y, sgn * grid[0].to(
+                        dev))).contiguous()
+                    _held_launch(
+                        cad.mlp_solve_adams, cad.mlp_solve_adams_plain,
+                        (warr, dims, y, tau, grid, TOL, TOL, sign),
+                        dict(f0=f0, implicit=False, max_order=order, **net),
+                        f"[26] explicit_adams {route} B={Bx} max_order="
+                        f"{order} {dtype}")
+                    layouts[(route, Bx)] = cad.last_adams_layout
+    for (route, Bx), lay in layouts.items():
+        print(f"[26] explicit_adams' K10 {route} route, B = {Bx}: "
+              f"{_layout_str(lay)} (as the launch reported)", flush=True)
+    return {f"{r} B={b}": lay for (r, b), lay in layouts.items()}
+
+
 def _adams_tier(smi: str, dev) -> dict:
     """Phases 25-27: the Adams family (K10 and K11) at the bench widths.
     Returns the numbers that the kernel records take."""
@@ -1778,6 +1862,9 @@ def _adams_tier(smi: str, dev) -> dict:
                                  "differ")
         k10[(method, dtype, steps)] = (call, err, res.ys)
     print("[26] K10: two kernel runs bitwise equal in each case", flush=True)
+    rec["explicit_launches"] = sum(
+        1 for (m, _, _) in k10 if m == "explicit_adams")
+    rec["explicit_layouts"] = _explicit_group_sweep(dev)
     fixed_ys = k10[("fixed_adams", f32, ADAMS_STEPS)][2]
     print(f"[26] max |fixed_adams x {ADAMS_STEPS} (K10) - dopri5 (K2)| at "
           f"full size {float((fixed_ys - dopri).abs().max()):.3e}",
@@ -2853,8 +2940,9 @@ def _hyper_adams_tier(smi: str, dev) -> dict:
     from tfdiffeq_tpu_torch import fast, odeint_adjoint, solve
     from tfdiffeq_tpu_torch.examples import hypersolver as hx
     from tfdiffeq_tpu_torch.ops import cuda_adams as cad, \
-        cuda_kernels as ck, cuda_plan as cpl
+        cuda_kernels as ck, cuda_plan as cpl, plan_bridge as pb
     from tfdiffeq_tpu_torch.ops.tableaus import RK4
+    from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
     f32, f64 = torch.float32, torch.float64
     rec = {"ms": {}, "plain_ms": {}, "err": {}, "bound": {},
            "mlp_route_ms": {}, "generic_ms": {},
@@ -2877,34 +2965,44 @@ def _hyper_adams_tier(smi: str, dev) -> dict:
     cases = (("t", torch.linspace(0.0, 2.0, 33), {}),
              ("num_steps", torch.linspace(0.0, 2.0, 9), {"num_steps": 32}),
              ("reverse", torch.linspace(2.0, 0.0, 5), {"step_size": 0.0625}))
-    k12 = {}
+    k12, layouts = {}, {}
     for dtype in (f32, f64):
-        f, g, y0 = _hyper_funcs(dtype, dev)
-        for method in ("hyper_euler", "hyper_midpoint", "hyper_heun"):
-            for case, t, opts in cases:
-                cpl.reset_launch_counts()
-                with _Recording(cpl, "plan_solve_hyper") as r:
-                    res = fast.solve_hyper(f, g, y0, t.to(dtype),
-                                           method=method, **opts)
-                torch.cuda.synchronize()
-                if cpl.plan_hyper_launches != 1 or len(r.calls) != 1 \
-                        or res.stats.status != 0 \
-                        or not torch.isfinite(res.ys).all():
-                    raise AssertionError(f"[37] {method} {case} {dtype}: "
-                                         f"launches {cpl.plan_hyper_launches},"
-                                         f" stats {res.stats}")
-                err, plain_ms = hold(r.calls[0], cpl.plan_solve_hyper_plain,
-                                     cpl.plan_solve_hyper,
-                                     f"[37] K12 {method} {case} {dtype}")
-                k12[(dtype, method, case)] = (r.calls[0], err, plain_ms)
+        for Bx in GROUP_BATCHES:
+            f, g, y0 = _hyper_funcs(dtype, dev, B=Bx)
+            for method in ("hyper_euler", "hyper_midpoint", "hyper_heun"):
+                for case, t, opts in cases:
+                    cpl.reset_launch_counts()
+                    with _Recording(cpl, "plan_solve_hyper") as r:
+                        res = fast.solve_hyper(f, g, y0, t.to(dtype),
+                                               method=method, **opts)
+                    torch.cuda.synchronize()
+                    what = f"[37] K12 {method} {case} B={Bx} {dtype}"
+                    if cpl.plan_hyper_launches != 1 or len(r.calls) != 1 \
+                            or res.stats.status != 0 \
+                            or not torch.isfinite(res.ys).all():
+                        raise AssertionError(
+                            f"{what}: launches {cpl.plan_hyper_launches}, "
+                            f"stats {res.stats}")
+                    layouts[Bx] = cpl.last_layout["hyper"]
+                    if layouts[Bx]["threads_a_sample"] != cpl.hyper_group(Bx):
+                        raise AssertionError(f"{what}: layout {layouts[Bx]}")
+                    err, plain_ms = hold(r.calls[0],
+                                         cpl.plan_solve_hyper_plain,
+                                         cpl.plan_solve_hyper, what)
+                    k12[(dtype, Bx, method, case)] = (r.calls[0], err,
+                                                      plain_ms)
     print(f"[37] K12: {len(k12)} launches bitwise equal to their plain "
           f"versions, each run again bitwise; constants {cpl.last_route}",
           flush=True)
-    rec["k12_err"] = max(e for (dt_, _, _), (_, e, _) in k12.items()
+    for Bx, lay in layouts.items():
+        print(f"[37] K12 at B = {Bx}: {_layout_str(lay)} (as the launch "
+              "reported)", flush=True)
+    rec["k12_layouts"] = {f"B={b}": lay for b, lay in layouts.items()}
+    rec["k12_err"] = max(e for (dt_, _, _, _), (_, e, _) in k12.items()
                          if dt_ == f32)
     rec["k12_ms_by_kind"], rec["k12_plain_ms_by_kind"] = {}, {}
     for method in ("hyper_euler", "hyper_midpoint", "hyper_heun"):
-        (args, kw, got), _, plain_ms = k12[(f32, method, "t")]
+        (args, kw, got), _, plain_ms = k12[(f32, HYPER_B, method, "t")]
         # The CUDA-event window of a call holds the wrapper's host work
         # too (the constants' flattening, the grid's copy).
         ms = _timed(lambda: cpl.plan_solve_hyper(*args, **kw))
@@ -2929,6 +3027,12 @@ def _hyper_adams_tier(smi: str, dev) -> dict:
               f"{plain_ms:.1f} ms; bound {bound[0]:.5f} ms ({bound[1]}; f "
               f"{_plan_flops(plan_f)}, g {_plan_flops(plan_g)} operations a "
               "sample)", flush=True)
+    args, kw, _ = k12[(f32, 256, "hyper_euler", "t")][0]
+    rec["k12_kernel_ms_b256"] = _launch_ms(
+        cpl, lambda: cpl.plan_solve_hyper(*args, **kw))
+    print(f"[37] {smi}: K12 hyper_euler at B = 256 the kernel's own device "
+          f"time {rec['k12_kernel_ms_b256']:.4f} ms "
+          f"({_layout_str(rec['k12_layouts']['B=256'])})", flush=True)
     rec["ms"]["K12"] = rec["k12_ms_by_kind"]["hyper_euler"]
     rec["plain_ms"]["K12"] = rec["k12_plain_ms_by_kind"]["hyper_euler"]
     rec["bound"]["K12"] = rec["k12_bound_by_kind"]["hyper_euler"]
@@ -3045,6 +3149,36 @@ def _hyper_adams_tier(smi: str, dev) -> dict:
                   f" (nfe {nfe}); plain {plain_ms:.1f} ms; bound "
                   f"{rec['bound'][key][0]:.4f} ms ({rec['bound'][key][1]})",
                   flush=True)
+
+    # explicit_adams' group launch on the plan route at the batches and
+    # orders it takes (max_order 1 forward and 12 in reverse time on a
+    # 40-step grid), float32 and float64, each held to its plain version.
+    playouts = {}
+    for dtype in (f32, f64):
+        p, yb, _ = _bench_params(B, dtype, dev)
+        t0 = torch.tensor(0.0, dtype=dtype, device=dev)
+        plan, consts = pb.build_plan(_spiral_func(p), t0, yb)
+        packed = pb.pack_consts(plan, consts, dtype, dev)
+        t = torch.linspace(0.0, 0.25, 5, dtype=dtype)
+        for Bx in GROUP_BATCHES:
+            y = yb[:Bx].contiguous()
+            for order, sign in ((1, 1.0), (12, -1.0)):
+                tau = t if sign > 0 else (-t).flip(0)
+                grid = uniform_grid(tau[0], tau[-1], 40)
+                gfun = cpl.plan_rhs(plan, packed, torch.tensor(
+                    sign, dtype=dtype, device=dev))
+                f0 = gfun(grid[0].to(dev), y).contiguous()
+                _held_launch(cpl.plan_solve_adams, cpl.plan_solve_adams_plain,
+                             (plan, packed, y, tau, grid, TOL, TOL, sign, f0),
+                             dict(implicit=False, max_order=order),
+                             f"[39] K14 in explicit_adams B={Bx} max_order="
+                             f"{order} {dtype}")
+                playouts[Bx] = cpl.last_layout["adams"]
+    for Bx, lay in playouts.items():
+        print(f"[39] K14 in explicit_adams' K10, B = {Bx}: "
+              f"{_layout_str(lay)} (as the launch reported)", flush=True)
+    rec["explicit_plan_layouts"] = {f"B={b}": lay
+                                    for b, lay in playouts.items()}
 
     _at("40")
     # [40] K14 in K11: VCABM at the bench protocol through
@@ -4221,6 +4355,9 @@ def main() -> int:
          "explicit_plain_ms": adams["explicit_plain_ms"],
          "explicit_bound_ms": adams["explicit_bound"][0],
          "explicit_generic_engine_ms": adams["explicit_generic_ms"],
+         "explicit_launches": adams["explicit_launches"],
+         "explicit_layouts": adams["explicit_layouts"],
+         "explicit_plan_layouts": late["explicit_plan_layouts"],
          "n_blocks": ck.solve_blocks(B, dev)},
         {"name": "vcabm_solve", "route": "cuda",
          "source": "tfdiffeq_tpu_torch/csrc/vcabm_kernel.cu",
@@ -4291,6 +4428,8 @@ def main() -> int:
          "bound_by": late["bound"]["K12"][1], "library_ms": None,
          "ms_by_kind": late["k12_ms_by_kind"],
          "kernel_ms_by_kind": late["k12_kernel_ms_by_kind"],
+         "kernel_ms_b256": late["k12_kernel_ms_b256"],
+         "layouts": late["k12_layouts"],
          "plain_ms_by_kind": late["k12_plain_ms_by_kind"],
          "bound_ms_by_kind": {k: b[0] for k, b in
                               late["k12_bound_by_kind"].items()},

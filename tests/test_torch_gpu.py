@@ -58,7 +58,11 @@ on grids of 1, 7 and the card's blocks, and K2's batch route (a block a
 16-row tile) in float64; its float32 tiers sum on the tensor cores, so
 they are held to the bars above at the same grid. fixed_adams' K10
 (narrow, wide, plan) on grids of 1, 7 and the card's blocks is bitwise
-equal to its plain version at the same n_blocks, explicit_adams as before;
+equal to its plain version at the same n_blocks; explicit_adams' K10
+(narrow, wide, plan) and K12 with a group of threads a sample are bitwise
+equal to their plain versions at B in {4096, 256, 33, 1}, report the
+layout their wrappers expect, and their wrappers return before a sleep
+queued on the card ends (status 3 decided on the card);
 K6 with a group of threads a sample (narrow, wide, plan, a float32
 stiffness battery whose stiffest samples fail, the overflowing trial) is
 bitwise equal to its plain version, outputs, stats and lane stats, a NaN
@@ -1225,6 +1229,107 @@ def test_adams_kernels_wide_route_and_statuses(cuda, dtype):
         _same(got, ref)
 
 
+@pytest.mark.parametrize("B", [4096, 256, 33, 1])
+@pytest.mark.parametrize("route", ["narrow", "wide", "plan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_adams_group_matches_plain(cuda, dtype, route, B):
+    """explicit_adams' K10 with a group of threads a sample (16 on the
+    narrow and plan routes, FIXED_WIDE_GROUP on the wide one, 512-thread
+    blocks; B = 33 and 1 leave groups past B) bitwise equal to its plain
+    version at max_order 1 and 12, forward and in reverse time on a Hermite
+    grid; run to run; the launch reports the layout the wrapper expects.
+    The span is short: AB12 multiplies roundoff by about 1e5 over 40 steps
+    of 0.0125."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, cuda_plan as cpl
+    t = torch.tensor([0.0, 0.1, 0.3, 0.5], dtype=dtype)
+    for order, sign in ((1, 1.0), (12, -1.0)):
+        tau = sign * t if sign > 0 else (sign * t).flip(0)
+        grid = uniform_grid(tau[0], tau[-1], 40)
+        if route == "plan":
+            # The bench spiral as plain PyTorch (bounded by its tanh).
+            from tfdiffeq_tpu_torch.ops import plan_bridge as pb
+            p, y0 = _bench(B, dtype, cuda)
+            plan, consts = pb.build_plan(
+                lambda tt, yy: torch.tanh((yy ** 3) @ p["w1"] + p["b1"])
+                @ p["w2"] + p["b2"], t[0].to(cuda), y0)
+            packed = pb.pack_consts(plan, consts, dtype, cuda)
+            g = cpl.plan_rhs(plan, packed, torch.tensor(
+                sign, dtype=dtype, device=cuda))
+            f0 = g(grid[0].to(cuda), y0).contiguous()
+            args = (plan, packed, y0, tau, grid, 1e-6, 1e-6, sign, f0)
+            kw = dict(implicit=False, max_order=order)
+            got = cpl.plan_solve_adams(*args, **kw)
+            layout = cpl.last_layout["adams"]
+            assert torch.isfinite(got[0]).all()
+            _same(got, cpl.plan_solve_adams(*args, **kw))
+            ref = cad.adams_solve_plain(g, y0, f0, tau, grid, 1e-6, 1e-6,
+                                        **kw)
+            group = cf.FIXED_GROUP
+        else:
+            warr, dims, y0, kw = _adams_case(
+                cuda, dtype, width=160 if route == "wide" else 24, B=B)
+            y0 = 0.5 * y0
+            args = (warr, dims, y0, tau, grid, 1e-6, 1e-8, sign)
+            kw = dict(kw, implicit=False, max_order=order)
+            got = cad.mlp_solve_adams(*args, **kw)
+            layout = cad.last_adams_layout
+            assert torch.isfinite(got[0]).all()
+            _same(got, cad.mlp_solve_adams(*args, **kw))
+            ref = cad.mlp_solve_adams_plain(*args, f0=cad._f0(
+                warr, dims, y0, grid[0], sign, kw["activation"], "identity",
+                kw["input_power"], kw["time_input"]), **kw)
+            group = cf.FIXED_WIDE_GROUP if route == "wide" else cf.FIXED_GROUP
+        torch.cuda.synchronize()
+        assert got[1][3].item() == 0 and torch.isfinite(got[0]).all()
+        _same(got, ref)
+        assert layout["threads_a_sample"] == group
+        assert layout["samples_a_block"] == cad.ADAMS_THREADS // group
+
+
+def test_group_wrappers_do_not_wait_for_the_card(cuda):
+    """explicit_adams' K10 and K12 wrappers return while a sleep queued
+    before them still runs (the times' validity is decided on the card),
+    and times that do not increase give status 3 with a zero tail, as
+    their plain versions do."""
+    from tfdiffeq_tpu_torch.ops import cuda_adams as cad, cuda_plan as cpl
+    from tfdiffeq_tpu_torch.ops import plan_bridge as pb
+    warr, dims, y0, kw = _adams_case(cuda, torch.float32, B=256)
+    t = torch.linspace(0.0, 1.0, 5)
+    f0 = cad._f0(warr, dims, y0, t[0], 1.0, "tanh", "identity",
+                 kw["input_power"], False)
+    f, g, hy0 = _hyper_case(torch.float32, cuda, B=256)
+    t0 = torch.tensor(0.0, device=cuda)
+    pf, cfs = pb.build_plan(f, t0, hy0)
+    pg, cgs = pb.build_plan(lambda tt, ss: g(tt, ss[:, :2], ss[:, 2:]), t0,
+                            torch.cat([hy0, f(t0, hy0)], 1), out_dim=2)
+    hargs = (pf, pg, pb.pack_consts(pf, cfs, torch.float32, cuda),
+             pb.pack_consts(pg, cgs, torch.float32, cuda), hy0)
+    calls = {"K10": lambda tt: cad.mlp_solve_adams(
+                 warr, dims, y0, tt, tt, 1e-6, 1e-8, 1.0, f0=f0,
+                 implicit=False, **kw),
+             "K12": lambda tt: cpl.plan_solve_hyper(
+                 *hargs, tt, tt, 1.0, kind="heun", grid_is_t=True)}
+    for name, call in calls.items():
+        call(t)                       # builds and warms up
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        out, st = call(t)
+        assert not torch.cuda.current_stream().query(), name
+        torch.cuda.synchronize()
+        assert st[3].item() == 0 and torch.isfinite(out).all()
+        bad = torch.tensor([0.0, 0.5, 0.4, 1.0])
+        out, st = call(bad)
+        assert st.tolist() == [0, 0, 0, 3], name
+        assert not out[1:].any()
+    bad = torch.tensor([0.0, 0.5, 0.4, 1.0])
+    ref = cad.mlp_solve_adams_plain(warr, dims, y0, bad, bad, 1e-6, 1e-8,
+                                    1.0, f0=f0, implicit=False, **kw)
+    _same(calls["K10"](bad), ref)
+    ref = cpl.plan_solve_hyper_plain(*hargs, bad, bad, 1.0, kind="heun",
+                                     grid_is_t=True)
+    _same(calls["K12"](bad), ref)
+
+
 def test_adams_entry_points_launch_k10_k11(cuda):
     """fast.solve_mlp_spec is one K10 launch for explicit_adams and
     fixed_adams and one K11 for adams; an Adams-forward training step is
@@ -1686,6 +1791,42 @@ def test_hyper_kernel_matches_plain(cuda, dtype, monkeypatch):
             assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
             assert res.stats.status == 0 and torch.isfinite(res.ys).all()
     assert cpl.plan_hyper_launches == 2 * n
+
+
+@pytest.mark.parametrize("B", [4096, 256, 33, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hyper_group_matches_plain(cuda, dtype, B):
+    """K12 with a group of threads a sample (`cuda_plan.hyper_group(B)`:
+    16 at B = 4096; B = 33 and 1 leave groups past B), both plans on the
+    group walk: the three kinds on the output grid, a finer grid and in
+    reverse time, each bitwise equal to `plan_solve_hyper_plain` and run
+    to run; the launch reports the group the wrapper expects."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, plan_bridge as pb
+    f, g, y0 = _hyper_case(dtype, cuda, B=B)
+    t0 = torch.tensor(0.0, dtype=dtype, device=cuda)
+    pf, cfs = pb.build_plan(f, t0, y0)
+    pg, cgs = pb.build_plan(lambda tt, ss: g(tt, ss[:, :2], ss[:, 2:]), t0,
+                            torch.cat([y0, f(t0, y0)], 1), out_dim=2)
+    plans = (pf, pg, pb.pack_consts(pf, cfs, dtype, cuda),
+             pb.pack_consts(pg, cgs, dtype, cuda), y0)
+    t = torch.linspace(0.0, 2.0, 9, dtype=dtype)
+    rev = torch.linspace(-2.0, 0.0, 5, dtype=dtype)
+    cases = ((t, t, 1.0, True), (t, uniform_grid(t[0], t[-1], 32), 1.0,
+                                 False),
+             (rev, uniform_grid(rev[0], rev[-1], 32), -1.0, False))
+    for kind in ("euler", "midpoint", "heun"):
+        for tau, grid, sign, grid_is_t in cases:
+            kw = dict(kind=kind, grid_is_t=grid_is_t)
+            got = cpl.plan_solve_hyper(*plans, tau, grid, sign, **kw)
+            layout = cpl.last_layout["hyper"]
+            _same(got, cpl.plan_solve_hyper(*plans, tau, grid, sign, **kw))
+            ref = cpl.plan_solve_hyper_plain(*plans, tau, grid, sign, **kw)
+            torch.cuda.synchronize()
+            assert got[1][3].item() == 0 and torch.isfinite(got[0]).all()
+            _same(got, ref)
+            assert layout["threads_a_sample"] == cpl.hyper_group(B)
+    if B == 4096:
+        assert cpl.hyper_group(B) == 16
 
 
 def test_every_builtin_method_launches_its_kernel(cuda):

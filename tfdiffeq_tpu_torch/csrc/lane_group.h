@@ -2,7 +2,8 @@
 // rk_fixed_adjoint_kernel): a group of kLaneGroup threads a sample,
 // kLaneGroups samples a block, and the workspace each sweep needs; and
 // that of K8's and K5's MLP routes (csrc/rk_fixed.cuh, rk_perlane.cuh
-// rk_*_group_kernel). Plain C++, so that the host (and a test through a
+// rk_*_group_kernel), explicit_adams' K10 and K12 (csrc/rk_adams.cuh,
+// rk_hyper.cuh). Plain C++, so that the host (and a test through a
 // host compiler) computes the same sizes the launch checks;
 // ops/cuda_fixed.py repeats them (_group_work_size, _fixed_work_size,
 // _solve_work_size). Also the grouped walks' slot counts of K2 and K3
@@ -108,9 +109,43 @@ inline long perlane_solve_slot_values(int S, int D, int gw) {
   return long(S + 6) * D + 2L * gw;
 }
 
-// The workspace of K8's and K5's MLP routes: a slot for every sample of
-// the blocks (B rounded up to whole blocks), then n_wt values (the wide
-// route's transposed weights; 0 on the narrow route).
+// explicit_adams' slot (K10's group kernel, csrc/rk_adams.cuh): the state,
+// its compensation, the step's increment, RK4 stages 1-3 and the ring of
+// max_order history slabs (D values each), then the walk's values.
+inline long adams_solve_slot_values(int D, int max_order, long walk_values) {
+  return long(6 + max_order) * D + walk_values;
+}
+
+// K12's slot (csrc/rk_hyper.cuh): the state, the previous node's state and
+// derivative, this step's f0 (D values each), then f's walk (its D inputs
+// first) and g's walk (its 2 D inputs first).
+inline long hyper_solve_slot_values(int D, long walk_f, long walk_g) {
+  return 4L * D + walk_f + walk_g;
+}
+
+// K12's group from the batch: 16 threads a sample where the blocks of 16
+// reach kHyperFillBlocks (the batch fills the card: 128 blocks at
+// B = 4096), else the narrowest wider group, up to kHyperMaxGroup, whose
+// blocks do (a small batch spreads over more SMs, each sample's walk over
+// more members). On the H100 the example's hypersolver at B = 256 took
+// 0.111 / 0.106 / 0.103 ms at 16 / 32 / 64 threads a sample, and at
+// B = 4096 0.112 at 16 against 0.205 at 32 (PERF.md, PR 19).
+constexpr int kHyperFillBlocks = 128;
+constexpr int kHyperMaxGroup = 64;
+
+inline int hyper_group(int B) {
+  int g = kLaneGroup;
+  while (g < kHyperMaxGroup &&
+         (long(B) + group_samples(g) - 1) / group_samples(g) <
+             kHyperFillBlocks)
+    g *= 2;
+  return g;
+}
+
+// The workspace of K8's, K5's, explicit_adams' and K12's group launches: a
+// slot for every sample of the blocks (B rounded up to whole blocks), then
+// n_wt values (the wide route's transposed weights; 0 on the narrow and
+// plan routes).
 inline long group_solve_work_size(long slot_values, int B, int group,
                                   long n_wt) {
   const long spb = group_samples(group);

@@ -563,9 +563,10 @@ __device__ const T* mlp_eval_lanes(const Net& net, const T* __restrict__ wt,
   return hin;
 }
 
-// The MLP right-hand side of K8's and K5's group engines
+// The MLP right-hand side of K8's, K5's and explicit_adams' group engines
 // (csrc/rk_fixed.cuh rk_fixed_group_kernel, csrc/rk_perlane.cuh
-// rk_perlane_group_kernel): one sample's mlp_eval_lanes with its group.
+// rk_perlane_group_kernel, csrc/rk_adams.cuh rk_adams_group_kernel): one
+// sample's mlp_eval_lanes with its group.
 // Narrow route: setup copies the weights into shared memory, transposed;
 // wide route: a first launch (transpose_weights_kernel) writes the
 // transposed weights to `wt` in the workspace, read from global memory
@@ -706,9 +707,8 @@ inline AugRows make_aug_rows(const Net& net) {
   return rows;
 }
 
-// The per-thread MLP right-hand side of explicit_adams' K10
-// (csrc/rk_adams.cuh): one sample's mlp_eval in its thread, on the narrow
-// or the wide route.
+// The per-thread base of MlpGroupRhs (fixed_adams' K10 grid and K11):
+// one sample's mlp_eval in its thread, on the narrow or the wide route.
 template <typename T, int kRoute>
 struct MlpThreadRhs {
   static constexpr bool kBatch = false;

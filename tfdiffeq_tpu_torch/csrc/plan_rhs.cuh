@@ -23,11 +23,11 @@
 // couplings that end segment k, handed to m(kind, row, rows, red_off,
 // to_scalar)). A plan without a coupling is one segment.
 //
-// PlanRhs evaluates a sample at a time in its thread (K2, K10, K11 and
-// K12, for uncoupled plans; K2, K11 and fixed_adams' K10 spread it over
-// their grids). PlanLaneRhs walks a
-// sample with a group of threads (K5 and K8, csrc/rk_perlane.cuh and
-// rk_fixed.cuh rk_*_group_kernel): the generated group walk (`Plan::
+// PlanRhs evaluates a sample at a time in its thread (K2, K11 and
+// fixed_adams' K10, for uncoupled plans, over their grids). PlanLaneRhs
+// walks a sample with a group of threads (K5, K8, explicit_adams' K10 and
+// both plans of K12: csrc/rk_perlane.cuh, rk_fixed.cuh, rk_adams.cuh and
+// rk_hyper.cuh rk_*_group_kernel): the generated group walk (`Plan::
 // group_walk`, ops/plan_codegen.py), each row of a value computed by the
 // member that owns it, a dot's outputs over the members, the group meeting
 // only where a member reads a row another one wrote; every row the same
@@ -75,7 +75,7 @@ __device__ __forceinline__ T* plan_setup_consts(const T* cg, int n_consts,
 // copied them) or global memory. It is worked out at each evaluation, not
 // kept in a per-thread struct, where a store could alias it.
 // `off` is where they start in shared memory: 0, or past the first plan's
-// for K12's second plan (PlanRhsAfter).
+// for K12's second plan (PlanLaneRhs::smem_off).
 template <typename T>
 __device__ __forceinline__ const T* plan_consts(const T* cg, int in_smem,
                                                 int off = 0) {
@@ -117,24 +117,10 @@ struct PlanRhs {
   }
 };
 
-// K12's second plan (the correction net): setup puts its constants in
-// shared memory past the first plan's, at smem_off.
-template <typename T, class P>
-struct PlanRhsAfter : PlanRhs<T, P> {
-  int smem_off;
-
-  __device__ const T* eval(const typename PlanRhs<T, P>::Shared&,
-                           typename PlanRhs<T, P>::Local& lo, T t, int b,
-                           int B) const {
-    P::template seg<T>(0, t, lo.in,
-                       plan_consts(this->cg, this->in_smem, smem_off),
-                       this->scg, b, B, nullptr, nullptr, lo.out);
-    return lo.out;
-  }
-};
-
-// K5's and K8's group walk (csrc/lane_group.h). n_consts counts both
-// copies of the constants.
+// The group walk of K5, K8, explicit_adams' K10 and K12 (csrc/
+// lane_group.h). n_consts counts both copies of the constants. K12's
+// correction net keeps its constants in shared memory past the dynamics'
+// (smem_off values in).
 template <typename T, class P>
 struct PlanLaneRhs {
   static_assert(P::kSegments == 1, "a group walk has no coupling");
@@ -142,6 +128,7 @@ struct PlanLaneRhs {
   const T* scg;   // per-sample constants [rows][B]
   int n_consts;
   int in_smem;
+  int smem_off = 0;
 
   struct Shared {
     int unused;
@@ -161,8 +148,8 @@ struct PlanLaneRhs {
                                  const Sync& sync, int b, int B) const {
     T* const gs = hin + P::kDim;
     T* const out = gs + P::kGroupValues;
-    P::template group_walk<T>(t, hin, plan_consts(cg, in_smem), scg, b, B,
-                              gs, out, m, gsz, sync);
+    P::template group_walk<T>(t, hin, plan_consts(cg, in_smem, smem_off),
+                              scg, b, B, gs, out, m, gsz, sync);
     return out;
   }
 };
@@ -390,32 +377,44 @@ int launch_plan_perlane(const void* tau, const void* y0, const void* f0,
 
 // K10 and K11 take uncoupled plans only (ROADMAP.md queue 2 item 3): a
 // coupled one is refused by its wrapper (ops/cuda_plan.py) and here.
+// fixed_adams: K10's grid, a thread a sample (PlanRhs, n_consts the flat
+// constants); explicit_adams: `group` threads a sample (PlanLaneRhs,
+// n_consts counting the transposed copy).
 template <typename T, class P>
 int launch_plan_adams(const void* grid, const void* tau, const void* y0,
                       const void* f0, void* out, void* stats, void* work,
-                      int G, int T_out, int B, int D, int threads,
-                      double sign, double rtol, double atol, int valid,
-                      int max_order, int max_iters, int implicit, int nfe,
-                      const double* ab, const double* am, const void* consts,
-                      int n_consts, const void* sample_consts,
-                      int smem_consts, void* gwork, long gwork_bytes,
-                      int n_blocks, void* stream) {
+                      long work_size, int G, int T_out, int B, int D,
+                      int threads, int group, double sign, double rtol,
+                      double atol, int max_order, int max_iters,
+                      int implicit, int nfe, const double* ab,
+                      const double* am, const void* consts, int n_consts,
+                      const void* sample_consts, int smem_consts,
+                      void* gwork, long gwork_bytes, int n_blocks,
+                      int* layout, void* stream) {
   if constexpr (P::kSegments > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    if (!adams_args_ok(G, T_out, B, D, max_order, max_iters, threads) ||
+    if (!layout ||
+        !adams_args_ok(G, T_out, B, D, max_order, max_iters, threads) ||
         D != P::kDim || P::kOutRows != D)
       return static_cast<int>(cudaErrorInvalidValue);
-    const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
     const T* cg = static_cast<const T*>(consts);
     const T* scg = static_cast<const T*>(sample_consts);
+    const AdamsTables<T> tables = make_adams_tables<T>(max_order, ab, am);
+    const AdamsScalars<T> sc =
+        make_adams_scalars<T>(G, T_out, B, D, sign, rtol, atol, max_order,
+                              max_iters, implicit, nfe);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (!implicit)
+      return static_cast<int>(launch_rk_adams_group<T>(
+          grid, tau, y0, f0, out, stats, work, work_size,
+          PlanLaneRhs<T, P>{cg, scg, n_consts, smem_consts}, group, tables,
+          sc, layout, st));
+    const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
     return static_cast<int>(launch_rk_adams<T>(
-        grid, tau, y0, f0, out, stats, work, gwork, gwork_bytes, n_blocks,
-        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, fixed, threads,
-        make_adams_tables<T>(max_order, ab, am),
-        make_adams_scalars<T>(G, T_out, B, D, sign, rtol, atol, valid,
-                              max_order, max_iters, implicit, nfe),
-        static_cast<cudaStream_t>(stream)));
+        grid, tau, y0, f0, out, stats, work, work_size, gwork, gwork_bytes,
+        n_blocks, PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, fixed,
+        threads, tables, sc, layout, st));
   }
 }
 
@@ -450,44 +449,38 @@ int launch_plan_vcabm(const void* tau, const void* y0, const void* f0,
 }
 
 // K12 with the dynamics PF (square) and the correction net PG (2 D inputs,
-// D outputs); g's constants follow f's in shared memory.
+// D outputs), both on the group walk (PlanLaneRhs, each n_consts counting
+// the transposed copy); g's constants follow f's in shared memory.
 template <typename T, class PF, class PG>
 int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
-                      void* out, void* stats, void* work, int G, int T_out,
-                      int B, int D, int threads, double sign, int valid,
-                      int kind, int grid_is_t, const void* consts_f,
-                      int n_f, const void* sample_f, int smem_f,
-                      const void* consts_g, int n_g, const void* sample_g,
-                      int smem_g, void* stream) {
+                      void* out, void* stats, void* work, long work_size,
+                      int G, int T_out, int B, int D, double sign, int kind,
+                      int grid_is_t, const void* consts_f, int n_f,
+                      const void* sample_f, int smem_f, const void* consts_g,
+                      int n_g, const void* sample_g, int smem_g, int* layout,
+                      void* stream) {
   if constexpr (PF::kSegments > 1 || PG::kSegments > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    if (G < 2 || T_out < 1 || B < 1 || D != PF::kDim || PF::kOutRows != D ||
-        PG::kDim != 2 * D || PG::kOutRows != D || kind < 0 || kind > 2 ||
-        threads < 32 || threads > 1024)
+    if (!layout || G < 2 || T_out < 1 || B < 1 || D != PF::kDim ||
+        PF::kOutRows != D || PG::kDim != 2 * D || PG::kOutRows != D ||
+        kind < 0 || kind > 2)
       return static_cast<int>(cudaErrorInvalidValue);
-    HyperScalars<T> sc;
+    HyperScalars<T> sc{};
     sc.sign = T(sign);
-    sc.valid = valid;
     sc.G = G;
     sc.T_out = T_out;
     sc.B = B;
     sc.D = D;
     sc.kind = kind;
     sc.grid_is_t = grid_is_t;
-    const size_t smem =
-        sizeof(T) * ((smem_f ? size_t(n_f) : 0) + (smem_g ? size_t(n_g) : 0) +
-                     G + T_out);
-    const PlanRhs<T, PF> rf{static_cast<const T*>(consts_f),
-                            static_cast<const T*>(sample_f), n_f, smem_f};
-    PlanRhsAfter<T, PG> rg;
-    rg.cg = static_cast<const T*>(consts_g);
-    rg.scg = static_cast<const T*>(sample_g);
-    rg.n_consts = n_g;
-    rg.in_smem = smem_g;
-    rg.smem_off = smem_f ? n_f : 0;
-    return static_cast<int>(launch_rk_hyper<T>(
-        grid, tau, y0, out, stats, work, rf, rg, smem, threads, sc,
+    const PlanLaneRhs<T, PF> rf{static_cast<const T*>(consts_f),
+                                static_cast<const T*>(sample_f), n_f, smem_f};
+    const PlanLaneRhs<T, PG> rg{static_cast<const T*>(consts_g),
+                                static_cast<const T*>(sample_g), n_g, smem_g,
+                                int(rf.smem_values())};
+    return static_cast<int>(launch_rk_hyper_group<T>(
+        grid, tau, y0, out, stats, work, work_size, rf, rg, sc, layout,
         static_cast<cudaStream_t>(stream)));
   }
 }
@@ -547,17 +540,17 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
 #define TFD_PLAN_ADAMS_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \
       const void* grid, const void* tau, const void* y0, const void* f0,    \
-      void* out, void* stats, void* work, int G, int T_out, int B, int D,   \
-      int threads, double sign, double rtol, double atol, int valid,        \
-      int max_order, int max_iters, int implicit, int nfe, const double* ab,\
-      const double* am, const void* consts, int n_consts,                   \
+      void* out, void* stats, void* work, long work_size, int G, int T_out, \
+      int B, int D, int threads, int group, double sign, double rtol,       \
+      double atol, int max_order, int max_iters, int implicit, int nfe,     \
+      const double* ab, const double* am, const void* consts, int n_consts, \
       const void* sample_consts, int smem_consts, void* gwork,              \
-      long gwork_bytes, int n_blocks, void* stream) {                       \
+      long gwork_bytes, int n_blocks, int* layout, void* stream) {          \
     return tfd::launch_plan_adams<TYPE, tfd::Plan>(                         \
-        grid, tau, y0, f0, out, stats, work, G, T_out, B, D, threads, sign, \
-        rtol, atol, valid, max_order, max_iters, implicit, nfe, ab, am,     \
-        consts, n_consts, sample_consts, smem_consts, gwork, gwork_bytes,   \
-        n_blocks, stream);                                                   \
+        grid, tau, y0, f0, out, stats, work, work_size, G, T_out, B, D,     \
+        threads, group, sign, rtol, atol, max_order, max_iters, implicit,   \
+        nfe, ab, am, consts, n_consts, sample_consts, smem_consts, gwork,   \
+        gwork_bytes, n_blocks, layout, stream);                              \
   }
 #define TFD_PLAN_VCABM_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \
@@ -579,14 +572,15 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
 #define TFD_PLAN_HYPER_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \
       const void* grid, const void* tau, const void* y0, void* out,         \
-      void* stats, void* work, int G, int T_out, int B, int D, int threads, \
-      double sign, int valid, int kind, int grid_is_t, const void* consts_f,\
+      void* stats, void* work, long work_size, int G, int T_out, int B,     \
+      int D, double sign, int kind, int grid_is_t, const void* consts_f,    \
       int n_f, const void* sample_f, int smem_f, const void* consts_g,      \
-      int n_g, const void* sample_g, int smem_g, void* stream) {            \
+      int n_g, const void* sample_g, int smem_g, int* layout,               \
+      void* stream) {                                                        \
     return tfd::launch_plan_hyper<TYPE, tfd::Plan, tfd::PlanG>(             \
-        grid, tau, y0, out, stats, work, G, T_out, B, D, threads, sign,     \
-        valid, kind, grid_is_t, consts_f, n_f, sample_f, smem_f, consts_g,  \
-        n_g, sample_g, smem_g, stream);                                      \
+        grid, tau, y0, out, stats, work, work_size, G, T_out, B, D, sign,   \
+        kind, grid_is_t, consts_f, n_f, sample_f, smem_f, consts_g, n_g,    \
+        sample_g, smem_g, layout, stream);                                   \
   }
 extern "C" const char* tfd_plan_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

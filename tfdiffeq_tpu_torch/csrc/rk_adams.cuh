@@ -27,10 +27,23 @@
 // has no history term and fails to trace (pallas_fixed.py:598-605); here
 // the history part is 0, the generic engine's arithmetic.
 //
-// Design. explicit_adams has no batch meet, so it takes the layout of
-// K14 in K8 (rk_adams_kernel): one thread a sample, over as many blocks as
-// the batch needs, its state in a device workspace laid out feature-major
-// ([row][B]: a warp's threads touch consecutive values). fixed_adams meets the batch
+// Design. explicit_adams has no batch meet, so it takes K8's layout
+// (rk_adams_group_kernel): a group of sc.group threads walks one sample
+// (csrc/lane_group.h: 16 on the narrow MLP route and the plan route,
+// ops/cuda_fixed.py FIXED_WIDE_GROUP on the wide route), kGroupBlock /
+// sc.group samples a 512-thread block, each group meeting only its own
+// members (GroupSync), so a group past B leaves at once. The members split
+// the sample's work a feature a member (d = m, m + group, ...): the RK4
+// bootstrap's stage states and increment, the AB predictor sum (newest
+// first, abr[j] in order), the Kahan update, the history shift and the
+// Hermite drain; each evaluation's layers an output a member
+// (Rhs::eval_lanes). Nothing but the walk reads another member's values.
+// The sample's slot (csrc/lane_group.h adams_solve_slot_values: the
+// state, its compensation, the step's increment, RK4 stages 1-3, the ring
+// of max_order history slabs, then the walk's values, its D inputs first)
+// sits in the block's shared memory after the right-hand side's share,
+// the grid and the output times where the block's slots fit, else in the
+// workspace. fixed_adams meets the batch
 // at every corrector iteration (rk_adams_grid_kernel): a grid of n_blocks
 // blocks of 512 threads (ops/cuda_kernels.py solve_blocks: one per SM, or
 // one a sample for a smaller batch), all resident together (csrc/
@@ -53,13 +66,17 @@
 // block adds the n_blocks shares in block order (grid_shares, its two
 // buffers alternating by the meeting's parity, so one grid_sync a meeting)
 // and takes the same norm and the same `done`; block 0 writes the stats.
-// The plain version (ops/cuda_adams.py adams_solve_plain) repeats every
-// operation in this order for any n_blocks (n_blocks = 1 is the one-block
-// order before the grid), and the libraries are built with --fmad=false,
-// so kernel and plain version give the same bits.
+// Both kernels decide status 3 themselves from the times they load
+// (rk_fixed.cuh load_times). The plain version (ops/cuda_adams.py
+// adams_solve_plain) repeats every operation in this order for any
+// n_blocks (n_blocks = 1 is the one-block order before the grid), and the
+// libraries are built with --fmad=false, so kernel and plain version give
+// the same bits.
 //
-// The right-hand side `Rhs` (mlp_rk.cuh MlpGroupRhs: the MLP routes of
-// csrc/adams_kernel.cu; csrc/plan_rhs.cuh PlanRhs: K14's generated plans)
+// The group kernel's right-hand side `Rhs` (mlp_rk.cuh MlpLaneRhs: the MLP
+// routes of csrc/adams_kernel.cu; csrc/plan_rhs.cuh PlanLaneRhs: K14's
+// generated group walk) is K8's (csrc/rk_fixed.cuh rk_fixed_group_kernel).
+// The grid kernel's (mlp_rk.cuh MlpGroupRhs; plan_rhs.cuh PlanRhs)
 // evaluates one sample in its thread: Shared and Local state; setup(sh,
 // lo, smem), which copies what it keeps in shared memory (no barrier) and
 // returns the free shared memory; in(lo), where the D inputs go; and
@@ -89,10 +106,13 @@ struct AdamsTables {
 template <typename T>
 struct AdamsScalars {
   T sign, rtol, atol;
-  int valid, G, T_out, B, D, max_order, max_iters, implicit, nfe;
-  int scratch;     // fixed_adams: values of the reduction scratch (and
-                   // the group vectors)
-  int state_smem;  // fixed_adams: the block's state rows in shared memory
+  int G, T_out, B, D, max_order, max_iters, implicit, nfe;
+  int scratch;      // fixed_adams: values of the reduction scratch (and
+                    // the group vectors)
+  int state_smem;   // fixed_adams: the block's state rows in shared memory
+  int group;        // explicit_adams: threads a sample
+  int slot_values;  // explicit_adams: a sample's slot
+  int slot_smem;    // explicit_adams: the block's slots in shared memory
 };
 
 // RK4 (ops/tableaus.py RK4, the same doubles rounded to T): the nodes and
@@ -113,57 +133,58 @@ __device__ __forceinline__ void adams_stats(int* stats, int valid, int nfe,
   stats[3] = valid ? 0 : 3;
 }
 
-// explicit_adams: one thread a sample, the state rows in `work` ([row][B]).
+// explicit_adams: a group of sc.group threads a sample; see the design
+// above.
 template <typename T, class Rhs>
-__global__ void __launch_bounds__(kAdamsThreads)
-    rk_adams_kernel(const T* __restrict__ grid_g,
-                                const T* __restrict__ tau_g,
-                                const T* __restrict__ y0g,
-                                const T* __restrict__ f0g,
-                                T* __restrict__ out, int* __restrict__ stats,
-                                T* __restrict__ work, Rhs rhs,
-                                AdamsTables<T> tables_in,
-                                AdamsScalars<T> sc) {
+__global__ void __launch_bounds__(kGroupBlock, 1)
+    rk_adams_group_kernel(const T* __restrict__ grid_g,
+                          const T* __restrict__ tau_g,
+                          const T* __restrict__ y0g,
+                          const T* __restrict__ f0g, T* __restrict__ out,
+                          int* __restrict__ stats, T* __restrict__ work,
+                          Rhs rhs, AdamsTables<T> tables_in,
+                          AdamsScalars<T> sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ typename Rhs::Shared rsh;
   __shared__ AdamsTables<T> tab;
   const int tid = threadIdx.x;
-  typename Rhs::Local lo;
-  T* grid = rhs.setup(rsh, lo, smem_raw);  // [G]
-  T* tau = grid + sc.G;      // [T_out]
+  T* const rest = rhs.setup(rsh, smem_raw);
   if (tid == 0) tab = tables_in;
-  for (int i = tid; i < sc.G; i += blockDim.x) grid[i] = grid_g[i];
-  for (int i = tid; i < sc.T_out; i += blockDim.x) tau[i] = tau_g[i];
-  __syncthreads();
+  const int valid = load_times(grid_g, tau_g, rest, sc.G, sc.T_out);
+  const T* const grid = rest;             // [G]
+  const T* const tau = rest + sc.G;       // [T_out]
 
   const int G = sc.G, T_out = sc.T_out, B = sc.B, D = sc.D;
   const int MO = sc.max_order;
-  if (blockIdx.x == 0 && tid == 0) adams_stats(stats, sc.valid, sc.nfe, G);
-  const int b = blockIdx.x * blockDim.x + tid;
-  if (b >= B) return;   // no barrier follows
+  if (blockIdx.x == 0 && tid == 0) adams_stats(stats, valid, sc.nfe, G);
+  const int gsz = sc.group, slot = tid / gsz, m = tid % gsz;
+  const int b = blockIdx.x * (blockDim.x / gsz) + slot;
+  if (b >= B) return;  // only the group's own members meet from here on
+  const GroupSync sync = GroupSync::of(gsz);
 
   const long BD = long(B) * D;
-  // Feature-major workspace rows of B values.
-  T* Y = work;              // state
-  T* C = Y + BD;            // Kahan compensation
-  T* YN = C + BD;           // the step's increment
-  T* KS = YN + BD;          // RK4 stages 1 .. 3
-  T* HIST = KS + 3 * BD;    // ring of max_order slabs of D rows
-  T* h_in = rhs.in(lo);
+  const long SV = sc.slot_values;
+  // The sample's slot: in the block's shared memory or in the workspace.
+  T* const Y = sc.slot_smem ? rest + sc.G + sc.T_out + slot * SV
+                            : work + long(b) * SV;   // [D] state
+  T* const C = Y + D;             // [D] Kahan compensation
+  T* const YN = C + D;            // [D] the step's increment
+  T* const KS = YN + D;           // [3][D] RK4 stages 1 .. 3
+  T* const HIST = KS + 3 * D;     // [MO][D] ring of history slabs
+  T* const H = HIST + MO * D;     // the walk's values, its D inputs first
   const T sign = sc.sign;
 
   // Row 0 is y0; the rest stays zero unless a step writes it.
-  for (int d = 0; d < D; ++d) {
+  for (int d = m; d < D; d += gsz) {
     const long i = long(b) * D + d;
-    const long r = long(d) * B + b;
     out[i] = y0g[i];
     for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
-    Y[r] = y0g[i];
-    C[r] = T(0);
-    HIST[r] = f0g[i];
-    for (int j = 1; j < MO; ++j) HIST[long(j) * BD + r] = T(0);
+    Y[d] = y0g[i];
+    C[d] = T(0);
+    HIST[d] = f0g[i];
+    for (int j = 1; j < MO; ++j) HIST[j * D + d] = T(0);
   }
-  if (!sc.valid) return;
+  if (!valid) return;  // the same in every thread
 
   const Rk4<T> rk;
   int head = 0;  // ring slot of hist[0], the newest derivative
@@ -174,57 +195,53 @@ __global__ void __launch_bounds__(kAdamsThreads)
     const T dt = t1 - t0;
     const int oi_new = drain_cursor(tau, oi, T_out, t1, n + 2 == G);
     const int slot_new = (head + MO - 1) % MO;
-    // Row of hist[j], feature d.
-    auto hrow = [&](int j, int d) -> long {
-      return long((head + j) % MO) * BD + long(d) * B + b;
+    // hist[j], feature d.
+    auto hist = [&](int j, int d) -> T& {
+      return HIST[((head + j) % MO) * D + d];
     };
     if (n < MO - 1) {
       // RK4 bootstrap: yi = y0 + (dt a_ij) k_j over the nonzero a_ij,
       // delta = sum_j (dt b_j) k_j.
       for (int i = 1; i < 4; ++i) {
-        for (int d = 0; d < D; ++d) {
-          const long r = long(d) * B + b;
-          const T kp = i == 1 ? HIST[hrow(0, d)] : KS[long(i - 2) * BD + r];
-          h_in[d] = Y[r] + (dt * rk.c[i]) * kp;
+        for (int d = m; d < D; d += gsz) {
+          const T kp = i == 1 ? hist(0, d) : KS[(i - 2) * D + d];
+          H[d] = Y[d] + (dt * rk.c[i]) * kp;
         }
-        const T* fo = rhs.eval(rsh, lo, sign * (t0 + rk.c[i] * dt), b, B);
-        for (int d = 0; d < D; ++d)
-          KS[long(i - 1) * BD + long(d) * B + b] = sign * fo[d];
+        const T* fo = rhs.eval_lanes(rsh, sign * (t0 + rk.c[i] * dt), H, m,
+                                     gsz, sync, b, B);
+        for (int d = m; d < D; d += gsz) KS[(i - 1) * D + d] = sign * fo[d];
       }
-      for (int d = 0; d < D; ++d) {
-        const long r = long(d) * B + b;
-        T acc = (dt * rk.b[0]) * HIST[hrow(0, d)];
+      for (int d = m; d < D; d += gsz) {
+        T acc = (dt * rk.b[0]) * hist(0, d);
         for (int i = 1; i < 4; ++i)
-          acc = acc + (dt * rk.b[i]) * KS[long(i - 1) * BD + r];
-        YN[r] = acc;
-        h_in[d] = Y[r] + acc;
+          acc = acc + (dt * rk.b[i]) * KS[(i - 1) * D + d];
+        YN[d] = acc;
+        H[d] = Y[d] + acc;
       }
     } else {
       // f1 = f(t1, y_pred), y_pred = y0 + delta with the increment
       // delta = dt sum_j ab[k_eff - 1][j] hist[j], newest first.
       const int k_eff = n + 1 < MO ? n + 1 : MO;
       const T* abr = tab.ab + (k_eff - 1) * MO;
-      for (int d = 0; d < D; ++d) {
-        const long r = long(d) * B + b;
-        T acc = abr[0] * HIST[hrow(0, d)];
-        for (int j = 1; j < MO; ++j) acc = acc + abr[j] * HIST[hrow(j, d)];
-        YN[r] = dt * acc;
-        h_in[d] = Y[r] + YN[r];
+      for (int d = m; d < D; d += gsz) {
+        T acc = abr[0] * hist(0, d);
+        for (int j = 1; j < MO; ++j) acc = acc + abr[j] * hist(j, d);
+        YN[d] = dt * acc;
+        H[d] = Y[d] + YN[d];
       }
     }
     // The step's end: the Kahan update, the history shift (the new slot
     // is the oldest, read already), the Hermite drain.
-    const T* fo = rhs.eval(rsh, lo, sign * t1, b, B);
-    for (int d = 0; d < D; ++d) {
-      const long r = long(d) * B + b;
-      const T f_head = HIST[hrow(0, d)];
-      const T y0 = Y[r];
-      const T adj = YN[r] - C[r];
+    const T* fo = rhs.eval_lanes(rsh, sign * t1, H, m, gsz, sync, b, B);
+    for (int d = m; d < D; d += gsz) {
+      const T f_head = hist(0, d);
+      const T y0 = Y[d];
+      const T adj = YN[d] - C[d];
       const T y1 = y0 + adj;
-      C[r] = (y1 - y0) - adj;
-      Y[r] = y1;
+      C[d] = (y1 - y0) - adj;
+      Y[d] = y1;
       const T f1 = sign * fo[d];
-      HIST[long(slot_new) * BD + r] = f1;
+      HIST[slot_new * D + d] = f1;
       hermite_drain(out, tau, oi, oi_new, t0, t1, dt, y0, y1, f_head, f1,
                     BD, long(b) * D + d);
     }
@@ -269,14 +286,12 @@ __global__ void __launch_bounds__(kAdamsThreads, 1)
     tab = tables_in;
     sc = sc_in;
   }
-  for (int i = tid; i < sc_in.G; i += nth) grid[i] = grid_g[i];
-  for (int i = tid; i < sc_in.T_out; i += nth) tau[i] = tau_g[i];
-  __syncthreads();
+  const int valid = load_times(grid_g, tau_g, grid, sc_in.G, sc_in.T_out);
 
   const int G = sc.G, T_out = sc.T_out, B = sc.B, D = sc.D;
   const int MO = sc.max_order;
   const long BD = long(B) * D;
-  if (blk == 0 && tid == 0) adams_stats(stats, sc.valid, sc.nfe, G);
+  if (blk == 0 && tid == 0) adams_stats(stats, valid, sc.nfe, G);
   // Feature-major state rows: in the block's shared memory when they fit
   // (rows of the most samples a block owns, from b_lo), else rows of B
   // values in `work`.
@@ -340,7 +355,7 @@ __global__ void __launch_bounds__(kAdamsThreads, 1)
       for (int j = 1; j < MO; ++j) HIST[row(long(j) * D, d, b)] = T(0);
     }
   }
-  if (!sc.valid) return;  // the same in every block: no meeting follows
+  if (!valid) return;  // the same in every block: no meeting follows
 
   const T denom = T(double(D) * double(B));
   const Rk4<T> rk;
@@ -473,13 +488,12 @@ AdamsTables<T> make_adams_tables(int max_order, const double* ab,
 template <typename T>
 AdamsScalars<T> make_adams_scalars(int G, int T_out, int B, int D,
                                    double sign, double rtol, double atol,
-                                   int valid, int max_order, int max_iters,
+                                   int max_order, int max_iters,
                                    int implicit, int nfe) {
   AdamsScalars<T> sc;
   sc.sign = T(sign);
   sc.rtol = T(rtol);
   sc.atol = T(atol);
-  sc.valid = valid;
   sc.G = G;
   sc.T_out = T_out;
   sc.B = B;
@@ -490,6 +504,9 @@ AdamsScalars<T> make_adams_scalars(int G, int T_out, int B, int D,
   sc.nfe = nfe;
   sc.scratch = 0;
   sc.state_smem = 0;
+  sc.group = 0;
+  sc.slot_values = 0;
+  sc.slot_smem = 0;
   return sc;
 }
 
@@ -505,20 +522,22 @@ inline long rk_adams_grid_bytes(int n_blocks, long item) {
 // take what they leave.
 constexpr long kAdamsSmemBytes = 220L * 1024;
 
-// One launch of K10 with `rhs`, or an error. `fixed` is the bytes the
-// right-hand side keeps in shared memory (its setup); the launch adds the
-// grid and output times. explicit_adams: blocks of `threads` threads, one
-// a sample. fixed_adams: n_blocks blocks of `threads` threads, all
-// resident together (launch_grid), with the reduction scratch (grown for
-// the grouped walk's slots, Rhs::kGroup) and, when they fit, the block's
-// state rows.
+// One launch of fixed_adams' K10 with `rhs`, or an error. `fixed` is the
+// bytes the right-hand side keeps in shared memory (its setup); the launch
+// adds the grid and output times. n_blocks blocks of `threads` threads,
+// all resident together (launch_grid), with the reduction scratch (grown
+// for the grouped walk's slots, Rhs::kGroup) and, when they fit, the
+// block's state rows (layout[2]; layout[0] and [1], explicit_adams' group
+// and samples a block, are 0).
 template <typename T, class Rhs>
 cudaError_t launch_rk_adams(const void* grid, const void* tau, const void* y0,
                             const void* f0, void* out, void* stats,
-                            void* work, void* gwork, long gwork_bytes,
-                            int n_blocks, const Rhs& rhs, size_t fixed,
-                            int threads, const AdamsTables<T>& tables,
-                            const AdamsScalars<T>& sc, cudaStream_t stream) {
+                            void* work, long work_size, void* gwork,
+                            long gwork_bytes, int n_blocks, const Rhs& rhs,
+                            size_t fixed, int threads,
+                            const AdamsTables<T>& tables,
+                            const AdamsScalars<T>& sc, int* layout,
+                            cudaStream_t stream) {
   const size_t item = sizeof(T);
   const size_t own = fixed + item * (size_t(sc.G) + sc.T_out);
   const T* a_grid = static_cast<const T*>(grid);
@@ -528,15 +547,9 @@ cudaError_t launch_rk_adams(const void* grid, const void* tau, const void* y0,
   T* a_out = static_cast<T*>(out);
   int* a_stats = static_cast<int*>(stats);
   T* a_work = static_cast<T*>(work);
-  if (!sc.implicit) {
-    auto kernel = rk_adams_kernel<T, Rhs>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(own));
-    if (e != cudaSuccess) return e;
-    kernel<<<(sc.B + threads - 1) / threads, threads, own, stream>>>(
-        a_grid, a_tau, a_y0, a_f0, a_out, a_stats, a_work, rhs, tables, sc);
-    return cudaGetLastError();
-  }
+  if (!sc.implicit ||
+      work_size < adams_grid_rows(sc.max_order) * long(sc.B) * sc.D)
+    return cudaErrorInvalidValue;
   if (n_blocks < 1 || !gwork ||
       gwork_bytes < rk_adams_grid_bytes(n_blocks, item))
     return cudaErrorInvalidValue;
@@ -556,12 +569,59 @@ cudaError_t launch_rk_adams(const void* grid, const void* tau, const void* y0,
   a_sc.scratch = int(scratch);
   a_sc.state_smem = own + item * (scratch + rows) <= budget;
   const size_t smem = own + item * (scratch + (a_sc.state_smem ? rows : 0));
+  layout[0] = 0;
+  layout[1] = 0;
+  layout[2] = a_sc.state_smem;
   unsigned char* a_gwork = static_cast<unsigned char*>(gwork);
   AdamsTables<T> a_tab = tables;
   void* args[] = {&a_grid, &a_tau,   &a_y0,  &a_f0,  &a_out, &a_stats,
                   &a_work, &a_gwork, &a_rhs, &a_tab, &a_sc};
   return launch_grid(rk_adams_grid_kernel<T, Rhs>, n_blocks, threads, smem,
                      args, gwork, stream);
+}
+
+// explicit_adams' group launch: `group` threads a sample (a power of two
+// from 16 to kGroupBlock), the slots in shared memory where the block's
+// fit beside the right-hand side's share, the grid and the output times,
+// else in `work` (work_size values; lane_group.h group_solve_work_size of
+// adams_solve_slot_values, then the wide route's transposed weights).
+// Reports what it ran: layout = {threads a sample, samples a block, the
+// slots in shared memory}.
+template <typename T, class Rhs>
+cudaError_t launch_rk_adams_group(const void* grid, const void* tau,
+                                  const void* y0, const void* f0, void* out,
+                                  void* stats, void* work, long work_size,
+                                  const Rhs& rhs, int group,
+                                  const AdamsTables<T>& tables,
+                                  const AdamsScalars<T>& sc_in, int* layout,
+                                  cudaStream_t stream) {
+  if (sc_in.implicit || !group_size_ok(group)) return cudaErrorInvalidValue;
+  AdamsScalars<T> sc = sc_in;
+  sc.group = group;
+  sc.slot_values = int(
+      adams_solve_slot_values(sc.D, sc.max_order, rhs.walk_values()));
+  if (work_size <
+      group_solve_work_size(sc.slot_values, sc.B, group, rhs.wt_values()))
+    return cudaErrorInvalidValue;
+  const size_t fixed = sizeof(T) * (rhs.smem_values() + sc.G + sc.T_out);
+  const size_t slots =
+      sizeof(T) * size_t(group_samples(group)) * sc.slot_values;
+  sc.slot_smem = fixed + slots <= size_t(kLaneSmemBytes);
+  const size_t smem = fixed + (sc.slot_smem ? slots : 0);
+  layout[0] = group;
+  layout[1] = group_samples(group);
+  layout[2] = sc.slot_smem;
+  auto kernel = rk_adams_group_kernel<T, Rhs>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  const int spb = group_samples(group);
+  kernel<<<(sc.B + spb - 1) / spb, kGroupBlock, smem, stream>>>(
+      static_cast<const T*>(grid), static_cast<const T*>(tau),
+      static_cast<const T*>(y0), static_cast<const T*>(f0),
+      static_cast<T*>(out), static_cast<int*>(stats), static_cast<T*>(work),
+      rhs, tables, sc);
+  return cudaGetLastError();
 }
 
 }  // namespace tfd

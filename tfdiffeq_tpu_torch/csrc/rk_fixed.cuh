@@ -1,6 +1,7 @@
 // The body of K8: a whole fixed-grid explicit-RK solve (euler, midpoint,
 // rk4, rk4_38) in one launch, templated on its right-hand side; and its
-// output drain (drain_cursor, hermite_drain), which K10 and K12 share.
+// output drain (drain_cursor, hermite_drain), which K10 and K12 share with
+// load_times.
 //
 // Replaces the engine of tfdiffeq_tpu/ops/pallas_fixed.py:102
 // (_make_fixed_solve_kernel with _fixed_stage_walk :59 and _hermite_drain
@@ -87,6 +88,28 @@ __device__ __forceinline__ void hermite_drain(T* __restrict__ out,
     const T val = ((cb * x + cc) * x + df0) * x + y0;
     out[long(o) * stride + at] = (tj == t1) ? y1 : val;
   }
+}
+
+// The step grid and the output times into shared memory (grid at `to`, the
+// times after it), every thread of the block taking its share, and whether
+// both increase strictly: one block barrier, after which every thread
+// returns the same answer. K10 and K12 decide their status 3 here, so that
+// their wrappers never copy the times to the host (which would make each
+// call wait for the card).
+template <typename T>
+__device__ __forceinline__ int load_times(const T* __restrict__ grid_g,
+                                          const T* __restrict__ tau_g, T* to,
+                                          int G, int T_out) {
+  int ok = 1;
+  for (int i = threadIdx.x; i < G; i += blockDim.x) {
+    to[i] = grid_g[i];
+    if (i > 0 && !(grid_g[i] > grid_g[i - 1])) ok = 0;
+  }
+  for (int i = threadIdx.x; i < T_out; i += blockDim.x) {
+    to[G + i] = tau_g[i];
+    if (i > 0 && !(tau_g[i] > tau_g[i - 1])) ok = 0;
+  }
+  return __syncthreads_and(ok);
 }
 
 // The solution combine of one element: sum_j (dt b_sol_j) k(j) over the

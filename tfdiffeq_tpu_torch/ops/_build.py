@@ -141,13 +141,15 @@ _TIER_NET_ARGS = ([_P] * 3                                  # tensors
                   + [_P])                                   # stream
 
 _SOLVE_ADAMS_ARGS = ([_P] * 8                               # tensors
-                     + [_I] * 5                             # G .. threads
+                     + [_L]                                 # work size
+                     + [_I] * 6                             # G .. group
                      + [_D] * 3                             # sign .. atol
-                     + [_I] * 5                             # valid .. nfe
+                     + [_I] * 4                             # max_order .. nfe
                      + [_P, _P]                             # ab, am
                      + [_I, _P, _I, _I, _I, _I]             # network
                      + [_I]                                 # route
                      + [_P, _L, _I]                         # grid
+                     + [_P]                                 # layout
                      + [_P])                                # stream
 _SOLVE_VCABM_ARGS = ([_P] * 7                               # tensors
                      + [_I] * 4                             # T, B, D, threads
@@ -170,15 +172,15 @@ _PLAN_ARGS = {
                 + [_I, _I]                                 # .. valid
                 + [_I, _I, _I, _P, _P, _P, _P, _P]         # tableau
                 + _PLAN_CONSTS + [_P]),
-    "adams": ([_P] * 7 + [_I] * 5 + [_D] * 3             # grid .. atol
-              + [_I] * 5 + [_P, _P]                       # valid .. am
-              + _PLAN_CONSTS + [_P, _L, _I, _P]),         # grid, stream
+    "adams": ([_P] * 7 + [_L] + [_I] * 6 + [_D] * 3      # grid .. atol
+              + [_I] * 4 + [_P, _P]                       # max_order .. am
+              + _PLAN_CONSTS + [_P, _L, _I, _P, _P]),     # grid .. stream
     "vcabm": ([_P] * 6 + [_I] * 4 + [_D] * 8             # tau .. dfactor
               + [_I] * 3 + [_P]                           # .. gstar
               + _PLAN_CONSTS + [_P, _L, _I, _P]),         # grid, stream
     # K12: two plans' constants (csrc/plan_rhs.cuh launch_plan_hyper).
-    "hyper": ([_P] * 6 + [_I] * 5 + [_D] + [_I] * 3       # grid .. grid_is_t
-              + [_P, _I, _P, _I] * 2 + [_P]),
+    "hyper": ([_P] * 6 + [_L] + [_I] * 4 + [_D] + [_I] * 2  # .. grid_is_t
+              + [_P, _I, _P, _I] * 2 + [_P, _P]),         # .. layout, stream
     # K15's hosts (csrc/plan_aug.cuh).
     "adjoint": ([_P] * 10 + [_I] * 4 + [_D] * 8 + [_I, _I]  # tau .. seminorm
                 + [_I, _I, _P, _P, _P, _P]                  # tableau

@@ -30,7 +30,12 @@ the bit. K11 and fixed_adams' K10 run on a grid of `n_blocks` blocks
 of the samples, under one controller (K10: one convergence decision a
 corrector iteration); their plain versions take every batch sum in the
 grid's order for the same n_blocks (`cuda_kernels._grid_sum`), one block
-on the CPU. explicit_adams has no batch sum: a thread a sample. Both
+on the CPU. explicit_adams has no batch sum: K8's layout, a group of
+threads a sample (16 on the narrow route, `cuda_fixed.FIXED_WIDE_GROUP` on
+the wide one) in 512-thread blocks, each sample's slot in the block's
+shared memory where the block's slots fit (`last_adams_layout` keeps what
+the latest launch ran). K10 decides status 3 (times that do not increase)
+on the card, so its wrapper never waits for the card. Both
 kernels take the narrow and wide routes of `cuda_kernels._route`; neither
 takes a reduced dot precision (the reference refuses the tiers
 for the Adams kernels) nor `rhs='cnf'`. Not ported: the TPU machinery of
@@ -49,7 +54,8 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .cuda_fixed import hermite_drain_plain
+from .cuda_fixed import (_solve_work_size, _widest, _wt_values, fixed_group,
+                         hermite_drain_plain)
 from .cuda_kernels import (_ACT_CODES, _block_index, _check_activations,
                            _check_blocks, _check_float, _check_mlp, _count,
                            _device_kind, _dims_arg, _grid_sum, _increasing,
@@ -64,22 +70,46 @@ Tensor = torch.Tensor
 
 #: Threads of each block of fixed_adams' K10 and of K11 (csrc/rk_adams.cuh
 #: kAdamsThreads, csrc/rk_vcabm.cuh kVcabmThreads): thread i owns samples
-#: lo + i, lo + i + threads, ... of its block's batch sums.
+#: lo + i, lo + i + threads, ... of its block's batch sums; and of
+#: explicit_adams' blocks (csrc/lane_group.h kGroupBlock), a group of
+#: threads a sample.
 ADAMS_THREADS = 512
 VCABM_THREADS = 512
-#: Threads of an explicit_adams block, one sample a thread.
-ADAMS_EXPLICIT_THREADS = 64
 
 _INT32_MAX = 2 ** 31 - 1
 
 mlp_solve_adams_launches = 0
 mlp_solve_vcabm_launches = 0
+#: What K10's latest launch ran, as the launch reported it (`group_layout`);
+#: None before one.
+last_adams_layout = None
 
 
 def reset_launch_counts() -> None:
     global mlp_solve_adams_launches, mlp_solve_vcabm_launches
+    global last_adams_layout
     mlp_solve_adams_launches = 0
     mlp_solve_vcabm_launches = 0
+    last_adams_layout = None
+
+
+def group_layout(reported) -> dict:
+    """The layout a group launch (explicit_adams' K10, K12) wrote:
+    threads a sample, samples a 512-thread block, and whether the block's
+    sample slots sit in its shared memory (else in the workspace).
+    fixed_adams' grid reports 0 threads a sample and whether its blocks'
+    state rows sit in shared memory."""
+    return {"threads_a_sample": reported[0],
+            "samples_a_block": reported[1],
+            "slots_in_shared_memory": bool(reported[2])}
+
+
+def on_card(x: Tensor, dtype, device) -> Tensor:
+    """The step grid or the output times on the card in `dtype`, without
+    waiting for it: a host tensor goes by an asynchronous copy (a blocking
+    one waits for the card's queue to drain), a card tensor stays there. The
+    kernel decides from them whether they increase (status 3)."""
+    return x.detach().to(device, dtype, non_blocking=True)
 
 
 def _signed_net(warrays, dims, sign, dtype, dev, activation,
@@ -111,13 +141,31 @@ def _adams_nfe(G: int, max_order: int, max_iters: int,
     return 1 + 4 * boot + per * (G - 1 - boot)
 
 
-def adams_work_size(max_order: int, implicit: bool, B: int, D: int) -> int:
-    """K10's workspace: rows of D values a sample for the state, its
-    compensation, the increment, the RK4 stages and the history ring;
-    fixed_adams also y_cur, the history part and the evaluation
-    (csrc/rk_adams.cuh adams_grid_rows; its grid keeps a block's rows in
-    the block's shared memory where they fit)."""
-    return ((9 if implicit else 6) + max_order) * B * D
+def adams_work_size(max_order: int, B: int, D: int) -> int:
+    """fixed_adams' workspace: rows of D values a sample for the state, its
+    compensation, y_cur, y_next, the history part, the evaluation, the RK4
+    stages and the history ring (csrc/rk_adams.cuh adams_grid_rows; its
+    grid keeps a block's rows in the block's shared memory where they
+    fit)."""
+    return (9 + max_order) * B * D
+
+
+def adams_slot_values(max_order: int, D: int, walk_values: int) -> int:
+    """csrc/lane_group.h adams_solve_slot_values: explicit_adams' slot (the
+    state, its compensation, the step's increment, RK4 stages 1-3, the
+    ring of max_order history slabs, then the walk's values)."""
+    return (6 + max_order) * D + walk_values
+
+
+def adams_group_work(max_order: int, D: int, dims, route: int,
+                     B: int) -> int:
+    """explicit_adams' workspace on an MLP route: the slots of
+    `cuda_fixed._solve_work_size` (the walk's two layer vectors), then the
+    wide route's transposed weights."""
+    slot = adams_slot_values(max_order, D, 2 * _widest(dims))
+    return _solve_work_size(slot, B, fixed_group(route),
+                            _wt_values(route, sum(i * o + o
+                                                  for i, o in dims)))
 
 
 def _adams_grid(implicit: bool, n_blocks, B: int, dtype, device):
@@ -291,7 +339,7 @@ def mlp_solve_adams(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
     samples (None: `cuda_kernels.solve_blocks`, one block per SM); it
     changes only the order of the convergence norm's sum, which the plain
     version repeats for the same n_blocks. explicit_adams has no batch sum
-    and gives each sample a thread.
+    and gives each sample a group of threads (`cuda_fixed.fixed_group`).
     """
     _check_activations(activation, final_activation)
     _check_blocks(n_blocks)
@@ -310,39 +358,40 @@ def mlp_solve_adams(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
             implicit=implicit, max_order=MO, max_iters=max_iters,
             n_blocks=n_blocks, **kw)
 
-    global mlp_solve_adams_launches
+    global mlp_solve_adams_launches, last_adams_layout
     B, D = y0.shape
     T, G = tau.shape[0], grid.shape[0]
     route = _check_net("mlp_solve_adams", warrays, dims, y0, f0, time_input,
                        G + T)
     dtype = y0.dtype
-    tau_h = tau.detach().to("cpu", dtype)
-    grid_h = grid.detach().to("cpu", dtype)
-    valid = _increasing(tau_h) and _increasing(grid_h)
-    threads = ADAMS_THREADS if implicit else ADAMS_EXPLICIT_THREADS
     dbl = lambda a: (ctypes.c_double * a.size)(*a.reshape(-1).tolist())
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
-    work = torch.empty(adams_work_size(MO, implicit, B, D), dtype=dtype,
-                       device=y0.device)
+    group = 0 if implicit else fixed_group(route)
+    n_work = (adams_work_size(MO, B, D) if implicit
+              else adams_group_work(MO, D, dims, route, B))
+    work = torch.empty(n_work, dtype=dtype, device=y0.device)
     nb, gwork = _adams_grid(implicit, n_blocks, B, dtype, y0.device)
     # Named, so that they live until the launch has read them.
-    grid_d, tau_d = grid_h.to(y0.device), tau_h.to(y0.device)
+    grid_d = on_card(grid, dtype, y0.device)
+    tau_d = on_card(tau, dtype, y0.device)
+    reported = (ctypes.c_int * 3)()
     lib = _build.library()
     fn = (lib.tfd_mlp_solve_adams_f32 if dtype == torch.float32
           else lib.tfd_mlp_solve_adams_f64)
     with torch.cuda.device(y0.device):
         err = fn(_ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0),
-                 _ptr(warrays), _ptr(out), _ptr(stats), _ptr(work), G, T, B,
-                 D, threads, float(sign), float(rtol), float(atol),
-                 int(valid), MO, int(max_iters), int(bool(implicit)),
+                 _ptr(warrays), _ptr(out), _ptr(stats), _ptr(work), n_work,
+                 G, T, B, D, ADAMS_THREADS, group, float(sign), float(rtol),
+                 float(atol), MO, int(max_iters), int(bool(implicit)),
                  _adams_nfe(G, MO, int(max_iters), bool(implicit)),
                  dbl(BASHFORTH_TABLE[:MO, :MO]), dbl(MOULTON_TABLE[:MO, :MO]),
                  len(dims), _dims_arg(dims), _ACT_CODES[activation],
                  _ACT_CODES[final_activation], int(input_power),
                  int(time_input), route, _ptr(gwork), gwork.numel(), nb,
-                 _stream(y0.device))
+                 reported, _stream(y0.device))
     _build.check(err, "mlp_solve_adams launch")
+    last_adams_layout = group_layout(reported)
     mlp_solve_adams_launches += 1
     return out, stats
 

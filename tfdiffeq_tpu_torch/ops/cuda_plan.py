@@ -27,13 +27,17 @@ library a structure and host, built at first use
   plans only; a coupled one raises NotImplementedError, ROADMAP.md queue 1
   item 16).
 - `plan_solve_adams` (explicit_adams, fixed_adams) and `plan_solve_vcabm`
-  ('adams'): K10 and K11 with the plan, a sample a thread in the kernels'
-  own layouts (K11 and fixed_adams' K10 over their grids); a coupled plan
+  ('adams'): K10 and K11 with the plan; explicit_adams a group of
+  FIXED_GROUP threads a sample running the plan's group walk, K11 and
+  fixed_adams' K10 a sample a thread over their grids; a coupled plan
   raises NotImplementedError (ROADMAP.md queue 2 item 3).
 - `plan_solve_hyper`: K12, the hypersolvers, with two plans, the dynamics
-  and the correction net over the stacked [y, f_user]; f's constants in
-  shared memory first, g's after them when both fit (`last_route['hyper']`
-  and `['hyper_g']`); a coupled plan raises NotImplementedError.
+  and the correction net over the stacked [y, f_user], both on the group
+  walk, a group of `hyper_group(B)` threads a sample; f's constants (and
+  their transposed copy) in shared memory first, g's after them when both
+  fit (`last_route['hyper']` and `['hyper_g']`); a coupled plan raises
+  NotImplementedError. K10 and K12 decide status 3 on the card, so their
+  wrappers never wait for it.
 
 K15, the plan's reverse-mode walk (reference `tfdiffeq_tpu/ops/
 plan_adjoint.py:154`), generated as CUDA C++ (`plan_codegen.aug_source`'s
@@ -86,12 +90,12 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _build, plan_codegen
-from .cuda_adams import (ADAMS_EXPLICIT_THREADS, ADAMS_THREADS,
-                         VCABM_THREADS, _adams_grid, _adams_nfe,
-                         adams_solve_plain, adams_work_size,
+from .cuda_adams import (ADAMS_THREADS, VCABM_THREADS, _adams_grid,
+                         _adams_nfe, adams_slot_values, adams_solve_plain,
+                         adams_work_size, group_layout, on_card,
                          vcabm_solve_plain)
 from .cuda_adjoint import ADJOINT_THREADS, _grid_work, adjoint_sweep_plain
-from .cuda_fixed import (FIXED_ADJOINT_THREADS, FIXED_GROUP, FIXED_THREADS,
+from .cuda_fixed import (FIXED_ADJOINT_THREADS, FIXED_GROUP,
                          _fixed_work_size, _solve_work_size,
                          fixed_adjoint_plain, fixed_solve_plain,
                          hermite_drain_plain)
@@ -122,13 +126,22 @@ plan_fixed_adjoint_launches = 0
 plan_adams_launches = 0
 plan_vcabm_launches = 0
 plan_hyper_launches = 0
+#: K12's group (csrc/lane_group.h kHyperFillBlocks, kHyperMaxGroup, where
+#: the H100's times that chose them are): 16 threads a sample where the
+#: batch fills the card, else up to HYPER_MAX_GROUP.
+HYPER_FILL_BLOCKS = 128
+HYPER_MAX_GROUP = 64
 #: host -> 'shared' or 'global': where the latest launch read the constants
 #: (K12: 'hyper' its dynamics', 'hyper_g' its correction net's).
 last_route = {}
 #: host -> threads a sample of the latest launch's walk: the group walk's
-#: group ('perlane', 'fixed', 'perlane_adjoint', 'fixed_adjoint'), or 1
-#: where a thread walks a sample ('adjoint').
+#: group ('perlane', 'fixed', 'perlane_adjoint', 'fixed_adjoint', 'hyper',
+#: 'adams' for explicit_adams), or 1 where a thread walks a sample
+#: ('adjoint', 'adams' for fixed_adams).
 last_group = {}
+#: host -> what the latest group launch of explicit_adams' K10 ('adams') or
+#: K12 ('hyper') reported (`cuda_adams.group_layout`).
+last_layout = {}
 
 
 def reset_launch_counts() -> None:
@@ -216,6 +229,34 @@ def fixed_group_work(plan: FusedPlan, S: int, B: int) -> int:
     group_solve_work_size of fixed_solve_slot_values with the walk)."""
     return _solve_work_size((S + 3) * plan.dim + plan_walk_values(plan), B,
                             FIXED_GROUP, 0)
+
+
+def adams_group_work(plan: FusedPlan, max_order: int, B: int) -> int:
+    """The workspace of explicit_adams' group route (lane_group.h
+    group_solve_work_size of adams_solve_slot_values with the walk)."""
+    return _solve_work_size(adams_slot_values(max_order, plan.dim,
+                                              plan_walk_values(plan)), B,
+                            FIXED_GROUP, 0)
+
+
+def hyper_group(B: int) -> int:
+    """csrc/lane_group.h hyper_group: K12's threads a sample, 16 where the
+    blocks of 16 reach HYPER_FILL_BLOCKS (the batch fills the card), else
+    the narrowest wider group up to HYPER_MAX_GROUP whose blocks do."""
+    g = FIXED_GROUP
+    while g < HYPER_MAX_GROUP and -(-B // (ADAMS_THREADS // g)) \
+            < HYPER_FILL_BLOCKS:
+        g *= 2
+    return g
+
+
+def hyper_group_work(plan_f: FusedPlan, plan_g: FusedPlan, B: int) -> int:
+    """K12's workspace (lane_group.h group_solve_work_size of
+    hyper_solve_slot_values: the state, the previous node's state and
+    derivative, f0, then both walks)."""
+    slot = (4 * plan_f.dim + plan_walk_values(plan_f)
+            + plan_walk_values(plan_g))
+    return _solve_work_size(slot, B, hyper_group(B), 0)
 
 
 def perlane_group_work(plan: FusedPlan, S: int, B: int) -> int:
@@ -523,38 +564,44 @@ def plan_solve_adams(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                                       atol, sign, f0, **kw)
 
     global plan_adams_launches
-    consts, sample_consts = _inputs(plan, packed, y0, f0)
+    # explicit_adams' group walk reads the constants' transposed copy too.
+    consts, sample_consts = _inputs(plan, packed, y0, f0, not implicit)
     dtype, dev = y0.dtype, y0.device
     B, D = y0.shape
     T, G = tau.shape[0], grid.shape[0]
     host = "adams"
     lib = build([(plan, host)])[0]
     lay = plan_codegen.layout(plan)
-    threads = ADAMS_THREADS if implicit else ADAMS_EXPLICIT_THREADS
-    smem = _consts_route(host, lay.n_consts, G + T + threads,
-                         y0.element_size())
-    tau_h = tau.detach().to("cpu", dtype)
-    grid_h = grid.detach().to("cpu", dtype)
-    valid = _increasing(tau_h) and _increasing(grid_h)
+    if implicit:
+        n_c, group = lay.n_consts, 0
+        smem = _consts_route(host, n_c, G + T + ADAMS_THREADS,
+                             y0.element_size())
+        n_work = adams_work_size(MO, B, D)
+    else:
+        n_c, group = 2 * lay.n_consts, FIXED_GROUP
+        smem = _consts_route(host, n_c, G + T, y0.element_size())
+        n_work = adams_group_work(plan, MO, B)
     dbl = lambda a: (ctypes.c_double * a.size)(*a.reshape(-1).tolist())
     out = torch.empty((T, B, D), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    work = torch.empty(adams_work_size(MO, implicit, B, D), dtype=dtype,
-                       device=dev)
+    work = torch.empty(n_work, dtype=dtype, device=dev)
     nb, gwork = _adams_grid(implicit, n_blocks, B, dtype, dev)
     # Named, so that they live until the launch has read them.
-    grid_d, tau_d = grid_h.to(dev), tau_h.to(dev)
+    grid_d, tau_d = on_card(grid, dtype, dev), on_card(tau, dtype, dev)
+    reported = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
             _ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out),
-            _ptr(stats), _ptr(work), G, T, B, D, threads, float(sign),
-            float(rtol), float(atol), int(valid), MO, int(max_iters),
-            int(bool(implicit)),
+            _ptr(stats), _ptr(work), n_work, G, T, B, D, ADAMS_THREADS,
+            group, float(sign), float(rtol), float(atol), MO,
+            int(max_iters), int(bool(implicit)),
             _adams_nfe(G, MO, int(max_iters), bool(implicit)),
             dbl(BASHFORTH_TABLE[:MO, :MO]), dbl(MOULTON_TABLE[:MO, :MO]),
-            _ptr(consts), lay.n_consts, _ptr(sample_consts), int(smem),
-            _ptr(gwork), gwork.numel(), nb, _stream(dev))
+            _ptr(consts), n_c, _ptr(sample_consts), int(smem),
+            _ptr(gwork), gwork.numel(), nb, reported, _stream(dev))
     _check(lib, err, "plan_solve_adams launch")
+    last_group[host] = group or 1
+    last_layout[host] = group_layout(reported)
     plan_adams_launches += 1
     return out, stats
 
@@ -749,34 +796,36 @@ def plan_solve_hyper(plan_f: FusedPlan, plan_g: FusedPlan,
     T, G = tau.shape[0], grid.shape[0]
     host = "hyper"
     lib = build([((plan_f, plan_g), host)])[0]
+    # Both group walks read their constants' transposed copies too.
     cf, sf = plan_codegen.flat_consts(
-        plan_f, [p.to(dev, dtype) for p in packed_f], B)
+        plan_f, [p.to(dev, dtype) for p in packed_f], B, True)
     cg, sg = plan_codegen.flat_consts(
-        plan_g, [p.to(dev, dtype) for p in packed_g], B)
-    n_f = plan_codegen.layout(plan_f).n_consts
-    n_g = plan_codegen.layout(plan_g).n_consts
+        plan_g, [p.to(dev, dtype) for p in packed_g], B, True)
+    n_f = 2 * plan_codegen.layout(plan_f).n_consts
+    n_g = 2 * plan_codegen.layout(plan_g).n_consts
     isz = y0.element_size()
     # f's constants first, then g's after them (csrc/rk_hyper.cuh).
     smem_f = _consts_route(host, n_f, G + T, isz)
     smem_g = _consts_route("hyper_g", n_g, G + T + (n_f if smem_f else 0),
                            isz)
-    tau_h = tau.detach().to("cpu", dtype)
-    grid_h = grid.detach().to("cpu", dtype)
-    valid = _increasing(tau_h) and _increasing(grid_h)
     y0c = y0.contiguous()
     out = torch.empty((T, B, D), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    work = torch.empty(4 * B * D, dtype=dtype, device=dev)
+    n_work = hyper_group_work(plan_f, plan_g, B)
+    work = torch.empty(n_work, dtype=dtype, device=dev)
     # Named, so that they live until the launch has read them.
-    grid_d, tau_d = grid_h.to(dev), tau_h.to(dev)
+    grid_d, tau_d = on_card(grid, dtype, dev), on_card(tau, dtype, dev)
+    reported = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
             _ptr(grid_d), _ptr(tau_d), _ptr(y0c), _ptr(out), _ptr(stats),
-            _ptr(work), G, T, B, D, FIXED_THREADS, float(sign), int(valid),
+            _ptr(work), n_work, G, T, B, D, float(sign),
             list(HYPER_KINDS).index(kind), int(bool(grid_is_t)), _ptr(cf),
             n_f, _ptr(sf), int(smem_f), _ptr(cg), n_g, _ptr(sg),
-            int(smem_g), _stream(dev))
+            int(smem_g), reported, _stream(dev))
     _check(lib, err, "plan_solve_hyper launch")
+    last_group[host] = reported[0]
+    last_layout[host] = group_layout(reported)
     plan_hyper_launches += 1
     return out, stats
 
