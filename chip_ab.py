@@ -4,7 +4,8 @@ kernels, their adjoint sweeps (K3, K9, K6), the Adams kernels (K10, K11)
 at the bench protocol and the conv-ODE solve (K13), for two or more
 checkouts of the repository on one NVIDIA card, in alternating order.
 
-    python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS] [plans | cnf | hyper]
+    python3 chip_ab.py PARENT_DIR CHANGE_DIR [ROUNDS] [plans | cnf | hyper
+                                                       | dense]
 
 Each checkout builds its own kernels first (all together), then every
 round runs one process a checkout, in the order A B B A A B ... (ROUNDS
@@ -46,8 +47,15 @@ hypersolvers, `plan_solve_hyper`) on examples/hypersolver.py's dynamics
 and hypernet at B = 4096 on its 33-point output grid: the kernel alone for
 the three kinds and for euler at B = 256, and a wrapper call's device
 work (ten calls queued behind a sleep); and a wrapper call's device work
-of explicit_adams' K10 x 512 at the bench widths, B = 4096. It prints the
-card's name and power limit, a line a run and the median of each kernel a
+of explicit_adams' K10 x 512 at the bench widths, B = 4096. With `dense`
+the K2 rows alone: its MLP route, its plan route (the spiral as plain
+PyTorch) without and, where the checkout has it, with the dense-output
+emission (`emit_dense`, 1024 rows, the step budget too), and two training
+steps of the bench protocol through `odeint_adjoint(options={'fuse':
+True})`, the resets mode (K2 + K3) and, where the checkout has it,
+`adjoint_mode='interpolated'` (K2 with the emission, the generic backward)
+(median of 3, CUDA events around the host's call). It prints the card's
+name and power limit, a line a run and the median of each kernel a
 checkout.
 """
 
@@ -189,6 +197,48 @@ def _hyper_rows(out: dict, device_timed, dev) -> None:
         activation="tanh", input_power=3, implicit=False), reps=3, inner=5)
 
 
+def _dense_rows(out: dict, timed, dev, p, y, t) -> None:
+    """K2's plan route with and without the dense-output emission and the
+    two fused training steps (module docstring, `dense`)."""
+    import inspect
+    import torch
+    from tfdiffeq_tpu_torch import fast, odeint_adjoint
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl, plan_bridge as pb
+
+    def f3(tt, yy, q):
+        return torch.tanh((yy ** 3) @ q[0] + q[1]) @ q[2] + q[3]
+
+    q = tuple(p[k] for k in ("w1", "b1", "w2", "b2"))
+    plan, consts = pb.build_plan(lambda tt, yy: f3(tt, yy, q), t[0].to(dev),
+                                 y)
+    packed = pb.pack_consts(plan, consts, torch.float32, dev)
+    g = cpl.plan_rhs(plan, packed, torch.tensor(1.0, device=dev))
+    pf0 = g(t[0].to(dev), y).contiguous()
+    cpl.build([(plan, "solve")])
+    out["K14 in K2"] = timed(lambda: cpl.plan_solve(
+        plan, packed, y, t, 0.01, 1e-6, 1e-6, 1.0, pf0))
+    dense = "emit_dense" in inspect.signature(cpl.plan_solve).parameters
+    if dense:
+        out["K14 in K2 dense"] = timed(lambda: cpl.plan_solve(
+            plan, packed, y, t, 0.01, 1e-6, 1e-6, 1.0, pf0, max_steps=1024,
+            emit_dense=1024))
+    target = torch.tensor(np.random.RandomState(2).randn(64, 4096, 2) * 0.5,
+                          dtype=torch.float32, device=dev)
+
+    def step(mode):
+        qq = tuple(x.clone().requires_grad_() for x in q)
+        kw = {"adjoint_mode": mode} if mode != "resets" else {}
+        ys = odeint_adjoint(f3, y, t, params=qq, rtol=1e-6, atol=1e-6,
+                            options={"fuse": True}, **kw)
+        torch.autograd.grad(torch.mean((ys - target) ** 2), qq)
+
+    out["resets step"] = timed(lambda: step("resets"), reps=3)
+    if dense:
+        out["interpolated step"] = timed(lambda: step("interpolated"),
+                                         reps=3)
+    assert fast.fuse_fallbacks == 0
+
+
 def _one(root: str, only: str = "") -> None:
     """Time the kernels of the checkout at `root` (with `only` = "plans"
     the plan rows alone, "cnf" the K2, K3, K7, K1 and CNF rows, "hyper"
@@ -252,6 +302,11 @@ def _one(root: str, only: str = "") -> None:
     if not plans_only:
         out["K2"] = timed(lambda: ck.mlp_solve(warr, dims, y, t, 0.01, 1e-6,
                                                1e-6, 1.0, **kw))
+    if only == "dense":
+        _dense_rows(out, timed, dev, p, y, t)
+        print("RESULT " + " ".join(f"{k.replace(' ', '_')}={v:.3f}"
+                                   for k, v in out.items()), flush=True)
+        return
     if not (plans_only or cnf_only):
         out["K8"] = timed(lambda: cf.mlp_solve_fixed(warr, dims, y, t, grid,
                                                      1.0, **kw))

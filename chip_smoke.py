@@ -332,6 +332,31 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     `odeint_adjoint(method='adams', adjoint_method='dopri5', options={'fuse':
     True})` SGD step of the bench training protocol: tier 2, one K11 launch
     forward and the generic backward, no fallback, finite gradients.
+41. K2's dense-output emission (`csrc/rk_solve.cuh`): the bench spiral as
+    plain PyTorch through `fast.solve_fused(dense_output=True)` at the
+    bench protocol (S = 1024 rows, the step budget), float32 and float64:
+    one K2 plan launch each, its out, stats, meta and coef held bitwise to
+    `plan_solve_plain(emit_dense=S)`, the same launch without the buffers
+    bitwise equal in out and stats, and `eval_flat` at the 64 outputs
+    within `DENSE_EVAL_BARS` of ys (interior outputs bitwise equal are
+    counted); the same for the mean-field plan at B = 33 (the batch route,
+    built with [28]'s). K2's device time with and without the emission
+    (CUDA events, without/with/with/without), the emission's bytes and
+    bound. Then the generic `solve(options={'telemetry': True})` on the
+    card: its counts agree with the stats.
+42. The interpolated spiral training step, `odeint_adjoint(adjoint_mode=
+    'interpolated', options={'fuse': True})` at the bench training
+    protocol, float32: one K2 launch with the emission and no K3, then the
+    generic backward on the interpolants; gradients within
+    `INTERP_GRAD_BAR` of [33]'s resets-mode fused step at the same
+    weights, relative to its largest entry (each parameter's gap printed); both steps timed (median of 3 warm), the b-NFE of both,
+    and a profiled interpolated step's device-idle share.
+43. [34]'s stiffness battery (B = 4096, 5 outputs over [0, 2], float32)
+    under one shared controller with the interpolated adjoint, tier 2
+    (`BATTERY_S` rows and steps forward, `BATTERY_BWD` attempts an
+    interval backward): the forward's stats, the backward's status an
+    interval, b-NFE, whether every gradient is finite (a NaN only where a
+    status says so) and the time of the one step.
 
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
@@ -356,6 +381,10 @@ the bound from `_plan_aug_flops`, the training step's time in each host,
 the MLP route's sweep and step on the same spiral (`mlp_route_ms`,
 `mlp_route_step_ms`), the generic `odeint_adjoint` step (`generic_ms`), the
 battery's shared-controller step and the couplings' sweeps and steps.
+K2 (`mlp_solve`) also carries its dense-output emission on the plan route
+([41]-[43]: `dense_ms` beside `dense_no_emission_ms`, the plain time, the
+bound with and without the emission's bytes, its launches and largest
+difference, the interpolated and resets steps, the battery's statuses).
 K14 also carries its K10 and K11 hosts ([39], [40]) with the generic
 engine beside K10 and the Adams-forward training step through tier 2. K12
 (`hyper_solve`) carries each kind's time, plain time and bound, the
@@ -3261,6 +3290,313 @@ def _hyper_adams_tier(smi: str, dev) -> dict:
     return rec
 
 
+#: [41]'s rows: fast.solve_fused(dense_output=True)'s default S, which is
+#: also its step budget; [43] gives the stiffness battery's forward more
+#: (2345 attempts at B = 128 in a CPU rehearsal) and caps its backward at
+#: BATTERY_BWD attempts an interval: in float32 the interpolated backward
+#: took more than 8192 in three of its four intervals there, and at some
+#: 10 ms an attempt on the card the run's time limit would not hold them.
+DENSE_S, DENSE_COUPLED_B, BATTERY_S, BATTERY_BWD = 1024, 33, 8192, 1024
+#: eval_flat at the output times against the trajectory: interior outputs
+#: are the same Horner evaluation (equal bits are counted and printed); at
+#: a step's end the trajectory holds the drain's Kahan-updated state, the
+#: interpolant its value at x = 1, a sum of five planes: a few ulps of
+#: the state (|y| <= 3 here) apart.
+DENSE_EVAL_BARS = {"torch.float32": 1e-5, "torch.float64": 1e-12}
+#: [42]: two continuous adjoints of one ODE (the resets sweep re-solves y
+#: backward, the interpolated one reads the forward's interpolant) differ
+#: by solver error, at rtol 1e-6 over 25 time units of the spiral. Held:
+#: the largest gap over all four parameters' gradients relative to the
+#: largest gradient entry (a CPU probe at B = 4096: 3.1e-3 in float32,
+#: 1.6e-3 between the two adjoints in float64). Each parameter's own gap
+#: is printed, not held: b1's and b2's gradients are sums that cancel to
+#: 1e-3 and 1e-4 of w1's, and there the two float64 adjoints differ by 20%
+#: and 9% of their size (the same probe).
+INTERP_GRAD_BAR = 1e-2
+
+
+def _dense_pairs(dev):
+    """[41]'s coupled plan at B = 33 (a batch mean divides by B, a literal
+    of the plan), built with [28]'s."""
+    import torch
+    from tfdiffeq_tpu_torch.ops import plan_bridge as pb
+    f = _coupled_funcs(torch.float32, dev)["meanfield"]
+    plan, _ = pb.build_plan(f, torch.tensor(0.0, device=dev),
+                            torch.ones(DENSE_COUPLED_B, PLAN_D, device=dev))
+    return [(plan, "solve")]
+
+
+def _dense_tier(smi: str, dev) -> dict:
+    """Phases 41-43: K2's per-step interpolant emission through
+    `fast.solve_fused(dense_output=True)`, the interpolated adjoint's
+    training step on it, and the stiffness battery under one controller
+    with the interpolated adjoint. Returns the numbers K2's record gains."""
+    import torch
+    from tfdiffeq_tpu_torch import NFEMeter, fast, odeint_adjoint, solve
+    from tfdiffeq_tpu_torch import adjoint as adj_mod
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    from tfdiffeq_tpu_torch.ops.tableaus import DOPRI5
+    f32, f64 = torch.float32, torch.float64
+    rec = {"launches": 0, "err": 0.0}
+
+    def stats_last(fn):
+        """plan_solve's dense result (out, stats, meta, coef) with the
+        stats last, as `_hold_to_plain` reads it."""
+        def call(*a, **k):
+            out, st, meta, coef = fn(*a, **k)
+            return out, meta, coef, st
+        return call
+
+    def hold(call, what):
+        """A recorded emission launch against its plain version, bitwise;
+        the same launch without the buffers (out and stats bitwise equal);
+        the launch again (bitwise)."""
+        args, kw, got = call
+        out, st, meta, coef = got
+        err, plain_ms = _hold_to_plain(
+            (args, _grid_kw(cpl.plan_solve_plain, args, kw),
+             (out, meta, coef, st)), stats_last(cpl.plan_solve_plain), what)
+        kw0 = {k: v for k, v in kw.items() if k != "emit_dense"}
+        out0, st0 = cpl.plan_solve(*args, **kw0)
+        again = cpl.plan_solve(*args, **kw)
+        same0 = torch.equal(out0, out) and torch.equal(st0, st)
+        same1 = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"{what}: without the buffers out and stats bitwise equal: "
+              f"{same0}; run again bitwise: {same1}", flush=True)
+        if not (same0 and same1):
+            raise AssertionError(f"{what}: the emission changed the solve "
+                                 "or two runs differ")
+        return err, plain_ms
+
+    def eval_gap(res, tt, what):
+        """eval_flat at the output times against ys (DENSE_EVAL_BARS)."""
+        ev = res.dense.eval_flat(tt).reshape(res.ys.shape)
+        n = res.stats.n_accepted
+        ends = torch.isin(res.dense.sign.to(dev) * tt.to(dev),
+                          res.dense.t1s[:n])
+        gap = float((ev - res.ys).abs().max())
+        inner = ~ends
+        inner[0] = False
+        n_eq = int(sum(torch.equal(ev[i], res.ys[i])
+                       for i in torch.nonzero(inner).flatten().tolist()))
+        bar = DENSE_EVAL_BARS[str(tt.dtype)]
+        print(f"{what}: eval_flat at the {tt.shape[0]} outputs within "
+              f"{gap:.3e} of ys (bar {bar:g}); {int(ends.sum())} outputs at "
+              f"a step's end; {n_eq} of {int(inner.sum())} interior outputs "
+              "bitwise equal", flush=True)
+        if not gap <= bar:
+            raise AssertionError(f"{what}: eval_flat off the trajectory")
+
+    t = torch.linspace(0.0, SPAN, T_OUT)
+
+    _at("41")
+    # [41] K2's emission at the bench protocol through
+    # fast.solve_fused(dense_output=True), the spiral as plain PyTorch.
+    for dtype in (f32, f64):
+        p, y, _ = _bench_params(B, dtype, dev)
+        tt = t.to(dtype)
+        cpl.reset_launch_counts()
+        fb = fast.fuse_fallbacks
+        with _Recording(cpl, "plan_solve") as r:
+            res = fast.solve_fused(_spiral_func(p), y, tt, rtol=TOL,
+                                   atol=TOL, first_step=FIRST_STEP,
+                                   dense_output=True)
+        torch.cuda.synchronize()
+        n_l, emit = cpl.plan_solve_launches, [c[1].get("emit_dense")
+                                              for c in r.calls]
+        print(f"[41] solve_fused(spiral, dense_output=True) {dtype}: K2 "
+              f"launches {n_l} (emit_dense {emit}), fallbacks "
+              f"{fast.fuse_fallbacks - fb}, stats {list(res.stats)}",
+              flush=True)
+        if n_l != 1 or emit != [DENSE_S] or res.stats.status != 0 \
+                or fast.fuse_fallbacks != fb \
+                or tuple(res.ys.shape) != (T_OUT, B, D) \
+                or not torch.isfinite(res.ys).all():
+            raise AssertionError(f"[41] the dense fused spiral {dtype}")
+        rec["launches"] += 1
+        err, plain_ms = hold(r.calls[0], f"[41] K2 with the emission "
+                                         f"{dtype}")
+        eval_gap(res, tt, f"[41] {dtype}")
+        rec["err"] = max(rec["err"], err)
+        if dtype == f32:
+            rec["plain_ms"] = plain_ms
+            a41, k41, g41 = r.calls[0]
+    k0 = {k: v for k, v in k41.items() if k != "emit_dense"}
+    ms = [_timed(lambda: cpl.plan_solve(*a41, **k0)),
+          _timed(lambda: cpl.plan_solve(*a41, **k41)),
+          _timed(lambda: cpl.plan_solve(*a41, **k41)),
+          _timed(lambda: cpl.plan_solve(*a41, **k0))]
+    rec["no_emission_ms"] = statistics.median([ms[0], ms[3]])
+    rec["ms"] = statistics.median([ms[1], ms[2]])
+    nfe, nacc, nrej, _ = g41[1].tolist()
+    nc = sum(x.numel() for x in a41[1])
+    emit_bytes = 5 * nacc * B * D * 4 + 3 * nacc * 4
+    base = (B * (nfe * _plan_flops(a41[0]) + (nacc + nrej) * D
+                 * _combine_flops(DOPRI5)),
+            4 * (2 * B * D + T_OUT * B * D + T_OUT + nc))
+    rec["bound"] = _bound(base[0], base[1] + emit_bytes)
+    rec["emission_bound_ms"] = emit_bytes / PEAK_BYTES * 1e3
+    print(f"[41] {smi}: K2 (plan route) with the emission {rec['ms']:.3f} ms"
+          f" vs without {rec['no_emission_ms']:.3f} ms (CUDA events, "
+          f"without/with/with/without: {', '.join(f'{x:.3f}' for x in ms)});"
+          f" the emission's {nacc} rows, {emit_bytes} bytes, bound "
+          f"{rec['emission_bound_ms']:.4f} ms; the solve's bound "
+          f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]}); plain "
+          f"{rec['plain_ms']:.1f} ms", flush=True)
+
+    # The coupled plan at B = 33 on K2's batch route.
+    tc = torch.linspace(0.0, PLAN_SPAN, PLAN_T)
+    for dtype in (f32, f64):
+        yc = torch.tensor(np.random.RandomState(0).randn(DENSE_COUPLED_B,
+                                                         PLAN_D),
+                          dtype=dtype, device=dev)
+        f = _coupled_funcs(dtype, dev)["meanfield"]
+        cpl.reset_launch_counts()
+        with _Recording(cpl, "plan_solve") as r:
+            res = fast.solve_fused(f, yc, tc.to(dtype), rtol=TOL, atol=1e-8,
+                                   dense_output=True)
+        if cpl.plan_solve_launches != 1 or res.stats.status != 0 \
+                or not torch.isfinite(res.ys).all():
+            raise AssertionError(f"[41] coupled B=33 {dtype}: launches "
+                                 f"{cpl.plan_solve_launches}, stats "
+                                 f"{res.stats}")
+        rec["launches"] += 1
+        err, _ = hold(r.calls[0], f"[41] K2 batch route (meanfield, B = 33) "
+                                  f"with the emission {dtype}")
+        rec["err"] = max(rec["err"], err)
+        eval_gap(res, tc.to(dtype), f"[41] coupled {dtype}")
+
+    # Telemetry of the generic engine on the card.
+    p, y, _ = _bench_params(B, f32, dev)
+    with torch.no_grad():
+        tr = solve(_spiral_func(p), y, t, rtol=TOL, atol=TOL,
+                   options={"telemetry": True, "first_step": FIRST_STEP})
+    tel, st = tr.telemetry, tr.stats
+    ok = (int(tel.accepted.sum()) == st.n_accepted
+          and tel.t0.shape[0] == st.n_accepted + st.n_rejected
+          and bool(tel.active.all()) and bool((tel.dt > 0).all()))
+    print(f"[41] solve(options={{'telemetry': True}}) on the card: stats "
+          f"{list(st)}; {tel.t0.shape[0]} attempts, "
+          f"{int(tel.accepted.sum())} accepted; dt from "
+          f"{float(tel.dt.min()):.4g} to {float(tel.dt.max()):.4g}; agree "
+          f"with the stats: {ok}", flush=True)
+    if not ok or st.status != 0:
+        raise AssertionError("[41] telemetry disagrees with the stats")
+
+    _at("42")
+    # [42] the interpolated spiral training step at the bench training
+    # protocol (float32): one K2 launch with the emission, the generic
+    # backward reading its interpolants; against [33]'s resets-mode fused
+    # step (K2 + K3) at the same weights.
+    target = _bench_target(f32, dev)
+
+    def step(mode, meter=None):
+        q = tuple(p[k].clone().requires_grad_()
+                  for k in ("w1", "b1", "w2", "b2"))
+        ys_ = odeint_adjoint(_spiral_params_func, y, t, params=q, rtol=TOL,
+                             atol=TOL, adjoint_mode=mode,
+                             options={"fuse": True}, nfe_meter=meter)
+        return torch.autograd.grad(torch.mean((ys_ - target) ** 2), q)
+
+    meter = NFEMeter()
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    with _Recording(cpl, "plan_solve") as r:
+        gi = step("interpolated", meter)
+    torch.cuda.synchronize()
+    got = (cpl.plan_solve_launches, cpl.plan_adjoint_launches)
+    emit = [c[1].get("emit_dense") for c in r.calls]
+    finite = all(bool(torch.isfinite(g).all()) for g in gi)
+    print(f"[42] interpolated step: launches (K2, K3) {got}, emit_dense "
+          f"{emit}, fallbacks {fast.fuse_fallbacks - fb}; NFE forward "
+          f"{meter.f_nfe}, backward {meter.b_nfe} ({meter.b_steps} steps); "
+          f"finite gradients {finite}", flush=True)
+    if got != (1, 0) or emit != [DENSE_S] or fast.fuse_fallbacks != fb \
+            or not finite:
+        raise AssertionError("[42] the interpolated step")
+    rec["launches"] += 1
+    rmeter = NFEMeter()
+    gr = step("resets", rmeter)
+    gap = (max(float((a - b).abs().max()) for a, b in zip(gi, gr))
+           / max(float(b.abs().max()) for b in gr))
+    each = [f"{_rel(a, b):.3e}" for a, b in zip(gi, gr)]
+    print(f"[42] gradients within {gap:.3e} of [33]'s resets-mode fused "
+          f"step, relative to its largest entry (bar {INTERP_GRAD_BAR:g}); "
+          f"each parameter's own (w1, b1, w2, b2) {each}; resets b-NFE "
+          f"{rmeter.b_nfe}", flush=True)
+    if not gap <= INTERP_GRAD_BAR:
+        raise AssertionError("[42] interpolated and resets gradients differ")
+    rec["interp_step_ms"], all_i = _host_ms(lambda: step("interpolated"))
+    rec["resets_step_ms"], all_r = _host_ms(lambda: step("resets"))
+    host_ms, busy_ms, top = _profiled(lambda: step("interpolated"))
+    rec["interp_b_nfe"], rec["resets_b_nfe"] = meter.b_nfe, rmeter.b_nfe
+    rec["interp_idle"] = 1.0 - busy_ms / host_ms
+    print(f"[42] {smi}: interpolated fused step {rec['interp_step_ms']:.3f}"
+          f" ms (median of 3 warm: {', '.join(f'{x:.3f}' for x in all_i)}) "
+          f"vs [33]'s resets-mode fused step {rec['resets_step_ms']:.3f} ms "
+          f"({', '.join(f'{x:.3f}' for x in all_r)}); b-NFE {meter.b_nfe} "
+          f"vs {rmeter.b_nfe}; a profiled interpolated step {host_ms:.1f} "
+          f"ms on the host, {busy_ms:.1f} ms of kernels: the device idle "
+          f"{rec['interp_idle']:.3f} of it; top kernels "
+          f"{[(k[0][:40], round(k[1], 3), k[2]) for k in top]}", flush=True)
+
+    _at("43")
+    # [43] the stiffness battery (bench.py:483-535) under one shared
+    # controller with the interpolated adjoint, tier 2: the measurement of
+    # ROADMAP queue 3's finding. A NaN is allowed only where a status says
+    # so; finiteness is reported, not required.
+    t5 = torch.linspace(0.0, STIFF_SPAN, STIFF_T)
+    sc = torch.tensor(np.logspace(0.0, 2.0, B), dtype=f32, device=dev)
+    real_solve, bwd = adj_mod.solve, []
+
+    def counted(*a, **k):
+        res_ = real_solve(*a, **k)
+        bwd.append(res_.stats)
+        return res_
+
+    def battery_step(meter=None):
+        bwd.clear()
+        q = tuple(p[k].clone().requires_grad_() for k in ("w1", "b1", "w2"))
+        ys_, fst = odeint_adjoint(
+            _battery_func(sc), y, t5, params=q, rtol=TOL, atol=TOL,
+            adjoint_mode="interpolated", nfe_meter=meter, return_stats=True,
+            options={"fuse": True, "max_num_steps": BATTERY_S},
+            adjoint_options={"max_num_steps": BATTERY_BWD})
+        return fst, torch.autograd.grad(torch.sum(ys_ ** 2), q)
+
+    meter = NFEMeter()
+    cpl.reset_launch_counts()
+    adj_mod.solve = counted
+    try:
+        (fst, grads), step_ms = _host_call(lambda: battery_step(meter))
+    finally:
+        adj_mod.solve = real_solve
+    b_status = max(s.status for s in bwd)
+    finite = [bool(torch.isfinite(g).all()) for g in grads]
+    all_nan = all(bool(torch.isnan(g).all()) for g in grads)
+    rec["battery"] = {
+        "forward_status": fst.status, "forward_nfe": fst.nfe,
+        "backward_status": b_status,
+        "backward_statuses": [s.status for s in bwd],
+        "b_nfe": meter.b_nfe, "b_steps": meter.b_steps,
+        "finite": all(finite), "step_ms": step_ms}
+    print(f"[43] battery, one shared controller, interpolated adjoint: "
+          f"K2 launches {cpl.plan_solve_launches} (emit_dense rows "
+          f"{BATTERY_S}); forward stats {list(fst)}; backward statuses by "
+          f"interval {rec['battery']['backward_statuses']} (budget "
+          f"{BATTERY_BWD} attempts), b-NFE {meter.b_nfe} ({meter.b_steps} "
+          f"steps); gradients finite {finite} (all NaN: {all_nan})",
+          flush=True)
+    print(f"[43] {smi}: battery step {step_ms:.3f} ms (one step; the same "
+          "battery per sample, K5 + K6, is [34]'s)", flush=True)
+    if cpl.plan_solve_launches != 1 or fst.status != 0:
+        raise AssertionError("[43] the battery's fused forward")
+    if not (all(finite) if b_status == 0 else all_nan):
+        raise AssertionError("[43] a NaN gradient without a failed status, "
+                             "or a failed backward with finite gradients")
+    return rec
+
+
 def main() -> int:
     import time
     import torch
@@ -3304,7 +3640,7 @@ def main() -> int:
     plan_pool = ThreadPoolExecutor(1)
     plan_pairs = _plan_pairs(dev)
     plan_builds = plan_pool.submit(cpl.build, plan_pairs + _aug_pairs(dev)
-                                   + _late_pairs(dev))
+                                   + _late_pairs(dev) + _dense_pairs(dev))
 
     _at("3")
     # [3] K1 against its plain version (dt 0.3: a typical main-path step),
@@ -4176,6 +4512,7 @@ def main() -> int:
     plan_pool.shutdown()
     aug = _aug_tier(smi, dev)
     late = _hyper_adams_tier(smi, dev)
+    dense = _dense_tier(smi, dev)
 
     # Bounds: the operations and bytes of each timed run's inputs.
     mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
@@ -4452,6 +4789,20 @@ def main() -> int:
         if k["name"] in wide_ms:
             k["wide_ms"] = wide_ms[k["name"]]
     kernels[1]["wide_batch_route_ms"] = wide["k2_highest_batch"]
+    # K2's dense-output emission ([41]-[43]: the plan route, K14 in K2).
+    kernels[1].update({
+        "dense_ms": dense["ms"], "dense_no_emission_ms":
+            dense["no_emission_ms"], "dense_plain_ms": dense["plain_ms"],
+        "dense_bound_ms": dense["bound"][0],
+        "dense_bound_by": dense["bound"][1],
+        "dense_emission_bound_ms": dense["emission_bound_ms"],
+        "dense_launches": dense["launches"],
+        "dense_max_abs_err": dense["err"],
+        "interpolated_step_ms": dense["interp_step_ms"],
+        "resets_step_ms": dense["resets_step_ms"],
+        "interpolated_b_nfe": dense["interp_b_nfe"],
+        "interpolated_step_device_idle": dense["interp_idle"],
+        "battery_interpolated": dense["battery"]})
     kernels[3]["wide_batch_route_ms"] = wide["k8_highest_batch"]
     print(f"[total] chip_smoke.py took {time.perf_counter() - run_t0:.1f} s",
           flush=True)

@@ -211,6 +211,22 @@ def _generic_call(**kw):
                                     torch.tensor([0.0, 1.0]), **kw)
 
 
+def _interpolated_trains():
+    """The generic odeint_adjoint with adjoint_mode='interpolated': d
+    sum(y(1)) / dy0 of dy/dt = -y is close to exp(-1), and equal to the
+    reference's within 1e-9 on the same inputs."""
+    y0 = torch.ones(2, dtype=torch.float64, requires_grad=True)
+    ys = P.odeint_adjoint(lambda t, y: -y, y0,
+                          torch.tensor([0.0, 1.0], dtype=torch.float64),
+                          adjoint_mode="interpolated")
+    ys[-1].sum().backward()
+    np.testing.assert_allclose(y0.grad.numpy(), np.exp(-1.0), rtol=1e-6)
+    ref = jax.grad(lambda y: jnp.sum(j_odeint_adjoint(
+        lambda t, yy: -yy, y, jnp.asarray([0.0, 1.0]),
+        adjoint_mode="interpolated")[-1]))(jnp.ones(2, jnp.float64))
+    np.testing.assert_allclose(y0.grad.numpy(), np.asarray(ref), rtol=1e-9)
+
+
 def _adams_trains():
     """The generic odeint_adjoint with a fixed_adams forward (once refused
     here, ROADMAP item 12) trains: d sum(y(1)) / dy0 of dy/dt = -y is
@@ -244,8 +260,9 @@ def _trains_with(options):
 
 
 @pytest.mark.parametrize("call, exc, match", [
-    (_generic_call(adjoint_mode="interpolated"), NotImplementedError,
-     "item 3"),
+    # adjoint_mode='interpolated' (once refused here, ROADMAP item 3)
+    # trains (tests/test_torch_interpolated.py holds it to the reference).
+    (_interpolated_trains, None, None),
     (_trains_with({"fuse": True}), None, None),
     (_adams_trains, None, None),
     (_trains_with({"per_sample": True}), None, None),

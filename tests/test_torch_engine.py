@@ -288,15 +288,38 @@ def test_fixed_grid_methods_are_ported(method):
 
 @pytest.mark.parametrize("options,item", [
     ({"fuse": True, "dot_precision": "mixed"}, "item 16"),
-    ({"dense_output": True}, "item 3"), ({"telemetry": True}, "item 3")],
+    ({"dense_output": True}, None), ({"telemetry": True}, None)],
     ids=["fuse-item 16", "dense_output-item 3", "telemetry-item 3"])
 def test_unported_options_name_their_roadmap_item(options, item):
     # 'fuse' runs the fused tier with every method
     # (tests/test_torch_fuse.py); K4's reduced tiers at a plan's dots
-    # still wait for item 16.
-    with pytest.raises(NotImplementedError, match=item):
-        P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0],
-                options=options)
+    # still wait for item 16. dense_output and telemetry (once refused
+    # here, ROADMAP item 3) run and match the reference's bounded loop
+    # (tests/test_torch_dense_output.py holds them in full).
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0],
+                    options=options)
+        return
+    got = P.solve(lambda t, y: -y, torch.ones(2, dtype=F64), _tt([0.0, 1.0]),
+                  options={**options, "first_step": 0.1})
+    ref = J.solve(lambda t, y: -y, jnp.ones(2, jnp.float64),
+                  jnp.asarray([0.0, 1.0]),
+                  options={**options, "first_step": 0.1, "max_steps": 64})
+    assert list(got.stats) == [int(s) for s in ref.stats]
+    if "telemetry" in options:
+        n = got.telemetry.dt.shape[0]
+        assert n == int(np.asarray(ref.telemetry.active).sum())
+        # The error ratio's cancellation drifts the step sizes by about
+        # eps / rtol (tests/test_torch_dense_output.py, its tolerances).
+        np.testing.assert_allclose(got.telemetry.dt.numpy(),
+                                   np.asarray(ref.telemetry.dt)[:n],
+                                   rtol=0, atol=5e-8)
+    else:
+        q = np.linspace(0.0, 1.0, 7)
+        np.testing.assert_allclose(got.dense.eval_flat(_tt(q)).numpy(),
+                                   np.asarray(ref.dense.eval_flat(
+                                       jnp.asarray(q))), rtol=0, atol=1e-11)
 
 
 def test_odeint_returns_trajectory_and_raises_on_failure():

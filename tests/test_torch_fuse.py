@@ -218,8 +218,11 @@ def test_unfusable_dynamics_fall_back_and_count():
 @pytest.mark.parametrize("call, exc, match", [
     (lambda f, y: PF.solve_fused(f, y, _t(T), dot_precision="mixed"),
      NotImplementedError, "item 16"),
+    # dense_output (once refused here, ROADMAP item 3) runs K2 with its
+    # interpolant emission (tests/test_torch_fused_dense.py holds it to
+    # the reference): its trajectory is held to the generic dopri5's.
     (lambda f, y: PF.solve_fused(f, y, _t(T), dense_output=True),
-     NotImplementedError, "item 3"),
+     None, "dopri5"),
     # The Adams methods, once refused here (K14 inside K10 and K11,
     # ROADMAP queue 2 items 1-2), now run: `match` names the method whose
     # generic solve the fused one is held to.

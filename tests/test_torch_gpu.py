@@ -70,7 +70,11 @@ only where the plain version has one. K4's shared-memory tiles at widths
 256 and 512: one evaluation
 within EVAL_BARS, float64 bitwise; K8 on them within chip_smoke.py's
 SOLVE_BARS for the wide rk4 x 128 (its 'bf16' mean gap grows with the
-width, so the tier is told apart per evaluation there).
+width, so the tier is told apart per evaluation there). K2's plan launch
+with its dense-output emission is bitwise equal to its plain version
+(out, stats, meta, coef) on the per-thread and coupled routes at B in
+{4096, 256, 33, 1}, and gives without the buffers the same out and stats;
+a refused launch raises.
 """
 
 import numpy as np
@@ -2460,3 +2464,92 @@ def test_group_solves_keep_their_statuses(cuda):
                                  input_power=3)
     assert st.tolist() == [0, 0, 0, 3]
     assert torch.equal(out[0], y0) and not out[1:].any()
+
+
+# ---- K2's dense-output emission (fast.solve_fused(dense_output=True)) ----
+
+DENSE_ROWS = 256
+
+
+@pytest.mark.parametrize("B", [4096, 256, 33, 1])
+@pytest.mark.parametrize("name", ["spiral", "meanfield"],
+                         ids=["per_thread", "coupled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plan_dense_emission_matches_plain(cuda, dtype, name, B):
+    """K2's plan launch with the emission (`csrc/rk_solve.cuh`): out,
+    stats, meta and coef bitwise equal to its plain version at the
+    wrapper's grid, on the per-thread route and a coupled plan's batch
+    route; the same launch without the buffers gives the same out and
+    stats, and two launches agree bitwise."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    cpl.reset_launch_counts()
+    plan, packed, y0, t, g, f0 = _plan_case(name, dtype, cuda, B=B)
+    args = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+    kw = dict(max_steps=DENSE_ROWS, emit_dense=DENSE_ROWS)
+    got = cpl.plan_solve(*args, **kw)
+    assert len(got) == 4 and got[1][3].item() == 0
+    assert _same(got, cpl.plan_solve(*args, **kw))
+    ref = cpl.plan_solve_plain(
+        *args, n_blocks=cpl.plan_blocks(plan, B, cuda), **kw)
+    assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
+    bare = cpl.plan_solve(*args, max_steps=DENSE_ROWS)
+    assert _same(bare, got[:2])
+    n = got[1][1].item()
+    meta, coef = got[2], got[3]
+    assert coef.shape == (DENSE_ROWS, 5, B, y0.shape[1])
+    assert torch.isinf(meta[n:]).all() and (coef[n:] == 0).all()
+    assert meta[n - 1, 1].item() == t[-1].item()
+    assert cpl.plan_solve_launches == 3
+
+
+def test_failed_emission_launch_raises(cuda, monkeypatch):
+    """A launch that the kernel refuses (here: rows without a metadata
+    buffer) raises RuntimeError; nothing falls back."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    plan, packed, y0, t, g, f0 = _plan_case("spiral", torch.float32, cuda)
+    real = cpl._ptr
+
+    def null_meta(x):
+        if x.ndim == 2 and x.shape == (DENSE_ROWS, 3):
+            return real(x).__class__(0)
+        return real(x)
+
+    monkeypatch.setattr(cpl, "_ptr", null_meta)
+    with pytest.raises(RuntimeError, match="plan_solve launch"):
+        cpl.plan_solve(plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0,
+                       max_steps=DENSE_ROWS, emit_dense=DENSE_ROWS)
+
+
+def test_dense_entry_points_launch_k2_once(cuda):
+    """fast.solve_fused(dense_output=True) is one K2 plan launch with the
+    emission; odeint_adjoint(adjoint_mode='interpolated', options={'fuse':
+    True}) one such launch forward, no K3, the generic backward, no
+    fallback, finite gradients; the interpolant at the outputs agrees with
+    the trajectory (interior outputs are the drain's own evaluation)."""
+    from tfdiffeq_tpu_torch import odeint_adjoint
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    p, y = _bench(256, torch.float32, cuda)
+
+    def f(tt, yy, q):
+        return torch.tanh((yy ** 3) @ q[0] + q[1]) @ q[2] + q[3]
+
+    q = tuple(p[k].clone().requires_grad_() for k in ("w1", "b1", "w2",
+                                                      "b2"))
+    t = torch.linspace(0.0, 5.0, 12)
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    res = fast.solve_fused(lambda tt, yy: f(tt, yy, q), y, t,
+                           dense_output=True)
+    torch.cuda.synchronize()
+    assert (cpl.plan_solve_launches, cpl.plan_adjoint_launches) == (1, 0)
+    assert res.stats.status == 0 and res.dense.coeffs.is_cuda
+    ev = res.dense.eval_flat(t).reshape(res.ys.shape)
+    assert float((ev - res.ys).abs().max()) < 1e-5
+    cpl.reset_launch_counts()
+    ys = odeint_adjoint(f, y, t, params=q, adjoint_mode="interpolated",
+                        options={"fuse": True})
+    grads = torch.autograd.grad((ys ** 2).mean(), q)
+    torch.cuda.synchronize()
+    assert (cpl.plan_solve_launches, cpl.plan_adjoint_launches) == (1, 0)
+    assert fast.fuse_fallbacks == fb
+    assert all(torch.isfinite(x).all() for x in grads)

@@ -38,8 +38,19 @@ falls back) with the generic backward; with `per_sample`, the generic
 adjoint a sample at a time instead (the reference's vmap). Without `fuse`,
 `per_sample` reaches the forward solve only.
 
-Not ported yet (NotImplementedError naming the ROADMAP queue 1 item):
-`adjoint_mode='interpolated'` (needs `dense_output`, item 3).
+`adjoint_mode='interpolated'` (Daulbaev et al. 2020; reference
+`adjoint.py:185-264`, `:404-663`): the forward keeps every accepted step's
+interpolant (`solve(options={'dense_output': True})`, or with `fuse` K2's
+emission through `fast.solve_fused(dense_output=True)`, tier 1 skipped as
+in the reference), and the backward integrates (a_y, a_params, a_t) alone
+with y(s) = dense.eval_flat(s), detached, instead of re-solving y; the
+seminorm then covers a_y only. It needs an adaptive forward method (a
+fixed-grid adjoint method takes `num_steps`, not `step_size`), and a
+`forward_solver` that returns (ys, stats, DenseOutput) and says so with
+`emits_dense = True`. With `per_sample` it raises ValueError: the
+reference silently runs the resets backward there (generic) or drops
+per_sample from the fused forward (ROADMAP.md queue 3, known faults in the
+reference).
 """
 
 from __future__ import annotations
@@ -107,15 +118,15 @@ class _Adjoint(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, y0, t, *leaves):
+        dense = None
         if cfg["forward_solver"] is not None:
-            ys, stats = cfg["forward_solver"](y0, t,
-                                              cfg["params_of"](leaves))
+            ys, stats, *rest = cfg["forward_solver"](
+                y0, t, cfg["params_of"](leaves))
             stats = SolverStats(*[int(s) for s in stats])
+            dense = rest[0] if rest else None
         else:
-            res = solve(lambda tt, yy: cfg["call"](tt, yy, leaves), y0, t,
-                        rtol=cfg["rtol"], atol=cfg["atol"],
-                        method=cfg["method"], options=cfg["fwd_options"])
-            ys, stats = res.ys, res.stats
+            res = _forward_solve(cfg, y0, t, leaves)
+            ys, stats, dense = res.ys, res.stats, res.dense
         emit_fwd(cfg["nfe_meter"], stats.nfe, stats.n_accepted)
         if stats.status != 0:
             raise RuntimeError(
@@ -124,6 +135,7 @@ class _Adjoint(torch.autograd.Function):
                 "options['max_num_steps'] or loosen tolerances")
         cfg["stats"] = stats
         ctx.cfg = cfg
+        ctx.dense = dense if cfg["interpolated"] else None
         ctx.save_for_backward(ys, t, *leaves)
         return ys
 
@@ -157,6 +169,15 @@ class _Adjoint(torch.autograd.Function):
                               for v, x in zip(vjp, [y_, s_, *ls])]
             return (dy.detach(), -v_y, tuple(-v for v in v_p), -v_t)
 
+        dense = ctx.dense
+
+        def aug_interp(s, aug):
+            # y(s) from the forward's interpolants, not re-solved.
+            a_y, _, _ = aug
+            y = dense.eval_flat(s).detach().to(dev, ydtype)
+            _, *v = aug_dynamics(s, (y, a_y, None, None))
+            return tuple(v)
+
         if cfg["walk"] is not None:
             a_y, ts_bar, a_p, b_nfe, b_acc = _bwd_fixed_grid_walk(
                 cfg["walk"], SOLVERS[cfg["adjoint_method"]][1], aug_dynamics,
@@ -176,14 +197,17 @@ class _Adjoint(torch.autograd.Function):
             f_i = f_flat(t_d[i].to(dev), ys_flat[i], leaves)
             t_bar = torch.dot(f_i, g_flat[i]).to(t.dtype)
             a_t0 = a_t0 - t_bar
-            res = solve(aug_dynamics, (ys_flat[i], a_y, a_p, a_t0),
-                        torch.stack([t_d[i], t_d[i - 1]]),
+            if dense is not None:
+                fn, aug0 = aug_interp, (a_y, a_p, a_t0)
+            else:
+                fn, aug0 = aug_dynamics, (ys_flat[i], a_y, a_p, a_t0)
+            res = solve(fn, aug0, torch.stack([t_d[i], t_d[i - 1]]),
                         rtol=cfg["adjoint_rtol"], atol=cfg["adjoint_atol"],
                         method=cfg["adjoint_method"],
                         options=cfg["bwd_options"])
-            _, a_y, a_p, a_t0 = (x[-1] if isinstance(x, Tensor)
-                                 else tuple(l[-1] for l in x)
-                                 for x in res.ys)
+            *_, a_y, a_p, a_t0 = (x[-1] if isinstance(x, Tensor)
+                                  else tuple(l[-1] for l in x)
+                                  for x in res.ys)
             a_y = a_y + g_flat[i - 1]
             b_nfe += res.stats.nfe + 1               # +1: the t_bar eval
             b_acc += res.stats.n_accepted
@@ -302,25 +326,44 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     for o in (fwd_options, bwd_options):
         o.pop("dot_precision", None)
         o.pop("fuse", None)
-    if use_fuse:
-        # Tier 2's forward is the fused solve (`odeint`'s own fallback).
-        fwd_options["fuse"] = True
     if adjoint_mode not in ("resets", "interpolated"):
         raise ValueError(f"adjoint_mode must be 'resets' or 'interpolated',"
                          f" got {adjoint_mode!r}")
-    if adjoint_mode == "interpolated":
-        raise NotImplementedError(
-            "adjoint_mode='interpolated' needs the forward dense output "
-            "(options={'dense_output': True}), not ported yet: ROADMAP.md "
-            "queue 1 item 3")
+    interpolated = adjoint_mode == "interpolated"
+    if use_fuse and not interpolated:
+        # Tier 2's forward is the fused solve (`odeint`'s own fallback);
+        # the interpolated one's is `_forward_solve`'s.
+        fwd_options["fuse"] = True
+    if (forward_solver is not None and interpolated
+            and not getattr(forward_solver, "emits_dense", False)):
+        raise ValueError(
+            "forward_solver cannot be combined with "
+            "adjoint_mode='interpolated' unless it returns per-step "
+            "interpolants — (ys, stats, DenseOutput) with an "
+            "`emits_dense = True` attribute (fast.solve_fused with "
+            "dense_output=True provides this via options={'fuse': True})")
     if forward_solver is not None and options:
         raise ValueError(
             "options are ignored when forward_solver replaces the internal "
             "forward solve — configure the forward through the solver "
             "callable itself (adjoint_options still control the backward)")
-    # The eager forward has no bounded loop, so telemetry cannot apply
-    # (the reference drops it on its while loop the same way).
+    if interpolated and _kind(method) != "adaptive":
+        raise ValueError("adjoint_mode='interpolated' needs the forward "
+                         "dense-output interpolants, which only adaptive "
+                         "methods emit; use an adaptive forward method or "
+                         "adjoint_mode='resets'")
+    if interpolated and per_sample:
+        raise ValueError(
+            "adjoint_mode='interpolated' with per_sample is unsupported: "
+            "per-sample steps have no shared interpolant sequence (the "
+            "reference runs the resets backward instead, or drops "
+            "per_sample from its fused forward)")
+    # The forward's telemetry is not returned (the reference drops it on
+    # its while loop); the interpolated backward needs the dense output.
     fwd_options.pop("telemetry", None)
+    if interpolated:
+        fwd_options.pop("loop", None)
+        fwd_options["dense_output"] = True
     t_np = torch.as_tensor(t).detach().cpu().to(torch.float64).reshape(-1) \
         .numpy()
     if (_kind(method) == "fixed" and fwd_options.get("step_size") is not None
@@ -335,6 +378,14 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     bwd_options.pop("grid_constructor", None)
     step_size = bwd_options.pop("step_size", None)
     adj_kind = _kind(adjoint_method)
+    if (interpolated and adj_kind == "fixed" and step_size is not None
+            and "num_steps" not in bwd_options):
+        raise ValueError(
+            "adjoint_mode='interpolated' with a fixed-grid adjoint method "
+            "derives its backward grid from num_steps; pass "
+            "adjoint_options={'num_steps': n} (the per-interval walk that "
+            "step_size builds integrates y as part of the augmented state, "
+            "which 'interpolated' replaces)")
     walk = None
     if step_size is not None and "num_steps" not in bwd_options \
             and adj_kind == "fixed" and t_np.shape[0] > 1:
@@ -347,7 +398,7 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
                                                           "dense_output"})
     bwd_options = {k: v for k, v in bwd_options.items() if k in allowed}
 
-    if use_fuse and forward_solver is None:
+    if use_fuse and forward_solver is None and not interpolated:
         out = _fused_tiers(func, params, y0, t, rtol, atol, method,
                            adjoint_rtol, adjoint_atol, adjoint_method,
                            adjoint_seminorm, fwd_options, bwd_options, walk,
@@ -395,9 +446,12 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     N = y0_in.numel()
 
     if adjoint_seminorm and adj_kind == "adaptive":
+        # Augmented flat layout: [y (N), a_y (N), a_params..., a_t], or
+        # interpolated [a_y (N), a_params..., a_t].
+        n_ctl = N if interpolated else 2 * N
+
         def _seminorm(x_flat):
-            # Augmented flat layout: [y (N), a_y (N), a_params..., a_t].
-            return rms_norm(x_flat[:2 * N])
+            return rms_norm(x_flat[:n_ctl])
 
         bwd_options.setdefault("norm", _seminorm)
 
@@ -407,7 +461,9 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
            "fwd_options": fwd_options, "adjoint_rtol": adjoint_rtol,
            "adjoint_atol": adjoint_atol, "adjoint_method": adjoint_method,
            "bwd_options": bwd_options, "walk": walk,
-           "nfe_meter": nfe_meter}
+           "nfe_meter": nfe_meter, "interpolated": interpolated,
+           "fused_dense": use_fuse and interpolated
+           and forward_solver is None}
     t_in = t if isinstance(t, Tensor) else torch.as_tensor(t)
     if t_in.ndim == 0:
         t_in = t_in[None]
@@ -417,6 +473,58 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     if return_stats:
         return ys, cfg["stats"]
     return ys
+
+
+#: Forward options `fast.solve_fused(dense_output=True)` honours (the
+#: reference's `_build_fused_forward`); any other one beside the dense
+#: output runs the generic forward, as tier 2 does.
+_DENSE_FUSE_OPTS = frozenset({"first_step", "max_num_steps", "safety",
+                              "ifactor", "dfactor", "dense_output"})
+
+
+def _forward_solve(cfg, y0: Tensor, t: Tensor, leaves):
+    """The internal forward of `_Adjoint`: the generic solve with the
+    forward options (dense output included for 'interpolated'), or with
+    `fuse` and 'interpolated' the fused solve that keeps K2's interpolants
+    (tier 2's forward, reference `adjoint.py:610-663`). Dynamics, states or
+    options outside the fused subset warn, add 1 to `fast.fuse_fallbacks`
+    and run the generic solve."""
+    import warnings
+
+    from . import fast
+    from .ops.plan_bridge import FusionError
+
+    def f(tt, yy):
+        return cfg["call"](tt, yy, leaves)
+
+    opts = cfg["fwd_options"]
+    if cfg["fused_dense"]:
+        try:
+            unsupported = set(opts) - _DENSE_FUSE_OPTS
+            if unsupported:
+                raise FusionError(f"options {sorted(unsupported)} are not "
+                                  "supported by the fused kernel")
+            if not (isinstance(y0, Tensor) and y0.ndim == 2):
+                raise FusionError("fused forward needs a single [B, D] "
+                                  "tensor state")
+            if not all(isinstance(x, (int, float)) or (
+                    isinstance(x, Tensor) and x.ndim == 0)
+                    for x in (cfg["rtol"], cfg["atol"])):
+                raise FusionError("per-leaf tolerance pytrees are not "
+                                  "supported by the fused kernel")
+            return fast.solve_fused(
+                f, y0, t, rtol=cfg["rtol"], atol=cfg["atol"],
+                method=cfg["method"], first_step=opts.get("first_step"),
+                max_num_steps=opts.get("max_num_steps"),
+                safety=float(opts.get("safety", 0.9)),
+                ifactor=float(opts.get("ifactor", 10.0)),
+                dfactor=float(opts.get("dfactor", 0.2)), dense_output=True)
+        except FusionError as e:
+            fast.fuse_fallbacks += 1
+            warnings.warn("odeint_adjoint(options={'fuse': True}): forward "
+                          f"runs the generic engine — {e}", stacklevel=4)
+    return solve(f, y0, t, rtol=cfg["rtol"], atol=cfg["atol"],
+                 method=cfg["method"], options=opts)
 
 
 def _fused_tiers(func, params, y0, t, rtol, atol, method,

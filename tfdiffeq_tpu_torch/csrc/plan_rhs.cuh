@@ -274,16 +274,23 @@ int launch_plan_solve(const void* tau, const void* y0, const void* f0,
                       const double* c_mid, const void* consts, int n_consts,
                       const void* sample_consts, int smem_consts,
                       void* gwork, long gwork_bytes, int n_blocks,
-                      void* stream) {
+                      void* meta, void* coef, int dense_S, void* stream) {
   if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 ||
       D != P::kDim || P::kOutRows != D || threads < 32 ||
-      threads > kSolveThreads || (threads & (threads - 1)))
+      threads > kSolveThreads || (threads & (threads - 1)) ||
+      dense_S < 0 || (dense_S > 0 && (!meta || !coef)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tableau<T> tab =
       make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
-  const Scalars<T> sc =
+  Scalars<T> sc =
       make_scalars<T>(dt0, rtol, atol, dt_min, sign, safety, ifactor,
                       dfactor, max_steps, valid, T_out, B, D);
+  // K2's dense output (csrc/rk_solve.cuh): null buffers and 0 without it.
+  if (dense_S > 0) {
+    sc.meta = static_cast<T*>(meta);
+    sc.coef = static_cast<T*>(coef);
+    sc.dense_S = dense_S;
+  }
   const size_t smem =
       sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -499,12 +506,14 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
       const double* a, const double* b_sol, const double* b_err,            \
       const double* c_mid, const void* consts, int n_consts,                \
       const void* sample_consts, int smem_consts, void* gwork,              \
-      long gwork_bytes, int n_blocks, void* stream) {                       \
+      long gwork_bytes, int n_blocks, void* meta, void* coef, int dense_S,  \
+      void* stream) {                                                       \
     return tfd::launch_plan_solve<TYPE, tfd::Plan>(                         \
         tau, y0, f0, out, stats, work, T_out, B, D, threads, dt0, rtol,     \
         atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,     \
         stages, order, fsal, c, a, b_sol, b_err, c_mid, consts, n_consts,   \
-        sample_consts, smem_consts, gwork, gwork_bytes, n_blocks, stream);  \
+        sample_consts, smem_consts, gwork, gwork_bytes, n_blocks, meta,     \
+        coef, dense_S, stream);                                             \
   }
 #define TFD_PLAN_FIXED_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \

@@ -12,6 +12,18 @@
 // launch arguments. Output is written straight into the batch-major
 // [T, B, D] layout.
 //
+// Dense output (emit_dense, pallas_kernels.py:729, :756-760, :864-906;
+// fast.solve_fused(dense_output=True) and the interpolated adjoint's fused
+// forward): when the launch passes the buffers (Scalars::meta, coef and
+// dense_S = S > 0), each accepted step's interpolant goes to row si of
+// coef [S, 5, B, D] (the planes ca, cb, cc, df0, y0 that the drain computes,
+// in its layout, so the stores coalesce as the output rows do) and block 0's
+// thread 0 writes meta[si] = (t, t1, dt); si advances on accept while
+// si < S. The wrapper fills meta with +inf, so unused rows never win a
+// search. The emission writes 5 S_acc B D values; it is bound by those
+// bytes over the card's memory rate. With null buffers the solve is what it
+// was without them.
+//
 // Design. The solve runs on a grid of n_blocks blocks of up to 512 threads
 // (ops/cuda_kernels.py solve_blocks: one per SM, or fewer for a small
 // batch), all resident together (csrc/grid_meet.cuh launch_grid). Block k
@@ -73,6 +85,10 @@ template <typename T>
 struct Scalars {
   T dt0, rtol, atol, dt_min, sign, safety, ifactor, dfactor;
   int max_steps, valid, T_out, B, D;
+  // Dense output: meta [dense_S, 3], coef [dense_S, 5, B, D], or null and 0.
+  T* meta;
+  T* coef;
+  int dense_S;
 };
 
 // Bytes of K2's grid workspace: the meetings' counter and the two share
@@ -142,6 +158,7 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
   T t = t_start;
   T dt = sc.dt0;
   int oi = 1, nfe = 0, nacc = 0, nrej = 0;
+  int si = 0;  // the dense-output row of the next accepted step
   // Non-monotonic times: status 3 (INVALID_TIMES), output zero beyond row 0.
   int status = (t_end > t_start && sc.valid) ? 0 : 3;
 
@@ -301,6 +318,12 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
     if (accept) {
       int oi_new = oi;
       while (oi_new < T_out && tau[oi_new] <= t1) ++oi_new;
+      T* const dc = si < sc.dense_S ? sc.coef + long(si) * 5 * BD : nullptr;
+      if (dc && blk == 0 && tid == 0) {
+        sc.meta[3L * si] = t;
+        sc.meta[3L * si + 1] = t1;
+        sc.meta[3L * si + 2] = dth;
+      }
       // ---- phase 2: dense output, Kahan update, drain, FSAL.
       for (int b = b_lo + tid; b < b_hi; b += nth) {
         const long base = long(b) * D;
@@ -326,6 +349,14 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
             cb = T(2) * (y0 - y1) + df0 + df1;
             cc = T(3) * (y1 - y0) - T(2) * df0 - df1;
           }
+          if (dc) {
+            T* const p = dc + base + d;
+            p[0] = ca;
+            p[BD] = cb;
+            p[2 * BD] = cc;
+            p[3 * BD] = df0;
+            p[4 * BD] = y0;
+          }
           // Kahan-compensated accumulation.
           const T comp = C[base + d];
           const T adj = delta - comp;
@@ -343,6 +374,7 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
         }
       }
       oi = oi_new;
+      if (dc) ++si;
     }
 
     // Status rules of the kernel (pallas_kernels.py:896-902).
@@ -383,6 +415,9 @@ Scalars<T> make_scalars(double dt0, double rtol, double atol, double dt_min,
   sc.T_out = T_out;
   sc.B = B;
   sc.D = D;
+  sc.meta = nullptr;
+  sc.coef = nullptr;
+  sc.dense_S = 0;
   return sc;
 }
 

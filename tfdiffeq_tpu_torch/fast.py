@@ -76,9 +76,11 @@ item): the dot-precision tiers with
 `per_sample=True` (item 20), and the multi-card `axis_name` /
 `global_batch` coupling (item 18); `solve_conv_ode_sharded` has no
 counterpart here yet (item 18), nor has `cnf_log_prob_auto` (item 16, the
-plan CNF); `solve_fused` takes no reduced dot_precision, no dense output
-and no coupled plan on a fixed grid or on the Adams kernels yet (items 16
-and 3, queue 2 item 3), nor `solve_hyper` a coupled plan.
+plan CNF); `solve_fused` takes no reduced dot_precision and no coupled
+plan on a fixed grid or on the Adams kernels yet (item 16, queue 2 item
+3), nor `solve_hyper` a coupled plan. `solve_fused(dense_output=True)` keeps K2's
+per-step interpolants (a `DenseOutput`), which drive
+`odeint_adjoint(adjoint_mode='interpolated', options={'fuse': True})`.
 What the kernels cannot take (widths past `MAX_WIDTH`) raises, as do the
 reduced tiers on the Adams kernels and an Adams `adjoint_method` (no
 adjoint kernel exists for it in either package). As in the reference,
@@ -114,7 +116,8 @@ from .ops import plan_bridge as _pb
 from .ops.pytree import tree_leaves, tree_unflatten
 from .odeint import solve as _generic_solve
 from .solvers.adaptive import AdaptiveConfig, solve_adaptive
-from .solvers.base import CanonicalProblem, SolveResult, SolverStats
+from .solvers.base import (CanonicalProblem, DenseOutput, SolveResult,
+                           SolverStats)
 from .solvers.fixed_grid import steps_for_size, uniform_grid
 from .solvers.hyper import HYPER_KINDS
 from .utils.nfe import emit_bwd, emit_fwd
@@ -1227,10 +1230,21 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
     same grids, max_order default 4, max_iters) or K11 ('adams': VCABM from
     f0 and the HNW first step at order 1, max_order default 12), as
     `solve_mlp_spec` does; a reduced dot_precision raises ValueError there,
-    as in the reference. Not ported yet (NotImplementedError naming the
-    ROADMAP item): a coupled plan on a fixed grid or on the Adams kernels
-    (queue 1 item 16, queue 2 item 3), a reduced dot_precision (K4 at the
-    plan sites, item 16) and dense_output (item 3).
+    as in the reference.
+
+    dense_output=True (adaptive RK methods, one controller): K2 also keeps
+    every accepted step's interpolant in a buffer of S = max_num_steps
+    (default 1024) rows, and the step budget is S, so running out of rows
+    surfaces as status 1 (MAX_STEPS_REACHED), as in the reference;
+    `SolveResult.dense` is a `DenseOutput` over the flat [B * D] state
+    (batch-major) whose unused rows read t1 = +inf. The VCABM, the
+    fixed-grid and Adams methods and per_sample refuse it with FusionError,
+    as in the reference (the reference's grid-blocked `BlockDenseOutput`
+    has no counterpart: K2 runs one controller at every batch).
+
+    Not ported yet (NotImplementedError naming the ROADMAP item): a coupled
+    plan on a fixed grid or on the Adams kernels (queue 1 item 16, queue 2
+    item 3) and a reduced dot_precision (K4 at the plan sites, item 16).
     """
     y0 = torch.as_tensor(y0)
     squeeze = False
@@ -1251,6 +1265,9 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
             f"{sorted(tableaus.FIXED_TABLEAUS_BY_NAME)} fixed-grid, "
             f"{sorted(_ADAMS_METHODS)} Adams; the hypersolvers run "
             "solve_hyper)")
+    if method == "adams" and dense_output:
+        raise _pb.FusionError(
+            "dense_output applies to adaptive RK methods only")
     if dot_precision not in ("highest", "bf16", "mixed"):
         raise ValueError(f"dot_precision must be 'highest', 'bf16' or "
                          f"'mixed', got {dot_precision!r}")
@@ -1263,22 +1280,28 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         raise NotImplementedError(
             f"solve_fused(dot_precision={dot_precision!r}): K4's tiers at "
             "the plan's dots are not ported yet: ROADMAP.md queue 1 item 16")
-    if dense_output:
-        raise NotImplementedError(
-            "solve_fused(dense_output=True) is not ported yet: ROADMAP.md "
-            "queue 1 item 3 (remaining engine options)")
+    if dense_output and (fixed or adams):
+        raise _pb.FusionError(
+            "dense_output applies to adaptive methods only (the generic "
+            "fixed-grid engine has no dense output either)")
     if per_sample and (fixed or adams):
         raise _pb.FusionError(
             "per_sample applies to adaptive RK methods only (fixed grids "
             "and the Adams kernels have one controller or none)")
+    if per_sample and dense_output:
+        raise _pb.FusionError(
+            "per_sample + dense_output is unsupported (per-sample steps "
+            "have no shared interpolant sequence)")
     y0, t = _check_spec_inputs(y0, t)
     dtype, dev = y0.dtype, y0.device
 
-    def result(out, stats, lane=None):
+    def result(out, stats, extra=None):
         ys = out[:, 0] if squeeze else out
-        if lane is not None and squeeze:
-            lane = SolverStats(*(x[0] for x in lane))
-        return SolveResult(ys, stats, lane_stats=lane)
+        if dense_output:
+            return SolveResult(ys, stats, dense=extra)
+        if extra is not None and squeeze:
+            extra = SolverStats(*(x[0] for x in extra))
+        return SolveResult(ys, stats, lane_stats=extra)
 
     if t.shape[0] == 1:
         return result(y0[None].clone(), SolverStats(0, 0, 0, 0))
@@ -1286,13 +1309,15 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
     plan, consts = _pb.build_plan(func, t[0].to(dev), y0, matmul=matmul)
     _check_plan_route(plan, per_sample, fixed, method)
     packed = _pb.pack_consts(plan, consts, dtype, dev)
-    out, stats, lane = _plan_solve(
+    out, stats, extra = _plan_solve(
         plan, packed, y0, t, rtol=rtol, atol=atol, method=method,
         max_num_steps=max_num_steps, first_step=first_step, safety=safety,
         ifactor=ifactor, dfactor=dfactor, num_steps=num_steps,
         step_size=step_size, per_sample=per_sample, max_order=max_order,
-        max_iters=max_iters)
-    return result(out, stats, lane)
+        max_iters=max_iters,
+        emit_dense=((int(max_num_steps) if max_num_steps is not None
+                     else 1024) if dense_output else 0))
+    return result(out, stats, extra)
 
 
 def _check_plan_route(plan, per_sample: bool, fixed: bool,
@@ -1316,12 +1341,15 @@ def _check_plan_route(plan, per_sample: bool, fixed: bool,
 def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
                 max_num_steps, first_step, safety=0.9, ifactor=10.0,
                 dfactor=0.2, num_steps=None, step_size=None,
-                per_sample=False, max_order=None, max_iters=4):
+                per_sample=False, max_order=None, max_iters=4,
+                emit_dense=0):
     """The forward solve of a captured plan (one K2, K5, K8, K10 or K11
     launch): f0 and, for an adaptive method or VCABM without first_step,
     the HNW first step by the plan's plain version (2 extra evaluations,
     else 1, counted in nfe). y0 [B, D] on its device, t the host times.
-    Returns (out [T, B, D], SolverStats, lane SolverStats or None)."""
+    Returns (out [T, B, D], SolverStats, extra): extra is the lane
+    SolverStats with per_sample, with emit_dense = S > 0 K2's DenseOutput
+    (its S rows; the step budget is S, as in the reference), else None."""
     dtype, dev = y0.dtype, y0.device
     fixed = method in tableaus.FIXED_TABLEAUS_BY_NAME
     sign = torch.tensor(1.0 if t[-1] >= t[0] else -1.0, dtype=dtype)
@@ -1378,10 +1406,23 @@ def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
         return (out, SolverStats(nfe + extra_nfe * y0.shape[0], nacc, nrej,
                                  status),
                 SolverStats(lane[0] + extra_nfe, lane[1], lane[2], lane[3]))
-    out, stats = cuda_plan.plan_solve(plan, packed, y0, tau, dt0, rtol, atol,
-                                      float(sign), f0, **kw)
+    if emit_dense:
+        # Reference fast.py:1162-1185: max_steps = S, so running out of
+        # rows surfaces as MAX_STEPS_REACHED; the rows are batch-major
+        # already (the reference transposes from [5 S, D, B]).
+        kw["max_steps"] = emit_dense
+        out, stats, meta, coef = cuda_plan.plan_solve(
+            plan, packed, y0, tau, dt0, rtol, atol, float(sign), f0,
+            emit_dense=emit_dense, **kw)
+        m = meta.t().contiguous()
+        extra = DenseOutput(m[0], m[1], m[2],
+                            coef.reshape(emit_dense, 5, -1), sign)
+    else:
+        out, stats = cuda_plan.plan_solve(plan, packed, y0, tau, dt0, rtol,
+                                          atol, float(sign), f0, **kw)
+        extra = None
     nfe, nacc, nrej, status = stats.tolist()
-    return out, SolverStats(nfe + extra_nfe, nacc, nrej, status), None
+    return out, SolverStats(nfe + extra_nfe, nacc, nrej, status), extra
 
 
 def solve_hyper(func, hypernet, y0: Tensor, t, *,

@@ -42,9 +42,16 @@ Options of the adaptive methods, against the reference's allowlist:
   warn, add 1 to `fast.fuse_fallbacks` and run the generic engine (the
   per-sample loop below with ``per_sample``); a reduced ``dot_precision``
   that does not fuse raises ValueError. A failed build or launch raises;
-- not ported yet, raising NotImplementedError with the ROADMAP item that
-  brings them: ``dense_output`` and ``telemetry`` (item 3, remaining
-  engine options).
+- ``dense_output``: `SolveResult.dense` holds a `DenseOutput` with every
+  accepted step's interpolant (`eval_flat(t)` evaluates the flat state
+  anywhere in [t[0], t[-1]]; the interpolated adjoint runs on it), in tau
+  space with the caller's sign stamped on;
+- ``telemetry``: `SolveResult.telemetry` holds a `StepTelemetry` with
+  every attempt's start, clamped step and acceptance.
+  Both need the reference's bounded loop: with ``loop='while'`` they raise
+  its ValueError. Beside ``fuse`` they run the generic engine, as any
+  option outside the fused allowlist does (the fused dense output is
+  `fast.solve_fused(dense_output=True)`).
 
 Options of the Adams family, registered by `solvers/fixed_adams.py` and
 `solvers/adams.py` with the reference's allowlists: ``max_order`` and
@@ -87,11 +94,6 @@ SOLVERS = {**{name: ("fixed", tab)
 
 #: Option allowlists of solvers added with `register_solver`.
 _CUSTOM_ALLOWED = {}
-
-_NOT_PORTED_OPTIONS = {
-    "dense_output": "queue 1 item 3 (remaining engine options)",
-    "telemetry": "queue 1 item 3 (remaining engine options)",
-}
 
 #: Options the fused whole-solve kernels honour (reference odeint.py:103-121);
 #: any other option beside 'fuse' runs the generic engine.
@@ -146,16 +148,11 @@ def _allowed_options(method: str) -> frozenset:
     return _CUSTOM_ALLOWED.get(method, ADAPTIVE_OPTIONS)
 
 
-def _check_not_ported(method: str, options: dict) -> None:
+def _check_method_options(method: str, options: dict) -> None:
     if method not in SOLVERS:
         raise ValueError(f"Unknown method {method!r}; available: "
                          f"{sorted(SOLVERS)}")
     allowed = _allowed_options(method)
-    for key, item in _NOT_PORTED_OPTIONS.items():
-        if key in allowed and options.get(key):
-            raise NotImplementedError(
-                f"options={{{key!r}: ...}} is not ported to PyTorch yet: "
-                f"ROADMAP.md {item}")
     if "max_steps" in options and "max_steps" in allowed:
         raise ValueError(
             "options['max_steps'] is the reference's static step budget for "
@@ -165,6 +162,21 @@ def _check_not_ported(method: str, options: dict) -> None:
             "while", "bounded"):
         raise ValueError(f"unknown loop mode {options['loop']!r} "
                          "(expected 'while' or 'bounded')")
+
+
+def _check_bounded(options: dict, loop: str) -> None:
+    """The reference's refusals (odeint.py:360-363, :374-378): telemetry
+    and dense output need its bounded loop."""
+    if loop == "bounded":
+        return
+    if options.get("telemetry"):
+        raise ValueError("options={'telemetry': True} requires the bounded "
+                         "loop (per-attempt history needs a static step "
+                         "budget)")
+    if options.get("dense_output"):
+        raise ValueError("options={'dense_output': True} requires the "
+                         "bounded loop (per-step interpolants need a static "
+                         "step budget)")
 
 
 def _per_sample(func: Callable, y0, t, rtol, atol, method: str,
@@ -308,7 +320,7 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
     """
     method = method or "dopri5"
     options = dict(options or {})
-    _check_not_ported(method, options)
+    _check_method_options(method, options)
     kind, impl = SOLVERS[method]
     if options.get("fuse") and kind not in ("adaptive", "fixed") \
             and method not in _ADAMS and method not in _HYPER:
@@ -327,9 +339,13 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
                          if prec != "highest" else options, kind)
         if res is not None:
             return res
+    loop = options.get("loop")
     for key in _NO_OP_OPTIONS:
         options.pop(key, None)
     if options.pop("per_sample", False):
+        # The reference's vmap runs each sample on its while loop unless
+        # told otherwise, and keeps no sample's telemetry or dense output.
+        _check_bounded(options, loop or "while")
         return _per_sample(func, y0, t, rtol, atol, method, options)
 
     prob = canonicalize(func, y0, t)
@@ -346,6 +362,7 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
             dfactor=float(options.get("dfactor", 0.2)),
             icoeff=float(options.get("icoeff", 1.0)),
             pcoeff=float(options.get("pcoeff", 0.0)))
+        _check_bounded(options, loop or "bounded")
         norm = options.get("norm")
         if norm == "max":
             norm = max_norm
@@ -354,7 +371,10 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
         elif isinstance(norm, str):
             raise ValueError(f"unknown norm {norm!r}: expected 'rms', "
                              "'max', or a callable")
-        cfg = AdaptiveConfig(tableau=impl, controller=ctrl, norm=norm)
+        cfg = AdaptiveConfig(
+            tableau=impl, controller=ctrl, norm=norm,
+            telemetry=bool(options.get("telemetry", False)),
+            emit_dense=bool(options.get("dense_output", False)))
         result = solve_adaptive(prob, cfg, rtol, atol,
                                 first_step=options.get("first_step"),
                                 dt_min=options.get("dt_min"),
@@ -363,7 +383,12 @@ def solve(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,
         result = impl(prob, options, rtol, atol)
 
     ys = result.ys if prob.native else prob.unravel(result.ys)
-    return SolveResult(ys, result.stats)
+    dense = result.dense
+    if dense is not None:
+        # Rows are in tau space with the solver's sign (+1): stamp the
+        # caller's, so that eval_flat maps user times.
+        dense = dense._replace(sign=prob.sign)
+    return SolveResult(ys, result.stats, result.telemetry, dense)
 
 
 def odeint(func: Callable, y0: Any, t, *, rtol=1e-7, atol=1e-9,

@@ -164,7 +164,8 @@ _PLAN_CONSTS = [_P, _I, _P, _I]                            # consts .. smem
 _PLAN_ARGS = {
     "solve": ([_P] * 6 + [_I] * 4 + [_D] * 8 + [_I, _I]    # tau .. valid
               + [_I, _I, _I, _P, _P, _P, _P, _P]           # tableau
-              + _PLAN_CONSTS + [_P, _L, _I, _P]),          # grid, stream
+              + _PLAN_CONSTS + [_P, _L, _I]               # grid
+              + [_P, _P, _I, _P]),                         # dense, stream
     "fixed": ([_P] * 7 + [_L] + [_I] * 5 + [_D, _I]        # grid .. valid
               + [_I, _P, _P, _P]                           # tableau
               + _PLAN_CONSTS + [_P]),

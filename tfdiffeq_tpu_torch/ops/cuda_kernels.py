@@ -980,8 +980,8 @@ def _solve_unit(dims, y0: Tensor, tiers) -> int:
 def adaptive_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
                          atol, tab: ButcherTableau, *, safety: float,
                          ifactor: float, dfactor: float, max_steps: int,
-                         threads: int, n_blocks: int = None, unit: int = 1
-                         ) -> Tuple[Tensor, Tensor]:
+                         threads: int, n_blocks: int = None, unit: int = 1,
+                         emit_dense: int = 0):
     """The whole-solve kernels' engine (`_make_solve_kernel`) as a host
     loop of attempts, one synchronisation each: f(s, y) is the canonical
     (signed) right-hand side on y0's [rows, D] layout. The error sum is
@@ -991,7 +991,11 @@ def adaptive_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
     e[k] + i, e[k] + i + threads, ...; n_blocks = 1 is the one-block order
     (K13 runs a controller a block: its plain version passes 1); None the
     kernel's grid for y0's device (`solve_blocks`: one block on the CPU).
-    Returns (out [T, rows, D], stats [4] int32)."""
+    Returns (out [T, rows, D], stats [4] int32); with emit_dense = S > 0
+    also K2's dense output (`csrc/rk_solve.cuh`): meta [S, 3] (t, t1, dt of
+    each accepted step in tau, +inf rows past the last) and coef
+    [S, 5, rows, D] (the drain's ca, cb, cc, df0, y0; zero rows past the
+    last), the first S accepted steps."""
     dev, dtype = y0.device, y0.dtype
     T = tau.shape[0]
     _check_blocks(n_blocks)
@@ -1004,6 +1008,12 @@ def adaptive_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
 
     out = torch.zeros((T,) + tuple(y0.shape), dtype=dtype, device=dev)
     out[0] = y0
+    if emit_dense:
+        meta = torch.full((emit_dense, 3), float("inf"), dtype=dtype,
+                          device=dev)
+        coef = torch.zeros((emit_dense, 5) + tuple(y0.shape), dtype=dtype,
+                           device=dev)
+    si = 0
     y, fy, comp = y0, f0, torch.zeros_like(y0)
     t_end, t_start = tau_d[T - 1], tau_d[0]
     t, dt = t_start, on(dt0)
@@ -1047,6 +1057,10 @@ def adaptive_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
             else:
                 ca, cb, cc, df0, _ = interp_fit_cubic_hermite(y, y1, k[0],
                                                               f1, dth)
+            if si < emit_dense:
+                meta[si] = torch.stack([t, t1, dth])
+                coef[si] = torch.stack([ca, cb, cc, df0, y])
+                si += 1
             adj = delta - comp
             y_new = y + adj
             comp = (y_new - y) - adj
@@ -1072,6 +1086,8 @@ def adaptive_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
         nrej += int(not accept)
     stats = torch.tensor([nfe, nacc, nrej, status], dtype=torch.int32,
                          device=dev)
+    if emit_dense:
+        return out, stats, meta, coef
     return out, stats
 
 

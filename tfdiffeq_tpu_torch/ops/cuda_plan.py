@@ -302,12 +302,13 @@ def plan_solve_plain(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                      method: str = "dopri5", safety: float = 0.9,
                      ifactor: float = 10.0, dfactor: float = 0.2,
                      max_steps: int = 2 ** 31 - 1, per_sample: bool = False,
-                     n_blocks: int = None):
+                     n_blocks: int = None, emit_dense: int = 0):
     """Plain PyTorch version of `plan_solve`, on y0's device: K2's engine
     (`cuda_kernels.adaptive_solve_plain`, the error sum in the order of a
     grid of `n_blocks` blocks; None: the kernel's grid, `plan_blocks`) or
     with per_sample K5's (`cuda_perlane.perlane_solve_plain`), the plan
     evaluated by `eval_plan`. Same contract."""
+    _check_dense(emit_dense, per_sample)
     tab = TABLEAUS_BY_NAME[method]
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
@@ -318,7 +319,19 @@ def plan_solve_plain(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                                    **kw)
     return adaptive_solve_plain(
         g, y0, f0, tau, dt0, rtol, atol, tab, threads=SOLVE_THREADS,
-        n_blocks=n_blocks or plan_blocks(plan, y0.shape[0], y0.device), **kw)
+        n_blocks=n_blocks or plan_blocks(plan, y0.shape[0], y0.device),
+        emit_dense=emit_dense, **kw)
+
+
+def _check_dense(emit_dense: int, per_sample: bool) -> None:
+    """K2's dense output takes S >= 0 rows and one controller (reference
+    jaxpr_bridge.py:1079-1081)."""
+    if emit_dense < 0:
+        raise ValueError(f"emit_dense must be >= 0, got {emit_dense}")
+    if emit_dense and per_sample:
+        raise ValueError("per_sample=True is unpacked only (no emit_dense): "
+                         "per-sample steps have no shared interpolant "
+                         "sequence")
 
 
 def plan_blocks(plan: FusedPlan, B: int, device) -> int:
@@ -342,7 +355,7 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                method: str = "dopri5", safety: float = 0.9,
                ifactor: float = 10.0, dfactor: float = 0.2,
                max_steps: int = 2 ** 31 - 1, per_sample: bool = False,
-               n_blocks: int = None):
+               n_blocks: int = None, emit_dense: int = 0):
     """Whole-solve adaptive RK with the plan as right-hand side, one launch.
 
     packed: `plan_bridge.pack_consts`' output; y0, f0: [B, D] state and its
@@ -355,6 +368,15 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     n_blocks: K2's grid (None: `plan_blocks`, one block per SM); a coupled
     plan runs on one block and refuses another count (ValueError). K5
     (per_sample) takes no grid argument.
+
+    emit_dense = S > 0: K2 also keeps its first S accepted steps'
+    interpolants and returns (out, stats, meta [S, 3], coef [S, 5, B, D]),
+    as the reference's `plan_solve` does (its coefficients [5 S, D, B]
+    feature-major): meta rows (t0, t1, dt) in tau, +inf past the last
+    accepted step; coef rows (ca, cb, cc, df0, y0) of
+    (((ca x + cb) x + cc) x + df0) x + y0, zero past the last. The
+    reference ties the step budget to the rows (max_steps = S); so do the
+    callers here. per_sample refuses it (ValueError).
     """
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
@@ -366,6 +388,7 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
             "would mix samples at different times")
     if max_steps < 1:
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+    _check_dense(emit_dense, per_sample)
     _plan_grid(plan, n_blocks, "solve")
     if per_sample and n_blocks is not None:
         raise ValueError("per_sample=True (K5) takes no n_blocks")
@@ -375,7 +398,7 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                                 f0, method=method, safety=safety,
                                 ifactor=ifactor, dfactor=dfactor,
                                 max_steps=max_steps, per_sample=per_sample,
-                                n_blocks=n_blocks)
+                                n_blocks=n_blocks, emit_dense=emit_dense)
 
     global plan_solve_launches, plan_perlane_launches
     consts, sample_consts = _inputs(plan, packed, y0, f0, per_sample)
@@ -430,6 +453,13 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     work = torch.empty(n_work, dtype=dtype, device=dev)
     nb = n_blocks or plan_blocks(plan, B, dev)
     gwork = _shares_work(nb, 2, dtype, dev)
+    meta = coef = None
+    if emit_dense:
+        # S * 5 * B * D values: 168 MB in float32 at B = 4096, D = 2,
+        # S = 1024 (the kernel indexes them with long).
+        meta = torch.full((emit_dense, 3), float("inf"), dtype=dtype,
+                          device=dev)
+        coef = torch.zeros((emit_dense, 5, B, D), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
             _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out), _ptr(stats),
@@ -438,9 +468,13 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
             float(ifactor), float(dfactor), steps, int(valid), S, tab.order,
             int(tab.fsal), c, a, b_sol, b_err, c_mid, _ptr(consts),
             lay.n_consts, _ptr(sample_consts), int(smem), _ptr(gwork),
-            gwork.numel(), nb, _stream(dev))
+            gwork.numel(), nb, _ptr(meta) if emit_dense else None,
+            _ptr(coef) if emit_dense else None, int(emit_dense),
+            _stream(dev))
     _check(lib, err, "plan_solve launch")
     plan_solve_launches += 1
+    if emit_dense:
+        return out, stats, meta, coef
     return out, stats
 
 

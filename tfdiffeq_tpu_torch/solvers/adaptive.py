@@ -12,6 +12,14 @@ the dense output (quartic through the 4th-order midpoint, else cubic
 Hermite) is evaluated at every requested time the accepted step covers,
 exactly at its end. Status rules are the reference's (adaptive.py:175-184).
 
+`telemetry` records every attempt (`StepTelemetry`: start, clamped step,
+accepted; all active, since the eager loop has no static budget), and
+`emit_dense` keeps every accepted step's interpolant (`DenseOutput`, one
+row a step) for post-hoc evaluation and the interpolated adjoint. The
+reference's bounded loop keeps a row per attempt of its budget, rejected
+and inactive ones repeating the last accepted step, so its `eval_flat`
+gives the same values.
+
 The loop is differentiable with autograd as it stands; the reference's
 XLA loop knobs (`loop`, `unroll`, `chunk_size`, `max_steps`) therefore
 have no counterpart in `AdaptiveConfig` (see odeint.py).
@@ -29,7 +37,8 @@ from ..ops.norms import error_ratio, rms_norm, select_initial_step
 from ..ops.rk import (interp_evaluate, interp_fit, interp_fit_quartic,
                       kahan_add, runge_kutta_step)
 from ..ops.tableaus import ButcherTableau
-from .base import CanonicalProblem, SolveResult, SolverStats, Status
+from .base import (CanonicalProblem, DenseOutput, SolveResult, SolverStats,
+                   Status, StepTelemetry)
 
 Tensor = torch.Tensor
 
@@ -47,6 +56,10 @@ class AdaptiveConfig:
     # replaces runge_kutta_step, the error norm and the midpoint; err_ratio
     # is a 0-d tensor, +inf when the step is non-finite.
     step_override: Optional[Callable] = None
+    # Per-attempt telemetry (SolveResult.telemetry, a StepTelemetry).
+    telemetry: bool = False
+    # Every accepted step's interpolant (SolveResult.dense, a DenseOutput).
+    emit_dense: bool = False
 
 
 def default_dt_min(tau: Tensor) -> Tensor:
@@ -83,8 +96,16 @@ def solve_adaptive(prob: CanonicalProblem, cfg: AdaptiveConfig, rtol, atol,
     max_num_steps = (_INT32_MAX if max_num_steps is None
                      else int(max_num_steps))
     T = tau.shape[0]
+    tel, rows = [], []
+
+    def result(out, stats):
+        return SolveResult(out, stats, _telemetry(tel, prob.time_dtype)
+                           if cfg.telemetry else None,
+                           _dense(rows, tau[0], y0, prob.time_dtype)
+                           if cfg.emit_dense else None)
+
     if T == 1:
-        return SolveResult(y0[None].clone(), SolverStats(0, 0, 0, 0))
+        return result(y0[None].clone(), SolverStats(0, 0, 0, 0))
 
     # Initial state (reference `_init_core`).
     t = tau[0]
@@ -137,6 +158,8 @@ def solve_adaptive(prob: CanonicalProblem, cfg: AdaptiveConfig, rtol, atol,
                 & torch.isfinite(ratio_d))
         accept = bool(ratio <= 1.0) and finite
 
+        if cfg.telemetry:
+            tel.append((t, dt_step, accept))
         ratio_ctrl = ratio if finite else big.to(ratio.dtype)
         dt_next, prev_ratio = next_step_size(dt_step, ratio_ctrl, prev_ratio,
                                              accept, tab.order,
@@ -155,6 +178,8 @@ def solve_adaptive(prob: CanonicalProblem, cfg: AdaptiveConfig, rtol, atol,
                 coeffs = interp_fit_quartic(y, y1, y_mid, f, f1, dt_y)
             else:
                 coeffs = interp_fit(tab, y, y1, f, f1, res.k, dt_y)
+            if cfg.emit_dense:
+                rows.append((t, t1, dt_step, torch.stack(coeffs)))
             sel = torch.nonzero((tau > t) & (tau <= t1)).flatten()
             if sel.numel():
                 tq = tau[sel]
@@ -175,4 +200,28 @@ def solve_adaptive(prob: CanonicalProblem, cfg: AdaptiveConfig, rtol, atol,
         dt = torch.clamp(dt_next, min=0.0)
         nfe += n_evals
 
-    return SolveResult(out, SolverStats(nfe, n_acc, n_rej, int(status)))
+    return result(out, SolverStats(nfe, n_acc, n_rej, int(status)))
+
+
+def _telemetry(tel, time_dtype) -> StepTelemetry:
+    """One entry per attempt taken (host tensors)."""
+    t0 = torch.tensor([float(a[0]) for a in tel], dtype=time_dtype)
+    dt = torch.tensor([float(a[1]) for a in tel], dtype=time_dtype)
+    acc = torch.tensor([a[2] for a in tel], dtype=torch.bool)
+    return StepTelemetry(t0, dt, acc, torch.ones_like(acc))
+
+
+def _dense(rows, tau0: Tensor, y0: Tensor, time_dtype) -> DenseOutput:
+    """One row per accepted step, the coefficients flat ([S, 5, N], the
+    state's ravel order, reference adaptive.py:405-410); before any
+    accepted step, the reference's initial cache (t0 = t1 = tau[0], dt = 1,
+    the constant y0). The sign is +1: odeint stamps the caller's."""
+    if not rows:
+        z = torch.zeros_like(y0)
+        rows = [(tau0, tau0, torch.ones((), dtype=time_dtype),
+                 torch.stack([z, z, z, z, y0]))]
+    col = lambda j: torch.stack([r[j].to(time_dtype) for r in rows])  # noqa
+    coeffs = torch.stack([r[3] for r in rows])
+    return DenseOutput(col(0), col(1), col(2),
+                       coeffs.reshape(coeffs.shape[0], 5, -1),
+                       torch.ones((), dtype=time_dtype))

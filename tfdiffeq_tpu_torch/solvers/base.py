@@ -43,13 +43,59 @@ class SolverStats(NamedTuple):
 class SolveResult(NamedTuple):
     ys: Any               # tensor [T, ...] or a nest of them
     stats: SolverStats
-    telemetry: Any = None  # the reference's StepTelemetry slot (not ported)
-    dense: Any = None      # the reference's DenseOutput slot (not ported)
+    telemetry: Any = None  # StepTelemetry (options={'telemetry': True})
+    dense: Any = None      # DenseOutput (options={'dense_output': True},
+    #                        fast.solve_fused(dense_output=True))
     # Per-sample SolverStats whose fields are [B] int tensors, from a
     # per-sample solve (`options={'per_sample': True}`, or
     # `fast.solve_mlp_spec(per_sample=True)`): every sample ran its own
     # step controller.
     lane_stats: Any = None
+
+
+class DenseOutput(NamedTuple):
+    """Per-accepted-step dense-output interpolants: evaluate the solution
+    anywhere in [t[0], t[-1]] after the solve, and drive the interpolated
+    adjoint (Daulbaev et al. 2020). The rows live in CANONICAL tau space
+    (tau = sign * t, increasing; see canonicalize): row s is the step
+    [t0s[s], t1s[s]] of size dts[s] with the polynomial
+    (((c0 x + c1) x + c2) x + c3) x + c4 in x = (tau - t0s[s]) / dts[s].
+    The generic engine keeps one row per accepted step (host times, the
+    coefficients on the state's device); K2 keeps its buffer's S rows on
+    the card, the unused ones with t1s = +inf."""
+    t0s: Tensor      # [S] step start times (tau)
+    t1s: Tensor      # [S] step end times (tau, non-decreasing)
+    dts: Tensor      # [S] step sizes (> 0)
+    coeffs: Tensor   # [S, 5, N] quartic/Hermite coefficients (flat state)
+    sign: Tensor     # 0-d: tau = sign * t
+
+    def eval_flat(self, t) -> Tensor:
+        """The FLAT solution [N] at a 0-d time t, or [Q, N] at [Q] times
+        (user time space): the first row whose t1 is not below tau
+        (searchsorted, side='left'), clamped to the rows."""
+        t = torch.as_tensor(t)
+        tau = (self.sign * t).reshape(-1).to(self.t1s.device)
+        rdt = torch.promote_types(tau.dtype, self.t1s.dtype)
+        tau, t1s = tau.to(rdt), self.t1s.to(rdt)
+        idx = torch.clamp(torch.searchsorted(t1s, tau, side="left"), 0,
+                          t1s.shape[0] - 1)
+        x = ((tau - self.t0s[idx]) / self.dts[idx])[:, None]
+        dev = self.coeffs.device
+        x = x.to(dev, self.coeffs.dtype)
+        c = self.coeffs[idx.to(dev)]
+        out = ((((c[:, 0] * x + c[:, 1]) * x + c[:, 2]) * x + c[:, 3]) * x
+               + c[:, 4])
+        return out if t.ndim else out[0]
+
+
+class StepTelemetry(NamedTuple):
+    """Per-attempt solver telemetry (options={'telemetry': True}): one
+    entry per attempt taken, on the host."""
+    t0: Tensor         # [A] attempt start times (tau space)
+    dt: Tensor         # [A] attempted (clamped) step sizes
+    accepted: Tensor   # [A] bool
+    active: Tensor     # [A] bool: the attempt ran (all True here; the
+    #                    reference's static budget leaves an inactive tail)
 
 
 class CanonicalProblem(NamedTuple):
