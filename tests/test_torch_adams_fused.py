@@ -49,6 +49,7 @@ import tfdiffeq_tpu as J
 from tfdiffeq_tpu import fast as JF
 from tfdiffeq_tpu.ops import pallas_fixed as JPF, pallas_vcabm as JPV
 from tfdiffeq_tpu.ops.pallas_kernels import pad_mlp_weights
+import tfdiffeq_tpu_torch as P
 from tfdiffeq_tpu_torch import fast as PF
 from tfdiffeq_tpu_torch.ops import cuda_adams as PA, cuda_kernels as PK
 
@@ -357,14 +358,19 @@ def test_plan_route_matches_reference_and_mlp_route(name):
 
 
 def test_plan_route_refusals():
-    """A coupled plan on K10 / K11 names ROADMAP queue 2 item 3; a reduced
+    """A coupled plan on K10 / K11, once refused (ROADMAP queue 2 item 3),
+    runs on their one-block route and matches the generic engine; a reduced
     dot_precision with an Adams method raises ValueError, as in the
     reference (odeint.py:137-143)."""
-    y = torch.ones(3, 2, dtype=F64)
+    y = torch.tensor(np.random.RandomState(5).randn(3, 2), dtype=F64)
     t = torch.tensor([0.0, 0.5, 1.0], dtype=F64)
+    centred = lambda tt, v: v - v.mean(0)
     for method in ("explicit_adams", "fixed_adams", "adams"):
-        with pytest.raises(NotImplementedError, match="queue 2 item 3"):
-            PF.solve_fused(lambda tt, v: v - v.mean(0), y, t, method=method)
+        got = PF.solve_fused(centred, y, t, rtol=1e-8, atol=1e-8,
+                             method=method)
+        want = P.solve(centred, y, t, rtol=1e-8, atol=1e-8, method=method)
+        assert got.stats.status == 0
+        assert _rel(got.ys.numpy(), want.ys.numpy()) < 1e-5
         with pytest.raises(ValueError, match="not supported on the Adams"):
             PF.solve_fused(lambda tt, v: -v, y, t, method=method,
                            dot_precision="bf16")

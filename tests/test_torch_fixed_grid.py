@@ -169,10 +169,15 @@ def test_fixed_grid_options_are_checked():
         P.solve(f, y0, t, method="dopri5", options={"step_size": 0.5})
     with pytest.raises(ValueError, match="num_steps must be >= 1"):
         P.solve(f, y0, t, method="euler", options={"num_steps": 0})
-    # 'fuse' runs K8 with the plan; a batch coupling on a fixed
-    # grid still waits for its ROADMAP item.
-    with pytest.raises(NotImplementedError, match="item 16"):
-        P.solve(lambda t, y: y - y.mean(0), torch.ones(3, 2, dtype=F64), t,
-                method="rk4", options={"fuse": True})
+    # 'fuse' runs K8 with the plan, a batch coupling too (on its one
+    # block): the generic solve's steps, to roundoff.
+    yc = torch.tensor([[1.0, 0.0], [0.0, 2.0], [3.0, -1.0]], dtype=F64)
+    fused = P.solve(lambda t, y: y - y.mean(0), yc, t, method="rk4",
+                    options={"fuse": True, "num_steps": 8})
+    plain = P.solve(lambda t, y: y - y.mean(0), yc, t, method="rk4",
+                    options={"num_steps": 8})
+    assert list(fused.stats) == list(plain.stats)
+    np.testing.assert_allclose(fused.ys.numpy(), plain.ys.numpy(),
+                               rtol=1e-13, atol=1e-13)
     one = P.solve(f, y0, torch.tensor([0.5], dtype=F64), method="rk4")
     assert list(one.stats) == [0, 0, 0, 0] and torch.equal(one.ys[0], y0)

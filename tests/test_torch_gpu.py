@@ -74,7 +74,10 @@ width, so the tier is told apart per evaluation there). K2's plan launch
 with its dense-output emission is bitwise equal to its plain version
 (out, stats, meta, coef) on the per-thread and coupled routes at B in
 {4096, 256, 33, 1}, and gives without the buffers the same out and stats;
-a refused launch raises.
+a refused launch raises. A coupled plan on the one-block routes of K8 (rk4,
+euler), K10 (both methods), K11 and K9 is bitwise equal to its plain
+version at B in {4096, 256, 33} (at 1 the capture folds the coupling
+away), and every fused entry point launches those kernels.
 """
 
 import numpy as np
@@ -1716,7 +1719,8 @@ def test_fused_training_launches_and_never_falls_back(cuda, monkeypatch):
 def test_plan_adams_hosts_match_plain(cuda, dtype, name):
     """K14 in K10 (explicit_adams and fixed_adams on a 40-step grid) and in
     K11 (VCABM): bitwise equal to the plain engines with `eval_plan`,
-    identical stats, and run to run; the coupled plans raise."""
+    identical stats, and run to run; a coupled plan's K11 on one block
+    too (test_coupled_plans_on_one_block_match_plain holds the rest)."""
     from tfdiffeq_tpu_torch.ops import cuda_adams as cad, cuda_plan as cpl
     cpl.reset_launch_counts()
     plan, packed, y0, t, g, _ = _plan_case(name, dtype, cuda)
@@ -1740,9 +1744,110 @@ def test_plan_adams_hosts_match_plain(cuda, dtype, name):
     assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
     assert got[1][3].item() == 0
     assert (cpl.plan_adams_launches, cpl.plan_vcabm_launches) == (4, 2)
+    # A coupled plan, once refused here (queue 2 item 3), runs K11 on one
+    # block.
     plan, packed, y0, t, g, f0 = _plan_case("meanfield", dtype, cuda)
-    with pytest.raises(NotImplementedError, match="queue 2 item 3"):
-        cpl.plan_solve_vcabm(plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+    args = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+    got = cpl.plan_solve_vcabm(*args)
+    assert _same(got, cpl.plan_solve_vcabm_plain(*args))
+    assert got[1][3].item() == 0 and cpl.plan_vcabm_launches == 3
+
+
+@pytest.mark.parametrize("B", [4096, 256, 33, 1])
+@pytest.mark.parametrize("name", ["meanfield", "scalar_coupled", "bmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coupled_plans_on_one_block_match_plain(cuda, dtype, name, B):
+    """A coupled plan's one-block routes: K8 (rk4, euler on a 32-step
+    grid), K10 (fixed_adams, explicit_adams), K11 and K9 (rk4, 4 steps an
+    interval over K8's trajectory), each launch bitwise equal to its plain
+    version (the block meets in `_batch_sums`' order) and run to run, on
+    the batch-wide route with the launch counters moving. At B = 1 the
+    capture folds the batch reduction away (the plan is uncoupled) and the
+    group routes run."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    cpl.reset_launch_counts()
+    plan, packed, y0, t, g, f0 = _plan_case(name, dtype, cuda, B)
+    assert plan.batch_coupled == (B > 1)
+    grid = uniform_grid(t[0], t[-1], 33)
+    for method in ("rk4", "euler"):
+        args = (plan, packed, y0, t, grid, 1.0, f0)
+        got = cpl.plan_solve_fixed(*args, method=method)
+        assert _same(got, cpl.plan_solve_fixed(*args, method=method))
+        assert _same(got, cpl.plan_solve_fixed_plain(*args, method=method))
+        assert cpl.last_route["fixed"].startswith("batch/") == (B > 1)
+        assert torch.isfinite(got[0]).all() and got[1][3].item() == 0
+        if method == "rk4":
+            ys = got[0]
+    for implicit in (True, False):
+        args = (plan, packed, y0, t, grid, 1e-6, 1e-6, 1.0, f0)
+        got = cpl.plan_solve_adams(*args, implicit=implicit)
+        assert _same(got, cpl.plan_solve_adams(*args, implicit=implicit))
+        assert _same(got, cpl.plan_solve_adams_plain(*args,
+                                                     implicit=implicit))
+        assert torch.isfinite(got[0]).all()
+    args = (plan, packed, y0, t, 0.01, 1e-6, 1e-6, 1.0, f0)
+    got = cpl.plan_solve_vcabm(*args)
+    assert _same(got, cpl.plan_solve_vcabm_plain(*args))
+    assert got[1][3].item() == 0
+    ct = torch.tensor(np.random.RandomState(2).randn(*ys.shape), dtype=dtype,
+                      device=cuda)
+    args = (plan, packed, ys.contiguous(), ct, t, 1.0)
+    if B == 1 and name == "scalar_coupled":
+        # One sample's energy is a to-scalar feature sum, whose reverse
+        # walk the reference refuses too.
+        from tfdiffeq_tpu_torch.ops.plan_bridge import FusionError
+        with pytest.raises(FusionError, match="to-scalar"):
+            cpl.plan_adjoint_solve_fixed(*args, num_steps=4)
+        return
+    got = cpl.plan_adjoint_solve_fixed(*args, num_steps=4)
+    assert _same_sweep(got, cpl.plan_adjoint_solve_fixed(*args, num_steps=4))
+    assert _same_sweep(got, cpl.plan_adjoint_solve_fixed_plain(
+        *args, num_steps=4))
+    assert cpl.last_route["fixed_adjoint"].startswith("batch/") == (B > 1)
+    assert (cpl.plan_fixed_launches, cpl.plan_adams_launches,
+            cpl.plan_vcabm_launches,
+            cpl.plan_fixed_adjoint_launches) == (4, 4, 1, 2)
+
+
+def test_coupled_entry_points_launch_one_block(cuda):
+    """solve(fuse) with every fixed-grid and Adams method and the three
+    training mixes (K8 + K9, K2 + K9, K8 + K3) launch their kernels on a
+    coupled plan, never the generic engine: the counters move and
+    `fast.fuse_fallbacks` does not."""
+    from tfdiffeq_tpu_torch import odeint_adjoint, solve
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    f, D = _plan_dyns(torch.float32, cuda)["meanfield"]
+    y = torch.tensor(np.random.RandomState(1).randn(256, D),
+                     dtype=torch.float32, device=cuda)
+    t = torch.linspace(0.0, 2.0, 7)
+    before = fast.fuse_fallbacks
+    cpl.reset_launch_counts()
+    for method in ("euler", "midpoint", "rk4", "rk4_38", "fixed_adams",
+                   "explicit_adams", "adams"):
+        opts = {} if method == "adams" else {"num_steps": 32}
+        res = solve(f, y, t, method=method, options={"fuse": True, **opts})
+        assert res.stats.status == 0 and torch.isfinite(res.ys).all()
+    assert (cpl.plan_fixed_launches, cpl.plan_adams_launches,
+            cpl.plan_vcabm_launches) == (4, 2, 1)
+    W = torch.nn.Parameter(torch.tensor(np.random.RandomState(0).randn(D, D)
+                                        * 0.3, dtype=torch.float32,
+                                        device=cuda))
+    fw = lambda tt, yy, w: torch.tanh(yy @ w) - 0.5 * (yy - yy.mean(0))
+    cpl.reset_launch_counts()
+    for method, adj, fo, bo in (
+            ("rk4", "rk4", {"num_steps": 32}, {}),
+            ("dopri5", "rk4", {}, {"num_steps": 8}),
+            ("rk4", "dopri5", {"num_steps": 32}, {})):
+        ys = odeint_adjoint(fw, y, t, params=W, rtol=1e-6, atol=1e-6,
+                            method=method, adjoint_method=adj,
+                            options={"fuse": True, **fo},
+                            adjoint_options=bo or None)
+        torch.mean(ys ** 2).backward()
+        assert torch.isfinite(W.grad).all()
+    assert (cpl.plan_fixed_launches, cpl.plan_solve_launches,
+            cpl.plan_fixed_adjoint_launches,
+            cpl.plan_adjoint_launches) == (2, 1, 2, 1)
+    assert fast.fuse_fallbacks == before
 
 
 def _hyper_case(dtype, device, B=300):

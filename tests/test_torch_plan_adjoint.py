@@ -301,8 +301,13 @@ def test_sweep_refusals():
             torch.tensor(tau))
     with pytest.raises(ValueError, match="batch-coupled"):
         CP.plan_perlane_adjoint_solve(*args, 0.05, 1e-7, 1e-9, 1.0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        CP.plan_adjoint_solve_fixed(*args, 1.0)
+    # A coupled plan's fixed-grid sweep, once refused here (ROADMAP queue 1
+    # item 16), runs K9's one-block route (its plain version on the CPU;
+    # tests/test_torch_coupled_adjoint.py holds it to the reference).
+    ay0, dconsts, _, stats = CP.plan_adjoint_solve_fixed(*args, 1.0)
+    assert [int(x) for x in stats] == [4 * 4, 4, 0, 0]
+    assert torch.isfinite(ay0).all()
+    assert all(torch.isfinite(d).all() for d in dconsts)
     plan2, packed2, ys2, g2, tau2 = _sweep_inputs("spiral")
     with pytest.raises(ValueError, match="the plan takes"):
         CP.plan_adjoint_solve(plan2, packed2, torch.tensor(ys2[:, :4]),

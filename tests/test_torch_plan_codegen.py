@@ -132,7 +132,8 @@ def test_generated_segments_match_eval_plan(libs, name, dtype):
 def test_source_depends_on_structure_alone(host):
     """The same structure at another batch size and with other weights
     gives the same source; generation is deterministic; a coupled plan
-    runs on K2 only."""
+    runs on the one-block hosts (K2, K8, K10, K11), not on K5's group
+    walk."""
     a1 = torch.tensor(np.random.RandomState(0).randn(2, 16))
     a2 = torch.tensor(np.random.RandomState(1).randn(2, 16))
     b2 = torch.tensor(np.random.RandomState(2).randn(16, 2))
@@ -147,10 +148,11 @@ def test_source_depends_on_structure_alone(host):
     src = PC.cuda_source(p8, host)
     assert src == PC.cuda_source(p12, host) == PC.cuda_source(p8, host)
     coupled = _plan("meanfield", torch.float64)[0]
-    if host == "solve":
+    if host in PC.COUPLED_HOSTS:
         assert "kSegments = 2" in PC.cuda_source(coupled, host)
     else:
-        with pytest.raises(ValueError, match="'solve' host only"):
+        with pytest.raises(ValueError, match="coupled plan runs on the "
+                                             "hosts"):
             PC.cuda_source(coupled, host)
 
 
@@ -211,10 +213,14 @@ def test_reverse_walk_source_depends_on_structure_alone():
     for host in PC.AUG_HOSTS:
         assert PC.cuda_source(p8, host) == PC.cuda_source(p12, host)
     coupled = _plan("meanfield", torch.float64)[0]
-    assert "kSegments = 3" in PC.cuda_source(coupled, "adjoint")
-    for host in ("perlane_adjoint", "fixed_adjoint"):
-        with pytest.raises(ValueError, match="'adjoint' host only"):
-            PC.cuda_source(coupled, host)
+    for host in ("adjoint", "fixed_adjoint"):
+        assert "kSegments = 3" in PC.cuda_source(coupled, host)
+    # K6's group walk and K12 (queue 2 item 3) take no coupled plan.
+    for plan, host in ((coupled, "perlane_adjoint"),
+                       ((coupled, coupled), "hyper")):
+        with pytest.raises(ValueError, match="coupled plan runs on the "
+                                             "hosts"):
+            PC.cuda_source(plan, host)
 
 
 def _hyper_plans(dtype):

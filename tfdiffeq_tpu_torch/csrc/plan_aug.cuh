@@ -33,7 +33,8 @@
 // PlanAugRhs walks a sample at a time in its thread (K3, over the grid that
 // cuts the batch into ranges, csrc/rk_adjoint.cuh); PlanGroupAug splits a
 // sample's walk over its group of threads in K6 and K9 (group_stage);
-// PlanBatchAugRhs (K3 only, one block) walks a stage batch-wide, segment
+// PlanBatchAugRhs (K3 and K9, one block; rk_adjoint_kernel and
+// rk_fixed_adjoint_block_kernel) walks a stage batch-wide, segment
 // by segment, every thread for the samples it owns, the block meeting at
 // each coupling and at each coupling's transpose (csrc/plan_rhs.cuh
 // BlockMeet: each thread's samples in order, then block_fold's tree),
@@ -71,6 +72,11 @@ struct PlanAugBase {
   __device__ T sample_x(const Shared&, int j, const T* rw, int B,
                         int b) const {
     return P::template sample_x<T>(j, rw, B, b);
+  }
+  // Shared quadrature r's term for sample b (K9's one-block sweep).
+  __device__ T quad_x(const Shared&, int r, const T* rw, int B,
+                      int b) const {
+    return P::template quad_x<T>(r, rw, B, b);
   }
   // sum(x) of shared quadrature r's per-sample term (csrc/rk_adjoint.cuh
   // quad).
@@ -168,9 +174,17 @@ struct PlanGroupAug : PlanAugBase<T, P> {
   }
 };
 
-// K3's batch-wide walk (coupled plans). Its rows after qr: X and AX the
-// stage inputs, FO and VO the outputs ([B][kDim] each), the live rows
+// The rows of the batch-wide walk: qr [kQRows][B], X and AX the stage
+// inputs, FO and VO the outputs ([B][kDim] each), the live rows
 // [kLiveRows][B], then kRedValues reduced values.
+template <class P>
+inline long plan_batch_aug_values(int B) {
+  return long(B) * (P::kQRows + 4L * P::kDim + P::kLiveRows) +
+         P::kRedValues;
+}
+
+// K3's and K9's batch-wide walk (coupled plans, one block): its rows
+// (plan_batch_aug_values) after the sweep's own.
 template <typename T, class P>
 struct PlanBatchAugRhs : PlanAugBase<T, P> {
   static constexpr bool kBatch = true;
@@ -349,31 +363,47 @@ int launch_plan_fixed_adjoint(const void* tau, const void* ys, const void* g,
                               const double* b_sol, const void* consts,
                               int n_consts, const void* sample_consts,
                               int smem_consts, void* stream) {
-  if constexpr (P::kSegments > 1) {
+  bool any = false;
+  for (int i = 0; i < stages && i < kMaxStages; ++i)
+    any = any || b_sol[i] != 0.0;
+  if (stages < 1 || stages > kMaxStages || T_obs < 1 || B < 1 ||
+      n_sub < 1 || D != P::kDim || P::kOutRows != D ||
+      threads != kLaneGroup * kLaneGroups || !any)
     return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    bool any = false;
-    for (int i = 0; i < stages && i < kMaxStages; ++i)
-      any = any || b_sol[i] != 0.0;
-    if (stages < 1 || stages > kMaxStages || T_obs < 1 || B < 1 ||
-        n_sub < 1 || D != P::kDim || P::kOutRows != D ||
-        threads != kLaneGroup * kLaneGroups || !any)
+  // Fixed tableaus have no error weights: b_sol stands in for b_err.
+  const Tableau<T> tab =
+      make_tableau<T>(stages, 0, 0, c, a, b_sol, b_sol, nullptr);
+  FixedAdjScalars<T> sc{};
+  sc.sign = T(sign);
+  sc.T_obs = T_obs;
+  sc.B = B;
+  sc.D = D;
+  sc.n_sub = n_sub;
+  const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (P::kSegments > 1) {
+    // A coupled plan: one block of `threads` = kAdjThreads threads walking
+    // the batch (PlanBatchAugRhs, n_consts the flat constants), the meets'
+    // scratch after the constants.
+    const int n_q = P::kNQuad + P::kTimeInput + P::kNSample;
+    if (threads != kAdjThreads ||
+        work_size < fixed_block_own_values(stages, B, D, n_q) +
+                        plan_batch_aug_values<P>(B))
       return static_cast<int>(cudaErrorInvalidValue);
-    // Fixed tableaus have no error weights: b_sol stands in for b_err.
-    const Tableau<T> tab =
-        make_tableau<T>(stages, 0, 0, c, a, b_sol, b_sol, nullptr);
-    FixedAdjScalars<T> sc;
-    sc.sign = T(sign);
-    sc.T_obs = T_obs;
-    sc.B = B;
-    sc.D = D;
-    sc.n_sub = n_sub;
-    const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
+    PlanBatchAugRhs<T, P> aug;
+    aug.cg = static_cast<const T*>(consts);
+    aug.scg = static_cast<const T*>(sample_consts);
+    aug.n_consts = n_consts;
+    aug.in_smem = smem_consts;
+    return static_cast<int>(launch_rk_fixed_adjoint_block<T>(
+        tau, ys, g, ay0, aw, at, aps, stats, work, aug,
+        fixed + sizeof(T) * threads, threads, tab, sc, st));
+  } else {
     return static_cast<int>(launch_rk_fixed_adjoint<T>(
         tau, ys, g, ay0, aw, at, aps, stats, work, work_size,
         make_plan_group_aug<T, P>(consts, n_consts, sample_consts,
                                   smem_consts),
-        fixed, tab, sc, static_cast<cudaStream_t>(stream)));
+        fixed, tab, sc, st));
   }
 }
 

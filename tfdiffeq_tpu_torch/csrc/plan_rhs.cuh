@@ -35,13 +35,14 @@
 // the sample's slot after its D inputs; its constants are the flat array
 // and its transposed copy (plan_codegen.flat_consts(transposed=True)), in
 // shared memory where they fit.
-// PlanBatchRhs (K2 only, on one block) evaluates a stage batch-wide:
-// every thread runs segment k for the samples it owns, writing the rows a
-// coupling reduces into live rows; the block then meets and reduces them
-// (each thread's samples in order from 0, or from -inf / +inf for max /
-// min, then block_fold's fixed tree over the threads; a to-scalar
-// coupling folds its row results in row order), and segment k + 1 runs.
-// ops/plan_bridge.py eval_plan repeats that order (_batch_sums).
+// PlanBatchRhs (K2) and PlanBlockRhs (K8, K10 and K11), on one block,
+// evaluate a stage batch-wide (plan_batch_eval): every thread runs segment
+// k for the samples it owns, writing the rows a coupling reduces into live
+// rows; the block then meets and reduces them (each thread's samples in
+// order from 0, or from -inf / +inf for max / min, then block_fold's fixed
+// tree over the threads; a to-scalar coupling folds its row results in row
+// order), and segment k + 1 runs. ops/plan_bridge.py eval_plan repeats
+// that order (_batch_sums) for a block of kPlanBlockThreads threads.
 //
 // Constants sit in shared memory when the launch says they fit
 // (smem_consts, from ops/cuda_plan.py against cuda_kernels.
@@ -206,10 +207,47 @@ struct BlockMeet {
   }
 };
 
-// K2's batch-wide plan route (coupled plans). Its workspace rows after the
-// solve's own: X [B][kDim] stage inputs, FO [B][kOutRows] outputs, the live
-// rows [kLiveRows][B], then kRedValues reduced values. Its block meets
-// inside a stage, so it runs on one block (kGrid false).
+// Threads of the one block that runs a coupled plan in K8, K10 and K11 (and
+// K2 and K3 launch as many): the block meets' tree over them is the order
+// of ops/plan_bridge.py _batch_sums at cuda_plan.PLAN_BLOCK_THREADS.
+constexpr int kPlanBlockThreads = 512;
+
+// The rows of a batch-wide evaluation: X [B][kDim] stage inputs, FO
+// [B][kOutRows] outputs, the live rows [kLiveRows][B], then kRedValues
+// reduced values.
+template <class P>
+inline long plan_batch_values(int B) {
+  return long(B) * (P::kDim + P::kOutRows + P::kLiveRows) + P::kRedValues;
+}
+
+// One batch-wide evaluation of the plan at t from the inputs in the rows
+// `rw` (plan_batch_values), by every thread of the block; scratch
+// [blockDim.x] is the block meets' (BlockMeet). Returns FO, sample b's
+// outputs at b * kOutRows. The samples' inputs were written by the threads
+// that own them here (b = threadIdx.x, + blockDim.x, ...), and the outputs
+// are read by them.
+template <typename T, class P>
+__device__ const T* plan_batch_eval(T t, T* rw, const T* c, const T* scg,
+                                    T* scratch, int B) {
+  const T* X = rw;
+  T* FO = rw + long(B) * P::kDim;
+  T* live = FO + long(B) * P::kOutRows;
+  T* redv = live + long(B) * P::kLiveRows;
+  for (int k = 0; k < P::kSegments; ++k) {
+    for (int b = threadIdx.x; b < B; b += blockDim.x)
+      P::template seg<T>(k, t, X + long(b) * P::kDim, c, scg, b, B, live,
+                         redv, FO + long(b) * P::kOutRows);
+    if (k + 1 < P::kSegments) {
+      BlockMeet<T> m{live, redv, scratch, B};
+      P::meet(k, m);
+    }
+  }
+  return FO;
+}
+
+// K2's batch-wide plan route (coupled plans): its rows (plan_batch_values)
+// after the solve's own workspace. Its block meets inside a stage, so it
+// runs on one block (kGrid false).
 template <typename T, class P>
 struct PlanBatchRhs {
   static constexpr bool kBatch = true;
@@ -241,23 +279,75 @@ struct PlanBatchRhs {
   }
   __device__ const T* eval_batch(const Shared&, Local& lo, T* rw, T* scratch,
                                  int B, int, int) const {
-    const T* X = rw;
-    T* FO = rw + long(B) * P::kDim;
-    T* live = FO + long(B) * P::kOutRows;
-    T* redv = live + long(B) * P::kLiveRows;
-    const T* c = plan_consts(cg, in_smem);
-    for (int k = 0; k < P::kSegments; ++k) {
-      for (int b = threadIdx.x; b < B; b += blockDim.x)
-        P::template seg<T>(k, lo.t, X + long(b) * P::kDim, c, scg, b, B,
-                           live, redv, FO + long(b) * P::kOutRows);
-      if (k + 1 < P::kSegments) {
-        BlockMeet<T> m{live, redv, scratch, B};
-        P::meet(k, m);
-      }
-    }
-    return FO;
+    return plan_batch_eval<T, P>(lo.t, rw, plan_consts(cg, in_smem), scg,
+                                 scratch, B);
   }
   __device__ long ld(const Local&) const { return P::kOutRows; }
+};
+
+// The batch-wide plan route of K8 (csrc/rk_fixed.cuh rk_fixed_kernel, its
+// kBatch contract with spb() = B), fixed_adams' and explicit_adams' K10
+// (rk_adams.cuh rk_adams_grid_kernel) and K11 (rk_vcabm.cuh
+// rk_vcabm_kernel), each on one block of kPlanBlockThreads threads: the
+// host puts each of its samples' stage inputs (put), meets the block, and
+// every thread runs eval_batch (plan_batch_eval). Its rows `rw`
+// (plan_batch_values) follow the host's own in the workspace; the block
+// meets' scratch [blockDim.x] follows the constants in shared memory (where
+// they sit there), and the host's own shared arrays follow it (K8's grid
+// and output times where `times_smem`, else none: they stay in global
+// memory, as on K4's batch route). Replaces the coupled plans of
+// tfdiffeq_tpu/ops/pallas_fixed.py:1167 (plan_solve_fixed), :1143
+// (plan_solve_adams) and pallas_vcabm.py:449 (plan_solve_vcabm), which run
+// one grid block there. Bound on the H100: one SM walks the batch, 8
+// samples a thread at B = 4096, and every coupling is a block barrier
+// chain (block_fold): latency, thousands of times the card's bound in
+// bytes or operations (PERF.md §6); a simple route that is right first.
+template <typename T, class P>
+struct PlanBlockRhs {
+  static constexpr bool kBatch = true;
+  static constexpr bool kGroup = false;
+  const T* cg;    // constants (plan_codegen.flat_consts)
+  const T* scg;   // per-sample constants [rows][B]
+  int n_consts;
+  int in_smem;
+  T* rw;          // the rows (plan_batch_values)
+  int B;
+  int times_smem;  // K8: the grid and the output times in shared memory
+
+  struct Shared {
+    int unused;
+  };
+  struct Local {
+    T t = T(0);
+  };
+
+  __device__ int spb() const { return B; }
+  __device__ T* scratch() const {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    return reinterpret_cast<T*>(smem_raw) + (in_smem ? n_consts : 0);
+  }
+  // K10, K11: the free shared memory past the scratch.
+  __device__ T* setup(Shared&, Local&, unsigned char* smem) const {
+    return plan_setup_consts<T>(cg, n_consts, in_smem, smem) + blockDim.x;
+  }
+  // K8: the same, or null where the grid stays in global memory.
+  __device__ T* setup(Shared& sh, Local& lo, unsigned char* smem, int,
+                      int) const {
+    T* const rest = setup(sh, lo, smem);
+    return times_smem ? rest : nullptr;
+  }
+  template <class G>
+  __device__ void put(const Shared&, Local& lo, int b, T t, G get) const {
+    lo.t = t;
+    T* x = rw + long(b) * P::kDim;
+    for (int d = 0; d < P::kDim; ++d) x[d] = get(d);
+  }
+  __device__ const T* eval_batch(const Shared&, const Local& lo, int,
+                                 int) const {
+    return plan_batch_eval<T, P>(lo.t, rw, plan_consts(cg, in_smem), scg,
+                                 scratch(), B);
+  }
+  __device__ long ld() const { return P::kOutRows; }
 };
 
 // ---- launch functions of a plan library (one host each) ----
@@ -310,8 +400,12 @@ int launch_plan_solve(const void* tau, const void* y0, const void* f0,
   return static_cast<int>(e);
 }
 
-// K8 with the plan: `group` threads a sample (PlanLaneRhs, n_consts
-// counting the transposed copy).
+// K8 with the plan: an uncoupled plan `group` threads a sample
+// (PlanLaneRhs, n_consts counting the transposed copy); a coupled one on
+// one block of `group` = kPlanBlockThreads threads (rk_fixed_kernel with
+// PlanBlockRhs, n_consts the flat constants), its rows after the engine's
+// (stages + 3) B D values, the grid and output times in shared memory after
+// the constants and the scratch where they fit.
 template <typename T, class P>
 int launch_plan_fixed(const void* grid, const void* tau, const void* y0,
                       const void* f0, void* out, void* stats, void* work,
@@ -321,28 +415,41 @@ int launch_plan_fixed(const void* grid, const void* tau, const void* y0,
                       const void* consts, int n_consts,
                       const void* sample_consts, int smem_consts,
                       void* stream) {
-  if constexpr (P::kSegments > 1) {
+  if (stages < 1 || stages > kMaxStages || G < 1 || T_out < 1 || B < 1 ||
+      D != P::kDim || P::kOutRows != D)
     return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (stages < 1 || stages > kMaxStages || G < 1 || T_out < 1 || B < 1 ||
-        D != P::kDim || P::kOutRows != D)
+  // Fixed tableaus have no error weights: b_sol stands in for b_err.
+  const Tableau<T> tab =
+      make_tableau<T>(stages, 0, 0, c, a, b_sol, b_sol, nullptr);
+  FixedScalars<T> sc{};
+  sc.sign = T(sign);
+  sc.valid = valid;
+  sc.G = G;
+  sc.T_out = T_out;
+  sc.B = B;
+  sc.D = D;
+  const T* cg = static_cast<const T*>(consts);
+  const T* scg = static_cast<const T*>(sample_consts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (P::kSegments > 1) {
+    const long own = long(stages + 3) * B * D;
+    if (group != kPlanBlockThreads ||
+        work_size < own + plan_batch_values<P>(B))
       return static_cast<int>(cudaErrorInvalidValue);
-    // Fixed tableaus have no error weights: b_sol stands in for b_err.
-    const Tableau<T> tab =
-        make_tableau<T>(stages, 0, 0, c, a, b_sol, b_sol, nullptr);
-    FixedScalars<T> sc;
-    sc.sign = T(sign);
-    sc.valid = valid;
-    sc.G = G;
-    sc.T_out = T_out;
-    sc.B = B;
-    sc.D = D;
+    const size_t head =
+        sizeof(T) * ((smem_consts ? size_t(n_consts) : 0) + group);
+    const size_t times = sizeof(T) * (size_t(G) + T_out);
+    const int times_smem = head + times <= size_t(kSolveSmemBytes);
+    const PlanBlockRhs<T, P> rhs{cg, scg, n_consts, smem_consts,
+                                 static_cast<T*>(work) + own, B, times_smem};
+    return static_cast<int>(launch_rk_fixed<T>(
+        grid, tau, y0, f0, out, stats, work, rhs,
+        head + (times_smem ? times : 0), group, B, tab, sc, st));
+  } else {
     return static_cast<int>(launch_rk_fixed_group<T>(
         grid, tau, y0, f0, out, stats, work, work_size,
-        PlanLaneRhs<T, P>{static_cast<const T*>(consts),
-                          static_cast<const T*>(sample_consts), n_consts,
-                          smem_consts},
-        group, tab, sc, static_cast<cudaStream_t>(stream)));
+        PlanLaneRhs<T, P>{cg, scg, n_consts, smem_consts}, group, tab, sc,
+        st));
   }
 }
 
@@ -382,11 +489,12 @@ int launch_plan_perlane(const void* tau, const void* y0, const void* f0,
   }
 }
 
-// K10 and K11 take uncoupled plans only (ROADMAP.md queue 2 item 3): a
-// coupled one is refused by its wrapper (ops/cuda_plan.py) and here.
-// fixed_adams: K10's grid, a thread a sample (PlanRhs, n_consts the flat
-// constants); explicit_adams: `group` threads a sample (PlanLaneRhs,
-// n_consts counting the transposed copy).
+// K10 with the plan. Uncoupled: fixed_adams on K10's grid, a thread a
+// sample (PlanRhs, n_consts the flat constants); explicit_adams `group`
+// threads a sample (PlanLaneRhs, n_consts counting the transposed copy).
+// Coupled: both methods on K10's grid kernel at one block of
+// kPlanBlockThreads threads (PlanBlockRhs, n_consts the flat constants),
+// its rows after the engine's adams_grid_rows B D values.
 template <typename T, class P>
 int launch_plan_adams(const void* grid, const void* tau, const void* y0,
                       const void* f0, void* out, void* stats, void* work,
@@ -398,26 +506,35 @@ int launch_plan_adams(const void* grid, const void* tau, const void* y0,
                       const void* sample_consts, int smem_consts,
                       void* gwork, long gwork_bytes, int n_blocks,
                       int* layout, void* stream) {
-  if constexpr (P::kSegments > 1) {
+  if (!layout ||
+      !adams_args_ok(G, T_out, B, D, max_order, max_iters, threads) ||
+      D != P::kDim || P::kOutRows != D)
     return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (!layout ||
-        !adams_args_ok(G, T_out, B, D, max_order, max_iters, threads) ||
-        D != P::kDim || P::kOutRows != D)
+  const T* cg = static_cast<const T*>(consts);
+  const T* scg = static_cast<const T*>(sample_consts);
+  const AdamsTables<T> tables = make_adams_tables<T>(max_order, ab, am);
+  const AdamsScalars<T> sc =
+      make_adams_scalars<T>(G, T_out, B, D, sign, rtol, atol, max_order,
+                            max_iters, implicit, nfe);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
+  if constexpr (P::kSegments > 1) {
+    const long own = adams_grid_rows(max_order) * B * D;
+    if (n_blocks != 1 || threads != kPlanBlockThreads ||
+        work_size < own + plan_batch_values<P>(B))
       return static_cast<int>(cudaErrorInvalidValue);
-    const T* cg = static_cast<const T*>(consts);
-    const T* scg = static_cast<const T*>(sample_consts);
-    const AdamsTables<T> tables = make_adams_tables<T>(max_order, ab, am);
-    const AdamsScalars<T> sc =
-        make_adams_scalars<T>(G, T_out, B, D, sign, rtol, atol, max_order,
-                              max_iters, implicit, nfe);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(launch_rk_adams<T>(
+        grid, tau, y0, f0, out, stats, work, work_size, gwork, gwork_bytes,
+        1,
+        PlanBlockRhs<T, P>{cg, scg, n_consts, smem_consts,
+                           static_cast<T*>(work) + own, B, 0},
+        fixed + sizeof(T) * threads, threads, tables, sc, layout, st));
+  } else {
     if (!implicit)
       return static_cast<int>(launch_rk_adams_group<T>(
           grid, tau, y0, f0, out, stats, work, work_size,
           PlanLaneRhs<T, P>{cg, scg, n_consts, smem_consts}, group, tables,
           sc, layout, st));
-    const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
     return static_cast<int>(launch_rk_adams<T>(
         grid, tau, y0, f0, out, stats, work, work_size, gwork, gwork_bytes,
         n_blocks, PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, fixed,
@@ -435,23 +552,35 @@ int launch_plan_vcabm(const void* tau, const void* y0, const void* f0,
                       const void* consts, int n_consts,
                       const void* sample_consts, int smem_consts,
                       void* gwork, long gwork_bytes, int n_blocks,
-                      void* stream) {
-  if constexpr (P::kSegments > 1) {
+                      long work_size, void* stream) {
+  if (!vcabm_args_ok(T_out, B, D, max_order, max_steps, threads) ||
+      D != P::kDim || P::kOutRows != D)
     return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (!vcabm_args_ok(T_out, B, D, max_order, max_steps, threads) ||
-        D != P::kDim || P::kOutRows != D)
+  const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
+  const T* cg = static_cast<const T*>(consts);
+  const T* scg = static_cast<const T*>(sample_consts);
+  const long own = vcabm_state_rows(max_order) * B * D;
+  const VcabmScalars<T> sc = make_vcabm_scalars<T>(
+      T_out, B, D, dt0, rtol, atol, dt_min, sign, safety, ifactor, dfactor,
+      max_steps, valid, max_order, gstar);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (P::kSegments > 1) {
+    // A coupled plan: one block of kPlanBlockThreads threads (PlanBlockRhs),
+    // its rows after the engine's state rows.
+    if (n_blocks != 1 || threads != kPlanBlockThreads ||
+        work_size < own + plan_batch_values<P>(B))
       return static_cast<int>(cudaErrorInvalidValue);
-    const size_t fixed = sizeof(T) * (smem_consts ? size_t(n_consts) : 0);
-    const T* cg = static_cast<const T*>(consts);
-    const T* scg = static_cast<const T*>(sample_consts);
+    return static_cast<int>(launch_rk_vcabm<T>(
+        tau, y0, f0, out, stats, work, gwork, gwork_bytes, 1,
+        PlanBlockRhs<T, P>{cg, scg, n_consts, smem_consts,
+                           static_cast<T*>(work) + own, B, 0},
+        fixed + sizeof(T) * threads, threads, sc, st));
+  } else {
+    if (work_size < own) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_rk_vcabm<T>(
         tau, y0, f0, out, stats, work, gwork, gwork_bytes, n_blocks,
-        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, fixed, threads,
-        make_vcabm_scalars<T>(T_out, B, D, dt0, rtol, atol, dt_min, sign,
-                              safety, ifactor, dfactor, max_steps, valid,
-                              max_order, gstar),
-        static_cast<cudaStream_t>(stream)));
+        PlanRhs<T, P>{cg, scg, n_consts, smem_consts}, fixed, threads, sc,
+        st));
   }
 }
 
@@ -569,12 +698,13 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
       double safety, double ifactor, double dfactor, int max_steps,         \
       int valid, int max_order, const double* gstar, const void* consts,    \
       int n_consts, const void* sample_consts, int smem_consts,             \
-      void* gwork, long gwork_bytes, int n_blocks, void* stream) {          \
+      void* gwork, long gwork_bytes, int n_blocks, long work_size,          \
+      void* stream) {                                                        \
     return tfd::launch_plan_vcabm<TYPE, tfd::Plan>(                         \
         tau, y0, f0, out, stats, work, T_out, B, D, threads, dt0, rtol,     \
         atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,     \
         max_order, gstar, consts, n_consts, sample_consts, smem_consts,     \
-        gwork, gwork_bytes, n_blocks, stream);                               \
+        gwork, gwork_bytes, n_blocks, work_size, stream);                    \
   }
 // K12's entry: the dynamics `Plan` and the correction net `PlanG` of one
 // source.

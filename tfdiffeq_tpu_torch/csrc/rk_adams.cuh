@@ -44,7 +44,10 @@
 // sits in the block's shared memory after the right-hand side's share,
 // the grid and the output times where the block's slots fit, else in the
 // workspace. fixed_adams meets the batch
-// at every corrector iteration (rk_adams_grid_kernel): a grid of n_blocks
+// at every corrector iteration (rk_adams_grid_kernel; a coupled plan runs
+// both methods there, on one block, each evaluation batch-wide with the
+// block meeting at its couplings, csrc/plan_rhs.cuh PlanBlockRhs): a grid
+// of n_blocks
 // blocks of 512 threads (ops/cuda_kernels.py solve_blocks: one per SM, or
 // one a sample for a smaller batch), all resident together (csrc/
 // grid_meet.cuh launch_grid; a grid that cannot be is an error, never one
@@ -82,7 +85,9 @@
 // returns the free shared memory; in(lo), where the D inputs go; and
 // eval(sh, lo, t, b, B), sample b's D outputs; with kGroup (the MLP
 // routes) also eval_group(sh, t, on, m, gsz, hin) for a group of threads a
-// sample (its gw-wide vectors and `slots`, set by the launch).
+// sample (its gw-wide vectors and `slots`, set by the launch); with kBatch
+// (plan_rhs.cuh PlanBlockRhs, a coupled plan) put(sh, lo, b, t, get) and
+// eval_batch(sh, lo, row0, n) instead, the block's samples at once.
 #pragma once
 
 #include "grid_meet.cuh"
@@ -333,6 +338,17 @@ __global__ void __launch_bounds__(kAdamsThreads, 1)
           OUT[row(0, d, b)] = sign * fo[d];
         __syncthreads();
       }
+    } else if constexpr (Rhs::kBatch) {
+      // A coupled plan on one block (csrc/plan_rhs.cuh PlanBlockRhs): each
+      // thread puts its samples' inputs, the block evaluates the batch.
+      for (int b = b_lo + tid; b < b_hi; b += nth)
+        rhs.put(rsh, lo, b, sign * t_eval,
+                [&](int d) { return IN[row(0, d, b)]; });
+      __syncthreads();
+      const T* fo = rhs.eval_batch(rsh, lo, b_lo, b_hi - b_lo);
+      for (int b = b_lo + tid; b < b_hi; b += nth)
+        for (int d = 0; d < D; ++d)
+          OUT[row(0, d, b)] = sign * fo[long(b) * rhs.ld() + d];
     } else {
       T* h_in = rhs.in(lo);
       for (int b = b_lo + tid; b < b_hi; b += nth) {
@@ -390,6 +406,21 @@ __global__ void __launch_bounds__(kAdamsThreads, 1)
             acc = acc + (dt * rk.b[i]) * KS[row(long(i - 1) * D, d, b)];
           YN[row(0, d, b)] = acc;
           YC[row(0, d, b)] = Y[row(0, d, b)] + acc;
+        }
+    } else if (!sc.implicit) {
+      // explicit_adams (a coupled plan's one block): the increment
+      // delta = dt sum_j ab[k_eff - 1][j] hist[j], newest first, kept in
+      // YN, and f1 = f(t1, y0 + delta) below, as rk_adams_group_kernel.
+      const int k_eff = n + 1 < MO ? n + 1 : MO;
+      const T* abr = tab.ab + (k_eff - 1) * MO;
+      for (int b = b_lo + tid; b < b_hi; b += nth)
+        for (int d = 0; d < D; ++d) {
+          T acc = abr[0] * HIST[hrow(0, d, b)];
+          for (int j = 1; j < MO; ++j)
+            acc = acc + abr[j] * HIST[hrow(j, d, b)];
+          const T delta = dt * acc;
+          YN[row(0, d, b)] = delta;
+          YC[row(0, d, b)] = Y[row(0, d, b)] + delta;
         }
     } else {
       // The predictor y_pred = y0 + dt sum_j ab[k_eff - 1][j] hist[j] and
@@ -547,7 +578,9 @@ cudaError_t launch_rk_adams(const void* grid, const void* tau, const void* y0,
   T* a_out = static_cast<T*>(out);
   int* a_stats = static_cast<int*>(stats);
   T* a_work = static_cast<T*>(work);
-  if (!sc.implicit ||
+  // explicit_adams takes this kernel with a coupled plan only (Rhs::kBatch,
+  // one block); else rk_adams_group_kernel.
+  if ((!sc.implicit && !Rhs::kBatch) ||
       work_size < adams_grid_rows(sc.max_order) * long(sc.B) * sc.D)
     return cudaErrorInvalidValue;
   if (n_blocks < 1 || !gwork ||

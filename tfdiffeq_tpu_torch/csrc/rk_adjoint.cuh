@@ -1084,7 +1084,8 @@ struct FixedAdjScalars {
 };
 
 // K9: n_sub equal steps per observation interval
-// (pallas_fixed.py:726). Nothing in a fixed step reads the quadratures, so
+// (pallas_fixed.py:726; a coupled plan: rk_fixed_adjoint_block_kernel
+// below). Nothing in a fixed step reads the quadratures, so
 // the batch never has to meet during the sweep. Each sample accumulates
 // its own share of the quadratures: per step, sum_j (h b_j) (sign x_j)
 // over the stages in order (the stage combine of the reference), then
@@ -1336,6 +1337,200 @@ cudaError_t launch_rk_fixed_adjoint(const void* tau, const void* ys,
   if (e != cudaSuccess) return e;
   const long SV = sc.slot_values;
   const T* X = static_cast<const T*>(work) + long(sc.B) * (SV + n_q);
+  const int steps = sc.n_sub * (sc.T_obs - 1);
+  constexpr int kReduceWarps = 8;
+  fixed_tree_reduce_kernel<T>
+      <<<(R + kReduceWarps - 1) / kReduceWarps + (R == 0),
+         kReduceWarps * kWarp, 0, st>>>(
+          X, sc.B, aug.n_w, aug.ti, static_cast<T*>(aw),
+          static_cast<T*>(at), static_cast<int*>(stats), tab.S * steps,
+          steps);
+  return cudaGetLastError();
+}
+
+// K9 with a coupled plan (csrc/plan_aug.cuh PlanBatchAugRhs, K3's
+// batch-wide walk): the sweep of rk_fixed_adjoint_kernel on ONE block of
+// kAdjThreads threads, since every stage's walk meets the block at each
+// coupling and at each coupling's transpose (the meets' order is the one
+// ops/plan_adjoint.py aug_terms repeats, bmax ties split evenly). Thread
+// tid owns the samples b = tid, tid + kAdjThreads, ... for the stage
+// states, the Kahan updates and the quadratures; per stage it puts its
+// samples' stage state, the block meets, every thread runs the walk
+// (stage_batch), and each sample's weighted quadrature terms join its
+// step's sums in stage order, then its running sums once a step, exactly
+// as a group does in rk_fixed_adjoint_kernel. So the end-of-sweep trees
+// (fixed_tree_reduce_kernel) and ops/cuda_fixed.py fixed_adjoint_plain are
+// the uncoupled route's. Workspace: y, a_y, their compensations ([B][D]
+// each), the stages of both ([S][B][D] each), the running quadratures and
+// the step's ([n_q][B] each: the shared ones first, the trees' rows), then
+// the walk's rows (plan_aug.cuh plan_batch_aug_values). Bound on the H100:
+// one SM walks the whole batch, 8 samples a thread at B = 4096, and the
+// meets are block barriers; nothing of the card's other SMs takes part.
+template <typename T, class Aug>
+__global__ void __launch_bounds__(kAdjThreads, 1)
+    rk_fixed_adjoint_block_kernel(const T* __restrict__ tau,
+                                  const T* __restrict__ ys,
+                                  const T* __restrict__ g,
+                                  T* __restrict__ ay0_out,
+                                  T* __restrict__ aps_out,
+                                  T* __restrict__ work, Aug aug,
+                                  Tableau<T> tab_in, FixedAdjScalars<T> sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Aug::Shared ash;
+  __shared__ Tableau<T> tab;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  typename Aug::Local lo;
+  T* const red = aug.setup(ash, lo, smem_raw);   // [nth] the meets' scratch
+  if (tid == 0) tab = tab_in;
+  __syncthreads();
+
+  const int T_obs = sc.T_obs, B = sc.B, D = sc.D, n_sub = sc.n_sub;
+  const int S = tab.S;
+  const int R = aug.n_w + aug.ti;         // shared quadratures a sample
+  const int n_q = R + aug.n_ps;           // every quadrature a sample
+  const long BD = long(B) * D;
+  const long BQ = long(B) * n_q;
+  T* const Y = work;               // [B][D] y
+  T* const AY = Y + BD;            // [B][D] a_y
+  T* const CY = AY + BD;           // [B][D] Kahan compensation of y
+  T* const CAY = CY + BD;          // ... and of a_y
+  T* const KY = CAY + BD;          // [S][B][D] stage derivatives of y
+  T* const KAY = KY + S * BD;      // [S][B][D] ... and of a_y
+  T* const ACC = KAY + S * BD;     // [n_q][B] the running quadratures
+  T* const STEP = ACC + BQ;        // [n_q][B] the step's
+  T* const RW = STEP + BQ;         // the walk's rows
+  const T sf = sc.sign;
+  int first_b = 0;                 // first stage with a nonzero weight
+  while (tab.b_sol[first_b] == T(0)) ++first_b;
+
+  for (int b = tid; b < B; b += nth) {
+    for (int d = 0; d < D; ++d) AY[long(b) * D + d] = T(0);
+    for (int r = 0; r < n_q; ++r) ACC[long(r) * B + b] = T(0);
+  }
+  for (int i = T_obs - 1; i >= 1; --i) {
+    // Reset y to the stored forward state; inject the cotangent.
+    for (int b = tid; b < B; b += nth)
+      for (int d = 0; d < D; ++d) {
+        const long k = long(b) * D + d;
+        Y[k] = ys[long(i) * BD + k];
+        AY[k] = AY[k] + g[long(i) * BD + k];
+        CY[k] = T(0);
+        CAY[k] = T(0);
+      }
+    const T s_start = -tau[i];
+    const T h = (-tau[i - 1] - s_start) / T(n_sub);
+    for (int j = 0; j < n_sub; ++j) {
+      const T s = s_start + h * T(j);
+      for (int st = 0; st < S; ++st) {
+        // Stage st's state ya = y + sum_q (h a_stq) ky_q, aya likewise.
+        for (int b = tid; b < B; b += nth) {
+          const long base = long(b) * D;
+          T* ya = aug.ya(lo);
+          T* aya = aug.aya(lo);
+          for (int d = 0; d < D; ++d) {
+            T yv = Y[base + d], av = AY[base + d];
+            for (int q = 0; q < st; ++q) {
+              const T a = tab.a[st][q];
+              if (a != T(0)) {
+                yv = yv + (h * a) * KY[q * BD + base + d];
+                av = av + (h * a) * KAY[q * BD + base + d];
+              }
+            }
+            ya[d] = yv;
+            aya[d] = av;
+          }
+          aug.put(ash, lo, b, B, RW);
+        }
+        __syncthreads();
+        aug.stage_batch(ash, lo, (-sf) * (s + tab.c[st] * h), B, sf,
+                        KY + st * BD, KAY + st * BD, RW, red);
+        __syncthreads();
+        // This stage's weighted quadrature terms, (h b_st) (sign x), join
+        // the step's sums in stage order, set at the first weighted stage.
+        if (tab.b_sol[st] != T(0)) {
+          const T hb = h * tab.b_sol[st];
+          const bool first = st == first_b;
+          for (int b = tid; b < B; b += nth)
+            for (int r = 0; r < n_q; ++r) {
+              const T x = r < R ? aug.quad_x(ash, r, RW, B, b)
+                                : aug.sample_x(ash, r - R, RW, B, b);
+              const T term = hb * (sf * x);
+              T& acc = STEP[long(r) * B + b];
+              acc = first ? term : acc + term;
+            }
+        }
+      }
+      // The Kahan-compensated update of (y, a_y), and the step's
+      // quadratures into the running sums.
+      for (int b = tid; b < B; b += nth) {
+        const long base = long(b) * D;
+        for (int pass = 0; pass < 2; ++pass) {
+          T* V = pass ? AY : Y;
+          T* CV = pass ? CAY : CY;
+          const T* KV = pass ? KAY : KY;
+          for (int d = 0; d < D; ++d) {
+            T dv = T(0);
+            bool first = true;
+            for (int q = 0; q < S; ++q) {
+              if (tab.b_sol[q] != T(0)) {
+                const T term = (h * tab.b_sol[q]) * KV[q * BD + base + d];
+                dv = first ? term : dv + term;
+                first = false;
+              }
+            }
+            const T v0 = V[base + d];
+            const T adj = dv - CV[base + d];
+            const T v1 = v0 + adj;
+            CV[base + d] = (v1 - v0) - adj;
+            V[base + d] = v1;
+          }
+        }
+        for (int r = 0; r < n_q; ++r)
+          ACC[long(r) * B + b] = ACC[long(r) * B + b] + STEP[long(r) * B + b];
+      }
+    }
+  }
+  for (int b = tid; b < B; b += nth) {
+    for (int d = 0; d < D; ++d) {
+      const long k = long(b) * D + d;
+      ay0_out[k] = AY[k] + g[k];
+    }
+    for (int r = R; r < n_q; ++r)
+      aps_out[long(r - R) * B + b] = ACC[long(r) * B + b];
+  }
+}
+
+// Values of rk_fixed_adjoint_block_kernel's workspace before the walk's
+// rows.
+inline long fixed_block_own_values(int S, int B, int D, int n_q) {
+  return (4L + 2L * S) * B * D + 2L * n_q * B;
+}
+
+// K9's one-block launch (a coupled plan): the sweep, then the trees of
+// launch_rk_fixed_adjoint over the running quadratures' shared rows.
+// `smem` is the bytes the walk keeps in shared memory (its constants) and
+// the meets' scratch; the walk's rows follow the sweep's own in `work`
+// (the caller checked work_size).
+template <typename T, class Aug>
+cudaError_t launch_rk_fixed_adjoint_block(
+    const void* tau, const void* ys, const void* g, void* ay0, void* aw,
+    void* at, void* aps, void* stats, void* work, const Aug& aug,
+    size_t smem, int threads, const Tableau<T>& tab,
+    const FixedAdjScalars<T>& sc, cudaStream_t st) {
+  if (threads != kAdjThreads) return cudaErrorInvalidValue;
+  auto kernel = rk_fixed_adjoint_block_kernel<T, Aug>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<1, threads, smem, st>>>(
+      static_cast<const T*>(tau), static_cast<const T*>(ys),
+      static_cast<const T*>(g), static_cast<T*>(ay0), static_cast<T*>(aps),
+      static_cast<T*>(work), aug, tab, sc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int R = aug.n_w + aug.ti;
+  const T* X = static_cast<const T*>(work) + (4L + 2L * tab.S) * sc.B * sc.D;
   const int steps = sc.n_sub * (sc.T_obs - 1);
   constexpr int kReduceWarps = 8;
   fixed_tree_reduce_kernel<T>

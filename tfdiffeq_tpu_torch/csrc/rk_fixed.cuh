@@ -15,31 +15,32 @@
 // grid's end. Invalid times give status 3 and a zero tail.
 //
 // Design. A fixed grid has no error norm and no controller, so no sample
-// ever waits for another. Two kernels: rk_fixed_group_kernel (below; the
+// waits for another but through a coupled plan's meets. Two kernels: rk_fixed_group_kernel (below; the
 // MLP routes of csrc/fixed_kernel.cu and K14's plans, csrc/plan_rhs.cuh
 // PlanLaneRhs) gives each sample a group of threads, its slot in shared
-// memory; rk_fixed_kernel (K4's batch route) gives each sample a thread,
-// over as many blocks as the batch needs, with no barrier after the prologue (on the batch route a
-// barrier before each block-wide evaluation). All samples share one grid,
+// memory; rk_fixed_kernel evaluates every stage batch-wide, a block's
+// samples at once after a barrier: K4's batch route (a block of 16 samples,
+// one a thread of its first warp, as many blocks as the batch needs) and a
+// coupled plan (csrc/plan_rhs.cuh PlanBlockRhs: the whole batch on one
+// block of 512 threads, each thread's samples b = tid, tid + 512, ...,
+// the block meeting inside each evaluation). All samples share one grid,
 // so the output cursor is the same in every thread. In rk_fixed_kernel
 // the grid and the output times sit in shared memory after what the
 // right-hand side keeps there, or, where setup returns null (K4's batch
-// route, whose tiles take the block's shared memory), are read from global
-// memory, so that their length is not bounded by the tiles. The sample's
-// state, compensation, derivatives and stages live in a device workspace
-// laid out feature-major ([row][B]: a warp's 32 threads touch 32
-// consecutive values).
+// route, whose tiles take the block's shared memory; a coupled plan whose
+// times do not fit), are read from global memory, so that their length is
+// not bounded by the tiles. The sample's state, compensation, derivatives
+// and stages live in a device workspace laid out feature-major ([row][B]:
+// a warp's 32 threads touch 32 consecutive values).
 //
 // rk_fixed_kernel's right-hand side `Rhs` (csrc/fixed_kernel.cu: K4's
-// batch route; csrc/plan_rhs.cuh: K14's generated plans) provides Shared
-// and Local state; setup(sh, lo, smem, row0, spb), which copies what it
-// keeps in shared memory (no barrier) and returns the free shared memory
-// (or null: the grid stays in global memory); and
-// either (kBatch false) in(lo) and eval(sh, lo, t, b, B), sample b's D
-// outputs from the D inputs written at in(lo), or (kBatch true) spb()
-// samples a block, put(sh, lo, b, t, get) and eval_batch(sh, lo, row0, spb),
-// the block's evaluation after a barrier (sample b's outputs at
-// b * ld()).
+// batch route; csrc/plan_rhs.cuh: a coupled plan) provides Shared and
+// Local state; setup(sh, lo, smem, row0, spb), which copies what it keeps
+// in shared memory (no barrier) and returns the free shared memory (or
+// null: the grid stays in global memory); spb() samples a block,
+// put(sh, lo, b, t, get) (sample b's inputs from get(d)) and
+// eval_batch(sh, lo, row0, spb), the block's evaluation after a barrier
+// (sample b's outputs at b * ld()).
 #pragma once
 
 #include "lane_group.h"
@@ -146,37 +147,36 @@ __global__ void rk_fixed_kernel(const T* __restrict__ grid_g,
                                 T* __restrict__ out, int* __restrict__ stats,
                                 T* __restrict__ work, Rhs rhs,
                                 Tableau<T> tab_in, FixedScalars<T> sc) {
+  static_assert(Rhs::kBatch, "rk_fixed_kernel takes a batch-wide Rhs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ typename Rhs::Shared rsh;
   __shared__ Tableau<T> tab;
   const int tid = threadIdx.x;
-  // A batch-wide right-hand side's block owns Rhs::spb() rows of the
-  // workspace; a per-thread one a sample a thread.
-  const int spb = Rhs::kBatch ? rhs.spb() : blockDim.x;
+  const int nth = blockDim.x;
+  // The block owns Rhs::spb() rows of the workspace, its samples
+  // [row0, b_hi); thread tid owns row0 + tid, row0 + tid + nth, ... (K4's
+  // route: one sample in each of its first spb threads; a coupled plan: the
+  // whole batch on one block).
+  const int spb = rhs.spb();
   const int row0 = blockIdx.x * spb;
   typename Rhs::Local lo;
   T* rest = rhs.setup(rsh, lo, smem_raw, row0, spb);
   if (tid == 0) tab = tab_in;
   if (rest) {
-    for (int i = tid; i < sc.G; i += blockDim.x) rest[i] = grid_g[i];
-    for (int i = tid; i < sc.T_out; i += blockDim.x)
-      rest[sc.G + i] = tau_g[i];
+    for (int i = tid; i < sc.G; i += nth) rest[i] = grid_g[i];
+    for (int i = tid; i < sc.T_out; i += nth) rest[sc.G + i] = tau_g[i];
   }
   const T* grid = rest ? rest : grid_g;               // [G]
   const T* tau = rest ? rest + sc.G : tau_g;          // [T_out]
   __syncthreads();
 
   const int G = sc.G, T_out = sc.T_out, B = sc.B, D = sc.D, S = tab.S;
+  const int b_hi = row0 + spb < B ? row0 + spb : B;
   if (blockIdx.x == 0 && tid == 0) {
     stats[0] = sc.valid ? 1 + S * (G - 1) : 0;
     stats[1] = sc.valid ? G - 1 : 0;
     stats[2] = 0;
     stats[3] = sc.valid ? 0 : 3;
-  }
-  const int b = row0 + tid;
-  const bool mine = tid < spb && b < B;
-  if constexpr (!Rhs::kBatch) {
-    if (!mine) return;  // no barrier follows
   }
 
   const long BD = long(B) * D;
@@ -186,20 +186,21 @@ __global__ void rk_fixed_kernel(const T* __restrict__ grid_g,
   T* F = C + BD;           // f(t0, y0): stage 0, chained
   T* Y0 = F + BD;          // the step's start state (Hermite drain)
   T* K = Y0 + BD;          // stages 1 .. S - 1
-  // This sample's value in workspace row `row`.
-  auto at = [B, b](int row) -> long { return long(row) * B + b; };
+  // Sample b's value in workspace row `row`.
+  auto at = [B](int row, int b) -> long { return long(row) * B + b; };
   const T sign = sc.sign;
 
   // Row 0 is y0; the rest stays zero unless a step writes it
   // (pallas_fixed.py:125-126).
-  for (int d = 0; mine && d < D; ++d) {
-    const long i = long(b) * D + d;
-    out[i] = y0g[i];
-    for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
-    Y[at(d)] = y0g[i];
-    F[at(d)] = f0g[i];
-    C[at(d)] = T(0);
-  }
+  for (int b = row0 + tid; b < b_hi; b += nth)
+    for (int d = 0; d < D; ++d) {
+      const long i = long(b) * D + d;
+      out[i] = y0g[i];
+      for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
+      Y[at(d, b)] = y0g[i];
+      F[at(d, b)] = f0g[i];
+      C[at(d, b)] = T(0);
+    }
   if (!sc.valid) return;  // the same in every thread
 
   int oi = 1;
@@ -207,60 +208,49 @@ __global__ void rk_fixed_kernel(const T* __restrict__ grid_g,
     const T t0 = grid[step];
     const T t1 = grid[step + 1];
     const T dt = t1 - t0;
-    // Element d's stage j.
-    auto kd = [&](int d) {
-      return [&, d](int j) {
-        return j == 0 ? F[at(d)] : K[at((j - 1) * D + d)];
+    // Element d's stage j of sample b.
+    auto kd = [&](int d, int b) {
+      return [&, d, b](int j) {
+        return j == 0 ? F[at(d, b)] : K[at((j - 1) * D + d, b)];
       };
     };
-    auto stage_state = [&](int i, int d) {
-      return stage_value(tab, i, dt, Y[at(d)], kd(d));
-    };
     // The solution combine and the Kahan-compensated update; returns y1.
-    auto update = [&](int d) {
-      const T y0 = Y[at(d)];
-      T c = C[at(d)];
-      const T y1 = kahan_step(y0, c, sol_delta(tab, dt, kd(d)));
-      C[at(d)] = c;
-      Y[at(d)] = y1;
-      Y0[at(d)] = y0;
+    auto update = [&](int d, int b) {
+      const T y0 = Y[at(d, b)];
+      T c = C[at(d, b)];
+      const T y1 = kahan_step(y0, c, sol_delta(tab, dt, kd(d, b)));
+      C[at(d, b)] = c;
+      Y[at(d, b)] = y1;
+      Y0[at(d, b)] = y0;
       return y1;
     };
-    const T* fo;     // f(t1, y1) of this thread's sample
-    if constexpr (!Rhs::kBatch) {
-      T* h_in = rhs.in(lo);
-      for (int i = 1; i < S; ++i) {
-        for (int d = 0; d < D; ++d) h_in[d] = stage_state(i, d);
-        const T ti = t0 + tab.c[i] * dt;
-        const T* f = rhs.eval(rsh, lo, sign * ti, b, B);
-        for (int d = 0; d < D; ++d) K[at((i - 1) * D + d)] = sign * f[d];
-      }
-      for (int d = 0; d < D; ++d) h_in[d] = update(d);
-      // The chained end derivative f(t1, y1).
-      fo = rhs.eval(rsh, lo, sign * t1, b, B);
-    } else {
-      for (int i = 1; i < S; ++i) {
-        const T ti = t0 + tab.c[i] * dt;
-        if (mine)
-          rhs.put(rsh, lo, b, sign * ti,
-                  [&](int d) { return stage_state(i, d); });
-        __syncthreads();
-        const T* f = rhs.eval_batch(rsh, lo, row0, spb) + long(b) * rhs.ld();
-        for (int d = 0; mine && d < D; ++d)
-          K[at((i - 1) * D + d)] = sign * f[d];
-      }
-      if (mine) rhs.put(rsh, lo, b, sign * t1, update);
+    // Each stage's evaluation, then the chained end derivative f(t1, y1),
+    // batch-wide after a barrier.
+    for (int i = 1; i < S; ++i) {
+      const T ti = t0 + tab.c[i] * dt;
+      for (int b = row0 + tid; b < b_hi; b += nth)
+        rhs.put(rsh, lo, b, sign * ti, [&](int d) {
+          return stage_value(tab, i, dt, Y[at(d, b)], kd(d, b));
+        });
       __syncthreads();
-      fo = rhs.eval_batch(rsh, lo, row0, spb) + long(b) * rhs.ld();
+      const T* f = rhs.eval_batch(rsh, lo, row0, spb);
+      for (int b = row0 + tid; b < b_hi; b += nth)
+        for (int d = 0; d < D; ++d)
+          K[at((i - 1) * D + d, b)] = sign * f[long(b) * rhs.ld() + d];
     }
+    for (int b = row0 + tid; b < b_hi; b += nth)
+      rhs.put(rsh, lo, b, sign * t1, [&](int d) { return update(d, b); });
+    __syncthreads();
+    const T* fo = rhs.eval_batch(rsh, lo, row0, spb);
     const int oi_new = drain_cursor(tau, oi, T_out, t1, step + 2 == G);
-    for (int d = 0; mine && d < D; ++d) {
-      const T f0 = F[at(d)];
-      const T f1 = sign * fo[d];
-      F[at(d)] = f1;
-      hermite_drain(out, tau, oi, oi_new, t0, t1, dt, Y0[at(d)], Y[at(d)],
-                    f0, f1, BD, long(b) * D + d);
-    }
+    for (int b = row0 + tid; b < b_hi; b += nth)
+      for (int d = 0; d < D; ++d) {
+        const T f0 = F[at(d, b)];
+        const T f1 = sign * fo[long(b) * rhs.ld() + d];
+        F[at(d, b)] = f1;
+        hermite_drain(out, tau, oi, oi_new, t0, t1, dt, Y0[at(d, b)],
+                      Y[at(d, b)], f0, f1, BD, long(b) * D + d);
+      }
     oi = oi_new;
   }
 }

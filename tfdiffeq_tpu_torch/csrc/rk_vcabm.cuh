@@ -62,7 +62,9 @@
 // evaluates one sample in its thread, as csrc/rk_adams.cuh describes, and
 // with kGroup (the MLP routes) also eval_group(sh, t, on, m, gsz, hin) for
 // a group of threads a sample (its gw-wide vectors and `slots`, set by the
-// launch).
+// launch); a coupled plan (plan_rhs.cuh PlanBlockRhs, kBatch) runs on one
+// block, every evaluation batch-wide with the block meeting at its
+// couplings.
 #pragma once
 
 #include "grid_meet.cuh"
@@ -177,6 +179,17 @@ __global__ void __launch_bounds__(kVcabmThreads, 1)
           FE[row(0, 1, d, b)] = sign * fo[d];
         __syncthreads();
       }
+    } else if constexpr (Rhs::kBatch) {
+      // A coupled plan on one block (csrc/plan_rhs.cuh PlanBlockRhs): each
+      // thread puts its samples' inputs, the block evaluates the batch.
+      for (int b = b_lo + tid; b < b_hi; b += nth)
+        rhs.put(rsh, lo, b, sign * t_eval,
+                [&](int d) { return YN[row(0, 1, d, b)]; });
+      __syncthreads();
+      const T* fo = rhs.eval_batch(rsh, lo, b_lo, b_hi - b_lo);
+      for (int b = b_lo + tid; b < b_hi; b += nth)
+        for (int d = 0; d < D; ++d)
+          FE[row(0, 1, d, b)] = sign * fo[long(b) * rhs.ld() + d];
     } else {
       T* h_in = rhs.in(lo);
       for (int b = b_lo + tid; b < b_hi; b += nth) {

@@ -76,9 +76,10 @@ item): the dot-precision tiers with
 `per_sample=True` (item 20), and the multi-card `axis_name` /
 `global_batch` coupling (item 18); `solve_conv_ode_sharded` has no
 counterpart here yet (item 18), nor has `cnf_log_prob_auto` (item 16, the
-plan CNF); `solve_fused` takes no reduced dot_precision and no coupled
-plan on a fixed grid or on the Adams kernels yet (item 16, queue 2 item
-3), nor `solve_hyper` a coupled plan. `solve_fused(dense_output=True)` keeps K2's
+plan CNF); `solve_fused` takes no reduced dot_precision yet (item 16), nor
+`solve_hyper` a coupled plan (queue 2 item 3). A coupled plan (a batch
+reduction such as `y.mean(0)`) runs on one block of K2, K8, K10 or K11,
+and trains on K3 or K9 the same way. `solve_fused(dense_output=True)` keeps K2's
 per-step interpolants (a `DenseOutput`), which drive
 `odeint_adjoint(adjoint_mode='interpolated', options={'fuse': True})`.
 What the kernels cannot take (widths past `MAX_WIDTH`) raises, as do the
@@ -1242,9 +1243,14 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
     as in the reference (the reference's grid-blocked `BlockDenseOutput`
     has no counterpart: K2 runs one controller at every batch).
 
-    Not ported yet (NotImplementedError naming the ROADMAP item): a coupled
-    plan on a fixed grid or on the Adams kernels (queue 1 item 16, queue 2
-    item 3) and a reduced dot_precision (K4 at the plan sites, item 16).
+    A coupled plan (a cross-sample `bsum`/`bmax` such as `y.mean(0)`) runs
+    on one block of its kernel, every evaluation batch-wide with the block
+    meeting at each coupling: K2 (adaptive), K8 (fixed grid), K10 (both
+    fixed-step Adams methods) or K11 ('adams'); with per_sample it raises
+    ValueError, as in the reference.
+
+    Not ported yet (NotImplementedError naming the ROADMAP item): a reduced
+    dot_precision (K4 at the plan sites, item 16).
     """
     y0 = torch.as_tensor(y0)
     squeeze = False
@@ -1307,7 +1313,7 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         return result(y0[None].clone(), SolverStats(0, 0, 0, 0))
     y0 = y0.contiguous()
     plan, consts = _pb.build_plan(func, t[0].to(dev), y0, matmul=matmul)
-    _check_plan_route(plan, per_sample, fixed, method)
+    _check_plan_route(plan, per_sample)
     packed = _pb.pack_consts(plan, consts, dtype, dev)
     out, stats, extra = _plan_solve(
         plan, packed, y0, t, rtol=rtol, atol=atol, method=method,
@@ -1320,22 +1326,12 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
     return result(out, stats, extra)
 
 
-def _check_plan_route(plan, per_sample: bool, fixed: bool,
-                      method: str = "") -> None:
+def _check_plan_route(plan, per_sample: bool) -> None:
     if plan.batch_coupled and per_sample:
         raise ValueError(
             "per_sample=True with batch-coupled dynamics (a cross-sample "
             "reduction like y.mean(0)) is unsupported: per-sample stepping "
             "would mix samples at different times")
-    if plan.batch_coupled and fixed:
-        raise NotImplementedError(
-            "batch-coupled dynamics on a fixed grid are not ported yet: "
-            "ROADMAP.md queue 1 item 16 (coupled plans in K8)")
-    if plan.batch_coupled and method in _ADAMS_METHODS:
-        raise NotImplementedError(
-            f"batch-coupled dynamics with method={method!r} are not ported "
-            "yet: ROADMAP.md queue 2 item 3 (coupled plans in K8, K9, K10, "
-            "K11 and K12)")
 
 
 def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
@@ -1598,7 +1594,9 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
     per_sample=True: a controller a sample in both sweeps (K5 forward, K6
     backward on the (y, a_y) seminorm; the reference's backward takes its
     shared-controller kernel, ROADMAP.md queue 3); adaptive methods only;
-    a coupled plan raises FusionError. Fixed backward: adjoint_num_steps
+    a coupled plan raises FusionError. A coupled plan trains on one block
+    in both sweeps (K2 or K8 forward, K3 or K9 backward, the walk cut at
+    each coupling and its transpose). Fixed backward: adjoint_num_steps
     steps an observation interval, else the forward's num_steps, else 1.
     Differentiable wrt the constants, y0 ([B, D], or [D]) and t. Returns
     the trajectory [T, B, D] ([T, D]), with the forward SolverStats when
@@ -1646,7 +1644,6 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
         raise _pb.FusionError(
             "per_sample=True with batch-coupled dynamics (a cross-sample "
             "reduction makes the samples interdependent)")
-    _check_plan_route(plan, False, fixed_fwd or fixed_bwd)
     packed = _pb.pack_consts(plan, consts, dtype, dev, differentiable=True)
     cfg = {"plan": plan, "rtol": rtol, "atol": atol,
            "adjoint_rtol": adjoint_rtol, "adjoint_atol": adjoint_atol,

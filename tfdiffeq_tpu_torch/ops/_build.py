@@ -178,7 +178,8 @@ _PLAN_ARGS = {
               + _PLAN_CONSTS + [_P, _L, _I, _P, _P]),     # grid .. stream
     "vcabm": ([_P] * 6 + [_I] * 4 + [_D] * 8             # tau .. dfactor
               + [_I] * 3 + [_P]                           # .. gstar
-              + _PLAN_CONSTS + [_P, _L, _I, _P]),         # grid, stream
+              + _PLAN_CONSTS + [_P, _L, _I]               # grid
+              + [_L, _P]),                                # work, stream
     # K12: two plans' constants (csrc/plan_rhs.cuh launch_plan_hyper).
     "hyper": ([_P] * 6 + [_L] + [_I] * 4 + [_D] + [_I] * 2  # .. grid_is_t
               + [_P, _I, _P, _I] * 2 + [_P, _P]),         # .. layout, stream

@@ -201,7 +201,8 @@ def adams_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, grid: Tensor,
                       n_blocks: int = None) -> Tuple[Tensor, Tensor]:
     """K10's engine (`_make_adams_solve_kernel`) step for step on the host:
     f(s, y) is the canonical (signed) right-hand side on y0's [B, D]
-    layout, f0 = f(grid[0], y0). Returns (out [T, B, D], stats [4] int32).
+    layout, evaluated for the whole batch at once (a coupled plan's batch
+    sums see every sample, as on K10's one block), f0 = f(grid[0], y0). Returns (out [T, B, D], stats [4] int32).
     fixed_adams' convergence norm sums in the order of K10's grid of
     `n_blocks` blocks (None: the kernel's grid for y0's device,
     `solve_blocks`; one block on the CPU, the one-block order). Shared by
@@ -449,7 +450,8 @@ def vcabm_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, dt0, rtol,
     """K11's engine: a host loop of attempts that mirrors
     `_make_vcabm_kernel` line for line, every scalar a 0-d tensor on y0's
     device (one synchronisation per attempt, two for an accepted one).
-    f(s, y) is the canonical (signed) right-hand side, f0 = f(tau[0], y0).
+    f(s, y) is the canonical (signed) right-hand side, evaluated for the
+    whole batch at once (a coupled plan's too), f0 = f(tau[0], y0).
     Every batch sum is taken in the order of K11's grid of `n_blocks`
     blocks (None: the kernel's grid for y0's device, `solve_blocks`; one
     block on the CPU, the one-block order). Shared by the MLP route

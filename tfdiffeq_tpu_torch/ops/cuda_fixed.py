@@ -143,7 +143,9 @@ def fixed_solve_plain(f, y0: Tensor, f0: Tensor, tau: Tensor, grid: Tensor,
                       tab) -> Tuple[Tensor, Tensor]:
     """K8's engine (`_make_fixed_solve_kernel`) step for step on the host:
     f(s, y) is the canonical (signed) right-hand side on y0's [B, D]
-    layout. Returns (out [T, B, D], stats [4] int32)."""
+    layout, each stage evaluated for the whole batch at once (so a coupled
+    plan's batch sums see every sample, as on K8's one block). Returns
+    (out [T, B, D], stats [4] int32)."""
     dev, dtype = y0.device, y0.dtype
     T, G = tau.shape[0], grid.shape[0]
     tau_h = tau.detach().to("cpu", dtype)
@@ -354,9 +356,11 @@ def fixed_adjoint_plain(aug, n_w: int, time_input: bool, n_ps: int,
                         num_steps: int = 1, method: str = "rk4"):
     """K9's engine in plain PyTorch, on a right-hand side `aug(t, y, a_y)`
     -> (f, v_y, xw [B, n_w], v_t [B] or None, xs [B, n_ps] or None), as
-    `cuda_adjoint.adjoint_sweep_plain`'s: a sample's running quadratures
-    hold its shared ones (v_t's last), then its per-sample ones; only the
-    shared ones meet over the batch at the end.
+    `cuda_adjoint.adjoint_sweep_plain`'s, each stage evaluated for the
+    whole batch at once (a coupled plan's walk and its meets, as K9's one
+    block runs it): a sample's running quadratures hold its shared ones
+    (v_t's last), then its per-sample ones; only the shared ones meet over
+    the batch at the end.
 
     Returns (ay0, aw [n_w], at, aps [B, n_ps], stats)."""
     tab = _tableau(method)

@@ -23,21 +23,23 @@ library a structure and host, built at first use
   the plan's group walk (uncoupled plans only; a coupled one raises
   ValueError, as the reference's front end does).
 - `plan_solve_fixed`: K8 with the plan on a fixed grid, a group of
-  FIXED_GROUP threads a sample running the plan's group walk (uncoupled
-  plans only; a coupled one raises NotImplementedError, ROADMAP.md queue 1
-  item 16).
+  FIXED_GROUP threads a sample running the plan's group walk; a coupled
+  plan on one block of PLAN_BLOCK_THREADS threads, every stage batch-wide
+  with the block meeting at each coupling (`csrc/plan_rhs.cuh
+  PlanBlockRhs` in `rk_fixed.cuh rk_fixed_kernel`).
 - `plan_solve_adams` (explicit_adams, fixed_adams) and `plan_solve_vcabm`
   ('adams'): K10 and K11 with the plan; explicit_adams a group of
   FIXED_GROUP threads a sample running the plan's group walk, K11 and
   fixed_adams' K10 a sample a thread over their grids; a coupled plan
-  raises NotImplementedError (ROADMAP.md queue 2 item 3).
+  (both Adams methods and VCABM) on their grid kernels at one block of
+  PLAN_BLOCK_THREADS threads, batch-wide as in K8.
 - `plan_solve_hyper`: K12, the hypersolvers, with two plans, the dynamics
   and the correction net over the stacked [y, f_user], both on the group
   walk, a group of `hyper_group(B)` threads a sample; f's constants (and
   their transposed copy) in shared memory first, g's after them when both
   fit (`last_route['hyper']` and `['hyper_g']`); a coupled plan raises
-  NotImplementedError. K10 and K12 decide status 3 on the card, so their
-  wrappers never wait for it.
+  NotImplementedError (ROADMAP.md queue 2 item 3). K10 and K12 decide
+  status 3 on the card, so their wrappers never wait for it.
 
 K15, the plan's reverse-mode walk (reference `tfdiffeq_tpu/ops/
 plan_adjoint.py:154`), generated as CUDA C++ (`plan_codegen.aug_source`'s
@@ -52,8 +54,11 @@ plan_adjoint.py:154`), generated as CUDA C++ (`plan_codegen.aug_source`'s
   in the reference; a group of 16 threads a sample splitting the walk
   (`plan_codegen`'s group walk: each row of a value a member).
 - `plan_adjoint_solve_fixed` (`pallas_fixed.py:1019`): K9 on a fixed grid,
-  K6's layout and group walk; a coupled plan raises NotImplementedError
-  (ROADMAP.md queue 1 item 16).
+  K6's layout and group walk; a coupled plan on one block of
+  PLAN_BLOCK_THREADS threads walking the batch as K3 does, cut at each
+  coupling and at each coupling's transpose (`csrc/rk_adjoint.cuh
+  rk_fixed_adjoint_block_kernel`), each sample's quadratures accumulated
+  and summed over the batch in the uncoupled route's order.
 
 Each returns a cotangent for every packed constant (`pack_consts`'
 shapes): the shared ones summed over the batch, a per-sample constant's per
@@ -73,7 +78,11 @@ RuntimeError.
 The constants sit in shared memory when they fit beside the kernel's own
 shared arrays within `cuda_kernels.MAX_WEIGHT_BYTES`, else the kernel reads
 them from global memory; `last_route` records the choice of the latest
-launch on each host ('shared' or 'global'). `plan_solve_launches`,
+launch on each host ('shared' or 'global'; 'batch/shared' or
+'batch/global' where K8, K9, K10 or K11 ran a coupled plan on its one-block
+batch-wide route). The plain versions of a coupled plan take their batch
+sums in the one block's order (`plan_bridge._batch_sums`,
+`plan_adjoint.aug_terms`). `plan_solve_launches`,
 `plan_fixed_launches`, `plan_perlane_launches`, `plan_adams_launches`,
 `plan_vcabm_launches`, `plan_hyper_launches`, `plan_adjoint_launches`,
 `plan_perlane_adjoint_launches` and `plan_fixed_adjoint_launches` count
@@ -126,6 +135,11 @@ plan_fixed_adjoint_launches = 0
 plan_adams_launches = 0
 plan_vcabm_launches = 0
 plan_hyper_launches = 0
+#: Threads of the one block that runs a coupled plan in K8, K9, K10 and K11
+#: (csrc/plan_rhs.cuh kPlanBlockThreads; K2 and K3 launch as many): its
+#: meets' tree is `plan_bridge._batch_sums`' order at this count, which
+#: `eval_plan_host` and `plan_adjoint.aug_terms` take by default.
+PLAN_BLOCK_THREADS = SOLVE_THREADS
 #: K12's group (csrc/lane_group.h kHyperFillBlocks, kHyperMaxGroup, where
 #: the H100's times that chose them are): 16 threads a sample where the
 #: batch fills the card, else up to HYPER_MAX_GROUP.
@@ -196,17 +210,27 @@ def _check(lib, err: int, what: str) -> None:
 
 
 def _consts_route(host: str, n_consts: int, extra: int,
-                  itemsize: int) -> bool:
+                  itemsize: int, batch: bool = False) -> bool:
     """Whether the constants go to shared memory beside the kernel's own
-    `extra` shared values; raise when those alone do not fit."""
+    `extra` shared values; raise when those alone do not fit. `batch`: the
+    launch is a coupled plan's one-block batch-wide route."""
     if extra * itemsize > MAX_WEIGHT_BYTES:
         raise ValueError(f"plan on {host}: {extra} grid points and output "
                          f"times need {extra * itemsize} bytes of shared "
                          f"memory, above the {MAX_WEIGHT_BYTES} the kernel "
                          "may use")
     smem = (n_consts + extra) * itemsize <= MAX_WEIGHT_BYTES
-    last_route[host] = "shared" if smem else "global"
+    last_route[host] = ("batch/" if batch else "") + ("shared" if smem
+                                                      else "global")
     return smem
+
+
+def batch_rows(plan: FusedPlan, B: int) -> int:
+    """csrc/plan_rhs.cuh plan_batch_values: the rows of a coupled plan's
+    batch-wide evaluation (stage inputs, outputs, live rows, reduced
+    values), after the host's own workspace."""
+    lay = plan_codegen.layout(plan)
+    return B * (2 * plan.dim + lay.live_rows) + lay.red_values
 
 
 def plan_walk_values(plan: FusedPlan) -> int:
@@ -447,9 +471,8 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     tau_d = tau_h.to(dev)
     n_work = (S + 5) * B * D
     if lay.segments > 1:
-        # The batch route's rows: stage inputs, outputs, live rows, then
-        # the reduced values (csrc/plan_rhs.cuh PlanBatchRhs).
-        n_work += B * (2 * D + lay.live_rows) + lay.red_values
+        # The batch route's rows (csrc/plan_rhs.cuh PlanBatchRhs).
+        n_work += batch_rows(plan, B)
     work = torch.empty(n_work, dtype=dtype, device=dev)
     nb = n_blocks or plan_blocks(plan, B, dev)
     gwork = _shares_work(nb, 2, dtype, dev)
@@ -483,7 +506,8 @@ def plan_solve_fixed_plain(plan: FusedPlan, packed: Sequence[Tensor],
                            f0: Tensor, *, method: str = "rk4"
                            ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of `plan_solve_fixed`, on y0's device: K8's
-    engine (`cuda_fixed.fixed_solve_plain`) with `eval_plan`."""
+    engine (`cuda_fixed.fixed_solve_plain`) with `eval_plan`, a coupled
+    plan's batch sums in the order of K8's one block."""
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
     return fixed_solve_plain(g, y0, f0, tau, grid,
@@ -497,22 +521,20 @@ def plan_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     plan as right-hand side, one K8 launch. tau: [T] canonical output
     times; grid: [G] canonical step grid; f0: the signed derivative at
     grid[0]. Returns (out [T, B, D], stats [4] int32), as
-    `cuda_fixed.mlp_solve_fixed` does."""
+    `cuda_fixed.mlp_solve_fixed` does. A coupled plan runs on one block of
+    PLAN_BLOCK_THREADS threads (the batch-wide route)."""
     if method not in FIXED_TABLEAUS_BY_NAME:
         raise ValueError(f"unknown fixed-grid method {method!r}; available: "
                          f"{sorted(FIXED_TABLEAUS_BY_NAME)}")
-    if plan.batch_coupled:
-        raise NotImplementedError(
-            "batch-coupled dynamics on a fixed grid are not ported yet: "
-            "ROADMAP.md queue 1 item 16 (coupled plans in K8)")
     tab = FIXED_TABLEAUS_BY_NAME[method]
     if _device_kind(y0, f0) == "cpu":
         return plan_solve_fixed_plain(plan, packed, y0, tau, grid, sign, f0,
                                       method=method)
 
     global plan_fixed_launches
-    # K8's group walk: the constants and their transposed copy.
-    consts, sample_consts = _inputs(plan, packed, y0, f0, True)
+    coupled = plan.batch_coupled
+    # K8's group walk reads the constants and their transposed copy.
+    consts, sample_consts = _inputs(plan, packed, y0, f0, not coupled)
     dtype, dev = y0.dtype, y0.device
     B, D = y0.shape
     T, G = tau.shape[0], grid.shape[0]
@@ -520,23 +542,33 @@ def plan_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     lib = build([(plan, host)])[0]
     lay = plan_codegen.layout(plan)
     S = tab.stages
-    n_c = 2 * lay.n_consts
-    smem = _consts_route(host, n_c, G + T, y0.element_size())
-    last_group[host] = FIXED_GROUP
+    if coupled:
+        # One block: the meets' scratch beside the constants; the grid and
+        # the output times after them where they fit, else read from global
+        # memory (csrc/plan_rhs.cuh launch_plan_fixed).
+        n_c, group = lay.n_consts, PLAN_BLOCK_THREADS
+        smem = _consts_route(host, n_c, PLAN_BLOCK_THREADS,
+                             y0.element_size(), batch=True)
+        n_work = (S + 3) * B * D + batch_rows(plan, B)
+        last_group[host] = 1
+    else:
+        n_c, group = 2 * lay.n_consts, FIXED_GROUP
+        smem = _consts_route(host, n_c, G + T, y0.element_size())
+        n_work = fixed_group_work(plan, S, B)
+        last_group[host] = FIXED_GROUP
     tau_h = tau.detach().to("cpu", dtype)
     grid_h = grid.detach().to("cpu", dtype)
     valid = _increasing(tau_h) and _increasing(grid_h)
     c, a, b_sol, _ = _tableau_args(tab)
     out = torch.empty((T, B, D), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    n_work = fixed_group_work(plan, S, B)
     work = torch.empty(n_work, dtype=dtype, device=dev)
     # Named, so that they live until the launch has read them.
     grid_d, tau_d = grid_h.to(dev), tau_h.to(dev)
     with torch.cuda.device(dev):
         err = _fn(lib, host, dtype)(
             _ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out),
-            _ptr(stats), _ptr(work), n_work, G, T, B, D, FIXED_GROUP,
+            _ptr(stats), _ptr(work), n_work, G, T, B, D, group,
             float(sign), int(valid), S, c, a, b_sol, _ptr(consts), n_c,
             _ptr(sample_consts), int(smem), _stream(dev))
     _check(lib, err, "plan_solve_fixed launch")
@@ -552,8 +584,7 @@ def _refuse_coupled(plans, kernel: str) -> None:
     if any(p.batch_coupled for p in plans):
         raise NotImplementedError(
             f"batch-coupled dynamics in {kernel} are not ported yet: "
-            "ROADMAP.md queue 2 item 3 (coupled plans in K8, K9, K10, K11 "
-            "and K12)")
+            "ROADMAP.md queue 2 item 3 (coupled plans in K12)")
 
 
 def plan_solve_adams_plain(plan: FusedPlan, packed: Sequence[Tensor],
@@ -563,13 +594,14 @@ def plan_solve_adams_plain(plan: FusedPlan, packed: Sequence[Tensor],
                            n_blocks: int = None) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of `plan_solve_adams`, on y0's device: K10's
     engine (`cuda_adams.adams_solve_plain`, fixed_adams' norm in the order
-    of a grid of `n_blocks` blocks; None: the kernel's grid) with
-    `eval_plan`."""
+    of a grid of `n_blocks` blocks; None: the kernel's grid, `plan_blocks`)
+    with `eval_plan`."""
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
-    return adams_solve_plain(g, y0, f0, tau, grid, rtol, atol,
-                             implicit=implicit, max_order=max_order,
-                             max_iters=max_iters, n_blocks=n_blocks)
+    return adams_solve_plain(
+        g, y0, f0, tau, grid, rtol, atol, implicit=implicit,
+        max_order=max_order, max_iters=max_iters,
+        n_blocks=n_blocks or plan_blocks(plan, y0.shape[0], y0.device))
 
 
 def plan_solve_adams(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
@@ -581,11 +613,12 @@ def plan_solve_adams(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     fixed_adams) with the plan as right-hand side, one K10 launch
     (reference `pallas_fixed.py:1143`). tau: [T] canonical output times;
     grid: [G] canonical step grid; f0: the signed derivative at grid[0];
-    n_blocks: fixed_adams' grid (None: `solve_blocks`, one block per SM).
+    n_blocks: fixed_adams' grid (None: `plan_blocks`, one block per SM). A
+    coupled plan runs both methods on K10's grid kernel at one block of
+    PLAN_BLOCK_THREADS threads and refuses another count (ValueError).
     Returns (out [T, B, D], stats [4] int32), as
     `cuda_adams.mlp_solve_adams` does."""
-    _refuse_coupled([plan], "K10")
-    _check_blocks(n_blocks)
+    _plan_grid(plan, n_blocks, "Adams solve")
     MO = check_max_order(max_order)
     if int(max_iters) < 0:
         raise ValueError(f"max_iters must be >= 0, got {max_iters}")
@@ -598,15 +631,25 @@ def plan_solve_adams(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                                       atol, sign, f0, **kw)
 
     global plan_adams_launches
+    coupled = plan.batch_coupled
     # explicit_adams' group walk reads the constants' transposed copy too.
-    consts, sample_consts = _inputs(plan, packed, y0, f0, not implicit)
+    consts, sample_consts = _inputs(plan, packed, y0, f0,
+                                    not (implicit or coupled))
     dtype, dev = y0.dtype, y0.device
     B, D = y0.shape
     T, G = tau.shape[0], grid.shape[0]
     host = "adams"
     lib = build([(plan, host)])[0]
     lay = plan_codegen.layout(plan)
-    if implicit:
+    if coupled:
+        # Both methods on the grid kernel's one block: the meets' scratch
+        # beside the constants, the engine's rows then the batch rows.
+        n_c, group = lay.n_consts, 0
+        smem = _consts_route(host, n_c,
+                             G + T + ADAMS_THREADS + PLAN_BLOCK_THREADS,
+                             y0.element_size(), batch=True)
+        n_work = adams_work_size(MO, B, D) + batch_rows(plan, B)
+    elif implicit:
         n_c, group = lay.n_consts, 0
         smem = _consts_route(host, n_c, G + T + ADAMS_THREADS,
                              y0.element_size())
@@ -619,7 +662,10 @@ def plan_solve_adams(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     out = torch.empty((T, B, D), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
     work = torch.empty(n_work, dtype=dtype, device=dev)
-    nb, gwork = _adams_grid(implicit, n_blocks, B, dtype, dev)
+    if coupled:
+        nb, gwork = 1, _shares_work(1, 1, dtype, dev)
+    else:
+        nb, gwork = _adams_grid(implicit, n_blocks, B, dtype, dev)
     # Named, so that they live until the launch has read them.
     grid_d, tau_d = on_card(grid, dtype, dev), on_card(tau, dtype, dev)
     reported = (ctypes.c_int * 3)()
@@ -650,13 +696,14 @@ def plan_solve_vcabm_plain(plan: FusedPlan, packed: Sequence[Tensor],
                            ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of `plan_solve_vcabm`, on y0's device: K11's
     engine (`cuda_adams.vcabm_solve_plain`, its sums in the order of a grid
-    of `n_blocks` blocks; None: the kernel's grid) with `eval_plan`."""
+    of `n_blocks` blocks; None: the kernel's grid, `plan_blocks`) with
+    `eval_plan`."""
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
-    return vcabm_solve_plain(g, y0, f0, tau, dt0, rtol, atol,
-                             max_order=max_order, safety=safety,
-                             ifactor=ifactor, dfactor=dfactor,
-                             max_steps=max_steps, n_blocks=n_blocks)
+    return vcabm_solve_plain(
+        g, y0, f0, tau, dt0, rtol, atol, max_order=max_order, safety=safety,
+        ifactor=ifactor, dfactor=dfactor, max_steps=max_steps,
+        n_blocks=n_blocks or plan_blocks(plan, y0.shape[0], y0.device))
 
 
 def plan_solve_vcabm(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
@@ -669,10 +716,11 @@ def plan_solve_vcabm(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     launch (reference `pallas_vcabm.py:449`). tau: [T] increasing canonical
     times; dt0: the first step, clamped to the span-scaled minimum; f0: the
     signed derivative at tau[0]; max_steps caps the attempts; n_blocks:
-    K11's grid (None: `plan_blocks`, one block per SM). Returns (out
-    [T, B, D], stats [4] int32), as `cuda_adams.mlp_solve_vcabm` does."""
-    _refuse_coupled([plan], "K11")
-    _check_blocks(n_blocks)
+    K11's grid (None: `plan_blocks`, one block per SM; a coupled plan one
+    block of PLAN_BLOCK_THREADS threads, and it refuses another count).
+    Returns (out [T, B, D], stats [4] int32), as
+    `cuda_adams.mlp_solve_vcabm` does."""
+    _plan_grid(plan, n_blocks, "VCABM solve")
     MO = check_max_order(max_order)
     if tau.shape[0] < 2:
         raise ValueError("plan_solve_vcabm needs at least two output times")
@@ -692,14 +740,20 @@ def plan_solve_vcabm(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     host = "vcabm"
     lib = build([(plan, host)])[0]
     lay = plan_codegen.layout(plan)
-    smem = _consts_route(host, lay.n_consts, T + VCABM_THREADS,
-                         y0.element_size())
+    coupled = plan.batch_coupled
+    # A coupled plan's one block keeps the meets' scratch beside the
+    # constants, and its batch rows after the engine's.
+    smem = _consts_route(host, lay.n_consts,
+                         T + VCABM_THREADS
+                         + (PLAN_BLOCK_THREADS if coupled else 0),
+                         y0.element_size(), batch=coupled)
     tau_h, dt_min, dt0, valid = _solve_setup(tau, dt0, dtype)
     K = MO + 2
     out = torch.empty((T, B, D), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
     # csrc/rk_vcabm.cuh vcabm_state_rows.
-    work = torch.empty((3 + 3 * K) * B * D, dtype=dtype, device=dev)
+    n_work = (3 + 3 * K) * B * D + (batch_rows(plan, B) if coupled else 0)
+    work = torch.empty(n_work, dtype=dtype, device=dev)
     nb = n_blocks or plan_blocks(plan, B, dev)
     gwork = _shares_work(nb, 3, dtype, dev)
     gstar = (ctypes.c_double * (K + 1))(*GAMMA_STAR[:K + 1].tolist())
@@ -713,7 +767,7 @@ def plan_solve_vcabm(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
             float(ifactor), float(dfactor), int(min(max_steps, 2 ** 31 - 1)),
             int(valid), MO, gstar, _ptr(consts), lay.n_consts,
             _ptr(sample_consts), int(smem), _ptr(gwork), gwork.numel(), nb,
-            _stream(dev))
+            n_work, _stream(dev))
     _check(lib, err, "plan_solve_vcabm launch")
     plan_vcabm_launches += 1
     return out, stats
@@ -886,6 +940,17 @@ def plan_aug(plan: FusedPlan, packed: Sequence[Tensor]):
         f, v_y, xq, xs, v_t = aug_terms(plan, packed, tt, y.t(), ay.t())
         return f.t(), v_y.t(), xq.t(), (v_t[0] if ti else None), xs.t()
     return aug
+
+
+def fixed_block_work(plan: FusedPlan, S: int, B: int) -> int:
+    """The workspace of K9's one-block sweep of a coupled plan
+    (csrc/rk_adjoint.cuh fixed_block_own_values, then the batch-wide walk's
+    rows, csrc/plan_aug.cuh plan_batch_aug_values)."""
+    lay = plan_codegen.aug_layout(plan)
+    n_q = lay.n_quad + lay.time_input + lay.n_sample
+    return ((4 + 2 * S) * B * plan.dim + 2 * n_q * B
+            + B * (lay.q_rows + 4 * plan.dim + lay.live_rows)
+            + lay.red_values)
 
 
 def _adjoint_inputs(plan: FusedPlan, packed, ys: Tensor, g: Tensor,
@@ -1119,7 +1184,8 @@ def plan_adjoint_solve_fixed_plain(plan: FusedPlan, packed: Sequence[Tensor],
                                    *, num_steps: int = 1,
                                    method: str = "rk4"):
     """Plain PyTorch version of `plan_adjoint_solve_fixed`: K9's engine
-    (`cuda_fixed.fixed_adjoint_plain`) with `aug_terms`."""
+    (`cuda_fixed.fixed_adjoint_plain`) with `aug_terms` (a coupled plan's
+    meets in the order of K9's one block)."""
     packed = _adjoint_inputs(plan, packed, ys, g, "plan_adjoint_solve_fixed")
     n_flat, ti, n_rows = _quad_counts(plan)
     ay0, aw, at, aps, stats = fixed_adjoint_plain(
@@ -1134,18 +1200,14 @@ def plan_adjoint_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor],
     """Fixed-grid fused adjoint backward sweep of a plan's dynamics, one K9
     launch (and its block-sum launch) with K15 (reference
     `pallas_fixed.py:1019`): `num_steps` equal steps of the tableau an
-    observation interval. A coupled plan raises NotImplementedError, as the
-    forward K8 does.
+    observation interval. A coupled plan's sweep runs on one block of
+    PLAN_BLOCK_THREADS threads, its walk batch-wide as K3's.
 
     Returns (ay0, dconsts, at, stats [4] int32: nfe = stages * num_steps *
     (T - 1), steps, 0, 0)."""
     if method not in FIXED_TABLEAUS_BY_NAME:
         raise ValueError(f"unknown fixed-grid method {method!r}; available: "
                          f"{sorted(FIXED_TABLEAUS_BY_NAME)}")
-    if plan.batch_coupled:
-        raise NotImplementedError(
-            "batch-coupled dynamics on a fixed grid are not ported yet: "
-            "ROADMAP.md queue 1 item 16 (coupled plans in K8 and K9)")
     if int(num_steps) < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
     if _device_kind(ys, g) == "cpu":
@@ -1162,12 +1224,22 @@ def plan_adjoint_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor],
     host = "fixed_adjoint"
     lib = build([(plan, host)])[0]
     lay = plan_codegen.aug_layout(plan)
-    # The group walk reads the constants and their transposed copy.
-    consts, sample_consts = plan_codegen.flat_consts(plan, packed, B, True)
-    n_c = 2 * lay.n_quad
-    smem = _consts_route(host, n_c, PERLANE_THREADS, ys.element_size())
-    last_group[host] = PERLANE_GROUP
-    R = lay.n_quad + lay.time_input
+    coupled = plan.batch_coupled
+    # The group walk reads the constants and their transposed copy; the
+    # coupled walk the constants alone, the meets' scratch beside them.
+    consts, sample_consts = plan_codegen.flat_consts(plan, packed, B,
+                                                     not coupled)
+    if coupled:
+        n_c = lay.n_quad
+        smem = _consts_route(host, n_c, PLAN_BLOCK_THREADS,
+                             ys.element_size(), batch=True)
+        last_group[host] = 1
+        n_work = fixed_block_work(plan, S, B)
+    else:
+        n_c = 2 * lay.n_quad
+        smem = _consts_route(host, n_c, PERLANE_THREADS, ys.element_size())
+        last_group[host] = PERLANE_GROUP
+        n_work = aug_group_work(plan, S, B, fixed=True)
     tau_d = tau.detach().to("cpu", dtype).to(dev)
     c, a, b_sol, _ = _tableau_args(tab)
     ay0 = torch.empty((B, D), dtype=dtype, device=dev)
@@ -1175,7 +1247,6 @@ def plan_adjoint_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor],
     at = torch.empty((), dtype=dtype, device=dev)
     aps = torch.empty((max(1, lay.n_sample), B), dtype=dtype, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    n_work = aug_group_work(plan, S, B, fixed=True)
     work = torch.empty(n_work, dtype=dtype, device=dev)
     ys_c, g_c = ys.contiguous(), g.contiguous()
     with torch.cuda.device(dev):

@@ -67,6 +67,12 @@ AUG_HOSTS = ("adjoint", "perlane_adjoint", "fixed_adjoint")
 #: K12 (csrc/rk_hyper.cuh): two plans in one source, the dynamics `Plan`
 #: and the correction net `PlanG`.
 HYPER_HOST = "hyper"
+#: The hosts that run a coupled plan, on one block: its segments batch-wide
+#: with a block meet at each coupling (csrc/plan_rhs.cuh PlanBatchRhs in K2,
+#: PlanBlockRhs in K8, K10 and K11; csrc/plan_aug.cuh PlanBatchAugRhs in K3
+#: and K9). The group walks of K5, K6 and K12 take uncoupled plans only.
+COUPLED_HOSTS = ("solve", "fixed", "adams", "vcabm", "adjoint",
+                 "fixed_adjoint")
 
 _UN_FN = {"exp": "p_exp", "log": "p_log", "log1p": "p_log1p",
           "tanh": "p_tanh", "logistic": "p_logistic", "sin": "p_sin",
@@ -1226,8 +1232,8 @@ def cuda_source(plan, host: str) -> str:
         plan_f, plan_g = plan
         gens = (_Gen(plan_f), _Gen(plan_g))
         if any(len(g.segs) > 1 for g in gens):
-            raise ValueError("a coupled plan runs on the 'solve' host only, "
-                             "not 'hyper'")
+            raise ValueError(f"a coupled plan runs on the hosts "
+                             f"{COUPLED_HOSTS} only, not 'hyper'")
         return ("// K14 x 2: the dynamics and the correction net generated "
                 "by\n// tfdiffeq_tpu_torch/ops/plan_codegen.py for the hyper "
                 "host\n// (csrc/plan_rhs.cuh, csrc/rk_hyper.cuh).\n"
@@ -1235,9 +1241,9 @@ def cuda_source(plan, host: str) -> str:
                 + gens[1].body("PlanG") + "\n" + _entries(host) + "\n")
     if host in AUG_HOSTS:
         aug = _AugGen(plan)
-        if host != "adjoint" and len(aug.segments) > 1:
-            raise ValueError(f"a coupled plan runs on the 'adjoint' host "
-                             f"only, not {host!r}")
+        if host not in COUPLED_HOSTS and len(aug.segments) > 1:
+            raise ValueError(f"a coupled plan runs on the hosts "
+                             f"{COUPLED_HOSTS} only, not {host!r}")
         entries = _entries(host)
         return ("// K15: a plan's reverse walk generated by tfdiffeq_tpu_"
                 "torch/ops/\n// plan_codegen.py for the " + host + " host "
@@ -1248,9 +1254,9 @@ def cuda_source(plan, host: str) -> str:
                          f"{HOSTS + AUG_HOSTS + (HYPER_HOST,)}, got "
                          f"{host!r}")
     gen = _Gen(plan)
-    if host != "solve" and len(gen.segs) > 1:
-        raise ValueError(f"a coupled plan runs on the 'solve' host only, "
-                         f"not {host!r}")
+    if host not in COUPLED_HOSTS and len(gen.segs) > 1:
+        raise ValueError(f"a coupled plan runs on the hosts "
+                         f"{COUPLED_HOSTS} only, not {host!r}")
     entries = _entries(host)
     return ("// K14: a plan generated by tfdiffeq_tpu_torch/ops/"
             "plan_codegen.py\n// for the " + host + " host "
