@@ -359,6 +359,30 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     interval backward): the forward's stats, the backward's status an
     interval, b-NFE, whether every gradient is finite (a NaN only where a
     status says so) and the time of the one step.
+44.-47. The coupled plans (the mean field, a scalar coupling and a max
+    coupling at B = 4096, D = 3, 7 outputs over [0, 2]) on the one-block
+    routes of K8 (rk4, euler), K10 (fixed_adams, explicit_adams), K11 and
+    K9, through `solve` / `odeint_adjoint` with `options={'fuse': True}`,
+    float32 and float64: every launch held bitwise to its plain version,
+    timed beside the generic engine.
+48. The float64 tier, `solve_df`, from float32 callers: bench.py:595-633's
+    protocol (y' = y^3 A, B = 32, 64 outputs over [0, 25], rtol 1e-10 /
+    atol 1e-12) within `DF_BAR` of the port's generic float64 solve on the
+    CPU at rtol 1e-12; the spiral MLP at B = 4096 at solve_df's defaults
+    (its error printed: rtol 1e-8 is not 1e-6 over this span) and at the
+    protocol's tolerance, within `DF_BAR` of K2's MLP route in float64 at
+    rtol 1e-12 relative to max(1, |y|). Each is one K2 launch in float64
+    with K14 (the capture at float32, the constants packed in float64),
+    held bitwise to its plain version and run again; no fallback. Device
+    ms a solve (CUDA events), the call's host ms, nfe and attempts, bounds
+    at 34 TFLOP/s (float64 on the CUDA cores).
+49. One `odeint_adjoint_df` step of the spiral with bench.py's MSE at
+    B = 4096 (one K2 and one K3 launch in float64, no fallback, finite
+    float32 gradients): the step's host ms, the K3 sweep's device ms and
+    b-NFE, K2's launch bitwise equal to [48]'s held one on the same inputs;
+    at B = 32 both launches held bitwise and the
+    gradients within `DF_BAR` of the generic float64 `odeint_adjoint` on
+    the CPU, on the whole gradient's scale.
 
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
@@ -387,6 +411,10 @@ K2 (`mlp_solve`) also carries its dense-output emission on the plan route
 ([41]-[43]: `dense_ms` beside `dense_no_emission_ms`, the plain time, the
 bound with and without the emission's bytes, its launches and largest
 difference, the interpolated and resets steps, the battery's statuses).
+K2's and K14's records carry the float64 tier ([48], [49]: `float64_tier`,
+its K2 launches and each case's time, plain time, bound at 34 TFLOP/s,
+largest difference from the plain version, nfe and error against its
+float64 reference), K3's and K15's its K3 sweep ([49]).
 K14 also carries its K10 and K11 hosts ([39], [40]) with the generic
 engine beside K10 and the Adams-forward training step through tier 2. K12
 (`hyper_solve`) carries each kind's time, plain time and bound, the
@@ -3942,6 +3970,300 @@ def _coupled_tier(smi: str, dev, k2_coupled, k3_coupled) -> dict:
     return recs
 
 
+#: [48]: bench.py:595-633's float64-tier protocol, y' = y^3 A at B = 32
+#: (tests/test_doublefloat.py's A32 and states), and its CPU oracle.
+DF_A = ((-0.1, 2.0), (-2.0, -0.1))
+DF_B, DF_RTOL, DF_ATOL, DF_ORACLE_TOL = 32, 1e-10, 1e-12, (1e-12, 1e-14)
+#: The float64 tier's bar against its float64 references (the reference's
+#: north star, tests/test_doublefloat.py:66), relative to max(1, |y|)
+#: for the spiral: a float32 output rounds |y| = 28 by 1.7e-6 alone.
+DF_BAR = 1e-6
+#: Batches of [49] whose K3 sweep is held to its plain version here (the
+#: plain sweep is host-bound, about 42 ms an attempt: 30 s at B = 4096;
+#: tests/test_torch_gpu.py test_float64_tier_matches_plain holds K3 in
+#: float64 at B = 4096, 33 and 1).
+DF_SWEEP_HOLDS = (DF_B,)
+#: float64 on the CUDA cores (NVIDIA's data sheet, H100 SXM).
+PEAK_F64_FLOPS = 34e12
+
+
+def _df_cubic(dtype, device):
+    """[48]'s dynamics over A and its seed-1 states, both rounded to
+    float32 first (the oracle solves the float32 inputs' problem, as
+    bench.py's does)."""
+    import torch
+    A = torch.tensor(DF_A, dtype=torch.float32).to(device, dtype)
+    y = torch.tensor(np.random.RandomState(1).randn(DF_B, 2) * 1.5,
+                     dtype=torch.float32).to(device, dtype)
+    return (lambda t, yy: (yy ** 3) @ A), y
+
+
+def _df_pairs(dev):
+    """The plan [48] adds to [28]'s builds: the cubic on K2 (the spiral's
+    K2 and K3 plans are [28]'s and [33]'s)."""
+    import torch
+    from tfdiffeq_tpu_torch.ops import plan_bridge as pb
+    f, y = _df_cubic(torch.float32, dev)
+    plan, _ = pb.build_plan(f, torch.tensor(0.0, device=dev), y)
+    return [(plan, "solve")]
+
+
+def _df_tier(smi: str, dev) -> dict:
+    """Phases 48-49: the float64 tier (`solve_df`, `odeint_adjoint_df`):
+    the capture at the caller's float32, K14 in K2 and K15 in K3 launched
+    in float64, each launch held bitwise to its plain version, the answers
+    to float64 references. Returns the tier's numbers for the kernels
+    line."""
+    import time
+    import torch
+    from tfdiffeq_tpu_torch import (fast, odeint_adjoint, odeint_adjoint_df,
+                                    solve, solve_df)
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    from tfdiffeq_tpu_torch.ops.tableaus import DOPRI5
+    f32, f64 = torch.float32, torch.float64
+    cpu = torch.device("cpu")
+    rec = {"K2": {}, "K3": {}, "launches": {"K2": 0, "K3": 0}}
+
+    def launches():
+        return {"K2": cpl.plan_solve_launches, "K8": cpl.plan_fixed_launches,
+                "K5": cpl.plan_perlane_launches,
+                "K3": cpl.plan_adjoint_launches,
+                "K9": cpl.plan_fixed_adjoint_launches,
+                "K6": cpl.plan_perlane_adjoint_launches}
+
+    def entry(tag, want, fb, ok):
+        got = launches()
+        print(f"[{tag}] launches {got}, fallbacks {fast.fuse_fallbacks - fb}",
+              flush=True)
+        if any(got[k] != want.get(k, 0) for k in got) \
+                or fast.fuse_fallbacks != fb or not ok:
+            raise AssertionError(f"[{tag}] launches {got}, want {want}; "
+                                 f"result as required: {ok}")
+        for k_ in ("K2", "K3"):
+            rec["launches"][k_] += got[k_]
+
+    def hold_solve(call, what):
+        """A K2 launch: float64, bitwise equal to its plain version, and
+        run again bitwise."""
+        args, kw, got = call
+        if args[2].dtype != f64 or any(c.dtype != f64 for c in args[1]):
+            raise AssertionError(f"{what}: the launch is not float64")
+        err, plain_ms = _hold_to_plain(call, cpl.plan_solve_plain, what)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, cpl.plan_solve(*args, **kw))):
+            raise AssertionError(f"{what}: two kernel runs differ")
+        return err, plain_ms
+
+    def flat(fn):
+        """A sweep's result flattened to tensors, the stats last."""
+        def call(*a, **k):
+            r = fn(*a, **k)
+            return (r[0], *r[1], r[2], r[3])
+        return call
+
+    def hold_sweep(call, what):
+        """A K3 launch, as hold_solve."""
+        args, kw, got = call
+        if args[2].dtype != f64 or any(c.dtype != f64 for c in args[1]):
+            raise AssertionError(f"{what}: the launch is not float64")
+        got = flat(lambda *a, **k: got)()
+        err, plain_ms = _hold_to_plain(
+            (args, _grid_kw(cpl.plan_adjoint_solve_plain, args, kw), got),
+            flat(cpl.plan_adjoint_solve_plain), what)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, flat(cpl.plan_adjoint_solve)(*args, **kw))):
+            raise AssertionError(f"{what}: two kernel runs differ")
+        return err, plain_ms
+
+    def k2_bound(args, stats, Bn):
+        nfe, acc, rej, _ = stats.tolist()
+        nc = sum(x.numel() for x in args[1])
+        return _bound(Bn * (nfe * _plan_flops(args[0])
+                            + (acc + rej) * D * _combine_flops(DOPRI5)),
+                      8 * (2 * Bn * D + T_OUT * Bn * D + T_OUT + nc),
+                      PEAK_F64_FLOPS)
+
+    t = torch.linspace(0.0, SPAN, T_OUT)
+
+    _at("48")
+    # [48] bench.py's float64-tier protocol: solve_df at rtol 1e-10 from
+    # float32 inputs, against the port's generic solve in float64 on the
+    # CPU at rtol 1e-12.
+    f, y = _df_cubic(f32, dev)
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    with _Recording(cpl, "plan_solve") as r:
+        res = solve_df(f, y, t, rtol=DF_RTOL, atol=DF_ATOL)
+    torch.cuda.synchronize()
+    entry("48 cubic", {"K2": 1}, fb, res.stats.status == 0
+          and res.ys.dtype == f32 and tuple(res.ys.shape) == (T_OUT, DF_B, D)
+          and bool(torch.isfinite(res.ys).all()))
+    err_k, plain_ms = hold_solve(r.calls[0], "[48] K14 (cubic) in K2 float64")
+    t0 = time.perf_counter()
+    fo, yo = _df_cubic(f64, cpu)
+    with torch.no_grad():
+        oracle = solve(fo, yo, t.to(f64), rtol=DF_ORACLE_TOL[0],
+                       atol=DF_ORACLE_TOL[1])
+    oracle_s = time.perf_counter() - t0
+    err = float((res.ys.to(cpu, f64) - oracle.ys).abs().max())
+    a, k, g_ = r.calls[0]
+    ms = _timed(lambda: cpl.plan_solve(*a, **k), reps=3)
+    call_ms = _host_ms(lambda: solve_df(f, y, t, rtol=DF_RTOL,
+                                        atol=DF_ATOL))[0]
+    bound = k2_bound(a, g_[1], DF_B)
+    nfe, acc, rej, _ = res.stats
+    rec["K2"]["cubic"] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                          "bound": bound, "err": err, "nfe": nfe,
+                          "attempts": acc + rej, "kernel_err": err_k}
+    print(f"[48] {smi}: solve_df(y^3 A, B = {DF_B}, rtol {DF_RTOL:g}) "
+          f"max |float32 out - float64 oracle| {err:.3e} (bar {DF_BAR:g}; "
+          f"the oracle, the generic solve at rtol {DF_ORACLE_TOL[0]:g} on "
+          f"the CPU, took {oracle_s:.1f} s, nfe {oracle.stats.nfe}); nfe "
+          f"{nfe} ({acc + rej} attempts); K2 float64 {ms:.3f} ms a solve, "
+          f"the call {call_ms:.3f} ms; plain {plain_ms:.1f} ms; bound "
+          f"{bound[0]:.6f} ms ({bound[1]})", flush=True)
+    if not err <= DF_BAR:
+        raise AssertionError("[48] solve_df misses the float64 oracle")
+
+    # [48] the spiral MLP at full width, float32 weights: solve_df at its
+    # defaults, and at the protocol's rtol held to K2's MLP route in
+    # float64 at rtol 1e-12.
+    p, y, _ = _bench_params(B, f32, dev)
+    p64 = {k_: v.to(f64) for k_, v in p.items()}
+    ck_ref = fast.solve_mlp(p64, y.to(f64), t, rtol=DF_ORACLE_TOL[0],
+                            atol=DF_ORACLE_TOL[1])
+    ref = ck_ref.ys
+    scale = ref.abs().clamp_min(1.0)
+    for name, tol in (("defaults", (1e-8, 1e-10)),
+                      ("protocol", (DF_RTOL, DF_ATOL))):
+        cpl.reset_launch_counts()
+        fb = fast.fuse_fallbacks
+        with _Recording(cpl, "plan_solve") as r:
+            res = solve_df(_spiral_func(p), y, t, rtol=tol[0], atol=tol[1])
+        torch.cuda.synchronize()
+        entry(f"48 spiral {name}", {"K2": 1}, fb, res.stats.status == 0
+              and res.ys.dtype == f32 and bool(torch.isfinite(res.ys).all()))
+        err_k, plain_ms = hold_solve(
+            r.calls[0], f"[48] K14 (spiral, rtol {tol[0]:g}) in K2 float64")
+        gap = (res.ys.to(f64) - ref).abs()
+        err_abs, err_rel = float(gap.max()), float((gap / scale).max())
+        a, k, g_ = r.calls[0]
+        if name == "defaults":
+            held_defaults = (r.calls[0], err_k, plain_ms)
+        ms = _timed(lambda: cpl.plan_solve(*a, **k), reps=3)
+        call_ms = _host_ms(lambda: solve_df(_spiral_func(p), y, t,
+                                            rtol=tol[0], atol=tol[1]))[0]
+        bound = k2_bound(a, g_[1], B)
+        nfe, acc, rej, _ = res.stats
+        rec["K2"][f"spiral_{name}"] = {
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound": bound, "err": err_abs, "err_rel": err_rel, "nfe": nfe,
+            "attempts": acc + rej, "kernel_err": err_k}
+        print(f"[48] {smi}: solve_df(spiral, B = {B}, rtol {tol[0]:g}) "
+              f"max |out - K2's MLP route in float64 at rtol "
+              f"{DF_ORACLE_TOL[0]:g}| {err_abs:.3e}, relative to max(1, |y|) "
+              f"{err_rel:.3e}; nfe {nfe} ({acc + rej} attempts; the "
+              f"reference route nfe {ck_ref.stats.nfe}); K2 float64 "
+              f"{ms:.3f} ms a solve, the call {call_ms:.3f} ms; plain "
+              f"{plain_ms:.1f} ms; bound {bound[0]:.5f} ms ({bound[1]})",
+              flush=True)
+    if not err_rel <= DF_BAR:
+        raise AssertionError("[48] solve_df at the protocol's tolerance "
+                             "misses K2's float64 reference")
+
+    _at("49")
+    # [49] one odeint_adjoint_df step of the spiral at B = 4096 (the MSE
+    # of bench.py's training protocol), K2 + K3 in float64.
+    def step_df(q, y, tgt):
+        ys = odeint_adjoint_df(_spiral_params_func, y, t, params=q)
+        return torch.autograd.grad(torch.mean((ys - tgt) ** 2), q)
+
+    def params(dtype, Bn):
+        pp, yy, _ = _bench_params(Bn, dtype, dev)
+        return (tuple(pp[k_].clone().requires_grad_()
+                      for k_ in ("w1", "b1", "w2", "b2")), yy,
+                _bench_target(dtype, dev)[:, :Bn])
+
+    for Bn in (B, DF_B):
+        q, y, tgt = params(f32, Bn)
+        cpl.reset_launch_counts()
+        fb = fast.fuse_fallbacks
+        with _Recording(cpl, "plan_solve") as r2, \
+                _Recording(cpl, "plan_adjoint_solve") as r3:
+            grads = step_df(q, y, tgt)
+        torch.cuda.synchronize()
+        entry(f"49 B = {Bn}", {"K2": 1, "K3": 1}, fb,
+              all(g.dtype == f32 and bool(torch.isfinite(g).all())
+                  for g in grads))
+        if Bn == B:
+            # [48]'s held launch at the defaults had these inputs: the same
+            # inputs and bits stand for its plain version here.
+            (a48, _, g48), err2, plain2 = held_defaults
+            a2_, _, g2_ = r2.calls[0]
+            same = all(torch.equal(u, v) for u, v in
+                       zip((a2_[2], *a2_[1], *g2_), (a48[2], *a48[1], *g48)))
+            print(f"[49] K14 in K2 float64, B = {Bn}: inputs and outputs "
+                  f"bitwise equal to [48]'s held launch at the defaults: "
+                  f"{same}", flush=True)
+            if not same:
+                raise AssertionError("[49] the forward launch differs from "
+                                     "[48]'s")
+        else:
+            err2, plain2 = hold_solve(r2.calls[0],
+                                      f"[49] K14 in K2 float64, B = {Bn}")
+        if Bn in DF_SWEEP_HOLDS:
+            err3, plain3 = hold_sweep(r3.calls[0],
+                                      f"[49] K15 in K3 float64, B = {Bn}")
+        else:
+            err3 = plain3 = None
+        a3, k3, g3 = r3.calls[0]
+        bst = g3[3].tolist()
+        if Bn == B:
+            step_ms = _host_ms(lambda: step_df(q, y, tgt))[0]
+            ms3 = _timed(lambda: cpl.plan_adjoint_solve(*a3, **k3), reps=3)
+            traj = T_OUT * Bn * D
+            nc = sum(x.numel() for x in a3[1])
+            bound3 = _bound(Bn * bst[0] * _plan_aug_flops(a3[0]),
+                            8 * (2 * traj + Bn * D + 2 * nc + T_OUT),
+                            PEAK_F64_FLOPS)
+            a2, k2, g2 = r2.calls[0]
+            ms2 = _timed(lambda: cpl.plan_solve(*a2, **k2), reps=3)
+            rec["K3"]["spiral"] = {
+                "ms": ms3, "plain_ms": plain3, "bound": bound3,
+                "kernel_err": err3, "b_nfe": bst[0], "step_ms": step_ms,
+                "fwd_ms": ms2, "fwd_plain_ms": plain2,
+                "fwd_bound": k2_bound(a2, g2[1], Bn), "fwd_kernel_err": err2,
+                "fwd_nfe": int(g2[1][0])}
+            print(f"[49] {smi}: odeint_adjoint_df step, B = {Bn}: "
+                  f"{step_ms:.3f} ms (host clock, median of 3); K3 float64 "
+                  f"{ms3:.3f} ms a sweep, b-NFE {bst[0]} ({bst[1] + bst[2]} "
+                  f"attempts), bound {bound3[0]:.5f} ms ({bound3[1]}); "
+                  f"K2 float64 {ms2:.3f} ms, nfe {int(g2[1][0])}; plain "
+                  f"K2 {plain2:.1f} ms, K3 "
+                  f"{'not held' if plain3 is None else f'{plain3:.1f} ms'}",
+                  flush=True)
+            continue
+        # Against the generic float64 odeint_adjoint on the CPU, on the
+        # whole gradient's scale.
+        q64 = tuple(x.detach().to(cpu, f64).requires_grad_() for x in q)
+        ys_g = odeint_adjoint(_spiral_params_func, y.to(cpu, f64), t.to(f64),
+                              params=q64, rtol=1e-8, atol=1e-10)
+        g_gen = torch.autograd.grad(
+            torch.mean((ys_g - tgt.to(cpu, f64)) ** 2), q64)
+        scale_g = max(float(x.abs().max()) for x in g_gen)
+        gap = max(float((a_.to(cpu, f64) - b_).abs().max())
+                  for a_, b_ in zip(grads, g_gen)) / scale_g
+        rec["K3"]["b32"] = {"grad_gap": gap, "plain_ms": plain3,
+                            "kernel_err": err3, "b_nfe": bst[0]}
+        print(f"[49] B = {Bn}: gradients within {gap:.3e} of the generic "
+              f"float64 odeint_adjoint (CPU), on the whole gradient's scale "
+              f"{scale_g:.4g} (bar {DF_BAR:g}); b-NFE {bst[0]}", flush=True)
+        if not gap <= DF_BAR:
+            raise AssertionError("[49] odeint_adjoint_df's gradients miss "
+                                 "the generic float64 adjoint")
+    return rec
+
+
 def main() -> int:
     import time
     import torch
@@ -3986,7 +4308,7 @@ def main() -> int:
     plan_pairs = _plan_pairs(dev)
     plan_builds = plan_pool.submit(cpl.build, plan_pairs + _aug_pairs(dev)
                                    + _late_pairs(dev) + _dense_pairs(dev)
-                                   + _coupled_pairs(dev))
+                                   + _coupled_pairs(dev) + _df_pairs(dev))
 
     _at("3")
     # [3] K1 against its plain version (dt 0.3: a typical main-path step),
@@ -4860,6 +5182,7 @@ def main() -> int:
     late = _hyper_adams_tier(smi, dev)
     dense = _dense_tier(smi, dev)
     coupled = _coupled_tier(smi, dev, plan["coupled"], aug["coupled"])
+    df = _df_tier(smi, dev)
 
     # Bounds: the operations and bytes of each timed run's inputs.
     mlp = _mlp_flops(((D, H), (H, D)), input_power=3)
@@ -5179,6 +5502,32 @@ def main() -> int:
             "generic_ms_by_case": c["generic_ms"],
             **({"train_step_ms_by_case": c["steps"]} if "steps" in c
                else {})})
+    # The float64 tier ([48], [49]): K14 in K2 and K15 in K3 launched in
+    # float64 from float32 callers, bounds at 34 TFLOP/s; on K2's and K3's
+    # records and on K14's and K15's.
+    by_name = {k["name"]: k for k in kernels}
+    sp = df["K3"]["spiral"]
+    cases = dict(df["K2"], spiral_train_forward={
+        "ms": sp["fwd_ms"], "plain_ms": sp["fwd_plain_ms"],
+        "bound": sp["fwd_bound"], "kernel_err": sp["fwd_kernel_err"],
+        "nfe": sp["fwd_nfe"]})
+    f64_k2 = {case: {"ms": c["ms"], "plain_ms": c["plain_ms"],
+                     "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+                     "max_abs_err": c["kernel_err"], "nfe": c["nfe"],
+                     **{k: c[k] for k in ("call_ms", "attempts", "err",
+                                          "err_rel") if k in c}}
+              for case, c in cases.items()}
+    f64_k3 = {"ms": sp["ms"], "plain_ms": sp["plain_ms"],
+              "bound_ms": sp["bound"][0], "bound_by": sp["bound"][1],
+              "max_abs_err": sp["kernel_err"], "b_nfe": sp["b_nfe"],
+              "train_step_ms": sp["step_ms"],
+              "b32": df["K3"]["b32"]}
+    for name in ("mlp_solve", "plan_rhs"):
+        by_name[name]["float64_tier"] = {"launches": df["launches"]["K2"],
+                                         "by_case": f64_k2}
+    for name in ("mlp_adjoint_solve", "plan_aug"):
+        by_name[name]["float64_tier"] = {"launches": df["launches"]["K3"],
+                                         **f64_k3}
     print(f"[total] chip_smoke.py took {time.perf_counter() - run_t0:.1f} s",
           flush=True)
     print(smi)

@@ -259,6 +259,20 @@ def _trains_with(options):
     return call
 
 
+def _train_dir_resumes():
+    import contextlib
+    import io
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--train_dir", d, "--niters", "1", "--nspiral", "4",
+                "--ntimes", "40", "--nsample", "8", "--device", "cpu"]
+        PL.main(argv)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            PL.main(argv)
+        assert f"resumed from {d} at iter 1" in out.getvalue()
+
+
 @pytest.mark.parametrize("call, exc, match", [
     # adjoint_mode='interpolated' (once refused here, ROADMAP item 3)
     # trains (tests/test_torch_interpolated.py holds it to the reference).
@@ -269,8 +283,9 @@ def _trains_with(options):
     # No adjoint kernel exists for the Adams family in either package.
     (_spec_call(adjoint_method="adams"), ValueError,
      "adjoint_method='adams'"),
-    (lambda: PL.main(["--train_dir", "ckpt", "--niters", "1"]),
-     NotImplementedError, "item 19"),
+    # --train_dir (once refused here, ROADMAP item 19) saves and resumes
+    # (tests/test_torch_checkpoint.py holds the resume bit for bit).
+    (_train_dir_resumes, None, None),
     (lambda: PL.main(["--dp", "--niters", "1"]), NotImplementedError,
      "item 18"),
 ], ids=["interpolated", "fuse", "adams", "per_sample", "fused_adams",

@@ -77,7 +77,10 @@ with its dense-output emission is bitwise equal to its plain version
 a refused launch raises. A coupled plan on the one-block routes of K8 (rk4,
 euler), K10 (both methods), K11 and K9 is bitwise equal to its plain
 version at B in {4096, 256, 33} (at 1 the capture folds the coupling
-away), and every fused entry point launches those kernels.
+away), and every fused entry point launches those kernels. The float64
+tier from float32 callers: `solve_df` is one K2 launch and
+`odeint_adjoint_df` one K2 and one K3 launch, each in float64 and bitwise
+equal to its plain version at B in {4096, 33, 1}.
 """
 
 import numpy as np
@@ -2658,3 +2661,94 @@ def test_dense_entry_points_launch_k2_once(cuda):
     assert (cpl.plan_solve_launches, cpl.plan_adjoint_launches) == (1, 0)
     assert fast.fuse_fallbacks == fb
     assert all(torch.isfinite(x).all() for x in grads)
+
+
+def _recorded(monkeypatch, module, name):
+    """Every call of module.name passed through, its (args, kwargs,
+    result) kept in the returned list."""
+    calls, fn = [], getattr(module, name)
+
+    def record(*args, **kw):
+        res = fn(*args, **kw)
+        calls.append((args, kw, res))
+        return res
+
+    monkeypatch.setattr(module, name, record)
+    return calls
+
+
+def _df_spiral(B, device):
+    """The spiral over float32 weights (w1, b1, w2, b2), float32 states,
+    12 outputs over [0, 5], and its MSE target."""
+    p, y = _bench(B, torch.float32, device)
+    q = tuple(p[k].clone().requires_grad_() for k in ("w1", "b1", "w2",
+                                                      "b2"))
+    tgt = torch.tensor(np.random.RandomState(2).randn(12, B, 2) * 0.5,
+                       dtype=torch.float32, device=device)
+
+    def f(tt, yy, w):
+        return torch.tanh((yy ** 3) @ w[0] + w[1]) @ w[2] + w[3]
+
+    return f, q, y, torch.linspace(0.0, 5.0, 12), tgt
+
+
+def test_solve_df_launches_k2_once(cuda):
+    """solve_df on float32 dynamics: one K2 plan launch in float64, no
+    fallback, the trajectory back in float32 with status 0."""
+    from tfdiffeq_tpu_torch import solve_df
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    f, q, y, t, _ = _df_spiral(256, cuda)
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    with torch.no_grad():
+        res = solve_df(lambda tt, yy: f(tt, yy, q), y, t)
+    torch.cuda.synchronize()
+    assert (cpl.plan_solve_launches, cpl.plan_adjoint_launches) == (1, 0)
+    assert fast.fuse_fallbacks == fb
+    assert res.stats.status == 0 and res.ys.dtype == torch.float32
+    assert res.ys.is_cuda and torch.isfinite(res.ys).all()
+
+
+def test_odeint_adjoint_df_launches_k2_and_k3_once(cuda):
+    """One odeint_adjoint_df step: one K2 launch forward, one K3 sweep
+    backward, no fallback, finite float32 gradients."""
+    from tfdiffeq_tpu_torch import odeint_adjoint_df
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    f, q, y, t, tgt = _df_spiral(256, cuda)
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    ys = odeint_adjoint_df(f, y, t, params=q)
+    grads = torch.autograd.grad(torch.mean((ys - tgt) ** 2), q)
+    torch.cuda.synchronize()
+    assert (cpl.plan_solve_launches, cpl.plan_adjoint_launches) == (1, 1)
+    assert fast.fuse_fallbacks == fb
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+               for g in grads)
+
+
+@pytest.mark.parametrize("B", [4096, 33, 1])
+def test_float64_tier_matches_plain(cuda, monkeypatch, B):
+    """The float64 tier's launches from float32 callers: solve_df's K2
+    launch and odeint_adjoint_df's K2 and K3 launches run in float64 and
+    are bitwise equal to their plain versions at the wrapper's grid."""
+    from tfdiffeq_tpu_torch import odeint_adjoint_df, solve_df
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    f, q, y, t, tgt = _df_spiral(B, cuda)
+    solves = _recorded(monkeypatch, cpl, "plan_solve")
+    sweeps = _recorded(monkeypatch, cpl, "plan_adjoint_solve")
+    with torch.no_grad():
+        solve_df(lambda tt, yy: f(tt, yy, q), y, t)
+    ys = odeint_adjoint_df(f, y, t, params=q)
+    torch.autograd.grad(torch.mean((ys - tgt) ** 2), q)
+    assert len(solves) == 2 and len(sweeps) == 1
+    with torch.no_grad():      # the training launch's packed constants
+        for args, kw, got in solves:
+            assert args[2].dtype == torch.float64
+            assert got[1][3].item() == 0
+            ref = cpl.plan_solve_plain(
+                *args, n_blocks=cpl.plan_blocks(args[0], B, cuda), **kw)
+            assert _same(got, ref), (got[1].tolist(), ref[1].tolist())
+        args, kw, got = sweeps[0]
+        assert args[2].dtype == torch.float64 and got[3][3].item() == 0
+        ref = cpl.plan_adjoint_solve_plain(*args, **kw)
+        assert _same_sweep(got, ref), (got[3].tolist(), ref[3].tolist())

@@ -132,9 +132,15 @@ def test_main_runs_each_mode(mode, capsys):
     assert all(torch.isfinite(q).all() for q in func.parameters())
 
 
-def test_viz_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 19"):
-        PD.main(["--viz", "--niters", "1"])
+def test_viz_is_not_ported(tmp_path):
+    """--viz (once refused here, ROADMAP item 19) writes a figure at each
+    test iteration into --viz_dir."""
+    d = tmp_path / "png"
+    PD.main(["--viz", "--viz_dir", str(d), "--method", "rk4", "--niters",
+             "2", "--test_freq", "2", "--data_size", "120", "--device",
+             "cpu"])
+    assert [f.name for f in d.iterdir()] == ["00002.png"]
+    assert (d / "00002.png").stat().st_size > 1000
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -191,9 +191,15 @@ def test_main_trains_fused_adjoint(monkeypatch, capsys):
     assert "Epoch 001" in line and "f-nfe" in line and "b-nfe" in line
 
 
-def test_main_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 19"):
-        PX.main(["--train_dir", "ckpt", "--synthetic"])
+def test_main_refusals(monkeypatch, tmp_path, capsys):
+    # --train_dir (once refused here, ROADMAP item 19) saves an epoch and
+    # resumes from it (tests/test_torch_checkpoint.py holds the bits).
+    monkeypatch.setattr(PX, "EVAL_SAMPLES", 8)
+    argv = ["--train_dir", str(tmp_path), "--synthetic", "--nepochs", "1",
+            "--batch_size", "8", "--limit_batches", "1", "--device", "cpu"]
+    PX.main(argv)
+    PX.main(argv)
+    assert "at epoch 1" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="--adjoint"):
         PX.main(["--fused", "--synthetic", "--device", "cpu"])
     assert PX.parse_args([]).device == "cuda"

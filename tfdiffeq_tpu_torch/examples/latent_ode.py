@@ -12,8 +12,13 @@ jointly on the ELBO with Adam.
 `--fused` decodes through `fast.odeint_adjoint_mlp`: one whole-solve kernel
 forward (K2) and one adjoint-sweep kernel backward (K3) per step on a CUDA
 device. Without it, decoding goes through the generic `odeint_adjoint`.
-Not ported yet: `--train_dir` checkpoints (ROADMAP.md queue 1 item 19) and
-`--dp` data parallelism (item 18); both raise NotImplementedError.
+
+`--train_dir` keeps checkpoints (`examples/ckpt.py`: the three nets, Adam's
+state, the iteration and the noise generator's state) every `--save_every`
+iterations and at the last one; a rerun with the same directory resumes
+from the newest, prints `resumed from ... at iter N` and continues exactly
+as an uninterrupted run would. Not ported yet: `--dp` data parallelism
+(ROADMAP.md queue 1 item 18), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from .. import fast
 from ..adjoint import odeint_adjoint
 from ..models.latent_ode import (Decoder, LatentODEFunc, RecognitionRNN,
                                  log_normal_pdf, normal_kl)
-from . import resolve_device
+from . import ckpt, resolve_device
 
 
 def parse_args(argv=None):
@@ -48,7 +53,9 @@ def parse_args(argv=None):
                    help="torch device (default cuda; raises without a "
                         "card unless --device cpu is given)")
     p.add_argument("--train_dir", default="",
-                   help="checkpoint directory (not ported yet)")
+                   help="checkpoint directory: save there, and resume from "
+                        "its newest checkpoint")
+    p.add_argument("--save_every", type=int, default=500)
     p.add_argument("--fused", action="store_true",
                    help="decode with the fused training path (one "
                         "whole-solve kernel forward, one adjoint-sweep "
@@ -194,10 +201,6 @@ def make_train_step(args, rec, dyn, dec, opt, samp_ts):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.train_dir:
-        raise NotImplementedError(
-            "--train_dir (checkpoint and resume) is not ported yet: "
-            "ROADMAP.md queue 1 item 19")
     if args.dp:
         raise NotImplementedError(
             "--dp (data-parallel training) is not ported yet: ROADMAP.md "
@@ -215,14 +218,37 @@ def main(argv=None):
     opt = torch.optim.Adam(params, lr=args.lr)
     train_step, _ = make_train_step(args, rec, dyn, dec, opt, samp_ts)
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    nets = {"rec": rec, "dyn": dyn, "dec": dec}
+
+    # Checkpoint and resume: the whole training state from the newest
+    # checkpoint in --train_dir, if there is one.
+    mngr, start_iter = None, 0
+    if args.train_dir:
+        mngr = ckpt.make_manager(args.train_dir)
+        step, state = ckpt.restore_latest(mngr)
+        if step is not None:
+            for name, m in nets.items():
+                m.load_state_dict(state["model"][name])
+            opt.load_state_dict(state["optimizer"])
+            gen.set_state(state["generator"])
+            start_iter = step
+            print(f"resumed from {args.train_dir} at iter {step}")
 
     start = time.time()
-    for itr in range(1, args.niters + 1):
+    n_done = 0
+    for itr in range(start_iter + 1, args.niters + 1):
         loss = train_step(xs, gen)
-        if itr == 1 or itr % 20 == 0 or itr == args.niters:
+        n_done += 1
+        if itr == start_iter + 1 or itr % 20 == 0 or itr == args.niters:
             print(f"Iter {itr:04d} | -ELBO {float(loss):.4f} | "
-                  f"{(time.time() - start) / itr * 1000:.1f} ms/it")
-    print(f"done: {args.niters} iters in {time.time() - start:.1f}s")
+                  f"{(time.time() - start) / n_done * 1000:.1f} ms/it")
+        if mngr is not None and (itr % args.save_every == 0
+                                 or itr == args.niters):
+            ckpt.save(mngr, itr, {
+                "model": {k: m.state_dict() for k, m in nets.items()},
+                "optimizer": opt.state_dict(), "step": itr,
+                "generator": gen.get_state()})
+    print(f"done: {n_done} iters in {time.time() - start:.1f}s")
     return rec, dyn, dec
 
 

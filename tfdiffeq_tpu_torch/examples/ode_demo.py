@@ -28,8 +28,10 @@ Differences from the reference:
   'chunk_size': 16}`, knobs of its XLA loop that the eager loop here does
   not have (and that its own fixed-grid methods refuse); no options are
   passed here.
-- `--viz` (phase portraits, `utils/viz.py`) is not ported yet: ROADMAP.md
-  queue 1 item 19.
+
+`--viz` writes a figure at every test iteration into `--viz_dir` (the
+trajectory, the phase plane and the learned vector field through
+`utils/viz.plot_phase_portrait`; matplotlib's Agg backend).
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ def parse_args(argv=None):
                         "kernel forward, one adjoint-sweep kernel "
                         "backward); implies adjoint gradients")
     p.add_argument("--viz", action="store_true",
-                   help="phase-portrait figures (not ported yet)")
+                   help="write a figure to --viz_dir at every test "
+                        "iteration")
     p.add_argument("--viz_dir", default="png")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -164,10 +167,6 @@ def make_optimizer(args, func):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.viz:
-        raise NotImplementedError(
-            "--viz (phase portraits, utils/viz.py) is not ported yet: "
-            "ROADMAP.md queue 1 item 19")
     device = resolve_device(args.device)
     t, true_y0, true_y = true_trajectory(args, device)
     func = make_ode_func(seed=args.seed, device=device)
@@ -190,7 +189,38 @@ def main(argv=None):
             print(f"Iter {itr:05d} | train {loss_meter.avg:.6f} | "
                   f"total {float(test_loss):.6f} | "
                   f"{time_meter.avg * 1000:.1f} ms/it")
+            if args.viz:
+                visualize(args, itr, t, true_y, pred, func)
     return func
+
+
+def visualize(args, itr, t, true_y, pred_y, func):
+    """One figure, `<viz_dir>/<itr>.png`: x(t) true and predicted, the two
+    trajectories in the phase plane, and the learned vector field (the
+    reference's `visualize`)."""
+    import os
+
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from ..utils.viz import plot_phase_portrait
+
+    t, true_y, pred_y = (x.detach().cpu().numpy() for x in (t, true_y,
+                                                           pred_y))
+    os.makedirs(args.viz_dir, exist_ok=True)
+    fig, axes = plt.subplots(1, 3, figsize=(14, 4))
+    axes[0].plot(t, true_y[:, 0, 0], "g-", label="true x")
+    axes[0].plot(t, pred_y[:, 0, 0], "b--", label="pred x")
+    axes[0].legend()
+    axes[0].set_title("trajectory")
+    axes[1].plot(true_y[:, 0, 0], true_y[:, 0, 1], "g-")
+    axes[1].plot(pred_y[:, 0, 0], pred_y[:, 0, 1], "b--")
+    axes[1].set_title("phase")
+    plot_phase_portrait(func, ax=axes[2], lim=2.0, n=40)
+    axes[2].set_title("learned vector field")
+    fig.tight_layout()
+    fig.savefig(os.path.join(args.viz_dir, f"{itr:05d}.png"), dpi=100)
+    plt.close(fig)
 
 
 if __name__ == "__main__":

@@ -23,8 +23,12 @@ without one the example raises unless `--device cpu` is given.
 Differences from the reference: images are NCHW [B, 1, 28, 28]; parameters
 take PyTorch's default initialisation drawn from `--seed`; batches are
 permuted with numpy's RandomState(seed), as the reference does.
-`--train_dir` (Orbax checkpoints) is not ported yet: ROADMAP.md queue 1
-item 19.
+
+`--train_dir` keeps a checkpoint after every epoch (`examples/ckpt.py`: the
+model, SGD's momentum, the learning-rate schedule and the epoch); a rerun
+with the same directory resumes from the newest and prints `resumed from
+... at epoch N`. As in the reference, the resumed run permutes its batches
+with RandomState(seed + N).
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import torch.nn.functional as F
 
 from ..models.odenet import ODENetMNIST
 from ..utils.nfe import NFEMeter
-from . import resolve_device
+from . import ckpt, resolve_device
 
 #: Test samples evaluated per epoch, in batches of EVAL_BATCH.
 EVAL_SAMPLES, EVAL_BATCH = 2048, 256
@@ -68,7 +72,8 @@ def parse_args(argv=None):
     p.add_argument("--limit_batches", type=int, default=0,
                    help="debug: cap batches per epoch")
     p.add_argument("--train_dir", default="",
-                   help="checkpoint directory (not ported yet)")
+                   help="checkpoint directory: save there after each "
+                        "epoch, and resume from its newest checkpoint")
     p.add_argument("--fused_eval", action="store_true",
                    help="evaluate through the fused conv-ODE kernel "
                         "(fast.solve_conv_ode; inference only)")
@@ -286,10 +291,6 @@ def evaluate(model, x_test, y_test, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.train_dir:
-        raise NotImplementedError(
-            "--train_dir (checkpoint and resume) is not ported yet: "
-            "ROADMAP.md queue 1 item 19")
     if args.fused and not args.adjoint:
         raise SystemExit("--fused trains through the fused forward + "
                          "adjoint backward; add --adjoint")
@@ -311,9 +312,21 @@ def main(argv=None):
                   if args.fused_eval and args.network == "odenet"
                   else model)
 
-    rng = np.random.RandomState(args.seed)
+    # Checkpoint and resume: the whole training state, per epoch.
+    mngr, start_epoch = None, 0
+    if args.train_dir:
+        mngr = ckpt.make_manager(args.train_dir)
+        step, state = ckpt.restore_latest(mngr)
+        if step is not None:
+            model.load_state_dict(state["model"])
+            opt.load_state_dict(state["optimizer"])
+            sched.load_state_dict(state["scheduler"])
+            start_epoch = step
+            print(f"resumed from {args.train_dir} at epoch {step}")
+
+    rng = np.random.RandomState(args.seed + start_epoch)
     loss = acc = None
-    for epoch in range(1, args.nepochs + 1):
+    for epoch in range(start_epoch + 1, args.nepochs + 1):
         perm = rng.permutation(len(x_train))
         t0 = time.time()
         if meter is not None:
@@ -336,7 +349,12 @@ def main(argv=None):
         print(f"Epoch {epoch:03d} | loss {float(loss):.4f} | "
               f"test acc {acc:.4f} | {nfe_str} | "
               f"{time.time() - t0:.1f}s")
-    return {"model": model, "loss": float(loss), "acc": acc}
+        if mngr is not None:
+            ckpt.save(mngr, epoch, {
+                "model": model.state_dict(), "optimizer": opt.state_dict(),
+                "scheduler": sched.state_dict(), "step": epoch})
+    return {"model": model, "loss": None if loss is None else float(loss),
+            "acc": acc}
 
 
 if __name__ == "__main__":

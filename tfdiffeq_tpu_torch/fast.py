@@ -216,9 +216,9 @@ def _host_times(t, dtype) -> Tensor:
     return torch.as_tensor(t).detach().to("cpu", dtype)
 
 
-def _check_spec_inputs(y0, t) -> Tuple[Tensor, Tensor]:
+def _check_spec_inputs(y0, t, time_dtype=None) -> Tuple[Tensor, Tensor]:
     y0 = _as_state(y0)
-    t = _host_times(t, y0.dtype)
+    t = _host_times(t, time_dtype or y0.dtype)
     if t.shape[0] > 1:
         d = np.diff(t.numpy())
         if not (np.all(d > 0) or np.all(d < 0)):
@@ -1208,7 +1208,7 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
                 num_steps=None, step_size=None, per_sample: bool = False,
                 dot_precision: str = "highest", dense_output: bool = False,
                 max_order: Optional[int] = None,
-                max_iters: int = 4) -> SolveResult:
+                max_iters: int = 4, dtype=None) -> SolveResult:
     """Whole-solve fused solve of arbitrary plain-PyTorch dynamics, one
     kernel launch (reference `fast.py:784`).
 
@@ -1248,6 +1248,12 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
     meeting at each coupling: K2 (adaptive), K8 (fixed grid), K10 (both
     fixed-step Adams methods) or K11 ('adams'); with per_sample it raises
     ValueError, as in the reference.
+
+    dtype: the floating dtype of the solve (default y0's). The dynamics
+    are captured at y0's own dtype, so a function that closes over float32
+    weights captures from a float32 y0; its constants, the state, the times
+    and the whole solve then run in `dtype`, and so do the results
+    (`ops/doublefloat.solve_df` solves in float64 this way).
 
     Not ported yet (NotImplementedError naming the ROADMAP item): a reduced
     dot_precision (K4 at the plan sites, item 16).
@@ -1298,8 +1304,9 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         raise _pb.FusionError(
             "per_sample + dense_output is unsupported (per-sample steps "
             "have no shared interpolant sequence)")
-    y0, t = _check_spec_inputs(y0, t)
-    dtype, dev = y0.dtype, y0.device
+    dtype = dtype or y0.dtype
+    y0, t = _check_spec_inputs(y0, t, dtype)
+    dev = y0.device
 
     def result(out, stats, extra=None):
         ys = out[:, 0] if squeeze else out
@@ -1310,13 +1317,13 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         return SolveResult(ys, stats, lane_stats=extra)
 
     if t.shape[0] == 1:
-        return result(y0[None].clone(), SolverStats(0, 0, 0, 0))
+        return result(y0[None].to(dtype, copy=True), SolverStats(0, 0, 0, 0))
     y0 = y0.contiguous()
     plan, consts = _pb.build_plan(func, t[0].to(dev), y0, matmul=matmul)
     _check_plan_route(plan, per_sample)
     packed = _pb.pack_consts(plan, consts, dtype, dev)
     out, stats, extra = _plan_solve(
-        plan, packed, y0, t, rtol=rtol, atol=atol, method=method,
+        plan, packed, y0.to(dtype), t, rtol=rtol, atol=atol, method=method,
         max_num_steps=max_num_steps, first_step=first_step, safety=safety,
         ifactor=ifactor, dfactor=dfactor, num_steps=num_steps,
         step_size=step_size, per_sample=per_sample, max_order=max_order,
@@ -1513,6 +1520,11 @@ class _AdjointFused(torch.autograd.Function):
         cfg = ctx.cfg
         plan = cfg["plan"]
         ys, t, *packed = ctx.saved_tensors
+        if cfg["nan_on_failed_forward"] and cfg["stats"].status != 0:
+            # A failed forward's trajectory stops short: every gradient NaN
+            # and no sweep (reference doublefloat.py:438-441).
+            return (None, *[torch.full_like(x, float("nan"))
+                            for x in (ys[0], t, *packed)])
         T = t.shape[0]
         dtype, dev = ys.dtype, ys.device
         g = g.to(dtype).contiguous()
@@ -1572,7 +1584,8 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
                          matmul: str = "auto", nfe_meter=None,
                          return_stats: bool = False, num_steps=None,
                          step_size=None, adjoint_num_steps=None,
-                         per_sample: bool = False):
+                         per_sample: bool = False, dtype=None,
+                         nan_on_failed_forward: bool = False):
     """O(1)-memory training of ARBITRARY plain-PyTorch dynamics in two
     launches (reference `fast.py:1566`): the forward is the plan's solve
     (`solve_fused`: K2, K5 or K8 with K14), the backward ONE sweep with the
@@ -1601,7 +1614,13 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
     Differentiable wrt the constants, y0 ([B, D], or [D]) and t. Returns
     the trajectory [T, B, D] ([T, D]), with the forward SolverStats when
     return_stats; both sweeps' counts go to `nfe_meter`. A failed backward
-    sweep returns NaN gradients.
+    sweep returns NaN gradients, and so does a failed forward with
+    nan_on_failed_forward (no sweep runs then).
+
+    dtype: the floating dtype of both sweeps (default y0's), as in
+    `solve_fused`: the capture runs at y0's dtype, the constants, y0 and t
+    are cast to `dtype` inside autograd's graph, so each gradient comes
+    back in its own tensor's dtype; the trajectory is returned in `dtype`.
     """
     if params is None:
         user_func = lambda tt, yy, pp: func(tt, yy)      # noqa: E731
@@ -1635,7 +1654,7 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
     y0c, t_h = _check_spec_inputs(y0, t)
     if t_h.shape[0] < 2:
         raise _pb.FusionError("fused adjoint needs >= 2 observation times")
-    dtype, dev = y0c.dtype, y0c.device
+    dtype, dev = dtype or y0c.dtype, y0c.device
     plan, consts = _pb.build_plan(
         lambda tt, yy: user_func(tt, yy, params_in), t_h[0].to(dev),
         y0c.detach().contiguous(), matmul=matmul)
@@ -1659,10 +1678,11 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
                                 if adjoint_num_steps is not None
                                 else (num_steps if num_steps is not None
                                       else 1)),
-           "nfe_meter": nfe_meter}
+           "nfe_meter": nfe_meter,
+           "nan_on_failed_forward": bool(nan_on_failed_forward)}
     t_in = t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
-    ys = _AdjointFused.apply(cfg, y0c.contiguous(), t_in.to(dtype),
-                             *packed)
+    ys = _AdjointFused.apply(cfg, y0c.to(dtype).contiguous(),
+                             t_in.to(dtype), *packed)
     if squeeze:
         ys = ys[:, 0]
     if return_stats:
