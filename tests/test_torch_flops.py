@@ -53,8 +53,9 @@ def test_conv_counts_match_the_reference(B):
 def test_peaks_and_utilisation():
     """The H100 SXM peaks PERF.md and chip_smoke.py divide by, and each
     unit's share of its own peak (float64 on the CUDA cores at 34e12)."""
-    assert (PF.PEAK_F32_CUDA, PF.PEAK_F64_CUDA, PF.PEAK_BF16_TENSOR,
-            PF.PEAK_HBM_BYTES) == (67e12, 34e12, 989e12, 3.35e12)
+    assert (PF.PEAK_F32_CUDA, PF.PEAK_F64_CUDA, PF.PEAK_F64_TENSOR,
+            PF.PEAK_BF16_TENSOR, PF.PEAK_HBM_BYTES) == \
+        (67e12, 34e12, 67e12, 989e12, 3.35e12)
     c = PF.FlopCount(tensor=989e9, cuda=67e9)
     a = c.achieved(10.0)
     assert a["tensor_util_bf16_pct"] == 1.0 and a["cuda_util_pct"] == 1.0
@@ -62,3 +63,12 @@ def test_peaks_and_utilisation():
         10.0, dtype=torch.float64)
     assert a64["cuda_util_pct"] == 1.0
     assert a["flops_per_nfe_cuda"] == 67e9
+
+
+@pytest.mark.parametrize("products, other, want", [
+    (67e12, 0.0, 1.0), (0.0, 34e12, 1.0), (67e12, 34e12, 2.0),
+    (0.0, 0.0, 0.0)])
+def test_float64_ops_s(products, other, want):
+    """A float64 bound counts products at the FP64 tensor cores' 67e12 and
+    every other operation at the CUDA cores' 34e12, the two added."""
+    assert PF.float64_ops_s(products, other) == want

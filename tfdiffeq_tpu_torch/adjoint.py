@@ -290,7 +290,7 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
                    adjoint_mode: str = "resets",
                    return_stats: bool = False, nfe_meter=None,
                    forward_solver: Optional[Callable] = None,
-                   nan_on_failed_forward: bool = False) -> Any:
+                   _nan_on_failed_forward: bool = False) -> Any:
     """Like `odeint`, but gradients use the augmented adjoint ODE.
 
     func: `func(t, y, params)` when `params` (a nest of tensors) is given;
@@ -307,10 +307,8 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
     (Kidger et al. 2020). nfe_meter: an `NFEMeter` that records the
     forward and backward solves. forward_solver(y0, t, params) -> (ys,
     stats) replaces the internal forward solve (it must integrate the same
-    dynamics). A failed forward solve raises RuntimeError, or with
-    nan_on_failed_forward returns its trajectory and NaN gradients (the
-    contract of `odeint_adjoint_df`); a failed backward solve returns NaN
-    gradients.
+    dynamics). A failed forward solve raises RuntimeError; a failed
+    backward solve returns NaN gradients.
     """
     method = method or "dopri5"
     adjoint_rtol = rtol if adjoint_rtol is None else adjoint_rtol
@@ -410,8 +408,7 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
         out = _fused_tiers(func, params, y0, t, rtol, atol, method,
                            adjoint_rtol, adjoint_atol, adjoint_method,
                            adjoint_seminorm, fwd_options, bwd_options, walk,
-                           per_sample, return_stats, nfe_meter,
-                           nan_on_failed_forward)
+                           per_sample, return_stats, nfe_meter)
         if out is not None:
             return out
 
@@ -473,7 +470,9 @@ def odeint_adjoint(func: Callable, y0: Any, t, *, params: Any = None,
            "nfe_meter": nfe_meter, "interpolated": interpolated,
            "fused_dense": use_fuse and interpolated
            and forward_solver is None,
-           "nan_on_failed_forward": bool(nan_on_failed_forward)}
+           # _nan_on_failed_forward (ops/doublefloat only): a failed
+           # forward gives NaN gradients instead of raising.
+           "nan_on_failed_forward": bool(_nan_on_failed_forward)}
     t_in = t if isinstance(t, Tensor) else torch.as_tensor(t)
     if t_in.ndim == 0:
         t_in = t_in[None]
@@ -540,7 +539,7 @@ def _forward_solve(cfg, y0: Tensor, t: Tensor, leaves):
 def _fused_tiers(func, params, y0, t, rtol, atol, method,
                  adjoint_rtol, adjoint_atol, adjoint_method,
                  adjoint_seminorm, fwd_options, bwd_options, walk,
-                 per_sample, return_stats, nfe_meter, nan_on_failed_forward):
+                 per_sample, return_stats, nfe_meter):
     """`options={'fuse': True}`'s tier 1 (`fast.odeint_adjoint_fused`), or
     with per_sample and unfusable dynamics the generic adjoint a sample at
     a time; None sends the caller on to tier 2 (the fused forward with the
@@ -596,8 +595,7 @@ def _fused_tiers(func, params, y0, t, rtol, atol, method,
             num_steps=fwd.get("num_steps"), step_size=fwd.get("step_size"),
             adjoint_num_steps=bwd_options.get("num_steps"),
             nfe_meter=nfe_meter, return_stats=return_stats,
-            per_sample=per_sample,
-            nan_on_failed_forward=nan_on_failed_forward)
+            per_sample=per_sample)
         if rebuild is not None:
             out = ((rebuild(out[0]),) + tuple(out[1:]) if return_stats
                    else rebuild(out))
@@ -628,8 +626,7 @@ def _fused_tiers(func, params, y0, t, rtol, atol, method,
                            adjoint_method=adjoint_method,
                            adjoint_options=bopts,
                            adjoint_seminorm=adjoint_seminorm,
-                           return_stats=True, nfe_meter=nfe_meter,
-                           nan_on_failed_forward=nan_on_failed_forward)
+                           return_stats=True, nfe_meter=nfe_meter)
             for b in range(y0.shape[0])]
     ys = torch.cat([o[0] for o in outs], dim=1)
     if return_stats:

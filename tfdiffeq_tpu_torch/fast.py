@@ -1208,7 +1208,7 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
                 num_steps=None, step_size=None, per_sample: bool = False,
                 dot_precision: str = "highest", dense_output: bool = False,
                 max_order: Optional[int] = None,
-                max_iters: int = 4, dtype=None) -> SolveResult:
+                max_iters: int = 4, _dtype=None) -> SolveResult:
     """Whole-solve fused solve of arbitrary plain-PyTorch dynamics, one
     kernel launch (reference `fast.py:784`).
 
@@ -1248,12 +1248,6 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
     meeting at each coupling: K2 (adaptive), K8 (fixed grid), K10 (both
     fixed-step Adams methods) or K11 ('adams'); with per_sample it raises
     ValueError, as in the reference.
-
-    dtype: the floating dtype of the solve (default y0's). The dynamics
-    are captured at y0's own dtype, so a function that closes over float32
-    weights captures from a float32 y0; its constants, the state, the times
-    and the whole solve then run in `dtype`, and so do the results
-    (`ops/doublefloat.solve_df` solves in float64 this way).
 
     Not ported yet (NotImplementedError naming the ROADMAP item): a reduced
     dot_precision (K4 at the plan sites, item 16).
@@ -1304,7 +1298,10 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         raise _pb.FusionError(
             "per_sample + dense_output is unsupported (per-sample steps "
             "have no shared interpolant sequence)")
-    dtype = dtype or y0.dtype
+    # _dtype (ops/doublefloat only): capture at y0's own dtype, then pack
+    # the constants and run the state, the times, the solve and the results
+    # in _dtype.
+    dtype = _dtype or y0.dtype
     y0, t = _check_spec_inputs(y0, t, dtype)
     dev = y0.device
 
@@ -1584,8 +1581,8 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
                          matmul: str = "auto", nfe_meter=None,
                          return_stats: bool = False, num_steps=None,
                          step_size=None, adjoint_num_steps=None,
-                         per_sample: bool = False, dtype=None,
-                         nan_on_failed_forward: bool = False):
+                         per_sample: bool = False, _dtype=None,
+                         _nan_on_failed_forward: bool = False):
     """O(1)-memory training of ARBITRARY plain-PyTorch dynamics in two
     launches (reference `fast.py:1566`): the forward is the plan's solve
     (`solve_fused`: K2, K5 or K8 with K14), the backward ONE sweep with the
@@ -1614,13 +1611,7 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
     Differentiable wrt the constants, y0 ([B, D], or [D]) and t. Returns
     the trajectory [T, B, D] ([T, D]), with the forward SolverStats when
     return_stats; both sweeps' counts go to `nfe_meter`. A failed backward
-    sweep returns NaN gradients, and so does a failed forward with
-    nan_on_failed_forward (no sweep runs then).
-
-    dtype: the floating dtype of both sweeps (default y0's), as in
-    `solve_fused`: the capture runs at y0's dtype, the constants, y0 and t
-    are cast to `dtype` inside autograd's graph, so each gradient comes
-    back in its own tensor's dtype; the trajectory is returned in `dtype`.
+    sweep returns NaN gradients.
     """
     if params is None:
         user_func = lambda tt, yy, pp: func(tt, yy)      # noqa: E731
@@ -1654,7 +1645,11 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
     y0c, t_h = _check_spec_inputs(y0, t)
     if t_h.shape[0] < 2:
         raise _pb.FusionError("fused adjoint needs >= 2 observation times")
-    dtype, dev = dtype or y0c.dtype, y0c.device
+    # _dtype and _nan_on_failed_forward (ops/doublefloat only): both sweeps
+    # run in _dtype from a capture at y0's dtype (the casts sit inside
+    # autograd's graph, so each gradient comes back in its tensor's dtype),
+    # and a failed forward gives NaN gradients instead of raising.
+    dtype, dev = _dtype or y0c.dtype, y0c.device
     plan, consts = _pb.build_plan(
         lambda tt, yy: user_func(tt, yy, params_in), t_h[0].to(dev),
         y0c.detach().contiguous(), matmul=matmul)
@@ -1679,7 +1674,7 @@ def odeint_adjoint_fused(func, y0: Tensor, t, *, params=None, rtol=1e-6,
                                 else (num_steps if num_steps is not None
                                       else 1)),
            "nfe_meter": nfe_meter,
-           "nan_on_failed_forward": bool(nan_on_failed_forward)}
+           "nan_on_failed_forward": bool(_nan_on_failed_forward)}
     t_in = t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
     ys = _AdjointFused.apply(cfg, y0c.to(dtype).contiguous(),
                              t_in.to(dtype), *packed)

@@ -13,9 +13,9 @@ the caller's dtype (`ops/plan_bridge.build_plan`; a function that closes
 over float32 weights cannot be traced on a float64 state, since
 `torch.matmul` does not promote), their constants are packed in float64,
 and the whole solve is one K2 launch in float64 with the plan's generated
-right-hand side K14 (`fast.solve_fused(dtype=torch.float64)`). The
+right-hand side K14 (`fast.solve_fused` with its private `_dtype`). The
 adjoint's forward is that launch and its backward one K3 sweep in float64
-with the plan's reverse walk K15 (`fast.odeint_adjoint_fused(dtype=...)`).
+with the plan's reverse walk K15 (`fast.odeint_adjoint_fused`).
 On a CPU tensor the kernels' plain versions run.
 
 Dynamics outside the plan's subset warn, add 1 to `fast.fuse_fallbacks`
@@ -121,7 +121,7 @@ def solve_df(func: Callable, y0: Any, t, *, rtol=1e-8, atol=1e-10,
         res = fast.solve_fused(
             f, y_bd, t64, rtol=rtol, atol=atol, method=method,
             max_num_steps=max_num_steps, first_step=first_step,
-            safety=safety, ifactor=ifactor, dfactor=dfactor, dtype=_F64)
+            safety=safety, ifactor=ifactor, dfactor=dfactor, _dtype=_F64)
         ys = res.ys if rebuild is None else rebuild(res.ys)
     except FusionError as e:
         _fallback("solve_df", e)
@@ -206,8 +206,8 @@ def odeint_adjoint_df(func: Callable, y0: Any, t, *, params: Any = None,
             rtol=rtol, atol=atol, adjoint_rtol=adjoint_rtol,
             adjoint_atol=adjoint_atol, method=method,
             adjoint_method=adjoint_method, max_num_steps=max_num_steps,
-            first_step=first_step, return_stats=True, dtype=_F64,
-            nan_on_failed_forward=True)
+            first_step=first_step, return_stats=True, _dtype=_F64,
+            _nan_on_failed_forward=True)
         if rebuild is not None:
             ys = rebuild(ys)
     except FusionError as e:
@@ -223,6 +223,6 @@ def odeint_adjoint_df(func: Callable, y0: Any, t, *, params: Any = None,
             rtol=rtol, atol=atol, method=method, options=fwd,
             adjoint_rtol=adjoint_rtol, adjoint_atol=adjoint_atol,
             adjoint_method=adjoint_method, adjoint_options=bwd,
-            return_stats=True, nan_on_failed_forward=True)
+            return_stats=True, _nan_on_failed_forward=True)
     ys = _like(ys, y0)
     return (ys, stats) if return_stats else ys

@@ -21,6 +21,10 @@ chip_smoke.py's bounds divide by:
 - `PEAK_F32_CUDA` = 67e12 FLOP/s: float32 on the CUDA cores.
 - `PEAK_F64_CUDA` = 34e12 FLOP/s: float64 on the CUDA cores (the float64
   tier, `ops/doublefloat.py`, and every float64 solve).
+- `PEAK_F64_TENSOR` = 67e12 FLOP/s: float64 products on the tensor cores
+  (full float64 precision). The port's float64 kernels run their products
+  on the CUDA cores, but a float64 bound (`float64_ops_s`) counts them at
+  this rate, the card's fastest for the type.
 - `PEAK_BF16_TENSOR` = 989e12 FLOP/s: dense bf16 on the tensor cores (K4's
   tier products; 'mixed' makes two bf16 passes of each product, counted
   once here, as the reference counts its passes once).
@@ -38,6 +42,7 @@ import torch
 
 PEAK_F32_CUDA = 67e12
 PEAK_F64_CUDA = 34e12
+PEAK_F64_TENSOR = 67e12
 PEAK_BF16_TENSOR = 989e12
 PEAK_HBM_BYTES = 3.35e12
 TRANSCENDENTAL_FLOPS = 8
@@ -71,6 +76,13 @@ class FlopCount:
                                           3),
             "cuda_util_pct": round(100 * cuda_fs / cuda_peak, 3),
         }
+
+
+def float64_ops_s(products: float, other: float) -> float:
+    """Seconds the card needs at least for float64 work: its products
+    (a multiply and an add a weight) at `PEAK_F64_TENSOR` plus its other
+    operations at `PEAK_F64_CUDA`."""
+    return products / PEAK_F64_TENSOR + other / PEAK_F64_CUDA
 
 
 def mlp_flops_per_nfe(dims: Sequence[Tuple[int, int]], B: int, *,
