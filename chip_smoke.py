@@ -387,10 +387,37 @@ Phases (any failure raises and exits nonzero; nothing is caught):
     the K3 sweep held bitwise to its plain version; at B = 32 both
     launches held bitwise and the gradients within `DF_BAR` of the generic
     float64 `odeint_adjoint` on the CPU, on the whole gradient's scale.
-50. The holds kept for after the timed phases (`_LaterHolds`: [34]'s K6
-    sweeps, [48]'s and [49]'s launches), whose plain versions take
-    seconds to a minute and a half each: `WORKERS` worker processes on the
-    card run them side by side; each must be bitwise equal as above.
+51. K4 at its last sites, on the wide MLP (bench.py:291-424, its [18]
+    weights) at full width, B = 1024, through the public entry points,
+    counters zeroed before each and read after: (a) the net written as
+    plain PyTorch through `solve(options={'fuse': True, 'dot_precision':
+    'mixed'})`, dopri5, 8 outputs over [0, 2], rtol = atol = 1e-6, first
+    step 0.01: one plan-K2 launch on its tile route (K14's segments a
+    thread a sample, each tiered dot K4's product on the block's 16-row
+    tiles) and one K4 count; (b) rk4 x 128 over [0, 2] at 'bf16' and
+    'mixed': two plan-K8 launches on the tile route; (c) per sample, 'mixed':
+    `fast.solve_mlp_spec(MLPSpec(matmul='mxu', dot_precision='mixed'),
+    per_sample=True)` (one K5 launch on its tile engine, 16 samples a block
+    in lockstep) and the plan through `options={'fuse': True, 'per_sample':
+    True, 'dot_precision': 'mixed'}` (one plan-K5 launch). Each full-size
+    float32 launch is held in [50] to its plain version within its bar
+    ('mixed' K2 5e-5 with counts within one; K8 `SOLVE_BARS`, stats
+    identical; K5 2e-4, each sample's counts within one, statuses equal),
+    and at B = 64 in float64 bitwise: the same routes, K2's dense output,
+    the coupled plan (a mean-field term) on one block of K2 and K8, and
+    the battery of per-sample stiffness (the plan scaled by logspace(0, 2,
+    B)) on K5's tile engine, whose samples finish at very different
+    attempts. Each launch timed (CUDA events) beside the MLP route's K2 and
+    K8 at the same tier ([18], [19]).
+50. The holds kept for after the timed phases (`_LaterHolds`: [7]'s K3
+    sweeps, [17]'s K6 sweeps, [19]'s K8 tier solves (with the controls
+    against the other tiers' plain versions, which need their results),
+    [26]'s K10 solves, [34]'s K6 sweeps, [48]'s and [49]'s launches and
+    [51]'s), whose plain versions take seconds to a minute and a half
+    each: `WORKERS` worker processes on the card run them side by side;
+    each must be bitwise equal as above, or for a float32 tier within its
+    bar; the plain versions' times of [7], [17], [19] and [26] are taken
+    there, with the others running.
 
 Before the last line come the card's name and power limit and one JSON
 object with each kernel's record: its launches on its path, the largest difference
@@ -822,7 +849,8 @@ def _grid_kw(plain, args, kw) -> dict:
         B, dev = args[2].shape[0], args[2].device
     if plain in (cpl.plan_adjoint_solve_plain, cpl.plan_solve_plain,
                  cpl.plan_solve_vcabm_plain, cpl.plan_solve_adams_plain):
-        nb = cpl.plan_blocks(args[0], B, dev)
+        nb = cpl.plan_blocks(args[0], B, dev, bool(cpl.tiered_dots(
+            args[0], kw.get("dot_precision", "highest"))))
     elif plain is ck.mlp_solve_plain:
         nb = ck.solve_blocks(B, dev, ck._solve_unit(args[1], args[2],
                                                     kw.get("tiers")))
@@ -890,11 +918,38 @@ def _later_hold(job):
         ref, plain_ms = _host_call(lambda: job["plain"](*args, **kw))
     if job["flat"]:
         ref = _flat_sweep(ref)
-    err = max(float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
-              if a.numel() else 0.0 for a, b in zip(got[:-1], ref[:-1]))
-    same = all(a.shape == b.shape and _same(a, b, m)
-               for a, b, m in zip(got, ref, masks))
-    return err, plain_ms, same, got[-1].tolist(), ref[-1].tolist()
+    if job["bar"] is None:
+        err = max(float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
+                  if a.numel() else 0.0 for a, b in zip(got[:-1], ref[:-1]))
+        same = all(a.shape == b.shape and _same(a, b, m)
+                   for a, b, m in zip(got, ref, masks))
+    else:
+        # A float32 tier: the floating outputs within the bar, the accepted
+        # and rejected counts within `slack` and the statuses equal, a
+        # sample's own where the result has per-sample stats [4, B] (their
+        # sums then differ by as many samples as moved), else the solve's.
+        pairs = list(zip(got, ref))
+        err = max((float((a - b).abs().max()) for a, b in pairs
+                   if a.is_floating_point() and a.numel()), default=0.0)
+        counts = [(a, b) for a, b in pairs if not a.is_floating_point()]
+        if any(a.ndim == 2 for a, _ in counts):
+            counts = [(a, b) for a, b in counts if a.ndim == 2]
+        same = all(a.shape == b.shape for a, b in pairs) and \
+            err <= job["bar"] and all(
+                int((a.reshape(4, -1)[1:3] - b.reshape(4, -1)[1:3]).abs()
+                    .max()) <= job["slack"]
+                and torch.equal(a.reshape(4, -1)[3], b.reshape(4, -1)[3])
+                for a, b in counts)
+    kept = _moved(ref, "cpu") if job["keep"] else None
+    return err, plain_ms, same, got[-1].tolist(), ref[-1].tolist(), kept
+
+
+def _stats_line(st):
+    """A hold's stats for its line: as they are, or per-sample stats [4, B]
+    as the sums of the counts and the largest status."""
+    if st and isinstance(st[0], list):
+        return [sum(r) for r in st[:3]] + [max(st[3])]
+    return st
 
 
 class _LaterHolds:
@@ -904,25 +959,37 @@ class _LaterHolds:
     they run side by side, and none shares the card with a timed run (the
     plain times are taken with the others running). `add` copies the
     inputs and outputs to the host; `run` checks every job as
-    `_hold_to_plain` does, prints its line and hands (largest |kernel -
-    plain|, plain ms) to the job's `done`, and stops the workers."""
+    `_hold_to_plain` does (or, for a float32 tier, within its bar), prints
+    its line and hands (largest |kernel - plain|, plain ms[, the plain
+    result]) to the job's `done`, runs the checks `after` queued, and
+    stops the workers."""
 
     WORKERS = 3
 
     def __init__(self):
         self.jobs = []
+        self.afters = []
 
-    def add(self, call, plain, what, done, nan_ok=None, flat=False):
+    def add(self, call, plain, what, done, nan_ok=None, flat=False,
+            bar=None, slack=0, keep=False):
         """call: (args, kwargs, result) of the launch, the result already
-        flattened (`_flat_sweep`) when flat."""
+        flattened (`_flat_sweep`) when flat. bar: None (bitwise equal,
+        stats identical) or the largest |kernel - plain| a float32 tier
+        may show, its counts within `slack` and its statuses equal. keep:
+        `done` also receives the plain result (on the host)."""
         args, kw, got = call
         kw = _grid_kw(plain, args, kw)
         self.jobs.append(({"args": _moved(args, "cpu"),
                            "kw": _moved(kw, "cpu"),
                            "got": _moved(got, "cpu"),
                            "masks": _moved(nan_ok, "cpu"),
-                           "plain": plain, "flat": flat,
+                           "plain": plain, "flat": flat, "bar": bar,
+                           "slack": slack, "keep": keep,
                            "device": str(got[0].device)}, what, done))
+
+    def after(self, check):
+        """check() runs once every job's `done` has."""
+        self.afters.append(check)
 
     def run(self):
         import concurrent.futures
@@ -934,22 +1001,29 @@ class _LaterHolds:
         try:
             futures = [pool.submit(_later_hold, job)
                        for job, _, _ in self.jobs]
-            for (_, what, done), fut in zip(self.jobs, futures):
-                err, plain_ms, same, st_k, st_p = fut.result()
+            for (job, what, done), fut in zip(self.jobs, futures):
+                err, plain_ms, same, st_k, st_p, kept = fut.result()
+                held = ("bitwise equal to plain" if job["bar"] is None
+                        else f"within the bar {job['bar']}")
+                st_k, st_p = _stats_line(st_k), _stats_line(st_p)
                 print(f"{what}: kernel stats {st_k}, plain {st_p}; max "
-                      f"|kernel - plain| {err:.3e}; bitwise equal to plain: "
-                      f"{same} (plain {plain_ms:.1f} ms, in a worker)",
-                      flush=True)
+                      f"|kernel - plain| {err:.3e}; {held}: {same} (plain "
+                      f"{plain_ms:.1f} ms, in a worker)", flush=True)
                 if not same:
                     raise AssertionError(
                         f"{what} differs from its plain version")
-                done(err, plain_ms)
+                if job["keep"]:
+                    done(err, plain_ms, kept)
+                else:
+                    done(err, plain_ms)
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
+        for check in self.afters:
+            check()
         print(f"[holds] {len(self.jobs)} plain versions in "
               f"{self.WORKERS} workers: {time.perf_counter() - t0:.1f} s",
               flush=True)
-        self.jobs = []
+        self.jobs, self.afters = [], []
 
 
 _LATER = _LaterHolds()
@@ -1118,46 +1192,57 @@ def _wide_tier(smi: str, dev) -> dict:
         kw = dict(f0=fast.mlp_apply(spec, W, y), method="rk4",
                   tiers=ck.layer_tiers(pd, "auto", tier))
         out, st = cf.mlp_solve_fixed(*args, **kw)
-        (ref, st_ref), plain_ms = _host_call(
-            lambda: cf.mlp_solve_fixed_plain(*args, **kw))
-        err = float((out - ref).abs().max())
-        same = bool(torch.equal(out, ref))
+        torch.cuda.synchronize()
         print(f"[19] K8 wide rk4 x {steps} {tier} {dtype}: stats "
-              f"{st.tolist()}; max |kernel - plain| {err:.3e}; bitwise equal"
-              f" to plain: {same}"
+              f"{st.tolist()}"
               + (f"; {_k8_layout(WIDE_B, ck.ROUTE_WIDE)}"
-                 if tier == "highest" else "; the batch route (K4)"),
-              flush=True)
-        if not torch.equal(st, st_ref) or st[3].item() != 0 \
-                or not torch.isfinite(out).all() \
-                or ((dtype == f64 or tier == "highest") and not same) \
-                or err > SOLVE_BARS[tier]:
-            raise AssertionError(f"K8 wide {tier} {dtype} differs from its "
-                                 "plain version")
+                 if tier == "highest" else "; the batch route (K4)")
+              + "; its plain version holds it in [50]", flush=True)
+        if st[3].item() != 0 or not torch.isfinite(out).all():
+            raise AssertionError(f"K8 wide {tier} {dtype} failed")
+        exact = dtype == f64 or tier == "highest"
+
+        # Held in [50]'s workers: bitwise (float64, 'highest') or within
+        # SOLVE_BARS, the stats identical; float32 keeps the plain result
+        # for the controls below.
+        def k8_done(err, plain_ms, ref=None, tier=tier, dtype=dtype):
+            if dtype == f32:
+                k8_plain[tier] = ref[0]
+                ms_, _, st_ = rec[f"k8_{tier}"]
+                rec[f"k8_{tier}"] = (ms_, plain_ms, st_)
+        _LATER.add((args, kw, (out, st)), cf.mlp_solve_fixed_plain,
+                   f"[19] K8 wide rk4 x {steps} {tier} {dtype} (held in "
+                   "[50])", k8_done, bar=None if exact else SOLVE_BARS[tier],
+                   keep=dtype == f32)
         if dtype == f32:
-            k8[tier] = (args, kw, st.tolist(), plain_ms, out)
-            k8_plain[tier] = ref
+            k8[tier] = (args, kw, st.tolist(), None, out)
+
     # Controls. Over 128 steps the order noise of 'bf16' adds up to about
     # a third of the 'bf16' - 'mixed' gap (9e-4 in a CPU model), so a
     # solve tells 'bf16' from 'highest' only; K4's one-evaluation check
-    # below tells it from 'mixed'.
-    for tier, others in (("mixed", ("highest", "bf16")),
-                         ("bf16", ("highest",))):
-        _held("K8 wide rk4 x 128", tier, k8[tier][4],
-              {o: k8_plain[o] for o in (tier,) + others},
-              lambda g, tier=tier: g[0] <= SOLVE_BARS[tier])
-        print(f"[19] controls: K8 wide {tier} against the plain "
-              + ", ".join(f"{o} version {_gap(k8[tier][4], k8_plain[o])[0]:.3e}"
-                          for o in others)
-              + f" (each must exceed the bar {SOLVE_BARS[tier]})",
-              flush=True)
+    # below tells it from 'mixed'. Run once [50] has the plain results.
+    def k8_controls():
+        for tier, others in (("mixed", ("highest", "bf16")),
+                             ("bf16", ("highest",))):
+            got = k8[tier][4].cpu()
+            _held("K8 wide rk4 x 128", tier, got,
+                  {o: k8_plain[o] for o in (tier,) + others},
+                  lambda g, tier=tier: g[0] <= SOLVE_BARS[tier])
+            print(f"[19] controls (in [50]): K8 wide {tier} against the "
+                  "plain " + ", ".join(
+                      f"{o} version {_gap(got, k8_plain[o])[0]:.3e}"
+                      for o in others)
+                  + f" (each must exceed the bar {SOLVE_BARS[tier]})",
+                  flush=True)
+    _LATER.after(k8_controls)
     for tier in ("highest", "bf16", "mixed"):
-        args, kw, st, plain_ms, _ = k8[tier]
+        args, kw, st, _, _ = k8[tier]
         ms = _timed(lambda: cf.mlp_solve_fixed(*args, **kw), reps=3)
-        rec[f"k8_{tier}"] = (ms, plain_ms, st)
-        print(f"[19] {smi}: K8 wide rk4 x 128 {tier} {ms:.3f} ms/solve vs "
-              f"plain {plain_ms:.3f} ms (B={WIDE_B}, float32, nfe {st[0]}; "
-              f"{ms / st[0]:.4f} ms an evaluation); bound "
+        rec[f"k8_{tier}"] = (ms, None, st)
+        print(f"[19] {smi}: K8 wide rk4 x 128 {tier} {ms:.3f} ms/solve "
+              f"(B={WIDE_B}, float32, nfe {st[0]}; "
+              f"{ms / st[0]:.4f} ms an evaluation; the plain version timed "
+              f"in [50]); bound "
               f"{bound(WIDE_B * st[0], 3 * WIDE_B * WIDE_D, tier)}",
               flush=True)
     args, kw, st, _, out = k8["highest"]
@@ -2036,15 +2121,27 @@ def _adams_tier(smi: str, dev) -> dict:
             raise AssertionError(f"{method} {dtype} failed at the bench "
                                  "widths")
         call = r.calls[0]
-        err, _ = _hold_to_plain(call, cad.mlp_solve_adams_plain,
-                                f"[26] K10 {method} {dtype} grid "
-                                f"{G - 1} steps")
         args, kw, got = call
         if not all(torch.equal(a, b) for a, b in
                    zip(got, cad.mlp_solve_adams(*args, **kw))):
             raise AssertionError(f"K10 {method} {dtype}: two kernel runs "
                                  "differ")
-        k10[(method, dtype, steps)] = (call, err, res.ys)
+        k10[(method, dtype, steps)] = (call, None, res.ys)
+
+        # Bitwise equal to the plain version, in [50]'s workers; the
+        # plain time of the timed cases taken there.
+        def k10_done(err, plain_ms, key=(method, dtype, steps)):
+            c, _, ys_ = k10[key]
+            k10[key] = (c, err, ys_)
+            if key[1] == f32 and key[2] == ADAMS_STEPS:
+                name = "adams" if key[0] == "fixed_adams" else "explicit"
+                rec[f"{name}_plain_ms"] = plain_ms
+            rec["adams_err"] = max(e for (m, dt_, s), (_, e, _) in
+                                   k10.items() if dt_ == f32 and
+                                   e is not None)
+        _LATER.add(call, cad.mlp_solve_adams_plain,
+                   f"[26] K10 {method} {dtype} grid {G - 1} steps (held in "
+                   "[50])", k10_done)
     print("[26] K10: two kernel runs bitwise equal in each case", flush=True)
     rec["explicit_launches"] = sum(
         1 for (m, _, _) in k10 if m == "explicit_adams")
@@ -2067,16 +2164,12 @@ def _adams_tier(smi: str, dev) -> dict:
         if gap > 1e-5:
             raise AssertionError(f"K10 {method} and the generic engine "
                                  "differ")
-    rec["adams_err"] = max(e for (m, dt_, s), (_, e, _) in k10.items()
-                           if dt_ == f32)
     _, W, y, _ = bench_w(f32)
     t = torch.linspace(0.0, SPAN, T_OUT)
     for method in ("fixed_adams", "explicit_adams"):
         (args, kw, got), _, _ = k10[(method, f32, ADAMS_STEPS)]
         key = "adams" if method == "fixed_adams" else "explicit"
         rec[f"{key}_ms"] = _timed(lambda: cad.mlp_solve_adams(*args, **kw))
-        rec[f"{key}_plain_ms"] = _plain_ms(
-            lambda: cad.mlp_solve_adams_plain(*args, **kw))
         with torch.no_grad():
             rec[f"{key}_generic_ms"] = _host_ms(lambda: solve(
                 func, y, t, rtol=TOL, atol=TOL, method=method,
@@ -2089,8 +2182,8 @@ def _adams_tier(smi: str, dev) -> dict:
                                       4, 4, implicit))),
             4 * (2 * B * D + T_OUT * B * D + n_w + T_OUT
                  + ADAMS_STEPS + 1))
-        print(f"[26] {smi}: K10 {method} {rec[f'{key}_ms']:.3f} ms/solve vs "
-              f"plain {rec[f'{key}_plain_ms']:.3f} ms vs the generic engine "
+        print(f"[26] {smi}: K10 {method} {rec[f'{key}_ms']:.3f} ms/solve "
+              f"(the plain version timed in [50]) vs the generic engine "
               f"solve(ODEFunc, method={method!r}) "
               f"{rec[f'{key}_generic_ms']:.3f} ms (bench widths, "
               f"{ADAMS_STEPS} steps, float32, nfe {nfe}); bound "
@@ -4410,6 +4503,342 @@ def _df_tier(smi: str, dev) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# [51] K4 at its last sites: a plan's tiered dots in K2 and K8 (K14's tile
+# walk) and K5's tile engine, the MLP's and a plan's
+# ---------------------------------------------------------------------------
+
+#: The wide MLP's tier slice: dopri5 with 8 outputs over [0, 2] at bench.py's
+#: RTOL / ATOL and first step 0.01 (bench_mixed_adaptive), rk4 x 128 over
+#: [0, 2] (bench_bf16_serving); the holds' reduced size (a plain wide
+#: evaluation takes milliseconds of host-bound launches, PERF.md section 6).
+TIER_TOL, TIER_STEPS, TIER_HOLD_B = 1e-6, 128, 64
+
+
+def _wide_dyn(W):
+    """The wide MLP as plain PyTorch code over the weights W: what a user
+    writes and `solve(options={'fuse': True})` captures."""
+    import torch
+
+    def f(t, y):
+        h = y
+        for i, (w, b) in enumerate(W):
+            h = h @ w + b
+            if i < len(W) - 1:
+                h = torch.tanh(h)
+        return h
+    return f
+
+
+def _coupled_wide_dyn(W):
+    """The wide MLP with a mean-field term, a batch coupling (one block)."""
+    f = _wide_dyn(W)
+    return lambda t, y: f(t, y) - 0.5 * (y - y.mean(0))
+
+
+def _scaled_wide_dyn(W, sc):
+    """The wide MLP time-rescaled per sample by sc [B, 1] (bench.py:427-480's
+    battery: a per-sample constant)."""
+    f = _wide_dyn(W)
+    return lambda t, y: sc * f(t, y)
+
+
+def _battery_scale(B, dtype, device):
+    import torch
+    return torch.tensor(np.logspace(0.0, 2.0, B), dtype=dtype,
+                        device=device)[:, None]
+
+
+def _tier_plans(dev):
+    """The plans of [51]: (name, plan, packed, y0) at float32, captured on
+    the card (the structure alone names a library: the full and the reduced
+    batch share one, but for the coupled plan, whose mean divides by B)."""
+    import torch
+    from tfdiffeq_tpu_torch.ops import plan_bridge as pb
+    out = {}
+    for name, Bn in (("wide", WIDE_B), ("coupled", TIER_HOLD_B),
+                     ("battery", TIER_HOLD_B)):
+        for dtype in (torch.float32, torch.float64):
+            W, y = _wide_net(dtype, dev, B=Bn)
+            f = {"wide": _wide_dyn(W), "coupled": _coupled_wide_dyn(W),
+                 "battery": _scaled_wide_dyn(
+                     W, _battery_scale(Bn, dtype, dev))}[name]
+            plan, consts = pb.build_plan(f, torch.zeros((), dtype=dtype,
+                                                        device=dev), y)
+            out[(name, dtype)] = (plan, pb.pack_consts(plan, consts, dtype,
+                                                       dev), y, f)
+    return out
+
+
+def _tier_pairs(plans):
+    """The tiled libraries of [51], built beside phases 3-27."""
+    import torch
+    f32 = torch.float32
+    return [(plans[("wide", f32)][0], "solve", "mixed"),
+            (plans[("wide", f32)][0], "fixed", "bf16"),
+            (plans[("wide", f32)][0], "fixed", "mixed"),
+            (plans[("wide", f32)][0], "perlane", "mixed"),
+            (plans[("coupled", f32)][0], "solve", "mixed"),
+            (plans[("coupled", f32)][0], "fixed", "mixed"),
+            (plans[("battery", f32)][0], "perlane", "mixed")]
+
+
+def _dense_reordered_plain(*args, **kw):
+    """`cuda_plan.plan_solve_plain` with emit_dense, its results in the
+    holds' order (the stats last): (out, meta, coef, stats)."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    out, stats, meta, coef = cpl.plan_solve_plain(*args, **kw)
+    return out, meta, coef, stats
+
+
+def _tier_sites(smi: str, dev, wide, plans) -> dict:
+    """Phase 51: K4's tiers at the sites where the reference applies them
+    and the port did not until now, on the wide MLP at full width (B =
+    1024) through the public entry points: (a) the plain-PyTorch net through
+    solve(options={'fuse': True, 'dot_precision': 'mixed'}) (K14's tile walk
+    in K2), (b) rk4 x 128 at 'bf16' and 'mixed' (in K8), (c) per sample
+    through `fast.solve_mlp_spec(per_sample=True)` (K5's tile engine, the
+    MLP) and the plan's per_sample route (K5's tile engine, the plan).
+    Counters zeroed before each run and read after; every launch held in
+    [50]'s workers: the full-size float32 launches within the tier's bars
+    (K8 stats identical; K2 and K5 counts within one, statuses equal),
+    float64 launches at B = 64 bitwise, with and without K2's dense
+    output, the coupled plans on one block of K2 and K8, and a battery of
+    per-sample stiffness on K5. Timed beside the MLP route's K2 and K8 at
+    the same tier ([18], [19])."""
+    import torch
+    from tfdiffeq_tpu_torch import fast, solve
+    from tfdiffeq_tpu_torch.ops import cuda_kernels as ck, \
+        cuda_perlane as cp, cuda_plan as cpl, plan_bridge as pb
+    from tfdiffeq_tpu_torch.solvers.fixed_grid import uniform_grid
+    f32, f64 = torch.float32, torch.float64
+    _at("51")
+    rec = {"launches": {}, "err": {}, "ms": {}, "plain_ms": {},
+           "stats": {}}
+    dims = ((WIDE_D, WIDE_H), (WIDE_H, WIDE_H), (WIDE_H, WIDE_D))
+    n_mac = sum(i * o for i, o in dims)
+
+    def bound(evals, io, tier):
+        """`evals` sample-evaluations at the tier (2 passes 'mixed', 1
+        'bf16') of a multiply and an add a weight at the bf16 tensor-core
+        peak; the bf16 weights and `io` float32 state values read or
+        written once."""
+        passes = 2 if tier == "mixed" else 1
+        return _bound(evals * passes * 2 * n_mac, 2 * n_mac + 4 * io,
+                      peak=_peaks().PEAK_BF16_TENSOR)
+
+    def reset():
+        for m in (ck, cp, cpl):
+            m.reset_launch_counts()
+
+    def counts():
+        return {"plan_solve": cpl.plan_solve_launches,
+                "plan_fixed": cpl.plan_fixed_launches,
+                "plan_perlane": cpl.plan_perlane_launches,
+                "mlp_solve_perlane": cp.mlp_solve_perlane_launches,
+                "mlp_solve": ck.mlp_solve_launches,
+                "dot_tiers": ck.dot_tier_launches}
+
+    def ok(name, res, shape):
+        status = int(torch.as_tensor(res.stats.status).max())
+        if status != 0 or tuple(res.ys.shape) != shape \
+                or not torch.isfinite(res.ys).all():
+            raise AssertionError(f"[51] {name} failed: {res.stats}")
+
+    def expect(name, got, want):
+        print(f"[51] {name}: launches {got}", flush=True)
+        if got != want:
+            raise AssertionError(f"[51] {name}: launches {got}, want {want}")
+
+    def held(key, bar, slack=0):
+        """The hold's keywords: its largest difference into rec["err"][key]
+        (the largest of the key's holds), the first one's plain time."""
+        def done(err, plain_ms):
+            rec["err"][key] = max(rec["err"].get(key, 0.0), err)
+            rec["plain_ms"].setdefault(key, plain_ms)
+        return dict(done=done, bar=bar, slack=slack)
+
+    zero = {k: 0 for k in counts()}
+    plan, packed, y, f = plans[("wide", f32)]
+    t8 = torch.linspace(0.0, 2.0, 8)
+    tspan = torch.tensor([0.0, 2.0])
+    shape = (8, WIDE_B, WIDE_D)
+
+    # (a) dopri5 through the fused route, 'mixed': K14's tile walk in K2.
+    reset()
+    with _Recording(cpl, "plan_solve") as r:
+        res = solve(f, y, t8, rtol=TIER_TOL, atol=TIER_TOL, options={
+            "fuse": True, "dot_precision": "mixed", "first_step": 0.01})
+    torch.cuda.synchronize()
+    expect("solve(fuse, 'mixed') dopri5", counts(),
+           dict(zero, plan_solve=1, dot_tiers=1))
+    ok("(a)", res, shape)
+    rec["launches"]["K2"] = 1
+    call = r.calls[0]
+    rec["stats"]["K2"] = res.stats
+    print(f"[51] (a) solve(fuse, 'mixed') dopri5 wide: stats {res.stats}; "
+          f"route {cpl.last_route.get('solve')}", flush=True)
+    _LATER.add(call, cpl.plan_solve_plain, "[51] K2 plan tile 'mixed' "
+               f"float32 B={WIDE_B}", **held("K2", 5e-5, 1))
+    args, kw, _ = call
+    rec["ms"]["K2"] = _timed(lambda: cpl.plan_solve(*args, **kw), reps=3)
+    nfe = int(res.stats.nfe) - 2
+    rec["bound"] = {"K2": bound(WIDE_B * nfe, 10 * WIDE_B * WIDE_D,
+                                "mixed")}
+
+    # (b) rk4 x 128 at 'bf16' and 'mixed': K14's tile walk in K8.
+    reset()
+    runs = {}
+    with _Recording(cpl, "plan_solve_fixed") as r:
+        for tier in ("bf16", "mixed"):
+            runs[tier] = solve(f, y, tspan, method="rk4", options={
+                "fuse": True, "dot_precision": tier,
+                "num_steps": TIER_STEPS})
+    torch.cuda.synchronize()
+    expect("solve(fuse, rk4 x 128, 'bf16' and 'mixed')", counts(),
+           dict(zero, plan_fixed=2, dot_tiers=2))
+    for (tier, res), call in zip(runs.items(), r.calls):
+        ok(f"(b) {tier}", res, (2, WIDE_B, WIDE_D))
+        key = f"K8 {tier}"
+        rec["launches"][key] = 1
+        rec["stats"][key] = res.stats
+        _LATER.add(call, cpl.plan_solve_fixed_plain,
+                   f"[51] K8 plan tile {tier!r} float32 B={WIDE_B}",
+                   **held(key, SOLVE_BARS[tier]))
+        args, kw, _ = call
+        rec["ms"][key] = _timed(lambda: cpl.plan_solve_fixed(*args, **kw),
+                                reps=3)
+        rec["bound"][key] = bound(WIDE_B * int(res.stats.nfe),
+                                  4 * WIDE_B * WIDE_D, tier)
+    gap = float((runs["bf16"].ys - runs["mixed"].ys).abs().max())
+    print(f"[51] (b) rk4 x {TIER_STEPS} wide: bf16 stats "
+          f"{runs['bf16'].stats}, mixed {runs['mixed'].stats}; max |bf16 - "
+          f"mixed| {gap:.3e}; route {cpl.last_route.get('fixed')}", flush=True)
+
+    # (c) per sample: K5's tile engine, the MLP and the plan.
+    spec = fast.MLPSpec(activation="tanh", matmul="mxu",
+                        dot_precision="mixed")
+    W, _ = _wide_net(f32, dev)
+    reset()
+    with _Recording(fast, "mlp_solve_perlane") as rm:
+        res_m = fast.solve_mlp_spec(spec, W, y, t8, rtol=TIER_TOL,
+                                    atol=TIER_TOL, first_step=0.01,
+                                    per_sample=True)
+    torch.cuda.synchronize()
+    expect("solve_mlp_spec('mixed', per_sample=True)", counts(),
+           dict(zero, mlp_solve_perlane=1, dot_tiers=1))
+    reset()
+    with _Recording(cpl, "plan_solve") as rp:
+        res_p = solve(f, y, t8, rtol=TIER_TOL, atol=TIER_TOL, options={
+            "fuse": True, "per_sample": True, "dot_precision": "mixed",
+            "first_step": 0.01})
+    torch.cuda.synchronize()
+    expect("solve(fuse, per_sample, 'mixed')", counts(),
+           dict(zero, plan_perlane=1, dot_tiers=1))
+    for key, res, call, plain in (
+            ("K5 MLP", res_m, rm.calls[0], cp.mlp_solve_perlane_plain),
+            ("K5 plan", res_p, rp.calls[0], cpl.plan_solve_plain)):
+        ok(f"(c) {key}", res, shape)
+        rec["launches"][key] = 1
+        rec["stats"][key] = res.stats
+        nacc = res.lane_stats.n_accepted.float()
+        print(f"[51] (c) {key} per sample wide: stats {res.stats}; "
+              f"accepted steps a sample min {int(nacc.min())}, median "
+              f"{int(nacc.median())}, max {int(nacc.max())}", flush=True)
+        # Each sample under its own controller: a decision that the
+        # tensor cores' order flips moves that sample's later steps, so
+        # the bar is the reference's float32 budget's atol (2e-4).
+        _LATER.add(call, plain, f"[51] {key} tile engine 'mixed' float32 "
+                   f"B={WIDE_B}", **held(key, 2e-4, 1))
+        args, kw, _ = call
+        fn = cp.mlp_solve_perlane if key == "K5 MLP" else cpl.plan_solve
+        rec["ms"][key] = _timed(lambda: fn(*args, **kw), reps=3)
+        rec["bound"][key] = bound(int(res.stats.nfe) - 2 * WIDE_B,
+                                  (2 * 8 + 9) * WIDE_B * WIDE_D, "mixed")
+    gap = float((res_m.ys - res_p.ys).abs().max())
+    print(f"[51] (c) max |MLP route - plan route| per sample {gap:.3e}",
+          flush=True)
+
+    # Float64 at B = 64, bitwise in [50]: the same routes, K2's dense
+    # output, the coupled plans on one block of K2 and K8, and the battery.
+    B64 = TIER_HOLD_B
+    for name in ("wide", "coupled", "battery"):
+        plan64, packed64, y64, f64f = plans[(name, f64)]
+        y64 = y64[:B64].contiguous()
+        tt = t8.double()
+        f0 = pb.eval_plan_host(plan64, packed64, tt[0].to(dev),
+                               y64).contiguous()
+        common = (plan64, packed64, y64, tt)
+        launches = []
+        if name in ("wide", "coupled"):
+            a = common + (0.01, TIER_TOL, TIER_TOL, 1.0, f0)
+            launches.append((cpl.plan_solve, cpl.plan_solve_plain, a,
+                             dict(dot_precision="mixed"), f"K2 {name}"))
+            grid = uniform_grid(tt[0], tt[-1], 8)
+            for tier in (("bf16", "mixed") if name == "wide"
+                         else ("mixed",)):
+                launches.append((cpl.plan_solve_fixed,
+                                 cpl.plan_solve_fixed_plain,
+                                 common[:3] + (tt, grid, 1.0, f0),
+                                 dict(method="rk4", dot_precision=tier),
+                                 f"K8 {name} {tier}"))
+        if name in ("wide", "battery"):
+            a = common + (0.01, TIER_TOL, TIER_TOL, 1.0, f0)
+            launches.append((cpl.plan_solve, cpl.plan_solve_plain, a,
+                             dict(dot_precision="mixed", per_sample=True),
+                             f"K5 plan {name}"))
+        for fn, plain, a, kw, what in launches:
+            got = fn(*a, **kw)
+            if not _same(got[0], fn(*a, **kw)[0]):
+                raise AssertionError(f"[51] {what}: two runs differ")
+            _LATER.add((a, kw, got), plain, f"[51] {what} float64 B={B64}",
+                       **held(what.split()[0] + " f64", None))
+        if name == "wide":
+            # K2's dense output and K5's tile engine on the MLP route.
+            a = common + (0.01, TIER_TOL, TIER_TOL, 1.0, f0)
+            kw = dict(dot_precision="mixed", emit_dense=64, max_steps=64)
+            out, st, meta, coef = cpl.plan_solve(*a, **kw)
+            _LATER.add((a, kw, (out, meta, coef, st)),
+                       _dense_reordered_plain,
+                       f"[51] K2 wide dense output float64 B={B64}",
+                       **held("K2 f64", None))
+            W64 = [(w.double(), b.double()) for w, b in W]
+            warr, pd = ck.pack_mlp_weights(W64, f64, dev)
+            mf0 = ck._net_plain(warr, pd, "tanh", "identity", 1, False)(
+                tt[0], y64).contiguous()
+            a = (warr, pd, y64, tt, 0.01, TIER_TOL, TIER_TOL, 1.0)
+            kw = dict(f0=mf0, tiers=ck.layer_tiers(pd, "mxu", "mixed"))
+            _LATER.add((a, kw, cp.mlp_solve_perlane(*a, **kw)),
+                       cp.mlp_solve_perlane_plain,
+                       f"[51] K5 MLP wide float64 B={B64}",
+                       **held("K5 MLP f64", None))
+    bplan, bpacked, by, _ = plans[("battery", f64)]
+    by = by[:B64].contiguous()
+    bf0 = pb.eval_plan_host(bplan, bpacked, t8.double()[0].to(dev),
+                            by).contiguous()
+    lane = cpl.plan_solve(bplan, bpacked, by, t8.double(), 0.01, TIER_TOL,
+                          TIER_TOL, 1.0, bf0, dot_precision="mixed",
+                          per_sample=True)[2]
+    rec["battery_accepted"] = (int(lane[1].min()), int(lane[1].max()))
+    print(f"[51] K5 plan battery float64 B={B64}: accepted steps a sample "
+          f"from {rec['battery_accepted'][0]} to "
+          f"{rec['battery_accepted'][1]}", flush=True)
+    if rec["battery_accepted"][1] < 3 * rec["battery_accepted"][0]:
+        raise AssertionError("[51] the battery's samples do not differ")
+
+    mlp = {"K2": wide["k2_mixed"][0], "K8 bf16": wide["k8_bf16"][0],
+           "K8 mixed": wide["k8_mixed"][0]}
+    for key, ms in rec["ms"].items():
+        side = mlp.get(key, mlp["K2"])
+        print(f"[51] {smi}: {key} tile route {ms:.3f} ms/solve beside the "
+              f"MLP route's {'K8' if key.startswith('K8') else 'K2'} at the "
+              f"same tier {side:.3f} ms (B={WIDE_B}, float32, "
+              f"{rec['stats'][key]}); bound {rec['bound'][key][0]:.5f} ms "
+              f"({rec['bound'][key][1]})", flush=True)
+    rec["mlp_route_ms"] = mlp
+    return rec
+
+
 def main() -> int:
     import time
     import torch
@@ -4452,9 +4881,11 @@ def main() -> int:
     from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
     plan_pool = ThreadPoolExecutor(1)
     plan_pairs = _plan_pairs(dev)
+    tier_plans = _tier_plans(dev)
     plan_builds = plan_pool.submit(cpl.build, plan_pairs + _aug_pairs(dev)
                                    + _late_pairs(dev) + _dense_pairs(dev)
-                                   + _coupled_pairs(dev) + _df_pairs(dev))
+                                   + _coupled_pairs(dev) + _df_pairs(dev)
+                                   + _tier_pairs(tier_plans))
 
     _at("3")
     # [3] K1 against its plain version (dt 0.3: a typical main-path step),
@@ -4599,6 +5030,8 @@ def main() -> int:
     _at("7")
     # [7] K3 against its plain version at the bench protocol.
     k3_err, k3_args = {}, {}
+    # The plain versions' host ms of the holds that [50] runs.
+    holds_ms = {}
     for dtype in (f64, f32):
         p, y, _ = _bench_params(B, dtype, dev)
         W = [(p["w1"], p["b1"]), (p["w2"], p["b2"])]
@@ -4613,45 +5046,33 @@ def main() -> int:
         k3_args[dtype] = (args, kw)
         got = ca.mlp_adjoint_solve(*args, **kw)
         again = ca.mlp_adjoint_solve(*args, **kw)
-        ref = ca.mlp_adjoint_solve_plain(
-            *args, **_grid_kw(ca.mlp_adjoint_solve_plain, args, kw))
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        same = all(torch.equal(a, b) for a, b in zip(got, ref))
-        rels = [_rel(a, b) for a, b in zip(got[:3], ref[:3])]
-        print(f"[7] K3 {dtype}: kernel stats {got[3].tolist()}, plain "
-              f"{ref[3].tolist()}; max relative |kernel - plain| ay0 "
-              f"{rels[0]:.3e} aw {rels[1]:.3e} at {rels[2]:.3e}; kernel "
-              f"bitwise equal to plain: {same}; two kernel runs bitwise "
-              f"equal: {bitwise}", flush=True)
+        print(f"[7] K3 {dtype}: kernel stats {got[3].tolist()}; two kernel "
+              f"runs bitwise equal: {bitwise}; its plain version holds it "
+              "in [50]", flush=True)
         if not bitwise:
             raise AssertionError("K3 is not deterministic from run to run")
-        if not same:
-            raise AssertionError(f"K3 {dtype} is not bitwise equal to its "
-                                 "plain version at its grid")
         if got[3][3].item() != 0 or not all(
                 torch.isfinite(x).all() for x in got[:3]):
             raise AssertionError(f"K3 {dtype} failed: {got[3].tolist()}")
-        if dtype == f64:
-            if got[3].tolist() != ref[3].tolist() or max(rels) > 1e-9:
-                raise AssertionError("K3 float64 differs from its plain "
-                                     "version (needs identical stats, "
-                                     "gradients within 1e-9 relative)")
-        elif max(rels) > 1e-3:
-            raise AssertionError("K3 float32 differs from its plain "
-                                 "version by more than 1e-3 relative")
-        k3_err[dtype] = max(float((a - b).abs().max())
-                            for a, b in zip(got[:3], ref[:3]))
+
+        # Bitwise equal to the plain version at the kernel's grid (so
+        # float64 with identical stats), in [50]'s workers.
+        def k3_done(err, plain_ms, dtype=dtype):
+            k3_err[dtype] = err
+            if dtype == f32:
+                holds_ms["K3"] = plain_ms
+        _LATER.add((args, kw, got), ca.mlp_adjoint_solve_plain,
+                   f"[7] K3 {dtype} (held in [50])", k3_done)
     args, kw = k3_args[f32]
     adj_ms = _timed(lambda: ca.mlp_adjoint_solve(*args, **kw))
     pkw = _grid_kw(ca.mlp_adjoint_solve_plain, args, kw)
-    adj_plain_ms = _plain_ms(lambda: ca.mlp_adjoint_solve_plain(*args,
-                                                                **pkw))
     bst = ca.mlp_adjoint_solve(*args, **kw)[3].tolist()
-    print(f"[7] {smi}: K3 mlp_adjoint_solve {adj_ms:.3f} ms/sweep vs plain "
-          f"{adj_plain_ms:.3f} ms (bench protocol, float32, "
+    print(f"[7] {smi}: K3 mlp_adjoint_solve {adj_ms:.3f} ms/sweep "
+          f"(bench protocol, float32, "
           f"{bst[1] + bst[2]} attempts, nfe {bst[0]}, n_blocks "
-          f"{pkw['n_blocks']}); bound "
+          f"{pkw['n_blocks']}; the plain version timed in [50]); bound "
           f"{_bound(B * bst[0] * 3 * _mlp_flops(((D, H), (H, D)), 3), 4 * (2 * T_OUT * B * D + B * D + 2 * (2 * D * H + H + D) + T_OUT))}",
           flush=True)
 
@@ -5217,31 +5638,28 @@ def main() -> int:
         k6_args[dtype] = (args, kw)
         got = cp.mlp_perlane_adjoint_solve(*args, **kw)
         again = cp.mlp_perlane_adjoint_solve(*args, **kw)
-        ref = cp.mlp_perlane_adjoint_solve_plain(*args, **kw)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        same = all(torch.equal(a, b) for a, b in zip(got, ref))
-        same_lanes = torch.equal(got[4], ref[4])
-        rels = [_rel(a, b) for a, b in zip(got[:2], ref[:2])]
         bnfe = got[4][0].float()
-        print(f"[17] K6 {dtype}: kernel stats {got[3].tolist()}, plain "
-              f"{ref[3].tolist()}; per-sample counts identical: "
-              f"{same_lanes}; max relative |kernel - plain| ay0 "
-              f"{rels[0]:.3e} aw {rels[1]:.3e}; kernel bitwise equal to "
-              f"plain: {same}; two kernel runs bitwise equal: {bitwise}; "
-              f"the samples' backward nfe min {int(bnfe.min())}, median "
-              f"{int(bnfe.median())}, max {int(bnfe.max())}", flush=True)
+        print(f"[17] K6 {dtype}: kernel stats {got[3].tolist()}; two "
+              f"kernel runs bitwise equal: {bitwise}; the samples' "
+              f"backward nfe min {int(bnfe.min())}, median "
+              f"{int(bnfe.median())}, max {int(bnfe.max())}; its plain "
+              "version holds it in [50]", flush=True)
         if not bitwise:
             raise AssertionError("K6 is not deterministic from run to run")
         if (got[4][3] != 0).any() or not all(
                 torch.isfinite(x).all() for x in got[:3]):
             raise AssertionError(f"K6 {dtype} failed: {got[3].tolist()}")
-        if not (same and same_lanes):
-            raise AssertionError(f"K6 {dtype} differs from its plain "
-                                 "version (outputs, stats and per-sample "
-                                 "counts must be bitwise equal)")
-        k6_err[dtype] = max(float((a - b).abs().max())
-                            for a, b in zip(got[:3], ref[:3]))
+
+        # Outputs, stats and per-sample counts bitwise equal to the plain
+        # version's, in [50]'s workers.
+        def k6_done(err, plain_ms, dtype=dtype):
+            k6_err[dtype] = err
+            if dtype == f32:
+                holds_ms["K6"] = plain_ms
+        _LATER.add((args, kw, got), cp.mlp_perlane_adjoint_solve_plain,
+                   f"[17] K6 {dtype} (held in [50])", k6_done)
     # Three SGD steps through the public entry point.
     p, _, y, t, _, _ = perlane_inputs(B, f32, SPAN, T_OUT)
     W = [(p["w1"].clone().requires_grad_(), p["b1"].clone().requires_grad_()),
@@ -5308,13 +5726,11 @@ def main() -> int:
                              "differ")
     args, kw = k6_args[f32]
     perlane_adj_ms = _timed(lambda: cp.mlp_perlane_adjoint_solve(*args, **kw))
-    perlane_adj_plain_ms = _plain_ms(
-        lambda: cp.mlp_perlane_adjoint_solve_plain(*args, **kw))
     k3a, k3k = k3_args[f32]
     shared_adj_ms = _timed(lambda: ca.mlp_adjoint_solve(*k3a, **k3k), reps=3)
     k6_st = cp.mlp_perlane_adjoint_solve(*args, **kw)[3].tolist()
     print(f"[17] {smi}: K6 mlp_perlane_adjoint_solve {perlane_adj_ms:.3f} "
-          f"ms/sweep vs plain {perlane_adj_plain_ms:.3f} ms vs K3 (shared "
+          f"ms/sweep (the plain version timed in [50]) vs K3 (shared "
           f"controller) {shared_adj_ms:.3f} ms (bench training protocol, "
           f"float32; K6 nfe {k6_st[0]}, {k6_st[1] + k6_st[2]} attempts over "
           f"the samples; {_k6_layout(B)})", flush=True)
@@ -5329,6 +5745,7 @@ def main() -> int:
     dense = _dense_tier(smi, dev)
     coupled = _coupled_tier(smi, dev, plan["coupled"], aug["coupled"])
     df = _df_tier(smi, dev)
+    tier_sites = _tier_sites(smi, dev, wide, tier_plans)
     _at("50")
     _LATER.run()
 
@@ -5418,7 +5835,7 @@ def main() -> int:
          "replaces": "tfdiffeq_tpu/ops/pallas_adjoint.py:430",
          "launches": train_launches["mlp_adjoint_solve"],
          "max_abs_err": k3_err[f32], "ms": adj_ms,
-         "plain_ms": adj_plain_ms, "bound_ms": k3_bound[0],
+         "plain_ms": holds_ms["K3"], "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None,
          "n_blocks": ck.solve_blocks(B, dev)},
         {"name": "fixed_solve", "route": "cuda",
@@ -5463,7 +5880,7 @@ def main() -> int:
          "replaces": "tfdiffeq_tpu/ops/pallas_adjoint.py:681",
          "launches": ps_launches["mlp_perlane_adjoint_solve"],
          "max_abs_err": k6_err[f32], "ms": perlane_adj_ms,
-         "plain_ms": perlane_adj_plain_ms, "bound_ms": k6_bound[0],
+         "plain_ms": holds_ms["K6"], "bound_ms": k6_bound[0],
          "bound_by": k6_bound[1], "library_ms": None,
          "shared_controller_ms": shared_adj_ms,
          "group": cp.PERLANE_GROUP, "blocks": -(-B // cp.PERLANE_THREADS)},
@@ -5677,6 +6094,43 @@ def main() -> int:
     for name in ("mlp_adjoint_solve", "plan_aug"):
         by_name[name]["float64_tier"] = {"launches": df["launches"]["K3"],
                                          **f64_k3}
+    # K4's last sites ([51]): K14's tile walk in K2 and K8 and K5's tile
+    # engine, the MLP's and a plan's, a record each; the top-level numbers
+    # the float32 full-size launch of the public entry point, its plain
+    # version's time and largest difference from [50]'s hold.
+    ts = tier_sites
+    for name, keys, src, ref in (
+            ("plan_tile_k2", ("K2",), "plan_rhs.cuh",
+             "jaxpr_bridge.py:979"),
+            ("plan_tile_k8", ("K8 mixed", "K8 bf16"), "plan_rhs.cuh",
+             "jaxpr_bridge.py:979"),
+            ("perlane_tile_mlp", ("K5 MLP",), "rk_perlane.cuh",
+             "pallas_kernels.py:929"),
+            ("plan_tile_k5", ("K5 plan",), "rk_perlane.cuh",
+             "pallas_kernels.py:929")):
+        k0 = keys[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tfdiffeq_tpu_torch/csrc/{src}",
+            "replaces": f"tfdiffeq_tpu/ops/{ref}",
+            "launches": sum(ts["launches"][k] for k in keys),
+            "max_abs_err": max(ts["err"][k] for k in keys),
+            "ms": ts["ms"][k0], "plain_ms": ts["plain_ms"][k0],
+            "bound_ms": ts["bound"][k0][0], "bound_by": ts["bound"][k0][1],
+            "library_ms": None,
+            "by_tier": {k: {"ms": ts["ms"][k],
+                            "plain_ms": ts["plain_ms"][k],
+                            "bound_ms": ts["bound"][k][0],
+                            "max_abs_err": ts["err"][k],
+                            "stats": [int(x) if not hasattr(x, "sum")
+                                      else int(x.sum())
+                                      for x in ts["stats"][k]]}
+                        for k in keys},
+            "mlp_route_ms": ts["mlp_route_ms"].get(
+                k0, ts["mlp_route_ms"]["K2"])})
+    by_name["dot_tiers"]["float64_holds_max_abs_err"] = {
+        k: e for k, e in ts["err"].items() if k.endswith("f64")}
+    by_name["dot_tiers"]["battery_accepted_range"] = ts["battery_accepted"]
     print(f"[total] chip_smoke.py took {time.perf_counter() - run_t0:.1f} s",
           flush=True)
     print(smi)

@@ -227,12 +227,19 @@ def test_calibrate_picks_mixed_then_falls_back(rtol, inflation, tier):
 
 
 def test_tier_gates():
-    """per_sample=True with a tier waits for ROADMAP item 20; Adams methods
-    refuse the tiers with the reference's ValueError, and solve at
-    'highest' (ROADMAP item 12, once refused here)."""
+    """per_sample=True with a tier (ROADMAP item 20, once refused here) runs
+    K5's tile engine: each sample under its own controller, near the
+    one-controller 'mixed' solve (tests/test_torch_perlane_tiers.py holds it
+    to the reference); Adams methods refuse the tiers with the reference's
+    ValueError, and solve at 'highest' (ROADMAP item 12, once refused
+    here)."""
     W, y0 = _wide()
-    with pytest.raises(NotImplementedError, match="item 20"):
-        _port("mixed", W, y0, "dopri5", per_sample=True)
+    per = _port("mixed", W, y0, "dopri5", per_sample=True,
+                **SOLVES["dopri5"])
+    one = _port("mixed", W, y0, "dopri5", **SOLVES["dopri5"])
+    assert int(per.lane_stats.status.max()) == 0
+    assert per.lane_stats.n_accepted.shape == (B,)
+    assert _rel(per.ys.numpy(), one.ys.numpy()) < 1e-3
     with pytest.raises(ValueError, match="not supported on the Adams"):
         _port("mixed", W, y0, "adams")
     res = _port("highest", W, y0, "adams", first_step=0.05, rtol=1e-4,

@@ -292,14 +292,19 @@ def test_fixed_grid_methods_are_ported(method):
     ids=["fuse-item 16", "dense_output-item 3", "telemetry-item 3"])
 def test_unported_options_name_their_roadmap_item(options, item):
     # 'fuse' runs the fused tier with every method
-    # (tests/test_torch_fuse.py); K4's reduced tiers at a plan's dots
-    # still wait for item 16. dense_output and telemetry (once refused
-    # here, ROADMAP item 3) run and match the reference's bounded loop
+    # (tests/test_torch_fuse.py), and with K4's reduced tiers at a plan's
+    # dots (item 16, once refused here; tests/test_torch_plan_tiers.py
+    # holds them to the reference): a plan with no dot solves as at
+    # 'highest'. dense_output and telemetry (once refused here, ROADMAP
+    # item 3) run and match the reference's bounded loop
     # (tests/test_torch_dense_output.py holds them in full).
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0],
-                    options=options)
+        got = P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0],
+                      options={**options, "first_step": 0.1})
+        ref = P.solve(lambda t, y: -y, torch.ones(2), [0.0, 1.0],
+                      options={"fuse": True, "first_step": 0.1})
+        assert got.stats.status == 0
+        assert torch.equal(got.ys, ref.ys)
         return
     got = P.solve(lambda t, y: -y, torch.ones(2, dtype=F64), _tt([0.0, 1.0]),
                   options={**options, "first_step": 0.1})

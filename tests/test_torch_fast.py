@@ -229,18 +229,23 @@ def test_ode_func_module_and_seeded_generator():
 ])
 def test_unported_fused_options_name_their_roadmap_item(kwargs, item):
     """The fused fixed_adams (ROADMAP item 12, once refused here) solves
-    (tests/test_torch_adams_fused.py holds it to the reference); the
-    per-sample tiers (item 20) and the multi-card coupling (item 18) still
-    raise."""
+    (tests/test_torch_adams_fused.py holds it to the reference), and so do
+    the per-sample tiers (item 20, once refused here: K5's tile engine,
+    near the per-sample 'highest' solve; tests/test_torch_perlane_tiers.py
+    holds them to the reference); the multi-card coupling (item 18) still
+    raises."""
     params, y0 = _setup(B=8)
     spec = PF.MLPSpec(input_power=3)
     w = [(torch.tensor(params["w1"]), torch.tensor(params["b1"])),
          (torch.tensor(params["w2"]), torch.tensor(params["b2"]))]
     res = PF.solve_mlp_spec(spec, w, torch.tensor(y0), [0.0, 1.0], **kwargs)
     assert res.stats.status == 0 and torch.isfinite(res.ys).all()
-    with pytest.raises(NotImplementedError, match="item 20"):
-        PF.solve_mlp_spec(PF.MLPSpec(matmul="mxu", dot_precision="mixed"),
-                          w, torch.tensor(y0), [0.0, 1.0], per_sample=True)
+    tiered, hi = (PF.solve_mlp_spec(
+        PF.MLPSpec(input_power=3, matmul="mxu", dot_precision=p), w,
+        torch.tensor(y0), [0.0, 1.0], per_sample=True)
+        for p in ("mixed", "highest"))
+    assert int(tiered.lane_stats.status.max()) == 0
+    assert 0 < float((tiered.ys - hi.ys).abs().max()) < 1e-2
     with pytest.raises(NotImplementedError, match="item 18"):
         PF.solve_mlp_stepwise(convert.params_from_jax(params, dtype=F64),
                               torch.tensor(y0), [0.0, 1.0], axis_name="b")

@@ -39,6 +39,12 @@ most and 2e-5 on average; a whole adaptive K2 solve amplifies that noise
 to the tier's own error (1e-2), so one K2 step is held instead, far nearer
 its own tier's plain version than the others'. Each float32 tier is also
 held against the other tiers' plain versions, where it must fail its bar.
+K4 at its last sites: K5's tile engine on the MLP route (a battery whose
+samples take different attempts, some out of steps) and a plan's tile
+route in K2 (with its dense output), K8, K5 and, coupled, on one block of
+K2 and K8: float64 bitwise; float32 'mixed' K2 within 5e-5 with counts
+within one, K8 within `SOLVE_BARS`, K5 within the reference's float32
+budget with each sample's counts within one.
 K4 alone (`tier_net`): the largest and mean gap of one evaluation
 (chip_smoke.py EVAL_BARS). K7, the CNF right-hand side in K2 and its
 second-order adjoint in K3 (rhs='cnf'), narrow and wide: bitwise equal to
@@ -1550,7 +1556,7 @@ def test_fused_entry_points_launch_and_never_fall_back(cuda, monkeypatch):
 
     cpl.source.cache_clear()
     monkeypatch.setattr(cpl.plan_codegen, "cuda_source",
-                        lambda plan, host: "#error a broken plan\n")
+                        lambda plan, host, *tier: "#error a broken plan\n")
     g = lambda tt, yy: -yy * 0.5 + 0.25 * torch.cos(yy)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         odeint(g, y, t, options={"fuse": True})
@@ -2752,3 +2758,183 @@ def test_float64_tier_matches_plain(cuda, monkeypatch, B):
         assert args[2].dtype == torch.float64 and got[3][3].item() == 0
         ref = cpl.plan_adjoint_solve_plain(*args, **kw)
         assert _same_sweep(got, ref), (got[3].tolist(), ref[3].tolist())
+
+
+# ---------------------------------------------------------------------------
+# K4 at the sites the tiers reached last: K5's tile engine (the MLP and a
+# plan) and a plan's tiered dots in K2 and K8 (K14's tile walk)
+# ---------------------------------------------------------------------------
+
+def _tier_plan(device, dtype, B=48, coupled=False, scale=None):
+    """The wide case's MLP as plain code, captured (every dot selected
+    under matmul='auto'); with `coupled` a mean-field term, with `scale` a
+    per-sample factor. Returns (plan, packed, y0, t, f0)."""
+    from tfdiffeq_tpu_torch.ops import plan_bridge as pb
+    weights, _, _, y0, t = _wide_case(device, dtype, B=B)
+
+    def f(tt, y):
+        h = y
+        for i, (w, b) in enumerate(weights):
+            h = h @ w + b
+            if i < len(weights) - 1:
+                h = torch.tanh(h)
+        if coupled:
+            h = h - 0.5 * (y - y.mean(0))
+        return h if scale is None else scale * h
+
+    plan, consts = pb.build_plan(f, t[0].to(device), y0)
+    packed = pb.pack_consts(plan, consts, dtype, device)
+    f0 = pb.eval_plan_host(plan, packed, t[0].to(device), y0).contiguous()
+    return plan, packed, y0, t, f0
+
+
+def _tier_held(got, ref, dtype, tier, adaptive, per_sample=False):
+    """float64 bitwise; float32 'mixed' within 5e-5 with counts within one
+    (adaptive) or equal (fixed grid), 'bf16' on a fixed grid within its
+    solve bar; per sample each sample's counts within one and the
+    reference's float32 budget (a flipped decision moves that sample's
+    later steps)."""
+    out, st = got[0], got[1]
+    if dtype == torch.float64:
+        return _same(got, ref)
+    if per_sample:
+        assert int((got[2][1:3] - ref[2][1:3]).abs().max()) <= 1
+        torch.testing.assert_close(out, ref[0], rtol=1e-3, atol=2e-4)
+        return True
+    if adaptive:
+        assert all(abs(a - b) <= 1 for a, b in zip(st[1:3].tolist(),
+                                                   ref[1][1:3].tolist()))
+    else:
+        assert torch.equal(st, ref[1])
+    bar = 5e-5 if tier == "mixed" else SOLVE_BARS["bf16"][0]
+    assert float((out - ref[0]).abs().max()) < bar
+    return True
+
+
+@pytest.mark.parametrize("tier", ["mixed", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tier_perlane_kernel_matches_plain(cuda, dtype, tier):
+    """K5's tile engine on the MLP route (16 samples a block in lockstep),
+    a battery whose samples take different numbers of attempts (states
+    scaled and first steps spread) and about half run out of steps: float64 bitwise, lane counts included; float32
+    'mixed' with each sample's counts within one and within the reference's
+    float32 budget (rtol 1e-3, atol 2e-4), 'bf16' within its tier's error
+    (1e-2); run to run bitwise."""
+    weights, warr, dims, y0, t = _wide_case(cuda, dtype, B=40)
+    y0 = y0 * torch.logspace(0.0, 1.0, 40, dtype=dtype,
+                             device=cuda)[:, None]
+    tiers = ck.layer_tiers(dims, "auto", tier)
+    f0 = fast.mlp_apply(fast.MLPSpec(), weights, y0)
+    # First steps from 1e-4 to 0.1: the samples need different attempts.
+    dt0 = torch.logspace(-4.0, -1.0, 40, dtype=dtype, device=cuda)
+    args = (warr, dims, y0, t, dt0, 1e-4, 1e-4, 1.0)
+    # A step budget at the samples' median need: about half run out, the
+    # others finish at their own attempts.
+    lane = cp.mlp_solve_perlane_plain(*args, f0=f0, tiers=tiers)[2]
+    kw = dict(f0=f0, tiers=tiers,
+              max_steps=int((lane[1] + lane[2]).median()) + 1)
+    got = cp.mlp_solve_perlane(*args, **kw)
+    again = cp.mlp_solve_perlane(*args, **kw)
+    ref = cp.mlp_solve_perlane_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert cp.mlp_solve_perlane_launches == ck.dot_tier_launches == 2
+    assert _same(got, again)
+    assert torch.isfinite(got[0]).all()
+    if dtype == torch.float64:
+        assert set(got[2][3].tolist()) == {0, 1}
+        assert _same(got, ref)
+    elif tier == "mixed":
+        # Each sample under its own controller: a decision the tensor
+        # cores' summation order flips moves that sample's later steps, so
+        # the reference's float32 budget for whole solves holds it.
+        lane, lref = got[2], ref[2]
+        assert int((lane[1:3] - lref[1:3]).abs().max()) <= 1
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-3, atol=2e-4)
+    else:
+        assert float((got[0] - ref[0]).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("route", ["solve", "dense", "fixed", "perlane",
+                                   "coupled_solve", "coupled_fixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tier_plan_routes_match_plain(cuda, dtype, route):
+    """K14's tile walk at a reduced tier in K2 (with and without its dense
+    output), K8 and K5's tile engine, and a coupled plan on one block of K2
+    and K8: each launch against `plan_solve_plain` / `plan_solve_fixed_plain`
+    at the same tier, float64 bitwise, float32 within the tier's bars."""
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    coupled = route.startswith("coupled")
+    plan, packed, y0, t, f0 = _tier_plan(cuda, dtype, coupled=coupled)
+    cpl.reset_launch_counts()
+    tau = t
+    fixed = route.endswith("fixed")
+    tier = "bf16" if fixed and not coupled else "mixed"
+    if fixed:
+        grid = uniform_grid(t[0], t[-1], 16)
+        args = (plan, packed, y0, tau, grid, 1.0, f0)
+        kw = dict(method="rk4", dot_precision=tier)
+        fn, plain = cpl.plan_solve_fixed, cpl.plan_solve_fixed_plain
+    else:
+        args = (plan, packed, y0, tau, 0.05, 1e-4, 1e-4, 1.0, f0)
+        kw = dict(dot_precision=tier, per_sample=route == "perlane")
+        if route == "dense":
+            kw.update(emit_dense=64, max_steps=64)
+        fn, plain = cpl.plan_solve, cpl.plan_solve_plain
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    pkw = dict(kw)
+    if not fixed and route != "perlane":
+        pkw["n_blocks"] = cpl.plan_blocks(plan, y0.shape[0], cuda, True)
+    ref = plain(*args, **pkw)
+    torch.cuda.synchronize()
+    assert cpl.last_route["fixed" if fixed else (
+        "perlane" if route == "perlane" else "solve")] == f"tile/{tier}"
+    assert ck.dot_tier_launches == 2
+    assert _same(got, again)
+    assert got[1][3].item() == 0 and torch.isfinite(got[0]).all()
+    _tier_held(got, ref, dtype, tier, not fixed, route == "perlane")
+    if route == "dense" and dtype == torch.float64:
+        assert torch.isfinite(got[3]).all()
+
+
+def test_tiered_entry_points_launch_their_kernels(cuda):
+    """The slice's public entry points at a reduced tier launch the tile
+    routes and never fall back: solve(fuse, 'mixed') on K2, rk4 'bf16' and
+    'mixed' on K8, per_sample 'mixed' on K5's tile engine through a plan and
+    through `solve_mlp_spec`; the gates raise before any launch."""
+    from tfdiffeq_tpu_torch import solve
+    from tfdiffeq_tpu_torch.ops import cuda_plan as cpl
+    weights, _, _, y0, t = _wide_case(cuda, torch.float32, B=64)
+
+    def f(tt, y):
+        h = y
+        for i, (w, b) in enumerate(weights):
+            h = h @ w + b
+            if i < len(weights) - 1:
+                h = torch.tanh(h)
+        return h
+
+    cpl.reset_launch_counts()
+    fb = fast.fuse_fallbacks
+    runs = [solve(f, y0, t, rtol=1e-4, atol=1e-4, options={
+        "fuse": True, "dot_precision": "mixed", "first_step": 0.01})]
+    for prec in ("bf16", "mixed"):
+        runs.append(solve(f, y0, t, method="rk4", options={
+            "fuse": True, "dot_precision": prec, "num_steps": 16}))
+    runs.append(solve(f, y0, t, rtol=1e-4, atol=1e-4, options={
+        "fuse": True, "per_sample": True, "dot_precision": "mixed",
+        "first_step": 0.01}))
+    runs.append(fast.solve_mlp_spec(
+        fast.MLPSpec(matmul="mxu", dot_precision="mixed"), weights, y0, t,
+        rtol=1e-4, atol=1e-4, first_step=0.01, per_sample=True))
+    torch.cuda.synchronize()
+    assert (cpl.plan_solve_launches, cpl.plan_fixed_launches,
+            cpl.plan_perlane_launches,
+            cp.mlp_solve_perlane_launches) == (1, 2, 1, 1)
+    assert ck.dot_tier_launches == 5 and fast.fuse_fallbacks == fb
+    for r in runs:
+        assert int(torch.as_tensor(r.stats.status).max()) == 0
+        assert torch.isfinite(r.ys).all()
+    with pytest.raises(ValueError, match="fixed-grid"):
+        solve(f, y0, t, options={"fuse": True, "dot_precision": "bf16"})
+    assert ck.dot_tier_launches == 5

@@ -192,11 +192,20 @@ struct TierTile {
   long region, bytes;
 };
 
+inline TierTile tier_tile_for(int ld, int widest, int n_warps,
+                              long block_rows);
+
 inline TierTile tier_tile(const Net& net, int n_warps, long block_rows) {
-  const int ld = batch_ld(net);
   int widest = 16;
   for (int l = 0; l < net.n_layers; ++l)
     widest = max_i(widest, pad16(net.dout[l]));
+  return tier_tile_for(batch_ld(net), widest, n_warps, block_rows);
+}
+
+// The geometry for activations of row stride ld and outputs up to `widest`
+// (a multiple of 16) a layer.
+inline TierTile tier_tile_for(int ld, int widest, int n_warps,
+                              long block_rows) {
   const int cg_need = (widest + kWarpCols - 1) / kWarpCols;
   TierTile t{};
   t.bytes = -1;
@@ -219,8 +228,10 @@ inline TierTile tier_tile(const Net& net, int n_warps, long block_rows) {
 // C fragment rows g (c0, c1) and g + 8 (c2, c3), columns 2q, 2q + 1. The
 // activation is a template argument, so the element loop has no switch;
 // the thread's biases are loaded before its first store (a store to X
-// could otherwise hold each bias load behind it).
-template <int kAct>
+// could otherwise hold each bias load behind it). Without kBias (a plan's
+// dot: its bias and activation are instructions of their own) the output
+// is acc itself.
+template <int kAct, bool kBias = true>
 __device__ __forceinline__ void tier_epilogue(
     float* __restrict__ X, int ldf, const float (&hi)[4][2][4],
     const float (&lo)[4][2][4], bool mixed, int row0, int cbase, int dout,
@@ -233,7 +244,7 @@ __device__ __forceinline__ void tier_epilogue(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int o = cbase + 16 * j + 8 * n + 2 * q + e;
-        bv[j][n][e] = o < dout ? __ldg(bias + o) : 0.0f;
+        bv[j][n][e] = (kBias && o < dout) ? __ldg(bias + o) : 0.0f;
       }
 #pragma unroll
   for (int j = 0; j < 4; ++j)
@@ -246,14 +257,16 @@ __device__ __forceinline__ void tier_epilogue(
         const int s = row0 + g + 8 * (c >> 1);
         const float acc = mixed ? hi[j][n][c] + lo[j][n][c] : hi[j][n][c];
         X[long(s) * ldf + o] =
-            o < dout ? activate(kAct, acc + bv[j][n][c & 1]) : 0.0f;
+            o >= dout ? 0.0f
+                      : (kBias ? activate(kAct, acc + bv[j][n][c & 1]) : acc);
       }
 }
 
 // A float32 tier layer on the tensor cores for the tile's nr rows: the
 // input floats X (stride ldf) are split into the A tiles at A (hi, then
 // lo; row stride din_p + 8), the weights stream through `ring`, and the
-// outputs act(acc + bias) overwrite X (zero past dout).
+// outputs act(acc + bias) overwrite X (zero past dout); with a null bias
+// the product alone (a plan's dot).
 __device__ inline void mma_tier_layer(float* __restrict__ X,
                                       __nv_bfloat16* __restrict__ A,
                                       __nv_bfloat16* __restrict__ ring,
@@ -356,7 +369,10 @@ __device__ inline void mma_tier_layer(float* __restrict__ X,
         }
       }
     }
-    if (active && slice == n_slices - 1) {
+    if (active && slice == n_slices - 1 && !bias) {
+      tier_epilogue<kIdentity, false>(X, tt.ldf, hi, lo, mixed, 16 * rgi,
+                                      cbase, dout, dout_p, bias, g, q);
+    } else if (active && slice == n_slices - 1) {
       const int row0 = 16 * rgi;
       switch (code) {
         case kTanh:
@@ -604,6 +620,86 @@ __device__ const T* batch_mlp_eval(const Net& net, const T* __restrict__ w,
     }
     return hin;
   }
+}
+
+// ---- a plan's dot at a tier (csrc/plan_rhs.cuh PlanTileRhs) ----
+//
+// The product alone: a plan's bias and activation are instructions of
+// their own, and its time enters as a row of the dot's input like any
+// other, so the entry has an identity epilogue and no time column. The
+// input and the output are live rows of the plan ([row][B], sample b at
+// column b); the weights are the dot's wT constant packed to bf16 by the
+// plan's pack (tier_pack_kernel's element rule). Rows at or past B read as
+// zero and are not written.
+
+// Float32: the block's rows [row0, row0 + nr) (nr a multiple of 16) a tile
+// of at most tt.rt rows at a time in shared memory at `sm`: the input rows
+// into the tile's first region (zero past din), mma_tier_layer with a null
+// bias, the outputs back to the live rows.
+__device__ inline void plan_tile_dot(float* __restrict__ live, int B,
+                                     int in_row, int out_row, int din,
+                                     int dout,
+                                     const __nv_bfloat16* __restrict__ w16,
+                                     const TierTile& tt, unsigned char* sm,
+                                     int row0, int nr, int tier) {
+  float* X = reinterpret_cast<float*>(sm);
+  __nv_bfloat16* A = reinterpret_cast<__nv_bfloat16*>(sm + tt.region);
+  __nv_bfloat16* ring =
+      reinterpret_cast<__nv_bfloat16*>(sm + 2 * tt.region);
+  const int din_p = pad16(din);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  for (int r0 = row0; r0 < row0 + nr; r0 += tt.rt) {
+    const int n = min_i(tt.rt, row0 + nr - r0);
+    for (int i = warp; i < din_p; i += n_warps)
+      for (int s = lane; s < n; s += kWarpSize) {
+        const int b = r0 + s;
+        X[long(s) * tt.ldf + i] =
+            (i < din && b < B) ? live[long(in_row + i) * B + b] : 0.0f;
+      }
+    __syncthreads();
+    mma_tier_layer(X, A, ring, tt, n, w16, din, dout, nullptr, kIdentity,
+                   tier);
+    for (int o = warp; o < dout; o += n_warps)
+      for (int s = lane; s < n; s += kWarpSize) {
+        const int b = r0 + s;
+        if (b < B) live[long(out_row + o) * B + b] = X[long(s) * tt.ldf + o];
+      }
+    __syncthreads();
+  }
+}
+
+// Any type on the CUDA cores (the float64 route): each output the tier's
+// sums in input order, as scalar_layer's tier branch (bf16-rounded weights
+// and input parts, products and sums in T) and ops/cuda_kernels.py
+// dot_tier_plain; threads take (row, output) pairs, outputs fastest.
+template <typename T>
+__device__ void plan_dot_scalar(T* __restrict__ live, int B, int in_row,
+                                int out_row, int din, int dout,
+                                const __nv_bfloat16* __restrict__ w16,
+                                int row0, int nr, int tier) {
+  const int din_p = pad16(din);
+  const long n = long(nr) * dout;
+  for (long e = threadIdx.x; e < n; e += blockDim.x) {
+    const int b = row0 + int(e / dout), o = int(e % dout);
+    if (b >= B) continue;
+    const __nv_bfloat16* row = w16 + long(o) * din_p;
+    T acc_hi = T(0), acc_lo = T(0);
+    for (int i = 0; i < din; ++i) {
+      const T xv = live[long(in_row + i) * B + b];
+      const T wv = T(__bfloat162float(row[i]));
+      const T h_hi = round_bf16(xv);
+      const T t_hi = wv * h_hi;
+      acc_hi = i == 0 ? t_hi : acc_hi + t_hi;
+      if (tier == kTierMixed) {
+        const T t_lo = wv * round_bf16(xv - h_hi);
+        acc_lo = i == 0 ? t_lo : acc_lo + t_lo;
+      }
+    }
+    live[long(out_row + o) * B + b] =
+        tier == kTierMixed ? acc_hi + acc_lo : acc_hi;
+  }
+  __syncthreads();
 }
 
 }  // namespace tfd

@@ -53,9 +53,46 @@
 // weights past shared memory, the weights read from global memory (L2).
 // K14's plans take the same group engine with the generated group walk
 // (csrc/plan_rhs.cuh PlanLaneRhs).
+#include "dot_tiers.cuh"
 #include "rk_perlane.cuh"
 
 namespace tfd {
+
+// K5's tile route for K4's tiers (csrc/rk_perlane.cuh rk_perlane_tile_kernel):
+// the block's kTileRows samples' stage inputs in K4's layer-0 rows, one
+// batch-wide evaluation of the tile (batch_mlp_eval: the tier layers on the
+// tensor cores in float32, every layer on the CUDA cores in float64).
+template <typename T>
+struct MlpTileRhs {
+  const T* wg;     // packed weights (pack_mlp_weights), in global memory
+  Net net_in;
+  BatchBufs<T> bb;
+
+  struct Shared {
+    Net net;
+  };
+  struct Local {};
+
+  __device__ void setup(Shared& sh, Local&, unsigned char*, int row0,
+                        int nr) const {
+    if (threadIdx.x == 0) sh.net = net_in;
+    batch_clear(bb, row0, nr);
+  }
+  // Input d of sample b: y ** p, and with d = 0 the time column.
+  __device__ void put_elem(const Shared& sh, Local&, int b, int d, T t,
+                           T v) const {
+    T h = v;
+    for (int p = 1; p < sh.net.input_power; ++p) h = h * v;
+    bb.X0[long(d) * bb.rows + b] = h;
+    if (sh.net.time_input && d == 0)
+      bb.X0[long(sh.net.din[0] - 1) * bb.rows + b] = t;
+  }
+  __device__ const T* eval_batch(const Shared& sh, Local&, int row0,
+                                 int nr) const {
+    return batch_mlp_eval(sh.net, wg, bb, row0, nr);
+  }
+  __device__ long ld() const { return bb.ld; }
+};
 
 // K5's MLP right-hand sides: the narrow and wide routes with a group of
 // `group` threads a sample (mlp_rk.cuh MlpLaneRhs), the wide route's
@@ -82,6 +119,39 @@ cudaError_t launch_perlane_lanes(const void* tau, const void* y0,
                                     sc, stream);
 }
 
+// The tile route: the bf16 weight pack (K4), then the tile engine, a
+// kTileRows-row tile of K4 a block of kTileThreads threads.
+template <typename T>
+cudaError_t launch_perlane_tile(const void* tau, const void* y0,
+                                const void* f0, const void* dt0,
+                                const void* weights, void* out,
+                                void* lane_stats, void* stats, void* work,
+                                long work_size, Net net, const int* tiers,
+                                void* batch_work, long batch_bytes,
+                                const Tableau<T>& tab,
+                                const PerlaneScalars<T>& sc,
+                                cudaStream_t stream) {
+  const long n_w16 = set_tiers(net, tiers);
+  const long rows = (sc.B + kTileRows - 1) / kTileRows * kTileRows;
+  if (n_w16 < 0 || !batch_work ||
+      batch_bytes < batch_work_bytes(net, n_w16, rows, sizeof(T)))
+    return cudaErrorInvalidValue;
+  MlpTileRhs<T> rhs;
+  rhs.wg = static_cast<const T*>(weights);
+  rhs.net_in = net;
+  rhs.bb = batch_bufs<T>(batch_work, net, n_w16, rows,
+                         kTileThreads / kWarpSize, kTileRows);
+  if (rhs.bb.tile.bytes < 0) return cudaErrorInvalidValue;
+  tier_pack_kernel<T><<<64, 256, 0, stream>>>(
+      static_cast<const T*>(weights), net,
+      reinterpret_cast<__nv_bfloat16*>(batch_work));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_rk_perlane_tile<T>(tau, y0, f0, dt0, out, lane_stats, stats,
+                                   work, work_size, rhs, batch_smem(rhs.bb),
+                                   tab, sc, stream);
+}
+
 template <typename T>
 int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
                          const void* dt0, const void* weights, void* out,
@@ -95,15 +165,17 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
                          int time_input, int stages, int order, int fsal,
                          const double* c, const double* a,
                          const double* b_sol, const double* b_err,
-                         const double* c_mid, int route, void* stream) {
+                         const double* c_mid, int route, const int* tiers,
+                         void* batch_work, long batch_bytes, void* stream) {
+  const bool tile = route == kRouteBatch;
   if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 || D < 1 ||
       D + time_input > kMaxWidth || input_power < 1 || max_steps < 1 ||
-      threads != kGroupBlock)
+      threads != (tile ? kTileThreads : kGroupBlock) || (tiers && !tile))
     return static_cast<int>(cudaErrorInvalidValue);
   Net net;
   const int off = make_net(net, n_layers, dims, D, act_hidden, act_final,
                            input_power, time_input);
-  if (off < 0 || !route_fits(net, route))
+  if (off < 0 || (!tile && !route_fits(net, route)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tableau<T> tab =
       make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
@@ -111,6 +183,10 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
       rtol, atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,
       T_out, B, D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile)
+    return static_cast<int>(launch_perlane_tile<T>(
+        tau, y0, f0, dt0, weights, out, lane_stats, stats, work, work_size,
+        net, tiers, batch_work, batch_bytes, tab, sc, st));
   const cudaError_t e =
       route == kRouteNarrow
           ? launch_perlane_lanes<T, kRouteNarrow>(
@@ -135,13 +211,14 @@ int launch_solve_perlane(const void* tau, const void* y0, const void* f0,
       int act_final, int input_power, int time_input, int stages,           \
       int order, int fsal, const double* c, const double* a,                \
       const double* b_sol, const double* b_err, const double* c_mid,        \
-      int route, void* stream) {                                             \
+      int route, const int* tiers, void* batch_work, long batch_bytes,      \
+      void* stream) {                                                        \
     return tfd::launch_solve_perlane<TYPE>(                                  \
         tau, y0, f0, dt0, weights, out, lane_stats, stats, work, work_size, \
         T_out, B, D, threads, group, rtol, atol, dt_min, sign, safety,      \
         ifactor, dfactor, max_steps, valid, n_layers, dims, act_hidden,     \
         act_final, input_power, time_input, stages, order, fsal, c, a,      \
-        b_sol, b_err, c_mid, route, stream);                                 \
+        b_sol, b_err, c_mid, route, tiers, batch_work, batch_bytes, stream); \
   }
 
 TFD_SOLVE_PERLANE_ENTRY(tfd_mlp_solve_perlane_f32, float)

@@ -93,4 +93,12 @@ __host__ __device__ __forceinline__ T p_bool(bool x) {
   return x ? T(1) : T(0);
 }
 
+// One dot of a plan at a reduced tier (ops/plan_codegen.py _Gen, a tile
+// cut): its inputs and outputs, its weights W [dout][din] at w_off in the
+// flat constants, its bf16 copy [pad16(dout)][pad16(din)] at w16_off in the
+// packed weights, and the live rows ([row][B]) of its input and its result.
+struct TierDot {
+  int din, dout, w_off, w16_off, in_row, out_row;
+};
+
 }  // namespace tfd

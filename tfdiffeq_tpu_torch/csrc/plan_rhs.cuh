@@ -49,6 +49,7 @@
 // MAX_WEIGHT_BYTES), else they are read from global memory.
 #pragma once
 
+#include "dot_tiers.cuh"
 #include "mlp_rk.cuh"
 #include "plan_ops.cuh"
 #include "rk_adams.cuh"
@@ -350,6 +351,211 @@ struct PlanBlockRhs {
   __device__ long ld() const { return P::kOutRows; }
 };
 
+// ---- K4 at a plan's dots: the tile route of K2, K8 and K5 ----
+//
+// A plan generated at a reduced tier (ops/plan_codegen.py _Gen with a
+// dot_precision: every dot whose mxu flag is set ends a segment) runs over
+// a block's rows: each segment a thread a sample, elementwise over the
+// block's rows as plan_batch_eval runs a coupled plan's segments; each
+// tiered dot K4's product on the block's tiles of 16 rows (dot_tiers.cuh
+// plan_tile_dot on the tensor cores in float32, plan_dot_scalar on the CUDA
+// cores in float64), from the live rows its segment stored to the dot's own
+// live rows, which the next segments load; each coupling the block meet of
+// plan_batch_eval (a coupled plan runs on one block). Replaces the tiered
+// dots of tfdiffeq_tpu/ops/jaxpr_bridge.py:979-983 (eval_plan, through
+// make_plan_f :1000) inside the reference's plan_solve (:1038, with and
+// without per_sample) and plan_solve_fixed (pallas_fixed.py:1167).
+// ops/plan_bridge.py eval_plan(dot_precision=...) with cuda_kernels.
+// dot_tier_plain is its plain version: float64 bitwise, float32 to the
+// tensor cores' summation order.
+//
+// Its workspace (plan_tile_bytes, ops/cuda_plan.py tile_work_bytes): the
+// tiered dots' bf16 weights (P::kW16 values, 256-byte aligned), then the
+// stage inputs X [B][kDim], each row's time [B], the outputs FO
+// [B][kOutRows], the live rows [kLiveRows][B] and the reduced values. Its
+// shared memory: K4's tiles (float32), then a block's [blockDim.x] meet
+// scratch (K2's reduction scratch).
+
+template <class P>
+inline long plan_tile_w16_bytes() {
+  return (2 * P::kW16 + 255) / 256 * 256;
+}
+
+template <class P>
+inline long plan_tile_bytes(int B, long item) {
+  return plan_tile_w16_bytes<P>() +
+         item * (long(B) * (P::kDim + 1 + P::kOutRows + P::kLiveRows) +
+                 P::kRedValues);
+}
+
+// The tiered dots' weights into bf16 ([pad16(dout)][pad16(din)] from the
+// flat constants' [dout][din], zeros in the padding; tier_pack_kernel's
+// element rule), one grid-stride pass a dot.
+template <typename T, class P>
+__global__ void plan_tier_pack_kernel(const T* __restrict__ c,
+                                      __nv_bfloat16* __restrict__ w16) {
+  const long stride = long(gridDim.x) * blockDim.x;
+  for (int j = 0; j < P::kTierDots; ++j) {
+    const TierDot d = P::tier_dot(j);
+    const int din_p = pad16(d.din);
+    const long n = long(pad16(d.dout)) * din_p;
+    for (long e = long(blockIdx.x) * blockDim.x + threadIdx.x; e < n;
+         e += stride) {
+      const int o = int(e / din_p), i = int(e % din_p);
+      const float v = (o < d.dout && i < d.din)
+                          ? float(c[d.w_off + long(o) * d.din + i])
+                          : 0.0f;
+      w16[d.w16_off + e] = __float2bfloat16_rn(v);
+    }
+  }
+}
+
+template <typename T, class P>
+struct PlanTileRhs {
+  static constexpr bool kBatch = true;
+  static constexpr int kUnit = 16;                   // K4's tile rows
+  static constexpr bool kGrid = P::kCouplings == 0;  // else one block
+  static constexpr bool kGroup = false;
+  const T* cg;     // constants (plan_codegen.flat_consts), global memory
+  const T* scg;    // per-sample constants [rows][B]
+  const __nv_bfloat16* w16;
+  T* X;            // [B][kDim] stage inputs
+  T* tr;           // [B] each row's time
+  T* FO;           // [B][kOutRows] outputs
+  T* live;         // [kLiveRows][B]
+  T* redv;         // [kRedValues]
+  int B;
+  int spb_;        // K8: rows a block
+  int rest;        // K2: setup returns the meet scratch (its reduction's)
+  TierTile tt;     // float32: K4's tiles at the start of shared memory
+
+  struct Shared {
+    int unused;
+  };
+  struct Local {};
+
+  // The workspace's pointers for B samples.
+  static PlanTileRhs make(const void* consts, const void* sample_consts,
+                          void* tile_work, int B, int n_warps,
+                          long block_rows) {
+    PlanTileRhs r{};
+    unsigned char* base = static_cast<unsigned char*>(tile_work);
+    r.cg = static_cast<const T*>(consts);
+    r.scg = static_cast<const T*>(sample_consts);
+    r.w16 = reinterpret_cast<const __nv_bfloat16*>(base);
+    r.X = reinterpret_cast<T*>(base + plan_tile_w16_bytes<P>());
+    r.tr = r.X + long(B) * P::kDim;
+    r.FO = r.tr + B;
+    r.live = r.FO + long(B) * P::kOutRows;
+    r.redv = r.live + long(B) * P::kLiveRows;
+    r.B = B;
+    if (sizeof(T) == sizeof(float)) {
+      r.tt = tier_tile_for(P::kTierWidth, P::kTierWidth, n_warps,
+                           block_rows);
+    } else {
+      r.tt = TierTile{};
+      r.tt.bytes = 0;
+    }
+    return r;
+  }
+  __host__ __device__ size_t tile_smem() const {
+    return tt.bytes > 0 ? size_t(tt.bytes) : 0;
+  }
+  __device__ T* scratch() const {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    return reinterpret_cast<T*>(smem_raw + tile_smem());
+  }
+
+  __device__ int spb() const { return spb_; }
+  // K2 (the reduction scratch after the tiles), K8 (null: the grid and the
+  // output times stay in global memory, as on K4's MLP batch route) and
+  // K5's tile engine.
+  __device__ T* setup(Shared&, Local&, unsigned char*, int, int) const {
+    return rest ? scratch() : nullptr;
+  }
+  // K2.
+  template <class G>
+  __device__ void put(const Shared&, Local&, int b, T t, G get, T*,
+                      int) const {
+    tr[b] = t;
+    T* x = X + long(b) * P::kDim;
+    for (int d = 0; d < P::kDim; ++d) x[d] = get(d);
+  }
+  // K8.
+  template <class G>
+  __device__ void put(const Shared& sh, Local& lo, int b, T t, G get) const {
+    put(sh, lo, b, t, get, nullptr, 0);
+  }
+  // K5's tile engine.
+  __device__ void put_elem(const Shared&, Local&, int b, int d, T t,
+                           T v) const {
+    X[long(b) * P::kDim + d] = v;
+    if (d == 0) tr[b] = t;
+  }
+
+  // The block's meets: a tiered dot's product on its rows, or (a coupled
+  // plan, on one block) BlockMeet's reduction over the batch.
+  struct Meet {
+    const PlanTileRhs* r;
+    int row0, nr;
+    __device__ void dot(int j) {
+      extern __shared__ __align__(16) unsigned char smem_raw[];
+      const TierDot d = P::tier_dot(j);
+      if constexpr (sizeof(T) == sizeof(float))
+        plan_tile_dot(r->live, r->B, d.in_row, d.out_row, d.din, d.dout,
+                      r->w16 + d.w16_off, r->tt, smem_raw, row0, nr,
+                      P::kTier);
+      else
+        plan_dot_scalar<T>(r->live, r->B, d.in_row, d.out_row, d.din,
+                           d.dout, r->w16 + d.w16_off, row0, nr, P::kTier);
+    }
+    __device__ void operator()(int kind, int row, int rows, int off,
+                               int to_scalar) {
+      BlockMeet<T> m{r->live, r->redv, r->scratch(), r->B};
+      m(kind, row, rows, off, to_scalar);
+    }
+  };
+
+  // The block's rows [row0, row0 + nr) (nr a multiple of 16), every thread,
+  // after a barrier; returns after one, sample b's outputs at b * kOutRows.
+  __device__ const T* eval_rows(int row0, int nr) const {
+    const int hi = row0 + nr < B ? row0 + nr : B;
+    for (int k = 0; k < P::kSegments; ++k) {
+      for (int b = row0 + threadIdx.x; b < hi; b += blockDim.x)
+        P::template seg<T>(k, tr[b], X + long(b) * P::kDim, cg, scg, b, B,
+                           live, redv, FO + long(b) * P::kOutRows);
+      __syncthreads();
+      if (k + 1 < P::kSegments) {
+        Meet m{this, row0, nr};
+        P::meet(k, m);
+      }
+    }
+    return FO;
+  }
+  // K2.
+  __device__ const T* eval_batch(const Shared&, Local&, T*, T*, int,
+                                 int r0, int nr) const {
+    return eval_rows(r0, nr);
+  }
+  // K8 and K5.
+  __device__ const T* eval_batch(const Shared&, Local&, int row0,
+                                 int nr) const {
+    return eval_rows(row0, nr);
+  }
+  __device__ long ld(const Local&) const { return P::kOutRows; }
+  __device__ long ld() const { return P::kOutRows; }
+};
+
+// The tiled plan's bf16 weights, before the solve on the same stream.
+template <typename T, class P>
+cudaError_t launch_plan_tier_pack(const void* consts, void* tile_work,
+                                  cudaStream_t stream) {
+  plan_tier_pack_kernel<T, P><<<64, 256, 0, stream>>>(
+      static_cast<const T*>(consts),
+      reinterpret_cast<__nv_bfloat16*>(tile_work));
+  return cudaGetLastError();
+}
+
 // ---- launch functions of a plan library (one host each) ----
 
 template <typename T, class P>
@@ -364,7 +570,8 @@ int launch_plan_solve(const void* tau, const void* y0, const void* f0,
                       const double* c_mid, const void* consts, int n_consts,
                       const void* sample_consts, int smem_consts,
                       void* gwork, long gwork_bytes, int n_blocks,
-                      void* meta, void* coef, int dense_S, void* stream) {
+                      void* meta, void* coef, int dense_S, void* tile_work,
+                      long tile_bytes, void* stream) {
   if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 ||
       D != P::kDim || P::kOutRows != D || threads < 32 ||
       threads > kSolveThreads || (threads & (threads - 1)) ||
@@ -387,7 +594,26 @@ int launch_plan_solve(const void* tau, const void* y0, const void* f0,
   const T* cg = static_cast<const T*>(consts);
   const T* scg = static_cast<const T*>(sample_consts);
   cudaError_t e;
-  if constexpr (P::kSegments > 1)
+  if constexpr (P::kTierDots > 0) {
+    // The tile route: each block its share of the 16-row tiles (a coupled
+    // plan all of them on one block), the constants in global memory.
+    const long tiles = (B + 15) / 16;
+    if (!tile_work || tile_bytes < plan_tile_bytes<P>(B, sizeof(T)) ||
+        n_blocks < 1 || n_blocks > tiles)
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto rhs = PlanTileRhs<T, P>::make(consts, sample_consts, tile_work, B,
+                                       threads / kWarpSize,
+                                       16 * ((tiles + n_blocks - 1) /
+                                             n_blocks));
+    rhs.rest = 1;
+    if (rhs.tt.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+    e = launch_plan_tier_pack<T, P>(consts, tile_work, st);
+    if (e == cudaSuccess)
+      e = launch_rk_solve<T>(tau, y0, f0, out, stats, work, gwork,
+                             gwork_bytes, n_blocks, rhs,
+                             rhs.tile_smem() + sizeof(T) * threads, threads,
+                             tab, sc, st);
+  } else if constexpr (P::kSegments > 1)
     e = launch_rk_solve<T>(tau, y0, f0, out, stats, work, gwork, gwork_bytes,
                            n_blocks,
                            PlanBatchRhs<T, P>{cg, scg, n_consts, smem_consts},
@@ -414,7 +640,7 @@ int launch_plan_fixed(const void* grid, const void* tau, const void* y0,
                       const double* c, const double* a, const double* b_sol,
                       const void* consts, int n_consts,
                       const void* sample_consts, int smem_consts,
-                      void* stream) {
+                      void* tile_work, long tile_bytes, void* stream) {
   if (stages < 1 || stages > kMaxStages || G < 1 || T_out < 1 || B < 1 ||
       D != P::kDim || P::kOutRows != D)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -431,7 +657,28 @@ int launch_plan_fixed(const void* grid, const void* tau, const void* y0,
   const T* cg = static_cast<const T*>(consts);
   const T* scg = static_cast<const T*>(sample_consts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (P::kSegments > 1) {
+  if constexpr (P::kTierDots > 0) {
+    // The tile route (rk_fixed_kernel): a block of `group` = kTileThreads
+    // threads a 16-row tile, or a coupled plan's whole batch on one such
+    // block (its meets fold over those threads; rk_fixed_kernel has no
+    // launch bound, and a wide plan's segments leave too few registers for
+    // kPlanBlockThreads); the grid and the output times in global memory.
+    const int rows = P::kCouplings > 0 ? (B + 15) / 16 * 16 : kTileRows;
+    if (group != kTileThreads ||
+        work_size < long(stages + 3) * B * D || !tile_work ||
+        tile_bytes < plan_tile_bytes<P>(B, sizeof(T)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto rhs = PlanTileRhs<T, P>::make(consts, sample_consts, tile_work, B,
+                                       group / kWarpSize, rows);
+    rhs.spb_ = rows;
+    rhs.rest = 0;
+    if (rhs.tt.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = launch_plan_tier_pack<T, P>(consts, tile_work, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(launch_rk_fixed<T>(
+        grid, tau, y0, f0, out, stats, work, rhs,
+        rhs.tile_smem() + sizeof(T) * group, group, rows, tab, sc, st));
+  } else if constexpr (P::kSegments > 1) {
     const long own = long(stages + 3) * B * D;
     if (group != kPlanBlockThreads ||
         work_size < own + plan_batch_values<P>(B))
@@ -468,9 +715,32 @@ int launch_plan_perlane(const void* tau, const void* y0, const void* f0,
                         const double* b_err, const double* c_mid,
                         const void* consts, int n_consts,
                         const void* sample_consts, int smem_consts,
-                        void* stream) {
-  if constexpr (P::kSegments > 1) {
+                        void* tile_work, long tile_bytes, void* stream) {
+  if constexpr (P::kCouplings > 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  } else if constexpr (P::kTierDots > 0) {
+    // K5's tile engine: kTileRows samples a block in lockstep.
+    if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 ||
+        D != P::kDim || P::kOutRows != D || max_steps < 1 ||
+        group != kTileThreads || !tile_work ||
+        tile_bytes < plan_tile_bytes<P>(B, sizeof(T)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const Tableau<T> tab =
+        make_tableau<T>(stages, order, fsal, c, a, b_sol, b_err, c_mid);
+    const PerlaneScalars<T> sc = make_perlane_scalars<T>(
+        rtol, atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,
+        T_out, B, D);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto rhs = PlanTileRhs<T, P>::make(consts, sample_consts, tile_work, B,
+                                       kTileThreads / kWarpSize, kTileRows);
+    rhs.spb_ = kTileRows;
+    rhs.rest = 0;
+    if (rhs.tt.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = launch_plan_tier_pack<T, P>(consts, tile_work, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(launch_rk_perlane_tile<T>(
+        tau, y0, f0, dt0, out, lane_stats, stats, work, work_size, rhs,
+        rhs.tile_smem(), tab, sc, st));
   } else {
     if (stages < 2 || stages > kMaxStages || T_out < 1 || B < 1 ||
         D != P::kDim || P::kOutRows != D || max_steps < 1)
@@ -636,13 +906,13 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
       const double* c_mid, const void* consts, int n_consts,                \
       const void* sample_consts, int smem_consts, void* gwork,              \
       long gwork_bytes, int n_blocks, void* meta, void* coef, int dense_S,  \
-      void* stream) {                                                       \
+      void* tile_work, long tile_bytes, void* stream) {                     \
     return tfd::launch_plan_solve<TYPE, tfd::Plan>(                         \
         tau, y0, f0, out, stats, work, T_out, B, D, threads, dt0, rtol,     \
         atol, dt_min, sign, safety, ifactor, dfactor, max_steps, valid,     \
         stages, order, fsal, c, a, b_sol, b_err, c_mid, consts, n_consts,   \
         sample_consts, smem_consts, gwork, gwork_bytes, n_blocks, meta,     \
-        coef, dense_S, stream);                                             \
+        coef, dense_S, tile_work, tile_bytes, stream);                      \
   }
 #define TFD_PLAN_FIXED_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \
@@ -651,11 +921,11 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
       int B, int D, int group, double sign, int valid, int stages,          \
       const double* c, const double* a, const double* b_sol,                \
       const void* consts, int n_consts, const void* sample_consts,          \
-      int smem_consts, void* stream) {                                       \
+      int smem_consts, void* tile_work, long tile_bytes, void* stream) {    \
     return tfd::launch_plan_fixed<TYPE, tfd::Plan>(                         \
         grid, tau, y0, f0, out, stats, work, work_size, G, T_out, B, D,     \
         group, sign, valid, stages, c, a, b_sol, consts, n_consts,          \
-        sample_consts, smem_consts, stream);                                 \
+        sample_consts, smem_consts, tile_work, tile_bytes, stream);         \
   }
 #define TFD_PLAN_PERLANE_ENTRY(NAME, TYPE)                                   \
   extern "C" int NAME(                                                       \
@@ -668,12 +938,13 @@ int launch_plan_hyper(const void* grid, const void* tau, const void* y0,
       const double* c, const double* a, const double* b_sol,                \
       const double* b_err, const double* c_mid, const void* consts,         \
       int n_consts, const void* sample_consts, int smem_consts,             \
-      void* stream) {                                                        \
+      void* tile_work, long tile_bytes, void* stream) {                     \
     return tfd::launch_plan_perlane<TYPE, tfd::Plan>(                       \
         tau, y0, f0, dt0, out, lane_stats, stats, work, work_size, T_out, B,\
         D, group, rtol, atol, dt_min, sign, safety, ifactor, dfactor,        \
         max_steps, valid, stages, order, fsal, c, a, b_sol, b_err, c_mid,   \
-        consts, n_consts, sample_consts, smem_consts, stream);               \
+        consts, n_consts, sample_consts, smem_consts, tile_work, tile_bytes,\
+        stream);                                                             \
   }
 #define TFD_PLAN_ADAMS_ENTRY(NAME, TYPE)                                     \
   extern "C" int NAME(                                                       \

@@ -257,6 +257,280 @@ cudaError_t launch_rk_perlane_group(const void* tau, const void* y0,
   return cudaGetLastError();
 }
 
+// K5's tile engine: the block's kTileRows samples in lockstep, for the
+// right-hand sides whose evaluation is a tile of rows at once (K4's tiers:
+// the MLP's batch route, csrc/perlane_solve_kernel.cu MlpTileRhs, and a
+// plan cut at its tiered dots, csrc/plan_rhs.cuh PlanTileRhs). A tensor-core
+// tile needs many samples' rows in the same stage, where the group kernel
+// above walks each sample's attempts on its own.
+//
+// Each sample keeps the group kernel's own t, dt, accept decision, counters
+// and status (in the block's shared memory, one slot a sample); an attempt
+// runs for the samples still active (status 0, t < t_end), the stages of
+// all of them evaluated together as one tile. A sample that has finished
+// keeps its last row in the tile: a product's output row depends only on
+// its own input row, and each output's sum runs over k in order
+// (csrc/dot_tiers.cuh), so a masked row changes no other sample's bits,
+// counters or status, and every sample takes the steps a solo solve takes.
+// Every per-sample and per-element operation is the group kernel's, in its
+// order: the stages and combines a (sample, feature) element a thread, the
+// error norm one thread a sample summing its features in order from 0. The
+// block stops when its last sample is done.
+//
+// The state, FSAL derivative, compensation, increment, midpoint, end
+// derivative, squared errors and stages lie in the workspace feature-major
+// ([row][B]: (S + 6) B D values); the output times stay in global memory,
+// K4's tiles take the shared memory. Its right-hand side provides Shared,
+// Local, setup(sh, lo, smem, row0, nr) (the block's rows, no barrier),
+// put_elem(sh, lo, b, d, t, v) (sample b's input d at its time t),
+// eval_batch(sh, lo, row0, nr) (after a barrier, by every thread; returns
+// after one, sample b's outputs at b * ld() + d) and ld().
+constexpr int kTileRows = 16;
+constexpr int kTileThreads = 256;
+
+template <typename T>
+inline long perlane_tile_values(int S, int B, int D) {
+  return long(S + 6) * B * D;
+}
+
+template <typename T, class Rhs>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    rk_perlane_tile_kernel(const T* __restrict__ tau,
+                           const T* __restrict__ y0g,
+                           const T* __restrict__ f0g,
+                           const T* __restrict__ dt0g, T* __restrict__ out,
+                           int* __restrict__ lane_stats,
+                           int* __restrict__ stats, T* __restrict__ work,
+                           Rhs rhs, Tableau<T> tab_in, PerlaneScalars<T> sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename Rhs::Shared rsh;
+  __shared__ Tableau<T> tab;
+  // A slot a sample: its time, step, attempt's end and length, next step,
+  // cursor and counters, and the attempt's decisions.
+  __shared__ T s_t[kTileRows], s_dt[kTileRows], s_t1[kTileRows],
+      s_dth[kTileRows];
+  __shared__ int s_oi[kTileRows], s_oi_new[kTileRows], s_nfe[kTileRows],
+      s_nacc[kTileRows], s_nrej[kTileRows], s_status[kTileRows],
+      s_act[kTileRows], s_accept[kTileRows];
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int T_out = sc.T_out, B = sc.B, D = sc.D;
+  const int row0 = blockIdx.x * kTileRows;
+  const int nr = B - row0 < kTileRows ? B - row0 : kTileRows;  // samples
+  typename Rhs::Local lo;
+  rhs.setup(rsh, lo, smem_raw, row0, kTileRows);
+  if (tid == 0) tab = tab_in;
+  const T t_start = tau[0];
+  const T t_end = tau[T_out - 1];
+  if (tid < kTileRows) {
+    s_t[tid] = t_start;
+    s_dt[tid] = tid < nr ? dt0g[row0 + tid] : T(1);
+    s_oi[tid] = 1;
+    s_nfe[tid] = s_nacc[tid] = s_nrej[tid] = 0;
+    s_status[tid] = (t_end > t_start && sc.valid) ? 0 : 3;
+  }
+  __syncthreads();
+
+  const int S = tab.S;
+  const long BD = long(B) * D;
+  auto at = [B](int row, int b) -> long { return long(row) * B + b; };
+  T* const Y = work;          // [D][B] state
+  T* const F = Y + BD;        // FSAL derivative
+  T* const C = F + BD;        // Kahan compensation
+  T* const DEL = C + BD;      // delta of the attempt
+  T* const MID = DEL + BD;    // dense-output midpoint
+  T* const F1 = MID + BD;     // f(t1, y1), tableaus not FSAL
+  T* const E = F1 + BD;       // squared scaled errors
+  T* const K = E + BD;        // [S - 1][D][B] stages 1 .. S - 1
+  const T sign = sc.sign;
+  const int n_el = nr * D;    // (sample, feature) elements, features fastest
+
+  // Row 0 is y0; the rest stays zero unless an accepted step writes it.
+  for (int e = tid; e < n_el; e += nth) {
+    const int s = e / D, d = e - s * D, b = row0 + s;
+    const long i = long(b) * D + d;
+    out[i] = y0g[i];
+    for (int o = 1; o < T_out; ++o) out[long(o) * BD + i] = T(0);
+    Y[at(d, b)] = y0g[i];
+    F[at(d, b)] = f0g[i];
+    C[at(d, b)] = T(0);
+  }
+
+  for (;;) {
+    // Each sample's attempt (the group kernel's loop head).
+    bool mine = false;
+    if (tid < nr) {
+      const T t = s_t[tid], dt = s_dt[tid];
+      mine = t < t_end && s_status[tid] == 0;
+      s_act[tid] = mine;
+      if (mine) {
+        const T rem = t_end - t;
+        const T dt_eff = d_min(dt, rem);
+        const T t1 = dt >= rem ? t_end : t + dt_eff;
+        s_t1[tid] = t1;
+        s_dth[tid] = t1 - t;
+      }
+    }
+    if (!__syncthreads_or(mine)) break;
+
+    auto kd = [&](int d, int b) {
+      return [&, d, b](int j) {
+        return j == 0 ? F[at(d, b)] : K[at((j - 1) * D + d, b)];
+      };
+    };
+    // Stages: the active samples' rows of the tile.
+    for (int i = 1; i < S; ++i) {
+      for (int e = tid; e < n_el; e += nth) {
+        const int s = e / D, d = e - s * D, b = row0 + s;
+        if (!s_act[s]) continue;
+        const T dth = s_dth[s];
+        const T ti = s_t[s] + tab.c[i] * dth;
+        rhs.put_elem(rsh, lo, b, d, sign * ti,
+                     stage_value(tab, i, dth, Y[at(d, b)], kd(d, b)));
+      }
+      __syncthreads();
+      const T* fo = rhs.eval_batch(rsh, lo, row0, kTileRows);
+      const long ld = rhs.ld();
+      for (int e = tid; e < n_el; e += nth) {
+        const int s = e / D, d = e - s * D, b = row0 + s;
+        if (s_act[s]) K[at((i - 1) * D + d, b)] = sign * fo[long(b) * ld + d];
+      }
+    }
+    // The combines and each feature's squared scaled error.
+    for (int e = tid; e < n_el; e += nth) {
+      const int s = e / D, d = e - s * D, b = row0 + s;
+      if (!s_act[s]) continue;
+      const T y0 = Y[at(d, b)];
+      T delta, err, ymid;
+      combine_value(tab, s_dth[s], y0, kd(d, b), delta, err, ymid);
+      const T y1 = y0 + delta;
+      const T scale = sc.atol + sc.rtol * d_max(d_abs(y0), d_abs(y1));
+      const T esc = err / scale;
+      E[at(d, b)] = esc * esc;
+      DEL[at(d, b)] = delta;
+      MID[at(d, b)] = ymid;
+    }
+    __syncthreads();
+    // Each sample's error over its D features in feature order, and its
+    // decision, by the thread of its slot.
+    bool any_acc = false;
+    if (tid < nr && s_act[tid]) {
+      const int b = row0 + tid;
+      T ss = T(0);
+      bool bad = false;
+      for (int d = 0; d < D; ++d) {
+        ss = ss + E[at(d, b)];
+        bad = bad || !d_finite(Y[at(d, b)] + DEL[at(d, b)]);
+      }
+      const T ratio = d_sqrt(ss / T(D));
+      const bool finite = d_finite(ss) && !bad;
+      const bool accept = (ratio <= T(1)) && finite;
+      const T fac = controller_factor(ratio, finite, accept, sc.safety,
+                                      sc.ifactor, sc.dfactor, tab.order);
+      const T t1 = s_t1[tid];
+      int oi_new = s_oi[tid];
+      if (accept)
+        while (oi_new < T_out && tau[oi_new] <= t1) ++oi_new;
+      s_accept[tid] = accept;
+      s_oi_new[tid] = oi_new;
+      // The next step from the clamped attempted one (the group kernel's
+      // dt_next), kept in s_dth until the counters are updated.
+      s_dth[tid] = s_dth[tid] * fac;
+      any_acc = accept;
+    }
+    any_acc = __syncthreads_or(any_acc);
+    if (any_acc && !tab.fsal) {
+      // The end derivative of the accepting samples (counted in evals on
+      // every attempt).
+      for (int e = tid; e < n_el; e += nth) {
+        const int s = e / D, d = e - s * D, b = row0 + s;
+        if (s_act[s] && s_accept[s])
+          rhs.put_elem(rsh, lo, b, d, sign * s_t1[s],
+                       Y[at(d, b)] + DEL[at(d, b)]);
+      }
+      __syncthreads();
+      const T* fo = rhs.eval_batch(rsh, lo, row0, kTileRows);
+      const long ld = rhs.ld();
+      for (int e = tid; e < n_el; e += nth) {
+        const int s = e / D, d = e - s * D, b = row0 + s;
+        if (s_act[s] && s_accept[s])
+          F1[at(d, b)] = sign * fo[long(b) * ld + d];
+      }
+    }
+    if (any_acc) {
+      for (int e = tid; e < n_el; e += nth) {
+        const int s = e / D, d = e - s * D, b = row0 + s;
+        if (!(s_act[s] && s_accept[s])) continue;
+        const T f1 = tab.fsal ? K[at((S - 2) * D + d, b)] : F1[at(d, b)];
+        const T t = s_t[s], t1 = s_t1[s];
+        accept_value(tab, Y[at(d, b)], C[at(d, b)], DEL[at(d, b)],
+                     MID[at(d, b)], F[at(d, b)], f1, t, t1, t1 - t, tau,
+                     s_oi[s], s_oi_new[s], out, BD, long(b) * D + d);
+        F[at(d, b)] = f1;
+      }
+    }
+    __syncthreads();
+    // The sample's counters and status rules (the group kernel's order).
+    if (tid < nr && s_act[tid]) {
+      const bool accept = s_accept[tid];
+      const T dt_next = s_dth[tid];
+      if (accept) {
+        s_oi[tid] = s_oi_new[tid];
+        s_t[tid] = s_t1[tid];
+      }
+      s_nfe[tid] += tab.evals;
+      s_nacc[tid] += accept ? 1 : 0;
+      s_nrej[tid] += accept ? 0 : 1;
+      int status = s_status[tid];
+      if (!accept && dt_next < sc.dt_min && status == 0) status = 2;
+      if (s_nacc[tid] + s_nrej[tid] >= sc.max_steps && s_t[tid] < t_end &&
+          status == 0)
+        status = 1;
+      s_status[tid] = status;
+      s_dt[tid] = dt_next;
+    }
+    __syncthreads();
+  }
+  if (tid < nr) {
+    const int b = row0 + tid;
+    lane_stats[b] = s_nfe[tid];
+    lane_stats[B + b] = s_nacc[tid];
+    lane_stats[2 * B + b] = s_nrej[tid];
+    lane_stats[3 * B + b] = s_status[tid];
+    atomicAdd(stats, s_nfe[tid]);
+    atomicAdd(stats + 1, s_nacc[tid]);
+    atomicAdd(stats + 2, s_nrej[tid]);
+    atomicMax(stats + 3, s_status[tid]);
+  }
+}
+
+// K5's tile launch: a block of kTileThreads threads a kTileRows-sample tile,
+// `smem` bytes of dynamic shared memory (the right-hand side's tiles);
+// `work` holds perlane_tile_values values.
+template <typename T, class Rhs>
+cudaError_t launch_rk_perlane_tile(const void* tau, const void* y0,
+                                   const void* f0, const void* dt0, void* out,
+                                   void* lane_stats, void* stats, void* work,
+                                   long work_size, const Rhs& rhs,
+                                   size_t smem, const Tableau<T>& tab,
+                                   const PerlaneScalars<T>& sc,
+                                   cudaStream_t stream) {
+  if (work_size < perlane_tile_values<T>(tab.S, sc.B, sc.D))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(stats, 0, 4 * sizeof(int), stream);
+  if (e != cudaSuccess) return e;
+  auto kernel = rk_perlane_tile_kernel<T, Rhs>;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<(sc.B + kTileRows - 1) / kTileRows, kTileThreads, smem, stream>>>(
+      static_cast<const T*>(tau), static_cast<const T*>(y0),
+      static_cast<const T*>(f0), static_cast<const T*>(dt0),
+      static_cast<T*>(out), static_cast<int*>(lane_stats),
+      static_cast<int*>(stats), static_cast<T*>(work), rhs, tab, sc);
+  return cudaGetLastError();
+}
+
 // The per-sample controllers' scalars from the host's doubles.
 template <typename T>
 PerlaneScalars<T> make_perlane_scalars(double rtol, double atol,

@@ -71,13 +71,16 @@ tensor; on the CPU the kernel's plain PyTorch version runs instead.
   the user's tensors through autograd's graph of the packed constants.
   `odeint_adjoint(options={'fuse': True})` routes here.
 
+The dot-precision tiers ('mixed', 'bf16') run wherever the reference
+runs them: K2, K8 and K5 (its tile engine, 16 samples a block in
+lockstep) on the MLP routes of `solve_mlp_spec`, and K2, K8 and K5 at the
+plan's dots of `solve_fused` (the plan's tile route, `ops/cuda_plan.py`).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue 1
-item): the dot-precision tiers with
-`per_sample=True` (item 20), and the multi-card `axis_name` /
-`global_batch` coupling (item 18); `solve_conv_ode_sharded` has no
-counterpart here yet (item 18), nor has `cnf_log_prob_auto` (item 16, the
-plan CNF); `solve_fused` takes no reduced dot_precision yet (item 16), nor
-`solve_hyper` a coupled plan (queue 2 item 3). A coupled plan (a batch
+item): the multi-card `axis_name` / `global_batch` coupling (item 18);
+`solve_conv_ode_sharded` has no counterpart here yet (item 18), nor has
+`cnf_log_prob_auto` (item 16, the plan CNF), nor `solve_hyper` a coupled
+plan (queue 2 item 3). A coupled plan (a batch
 reduction such as `y.mean(0)`) runs on one block of K2, K8, K10 or K11,
 and trains on K3 or K9 the same way. `solve_fused(dense_output=True)` keeps K2's
 per-step interpolants (a `DenseOutput`), which drive
@@ -357,7 +360,8 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
     step (2 extra evaluations, else 1, counted in nfe); rtol, atol,
     first_step and max_num_steps apply, num_steps and step_size do not.
     spec.matmul and spec.dot_precision give each layer its tier
-    (`ops/cuda_kernels.layer_tiers`); K2 and K8 run the reduced tiers.
+    (`ops/cuda_kernels.layer_tiers`); K2, K8 and K5 run the reduced tiers
+    (K5 on its tile engine, 16 samples a block in lockstep).
     per_sample=True runs K5 instead: every sample takes its own steps from
     its own HNW first step (`select_initial_step_per_sample`, one batched
     probe), with max_num_steps counting each sample's attempts; stats sum
@@ -386,11 +390,6 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
         raise ValueError("per_sample applies to adaptive RK methods only")
     tiers = layer_tiers([tuple(W.shape) for W, _ in weights], spec.matmul,
                         spec.dot_precision)
-    if per_sample and any(tier != "highest" for tier in tiers):
-        raise NotImplementedError(
-            f"dot_precision={spec.dot_precision!r} with per_sample=True is "
-            "not ported yet: ROADMAP.md queue 1 item 20 (the tiers in the "
-            "per-sample kernel K5)")
     y0, t = _check_spec_inputs(y0, t)
     dtype, dev = y0.dtype, y0.device
     if t.shape[0] == 1:
@@ -448,7 +447,8 @@ def solve_mlp_spec(spec: MLPSpec, weights, y0: Tensor, t, *, rtol=1e-6,
                                      max_steps=max_steps, **net)
     elif per_sample:
         out, stats, lane = mlp_solve_perlane(*args, method=method,
-                                             max_steps=max_steps, **net)
+                                             max_steps=max_steps,
+                                             tiers=tiers, **net)
         nfe, nacc, nrej, status = stats.tolist()
         return SolveResult(
             out, SolverStats(nfe + extra_nfe * y0.shape[0], nacc, nrej,
@@ -1233,6 +1233,12 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
     `solve_mlp_spec` does; a reduced dot_precision raises ValueError there,
     as in the reference.
 
+    dot_precision ('mixed', 'bf16'): K4's tier at every dot of the plan
+    that `matmul` selects (reference `fast.py:844-859`); the plan then runs
+    on its tile route (`cuda_plan.plan_solve`, `plan_solve_fixed`): K2,
+    K8, or K5's tile engine with per_sample. 'bf16' is fixed-grid only and
+    the Adams kernels take no tier (ValueError, as in the reference).
+
     dense_output=True (adaptive RK methods, one controller): K2 also keeps
     every accepted step's interpolant in a buffer of S = max_num_steps
     (default 1024) rows, and the step budget is S, so running out of rows
@@ -1248,9 +1254,6 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
     meeting at each coupling: K2 (adaptive), K8 (fixed grid), K10 (both
     fixed-step Adams methods) or K11 ('adams'); with per_sample it raises
     ValueError, as in the reference.
-
-    Not ported yet (NotImplementedError naming the ROADMAP item): a reduced
-    dot_precision (K4 at the plan sites, item 16).
     """
     y0 = torch.as_tensor(y0)
     squeeze = False
@@ -1282,10 +1285,11 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
             f"dot_precision={dot_precision!r} is not supported on the Adams "
             "kernels (their corrector/order machinery assumes f32-accurate "
             "dots); use an RK method")
-    if dot_precision != "highest":
-        raise NotImplementedError(
-            f"solve_fused(dot_precision={dot_precision!r}): K4's tiers at "
-            "the plan's dots are not ported yet: ROADMAP.md queue 1 item 16")
+    if dot_precision == "bf16" and not fixed:
+        raise ValueError(
+            "dot_precision='bf16' is fixed-grid serving only (its ~2e-3 "
+            "single-pass noise poisons the embedded error estimate); use "
+            "'mixed' for adaptive methods")
     if dense_output and (fixed or adams):
         raise _pb.FusionError(
             "dense_output applies to adaptive methods only (the generic "
@@ -1326,7 +1330,8 @@ def solve_fused(func, y0: Tensor, t, *, rtol=1e-6, atol=1e-8,
         step_size=step_size, per_sample=per_sample, max_order=max_order,
         max_iters=max_iters,
         emit_dense=((int(max_num_steps) if max_num_steps is not None
-                     else 1024) if dense_output else 0))
+                     else 1024) if dense_output else 0),
+        dot_precision=dot_precision)
     return result(out, stats, extra)
 
 
@@ -1342,14 +1347,16 @@ def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
                 max_num_steps, first_step, safety=0.9, ifactor=10.0,
                 dfactor=0.2, num_steps=None, step_size=None,
                 per_sample=False, max_order=None, max_iters=4,
-                emit_dense=0):
+                emit_dense=0, dot_precision="highest"):
     """The forward solve of a captured plan (one K2, K5, K8, K10 or K11
     launch): f0 and, for an adaptive method or VCABM without first_step,
     the HNW first step by the plan's plain version (2 extra evaluations,
     else 1, counted in nfe). y0 [B, D] on its device, t the host times.
     Returns (out [T, B, D], SolverStats, extra): extra is the lane
     SolverStats with per_sample, with emit_dense = S > 0 K2's DenseOutput
-    (its S rows; the step budget is S, as in the reference), else None."""
+    (its S rows; the step budget is S, as in the reference), else None.
+    dot_precision is the kernel's tier at the plan's dots; f0 and the first
+    step come from the plan at 'highest', as the reference's do."""
     dtype, dev = y0.dtype, y0.device
     fixed = method in tableaus.FIXED_TABLEAUS_BY_NAME
     sign = torch.tensor(1.0 if t[-1] >= t[0] else -1.0, dtype=dtype)
@@ -1363,7 +1370,8 @@ def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
         grid = _fixed_grid_tau(tau, t, num_steps, step_size)
         if fixed:
             out, stats = cuda_plan.plan_solve_fixed(
-                plan, packed, y0, tau, grid, float(sign), f0, method=method)
+                plan, packed, y0, tau, grid, float(sign), f0, method=method,
+                dot_precision=dot_precision)
         else:
             out, stats = cuda_plan.plan_solve_adams(
                 plan, packed, y0, tau, grid, rtol, atol, float(sign), f0,
@@ -1397,7 +1405,8 @@ def _plan_solve(plan, packed, y0: Tensor, t: Tensor, *, rtol, atol, method,
         return (out, SolverStats(nfe + extra_nfe, nacc, nrej, status),
                 None)
     kw = dict(method=method, safety=safety, ifactor=ifactor,
-              dfactor=dfactor, max_steps=max_steps)
+              dfactor=dfactor, max_steps=max_steps,
+              dot_precision=dot_precision)
     if per_sample:
         out, stats, lane = cuda_plan.plan_solve(
             plan, packed, y0, tau, dt0, rtol, atol, float(sign), f0,

@@ -51,10 +51,10 @@ HEADERS = ("grid_meet.cuh", "lane_group.h", "mlp_rk.cuh", "mlp_group_aug.cuh",
            "rk_adjoint.cuh", "rk_adams.cuh", "rk_vcabm.cuh")
 #: The headers a plan library compiles against.
 PLAN_HEADERS = ("grid_meet.cuh", "lane_group.h", "mlp_rk.cuh",
-                "rk_solve.cuh", "rk_fixed.cuh", "rk_perlane.cuh",
-                "rk_adjoint.cuh", "rk_adams.cuh", "rk_vcabm.cuh",
-                "rk_hyper.cuh", "plan_ops.cuh", "plan_rhs.cuh",
-                "plan_aug.cuh")
+                "dot_tiers.cuh", "rk_solve.cuh", "rk_fixed.cuh",
+                "rk_perlane.cuh", "rk_adjoint.cuh", "rk_adams.cuh",
+                "rk_vcabm.cuh", "rk_hyper.cuh", "plan_ops.cuh",
+                "plan_rhs.cuh", "plan_aug.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
@@ -123,7 +123,7 @@ _SOLVE_PERLANE_ARGS = ([_P] * 9                             # tensors
                        + [_D] * 7 + [_I, _I]                # scalars
                        + [_I, _P, _I, _I, _I, _I]           # network
                        + [_I, _I, _I, _P, _P, _P, _P, _P]   # tableau
-                       + [_I]                               # route
+                       + [_I, _P, _P, _L]                   # route, tiers
                        + [_P])                              # stream
 _ADJOINT_PERLANE_ARGS = ([_P] * 12                          # tensors
                          + [_L]                             # work size
@@ -161,18 +161,21 @@ _SOLVE_VCABM_ARGS = ([_P] * 7                               # tensors
                      + [_P])                                # stream
 
 _PLAN_CONSTS = [_P, _I, _P, _I]                            # consts .. smem
+#: A tiled plan's workspace (csrc/plan_rhs.cuh PlanTileRhs): null and 0
+#: at 'highest'.
+_PLAN_TILE = [_P, _L]
 _PLAN_ARGS = {
     "solve": ([_P] * 6 + [_I] * 4 + [_D] * 8 + [_I, _I]    # tau .. valid
               + [_I, _I, _I, _P, _P, _P, _P, _P]           # tableau
               + _PLAN_CONSTS + [_P, _L, _I]               # grid
-              + [_P, _P, _I, _P]),                         # dense, stream
+              + [_P, _P, _I] + _PLAN_TILE + [_P]),        # dense, stream
     "fixed": ([_P] * 7 + [_L] + [_I] * 5 + [_D, _I]        # grid .. valid
               + [_I, _P, _P, _P]                           # tableau
-              + _PLAN_CONSTS + [_P]),
+              + _PLAN_CONSTS + _PLAN_TILE + [_P]),
     "perlane": ([_P] * 8 + [_L] + [_I] * 4 + [_D] * 7      # tau .. dfactor
                 + [_I, _I]                                 # .. valid
                 + [_I, _I, _I, _P, _P, _P, _P, _P]         # tableau
-                + _PLAN_CONSTS + [_P]),
+                + _PLAN_CONSTS + _PLAN_TILE + [_P]),
     "adams": ([_P] * 7 + [_L] + [_I] * 6 + [_D] * 3      # grid .. atol
               + [_I] * 4 + [_P, _P]                       # max_order .. am
               + _PLAN_CONSTS + [_P, _L, _I, _P, _P]),     # grid .. stream

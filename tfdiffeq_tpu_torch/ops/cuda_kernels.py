@@ -14,17 +14,19 @@ the main path (sources in `tfdiffeq_tpu_torch/csrc/`, built by `_build.py`):
   the CNF right-hand side [f; -div f] with the exact divergence;
   `_cnf_net_plain` is its plain version.
 - K4, the dot-precision tiers (csrc/dot_tiers.cuh), replaces `_mixed_dot`
-  and the tiers of `_make_net` (pallas_kernels.py:361-439) inside K2 and
-  K8: `dot_tier_plain` is its plain version, `layer_tiers` the reference's
-  per-layer choice (`_layer_uses_mxu`), and `tier_net`
+  and the tiers of `_make_net` (pallas_kernels.py:361-439) inside K2, K8
+  and K5 (its tile engine), and at a plan's tiered dots in the same three
+  (`ops/cuda_plan.py`): `dot_tier_plain` is its plain version,
+  `layer_tiers` the reference's per-layer choice (`_layer_uses_mxu`), and
+  `tier_net`
   (csrc/tier_net_kernel.cu) one batch-wide evaluation with K4 alone.
 
 The MLP kernels (K2, K3, K5, K6, K8, K9) take one of three routes
 (`_route`): narrow (every layer at most NARROW_WIDTH wide and the weights in
 shared memory, the main path), wide (layers up to MAX_WIDTH, the weights
-read from global memory) and, for K2 and K8 with a reduced tier, batch (a
-stage evaluated batch-wide, layer by layer, the tier layers on the tensor
-cores in float32).
+read from global memory) and, for K2, K8 and K5 with a reduced tier,
+batch (a stage evaluated batch-wide, layer by layer, the tier layers on
+the tensor cores in float32; K5's on its tile engine).
 
 Each wrapper takes the kernel's plain PyTorch version (`*_plain`, beside it
 here) only for tensors on the CPU, where there is no kernel; a CUDA tensor
@@ -43,8 +45,9 @@ plain version takes that sum in the same order for the same n_blocks
 
 `dopri5_mlp_step_launches` and `mlp_solve_launches` count kernel launches
 (never plain-version calls), `cnf_solve_launches` the K2 launches with K7's
-forward among them; `dot_tier_launches` counts the K2 and K8
-solves that ran K4's tier layers, and `tier_net_launches` the calls of K4
+forward among them; `dot_tier_launches` counts the solves that ran K4's
+tier layers (K2, K8 and K5, on the MLP routes and a plan's tile route),
+and `tier_net_launches` the calls of K4
 alone (`tier_net`); `reset_launch_counts()` zeroes them. A solve on the
 batch route is two launches, the bf16 weight pack and the solve, and
 counts one.

@@ -25,10 +25,10 @@ takes every sample's steps exactly as its plain version does.
 
 `mlp_solve_perlane_launches` and `mlp_perlane_adjoint_solve_launches` count
 wrapper calls that launched their kernel; `reset_launch_counts()` zeroes
-them. Both take the narrow or wide route of `cuda_kernels._route`. Not
-ported: `rhs='cnf'` (K7), the reference's dot-precision tiers on the
-per-sample solve (`fast.solve_mlp_spec` refuses them), and the TPU machinery
-of the reference (lane padding, `n_blocks` grid blocks).
+them. Both take the narrow or wide route of `cuda_kernels._route`; with a
+reduced dot-precision tier K5 takes its tile engine (`mlp_solve_perlane`).
+Not ported: `rhs='cnf'` (K7) and the TPU machinery of the reference (lane
+padding, `n_blocks` grid blocks).
 """
 
 from __future__ import annotations
@@ -45,11 +45,13 @@ from . import cuda_fixed
 from .cuda_fixed import (FIXED_GROUP_THREADS, _block_sums, _group_work_size,
                          _mlp_walk_values, _solve_work_size, _widest,
                          _wt_values)
-from .cuda_kernels import (ROUTE_NARROW, _ACT_CODES, _check_activations,
-                           _check_float, _check_mlp, _controller_factor,
-                           _device_kind, _dims_arg, _net_plain, _ptr,
-                           _rk_stages, _route, _solve_setup, _stream,
-                           _tableau_args)
+from . import cuda_kernels
+from .cuda_kernels import (ROUTE_BATCH, ROUTE_NARROW, _ACT_CODES,
+                           _check_activations, _check_float, _check_mlp,
+                           _controller_factor, _device_kind, _dims_arg,
+                           _net_plain, _ptr, _rk_stages, _route,
+                           _solve_setup, _stream, _tableau_args,
+                           _tier_work_bytes, _tiers_arg)
 from .rk import interp_fit_cubic_hermite, interp_fit_quartic
 from .tableaus import TABLEAUS_BY_NAME
 
@@ -68,6 +70,12 @@ PERLANE_ADJOINT_THREADS = PERLANE_GROUP * PERLANE_THREADS
 #: on the narrow route (32 samples a block: 128 blocks of 16 warps at
 #: B = 4096) and of K8's wide group on the wide route (`perlane_group`).
 PERLANE_SOLVE_THREADS = FIXED_GROUP_THREADS
+
+#: K5's tile engine (csrc/rk_perlane.cuh kTileRows, kTileThreads): a block
+#: of TILE_THREADS threads runs TILE_ROWS samples in lockstep, the route of
+#: K4's tiers (the MLP's and a tiled plan's).
+TILE_ROWS = 16
+TILE_THREADS = 256
 
 mlp_solve_perlane_launches = 0
 mlp_perlane_adjoint_solve_launches = 0
@@ -145,15 +153,15 @@ def mlp_solve_perlane_plain(warrays: Tensor, dims, y0: Tensor, tau: Tensor,
                             input_power: int = 1, time_input: bool = False,
                             method: str = "dopri5", safety: float = 0.9,
                             ifactor: float = 10.0, dfactor: float = 0.2,
-                            max_steps: int = 2 ** 31 - 1
+                            max_steps: int = 2 ** 31 - 1, tiers=None
                             ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of K5: a host loop of attempts in which every
     active sample takes its own attempt, the others masked out (one
-    synchronisation an attempt). Same contract as `mlp_solve_perlane`,
-    except that f0 is required."""
+    synchronisation an attempt), each layer at its tier (`_net_plain`).
+    Same contract as `mlp_solve_perlane`, except that f0 is required."""
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
     raw_f = _net_plain(warrays, dims, activation, final_activation,
-                       input_power, time_input)
+                       input_power, time_input, tiers)
 
     def f(s, y):
         # Canonical dynamics g(tau, y) = sign * f(sign * tau, y); s is a
@@ -268,12 +276,20 @@ def mlp_solve_perlane(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
                       input_power: int = 1, time_input: bool = False,
                       method: str = "dopri5", safety: float = 0.9,
                       ifactor: float = 10.0, dfactor: float = 0.2,
-                      max_steps: int = 2 ** 31 - 1
+                      max_steps: int = 2 ** 31 - 1, tiers=None
                       ) -> Tuple[Tensor, Tensor, Tensor]:
     """Whole-solve fused adaptive RK for a general MLP neural ODE with a
     step controller per sample, one kernel launch: each sample's stages,
     error norm (the RMS over its D features), controller decisions,
     counters, status and dense-output writes.
+
+    tiers: each layer's dot precision (`cuda_kernels.layer_tiers`); with a
+    reduced one K5 takes its tile route (csrc/rk_perlane.cuh
+    rk_perlane_tile_kernel: TILE_ROWS samples a block in lockstep, each
+    under its own controller, every stage evaluated for the block's tile
+    by K4, the tier layers on the tensor cores in float32), two launches
+    (the bf16 weight pack and the solve) that `mlp_solve_perlane_launches`
+    and `cuda_kernels.dot_tier_launches` count once each.
 
     warrays/dims: from `pack_mlp_weights`; the network, `method` and the
     controller constants as in `cuda_kernels.mlp_solve`. y0: [B, D]; tau:
@@ -305,7 +321,7 @@ def mlp_solve_perlane(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
     kw = dict(activation=activation, final_activation=final_activation,
               input_power=input_power, time_input=time_input, method=method,
               safety=safety, ifactor=ifactor, dfactor=dfactor,
-              max_steps=max_steps)
+              max_steps=max_steps, tiers=tiers)
     if _device_kind(y0, f0, warrays) == "cpu":
         return mlp_solve_perlane_plain(warrays, dims, y0, tau, dt0, rtol,
                                        atol, sign, f0=f0, **kw)
@@ -316,8 +332,9 @@ def mlp_solve_perlane(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
                         f"{dtype}")
     B, D = y0.shape
     T = tau.shape[0]
-    n_w = _check_mlp("mlp_solve_perlane", warrays, dims, D, time_input)
-    route = _route("mlp_solve_perlane", dims, n_w, y0.element_size(),
+    n_w = _check_mlp("mlp_solve_perlane", warrays, dims, D, time_input,
+                     tiers)
+    route = _route("mlp_solve_perlane", dims, n_w, y0.element_size(), tiers,
                    input_values=T)
     for name, x in (("y0", y0), ("f0", f0), ("warrays", warrays)):
         _check_float(name, x, dtype)
@@ -334,9 +351,19 @@ def mlp_solve_perlane(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
     out = torch.empty((T, B, D), dtype=dtype, device=y0.device)
     stats = torch.empty(4, dtype=torch.int32, device=y0.device)
     lane = torch.empty((4, B), dtype=torch.int32, device=y0.device)
-    group = perlane_group(route)
-    n_work = _solve_work_size(_perlane_slot_values(S, D, dims), B, group,
-                              _wt_values(route, n_w))
+    tile = route == ROUTE_BATCH
+    batch_work = None
+    if tile:
+        group, threads = 0, TILE_THREADS
+        n_work = (S + 6) * B * D
+        batch_work = torch.empty(
+            _tier_work_bytes(dims, -(-B // TILE_ROWS) * TILE_ROWS,
+                             y0.element_size()),
+            dtype=torch.uint8, device=y0.device)
+    else:
+        group, threads = perlane_group(route), PERLANE_SOLVE_THREADS
+        n_work = _solve_work_size(_perlane_slot_values(S, D, dims), B, group,
+                                  _wt_values(route, n_w))
     work = torch.empty(n_work, dtype=dtype, device=y0.device)
     lib = _build.library()
     fn = (lib.tfd_mlp_solve_perlane_f32 if dtype == torch.float32
@@ -344,16 +371,19 @@ def mlp_solve_perlane(warrays: Tensor, dims, y0: Tensor, tau: Tensor, dt0,
     with torch.cuda.device(y0.device):
         err = fn(_ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(dt0_d), _ptr(warrays),
                  _ptr(out), _ptr(lane), _ptr(stats), _ptr(work), n_work, T,
-                 B, D, PERLANE_SOLVE_THREADS, group, float(rtol),
+                 B, D, threads, group, float(rtol),
                  float(atol), float(dt_min),
                  float(sign), float(safety), float(ifactor), float(dfactor),
                  int(min(max_steps, 2 ** 31 - 1)), int(valid), len(dims),
                  _dims_arg(dims), _ACT_CODES[activation],
                  _ACT_CODES[final_activation], int(input_power),
                  int(time_input), S, tab.order, int(tab.fsal), c, a, b_sol,
-                 b_err, c_mid, route, _stream(y0.device))
+                 b_err, c_mid, route, _tiers_arg(tiers),
+                 _ptr(batch_work) if tile else None,
+                 batch_work.numel() if tile else 0, _stream(y0.device))
     _build.check(err, "mlp_solve_perlane launch")
     mlp_solve_perlane_launches += 1
+    cuda_kernels.dot_tier_launches += tile
     return out, stats, lane
 
 

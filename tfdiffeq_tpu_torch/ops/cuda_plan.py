@@ -98,7 +98,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from . import _build, plan_codegen
+from . import _build, cuda_kernels, plan_codegen
 from .cuda_adams import (ADAMS_THREADS, VCABM_THREADS, _adams_grid,
                          _adams_nfe, adams_slot_values, adams_solve_plain,
                          adams_work_size, group_layout, on_card,
@@ -108,16 +108,18 @@ from .cuda_fixed import (FIXED_ADJOINT_THREADS, FIXED_GROUP,
                          _fixed_work_size, _solve_work_size,
                          fixed_adjoint_plain, fixed_solve_plain,
                          hermite_drain_plain)
-from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS, _check_blocks,
-                           _check_float, _device_kind, _increasing, _ptr,
-                           _shares_work, _solve_setup, _stream,
-                           _tableau_args, adaptive_solve_plain, solve_blocks)
+from .cuda_kernels import (MAX_WEIGHT_BYTES, SOLVE_THREADS, TILE_ROWS,
+                           _check_blocks, _check_float, _device_kind,
+                           _increasing, _ptr, _shares_work, _solve_setup,
+                           _stream, _tableau_args, adaptive_solve_plain,
+                           solve_blocks)
 from .cuda_perlane import (PERLANE_ADJOINT_THREADS, PERLANE_GROUP,
-                           PERLANE_THREADS, _group_work_size, _lane_setup,
-                           perlane_adjoint_plain, perlane_solve_plain)
+                           PERLANE_THREADS, TILE_THREADS, _group_work_size,
+                           _lane_setup, perlane_adjoint_plain,
+                           perlane_solve_plain)
 from .plan_adjoint import aug_terms, split_consts
-from .plan_bridge import (FusedPlan, check_plan_adjoint, eval_plan_host,
-                          plan_uses_t)
+from .plan_bridge import (FusedPlan, check_dot_precision, check_plan_adjoint,
+                          eval_plan_host, plan_uses_t, tiered_dots)
 from .tableaus import FIXED_TABLEAUS_BY_NAME, TABLEAUS_BY_NAME
 from ..solvers.adams import GAMMA_STAR
 from ..solvers.fixed_adams import (BASHFORTH_TABLE, MOULTON_TABLE,
@@ -175,27 +177,54 @@ def reset_launch_counts() -> None:
 
 
 @functools.lru_cache(maxsize=256)
-def source(plan, host: str) -> str:
+def source(plan, host: str, dot_precision: str = "highest") -> str:
     """The generated CUDA source of `plan` on `host` (`plan_codegen.HOSTS`,
-    `AUG_HOSTS`; for 'hyper' the pair (dynamics, correction net))."""
-    return plan_codegen.cuda_source(plan, host)
+    `AUG_HOSTS`; for 'hyper' the pair (dynamics, correction net)), at
+    `dot_precision` (a reduced tier: the tile route of
+    `plan_codegen.TIER_HOSTS`)."""
+    return plan_codegen.cuda_source(plan, host, dot_precision)
 
 
-def build(pairs: Sequence[Tuple[FusedPlan, str]]) -> list:
-    """Build the libraries of several (plan, host) pairs at once (one nvcc
-    each, in parallel; a structure built before costs nothing)."""
-    return _build.plan_libraries([(source(p, h), h) for p, h in pairs])
+def build(pairs: Sequence[Tuple]) -> list:
+    """Build the libraries of several (plan, host) or (plan, host,
+    dot_precision) triples at once (one nvcc each, in parallel; a structure
+    built before costs nothing)."""
+    return _build.plan_libraries([(source(*p), p[1]) for p in pairs])
 
 
 def plan_rhs(plan: FusedPlan, packed: Sequence[Tensor], sign,
-             threads: int = SOLVE_THREADS):
+             threads: int = SOLVE_THREADS, dot_precision: str = "highest"):
     """The canonical right-hand side g(s, y) = sign * f(sign * s, y) of a
     plan on the batch-major [B, D] layout, f by `eval_plan_host` (K14's
-    plain version). s is 0-d, or a [B, 1] column of per-sample times."""
+    plain version, K4's tier at the tiered dots). s is 0-d, or a [B, 1]
+    column of per-sample times."""
     def g(s, y):
         s = s.reshape(1, -1) if s.ndim else s
-        return sign * eval_plan_host(plan, packed, sign * s, y, threads)
+        return sign * eval_plan_host(plan, packed, sign * s, y, threads,
+                                     dot_precision)
     return g
+
+
+def tile_work_bytes(plan: FusedPlan, dot_precision: str, B: int,
+                    itemsize: int) -> int:
+    """csrc/plan_rhs.cuh plan_tile_bytes: a tiled plan's workspace (the
+    tiered dots' bf16 weights, then the stage inputs, the rows' times, the
+    outputs, the live rows and the reduced values)."""
+    lay = plan_codegen.layout(plan, dot_precision)
+    return (-(-2 * lay.w16_values // 256) * 256 + itemsize * (
+        B * (plan.dim + 1 + plan.out_rows + lay.live_rows) + lay.red_values))
+
+
+def _tile_args(plan: FusedPlan, dot_precision: str, y0: Tensor, host: str):
+    """The tile route's workspace and its size (None and 0 at 'highest');
+    records the route in `last_route`."""
+    if not tiered_dots(plan, dot_precision):
+        return None, 0
+    work = torch.empty(tile_work_bytes(plan, dot_precision, y0.shape[0],
+                                       y0.element_size()),
+                       dtype=torch.uint8, device=y0.device)
+    last_route[host] = f"tile/{dot_precision}"
+    return work, work.numel()
 
 
 def _fn(lib, host: str, dtype):
@@ -326,25 +355,29 @@ def plan_solve_plain(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                      method: str = "dopri5", safety: float = 0.9,
                      ifactor: float = 10.0, dfactor: float = 0.2,
                      max_steps: int = 2 ** 31 - 1, per_sample: bool = False,
-                     n_blocks: int = None, emit_dense: int = 0):
+                     n_blocks: int = None, emit_dense: int = 0,
+                     dot_precision: str = "highest"):
     """Plain PyTorch version of `plan_solve`, on y0's device: K2's engine
     (`cuda_kernels.adaptive_solve_plain`, the error sum in the order of a
     grid of `n_blocks` blocks; None: the kernel's grid, `plan_blocks`) or
     with per_sample K5's (`cuda_perlane.perlane_solve_plain`), the plan
-    evaluated by `eval_plan`. Same contract."""
+    evaluated by `eval_plan` at `dot_precision`. Same contract."""
     _check_dense(emit_dense, per_sample)
     tab = TABLEAUS_BY_NAME[method]
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
-    g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
+    g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn,
+                 dot_precision=dot_precision)
     kw = dict(safety=safety, ifactor=ifactor, dfactor=dfactor,
               max_steps=max_steps)
     if per_sample:
         return perlane_solve_plain(g, y0, f0, tau, dt0, rtol, atol, tab,
                                    **kw)
+    tiled = bool(tiered_dots(plan, dot_precision))
     return adaptive_solve_plain(
         g, y0, f0, tau, dt0, rtol, atol, tab, threads=SOLVE_THREADS,
-        n_blocks=n_blocks or plan_blocks(plan, y0.shape[0], y0.device),
-        emit_dense=emit_dense, **kw)
+        n_blocks=n_blocks or plan_blocks(plan, y0.shape[0], y0.device,
+                                         tiled),
+        unit=TILE_ROWS if tiled else 1, emit_dense=emit_dense, **kw)
 
 
 def _check_dense(emit_dense: int, per_sample: bool) -> None:
@@ -358,11 +391,13 @@ def _check_dense(emit_dense: int, per_sample: bool) -> None:
                          "sequence")
 
 
-def plan_blocks(plan: FusedPlan, B: int, device) -> int:
-    """The grid of K2, K3 or K11 for a plan: `cuda_kernels.solve_blocks`,
-    or one block for a coupled plan (its evaluation meets the block inside
-    a stage)."""
-    return 1 if plan.batch_coupled else solve_blocks(B, device)
+def plan_blocks(plan: FusedPlan, B: int, device, tiled: bool = False) -> int:
+    """The grid of K2, K3 or K11 for a plan: `cuda_kernels.solve_blocks`
+    (`tiled`: K2's tile route, one block at most a tile of TILE_ROWS
+    samples), or one block for a coupled plan (its evaluation meets the
+    block inside a stage)."""
+    return 1 if plan.batch_coupled else solve_blocks(
+        B, device, TILE_ROWS if tiled else 1)
 
 
 def _plan_grid(plan: FusedPlan, n_blocks, what: str) -> None:
@@ -379,7 +414,8 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                method: str = "dopri5", safety: float = 0.9,
                ifactor: float = 10.0, dfactor: float = 0.2,
                max_steps: int = 2 ** 31 - 1, per_sample: bool = False,
-               n_blocks: int = None, emit_dense: int = 0):
+               n_blocks: int = None, emit_dense: int = 0,
+               dot_precision: str = "highest"):
     """Whole-solve adaptive RK with the plan as right-hand side, one launch.
 
     packed: `plan_bridge.pack_consts`' output; y0, f0: [B, D] state and its
@@ -401,7 +437,16 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     (((ca x + cb) x + cc) x + df0) x + y0, zero past the last. The
     reference ties the step budget to the rows (max_steps = S); so do the
     callers here. per_sample refuses it (ValueError).
+
+    dot_precision ('mixed', 'bf16'): K4's tier at every dot whose `mxu`
+    flag is set (reference jaxpr_bridge.py:979-983). The plan then runs on
+    its tile route (csrc/plan_rhs.cuh PlanTileRhs, `last_route` 'tile/...'):
+    K2 over 16-row tiles, each block its share (`plan_blocks` with tiles),
+    a coupled plan on one block; with per_sample K5's tile engine, 16
+    samples a block in lockstep. The bf16 weight pack is a launch of its
+    own; `cuda_kernels.dot_tier_launches` counts the solve once.
     """
+    check_dot_precision(dot_precision)
     if method not in TABLEAUS_BY_NAME:
         raise ValueError(f"unknown method {method!r}; available: "
                          f"{sorted(TABLEAUS_BY_NAME)}")
@@ -422,10 +467,13 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                                 f0, method=method, safety=safety,
                                 ifactor=ifactor, dfactor=dfactor,
                                 max_steps=max_steps, per_sample=per_sample,
-                                n_blocks=n_blocks, emit_dense=emit_dense)
+                                n_blocks=n_blocks, emit_dense=emit_dense,
+                                dot_precision=dot_precision)
 
     global plan_solve_launches, plan_perlane_launches
-    consts, sample_consts = _inputs(plan, packed, y0, f0, per_sample)
+    tiled = bool(tiered_dots(plan, dot_precision))
+    consts, sample_consts = _inputs(plan, packed, y0, f0,
+                                    per_sample and not tiled)
     dtype, dev = y0.dtype, y0.device
     B, D = y0.shape
     T = tau.shape[0]
@@ -439,42 +487,56 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
     steps = int(min(max_steps, 2 ** 31 - 1))
     isz = y0.element_size()
     if per_sample:
-        # K5's group walk: the constants and their transposed copy.
+        # K5's group walk: the constants and their transposed copy; or its
+        # tile engine with the constants in global memory.
         host = "perlane"
-        lib = build([(plan, host)])[0]
-        n_c = 2 * lay.n_consts
-        smem = _consts_route(host, n_c, T, isz)
-        last_group[host] = PERLANE_GROUP
+        lib = build([(plan, host, dot_precision)])[0]
+        tile, tile_bytes = _tile_args(plan, dot_precision, y0, host)
+        if tiled:
+            n_c, smem, group = lay.n_consts, False, TILE_THREADS
+            n_work = (S + 6) * B * D
+        else:
+            n_c, group = 2 * lay.n_consts, PERLANE_GROUP
+            smem = _consts_route(host, n_c, T, isz)
+            n_work = perlane_group_work(plan, S, B)
+        last_group[host] = group
         # Named, so that they live until the launch has read them.
         tau_h, dt_min, dt0_d, valid = _lane_setup(tau, dt0, B, dtype, dev)
         tau_d = tau_h.to(dev)
         lane = torch.empty((4, B), dtype=torch.int32, device=dev)
-        n_work = perlane_group_work(plan, S, B)
         work = torch.empty(n_work, dtype=dtype, device=dev)
         with torch.cuda.device(dev):
             err = _fn(lib, host, dtype)(
                 _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(dt0_d), _ptr(out),
                 _ptr(lane), _ptr(stats), _ptr(work), n_work, T, B, D,
-                PERLANE_GROUP, float(rtol), float(atol), float(dt_min),
+                group, float(rtol), float(atol), float(dt_min),
                 float(sign), float(safety), float(ifactor), float(dfactor),
                 steps, int(valid), S, tab.order, int(tab.fsal), c, a, b_sol,
                 b_err, c_mid, _ptr(consts), n_c, _ptr(sample_consts),
-                int(smem), _stream(dev))
+                int(smem), _ptr(tile) if tiled else None, tile_bytes,
+                _stream(dev))
         _check(lib, err, "plan_solve(per_sample=True) launch")
         plan_perlane_launches += 1
+        cuda_kernels.dot_tier_launches += tiled
         return out, stats, lane
 
     host = "solve"
-    lib = build([(plan, host)])[0]
-    smem = _consts_route(host, lay.n_consts, SOLVE_THREADS, isz)
+    lib = build([(plan, host, dot_precision)])[0]
+    tile, tile_bytes = _tile_args(plan, dot_precision, y0, host)
+    smem = (False if tiled
+            else _consts_route(host, lay.n_consts, SOLVE_THREADS, isz))
     tau_h, dt_min, dt0, valid = _solve_setup(tau, dt0, dtype)
     tau_d = tau_h.to(dev)
     n_work = (S + 5) * B * D
-    if lay.segments > 1:
+    if lay.segments > 1 and not tiled:
         # The batch route's rows (csrc/plan_rhs.cuh PlanBatchRhs).
         n_work += batch_rows(plan, B)
     work = torch.empty(n_work, dtype=dtype, device=dev)
-    nb = n_blocks or plan_blocks(plan, B, dev)
+    nb = n_blocks or plan_blocks(plan, B, dev, tiled)
+    if tiled and nb > -(-B // TILE_ROWS):
+        raise ValueError(f"K2's tile route takes at most one block a tile "
+                         f"of {TILE_ROWS} samples ({-(-B // TILE_ROWS)} at "
+                         f"B = {B}), got n_blocks={nb}")
     gwork = _shares_work(nb, 2, dtype, dev)
     meta = coef = None
     if emit_dense:
@@ -493,9 +555,10 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
             lay.n_consts, _ptr(sample_consts), int(smem), _ptr(gwork),
             gwork.numel(), nb, _ptr(meta) if emit_dense else None,
             _ptr(coef) if emit_dense else None, int(emit_dense),
-            _stream(dev))
+            _ptr(tile) if tiled else None, tile_bytes, _stream(dev))
     _check(lib, err, "plan_solve launch")
     plan_solve_launches += 1
+    cuda_kernels.dot_tier_launches += tiled
     if emit_dense:
         return out, stats, meta, coef
     return out, stats
@@ -503,46 +566,68 @@ def plan_solve(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
 
 def plan_solve_fixed_plain(plan: FusedPlan, packed: Sequence[Tensor],
                            y0: Tensor, tau: Tensor, grid: Tensor, sign,
-                           f0: Tensor, *, method: str = "rk4"
+                           f0: Tensor, *, method: str = "rk4",
+                           dot_precision: str = "highest"
                            ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of `plan_solve_fixed`, on y0's device: K8's
-    engine (`cuda_fixed.fixed_solve_plain`) with `eval_plan`, a coupled
-    plan's batch sums in the order of K8's one block."""
+    engine (`cuda_fixed.fixed_solve_plain`) with `eval_plan` at
+    `dot_precision`, a coupled plan's batch sums in the order of K8's one
+    block."""
     sgn = torch.as_tensor(sign, dtype=y0.dtype).to(y0.device)
-    g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn)
+    # A coupled plan's meets fold over its one block's threads: the tile
+    # route's TILE_THREADS, else PLAN_BLOCK_THREADS.
+    threads = (TILE_THREADS if tiered_dots(plan, dot_precision)
+               else PLAN_BLOCK_THREADS)
+    g = plan_rhs(plan, [p.to(y0.device, y0.dtype) for p in packed], sgn,
+                 threads, dot_precision)
     return fixed_solve_plain(g, y0, f0, tau, grid,
                              FIXED_TABLEAUS_BY_NAME[method])
 
 
 def plan_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
                      tau: Tensor, grid: Tensor, sign, f0: Tensor, *,
-                     method: str = "rk4") -> Tuple[Tensor, Tensor]:
+                     method: str = "rk4", dot_precision: str = "highest"
+                     ) -> Tuple[Tensor, Tensor]:
     """Whole-solve fixed-grid RK (euler, midpoint, rk4, rk4_38) with the
     plan as right-hand side, one K8 launch. tau: [T] canonical output
     times; grid: [G] canonical step grid; f0: the signed derivative at
     grid[0]. Returns (out [T, B, D], stats [4] int32), as
     `cuda_fixed.mlp_solve_fixed` does. A coupled plan runs on one block of
-    PLAN_BLOCK_THREADS threads (the batch-wide route)."""
+    PLAN_BLOCK_THREADS threads (the batch-wide route). A reduced
+    dot_precision takes the tile route (csrc/plan_rhs.cuh PlanTileRhs in
+    rk_fixed_kernel): a block of TILE_THREADS threads a 16-row tile, K4's
+    product at each tiered dot, a coupled plan's whole batch on one such
+    block (its meets fold over TILE_THREADS threads, as the plain version's
+    batch sums do)."""
     if method not in FIXED_TABLEAUS_BY_NAME:
         raise ValueError(f"unknown fixed-grid method {method!r}; available: "
                          f"{sorted(FIXED_TABLEAUS_BY_NAME)}")
+    check_dot_precision(dot_precision)
     tab = FIXED_TABLEAUS_BY_NAME[method]
     if _device_kind(y0, f0) == "cpu":
         return plan_solve_fixed_plain(plan, packed, y0, tau, grid, sign, f0,
-                                      method=method)
+                                      method=method,
+                                      dot_precision=dot_precision)
 
     global plan_fixed_launches
     coupled = plan.batch_coupled
+    tiled = bool(tiered_dots(plan, dot_precision))
     # K8's group walk reads the constants and their transposed copy.
-    consts, sample_consts = _inputs(plan, packed, y0, f0, not coupled)
+    consts, sample_consts = _inputs(plan, packed, y0, f0,
+                                    not coupled and not tiled)
     dtype, dev = y0.dtype, y0.device
     B, D = y0.shape
     T, G = tau.shape[0], grid.shape[0]
     host = "fixed"
-    lib = build([(plan, host)])[0]
+    lib = build([(plan, host, dot_precision)])[0]
     lay = plan_codegen.layout(plan)
     S = tab.stages
-    if coupled:
+    tile, tile_bytes = _tile_args(plan, dot_precision, y0, host)
+    if tiled:
+        n_c, smem, group = lay.n_consts, False, TILE_THREADS
+        n_work = (S + 3) * B * D
+        last_group[host] = 1
+    elif coupled:
         # One block: the meets' scratch beside the constants; the grid and
         # the output times after them where they fit, else read from global
         # memory (csrc/plan_rhs.cuh launch_plan_fixed).
@@ -570,9 +655,11 @@ def plan_solve_fixed(plan: FusedPlan, packed: Sequence[Tensor], y0: Tensor,
             _ptr(grid_d), _ptr(tau_d), _ptr(y0), _ptr(f0), _ptr(out),
             _ptr(stats), _ptr(work), n_work, G, T, B, D, group,
             float(sign), int(valid), S, c, a, b_sol, _ptr(consts), n_c,
-            _ptr(sample_consts), int(smem), _stream(dev))
+            _ptr(sample_consts), int(smem), _ptr(tile) if tiled else None,
+            tile_bytes, _stream(dev))
     _check(lib, err, "plan_solve_fixed launch")
     plan_fixed_launches += 1
+    cuda_kernels.dot_tier_launches += tiled
     return out, stats
 
 

@@ -43,7 +43,8 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
-from .cuda_kernels import SOLVE_THREADS, _layer_uses_mxu, _tree_sum
+from .cuda_kernels import (SOLVE_THREADS, _layer_uses_mxu, _tree_sum,
+                           dot_tier_plain)
 
 Tensor = torch.Tensor
 
@@ -1034,13 +1035,18 @@ def _row_fold(v: Tensor, fn) -> Tensor:
 
 
 def eval_plan(plan: FusedPlan, cvals: Sequence[Tensor], t, y: Tensor,
-              threads: int = SOLVE_THREADS) -> list:
+              threads: int = SOLVE_THREADS,
+              dot_precision: str = "highest") -> list:
     """Walk the plan on y [D, B] (feature-major) at time t (0-d, or a
     [1, B] row of per-sample times); returns the environment (value id ->
     0-d tensor or [rows, 1 or B] block). cvals: `pack_consts`' output.
     A batch sum adds in the order of a block of `threads` threads (K2's).
     Literals become 0-d tensors on y's device, so that PyTorch divides
-    and compares as the kernels do."""
+    and compares as the kernels do. dot_precision ('mixed', 'bf16') is K4's
+    tier at every dot whose `mxu` flag is set (`cuda_kernels.
+    dot_tier_plain`, reference jaxpr_bridge.py:979-983); every other dot
+    sums its inputs in order."""
+    check_dot_precision(dot_precision)
     dev, dtype = y.device, y.dtype
     B = y.shape[1]
     lit = {}
@@ -1124,9 +1130,12 @@ def eval_plan(plan: FusedPlan, cvals: Sequence[Tensor], t, y: Tensor,
             s = red(v, dim=1, keepdim=True)
             env[out] = red(s).reshape(()) if ins[4] else s
         elif op == "dot":
-            _, _, a_id, cidx, din, dout, _mxu = ins
+            _, _, a_id, cidx, din, dout, mxu = ins
             wT = cvals[cidx]
             h = _materialize(env[a_id], din, 1)
+            if mxu and dot_precision != "highest":
+                env[out] = dot_tier_plain(wT, h.t(), dot_precision).t()
+                continue
             acc = None
             for i in range(din):
                 term = wT[:, i:i + 1] * h[i:i + 1, :]
@@ -1138,13 +1147,29 @@ def eval_plan(plan: FusedPlan, cvals: Sequence[Tensor], t, y: Tensor,
 
 
 def eval_plan_host(plan: FusedPlan, cvals: Sequence[Tensor], t,
-                   y: Tensor, threads: int = SOLVE_THREADS) -> Tensor:
+                   y: Tensor, threads: int = SOLVE_THREADS,
+                   dot_precision: str = "highest") -> Tensor:
     """f(t, y) of the plan on the batch-major y [B, D]: [B, out_rows] (the
     counterpart of `eval_plan_xla`, jaxpr_bridge.py:1013; the front ends'
     f0, first-step probe and the plain kernels' right-hand side). t is 0-d,
-    or a [1, B] row of per-sample times."""
-    env = eval_plan(plan, cvals, t, y.t(), threads)
+    or a [1, B] row of per-sample times; dot_precision as in
+    `eval_plan`."""
+    env = eval_plan(plan, cvals, t, y.t(), threads, dot_precision)
     return _materialize(env[plan.out_id], plan.out_rows, y.shape[0]).t()
+
+
+def check_dot_precision(dot_precision: str) -> None:
+    if dot_precision not in ("highest", "bf16", "mixed"):
+        raise ValueError(f"dot_precision must be 'highest', 'bf16' or "
+                         f"'mixed', got {dot_precision!r}")
+
+
+def tiered_dots(plan: FusedPlan, dot_precision: str) -> int:
+    """The dots a plan runs at a reduced tier: those whose `mxu` flag is
+    set, none at 'highest'."""
+    if dot_precision == "highest":
+        return 0
+    return sum(1 for ins in plan.instrs if ins[0] == "dot" and ins[6])
 
 
 def _logistic(x: Tensor) -> Tensor:

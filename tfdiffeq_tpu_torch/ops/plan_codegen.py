@@ -73,6 +73,10 @@ HYPER_HOST = "hyper"
 #: and K9). The group walks of K5, K6 and K12 take uncoupled plans only.
 COUPLED_HOSTS = ("solve", "fixed", "adams", "vcabm", "adjoint",
                  "fixed_adjoint")
+#: The hosts that run a plan at a reduced dot_precision, over tiles of 16
+#: rows with K4's product at each tiered dot (csrc/plan_rhs.cuh
+#: PlanTileRhs): K2, K8 and K5's tile engine.
+TIER_HOSTS = ("solve", "fixed", "perlane")
 
 _UN_FN = {"exp": "p_exp", "log": "p_log", "log1p": "p_log1p",
           "tanh": "p_tanh", "logistic": "p_logistic", "sin": "p_sin",
@@ -92,11 +96,14 @@ _BIN_LOGIC = {"and": "&&", "or": "||", "xor": "!="}
 class PlanLayout:
     """What a launch sizes from the plan: the flat constants' count, the
     segments, the live rows of B values and the reduced values
-    (csrc/plan_rhs.cuh PlanBatchRhs' workspace)."""
+    (csrc/plan_rhs.cuh PlanBatchRhs' workspace), and at a reduced tier the
+    tiered dots and their bf16 weights (PlanTileRhs)."""
     n_consts: int
     segments: int
     live_rows: int
     red_values: int
+    tier_dots: int = 0
+    w16_values: int = 0
 
 
 def value_rows(plan: FusedPlan) -> List[int]:
@@ -191,26 +198,36 @@ def flat_consts(plan: FusedPlan, packed: Sequence[Tensor], B: int,
 
 
 class _Gen:
-    """Emits the segments of one plan."""
+    """Emits the segments of one plan. With a reduced `dot_precision`, every
+    dot whose `mxu` flag is set also ends a segment (a tile cut): the
+    segment stores the dot's input rows to the live rows, the host's tile
+    runs K4's product on them (csrc/dot_tiers.cuh plan_tile_dot) into the
+    dot's own live rows, and later segments load its result from there."""
 
-    def __init__(self, plan: FusedPlan):
+    def __init__(self, plan: FusedPlan, dot_precision: str = "highest"):
         self.plan = plan
+        self.tier = dot_precision
         self.rows = value_rows(plan)
         self.const_off, self.n_consts, self.sample_off, _ = \
             _const_layout(plan)
         self.const_of_vid = {vid: ci
                              for ci, vid in enumerate(plan.const_val_ids)}
-        # Segments and couplings.
+        # Segments and the cuts that end them: couplings and tiered dots.
         self.segs: List[List[tuple]] = [[]]
-        self.couplings: List[tuple] = []
+        self.cuts: List[tuple] = []
         for ins in plan.instrs:
-            if ins[0] in ("bsum", "bmax"):
-                self.couplings.append(ins)
+            if ins[0] in ("bsum", "bmax") or (
+                    ins[0] == "dot" and ins[6] and dot_precision != "highest"):
+                self.cuts.append(ins)
                 self.segs.append([])
             else:
                 self.segs[-1].append(ins)
+        self.couplings = [ins for ins in self.cuts if ins[0] != "dot"]
+        self.tdots = [ins for ins in self.cuts if ins[0] == "dot"]
+        self.dot_out = {ins[1] for ins in self.tdots}
         # Where each computed value is defined: its segment; a coupling's
-        # result lies in `red` from the next segment on.
+        # result lies in `red` from the next segment on, a tiered dot's in
+        # its live rows.
         self.seg_of: Dict[int, int] = {}
         self.red_off: Dict[int, int] = {}
         self.cin_row: List[int] = []
@@ -218,35 +235,53 @@ class _Gen:
         for k, seg in enumerate(self.segs):
             for ins in seg:
                 self.seg_of[ins[1]] = k
-        for k, ins in enumerate(self.couplings):
+        for k, ins in enumerate(self.cuts):
+            if ins[0] == "dot":
+                self.seg_of[ins[1]] = k
+                continue
             r, to_scalar = ins[3], ins[4]
             self.red_off[ins[1]] = red + (r if to_scalar else 0)
             red += r + (1 if to_scalar else 0)
         self.red_values = red
-        # Values read in a later segment than their own get live rows.
+        # Values read in a later segment than their own get live rows (a
+        # tiered dot's result always).
         uses: Dict[int, set] = {}
         for k, seg in enumerate(self.segs):
             for ins in seg:
                 for vid in _operand_ids(ins):
                     uses.setdefault(vid, set()).add(k)
-        for k, ins in enumerate(self.couplings):
-            if ins[2][0] == "v":
-                uses.setdefault(ins[2][1], set()).add(k)
+        for k, ins in enumerate(self.cuts):
+            a = ("v", ins[2]) if ins[0] == "dot" else ins[2]
+            if a[0] == "v":
+                uses.setdefault(a[1], set()).add(k)
         uses.setdefault(plan.out_id, set()).add(len(self.segs) - 1)
         self.live_row: Dict[int, int] = {}
         live = 0
-        for vid in sorted(uses):
-            if vid in self.seg_of and any(k > self.seg_of[vid]
-                                          for k in uses[vid]):
+        for vid in sorted(set(uses) | self.dot_out):
+            if vid in self.dot_out or (
+                    vid in self.seg_of and any(k > self.seg_of[vid]
+                                               for k in uses[vid])):
                 self.live_row[vid] = live
                 live += self.rows[vid]
         self.loads = [sorted(v for v in self.live_row
-                             if k in uses[v] and self.seg_of[v] < k)
+                             if k in uses.get(v, ()) and self.seg_of[v] < k)
                       for k in range(len(self.segs))]
-        for ins in self.couplings:
+        for ins in self.cuts:
             self.cin_row.append(live)
-            live += ins[3]
+            live += ins[4] if ins[0] == "dot" else ins[3]
         self.live_rows = live
+        # The tiered dots' bf16 weights, [pad16(dout)][pad16(din)] each.
+        self.w16_off, n16 = [], 0
+        for ins in self.tdots:
+            self.w16_off.append(n16)
+            n16 += _pad16(ins[5]) * _pad16(ins[4])
+        self.n_w16 = n16
+
+    def loop(self, n: int, stmt: str) -> str:
+        """`_loop`, a long loop of a tiled plan unrolled by 8: its segments
+        run a thread a sample, and the unrolled loads of the live rows keep
+        several in flight."""
+        return _loop(n, stmt, 8 if self.tdots else 1)
 
     # ---- expressions ----
     def ref(self, a, i: str) -> str:
@@ -278,21 +313,24 @@ class _Gen:
         for vid in self.loads[k]:
             r, row = self.rows[vid], self.live_row[vid]
             emit(f"  T v{vid}[{r}];")
-            emit(_loop(r, f"v{vid}[i] = live[long({row} + i) * B + b];"))
+            emit(self.loop(r, f"v{vid}[i] = live[long({row} + i) * B + b];"))
         for ins in self.segs[k]:
             self.instr(ins, emit)
         for vid in sorted(self.live_row):
-            if self.seg_of[vid] == k:
+            if self.seg_of[vid] == k and vid not in self.dot_out:
                 r, row = self.rows[vid], self.live_row[vid]
-                emit(_loop(r, f"live[long({row} + i) * B + b] = "
+                emit(self.loop(r, f"live[long({row} + i) * B + b] = "
                               f"v{vid}[i];"))
-        if k < len(self.couplings):
-            ins = self.couplings[k]
-            emit(_loop(ins[3], f"live[long({self.cin_row[k]} + i) * B + b] "
-                               f"= {self.ref(ins[2], 'i')};"))
+        if k < len(self.cuts):
+            ins = self.cuts[k]
+            a, r = ((("v", ins[2]), ins[4]) if ins[0] == "dot"
+                    else (ins[2], ins[3]))
+            emit(self.loop(r, f"live[long({self.cin_row[k]} + i) * B + b] "
+                          f"= {self.ref(a, 'i')};"))
         if k == len(self.segs) - 1:
             out = ("v", self.plan.out_id)
-            emit(_loop(self.plan.out_rows, f"out[i] = {self.ref(out, 'i')};"))
+            emit(self.loop(self.plan.out_rows,
+                           f"out[i] = {self.ref(out, 'i')};"))
         body = "\n".join(L)
         return (f"template <typename T>\n"
                 f"__host__ __device__ __forceinline__ void {prefix}_seg{k}(\n"
@@ -375,7 +413,7 @@ class _Gen:
             off = 0
             for a in ins[2]:
                 r = 1 if a[0] == "l" else self.rows[a[1]]
-                emit(_loop(r, f"v{out}[{off} + i] = {self.ref(a, 'i')};"))
+                emit(self.loop(r, f"v{out}[{off} + i] = {self.ref(a, 'i')};"))
                 off += r
         elif op == "reduce":
             for line in self._reduce_lines(ins):
@@ -400,7 +438,7 @@ class _Gen:
             emit(f"    v{out}[o] = acc;")
             emit("  }")
         else:
-            emit(_loop(R, f"v{out}[i] = {self.elem(ins)};"))
+            emit(self.loop(R, f"v{out}[i] = {self.elem(ins)};"))
 
     def group_instr(self, ins) -> List["_GOp"]:
         """The instruction in the group walk: the same expression for
@@ -445,7 +483,11 @@ class _Gen:
 
     def meet(self) -> str:
         cases = []
-        for k, ins in enumerate(self.couplings):
+        for k, ins in enumerate(self.cuts):
+            if ins[0] == "dot":
+                cases.append(f"    case {k}: m.dot({self.tdots.index(ins)});"
+                             " break;")
+                continue
             kind = 0 if ins[0] == "bsum" else (2 if ins[5] else 1)
             off = self.red_off[ins[1]] - (ins[3] if ins[4] else 0)
             cases.append(f"    case {k}: m({kind}, {self.cin_row[k]}, "
@@ -460,7 +502,28 @@ class _Gen:
 
     def layout(self) -> PlanLayout:
         return PlanLayout(self.n_consts, len(self.segs), self.live_rows,
-                          self.red_values)
+                          self.red_values, len(self.tdots), self.n_w16)
+
+    def tier_members(self) -> str:
+        """The tiered dots' table (plan_ops.cuh TierDot) and the tier."""
+        cases = "".join(
+            f"      case {j}: return TierDot{{{ins[4]}, {ins[5]}, "
+            f"{self.const_off[ins[3]]}, {self.w16_off[j]}, "
+            f"{self.cin_row[self.cuts.index(ins)]}, "
+            f"{self.live_row[ins[1]]}}};\n"
+            for j, ins in enumerate(self.tdots))
+        code = {"highest": 0, "mixed": 1, "bf16": 2}[self.tier]
+        width = max([_pad16(max(ins[4], ins[5])) for ins in self.tdots],
+                    default=16)
+        return (f"  static constexpr int kCouplings = {len(self.couplings)};\n"
+                f"  static constexpr int kTierDots = {len(self.tdots)};\n"
+                f"  static constexpr int kTier = {code};\n"
+                f"  static constexpr long kW16 = {self.n_w16};\n"
+                f"  static constexpr int kTierWidth = {width};\n"
+                "  __host__ __device__ static TierDot tier_dot(int j) {\n"
+                "    switch (j) {\n" + cases +
+                "      default: return TierDot{0, 0, 0, 0, 0, 0};\n"
+                "    }\n  }\n")
 
     def group(self, prefix: str):
         """The forward group walk of an uncoupled plan (`_group_walk`):
@@ -507,7 +570,7 @@ class _Gen:
             "      int B, T* live, const T* red, T* out) {\n"
             "    switch (k) {\n" + calls + "\n"
             "      default: break;\n    }\n  }\n" + self.meet() + gmembers
-            + "};\n\n}  // namespace tfd\n")
+            + self.tier_members() + "};\n\n}  // namespace tfd\n")
 
 
 # ---------------------------------------------------------------------------
@@ -1052,10 +1115,15 @@ _UNROLL_DOT = 4096
 _UNROLL_ROWS = 128
 
 
-def _loop(n: int, stmt: str) -> str:
+def _pad16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _loop(n: int, stmt: str, long_unroll: int = 1) -> str:
     if n == 1:
         return "  { const int i = 0; (void)i; " + stmt + " }"
-    unroll = "#pragma unroll" if n <= _UNROLL_ROWS else "#pragma unroll 1"
+    unroll = ("#pragma unroll" if n <= _UNROLL_ROWS
+              else f"#pragma unroll {long_unroll}")
     return f"{unroll}\n  for (int i = 0; i < {n}; ++i) {stmt}"
 
 
@@ -1196,8 +1264,8 @@ _ENTRY = {"solve": "TFD_PLAN_SOLVE_ENTRY(tfd_plan_solve_{t}, {ct})",
                            "tfd_plan_fixed_adjoint_{t}, {ct})"}
 
 
-def layout(plan: FusedPlan) -> PlanLayout:
-    return _Gen(plan).layout()
+def layout(plan: FusedPlan, dot_precision: str = "highest") -> PlanLayout:
+    return _Gen(plan, dot_precision).layout()
 
 
 def aug_layout(plan: FusedPlan) -> AugLayout:
@@ -1221,13 +1289,20 @@ def _entries(host: str) -> str:
                      for t, ct in (("f32", "float"), ("f64", "double")))
 
 
-def cuda_source(plan, host: str) -> str:
+def cuda_source(plan, host: str, dot_precision: str = "highest") -> str:
     """The CUDA source of one plan library: the plan's segments, `Plan`,
     and the float32 and float64 entry points of one host kernel
     (csrc/plan_rhs.cuh); for an adjoint host (`AUG_HOSTS`) the reverse
     walk's segments and `PlanAug` with the entry points of K3, K6 or K9
     (csrc/plan_aug.cuh); for K12 (`HYPER_HOST`) `plan` is the pair
-    (dynamics, correction net), generated as `Plan` and `PlanG`."""
+    (dynamics, correction net), generated as `Plan` and `PlanG`. A reduced
+    `dot_precision` cuts the plan at its tiered dots (`_Gen`) for the
+    tile routes of `TIER_HOSTS`; the tier is part of the source, so a
+    tiered and a 'highest' plan of one structure are two libraries."""
+    if dot_precision != "highest" and (host == HYPER_HOST
+                                       or host in AUG_HOSTS):
+        raise ValueError(f"a reduced dot_precision runs on the hosts "
+                         f"{TIER_HOSTS} only, not {host!r}")
     if host == HYPER_HOST:
         plan_f, plan_g = plan
         gens = (_Gen(plan_f), _Gen(plan_g))
@@ -1253,10 +1328,13 @@ def cuda_source(plan, host: str) -> str:
         raise ValueError(f"host must be one of "
                          f"{HOSTS + AUG_HOSTS + (HYPER_HOST,)}, got "
                          f"{host!r}")
-    gen = _Gen(plan)
-    if host not in COUPLED_HOSTS and len(gen.segs) > 1:
+    gen = _Gen(plan, dot_precision)
+    if host not in COUPLED_HOSTS and gen.couplings:
         raise ValueError(f"a coupled plan runs on the hosts "
                          f"{COUPLED_HOSTS} only, not {host!r}")
+    if gen.tdots and host not in TIER_HOSTS:
+        raise ValueError(f"a reduced dot_precision runs on the hosts "
+                         f"{TIER_HOSTS} only, not {host!r}")
     entries = _entries(host)
     return ("// K14: a plan generated by tfdiffeq_tpu_torch/ops/"
             "plan_codegen.py\n// for the " + host + " host "
@@ -1264,18 +1342,23 @@ def cuda_source(plan, host: str) -> str:
             + gen.body() + "\n" + entries + "\n")
 
 
-def _host_evals(plan: FusedPlan, threads: int, name: str) -> str:
+def _host_evals(plan: FusedPlan, threads: int, name: str,
+                tiled: bool = False) -> str:
     """`<name lower>_eval_f32` / `_f64`: a plain host evaluator of the
-    generated struct `name` over the whole batch."""
+    generated struct `name` over the whole batch (`tiled`: a plan cut at
+    its tiered dots, each product by `HostTileMeet`)."""
     D, R = plan.dim, plan.out_rows
     prefix = name.lower()
     evals = []
     for t, ct in (("f32", "float"), ("f64", "double")):
+        meet = (f"tfd::HostTileMeet<{ct}, tfd::{name}> m{{{{live, red, B, "
+                f"{threads}}}, c}};" if tiled
+                else f"tfd::HostMeet<{ct}> m{{live, red, B, {threads}}};")
         evals.append(f"""
 extern "C" void {prefix}_eval_{t}({ct} t, const {ct}* y, const {ct}* c,
                               const {ct}* sc, int B, {ct}* out, {ct}* live,
                               {ct}* red) {{
-  tfd::HostMeet<{ct}> m{{live, red, B, {threads}}};
+  {meet}
   for (int k = 0; k < tfd::{name}::kSegments; ++k) {{
     for (int b = 0; b < B; ++b)
       tfd::{name}::seg<{ct}>(k, t, y + long(b) * {D}, c, sc, b, B, live, red,
@@ -1286,8 +1369,8 @@ extern "C" void {prefix}_eval_{t}({ct} t, const {ct}* y, const {ct}* c,
     return "\n".join(evals) + "\n"
 
 
-_HOST_HEAD = ("#include <vector>\n#include \"plan_ops.cuh\"\n\n"
-              "namespace tfd {\n")
+_HOST_HEAD = ("#include <cstring>\n#include <vector>\n"
+              "#include \"plan_ops.cuh\"\n\nnamespace tfd {\n")
 
 
 def _host_group_evals(plan: FusedPlan) -> str:
@@ -1313,16 +1396,20 @@ extern "C" void plan_group_{t}({ct} t, const {ct}* y, const {ct}* c,
     return "\n".join(evals) + "\n"
 
 
-def host_source(plan: FusedPlan, threads: int) -> str:
+def host_source(plan: FusedPlan, threads: int,
+                dot_precision: str = "highest") -> str:
     """Host C++ of the plan's segments with a plain host evaluator, for the
     codegen tests: `plan_eval_f32` / `plan_eval_f64`(t, y [B][D], c, sc,
     B, out [B][out_rows], live, red) evaluate the whole batch, each coupling
-    reduced in the order of a K2 block of `threads` threads; for an
-    uncoupled plan also its group walk (`_host_group_evals`). Include after
-    a shim that defines __host__, __device__ and __forceinline__ empty."""
-    gen = _Gen(plan)
-    return (_HOST_HEAD + _HOST_MEET + "}  // namespace tfd\n\n"
-            + gen.body() + _host_evals(plan, threads, "Plan")
+    reduced in the order of a K2 block of `threads` threads and, at a
+    reduced `dot_precision`, each tiered dot by K4's arithmetic in input
+    order (`HostTileMeet`, the float64 tile product's); for an uncoupled
+    plan also its group walk (`_host_group_evals`). Include after a shim
+    that defines __host__, __device__ and __forceinline__ empty."""
+    gen = _Gen(plan, dot_precision)
+    return (_HOST_HEAD + _HOST_MEET + _HOST_TILE_MEET
+            + "}  // namespace tfd\n\n" + gen.body()
+            + _host_evals(plan, threads, "Plan", bool(gen.tdots))
             + (_host_group_evals(plan) if len(gen.segs) == 1 else ""))
 
 
@@ -1428,6 +1515,53 @@ struct HostMeet {
       for (int r = 1; r < rows; ++r) s = fold(kind, s, red[off + r]);
       red[off + rows] = s;
     }
+  }
+};
+"""
+
+#: A tiled plan's cuts on the host: the couplings as HostMeet, each tiered
+#: dot as K4's tier in input order (csrc/dot_tiers.cuh plan_dot_scalar):
+#: the weights and the input rounded to bf16 (nearest even, a double
+#: through float), the products and sums in T.
+_HOST_TILE_MEET = """
+inline float host_bf16(float x) {
+  unsigned u;
+  memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) == 0x7f800000u) {
+    if (u & 0x7fffffu) u |= 0x400000u;
+  } else {
+    u += 0x7fffu + ((u >> 16) & 1u);
+  }
+  u &= 0xffff0000u;
+  memcpy(&x, &u, 4);
+  return x;
+}
+template <typename T>
+T host_bf16_t(T x) { return T(host_bf16(float(x))); }
+
+template <typename T, class P>
+struct HostTileMeet : HostMeet<T> {
+  const T* c;
+  void dot(int j) {
+    const TierDot d = P::tier_dot(j);
+    const int B = this->B;
+    T* live = const_cast<T*>(this->live);
+    for (int b = 0; b < B; ++b)
+      for (int o = 0; o < d.dout; ++o) {
+        T hi = T(0), lo = T(0);
+        for (int i = 0; i < d.din; ++i) {
+          const T x = live[long(d.in_row + i) * B + b];
+          const T w = host_bf16_t(c[d.w_off + long(o) * d.din + i]);
+          const T h = host_bf16_t(x);
+          const T th = w * h;
+          hi = i == 0 ? th : hi + th;
+          if (P::kTier == 1) {
+            const T tl = w * host_bf16_t(x - h);
+            lo = i == 0 ? tl : lo + tl;
+          }
+        }
+        live[long(d.out_row + o) * B + b] = P::kTier == 1 ? hi + lo : hi;
+      }
   }
 };
 """
